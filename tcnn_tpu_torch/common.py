@@ -68,6 +68,15 @@ MAX_N_LEVELS = 128
 default_network_precision = torch.bfloat16
 
 
+def default_loss_scale(dtype) -> float:
+    """Loss scale that keeps small gradients representable: 128 for the
+    half types, 1 for fp32 (reference: common.h:240-244; the JAX package's
+    ``default_loss_scale``). Every optimizer divides it back out."""
+    if as_dtype(dtype) == torch.float32:
+        return 1.0
+    return 128.0
+
+
 def div_round_up(val: int, divisor: int) -> int:
     return (val + divisor - 1) // divisor
 

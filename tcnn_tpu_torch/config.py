@@ -1,6 +1,7 @@
 """create_from_config — the JSON entry point (port of ``tcnn_tpu.config``;
 reference: config.h:46-63). The same JSON document that drives the JAX
-package builds the PyTorch model here, on the device the caller names."""
+package builds the PyTorch model, its loss and optimizer and the trainer
+here, on the device the caller names."""
 
 from __future__ import annotations
 
@@ -24,6 +25,14 @@ class TrainableModel:
 
     def inference(self, inputs) -> torch.Tensor:
         return self.trainer.inference(inputs)
+
+    @property
+    def loss(self):
+        return self.trainer.loss
+
+    @property
+    def optimizer(self):
+        return self.trainer.optimizer
 
     @property
     def params(self) -> torch.Tensor:

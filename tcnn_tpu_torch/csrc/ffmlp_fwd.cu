@@ -34,42 +34,16 @@
 #include <mma.h>
 #include <stdint.h>
 
+#include "activations.cuh"
+
 using namespace nvcuda;
+using tcnn_act::activate;
 
 namespace {
 
 constexpr int kWarpRows = 16;
 constexpr int kMaxWarps = 8;
 constexpr size_t kMaxSmem = 232448;  // what one block may use on sm_90
-
-// Activation codes: tcnn_tpu_torch/networks/activations.py ACTIVATION_CODES.
-__device__ __forceinline__ float sigmoid_f(float x) {
-  return __fdiv_rn(1.0f, __fadd_rn(1.0f, expf(-x)));
-}
-
-__device__ __forceinline__ float activate(float x, int act) {
-  switch (act) {
-    case 0: return x;                                          // None
-    case 1: return fmaxf(x, 0.0f);                             // ReLU
-    case 2: return __fmul_rn(x, x > 0.0f ? 1.0f : 0.01f);      // LeakyReLU
-    case 3: return __fmul_rn(x, sigmoid_f(x));                 // SiLU
-    case 4: return expf(x);                                    // Exponential
-    case 5: return sinf(x);                                    // Sine
-    case 6: return sigmoid_f(x);                               // Sigmoid
-    case 7: {                                                  // Squareplus
-      const float xk = __fmul_rn(x, 10.0f);
-      const float r = sqrtf(__fadd_rn(__fmul_rn(xk, xk), 4.0f));
-      return __fdiv_rn(__fmul_rn(0.5f, __fadd_rn(xk, r)), 10.0f);
-    }
-    case 8: {                                                  // Softplus
-      const float xk = __fmul_rn(x, 10.0f);
-      const float sp = __fadd_rn(fmaxf(xk, 0.0f), log1pf(expf(-fabsf(xk))));
-      return __fdiv_rn(sp, 10.0f);
-    }
-    case 9: return tanhf(x);                                   // Tanh
-    default: return x;
-  }
-}
 
 __host__ __device__ inline size_t round_up(size_t v, size_t m) { return (v + m - 1) / m * m; }
 

@@ -6,13 +6,8 @@
 // which the JAX package composes from XLA gathers (it is not a Pallas
 // kernel); the reference's kernel_grid (encodings/grid.h) does the same job.
 //
-// What it computes, per (sample, level): pos = x * scale + 0.5 (two
-// correctly rounded fp32 operations: a fused multiply-add would move
-// floor(pos) for points on cell boundaries), pos_grid = floor(pos),
-// t = pos - pos_grid; the 2^d corner indices by the level's mode (affine
-// fold, affine base + corner delta, XOR-prime hash or base-convert hash,
-// all in wrapping uint32 arithmetic, then mod the level size); the d-linear
-// (or smoothstep, or nearest) weights; the features read as fp32 from the
+// What it computes, per (sample, level): the cell and the 2^d corner
+// indices and weights of grid_common.cuh; the features read as fp32 from the
 // flat parameters, rounded on read to fp16 or bf16 when a table dtype is
 // set; and the weighted sum in fp32, in corner order 0..2^d-1, with every
 // product and sum rounded separately as in the plain version. Output column
@@ -35,25 +30,12 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "grid_common.cuh"
+
+using namespace tcnn_grid;
+
 namespace {
 
-constexpr int kMaxDims = 10;
-constexpr int kMaxF = 8;
-
-// Layout of one row of the (L, 24) int32 level table built by
-// tcnn_tpu_torch/ops/grid_encode.py:level_table.
-struct Level {
-  uint32_t offset;                 // first table row of the level
-  uint32_t size;                   // rows in the level
-  int32_t mode;                    // kFold / kQuad / kXor / kBaseConvert
-  float scale;
-  uint32_t stride[kMaxDims];       // per-dim factor, & 0xFFFFFFFF
-  uint32_t stride_mod[kMaxDims];   // per-dim factor mod size (kQuad deltas)
-};
-static_assert(sizeof(Level) == 96, "Level must match the host table layout");
-
-enum { kFold = 0, kQuad = 1, kXor = 2, kBaseConvert = 3 };
-enum { kNearest = 0, kLinear = 1, kSmoothstep = 2 };
 enum { kRoundNone = 0, kRoundFp16 = 1, kRoundBf16 = 2 };
 
 __device__ __forceinline__ float read_rounded(const float* p, int table_round) {
@@ -76,31 +58,7 @@ __global__ void grid_forward_kernel(const float* __restrict__ x, const float* __
   const int64_t b = tid / n_levels;
   const int lvl = (int)(tid % n_levels);
   const Level lv = levels[lvl];
-
-  uint32_t pg[kMaxDims];
-  float w[kMaxDims];
-#pragma unroll
-  for (int d = 0; d < kMaxDims; ++d) {
-    if (d < n_dims) {
-      const float pos = __fadd_rn(__fmul_rn(__ldg(x + b * n_dims + d), lv.scale), 0.5f);
-      const float pf = floorf(pos);
-      pg[d] = (uint32_t)(int32_t)pf;
-      float t = __fsub_rn(pos, pf);
-      if (interp == kSmoothstep) {
-        t = __fmul_rn(__fmul_rn(t, t), __fsub_rn(3.0f, __fmul_rn(2.0f, t)));
-      }
-      w[d] = t;
-    }
-  }
-
-  uint32_t base = 0;
-  if (lv.mode == kQuad) {
-#pragma unroll
-    for (int d = 0; d < kMaxDims; ++d) {
-      if (d < n_dims) base += pg[d] * lv.stride[d];
-    }
-    base %= lv.size;
-  }
+  const Cell cell = locate(x + b * n_dims, lv, n_dims, interp);
 
   float acc[kMaxF];
 #pragma unroll
@@ -108,25 +66,8 @@ __global__ void grid_forward_kernel(const float* __restrict__ x, const float* __
 
   const int n_corners = interp == kNearest ? 1 : 1 << n_dims;
   for (int c = 0; c < n_corners; ++c) {
-    float weight = 1.0f;
-    uint32_t h = 0;
-    uint64_t delta = 0;
-#pragma unroll
-    for (int d = 0; d < kMaxDims; ++d) {
-      if (d < n_dims) {
-        const uint32_t bit = (c >> d) & 1;
-        const uint32_t p = pg[d] + bit;
-        if (interp != kNearest) weight = __fmul_rn(weight, bit ? w[d] : __fsub_rn(1.0f, w[d]));
-        switch (lv.mode) {
-          case kFold: h += p * lv.stride[d]; break;
-          case kQuad: delta += bit * lv.stride_mod[d]; break;
-          case kXor: h ^= p * lv.stride[d]; break;
-          default: h = (h + p) * 2531011u; break;  // kBaseConvert
-        }
-      }
-    }
-    const uint32_t idx = lv.mode == kQuad ? (uint32_t)(((uint64_t)base + delta % lv.size) % lv.size)
-                                          : h % lv.size;
+    float weight;
+    const uint32_t idx = corner(cell, lv, n_dims, interp, c, &weight);
     const float* row = params + ((uint64_t)lv.offset + idx) * F;
 #pragma unroll
     for (int f = 0; f < kMaxF; ++f) {

@@ -77,6 +77,11 @@ class Encoding(nn.Module):
         padded_output_width) in ``output_dtype``."""
         raise NotImplementedError
 
+    def apply_plain(self, params: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
+        """``apply`` through plain torch versions only, on any device; the
+        same as ``apply`` for encodings without kernels."""
+        return self.apply(params, x)
+
     def forward(self, params: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
         return self.apply(params, x)
 

@@ -1,5 +1,4 @@
-"""Multiresolution grid encoding (port of ``tcnn_tpu.encodings.grid``, the
-serving subset).
+"""Multiresolution grid encoding (port of ``tcnn_tpu.encodings.grid``).
 
 Parameter layout parity: one flat vector of ``offset_table[n_levels] *
 n_features_per_level`` floats; level ``l`` owns rows
@@ -9,13 +8,15 @@ n_features_per_level`` floats; level ``l`` owns rows
 Everything that changes the function computed is reproduced exactly: the
 hash type (``"auto"`` -> CoherentAdditive), the raster strides that
 ``gather_strategy: "stratified"`` gives coarse levels (``raster_max_scale``),
-the phase-locked scale snapping, the interpolation, and ``table_dtype``
-rounding on read. The JAX package's TPU execution strategies (quad tables,
-packed layouts, level splits, static stratified paths, scatter strategies)
-are accepted as config keys and ignored: they change how the TPU computes,
-not what. Per level, all of this is compiled into one row of the level table
-(``ops.grid_encode.level_table``) that the lookup kernel and its plain
-version read.
+the phase-locked scale snapping, the interpolation, ``table_dtype`` rounding
+on read, and in training the rounding class of each level's table gradient
+(``gradient_classes``), which ``scatter_strategy``, ``locked_rounding``,
+``gather_strategy``, ``phase_locked`` and the batch select in the JAX
+package. Its other TPU execution strategies (quad tables, packed layouts,
+level splits) are accepted as config keys and ignored: they change how the
+TPU computes, not what. Per level, all of this is compiled into one row of
+the level table (``ops.grid_encode.level_table``) and one row of the class
+table that the kernels and their plain versions read.
 """
 
 from __future__ import annotations
@@ -38,6 +39,7 @@ from ..common import (
     string_to_interpolation_type,
 )
 from ..ops import grid_encode as ge
+from ..ops import scatter_rows as sr
 from ..utils.log import log_info
 from ..utils.sampling import raster_centers_torch
 from .base import Encoding
@@ -60,9 +62,36 @@ _ROUND_CODES = {"float32": ge.ROUND_NONE, "float16": ge.ROUND_FP16, "bfloat16": 
 
 # JAX-package execution-strategy keys: accepted, logged, ignored.
 TPU_STRATEGY_KEYS = (
-    "quad_pack", "quad_build", "level_split", "strat_accum", "locked_fwd",
-    "index_mode", "onehot_threshold", "scatter_strategy", "locked_rounding",
+    "quad_build", "level_split", "strat_accum", "locked_fwd", "index_mode", "onehot_threshold",
 )
+
+# Table-gradient rounding class (contribution rounding, accumulation) of each
+# JAX scatter mode (tcnn_tpu/encodings/grid.py:_scatter_mode and the
+# scatters of tcnn_tpu/ops/scatter_rows.py). The JAX pair class (a
+# compensated bf16 pair, fp32 to about 3e-6 relative) is the fp32 class.
+GRAD_F32 = (sr.CONTRIB_NONE, sr.ACC_F32)
+_MODE_CLASSES = {
+    **{m: GRAD_F32 for m in (
+        "xla", "xla_pib", "xla_f32_b", "factored", "factored_f32", "factored_kernel", "factored_fused",
+    )},
+    "factored_sr": (sr.CONTRIB_SR, sr.ACC_F32),
+    "factored_kernel_sr": (sr.CONTRIB_SR, sr.ACC_F32),
+    **{m: (sr.CONTRIB_RN, sr.ACC_BF16) for m in ("xla_half", "xla_half_b", "xla_half_ob", "xla_half_bb")},
+    "xla_half_sr": (sr.CONTRIB_SR, sr.ACC_BF16),
+    "drop": (sr.CONTRIB_NONE, sr.ACC_DROP),
+}
+SCATTER_STRATEGIES = ("auto",) + tuple(_MODE_CLASSES)
+# The "auto" scatter strategy's gate: the factored form for batches of at
+# least this many gradient rows into per-level tables of at most this size.
+_FACTORED_MIN_ROWS = 65536
+_FACTORED_MAX_SIZE = 65536
+# Classes of the phase-locked levels' static scatter (locked_rounding).
+_LOCKED_CLASSES = {
+    "pair": GRAD_F32,
+    "f32": GRAD_F32,
+    "single": (sr.CONTRIB_RN, sr.ACC_F32),
+    "sr": (sr.CONTRIB_SR, sr.ACC_F32),
+}
 
 
 def grid_scale(level: int, log2_per_level_scale: float, base_resolution: int) -> float:
@@ -137,10 +166,24 @@ class GridEncoding(Encoding):
         # "stratified" strategy (see create_grid_encoding).
         self.raster_max_scale: Optional[float] = None
         self.locked_snap_tol = 1.0
+        self.stratified_max_variants = 3
+        # Phase lock: set by _apply_phase_lock ("phase_locked" config key).
+        self.phase_locked = False
+        self.strata: Optional[int] = None
         # Storage dtype the table is rounded to on read: "float32" (none),
         # "float16" or "bfloat16". Parameters stay fp32.
         self.table_dtype = "float32"
+        # Table-gradient rounding, as the JAX package selects it (see
+        # gradient_classes): the scatter strategy, the phase-locked levels'
+        # rounding, and the quad packing that gates the phase-locked path.
+        self.scatter_strategy = "auto"
+        self.locked_rounding = "pair"
+        self.quad_pack = "auto"
+        # Training with stochastic interpolation is not ported (the forward
+        # is the deterministic lookup either way).
+        self.stochastic_interpolation = False
         self._level_tables: Dict[tuple, torch.Tensor] = {}
+        self._class_tables: Dict[tuple, tuple] = {}
 
         d = self.n_dims_to_encode
         log2_scale = math.log2(self.per_level_scale)
@@ -215,6 +258,8 @@ class GridEncoding(Encoding):
         (tcnn_tpu/encodings/grid.py:_apply_phase_lock): only power-of-two
         hashed levels above ``raster_max_scale`` whose param count and
         hashed classification survive the snap, within ``locked_snap_tol``."""
+        self.phase_locked = True
+        self.strata = int(strata)
         d = self.n_dims_to_encode
         for lvl in range(self.n_levels):
             scale = float(self.scales[lvl])
@@ -234,6 +279,7 @@ class GridEncoding(Encoding):
             self.scales[lvl] = float(snapped)
             self.resolutions[lvl] = res
         self._level_tables.clear()
+        self._class_tables.clear()
 
     def _level_strides(self, lvl: int) -> Optional[List[int]]:
         """Raster strides below ``raster_max_scale``, else the level's
@@ -271,29 +317,167 @@ class GridEncoding(Encoding):
             t = self._level_tables[key] = torch.from_numpy(self.level_table()).to(device)
         return t
 
+    def _pack_k(self) -> int:
+        """Cells per packed quad row, 128 / (2^d * F), or 0 (the JAX
+        package's ``_pack_k``; it gates the phase-locked path)."""
+        slot = (2**self.n_dims_to_encode) * self.n_features_per_level
+        if slot > 128 or 128 % slot:
+            return 0
+        return 128 // slot
+
+    def _locked_levels(self, strat_strata: int) -> set:
+        """Levels the JAX package runs on its phase-locked path for a
+        stratified batch of ``strat_strata`` tiles per dim
+        (tcnn_tpu/encodings/grid.py:_locked_levels)."""
+        if (
+            not self.phase_locked
+            or self.strata != strat_strata
+            or self.gather_strategy != "stratified"
+            or self.interpolation_type != InterpolationType.Linear
+            or self.quad_pack == "off"
+        ):
+            return set()
+        K = self._pack_k()
+        if K < 2:
+            return set()
+        out = set()
+        for lvl in range(self.n_levels):
+            scale = float(self.scales[lvl])
+            size = int(self.offset_table[lvl + 1] - self.offset_table[lvl])
+            if (
+                scale > (self.raster_max_scale or 0.0)
+                and self._use_hash[lvl]
+                and size & (size - 1) == 0
+                and size % K == 0
+                and scale == int(scale)
+                and int(scale) % strat_strata == 0
+                and self._level_strides(lvl) is not None
+            ):
+                out.add(lvl)
+        return out
+
+    def _scatter_mode(self, n_rows: int, size: int) -> str:
+        """(tcnn_tpu/encodings/grid.py:_scatter_mode)"""
+        if self.scatter_strategy != "auto":
+            return self.scatter_strategy
+        if n_rows >= _FACTORED_MIN_ROWS:
+            if size <= _FACTORED_MAX_SIZE:
+                return "factored"
+            if self.n_features_per_level >= 2:
+                return "xla_half"
+        return "xla"
+
+    def gradient_classes(self, batch: int) -> np.ndarray:
+        """Per level, the (contribution rounding, accumulation) class of the
+        table gradient (``ops.scatter_rows`` codes) that the JAX package
+        gives a training batch of ``batch`` samples, as (L, 2) int32.
+
+        Resolved as ``GridEncoding.apply`` does there
+        (tcnn_tpu/encodings/grid.py:1457-1470, 1683-1753, 1765-1982): the
+        single-gather strategies ("fused", and "quad_fused" when every level
+        takes the quad path) scatter in fp32; levels on the stratified
+        static path (a perfect d-th power batch, scale <= raster_max_scale)
+        have a dense fp32 backward; phase-locked levels take
+        ``locked_rounding``; the other quad levels take the scatter mode of
+        ``batch`` rows, per-corner levels that of ``batch * 2^d`` rows."""
+        d = self.n_dims_to_encode
+        linear = self.interpolation_type == InterpolationType.Linear
+        strat_strata = 0
+        if (
+            self.gather_strategy == "stratified"
+            and d in (2, 3)
+            and self.raster_max_scale is not None
+            and self.interpolation_type in (InterpolationType.Linear, InterpolationType.Smoothstep)
+        ):
+            s = round(batch ** (1.0 / d))
+            if s**d == batch and s >= 2:
+                strat_strata = s
+        locked = self._locked_levels(strat_strata) if strat_strata else set()
+        n_corners = 1 if self.interpolation_type == InterpolationType.Nearest else 2**d
+
+        def quad_level(lvl):
+            return (
+                self.gather_strategy in ("quad", "quad_fused", "stratified")
+                and linear
+                and self._level_strides(lvl) is not None
+            )
+
+        def static_level(lvl):
+            if not strat_strata or self.interpolation_type == InterpolationType.Nearest:
+                return False
+            scale = float(self.scales[lvl])
+            n_var = int(math.ceil(scale / strat_strata)) + 1
+            return scale <= self.raster_max_scale and n_var <= self.stratified_max_variants
+
+        one_gather = self.gather_strategy == "fused" or (
+            self.gather_strategy == "quad_fused" and all(quad_level(lvl) for lvl in range(self.n_levels))
+        )
+        out = []
+        for lvl in range(self.n_levels):
+            size = int(self.offset_table[lvl + 1] - self.offset_table[lvl])
+            if one_gather or static_level(lvl):
+                out.append(GRAD_F32)
+            elif quad_level(lvl):
+                if lvl in locked:
+                    out.append(_LOCKED_CLASSES[self.locked_rounding])
+                else:
+                    out.append(_MODE_CLASSES[self._scatter_mode(batch, size)])
+            else:
+                out.append(_MODE_CLASSES[self._scatter_mode(batch * n_corners, size)])
+        return np.asarray(out, np.int32).reshape(self.n_levels, 2)
+
+    def _classes_on(self, device: torch.device, batch: int):
+        """(class table on ``device``, whether a level sums in bf16)."""
+        key = (
+            device.type, device.index, int(batch), self.gather_strategy, self.scatter_strategy,
+            self.locked_rounding, self.quad_pack,
+        )
+        hit = self._class_tables.get(key)
+        if hit is None:
+            classes = self.gradient_classes(batch)
+            hit = (torch.from_numpy(classes).to(device), bool((classes[:, 1] == sr.ACC_BF16).any()))
+            self._class_tables[key] = hit
+        return hit
+
     def apply(self, params: torch.Tensor, x: torch.Tensor, table_dtype: Optional[str] = None) -> torch.Tensor:
         """Encode positions ``x`` (batch, n_dims) to (batch,
         padded_output_width) in ``output_dtype``. ``table_dtype`` overrides
-        the encoding's read rounding (serve-time precision)."""
-        return self._encode(ge.grid_encode, params, x, table_dtype)
+        the encoding's read rounding (serve-time precision). Differentiable
+        with respect to ``params`` (the lookup and table-gradient kernels on
+        the card, their plain versions on the CPU)."""
+        return self._encode(params, x, table_dtype, plain=False)
 
     def apply_plain(self, params: torch.Tensor, x: torch.Tensor, table_dtype: Optional[str] = None) -> torch.Tensor:
-        """``apply`` through the lookup kernel's plain torch version, on any
-        device (the reference the kernel is checked against)."""
-        return self._encode(ge.grid_encode_plain, params, x, table_dtype)
+        """``apply`` through the kernels' plain torch versions, on any
+        device (the reference the kernels are checked against)."""
+        return self._encode(params, x, table_dtype, plain=True)
 
-    def _encode(self, fn, params, x, table_dtype):
+    def _encode(self, params, x, table_dtype, plain: bool):
         x = x.to(torch.float32).contiguous()
-        return fn(
-            x,
-            params,
-            self._levels_on(x.device),
+        if torch.is_grad_enabled():
+            if x.requires_grad:
+                raise NotImplementedError(
+                    "GridEncoding: gradients with respect to the input positions are not ported yet "
+                    "(ROADMAP.md, Queue 1 item 4: module API and second order)"
+                )
+            if params.requires_grad and self.stochastic_interpolation:
+                raise NotImplementedError(
+                    "GridEncoding: training with stochastic_interpolation is not ported yet "
+                    "(ROADMAP.md, Queue 1 item 5: other encodings and grid extras)"
+                )
+        classes, acc16 = None, False
+        if torch.is_grad_enabled() and params.requires_grad:
+            classes, acc16 = self._classes_on(x.device, x.shape[0])
+        meta = (
             self.n_features_per_level,
             self.padded_output_width,
             _INTERP_CODES[self.interpolation_type],
             _ROUND_CODES[table_dtype or self.table_dtype],
             self.output_dtype,
+            plain,
+            acc16,
         )
+        return ge.GridEncodeFunction.apply(x, params, self._levels_on(x.device), classes, meta)
 
     def apply_raster(self, params: torch.Tensor, side, table_dtype: Optional[str] = None) -> torch.Tensor:
         """Encode the tile-center raster (``utils.sampling.raster_centers``
@@ -346,7 +530,8 @@ def create_grid_encoding(n_dims_to_encode: int, encoding: dict) -> GridEncoding:
         default_scale = 2.0
 
     # Stochastic interpolation only changes the table gradient of training
-    # steps; the forward is the deterministic lookup.
+    # steps (not ported: training such an encoding raises); the forward is
+    # the deterministic lookup.
     stochastic = bool(json_value(encoding, "stochastic_interpolation", False))
     if json_value(encoding, "fixed_point_pos", False):
         raise NotImplementedError(
@@ -373,13 +558,21 @@ def create_grid_encoding(n_dims_to_encode: int, encoding: dict) -> GridEncoding:
     if gs not in ("per_level", "fused", "quad", "quad_fused", "stratified"):
         raise ValueError(f"invalid gather_strategy {gs!r}")
     enc.gather_strategy = gs
+    enc.stochastic_interpolation = stochastic
+    enc.scatter_strategy = json_value(encoding, "scatter_strategy", "auto")
+    if enc.scatter_strategy not in SCATTER_STRATEGIES:
+        raise ValueError(f"invalid scatter_strategy {enc.scatter_strategy!r}")
+    enc.quad_pack = json_value(encoding, "quad_pack", "auto")
     enc.table_dtype = json_value(encoding, "table_dtype", "float32")
     if enc.table_dtype not in _ROUND_CODES:
         raise ValueError(f"invalid table_dtype {enc.table_dtype!r}")
     if gs == "stratified":
         strata = json_value(encoding, "strata", 512 if n_dims_to_encode == 2 else 64)
-        max_variants = json_value(encoding, "stratified_max_variants", 3 if n_dims_to_encode == 2 else 2)
-        enc.raster_max_scale = float((max_variants - 1) * strata)
+        enc.stratified_max_variants = json_value(encoding, "stratified_max_variants", 3 if n_dims_to_encode == 2 else 2)
+        enc.raster_max_scale = float((enc.stratified_max_variants - 1) * strata)
+        enc.locked_rounding = json_value(encoding, "locked_rounding", "pair")
+        if enc.locked_rounding not in _LOCKED_CLASSES:
+            raise ValueError(f"invalid locked_rounding {enc.locked_rounding!r}")
         enc.locked_snap_tol = float(json_value(encoding, "locked_snap_tol", 1.0))
         if not 0.0 <= enc.locked_snap_tol:
             raise ValueError(f"locked_snap_tol must be >= 0: {enc.locked_snap_tol}")

@@ -43,5 +43,10 @@ class Network(nn.Module):
         """(batch, input_width) -> (batch, padded_output_width)."""
         raise NotImplementedError
 
+    def apply_plain(self, params: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
+        """``apply`` through plain torch versions only, on any device; the
+        same as ``apply`` for networks without kernels."""
+        return self.apply(params, x)
+
     def forward(self, params: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
         return self.apply(params, x)

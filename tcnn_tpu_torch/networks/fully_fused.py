@@ -3,9 +3,11 @@
 (reference: networks/fully_fused_mlp.h; JAX counterpart
 ``tcnn_tpu.networks.fully_fused``). Widths are {16, 32, 64, 128} like the
 reference; parameter layout, init and JSON surface are those of ``MLP``.
-On the card ``apply`` always runs the fused kernel (``ops.ffmlp``); on the
-CPU the kernel's wrapper computes the plain chain. ``use_kernel=False``
-selects the chain on every device.
+On the card ``apply`` always runs the fused kernels (``ops.ffmlp``: the
+forward, and the backward through ``FfmlpFunction``); on the CPU the
+kernels' wrappers compute their plain versions. ``apply_plain`` takes the
+plain versions on every device. ``use_kernel=False`` selects the chain,
+differentiated by torch autograd, on every device.
 """
 
 from __future__ import annotations
@@ -13,7 +15,7 @@ from __future__ import annotations
 import torch
 
 from ..common import Activation
-from ..ops.ffmlp import FFMLP_WIDTHS, ffmlp_forward
+from ..ops.ffmlp import FFMLP_WIDTHS, FfmlpFunction
 from .mlp import MLP
 
 
@@ -49,6 +51,16 @@ class FullyFusedMLP(MLP):
     def apply(self, params: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
         if not self.use_kernel:
             return super().apply(params, x)
+        return self._fused(params, x, plain=False)
+
+    def apply_plain(self, params: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
+        """``apply`` through the kernels' plain versions, on any device (the
+        reference the kernels are checked against)."""
+        if not self.use_kernel:
+            return super().apply(params, x)
+        return self._fused(params, x, plain=True)
+
+    def _fused(self, params, x, plain: bool):
         dt = self.compute_dtype
         ws = [w.to(dt) for w in self._weights(params)]
-        return ffmlp_forward(x.to(dt).contiguous(), ws, self.activation, self.output_activation)
+        return FfmlpFunction.apply(x.to(dt).contiguous(), self.activation, self.output_activation, plain, *ws)

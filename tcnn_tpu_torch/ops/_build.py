@@ -2,9 +2,10 @@
 
 Each ``csrc/<name>.cu`` has a plain C interface and compiles alone with
 ``nvcc`` into ``build/tcnn_tpu_torch/lib<name>-<hash>.so`` at the root of the
-checkout; the file name carries a hash of the source and the flags, so an
-edited source is rebuilt and a stale library is never loaded. Nothing here
-runs at import time: this module is imported on machines without ``nvcc``.
+checkout; the file name carries a hash of the source, of every shared header
+``csrc/*.cuh`` and of the flags, so an edited source or header is rebuilt and
+a stale library is never loaded. Nothing here runs at import time: this
+module is imported on machines without ``nvcc``.
 """
 
 from __future__ import annotations
@@ -41,9 +42,12 @@ def _nvcc() -> str:
 
 
 def library_path(name: str) -> Path:
-    src = CSRC / f"{name}.cu"
-    digest = hashlib.sha1(src.read_bytes() + " ".join(NVCC_FLAGS).encode()).hexdigest()[:12]
-    return BUILD_DIR / f"lib{name}-{digest}.so"
+    h = hashlib.sha1((CSRC / f"{name}.cu").read_bytes())
+    # A source may include any shared header; all of them enter the digest.
+    for header in sorted(CSRC.glob("*.cuh")):
+        h.update(header.name.encode() + header.read_bytes())
+    h.update(" ".join(NVCC_FLAGS).encode())
+    return BUILD_DIR / f"lib{name}-{h.hexdigest()[:12]}.so"
 
 
 def build_library(name: str) -> Path:
@@ -62,6 +66,17 @@ def build_library(name: str) -> Path:
         raise RuntimeError(f"nvcc failed for {name}.cu:\n{proc.stderr[-4000:]}")
     os.replace(tmp, out)
     return out
+
+
+def build_libraries(names) -> Dict[str, Path]:
+    """``build_library`` for several sources at once, one ``nvcc`` each,
+    all started together. Raises the first failure after all have ended."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    names = list(names)
+    with ThreadPoolExecutor(max_workers=max(1, len(names))) as pool:
+        futures = {name: pool.submit(build_library, name) for name in names}
+    return {name: f.result() for name, f in futures.items()}
 
 
 def load_library(name: str) -> ctypes.CDLL:

@@ -7,10 +7,19 @@ no jax, so on a machine without it run them as
 
 (the variable keeps tests/conftest.py from importing jax).
 
-Tolerances: the MLP as in test_torch_port_ffmlp.py (bf16 outputs; fp32 sums
-in another order flip bf16 roundings); the grid in fp32 at rtol 1e-5,
-atol 1e-6 (features of magnitude <= 1; only the order of the corner sum
-may differ from torch's reduction).
+Tolerances: the MLP forward as in test_torch_port_ffmlp.py (bf16 outputs;
+fp32 sums in another order flip bf16 roundings); the grid lookup in fp32 at
+rtol 1e-5, atol 1e-6 (features of magnitude <= 1; only the order of the
+corner sum may differ from torch's reduction). The MLP backward: relative
+difference (norm) <= 1e-2 and at most 0.1% of the entries beyond 4 bf16
+ulps of max |ref| (dW entries are long fp32 sums that cancel, so entrywise
+relative errors of small entries mean nothing; a derivative that jumps,
+ReLU's at 0 or a bf16 rounding of the recomputed forward, turns an fp32
+sum-order difference into an O(1) change of a few entries). Adam: param_steps equal, the rest to rtol 1e-6, atol 1e-7. The
+scatter and grid backward, per entry in units of S = sum of |contribution|:
+1e-5 S for fp32 accumulation (atomics add in any order); for bf16
+accumulation the kernel's error against the fp32 sum of the same rounded
+contributions is at most twice the plain sequential sum's, in norm.
 """
 
 import numpy as np
@@ -20,7 +29,8 @@ import torch
 import tcnn_tpu_torch as tt
 from tcnn_tpu_torch.common import Activation
 from tcnn_tpu_torch.encodings import create_encoding
-from tcnn_tpu_torch.ops import ffmlp, grid_encode
+from tcnn_tpu_torch.ops import ffmlp, fused_adam, grid_encode, scatter_rows
+from tcnn_tpu_torch.optimizers import AdamOptimizer
 
 pytestmark = pytest.mark.cuda
 
@@ -57,11 +67,161 @@ def test_ffmlp_kernel_matches_plain(dev, width, n_hidden, act):
         _close_bf16(got, ffmlp.ffmlp_forward_plain(x, ws, act, Activation.Tanh))
 
 
+def _close_bf16_backward(got, want):
+    got, want = got.float(), want.float()
+    assert got.shape == want.shape and torch.isfinite(got).all()
+    diff = (got - want).abs()
+    assert float(diff.norm()) <= 1e-2 * float(want.norm())
+    scale = float(want.abs().max())
+    ulp = 2.0 ** (np.floor(np.log2(scale)) - 7) if scale > 0 else 0.0
+    assert float((diff > 4 * ulp).float().mean()) <= 1e-3
+
+
 def test_ffmlp_kernel_refuses_grad(dev):
-    x = torch.zeros((4, 32), device=dev, dtype=torch.bfloat16, requires_grad=True)
-    w = [torch.zeros((16, 32), device=dev, dtype=torch.bfloat16)]
-    with pytest.raises(NotImplementedError, match="training"):
-        ffmlp.ffmlp_forward(x, w, Activation.ReLU, Activation.NONE)
+    """The fused forward takes tensors that need a gradient: through
+    ``FfmlpFunction`` the backward kernel runs and matches the plain
+    backward."""
+    gen = torch.Generator(device=dev).manual_seed(3)
+    ws = [((torch.rand(s, generator=gen, device=dev) * 2 - 1) * 0.3).bfloat16().requires_grad_(True)
+          for s in ((64, 32), (64, 64), (16, 64))]
+    x = (torch.rand((777, 32), generator=gen, device=dev) * 2 - 1).bfloat16().requires_grad_(True)
+    before = (ffmlp.LAUNCHES, ffmlp.BWD_LAUNCHES)
+    y = ffmlp.FfmlpFunction.apply(x, Activation.ReLU, Activation.NONE, False, *ws)
+    g = (torch.rand(y.shape, generator=gen, device=dev) * 2 - 1).bfloat16()
+    grads = torch.autograd.grad(y, (x, *ws), g)
+    assert (ffmlp.LAUNCHES, ffmlp.BWD_LAUNCHES) == (before[0] + 1, before[1] + 1)
+    dx, dws = ffmlp.ffmlp_backward_plain(x.detach(), g, [w.detach() for w in ws], Activation.ReLU, Activation.NONE)
+    for a, b in zip(grads, (dx, *dws)):
+        _close_bf16_backward(a, b)
+
+
+@pytest.mark.parametrize("act", [Activation.ReLU, Activation.Sigmoid, Activation.Sine, Activation.Tanh])
+@pytest.mark.parametrize("n_hidden", [0, 1, 3])
+@pytest.mark.parametrize("width", [16, 32, 64, 128])
+def test_ffmlp_backward_kernel_matches_plain(dev, width, n_hidden, act):
+    gen = torch.Generator(device=dev).manual_seed(width * 10 + n_hidden)
+    shapes = [(16, 32)] if n_hidden == 0 else [(width, 32)] + [(width, width)] * (n_hidden - 1) + [(16, width)]
+    ws = [((torch.rand(s, generator=gen, device=dev) * 2 - 1) * 2 / s[1] ** 0.5).bfloat16() for s in shapes]
+    for batch in (1, 17, 1000):
+        x = (torch.rand((batch, 32), generator=gen, device=dev) * 2 - 1).bfloat16()
+        g = (torch.rand((batch, 16), generator=gen, device=dev) * 2 - 1).bfloat16()
+        before = ffmlp.BWD_LAUNCHES
+        dx, dws = ffmlp.ffmlp_backward(x, g, ws, act, Activation.Tanh)
+        assert ffmlp.BWD_LAUNCHES == before + 1
+        want_dx, want_dws = ffmlp.ffmlp_backward_plain(x, g, ws, act, Activation.Tanh)
+        _close_bf16_backward(dx, want_dx)
+        for a, b in zip(dws, want_dws):
+            _close_bf16_backward(a, b)
+
+
+ADAM_KNOBS = [
+    {},
+    {"l2_reg": 1e-4, "non_matrix_l2_reg": 1e-5},
+    {"non_matrix_learning_rate_factor": 0.5},
+    {"relative_decay": 1e-3, "absolute_decay": 1e-4},
+    {"clipping_magnitude": 0.25, "gradient_clipping_magnitude": 0.5},
+    {"adabound": True},
+    {"optimize_matrix_params": False},
+    {"optimize_non_matrix_params": False},
+    {"skip_zero_grad_non_matrix_params": False},
+    {"beta1": 0.5, "beta2": 0.9, "epsilon": 1e-15, "learning_rate": 1e-2},
+]
+
+
+@pytest.mark.parametrize("hp", ADAM_KNOBS, ids=[str(sorted(k)) for k in ADAM_KNOBS])
+def test_adam_kernel_matches_plain(dev, hp):
+    n, n_matrix = 100_003, 7168
+    opt = AdamOptimizer(hp)
+    opt.allocate(n, [(1, n_matrix)])
+    rng = np.random.default_rng(len(hp))
+    p0 = torch.from_numpy(rng.normal(0, 0.3, n).astype(np.float32)).to(dev)
+    sk, sp, pk, pp = opt.init_state(dev), opt.init_state(dev), p0.clone(), p0.clone()
+    for _ in range(3):
+        g = rng.normal(0, 1, n).astype(np.float32) * 128
+        g[n_matrix:][rng.random(n - n_matrix) < 0.1] = 0.0
+        g = torch.from_numpy(g).to(dev)
+        sp, pp = opt.step(sp, pp, g, 128.0, plain=True)
+        before = fused_adam.LAUNCHES
+        sk, pk2 = opt.step(sk, pk, g, 128.0)
+        assert pk2 is pk and fused_adam.LAUNCHES == before + 1
+    assert int(sk["step"]) == int(sp["step"]) == 3
+    assert torch.equal(sk["param_steps"], sp["param_steps"])
+    for a, b in ((pk, pp), (sk["first_moments"], sp["first_moments"]), (sk["second_moments"], sp["second_moments"])):
+        torch.testing.assert_close(a, b, rtol=1e-6, atol=1e-7)
+
+
+SCATTER_CLASSES = [
+    (scatter_rows.CONTRIB_NONE, torch.float32), (scatter_rows.CONTRIB_SR, torch.float32),
+    (scatter_rows.CONTRIB_RN, torch.bfloat16), (scatter_rows.CONTRIB_SR, torch.bfloat16),
+]
+
+
+def _check_class(got, plain, exact, S, acc_dtype):
+    assert got.shape == plain.shape and torch.isfinite(got).all()
+    if acc_dtype == torch.float32:
+        assert bool(((got - plain).abs() <= 1e-5 * S + 1e-30).all())
+    else:
+        assert float((got - exact).norm()) <= 2 * float((plain - exact).norm()) + 1e-6 * float(S.norm())
+
+
+@pytest.mark.parametrize("cls", SCATTER_CLASSES, ids=str)
+def test_scatter_kernel_matches_plain(dev, cls):
+    contrib, acc = cls
+    rng = np.random.default_rng(5)
+    idx = torch.from_numpy(rng.integers(0, 64, 100_000).astype(np.int32)).to(dev)
+    rows = torch.from_numpy(rng.normal(0, 1, (100_000, 4)).astype(np.float32)).to(dev)
+    before = scatter_rows.LAUNCHES
+    got = scatter_rows.scatter_rows(idx, rows, 64, contrib, acc)
+    assert scatter_rows.LAUNCHES == before + 1
+    plain = scatter_rows.scatter_rows_plain(idx, rows, 64, contrib, acc)
+    exact = scatter_rows.scatter_rows_plain(idx, rows, 64, contrib, torch.float32)
+    _check_class(got, plain, exact, scatter_rows.scatter_rows_plain(idx, rows.abs(), 64), acc)
+    # Small integers are exact in bf16 in any order: bitwise equal.
+    ints = torch.from_numpy(rng.integers(-2, 3, (100_000, 4)).astype(np.float32)).to(dev)
+    idx2 = torch.from_numpy(rng.integers(0, 2**14, 100_000).astype(np.int32)).to(dev)
+    assert torch.equal(scatter_rows.scatter_rows(idx2, ints, 2**14, contrib, acc),
+                       scatter_rows.scatter_rows_plain(idx2, ints, 2**14, contrib, acc))
+
+
+@pytest.mark.parametrize("cls", SCATTER_CLASSES, ids=str)
+def test_grid_backward_kernel_matches_plain(dev, cls):
+    contrib, acc = cls
+    enc = create_encoding(2, GRID, alignment=16)
+    rng = np.random.default_rng(6)
+    x = torch.from_numpy(rng.uniform(-0.2, 1.2, (50_000, 2)).astype(np.float32)).to(dev)
+    dy = torch.from_numpy(rng.normal(0, 1, (50_000, 16)).astype(np.float32)).to(dev).bfloat16()
+    levels = enc._levels_on(x.device)
+    acc_code = scatter_rows.ACC_BF16 if acc == torch.bfloat16 else scatter_rows.ACC_F32
+    classes = torch.tensor([[contrib, acc_code]] * enc.n_levels, dtype=torch.int32, device=dev)
+    before = grid_encode.BWD_LAUNCHES
+    got = grid_encode.grid_backward(x, dy, levels, 2, grid_encode.INTERP_LINEAR, classes)
+    assert grid_encode.BWD_LAUNCHES == before + 1
+    plain = grid_encode.grid_backward_plain(x, dy, levels, 2, grid_encode.INTERP_LINEAR, classes)
+    f32 = classes.clone()
+    f32[:, 1] = scatter_rows.ACC_F32
+    exact = grid_encode.grid_backward_plain(x, dy, levels, 2, grid_encode.INTERP_LINEAR, f32)
+    S = grid_encode.grid_backward_plain(x, dy.float().abs(), levels, 2, grid_encode.INTERP_LINEAR, f32 * 0)
+    _check_class(got, plain, exact, S, acc)
+    assert not got[S == 0].any()
+
+
+def test_training_step_kernel_matches_plain(dev):
+    cfg = {"encoding": dict(GRID, scatter_strategy="factored_sr"),
+           "network": {"otype": "FullyFusedMLP", "n_neurons": 64, "n_hidden_layers": 2},
+           "optimizer": {"otype": "EMA", "decay": 0.99, "nested": {"otype": "Adam", "learning_rate": 1e-2}}}
+    a, b = tt.create_from_config(2, 3, cfg, device=dev), tt.create_from_config(2, 3, cfg, device=dev)
+    rng = np.random.default_rng(7)
+    x = rng.uniform(0, 1, (4096, 2)).astype(np.float32)
+    y = rng.uniform(0, 1, (4096, 3)).astype(np.float32)
+    counts = (ffmlp.LAUNCHES, ffmlp.BWD_LAUNCHES, grid_encode.LAUNCHES, grid_encode.BWD_LAUNCHES, fused_adam.LAUNCHES)
+    la = a.training_step(x, y)
+    after = (ffmlp.LAUNCHES, ffmlp.BWD_LAUNCHES, grid_encode.LAUNCHES, grid_encode.BWD_LAUNCHES, fused_adam.LAUNCHES)
+    assert all(n == c + 1 for n, c in zip(after, counts))
+    lb = b.trainer.training_step_plain(x, y)
+    assert la.is_cuda and la.dim() == 0
+    torch.testing.assert_close(la, lb, rtol=1e-4, atol=0)
+    d = (a.params - b.params).abs()
+    assert float(d.max()) <= 2.0001e-2 and float((d > 1e-6).float().mean()) <= 1e-2
 
 
 GRID = {
@@ -98,5 +258,6 @@ def test_model_inference_goes_through_both_kernels(dev):
     y = m.inference(np.random.default_rng(0).uniform(0, 1, (513, 2)).astype(np.float32))
     assert y.shape == (513, 3) and y.dtype == torch.float32 and y.is_cuda
     assert (ffmlp.LAUNCHES, grid_encode.LAUNCHES) == (before[0] + 1, before[1] + 1)
-    with pytest.raises(NotImplementedError, match="training"):
-        m.model(torch.zeros((4, 2), device=dev))
+    # With gradients enabled the same forward is differentiable.
+    out = m.model(torch.rand((4, 2), device=dev))
+    assert out.requires_grad and out.shape == (4, 16)

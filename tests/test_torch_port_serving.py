@@ -3,7 +3,9 @@
 A reduced flagship config (same encoding and network kinds, fewer levels
 and smaller tables) is built in both packages. The JAX model trains three
 steps with an EMA-wrapped Adam; its ``inference_params()`` are carried into
-the port with ``params_from_numpy``. Then ``inference``,
+the port with ``params_from_numpy``, as the params of a port trainer whose
+optimizer is the nested Adam (an EMA trainer serves its own EMA weights,
+which carried params do not set). Then ``inference``,
 ``inference_raster`` and ``freeze_serving()`` (batch and raster) are
 compared.
 
@@ -58,7 +60,7 @@ def pair():
         xy = stratified_uniform(jax.random.PRNGKey(i), B, 2)
         t = jnp.asarray(r.uniform(0, 1, (B, 3)).astype(np.float32))
         jm.training_step(xy, t)
-    tm = tt.create_from_config(2, 3, CONFIG)
+    tm = tt.create_from_config(2, 3, dict(CONFIG, optimizer=CONFIG["optimizer"]["nested"]))
     flat = np.asarray(jm.trainer.inference_params())
     # The EMA weights differ from the raw params after training.
     assert not np.array_equal(flat, np.asarray(jm.trainer.params))
@@ -147,9 +149,16 @@ def test_commented_config_loads():
 
 
 def test_training_step_raises():
+    """``training_step`` runs on the reduced flagship: a finite 0-d loss,
+    params that change, and EMA weights as the inference params."""
     m = tt.create_from_config(2, 3, CONFIG)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        m.training_step(np.zeros((4, 2), np.float32), np.zeros((4, 3), np.float32))
+    before = m.params.clone()
+    r = np.random.default_rng(5)
+    loss = m.training_step(r.uniform(0, 1, (B, 2)).astype(np.float32), r.uniform(0, 1, (B, 3)).astype(np.float32))
+    assert loss.dim() == 0 and torch.isfinite(loss)
+    assert not torch.equal(m.params, before)
+    ema = m.trainer.inference_params()
+    assert ema is m.trainer.opt_state["weights_ema"] and not torch.equal(ema, m.params)
 
 
 def test_params_from_numpy_checks_length_and_dtype():
