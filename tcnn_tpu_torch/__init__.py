@@ -6,15 +6,20 @@ hand-written CUDA kernels (``csrc/``) on the card and their plain torch
 versions on the CPU. This package never imports jax or tcnn_tpu.
 
 Ported so far: the serving path (grid encoding + fully fused MLP, the
-trainer's inference half, ``FrozenServer``) and the training path
+trainer's inference half, ``FrozenServer``), the training path
 (RelativeL2/L2 losses, Adam + EMA, ``Trainer.training_step`` with the MLP
-backward, grid backward and fused Adam kernels).
+backward, grid backward and fused Adam kernels) and the module API
+(``modules.Encoding``, ``Network``, ``NetworkWithInputEncoding`` as
+``torch.nn`` modules, differentiable twice with respect to params and inputs
+through the grid's input-gradient and double-backward kernels; the
+packed-I/O ``FullyFusedMLP.apply_packed``). Entry points run on the CUDA
+card unless the caller names another device.
 """
 
 __version__ = "0.1.0"
 
-from . import encodings, losses, networks, ops, optimizers, utils
-from .common import Activation, GridType, HashType, InterpolationType
+from . import encodings, losses, modules, networks, ops, optimizers, utils
+from .common import Activation, GridType, HashType, InterpolationType, default_device
 from .config import TrainableModel, create_from_config, load_config, loads_config, strip_json_comments
 from .encodings import builtin_encodings, create_encoding, register_encoding
 from .interchange import params_from_numpy
@@ -40,8 +45,10 @@ __all__ = [
     "create_loss",
     "create_network",
     "create_optimizer",
+    "default_device",
     "load_config",
     "loads_config",
+    "modules",
     "params_from_numpy",
     "register_encoding",
     "strip_json_comments",

@@ -68,6 +68,20 @@ MAX_N_LEVELS = 128
 default_network_precision = torch.bfloat16
 
 
+def default_device() -> torch.device:
+    """The device of the port's entry points when the caller names none:
+    the CUDA card. Raises when there is none; the CPU is used only when the
+    caller asks for it (``device="cpu"``)."""
+    if not torch.cuda.is_available():
+        raise RuntimeError('tcnn_tpu_torch: no CUDA device; pass device="cpu" to run on the CPU')
+    return torch.device("cuda")
+
+
+def resolve_device(device=None) -> torch.device:
+    """``device`` as a ``torch.device``; None means ``default_device()``."""
+    return default_device() if device is None else torch.device(device)
+
+
 def default_loss_scale(dtype) -> float:
     """Loss scale that keeps small gradients representable: 128 for the
     half types, 1 for fp32 (reference: common.h:240-244; the JAX package's

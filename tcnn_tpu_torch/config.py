@@ -1,7 +1,7 @@
 """create_from_config — the JSON entry point (port of ``tcnn_tpu.config``;
 reference: config.h:46-63). The same JSON document that drives the JAX
 package builds the PyTorch model, its loss and optimizer and the trainer
-here, on the device the caller names."""
+here, on the card unless the caller names another device."""
 
 from __future__ import annotations
 
@@ -96,15 +96,18 @@ def create_from_config(
     config: Dict,
     seed: int = 1337,
     precision=None,
-    device="cpu",
+    device=None,
 ) -> TrainableModel:
+    """The model, loss, optimizer and trainer of ``config`` on ``device``
+    (default: the CUDA card, ``common.default_device``; ``"cpu"`` runs the
+    kernels' plain versions on the CPU)."""
     model = NetworkWithInputEncoding(
         n_input_dims,
         n_output_dims,
         encoding_config=config.get("encoding", {}),
         network_config=config.get("network", {}),
         precision=precision,
-        device=torch.device(device),
+        device=device,
     )
     trainer = Trainer(model, config.get("loss", {}), config.get("optimizer", {}), seed=seed)
     return TrainableModel(model=model, trainer=trainer)

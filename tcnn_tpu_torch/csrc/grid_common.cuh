@@ -1,7 +1,7 @@
 // The grid encoding's level description and corner arithmetic, shared by
-// the lookup (grid_fwd.cu) and its backward (grid_bwd.cu), so that the
-// backward recomputes exactly the corner indices and weights the forward
-// used.
+// the lookup (grid_fwd.cu) and its backward kernels (grid_bwd.cu), so that
+// every backward recomputes exactly the corner indices and weights the
+// forward used.
 //
 // Per (sample, level): pos = x * scale + 0.5 (two correctly rounded fp32
 // operations: a fused multiply-add would move floor(pos) for points on
@@ -10,9 +10,21 @@
 // delta, XOR-prime hash or base-convert hash, all in wrapping uint32
 // arithmetic, then mod the level size); the d-linear (or smoothstep, or
 // nearest) weights, multiplied in dimension order.
+//
+// The input-gradient kernels also need the derivatives of the weights: the
+// weight of corner c is prod_d f_cd with f_cd = w_d (upper neighbour in dim
+// d) or 1 - w_d (lower), so d f_cd / d x_d = +-w_d'(x_d) and d^2 f_cd / d x_d^2
+// = +-w_d''(x_d), with w_d' = scale * s'(t_d) and w_d'' = scale^2 * s''(t_d)
+// (s = identity for Linear: s' = 1, s'' = 0; s(t) = t^2 (3 - 2t) for
+// Smoothstep: s' = 6t(1 - t), s'' = 6 - 12t; floor() contributes nothing,
+// and Nearest weights are constant). Every product is taken in dimension
+// order from 1.0, each operation correctly rounded, as the plain versions in
+// tcnn_tpu_torch/ops/grid_encode.py write them.
 
 #pragma once
 
+#include <cuda_bf16.h>
+#include <cuda_fp16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -95,6 +107,80 @@ __device__ __forceinline__ uint32_t corner(const Cell& cell, const Level& lv, in
   *weight = wt;
   return lv.mode == kQuad ? (uint32_t)(((uint64_t)cell.base + delta % lv.size) % lv.size)
                           : h % lv.size;
+}
+
+enum { kRoundNone = 0, kRoundFp16 = 1, kRoundBf16 = 2 };
+
+// A table value as the forward reads it: fp32, or rounded to the table dtype.
+__device__ __forceinline__ float read_rounded(const float* p, int table_round) {
+  const float v = __ldg(p);
+  if (table_round == kRoundFp16) return __half2float(__float2half_rn(v));
+  if (table_round == kRoundBf16) return __bfloat162float(__float2bfloat16_rn(v));
+  return v;
+}
+
+// Per dim, the first (d1) and second (d2) derivative of the interpolation
+// fraction w_d with respect to x_d.
+__device__ __forceinline__ void fraction_derivatives(const float* __restrict__ xrow, const Level& lv,
+                                                     int n_dims, int interp, float* d1, float* d2) {
+#pragma unroll
+  for (int d = 0; d < kMaxDims; ++d) {
+    if (d < n_dims) {
+      const float pos = __fadd_rn(__fmul_rn(__ldg(xrow + d), lv.scale), 0.5f);
+      const float t = __fsub_rn(pos, floorf(pos));
+      float s1 = interp == kNearest ? 0.0f : 1.0f;
+      float s2 = 0.0f;
+      if (interp == kSmoothstep) {
+        s1 = __fmul_rn(__fmul_rn(6.0f, t), __fsub_rn(1.0f, t));
+        s2 = __fsub_rn(6.0f, __fmul_rn(12.0f, t));
+      }
+      d1[d] = __fmul_rn(s1, lv.scale);
+      d2[d] = __fmul_rn(__fmul_rn(s2, lv.scale), lv.scale);
+    }
+  }
+}
+
+// The factor of dim d in corner c's weight, and a derivative of it: +v for
+// the upper neighbour, -v for the lower.
+__device__ __forceinline__ float factor(const Cell& cell, int c, int d) {
+  return (c >> d) & 1 ? cell.w[d] : __fsub_rn(1.0f, cell.w[d]);
+}
+__device__ __forceinline__ float signed_by_bit(int c, int d, float v) { return (c >> d) & 1 ? v : -v; }
+
+// dW[e] = d(weight of corner c) / d x_e: the weight's product with dim e's
+// factor replaced by its derivative.
+__device__ __forceinline__ void weight_gradient(const float* f, const float* d1, int c, int n_dims, float* dW) {
+#pragma unroll
+  for (int e = 0; e < kMaxDims; ++e) {
+    if (e < n_dims) {
+      float p = 1.0f;
+#pragma unroll
+      for (int d = 0; d < kMaxDims; ++d) {
+        if (d < n_dims) p = __fmul_rn(p, d == e ? signed_by_bit(c, d, d1[d]) : f[d]);
+      }
+      dW[e] = p;
+    }
+  }
+}
+
+// d^2(weight of corner c) / d x_d d x_e: dims d and e replaced by their
+// derivatives (d != e), or dim d by its second derivative (d == e).
+__device__ __forceinline__ float weight_hessian(const float* f, const float* d1, const float* d2, int c,
+                                                int n_dims, int d, int e) {
+  float p = 1.0f;
+#pragma unroll
+  for (int k = 0; k < kMaxDims; ++k) {
+    if (k < n_dims) {
+      float v = f[k];
+      if (k == d && d == e) {
+        v = signed_by_bit(c, k, d2[k]);
+      } else if (k == d || k == e) {
+        v = signed_by_bit(c, k, d1[k]);
+      }
+      p = __fmul_rn(p, v);
+    }
+  }
+  return p;
 }
 
 }  // namespace tcnn_grid

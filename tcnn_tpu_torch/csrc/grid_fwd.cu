@@ -36,15 +36,6 @@ using namespace tcnn_grid;
 
 namespace {
 
-enum { kRoundNone = 0, kRoundFp16 = 1, kRoundBf16 = 2 };
-
-__device__ __forceinline__ float read_rounded(const float* p, int table_round) {
-  const float v = __ldg(p);
-  if (table_round == kRoundFp16) return __half2float(__float2half_rn(v));
-  if (table_round == kRoundBf16) return __bfloat162float(__float2bfloat16_rn(v));
-  return v;
-}
-
 __device__ __forceinline__ void store(float* p, float v) { *p = v; }
 __device__ __forceinline__ void store(__nv_bfloat16* p, float v) { *p = __float2bfloat16_rn(v); }
 

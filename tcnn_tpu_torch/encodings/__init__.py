@@ -1,6 +1,7 @@
 """Encoding factory and registry (port of ``tcnn_tpu.encodings``; reference:
-src/encoding.cu:44-159). The grid family is ported; the other encodings of
-the JAX package raise ``NotImplementedError`` until their port lands."""
+src/encoding.cu:44-159). The grid family and Identity are ported; the
+other encodings of the JAX package raise ``NotImplementedError`` until their
+port lands."""
 
 from __future__ import annotations
 
@@ -8,13 +9,14 @@ from typing import Callable, Dict, Optional
 
 from ..common import CIDict, json_value
 from .base import Encoding
+from .basic import IdentityEncoding
 from .grid import GridEncoding, create_grid_encoding
 
 _ENCODING_FACTORIES: CIDict = CIDict()
 
 # Encodings of the JAX package that the port does not have yet.
 _NOT_PORTED = (
-    "Composite", "Empty", "Frequency", "Identity", "OneBlob",
+    "Composite", "Empty", "Frequency", "OneBlob",
     "SphericalHarmonics", "TriangleWave", "OneBlobFrequency", "NRC",
 )
 
@@ -27,6 +29,10 @@ def register_encoding(name: str, factory: Callable[[int, Dict], Encoding]):
 
 for _name in ("Grid", "HashGrid", "TiledGrid", "DenseGrid"):
     register_encoding(_name, create_grid_encoding)
+register_encoding(
+    "Identity",
+    lambda n, cfg: IdentityEncoding(n, json_value(cfg, "scale", 1.0), json_value(cfg, "offset", 0.0)),
+)
 
 
 def create_encoding(n_dims_to_encode: int, encoding: Optional[Dict] = None, alignment: int = 8) -> Encoding:
@@ -49,4 +55,4 @@ def builtin_encodings():
     return sorted(_ENCODING_FACTORIES.keys())
 
 
-__all__ = ["Encoding", "GridEncoding", "builtin_encodings", "create_encoding", "register_encoding"]
+__all__ = ["Encoding", "GridEncoding", "IdentityEncoding", "builtin_encodings", "create_encoding", "register_encoding"]

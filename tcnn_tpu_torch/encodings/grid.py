@@ -443,8 +443,9 @@ class GridEncoding(Encoding):
         """Encode positions ``x`` (batch, n_dims) to (batch,
         padded_output_width) in ``output_dtype``. ``table_dtype`` overrides
         the encoding's read rounding (serve-time precision). Differentiable
-        with respect to ``params`` (the lookup and table-gradient kernels on
-        the card, their plain versions on the CPU)."""
+        twice with respect to ``params`` and ``x`` (``ops.grid_encode``: the
+        lookup, table-gradient, input-gradient and double-backward kernels
+        on the card, their plain versions on the CPU)."""
         return self._encode(params, x, table_dtype, plain=False)
 
     def apply_plain(self, params: torch.Tensor, x: torch.Tensor, table_dtype: Optional[str] = None) -> torch.Tensor:
@@ -454,17 +455,14 @@ class GridEncoding(Encoding):
 
     def _encode(self, params, x, table_dtype, plain: bool):
         x = x.to(torch.float32).contiguous()
-        if torch.is_grad_enabled():
-            if x.requires_grad:
-                raise NotImplementedError(
-                    "GridEncoding: gradients with respect to the input positions are not ported yet "
-                    "(ROADMAP.md, Queue 1 item 4: module API and second order)"
-                )
-            if params.requires_grad and self.stochastic_interpolation:
-                raise NotImplementedError(
-                    "GridEncoding: training with stochastic_interpolation is not ported yet "
-                    "(ROADMAP.md, Queue 1 item 5: other encodings and grid extras)"
-                )
+        # Input gradients stay exact with stochastic interpolation (the JAX
+        # package's GridEncoding.apply, tcnn_tpu/encodings/grid.py:1391-1395);
+        # only its table gradient is not ported.
+        if torch.is_grad_enabled() and params.requires_grad and self.stochastic_interpolation:
+            raise NotImplementedError(
+                "GridEncoding: training with stochastic_interpolation is not ported yet "
+                "(ROADMAP.md, Queue 1 item 5: other encodings and grid extras)"
+            )
         classes, acc16 = None, False
         if torch.is_grad_enabled() and params.requires_grad:
             classes, acc16 = self._classes_on(x.device, x.shape[0])

@@ -13,8 +13,11 @@ import torch
 
 def params_from_numpy(flat, model) -> torch.Tensor:
     """The JAX package's flat parameters (a numpy array, e.g. from
-    ``trainer.params`` or ``trainer.inference_params()``) as a float32
-    tensor on ``model``'s device, ready for ``trainer.params = ...``."""
+    ``trainer.params``, ``trainer.inference_params()`` or a
+    ``tcnn_tpu.modules`` module's ``params``) as a float32 tensor on
+    ``model``'s device, ready for ``trainer.params = ...`` or a module's
+    ``params.copy_(...)``. ``model`` is anything with ``n_params`` and
+    ``params``: a ``NetworkWithInputEncoding`` or a ``modules`` module."""
     arr = np.asarray(flat)
     if arr.dtype != np.float32:
         raise ValueError(f"params_from_numpy: expected float32 params, got {arr.dtype}")

@@ -6,7 +6,8 @@ The model holds all its parameters as ONE flat fp32 ``nn.Parameter`` in the
 JAX package's layout, ``[network params | encoding params]``
 (network_with_input_encoding.h:115-130); the network and the encoding read
 views of it. The encoding's output is padded to the network's input
-alignment (:46-53).
+alignment (:46-53). The parameter lives on the CUDA card unless the
+caller names another device (``device="cpu"``).
 """
 
 from __future__ import annotations
@@ -17,7 +18,7 @@ import numpy as np
 import torch
 from torch import nn
 
-from .common import as_dtype
+from .common import as_dtype, resolve_device
 from .encodings import Encoding, create_encoding
 from .networks import Network, create_network, minimum_alignment
 
@@ -47,7 +48,7 @@ class NetworkWithInputEncoding(nn.Module):
 
         self.network: Network = create_network(self.encoding.padded_output_width, n_output_dims, network_config)
         self.network.compute_dtype = self.compute_dtype
-        self.params = nn.Parameter(torch.zeros(self.n_params, dtype=torch.float32, device=device))
+        self.params = nn.Parameter(torch.zeros(self.n_params, dtype=torch.float32, device=resolve_device(device)))
 
     @property
     def input_width(self) -> int:

@@ -7,7 +7,10 @@ On the card ``apply`` always runs the fused kernels (``ops.ffmlp``: the
 forward, and the backward through ``FfmlpFunction``); on the CPU the
 kernels' wrappers compute their plain versions. ``apply_plain`` takes the
 plain versions on every device. ``use_kernel=False`` selects the chain,
-differentiated by torch autograd, on every device.
+differentiated by torch autograd, on every device. ``apply_packed`` is the
+packed-I/O path of narrow-uniform MLPs (``ops.ffmlp`` K7/K8). A backward
+that must itself be differentiable (second order) runs through the chain on
+every path, as in the JAX package (``ops.ffmlp._chain_backward``).
 """
 
 from __future__ import annotations
@@ -15,7 +18,7 @@ from __future__ import annotations
 import torch
 
 from ..common import Activation
-from ..ops.ffmlp import FFMLP_WIDTHS, FfmlpFunction
+from ..ops.ffmlp import FFMLP_WIDTHS, FfmlpFunction, FfmlpPackedFunction
 from .mlp import MLP
 
 
@@ -64,3 +67,25 @@ class FullyFusedMLP(MLP):
         dt = self.compute_dtype
         ws = [w.to(dt) for w in self._weights(params)]
         return FfmlpFunction.apply(x.to(dt).contiguous(), self.activation, self.output_activation, plain, *ws)
+
+    def apply_packed(self, params: torch.Tensor, x_packed: torch.Tensor) -> torch.Tensor:
+        """Packed-I/O path (tcnn_tpu/networks/fully_fused.py:apply_packed):
+        ``x_packed`` is (batch/G, 128) with G = 128/input_width samples per
+        row, the compact row-major (batch, input_width) batch reshaped.
+        Returns (batch/G, G*padded_output_width); reshape to (batch,
+        padded_output_width) to unpack. Needs a narrow-uniform MLP
+        (n_neurons == input_width < 128), else ValueError. Differentiable
+        (K7 forward, K8 backward)."""
+        return self._packed(params, x_packed, plain=False)
+
+    def apply_packed_plain(self, params: torch.Tensor, x_packed: torch.Tensor) -> torch.Tensor:
+        """``apply_packed`` through the block-diagonal plain versions, on any
+        device."""
+        return self._packed(params, x_packed, plain=True)
+
+    def _packed(self, params, x_packed, plain: bool):
+        dt = self.compute_dtype
+        ws = [w.to(dt) for w in self._weights(params)]
+        return FfmlpPackedFunction.apply(
+            x_packed.to(dt).contiguous(), self.activation, self.output_activation, plain, *ws
+        )

@@ -28,6 +28,7 @@ NVCC_FLAGS = (
 )
 
 _loaded: Dict[str, ctypes.CDLL] = {}
+_bound: Dict[tuple, object] = {}
 _lock = threading.Lock()
 
 
@@ -85,3 +86,19 @@ def load_library(name: str) -> ctypes.CDLL:
         if lib is None:
             lib = _loaded[name] = ctypes.CDLL(str(build_library(name)))
         return lib
+
+
+def kernel(name: str, symbol: str, argtypes):
+    """The C entry point ``symbol`` of library ``name``, built and loaded at
+    first use, with its argument types set and an ``int`` (cudaError_t)
+    result. Each symbol is bound on its own: a symbol left with ctypes'
+    default ``int`` argument types would cut its 64-bit pointers."""
+    key = (name, symbol)
+    fn = _bound.get(key)
+    if fn is None:
+        fn = getattr(load_library(name), symbol)
+        fn.argtypes = list(argtypes)
+        fn.restype = ctypes.c_int
+        with _lock:
+            _bound[key] = fn
+    return fn

@@ -13,9 +13,19 @@ the layers in reverse, as ``ffmlp_backward_plain`` writes out: bf16 deltas,
 fp32 products, the weight gradient summed over the batch in fp32 and
 rounded to bf16 once, the input gradient rounded to bf16.
 
-``ffmlp_forward`` and ``ffmlp_backward`` dispatch on the device of ``x``: a
-CPU tensor takes the plain version, a CUDA tensor launches the kernel or
-raises. There is no fallback from one to the other.
+The packed-I/O pair ``ffmlp_forward_packed`` / ``ffmlp_backward_packed``
+replaces ``mlp_forward_pallas_packed`` and ``mlp_backward_pallas_packed``
+(K7/K8). On the TPU a ``(B, w < 128)`` array pads its lanes to 128 in HBM, so
+those kernels carry G = 128/w samples per 128-lane row and multiply by
+G-block-diagonal weights. On the card a row-major ``(B/G, 128)`` tensor is
+byte for byte the compact ``(B, w)`` tensor: there is no padding to avoid, so
+K7/K8 launch the fused kernels above on the ``(B, w)`` view, with counters of
+their own. Their plain versions are the JAX construction written out
+independently: ``kron(eye(G), W^T)`` on the packed layout.
+
+Every wrapper dispatches on the device of ``x``: a CPU tensor takes the plain
+version, a CUDA tensor launches the kernel or raises. There is no fallback
+from one to the other.
 """
 
 from __future__ import annotations
@@ -29,9 +39,12 @@ from ..common import Activation
 from ..networks.activations import ACTIVATION_CODES, activation_backward, activation_fn
 
 # Launches of the CUDA kernels (each incremented once per launch of its
-# wrapper's kernel, nowhere else): the forward and the backward.
+# wrapper's kernel, nowhere else): the forward and the backward, and the
+# same two kernels launched by the packed-I/O wrappers (K7, K8).
 LAUNCHES = 0
 BWD_LAUNCHES = 0
+PACKED_LAUNCHES = 0
+PACKED_BWD_LAUNCHES = 0
 
 FFMLP_WIDTHS = (16, 32, 64, 128)
 
@@ -94,18 +107,6 @@ def ffmlp_backward_plain(
     return dh.to(dt), dws
 
 
-def _lib(name: str, symbol: str, argtypes):
-    from ._build import load_library
-
-    lib = load_library(name)
-    if not getattr(lib, "_tcnn_bound", False):
-        fn = getattr(lib, symbol)
-        fn.argtypes = argtypes
-        fn.restype = ctypes.c_int
-        lib._tcnn_bound = True
-    return lib
-
-
 def _check_shapes(in_width: int, shapes: Sequence[Tuple[int, int]]) -> Tuple[int, int, int]:
     """(width, n_hidden_layers, out_width) of a layer-shape list the kernel
     takes, or ValueError."""
@@ -146,6 +147,27 @@ def _kernel_operands(what: str, x: torch.Tensor, weights: Sequence[torch.Tensor]
     return width, n_hidden, out_width, flat
 
 
+def _launch_forward(what: str, x, weights, activation, output_activation) -> torch.Tensor:
+    """Checks the operands and launches ``csrc/ffmlp_fwd.cu``; raises if the
+    launch fails."""
+    from ._build import kernel
+
+    width, n_hidden, out_width, flat = _kernel_operands(what, x, weights)
+    batch = x.shape[0]
+    out = torch.empty((batch, out_width), dtype=torch.bfloat16, device=x.device)
+    if batch == 0:
+        return out
+    err = kernel("ffmlp_fwd", "tcnn_ffmlp_forward", _FWD_ARGS)(
+        x.data_ptr(), flat.data_ptr(), out.data_ptr(),
+        batch, x.shape[1], width, n_hidden, out_width,
+        ACTIVATION_CODES[activation], ACTIVATION_CODES[output_activation],
+        torch.cuda.current_stream(x.device).cuda_stream,
+    )
+    if err != 0:
+        raise RuntimeError(f"{what}: CUDA launch failed (cudaError {err})")
+    return out
+
+
 def ffmlp_forward(
     x: torch.Tensor,
     weights: Sequence[torch.Tensor],
@@ -159,23 +181,38 @@ def ffmlp_forward(
         return ffmlp_forward_plain(x, weights, activation, output_activation)
     if x.device.type != "cuda":
         raise ValueError(f"ffmlp_forward: unsupported device {x.device}")
-    width, n_hidden, out_width, flat = _kernel_operands("ffmlp_forward", x, weights)
+    out = _launch_forward("ffmlp_forward", x, weights, activation, output_activation)
+    if x.shape[0]:
+        global LAUNCHES
+        LAUNCHES += 1
+    return out
+
+
+def _launch_backward(what: str, x, g, weights, activation, output_activation):
+    """Checks the operands and launches ``csrc/ffmlp_bwd.cu``; raises if the
+    launch fails. Returns (dx, [dW...])."""
+    from ._build import kernel
+
+    width, n_hidden, out_width, flat = _kernel_operands(what, x, weights)
     batch = x.shape[0]
-    out = torch.empty((batch, out_width), dtype=torch.bfloat16, device=x.device)
-    if batch == 0:
-        return out
-    global LAUNCHES
-    stream = torch.cuda.current_stream(x.device).cuda_stream
-    err = _lib("ffmlp_fwd", "tcnn_ffmlp_forward", _FWD_ARGS).tcnn_ffmlp_forward(
-        x.data_ptr(), flat.data_ptr(), out.data_ptr(),
+    if (
+        g.shape != (batch, out_width) or g.dtype != torch.bfloat16 or g.device != x.device
+        or not g.is_contiguous()
+    ):
+        raise ValueError(f"{what}: g must be a contiguous ({batch}, {out_width}) bfloat16 tensor on the device of x")
+    dx = torch.empty_like(x)
+    dw32 = torch.empty(flat.numel(), dtype=torch.float32, device=x.device)
+    dw16 = torch.empty_like(flat)
+    err = kernel("ffmlp_bwd", "tcnn_ffmlp_backward", _BWD_ARGS)(
+        x.data_ptr(), g.data_ptr(), flat.data_ptr(), dx.data_ptr(), dw32.data_ptr(), dw16.data_ptr(),
         batch, x.shape[1], width, n_hidden, out_width,
         ACTIVATION_CODES[activation], ACTIVATION_CODES[output_activation],
-        stream,
+        torch.cuda.current_stream(x.device).cuda_stream,
     )
     if err != 0:
-        raise RuntimeError(f"ffmlp_forward: CUDA launch failed (cudaError {err})")
-    LAUNCHES += 1
-    return out
+        raise RuntimeError(f"{what}: CUDA launch failed (cudaError {err})")
+    sizes = [w.numel() for w in weights]
+    return dx, [d.view(w.shape) for d, w in zip(dw16.split(sizes), weights)]
 
 
 def ffmlp_backward(
@@ -192,36 +229,196 @@ def ffmlp_backward(
         return ffmlp_backward_plain(x, g, weights, activation, output_activation)
     if x.device.type != "cuda":
         raise ValueError(f"ffmlp_backward: unsupported device {x.device}")
-    width, n_hidden, out_width, flat = _kernel_operands("ffmlp_backward", x, weights)
-    batch = x.shape[0]
-    if (
-        g.shape != (batch, out_width) or g.dtype != torch.bfloat16 or g.device != x.device
-        or not g.is_contiguous()
-    ):
-        raise ValueError(f"ffmlp_backward: g must be a contiguous ({batch}, {out_width}) bfloat16 tensor on the device of x")
-    dx = torch.empty_like(x)
-    dw32 = torch.empty(flat.numel(), dtype=torch.float32, device=x.device)
-    dw16 = torch.empty_like(flat)
+    out = _launch_backward("ffmlp_backward", x, g, weights, activation, output_activation)
     global BWD_LAUNCHES
-    err = _lib("ffmlp_bwd", "tcnn_ffmlp_backward", _BWD_ARGS).tcnn_ffmlp_backward(
-        x.data_ptr(), g.data_ptr(), flat.data_ptr(), dx.data_ptr(), dw32.data_ptr(), dw16.data_ptr(),
-        batch, x.shape[1], width, n_hidden, out_width,
-        ACTIVATION_CODES[activation], ACTIVATION_CODES[output_activation],
-        torch.cuda.current_stream(x.device).cuda_stream,
-    )
-    if err != 0:
-        raise RuntimeError(f"ffmlp_backward: CUDA launch failed (cudaError {err})")
     BWD_LAUNCHES += 1
-    sizes = [w.numel() for w in weights]
-    return dx, [d.view(w.shape) for d, w in zip(dw16.split(sizes), weights)]
+    return out
+
+
+def packed_group(in_width: int, weights: Sequence[torch.Tensor]) -> int:
+    """Samples per 128-lane row of the packed-I/O path, G = 128/in_width,
+    when the MLP is narrow-uniform (every hidden width equals in_width and
+    divides 128); 1 when packing does not apply. ``weights`` are row-major
+    (fan_out, fan_in) (tcnn_tpu/ops/ffmlp.py:packed_group reads the
+    transposed layout)."""
+    width = weights[0].shape[0] if weights else 0
+    if in_width >= 128 or in_width <= 0 or 128 % in_width != 0:
+        return 1
+    if width != in_width or any(w.shape[0] != width for w in weights[:-1]):
+        return 1
+    return 128 // in_width
+
+
+def _packed_group(x_packed: torch.Tensor, weights: Sequence[torch.Tensor]) -> int:
+    """G for a packed batch, or the JAX package's ValueError."""
+    if x_packed.dim() != 2 or x_packed.shape[1] != 128:
+        raise ValueError(f"x_packed must be (batch/G, 128), got {tuple(x_packed.shape)}")
+    in_width = weights[0].shape[1]
+    G = packed_group(in_width, weights)
+    if G <= 1:
+        raise ValueError(
+            "packed path needs a narrow uniform MLP (in/hidden width dividing 128); "
+            f"got in={in_width}, widths={[w.shape[0] for w in weights]}"
+        )
+    return G
+
+
+def _block_diag(w: torch.Tensor, G: int) -> torch.Tensor:
+    """kron(eye(G), W^T) in fp32 for a row-major (fan_out, fan_in) ``w``:
+    (G*fan_in, G*fan_out), the JAX kernels' ``_kernel_block_diag``."""
+    return torch.kron(torch.eye(G, dtype=torch.float32, device=w.device), w.to(torch.float32).T.contiguous())
+
+
+def _diag_sum(dw: torch.Tensor, G: int) -> torch.Tensor:
+    """(G*a, G*b) -> (a, b): the sum of the diagonal blocks, in block order
+    (tcnn_tpu/ops/ffmlp.py:_kernel_diag_sum)."""
+    a, b = dw.shape[0] // G, dw.shape[1] // G
+    acc = dw[:a, :b]
+    for k in range(1, G):
+        acc = acc + dw[k * a : (k + 1) * a, k * b : (k + 1) * b]
+    return acc
+
+
+def ffmlp_forward_packed_plain(
+    x_packed: torch.Tensor,
+    weights: Sequence[torch.Tensor],
+    activation: Activation,
+    output_activation: Activation,
+) -> torch.Tensor:
+    """The packed-I/O forward as the JAX kernel computes it
+    (``_mlp_kernel_packed``): every layer multiplies the packed rows (G
+    samples per row) by G-block-diagonal weights, fp32 products, the
+    activation in fp32, one bf16 rounding per layer. (rows, 128) ->
+    (rows, G*out_p)."""
+    G = _packed_group(x_packed, weights)
+    dt = x_packed.dtype
+    h = x_packed
+    n = len(weights)
+    for i, w in enumerate(weights):
+        z = h.to(torch.float32) @ _block_diag(w, G)
+        h = activation_fn(z, output_activation if i == n - 1 else activation).to(dt)
+    return h
+
+
+def ffmlp_backward_packed_plain(
+    x_packed: torch.Tensor,
+    g_packed: torch.Tensor,
+    weights: Sequence[torch.Tensor],
+    activation: Activation,
+    output_activation: Activation,
+) -> Tuple[torch.Tensor, List[torch.Tensor]]:
+    """The packed-I/O backward as the JAX kernel and its wrapper compute it
+    (``_mlp_bwd_kernel_packed``, ``_ffmlp_packed_bwd``): the block-diagonal
+    forward recomputed, then per layer in reverse d16 = bf16(delta), the
+    block-diagonal dW = h^T d16 reduced by ``_diag_sum`` in fp32 and rounded
+    to bf16 once, dh = d16 W_bd^T in fp32; dx = bf16(dh). Returns (dx
+    (rows, 128), [dW...] shaped like the row-major weights)."""
+    G = _packed_group(x_packed, weights)
+    dt = x_packed.dtype
+    n = len(weights)
+    wbd = [_block_diag(w, G) for w in weights]
+    hs, zs = [x_packed], []
+    h = x_packed
+    for i in range(n):
+        z = h.to(torch.float32) @ wbd[i]
+        zs.append(z)
+        if i < n - 1:
+            h = activation_fn(z, activation).to(dt)
+            hs.append(h)
+    delta = activation_backward(g_packed.to(torch.float32), zs[-1], output_activation)
+    dws: List[torch.Tensor] = [None] * n
+    for i in range(n - 1, -1, -1):
+        d16 = delta.to(dt).to(torch.float32)
+        dws[i] = _diag_sum(hs[i].to(torch.float32).T @ d16, G).T.to(dt)
+        dh = d16 @ wbd[i].T
+        if i > 0:
+            delta = activation_backward(dh, zs[i - 1], activation)
+    return dh.to(dt), dws
+
+
+def _unpacked(x_packed: torch.Tensor, G: int) -> torch.Tensor:
+    """The compact (B, 128/G) view of a contiguous packed batch."""
+    if not x_packed.is_contiguous():
+        raise ValueError("x_packed must be contiguous (the kernels read its compact (B, in_width) view)")
+    return x_packed.view(x_packed.shape[0] * G, 128 // G)
+
+
+def ffmlp_forward_packed(
+    x_packed: torch.Tensor,
+    weights: Sequence[torch.Tensor],
+    activation: Activation,
+    output_activation: Activation,
+) -> torch.Tensor:
+    """Packed-I/O forward (K7). ``x_packed``: (B/G, 128) bf16 with G =
+    128/in_width samples per row, i.e. the compact (B, in_width) batch;
+    ``weights`` as for ``ffmlp_forward`` of a narrow-uniform MLP. Returns
+    (B/G, G*out_p) bf16. On the card: ``csrc/ffmlp_fwd.cu`` on the (B,
+    in_width) view (the same bytes), no block-diagonal weights."""
+    G = _packed_group(x_packed, weights)
+    if x_packed.device.type == "cpu":
+        return ffmlp_forward_packed_plain(x_packed, weights, activation, output_activation)
+    if x_packed.device.type != "cuda":
+        raise ValueError(f"ffmlp_forward_packed: unsupported device {x_packed.device}")
+    rows = x_packed.shape[0]
+    out = _launch_forward("ffmlp_forward_packed", _unpacked(x_packed, G), weights, activation, output_activation)
+    if rows:
+        global PACKED_LAUNCHES
+        PACKED_LAUNCHES += 1
+    return out.view(rows, -1)
+
+
+def ffmlp_backward_packed(
+    x_packed: torch.Tensor,
+    g_packed: torch.Tensor,
+    weights: Sequence[torch.Tensor],
+    activation: Activation,
+    output_activation: Activation,
+) -> Tuple[torch.Tensor, List[torch.Tensor]]:
+    """Packed-I/O backward (K8). ``x_packed`` (B/G, 128) and ``g_packed``
+    (B/G, G*out_p) bf16. Returns (dx (B/G, 128), [dW...]) bf16; dW summed
+    over the batch in fp32 and rounded once. On the card:
+    ``csrc/ffmlp_bwd.cu`` on the (B, in_width) and (B, out_p) views."""
+    G = _packed_group(x_packed, weights)
+    if x_packed.device.type == "cpu":
+        return ffmlp_backward_packed_plain(x_packed, g_packed, weights, activation, output_activation)
+    if x_packed.device.type != "cuda":
+        raise ValueError(f"ffmlp_backward_packed: unsupported device {x_packed.device}")
+    rows = x_packed.shape[0]
+    if g_packed.dim() != 2 or g_packed.shape[0] != rows or g_packed.shape[1] % G or not g_packed.is_contiguous():
+        raise ValueError(f"ffmlp_backward_packed: g_packed must be a contiguous ({rows}, G*out) tensor")
+    g = g_packed.view(rows * G, g_packed.shape[1] // G)
+    dx, dws = _launch_backward("ffmlp_backward_packed", _unpacked(x_packed, G), g, weights, activation,
+                               output_activation)
+    global PACKED_BWD_LAUNCHES
+    PACKED_BWD_LAUNCHES += 1
+    return dx.view(rows, 128), dws
+
+
+def _chain_backward(ctx, x, g, weights):
+    """The backward under ``create_graph``: autograd of the plain chain
+    (``ffmlp_forward_plain``: fp32 products, bf16 rounding per layer),
+    recomputed from the saved inputs, so that the gradients it returns are
+    themselves differentiable. The JAX package does the same for any
+    second-order trace of the fused MLP: ``FullyFusedMLP.apply`` routes it
+    to the differentiable XLA chain (tcnn_tpu/networks/fully_fused.py:
+    145-162). Returns the gradients of (x, *weights), None where
+    ``ctx.needs_input_grad`` says none is needed."""
+    wanted = [ctx.needs_input_grad[0]] + list(ctx.needs_input_grad[4:])
+    inputs = [t for t, w in zip([x, *weights], wanted) if w]
+    with torch.enable_grad():
+        out = ffmlp_forward_plain(x, weights, *ctx.acts)
+    grads = iter(torch.autograd.grad(out, inputs, g.to(out.dtype), create_graph=True))
+    return [next(grads) if w else None for w in wanted]
 
 
 class FfmlpFunction(torch.autograd.Function):
-    """Differentiable fused MLP (first order): the forward is
-    ``ffmlp_forward``, the backward ``ffmlp_backward``, or with ``plain``
-    their plain versions on any device. The counterpart of the JAX
-    package's ``ffmlp_apply``; its residuals are x and the weights, the
-    backward recomputes the activations.
+    """Differentiable fused MLP: the forward is ``ffmlp_forward``, the
+    backward ``ffmlp_backward``, or with ``plain`` their plain versions on
+    any device. The counterpart of the JAX package's ``ffmlp_apply``; its
+    residuals are x and the weights, the backward recomputes the
+    activations. A backward that must itself be differentiable
+    (``create_graph=True``, e.g. an eikonal loss) takes the chain instead
+    (``_chain_backward``), as the JAX package does.
 
     ``FfmlpFunction.apply(x, activation, output_activation, plain, *weights)``
     """
@@ -236,12 +433,45 @@ class FfmlpFunction(torch.autograd.Function):
 
     @staticmethod
     def backward(ctx, g):
-        if torch.is_grad_enabled():
-            raise NotImplementedError(
-                "FfmlpFunction: the fused MLP has no double backward yet "
-                "(ROADMAP.md, Queue 1 item 4: module API and second order)"
-            )
         x, *weights = ctx.saved_tensors
+        if torch.is_grad_enabled():
+            # Second order: the differentiable chain, as JAX's
+            # FullyFusedMLP.apply routes second-order traces
+            # (tcnn_tpu/networks/fully_fused.py:145-162).
+            dx, *dws = _chain_backward(ctx, x, g, weights)
+            return (dx, None, None, None, *dws)
         bwd = ffmlp_backward_plain if ctx.plain else ffmlp_backward
+        dx, dws = bwd(x, g.to(x.dtype).contiguous(), weights, *ctx.acts)
+        return (dx, None, None, None, *dws)
+
+
+class FfmlpPackedFunction(torch.autograd.Function):
+    """Differentiable packed-I/O fused MLP, the counterpart of the JAX
+    package's ``ffmlp_apply_packed``: the forward is
+    ``ffmlp_forward_packed`` (K7), the backward ``ffmlp_backward_packed``
+    (K8), or with ``plain`` their plain versions on any device. Under
+    ``create_graph`` the backward takes the chain on the unpacked views,
+    as ``FfmlpFunction`` does.
+
+    ``FfmlpPackedFunction.apply(x_packed, activation, output_activation,
+    plain, *weights)``
+    """
+
+    @staticmethod
+    def forward(ctx, x_packed, activation, output_activation, plain, *weights):
+        ctx.acts = (activation, output_activation)
+        ctx.plain = bool(plain)
+        ctx.save_for_backward(x_packed, *weights)
+        fwd = ffmlp_forward_packed_plain if plain else ffmlp_forward_packed
+        return fwd(x_packed, list(weights), activation, output_activation)
+
+    @staticmethod
+    def backward(ctx, g):
+        x, *weights = ctx.saved_tensors
+        if torch.is_grad_enabled():
+            batch = x.numel() // weights[0].shape[1]
+            dx, *dws = _chain_backward(ctx, x.reshape(batch, -1), g.reshape(batch, -1), weights)
+            return (None if dx is None else dx.reshape(x.shape), None, None, None, *dws)
+        bwd = ffmlp_backward_packed_plain if ctx.plain else ffmlp_backward_packed
         dx, dws = bwd(x, g.to(x.dtype).contiguous(), weights, *ctx.acts)
         return (dx, None, None, None, *dws)

@@ -73,18 +73,6 @@ def hyperparams_of(opt, n: int, n_matrix: int, loss_scale: float) -> AdamHyperpa
     )
 
 
-def _lib():
-    from ._build import load_library
-
-    lib = load_library("adam_step")
-    if not getattr(lib, "_tcnn_bound", False):
-        fn = lib.tcnn_adam_step
-        fn.argtypes = [ctypes.c_void_p] * 8
-        fn.restype = ctypes.c_int
-        lib._tcnn_bound = True
-    return lib
-
-
 def adam_step(
     params: torch.Tensor,
     grads: torch.Tensor,
@@ -112,7 +100,9 @@ def adam_step(
     if hp.n != n:
         raise ValueError(f"adam_step: hyperparameters are for {hp.n} parameters, got {n}")
     global LAUNCHES
-    err = _lib().tcnn_adam_step(
+    from ._build import kernel
+
+    err = kernel("adam_step", "tcnn_adam_step", [ctypes.c_void_p] * 8)(
         params.data_ptr(), grads.data_ptr(), first_moments.data_ptr(), second_moments.data_ptr(),
         param_steps.data_ptr(), step.data_ptr(), ctypes.addressof(hp),
         torch.cuda.current_stream(params.device).cuda_stream,

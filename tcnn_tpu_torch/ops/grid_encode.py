@@ -1,15 +1,21 @@
-"""Multiresolution grid lookup and its table gradient: the CUDA kernels'
-wrappers, their plain versions and the autograd Function that binds them.
+"""Multiresolution grid lookup and its derivatives: the CUDA kernels'
+wrappers, their plain versions and the autograd Functions that bind them.
 
 The lookup kernel (``csrc/grid_fwd.cu``) covers every level in one launch,
 one thread per (sample, level). Its plain version ``grid_encode_plain`` is a
 vectorised torch lookup level by level. The backward kernel
 (``csrc/grid_bwd.cu:tcnn_grid_backward``) recomputes each (sample, level)'s
 corners the same way and adds the rounded contributions atomically into the
-table gradient; its plain version is ``grid_backward_plain``. All of them
-read the same description of the grid: the (n_levels, 24) int32 level table
-built by ``level_table``; the backward also reads the per-level gradient
-rounding classes (``ops.scatter_rows`` codes).
+table gradient; its plain version is ``grid_backward_plain``. The input
+gradient (``tcnn_grid_backward_input``, plain ``grid_backward_input_plain``)
+and the double backward (``tcnn_grid_backward_backward``, plain
+``grid_backward_backward_plain``) replace what the JAX package gets from XLA
+autodiff of ``GridEncoding.apply`` (tcnn_tpu/encodings/grid.py:1354): they
+differentiate the corner weights with respect to x, exactly in every term
+(``jax.grad`` of ``jax.grad``). All of them read the same description of the
+grid: the (n_levels, 24) int32 level table built by ``level_table``; the
+table-gradient scatters also read the per-level gradient rounding classes
+(``ops.scatter_rows`` codes).
 
 Index arithmetic is uint32 with wrap-around, as in the JAX package
 (``tcnn_tpu/encodings/grid.py:_grid_hash`` and the affine corner fold).
@@ -17,8 +23,8 @@ torch has no uint32 add/shift/remainder on the CPU, so the plain version
 holds uint32 values in int64 and masks to 32 bits after every add; its
 products are split so they never overflow int64 (``_mul32``).
 
-``grid_encode`` and ``grid_backward`` dispatch on the device of ``x``: a CPU
-tensor takes the plain version, a CUDA tensor launches the kernel or raises.
+Every wrapper dispatches on the device of ``x``: a CPU tensor takes the
+plain version, a CUDA tensor launches the kernel or raises.
 """
 
 from __future__ import annotations
@@ -30,9 +36,12 @@ import numpy as np
 import torch
 
 # Launches of the CUDA kernels (each incremented once per launch of its
-# wrapper's kernel, nowhere else): the lookup and the table gradient.
+# wrapper's kernel, nowhere else): the lookup, the table gradient, the input
+# gradient (G1) and the double backward (G2).
 LAUNCHES = 0
 BWD_LAUNCHES = 0
+INPUT_LAUNCHES = 0
+BWDBWD_LAUNCHES = 0
 
 # Level index modes (csrc/grid_fwd.cu switches on the same values).
 MODE_FOLD = 0  # affine: (sum_d uint32(pos_grid_d + bit_d) * stride_d) mod size
@@ -141,6 +150,65 @@ def _corner_bits(d: int, interpolation: int) -> np.ndarray:
     return np.asarray([[(c >> k) & 1 for k in range(d)] for c in range(n_corners)], np.int64)
 
 
+def _weight_derivatives(
+    x: torch.Tensor, row: np.ndarray, interpolation: int, bits_np: np.ndarray, second: bool
+) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
+    """Per corner, the derivatives of its weight with respect to x on one
+    level: the gradient (B, C, d) and, with ``second``, the Hessian (B, C,
+    d, d), else None. The weight of corner c is prod_k f_ck with f_ck = w_k
+    (bit k of c set) or 1 - w_k, w_k = s(t_k), t_k = pos_k - floor(pos_k)
+    and pos = x * scale + 0.5; so d f_ck / d x_k = +-scale s'(t_k) and d^2
+    f_ck / d x_k^2 = +-scale^2 s''(t_k), with s the identity (Linear) or t^2
+    (3 - 2t) (Smoothstep); floor contributes nothing and the Nearest weight
+    is constant. A derivative replaces its dimension's factor in the
+    product (csrc/grid_common.cuh does the same products)."""
+    batch, d = x.shape
+    n_c = bits_np.shape[0]
+    if interpolation == INTERP_NEAREST:
+        return x.new_zeros((batch, n_c, d)), (x.new_zeros((batch, n_c, d, d)) if second else None)
+    scale = float(np.int64(row[3]).astype(np.uint32).view(np.float32))
+    pos = x * scale + 0.5
+    t = pos - torch.floor(pos)
+    if interpolation == INTERP_SMOOTHSTEP:
+        w = t * t * (3.0 - 2.0 * t)
+        s1, s2 = 6.0 * t * (1.0 - t), 6.0 - 12.0 * t
+    else:
+        w, s1, s2 = t, torch.ones_like(t), torch.zeros_like(t)
+    bits = torch.from_numpy(bits_np).to(x.device).bool()[None]  # (1, C, d)
+    sign = torch.where(bits, 1.0, -1.0)
+    f = torch.where(bits, w[:, None, :], 1.0 - w[:, None, :])  # (B, C, d)
+    d1 = sign * (s1 * scale)[:, None, :]
+    d2 = sign * (s2 * scale * scale)[:, None, :]
+    def product(factor_of):
+        # In dimension order from 1.0, as the kernels multiply: the table
+        # gradient's stochastic rounding reads the exact bits.
+        p = torch.ones_like(f[..., 0])
+        for k in range(d):
+            p = p * factor_of(k)
+        return p
+
+    grad = torch.stack([product(lambda k, e=e: d1[..., k] if k == e else f[..., k]) for e in range(d)], dim=-1)
+    if not second:
+        return grad, None
+    hess = x.new_empty((batch, n_c, d, d))
+    for a in range(d):
+        for b in range(d):
+            if a == b:
+                hess[:, :, a, b] = product(lambda k: d2[..., k] if k == a else f[..., k])
+            else:
+                hess[:, :, a, b] = product(lambda k: d1[..., k] if k in (a, b) else f[..., k])
+    return grad, hess
+
+
+def _read_table(table: torch.Tensor, idx: torch.Tensor, table_round: int) -> torch.Tensor:
+    """Table rows at ``idx`` as the lookup reads them: fp32, or rounded to
+    the table dtype."""
+    feats = table[idx]
+    if table_round != ROUND_NONE:
+        feats = feats.to(_ROUND_DTYPES[table_round]).to(torch.float32)
+    return feats
+
+
 def grid_encode_plain(
     x: torch.Tensor,
     params: torch.Tensor,
@@ -162,9 +230,7 @@ def grid_encode_plain(
     outs = []
     for row in lt:
         idx, weights = _level_rows(x, row, interpolation, bits_np)
-        feats = table[idx]  # (B, C, F)
-        if table_round != ROUND_NONE:
-            feats = feats.to(_ROUND_DTYPES[table_round]).to(torch.float32)
+        feats = _read_table(table, idx, table_round)  # (B, C, F)
         outs.append(torch.sum(feats * weights[..., None], dim=1))
     y = torch.stack(outs, dim=1).reshape(batch, -1)
     if padded_width > y.shape[1]:
@@ -214,28 +280,109 @@ def grid_backward_plain(
     return grad.reshape(-1)
 
 
-def _lib():
-    from ._build import load_library
+def grid_backward_input_plain(
+    x: torch.Tensor,
+    dL_dy: torch.Tensor,
+    params: torch.Tensor,
+    levels: torch.Tensor,
+    n_features_per_level: int,
+    interpolation: int,
+    table_round: int,
+) -> torch.Tensor:
+    """Plain input gradient (B, d) fp32: dL/dx_e = sum over levels and
+    corners of d w_c / d x_e * <dL_dy[:, level features], T[idx_c]>, the
+    table read as the lookup reads it (``table_round``)."""
+    batch, d = x.shape
+    F = int(n_features_per_level)
+    table = params.view(-1, F)
+    lt = levels.cpu().numpy().view(np.uint32).astype(np.int64)
+    bits_np = _corner_bits(d, interpolation)
+    g = dL_dy.to(torch.float32)
+    dx = torch.zeros((batch, d), dtype=torch.float32, device=x.device)
+    for lvl, row in enumerate(lt):
+        idx, _ = _level_rows(x, row, interpolation, bits_np)
+        dw, _ = _weight_derivatives(x, row, interpolation, bits_np, second=False)
+        dots = torch.sum(_read_table(table, idx, table_round) * g[:, None, lvl * F : (lvl + 1) * F], dim=-1)
+        dx += torch.sum(dw * dots[..., None], dim=1)
+    return dx
 
-    lib = load_library("grid_fwd")
-    if not getattr(lib, "_tcnn_bound", False):
-        fn = lib.tcnn_grid_forward
-        fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 8 + [ctypes.c_void_p]
-        fn.restype = ctypes.c_int
-        lib._tcnn_bound = True
-    return lib
+
+def grid_backward_backward_plain(
+    x: torch.Tensor,
+    dL_dy: torch.Tensor,
+    params: torch.Tensor,
+    levels: torch.Tensor,
+    n_features_per_level: int,
+    interpolation: int,
+    table_round: int,
+    level_round: Optional[torch.Tensor],
+    cgp: Optional[torch.Tensor],
+    cgx: Optional[torch.Tensor],
+) -> Tuple[Optional[torch.Tensor], torch.Tensor, torch.Tensor]:
+    """Plain double backward. For the cotangents ``cgp`` (of the table
+    gradient, flat like ``params``) and ``cgx`` (of the input gradient, (B,
+    d)) of the first backward (dparams, dx) of the lookup, either of them
+    None for zero, returns the gradients of <cgp, dparams> + <cgx, dx>:
+
+    - d/dparams (flat fp32; None when ``level_round`` or ``cgx`` is None,
+      for zero): per corner
+      a_c * dL_dy, a_c = sum_e cgx_e d w_c / d x_e, scattered like the table
+      gradient with the level's rounding class;
+    - d/dx (B, d) fp32: sum_c d w_c/d x * <dL_dy, cgp[idx_c]> + sum_c (cgx^T
+      Hess w_c) <dL_dy, T[idx_c]>;
+    - d/d(dL_dy) (B, width of dL_dy) fp32: sum_c w_c cgp[idx_c] + a_c
+      T[idx_c] per level, zero in the padding columns.
+
+    A level whose class drops its table gradient has no cgp term (its
+    dparams is 0) and scatters nothing. T is read as the lookup reads it;
+    cgp is read exactly."""
+    from .scatter_rows import ACC_BF16, ACC_DROP, scatter_rows_plain
+
+    batch, d = x.shape
+    F = int(n_features_per_level)
+    table = params.view(-1, F)
+    lt = levels.cpu().numpy().view(np.uint32).astype(np.int64)
+    classes = None if level_round is None else level_round.cpu().numpy().reshape(-1, 2)
+    bits_np = _corner_bits(d, interpolation)
+    g = dL_dy.to(torch.float32)
+    cot_table = None if cgp is None else cgp.reshape(-1, F)
+    d_params = None
+    if classes is not None and cgx is not None:
+        d_params = torch.zeros((_table_rows(lt), F), dtype=torch.float32, device=x.device)
+    d_x = torch.zeros((batch, d), dtype=torch.float32, device=x.device)
+    d_dy = torch.zeros((batch, dL_dy.shape[1]), dtype=torch.float32, device=x.device)
+    for lvl, row in enumerate(lt):
+        contrib_round, acc = (0, 0) if classes is None else (int(v) for v in classes[lvl])
+        offset, size = int(row[0]), int(row[1])
+        idx, weights = _level_rows(x, row, interpolation, bits_np)
+        dw, hess = _weight_derivatives(x, row, interpolation, bits_np, second=cgx is not None)
+        gl = g[:, lvl * F : (lvl + 1) * F]
+        feats = _read_table(table, idx, table_round)  # (B, C, F)
+        cols = slice(lvl * F, (lvl + 1) * F)
+        if cot_table is not None and acc != ACC_DROP:
+            cot = cot_table[idx]
+            d_dy[:, cols] += torch.sum(weights[..., None] * cot, dim=1)
+            d_x += torch.sum(dw * torch.sum(cot * gl[:, None, :], dim=-1)[..., None], dim=1)
+        if cgx is not None:
+            a = torch.zeros_like(weights)  # (B, C): sum_e cgx_e dw_e, in the kernel's order
+            for e in range(d):
+                a = a + cgx[:, None, e] * dw[..., e]
+            d_dy[:, cols] += torch.sum(a[..., None] * feats, dim=1)
+            dots = torch.sum(feats * gl[:, None, :], dim=-1)  # (B, C)
+            d_x += torch.sum(torch.sum(hess * cgx[:, None, :, None], dim=2) * dots[..., None], dim=1)
+            if d_params is not None and acc != ACC_DROP:
+                acc_dtype = torch.bfloat16 if acc == ACC_BF16 else torch.float32
+                d_params[offset : offset + size] += scatter_rows_plain(
+                    (idx - offset).reshape(-1), (a[..., None] * gl[:, None, :]).reshape(-1, F), size,
+                    contrib_round, acc_dtype,
+                )
+    return (None if d_params is None else d_params.reshape(-1)), d_x, d_dy
 
 
-def _bwd_lib():
-    from ._build import load_library
-
-    lib = load_library("grid_bwd")
-    if not getattr(lib, "_tcnn_grid_bwd_bound", False):
-        fn = lib.tcnn_grid_backward
-        fn.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 7 + [ctypes.c_int64, ctypes.c_void_p]
-        fn.restype = ctypes.c_int
-        lib._tcnn_grid_bwd_bound = True
-    return lib
+_FWD_ARGS = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 8 + [ctypes.c_void_p]
+_BWD_ARGS = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 7 + [ctypes.c_int64, ctypes.c_void_p]
+_INPUT_ARGS = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 8 + [ctypes.c_void_p]
+_BWDBWD_ARGS = [ctypes.c_void_p] * 11 + [ctypes.c_int] * 8 + [ctypes.c_int64, ctypes.c_void_p]
 
 
 def _check_kernel_inputs(what: str, x: torch.Tensor, levels: torch.Tensor, n_features_per_level: int):
@@ -245,6 +392,37 @@ def _check_kernel_inputs(what: str, x: torch.Tensor, levels: torch.Tensor, n_fea
         raise ValueError(f"{what}: levels must be the (L, 24) int32 level table on the device of x")
     if not 1 <= x.shape[1] <= MAX_DIMS or not 1 <= int(n_features_per_level) <= MAX_FEATURES:
         raise ValueError(f"{what}: unsupported shape (dims {x.shape[1]}, features per level {n_features_per_level})")
+
+
+def _check_params(what: str, params: torch.Tensor, x: torch.Tensor):
+    if params.dim() != 1 or params.dtype != torch.float32 or not params.is_contiguous() or params.device != x.device:
+        raise ValueError(f"{what}: params must be a contiguous 1-D float32 tensor on the device of x")
+
+
+def _check_dy(what: str, dL_dy: torch.Tensor, x: torch.Tensor, n_levels: int, F: int):
+    batch = x.shape[0]
+    if (
+        dL_dy.dim() != 2 or dL_dy.shape[0] != batch or dL_dy.shape[1] < n_levels * F
+        or dL_dy.dtype not in (torch.bfloat16, torch.float32) or dL_dy.device != x.device
+        or not dL_dy.is_contiguous()
+    ):
+        raise ValueError(f"{what}: dL_dy must be a contiguous ({batch}, >= {n_levels * F}) bfloat16 or float32 tensor on the device of x")
+
+
+def _check_classes(what: str, level_round: torch.Tensor, x: torch.Tensor, n_levels: int):
+    if level_round.shape != (n_levels, 2) or level_round.dtype != torch.int32 or level_round.device != x.device:
+        raise ValueError(f"{what}: level_round must be the (L, 2) int32 class table on the device of x")
+
+
+
+
+def _stream(x: torch.Tensor) -> int:
+    return torch.cuda.current_stream(x.device).cuda_stream
+
+
+def _launch(what: str, err: int) -> None:
+    if err != 0:
+        raise RuntimeError(f"{what}: CUDA launch failed (cudaError {err})")
 
 
 def grid_encode(
@@ -266,8 +444,7 @@ def grid_encode(
     if x.device.type != "cuda":
         raise ValueError(f"grid_encode: unsupported device {x.device}")
     _check_kernel_inputs("grid_encode", x, levels, n_features_per_level)
-    if params.dim() != 1 or params.dtype != torch.float32 or not params.is_contiguous() or params.device != x.device:
-        raise ValueError("grid_encode: params must be a contiguous 1-D float32 tensor on the device of x")
+    _check_params("grid_encode", params, x)
     if out_dtype not in (torch.bfloat16, torch.float32):
         raise ValueError(f"grid_encode: the kernel writes bfloat16 or float32, not {out_dtype}")
     F = int(n_features_per_level)
@@ -278,14 +455,14 @@ def grid_encode(
     out = torch.empty((batch, padded_width), dtype=out_dtype, device=x.device)
     if batch == 0:
         return out
+    from ._build import kernel
+
     global LAUNCHES
-    err = _lib().tcnn_grid_forward(
+    _launch("grid_encode", kernel("grid_fwd", "tcnn_grid_forward", _FWD_ARGS)(
         x.data_ptr(), params.data_ptr(), levels.data_ptr(), out.data_ptr(),
         batch, d, n_levels, F, padded_width, int(interpolation), int(table_round),
-        int(out_dtype == torch.bfloat16), torch.cuda.current_stream(x.device).cuda_stream,
-    )
-    if err != 0:
-        raise RuntimeError(f"grid_encode: CUDA launch failed (cudaError {err})")
+        int(out_dtype == torch.bfloat16), _stream(x),
+    ))
     LAUNCHES += 1
     return out
 
@@ -312,43 +489,147 @@ def grid_backward(
     if x.device.type != "cuda":
         raise ValueError(f"grid_backward: unsupported device {x.device}")
     _check_kernel_inputs("grid_backward", x, levels, n_features_per_level)
-    from .scatter_rows import ACC_BF16
-
     F = int(n_features_per_level)
     batch, d = x.shape
     n_levels = levels.shape[0]
-    if (
-        dL_dy.dim() != 2 or dL_dy.shape[0] != batch or dL_dy.shape[1] < n_levels * F
-        or dL_dy.dtype not in (torch.bfloat16, torch.float32) or dL_dy.device != x.device
-        or not dL_dy.is_contiguous()
-    ):
-        raise ValueError(f"grid_backward: dL_dy must be a contiguous ({batch}, >= {n_levels * F}) bfloat16 or float32 tensor on the device of x")
-    if level_round.shape != (n_levels, 2) or level_round.dtype != torch.int32 or level_round.device != x.device:
-        raise ValueError("grid_backward: level_round must be the (L, 2) int32 class table on the device of x")
-    if n_values is None:
-        n_values = _table_rows(levels.cpu().numpy().view(np.uint32).astype(np.int64)) * F
-    if accumulates_bf16 is None:
-        accumulates_bf16 = bool((level_round[:, 1] == ACC_BF16).any())
-    grad = torch.empty(n_values, dtype=torch.float32, device=x.device)
-    grad16 = torch.empty(n_values, dtype=torch.bfloat16, device=x.device) if accumulates_bf16 else None
+    _check_dy("grid_backward", dL_dy, x, n_levels, F)
+    _check_classes("grid_backward", level_round, x, n_levels)
+    grad, grad16, n_values = _grad_buffers(levels, level_round, F, n_values, accumulates_bf16)
+    from ._build import kernel
+
     global BWD_LAUNCHES
-    err = _bwd_lib().tcnn_grid_backward(
+    _launch("grid_backward", kernel("grid_bwd", "tcnn_grid_backward", _BWD_ARGS)(
         x.data_ptr(), dL_dy.data_ptr(), levels.data_ptr(), level_round.data_ptr(), grad.data_ptr(),
         None if grad16 is None else grad16.data_ptr(),
         batch, d, n_levels, F, dL_dy.shape[1], int(interpolation), int(dL_dy.dtype == torch.bfloat16),
-        n_values, torch.cuda.current_stream(x.device).cuda_stream,
-    )
-    if err != 0:
-        raise RuntimeError(f"grid_backward: CUDA launch failed (cudaError {err})")
+        n_values, _stream(x),
+    ))
     BWD_LAUNCHES += 1
     return grad
 
 
+def _grad_buffers(levels, level_round, F, n_values, accumulates_bf16):
+    """The fp32 table-gradient buffer and, when a level's class sums in
+    bf16, its bf16 scratch; both filled by the kernel."""
+    from .scatter_rows import ACC_BF16
+
+    if n_values is None:
+        n_values = _table_rows(levels.cpu().numpy().view(np.uint32).astype(np.int64)) * F
+    if accumulates_bf16 is None:
+        accumulates_bf16 = bool((level_round[:, 1] == ACC_BF16).any())
+    dev = levels.device
+    grad16 = torch.empty(n_values, dtype=torch.bfloat16, device=dev) if accumulates_bf16 else None
+    return torch.empty(n_values, dtype=torch.float32, device=dev), grad16, n_values
+
+
+def grid_backward_input(
+    x: torch.Tensor,
+    dL_dy: torch.Tensor,
+    params: torch.Tensor,
+    levels: torch.Tensor,
+    n_features_per_level: int,
+    interpolation: int,
+    table_round: int = ROUND_NONE,
+) -> torch.Tensor:
+    """Input gradient of the all-levels lookup (G1): (B, d) fp32 for the
+    output gradient ``dL_dy`` (B, width >= L*F) in bf16 or fp32; see
+    ``grid_backward_input_plain``. On a CUDA ``x`` the kernel
+    ``tcnn_grid_backward_input`` runs."""
+    if x.device.type == "cpu":
+        return grid_backward_input_plain(x, dL_dy, params, levels, n_features_per_level, interpolation, table_round)
+    if x.device.type != "cuda":
+        raise ValueError(f"grid_backward_input: unsupported device {x.device}")
+    _check_kernel_inputs("grid_backward_input", x, levels, n_features_per_level)
+    _check_params("grid_backward_input", params, x)
+    F = int(n_features_per_level)
+    batch, d = x.shape
+    n_levels = levels.shape[0]
+    _check_dy("grid_backward_input", dL_dy, x, n_levels, F)
+    dx = torch.empty((batch, d), dtype=torch.float32, device=x.device)
+    if batch == 0:
+        return dx
+    from ._build import kernel
+
+    global INPUT_LAUNCHES
+    _launch("grid_backward_input", kernel("grid_bwd", "tcnn_grid_backward_input", _INPUT_ARGS)(
+        x.data_ptr(), dL_dy.data_ptr(), params.data_ptr(), levels.data_ptr(), dx.data_ptr(),
+        batch, d, n_levels, F, dL_dy.shape[1], int(interpolation), int(table_round),
+        int(dL_dy.dtype == torch.bfloat16), _stream(x),
+    ))
+    INPUT_LAUNCHES += 1
+    return dx
+
+
+def grid_backward_backward(
+    x: torch.Tensor,
+    dL_dy: torch.Tensor,
+    params: torch.Tensor,
+    levels: torch.Tensor,
+    n_features_per_level: int,
+    interpolation: int,
+    table_round: int,
+    level_round: Optional[torch.Tensor],
+    cgp: Optional[torch.Tensor],
+    cgx: Optional[torch.Tensor],
+    accumulates_bf16: Optional[bool] = None,
+) -> Tuple[Optional[torch.Tensor], torch.Tensor, torch.Tensor]:
+    """Double backward of the all-levels lookup (G2): (d/dparams or None,
+    d/dx, d/d(dL_dy)) as ``grid_backward_backward_plain`` defines them. On a
+    CUDA ``x`` the kernel ``tcnn_grid_backward_backward`` runs (one launch,
+    the gathers and the table scatter together)."""
+    if x.device.type == "cpu":
+        return grid_backward_backward_plain(
+            x, dL_dy, params, levels, n_features_per_level, interpolation, table_round, level_round, cgp, cgx
+        )
+    if x.device.type != "cuda":
+        raise ValueError(f"grid_backward_backward: unsupported device {x.device}")
+    what = "grid_backward_backward"
+    _check_kernel_inputs(what, x, levels, n_features_per_level)
+    _check_params(what, params, x)
+    F = int(n_features_per_level)
+    batch, d = x.shape
+    n_levels = levels.shape[0]
+    _check_dy(what, dL_dy, x, n_levels, F)
+    if cgp is not None and (cgp.shape != params.shape or cgp.dtype != torch.float32 or not cgp.is_contiguous()
+                            or cgp.device != x.device):
+        raise ValueError(f"{what}: cgp must be a contiguous float32 tensor shaped like params")
+    if cgx is not None and (cgx.shape != x.shape or cgx.dtype != torch.float32 or not cgx.is_contiguous()
+                            or cgx.device != x.device):
+        raise ValueError(f"{what}: cgx must be a contiguous float32 tensor shaped like x")
+    grad = grad16 = None
+    n_values = params.numel()
+    if level_round is not None:
+        _check_classes(what, level_round, x, n_levels)
+        if cgx is not None:
+            grad, grad16, n_values = _grad_buffers(levels, level_round, F, n_values, accumulates_bf16)
+    d_x = torch.empty((batch, d), dtype=torch.float32, device=x.device)
+    d_dy = torch.empty((batch, dL_dy.shape[1]), dtype=torch.float32, device=x.device)
+    from ._build import kernel
+
+    def ptr(t):
+        return None if t is None else t.data_ptr()
+
+    global BWDBWD_LAUNCHES
+    _launch(what, kernel("grid_bwd", "tcnn_grid_backward_backward", _BWDBWD_ARGS)(
+        x.data_ptr(), dL_dy.data_ptr(), params.data_ptr(), ptr(cgp), ptr(cgx), levels.data_ptr(), ptr(level_round),
+        ptr(grad), ptr(grad16), d_x.data_ptr(), d_dy.data_ptr(),
+        batch, d, n_levels, F, dL_dy.shape[1], int(interpolation), int(table_round),
+        int(dL_dy.dtype == torch.bfloat16), n_values, _stream(x),
+    ))
+    BWDBWD_LAUNCHES += 1
+    return grad, d_x, d_dy
+
+
 class GridEncodeFunction(torch.autograd.Function):
     """The all-levels lookup, differentiable with respect to the flat grid
-    parameters only: the forward is ``grid_encode``, the backward
-    ``grid_backward``, or with ``plain`` their plain versions on any device.
-    ``x`` gets no gradient (the encoding refuses inputs that need one).
+    parameters and the positions: the forward is ``grid_encode``; the
+    backward ``grid_backward`` for the parameters and ``grid_backward_input``
+    for the positions, each only where ``ctx.needs_input_grad`` asks for it;
+    with ``plain`` their plain versions on any device. A backward that must
+    itself be differentiable (``create_graph=True``, e.g. an eikonal loss)
+    runs as ``GridEncodeBackwardFunction``, whose own backward is the double
+    backward kernel: the exact second order that ``jax.grad`` of
+    ``jax.grad`` gives in the JAX package.
 
     ``GridEncodeFunction.apply(x, params, levels, level_round, meta)`` with
     ``meta`` = (n_features_per_level, padded_width, interpolation,
@@ -358,23 +639,85 @@ class GridEncodeFunction(torch.autograd.Function):
     @staticmethod
     def forward(ctx, x, params, levels, level_round, meta):
         F, padded_width, interp, table_round, out_dtype, plain, acc16 = meta
-        ctx.meta = (F, interp, plain, params.numel(), acc16)
-        ctx.save_for_backward(x, levels, level_round)
+        ctx.meta = (F, interp, table_round, plain, params.numel(), acc16)
+        ctx.save_for_backward(x, params, levels, level_round)
         fwd = grid_encode_plain if plain else grid_encode
         return fwd(x, params, levels, F, padded_width, interp, table_round, out_dtype)
 
     @staticmethod
     def backward(ctx, dy):
-        if torch.is_grad_enabled():
-            raise NotImplementedError(
-                "GridEncodeFunction: the grid encoding has no double backward yet "
-                "(ROADMAP.md, Queue 1 item 4: module API and second order)"
-            )
-        x, levels, level_round = ctx.saved_tensors
-        F, interp, plain, n_values, acc16 = ctx.meta
+        x, params, levels, level_round = ctx.saved_tensors
+        F, interp, table_round, plain, n_values, acc16 = ctx.meta
+        need_x, need_params = ctx.needs_input_grad[0], ctx.needs_input_grad[1]
         dy = dy.contiguous()
+        if torch.is_grad_enabled():
+            dparams, dx = GridEncodeBackwardFunction.apply(
+                x, params, dy, levels, level_round if need_params else None, ctx.meta, need_x
+            )
+            return dx, dparams, None, None, None
+        dparams = dx = None
+        if need_params:
+            if plain:
+                dparams = grid_backward_plain(x, dy, levels, F, interp, level_round)
+            else:
+                dparams = grid_backward(x, dy, levels, F, interp, level_round, n_values, acc16)
+        if need_x:
+            bwd_x = grid_backward_input_plain if plain else grid_backward_input
+            dx = bwd_x(x, dy, params, levels, F, interp, table_round)
+        return dx, dparams, None, None, None
+
+
+class GridEncodeBackwardFunction(torch.autograd.Function):
+    """The lookup's first backward as a differentiable function of (x,
+    params, dL_dy): its forward returns (dparams, dx), each None where it is
+    not wanted (``level_round`` None: no dparams; ``need_x`` False: no dx);
+    its backward is the double backward (``grid_backward_backward``, or its
+    plain version with ``plain``). Like the JAX package's torch bridge
+    (tcnn_tpu/torch_modules.py:92-130) it is differentiable once: a third
+    order raises ``RuntimeError``.
+
+    ``GridEncodeBackwardFunction.apply(x, params, dL_dy, levels,
+    level_round, meta, need_x)`` with the ``meta`` that
+    ``GridEncodeFunction`` keeps.
+    """
+
+    @staticmethod
+    def forward(ctx, x, params, dy, levels, level_round, meta, need_x):
+        F, interp, table_round, plain, n_values, acc16 = meta
+        ctx.meta = meta
+        ctx.set_materialize_grads(False)
+        ctx.save_for_backward(x, params, dy, levels, level_round)
+        dparams = dx = None
+        if level_round is not None:
+            if plain:
+                dparams = grid_backward_plain(x, dy, levels, F, interp, level_round)
+            else:
+                dparams = grid_backward(x, dy, levels, F, interp, level_round, n_values, acc16)
+        if need_x:
+            bwd_x = grid_backward_input_plain if plain else grid_backward_input
+            dx = bwd_x(x, dy, params, levels, F, interp, table_round)
+        return dparams, dx
+
+    @staticmethod
+    @torch.autograd.function.once_differentiable
+    def backward(ctx, cgp, cgx):
+        x, params, dy, levels, level_round = ctx.saved_tensors
+        F, interp, table_round, plain, n_values, acc16 = ctx.meta
+        if cgp is None and cgx is None:
+            return (None,) * 7
+        cgp = None if cgp is None else cgp.contiguous()
+        cgx = None if cgx is None else cgx.contiguous()
         if plain:
-            dparams = grid_backward_plain(x, dy, levels, F, interp, level_round)
+            d_params, d_x, d_dy = grid_backward_backward_plain(
+                x, dy, params, levels, F, interp, table_round, level_round, cgp, cgx
+            )
         else:
-            dparams = grid_backward(x, dy, levels, F, interp, level_round, n_values, acc16)
-        return None, dparams, None, None, None
+            d_params, d_x, d_dy = grid_backward_backward(
+                x, dy, params, levels, F, interp, table_round, level_round, cgp, cgx, acc16
+            )
+        return (
+            d_x if ctx.needs_input_grad[0] else None,
+            d_params if ctx.needs_input_grad[1] else None,
+            d_dy.to(dy.dtype) if ctx.needs_input_grad[2] else None,
+            None, None, None, None,
+        )

@@ -94,18 +94,9 @@ def scatter_rows_plain(
     return out.to(torch.float32)
 
 
-def _lib():
-    from ._build import load_library
-
-    lib = load_library("grid_bwd")
-    if not getattr(lib, "_tcnn_scatter_bound", False):
-        fn = lib.tcnn_scatter_rows
-        fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int64, ctypes.c_int, ctypes.c_int64] + [ctypes.c_int] * 2 + [
-            ctypes.c_void_p
-        ]
-        fn.restype = ctypes.c_int
-        lib._tcnn_scatter_bound = True
-    return lib
+_SCATTER_ARGS = [ctypes.c_void_p] * 4 + [ctypes.c_int64, ctypes.c_int, ctypes.c_int64] + [ctypes.c_int] * 2 + [
+    ctypes.c_void_p
+]
 
 
 def scatter_rows(
@@ -133,7 +124,9 @@ def scatter_rows(
     acc = _ACC_CODES[acc_dtype]
     out16 = torch.empty((size, rows.shape[1]), dtype=torch.bfloat16, device=rows.device) if acc == ACC_BF16 else None
     global LAUNCHES
-    err = _lib().tcnn_scatter_rows(
+    from ._build import kernel
+
+    err = kernel("grid_bwd", "tcnn_scatter_rows", _SCATTER_ARGS)(
         idx.data_ptr(), rows.data_ptr(), out.data_ptr(), None if out16 is None else out16.data_ptr(),
         rows.shape[0], rows.shape[1], size, contrib_round, acc,
         torch.cuda.current_stream(rows.device).cuda_stream,

@@ -19,7 +19,12 @@ sum-order difference into an O(1) change of a few entries). Adam: param_steps eq
 scatter and grid backward, per entry in units of S = sum of |contribution|:
 1e-5 S for fp32 accumulation (atomics add in any order); for bf16
 accumulation the kernel's error against the fp32 sum of the same rounded
-contributions is at most twice the plain sequential sum's, in norm.
+contributions is at most twice the plain sequential sum's, in norm. The
+packed MLP kernels (K7/K8) as the MLP forward and backward. The grid's
+input gradient and double backward (G1/G2) in fp32: max |diff| <= 1e-5 of
+max |plain| and 1e-5 in norm (the same products, sums in another order).
+The eikonal gradients through the module API: 1e-2 of the norm (bf16
+network).
 """
 
 import numpy as np
@@ -261,3 +266,98 @@ def test_model_inference_goes_through_both_kernels(dev):
     # With gradients enabled the same forward is differentiable.
     out = m.model(torch.rand((4, 2), device=dev))
     assert out.requires_grad and out.shape == (4, 16)
+
+
+@pytest.mark.parametrize("n_hidden", [0, 3])
+@pytest.mark.parametrize("width", [16, 32, 64])
+def test_packed_kernels_match_plain(dev, width, n_hidden):
+    """K7/K8 (the fused kernels on the compact view of the packed rows)
+    against the block-diagonal plain versions; 1000 samples is no multiple
+    of a tile."""
+    G = 128 // width
+    gen = torch.Generator(device=dev).manual_seed(width + n_hidden)
+    shapes = [(width, width)] * (n_hidden + 1)
+    ws = [((torch.rand(s, generator=gen, device=dev) * 2 - 1) / s[1] ** 0.5).bfloat16() for s in shapes]
+    xp = torch.randn((1000 // G, 128), generator=gen, device=dev).bfloat16()
+    gp = (torch.rand(xp.shape, generator=gen, device=dev) * 2 - 1).bfloat16()
+    relu, none = Activation.ReLU, Activation.NONE
+    before = (ffmlp.PACKED_LAUNCHES, ffmlp.PACKED_BWD_LAUNCHES)
+    y = ffmlp.ffmlp_forward_packed(xp, ws, relu, none)
+    dx, dws = ffmlp.ffmlp_backward_packed(xp, gp, ws, relu, none)
+    assert (ffmlp.PACKED_LAUNCHES, ffmlp.PACKED_BWD_LAUNCHES) == (before[0] + 1, before[1] + 1)
+    _close_bf16(y, ffmlp.ffmlp_forward_packed_plain(xp, ws, relu, none))
+    dx_p, dws_p = ffmlp.ffmlp_backward_packed_plain(xp, gp, ws, relu, none)
+    for a, b in zip((dx, *dws), (dx_p, *dws_p)):
+        _close_bf16_backward(a, b)
+
+
+GRID3D = {
+    "otype": "HashGrid", "n_levels": 8, "n_features_per_level": 2, "log2_hashmap_size": 14,
+    "base_resolution": 8, "per_level_scale": 1.5, "hash": "CoherentAdditive",
+}
+
+
+def _close_f32(got, want):
+    assert got.shape == want.shape and torch.isfinite(got).all()
+    assert float((got - want).abs().max()) <= 1e-5 * float(want.abs().max()) + 1e-30
+    assert float((got - want).norm()) <= 1e-5 * float(want.norm())
+
+
+@pytest.mark.parametrize("over", [
+    {}, {"interpolation": "Smoothstep"}, {"table_dtype": "bfloat16"}, {"scatter_strategy": "factored_sr"},
+    {"hash": "CoherentPrime"}, {"interpolation": "Nearest"},
+], ids=str)
+@pytest.mark.parametrize("n_dims", [2, 3])
+def test_grid_input_gradient_and_double_backward_match_plain(dev, n_dims, over):
+    """G1 and G2 against their plain versions (fp32: the same products,
+    sums in another order; the table-gradient scatter of an fp32 class
+    within 1e-5 of max |plain|), with and without a table-gradient
+    cotangent."""
+    from tcnn_tpu_torch.encodings.grid import _INTERP_CODES, _ROUND_CODES
+
+    enc = create_encoding(n_dims, dict(GRID3D, **over), alignment=16)
+    rng = np.random.default_rng(n_dims)
+    n = 20_000
+    x = torch.from_numpy(rng.uniform(-0.2, 1.2, (n, n_dims)).astype(np.float32)).to(dev)
+    params = torch.from_numpy(rng.uniform(-1, 1, enc.n_params).astype(np.float32)).to(dev)
+    dy = torch.from_numpy(rng.normal(0, 1, (n, 16)).astype(np.float32)).to(dev).bfloat16()
+    cgx = torch.from_numpy(rng.normal(0, 1, (n, n_dims)).astype(np.float32)).to(dev)
+    cgp = torch.from_numpy(rng.normal(0, 1, enc.n_params).astype(np.float32)).to(dev)
+    classes = torch.from_numpy(enc.gradient_classes(n)).to(dev)
+    assert not (classes[:, 1] == scatter_rows.ACC_BF16).any()
+    args = (enc._levels_on(dev), 2, _INTERP_CODES[enc.interpolation_type], _ROUND_CODES[enc.table_dtype])
+    before = (grid_encode.INPUT_LAUNCHES, grid_encode.BWDBWD_LAUNCHES)
+    dx = grid_encode.grid_backward_input(x, dy, params, *args)
+    _close_f32(dx, grid_encode.grid_backward_input_plain(x, dy, params, *args))
+    for cp in (cgp, None):
+        got = grid_encode.grid_backward_backward(x, dy, params, *args, classes, cp, cgx)
+        want = grid_encode.grid_backward_backward_plain(x, dy, params, *args, classes, cp, cgx)
+        for a, b in zip(got, want):
+            _close_f32(a, b)
+    assert (grid_encode.INPUT_LAUNCHES, grid_encode.BWDBWD_LAUNCHES) == (before[0] + 1, before[1] + 2)
+
+
+def test_module_second_order_matches_plain(dev):
+    """The eikonal term through modules.NetworkWithInputEncoding on the
+    card: G1, G2, K1 and K2 run, and the gradients match the plain path
+    (bf16 network: 1e-2 of the norm)."""
+    from tcnn_tpu_torch import modules
+
+    m = modules.NetworkWithInputEncoding(3, 1, GRID3D, {"otype": "FullyFusedMLP", "n_neurons": 64,
+                                                        "n_hidden_layers": 2})
+    assert m.params.is_cuda
+    x0 = torch.rand((5000, 3), device=dev, generator=torch.Generator(device=dev).manual_seed(0))
+    grads = []
+    counts = (grid_encode.INPUT_LAUNCHES, grid_encode.BWDBWD_LAUNCHES, ffmlp.LAUNCHES, ffmlp.BWD_LAUNCHES)
+    for f_of in (m, lambda xx: m.apply_plain(m.params, xx)[:, :1].float()):
+        m.params.grad = None
+        x = x0.clone().requires_grad_(True)
+        f = f_of(x)
+        (g,) = torch.autograd.grad(f, x, torch.ones_like(f), create_graph=True)
+        (f.square().mean() + ((g.norm(dim=1) - 1) ** 2).mean()).backward()
+        grads.append((m.params.grad.clone(), x.grad.clone()))
+    after = (grid_encode.INPUT_LAUNCHES, grid_encode.BWDBWD_LAUNCHES, ffmlp.LAUNCHES, ffmlp.BWD_LAUNCHES)
+    assert all(a > b for a, b in zip(after, counts))
+    for a, b in zip(*grads):
+        assert torch.isfinite(a).all()
+        assert float((a - b).norm()) <= 1e-2 * float(b.norm())

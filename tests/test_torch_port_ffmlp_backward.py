@@ -29,7 +29,7 @@ import tcnn_tpu_torch.networks as tnets
 from tcnn_tpu.ops.ffmlp import ffmlp_apply, mlp_backward_pallas
 from tcnn_tpu.ops.pallas_utils import set_interpret_mode
 from tcnn_tpu_torch.networks.activations import activation_backward
-from tcnn_tpu_torch.ops.ffmlp import FfmlpFunction, ffmlp_backward, ffmlp_backward_plain
+from tcnn_tpu_torch.ops.ffmlp import FfmlpFunction, ffmlp_backward, ffmlp_backward_plain, ffmlp_forward_plain
 
 
 def _bf16_np(a):
@@ -151,6 +151,15 @@ def test_function_backward_is_the_plain_backward():
     # The plain route on any device is the same Function with plain=True.
     out2 = tnet.apply_plain(params, x)
     assert torch.equal(out2, out)
-    with pytest.raises(NotImplementedError, match="Queue 1 item 4"):
-        y = FfmlpFunction.apply(x, tcommon.Activation.ReLU, tcommon.Activation.NONE, True, *[w.requires_grad_() for w in ws])
-        (gx,) = torch.autograd.grad(y.float().sum(), x, create_graph=True)
+    # A backward under create_graph (second order) runs the differentiable
+    # chain, as the JAX package routes second-order traces: its gradients
+    # are those of torch autograd through the plain chain.
+    ws = [w.requires_grad_() for w in ws]
+    y = FfmlpFunction.apply(x, tcommon.Activation.ReLU, tcommon.Activation.NONE, True, *ws)
+    (gx,) = torch.autograd.grad(y.float().sum(), x, create_graph=True)
+    gw = torch.autograd.grad(gx.float().square().sum(), ws)
+    y2 = ffmlp_forward_plain(x, ws, tcommon.Activation.ReLU, tcommon.Activation.NONE)
+    (gx2,) = torch.autograd.grad(y2.float().sum(), x, create_graph=True)
+    assert torch.equal(gx, gx2)
+    for a, b in zip(gw, torch.autograd.grad(gx2.float().square().sum(), ws)):
+        assert torch.equal(a, b)

@@ -250,12 +250,20 @@ def test_flagship_classes():
 
 
 def test_inputs_needing_gradients_and_stochastic_interpolation_raise():
+    """Inputs that need a gradient are differentiated (the input-gradient
+    kernel's plain version); training with stochastic interpolation still
+    raises, while its input gradients, exact in the JAX package, work."""
     te = tenc.create_encoding(2, BASE, alignment=16)
     p = torch.zeros(te.n_params, requires_grad=True)
-    with pytest.raises(NotImplementedError, match="Queue 1 item 4"):
-        te.apply(p, torch.zeros((4, 2), requires_grad=True))
+    x = torch.full((4, 2), 0.3, requires_grad=True)
+    y = te.apply(p, x)
+    dx, dp = torch.autograd.grad(y.float().sum(), (x, p))
+    assert dx.shape == (4, 2) and dp.shape == p.shape and not dx.any()
     st = tenc.create_encoding(2, dict(BASE, stochastic_interpolation=True, gather_strategy="per_level"), alignment=16)
     with pytest.raises(NotImplementedError, match="Queue 1 item 5"):
         st.apply(torch.zeros(st.n_params, requires_grad=True), torch.zeros((4, 2)))
     with torch.no_grad():
         assert st.apply(torch.zeros(st.n_params), torch.zeros((4, 2))).shape == (4, 16)
+    x = torch.full((4, 2), 0.3, requires_grad=True)
+    (dx,) = torch.autograd.grad(st.apply(torch.ones(st.n_params), x).float().sum(), x)
+    assert dx.shape == (4, 2)

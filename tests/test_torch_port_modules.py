@@ -1,0 +1,155 @@
+"""The module API: ``tcnn_tpu_torch.modules`` against ``tcnn_tpu.modules``.
+
+Mirrors tests/test_modules.py and tests/test_torch_modules.py. The same seed
+gives bit-identical parameters (the same PCG32 draws). Forward outputs and
+first-order gradients with respect to params and inputs go against the JAX
+modules' ``apply`` and ``jax.grad`` on the CPU (Pallas kernels in interpret
+mode). The port runs any batch as it is; the JAX modules pad to
+``BATCH_SIZE_GRANULARITY`` (B = 250 shows that the padded rows change
+nothing).
+
+Tolerances: outputs atol 1e-6 (fp32 encoding; the network's bf16 outputs
+come from the same roundings); parameter gradients atol 1e-5 of fp32 sums
+in another order, as tests/test_torch_modules.py; input gradients atol 1e-6
+relative to their magnitude (~2e-3 here).
+"""
+
+import pickle
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+import tcnn_tpu.modules as jm
+import tcnn_tpu_torch as tt
+import tcnn_tpu_torch.modules as tm
+
+ENC = {
+    "otype": "HashGrid", "n_levels": 4, "n_features_per_level": 2,
+    "log2_hashmap_size": 9, "base_resolution": 4, "per_level_scale": 1.5,
+}
+NETS = {
+    "CutlassMLP": {"otype": "CutlassMLP", "n_neurons": 32, "n_hidden_layers": 1, "activation": "ReLU",
+                   "output_activation": "None"},
+    "FullyFusedMLP": {"otype": "FullyFusedMLP", "n_neurons": 32, "n_hidden_layers": 2},
+}
+
+
+def make_pair(net, seed=7):
+    return tm.NetworkWithInputEncoding(2, 3, ENC, NETS[net], seed=seed, device="cpu"), \
+        jm.NetworkWithInputEncoding(2, 3, ENC, NETS[net], seed=seed)
+
+
+@pytest.mark.parametrize("net", list(NETS))
+def test_seed_params_and_forward_match_jax(net):
+    t, j = make_pair(net)
+    np.testing.assert_array_equal(t.params.detach().numpy(), np.asarray(j.params))
+    assert t.n_params == j.n_params and t.padded_output_width == j.padded_output_width
+    x = np.random.default_rng(0).uniform(0, 1, (256, 2)).astype(np.float32)
+    y = t(torch.from_numpy(x))
+    assert y.dtype == torch.float32 and y.shape == (256, 3)
+    np.testing.assert_allclose(y.detach().numpy(), np.asarray(j(jnp.asarray(x)), np.float32)[:, :3], rtol=0,
+                               atol=1e-6)
+    padded = t.apply(t.params, torch.from_numpy(x))
+    assert padded.shape == (256, j.padded_output_width)
+
+
+@pytest.mark.parametrize("batch", [256, 250])
+@pytest.mark.parametrize("net", list(NETS))
+def test_gradients_match_jax(net, batch):
+    t, j = make_pair(net)
+    x_np = np.random.default_rng(1).uniform(0, 1, (batch, 2)).astype(np.float32)
+    w_np = np.random.default_rng(2).standard_normal((batch, 3)).astype(np.float32)
+    x_t = torch.from_numpy(x_np.copy()).requires_grad_(True)
+    (t(x_t) * torch.from_numpy(w_np)).sum().backward()
+
+    def jax_loss(p, xx):
+        return jnp.sum(j.apply(p, xx)[:, :3].astype(jnp.float32) * jnp.asarray(w_np))
+
+    gp_j, gx_j = jax.grad(jax_loss, argnums=(0, 1))(j.params, jnp.asarray(x_np))
+    np.testing.assert_allclose(t.params.grad.numpy(), np.asarray(gp_j), rtol=0, atol=1e-5)
+    np.testing.assert_allclose(x_t.grad.numpy(), np.asarray(gx_j), rtol=0, atol=1e-6)
+
+
+def test_network_through_identity():
+    cfg = NETS["FullyFusedMLP"]
+    t, j = tm.Network(16, 4, cfg, seed=2, device="cpu"), jm.Network(16, 4, cfg, seed=2)
+    np.testing.assert_array_equal(t.params.detach().numpy(), np.asarray(j.params))
+    x = np.random.default_rng(1).uniform(0, 1, (64, 16)).astype(np.float32)
+    y = t(torch.from_numpy(x))
+    assert y.shape == (64, 4) and torch.isfinite(y).all()
+    np.testing.assert_allclose(y.detach().numpy(), np.asarray(j(jnp.asarray(x)), np.float32)[:, :4], rtol=0, atol=0)
+    assert "n_params=2048" in repr(t)
+    with pytest.raises(ValueError, match="dims"):
+        t(torch.rand(4, 7))
+
+
+def test_identity_encoding_matches_jax():
+    from tcnn_tpu.encodings import create_encoding as jenc
+    from tcnn_tpu_torch.encodings import create_encoding as tenc
+
+    cfg = {"otype": "Identity", "scale": 0.5, "offset": 0.25}
+    je, te = jenc(3, cfg, alignment=8), tenc(3, cfg, alignment=8)
+    je.output_dtype, te.output_dtype = jnp.float32, torch.float32
+    x = np.random.default_rng(3).uniform(-1, 1, (10, 3)).astype(np.float32)
+    got = te.apply(torch.zeros(0), torch.from_numpy(x)).numpy()
+    np.testing.assert_array_equal(got, np.asarray(je.apply(None, jnp.asarray(x))))
+    assert got.shape == (10, 8) and (got[:, 3:] == 1.0).all()
+
+
+def test_standalone_encoding_is_fp32_and_matches_jax():
+    t, j = tm.Encoding(2, ENC, seed=5, device="cpu"), jm.Encoding(2, ENC, seed=5)
+    assert t.n_output_dims == j.n_output_dims == 8
+    np.testing.assert_array_equal(t.params.detach().numpy(), np.asarray(j.params))
+    x = np.random.default_rng(6).uniform(0, 1, (128, 2)).astype(np.float32)
+    y = t(torch.from_numpy(x))
+    assert y.dtype == torch.float32
+    np.testing.assert_allclose(y.detach().numpy(), np.asarray(j(jnp.asarray(x))), rtol=0, atol=1e-6)
+    y.sum().backward()
+    assert float(t.params.grad.abs().sum()) > 0
+    with pytest.warns(UserWarning, match="ignores dtype"):
+        tm.Encoding(2, ENC, seed=1, dtype=torch.half, device="cpu")
+
+
+def test_pickle_roundtrip():
+    m = tm.Encoding(2, ENC, seed=5, device="cpu")
+    x = torch.from_numpy(np.random.default_rng(4).uniform(0, 1, (16, 2)).astype(np.float32))
+    m2 = pickle.loads(pickle.dumps(m))
+    assert torch.equal(m(x), m2(x))
+    n = tm.NetworkWithInputEncoding(2, 3, ENC, NETS["FullyFusedMLP"], seed=3, device="cpu")
+    n2 = pickle.loads(pickle.dumps(n))
+    assert torch.equal(n(x), n2(x)) and n2.params is n2._model.params
+
+
+def test_torch_optimizer_trains():
+    t, _ = make_pair("CutlassMLP", seed=3)
+    assert len(list(t.parameters())) == 1
+    opt = torch.optim.Adam(t.parameters(), lr=1e-2)
+    x_np = np.random.default_rng(4).uniform(0, 1, (512, 2)).astype(np.float32)
+    x = torch.from_numpy(x_np)
+    target = torch.from_numpy(np.stack([x_np[:, 0], x_np[:, 1], (x_np[:, 0] + x_np[:, 1]) / 2], axis=1))
+    losses = []
+    for _ in range(40):
+        opt.zero_grad()
+        loss = torch.nn.functional.mse_loss(t(x), target)
+        loss.backward()
+        opt.step()
+        losses.append(float(loss.detach()))
+    assert losses[-1] < 0.3 * losses[0], losses[:: len(losses) - 1]
+
+
+def test_params_from_numpy_carries_jax_weights():
+    t, j = make_pair("FullyFusedMLP", seed=9)
+    j_params = np.asarray(j.params) * np.float32(1.5)
+    with torch.no_grad():
+        t.params.copy_(tt.params_from_numpy(j_params, t))
+    x = np.random.default_rng(8).uniform(0, 1, (64, 2)).astype(np.float32)
+    np.testing.assert_allclose(t(torch.from_numpy(x)).detach().numpy(),
+                               np.asarray(j.apply(jnp.asarray(j_params), jnp.asarray(x)), np.float32)[:, :3],
+                               rtol=0, atol=1e-6)
+
+
+def test_free_temporary_memory_is_callable():
+    assert tm.free_temporary_memory() is None

@@ -84,3 +84,75 @@ def test_library_name_covers_shared_headers(tmp_path, monkeypatch):
     src.write_text(src.read_text() + "\n// edited\n")
     again = {n: _build.library_path(n) for n in names}
     assert again["grid_bwd"] != after["grid_bwd"] and again["ffmlp_bwd"] == after["ffmlp_bwd"]
+
+
+def test_no_port_module_imports_jax():
+    """Every module of the port, the module API included, loads without
+    jax or tcnn_tpu."""
+    code = (
+        "import importlib, pkgutil, sys, tcnn_tpu_torch\n"
+        "names = [m.name for m in pkgutil.walk_packages(tcnn_tpu_torch.__path__, 'tcnn_tpu_torch.')]\n"
+        "for n in names: importlib.import_module(n)\n"
+        "assert 'tcnn_tpu_torch.modules' in sys.modules and 'tcnn_tpu_torch.encodings.basic' in sys.modules\n"
+        "bad = sorted(m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'tcnn_tpu'))\n"
+        "assert not bad, bad\n"
+        "print(len(names))\n"
+    )
+    r = _run(["-c", code], ROOT)
+    assert r.returncode == 0, r.stderr
+    assert int(r.stdout.strip()) >= 30
+
+
+def test_entry_points_default_to_cuda():
+    """Without a device argument the entry points use the CUDA card, and
+    raise where there is none: no quiet CPU fallback."""
+    code = (
+        "import torch, tcnn_tpu_torch as tt\n"
+        "from tcnn_tpu_torch import modules\n"
+        "cfg = {'encoding': {'otype': 'HashGrid', 'n_levels': 2, 'log2_hashmap_size': 8},\n"
+        "       'network': {'otype': 'FullyFusedMLP', 'n_neurons': 16, 'n_hidden_layers': 1}}\n"
+        "calls = [tt.default_device, lambda: tt.create_from_config(2, 3, cfg),\n"
+        "         lambda: tt.NetworkWithInputEncoding(2, 3, cfg['encoding'], cfg['network']),\n"
+        "         lambda: modules.NetworkWithInputEncoding(2, 3, cfg['encoding'], cfg['network']),\n"
+        "         lambda: modules.Network(16, 3, cfg['network']), lambda: modules.Encoding(2, cfg['encoding'])]\n"
+        "for call in calls:\n"
+        "    try:\n"
+        "        call()\n"
+        "    except RuntimeError as e:\n"
+        "        assert 'no CUDA device' in str(e), e\n"
+        "    else:\n"
+        "        raise AssertionError(call)\n"
+        "assert tt.create_from_config(2, 3, cfg, device='cpu').params.device.type == 'cpu'\n"
+        "assert modules.Encoding(2, cfg['encoding'], device='cpu').params.device.type == 'cpu'\n"
+        "torch.cuda.is_available = lambda: True\n"
+        "assert tt.default_device() == torch.device('cuda')\n"
+        "print('ok')\n"
+    )
+    r = _run(["-c", code], ROOT, CUDA_VISIBLE_DEVICES="")
+    assert r.returncode == 0, r.stderr
+    assert r.stdout.strip().endswith("ok")
+
+
+def test_kernel_binds_each_symbol(monkeypatch):
+    """Two entry points of one library each get their own argument types
+    (a symbol left with ctypes' default int arguments would cut 64-bit
+    pointers)."""
+    import ctypes
+
+    from tcnn_tpu_torch.ops import _build
+
+    class Symbol:
+        argtypes = None
+        restype = None
+
+    class Lib:
+        a, b = Symbol(), Symbol()
+
+    monkeypatch.setattr(_build, "load_library", lambda name: Lib)
+    monkeypatch.setattr(_build, "_bound", {})
+    fa = _build.kernel("fake", "a", [ctypes.c_void_p, ctypes.c_int])
+    fb = _build.kernel("fake", "b", [ctypes.c_void_p] * 3)
+    assert fa is Lib.a and fb is Lib.b
+    assert fa.argtypes == [ctypes.c_void_p, ctypes.c_int] and fb.argtypes == [ctypes.c_void_p] * 3
+    assert fa.restype is ctypes.c_int and fb.restype is ctypes.c_int
+    assert _build.kernel("fake", "b", []) is fb and fb.argtypes == [ctypes.c_void_p] * 3

@@ -57,7 +57,7 @@ def test_initialize_params_identical(name, seed):
     cfg = {"flagship": _flagship(), "small": SMALL, "siren": SIREN, "cutlass": CUTLASS}[name]
     dims = 2 if name != "siren" else 3
     jm = tc.create_from_config(dims, 3, cfg, seed=seed)
-    tm = tt.create_from_config(dims, 3, cfg, seed=seed)
+    tm = tt.create_from_config(dims, 3, cfg, seed=seed, device="cpu")
     want = np.asarray(jm.trainer.params)
     got = tm.trainer.params.numpy()
     assert got.dtype == np.float32 and got.shape == want.shape

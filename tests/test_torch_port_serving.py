@@ -60,7 +60,7 @@ def pair():
         xy = stratified_uniform(jax.random.PRNGKey(i), B, 2)
         t = jnp.asarray(r.uniform(0, 1, (B, 3)).astype(np.float32))
         jm.training_step(xy, t)
-    tm = tt.create_from_config(2, 3, dict(CONFIG, optimizer=CONFIG["optimizer"]["nested"]))
+    tm = tt.create_from_config(2, 3, dict(CONFIG, optimizer=CONFIG["optimizer"]["nested"]), device="cpu")
     flat = np.asarray(jm.trainer.inference_params())
     # The EMA weights differ from the raw params after training.
     assert not np.array_equal(flat, np.asarray(jm.trainer.params))
@@ -142,7 +142,7 @@ def test_commented_config_loads():
     ) + "\n# trailing comment\n"
     cfg = tt.loads_config(text)
     assert cfg == CONFIG
-    m = tt.create_from_config(2, 3, cfg)
+    m = tt.create_from_config(2, 3, cfg, device="cpu")
     assert m.trainer.optimizer_config == CONFIG["optimizer"]
     assert m.trainer.loss_config == CONFIG["loss"]
     assert m.params.shape == (m.model.n_params,)
@@ -151,7 +151,7 @@ def test_commented_config_loads():
 def test_training_step_raises():
     """``training_step`` runs on the reduced flagship: a finite 0-d loss,
     params that change, and EMA weights as the inference params."""
-    m = tt.create_from_config(2, 3, CONFIG)
+    m = tt.create_from_config(2, 3, CONFIG, device="cpu")
     before = m.params.clone()
     r = np.random.default_rng(5)
     loss = m.training_step(r.uniform(0, 1, (B, 2)).astype(np.float32), r.uniform(0, 1, (B, 3)).astype(np.float32))
@@ -162,7 +162,7 @@ def test_training_step_raises():
 
 
 def test_params_from_numpy_checks_length_and_dtype():
-    m = tt.create_from_config(2, 3, CONFIG)
+    m = tt.create_from_config(2, 3, CONFIG, device="cpu")
     n = m.model.n_params
     with pytest.raises(ValueError, match="float32"):
         tt.params_from_numpy(np.zeros(n, np.float64), m.model)
@@ -170,6 +170,6 @@ def test_params_from_numpy_checks_length_and_dtype():
         tt.params_from_numpy(np.zeros(n + 1, np.float32), m.model)
     cfg = copy.deepcopy(CONFIG)
     cfg["encoding"]["n_levels"] = 4
-    other = tt.create_from_config(2, 3, cfg)
+    other = tt.create_from_config(2, 3, cfg, device="cpu")
     with pytest.raises(ValueError, match="shape"):
         tt.params_from_numpy(m.params.numpy(), other.model)

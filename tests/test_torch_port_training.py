@@ -72,7 +72,7 @@ def _batches(seed=0):
 @pytest.fixture(scope="module", params=["adam", "sr_ema"])
 def trained(request):
     cfg = CONFIG if request.param == "adam" else SR_EMA
-    jm, tm = tc.create_from_config(2, 3, cfg), tt.create_from_config(2, 3, cfg)
+    jm, tm = tc.create_from_config(2, 3, cfg), tt.create_from_config(2, 3, cfg, device="cpu")
     np.testing.assert_array_equal(np.asarray(jm.trainer.params), tm.params.numpy())
     losses = []
     for xy, t in _batches():
@@ -114,7 +114,7 @@ def test_params_and_inference_params_match_jax(trained):
 
 
 def test_training_step_with_gradients_matches_jax():
-    jm, tm = tc.create_from_config(2, 3, CONFIG), tt.create_from_config(2, 3, CONFIG)
+    jm, tm = tc.create_from_config(2, 3, CONFIG), tt.create_from_config(2, 3, CONFIG, device="cpu")
     r = np.random.default_rng(1)
     xy = r.uniform(0, 1, (700, 2)).astype(np.float32)
     dL = np.zeros((700, tm.model.padded_output_width), np.float32)
@@ -126,7 +126,7 @@ def test_training_step_with_gradients_matches_jax():
 
 
 def test_forward_evaluate_loss_and_learning_rate():
-    jm, tm = tc.create_from_config(2, 3, CONFIG), tt.create_from_config(2, 3, CONFIG)
+    jm, tm = tc.create_from_config(2, 3, CONFIG), tt.create_from_config(2, 3, CONFIG, device="cpu")
     xy, t = _batches(seed=3)[1]
     out = tm.trainer.forward(xy)
     assert out.shape == (len(xy), 16) and out.dtype == torch.bfloat16
@@ -146,7 +146,7 @@ def test_forward_evaluate_loss_and_learning_rate():
 def test_plain_step_is_the_step_on_the_cpu():
     """``training_step_plain`` is the same step as ``training_step`` on the
     CPU, where every kernel wrapper takes its plain version."""
-    a, b = tt.create_from_config(2, 3, SR_EMA), tt.create_from_config(2, 3, SR_EMA)
+    a, b = tt.create_from_config(2, 3, SR_EMA, device="cpu"), tt.create_from_config(2, 3, SR_EMA, device="cpu")
     for xy, t in _batches(seed=2)[:2]:
         assert torch.equal(a.training_step(xy, t), b.trainer.training_step_plain(xy, t))
     assert torch.equal(a.params, b.params)
@@ -156,11 +156,11 @@ def test_plain_step_is_the_step_on_the_cpu():
 def test_not_ported_training_features_raise():
     cfg = copy.deepcopy(CONFIG)
     cfg["encoding"].update(stochastic_interpolation=True, gather_strategy="per_level")
-    m = tt.create_from_config(2, 3, cfg)
+    m = tt.create_from_config(2, 3, cfg, device="cpu")
     with pytest.raises(NotImplementedError, match="Queue 1 item 5"):
         m.training_step(*_batches()[1])
     assert m.inference(_batches()[1][0]).shape == (1000, 3)
-    model = tt.create_from_config(2, 3, CONFIG).model
+    model = tt.create_from_config(2, 3, CONFIG, device="cpu").model
     with pytest.raises(NotImplementedError, match="Queue 1 item 6"):
         tt.Trainer(model, CONFIG["loss"], CONFIG["optimizer"], perturbation_sigma=0.1)
     with pytest.raises(NotImplementedError, match="not to port"):
@@ -172,7 +172,7 @@ def test_scatter_strategy_changes_training():
     the table gradient's rounding class)."""
     cfg = copy.deepcopy(CONFIG)
     cfg["encoding"]["scatter_strategy"] = "xla_half"
-    a, b = tt.create_from_config(2, 3, CONFIG), tt.create_from_config(2, 3, cfg)
+    a, b = tt.create_from_config(2, 3, CONFIG, device="cpu"), tt.create_from_config(2, 3, cfg, device="cpu")
     xy, t = _batches()[1]
     a.training_step(xy, t)
     b.training_step(xy, t)
