@@ -1,13 +1,13 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch port (tcnn_tpu_torch) on one NVIDIA GPU.
 
-Run from the root of a checkout:  python3 chip_smoke.py  (~10 min on an H100)
+Run from the root of a checkout:  python3 chip_smoke.py  (~12 min on an H100)
 
 Phases, each printing lines of its own; any failure exits non-zero:
 
 1. device: needs CUDA (no CPU fallback); prints the card's name and power
    limit as nvidia-smi reports them.
-2. build: compiles all five kernel libraries from tcnn_tpu_torch/csrc, one
+2. build: compiles all six kernel libraries from tcnn_tpu_torch/csrc, one
    nvcc each, all started together.
 3. kernel 1 (fused MLP forward) against its plain chain, over widths x
    depths x activations x batch sizes, then at the flagship's shapes.
@@ -48,6 +48,23 @@ Phases, each printing lines of its own; any failure exits non-zero:
    kernel's bound from its shapes (bytes over 3.35 TB/s or operations over
    the peak of their type) and, where one PyTorch call computes the same
    function, that call's time.
+14. probes: the row gather and scatter probes (P1-P19) at their default
+   shapes, each kernel against its plain version (gathers, tile sums,
+   copies and STORE_LAST bit-exact; ADD within 1e-6 of the sum of
+   |contributions| per entry; the gather-dot within 1e-5 of max |plain|),
+   out-of-range rows reading zeros; then the path,
+   tcnn_tpu_torch.benchmarks.probe_rows --sweep with every count at 0: the
+   probes and the gather and scatter-add at the grid's row widths (F = 2, 8;
+   S = 2^12 .. 2^23; B = 2^18 and 2^24) per source, ns/row beside the bytes
+   bound and the library call (index_select, index_add_).
+15. floors: the grid kernels' random rows (lookup, table gradient, G1, G2)
+   against the probe sweep's measured rates, beside their measured times.
+16. benches: the port's entry points, each count at 0 before and read after:
+   benchmarks.bench (the 2D default with its phase-locked secondary,
+   --protocol 3d, --reference-verbatim, --serving), bench_mlp, bench_image
+   and the image-fit sample for 1000 steps; every value finite, every
+   training run's final loss below its first, the sample's PSNR at least
+   30 dB.
 
 The second-to-last line is the kernels' JSON record; the last line is
 {"ok": true, "device": {...}}.
@@ -74,7 +91,7 @@ TOL_BWD_NOTE = (
     "derivative that jumps, ReLU's at 0 or a bf16 rounding of the recomputed forward, turns an fp32 sum-order "
     "difference into an O(1) change of a few entries)"
 )
-KERNELS = ("ffmlp_fwd", "grid_fwd", "ffmlp_bwd", "adam_step", "grid_bwd")
+KERNELS = ("ffmlp_fwd", "grid_fwd", "ffmlp_bwd", "adam_step", "grid_bwd", "probe_rows")
 N_TRAIN_STEPS = 1000
 # PSNR floors of the 1000-step fits (dB) and the JAX package's TPU v5e
 # readings beside them (benchmarks/golden_strat_sr/metrics.json; the
@@ -151,7 +168,7 @@ def phase_build():
     dt = time.perf_counter() - t0
     for name, path in paths.items():
         src = os.path.relpath(_build.CSRC / f"{name}.cu")
-        log(f"build: {src} -> {os.path.relpath(path)} (all five in parallel: {dt:.1f} s)")
+        log(f"build: {src} -> {os.path.relpath(path)} (all {len(paths)} in parallel: {dt:.1f} s)")
         logfile = path.with_suffix(".log")
         if logfile.exists():
             for line in logfile.read_text().splitlines():
@@ -496,13 +513,9 @@ def phase_scatter(flagship):
 
 
 def _load_synthetic_image():
-    import importlib.util
+    from tcnn_tpu_torch.samples.mlp_learning_an_image import synthetic_image
 
-    path = os.path.join(os.path.dirname(os.path.abspath(__file__)), "samples", "mlp_learning_an_image.py")
-    spec = importlib.util.spec_from_file_location("_mlp_learning_an_image", path)
-    mod = importlib.util.module_from_spec(spec)
-    spec.loader.exec_module(mod)
-    return mod.synthetic_image(512)
+    return synthetic_image(512)
 
 
 def _clone_state(tree):
@@ -656,7 +669,7 @@ def phase_train(name, cfg, card, image):
     log(f"time [{card}]: training_step [{name}] B=2^18: {med:.4f} ms/step, {B_FLAG / med * 1e3:.4e} samples/s "
         f"(host clock + synchronize, median of steps 100-{N_TRAIN_STEPS - 1}); {N_TRAIN_STEPS} steps with the "
         f"batch sampling in {wall:.2f} s")
-    return {"launches": launches, "psnr": psnr, "ms": med, "loss": (first, last)}
+    return {"launches": launches, "psnr": psnr, "ms": med, "loss": (first, last), "profile": dict(kernels)}
 
 
 # The module-API slice on the repo's --protocol 3d model (bench.py:304-330,
@@ -1032,7 +1045,7 @@ def phase_sdf(card, lr=SDF_LR, warmup=SDF_WARMUP, lr_end=SDF_LR_END):
     log(f"profile [{card}]: SDF step B=2^18, 10 steps back to back under torch.profiler: {wall:.4f} ms/step, device "
         f"busy {busy:.4f} ms, idle share {idle:.3f}, {len(kernels)} distinct device ops; largest (ms/step): "
         + "; ".join(f"{name[:60]} {ms:.4f}" for name, ms in kernels[:12]))
-    return {"launches": launches, "ms": med, "loss": (first, last), "losses": losses}
+    return {"launches": launches, "ms": med, "loss": (first, last), "losses": losses, "profile": dict(kernels)}
 
 
 def profile_steps(step, n=10):
@@ -1217,6 +1230,232 @@ def phase_times(card, k1, k2, m, x_np, kb, ks):
     return t
 
 
+PROBE_COUNTERS = {
+    "probe_gather": ("probe_rows", "GATHER_LAUNCHES"), "probe_scatter": ("probe_rows", "SCATTER_LAUNCHES"),
+    "probe_gather_dot": ("probe_rows", "DOT_LAUNCHES"), "scatter_rows": ("scatter_rows", "LAUNCHES"),
+}
+# Where each probe kernel's JSON times are taken: the gather and the
+# scatter-add at the sweep's 3D grid level (2^24 rows of F = 2 into 2^19
+# slots: at 2^18 rows a call lasts about as long as its launch); the
+# gather-dot at P11's defaults (2^17 rows, S = 2^15, F = 8).
+JSON_SHAPE = "S=2^19 F=2 B=2^24"
+
+
+def _record(result, op, shape, source):
+    """The probe run's record of ``op`` at ``shape`` from ``source``."""
+    return next(r for r in result["probes"] if r["label"] == f"{op} {shape}" and r["source"] == source)
+
+
+def _counters(table):
+    from tcnn_tpu_torch.ops import ffmlp, fused_adam, grid_encode, probe_rows, scatter_rows
+
+    mods = {"ffmlp": ffmlp, "fused_adam": fused_adam, "grid_encode": grid_encode, "probe_rows": probe_rows,
+            "scatter_rows": scatter_rows}
+    return {name: (mods[mod], attr) for name, (mod, attr) in table.items()}
+
+
+def _zero_counts(table):
+    for mod, attr in _counters(table).values():
+        setattr(mod, attr, 0)
+
+
+def _read_counts(table):
+    return {name: getattr(mod, attr) for name, (mod, attr) in _counters(table).items()}
+
+
+def phase_probes(card):
+    """The row gather and scatter probes: kernel against plain at the
+    probes' default shapes, then the path (benchmarks.probe_rows with --sweep)
+    with every count at 0, then the three probe kernels' JSON times."""
+    import torch
+
+    from tcnn_tpu_torch.benchmarks import probe_rows as drv
+    from tcnn_tpu_torch.ops import probe_rows as pr
+
+    dev = torch.device("cuda")
+    t_phase = time.perf_counter()
+    cases = drv.build_cases(drv.build_parser().parse_args([]), dev)
+    errs = {"probe_gather": 0.0, "probe_scatter": 0.0, "probe_gather_dot": 0.0, "scatter_rows": 0.0}
+    n = 0
+    for case in cases:
+        if case.plain is not None:
+            errs[case.kernel] = max(errs[case.kernel], drv.check_case(case))
+            n += 1
+    # Rows outside the table read zeros (P1's fill_value) from every source;
+    # the scatters skip them.
+    gen = torch.Generator(device=dev).manual_seed(SEED + 9)
+    table = torch.randn((4096, 8), generator=gen, device=dev)
+    idx = torch.randint(-100, 4096 + 100, (2**18,), generator=gen, device=dev, dtype=torch.int32)
+    rows = torch.randn((2**18, 8), generator=gen, device=dev)
+    want = pr.probe_gather_plain(table, idx)
+    for source, kw in ((pr.SOURCE_L2, {}), (pr.SOURCE_L2, {"unroll": 8}), (pr.SOURCE_SHARED, {}),
+                       (pr.SOURCE_ASYNC, {"in_flight": 64})):
+        check(torch.equal(pr.probe_gather(table, idx, source=source, **kw), want),
+              f"probe_gather {pr.SOURCE_NAMES[source]} {kw}: rows outside the table do not read zeros")
+    w = torch.randn((8, pr.DOT_COLS), generator=gen, device=dev)
+    got, ref = pr.probe_gather_dot(table, idx, w), pr.probe_gather_dot_plain(table, idx, w)
+    check(float((got - ref).abs().max()) <= drv.DOT_TOL * float(ref.abs().max()), "probe_gather_dot: outside rows")
+    for acc in (pr.ACC_GLOBAL, pr.ACC_SHARED):
+        got, ref = pr.probe_scatter(idx, rows, 4096, pr.OP_ADD, acc), pr.probe_scatter_plain(idx, rows, 4096)
+        S_abs = pr.probe_scatter_plain(idx, rows.abs(), 4096)
+        check(bool(((got - ref).abs() <= drv.ADD_TOL * S_abs).all()), f"probe_scatter acc {acc}: outside rows")
+    check(torch.equal(pr.probe_scatter(idx, rows, 4096, pr.OP_STORE_LAST),
+                      pr.probe_scatter_plain(idx, rows, 4096, pr.OP_STORE_LAST)), "STORE_LAST: outside rows")
+    torch.cuda.synchronize()
+    log(f"probes: {n} cases at the probes' default shapes (P1-P19) match their plain versions (gathers, tile "
+        f"sums, copies and STORE_LAST bit-exact; ADD within {drv.ADD_TOL} of the sum of |contributions| per entry; "
+        f"the gather-dot within {drv.DOT_TOL} of max |plain|); rows outside the table read zeros from every "
+        f"source and the scatters skip them; max|diff| {errs}")
+
+    _zero_counts(PROBE_COUNTERS)
+    result = drv.main(["--sweep"])
+    torch.cuda.synchronize()
+    launches = _read_counts(PROBE_COUNTERS)
+    for k, v in launches.items():
+        check(v > 0, f"probes: kernel {k} was not launched on the probe run's path")
+    log(f"probes: kernel launches of the probe run (every count at 0 before it): {launches}")
+
+    # The sweep, by (operation, S, F, B): each source's ns/row beside the
+    # library call's and the bytes bound (idx, the distinct rows touched and
+    # the output once for the gather; idx, rows and the whole table once for
+    # the scatter-add), all from the probe run.
+    groups = {}
+    for rec in result["probes"]:
+        if rec["p"] == "sweep":
+            op = "gather" if rec["label"].startswith("gather") else "scatter-add"
+            groups.setdefault((op, rec["S"], rec["F"], rec["B"]), []).append(rec)
+    for (op, S, F, B), recs in groups.items():
+        lib = next(r for r in recs if r["library_ms"] is not None)
+        parts = [f"{r['source']} {r['ns_per_row']:.4f}" for r in recs]
+        log(f"probe sweep [{card}]: {op} S=2^{int(np.log2(S))} F={F} B=2^{int(np.log2(B))} ({recs[0]['touched']} rows "
+            f"touched), ns/row by source: {'; '.join(parts)}; {lib['library']} {lib['library_ms'] * 1e6 / B:.4f}; "
+            f"bound {recs[0]['bound_ms'] * 1e6 / B:.4f} ({recs[0]['bound_by']})")
+
+    # The JSON's times: the probe run's records of each probe kernel at its
+    # JSON shape (kernel, plain and library call timed one after another).
+    times = {}
+    for name, rec in (("probe_gather", _record(result, "gather", JSON_SHAPE, "l2")),
+                      ("probe_scatter", _record(result, "scatter-add", JSON_SHAPE, "global")),
+                      ("probe_gather_dot", next(r for r in result["probes"] if r["p"] == "P11"))):
+        times[name] = {"kernel": rec["ms"], "plain": rec["plain_ms"], "bound": (rec["bound_ms"], rec["bound_by"]),
+                       "library": rec["library_ms"]}
+        log(f"time [{card}]: kernel {name} ({rec['label']}): kernel {rec['ms']:.4f} ms, plain "
+            f"{rec['plain_ms']:.4f} ms, bound {rec['bound_ms']:.4f} ms ({rec['bound_by']})"
+            + ("" if rec["library_ms"] is None else f", {rec['library']} {rec['library_ms']:.4f} ms")
+            + " (CUDA events, median)")
+    log(f"probes: phase {time.perf_counter() - t_phase:.1f} s")
+    return {"launches": launches, "errs": errs, "times": times, "records": result["probes"]}
+
+
+def _profile_ms(profile, kernel):
+    """Device ms a step of the profiled kernels whose name holds ``kernel``."""
+    return sum(ms for name, ms in profile.items() if kernel + "<" in name or kernel + "(" in name)
+
+
+def phase_floors(card, records, t, train_profile, sdf_profile):
+    """The grid kernels' random rows against the card's rates from the
+    probe sweep (2^24 uniform rows of F = 2): the flagship's tables (levels
+    of at most 2^15 rows, 2.8 MB) at the 2^15 rates; the 3D model's (52 MB
+    of 2^19-row levels) between the 2^19 and 2^23 rates, since it holds
+    more than the L2 and its levels each less. Measured times: CUDA events
+    (phase 13) or the profiles' device ms per step (launches per step
+    named)."""
+    rate = {(r["label"].split()[0], r["S"]): r["ns_per_row"] for r in records
+            if r["p"] == "sweep" and r["B"] == 2**24 and r["F"] == 2 and r["source"] in ("l2", "global")}
+    flag_rows, rows3d = B_FLAG * 16 * 4, B_SDF * 16 * 8
+    cases = (
+        ("lookup, flagship (events)", flag_rows, ["gather"], (2**15, 2**15), t["k2_kernel_ms"]),
+        ("table gradient, flagship, uniform points (events)", flag_rows, ["scatter-add"], (2**15, 2**15),
+         t["grid_bwd_kernel_ms"]),
+        ("table gradient in the training step, stratified batch (profile)", flag_rows, ["scatter-add"],
+         (2**15, 2**15), _profile_ms(train_profile, "grid_backward_kernel")),
+        ("lookup, 3D (profile)", rows3d, ["gather"], (2**19, 2**23), _profile_ms(sdf_profile, "grid_forward_kernel")),
+        ("G1, 3D (events)", rows3d, ["gather"], (2**19, 2**23), t["grid_bwd_input_kernel_ms"]),
+        ("table gradient, 3D, one of two launches (profile)", rows3d, ["scatter-add"], (2**19, 2**23),
+         _profile_ms(sdf_profile, "grid_backward_kernel") / 2),
+        ("G2, 3D (events)", rows3d, ["gather", "scatter-add"], (2**19, 2**23), t["grid_bwdbwd_kernel_ms"]),
+    )
+    for name, rows, ops, (s_lo, s_hi), ms in cases:
+        lo = sum(rows * rate[(op, s_lo)] for op in ops) * 1e-6
+        hi = sum(rows * rate[(op, s_hi)] for op in ops) * 1e-6
+        lo, hi = min(lo, hi), max(lo, hi)
+        log(f"floor [{card}]: {name}: {rows} rows x {'+'.join(ops)} at the random-row rates of S = 2^"
+            f"{int(np.log2(s_lo))}..2^{int(np.log2(s_hi))}: {lo:.4f}-{hi:.4f} ms; measured {ms:.4f} ms "
+            f"({ms / hi:.2f}-{ms / lo:.2f}x)")
+
+
+BENCH_COUNTERS = {
+    "ffmlp_fwd": ("ffmlp", "LAUNCHES"), "grid_fwd": ("grid_encode", "LAUNCHES"),
+    "ffmlp_bwd": ("ffmlp", "BWD_LAUNCHES"), "adam_step": ("fused_adam", "LAUNCHES"),
+    "grid_bwd": ("grid_encode", "BWD_LAUNCHES"), "ffmlp_fwd_packed": ("ffmlp", "PACKED_LAUNCHES"),
+    "ffmlp_bwd_packed": ("ffmlp", "PACKED_BWD_LAUNCHES"),
+}
+SAMPLE_PSNR_FLOOR = 30.0
+# The JAX package's TPU v5e reading of the same config, stratified, no EMA
+# (DOCUMENTATION.md:275).
+SAMPLE_JAX_TPU_PSNR = 47.3
+
+
+def _all_finite(tree) -> bool:
+    if isinstance(tree, dict):
+        return all(_all_finite(v) for v in tree.values())
+    if isinstance(tree, (list, tuple)):
+        return all(_all_finite(v) for v in tree)
+    if isinstance(tree, float):
+        return bool(np.isfinite(tree))
+    return True
+
+
+def phase_benches(card):
+    """The port's benchmark entry points and the image-fit sample, with
+    every count at 0 before them and read after."""
+    from tcnn_tpu_torch.benchmarks import bench, bench_image, bench_mlp
+    from tcnn_tpu_torch.samples import mlp_learning_an_image as sample
+
+    _zero_counts(BENCH_COUNTERS)
+    out = {}
+    for name, argv in (("2d default", []), ("3d", ["--protocol", "3d"]),
+                       ("reference-verbatim", ["--reference-verbatim"]), ("serving", ["--serving"])):
+        t0 = time.perf_counter()
+        result, runs = bench.main(argv)
+        check(_all_finite(result) and result["value"] > 0, f"bench {name}: a value is not finite")
+        losses = []
+        for which, run in runs.items():
+            if run is None:
+                continue
+            check(np.isfinite(run["final_loss"]) and run["final_loss"] < run["first_loss"],
+                  f"bench {name} {which}: loss {run['first_loss']} -> {run['final_loss']}")
+            losses.append(f"{which} loss {run['first_loss']:.4e} -> {run['final_loss']:.4e}")
+        out[name] = result
+        log(f"bench [{card}]: {name} ({' '.join(argv) or 'no flags'}): {result['metric']} {result['value']:.1f} "
+            f"{result['unit']}" + (f", {'; '.join(losses)}" if losses else "") + f"; {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    mlp = bench_mlp.main([])
+    check(_all_finite(mlp) and all(e["elements_per_second"] > 0 for e in mlp), "bench_mlp: bad value")
+    log(f"bench_mlp [{card}]: {len(mlp)} measurements, all finite; {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    img = bench_image.main([])
+    for e in img:
+        check(_all_finite(e) and e["final_loss"] < e["first_loss"],
+              f"bench_image batch {e['batch']}: loss {e['first_loss']} -> {e['final_loss']}")
+    log(f"bench_image [{card}]: {len(img)} batch sizes, all finite, every final loss below its first; "
+        f"{time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    fit = sample.main(["-", "-", str(N_TRAIN_STEPS)])
+    curve = fit["loss_curve"]
+    check(_all_finite(fit) and curve[-1][1] < curve[0][1], f"sample: loss {curve[0][1]} -> {curve[-1][1]}")
+    log(f"sample [{card}]: mlp_learning_an_image, {N_TRAIN_STEPS} steps on the synthetic image: PSNR "
+        f"{fit['psnr_db']:.3f} dB (floor {SAMPLE_PSNR_FLOOR} dB: single fits without EMA spread widely; the JAX "
+        f"package read {SAMPLE_JAX_TPU_PSNR} dB on a TPU v5e), {fit['ms_per_step']:.3f} ms/step; "
+        f"{time.perf_counter() - t0:.1f} s")
+    check(fit["psnr_db"] >= SAMPLE_PSNR_FLOOR, f"sample: PSNR {fit['psnr_db']} dB below {SAMPLE_PSNR_FLOOR}")
+    launches = _read_counts(BENCH_COUNTERS)
+    for k, v in launches.items():
+        check(v > 0, f"benches: kernel {k} was not launched on the benchmarks' path")
+    log(f"benches: kernel launches of the benchmarks and the sample (every count at 0 before them): {launches}")
+    return {"bench": out, "mlp": mlp, "image": img, "sample": fit, "launches": launches}
+
+
 def main() -> int:
     import torch
 
@@ -1243,7 +1482,7 @@ def main() -> int:
         f"{torch.cuda.get_device_name(0)}, count {torch.cuda.device_count()}")
     t0 = time.perf_counter()
     phase_build()
-    log(f"build: all five kernel libraries in {time.perf_counter() - t0:.1f} s")
+    log(f"build: all {len(KERNELS)} kernel libraries in {time.perf_counter() - t0:.1f} s")
     k1 = phase_kernel1()
     k2 = phase_kernel2(FLAGSHIP_CONFIG)
     m, launches, x_flag = phase_slice(FLAGSHIP_CONFIG)
@@ -1264,15 +1503,18 @@ def main() -> int:
     }
     trained = {name: phase_train(name, cfg, card, image) for name, cfg in configs.items()}
     t = phase_times(card, k1, k2, m, x_flag, kb, ks)
+    probes = phase_probes(card)
+    phase_floors(card, probes["records"], t, trained["FLAGSHIP_CONFIG"]["profile"], sdf["profile"])
+    phase_benches(card)
     check("jax" not in sys.modules and "tcnn_tpu" not in sys.modules, "the port must not import jax")
 
     # launches: each path's own counts, read right after it ran with the
     # counts at 0: the serving path for the two forward kernels, the first
     # training run for the training kernels, the packed protocol for K7/K8
     # and the SDF fit for the grid's input gradient and double backward
-    # (every count was checked > 0 on its path above). scatter_rows is the
-    # generic row scatter (the classes of the JAX one-hot and serial
-    # scatters), not a kernel of any path.
+    # (every count was checked > 0 on its path above); the probe run for
+    # the three probe kernels and the generic row scatter (the
+    # classes of the JAX one-hot and serial scatters: P3's K6 check and P19).
     train = trained["FLAGSHIP_CONFIG"]["launches"]
 
     def entry(name, source, replaces, launches_, err, which, path, times=None):
@@ -1294,8 +1536,8 @@ def main() -> int:
               "adam_step", "training"),
         entry("grid_bwd", "grid_bwd.cu", "tcnn_tpu/ops/scatter_rows.py:259", train["grid_bwd"], ks["grid_err"],
               "grid_bwd", "training"),
-        entry("scatter_rows", "grid_bwd.cu", "tcnn_tpu/ops/scatter_rows.py:68", 0, ks["scatter_err"],
-              "scatter_rows", "none"),
+        entry("scatter_rows", "grid_bwd.cu", "tcnn_tpu/ops/scatter_rows.py:68", probes["launches"]["scatter_rows"],
+              max(ks["scatter_err"], probes["errs"]["scatter_rows"]), "scatter_rows", "probes (P3, P19)"),
         entry("ffmlp_fwd_packed", "ffmlp_fwd.cu", "tcnn_tpu/ops/ffmlp.py:422", kp["launches"]["ffmlp_fwd_packed"],
               kp["err_fwd"], None, "packed MLP protocol", dict(kp["fwd"], library=None)),
         entry("ffmlp_bwd_packed", "ffmlp_bwd.cu", "tcnn_tpu/ops/ffmlp.py:557", kp["launches"]["ffmlp_bwd_packed"],
@@ -1305,6 +1547,11 @@ def main() -> int:
         entry("grid_bwdbwd", "grid_bwd.cu", "tcnn_tpu/encodings/grid.py:1354", sdf["launches"]["grid_bwdbwd"],
               kg["g2"], "grid_bwdbwd", "module API (SDF)"),
     ]
+    for name, replaces in (("probe_gather", "benchmarks/probe_mosaic_gather.py:63"),
+                           ("probe_scatter", "benchmarks/probe_mosaic_gather.py:121"),
+                           ("probe_gather_dot", "benchmarks/probe_r5_pallas_gather2.py:348")):
+        kernels.append(entry(name, "probe_rows.cu", replaces, probes["launches"][name], probes["errs"][name], None,
+                             "probes", probes["times"][name]))
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0), "count": torch.cuda.device_count(),

@@ -1,5 +1,5 @@
 """Encoding factory and registry (port of ``tcnn_tpu.encodings``; reference:
-src/encoding.cu:44-159). The grid family and Identity are ported; the
+src/encoding.cu:44-159). The grid family, Identity and OneBlob are ported; the
 other encodings of the JAX package raise ``NotImplementedError`` until their
 port lands."""
 
@@ -9,14 +9,14 @@ from typing import Callable, Dict, Optional
 
 from ..common import CIDict, json_value
 from .base import Encoding
-from .basic import IdentityEncoding
+from .basic import IdentityEncoding, OneBlobEncoding
 from .grid import GridEncoding, create_grid_encoding
 
 _ENCODING_FACTORIES: CIDict = CIDict()
 
 # Encodings of the JAX package that the port does not have yet.
 _NOT_PORTED = (
-    "Composite", "Empty", "Frequency", "OneBlob",
+    "Composite", "Empty", "Frequency",
     "SphericalHarmonics", "TriangleWave", "OneBlobFrequency", "NRC",
 )
 
@@ -33,6 +33,7 @@ register_encoding(
     "Identity",
     lambda n, cfg: IdentityEncoding(n, json_value(cfg, "scale", 1.0), json_value(cfg, "offset", 0.0)),
 )
+register_encoding("OneBlob", lambda n, cfg: OneBlobEncoding(json_value(cfg, "n_bins", 16), n))
 
 
 def create_encoding(n_dims_to_encode: int, encoding: Optional[Dict] = None, alignment: int = 8) -> Encoding:
@@ -55,4 +56,4 @@ def builtin_encodings():
     return sorted(_ENCODING_FACTORIES.keys())
 
 
-__all__ = ["Encoding", "GridEncoding", "IdentityEncoding", "builtin_encodings", "create_encoding", "register_encoding"]
+__all__ = ["Encoding", "GridEncoding", "IdentityEncoding", "OneBlobEncoding", "builtin_encodings", "create_encoding", "register_encoding"]

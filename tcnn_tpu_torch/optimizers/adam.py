@@ -28,7 +28,7 @@ from typing import Dict
 import numpy as np
 import torch
 
-from ..common import json_value
+from ..common import json_value, resolve_device
 from ..ops import fused_adam
 from ..utils.log import log_info
 from .base import Optimizer
@@ -58,6 +58,7 @@ class AdamOptimizer(Optimizer):
 
     def init_state(self, device=None):
         n = self.n_weights
+        device = resolve_device(device)
         return {
             "step": torch.zeros((), dtype=torch.int32, device=device),
             "first_moments": torch.zeros((n,), dtype=torch.float32, device=device),

@@ -5,9 +5,9 @@ optimizer.h:39-63).
   the network's weight-matrix shapes; the params they cover ("matrix
   params") lead the flat vector and may be treated differently from the
   rest (hash grids etc.).
-- ``init_state(device)``: a dict of tensors on the params' device; the
-  global step count is a 0-d int32 tensor there, so that no step needs a
-  host synchronisation.
+- ``init_state(device)``: a dict of tensors on the params' device (None:
+  ``common.default_device()``, the card); the global step count is a 0-d
+  int32 tensor there, so that no step needs a host synchronisation.
 - ``step(state, params, grads, loss_scale)``: one update, gradients divided
   by ``loss_scale`` inside; returns ``(new_state, new_params)``. On the card
   the update runs in place, so the returned tensors are the ones passed in.
@@ -22,6 +22,8 @@ from typing import Dict, List, Optional, Tuple
 
 import torch
 
+from ..common import resolve_device
+
 
 class Optimizer:
     otype = "Optimizer"
@@ -35,7 +37,7 @@ class Optimizer:
         self.layer_sizes = list(layer_sizes)
 
     def init_state(self, device=None) -> Dict[str, torch.Tensor]:
-        return {"step": torch.zeros((), dtype=torch.int32, device=device)}
+        return {"step": torch.zeros((), dtype=torch.int32, device=resolve_device(device))}
 
     def step(self, state, params: torch.Tensor, grads: torch.Tensor, loss_scale: float, plain: bool = False):
         raise NotImplementedError

@@ -12,7 +12,7 @@ from typing import Dict
 
 import torch
 
-from ..common import json_value
+from ..common import json_value, resolve_device
 from .base import Optimizer
 
 
@@ -68,6 +68,7 @@ class EmaOptimizer(WrapperOptimizer):
         self.ema_decay = json_value(params or {}, "decay", 0.99)
 
     def init_state(self, device=None):
+        device = resolve_device(device)
         return {
             "nested": self._nested.init_state(device),
             "weights_ema": torch.zeros((self.n_weights,), dtype=torch.float32, device=device),

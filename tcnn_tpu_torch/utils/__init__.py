@@ -1,1 +1,1 @@
-"""Utilities: logging and serving-raster positions."""
+"""Utilities: logging, batch samplers and serving-raster positions, image metrics."""

@@ -15,6 +15,8 @@ from typing import Optional, Union
 import numpy as np
 import torch
 
+from ..common import default_device
+
 
 def stratified_uniform(
     n: int,
@@ -31,14 +33,16 @@ def stratified_uniform(
     ``phase_locked``: share G jitter vectors, tile ``j`` using phase
     ``j % G`` (``True`` means G = 1). ``run_correlated``: share the jitter of
     dims >= 1 across each run of ``strata`` consecutive samples. The two are
-    mutually exclusive. Drawn on ``device`` (default: the generator's)."""
+    mutually exclusive. Drawn on ``device``; without one, on the generator's
+    device, and without a generator on ``common.default_device()`` (the
+    card: pass ``device="cpu"`` for the CPU)."""
     strata = strata_of(n, dims)
     if strata is None:
         raise ValueError(f"stratified_uniform: n={n} is not a perfect {dims}-th power")
     if phase_locked and run_correlated:
         raise ValueError("stratified_uniform: phase_locked and run_correlated are mutually exclusive")
     if device is None:
-        device = generator.device if generator is not None else "cpu"
+        device = generator.device if generator is not None else default_device()
 
     def uniform(*shape):
         return torch.rand(shape, generator=generator, device=device, dtype=torch.float32)

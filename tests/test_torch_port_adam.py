@@ -53,7 +53,7 @@ def _run_jax(cfg, n, n_matrix, params, grads, fused):
 def _run_port(cfg, n, n_matrix, params, grads):
     opt = topt.create_optimizer(cfg)
     opt.allocate(n, [(1, n_matrix)] if n_matrix else [])
-    state = opt.init_state()
+    state = opt.init_state("cpu")
     p = torch.from_numpy(params.copy())
     for g in grads:
         state, p = opt.step(state, p, torch.from_numpy(g), LOSS_SCALE)
@@ -86,7 +86,7 @@ def test_skip_zero_grad_keeps_untouched_entries():
     n, n_matrix = 64, 16
     opt = topt.create_optimizer({"otype": "Adam", "learning_rate": 1e-2})
     opt.allocate(n, [(1, n_matrix)])
-    state = opt.init_state()
+    state = opt.init_state("cpu")
     p = torch.linspace(-1, 1, n)
     g = torch.ones(n)
     g[n_matrix::2] = 0.0

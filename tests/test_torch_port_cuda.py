@@ -24,7 +24,10 @@ packed MLP kernels (K7/K8) as the MLP forward and backward. The grid's
 input gradient and double backward (G1/G2) in fp32: max |diff| <= 1e-5 of
 max |plain| and 1e-5 in norm (the same products, sums in another order).
 The eikonal gradients through the module API: 1e-2 of the norm (bf16
-network).
+network). The row gather and scatter probes (ops.probe_rows): gathers, tile
+sums, copies and STORE_LAST bit-exact; ADD within 1e-6 of the sum of
+|contributions| per entry (fp32 atomics add in any order); the gather-dot
+within 1e-5 of max |plain| (the matmul sums in another order).
 """
 
 import numpy as np
@@ -34,7 +37,7 @@ import torch
 import tcnn_tpu_torch as tt
 from tcnn_tpu_torch.common import Activation
 from tcnn_tpu_torch.encodings import create_encoding
-from tcnn_tpu_torch.ops import ffmlp, fused_adam, grid_encode, scatter_rows
+from tcnn_tpu_torch.ops import ffmlp, fused_adam, grid_encode, probe_rows, scatter_rows
 from tcnn_tpu_torch.optimizers import AdamOptimizer
 
 pytestmark = pytest.mark.cuda
@@ -361,3 +364,116 @@ def test_module_second_order_matches_plain(dev):
     for a, b in zip(*grads):
         assert torch.isfinite(a).all()
         assert float((a - b).norm()) <= 1e-2 * float(b.norm())
+
+
+def test_ffmlp_width128_depth5_matches_plain(dev):
+    """bench_image's network: 128-wide input, FullyFusedMLP 128 x 5 hidden
+    layers (K1 runs with fewer warps a block, K2 walks the layers in
+    groups), forward and backward against the plain versions."""
+    gen = torch.Generator(device=dev).manual_seed(128)
+    shapes = [(128, 128)] * 5 + [(16, 128)]
+    ws = [((torch.rand(s, generator=gen, device=dev) * 2 - 1) * 2 / s[1] ** 0.5).bfloat16() for s in shapes]
+    for batch in (1, 1000, 2**17):
+        x = (torch.rand((batch, 128), generator=gen, device=dev) * 2 - 1).bfloat16()
+        g = (torch.rand((batch, 16), generator=gen, device=dev) * 2 - 1).bfloat16()
+        before = (ffmlp.LAUNCHES, ffmlp.BWD_LAUNCHES)
+        y = ffmlp.ffmlp_forward(x, ws, Activation.ReLU, Activation.NONE)
+        dx, dws = ffmlp.ffmlp_backward(x, g, ws, Activation.ReLU, Activation.NONE)
+        assert (ffmlp.LAUNCHES, ffmlp.BWD_LAUNCHES) == (before[0] + 1, before[1] + 1)
+        _close_bf16(y, ffmlp.ffmlp_forward_plain(x, ws, Activation.ReLU, Activation.NONE))
+        want_dx, want_dws = ffmlp.ffmlp_backward_plain(x, g, ws, Activation.ReLU, Activation.NONE)
+        _close_bf16_backward(dx, want_dx)
+        for a, b in zip(dws, want_dws):
+            _close_bf16_backward(a, b)
+
+
+PROBE_SOURCES = {
+    "l2": (probe_rows.SOURCE_L2, {}), "l2x8": (probe_rows.SOURCE_L2, {"unroll": 8}),
+    "shared": (probe_rows.SOURCE_SHARED, {}), "async16": (probe_rows.SOURCE_ASYNC, {"in_flight": 16}),
+    "async64": (probe_rows.SOURCE_ASYNC, {"in_flight": 64}),
+}
+
+
+def _probe_inputs(dev, S, F, B, seed, lo=0, hi=None):
+    rng = np.random.default_rng(seed)
+    table = torch.from_numpy(rng.standard_normal((S, F)).astype(np.float32)).to(dev)
+    idx = torch.from_numpy(rng.integers(lo, S if hi is None else hi, B).astype(np.int32)).to(dev)
+    return table, idx
+
+
+@pytest.mark.parametrize("F", [1, 2, 3, 8])
+@pytest.mark.parametrize("source", list(PROBE_SOURCES))
+def test_probe_gather_sources_match_plain(dev, source, F):
+    """MODE_ROW from every source, rows outside the table reading zeros,
+    rounded and feature-major variants: bit-exact."""
+    code, kw = PROBE_SOURCES[source]
+    table, idx = _probe_inputs(dev, 4096, F, 2**16 + 2048, F, lo=-50, hi=4096 + 50)
+    for flags in (0, probe_rows.FLAG_ROUND_BF16, probe_rows.FLAG_FEATURE_MAJOR):
+        before = probe_rows.GATHER_LAUNCHES
+        got = probe_rows.probe_gather(table, idx, source=code, flags=flags, **kw)
+        assert probe_rows.GATHER_LAUNCHES == before + 1
+        assert torch.equal(got, probe_rows.probe_gather_plain(table, idx, flags=flags))
+
+
+@pytest.mark.parametrize("mode", ["lane", "window", "window_aligned", "tile_sum", "copy", "two_tables",
+                                  "transposed"])
+def test_probe_gather_modes_match_plain(dev, mode):
+    pr = probe_rows
+    table, idx = _probe_inputs(dev, 4096, 8, 2**15, 11)
+    kw = {
+        "lane": {"mode": pr.MODE_LANE}, "window": {"mode": pr.MODE_WINDOW},
+        "window_aligned": {"mode": pr.MODE_WINDOW, "flags": pr.FLAG_ALIGNED}, "tile_sum": {"mode": pr.MODE_TILE_SUM},
+        "copy": {"mode": pr.MODE_COPY}, "two_tables": {"table2": table + 1.0},
+        "transposed": {"flags": pr.FLAG_TRANSPOSED | pr.FLAG_FEATURE_MAJOR},
+    }[mode]
+    if mode == "lane":
+        idx = torch.randint(0, 4096, (2**12, 8), device=dev, dtype=torch.int32)
+    if mode == "transposed":
+        table = table.t().contiguous()
+    got = pr.probe_gather(table, idx, **kw)
+    assert torch.equal(got, pr.probe_gather_plain(table, idx, **kw))
+
+
+@pytest.mark.parametrize("acc", [probe_rows.ACC_GLOBAL, probe_rows.ACC_SHARED])
+@pytest.mark.parametrize("S", [64, 4096])
+def test_probe_scatter_add_matches_plain(dev, S, acc):
+    rng = np.random.default_rng(S)
+    idx = torch.from_numpy(rng.integers(-3, S + 3, 2**17).astype(np.int32)).to(dev)
+    rows = torch.from_numpy(rng.normal(0, 1, (2**17, 8)).astype(np.float32)).to(dev)
+    before = probe_rows.SCATTER_LAUNCHES
+    got = probe_rows.probe_scatter(idx, rows, S, probe_rows.OP_ADD, acc)
+    assert probe_rows.SCATTER_LAUNCHES == before + 1
+    want = probe_rows.probe_scatter_plain(idx, rows, S)
+    S_abs = probe_rows.probe_scatter_plain(idx, rows.abs(), S)
+    assert bool(((got - want).abs() <= 1e-6 * S_abs).all())
+
+
+def test_probe_scatter_store_last_is_the_last_write(dev):
+    rng = np.random.default_rng(3)
+    idx = torch.from_numpy(rng.integers(-2, 5000, 2**16).astype(np.int32)).to(dev)
+    rows = torch.from_numpy(rng.normal(0, 1, (2**16, 8)).astype(np.float32)).to(dev)
+    got = probe_rows.probe_scatter(idx, rows, 4096, probe_rows.OP_STORE_LAST)
+    assert torch.equal(got, probe_rows.probe_scatter_plain(idx, rows, 4096, probe_rows.OP_STORE_LAST))
+
+
+def test_probe_gather_dot_matches_plain(dev):
+    torch.backends.cuda.matmul.allow_tf32 = False
+    table, idx = _probe_inputs(dev, 2**15, 8, 2**15, 4, lo=-5)
+    w = torch.randn((8, probe_rows.DOT_COLS), device=dev)
+    before = probe_rows.DOT_LAUNCHES
+    got = probe_rows.probe_gather_dot(table, idx, w)
+    assert probe_rows.DOT_LAUNCHES == before + 1
+    want = probe_rows.probe_gather_dot_plain(table, idx, w)
+    assert float((got - want).abs().max()) <= 1e-5 * float(want.abs().max())
+
+
+def test_probe_wrappers_refuse_what_the_kernels_do_not_take(dev):
+    """SHARED raises for a table beyond a block's shared memory (no quiet
+    L2 fallback), and so does a shared scatter accumulator."""
+    table, idx = _probe_inputs(dev, 2**15, 8, 1024, 0)
+    with pytest.raises(ValueError, match="shared memory"):
+        probe_rows.probe_gather(table, idx, source=probe_rows.SOURCE_SHARED)
+    with pytest.raises(ValueError, match="shared accumulator"):
+        probe_rows.probe_scatter(idx, table[:1024].contiguous(), 2**15, probe_rows.OP_ADD, probe_rows.ACC_SHARED)
+    with pytest.raises(ValueError, match="MODE_ROW"):
+        probe_rows.probe_gather(table, idx, mode=probe_rows.MODE_WINDOW, source=probe_rows.SOURCE_ASYNC)

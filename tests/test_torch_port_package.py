@@ -55,7 +55,7 @@ def test_chip_smoke_fails_outside_a_checkout(tmp_path):
 def test_kernel_sources_and_build_paths():
     from tcnn_tpu_torch.ops import _build
 
-    for name in ("ffmlp_fwd", "grid_fwd", "ffmlp_bwd", "adam_step", "grid_bwd"):
+    for name in ("ffmlp_fwd", "grid_fwd", "ffmlp_bwd", "adam_step", "grid_bwd", "probe_rows"):
         src = _build.CSRC / f"{name}.cu"
         assert src.exists()
         text = src.read_text()
@@ -87,20 +87,23 @@ def test_library_name_covers_shared_headers(tmp_path, monkeypatch):
 
 
 def test_no_port_module_imports_jax():
-    """Every module of the port, the module API included, loads without
-    jax or tcnn_tpu."""
+    """Every module of the port, the module API and the benchmark entry
+    points included, loads without jax, tcnn_tpu or the repo's own
+    bench.py, benchmarks/ and samples/."""
     code = (
         "import importlib, pkgutil, sys, tcnn_tpu_torch\n"
         "names = [m.name for m in pkgutil.walk_packages(tcnn_tpu_torch.__path__, 'tcnn_tpu_torch.')]\n"
         "for n in names: importlib.import_module(n)\n"
         "assert 'tcnn_tpu_torch.modules' in sys.modules and 'tcnn_tpu_torch.encodings.basic' in sys.modules\n"
-        "bad = sorted(m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'tcnn_tpu'))\n"
+        "assert 'tcnn_tpu_torch.benchmarks.bench' in sys.modules and 'tcnn_tpu_torch.samples' in sys.modules\n"
+        "top = ('jax', 'jaxlib', 'tcnn_tpu', 'bench', 'benchmarks', 'samples', '__graft_entry__')\n"
+        "bad = sorted(m for m in sys.modules if m.split('.')[0] in top)\n"
         "assert not bad, bad\n"
         "print(len(names))\n"
     )
     r = _run(["-c", code], ROOT)
     assert r.returncode == 0, r.stderr
-    assert int(r.stdout.strip()) >= 30
+    assert int(r.stdout.strip()) >= 40
 
 
 def test_entry_points_default_to_cuda():
@@ -156,3 +159,55 @@ def test_kernel_binds_each_symbol(monkeypatch):
     assert fa.argtypes == [ctypes.c_void_p, ctypes.c_int] and fb.argtypes == [ctypes.c_void_p] * 3
     assert fa.restype is ctypes.c_int and fb.restype is ctypes.c_int
     assert _build.kernel("fake", "b", []) is fb and fb.argtypes == [ctypes.c_void_p] * 3
+
+
+def _raises_without_cuda(calls_src: str, cpu_checks_src: str):
+    """Each call of ``calls`` raises the port's no-card error; the lines of
+    ``cpu_checks`` (which pass ``device="cpu"``) run."""
+    code = (
+        "import torch\n"
+        "from tcnn_tpu_torch.utils.sampling import stratified_uniform\n"
+        "from tcnn_tpu_torch.optimizers import AdamOptimizer, EmaOptimizer, Optimizer\n"
+        "adam, ema, base = AdamOptimizer({}), EmaOptimizer({'decay': 0.9}), Optimizer()\n"
+        "for o in (adam, ema, base):\n"
+        "    o.allocate(40, [(4, 5)])\n"
+        f"calls = [{calls_src}]\n"
+        "for call in calls:\n"
+        "    try:\n"
+        "        call()\n"
+        "    except RuntimeError as e:\n"
+        "        assert 'no CUDA device' in str(e), e\n"
+        "    else:\n"
+        "        raise AssertionError(call)\n"
+        f"{cpu_checks_src}"
+        "print('ok')\n"
+    )
+    r = _run(["-c", code], ROOT, CUDA_VISIBLE_DEVICES="")
+    assert r.returncode == 0, r.stderr
+    assert r.stdout.strip().endswith("ok")
+
+
+def test_stratified_uniform_defaults_to_cuda():
+    """Without a generator or a device the sampler draws on the card (and
+    raises without one); with a generator it keeps the generator's device."""
+    _raises_without_cuda(
+        "lambda: stratified_uniform(16, 2), lambda: stratified_uniform(64, 3, phase_locked=2)",
+        "assert stratified_uniform(16, 2, device='cpu').device.type == 'cpu'\n"
+        "g = torch.Generator().manual_seed(0)\n"
+        "x = stratified_uniform(16, 2, g)\n"
+        "assert x.device.type == 'cpu' and x.shape == (16, 2)\n",
+    )
+
+
+def test_optimizer_state_defaults_to_cuda():
+    """``init_state()`` of Adam, EMA and the base class allocates on the
+    card (and raises without one); ``init_state("cpu")`` stays on the CPU."""
+    _raises_without_cuda(
+        "adam.init_state, ema.init_state, base.init_state",
+        "for o in (adam, ema, base):\n"
+        "    s = o.init_state('cpu')\n"
+        "    leaves = [s['step']] if o is base else ([s['nested']['step'], s['weights_ema']] if o is ema else\n"
+        "              [s['step'], s['first_moments'], s['second_moments'], s['param_steps']])\n"
+        "    assert all(t.device.type == 'cpu' for t in leaves)\n"
+        "assert ema.init_state('cpu')['weights_ema'].shape == (40,)\n",
+    )
