@@ -19,8 +19,11 @@ Phases, each printing lines of its own; any failure exits non-zero:
    inference_raster 1024^2 and a FrozenServer batch and raster, each
    checked against the plain path on the card; both kernels' launch
    counters must rise during this phase.
-6. the fused MLP backward against its plain version: widths x depths x
-   activations x batch sizes, all ten activations, the flagship's shapes.
+6. the fused MLP backward (K2: the walk, the split-K weight gradient and
+   its reduce) against its plain version: widths x depths x activations x
+   batch sizes, all ten activations, in 128 at 128 x 5, an empty batch and
+   batches that are no multiple of a tile, the flagship's shapes; two
+   calls give the same bits.
 7. the fused Adam step against its plain version at the flagship's
    715,760 params, over the optimizer's knobs, three steps each.
 8. the grid backward (flagship encoding, B = 2^18) and the generic
@@ -47,7 +50,10 @@ Phases, each printing lines of its own; any failure exits non-zero:
 13. times (CUDA events / synced host clock, median of repeats), each
    kernel's bound from its shapes (bytes over 3.35 TB/s or operations over
    the peak of their type) and, where one PyTorch call computes the same
-   function, that call's time.
+   function, that call's time; K2 against the earlier atomic kernel and
+   the plain version in turns at the flagship, at 128 x 5 with in 128 and
+   at the K8 view, and its walk and weight gradient on their own (the latter beside
+   torch.matmul(D_l.T, H_l) over the layers).
 14. probes: the row gather and scatter probes (P1-P19) at their default
    shapes, each kernel against its plain version (gathers, tile sums,
    copies and STORE_LAST bit-exact; ADD within 1e-6 of the sum of
@@ -358,18 +364,24 @@ def phase_mlp_backward():
 
     dev = torch.device("cuda")
     gen = torch.Generator(device=dev).manual_seed(SEED + 2)
+    errs = {"dx": 0.0, "dW": 0.0}
 
-    def case(width, n_hidden, act, batch, gain=2.0):
-        ws = _mlp_weights(gen, _shapes(32, width, n_hidden, 16), gain, dev)
-        x = (torch.rand((batch, 32), generator=gen, device=dev) * 2 - 1).to(torch.bfloat16)
+    def case(width, n_hidden, act, batch, gain=2.0, in_w=32):
+        ws = _mlp_weights(gen, _shapes(in_w, width, n_hidden, 16), gain, dev)
+        x = (torch.rand((batch, in_w), generator=gen, device=dev) * 2 - 1).to(torch.bfloat16)
         g = (torch.rand((batch, 16), generator=gen, device=dev) * 2 - 1).to(torch.bfloat16)
         got = ffmlp_backward(x, g, ws, act, Activation.NONE)
         want = ffmlp_backward_plain(x, g, ws, act, Activation.NONE)
         torch.cuda.synchronize()
-        name = f"ffmlp_bwd w{width} h{n_hidden} {act.value} B{batch}"
-        errs = [bwd_close(got[0], want[0], name + " dx")]
-        errs += [bwd_close(a, b, f"{name} dW{i}") for i, (a, b) in enumerate(zip(got[1], want[1]))]
-        return max(errs)
+        name = f"ffmlp_bwd in{in_w} w{width} h{n_hidden} {act.value} B{batch}"
+        if batch == 0:
+            check(got[0].shape == (0, in_w) and all(not d.any() and d.shape == w.shape for d, w in zip(got[1], ws)),
+                  f"{name}: an empty batch must give dx (0, {in_w}) and zero dW")
+            return 0.0
+        e_dx = bwd_close(got[0], want[0], name + " dx")
+        e_dw = max(bwd_close(a, b, f"{name} dW{i}") for i, (a, b) in enumerate(zip(got[1], want[1])))
+        errs["dx"], errs["dW"] = max(errs["dx"], e_dx), max(errs["dW"], e_dw)
+        return max(e_dx, e_dw)
 
     n, worst = 0, 0.0
     for width in (16, 32, 64, 128):
@@ -381,8 +393,15 @@ def phase_mlp_backward():
     for act in Activation:
         worst = max(worst, case(64, 2, act, 4096, gain=0.5 if act == Activation.Exponential else 2.0))
         n += 1
-    log(f"kernel ffmlp_bwd: {n} cases (widths x depths {{0, 2, 5}} x ReLU/Sigmoid/Sine x B {{1, 1000, 2^18}}, "
-        f"then all 10 activations at w64) match the plain backward ({TOL_BWD_NOTE}); worst max|diff| {worst:.3e}")
+    # bench_image's shape (in 128, 128 x 5); an empty batch; a batch that is
+    # no multiple of a 16-row tile, a 32-row K tile or the split's rows.
+    for width, n_hidden, batch, in_w in ((128, 5, B_FLAG, 128), (128, 5, 1000, 128), (64, 2, 0, 32),
+                                         (128, 5, 0, 128), (64, 2, B_FLAG + 4097, 32), (128, 5, 100_003, 128)):
+        worst = max(worst, case(width, n_hidden, Activation.ReLU, batch, in_w=in_w))
+        n += 1
+    log(f"kernel ffmlp_bwd (walk + split-K dW + reduce): {n} cases (widths x depths {{0, 2, 5}} x ReLU/Sigmoid/Sine x "
+        f"B {{1, 1000, 2^18}}, all 10 activations at w64, in 128 at 128 x 5 with B 2^18 and 1000, B = 0, "
+        f"B = 2^18 + 4097 and 100,003) match the plain backward ({TOL_BWD_NOTE}); worst max|diff| {worst:.3e}")
     ws = _mlp_weights(gen, _shapes(32, 64, 2, 16), 1.0, dev)
     x = (torch.rand((B_FLAG, 32), generator=gen, device=dev) * 2 - 1).to(torch.bfloat16)
     g = ((torch.rand((B_FLAG, 16), generator=gen, device=dev) * 2 - 1) * 1e-3).to(torch.bfloat16)
@@ -391,7 +410,19 @@ def phase_mlp_backward():
     err = max([bwd_close(got[0], want[0], "ffmlp_bwd flagship dx")]
               + [bwd_close(a, b, f"ffmlp_bwd flagship dW{i}") for i, (a, b) in enumerate(zip(got[1], want[1]))])
     log(f"kernel ffmlp_bwd: flagship shapes (B 2^18, 32 -> 64 x2 -> 16, ReLU) max|diff| {err:.3e}")
-    return {"x": x, "g": g, "ws": ws, "err": err}
+    # Determinism: no atomics, partials summed in split order.
+    for what, (w_shapes, batch) in {"flagship": (_shapes(32, 64, 2, 16), B_FLAG),
+                                    "128 x 5, in 128": (_shapes(128, 128, 5, 16), 100_003)}.items():
+        wd = _mlp_weights(gen, w_shapes, 2.0, dev)
+        xd = (torch.rand((batch, w_shapes[0][1]), generator=gen, device=dev) * 2 - 1).to(torch.bfloat16)
+        gd = (torch.rand((batch, 16), generator=gen, device=dev) * 2 - 1).to(torch.bfloat16)
+        a = ffmlp_backward(xd, gd, wd, Activation.Sine, Activation.NONE)
+        b = ffmlp_backward(xd, gd, wd, Activation.Sine, Activation.NONE)
+        torch.cuda.synchronize()
+        check(torch.equal(a[0], b[0]) and all(torch.equal(u, v) for u, v in zip(a[1], b[1])),
+              f"ffmlp_bwd {what}: two calls on the same inputs differ")
+        log(f"kernel ffmlp_bwd: determinism at {what}, B = {batch}: two calls give bit-identical dx and dW")
+    return {"x": x, "g": g, "ws": ws, "err": err, "err_dx": max(errs["dx"], err), "err_dw": max(errs["dW"], err)}
 
 
 ADAM_KNOBS = [
@@ -605,7 +636,6 @@ def phase_train(name, cfg, card, image):
     import torch
 
     import tcnn_tpu_torch as tt
-    from tcnn_tpu_torch.ops import ffmlp, fused_adam, grid_encode
     from tcnn_tpu_torch.utils.sampling import stratified_uniform
 
     dev = torch.device("cuda")
@@ -624,10 +654,7 @@ def phase_train(name, cfg, card, image):
     lr = float(m.trainer.learning_rate)
     _compare_one_step(name, m, *batch(), lr)
 
-    counters = (ffmlp, "LAUNCHES"), (grid_encode, "LAUNCHES"), (ffmlp, "BWD_LAUNCHES"), \
-        (fused_adam, "LAUNCHES"), (grid_encode, "BWD_LAUNCHES")
-    for mod, attr in counters:
-        setattr(mod, attr, 0)
+    _zero_counts(TRAIN_COUNTERS)
     losses, step_ms = [], []
     t_start = time.perf_counter()
     for i in range(N_TRAIN_STEPS):
@@ -641,7 +668,7 @@ def phase_train(name, cfg, card, image):
             step_ms.append((time.perf_counter() - t0) * 1e3)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t_start
-    launches = {k: getattr(mod, attr) for k, (mod, attr) in zip(KERNELS, counters)}
+    launches = _read_counts(TRAIN_COUNTERS)
     losses = torch.stack(losses).float().cpu().numpy()
     check(np.isfinite(losses).all() and torch.isfinite(m.params).all(), f"{name}: non-finite loss or params")
     check(torch.isfinite(m.trainer.inference_params()).all(), f"{name}: non-finite inference params")
@@ -938,9 +965,18 @@ def _sdf_step(opt, f_of, x, target):
     return loss.detach()
 
 
+# The K2 counters: the backward as a whole and its two launches.
+K2_COUNTERS = {
+    "ffmlp_bwd": ("ffmlp", "BWD_LAUNCHES"), "ffmlp_bwd_walk": ("ffmlp", "WALK_LAUNCHES"),
+    "ffmlp_bwd_dw": ("ffmlp", "DW_LAUNCHES"),
+}
+TRAIN_COUNTERS = {
+    "ffmlp_fwd": ("ffmlp", "LAUNCHES"), "grid_fwd": ("grid_encode", "LAUNCHES"), **K2_COUNTERS,
+    "adam_step": ("fused_adam", "LAUNCHES"), "grid_bwd": ("grid_encode", "BWD_LAUNCHES"),
+}
 SDF_COUNTERS = {
     "grid_fwd": ("grid_encode", "LAUNCHES"), "ffmlp_fwd": ("ffmlp", "LAUNCHES"),
-    "ffmlp_bwd": ("ffmlp", "BWD_LAUNCHES"), "grid_bwd": ("grid_encode", "BWD_LAUNCHES"),
+    **K2_COUNTERS, "grid_bwd": ("grid_encode", "BWD_LAUNCHES"),
     "grid_bwd_input": ("grid_encode", "INPUT_LAUNCHES"), "grid_bwdbwd": ("grid_encode", "BWDBWD_LAUNCHES"),
 }
 
@@ -1116,13 +1152,135 @@ def _host_ms(fn, reps=11):
     return statistics.median(times)
 
 
+def _k2_bounds(batch, in_w, out_w, n_w, rows_padded, scratch_cols):
+    """Bounds of K2 and of its two parts (bf16 bytes; bf16 operations):
+    the whole backward (x, g and the weights read, dx and dW written; 6
+    flops per weight a row), the walk (x, g, weights read; dx and the
+    scratch written; the forward and dh products, 4 flops per weight a row)
+    and the weight gradient (x and the scratch read, dW written; 2 flops per
+    weight a row)."""
+    scratch = rows_padded * scratch_cols * 2
+    return {
+        "ffmlp_bwd": bound(batch * (2 * in_w + out_w) * 2 + 2 * n_w * 2, 6 * batch * n_w, "bf16"),
+        "walk": bound(batch * (2 * in_w + out_w) * 2 + n_w * 2 + scratch, 4 * batch * n_w, "bf16"),
+        "dw": bound(batch * in_w * 2 + scratch + n_w * 2, 2 * batch * n_w, "bf16"),
+    }
+
+
+def phase_k2_times(card, kb):
+    """The new K2 (walk + split-K dW + reduce), the earlier atomic kernel and the plain
+    version in one call, in turns, at the flagship, at 128 x 5 with in 128
+    and at the K8 view; then the walk and the weight gradient on their own
+    at the flagship, the latter beside torch.matmul(D_l.T, H_l) over the
+    layers."""
+    import torch
+
+    from tcnn_tpu_torch.common import Activation
+    from tcnn_tpu_torch.networks.activations import ACTIVATION_CODES
+    from tcnn_tpu_torch.ops import ffmlp as F
+
+    relu, none = Activation.ReLU, Activation.NONE
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(SEED + 10)
+    ws128 = _mlp_weights(gen, _shapes(128, 128, 5, 16), 1.0, dev)
+    x128 = (torch.rand((B_FLAG, 128), generator=gen, device=dev) * 2 - 1).to(torch.bfloat16)
+    g128 = (torch.rand((B_FLAG, 16), generator=gen, device=dev) * 2 - 1).to(torch.bfloat16)
+    w = PACKED_WIDTHS[-1]
+    ws8 = _mlp_weights(gen, _shapes(w, w, 3, w), 1.0, dev)
+    xp = torch.randn((B_PACKED * w // 128, 128), generator=gen, device=dev).to(torch.bfloat16)
+    gp = (torch.rand(xp.shape, generator=gen, device=dev) * 2 - 1).to(torch.bfloat16)
+    x, g, ws = kb["x"], kb["g"], kb["ws"]
+    cases = {
+        "flagship (B=2^18, 32->64x2->16)": (
+            lambda: F.ffmlp_backward(x, g, ws, relu, none), lambda: F._ffmlp_backward_atomic(x, g, ws, relu, none),
+            lambda: F.ffmlp_backward_plain(x, g, ws, relu, none), (B_FLAG, 32, 16, ws)),
+        "128 x 5, in 128 (B=2^18, bench_image's net)": (
+            lambda: F.ffmlp_backward(x128, g128, ws128, relu, none),
+            lambda: F._ffmlp_backward_atomic(x128, g128, ws128, relu, none),
+            lambda: F.ffmlp_backward_plain(x128, g128, ws128, relu, none), (B_FLAG, 128, 16, ws128)),
+        "K8 view (w64, 3 hidden, B=2^20; plain: block-diagonal)": (
+            lambda: F.ffmlp_backward_packed(xp, gp, ws8, relu, none),
+            lambda: F._ffmlp_backward_atomic(xp.view(B_PACKED, w), gp.view(B_PACKED, w), ws8, relu, none),
+            lambda: F.ffmlp_backward_packed_plain(xp, gp, ws8, relu, none), (B_PACKED, w, w, ws8)),
+    }
+    out = {}
+    with torch.no_grad():
+        for name, (new, atomic, plain, (batch, in_w, out_w, wl)) in cases.items():
+            fns = {"plain": plain, "kernel": new, "atomic": atomic}
+            runs = {k: [] for k in fns}
+            for kind in ("plain", "kernel", "atomic", "atomic", "kernel", "plain"):
+                runs[kind].append(_event_ms(fns[kind]))
+            r = {k: statistics.median(v) for k, v in runs.items()}
+            n_w = sum(int(t.numel()) for t in wl)
+            rows_padded = F.dw_split(batch, [tuple(t.shape) for t in wl])[0]
+            n_hidden, width = len(wl) - 1, wl[0].shape[0]
+            r["bound"] = _k2_bounds(batch, in_w, out_w, n_w, rows_padded, 2 * n_hidden * width + out_w)["ffmlp_bwd"]
+            out[name] = r
+            log(f"time [{card}]: K2 A/B {name}: new (walk + dW + reduce) {r['kernel']:.4f} ms, atomic kernel "
+                f"{r['atomic']:.4f} ms, plain {r['plain']:.4f} ms, bound {r['bound'][0]:.4f} ms ({r['bound'][1]}); "
+                f"atomic / new {r['atomic'] / r['kernel']:.2f}x (CUDA events, median; turns plain, new, atomic, "
+                f"atomic, new, plain)")
+
+        # The parts at the flagship, from the same operands.
+        width, n_hidden, out_w, flat = F._backward_operands("k2 parts", x, g, ws)
+        dims = (width, n_hidden, out_w)
+        split = F.dw_split(B_FLAG, [tuple(t.shape) for t in ws])
+        codes = (ACTIVATION_CODES[relu], ACTIVATION_CODES[none])
+        _, d_scr, h_scr = F._walk("k2 parts", x, g, flat, dims, codes, split[0])
+        rows = split[0]
+        ds, hs, col = [], [x], 0
+        for t in ws:
+            ds.append(d_scr[rows * col: rows * (col + t.shape[0])].view(rows, t.shape[0])[:B_FLAG])
+            col += t.shape[0]
+        for l in range(n_hidden):
+            hs.append(h_scr[rows * l * width: rows * (l + 1) * width].view(rows, width)[:B_FLAG])
+        # The product against the fp64 product of the walk's own scratch:
+        # every entry within half a bf16 ulp of the exact sum (its one
+        # rounding) plus the fp32 summation bound n 2^-24 (|D|^T |H|).
+        dw = F._weight_grad("k2 parts", x, d_scr, h_scr, flat, dims, split)
+        worst = 0.0
+        for (d, h), got in zip(zip(ds, hs), dw.split([t.numel() for t in ws])):
+            exact = d.double().T @ h.double()
+            half_ulp = torch.where(exact != 0, 2.0 ** (torch.floor(torch.log2(exact.abs())) - 8), 0.0)
+            tol = half_ulp + B_FLAG * 2.0**-24 * (d.double().abs().T @ h.double().abs())
+            excess = (got.view(exact.shape).double() - exact).abs() - tol
+            worst = max(worst, float(excess.max()))
+        check(worst <= 0.0, f"k2 parts: the dW product is off the exact product of its inputs by {worst:.3e}")
+        log(f"kernel ffmlp_bwd_dw: at the flagship every dW entry is within half a bf16 ulp of the fp64 product of "
+            f"the walk's own D_l and H_l, plus the fp32 summation bound B 2^-24 (|D|^T |H|)")
+        fns = {
+            ("kernel", "walk"): lambda: F._walk("k2 parts", x, g, flat, dims, codes, split[0]),
+            ("plain", "walk"): lambda: F.ffmlp_backward_walk_plain(x, g, ws, relu, none),
+            ("kernel", "dw"): lambda: F._weight_grad("k2 parts", x, d_scr, h_scr, flat, dims, split),
+            ("plain", "dw"): lambda: F.ffmlp_weight_grad_plain(ds, hs, split[1] * F.DW_TILE_K),
+        }
+        for which in ("walk", "dw"):
+            runs = {"kernel": [], "plain": []}
+            for kind in ("plain", "kernel", "kernel", "plain"):
+                runs[kind].append(_event_ms(fns[(kind, which)]))
+            out[which] = {k: statistics.median(v) for k, v in runs.items()}
+        out["dw"]["library"] = _event_ms(lambda: [torch.matmul(d.T, h) for d, h in zip(ds, hs)])
+        out["walk"]["library"] = None
+    n_w = sum(int(t.numel()) for t in ws)
+    bounds = _k2_bounds(B_FLAG, 32, 16, n_w, split[0], 2 * n_hidden * width + out_w)
+    for which, what in (("walk", "walk (forward recompute, dx, D_l and H_l to scratch)"),
+                        ("dw", f"split-K dW product + reduce ({split[2]} splits of {split[1]} K tiles)")):
+        o = out[which]
+        o["bound"] = bounds[which]
+        log(f"time [{card}]: K2 part at the flagship: {what}: kernel {o['kernel']:.4f} ms, plain {o['plain']:.4f} ms, "
+            f"bound {o['bound'][0]:.4f} ms ({o['bound'][1]})"
+            + ("" if o["library"] is None else f", torch.matmul(D_l.T, H_l) over the 3 layers {o['library']:.4f} ms")
+            + " (CUDA events, median)")
+    return out
+
+
 def phase_times(card, k1, k2, m, x_np, kb, ks):
     import torch
 
     from tcnn_tpu_torch.common import Activation
     from tcnn_tpu_torch.ops import grid_encode as ge
     from tcnn_tpu_torch.ops import scatter_rows as sr
-    from tcnn_tpu_torch.ops.ffmlp import ffmlp_backward, ffmlp_backward_plain, ffmlp_forward, ffmlp_forward_plain
+    from tcnn_tpu_torch.ops.ffmlp import ffmlp_forward, ffmlp_forward_plain
     from tcnn_tpu_torch.optimizers import AdamOptimizer
 
     x, ws = k1["x"], k1["ws"]
@@ -1144,8 +1302,6 @@ def phase_times(card, k1, k2, m, x_np, kb, ks):
         ("plain", "k1"): lambda: ffmlp_forward_plain(x, ws, relu, none),
         ("kernel", "k2"): lambda: enc.apply(params, xg),
         ("plain", "k2"): lambda: enc.apply_plain(params, xg),
-        ("kernel", "ffmlp_bwd"): lambda: ffmlp_backward(kb["x"], kb["g"], kb["ws"], relu, none),
-        ("plain", "ffmlp_bwd"): lambda: ffmlp_backward_plain(kb["x"], kb["g"], kb["ws"], relu, none),
         ("kernel", "adam_step"): lambda: opt.step(a_state, a_params, a_grads, 128.0),
         ("plain", "adam_step"): lambda: opt.step(a_state, a_params, a_grads, 128.0, plain=True),
         ("kernel", "grid_bwd"): lambda: ge.grid_backward(ks["x"], ks["dy"], ks["levels"], 2, ge.INTERP_LINEAR,
@@ -1172,7 +1328,7 @@ def phase_times(card, k1, k2, m, x_np, kb, ks):
     s_out = torch.zeros((64, 4), device="cuda")
     s_idx = ks["idx"].long()
     library = {"scatter_rows": lambda: s_out.index_add_(0, s_idx, ks["rows"])}
-    timed = ("k1", "k2", "ffmlp_bwd", "adam_step", "grid_bwd", "scatter_rows", "grid_bwd_input", "grid_bwdbwd")
+    timed = ("k1", "k2", "adam_step", "grid_bwd", "scatter_rows", "grid_bwd_input", "grid_bwdbwd")
     runs = {which: {"kernel": [], "plain": []} for which in timed}
     with torch.no_grad():
         for which in timed:
@@ -1187,6 +1343,14 @@ def phase_times(card, k1, k2, m, x_np, kb, ks):
     for which in timed:
         for kind in ("kernel", "plain"):
             t[f"{which}_{kind}_ms"] = statistics.median(runs[which][kind])
+    # K2 and its parts: the A/B against the atomic kernel in one call.
+    t["k2"] = phase_k2_times(card, kb)
+    flag = t["k2"]["flagship (B=2^18, 32->64x2->16)"]
+    t["ffmlp_bwd_kernel_ms"], t["ffmlp_bwd_plain_ms"] = flag["kernel"], flag["plain"]
+    for part in ("walk", "dw"):
+        p = t["k2"][part]
+        t[f"ffmlp_bwd_{part}_kernel_ms"], t[f"ffmlp_bwd_{part}_plain_ms"] = p["kernel"], p["plain"]
+        t[f"ffmlp_bwd_{part}_library_ms"] = p["library"]
     log(f"time [{card}]: kernel1 ffmlp_fwd B=2^18 32->64x2->16: kernel {t['k1_kernel_ms']:.4f} ms, "
         f"plain chain {t['k1_plain_ms']:.4f} ms (CUDA events, median)")
     log(f"time [{card}]: kernel2 grid_fwd flagship B=2^18: kernel {t['k2_kernel_ms']:.4f} ms, "
@@ -1205,6 +1369,8 @@ def phase_times(card, k1, k2, m, x_np, kb, ks):
         "k1": bound(B_FLAG * (32 + 16) * 2 + n_w * 2, 2 * B_FLAG * n_w, "bf16"),
         "k2": bound(B_FLAG * 2 * 4 + n_enc * 4 + B_FLAG * 32 * 2, B_FLAG * L2 * 4 * (2 + 2 * F), "fp32"),
         "ffmlp_bwd": bound(B_FLAG * (2 * 32 + 16) * 2 + 2 * n_w * 2, 6 * B_FLAG * n_w, "bf16"),
+        "ffmlp_bwd_walk": t["k2"]["walk"]["bound"],
+        "ffmlp_bwd_dw": t["k2"]["dw"]["bound"],
         "adam_step": bound(715760 * 36, 715760 * 20, "fp32"),
         "grid_bwd": bound(B_FLAG * 2 * 4 + B_FLAG * 32 * 2 + n_enc * 4, B_FLAG * L2 * 4 * (2 + 2 * F), "fp32"),
         "scatter_rows": bound(B_FLAG * 4 + B_FLAG * 4 * 4 + 64 * 4 * 4, B_FLAG * 4, "fp32"),
@@ -1386,7 +1552,7 @@ def phase_floors(card, records, t, train_profile, sdf_profile):
 
 BENCH_COUNTERS = {
     "ffmlp_fwd": ("ffmlp", "LAUNCHES"), "grid_fwd": ("grid_encode", "LAUNCHES"),
-    "ffmlp_bwd": ("ffmlp", "BWD_LAUNCHES"), "adam_step": ("fused_adam", "LAUNCHES"),
+    **K2_COUNTERS, "adam_step": ("fused_adam", "LAUNCHES"),
     "grid_bwd": ("grid_encode", "BWD_LAUNCHES"), "ffmlp_fwd_packed": ("ffmlp", "PACKED_LAUNCHES"),
     "ffmlp_bwd_packed": ("ffmlp", "PACKED_BWD_LAUNCHES"),
 }
@@ -1532,6 +1698,10 @@ def main() -> int:
               k2["flagship"][3], "k2", "serving"),
         entry("ffmlp_bwd", "ffmlp_bwd.cu", "tcnn_tpu/ops/ffmlp.py:838", train["ffmlp_bwd"], kb["err"],
               "ffmlp_bwd", "training"),
+        entry("ffmlp_bwd_walk", "ffmlp_bwd.cu", "tcnn_tpu/ops/ffmlp.py:838", train["ffmlp_bwd_walk"], kb["err_dx"],
+              "ffmlp_bwd_walk", "training"),
+        entry("ffmlp_bwd_dw", "ffmlp_bwd.cu", "tcnn_tpu/ops/ffmlp.py:838", train["ffmlp_bwd_dw"], kb["err_dw"],
+              "ffmlp_bwd_dw", "training"),
         entry("adam_step", "adam_step.cu", "tcnn_tpu/ops/fused_adam.py:122", train["adam_step"], ka["err"],
               "adam_step", "training"),
         entry("grid_bwd", "grid_bwd.cu", "tcnn_tpu/ops/scatter_rows.py:259", train["grid_bwd"], ks["grid_err"],

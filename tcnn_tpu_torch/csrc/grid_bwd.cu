@@ -174,7 +174,7 @@ __global__ void grid_backward_input_kernel(const float* __restrict__ x, const Dy
       float dot = 0.0f;
 #pragma unroll
       for (int f = 0; f < kMaxF; ++f) {
-        if (f < F) dot = __fadd_rn(dot, __fmul_rn(g[f], read_rounded(trow + f, table_round)));
+        if (f < F) dot = __fadd_rn(dot, __fmul_rn(g[f], read_rounded(trow + f, table_round, lv)));
       }
       float fac[kMaxDims], dw[kMaxDims];
 #pragma unroll
@@ -245,7 +245,7 @@ __global__ void grid_backward_backward_kernel(
 #pragma unroll
       for (int f = 0; f < kMaxF; ++f) {
         if (f < F) {
-          const float t = read_rounded(params + row + f, table_round);
+          const float t = read_rounded(params + row + f, table_round, lv);
           dot = __fadd_rn(dot, __fmul_rn(g[f], t));
           gdy[f] = __fadd_rn(gdy[f], __fmul_rn(a, t));
           if (use_cgp) {

@@ -9,7 +9,7 @@
 // What it computes, per (sample, level): the cell and the 2^d corner
 // indices and weights of grid_common.cuh; the features read as fp32 from the
 // flat parameters, rounded on read to fp16 or bf16 when a table dtype is
-// set; and the weighted sum in fp32, in corner order 0..2^d-1, with every
+// set (the encoding's, then the level's serve-time one); and the weighted sum in fp32, in corner order 0..2^d-1, with every
 // product and sum rounded separately as in the plain version. Output column
 // lvl*F + f; padding columns are written as zeros.
 //
@@ -21,7 +21,7 @@
 //
 // Design: one thread per (sample, level), level fastest, so a warp shares a
 // couple of samples' coordinates and writes one contiguous output run; the
-// per-level constants are one 96-byte struct read through the cache. Enough
+// per-level constants are one 100-byte struct read through the cache. Enough
 // threads are in flight (B x L) to hide the L2 latency. Corner-shared loads
 // (one row per cell for affine levels) are later work.
 
@@ -62,7 +62,7 @@ __global__ void grid_forward_kernel(const float* __restrict__ x, const float* __
     const float* row = params + ((uint64_t)lv.offset + idx) * F;
 #pragma unroll
     for (int f = 0; f < kMaxF; ++f) {
-      if (f < F) acc[f] = __fadd_rn(acc[f], __fmul_rn(weight, read_rounded(row + f, table_round)));
+      if (f < F) acc[f] = __fadd_rn(acc[f], __fmul_rn(weight, read_rounded(row + f, table_round, lv)));
     }
   }
 

@@ -9,12 +9,14 @@ Everything that changes the function computed is reproduced exactly: the
 hash type (``"auto"`` -> CoherentAdditive), the raster strides that
 ``gather_strategy: "stratified"`` gives coarse levels (``raster_max_scale``),
 the phase-locked scale snapping, the interpolation, ``table_dtype`` rounding
-on read, and in training the rounding class of each level's table gradient
+on read, the serve-time ``table_dtype`` of ``FrozenServer`` on exactly the
+levels the JAX package serves from its prebuilt quad tables
+(``served_levels``), and in training the rounding class of each level's table gradient
 (``gradient_classes``), which ``scatter_strategy``, ``locked_rounding``,
 ``gather_strategy``, ``phase_locked`` and the batch select in the JAX
 package. Its other TPU execution strategies (quad tables, packed layouts,
-level splits) are accepted as config keys and ignored: they change how the
-TPU computes, not what. Per level, all of this is compiled into one row of
+level splits) are accepted as config keys, validated as the JAX package
+validates them, and ignored: they change how the TPU computes, not what. Per level, all of this is compiled into one row of
 the level table (``ops.grid_encode.level_table``) and one row of the class
 table that the kernels and their plain versions read.
 """
@@ -60,10 +62,16 @@ _INTERP_CODES = {
 }
 _ROUND_CODES = {"float32": ge.ROUND_NONE, "float16": ge.ROUND_FP16, "bfloat16": ge.ROUND_BF16}
 
-# JAX-package execution-strategy keys: accepted, logged, ignored.
+# JAX-package execution-strategy keys: accepted, logged, ignored. Those the
+# JAX package validates are validated here with its sets of values
+# (tcnn_tpu/encodings/grid.py:2292-2296, and 2325-2347 under "stratified").
 TPU_STRATEGY_KEYS = (
     "quad_build", "level_split", "strat_accum", "locked_fwd", "index_mode", "onehot_threshold",
 )
+_QUAD_BUILDS = ("auto", "view", "flat", "slice", "cf")
+_LEVEL_SPLITS = ("auto", "off", "barrier")
+_STRAT_ACCUMS = ("auto", "select_n", "where")
+_LOCKED_FWDS = ("unpacked", "packed", "csr")
 
 # Table-gradient rounding class (contribution rounding, accumulation) of each
 # JAX scatter mode (tcnn_tpu/encodings/grid.py:_scatter_mode and the
@@ -289,8 +297,49 @@ class GridEncoding(Encoding):
             return [res**k for k in range(self.n_dims_to_encode)]
         return self._corner_strides[lvl]
 
-    def level_table(self) -> np.ndarray:
-        """The (n_levels, 24) int32 level table of this encoding."""
+    def served_levels(self, raster_sides=None) -> List[bool]:
+        """Per level, whether the JAX package's ``FrozenServer`` reads it
+        from a prebuilt quad table, which it stores in the serve-time
+        ``table_dtype``: on a batch, or on the raster of ``raster_sides``.
+        Tables are built only under gather_strategy "quad" or "stratified"
+        for levels with affine strides (tcnn_tpu/encodings/grid.py:
+        serving_tables, _level_strides) and read only on the quad-row path,
+        which needs Linear interpolation (:1713-1717, :1892). On a raster of
+        a stratified encoding the raster-stride prefix of levels takes the
+        separable static path (:1564-1578, :1866) and, where the raster is
+        a perfect d-th power, later raster-stride levels the stratified
+        static path (:1683-1712); both read the fp32 parameters."""
+        L = self.n_levels
+        if self.gather_strategy not in ("quad", "stratified") or self.interpolation_type != InterpolationType.Linear:
+            return [False] * L
+        served = [self._level_strides(lvl) is not None for lvl in range(L)]
+        d = self.n_dims_to_encode
+        if (
+            raster_sides is None
+            or self.gather_strategy != "stratified"
+            or self.raster_max_scale is None
+            or self.stochastic_interpolation
+            or d not in (2, 3)
+        ):
+            return served
+        n = int(np.prod(raster_sides))
+        s = round(n ** (1.0 / d))
+        strata = s if s**d == n and s >= 2 else 0
+        prefix = True
+        for lvl in range(L):
+            scale = float(self.scales[lvl])
+            if scale > self.raster_max_scale:
+                prefix = False
+                continue
+            static = strata and math.ceil(scale / strata) + 1 <= self.stratified_max_variants
+            if prefix or static:
+                served[lvl] = False
+        return served
+
+    def level_table(self, table_dtype: Optional[str] = None, raster_sides=None) -> np.ndarray:
+        """The (n_levels, 25) int32 level table of this encoding; with a
+        serve-time ``table_dtype``, its levels that ``served_levels`` names
+        round their reads to it."""
         quad = (
             self.gather_strategy in ("quad", "quad_fused", "stratified")
             and self.interpolation_type == InterpolationType.Linear
@@ -308,13 +357,17 @@ class GridEncoding(Encoding):
                 modes.append(ge.MODE_XOR)
                 strides.append(_hash_factors(self.hash_type, self.n_dims_to_encode))
         off = self.offset_table
-        return ge.level_table(off[:-1], off[1:] - off[:-1], modes, self.scales, strides)
+        code = _ROUND_CODES[table_dtype or "float32"]
+        serve = [code if s else ge.ROUND_NONE for s in self.served_levels(raster_sides)]
+        return ge.level_table(off[:-1], off[1:] - off[:-1], modes, self.scales, strides, serve)
 
-    def _levels_on(self, device: torch.device) -> torch.Tensor:
-        key = (device.type, device.index)
+    def _levels_on(self, device: torch.device, table_dtype: Optional[str] = None, raster_sides=None) -> torch.Tensor:
+        serve = tuple(self.served_levels(raster_sides)) if table_dtype not in (None, "float32") else ()
+        key = (device.type, device.index, table_dtype if serve else None, serve)
         t = self._level_tables.get(key)
         if t is None:
-            t = self._level_tables[key] = torch.from_numpy(self.level_table()).to(device)
+            table = self.level_table(table_dtype, raster_sides)
+            t = self._level_tables[key] = torch.from_numpy(table).to(device)
         return t
 
     def _pack_k(self) -> int:
@@ -441,8 +494,9 @@ class GridEncoding(Encoding):
 
     def apply(self, params: torch.Tensor, x: torch.Tensor, table_dtype: Optional[str] = None) -> torch.Tensor:
         """Encode positions ``x`` (batch, n_dims) to (batch,
-        padded_output_width) in ``output_dtype``. ``table_dtype`` overrides
-        the encoding's read rounding (serve-time precision). Differentiable
+        padded_output_width) in ``output_dtype``. ``table_dtype`` is the
+        serve-time precision: the levels of ``served_levels()`` round their
+        reads to it, after the encoding's own ``table_dtype``. Differentiable
         twice with respect to ``params`` and ``x`` (``ops.grid_encode``: the
         lookup, table-gradient, input-gradient and double-backward kernels
         on the card, their plain versions on the CPU)."""
@@ -453,7 +507,7 @@ class GridEncoding(Encoding):
         device (the reference the kernels are checked against)."""
         return self._encode(params, x, table_dtype, plain=True)
 
-    def _encode(self, params, x, table_dtype, plain: bool):
+    def _encode(self, params, x, table_dtype, plain: bool, raster_sides=None):
         x = x.to(torch.float32).contiguous()
         # Input gradients stay exact with stochastic interpolation (the JAX
         # package's GridEncoding.apply, tcnn_tpu/encodings/grid.py:1391-1395);
@@ -470,18 +524,23 @@ class GridEncoding(Encoding):
             self.n_features_per_level,
             self.padded_output_width,
             _INTERP_CODES[self.interpolation_type],
-            _ROUND_CODES[table_dtype or self.table_dtype],
+            _ROUND_CODES[self.table_dtype],
             self.output_dtype,
             plain,
             acc16,
         )
-        return ge.GridEncodeFunction.apply(x, params, self._levels_on(x.device), classes, meta)
+        levels = self._levels_on(x.device, table_dtype, raster_sides)
+        return ge.GridEncodeFunction.apply(x, params, levels, classes, meta)
 
     def apply_raster(self, params: torch.Tensor, side, table_dtype: Optional[str] = None) -> torch.Tensor:
         """Encode the tile-center raster (``utils.sampling.raster_centers``
-        layout), built on the device of ``params``, by per-sample lookup."""
-        x = raster_centers_torch(side, self.n_dims_to_encode, params.device)
-        return self.apply(params, x, table_dtype)
+        layout), built on the device of ``params``, by per-sample lookup; a
+        serve-time ``table_dtype`` rounds the levels ``served_levels`` names
+        for this raster."""
+        d = self.n_dims_to_encode
+        sides = (int(side),) * d if np.isscalar(side) else tuple(int(s) for s in side)
+        x = raster_centers_torch(side, d, params.device)
+        return self._encode(params, x, table_dtype, plain=False, raster_sides=sides)
 
 
 def _resolve_hash_type(name: str, grid_type) -> HashType:
@@ -546,6 +605,9 @@ def create_grid_encoding(n_dims_to_encode: int, encoding: dict) -> GridEncoding:
         hash_type=_resolve_hash_type(json_value(encoding, "hash", "auto"), grid_type),
         n_features_per_level=n_features_per_level,
     )
+    for key, allowed in (("quad_build", _QUAD_BUILDS), ("level_split", _LEVEL_SPLITS)):
+        if json_value(encoding, key, "auto") not in allowed:
+            raise ValueError(f"invalid {key} {json_value(encoding, key, None)!r}")
     ignored = [k for k in TPU_STRATEGY_KEYS if json_value(encoding, k, None) is not None]
     if ignored:
         log_info(f"GridEncoding: TPU execution-strategy keys {ignored} are ignored by the port")
@@ -568,6 +630,13 @@ def create_grid_encoding(n_dims_to_encode: int, encoding: dict) -> GridEncoding:
         strata = json_value(encoding, "strata", 512 if n_dims_to_encode == 2 else 64)
         enc.stratified_max_variants = json_value(encoding, "stratified_max_variants", 3 if n_dims_to_encode == 2 else 2)
         enc.raster_max_scale = float((enc.stratified_max_variants - 1) * strata)
+        for key, default, allowed in (("strat_accum", "auto", _STRAT_ACCUMS), ("locked_fwd", "unpacked", _LOCKED_FWDS)):
+            if json_value(encoding, key, default) not in allowed:
+                raise ValueError(f"invalid {key} {json_value(encoding, key, default)!r}")
+        # Read only to be validated: the phase count shapes the JAX
+        # package's locked-level transpose, not the function computed.
+        if int(json_value(encoding, "locked_phases", 1)) < 1:
+            raise ValueError(f"locked_phases must be >= 1: {json_value(encoding, 'locked_phases', 1)}")
         enc.locked_rounding = json_value(encoding, "locked_rounding", "pair")
         if enc.locked_rounding not in _LOCKED_CLASSES:
             raise ValueError(f"invalid locked_rounding {enc.locked_rounding!r}")

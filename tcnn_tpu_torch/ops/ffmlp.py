@@ -8,10 +8,14 @@ in one launch: weights staged once in shared memory, activations kept on
 chip between layers. Numerics are those of the plain chain
 ``ffmlp_forward_plain``: bf16 operands, exact products, fp32 sums,
 activation in fp32, then a round to bf16 before the next layer. The
-backward kernel (``csrc/ffmlp_bwd.cu``) recomputes that forward and walks
-the layers in reverse, as ``ffmlp_backward_plain`` writes out: bf16 deltas,
-fp32 products, the weight gradient summed over the batch in fp32 and
-rounded to bf16 once, the input gradient rounded to bf16.
+backward (``csrc/ffmlp_bwd.cu``) computes what ``ffmlp_backward_plain``
+writes out: bf16 deltas, fp32 products, the weight gradient summed over the
+batch in fp32 and rounded to bf16 once, the input gradient rounded to bf16.
+It is two launches: a walk kernel that recomputes the forward, walks the
+layers in reverse and writes dx and every layer's delta D_l and input H_l
+to scratch (``ffmlp_backward_walk_plain``), then a split-K tensor-core
+product dW_l = D_l^T H_l with a fixed-order reduce of its partials
+(``ffmlp_weight_grad_plain``), so the same inputs give the same bits.
 
 The packed-I/O pair ``ffmlp_forward_packed`` / ``ffmlp_backward_packed``
 replaces ``mlp_forward_pallas_packed`` and ``mlp_backward_pallas_packed``
@@ -39,14 +43,45 @@ from ..common import Activation
 from ..networks.activations import ACTIVATION_CODES, activation_backward, activation_fn
 
 # Launches of the CUDA kernels (each incremented once per launch of its
-# wrapper's kernel, nowhere else): the forward and the backward, and the
-# same two kernels launched by the packed-I/O wrappers (K7, K8).
+# wrapper's kernel, nowhere else): the forward and the backward (K2, whose
+# parts count on their own too: the walk, and the weight-gradient product
+# with its reduce), the same two launched by the packed-I/O wrappers (K7,
+# K8), and the earlier atomic backward kept for timing (``_ffmlp_backward_atomic``).
 LAUNCHES = 0
 BWD_LAUNCHES = 0
+WALK_LAUNCHES = 0
+DW_LAUNCHES = 0
 PACKED_LAUNCHES = 0
 PACKED_BWD_LAUNCHES = 0
+ATOMIC_LAUNCHES = 0
 
 FFMLP_WIDTHS = (16, 32, 64, 128)
+
+# The weight-gradient product's tiling (csrc/ffmlp_bwd.cu): batch rows a K
+# tile, output rows and columns a block, and the split count's aim: about
+# four blocks per SM of an H100 (132 SMs), each over at least four K tiles.
+DW_TILE_K = 32
+DW_TILE_MN = 64
+DW_TARGET_BLOCKS = 528
+DW_MIN_TILES = 4
+
+
+def _cdiv(a: int, b: int) -> int:
+    return -(-a // b)
+
+
+def dw_split(batch: int, shapes: Sequence[Tuple[int, int]]) -> Tuple[int, int, int]:
+    """(rows_padded, tiles_per_split, splits) of the weight-gradient product
+    for ``batch`` rows and the layers' (fan_out, fan_in) ``shapes``: the
+    batch rounded up to whole K tiles, split into ``splits`` ranges of
+    ``tiles_per_split`` K tiles (the last one shorter). A function of the
+    shapes alone, so the sum order, and the bits, are the same every call."""
+    rows_padded = _cdiv(batch, DW_TILE_K) * DW_TILE_K
+    k_tiles = rows_padded // DW_TILE_K
+    jobs = sum(_cdiv(m, DW_TILE_MN) * _cdiv(n, DW_TILE_MN) for m, n in shapes)
+    per_job = max(1, _cdiv(DW_TARGET_BLOCKS, jobs))
+    tiles_per_split = max(DW_MIN_TILES, _cdiv(k_tiles, per_job))
+    return rows_padded, tiles_per_split, max(1, _cdiv(k_tiles, tiles_per_split))
 
 
 def ffmlp_forward_plain(
@@ -71,20 +106,20 @@ def ffmlp_forward_plain(
     return h
 
 
-def ffmlp_backward_plain(
+def ffmlp_backward_walk_plain(
     x: torch.Tensor,
     g: torch.Tensor,
     weights: Sequence[torch.Tensor],
     activation: Activation,
     output_activation: Activation,
-) -> Tuple[torch.Tensor, List[torch.Tensor]]:
-    """The backward of the chain with the JAX fused backward's rounding
-    places (tcnn_tpu/ops/ffmlp.py:_mlp_bwd_kernel and _ffmlp_bwd): the
-    forward recomputed with fp32 pre-activations z; delta = act'(z) * g in
-    fp32; per layer in reverse d16 = round(delta), dW = d16^T h summed over
-    the batch in fp32 and rounded once, dh = d16 W in fp32; dx = round(dh).
-    Not autograd of the chain, whose rounding places differ. Returns (dx,
-    [dW...]) in the dtype of ``x``, each dW shaped like its weight."""
+) -> Tuple[torch.Tensor, List[torch.Tensor], List[torch.Tensor]]:
+    """The walk of the backward with the JAX fused backward's rounding
+    places (tcnn_tpu/ops/ffmlp.py:_mlp_bwd_kernel): the forward recomputed
+    with fp32 pre-activations z; delta = act'(z) * g in fp32; per layer in
+    reverse d16 = round(delta), dh = d16 W in fp32; dx = round(dh). Returns
+    (dx, ds, hs): dx in the dtype of ``x``; ds[i] layer i's d16 (B,
+    fan_out) and hs[i] its input (B, fan_in; hs[0] is x), both in the dtype
+    of ``x`` (what the walk kernel writes to its scratch)."""
     dt = x.dtype
     n = len(weights)
     hs = [x]
@@ -97,14 +132,45 @@ def ffmlp_backward_plain(
             h = activation_fn(z, activation).to(dt)
             hs.append(h)
     delta = activation_backward(g.to(torch.float32), zs[-1], output_activation)
-    dws: List[torch.Tensor] = [None] * n
+    ds: List[torch.Tensor] = [None] * n
     for i in range(n - 1, -1, -1):
-        d16 = delta.to(dt).to(torch.float32)
-        dws[i] = (d16.T @ hs[i].to(torch.float32)).to(dt)
-        dh = d16 @ weights[i].to(torch.float32)
+        ds[i] = delta.to(dt)
+        dh = ds[i].to(torch.float32) @ weights[i].to(torch.float32)
         if i > 0:
             delta = activation_backward(dh, zs[i - 1], activation)
-    return dh.to(dt), dws
+    return dh.to(dt), ds, hs
+
+
+def ffmlp_weight_grad_plain(
+    ds: Sequence[torch.Tensor], hs: Sequence[torch.Tensor], rows_per_split: int
+) -> List[torch.Tensor]:
+    """The split-K weight gradient: per layer, fp32 partials D^T H over
+    consecutive ranges of ``rows_per_split`` batch rows, summed in range
+    order and rounded once to the dtype of ``ds``. (fan_out, fan_in) each."""
+    out = []
+    for d, h in zip(ds, hs):
+        acc = torch.zeros((d.shape[1], h.shape[1]), dtype=torch.float32, device=d.device)
+        for lo in range(0, d.shape[0], rows_per_split):
+            acc = acc + d[lo : lo + rows_per_split].to(torch.float32).T @ h[lo : lo + rows_per_split].to(torch.float32)
+        out.append(acc.to(d.dtype))
+    return out
+
+
+def ffmlp_backward_plain(
+    x: torch.Tensor,
+    g: torch.Tensor,
+    weights: Sequence[torch.Tensor],
+    activation: Activation,
+    output_activation: Activation,
+) -> Tuple[torch.Tensor, List[torch.Tensor]]:
+    """The backward of the chain with the JAX fused backward's rounding
+    places (tcnn_tpu/ops/ffmlp.py:_mlp_bwd_kernel and _ffmlp_bwd): the walk
+    of ``ffmlp_backward_walk_plain``, and dW = d16^T h summed over the whole
+    batch in fp32 and rounded once. Not autograd of the chain, whose
+    rounding places differ. Returns (dx, [dW...]) in the dtype of ``x``,
+    each dW shaped like its weight."""
+    dx, ds, hs = ffmlp_backward_walk_plain(x, g, weights, activation, output_activation)
+    return dx, [(d.to(torch.float32).T @ h.to(torch.float32)).to(x.dtype) for d, h in zip(ds, hs)]
 
 
 def _check_shapes(in_width: int, shapes: Sequence[Tuple[int, int]]) -> Tuple[int, int, int]:
@@ -130,7 +196,10 @@ def _check_shapes(in_width: int, shapes: Sequence[Tuple[int, int]]) -> Tuple[int
 
 
 _FWD_ARGS = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 7 + [ctypes.c_void_p]
-_BWD_ARGS = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 7 + [ctypes.c_void_p]
+_WALK_ARGS = [ctypes.c_void_p] * 7 + [ctypes.c_longlong] + [ctypes.c_int] * 8 + [ctypes.c_void_p]
+_WALK_SCRATCH_ARGS = [ctypes.c_int] * 4 + [ctypes.c_void_p]
+_DW_ARGS = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 8 + [ctypes.c_void_p]
+_ATOMIC_ARGS = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 7 + [ctypes.c_void_p]
 
 
 def _kernel_operands(what: str, x: torch.Tensor, weights: Sequence[torch.Tensor]):
@@ -147,6 +216,11 @@ def _kernel_operands(what: str, x: torch.Tensor, weights: Sequence[torch.Tensor]
     return width, n_hidden, out_width, flat
 
 
+def _check(what: str, err: int) -> None:
+    if err != 0:
+        raise RuntimeError(f"{what}: CUDA launch failed (cudaError {err})")
+
+
 def _launch_forward(what: str, x, weights, activation, output_activation) -> torch.Tensor:
     """Checks the operands and launches ``csrc/ffmlp_fwd.cu``; raises if the
     launch fails."""
@@ -157,14 +231,12 @@ def _launch_forward(what: str, x, weights, activation, output_activation) -> tor
     out = torch.empty((batch, out_width), dtype=torch.bfloat16, device=x.device)
     if batch == 0:
         return out
-    err = kernel("ffmlp_fwd", "tcnn_ffmlp_forward", _FWD_ARGS)(
+    _check(what, kernel("ffmlp_fwd", "tcnn_ffmlp_forward", _FWD_ARGS)(
         x.data_ptr(), flat.data_ptr(), out.data_ptr(),
         batch, x.shape[1], width, n_hidden, out_width,
         ACTIVATION_CODES[activation], ACTIVATION_CODES[output_activation],
         torch.cuda.current_stream(x.device).cuda_stream,
-    )
-    if err != 0:
-        raise RuntimeError(f"{what}: CUDA launch failed (cudaError {err})")
+    ))
     return out
 
 
@@ -188,11 +260,9 @@ def ffmlp_forward(
     return out
 
 
-def _launch_backward(what: str, x, g, weights, activation, output_activation):
-    """Checks the operands and launches ``csrc/ffmlp_bwd.cu``; raises if the
-    launch fails. Returns (dx, [dW...])."""
-    from ._build import kernel
-
+def _backward_operands(what: str, x, g, weights):
+    """Checks the backward's operands; returns (width, n_hidden, out_width,
+    flat weights)."""
     width, n_hidden, out_width, flat = _kernel_operands(what, x, weights)
     batch = x.shape[0]
     if (
@@ -200,19 +270,104 @@ def _launch_backward(what: str, x, g, weights, activation, output_activation):
         or not g.is_contiguous()
     ):
         raise ValueError(f"{what}: g must be a contiguous ({batch}, {out_width}) bfloat16 tensor on the device of x")
+    return width, n_hidden, out_width, flat
+
+
+def _walk_z_floats(what: str, in_width: int, dims) -> int:
+    """The fp32 count of the walk's global z scratch for these shapes on the
+    current device (``tcnn_ffmlp_bwd_walk_scratch``; 0 when the z tiles stay
+    in shared memory)."""
+    from ._build import kernel
+
+    n = ctypes.c_longlong(0)
+    _check(what, kernel("ffmlp_bwd", "tcnn_ffmlp_bwd_walk_scratch", _WALK_SCRATCH_ARGS)(
+        in_width, *dims, ctypes.addressof(n)))
+    return n.value
+
+
+def _walk(what: str, x, g, flat, dims, act_codes, rows_padded: int):
+    """Launches the walk (``tcnn_ffmlp_bwd_walk``) for a non-empty batch:
+    returns (dx, D scratch, H scratch)."""
+    from ._build import kernel
+
+    global WALK_LAUNCHES
+    width, n_hidden, out_width = dims
+    dx = torch.empty_like(x)
+    d_scr = torch.empty(rows_padded * (n_hidden * width + out_width), dtype=torch.bfloat16, device=x.device)
+    h_scr = torch.empty(rows_padded * n_hidden * width, dtype=torch.bfloat16, device=x.device)
+    z_floats = _walk_z_floats(what, x.shape[1], dims)
+    z_scr = torch.empty(z_floats, dtype=torch.float32, device=x.device)
+    _check(what, kernel("ffmlp_bwd", "tcnn_ffmlp_bwd_walk", _WALK_ARGS)(
+        x.data_ptr(), g.data_ptr(), flat.data_ptr(), dx.data_ptr(), d_scr.data_ptr(), h_scr.data_ptr(),
+        z_scr.data_ptr(), z_floats, x.shape[0], rows_padded, x.shape[1], width, n_hidden, out_width, *act_codes,
+        torch.cuda.current_stream(x.device).cuda_stream,
+    ))
+    WALK_LAUNCHES += 1
+    return dx, d_scr, h_scr
+
+
+def _weight_grad(what: str, x, d_scr, h_scr, flat, dims, split) -> torch.Tensor:
+    """Launches the split-K weight-gradient product and its reduce
+    (``tcnn_ffmlp_bwd_dw``): returns dW flat, bf16, in the weights' layout."""
+    from ._build import kernel
+
+    global DW_LAUNCHES
+    width, n_hidden, out_width = dims
+    rows_padded, tiles_per_split, splits = split
+    partial = torch.empty(splits * flat.numel(), dtype=torch.float32, device=x.device)
+    dw16 = torch.empty_like(flat)
+    _check(what, kernel("ffmlp_bwd", "tcnn_ffmlp_bwd_dw", _DW_ARGS)(
+        x.data_ptr(), d_scr.data_ptr(), h_scr.data_ptr(), partial.data_ptr(), dw16.data_ptr(),
+        x.shape[0], rows_padded, x.shape[1], width, n_hidden, out_width, tiles_per_split, splits,
+        torch.cuda.current_stream(x.device).cuda_stream,
+    ))
+    DW_LAUNCHES += 1
+    return dw16
+
+
+def _unflatten(dw16: torch.Tensor, weights) -> List[torch.Tensor]:
+    sizes = [w.numel() for w in weights]
+    return [d.view(w.shape) for d, w in zip(dw16.split(sizes), weights)]
+
+
+def _launch_backward(what: str, x, g, weights, activation, output_activation):
+    """Checks the operands and launches ``csrc/ffmlp_bwd.cu``: the walk
+    (unless the batch is empty) and the weight gradient; raises if a launch
+    fails. Returns (dx, [dW...])."""
+    width, n_hidden, out_width, flat = _backward_operands(what, x, g, weights)
+    dims = (width, n_hidden, out_width)
+    split = dw_split(x.shape[0], [tuple(w.shape) for w in weights])
+    codes = (ACTIVATION_CODES[activation], ACTIVATION_CODES[output_activation])
+    if x.shape[0]:
+        dx, d_scr, h_scr = _walk(what, x, g, flat, dims, codes, split[0])
+    else:
+        dx, d_scr, h_scr = torch.empty_like(x), x, x
+    return dx, _unflatten(_weight_grad(what, x, d_scr, h_scr, flat, dims, split), weights)
+
+
+def _ffmlp_backward_atomic(x, g, weights, activation, output_activation):
+    """The earlier backward kernel (``tcnn_ffmlp_backward_atomic``: dW summed
+    with shared-memory atomics, layer groups re-launched when the fp32
+    partial does not fit). Kept only so that chip_smoke.py can time the new
+    design against it in one call (run-to-run medians drift too far to
+    compare across calls) and one on-card test can hold the two against
+    each other; no path of the port calls it. CUDA tensors only. Returns
+    (dx, [dW...])."""
+    from ._build import kernel
+
+    global ATOMIC_LAUNCHES
+    width, n_hidden, out_width, flat = _backward_operands("_ffmlp_backward_atomic", x, g, weights)
     dx = torch.empty_like(x)
     dw32 = torch.empty(flat.numel(), dtype=torch.float32, device=x.device)
     dw16 = torch.empty_like(flat)
-    err = kernel("ffmlp_bwd", "tcnn_ffmlp_backward", _BWD_ARGS)(
+    _check("_ffmlp_backward_atomic", kernel("ffmlp_bwd", "tcnn_ffmlp_backward_atomic", _ATOMIC_ARGS)(
         x.data_ptr(), g.data_ptr(), flat.data_ptr(), dx.data_ptr(), dw32.data_ptr(), dw16.data_ptr(),
-        batch, x.shape[1], width, n_hidden, out_width,
+        x.shape[0], x.shape[1], width, n_hidden, out_width,
         ACTIVATION_CODES[activation], ACTIVATION_CODES[output_activation],
         torch.cuda.current_stream(x.device).cuda_stream,
-    )
-    if err != 0:
-        raise RuntimeError(f"{what}: CUDA launch failed (cudaError {err})")
-    sizes = [w.numel() for w in weights]
-    return dx, [d.view(w.shape) for d, w in zip(dw16.split(sizes), weights)]
+    ))
+    ATOMIC_LAUNCHES += 1
+    return dx, _unflatten(dw16, weights)
 
 
 def ffmlp_backward(

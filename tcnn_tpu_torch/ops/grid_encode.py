@@ -13,7 +13,7 @@ and the double backward (``tcnn_grid_backward_backward``, plain
 autodiff of ``GridEncoding.apply`` (tcnn_tpu/encodings/grid.py:1354): they
 differentiate the corner weights with respect to x, exactly in every term
 (``jax.grad`` of ``jax.grad``). All of them read the same description of the
-grid: the (n_levels, 24) int32 level table built by ``level_table``; the
+grid: the (n_levels, 25) int32 level table built by ``level_table``; the
 table-gradient scatters also read the per-level gradient rounding classes
 (``ops.scatter_rows`` codes).
 
@@ -60,7 +60,8 @@ _ROUND_DTYPES = {ROUND_FP16: torch.float16, ROUND_BF16: torch.bfloat16}
 
 MAX_DIMS = 10
 MAX_FEATURES = 8
-_LEVEL_COLS = 4 + 2 * MAX_DIMS
+_SERVE_COL = 4 + 2 * MAX_DIMS
+_LEVEL_COLS = _SERVE_COL + 1
 _M32 = 0xFFFFFFFF
 _BASE_CONVERT_FACTOR = 2531011
 
@@ -71,10 +72,13 @@ def level_table(
     modes: Sequence[int],
     scales: Sequence[float],
     strides: Sequence[Sequence[int]],
+    serve_rounds: Optional[Sequence[int]] = None,
 ) -> np.ndarray:
-    """The (n_levels, 24) int32 level table: per level the row offset, the
+    """The (n_levels, 25) int32 level table: per level the row offset, the
     row count, the index mode, the fp32 scale (bit pattern), the per-dim
-    factors masked to 32 bits and the per-dim factors mod the level size.
+    factors masked to 32 bits, the per-dim factors mod the level size and
+    the serve-time rounding of the level's reads (a ROUND_* code, applied
+    after the encoding's own; ROUND_NONE where ``serve_rounds`` is None).
     ``strides[l]`` are the exact (unmasked) per-dim factors of level l."""
     n = len(offsets)
     t = np.zeros((n, _LEVEL_COLS), np.uint32)
@@ -89,6 +93,7 @@ def level_table(
         t[lvl, 3] = np.float32(scales[lvl]).view(np.uint32)
         t[lvl, 4 : 4 + len(st)] = [s & _M32 for s in st]
         t[lvl, 4 + MAX_DIMS : 4 + MAX_DIMS + len(st)] = [s % size for s in st]
+        t[lvl, _SERVE_COL] = ROUND_NONE if serve_rounds is None else int(serve_rounds[lvl])
     return t.view(np.int32)
 
 
@@ -200,12 +205,14 @@ def _weight_derivatives(
     return grad, hess
 
 
-def _read_table(table: torch.Tensor, idx: torch.Tensor, table_round: int) -> torch.Tensor:
-    """Table rows at ``idx`` as the lookup reads them: fp32, or rounded to
-    the table dtype."""
+def _read_table(table: torch.Tensor, idx: torch.Tensor, table_round: int, row: np.ndarray) -> torch.Tensor:
+    """Table rows at ``idx`` as the lookup reads them: fp32, rounded to the
+    encoding's table dtype, then to the serve-time dtype of the level whose
+    level-table row is ``row``."""
     feats = table[idx]
-    if table_round != ROUND_NONE:
-        feats = feats.to(_ROUND_DTYPES[table_round]).to(torch.float32)
+    for code in (table_round, int(row[_SERVE_COL])):
+        if code != ROUND_NONE:
+            feats = feats.to(_ROUND_DTYPES[code]).to(torch.float32)
     return feats
 
 
@@ -230,7 +237,7 @@ def grid_encode_plain(
     outs = []
     for row in lt:
         idx, weights = _level_rows(x, row, interpolation, bits_np)
-        feats = _read_table(table, idx, table_round)  # (B, C, F)
+        feats = _read_table(table, idx, table_round, row)  # (B, C, F)
         outs.append(torch.sum(feats * weights[..., None], dim=1))
     y = torch.stack(outs, dim=1).reshape(batch, -1)
     if padded_width > y.shape[1]:
@@ -302,7 +309,7 @@ def grid_backward_input_plain(
     for lvl, row in enumerate(lt):
         idx, _ = _level_rows(x, row, interpolation, bits_np)
         dw, _ = _weight_derivatives(x, row, interpolation, bits_np, second=False)
-        dots = torch.sum(_read_table(table, idx, table_round) * g[:, None, lvl * F : (lvl + 1) * F], dim=-1)
+        dots = torch.sum(_read_table(table, idx, table_round, row) * g[:, None, lvl * F : (lvl + 1) * F], dim=-1)
         dx += torch.sum(dw * dots[..., None], dim=1)
     return dx
 
@@ -357,7 +364,7 @@ def grid_backward_backward_plain(
         idx, weights = _level_rows(x, row, interpolation, bits_np)
         dw, hess = _weight_derivatives(x, row, interpolation, bits_np, second=cgx is not None)
         gl = g[:, lvl * F : (lvl + 1) * F]
-        feats = _read_table(table, idx, table_round)  # (B, C, F)
+        feats = _read_table(table, idx, table_round, row)  # (B, C, F)
         cols = slice(lvl * F, (lvl + 1) * F)
         if cot_table is not None and acc != ACC_DROP:
             cot = cot_table[idx]
@@ -389,7 +396,7 @@ def _check_kernel_inputs(what: str, x: torch.Tensor, levels: torch.Tensor, n_fea
     if x.dim() != 2 or x.dtype != torch.float32 or not x.is_contiguous():
         raise ValueError(f"{what}: x must be a contiguous 2-D float32 tensor")
     if levels.dtype != torch.int32 or levels.shape[1:] != (_LEVEL_COLS,) or levels.device != x.device:
-        raise ValueError(f"{what}: levels must be the (L, 24) int32 level table on the device of x")
+        raise ValueError(f"{what}: levels must be the (L, 25) int32 level table on the device of x")
     if not 1 <= x.shape[1] <= MAX_DIMS or not 1 <= int(n_features_per_level) <= MAX_FEATURES:
         raise ValueError(f"{what}: unsupported shape (dims {x.shape[1]}, features per level {n_features_per_level})")
 

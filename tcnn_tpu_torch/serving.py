@@ -4,7 +4,8 @@
 further does not change a server. The JAX package also prebuilds per-level
 quad tables here; on the card the lookup kernel reads the flat parameters
 directly, so the snapshot is all there is to build. A serve-time
-``table_dtype`` rounds the table on read inside the lookup kernel.
+``table_dtype`` rounds, on read inside the lookup kernel, the levels the
+JAX package serves from those tables (``GridEncoding.served_levels``).
 
 Usage::
 
@@ -23,13 +24,14 @@ import torch
 
 class FrozenServer:
     def __init__(self, trainer, mesh=None, table_dtype: Optional[str] = None):
-        """``table_dtype`` (serve-time only): round every table read to
-        this dtype (``"float16"`` or ``"bfloat16"``) instead of the
-        encoding's own ``table_dtype``. Training state is untouched.
-        Every level is rounded; the JAX package rounds only the levels it
-        prebuilds tables for (affine levels, and on a raster not the
-        separable coarse levels), so the two agree on batches of
-        affine-hash grids such as the flagship's."""
+        """``table_dtype`` (serve-time only): round the table reads of the
+        levels the JAX package stores in its prebuilt quad tables to this
+        dtype (``"float16"`` or ``"bfloat16"``), after the encoding's own
+        ``table_dtype``: under gather_strategy "quad" or "stratified" with
+        Linear interpolation, the levels with affine strides, and on a
+        stratified raster not the raster-stride levels of its static path
+        (``GridEncoding.served_levels``). The other levels read as the
+        encoding's ``table_dtype`` says. Training state is untouched."""
         if mesh is not None:
             raise NotImplementedError(
                 "FrozenServer: multi-GPU serving is not ported yet (ROADMAP.md, Queue 1: parallel)"

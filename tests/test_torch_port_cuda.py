@@ -368,8 +368,8 @@ def test_module_second_order_matches_plain(dev):
 
 def test_ffmlp_width128_depth5_matches_plain(dev):
     """bench_image's network: 128-wide input, FullyFusedMLP 128 x 5 hidden
-    layers (K1 runs with fewer warps a block, K2 walks the layers in
-    groups), forward and backward against the plain versions."""
+    layers (K1 runs with fewer warps a block, K2's walk reads the weights
+    through L2), forward and backward against the plain versions."""
     gen = torch.Generator(device=dev).manual_seed(128)
     shapes = [(128, 128)] * 5 + [(16, 128)]
     ws = [((torch.rand(s, generator=gen, device=dev) * 2 - 1) * 2 / s[1] ** 0.5).bfloat16() for s in shapes]
@@ -477,3 +477,72 @@ def test_probe_wrappers_refuse_what_the_kernels_do_not_take(dev):
         probe_rows.probe_scatter(idx, table[:1024].contiguous(), 2**15, probe_rows.OP_ADD, probe_rows.ACC_SHARED)
     with pytest.raises(ValueError, match="MODE_ROW"):
         probe_rows.probe_gather(table, idx, mode=probe_rows.MODE_WINDOW, source=probe_rows.SOURCE_ASYNC)
+
+
+def _backward_case(dev, shapes, batch, seed):
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    ws = [((torch.rand(s, generator=gen, device=dev) * 2 - 1) * 2 / s[1] ** 0.5).bfloat16() for s in shapes]
+    x = (torch.rand((batch, shapes[0][1]), generator=gen, device=dev) * 2 - 1).bfloat16()
+    g = (torch.rand((batch, shapes[-1][0]), generator=gen, device=dev) * 2 - 1).bfloat16()
+    return x, g, ws
+
+
+K2_SHAPES = {
+    "flagship": [(64, 32), (64, 64), (16, 64)],
+    "w128x5_in128": [(128, 128)] * 5 + [(16, 128)],
+    "bench_mlp_w128": [(128, 128)] * 4,
+    "no_hidden": [(16, 32)],
+}
+
+
+@pytest.mark.parametrize("batch", [0, 1, 17, 1000])
+@pytest.mark.parametrize("shape", sorted(K2_SHAPES))
+def test_ffmlp_backward_walk_and_weight_grad_match_plain(dev, shape, batch):
+    """The new K2: the walk (skipped for an empty batch) and the split-K
+    weight gradient with its reduce launch, and the result matches the plain
+    backward; an empty batch gives zero dW."""
+    x, g, ws = _backward_case(dev, K2_SHAPES[shape], batch, batch + len(shape))
+    before = (ffmlp.BWD_LAUNCHES, ffmlp.WALK_LAUNCHES, ffmlp.DW_LAUNCHES)
+    dx, dws = ffmlp.ffmlp_backward(x, g, ws, Activation.Sigmoid, Activation.NONE)
+    torch.cuda.synchronize()
+    assert (ffmlp.BWD_LAUNCHES, ffmlp.WALK_LAUNCHES, ffmlp.DW_LAUNCHES) == (
+        before[0] + 1, before[1] + (batch > 0), before[2] + 1)
+    want_dx, want_dws = ffmlp.ffmlp_backward_plain(x, g, ws, Activation.Sigmoid, Activation.NONE)
+    assert dx.shape == x.shape
+    if batch == 0:
+        assert all(d.shape == w.shape and not d.any() for d, w in zip(dws, ws))
+        return
+    _close_bf16_backward(dx, want_dx)
+    for a, b in zip(dws, want_dws):
+        _close_bf16_backward(a, b)
+
+
+@pytest.mark.parametrize("shape", ["flagship", "w128x5_in128", "packed_w64"])
+def test_ffmlp_backward_is_deterministic(dev, shape):
+    """Two calls on the same inputs give the same bits (no atomics; the
+    partials are summed in split order), also for K8 at w64."""
+    if shape == "packed_w64":
+        x, g, ws = _backward_case(dev, [(64, 64)] * 4, 100_003 * 2, 3)
+        xp, gp = x.view(-1, 128), g.view(-1, 128)
+        runs = [ffmlp.ffmlp_backward_packed(xp, gp, ws, Activation.ReLU, Activation.NONE) for _ in range(2)]
+    else:
+        x, g, ws = _backward_case(dev, K2_SHAPES[shape], 100_003, 4)
+        runs = [ffmlp.ffmlp_backward(x, g, ws, Activation.Sine, Activation.NONE) for _ in range(2)]
+    (dx1, dw1), (dx2, dw2) = runs
+    assert torch.equal(dx1, dx2) and all(torch.equal(a, b) for a, b in zip(dw1, dw2))
+
+
+@pytest.mark.parametrize("shape", sorted(K2_SHAPES))
+def test_atomic_backward_kernel_matches_the_new_one(dev, shape):
+    """The earlier atomic kernel, kept for chip_smoke.py's A/B timing, against the new
+    K2 and the plain backward (tolerance of the MLP backward)."""
+    x, g, ws = _backward_case(dev, K2_SHAPES[shape], 2**17 + 5, 5)
+    before = ffmlp.ATOMIC_LAUNCHES
+    old = ffmlp._ffmlp_backward_atomic(x, g, ws, Activation.ReLU, Activation.NONE)
+    assert ffmlp.ATOMIC_LAUNCHES == before + 1
+    new = ffmlp.ffmlp_backward(x, g, ws, Activation.ReLU, Activation.NONE)
+    plain = ffmlp.ffmlp_backward_plain(x, g, ws, Activation.ReLU, Activation.NONE)
+    for a, b, c in zip((old[0], *old[1]), (new[0], *new[1]), (plain[0], *plain[1])):
+        _close_bf16_backward(a, c)
+        _close_bf16_backward(b, c)
+        _close_bf16_backward(a, b)

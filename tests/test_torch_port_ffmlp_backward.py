@@ -13,6 +13,14 @@ Tolerance: that of test_torch_port_ffmlp.py, ``match_rae(eps=1e-2,
 percentile=99)`` and max |diff| <= 4 bf16 ulps of max |ref|: both sides
 take exact bf16 products with fp32 sums and round at the same places (d16,
 the summed dW, dx), but the sums run in another order.
+
+The CUDA backward's two parts have plain versions of their own: the walk
+(``ffmlp_backward_walk_plain``: dx and every layer's d16 tile D_l and input
+H_l) and the split-K weight gradient (``ffmlp_weight_grad_plain``). Composed
+they give dx bit for bit as ``ffmlp_backward_plain`` and dW within the
+tolerance above; the split-K sum differs from one split count to another
+only in fp32 order: within n * 2^-24 * (|D|^T |H|) of the exact sum, n the
+batch.
 """
 
 import jax
@@ -29,7 +37,16 @@ import tcnn_tpu_torch.networks as tnets
 from tcnn_tpu.ops.ffmlp import ffmlp_apply, mlp_backward_pallas
 from tcnn_tpu.ops.pallas_utils import set_interpret_mode
 from tcnn_tpu_torch.networks.activations import activation_backward
-from tcnn_tpu_torch.ops.ffmlp import FfmlpFunction, ffmlp_backward, ffmlp_backward_plain, ffmlp_forward_plain
+from tcnn_tpu_torch.ops.ffmlp import (
+    DW_TILE_K,
+    FfmlpFunction,
+    dw_split,
+    ffmlp_backward,
+    ffmlp_backward_plain,
+    ffmlp_backward_walk_plain,
+    ffmlp_forward_plain,
+    ffmlp_weight_grad_plain,
+)
 
 
 def _bf16_np(a):
@@ -110,6 +127,74 @@ def test_backward_plain_matches_jax_every_activation(act):
     _, _, x, g, ws = _case(32, 1, act, act, seed=300 + k)
     got = _port(x, g, ws, act, act)
     _assert_same(got, _jax_kernel(x, g, ws, act, act, ("rm", "cf")[k % 2]))
+
+
+def _torch_case(x, g, ws):
+    return torch.from_numpy(x).bfloat16(), torch.from_numpy(g).bfloat16(), [torch.from_numpy(w).bfloat16() for w in ws]
+
+
+@pytest.mark.parametrize("n_hidden", N_HIDDEN)
+@pytest.mark.parametrize("width", WIDTHS)
+def test_walk_and_split_product_compose_to_the_backward(width, n_hidden):
+    """The walk and the split-K product, at the split the kernels take and
+    at one split every 32 rows: dx equal to ``ffmlp_backward_plain``'s, dW
+    within the tolerance of its and of the JAX Pallas kernel's."""
+    i = WIDTHS.index(width) * len(N_HIDDEN) + N_HIDDEN.index(n_hidden)
+    act, out_act = ACTS[(i + 3) % len(ACTS)], ACTS[(i + 7) % len(ACTS)]
+    _, _, x, g, ws = _case(width, n_hidden, act, out_act, seed=400 + i)
+    xt, gt, wt = _torch_case(x, g, ws)
+    acts = (tcommon.Activation(act), tcommon.Activation(out_act))
+    dx, ds, hs = ffmlp_backward_walk_plain(xt, gt, wt, *acts)
+    assert len(ds) == len(hs) == len(wt) and hs[0] is xt
+    assert all(d.dtype == torch.bfloat16 and d.shape == (xt.shape[0], w.shape[0]) for d, w in zip(ds, wt))
+    assert all(h.dtype == torch.bfloat16 and h.shape == (xt.shape[0], w.shape[1]) for h, w in zip(hs, wt))
+    want_dx, want_dws = ffmlp_backward_plain(xt, gt, wt, *acts)
+    assert torch.equal(dx, want_dx)
+    _, tiles_per_split, _ = dw_split(xt.shape[0], [tuple(w.shape) for w in wt])
+    jax_ref = _jax_kernel(x, g, ws, act, out_act, "rm")
+    for rows in (tiles_per_split * DW_TILE_K, DW_TILE_K):
+        dws = ffmlp_weight_grad_plain(ds, hs, rows)
+        got = (dx.float().numpy(), [d.float().numpy() for d in dws])
+        _assert_same(got, (want_dx.float().numpy(), [d.float().numpy() for d in want_dws]))
+        _assert_same(got, jax_ref)
+
+
+def test_split_count_moves_only_the_fp32_order():
+    """The fp32 split-K sum (before its one rounding) at 1, 4, 32 and 1000
+    rows a split against the exact sum of the same bf16 products: within
+    n * 2^-24 * (|D|^T |H|), n the batch, entry by entry."""
+    _, _, x, g, ws = _case(64, 3, "Sine", "None", seed=500)
+    xt, gt, wt = _torch_case(x, g, ws)
+    _, ds, hs = ffmlp_backward_walk_plain(xt, gt, wt, tcommon.Activation.Sine, tcommon.Activation.NONE)
+    d32, h32 = [d.float() for d in ds], [h.float() for h in hs]
+    n = xt.shape[0]
+    sums = {rows: ffmlp_weight_grad_plain(d32, h32, rows) for rows in (1, 4, 32, n)}
+    for l, (d, h) in enumerate(zip(ds, hs)):
+        exact = d.double().T @ h.double()
+        bound = n * 2.0**-24 * (d.double().abs().T @ h.double().abs())
+        for rows, dws in sums.items():
+            assert dws[l].dtype == torch.float32
+            assert bool(((dws[l].double() - exact).abs() <= bound).all()), (l, rows)
+
+
+@pytest.mark.parametrize("batch", [0, 1, 17, 1000, 2**18, 2**21])
+@pytest.mark.parametrize("shapes", [
+    [(64, 32), (64, 64), (16, 64)], [(16, 32)], [(128, 128)] * 5 + [(16, 128)], [(64, 64)] * 4,
+], ids=["flagship", "no_hidden", "w128x5_in128", "packed_w64"])
+def test_dw_split_covers_the_batch(batch, shapes):
+    """The split the kernels take: whole 32-row K tiles covering the batch,
+    consecutive ranges of at least DW_MIN_TILES tiles, no empty range past
+    the first, and about DW_TARGET_BLOCKS blocks at the flagship's size."""
+    from tcnn_tpu_torch.ops import ffmlp as F
+
+    rows_padded, tps, splits = dw_split(batch, shapes)
+    k_tiles = rows_padded // DW_TILE_K
+    assert rows_padded % DW_TILE_K == 0 and batch <= rows_padded < batch + DW_TILE_K
+    assert tps >= F.DW_MIN_TILES and splits >= 1
+    assert splits * tps >= k_tiles and (splits - 1) * tps < max(k_tiles, 1)
+    jobs = sum(-(-m // 64) * -(-n // 64) for m, n in shapes)
+    if k_tiles >= F.DW_TARGET_BLOCKS * F.DW_MIN_TILES:
+        assert 0.9 * F.DW_TARGET_BLOCKS <= jobs * splits <= F.DW_TARGET_BLOCKS + 2 * jobs
 
 
 @pytest.mark.parametrize("act", ACTS)

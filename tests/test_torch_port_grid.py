@@ -62,6 +62,11 @@ CASES = {
     "f4_levels4": _cfg(n_features_per_level=4, n_levels=4),
     "f1": _cfg(n_features_per_level=1),
     "strategy_keys_ignored": _cfg(quad_pack="packed", scatter_strategy="xla", level_split="off", locked_rounding="sr"),
+    # The encoding's own table_dtype on an XOR-hashed config: JAX rounds it
+    # inside its gathers (per-corner on the XOR levels, the quad table on
+    # the dense ones), the port on every read; the same levels either way.
+    "coherent_prime_table_bf16": _cfg(hash="CoherentPrime", table_dtype="bfloat16", gather_strategy="quad",
+                                      strata=None),
 }
 
 
@@ -183,3 +188,81 @@ def test_rng_hash_and_fixed_point_raise():
         tenc.create_encoding(2, _cfg(fixed_point_pos=True))
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         tenc.create_encoding(2, {"otype": "Frequency"})
+
+
+# Serve-time table_dtype, level by level: the JAX package's FrozenServer
+# stores its prebuilt quad tables (``serving_tables``) in that dtype and
+# reads every other level from the fp32 parameters (rounded by the
+# encoding's own table_dtype inside its gathers). Each case: (config, raster
+# side or None for a batch, the levels the JAX package serves there).
+SERVED = {
+    # CoherentPrime: the dense coarse levels (0-3) have affine strides and
+    # are served; the XOR-hashed ones are not.
+    "coherent_prime_batch": (_cfg(hash="CoherentPrime", gather_strategy="quad", strata=None), None, 4),
+    # Smoothstep: gather_strategy "auto" is per_level, no table is built.
+    "smoothstep_per_level_batch": (_cfg(interpolation="Smoothstep", gather_strategy="auto", strata=None), None, 0),
+    # The flagship shape on a batch: every level has affine strides.
+    "stratified_batch": (_cfg(), None, 8),
+    # ...and on a raster: levels 0-5 (scale <= raster_max_scale 32) take the
+    # separable static path on fp32 parameters; 6-7 are served.
+    "stratified_raster": (_cfg(), 16, 2),
+    # The encoding's own fp16 first, then the served bf16 (the JAX tables
+    # are built in the encoding's dtype and cast to the server's).
+    "coherent_prime_fp16_then_bf16": (_cfg(hash="CoherentPrime", gather_strategy="quad", strata=None,
+                                           table_dtype="float16"), None, 4),
+}
+
+
+@pytest.mark.parametrize("case", sorted(SERVED))
+def test_serve_table_dtype_rounds_the_levels_jax_serves(case):
+    """Features under a serve-time bfloat16 against the JAX package's
+    lookup from its bf16 served tables (fp32 output; RTOL/ATOL as above),
+    and the count of levels whose reads the port rounds."""
+    cfg, side, n_served = SERVED[case]
+    je, te = _pair(cfg, 2)
+    x, params = _inputs(je, 2, seed=11)
+    jp = jnp.asarray(params)
+    tables = {k: v.astype(jnp.bfloat16) for k, v in je.serving_tables(jp).items()}
+    assert sum(te.served_levels(None if side is None else (side, side))) == n_served
+    if side is None:
+        want = je.apply(jp, jnp.asarray(x), stratified=False, served_tables=tables)
+        got = te.apply(torch.from_numpy(params), torch.from_numpy(x), table_dtype="bfloat16")
+        unrounded = te.apply(torch.from_numpy(params), torch.from_numpy(x))
+    else:
+        want = je.apply_raster(jp, side, served_tables=tables)
+        got = te.apply_raster(torch.from_numpy(params), side, table_dtype="bfloat16")
+        unrounded = te.apply_raster(torch.from_numpy(params), side)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=RTOL, atol=ATOL)
+    # Exactly the served levels' features move.
+    F = te.n_features_per_level
+    moved = [not torch.equal(got[:, l * F:(l + 1) * F], unrounded[:, l * F:(l + 1) * F]) for l in range(te.n_levels)]
+    assert moved == te.served_levels(None if side is None else (side, side))
+
+
+# The JAX package's checks of its execution-strategy keys: (key, a value it
+# rejects, a value it takes, whether it checks the key only under
+# gather_strategy "stratified").
+STRATEGY_VALUES = [
+    ("quad_build", "tiles", "cf", False),
+    ("level_split", "on", "barrier", False),
+    ("strat_accum", "sum", "where", True),
+    ("locked_fwd", "dense", "csr", True),
+    ("locked_phases", 0, 4, True),
+]
+
+
+@pytest.mark.parametrize("key,bad,good,stratified_only", STRATEGY_VALUES, ids=[v[0] for v in STRATEGY_VALUES])
+def test_strategy_keys_are_validated_as_jax_does(key, bad, good, stratified_only):
+    """A value the JAX package rejects raises ValueError in the port too; a
+    value it takes builds in both; the keys it checks only under
+    "stratified" build with any value elsewhere in both."""
+    with pytest.raises(ValueError):
+        jenc.create_encoding(2, _cfg(**{key: bad}))
+    with pytest.raises(ValueError, match=key):
+        tenc.create_encoding(2, _cfg(**{key: bad}))
+    je, te = _pair(_cfg(**{key: good}), 2)
+    assert te.n_params == je.n_params
+    if stratified_only:
+        other = _cfg(gather_strategy="quad", strata=None, **{key: bad})
+        jenc.create_encoding(2, other)
+        tenc.create_encoding(2, other)

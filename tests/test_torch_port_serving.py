@@ -121,6 +121,38 @@ def test_frozen_server_table_dtype_matches_jax(pair):
     assert not torch.equal(got, tm.trainer.freeze_serving()(x))
 
 
+@pytest.mark.parametrize("over,served", [
+    ({"hash": "CoherentPrime", "gather_strategy": "quad"}, True),
+    ({"interpolation": "Smoothstep", "gather_strategy": "per_level"}, False),
+], ids=["coherent_prime", "smoothstep_per_level"])
+def test_frozen_server_table_dtype_per_level_matches_jax(over, served):
+    """A serve-time bfloat16 through both packages' FrozenServer, on the
+    same random parameters (grid uniform +-1): batch and raster match the
+    JAX package (tolerance above). Under Smoothstep the JAX package builds
+    no quad table, so the port's bf16 server equals its fp32 one exactly;
+    under CoherentPrime the dense coarse levels are rounded and the answer
+    moves."""
+    cfg = copy.deepcopy(CONFIG)
+    cfg["optimizer"] = CONFIG["optimizer"]["nested"]
+    cfg["encoding"] = {k: v for k, v in cfg["encoding"].items() if k != "strata"}
+    cfg["encoding"].update(over)
+    jm = tc.create_from_config(2, 3, cfg)
+    tm = tt.create_from_config(2, 3, cfg, device="cpu")
+    r = np.random.default_rng(7)
+    n_net = tm.model.network.n_params
+    flat = np.concatenate([r.uniform(-0.2, 0.2, n_net), r.uniform(-1, 1, tm.model.n_params - n_net)])
+    flat = flat.astype(np.float32)
+    jm.trainer.params = jnp.asarray(flat)
+    tm.trainer.params = tt.params_from_numpy(flat, tm.model)
+    js = jm.trainer.freeze_serving(table_dtype="bfloat16")
+    ts = tm.trainer.freeze_serving(table_dtype="bfloat16")
+    x = _queries(seed=6)
+    got = ts(x)
+    assert_bf16_close(got.numpy(), np.asarray(js(jnp.asarray(x))))
+    assert_bf16_close(ts.raster(16).numpy(), np.asarray(js.raster(16)))
+    assert torch.equal(got, tm.trainer.freeze_serving()(x)) != served
+
+
 def test_frozen_server_is_a_snapshot(pair):
     _, tm = pair
     server = tm.trainer.freeze_serving()
