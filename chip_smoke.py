@@ -13,7 +13,11 @@ Phases, each printing lines of its own; any failure exits non-zero:
    depths x activations x batch sizes, then at the flagship's shapes.
 4. kernel 2 (grid lookup) against its plain version: the flagship encoding
    at B = 2^18 plus cell-boundary points and points outside [0, 1]; again
-   with table_dtype bfloat16 and with the CoherentPrime (XOR) hash.
+   with table_dtype bfloat16 and with the CoherentPrime (XOR) hash; then the
+   encoding's own table_dtype level by level (rounded_levels: a stratified
+   2^18 batch in bf16 and fp16, the 1024^2 raster, gather_strategy fused,
+   quad_fused and per_level), forward and input gradient (G1) against the
+   plain path.
 5. the serving slice: create_from_config(FLAGSHIP_CONFIG, device="cuda"),
    random parameters from a numpy seed, inference at B in {1, 4097, 2^18},
    inference_raster 1024^2 and a FrozenServer batch and raster, each
@@ -26,9 +30,13 @@ Phases, each printing lines of its own; any failure exits non-zero:
    calls give the same bits.
 7. the fused Adam step against its plain version at the flagship's
    715,760 params, over the optimizer's knobs, three steps each.
-8. the grid backward (flagship encoding, B = 2^18) and the generic
-   row scatter (2^18 rows into 64 slots) against their plain versions in
-   the four gradient classes.
+8. the table gradient (flagship encoding, B = 2^18 uniform points) and the
+   generic row scatter (2^18 rows into 64 slots) against their plain
+   versions in the four gradient classes; the table gradient level by level
+   in each level's class on a stratified flagship batch (its own classes
+   and factored_sr) and on the 3D model at 2^18 (13 levels add in bf16);
+   the earlier atomic table-gradient kernel once against the plain
+   version.
 9. the packed-I/O MLP (K7/K8) against its block-diagonal plain versions at
    the reference's MLP benchmark protocol (B = 2^20, widths 16/32/64, 3 and
    0 hidden layers, a ragged row count), then the protocol through
@@ -50,7 +58,11 @@ Phases, each printing lines of its own; any failure exits non-zero:
 13. times (CUDA events / synced host clock, median of repeats), each
    kernel's bound from its shapes (bytes over 3.35 TB/s or operations over
    the peak of their type) and, where one PyTorch call computes the same
-   function, that call's time; K2 against the earlier atomic kernel and
+   function, that call's time; the table gradient against the earlier
+   atomic kernel and the plain version in turns at three shapes (the
+   stratified flagship batch, uniform flagship points, the 3D model in its
+   training classes), beside one index_add_ of the precomputed (row,
+   contribution) pairs; K2 against the earlier atomic kernel and
    the plain version in turns at the flagship, at 128 x 5 with in 128 and
    at the K8 view, and its walk and weight gradient on their own (the latter beside
    torch.matmul(D_l.T, H_l) over the layers).
@@ -63,8 +75,9 @@ Phases, each printing lines of its own; any failure exits non-zero:
    probes and the gather and scatter-add at the grid's row widths (F = 2, 8;
    S = 2^12 .. 2^23; B = 2^18 and 2^24) per source, ns/row beside the bytes
    bound and the library call (index_select, index_add_).
-15. floors: the grid kernels' random rows (lookup, table gradient, G1, G2)
-   against the probe sweep's measured rates, beside their measured times.
+15. floors: the grid kernels' random rows (lookup, table gradient on the
+   stratified batch, uniform points and the 3D model, G1, G2) against the
+   probe sweep's measured rates, beside their measured times.
 16. benches: the port's entry points, each count at 0 before and read after:
    benchmarks.bench (the 2D default with its phase-locked secondary,
    --protocol 3d, --reference-verbatim, --serving), bench_mlp, bench_image
@@ -279,6 +292,66 @@ def phase_kernel2(flagship):
             f"(fp32 rtol 1e-5 atol 1e-6), max|diff| {err:.3e}; bf16 output = rounded fp32")
         results[name] = (enc, params, x[:B_FLAG].contiguous(), err)
     return results
+
+
+def phase_own_table_dtype(flagship):
+    """The encoding's own table_dtype on the card, the cases of
+    tests/test_torch_port_grid.py (OWN_CASES) at the flagship's size: the
+    kernels read fp32 on the levels the JAX package gathers unrounded
+    (static levels of a stratified batch, separable levels of the raster,
+    "fused", "quad_fused") and round the others; forward and input gradient
+    (G1) against the plain path. Returns the forward's max |diff|."""
+    import torch
+
+    from tcnn_tpu_torch.encodings import create_encoding
+    from tcnn_tpu_torch.ops import grid_encode as ge
+    from tcnn_tpu_torch.utils.sampling import raster_centers_torch, stratified_uniform
+
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(SEED + 9)
+    bf16 = {"table_dtype": "bfloat16"}
+    cases = {  # name: (config overrides, inputs, levels whose reads round)
+        "stratified batch, bfloat16": (bf16, "stratified", 5),
+        "stratified batch, float16": ({"table_dtype": "float16"}, "stratified", 5),
+        "stratified raster 1024^2, bfloat16": (bf16, "raster", 5),
+        "gather_strategy fused, bfloat16": (dict(bf16, gather_strategy="fused"), "uniform", 0),
+        "gather_strategy quad_fused, bfloat16": (dict(bf16, gather_strategy="quad_fused"), "uniform", 0),
+        "gather_strategy per_level, bfloat16": (dict(bf16, gather_strategy="per_level"), "uniform", 16),
+    }
+    worst = 0.0
+    ge.LAUNCHES = ge.INPUT_LAUNCHES = 0
+    for name, (over, kind, n_rounded) in cases.items():
+        enc = create_encoding(2, dict(flagship["encoding"], **over), alignment=16)
+        enc.output_dtype = torch.float32
+        params = torch.rand(enc.n_params, generator=gen, device=dev) * 2 - 1
+        if kind == "raster":
+            with torch.no_grad():
+                got = enc.apply_raster(params, 1024)
+                want = enc._encode(params, raster_centers_torch(1024, 2, dev), None, plain=True,
+                                   raster_sides=(1024, 1024))
+            rounded, what = enc.rounded_levels(None, (1024, 1024)), "forward"
+        else:
+            x = (stratified_uniform(B_FLAG, 2, gen, device=dev) if kind == "stratified"
+                 else torch.rand((B_FLAG, 2), generator=gen, device=dev))
+            w = torch.randn((B_FLAG, 32), generator=gen, device=dev)
+            outs = []
+            for fn in (enc.apply, enc.apply_plain):
+                xr = x.clone().requires_grad_(True)
+                y = fn(params, xr)
+                outs.append((y.detach(), torch.autograd.grad((y * w).sum(), xr)[0]))
+            (got, dx), (want, dx_plain) = outs
+            f32_close(dx, dx_plain, f"own table_dtype {name}: input gradient")
+            rounded, what = enc.rounded_levels(B_FLAG), "forward and input gradient"
+        torch.cuda.synchronize()
+        err = float((got - want).abs().max())
+        check(sum(rounded) == n_rounded, f"own table_dtype {name}: {sum(rounded)} rounded levels, not {n_rounded}")
+        check(torch.allclose(got, want, rtol=1e-5, atol=1e-6), f"own table_dtype {name}: max|diff| {err:.3e}")
+        worst = max(worst, err)
+        log(f"kernel2: own table_dtype, flagship encoding, {name}: {n_rounded} of 16 levels round their reads "
+            f"(rounded_levels, as the JAX package); {what} match the plain path (fp32 rtol 1e-5 atol 1e-6; "
+            f"{TOL_F32_NOTE}), max|diff| {err:.3e}")
+    check(ge.LAUNCHES > 0 and ge.INPUT_LAUNCHES > 0, "own table_dtype: the lookup or G1 kernel did not launch")
+    return worst
 
 
 def flagship_params(model, rng):
@@ -522,6 +595,38 @@ def phase_scatter(flagship):
         check(not got[S == 0].any(), f"grid_bwd {name}: an untouched entry is not zero")
         log(f"kernel grid_bwd: flagship encoding B=2^18 class {name}: matches the plain backward "
             f"({CLASS_TOL[acc]}); untouched entries exactly 0; max|diff| {errs[name]:.3e}")
+    # The stratified flagship batch (the training path's layout) in the
+    # flagship's own classes and under factored_sr, and the 3D model at 2^18
+    # in its training classes (13 levels add in bf16), level by level in each
+    # level's class; then the earlier kernel once against the plain version.
+    from tcnn_tpu_torch.utils.sampling import stratified_uniform
+
+    gen = torch.Generator(device=dev).manual_seed(SEED + 10)
+    x_strat = stratified_uniform(B_FLAG, 2, gen, device=dev)
+    enc3 = create_encoding(3, ENC3D, alignment=16)
+    x3 = torch.rand((B_FLAG, 3), generator=gen, device=dev)
+    dy3 = torch.randn((B_FLAG, 32), generator=gen, device=dev).bfloat16()
+    cases = {
+        "flagship stratified B=2^18, its classes": (enc, x_strat, dy),
+        "flagship stratified B=2^18, factored_sr": (
+            create_encoding(2, dict(flagship["encoding"], scatter_strategy="factored_sr"), alignment=16), x_strat, dy),
+        "3D model B=2^18, its training classes": (enc3, x3, dy3),
+    }
+    for name, (e, xx, dd) in cases.items():
+        classes = torch.from_numpy(e.gradient_classes(B_FLAG)).to(dev)
+        got = ge.grid_backward(xx, dd, e._levels_on(dev), 2, ge.INTERP_LINEAR, classes)
+        errs[name] = _levels_check(e, got, xx, dd, classes, f"grid_bwd {name}")
+        plan = ge.backward_plan(e.level_table(), 2, B_FLAG, classes)
+        log(f"kernel grid_bwd: {name}: matches the plain backward level by level in each level's class "
+            f"({CLASS_TOL[0]}; bf16 levels: {CLASS_TOL[1]}); untouched entries exactly 0; levels privatised "
+            f"{[l for l, p in enumerate(plan.privatised) if p]}; max|diff| {errs[name]:.3e}")
+    classes = torch.from_numpy(enc.gradient_classes(B_FLAG)).to(dev)
+    ge.ATOMIC_BWD_LAUNCHES = 0
+    old = ge._grid_backward_atomic(x_strat, dy, levels, 2, ge.INTERP_LINEAR, classes)
+    atomic_err = _levels_check(enc, old, x_strat, dy, classes, "grid_bwd_atomic")
+    check(ge.ATOMIC_BWD_LAUNCHES == 1, "grid_bwd_atomic: the earlier kernel did not launch")
+    log(f"kernel grid_bwd_atomic (the earlier kernel, A/B only): flagship stratified B=2^18: matches the plain "
+        f"backward ({CLASS_TOL[0]}); max|diff| {atomic_err:.3e}")
     idx = torch.from_numpy(rng.integers(0, 64, B_FLAG).astype(np.int32)).to(dev)
     rows = torch.from_numpy(rng.normal(0, 1, (B_FLAG, 4)).astype(np.float32)).to(dev)
     S_rows = sr.scatter_rows_plain(idx, rows.abs(), 64)
@@ -539,8 +644,40 @@ def phase_scatter(flagship):
         check(same, f"scatter_rows {name}: small-integer sums are not exact")
         log(f"kernel scatter_rows: 2^18 rows x 4 into 64 slots, class {name}: matches the plain scatter "
             f"({CLASS_TOL[acc]}); small-integer rows into 2^14 slots bitwise equal; max|diff| {s_errs[name]:.3e}")
-    return {"enc": enc, "x": x, "dy": dy, "levels": levels, "grid_err": errs["(none, fp32)"],
-            "scatter_err": s_errs["(none, fp32)"], "idx": idx, "rows": rows}
+    # The JSON line's error: the fp32-accumulation comparisons (a bf16 sum's
+    # difference is a few bf16 ulps of the sum, held by CLASS_TOL instead).
+    fp32_cases = ("(none, fp32)", "(SR, fp32)", "flagship stratified B=2^18, its classes",
+                  "flagship stratified B=2^18, factored_sr")
+    return {"enc": enc, "x": x, "dy": dy, "levels": levels, "grid_err": max(errs[k] for k in fp32_cases),
+            "atomic_err": atomic_err, "scatter_err": s_errs["(none, fp32)"], "idx": idx, "rows": rows,
+            "x_strat": x_strat, "enc3": enc3, "x3": x3, "dy3": dy3}
+
+
+def _levels_check(enc, got, x, dy, classes, what):
+    """The table gradient level by level in its class against the plain
+    version: fp32 sums within 1e-5 S per entry, bf16 sums at most twice the
+    plain sum's error against the fp32 sum of the same rounded contributions
+    (CLASS_TOL); untouched entries exactly 0. Returns max |kernel - plain|."""
+    import torch
+
+    from tcnn_tpu_torch.ops import grid_encode as ge
+    from tcnn_tpu_torch.ops.scatter_rows import ACC_BF16, ACC_F32
+
+    levels, F = enc._levels_on(x.device), enc.n_features_per_level
+    plain = ge.grid_backward_plain(x, dy, levels, F, ge.INTERP_LINEAR, classes)
+    f32 = classes.clone()
+    f32[:, 1] = torch.where(f32[:, 1] == ACC_BF16, ACC_F32, f32[:, 1])
+    exact = ge.grid_backward_plain(x, dy, levels, F, ge.INTERP_LINEAR, f32)
+    S = ge.grid_backward_plain(x, dy.float().abs(), levels, F, ge.INTERP_LINEAR, torch.zeros_like(classes))
+    torch.cuda.synchronize()
+    check(got.shape == plain.shape and bool(torch.isfinite(got).all()), f"{what}: bad output")
+    for lvl in range(enc.n_levels):
+        lo, hi = int(enc.offset_table[lvl]) * F, int(enc.offset_table[lvl + 1]) * F
+        acc = int(classes[lvl, 1])
+        _class_check(got[lo:hi], plain[lo:hi], exact[lo:hi], S[lo:hi], 1 if acc == ACC_BF16 else 0,
+                     f"{what} level {lvl}")
+    check(not got[S == 0].any(), f"{what}: an untouched entry is not zero")
+    return float((got - plain).abs().max())
 
 
 def _load_synthetic_image():
@@ -869,10 +1006,9 @@ def _grid_inputs(cfg, rng, dev, batch, boundary=True):
 
 
 def _grid_args(t):
-    from tcnn_tpu_torch.encodings.grid import _INTERP_CODES, _ROUND_CODES
+    from tcnn_tpu_torch.encodings.grid import _INTERP_CODES
 
-    enc = t["enc"]
-    return t["levels"], 2, _INTERP_CODES[enc.interpolation_type], _ROUND_CODES[enc.table_dtype]
+    return t["levels"], 2, _INTERP_CODES[t["enc"].interpolation_type]
 
 
 def _table_grad_check(got, plain, exact, t, what):
@@ -1274,6 +1410,78 @@ def phase_k2_times(card, kb):
     return out
 
 
+GRID_BWD_SHAPES = ("flagship stratified B=2^18", "flagship uniform B=2^18", "3D model B=2^18")
+
+
+def _contribution_pairs(enc, x, dy):
+    """Every (flat table row, fp32 contribution row) pair of the table
+    gradient, precomputed with the plain version's corner arithmetic: what
+    one index_add_ sums (the scatter alone, without the index arithmetic)."""
+    import torch
+
+    from tcnn_tpu_torch.ops import grid_encode as ge
+
+    lt = enc.level_table().view(np.uint32).astype(np.int64)
+    F, d = enc.n_features_per_level, enc.n_dims_to_encode
+    bits = ge._corner_bits(d, ge.INTERP_LINEAR)
+    rows, contribs = [], []
+    g = dy.float()
+    for lvl, row in enumerate(lt):
+        idx, w = ge._level_rows(x, row, ge.INTERP_LINEAR, bits)
+        rows.append(idx.reshape(-1))
+        contribs.append((w[..., None] * g[:, None, lvl * F:(lvl + 1) * F]).reshape(-1, F))
+    return torch.cat(rows), torch.cat(contribs)
+
+
+def phase_grid_bwd_times(card, ks):
+    """The table gradient at three shapes, each in its training classes: the
+    new kernel, the earlier atomic kernel and the plain version in turns
+    (plain, new, atomic, atomic, new, plain; CUDA events, median of each
+    kind's two runs), beside one index_add_ of the precomputed (flat row,
+    contribution) pairs, and the bound from the shapes."""
+    import torch
+
+    from tcnn_tpu_torch.ops import grid_encode as ge
+
+    enc, enc3 = ks["enc"], ks["enc3"]
+    inputs = {
+        GRID_BWD_SHAPES[0]: (enc, ks["x_strat"], ks["dy"]),
+        GRID_BWD_SHAPES[1]: (enc, ks["x"], ks["dy"]),
+        GRID_BWD_SHAPES[2]: (enc3, ks["x3"], ks["dy3"]),
+    }
+    out = {}
+    for shape, (e, x, dy) in inputs.items():
+        classes_np = e.gradient_classes(B_FLAG)
+        classes = torch.from_numpy(classes_np).to("cuda")
+        levels = e._levels_on(x.device)
+        plan = ge.backward_plan(e.level_table(), 2, B_FLAG, classes_np)
+        fns = {
+            "new": lambda: ge.grid_backward(x, dy, levels, 2, ge.INTERP_LINEAR, classes, plan),
+            "atomic": lambda: ge._grid_backward_atomic(x, dy, levels, 2, ge.INTERP_LINEAR, classes),
+            "plain": lambda: ge.grid_backward_plain(x, dy, levels, 2, ge.INTERP_LINEAR, classes),
+        }
+        runs = {k: [] for k in fns}
+        with torch.no_grad():
+            for kind in ("plain", "new", "atomic", "atomic", "new", "plain"):
+                runs[kind].append(_event_ms(fns[kind]))
+            rows, contribs = _contribution_pairs(e, x, dy)
+            table = torch.zeros((e.n_params // 2, 2), device="cuda")
+            library = _event_ms(lambda: table.index_add_(0, rows, contribs))
+            del rows, contribs, table
+        d, L = e.n_dims_to_encode, e.n_levels
+        b = bound(B_FLAG * d * 4 + B_FLAG * 32 * 2 + e.n_params * 4, B_FLAG * L * 2**d * (2 + 2 * 2), "fp32")
+        out[shape] = {k: statistics.median(v) for k, v in runs.items()}
+        out[shape].update(library=library, bound=b, acc=classes_np[:, 1].tolist(),
+                          privatised=[l for l, p in enumerate(plan.privatised) if p])
+        r = out[shape]
+        log(f"time [{card}]: table gradient A/B, {shape}, accumulation codes {r['acc']}: new kernel "
+            f"{r['new']:.4f} ms (levels {r['privatised']} privatised), earlier atomic kernel {r['atomic']:.4f} ms "
+            f"({r['atomic'] / r['new']:.2f}x), plain {r['plain']:.4f} ms, index_add_ of the {B_FLAG * L * 2**d} "
+            f"precomputed fp32 (row, contribution) pairs {library:.4f} ms, bound {b[0]:.4f} ms ({b[1]}) "
+            f"(CUDA events, median; in turns)")
+    return out
+
+
 def phase_times(card, k1, k2, m, x_np, kb, ks):
     import torch
 
@@ -1296,7 +1504,6 @@ def phase_times(card, k1, k2, m, x_np, kb, ks):
     opt.allocate(715760, m.model.layer_sizes())
     a_state, a_params = opt.init_state("cuda"), m.trainer.params.clone()
     a_grads = torch.randn(715760, device="cuda") * 128
-    classes = torch.zeros((ks["enc"].n_levels, 2), dtype=torch.int32, device="cuda")
     fns = {
         ("kernel", "k1"): lambda: ffmlp_forward(x, ws, relu, none),
         ("plain", "k1"): lambda: ffmlp_forward_plain(x, ws, relu, none),
@@ -1304,10 +1511,6 @@ def phase_times(card, k1, k2, m, x_np, kb, ks):
         ("plain", "k2"): lambda: enc.apply_plain(params, xg),
         ("kernel", "adam_step"): lambda: opt.step(a_state, a_params, a_grads, 128.0),
         ("plain", "adam_step"): lambda: opt.step(a_state, a_params, a_grads, 128.0, plain=True),
-        ("kernel", "grid_bwd"): lambda: ge.grid_backward(ks["x"], ks["dy"], ks["levels"], 2, ge.INTERP_LINEAR,
-                                                         classes, enc.n_params, False),
-        ("plain", "grid_bwd"): lambda: ge.grid_backward_plain(ks["x"], ks["dy"], ks["levels"], 2,
-                                                              ge.INTERP_LINEAR, classes),
         ("kernel", "scatter_rows"): lambda: sr.scatter_rows(ks["idx"], ks["rows"], 64),
         ("plain", "scatter_rows"): lambda: sr.scatter_rows_plain(ks["idx"], ks["rows"], 64),
     }
@@ -1328,7 +1531,7 @@ def phase_times(card, k1, k2, m, x_np, kb, ks):
     s_out = torch.zeros((64, 4), device="cuda")
     s_idx = ks["idx"].long()
     library = {"scatter_rows": lambda: s_out.index_add_(0, s_idx, ks["rows"])}
-    timed = ("k1", "k2", "adam_step", "grid_bwd", "scatter_rows", "grid_bwd_input", "grid_bwdbwd")
+    timed = ("k1", "k2", "adam_step", "scatter_rows", "grid_bwd_input", "grid_bwdbwd")
     runs = {which: {"kernel": [], "plain": []} for which in timed}
     with torch.no_grad():
         for which in timed:
@@ -1343,6 +1546,14 @@ def phase_times(card, k1, k2, m, x_np, kb, ks):
     for which in timed:
         for kind in ("kernel", "plain"):
             t[f"{which}_{kind}_ms"] = statistics.median(runs[which][kind])
+    # The table gradient: the A/B against the earlier kernel in one call; the
+    # JSON line takes the stratified flagship batch, the training path's.
+    t["grid_bwd_ab"] = phase_grid_bwd_times(card, ks)
+    strat = t["grid_bwd_ab"][GRID_BWD_SHAPES[0]]
+    t["grid_bwd_kernel_ms"], t["grid_bwd_plain_ms"] = strat["new"], strat["plain"]
+    t["grid_bwd_library_ms"] = strat["library"]
+    t["grid_bwd_atomic_kernel_ms"], t["grid_bwd_atomic_plain_ms"] = strat["atomic"], strat["plain"]
+    t["grid_bwd_atomic_library_ms"] = strat["library"]
     # K2 and its parts: the A/B against the atomic kernel in one call.
     t["k2"] = phase_k2_times(card, kb)
     flag = t["k2"]["flagship (B=2^18, 32->64x2->16)"]
@@ -1372,7 +1583,8 @@ def phase_times(card, k1, k2, m, x_np, kb, ks):
         "ffmlp_bwd_walk": t["k2"]["walk"]["bound"],
         "ffmlp_bwd_dw": t["k2"]["dw"]["bound"],
         "adam_step": bound(715760 * 36, 715760 * 20, "fp32"),
-        "grid_bwd": bound(B_FLAG * 2 * 4 + B_FLAG * 32 * 2 + n_enc * 4, B_FLAG * L2 * 4 * (2 + 2 * F), "fp32"),
+        "grid_bwd": strat["bound"],
+        "grid_bwd_atomic": strat["bound"],
         "scatter_rows": bound(B_FLAG * 4 + B_FLAG * 4 * 4 + 64 * 4 * 4, B_FLAG * 4, "fp32"),
         "grid_bwd_input": bound(B_SDF * d3 * 4 * 2 + B_SDF * 32 * 2 + n3 * 4,
                                 B_SDF * L3 * 8 * (2 * F + d3 * d3 + 2 * d3), "fp32"),
@@ -1382,7 +1594,6 @@ def phase_times(card, k1, k2, m, x_np, kb, ks):
     shapes = {
         "ffmlp_bwd": "B=2^18 32->64x2->16 ReLU (dx and dW)",
         "adam_step": "715,760 params, flagship hyperparameters",
-        "grid_bwd": "flagship encoding B=2^18, class (none, fp32)",
         "scatter_rows": "2^18 rows x 4 into 64 slots, fp32",
         "grid_bwd_input": "3D model B=2^18, bf16 dy",
         "grid_bwdbwd": "3D model B=2^18, bf16 dy, input-gradient cotangent, table gradient in the 2^18 classes",
@@ -1529,16 +1740,23 @@ def phase_floors(card, records, t, train_profile, sdf_profile):
     rate = {(r["label"].split()[0], r["S"]): r["ns_per_row"] for r in records
             if r["p"] == "sweep" and r["B"] == 2**24 and r["F"] == 2 and r["source"] in ("l2", "global")}
     flag_rows, rows3d = B_FLAG * 16 * 4, B_SDF * 16 * 8
+    ab = t["grid_bwd_ab"]
     cases = (
         ("lookup, flagship (events)", flag_rows, ["gather"], (2**15, 2**15), t["k2_kernel_ms"]),
+        ("table gradient, flagship, stratified batch (events)", flag_rows, ["scatter-add"], (2**15, 2**15),
+         ab[GRID_BWD_SHAPES[0]]["new"]),
+        ("table gradient, flagship, stratified batch, earlier atomic kernel (events)", flag_rows, ["scatter-add"],
+         (2**15, 2**15), ab[GRID_BWD_SHAPES[0]]["atomic"]),
         ("table gradient, flagship, uniform points (events)", flag_rows, ["scatter-add"], (2**15, 2**15),
-         t["grid_bwd_kernel_ms"]),
+         ab[GRID_BWD_SHAPES[1]]["new"]),
         ("table gradient in the training step, stratified batch (profile)", flag_rows, ["scatter-add"],
          (2**15, 2**15), _profile_ms(train_profile, "grid_backward_kernel")),
         ("lookup, 3D (profile)", rows3d, ["gather"], (2**19, 2**23), _profile_ms(sdf_profile, "grid_forward_kernel")),
         ("G1, 3D (events)", rows3d, ["gather"], (2**19, 2**23), t["grid_bwd_input_kernel_ms"]),
         ("table gradient, 3D, one of two launches (profile)", rows3d, ["scatter-add"], (2**19, 2**23),
          _profile_ms(sdf_profile, "grid_backward_kernel") / 2),
+        ("table gradient, 3D, training classes (events)", rows3d, ["scatter-add"], (2**19, 2**23),
+         ab[GRID_BWD_SHAPES[2]]["new"]),
         ("G2, 3D (events)", rows3d, ["gather", "scatter-add"], (2**19, 2**23), t["grid_bwdbwd_kernel_ms"]),
     )
     for name, rows, ops, (s_lo, s_hi), ms in cases:
@@ -1651,6 +1869,7 @@ def main() -> int:
     log(f"build: all {len(KERNELS)} kernel libraries in {time.perf_counter() - t0:.1f} s")
     k1 = phase_kernel1()
     k2 = phase_kernel2(FLAGSHIP_CONFIG)
+    own_err = phase_own_table_dtype(FLAGSHIP_CONFIG)
     m, launches, x_flag = phase_slice(FLAGSHIP_CONFIG)
     kb = phase_mlp_backward()
     ka = phase_adam()
@@ -1691,11 +1910,13 @@ def main() -> int:
                 "bound_ms": times["bound"][0], "bound_by": times["bound"][1], "library_ms": times["library"],
                 "path": path}
 
+    from tcnn_tpu_torch.ops import grid_encode as ge
+
     kernels = [
         entry("ffmlp_fwd", "ffmlp_fwd.cu", "tcnn_tpu/ops/ffmlp.py:271", launches["ffmlp_fwd"], k1["err"], "k1",
               "serving"),
         entry("grid_fwd", "grid_fwd.cu", "tcnn_tpu/encodings/grid.py:1354", launches["grid_fwd"],
-              k2["flagship"][3], "k2", "serving"),
+              max(k2["flagship"][3], own_err), "k2", "serving"),
         entry("ffmlp_bwd", "ffmlp_bwd.cu", "tcnn_tpu/ops/ffmlp.py:838", train["ffmlp_bwd"], kb["err"],
               "ffmlp_bwd", "training"),
         entry("ffmlp_bwd_walk", "ffmlp_bwd.cu", "tcnn_tpu/ops/ffmlp.py:838", train["ffmlp_bwd_walk"], kb["err_dx"],
@@ -1706,6 +1927,8 @@ def main() -> int:
               "adam_step", "training"),
         entry("grid_bwd", "grid_bwd.cu", "tcnn_tpu/ops/scatter_rows.py:259", train["grid_bwd"], ks["grid_err"],
               "grid_bwd", "training"),
+        entry("grid_bwd_atomic", "grid_bwd.cu", "tcnn_tpu/ops/scatter_rows.py:259", ge.ATOMIC_BWD_LAUNCHES,
+              ks["atomic_err"], "grid_bwd_atomic", "A/B only (phase 8 check, phase 13 times; launches: those)"),
         entry("scatter_rows", "grid_bwd.cu", "tcnn_tpu/ops/scatter_rows.py:68", probes["launches"]["scatter_rows"],
               max(ks["scatter_err"], probes["errs"]["scatter_rows"]), "scatter_rows", "probes (P3, P19)"),
         entry("ffmlp_fwd_packed", "ffmlp_fwd.cu", "tcnn_tpu/ops/ffmlp.py:422", kp["launches"]["ffmlp_fwd_packed"],

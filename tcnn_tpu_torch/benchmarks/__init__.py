@@ -1,7 +1,8 @@
 """The port's benchmark entry points, each run as
 ``python -m tcnn_tpu_torch.benchmarks.<name>``: ``bench`` (the headline
 image-fit protocols of the repo's ``bench.py``), ``bench_mlp``,
-``bench_image`` and ``probe_rows`` (the row gather and scatter probes). They
+``bench_image``, ``probe_rows`` (the row gather and scatter probes) and
+``grid_bwd_plans`` (the table-gradient kernel's launch plans). They
 run on the CUDA card (``--device cuda``, the default) and fail without one;
 ``--device cpu`` runs the kernels' plain versions, for tests only: its times
 are the CPU's. Nothing here runs at import.

@@ -17,48 +17,85 @@
 // kernel_grid_backward_input_backward_grid (encodings/grid.h).
 //
 // What it computes: out[idx[n], :] += round(rows[n, :]) (tcnn_scatter_rows),
-// and for the grid (tcnn_grid_backward) one thread per (sample, level)
-// recomputes the level's corner indices and weights exactly as grid_fwd.cu
-// (grid_common.cuh) and adds round(w_c * dL_dy[b, lvl*F + f]) to table row
-// offset + idx_c, feature f. round() is the contribution class of the level:
-// none, round-to-nearest bf16, or value-hashed stochastic bf16
-// (tcnn_tpu/ops/scatter_rows.py:_sr_round_bits :187). The sum is fp32
-// atomics into an fp32 buffer, or bf16 atomics into a bf16 buffer for the
-// half classes (each add rounds to bf16), folded into the fp32 result at the
-// end; a level of class "drop" adds nothing. Zero contributions are skipped,
-// so an entry no sample touched stays an exact +0 (the optimizer's
+// and for the grid (tcnn_grid_backward) the table gradient: per (sample,
+// level) the corner indices and weights exactly as grid_fwd.cu computes them
+// (grid_common.cuh: locate, corner), and round(w_c * dL_dy[b, lvl*F + f])
+// added to table row offset + idx_c, feature f. round() is the contribution
+// class of the level: none, round-to-nearest bf16, or value-hashed
+// stochastic bf16 (tcnn_tpu/ops/scatter_rows.py:_sr_round_bits :187). The sum
+// is in fp32 into an fp32 buffer, or, for the half classes, in bf16 with
+// every add rounded to bf16 (into a bf16 buffer folded into the fp32 result
+// at the end); a level of class "drop" adds nothing. Zero contributions are
+// skipped, so an entry no sample touched stays an exact +0 (the optimizer's
 // skip-zero-gradient test reads that). Nothing of size (B * L * 2^d, F) is
 // materialised.
 //
 // G1: dL/dx_e = sum_l sum_c dw_c/dx_e * <dL_dy[b, l], T[idx_c]>, the table
-// read rounded by table_dtype as the lookup reads it. G2, for the cotangents
-// (cgp, cgx) of the first backward's (dparams, dx): d/d(dL_dy)[b, l] =
-// sum_c w_c cgp[idx_c] + a_c T[idx_c] with a_c = sum_e cgx_e dw_c/dx_e (a
-// gather); d/dx = sum_c dw_c/dx <dL_dy, cgp[idx_c]> + (cgx^T Hess w_c)
+// read rounded as the level table says (the lookup's reads). G2, for the
+// cotangents (cgp, cgx) of the first backward's (dparams, dx): d/d(dL_dy)[b,
+// l] = sum_c w_c cgp[idx_c] + a_c T[idx_c] with a_c = sum_e cgx_e dw_c/dx_e
+// (a gather); d/dx = sum_c dw_c/dx <dL_dy, cgp[idx_c]> + (cgx^T Hess w_c)
 // <dL_dy, T[idx_c]> (the cross second derivatives of the d-linear weight
 // are not zero); d/dparams += round(a_c * dL_dy[b, l]) at idx_c with the
 // level's class (the same scatter as the table gradient). Every term is
 // exact, as jax.grad of jax.grad is in the JAX package.
 //
-// What bounds it on this card: at the flagship (B = 2^18, 16 levels x 4
-// corners x 2 features) 33.5 M atomic adds into a 2.8 MB table that stays in
-// the 50 MB L2: the L2 atomic throughput and the collisions on the coarse
-// levels' few rows bound it, not HBM (~3 MB of inputs). The order of the
-// atomics varies from run to run, so fp32 sums differ from a sequential sum
-// in their last bits. G1 and G2 read B * L * 2^d random table rows (32.5 M
-// 8-byte rows at the 3D model, B = 2^18, in a 52 MB table that does not fit
-// the L2): random sector reads bound them, and G2's scatter adds as many
-// atomics again.
+// What bounds it on this card: the table gradient at the flagship (B =
+// 2^18, 16 levels x 4 corners x 2 features) adds 16.8 M row contributions
+// into a 2.8 MB table that stays in the 50 MB L2, against ~20 MB of inputs. Not HBM and
+// not arithmetic, but the atomics: their number, the L2's rate for them,
+// and collisions, since adds to one address serialise in the L2. Training
+// batches are stratified (sample j in raster tile j of a 512^2 partition):
+// neighbouring samples fall in the same cells of the coarse levels, about
+// 1,100 samples a cell at level 0, so a kernel that adds every contribution
+// on its own sends long runs of adds to a few addresses. The earlier kernel
+// (tcnn_grid_backward_atomic, one thread per (sample, level), level
+// fastest, a scalar atomic per contribution: 33.5 M at the flagship) took
+// 1.6043 ms on a stratified batch and 0.7465 ms on uniform points (NVIDIA
+// H100 80GB HBM3, 700 W, chip_smoke.py phase 13 and the training profile).
 //
-// Design: the table gradient runs one thread per (sample, level), level
-// fastest as in the lookup; each thread adds its 2^d * F contributions with
-// scalar atomicAdd. G1 and G2 run one thread per sample that walks the
-// levels in order and keeps its d input-gradient sums in registers, so the
-// sum over levels and corners is deterministic and needs no atomics; G2
-// writes its d/d(dL_dy) row directly and scatters into the table with the
-// same class rounding and atomics as the table gradient. Warp-level
-// pre-reduction of colliding rows and vector (bf16x2) atomics are later
-// work.
+// Design (tcnn_grid_backward): level-major tiles. A block owns a run of
+// consecutive samples (backward_plan's chunk, 512 at the flagship) and
+// takes them 256 at a time, walking the levels with one sample per thread,
+// so a warp's 32 lanes are 32 consecutive samples on one level and the
+// level's constants sit in shared memory. Per corner:
+// - lanes whose target rows are equal and adjacent (the runs a stratified
+//   batch makes) first sum their contributions with a segmented shuffle
+//   scan, in fp32 or with every add rounded to bf16; a warp whose lanes all
+//   differ (uniform points) pays one shuffle and one ballot;
+// - the run's first lane adds the row: into the block's private copy of the
+//   level in shared memory where the plan privatised it (levels of at most
+//   four rows a sample of the block: 0-2 at the flagship, fp32 or bf16 by
+//   class, flushed at the end with one global add per non-zero row), else
+//   into the table gradient with one vector atomic (float2 / float4 for
+//   fp32, bf16x2 for bf16) where F allows.
+// dy is read from global memory (a lane's F values 64 bytes from its
+// neighbour's; a variant that staged the tile's rows in shared memory with
+// 16-byte loads bought nothing and was removed). The plan's two choices
+// were swept with benchmarks/grid_bwd_plans.py (NVIDIA H100 80GB HBM3, 700
+// W): the kernel waits on latency more than on the atomics' rate, so the
+// block count decides (stratified flagship batch: 128 blocks 0.5892-0.6173
+// ms, 256 0.3236-0.3485, 512 0.2184-0.2282); privatising a level whose rows
+// a block hits about once or less gains nothing (the flagship's level 3:
+// +1-4%). Measured (chip_smoke.py phase 13; new / earlier kernel / one
+// index_add_ of the precomputed fp32 (row, contribution) pairs, ms):
+// stratified flagship batch 0.2263 / 1.7330 / 0.5533; uniform flagship
+// points 0.2389 / 0.8735 / 0.4398; the 3D model in its training classes
+// 0.6127 / 2.1709 / 0.5604. The flagship now runs below the card's
+// random-row scatter rate (0.3314 ms for its 16.8 M rows): the merges and
+// the private copies remove atomics.
+// The contribution is still round(__fmul_rn(w_c, g_f)) with the level's
+// class: the same terms bit for bit; only the order of the sums differs,
+// which the fp32 and bf16 tolerances of the tests allow.
+//
+// G1 and G2 run one thread per sample that walks the levels in order and
+// keeps its d input-gradient sums in registers, so the sum over levels and
+// corners is deterministic and needs no atomics; G2 writes its d/d(dL_dy)
+// row directly and scatters into the table with the same class rounding and
+// scalar atomics as the earlier table gradient. G1 and G2 read B * L * 2^d
+// random table rows (32.5 M 8-byte rows at the 3D model, B = 2^18, in a
+// 52 MB table that does not fit the L2): random sector reads bound them,
+// and G2's scatter adds as many atomics again.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -111,8 +148,10 @@ __global__ void scatter_rows_kernel(const int* __restrict__ idx, const float* __
              round_contribution(__ldg(rows + tid), contrib), acc);
 }
 
+// The earlier table gradient (tcnn_grid_backward_atomic): one thread per
+// (sample, level), level fastest, a scalar atomic add per contribution.
 template <typename DyT>
-__global__ void grid_backward_kernel(const float* __restrict__ x, const DyT* __restrict__ dy,
+__global__ void grid_backward_atomic_kernel(const float* __restrict__ x, const DyT* __restrict__ dy,
                                      const Level* __restrict__ levels,
                                      const int* __restrict__ classes, float* __restrict__ grad32,
                                      __nv_bfloat16* __restrict__ grad16, int batch, int n_dims,
@@ -144,13 +183,243 @@ __global__ void grid_backward_kernel(const float* __restrict__ x, const DyT* __r
   }
 }
 
+// The table gradient (tcnn_grid_backward): level-major tiles. A block owns
+// `chunk` consecutive samples and takes them `threads` at a time; for each
+// tile it walks the levels in order with one sample per thread, so a warp's
+// 32 lanes are 32 consecutive samples on one level.
+constexpr int kMaxLevels = 128;  // tcnn_tpu_torch/common.py MAX_N_LEVELS
+constexpr int kMaxThreads = 256;
+constexpr int kPlanHeader = 4;
+constexpr unsigned kFullMask = 0xFFFFFFFFu;
+constexpr uint32_t kNoRow = 0xFFFFFFFFu;  // a lane without a sample
+
+// The host's plan (ops/grid_encode.py:backward_plan), by value. Offsets are
+// bytes into the dynamic shared memory.
+struct Plan {
+  int threads, chunk, levels_offset, smem_bytes;
+  int priv_offset[kMaxLevels];  // the level's private copy, or -1
+};
+
+__device__ __forceinline__ float bf16_round(float v) { return __bfloat162float(__float2bfloat16_rn(v)); }
+__device__ __forceinline__ float as_float(float v) { return v; }
+__device__ __forceinline__ float as_float(__nv_bfloat16 v) { return __bfloat162float(v); }
+
+// Sums the contributions of lanes whose rows are equal and whose lanes are
+// neighbours (a run), in fp32 or, with `half`, rounding every add to bf16.
+// Returns whether this lane holds its run's sum (the run's first lane).
+// Warp-uniform: every lane calls it with the same `half`.
+template <int F>
+__device__ __forceinline__ bool merge_runs(uint32_t key, float (&v)[F], bool half) {
+  const int lane = threadIdx.x & 31;
+  const uint32_t prev = __shfl_up_sync(kFullMask, key, 1);
+  const unsigned heads = __ballot_sync(kFullMask, lane == 0 || prev != key);
+  if (heads == kFullMask) return true;  // no two neighbours share a row
+  const unsigned later = heads & ~((2u << lane) - 1u);
+  const int run_end = later ? __ffs(later) - 2 : 31;
+#pragma unroll
+  for (int off = 1; off < 32; off <<= 1) {
+#pragma unroll
+    for (int f = 0; f < F; ++f) {
+      const float o = __shfl_down_sync(kFullMask, v[f], off);
+      if (lane + off <= run_end) v[f] = half ? bf16_round(v[f] + o) : v[f] + o;
+    }
+  }
+  return (heads >> lane) & 1u;
+}
+
+// Adds one row of F fp32 values at p: float4 / float2 vector atomics where F
+// allows (global memory, compute capability 9.x), else scalar atomics.
+template <int F>
+__device__ __forceinline__ void add_row_f32_global(float* p, const float (&v)[F]) {
+  if constexpr (F % 4 == 0) {
+#pragma unroll
+    for (int k = 0; k < F / 4; ++k)
+      atomicAdd(reinterpret_cast<float4*>(p) + k, make_float4(v[4 * k], v[4 * k + 1], v[4 * k + 2], v[4 * k + 3]));
+  } else if constexpr (F % 2 == 0) {
+#pragma unroll
+    for (int k = 0; k < F / 2; ++k) atomicAdd(reinterpret_cast<float2*>(p) + k, make_float2(v[2 * k], v[2 * k + 1]));
+  } else {
+#pragma unroll
+    for (int f = 0; f < F; ++f)
+      if (v[f] != 0.0f) atomicAdd(p + f, v[f]);
+  }
+}
+
+template <int F>
+__device__ __forceinline__ void add_row_f32_shared(float* p, const float (&v)[F]) {
+#pragma unroll
+  for (int f = 0; f < F; ++f)
+    if (v[f] != 0.0f) atomicAdd(p + f, v[f]);
+}
+
+// Adds one row of F bf16 values (each v[f] already a bf16 value) at p, in
+// global or shared memory: bf16x2 atomics where F is even.
+template <int F>
+__device__ __forceinline__ void add_row_bf16(__nv_bfloat16* p, const float (&v)[F]) {
+  if constexpr (F % 2 == 0) {
+#pragma unroll
+    for (int k = 0; k < F / 2; ++k)
+      atomicAdd(reinterpret_cast<__nv_bfloat162*>(p) + k, __floats2bfloat162_rn(v[2 * k], v[2 * k + 1]));
+  } else {
+#pragma unroll
+    for (int f = 0; f < F; ++f)
+      if (v[f] != 0.0f) atomicAdd(p + f, __float2bfloat16_rn(v[f]));
+  }
+}
+
+template <typename DyT, int F>
+__global__ void __launch_bounds__(kMaxThreads, 2)
+    grid_backward_kernel(const float* __restrict__ x, const DyT* __restrict__ dy, const Level* __restrict__ levels,
+                         const int* __restrict__ classes, float* __restrict__ grad32,
+                         __nv_bfloat16* __restrict__ grad16, int batch, int n_dims, int n_levels, int dy_width,
+                         int interp, const Plan plan) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  Level* s_levels = reinterpret_cast<Level*>(smem + plan.levels_offset);
+  int* s_classes = reinterpret_cast<int*>(s_levels + n_levels);
+  const int tid = threadIdx.x, T = blockDim.x;
+  {
+    const int* src = reinterpret_cast<const int*>(levels);
+    int* dst = reinterpret_cast<int*>(s_levels);
+    for (int i = tid; i < n_levels * (int)(sizeof(Level) / 4); i += T) dst[i] = __ldg(src + i);
+    for (int i = tid; i < 2 * n_levels; i += T) s_classes[i] = __ldg(classes + i);
+    uint4* priv = reinterpret_cast<uint4*>(smem);
+    for (int i = tid; i < plan.levels_offset / 16; i += T) priv[i] = make_uint4(0u, 0u, 0u, 0u);
+  }
+  __syncthreads();
+
+  const int64_t start = (int64_t)blockIdx.x * plan.chunk;
+  const int64_t end = start + plan.chunk < batch ? start + plan.chunk : (int64_t)batch;
+  const int n_corners = interp == kNearest ? 1 : 1 << n_dims;
+  for (int64_t t0 = start; t0 < end; t0 += T) {
+    const int64_t b = t0 + tid;
+    const bool valid = b < end;
+    for (int lvl = 0; lvl < n_levels; ++lvl) {
+      const int acc = s_classes[2 * lvl + 1];
+      if (acc == kAccDrop) continue;
+      const int contrib = s_classes[2 * lvl];
+      const bool half = acc == kAccBf16;
+      const Level& lv = s_levels[lvl];
+      const int priv = plan.priv_offset[lvl];
+      Cell cell;
+      float g[F];
+      if (valid) {
+        cell = locate(x + b * n_dims, lv, n_dims, interp);
+#pragma unroll
+        for (int f = 0; f < F; ++f)
+          g[f] = as_float(__ldg(dy + b * dy_width + lvl * F + f));
+      }
+      for (int c = 0; c < n_corners; ++c) {
+        uint32_t key = kNoRow;
+        float v[F];
+#pragma unroll
+        for (int f = 0; f < F; ++f) v[f] = 0.0f;
+        if (valid) {
+          float weight;
+          key = corner(cell, lv, n_dims, interp, c, &weight);
+#pragma unroll
+          for (int f = 0; f < F; ++f) {
+            const float t = round_contribution(__fmul_rn(weight, g[f]), contrib);
+            v[f] = half ? bf16_round(t) : t;
+          }
+        }
+        if (!merge_runs<F>(key, v, half) || key == kNoRow) continue;
+        bool any = false;
+#pragma unroll
+        for (int f = 0; f < F; ++f) any |= v[f] != 0.0f;
+        if (!any) continue;  // +-0 adds nothing
+        if (priv >= 0) {
+          if (half) {
+            add_row_bf16<F>(reinterpret_cast<__nv_bfloat16*>(smem + priv) + (int64_t)key * F, v);
+          } else {
+            add_row_f32_shared<F>(reinterpret_cast<float*>(smem + priv) + (int64_t)key * F, v);
+          }
+        } else {
+          const int64_t row = ((int64_t)lv.offset + key) * F;
+          if (half) {
+            add_row_bf16<F>(grad16 + row, v);
+          } else {
+            add_row_f32_global<F>(grad32 + row, v);
+          }
+        }
+      }
+    }
+  }
+  __syncthreads();
+
+  // Flush each privatised level's non-zero rows with one add each.
+  for (int lvl = 0; lvl < n_levels; ++lvl) {
+    const int priv = plan.priv_offset[lvl];
+    if (priv < 0) continue;
+    const Level& lv = s_levels[lvl];
+    const bool half = s_classes[2 * lvl + 1] == kAccBf16;
+    for (uint32_t r = tid; r < lv.size; r += T) {
+      float v[F];
+      bool any = false;
+#pragma unroll
+      for (int f = 0; f < F; ++f) {
+        v[f] = half ? __bfloat162float(reinterpret_cast<const __nv_bfloat16*>(smem + priv)[(int64_t)r * F + f])
+                    : reinterpret_cast<const float*>(smem + priv)[(int64_t)r * F + f];
+        any |= v[f] != 0.0f;
+      }
+      if (!any) continue;
+      const int64_t row = ((int64_t)lv.offset + r) * F;
+      if (half) {
+        add_row_bf16<F>(grad16 + row, v);
+      } else {
+        add_row_f32_global<F>(grad32 + row, v);
+      }
+    }
+  }
+}
+
+template <typename DyT, int F>
+cudaError_t launch_tiled(unsigned blocks, const Plan& plan, cudaStream_t s, const float* x, const DyT* dy,
+                         const Level* levels, const int* classes, float* grad32, __nv_bfloat16* grad16, int batch,
+                         int n_dims, int n_levels, int dy_width, int interp) {
+  // Above 48 KB a block's dynamic shared memory must be allowed first; the
+  // largest size allowed so far is kept per instantiation.
+  static int allowed = 48 * 1024;
+  if (plan.smem_bytes > allowed) {
+    const cudaError_t err = cudaFuncSetAttribute(grid_backward_kernel<DyT, F>,
+                                                 cudaFuncAttributeMaxDynamicSharedMemorySize, plan.smem_bytes);
+    if (err != cudaSuccess) return err;
+    allowed = plan.smem_bytes;
+  }
+  grid_backward_kernel<DyT, F><<<blocks, plan.threads, plan.smem_bytes, s>>>(
+      x, dy, levels, classes, grad32, grad16, batch, n_dims, n_levels, dy_width, interp, plan);
+  return cudaGetLastError();
+}
+
+template <typename DyT>
+cudaError_t launch_by_features(int F, unsigned blocks, const Plan& plan, cudaStream_t s, const float* x, const DyT* dy,
+                               const Level* levels, const int* classes, float* grad32, __nv_bfloat16* grad16,
+                               int batch, int n_dims, int n_levels, int dy_width, int interp) {
+#define TCNN_GRID_BWD_CASE(NF)                                                                                  \
+  case NF:                                                                                                      \
+    return launch_tiled<DyT, NF>(blocks, plan, s, x, dy, levels, classes, grad32, grad16, batch, n_dims, n_levels, \
+                                 dy_width, interp);
+  switch (F) {
+    TCNN_GRID_BWD_CASE(1)
+    TCNN_GRID_BWD_CASE(2)
+    TCNN_GRID_BWD_CASE(3)
+    TCNN_GRID_BWD_CASE(4)
+    TCNN_GRID_BWD_CASE(5)
+    TCNN_GRID_BWD_CASE(6)
+    TCNN_GRID_BWD_CASE(7)
+    TCNN_GRID_BWD_CASE(8)
+    default:
+      return cudaErrorInvalidValue;
+  }
+#undef TCNN_GRID_BWD_CASE
+}
+
 // G1: one thread per sample, levels and corners in order.
 template <typename DyT>
 __global__ void grid_backward_input_kernel(const float* __restrict__ x, const DyT* __restrict__ dy,
                                            const float* __restrict__ params,
                                            const Level* __restrict__ levels, float* __restrict__ dx,
                                            int batch, int n_dims, int n_levels, int F, int dy_width,
-                                           int interp, int table_round) {
+                                           int interp) {
   const int64_t b = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
   if (b >= batch) return;
   const float* xrow = x + b * n_dims;
@@ -174,7 +443,7 @@ __global__ void grid_backward_input_kernel(const float* __restrict__ x, const Dy
       float dot = 0.0f;
 #pragma unroll
       for (int f = 0; f < kMaxF; ++f) {
-        if (f < F) dot = __fadd_rn(dot, __fmul_rn(g[f], read_rounded(trow + f, table_round, lv)));
+        if (f < F) dot = __fadd_rn(dot, __fmul_rn(g[f], read_rounded(trow + f, lv)));
       }
       float fac[kMaxDims], dw[kMaxDims];
 #pragma unroll
@@ -201,7 +470,7 @@ __global__ void grid_backward_backward_kernel(
     const float* __restrict__ cgp, const float* __restrict__ cgx, const Level* __restrict__ levels,
     const int* __restrict__ classes, float* __restrict__ grad32, __nv_bfloat16* __restrict__ grad16,
     float* __restrict__ d_x, float* __restrict__ d_dy, int batch, int n_dims, int n_levels, int F,
-    int dy_width, int interp, int table_round) {
+    int dy_width, int interp) {
   const int64_t b = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
   if (b >= batch) return;
   const float* xrow = x + b * n_dims;
@@ -245,7 +514,7 @@ __global__ void grid_backward_backward_kernel(
 #pragma unroll
       for (int f = 0; f < kMaxF; ++f) {
         if (f < F) {
-          const float t = read_rounded(params + row + f, table_round, lv);
+          const float t = read_rounded(params + row + f, lv);
           dot = __fadd_rn(dot, __fmul_rn(g[f], t));
           gdy[f] = __fadd_rn(gdy[f], __fmul_rn(a, t));
           if (use_cgp) {
@@ -288,12 +557,16 @@ __global__ void grid_backward_backward_kernel(
   }
 }
 
+// Copies the bf16 sums into the fp32 output. An entry takes adds in one of
+// the two buffers only (its level's class picks which), so a non-zero bf16
+// sum lands on an fp32 zero and is stored, not added: the fp32 output is not
+// read.
 __global__ void fold_bf16_kernel(float* __restrict__ out32, const __nv_bfloat16* __restrict__ in16,
                                  int64_t n) {
   const int64_t i = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
   if (i < n) {
     const float v = __bfloat162float(in16[i]);
-    if (v != 0.0f) out32[i] += v;
+    if (v != 0.0f) out32[i] = v;
   }
 }
 
@@ -335,8 +608,52 @@ extern "C" int tcnn_scatter_rows(const void* idx, const void* rows, void* out32,
 // grad32 (n_values,) fp32: the table gradient of the flat grid parameters
 // for output gradient dy (batch, dy_width), bf16 when dy_bf16 else fp32.
 // `classes` is the device copy of the (n_levels, 2) int32 table of
-// (contribution rounding, accumulation) codes.
-extern "C" int tcnn_grid_backward(const void* x, const void* dy, const void* levels,
+// (contribution rounding, accumulation) codes; `plan` is a host array of
+// kPlanHeader + n_levels int32 (ops/grid_encode.py:BackwardPlan.array).
+extern "C" int tcnn_grid_backward(const void* x, const void* dy, const void* levels, const void* classes,
+                                  void* grad32, void* grad16, int batch, int n_dims, int n_levels, int F,
+                                  int dy_width, int interp, int dy_bf16, int64_t n_values, const void* plan,
+                                  void* stream) {
+  if (n_dims < 1 || n_dims > kMaxDims || F < 1 || F > kMaxF || n_levels < 1 || n_levels > kMaxLevels ||
+      plan == nullptr)
+    return (int)cudaErrorInvalidValue;
+  const int* ph = static_cast<const int*>(plan);
+  Plan p;
+  p.threads = ph[0];
+  p.chunk = ph[1];
+  p.levels_offset = ph[2];
+  p.smem_bytes = ph[3];
+  for (int l = 0; l < kMaxLevels; ++l) p.priv_offset[l] = l < n_levels ? ph[kPlanHeader + l] : -1;
+  if (p.threads < 32 || p.threads > kMaxThreads || p.threads % 32 || p.chunk < p.threads || p.chunk % p.threads ||
+      p.levels_offset % 16 || p.smem_bytes < p.levels_offset + n_levels * (int)(sizeof(Level) + 8))
+    return (int)cudaErrorInvalidValue;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  cudaError_t err = cudaMemsetAsync(grad32, 0, n_values * 4, s);
+  if (err == cudaSuccess && grad16 != nullptr) err = cudaMemsetAsync(grad16, 0, n_values * 2, s);
+  if (err != cudaSuccess) return (int)err;
+  if (batch > 0) {
+    const unsigned blocks = (unsigned)(((int64_t)batch + p.chunk - 1) / p.chunk);
+    const float* xf = static_cast<const float*>(x);
+    const Level* lv = static_cast<const Level*>(levels);
+    const int* cls = static_cast<const int*>(classes);
+    float* g32 = static_cast<float*>(grad32);
+    __nv_bfloat16* g16 = static_cast<__nv_bfloat16*>(grad16);
+    err = dy_bf16 ? launch_by_features(F, blocks, p, s, xf, static_cast<const __nv_bfloat16*>(dy), lv, cls, g32,
+                                       g16, batch, n_dims, n_levels, dy_width, interp)
+                  : launch_by_features(F, blocks, p, s, xf, static_cast<const float*>(dy), lv, cls, g32, g16,
+                                       batch, n_dims, n_levels, dy_width, interp);
+    if (err != cudaSuccess) return (int)err;
+  }
+  if (grad16 != nullptr) {
+    fold_bf16_kernel<<<blocks_for(n_values), kThreads, 0, s>>>(
+        static_cast<float*>(grad32), static_cast<const __nv_bfloat16*>(grad16), n_values);
+  }
+  return (int)cudaGetLastError();
+}
+
+// The earlier table-gradient kernel, kept to be timed and checked beside
+// tcnn_grid_backward: the same function and arguments without the plan.
+extern "C" int tcnn_grid_backward_atomic(const void* x, const void* dy, const void* levels,
                                   const void* classes, void* grad32, void* grad16, int batch,
                                   int n_dims, int n_levels, int F, int dy_width, int interp,
                                   int dy_bf16, int64_t n_values, void* stream) {
@@ -353,11 +670,11 @@ extern "C" int tcnn_grid_backward(const void* x, const void* dy, const void* lev
     float* g32 = static_cast<float*>(grad32);
     __nv_bfloat16* g16 = static_cast<__nv_bfloat16*>(grad16);
     if (dy_bf16) {
-      grid_backward_kernel<__nv_bfloat16><<<blocks, kThreads, 0, s>>>(
+      grid_backward_atomic_kernel<__nv_bfloat16><<<blocks, kThreads, 0, s>>>(
           xf, static_cast<const __nv_bfloat16*>(dy), lv, cls, g32, g16, batch, n_dims, n_levels, F,
           dy_width, interp);
     } else {
-      grid_backward_kernel<float><<<blocks, kThreads, 0, s>>>(
+      grid_backward_atomic_kernel<float><<<blocks, kThreads, 0, s>>>(
           xf, static_cast<const float*>(dy), lv, cls, g32, g16, batch, n_dims, n_levels, F, dy_width,
           interp);
     }
@@ -372,11 +689,11 @@ extern "C" int tcnn_grid_backward(const void* x, const void* dy, const void* lev
 
 // dx (batch, n_dims) fp32: the input gradient of the lookup for output
 // gradient dy (batch, dy_width), bf16 when dy_bf16 else fp32; the table
-// `params` is read rounded by table_round as the lookup reads it.
+// `params` is read rounded as the level table says, as the lookup reads it.
 extern "C" int tcnn_grid_backward_input(const void* x, const void* dy, const void* params,
                                         const void* levels, void* dx, int batch, int n_dims,
                                         int n_levels, int F, int dy_width, int interp,
-                                        int table_round, int dy_bf16, void* stream) {
+                                        int dy_bf16, void* stream) {
   if (n_dims < 1 || n_dims > kMaxDims || F < 1 || F > kMaxF) return (int)cudaErrorInvalidValue;
   if (batch <= 0) return 0;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
@@ -387,11 +704,10 @@ extern "C" int tcnn_grid_backward_input(const void* x, const void* dy, const voi
   if (dy_bf16) {
     grid_backward_input_kernel<__nv_bfloat16><<<blocks_for(batch), kThreads, 0, s>>>(
         xf, static_cast<const __nv_bfloat16*>(dy), pf, lv, out, batch, n_dims, n_levels, F, dy_width,
-        interp, table_round);
+        interp);
   } else {
     grid_backward_input_kernel<float><<<blocks_for(batch), kThreads, 0, s>>>(
-        xf, static_cast<const float*>(dy), pf, lv, out, batch, n_dims, n_levels, F, dy_width, interp,
-        table_round);
+        xf, static_cast<const float*>(dy), pf, lv, out, batch, n_dims, n_levels, F, dy_width, interp);
   }
   return (int)cudaGetLastError();
 }
@@ -407,7 +723,7 @@ extern "C" int tcnn_grid_backward_backward(const void* x, const void* dy, const 
                                            const void* classes, void* grad32, void* grad16,
                                            void* d_x, void* d_dy, int batch, int n_dims,
                                            int n_levels, int F, int dy_width, int interp,
-                                           int table_round, int dy_bf16, int64_t n_values,
+                                           int dy_bf16, int64_t n_values,
                                            void* stream) {
   if (n_dims < 1 || n_dims > kMaxDims || F < 1 || F > kMaxF) return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
@@ -429,11 +745,11 @@ extern "C" int tcnn_grid_backward_backward(const void* x, const void* dy, const 
     if (dy_bf16) {
       grid_backward_backward_kernel<__nv_bfloat16><<<blocks_for(batch), kThreads, 0, s>>>(
           xf, static_cast<const __nv_bfloat16*>(dy), pf, cp, cx, lv, cls, g32, g16, ox, ody, batch,
-          n_dims, n_levels, F, dy_width, interp, table_round);
+          n_dims, n_levels, F, dy_width, interp);
     } else {
       grid_backward_backward_kernel<float><<<blocks_for(batch), kThreads, 0, s>>>(
           xf, static_cast<const float*>(dy), pf, cp, cx, lv, cls, g32, g16, ox, ody, batch, n_dims,
-          n_levels, F, dy_width, interp, table_round);
+          n_levels, F, dy_width, interp);
     }
     if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
   }

@@ -33,7 +33,7 @@ namespace tcnn_grid {
 constexpr int kMaxDims = 10;
 constexpr int kMaxF = 8;
 
-// Layout of one row of the (L, 25) int32 level table built by
+// Layout of one row of the (L, 26) int32 level table built by
 // tcnn_tpu_torch/ops/grid_encode.py:level_table.
 struct Level {
   uint32_t offset;                 // first table row of the level
@@ -43,8 +43,9 @@ struct Level {
   uint32_t stride[kMaxDims];       // per-dim factor, & 0xFFFFFFFF
   uint32_t stride_mod[kMaxDims];   // per-dim factor mod size (kQuad deltas)
   int32_t serve_round;             // serve-time rounding of this level's reads (kRound*)
+  int32_t own_round;               // rounding of its reads to the encoding's table dtype (kRound*)
 };
-static_assert(sizeof(Level) == 100, "Level must match the host table layout");
+static_assert(sizeof(Level) == 104, "Level must match the host table layout");
 
 enum { kFold = 0, kQuad = 1, kXor = 2, kBaseConvert = 3 };
 enum { kNearest = 0, kLinear = 1, kSmoothstep = 2 };
@@ -118,10 +119,11 @@ __device__ __forceinline__ float round_to(float v, int code) {
   return v;
 }
 
-// A table value as the lookup reads it: fp32, rounded to the encoding's
-// table dtype, then to the level's serve-time dtype where it has one.
-__device__ __forceinline__ float read_rounded(const float* p, int table_round, const Level& lv) {
-  return round_to(round_to(__ldg(p), table_round), lv.serve_round);
+// A table value as the lookup reads it on level lv: fp32, rounded to the
+// encoding's table dtype where the level reads it so, then to the level's
+// serve-time dtype where it has one.
+__device__ __forceinline__ float read_rounded(const float* p, const Level& lv) {
+  return round_to(round_to(__ldg(p), lv.own_round), lv.serve_round);
 }
 
 // Per dim, the first (d1) and second (d2) derivative of the interpolation

@@ -8,8 +8,9 @@
 //
 // What it computes, per (sample, level): the cell and the 2^d corner
 // indices and weights of grid_common.cuh; the features read as fp32 from the
-// flat parameters, rounded on read to fp16 or bf16 when a table dtype is
-// set (the encoding's, then the level's serve-time one); and the weighted sum in fp32, in corner order 0..2^d-1, with every
+// flat parameters, rounded on read to fp16 or bf16 where the level table
+// says so (the encoding's own table dtype, then the level's serve-time
+// one); and the weighted sum in fp32, in corner order 0..2^d-1, with every
 // product and sum rounded separately as in the plain version. Output column
 // lvl*F + f; padding columns are written as zeros.
 //
@@ -21,7 +22,7 @@
 //
 // Design: one thread per (sample, level), level fastest, so a warp shares a
 // couple of samples' coordinates and writes one contiguous output run; the
-// per-level constants are one 100-byte struct read through the cache. Enough
+// per-level constants are one 104-byte struct read through the cache. Enough
 // threads are in flight (B x L) to hide the L2 latency. Corner-shared loads
 // (one row per cell for affine levels) are later work.
 
@@ -43,7 +44,7 @@ template <typename OutT>
 __global__ void grid_forward_kernel(const float* __restrict__ x, const float* __restrict__ params,
                                     const Level* __restrict__ levels, OutT* __restrict__ out,
                                     int batch, int n_dims, int n_levels, int F, int out_width,
-                                    int interp, int table_round) {
+                                    int interp) {
   const int64_t tid = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
   if (tid >= (int64_t)batch * n_levels) return;
   const int64_t b = tid / n_levels;
@@ -62,7 +63,7 @@ __global__ void grid_forward_kernel(const float* __restrict__ x, const float* __
     const float* row = params + ((uint64_t)lv.offset + idx) * F;
 #pragma unroll
     for (int f = 0; f < kMaxF; ++f) {
-      if (f < F) acc[f] = __fadd_rn(acc[f], __fmul_rn(weight, read_rounded(row + f, table_round, lv)));
+      if (f < F) acc[f] = __fadd_rn(acc[f], __fmul_rn(weight, read_rounded(row + f, lv)));
     }
   }
 
@@ -80,10 +81,10 @@ __global__ void grid_forward_kernel(const float* __restrict__ x, const float* __
 
 // Returns the cudaError_t of the launch (0 on success). Launches on
 // `stream` and does not synchronise. `levels` points to the device copy of
-// the (n_levels, 24) int32 level table.
+// the (n_levels, 26) int32 level table.
 extern "C" int tcnn_grid_forward(const void* x, const void* params, const void* levels, void* out,
                                  int batch, int n_dims, int n_levels, int F, int out_width,
-                                 int interp, int table_round, int out_bf16, void* stream) {
+                                 int interp, int out_bf16, void* stream) {
   if (batch <= 0) return 0;
   if (n_dims < 1 || n_dims > kMaxDims || F < 1 || F > kMaxF) return (int)cudaErrorInvalidValue;
   const int threads = 256;
@@ -96,11 +97,10 @@ extern "C" int tcnn_grid_forward(const void* x, const void* params, const void* 
   if (out_bf16) {
     grid_forward_kernel<__nv_bfloat16><<<blocks, threads, 0, s>>>(
         xf, pf, lv, static_cast<__nv_bfloat16*>(out), batch, n_dims, n_levels, F, out_width,
-        interp, table_round);
+        interp);
   } else {
     grid_forward_kernel<float><<<blocks, threads, 0, s>>>(
-        xf, pf, lv, static_cast<float*>(out), batch, n_dims, n_levels, F, out_width, interp,
-        table_round);
+        xf, pf, lv, static_cast<float*>(out), batch, n_dims, n_levels, F, out_width, interp);
   }
   return (int)cudaGetLastError();
 }

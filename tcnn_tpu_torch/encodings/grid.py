@@ -9,9 +9,10 @@ Everything that changes the function computed is reproduced exactly: the
 hash type (``"auto"`` -> CoherentAdditive), the raster strides that
 ``gather_strategy: "stratified"`` gives coarse levels (``raster_max_scale``),
 the phase-locked scale snapping, the interpolation, ``table_dtype`` rounding
-on read, the serve-time ``table_dtype`` of ``FrozenServer`` on exactly the
-levels the JAX package serves from its prebuilt quad tables
-(``served_levels``), and in training the rounding class of each level's table gradient
+on read on exactly the levels the JAX package reads through a rounding
+gather (``rounded_levels``), the serve-time ``table_dtype`` of
+``FrozenServer`` on exactly the levels the JAX package serves from its
+prebuilt quad tables (``served_levels``), and in training the rounding class of each level's table gradient
 (``gradient_classes``), which ``scatter_strategy``, ``locked_rounding``,
 ``gather_strategy``, ``phase_locked`` and the batch select in the JAX
 package. Its other TPU execution strategies (quad tables, packed layouts,
@@ -297,6 +298,69 @@ class GridEncoding(Encoding):
             return [res**k for k in range(self.n_dims_to_encode)]
         return self._corner_strides[lvl]
 
+    def _static_levels(self, batch: Optional[int], raster_sides=None, stratified: Optional[bool] = None) -> List[bool]:
+        """Per level, whether the JAX package reads it from the fp32
+        parameters without a per-sample gather (tcnn_tpu/encodings/grid.py:
+        GridEncoding.apply), where ``_stratified_path`` holds: on the raster
+        of ``raster_sides``, the prefix of raster-stride levels takes the
+        separable static lerp (:1564-1578, :1866-1871; ``apply_raster``
+        routes there unless the encoding interpolates stochastically,
+        :2107-2125); on a batch of ``batch`` samples that is a perfect d-th
+        power (unless ``stratified`` is False, as ``FrozenServer`` asks for
+        batches), and on a raster that is one, the levels whose scale is at
+        most ``raster_max_scale`` and whose cell window is at most
+        ``stratified_max_variants`` take the stratified static path
+        (:1683-1712, :1872-1876)."""
+        static = [False] * self.n_levels
+        if raster_sides is not None:
+            if self.stochastic_interpolation:
+                return static
+            batch, prefix = int(np.prod(raster_sides)), True
+        elif stratified is False or batch is None:
+            return static
+        else:
+            prefix = False
+        if not self._stratified_path():
+            return static
+        strata = self._batch_strata(batch)
+        for lvl in range(self.n_levels):
+            scale = float(self.scales[lvl])
+            if scale > self.raster_max_scale:
+                prefix = False
+                continue
+            if prefix or (strata and math.ceil(scale / strata) + 1 <= self.stratified_max_variants):
+                static[lvl] = True
+            else:
+                prefix = False
+        return static
+
+    def _stratified_path(self) -> bool:
+        """Whether the JAX package's stratified static path can run for this
+        encoding (tcnn_tpu/encodings/grid.py:1457-1470, 1482-1493)."""
+        return (
+            self.gather_strategy == "stratified"
+            and self.raster_max_scale is not None
+            and self.interpolation_type in (InterpolationType.Linear, InterpolationType.Smoothstep)
+            and self.n_dims_to_encode in (2, 3)
+        )
+
+    def _batch_strata(self, batch: int) -> int:
+        """Tiles per dim of a stratified batch of ``batch`` samples (a
+        perfect d-th power of at least 2), or 0 where the static path does
+        not run for it."""
+        d = self.n_dims_to_encode
+        s = round(int(batch) ** (1.0 / d))
+        return s if self._stratified_path() and s**d == batch and s >= 2 else 0
+
+    def _quad_level(self, lvl: int) -> bool:
+        """Whether the JAX package reads the level through a quad-row
+        gather (tcnn_tpu/encodings/grid.py:1713-1717)."""
+        return (
+            self.gather_strategy in ("quad", "quad_fused", "stratified")
+            and self.interpolation_type == InterpolationType.Linear
+            and self._level_strides(lvl) is not None
+        )
+
     def served_levels(self, raster_sides=None) -> List[bool]:
         """Per level, whether the JAX package's ``FrozenServer`` reads it
         from a prebuilt quad table, which it stores in the serve-time
@@ -304,42 +368,50 @@ class GridEncoding(Encoding):
         Tables are built only under gather_strategy "quad" or "stratified"
         for levels with affine strides (tcnn_tpu/encodings/grid.py:
         serving_tables, _level_strides) and read only on the quad-row path,
-        which needs Linear interpolation (:1713-1717, :1892). On a raster of
-        a stratified encoding the raster-stride prefix of levels takes the
-        separable static path (:1564-1578, :1866) and, where the raster is
-        a perfect d-th power, later raster-stride levels the stratified
-        static path (:1683-1712); both read the fp32 parameters."""
-        L = self.n_levels
-        if self.gather_strategy not in ("quad", "stratified") or self.interpolation_type != InterpolationType.Linear:
-            return [False] * L
-        served = [self._level_strides(lvl) is not None for lvl in range(L)]
-        d = self.n_dims_to_encode
-        if (
-            raster_sides is None
-            or self.gather_strategy != "stratified"
-            or self.raster_max_scale is None
-            or self.stochastic_interpolation
-            or d not in (2, 3)
-        ):
-            return served
-        n = int(np.prod(raster_sides))
-        s = round(n ** (1.0 / d))
-        strata = s if s**d == n and s >= 2 else 0
-        prefix = True
-        for lvl in range(L):
-            scale = float(self.scales[lvl])
-            if scale > self.raster_max_scale:
-                prefix = False
-                continue
-            static = strata and math.ceil(scale / strata) + 1 <= self.stratified_max_variants
-            if prefix or static:
-                served[lvl] = False
-        return served
+        which needs Linear interpolation (:1713-1717, :1892). Batches are
+        served with ``stratified=False`` (tcnn_tpu/serving.py); on a raster
+        the static levels of ``_static_levels`` read the fp32 parameters."""
+        if self.gather_strategy not in ("quad", "stratified"):
+            return [False] * self.n_levels
+        static = self._static_levels(None, raster_sides, stratified=False)
+        return [self._quad_level(lvl) and not static[lvl] for lvl in range(self.n_levels)]
 
-    def level_table(self, table_dtype: Optional[str] = None, raster_sides=None) -> np.ndarray:
-        """The (n_levels, 25) int32 level table of this encoding; with a
-        serve-time ``table_dtype``, its levels that ``served_levels`` names
-        round their reads to it."""
+    def rounded_levels(self, batch: Optional[int] = None, raster_sides=None,
+                       stratified: Optional[bool] = None) -> List[bool]:
+        """Per level, whether the JAX package reads it through a gather that
+        rounds to the encoding's own ``table_dtype`` (``forward_dtype``,
+        tcnn_tpu/encodings/grid.py:_forward_dtype :572) for a call on
+        ``batch`` samples, or on the raster of ``raster_sides``
+        (``stratified`` as ``GridEncoding.apply`` takes it). Path by path
+        through ``GridEncoding.apply`` (:1354-2024):
+
+        - "fused": one gather of the fp32 table for all levels (:1804-1828);
+          "quad_fused" when every level is a quad level: one gather of the
+          fp32 quad supertable (:1765-1803). No level rounds.
+        - the separable and stratified static levels (``_static_levels``)
+          read the fp32 parameters (:1866-1876, ``_stratified_feats``
+          :1262, ``_raster_separable_feats`` :1183). They do not round.
+        - every other level rounds: the quad-row gathers of the prebuilt
+          serving tables (stored in the forward dtype, :2054-2061), of the
+          phase-locked levels (:1000-1118, every ``locked_fwd``), of the
+          hybrid and packed layouts (:892-905, :1918-1929) and of the plain
+          quad table (:1943-1947; the one-hot and ``index_mode`` branches
+          need attributes the config never sets), and the per-corner
+          vertex gathers (:1953-1982), flat or level-split."""
+        L = self.n_levels
+        if self.gather_strategy == "fused" or (
+            self.gather_strategy == "quad_fused" and all(self._quad_level(lvl) for lvl in range(L))
+        ):
+            return [False] * L
+        return [not s for s in self._static_levels(batch, raster_sides, stratified)]
+
+    def level_table(self, table_dtype: Optional[str] = None, raster_sides=None, batch: Optional[int] = None,
+                    stratified: Optional[bool] = None) -> np.ndarray:
+        """The (n_levels, 26) int32 level table of this encoding for a call
+        on ``batch`` samples or on the raster of ``raster_sides``: the
+        levels ``rounded_levels`` names round their reads to the encoding's
+        ``table_dtype``; with a serve-time ``table_dtype``, the levels
+        ``served_levels`` names then round them to that."""
         quad = (
             self.gather_strategy in ("quad", "quad_fused", "stratified")
             and self.interpolation_type == InterpolationType.Linear
@@ -357,16 +429,24 @@ class GridEncoding(Encoding):
                 modes.append(ge.MODE_XOR)
                 strides.append(_hash_factors(self.hash_type, self.n_dims_to_encode))
         off = self.offset_table
-        code = _ROUND_CODES[table_dtype or "float32"]
-        serve = [code if s else ge.ROUND_NONE for s in self.served_levels(raster_sides)]
-        return ge.level_table(off[:-1], off[1:] - off[:-1], modes, self.scales, strides, serve)
+        serve, own = self._round_codes(table_dtype, raster_sides, batch, stratified)
+        return ge.level_table(off[:-1], off[1:] - off[:-1], modes, self.scales, strides, serve, own)
 
-    def _levels_on(self, device: torch.device, table_dtype: Optional[str] = None, raster_sides=None) -> torch.Tensor:
-        serve = tuple(self.served_levels(raster_sides)) if table_dtype not in (None, "float32") else ()
-        key = (device.type, device.index, table_dtype if serve else None, serve)
+    def _round_codes(self, table_dtype, raster_sides, batch, stratified):
+        """Per level, the (serve-time, own) ROUND_* codes of its reads."""
+        code = _ROUND_CODES[table_dtype or "float32"]
+        serve = [code if s else ge.ROUND_NONE for s in self.served_levels(raster_sides)] if code else [0] * self.n_levels
+        code = _ROUND_CODES[self.table_dtype]
+        rounded = self.rounded_levels(batch, raster_sides, stratified) if code else [False] * self.n_levels
+        return serve, [code if r else ge.ROUND_NONE for r in rounded]
+
+    def _levels_on(self, device: torch.device, table_dtype: Optional[str] = None, raster_sides=None,
+                   batch: Optional[int] = None, stratified: Optional[bool] = None) -> torch.Tensor:
+        serve, own = self._round_codes(table_dtype, raster_sides, batch, stratified)
+        key = (device.type, device.index, tuple(serve), tuple(own))
         t = self._level_tables.get(key)
         if t is None:
-            table = self.level_table(table_dtype, raster_sides)
+            table = self.level_table(table_dtype, raster_sides, batch, stratified)
             t = self._level_tables[key] = torch.from_numpy(table).to(device)
         return t
 
@@ -432,45 +512,19 @@ class GridEncoding(Encoding):
         static path (a perfect d-th power batch, scale <= raster_max_scale)
         have a dense fp32 backward; phase-locked levels take
         ``locked_rounding``; the other quad levels take the scatter mode of
-        ``batch`` rows, per-corner levels that of ``batch * 2^d`` rows."""
-        d = self.n_dims_to_encode
-        linear = self.interpolation_type == InterpolationType.Linear
-        strat_strata = 0
-        if (
-            self.gather_strategy == "stratified"
-            and d in (2, 3)
-            and self.raster_max_scale is not None
-            and self.interpolation_type in (InterpolationType.Linear, InterpolationType.Smoothstep)
-        ):
-            s = round(batch ** (1.0 / d))
-            if s**d == batch and s >= 2:
-                strat_strata = s
+        ``batch`` rows, per-corner levels that of ``batch * 2^d`` rows. The
+        fp32 levels are those the forward reads without a rounding gather
+        (``rounded_levels``)."""
+        strat_strata = self._batch_strata(batch)
         locked = self._locked_levels(strat_strata) if strat_strata else set()
-        n_corners = 1 if self.interpolation_type == InterpolationType.Nearest else 2**d
-
-        def quad_level(lvl):
-            return (
-                self.gather_strategy in ("quad", "quad_fused", "stratified")
-                and linear
-                and self._level_strides(lvl) is not None
-            )
-
-        def static_level(lvl):
-            if not strat_strata or self.interpolation_type == InterpolationType.Nearest:
-                return False
-            scale = float(self.scales[lvl])
-            n_var = int(math.ceil(scale / strat_strata)) + 1
-            return scale <= self.raster_max_scale and n_var <= self.stratified_max_variants
-
-        one_gather = self.gather_strategy == "fused" or (
-            self.gather_strategy == "quad_fused" and all(quad_level(lvl) for lvl in range(self.n_levels))
-        )
+        n_corners = 1 if self.interpolation_type == InterpolationType.Nearest else 2**self.n_dims_to_encode
+        gathered = self.rounded_levels(batch)
         out = []
         for lvl in range(self.n_levels):
             size = int(self.offset_table[lvl + 1] - self.offset_table[lvl])
-            if one_gather or static_level(lvl):
+            if not gathered[lvl]:
                 out.append(GRAD_F32)
-            elif quad_level(lvl):
+            elif self._quad_level(lvl):
                 if lvl in locked:
                     out.append(_LOCKED_CLASSES[self.locked_rounding])
                 else:
@@ -480,7 +534,8 @@ class GridEncoding(Encoding):
         return np.asarray(out, np.int32).reshape(self.n_levels, 2)
 
     def _classes_on(self, device: torch.device, batch: int):
-        """(class table on ``device``, whether a level sums in bf16)."""
+        """(class table on ``device``, whether a level sums in bf16, the
+        table gradient's ``backward_plan``)."""
         key = (
             device.type, device.index, int(batch), self.gather_strategy, self.scatter_strategy,
             self.locked_rounding, self.quad_pack,
@@ -488,26 +543,33 @@ class GridEncoding(Encoding):
         hit = self._class_tables.get(key)
         if hit is None:
             classes = self.gradient_classes(batch)
-            hit = (torch.from_numpy(classes).to(device), bool((classes[:, 1] == sr.ACC_BF16).any()))
+            plan = ge.backward_plan(self.level_table(), self.n_features_per_level, batch, classes)
+            hit = (torch.from_numpy(classes).to(device), bool((classes[:, 1] == sr.ACC_BF16).any()), plan)
             self._class_tables[key] = hit
         return hit
 
-    def apply(self, params: torch.Tensor, x: torch.Tensor, table_dtype: Optional[str] = None) -> torch.Tensor:
+    def apply(self, params: torch.Tensor, x: torch.Tensor, table_dtype: Optional[str] = None,
+              stratified: Optional[bool] = None) -> torch.Tensor:
         """Encode positions ``x`` (batch, n_dims) to (batch,
-        padded_output_width) in ``output_dtype``. ``table_dtype`` is the
-        serve-time precision: the levels of ``served_levels()`` round their
-        reads to it, after the encoding's own ``table_dtype``. Differentiable
-        twice with respect to ``params`` and ``x`` (``ops.grid_encode``: the
-        lookup, table-gradient, input-gradient and double-backward kernels
-        on the card, their plain versions on the CPU)."""
-        return self._encode(params, x, table_dtype, plain=False)
+        padded_output_width) in ``output_dtype``. The encoding's own
+        ``table_dtype`` rounds the reads of ``rounded_levels``;
+        ``table_dtype`` here is the serve-time precision: the levels of
+        ``served_levels()`` round their reads to it after that.
+        ``stratified=False`` (what ``FrozenServer`` passes for batches) says
+        the batch is not the stratified layout, as in the JAX package.
+        Differentiable twice with respect to ``params`` and ``x``
+        (``ops.grid_encode``: the lookup, table-gradient, input-gradient and
+        double-backward kernels on the card, their plain versions on the
+        CPU)."""
+        return self._encode(params, x, table_dtype, plain=False, stratified=stratified)
 
-    def apply_plain(self, params: torch.Tensor, x: torch.Tensor, table_dtype: Optional[str] = None) -> torch.Tensor:
+    def apply_plain(self, params: torch.Tensor, x: torch.Tensor, table_dtype: Optional[str] = None,
+                    stratified: Optional[bool] = None) -> torch.Tensor:
         """``apply`` through the kernels' plain torch versions, on any
         device (the reference the kernels are checked against)."""
-        return self._encode(params, x, table_dtype, plain=True)
+        return self._encode(params, x, table_dtype, plain=True, stratified=stratified)
 
-    def _encode(self, params, x, table_dtype, plain: bool, raster_sides=None):
+    def _encode(self, params, x, table_dtype, plain: bool, raster_sides=None, stratified=None):
         x = x.to(torch.float32).contiguous()
         # Input gradients stay exact with stochastic interpolation (the JAX
         # package's GridEncoding.apply, tcnn_tpu/encodings/grid.py:1391-1395);
@@ -517,19 +579,19 @@ class GridEncoding(Encoding):
                 "GridEncoding: training with stochastic_interpolation is not ported yet "
                 "(ROADMAP.md, Queue 1 item 5: other encodings and grid extras)"
             )
-        classes, acc16 = None, False
+        classes, acc16, plan = None, False, None
         if torch.is_grad_enabled() and params.requires_grad:
-            classes, acc16 = self._classes_on(x.device, x.shape[0])
+            classes, acc16, plan = self._classes_on(x.device, x.shape[0])
         meta = (
             self.n_features_per_level,
             self.padded_output_width,
             _INTERP_CODES[self.interpolation_type],
-            _ROUND_CODES[self.table_dtype],
             self.output_dtype,
             plain,
             acc16,
+            plan,
         )
-        levels = self._levels_on(x.device, table_dtype, raster_sides)
+        levels = self._levels_on(x.device, table_dtype, raster_sides, x.shape[0], stratified)
         return ge.GridEncodeFunction.apply(x, params, levels, classes, meta)
 
     def apply_raster(self, params: torch.Tensor, side, table_dtype: Optional[str] = None) -> torch.Tensor:

@@ -3,17 +3,21 @@ wrappers, their plain versions and the autograd Functions that bind them.
 
 The lookup kernel (``csrc/grid_fwd.cu``) covers every level in one launch,
 one thread per (sample, level). Its plain version ``grid_encode_plain`` is a
-vectorised torch lookup level by level. The backward kernel
+vectorised torch lookup level by level. The table-gradient kernel
 (``csrc/grid_bwd.cu:tcnn_grid_backward``) recomputes each (sample, level)'s
-corners the same way and adds the rounded contributions atomically into the
-table gradient; its plain version is ``grid_backward_plain``. The input
+corners the same way and adds the rounded contributions into the table
+gradient, level-major, as the host's ``backward_plan`` lays it out: small
+levels in shared-memory copies, equal rows of neighbouring samples summed in
+the warp first, one vector atomic a row; its plain version is
+``grid_backward_plain``, and the earlier one-atomic-per-contribution kernel
+stays as ``_grid_backward_atomic``, for timing and checking only. The input
 gradient (``tcnn_grid_backward_input``, plain ``grid_backward_input_plain``)
 and the double backward (``tcnn_grid_backward_backward``, plain
 ``grid_backward_backward_plain``) replace what the JAX package gets from XLA
 autodiff of ``GridEncoding.apply`` (tcnn_tpu/encodings/grid.py:1354): they
 differentiate the corner weights with respect to x, exactly in every term
 (``jax.grad`` of ``jax.grad``). All of them read the same description of the
-grid: the (n_levels, 25) int32 level table built by ``level_table``; the
+grid: the (n_levels, 26) int32 level table built by ``level_table``; the
 table-gradient scatters also read the per-level gradient rounding classes
 (``ops.scatter_rows`` codes).
 
@@ -37,11 +41,13 @@ import torch
 
 # Launches of the CUDA kernels (each incremented once per launch of its
 # wrapper's kernel, nowhere else): the lookup, the table gradient, the input
-# gradient (G1) and the double backward (G2).
+# gradient (G1), the double backward (G2) and the earlier table-gradient
+# kernel kept for timing (``_grid_backward_atomic``).
 LAUNCHES = 0
 BWD_LAUNCHES = 0
 INPUT_LAUNCHES = 0
 BWDBWD_LAUNCHES = 0
+ATOMIC_BWD_LAUNCHES = 0
 
 # Level index modes (csrc/grid_fwd.cu switches on the same values).
 MODE_FOLD = 0  # affine: (sum_d uint32(pos_grid_d + bit_d) * stride_d) mod size
@@ -60,8 +66,10 @@ _ROUND_DTYPES = {ROUND_FP16: torch.float16, ROUND_BF16: torch.bfloat16}
 
 MAX_DIMS = 10
 MAX_FEATURES = 8
+MAX_LEVELS = 128  # csrc/grid_bwd.cu kMaxLevels (common.MAX_N_LEVELS)
 _SERVE_COL = 4 + 2 * MAX_DIMS
-_LEVEL_COLS = _SERVE_COL + 1
+_OWN_COL = _SERVE_COL + 1
+_LEVEL_COLS = _OWN_COL + 1
 _M32 = 0xFFFFFFFF
 _BASE_CONVERT_FACTOR = 2531011
 
@@ -73,12 +81,14 @@ def level_table(
     scales: Sequence[float],
     strides: Sequence[Sequence[int]],
     serve_rounds: Optional[Sequence[int]] = None,
+    own_rounds: Optional[Sequence[int]] = None,
 ) -> np.ndarray:
-    """The (n_levels, 25) int32 level table: per level the row offset, the
+    """The (n_levels, 26) int32 level table: per level the row offset, the
     row count, the index mode, the fp32 scale (bit pattern), the per-dim
-    factors masked to 32 bits, the per-dim factors mod the level size and
-    the serve-time rounding of the level's reads (a ROUND_* code, applied
-    after the encoding's own; ROUND_NONE where ``serve_rounds`` is None).
+    factors masked to 32 bits, the per-dim factors mod the level size, the
+    serve-time rounding of the level's reads and the rounding of its reads
+    to the encoding's own table dtype (ROUND_* codes; reads round by the
+    own code first; ROUND_NONE where the sequence is None).
     ``strides[l]`` are the exact (unmasked) per-dim factors of level l."""
     n = len(offsets)
     t = np.zeros((n, _LEVEL_COLS), np.uint32)
@@ -94,6 +104,7 @@ def level_table(
         t[lvl, 4 : 4 + len(st)] = [s & _M32 for s in st]
         t[lvl, 4 + MAX_DIMS : 4 + MAX_DIMS + len(st)] = [s % size for s in st]
         t[lvl, _SERVE_COL] = ROUND_NONE if serve_rounds is None else int(serve_rounds[lvl])
+        t[lvl, _OWN_COL] = ROUND_NONE if own_rounds is None else int(own_rounds[lvl])
     return t.view(np.int32)
 
 
@@ -205,12 +216,12 @@ def _weight_derivatives(
     return grad, hess
 
 
-def _read_table(table: torch.Tensor, idx: torch.Tensor, table_round: int, row: np.ndarray) -> torch.Tensor:
-    """Table rows at ``idx`` as the lookup reads them: fp32, rounded to the
-    encoding's table dtype, then to the serve-time dtype of the level whose
-    level-table row is ``row``."""
+def _read_table(table: torch.Tensor, idx: torch.Tensor, row: np.ndarray) -> torch.Tensor:
+    """Table rows at ``idx`` as the lookup reads them on the level whose
+    level-table row is ``row``: fp32, rounded to the encoding's own table
+    dtype, then to the serve-time dtype, each where the row names one."""
     feats = table[idx]
-    for code in (table_round, int(row[_SERVE_COL])):
+    for code in (int(row[_OWN_COL]), int(row[_SERVE_COL])):
         if code != ROUND_NONE:
             feats = feats.to(_ROUND_DTYPES[code]).to(torch.float32)
     return feats
@@ -223,7 +234,6 @@ def grid_encode_plain(
     n_features_per_level: int,
     padded_width: int,
     interpolation: int,
-    table_round: int,
     out_dtype: torch.dtype,
 ) -> torch.Tensor:
     """Plain torch lookup. ``x`` (B, d) fp32, ``params`` the flat fp32 grid
@@ -237,7 +247,7 @@ def grid_encode_plain(
     outs = []
     for row in lt:
         idx, weights = _level_rows(x, row, interpolation, bits_np)
-        feats = _read_table(table, idx, table_round, row)  # (B, C, F)
+        feats = _read_table(table, idx, row)  # (B, C, F)
         outs.append(torch.sum(feats * weights[..., None], dim=1))
     y = torch.stack(outs, dim=1).reshape(batch, -1)
     if padded_width > y.shape[1]:
@@ -294,11 +304,10 @@ def grid_backward_input_plain(
     levels: torch.Tensor,
     n_features_per_level: int,
     interpolation: int,
-    table_round: int,
 ) -> torch.Tensor:
     """Plain input gradient (B, d) fp32: dL/dx_e = sum over levels and
     corners of d w_c / d x_e * <dL_dy[:, level features], T[idx_c]>, the
-    table read as the lookup reads it (``table_round``)."""
+    table read as the lookup reads it (the level table's roundings)."""
     batch, d = x.shape
     F = int(n_features_per_level)
     table = params.view(-1, F)
@@ -309,7 +318,7 @@ def grid_backward_input_plain(
     for lvl, row in enumerate(lt):
         idx, _ = _level_rows(x, row, interpolation, bits_np)
         dw, _ = _weight_derivatives(x, row, interpolation, bits_np, second=False)
-        dots = torch.sum(_read_table(table, idx, table_round, row) * g[:, None, lvl * F : (lvl + 1) * F], dim=-1)
+        dots = torch.sum(_read_table(table, idx, row) * g[:, None, lvl * F : (lvl + 1) * F], dim=-1)
         dx += torch.sum(dw * dots[..., None], dim=1)
     return dx
 
@@ -321,7 +330,6 @@ def grid_backward_backward_plain(
     levels: torch.Tensor,
     n_features_per_level: int,
     interpolation: int,
-    table_round: int,
     level_round: Optional[torch.Tensor],
     cgp: Optional[torch.Tensor],
     cgx: Optional[torch.Tensor],
@@ -364,7 +372,7 @@ def grid_backward_backward_plain(
         idx, weights = _level_rows(x, row, interpolation, bits_np)
         dw, hess = _weight_derivatives(x, row, interpolation, bits_np, second=cgx is not None)
         gl = g[:, lvl * F : (lvl + 1) * F]
-        feats = _read_table(table, idx, table_round, row)  # (B, C, F)
+        feats = _read_table(table, idx, row)  # (B, C, F)
         cols = slice(lvl * F, (lvl + 1) * F)
         if cot_table is not None and acc != ACC_DROP:
             cot = cot_table[idx]
@@ -386,17 +394,18 @@ def grid_backward_backward_plain(
     return (None if d_params is None else d_params.reshape(-1)), d_x, d_dy
 
 
-_FWD_ARGS = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 8 + [ctypes.c_void_p]
-_BWD_ARGS = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 7 + [ctypes.c_int64, ctypes.c_void_p]
-_INPUT_ARGS = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 8 + [ctypes.c_void_p]
-_BWDBWD_ARGS = [ctypes.c_void_p] * 11 + [ctypes.c_int] * 8 + [ctypes.c_int64, ctypes.c_void_p]
+_FWD_ARGS = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 7 + [ctypes.c_void_p]
+_BWD_ARGS = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 7 + [ctypes.c_int64, ctypes.c_void_p, ctypes.c_void_p]
+_ATOMIC_BWD_ARGS = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 7 + [ctypes.c_int64, ctypes.c_void_p]
+_INPUT_ARGS = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 7 + [ctypes.c_void_p]
+_BWDBWD_ARGS = [ctypes.c_void_p] * 11 + [ctypes.c_int] * 7 + [ctypes.c_int64, ctypes.c_void_p]
 
 
 def _check_kernel_inputs(what: str, x: torch.Tensor, levels: torch.Tensor, n_features_per_level: int):
     if x.dim() != 2 or x.dtype != torch.float32 or not x.is_contiguous():
         raise ValueError(f"{what}: x must be a contiguous 2-D float32 tensor")
     if levels.dtype != torch.int32 or levels.shape[1:] != (_LEVEL_COLS,) or levels.device != x.device:
-        raise ValueError(f"{what}: levels must be the (L, 25) int32 level table on the device of x")
+        raise ValueError(f"{what}: levels must be the (L, 26) int32 level table on the device of x")
     if not 1 <= x.shape[1] <= MAX_DIMS or not 1 <= int(n_features_per_level) <= MAX_FEATURES:
         raise ValueError(f"{what}: unsupported shape (dims {x.shape[1]}, features per level {n_features_per_level})")
 
@@ -439,15 +448,12 @@ def grid_encode(
     n_features_per_level: int,
     padded_width: int,
     interpolation: int,
-    table_round: int = ROUND_NONE,
     out_dtype: torch.dtype = torch.bfloat16,
 ) -> torch.Tensor:
     """All-levels grid lookup. On a CUDA ``x`` the kernel runs; ``levels``
     must then be the level table on that device."""
     if x.device.type == "cpu":
-        return grid_encode_plain(
-            x, params, levels, n_features_per_level, padded_width, interpolation, table_round, out_dtype
-        )
+        return grid_encode_plain(x, params, levels, n_features_per_level, padded_width, interpolation, out_dtype)
     if x.device.type != "cuda":
         raise ValueError(f"grid_encode: unsupported device {x.device}")
     _check_kernel_inputs("grid_encode", x, levels, n_features_per_level)
@@ -467,11 +473,101 @@ def grid_encode(
     global LAUNCHES
     _launch("grid_encode", kernel("grid_fwd", "tcnn_grid_forward", _FWD_ARGS)(
         x.data_ptr(), params.data_ptr(), levels.data_ptr(), out.data_ptr(),
-        batch, d, n_levels, F, padded_width, int(interpolation), int(table_round),
-        int(out_dtype == torch.bfloat16), _stream(x),
+        batch, d, n_levels, F, padded_width, int(interpolation), int(out_dtype == torch.bfloat16), _stream(x),
     ))
     LAUNCHES += 1
     return out
+
+
+# The table gradient's launch plan (csrc/grid_bwd.cu:tcnn_grid_backward):
+# blocks of BWD_THREADS threads, one sample each per tile, about
+# BWD_TARGET_BLOCKS of them (132 SMs, four times); shared memory a block may
+# take for private copies; a level is privatised when its rows are at most
+# BWD_PRIV_ROWS_PER_SAMPLE times a block's samples. Chosen from
+# ``benchmarks.grid_bwd_plans`` on an H100 (PERF.md): the kernel waits on
+# latency, so more blocks keep more warps in flight, and privatising levels
+# whose rows each sample hits about once or less (the flagship's levels 3-4,
+# the 3D model's level 0) costs more than it saves.
+BWD_THREADS = 256
+BWD_SMEM_LIMIT = 114_688
+BWD_TARGET_BLOCKS = 528
+BWD_PRIV_ROWS_PER_SAMPLE = 4
+_LEVEL_BYTES = 4 * _LEVEL_COLS
+_PLAN_HEADER = 4
+
+
+def _align16(n: int) -> int:
+    return (n + 15) // 16 * 16
+
+
+class BackwardPlan:
+    """How ``tcnn_grid_backward`` runs one call (see ``backward_plan``):
+    blocks of ``threads`` threads (samples per tile), ``chunk`` consecutive
+    samples a block, and the dynamic shared memory's layout in bytes: each
+    privatised level's copy at ``priv_offsets[l]`` (-1: the level adds
+    straight into the table gradient), then the level table and class codes
+    at ``levels_offset``, ``smem_bytes`` in all. ``array`` is the int32 form
+    the kernel reads."""
+
+    def __init__(self, batch, F, n_rows, accumulates_bf16, threads, chunk, priv_offsets, levels_offset, smem_bytes):
+        self.batch, self.F, self.n_levels = int(batch), int(F), len(priv_offsets)
+        self.n_rows, self.accumulates_bf16 = int(n_rows), bool(accumulates_bf16)
+        self.threads, self.chunk = int(threads), int(chunk)
+        self.priv_offsets = tuple(int(o) for o in priv_offsets)
+        self.levels_offset, self.smem_bytes = int(levels_offset), int(smem_bytes)
+        self.blocks = -(-self.batch // self.chunk)
+        self.array = np.asarray(
+            [self.threads, self.chunk, self.levels_offset, self.smem_bytes, *self.priv_offsets], np.int32
+        )
+
+    @property
+    def privatised(self) -> list:
+        return [o >= 0 for o in self.priv_offsets]
+
+
+def backward_plan(levels, n_features_per_level: int, batch: int, classes=None, target_blocks: int = None,
+                  priv_rows_per_sample: int = None) -> BackwardPlan:
+    """The launch plan of the table-gradient kernel for ``batch`` samples:
+    ``levels`` the level table (numpy or tensor, any device), ``classes``
+    the (L, 2) class table (None: every level sums in fp32). A plain host
+    function.
+
+    ``chunk`` spreads the batch over about ``target_blocks`` blocks
+    (default BWD_TARGET_BLOCKS), a multiple of the block. Then, in level
+    order, each level whose class adds something, whose rows are at most
+    ``priv_rows_per_sample`` (default BWD_PRIV_ROWS_PER_SAMPLE) x ``chunk``
+    and whose copy (rows x F in its accumulation type, fp32 or bf16) fits
+    what the level table and class codes leave of BWD_SMEM_LIMIT is
+    privatised. ``benchmarks.grid_bwd_plans`` times other values of the
+    two."""
+    from .scatter_rows import ACC_BF16, ACC_DROP
+
+    lt = levels.cpu().numpy() if isinstance(levels, torch.Tensor) else np.asarray(levels)
+    lt = lt.view(np.uint32).astype(np.int64)
+    F, batch, L = int(n_features_per_level), int(batch), len(lt)
+    if L > MAX_LEVELS:
+        raise ValueError(f"backward_plan: at most {MAX_LEVELS} levels")
+    acc = np.zeros(L, np.int64)
+    if classes is not None:
+        acc = (classes.cpu().numpy() if isinstance(classes, torch.Tensor) else np.asarray(classes)).reshape(L, 2)[:, 1]
+    target_blocks = BWD_TARGET_BLOCKS if target_blocks is None else int(target_blocks)
+    priv_rows = BWD_PRIV_ROWS_PER_SAMPLE if priv_rows_per_sample is None else int(priv_rows_per_sample)
+    threads = BWD_THREADS
+    blocks = max(1, min(target_blocks, -(-batch // threads)))
+    per_block = -(-batch // blocks)
+    chunk = max(threads, -(-per_block // threads) * threads)
+    meta = L * (_LEVEL_BYTES + 8)
+    offsets, used = [], 0
+    for lvl in range(L):
+        rows = int(lt[lvl, 1])
+        size = _align16(rows * F * (2 if acc[lvl] == ACC_BF16 else 4))
+        if acc[lvl] != ACC_DROP and rows <= priv_rows * chunk and used + size + meta <= BWD_SMEM_LIMIT:
+            offsets.append(used)
+            used += size
+        else:
+            offsets.append(-1)
+    return BackwardPlan(batch, F, _table_rows(lt), bool((acc == ACC_BF16).any()), threads, chunk, offsets, used,
+                        used + meta)
 
 
 def grid_backward(
@@ -481,16 +577,15 @@ def grid_backward(
     n_features_per_level: int,
     interpolation: int,
     level_round: torch.Tensor,
-    n_values: Optional[int] = None,
-    accumulates_bf16: Optional[bool] = None,
+    plan: Optional[BackwardPlan] = None,
 ) -> torch.Tensor:
     """Table gradient of the all-levels lookup: (n_rows * F,) fp32 for the
     flat grid parameters, for the output gradient ``dL_dy`` (B, width >= L*F)
     in bf16 or fp32. On a CUDA ``x``, ``levels`` and ``level_round`` ((L, 2)
-    int32 classes) must lie on that device. ``n_values`` (the length of the
-    result) and ``accumulates_bf16`` (whether a level's class sums in bf16)
-    describe those two tables; a caller that knows them passes them, which
-    saves reading the tables back from the device."""
+    int32 classes) must lie on that device, and the kernel
+    ``tcnn_grid_backward`` runs with ``plan`` (``backward_plan`` of these
+    tables and batch; None: made here, which reads the tables back from the
+    device)."""
     if x.device.type == "cpu":
         return grid_backward_plain(x, dL_dy, levels, n_features_per_level, interpolation, level_round)
     if x.device.type != "cuda":
@@ -501,7 +596,15 @@ def grid_backward(
     n_levels = levels.shape[0]
     _check_dy("grid_backward", dL_dy, x, n_levels, F)
     _check_classes("grid_backward", level_round, x, n_levels)
-    grad, grad16, n_values = _grad_buffers(levels, level_round, F, n_values, accumulates_bf16)
+    if plan is None:
+        plan = backward_plan(levels, F, batch, level_round)
+    elif (plan.batch, plan.n_levels, plan.F) != (batch, n_levels, F):
+        raise ValueError(
+            f"grid_backward: the plan is for batch {plan.batch}, {plan.n_levels} levels and F {plan.F}, "
+            f"not {batch}, {n_levels} and {F}"
+        )
+    n_values = plan.n_rows * F
+    grad, grad16 = _grad_buffers(levels.device, n_values, plan.accumulates_bf16)
     from ._build import kernel
 
     global BWD_LAUNCHES
@@ -509,24 +612,49 @@ def grid_backward(
         x.data_ptr(), dL_dy.data_ptr(), levels.data_ptr(), level_round.data_ptr(), grad.data_ptr(),
         None if grad16 is None else grad16.data_ptr(),
         batch, d, n_levels, F, dL_dy.shape[1], int(interpolation), int(dL_dy.dtype == torch.bfloat16),
-        n_values, _stream(x),
+        n_values, plan.array.ctypes.data, _stream(x),
     ))
     BWD_LAUNCHES += 1
     return grad
 
 
-def _grad_buffers(levels, level_round, F, n_values, accumulates_bf16):
-    """The fp32 table-gradient buffer and, when a level's class sums in
-    bf16, its bf16 scratch; both filled by the kernel."""
+def _grid_backward_atomic(x, dL_dy, levels, n_features_per_level, interpolation, level_round):
+    """The earlier table-gradient kernel (``tcnn_grid_backward_atomic``: one
+    thread per (sample, level), level fastest, a scalar atomic add per
+    contribution), kept only to be timed and checked beside
+    ``tcnn_grid_backward``; CUDA tensors only. Same contract as
+    ``grid_backward``."""
     from .scatter_rows import ACC_BF16
 
-    if n_values is None:
-        n_values = _table_rows(levels.cpu().numpy().view(np.uint32).astype(np.int64)) * F
-    if accumulates_bf16 is None:
-        accumulates_bf16 = bool((level_round[:, 1] == ACC_BF16).any())
-    dev = levels.device
-    grad16 = torch.empty(n_values, dtype=torch.bfloat16, device=dev) if accumulates_bf16 else None
-    return torch.empty(n_values, dtype=torch.float32, device=dev), grad16, n_values
+    what = "_grid_backward_atomic"
+    if x.device.type != "cuda":
+        raise ValueError(f"{what}: CUDA tensors only")
+    _check_kernel_inputs(what, x, levels, n_features_per_level)
+    F = int(n_features_per_level)
+    batch, d = x.shape
+    n_levels = levels.shape[0]
+    _check_dy(what, dL_dy, x, n_levels, F)
+    _check_classes(what, level_round, x, n_levels)
+    n_values = _table_rows(levels.cpu().numpy().view(np.uint32).astype(np.int64)) * F
+    grad, grad16 = _grad_buffers(levels.device, n_values, bool((level_round[:, 1] == ACC_BF16).any()))
+    from ._build import kernel
+
+    global ATOMIC_BWD_LAUNCHES
+    _launch(what, kernel("grid_bwd", "tcnn_grid_backward_atomic", _ATOMIC_BWD_ARGS)(
+        x.data_ptr(), dL_dy.data_ptr(), levels.data_ptr(), level_round.data_ptr(), grad.data_ptr(),
+        None if grad16 is None else grad16.data_ptr(),
+        batch, d, n_levels, F, dL_dy.shape[1], int(interpolation), int(dL_dy.dtype == torch.bfloat16),
+        n_values, _stream(x),
+    ))
+    ATOMIC_BWD_LAUNCHES += 1
+    return grad
+
+
+def _grad_buffers(device, n_values, accumulates_bf16):
+    """The fp32 table-gradient buffer and, when a level's class sums in
+    bf16, its bf16 scratch; both filled by the kernel."""
+    grad16 = torch.empty(n_values, dtype=torch.bfloat16, device=device) if accumulates_bf16 else None
+    return torch.empty(n_values, dtype=torch.float32, device=device), grad16
 
 
 def grid_backward_input(
@@ -536,14 +664,13 @@ def grid_backward_input(
     levels: torch.Tensor,
     n_features_per_level: int,
     interpolation: int,
-    table_round: int = ROUND_NONE,
 ) -> torch.Tensor:
     """Input gradient of the all-levels lookup (G1): (B, d) fp32 for the
     output gradient ``dL_dy`` (B, width >= L*F) in bf16 or fp32; see
     ``grid_backward_input_plain``. On a CUDA ``x`` the kernel
     ``tcnn_grid_backward_input`` runs."""
     if x.device.type == "cpu":
-        return grid_backward_input_plain(x, dL_dy, params, levels, n_features_per_level, interpolation, table_round)
+        return grid_backward_input_plain(x, dL_dy, params, levels, n_features_per_level, interpolation)
     if x.device.type != "cuda":
         raise ValueError(f"grid_backward_input: unsupported device {x.device}")
     _check_kernel_inputs("grid_backward_input", x, levels, n_features_per_level)
@@ -560,8 +687,7 @@ def grid_backward_input(
     global INPUT_LAUNCHES
     _launch("grid_backward_input", kernel("grid_bwd", "tcnn_grid_backward_input", _INPUT_ARGS)(
         x.data_ptr(), dL_dy.data_ptr(), params.data_ptr(), levels.data_ptr(), dx.data_ptr(),
-        batch, d, n_levels, F, dL_dy.shape[1], int(interpolation), int(table_round),
-        int(dL_dy.dtype == torch.bfloat16), _stream(x),
+        batch, d, n_levels, F, dL_dy.shape[1], int(interpolation), int(dL_dy.dtype == torch.bfloat16), _stream(x),
     ))
     INPUT_LAUNCHES += 1
     return dx
@@ -574,7 +700,6 @@ def grid_backward_backward(
     levels: torch.Tensor,
     n_features_per_level: int,
     interpolation: int,
-    table_round: int,
     level_round: Optional[torch.Tensor],
     cgp: Optional[torch.Tensor],
     cgx: Optional[torch.Tensor],
@@ -586,7 +711,7 @@ def grid_backward_backward(
     the gathers and the table scatter together)."""
     if x.device.type == "cpu":
         return grid_backward_backward_plain(
-            x, dL_dy, params, levels, n_features_per_level, interpolation, table_round, level_round, cgp, cgx
+            x, dL_dy, params, levels, n_features_per_level, interpolation, level_round, cgp, cgx
         )
     if x.device.type != "cuda":
         raise ValueError(f"grid_backward_backward: unsupported device {x.device}")
@@ -608,7 +733,11 @@ def grid_backward_backward(
     if level_round is not None:
         _check_classes(what, level_round, x, n_levels)
         if cgx is not None:
-            grad, grad16, n_values = _grad_buffers(levels, level_round, F, n_values, accumulates_bf16)
+            if accumulates_bf16 is None:
+                from .scatter_rows import ACC_BF16
+
+                accumulates_bf16 = bool((level_round[:, 1] == ACC_BF16).any())
+            grad, grad16 = _grad_buffers(x.device, n_values, accumulates_bf16)
     d_x = torch.empty((batch, d), dtype=torch.float32, device=x.device)
     d_dy = torch.empty((batch, dL_dy.shape[1]), dtype=torch.float32, device=x.device)
     from ._build import kernel
@@ -620,8 +749,8 @@ def grid_backward_backward(
     _launch(what, kernel("grid_bwd", "tcnn_grid_backward_backward", _BWDBWD_ARGS)(
         x.data_ptr(), dL_dy.data_ptr(), params.data_ptr(), ptr(cgp), ptr(cgx), levels.data_ptr(), ptr(level_round),
         ptr(grad), ptr(grad16), d_x.data_ptr(), d_dy.data_ptr(),
-        batch, d, n_levels, F, dL_dy.shape[1], int(interpolation), int(table_round),
-        int(dL_dy.dtype == torch.bfloat16), n_values, _stream(x),
+        batch, d, n_levels, F, dL_dy.shape[1], int(interpolation), int(dL_dy.dtype == torch.bfloat16), n_values,
+        _stream(x),
     ))
     BWDBWD_LAUNCHES += 1
     return grad, d_x, d_dy
@@ -640,21 +769,22 @@ class GridEncodeFunction(torch.autograd.Function):
 
     ``GridEncodeFunction.apply(x, params, levels, level_round, meta)`` with
     ``meta`` = (n_features_per_level, padded_width, interpolation,
-    table_round, out_dtype, plain, accumulates_bf16).
+    out_dtype, plain, accumulates_bf16, plan), ``plan`` the table gradient's
+    ``backward_plan`` (None: made at the backward).
     """
 
     @staticmethod
     def forward(ctx, x, params, levels, level_round, meta):
-        F, padded_width, interp, table_round, out_dtype, plain, acc16 = meta
-        ctx.meta = (F, interp, table_round, plain, params.numel(), acc16)
+        F, padded_width, interp, out_dtype, plain, acc16, plan = meta
+        ctx.meta = (F, interp, plain, acc16, plan)
         ctx.save_for_backward(x, params, levels, level_round)
         fwd = grid_encode_plain if plain else grid_encode
-        return fwd(x, params, levels, F, padded_width, interp, table_round, out_dtype)
+        return fwd(x, params, levels, F, padded_width, interp, out_dtype)
 
     @staticmethod
     def backward(ctx, dy):
         x, params, levels, level_round = ctx.saved_tensors
-        F, interp, table_round, plain, n_values, acc16 = ctx.meta
+        F, interp, plain, acc16, plan = ctx.meta
         need_x, need_params = ctx.needs_input_grad[0], ctx.needs_input_grad[1]
         dy = dy.contiguous()
         if torch.is_grad_enabled():
@@ -667,10 +797,10 @@ class GridEncodeFunction(torch.autograd.Function):
             if plain:
                 dparams = grid_backward_plain(x, dy, levels, F, interp, level_round)
             else:
-                dparams = grid_backward(x, dy, levels, F, interp, level_round, n_values, acc16)
+                dparams = grid_backward(x, dy, levels, F, interp, level_round, plan)
         if need_x:
             bwd_x = grid_backward_input_plain if plain else grid_backward_input
-            dx = bwd_x(x, dy, params, levels, F, interp, table_round)
+            dx = bwd_x(x, dy, params, levels, F, interp)
         return dx, dparams, None, None, None
 
 
@@ -690,7 +820,7 @@ class GridEncodeBackwardFunction(torch.autograd.Function):
 
     @staticmethod
     def forward(ctx, x, params, dy, levels, level_round, meta, need_x):
-        F, interp, table_round, plain, n_values, acc16 = meta
+        F, interp, plain, acc16, plan = meta
         ctx.meta = meta
         ctx.set_materialize_grads(False)
         ctx.save_for_backward(x, params, dy, levels, level_round)
@@ -699,29 +829,24 @@ class GridEncodeBackwardFunction(torch.autograd.Function):
             if plain:
                 dparams = grid_backward_plain(x, dy, levels, F, interp, level_round)
             else:
-                dparams = grid_backward(x, dy, levels, F, interp, level_round, n_values, acc16)
+                dparams = grid_backward(x, dy, levels, F, interp, level_round, plan)
         if need_x:
             bwd_x = grid_backward_input_plain if plain else grid_backward_input
-            dx = bwd_x(x, dy, params, levels, F, interp, table_round)
+            dx = bwd_x(x, dy, params, levels, F, interp)
         return dparams, dx
 
     @staticmethod
     @torch.autograd.function.once_differentiable
     def backward(ctx, cgp, cgx):
         x, params, dy, levels, level_round = ctx.saved_tensors
-        F, interp, table_round, plain, n_values, acc16 = ctx.meta
+        F, interp, plain, acc16, plan = ctx.meta
         if cgp is None and cgx is None:
             return (None,) * 7
         cgp = None if cgp is None else cgp.contiguous()
         cgx = None if cgx is None else cgx.contiguous()
-        if plain:
-            d_params, d_x, d_dy = grid_backward_backward_plain(
-                x, dy, params, levels, F, interp, table_round, level_round, cgp, cgx
-            )
-        else:
-            d_params, d_x, d_dy = grid_backward_backward(
-                x, dy, params, levels, F, interp, table_round, level_round, cgp, cgx, acc16
-            )
+        bwdbwd = grid_backward_backward_plain if plain else grid_backward_backward
+        extra = () if plain else (acc16,)
+        d_params, d_x, d_dy = bwdbwd(x, dy, params, levels, F, interp, level_round, cgp, cgx, *extra)
         return (
             d_x if ctx.needs_input_grad[0] else None,
             d_params if ctx.needs_input_grad[1] else None,

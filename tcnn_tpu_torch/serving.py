@@ -50,7 +50,12 @@ class FrozenServer:
     def __call__(self, x) -> torch.Tensor:
         """Serve an arbitrary (B, d) batch; returns (B, n_output_dims) fp32."""
         x = torch.as_tensor(x, dtype=torch.float32, device=self._params.device)
-        out = self.model.apply(self._params, x, **self._kw())
+        kw = self._kw()
+        # Arbitrary batches are not the stratified layout (the JAX package's
+        # FrozenServer passes stratified=False for them).
+        if getattr(getattr(self.model, "encoding", None), "gather_strategy", None) == "stratified":
+            kw["stratified"] = False
+        out = self.model.apply(self._params, x, **kw)
         return out[:, : self.n_output_dims].to(torch.float32)
 
     @torch.no_grad()

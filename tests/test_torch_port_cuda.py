@@ -316,7 +316,7 @@ def test_grid_input_gradient_and_double_backward_match_plain(dev, n_dims, over):
     sums in another order; the table-gradient scatter of an fp32 class
     within 1e-5 of max |plain|), with and without a table-gradient
     cotangent."""
-    from tcnn_tpu_torch.encodings.grid import _INTERP_CODES, _ROUND_CODES
+    from tcnn_tpu_torch.encodings.grid import _INTERP_CODES
 
     enc = create_encoding(n_dims, dict(GRID3D, **over), alignment=16)
     rng = np.random.default_rng(n_dims)
@@ -328,7 +328,7 @@ def test_grid_input_gradient_and_double_backward_match_plain(dev, n_dims, over):
     cgp = torch.from_numpy(rng.normal(0, 1, enc.n_params).astype(np.float32)).to(dev)
     classes = torch.from_numpy(enc.gradient_classes(n)).to(dev)
     assert not (classes[:, 1] == scatter_rows.ACC_BF16).any()
-    args = (enc._levels_on(dev), 2, _INTERP_CODES[enc.interpolation_type], _ROUND_CODES[enc.table_dtype])
+    args = (enc._levels_on(dev), 2, _INTERP_CODES[enc.interpolation_type])
     before = (grid_encode.INPUT_LAUNCHES, grid_encode.BWDBWD_LAUNCHES)
     dx = grid_encode.grid_backward_input(x, dy, params, *args)
     _close_f32(dx, grid_encode.grid_backward_input_plain(x, dy, params, *args))
@@ -546,3 +546,185 @@ def test_atomic_backward_kernel_matches_the_new_one(dev, shape):
         _close_bf16_backward(a, c)
         _close_bf16_backward(b, c)
         _close_bf16_backward(a, b)
+
+
+# The table gradient (tcnn_grid_backward: level-major tiles, privatised
+# coarse levels, merged runs, vector atomics) against its plain version,
+# level by level in the level's class (``_check_levels``).
+FLAGSHIP_GRID = {
+    "otype": "HashGrid", "n_levels": 16, "n_features_per_level": 2, "log2_hashmap_size": 15,
+    "base_resolution": 16, "per_level_scale": 1.5, "hash": "CoherentAdditive", "gather_strategy": "stratified",
+}
+ENC3D_GRID = {"otype": "HashGrid", "n_levels": 16, "n_features_per_level": 2, "log2_hashmap_size": 19,
+              "base_resolution": 16, "per_level_scale": 1.5, "hash": "CoherentAdditive"}
+
+
+def _check_levels(enc, got, x, dy, classes):
+    """Per level: fp32 sums within 1e-5 of the sum of |contributions| per
+    entry; bf16 sums at most twice the plain sequential sum's error against
+    the fp32 sum of the same rounded contributions, in norm. Entries no
+    sample touched are exactly 0."""
+    levels, F, interp = enc._levels_on(x.device), enc.n_features_per_level, _interp_code(enc)
+    plain = grid_encode.grid_backward_plain(x, dy, levels, F, interp, classes)
+    f32 = classes.clone()
+    f32[:, 1] = torch.where(f32[:, 1] == scatter_rows.ACC_BF16, scatter_rows.ACC_F32, f32[:, 1])
+    exact = grid_encode.grid_backward_plain(x, dy, levels, F, interp, f32)
+    S = grid_encode.grid_backward_plain(x, dy.float().abs(), levels, F, interp, torch.zeros_like(classes))
+    assert got.shape == plain.shape and torch.isfinite(got).all()
+    for lvl in range(enc.n_levels):
+        lo, hi = int(enc.offset_table[lvl]) * F, int(enc.offset_table[lvl + 1]) * F
+        g, p, e, s = got[lo:hi], plain[lo:hi], exact[lo:hi], S[lo:hi]
+        if int(classes[lvl, 1]) == scatter_rows.ACC_BF16:
+            assert float((g - e).norm()) <= 2 * float((p - e).norm()) + 1e-6 * float(s.norm()), lvl
+        else:
+            assert bool(((g - p).abs() <= 1e-5 * s + 1e-30).all()), lvl
+    assert not got[S == 0].any()
+
+
+def _interp_code(enc):
+    from tcnn_tpu_torch.encodings.grid import _INTERP_CODES
+
+    return _INTERP_CODES[enc.interpolation_type]
+
+
+def _table_grad(enc, x, dy, classes):
+    before = grid_encode.BWD_LAUNCHES
+    got = grid_encode.grid_backward(x, dy, enc._levels_on(x.device), enc.n_features_per_level, _interp_code(enc),
+                                    classes)
+    torch.cuda.synchronize()
+    assert grid_encode.BWD_LAUNCHES == before + 1
+    return got
+
+
+@pytest.mark.parametrize("scatter", ["auto", "factored_sr"])
+def test_table_gradient_stratified_flagship_batch(dev, scatter):
+    """A stratified 2^18 batch of the flagship encoding in its own classes
+    (all (none, fp32) at 2^18) and under factored_sr; levels 0-2 are
+    privatised."""
+    from tcnn_tpu_torch.utils.sampling import stratified_uniform
+
+    enc = create_encoding(2, dict(FLAGSHIP_GRID, scatter_strategy=scatter), alignment=16)
+    gen = torch.Generator(device=dev).manual_seed(1)
+    x = stratified_uniform(2**18, 2, gen, device=dev)
+    dy = torch.randn((2**18, 32), generator=gen, device=dev).bfloat16()
+    classes = torch.from_numpy(enc.gradient_classes(2**18)).to(dev)
+    assert grid_encode.backward_plan(enc.level_table(), 2, 2**18, classes).privatised[:4] == [True] * 3 + [False]
+    _check_levels(enc, _table_grad(enc, x, dy, classes), x, dy, classes)
+
+
+@pytest.mark.parametrize("acc", [scatter_rows.ACC_F32, scatter_rows.ACC_BF16], ids=["fp32", "bf16"])
+def test_table_gradient_every_sample_at_one_point(dev, acc):
+    """The worst collision: 2^17 samples at one point, every lane of every
+    warp on the same rows."""
+    enc = create_encoding(2, FLAGSHIP_GRID, alignment=16)
+    x = torch.full((2**17, 2), 0.3137, device=dev)
+    dy = torch.randn((2**17, 32), generator=torch.Generator(device=dev).manual_seed(2), device=dev).bfloat16()
+    classes = torch.tensor([[scatter_rows.CONTRIB_RN, acc]] * enc.n_levels, dtype=torch.int32, device=dev)
+    _check_levels(enc, _table_grad(enc, x, dy, classes), x, dy, classes)
+
+
+@pytest.mark.parametrize("batch", [0, 1, 100_003])
+def test_table_gradient_batch_sizes_and_points_outside(dev, batch):
+    """Batches of 0, 1 and 100,003 samples (no multiple of a tile), points
+    in [-0.5, 1.5]^2, fp32 dy."""
+    enc = create_encoding(2, FLAGSHIP_GRID, alignment=16)
+    rng = np.random.default_rng(batch)
+    x = torch.from_numpy(rng.uniform(-0.5, 1.5, (batch, 2)).astype(np.float32)).to(dev)
+    dy = torch.from_numpy(rng.normal(0, 1, (batch, 32)).astype(np.float32)).to(dev)
+    classes = torch.from_numpy(enc.gradient_classes(max(batch, 1))).to(dev)
+    got = _table_grad(enc, x, dy, classes)
+    if batch == 0:
+        assert got.shape == (enc.n_params,) and not got.any()
+    else:
+        _check_levels(enc, got, x, dy, classes)
+
+
+@pytest.mark.parametrize("interp", ["Linear", "Nearest", "Smoothstep"])
+@pytest.mark.parametrize("F", [1, 2, 4, 8])
+def test_table_gradient_3d_features_and_interpolations(dev, F, interp):
+    """d = 3, F in {1, 2, 4, 8} (scalar, float2 and float4 adds), Nearest
+    and Smoothstep, in the classes of a 40,000 batch with every other level
+    in class (SR, bf16), level 0 (privatised) among them."""
+    enc = create_encoding(3, dict(GRID3D, n_features_per_level=F, interpolation=interp), alignment=16)
+    rng = np.random.default_rng(F)
+    n = 40_000
+    x = torch.from_numpy(rng.uniform(-0.2, 1.2, (n, 3)).astype(np.float32)).to(dev)
+    dy = torch.from_numpy(rng.normal(0, 1, (n, enc.padded_output_width)).astype(np.float32)).to(dev).bfloat16()
+    classes = torch.from_numpy(enc.gradient_classes(n)).to(dev)
+    classes[::2] = torch.tensor([scatter_rows.CONTRIB_SR, scatter_rows.ACC_BF16], dtype=torch.int32)
+    assert grid_encode.backward_plan(enc.level_table(), F, n, classes).privatised[0]
+    _check_levels(enc, _table_grad(enc, x, dy, classes), x, dy, classes)
+
+
+def test_table_gradient_unprivatised_level_and_drop(dev, monkeypatch):
+    """A plan whose shared-memory budget holds level 0 but not level 2 (which
+    the rows rule would privatise), and level 1 of class drop (it adds
+    nothing and is not privatised)."""
+    enc = create_encoding(2, FLAGSHIP_GRID, alignment=16)
+    rng = np.random.default_rng(9)
+    n = 2**18
+    x = torch.from_numpy(rng.uniform(0, 1, (n, 2)).astype(np.float32)).to(dev)
+    dy = torch.from_numpy(rng.normal(0, 1, (n, 32)).astype(np.float32)).to(dev).bfloat16()
+    classes = torch.from_numpy(enc.gradient_classes(n)).to(dev)
+    classes[1] = torch.tensor([scatter_rows.CONTRIB_NONE, scatter_rows.ACC_DROP], dtype=torch.int32)
+    assert grid_encode.backward_plan(enc.level_table(), 2, n, classes).privatised[:3] == [True, False, True]
+    meta = enc.n_levels * (4 * grid_encode._LEVEL_COLS + 8)
+    monkeypatch.setattr(grid_encode, "BWD_SMEM_LIMIT", meta + 256 * 8 + 1000)
+    plan = grid_encode.backward_plan(enc.level_table(), 2, n, classes)
+    assert plan.privatised[:3] == [True, False, False]
+    before = grid_encode.BWD_LAUNCHES
+    got = grid_encode.grid_backward(x, dy, enc._levels_on(dev), 2, grid_encode.INTERP_LINEAR, classes, plan=plan)
+    torch.cuda.synchronize()
+    assert grid_encode.BWD_LAUNCHES == before + 1
+    lo, hi = int(enc.offset_table[1]) * 2, int(enc.offset_table[2]) * 2
+    assert not got[lo:hi].any()
+    _check_levels(enc, got, x, dy, classes)
+
+
+def test_table_gradient_3d_model_classes(dev):
+    """The 3D model at B = 2^18 in its training classes: 13 levels add in
+    bf16 (2^19-row tables), 3 in fp32; no level is privatised."""
+    enc = create_encoding(3, ENC3D_GRID, alignment=16)
+    gen = torch.Generator(device=dev).manual_seed(3)
+    x = torch.rand((2**18, 3), generator=gen, device=dev)
+    dy = torch.randn((2**18, 32), generator=gen, device=dev).bfloat16()
+    classes = torch.from_numpy(enc.gradient_classes(2**18)).to(dev)
+    assert int((classes[:, 1] == scatter_rows.ACC_BF16).sum()) == 13
+    _check_levels(enc, _table_grad(enc, x, dy, classes), x, dy, classes)
+
+
+def test_atomic_table_gradient_kernel_matches_the_new_one(dev):
+    """The earlier kernel, kept for chip_smoke.py's A/B timing, against the
+    plain version on a stratified flagship batch (the same tolerances)."""
+    from tcnn_tpu_torch.utils.sampling import stratified_uniform
+
+    enc = create_encoding(2, FLAGSHIP_GRID, alignment=16)
+    gen = torch.Generator(device=dev).manual_seed(4)
+    x = stratified_uniform(2**16, 2, gen, device=dev)
+    dy = torch.randn((2**16, 32), generator=gen, device=dev).bfloat16()
+    classes = torch.from_numpy(enc.gradient_classes(2**16)).to(dev)
+    before = (grid_encode.ATOMIC_BWD_LAUNCHES, grid_encode.BWD_LAUNCHES)
+    old = grid_encode._grid_backward_atomic(x, dy, enc._levels_on(dev), 2, grid_encode.INTERP_LINEAR, classes)
+    torch.cuda.synchronize()
+    assert (grid_encode.ATOMIC_BWD_LAUNCHES, grid_encode.BWD_LAUNCHES) == (before[0] + 1, before[1])
+    _check_levels(enc, old, x, dy, classes)
+    _check_levels(enc, _table_grad(enc, x, dy, classes), x, dy, classes)
+
+
+def test_training_step_goes_through_the_table_gradient_kernel(dev):
+    """GridEncoding's own autograd path (its cached plan) launches the
+    kernel once a backward and matches the plain path's gradient."""
+    from tcnn_tpu_torch.utils.sampling import stratified_uniform
+
+    enc = create_encoding(2, FLAGSHIP_GRID, alignment=16)
+    gen = torch.Generator(device=dev).manual_seed(5)
+    x = stratified_uniform(2**16, 2, gen, device=dev)
+    params = (torch.rand(enc.n_params, generator=gen, device=dev) * 2 - 1).requires_grad_(True)
+    w = torch.randn((2**16, enc.padded_output_width), generator=gen, device=dev)
+    before = grid_encode.BWD_LAUNCHES
+    (g,) = torch.autograd.grad((enc.apply(params, x).float() * w).sum(), params)
+    torch.cuda.synchronize()
+    assert grid_encode.BWD_LAUNCHES == before + 1
+    dy = w.bfloat16()
+    classes = torch.from_numpy(enc.gradient_classes(2**16)).to(dev)
+    _check_levels(enc, g, x, dy, classes)

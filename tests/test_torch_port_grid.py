@@ -266,3 +266,82 @@ def test_strategy_keys_are_validated_as_jax_does(key, bad, good, stratified_only
         other = _cfg(gather_strategy="quad", strata=None, **{key: bad})
         jenc.create_encoding(2, other)
         tenc.create_encoding(2, other)
+
+
+# The encoding's own table_dtype, level by level: the JAX package rounds a
+# level's reads to it only inside its gathers (``forward_dtype``,
+# tcnn_tpu/encodings/grid.py:_forward_dtype :572). The static levels of a
+# stratified perfect-power batch, the separable levels of a stratified raster
+# and the single global gathers of "fused" and "quad_fused" read the fp32
+# parameters. Flagship-shaped encoding cut to a 2^12-row table and strata 64:
+# levels 0-5 (scale <= 128) index with raster strides and are static on a
+# 64^2 batch and separable on the 64^2 raster.
+OWN_FLAG = _cfg(n_levels=16, base_resolution=16, log2_hashmap_size=12, strata=64)
+OWN_CASES = {
+    # (config, inputs, table_dtype, levels whose reads round)
+    "stratified_batch_bf16": (OWN_FLAG, "stratified", "bfloat16", 10),
+    "stratified_batch_fp16": (OWN_FLAG, "stratified", "float16", 10),
+    "stratified_raster_bf16": (OWN_FLAG, "raster", "bfloat16", 10),
+    "fused_bf16": (_cfg(n_levels=16, base_resolution=16, log2_hashmap_size=12, gather_strategy="fused", strata=None),
+                   "uniform", "bfloat16", 0),
+    "quad_fused_bf16": (_cfg(n_levels=16, base_resolution=16, log2_hashmap_size=12, gather_strategy="quad_fused",
+                             strata=None), "uniform", "bfloat16", 0),
+    "per_level_bf16": (_cfg(n_levels=16, base_resolution=16, log2_hashmap_size=12, gather_strategy="per_level",
+                            strata=None), "uniform", "bfloat16", 16),
+    # The same stratified encoding on a batch that is no perfect square:
+    # no static level, every level rounds.
+    "stratified_uniform_batch_bf16": (OWN_FLAG, "uniform", "bfloat16", 16),
+}
+OWN_SIDE = 64
+
+
+def _own_inputs(kind, rng):
+    import jax
+
+    from tcnn_tpu.utils.sampling import stratified_uniform
+
+    if kind == "stratified":
+        return np.array(stratified_uniform(jax.random.PRNGKey(3), OWN_SIDE**2, 2))
+    return rng.uniform(-0.1, 1.1, (3001, 2)).astype(np.float32)
+
+
+@pytest.mark.parametrize("case", sorted(OWN_CASES))
+def test_own_table_dtype_rounds_the_levels_jax_gathers(case):
+    """Forward and input gradient under the encoding's own half table_dtype
+    against the JAX package, on the CPU: features at RTOL/ATOL as above; the
+    input gradient at rtol 1e-5 and atol 1e-5 of max |JAX| (the same fp32
+    products, summed in another order; a half rounding that one side missed
+    moves it by ~1e-3 relative). The raster has no input gradient: both
+    packages build its positions inside. Then the port's count of rounded
+    levels, and which levels' features move against float32."""
+    import jax
+
+    cfg, kind, table_dtype, n_rounded = OWN_CASES[case]
+    je, te = _pair(dict(cfg, table_dtype=table_dtype), 2)
+    rng = np.random.default_rng(len(case))
+    params = rng.uniform(-1, 1, je.n_params).astype(np.float32)
+    jp, tp = jnp.asarray(params), torch.from_numpy(params)
+    if kind == "raster":
+        want = np.asarray(je.apply_raster(jp, OWN_SIDE))
+        got = te.apply_raster(tp, OWN_SIDE)
+        sides, batch = (OWN_SIDE, OWN_SIDE), OWN_SIDE**2
+    else:
+        x = _own_inputs(kind, rng)
+        cot = rng.normal(0, 1, (len(x), je.padded_output_width)).astype(np.float32)
+        want = np.asarray(je.apply(jp, jnp.asarray(x)))
+        want_dx = np.asarray(jax.grad(lambda xx: jnp.sum(je.apply(jp, xx) * cot))(jnp.asarray(x)))
+        tx = torch.from_numpy(x).requires_grad_(True)
+        got = te.apply(tp, tx)
+        (got * torch.from_numpy(cot)).sum().backward()
+        np.testing.assert_allclose(got.detach().numpy(), want, rtol=RTOL, atol=ATOL)
+        np.testing.assert_allclose(tx.grad.numpy(), want_dx, rtol=1e-5, atol=1e-5 * float(np.abs(want_dx).max()))
+        got = got.detach()
+        sides, batch = None, len(x)
+    np.testing.assert_allclose(got.numpy(), want, rtol=RTOL, atol=ATOL)
+    rounded = te.rounded_levels(batch, sides)
+    assert sum(rounded) == n_rounded
+    te.table_dtype = "float32"
+    unrounded = te.apply_raster(tp, OWN_SIDE) if kind == "raster" else te.apply(tp, torch.from_numpy(x))
+    F = te.n_features_per_level
+    assert [not torch.equal(got[:, l * F:(l + 1) * F], unrounded[:, l * F:(l + 1) * F])
+            for l in range(te.n_levels)] == rounded

@@ -267,3 +267,108 @@ def test_inputs_needing_gradients_and_stochastic_interpolation_raise():
     x = torch.full((4, 2), 0.3, requires_grad=True)
     (dx,) = torch.autograd.grad(st.apply(torch.ones(st.n_params), x).float().sum(), x)
     assert dx.shape == (4, 2)
+
+
+# The table-gradient kernel's launch plan (ops.grid_encode.backward_plan), a
+# host function: which levels the kernel privatises in shared memory, its
+# block and tile sizes and the shared-memory layout it is launched with.
+FLAGSHIP = {
+    "otype": "HashGrid", "n_levels": 16, "n_features_per_level": 2, "log2_hashmap_size": 15,
+    "base_resolution": 16, "per_level_scale": 1.5, "hash": "CoherentAdditive", "gather_strategy": "stratified",
+}
+ENC3D = {"otype": "HashGrid", "n_levels": 16, "n_features_per_level": 2, "log2_hashmap_size": 19,
+         "base_resolution": 16, "per_level_scale": 1.5, "hash": "CoherentAdditive"}
+
+
+def _check_layout(plan, sizes, F, acc):
+    """Private copies 16-byte aligned, disjoint, each as large as its level in
+    its accumulation type and of at most BWD_PRIV_ROWS_PER_SAMPLE rows a
+    sample of a block, below the level table and class codes; the whole
+    within the budget; the chunk a multiple of the block and covering the
+    batch."""
+    assert plan.smem_bytes <= ge.BWD_SMEM_LIMIT
+    spans = []
+    for off, rows, a in zip(plan.priv_offsets, sizes, acc):
+        if off >= 0:
+            assert off % 16 == 0 and a != sr.ACC_DROP and rows <= ge.BWD_PRIV_ROWS_PER_SAMPLE * plan.chunk
+            spans.append((off, off + rows * F * (2 if a == sr.ACC_BF16 else 4)))
+    spans.sort()
+    assert all(e0 <= s1 for (_, e0), (s1, _) in zip(spans, spans[1:]))
+    assert all(e <= plan.levels_offset for _, e in spans) and plan.levels_offset % 16 == 0
+    assert plan.smem_bytes == plan.levels_offset + len(sizes) * (4 * ge._LEVEL_COLS + 8)
+    assert plan.threads == ge.BWD_THREADS and plan.chunk % plan.threads == 0
+    assert plan.blocks * plan.chunk >= plan.batch > (plan.blocks - 1) * plan.chunk or plan.batch == 0
+    assert list(plan.array[ge._PLAN_HEADER:]) == list(plan.priv_offsets)
+
+
+def test_backward_plan_privatises_the_flagship_coarse_levels():
+    """At the flagship (B = 2^18, every level (none, fp32)) levels 0-2 (256,
+    576 and 1,296 rows, hit ~8-1.6 times each by a block's 512 samples x 4
+    corners) are privatised; 3-4 (3,032 and 6,568 rows) and the 2^15-row
+    levels are not."""
+    te = tenc.create_encoding(2, FLAGSHIP, alignment=16)
+    classes = te.gradient_classes(2**18)
+    plan = ge.backward_plan(te.level_table(), 2, 2**18, classes)
+    assert plan.privatised == [True] * 3 + [False] * 13
+    assert plan.chunk == 512 and plan.blocks == 512 <= ge.BWD_TARGET_BLOCKS
+    assert plan.n_rows * 2 == te.n_params and not plan.accumulates_bf16
+    _check_layout(plan, np.diff(te.offset_table), 2, classes[:, 1])
+    # The encoding's autograd path carries the same plan.
+    assert te._classes_on(torch.device("cpu"), 2**18)[2].privatised == plan.privatised
+
+
+def test_backward_plan_3d_model_privatises_no_level():
+    """The 3D model at 2^18: no level is privatised (13 of 16 add in bf16
+    into 2^19-row tables; level 0's 4,096 rows are hit about once each by a
+    block's 512 samples x 8 corners)."""
+    te = tenc.create_encoding(3, ENC3D, alignment=16)
+    classes = te.gradient_classes(2**18)
+    plan = ge.backward_plan(te.level_table(), 2, 2**18, classes)
+    assert int((classes[:, 1] == sr.ACC_BF16).sum()) == 13 and plan.accumulates_bf16
+    assert not any(plan.privatised)
+    _check_layout(plan, np.diff(te.offset_table), 2, classes[:, 1])
+
+
+@pytest.mark.parametrize("batch", [0, 1, 1000, 2**18])
+@pytest.mark.parametrize("n_levels", [1, 16, 64, 128])
+@pytest.mark.parametrize("F", [1, 2, 4, 8])
+def test_backward_plan_fits_the_shared_memory_budget(F, n_levels, batch):
+    """Any F up to 8 and up to 128 levels, in every accumulation class."""
+    te = tenc.create_encoding(2, dict(FLAGSHIP, n_levels=n_levels, n_features_per_level=F, per_level_scale=1.1),
+                              alignment=16)
+    codes = [sr.ACC_F32, sr.ACC_BF16, sr.ACC_DROP]
+    classes = np.asarray([[0, codes[l % 3]] for l in range(n_levels)], np.int32)
+    plan = ge.backward_plan(te.level_table(), F, batch, classes)
+    _check_layout(plan, np.diff(te.offset_table), F, classes[:, 1])
+
+
+def test_backward_plan_small_batches():
+    """Small batches take few blocks and privatise only levels of at most
+    BWD_PRIV_ROWS_PER_SAMPLE rows a sample of a block."""
+    te = tenc.create_encoding(2, FLAGSHIP, alignment=16)
+    sizes = np.diff(te.offset_table)
+    for batch, blocks in ((0, 0), (1, 1), (1000, 4)):
+        plan = ge.backward_plan(te.level_table(), 2, batch)
+        assert plan.blocks == blocks and plan.chunk == 256
+        assert plan.privatised == [int(s) <= ge.BWD_PRIV_ROWS_PER_SAMPLE * 256 for s in sizes]
+        _check_layout(plan, sizes, 2, np.zeros(len(sizes)))
+
+
+def test_grid_bwd_plans_entry_point_reports_every_variant(capsys):
+    """``benchmarks.grid_bwd_plans`` on the CPU (the plain version: every
+    variant's gradient equals the default's): one JSON line per shape and
+    plan, with the plan's privatised levels."""
+    import json
+
+    from tcnn_tpu_torch.benchmarks import grid_bwd_plans
+
+    records = grid_bwd_plans.main(["--device", "cpu", "--batch", "256", "--targets", "2,528", "--rows", "0,4",
+                                   "--reps", "1"])
+    lines = [json.loads(line) for line in capsys.readouterr().out.splitlines()]
+    assert lines == records and len(records) == 3 * 2 * 2
+    assert {r["shape"] for r in records} == {"flagship stratified", "flagship uniform", "3D model uniform"}
+    for r in records:
+        assert r["max_abs_diff_vs_default"] == 0.0 and r["blocks"] == 1 and r["chunk"] == 256
+        assert r["device"] == "cpu" and len(r["ms_runs"]) == 2
+        want = [] if r["priv_rows_per_sample"] == 0 else ([0, 1] if r["shape"].startswith("flagship") else [])
+        assert r["privatised"] == want

@@ -187,10 +187,10 @@ def test_plain_double_backward_matches_autograd_of_plain_backward():
     cgx = torch.from_numpy(r.standard_normal((20, 3)).astype(np.float32))
     levels = te._levels_on(x.device)
     classes = torch.zeros((te.n_levels, 2), dtype=torch.int32)
-    dx = ge.grid_backward_input_plain(x, dy, params, levels, 2, ge.INTERP_LINEAR, ge.ROUND_NONE)
+    dx = ge.grid_backward_input_plain(x, dy, params, levels, 2, ge.INTERP_LINEAR)
     want = autograd.grad((dx * cgx).sum(), (params, x, dy))
     got = ge.grid_backward_backward_plain(
-        x.detach(), dy.detach(), params.detach(), levels, 2, ge.INTERP_LINEAR, ge.ROUND_NONE, classes, None, cgx
+        x.detach(), dy.detach(), params.detach(), levels, 2, ge.INTERP_LINEAR, classes, None, cgx
     )
     for a, b in zip(got, want):
         torch.testing.assert_close(a, b, rtol=1e-5, atol=1e-5)
