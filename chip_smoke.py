@@ -74,10 +74,15 @@ Phases, each printing lines of its own; any failure exits non-zero:
    tcnn_tpu_torch.benchmarks.probe_rows --sweep with every count at 0: the
    probes and the gather and scatter-add at the grid's row widths (F = 2, 8;
    S = 2^12 .. 2^23; B = 2^18 and 2^24) per source, ns/row beside the bytes
-   bound and the library call (index_select, index_add_).
+   bound and the library call (index_select, index_add_); the device time
+   (events around a call whose issue the device cannot see) and call time
+   (events over back-to-back calls) of each P3 and P5 case and of the JSON
+   shape, kernel beside library call, and the host's microseconds a whole
+   call at P5 C1's size, the wrapper beside torch.gather.
 15. floors: the grid kernels' random rows (lookup, table gradient on the
    stratified batch, uniform points and the 3D model, G1, G2) against the
-   probe sweep's measured rates, beside their measured times.
+   probe sweep's fastest measured rate per operation and table size (over
+   every source and the library call, named), beside their measured times.
 16. benches: the port's entry points, each count at 0 before and read after:
    benchmarks.bench (the 2D default with its phase-locked secondary,
    --protocol 3d, --reference-verbatim, --serving), bench_mlp, bench_image
@@ -1708,6 +1713,21 @@ def phase_probes(card):
             f"touched), ns/row by source: {'; '.join(parts)}; {lib['library']} {lib['library_ms'] * 1e6 / B:.4f}; "
             f"bound {recs[0]['bound_ms'] * 1e6 / B:.4f} ({recs[0]['bound_by']})")
 
+    # Device time (CUDA events around one call queued behind a spin kernel:
+    # the call's kernels and memsets) and call time (CUDA events over
+    # back-to-back calls: the host's time or the device's, the larger) of
+    # each P3 and P5 case and of the JSON shape, kernel beside library call;
+    # then the host's cost of a whole call, the wrapper beside torch.gather.
+    for rec in result["probes"]:
+        if rec["device_ms"] is None or (rec["p"] == "sweep" and not rec["label"].endswith(JSON_SHAPE)):
+            continue
+        lib = rec["library"]
+        log(f"probe times [{card}]: {rec['label']} [{rec['kernel']} {rec['source']}]: device ms a call: kernel "
+            f"{rec['device_ms']:.4f}" + ("" if lib is None else f", {lib} {rec['library_device_ms']:.4f}")
+            + f"; call ms: kernel {rec['ms']:.4f}" + ("" if lib is None else f", {lib} {rec['library_ms']:.4f}"))
+    log(f"probe host [{card}]: us a call (host clock, no sync): "
+        + "; ".join(f"{k} {v:.2f}" for k, v in result["host_us"].items()))
+
     # The JSON's times: the probe run's records of each probe kernel at its
     # JSON shape (kernel, plain and library call timed one after another).
     times = {}
@@ -1729,16 +1749,38 @@ def _profile_ms(profile, kernel):
     return sum(ms for name, ms in profile.items() if kernel + "<" in name or kernel + "(" in name)
 
 
+def fastest_rates(records):
+    """{(operation, S): (ns/row, what)}: the fastest random-row rate of the
+    probe sweep's 2^24 uniform rows of F = 2 into 2^S-row tables, over
+    every source of the kernel and the library call (call times, CUDA
+    events)."""
+    best = {}
+    for r in records:
+        if r["p"] != "sweep" or r["B"] != 2**24 or r["F"] != 2:
+            continue
+        key = (r["label"].split()[0], r["S"])
+        cands = [(r["ns_per_row"], f"{r['kernel']} {r['source']}")]
+        if r["library_ms"] is not None:
+            cands.append((r["library_ms"] * 1e6 / r["B"], r["library"]))
+        for ns, what in cands:
+            if key not in best or ns < best[key][0]:
+                best[key] = (ns, what)
+    return best
+
+
 def phase_floors(card, records, t, train_profile, sdf_profile):
-    """The grid kernels' random rows against the card's rates from the
-    probe sweep (2^24 uniform rows of F = 2): the flagship's tables (levels
-    of at most 2^15 rows, 2.8 MB) at the 2^15 rates; the 3D model's (52 MB
-    of 2^19-row levels) between the 2^19 and 2^23 rates, since it holds
-    more than the L2 and its levels each less. Measured times: CUDA events
-    (phase 13) or the profiles' device ms per step (launches per step
-    named)."""
-    rate = {(r["label"].split()[0], r["S"]): r["ns_per_row"] for r in records
-            if r["p"] == "sweep" and r["B"] == 2**24 and r["F"] == 2 and r["source"] in ("l2", "global")}
+    """The grid kernels' random rows against the card's fastest measured
+    rates from the probe sweep (2^24 uniform rows of F = 2; for each
+    operation and table size the fastest source or library call of this
+    run, named): the flagship's tables (levels of at most 2^15 rows, 2.8
+    MB) at the 2^15 rates; the 3D model's (52 MB of 2^19-row levels)
+    between the 2^19 and 2^23 rates, since it holds more than the L2 and
+    its levels each less. Measured times: CUDA events (phase 13) or the
+    profiles' device ms per step (launches per step named)."""
+    best = fastest_rates(records)
+    for (op, S), (ns, what) in sorted(best.items()):
+        log(f"floor rate [{card}]: {op} S=2^{int(np.log2(S))}: {ns:.4f} ns/row, fastest of this run: {what}")
+    rate = {key: ns for key, (ns, _) in best.items()}
     flag_rows, rows3d = B_FLAG * 16 * 4, B_SDF * 16 * 8
     ab = t["grid_bwd_ab"]
     cases = (
@@ -1763,9 +1805,10 @@ def phase_floors(card, records, t, train_profile, sdf_profile):
         lo = sum(rows * rate[(op, s_lo)] for op in ops) * 1e-6
         hi = sum(rows * rate[(op, s_hi)] for op in ops) * 1e-6
         lo, hi = min(lo, hi), max(lo, hi)
-        log(f"floor [{card}]: {name}: {rows} rows x {'+'.join(ops)} at the random-row rates of S = 2^"
-            f"{int(np.log2(s_lo))}..2^{int(np.log2(s_hi))}: {lo:.4f}-{hi:.4f} ms; measured {ms:.4f} ms "
-            f"({ms / hi:.2f}-{ms / lo:.2f}x)")
+        whats = sorted({best[(op, s)][1] for op in ops for s in (s_lo, s_hi)})
+        log(f"floor [{card}]: {name}: {rows} rows x {'+'.join(ops)} at the fastest random-row rates of S = 2^"
+            f"{int(np.log2(s_lo))}..2^{int(np.log2(s_hi))} ({', '.join(whats)}): {lo:.4f}-{hi:.4f} ms; measured "
+            f"{ms:.4f} ms ({ms / hi:.2f}-{ms / lo:.2f}x)")
 
 
 BENCH_COUNTERS = {

@@ -15,14 +15,22 @@ Usage: python -m tcnn_tpu_torch.benchmarks.probe_rows [--log-b 17]
        [--log-s 15] [--feat 8] [--reps 20] [--only sp_serial,ds8]
        [--sweep] [--device cuda]
 
-Each line gives the kernel's time (CUDA events, median of 3 blocks of
-``--reps`` calls), its plain version's, that of one PyTorch call computing
+Each line gives the kernel's call time (CUDA events over 3 blocks of
+``--reps`` back-to-back calls, median: the larger of the host's time a call
+and the device's), its plain version's, that of one PyTorch call computing
 the same function where there is one (``index_select`` for a row gather,
-``torch.gather`` for the per-lane gather, ``index_add_`` for a scatter-add:
-the JAX probes' XLA reference points) and the bound: the larger of the
-bytes this run's data needs (the indices read, each distinct table element
-read, the output written, once each) over the H100's 3.35 TB/s and the
-operations over its fp32 peak of 67 TFLOP/s (NVIDIA's data sheet, SXM).
+``torch.gather`` for the per-lane gather, ``repeat`` for the static copy,
+``index_add_`` for a scatter-add: the JAX probes' XLA reference points) and
+the bound: the larger of the bytes this run's data needs (the indices read,
+each distinct table element read, the output written, once each) over the
+H100's 3.35 TB/s and the operations over its fp32 peak of 67 TFLOP/s
+(NVIDIA's data sheet, SXM). For P3, P5 and the sweep's 2^24-row points the
+line also gives the device time a call of the kernel and of the library
+call (``device_ms``: CUDA events around one call queued behind a spin
+kernel, so the host's time to issue it is hidden; median of ``--reps``),
+which says whether a loss is the host's or the device's. On the card the
+JSON also carries ``host_us``: the host's microseconds a whole call at P5
+C1's size, the wrapper beside ``torch.gather``.
 
 Tolerances of the checks: every gather, the tile sum, the copy and
 STORE_LAST bit-exact; ADD within 1e-6 of the sum of |contributions| per
@@ -34,7 +42,9 @@ from __future__ import annotations
 
 import argparse
 import json
+import statistics
 import sys
+import time
 from dataclasses import dataclass, field
 from typing import Callable, List, Optional
 
@@ -74,7 +84,7 @@ class Case:
     n_bytes: int  # what this run's data needs: indices, distinct table elements, output
     n_ops: int = 0  # fp32 operations
     library: Optional[Callable[[], torch.Tensor]] = None  # one PyTorch call computing the same
-    library_name: str = ""
+    library_name: str = ""  # "": no single PyTorch call computes the same (PERF.md §6 says why)
     source: str = "l2"
     check: str = "exact"  # exact | add | dot
     abs_sum: Optional[Callable[[], torch.Tensor]] = None  # ADD: the sum of |contributions| per entry
@@ -128,7 +138,8 @@ def _gather_bytes(table, idx, mode, flags, table2) -> int:
 def _gather_case(name, p, label, table, idx, dev, source=pr.SOURCE_L2, **kw):
     """A probe_gather case; its plain version takes the same arguments. The
     library call: ``index_select`` for a plain row gather in range,
-    ``torch.gather`` for the per-lane one."""
+    ``torch.gather`` for the per-lane one, ``repeat`` of the first tile for
+    the static copy."""
     plain_kw = {k: v for k, v in kw.items() if k in ("mode", "table2", "flags")}
     mode, flags = kw.get("mode", pr.MODE_ROW), kw.get("flags", 0)
     S = table.shape[1] if flags & pr.FLAG_TRANSPOSED else table.shape[0]
@@ -138,6 +149,9 @@ def _gather_case(name, p, label, table, idx, dev, source=pr.SOURCE_L2, **kw):
     elif mode == pr.MODE_LANE:
         idx64 = idx.long()
         library, library_name = (lambda: torch.gather(table, 0, idx64)), "torch.gather"
+    elif mode == pr.MODE_COPY and not flags:
+        n_tiles = idx.shape[0] // pr.TILE
+        library, library_name = (lambda: table[:pr.TILE].repeat(n_tiles, 1)), "repeat"
     return Case(
         name, p, label,
         run=lambda: pr.probe_gather(table, idx, source=source, **kw),
@@ -145,7 +159,7 @@ def _gather_case(name, p, label, table, idx, dev, source=pr.SOURCE_L2, **kw):
         rows=idx.numel(), kernel="probe_gather",
         n_bytes=_gather_bytes(table, idx, mode, flags, kw.get("table2")),
         library=library, library_name=library_name,
-        source=pr.SOURCE_NAMES[source] + (f" x{kw['unroll']}" if kw.get("unroll", 1) > 1 else "")
+        source=pr.SOURCE_NAMES[source] + (f" x{kw['unroll']}" if kw.get("unroll") is not None else "")
         + (f" {kw['in_flight']} in flight" if source == pr.SOURCE_ASYNC else ""),
         shape={"S": S, "F": table.shape[0] if flags & pr.FLAG_TRANSPOSED else table.shape[1], "B": idx.shape[0],
                "touched": _distinct(idx)},
@@ -229,8 +243,10 @@ def build_cases(args, dev) -> List[Case]:
     idx_np = r.integers(0, S, (B,)).astype(np.int32)
     table, idx = _t(table_np, dev), _t(idx_np, dev)
     shp = f"B=2^{args.log_b} S=2^{args.log_s} F={F}"
-    if sel("sp_serial"):
-        cases.append(_gather_case("sp_serial", "P6", f"V1p sp_serial {shp}", table, idx, dev, _shared_or_l2(S, F)))
+    if sel("sp_serial"):  # one row at a time: from L2, one row a thread
+        src = _shared_or_l2(S, F)
+        cases.append(_gather_case("sp_serial", "P6", f"V1p sp_serial {shp}", table, idx, dev, src,
+                                  **({"unroll": 1} if src == pr.SOURCE_L2 else {})))
     if sel("sp_unroll8"):
         cases.append(_gather_case("sp_unroll8", "P7", f"V2p sp_unroll8 {shp}", table, idx, dev, unroll=8))
     if sel("bs_dma_k"):
@@ -341,6 +357,58 @@ def check_case(case: Case) -> float:
     return err
 
 
+def device_timed(case: Case) -> bool:
+    """Whether ``run_cases`` also takes the device time of ``case``: P3, P5
+    and the sweep's 2^24-row points."""
+    return case.p in ("P3", "P5") or (case.p == "sweep" and case.rows == 2**24)
+
+
+def device_ms(fn, dev: torch.device, reps: int, pad_cycles: int = 1_000_000) -> float:
+    """Device ms a call of ``fn``: the median over ``reps`` calls of CUDA
+    events recorded just before and just after the call, each call queued
+    behind a spin kernel of ``pad_cycles`` clock cycles
+    (``torch.cuda._sleep``, about 0.5 ms) so that the host's time to issue
+    the call is hidden; the events then time only the device's work (the
+    call's kernels and memsets and the gaps between them)."""
+    fn()
+    sync(dev)
+    events = []
+    for _ in range(reps):
+        torch.cuda._sleep(pad_cycles)
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        fn()
+        end.record()
+        events.append((start, end))
+    sync(dev)
+    return statistics.median(start.elapsed_time(end) for start, end in events)
+
+
+def host_us(dev: torch.device, n: int = 2000) -> dict:
+    """Host microseconds a call (host clock over ``n`` calls, no sync) of
+    the wrapper and of ``torch.gather`` at P5 C1's size (8 rows x 128 lanes
+    from an (8, 128) table), where the device work is a few microseconds."""
+    gen = torch.Generator(device=dev).manual_seed(0)
+    table = torch.randn((8, 128), generator=gen, device=dev)
+    idx = torch.randint(0, 8, (8, 128), generator=gen, device=dev, dtype=torch.int32)
+    idx64 = idx.long()
+    calls = {
+        "probe_gather LANE (8, 128)": lambda: pr.probe_gather(table, idx, mode=pr.MODE_LANE),
+        "torch.gather (8, 128)": lambda: torch.gather(table, 0, idx64),
+    }
+    out = {}
+    for name, fn in calls.items():
+        for _ in range(50):
+            fn()
+        sync(dev)
+        t0 = time.perf_counter()
+        for _ in range(n):
+            fn()
+        out[name] = (time.perf_counter() - t0) * 1e6 / n
+        sync(dev)
+    return out
+
+
 def bound_ms(n_bytes: int, n_ops: int = 0):
     """(ms, "bytes" or "operations"): the larger of the bytes over the HBM
     rate and the fp32 operations over their peak."""
@@ -356,21 +424,26 @@ def run_cases(cases: List[Case], dev, reps: int, out=sys.stdout) -> List[dict]:
     for case in cases:
         err = check_case(case)
         ms, blocks = timed_blocks(case.run, dev, reps)
+        timed_dev = dev.type == "cuda" and device_timed(case)
+        dev_ms = device_ms(case.run, dev, reps) if timed_dev else None
         key = (case.kernel, case.label)
         if key not in shared:
             shared[key] = (timed_blocks(case.plain, dev, reps)[0],
-                           None if case.library is None else timed_blocks(case.library, dev, reps)[0])
-        plain_ms, library_ms = shared[key]
+                           None if case.library is None else timed_blocks(case.library, dev, reps)[0],
+                           device_ms(case.library, dev, reps) if timed_dev and case.library is not None else None)
+        plain_ms, library_ms, library_dev_ms = shared[key]
         b_ms, by = bound_ms(case.n_bytes, case.n_ops)
         print(f"{case.label}: {ms:.3f} ms = {ms * 1e6 / case.rows:.2f} ns/row (blocks "
               f"{[round(b, 3) for b in blocks]}) [{case.kernel}, {case.source}]; plain {plain_ms:.3f} ms"
               + ("" if library_ms is None else f", {case.library_name} {library_ms:.3f} ms")
+              + ("" if dev_ms is None else f"; device ms a call: kernel {dev_ms:.4f}"
+                 + ("" if library_dev_ms is None else f", {case.library_name} {library_dev_ms:.4f}"))
               + f", bound {b_ms:.4f} ms ({by}); matches plain, max|diff| {err:.3e}", file=out, flush=True)
         records.append({"name": case.name, "p": case.p, "label": case.label, "kernel": case.kernel,
                         "source": case.source, "rows": case.rows, "ms": ms, "ns_per_row": ms * 1e6 / case.rows,
                         "blocks": blocks, "plain_ms": plain_ms, "library": case.library_name or None,
-                        "library_ms": library_ms, "bound_ms": b_ms, "bound_by": by, "max_abs_err": err,
-                        **case.shape})
+                        "library_ms": library_ms, "device_ms": dev_ms, "library_device_ms": library_dev_ms,
+                        "bound_ms": b_ms, "bound_by": by, "max_abs_err": err, **case.shape})
     return records
 
 
@@ -387,6 +460,7 @@ def main(argv=None) -> dict:
     result = {
         "device": card_label(dev),
         "probes": records,
+        "host_us": host_us(dev) if dev.type == "cuda" else None,
         "launches": {"probe_gather": pr.GATHER_LAUNCHES, "probe_scatter": pr.SCATTER_LAUNCHES,
                      "probe_gather_dot": pr.DOT_LAUNCHES, "scatter_rows": sr.LAUNCHES},
     }

@@ -401,18 +401,82 @@ def _probe_inputs(dev, S, F, B, seed, lo=0, hi=None):
     return table, idx
 
 
-@pytest.mark.parametrize("F", [1, 2, 3, 8])
+@pytest.mark.parametrize("F", [1, 2, 3, 4, 8, 128])
 @pytest.mark.parametrize("source", list(PROBE_SOURCES))
 def test_probe_gather_sources_match_plain(dev, source, F):
     """MODE_ROW from every source, rows outside the table reading zeros,
-    rounded and feature-major variants: bit-exact."""
+    rounded and feature-major variants: bit-exact. SHARED takes a table
+    that fits a block (256 rows at F = 128)."""
     code, kw = PROBE_SOURCES[source]
-    table, idx = _probe_inputs(dev, 4096, F, 2**16 + 2048, F, lo=-50, hi=4096 + 50)
+    S = 4096 if probe_rows.fits_shared(4096 * F) else 256
+    table, idx = _probe_inputs(dev, S, F, 2**16 + 2048, F, lo=-50, hi=S + 50)
     for flags in (0, probe_rows.FLAG_ROUND_BF16, probe_rows.FLAG_FEATURE_MAJOR):
         before = probe_rows.GATHER_LAUNCHES
         got = probe_rows.probe_gather(table, idx, source=code, flags=flags, **kw)
         assert probe_rows.GATHER_LAUNCHES == before + 1
         assert torch.equal(got, probe_rows.probe_gather_plain(table, idx, flags=flags))
+
+
+def _offset_by_one(t):
+    """A copy of ``t`` whose data pointer lies 4 bytes past 16-byte
+    alignment (a view one element into a larger buffer)."""
+    buf = torch.empty(t.numel() + 1, dtype=t.dtype, device=t.device)
+    view = buf[1:].view(t.shape)
+    view.copy_(t)
+    return view
+
+
+@pytest.mark.parametrize("F", [2, 4, 8])
+@pytest.mark.parametrize("source", list(PROBE_SOURCES))
+def test_probe_gather_unaligned_table_takes_the_scalar_form(dev, source, F):
+    """A table (and indices) 4 bytes off 16-byte alignment: the plan takes
+    scalar loads (vec 1), and the rows still match, with rows outside the
+    table reading zeros."""
+    code, kw = PROBE_SOURCES[source]
+    table, idx = _probe_inputs(dev, 1024, F, 2**15 + 4, F + 40, lo=-7, hi=1024 + 7)
+    table, idx = _offset_by_one(table), _offset_by_one(idx)
+    assert probe_rows.alignment(table) == 4 and probe_rows.alignment(idx) == 4
+    plan = probe_rows.gather_plan(idx.shape[0], 1024, F, probe_rows.MODE_ROW, code, 0, 4, 4,
+                                  unroll=kw.get("unroll"), in_flight=kw.get("in_flight", 64))
+    assert plan.vec == 1
+    got = probe_rows.probe_gather(table, idx, source=code, **kw)
+    assert torch.equal(got, probe_rows.probe_gather_plain(table, idx))
+
+
+@pytest.mark.parametrize("unroll", [None, 1, 8])
+@pytest.mark.parametrize("B", [1, 3, 7, 2**16 + 3])
+def test_probe_gather_rows_not_a_multiple_of_the_rows_a_thread(dev, B, unroll):
+    """B rows that leave the last warp's group of 32 x unroll rows short;
+    F = 2 and 8 (the fixed-F paths) and 3 (the chunk loop); two tables (odd
+    rows from the second)."""
+    for F in (2, 3, 8):
+        table, idx = _probe_inputs(dev, 4096, F, B, B + F, lo=-20, hi=4096 + 20)
+        got = probe_rows.probe_gather(table, idx, unroll=unroll)
+        assert torch.equal(got, probe_rows.probe_gather_plain(table, idx))
+        t2 = table + 1.0
+        assert torch.equal(probe_rows.probe_gather(table, idx, unroll=unroll, table2=t2),
+                           probe_rows.probe_gather_plain(table, idx, table2=t2))
+
+
+@pytest.mark.parametrize("F", [1, 3, 5, 8, 128])
+def test_probe_gather_lanes_match_plain(dev, F):
+    """LANE (4 lanes a thread): F = 128 and 8 take the int4 / float4 form,
+    odd F and F = 1 the scalar one; indices outside the table read zeros;
+    rounded, transposed and feature-major variants too."""
+    pr = probe_rows
+    rng = np.random.default_rng(F)
+    S, B = 300, 2 * pr.TILE
+    table = torch.from_numpy(rng.standard_normal((S, F)).astype(np.float32)).to(dev)
+    idx = torch.from_numpy(rng.integers(-5, S + 5, (B, F)).astype(np.int32)).to(dev)
+    assert pr.gather_plan(B, S, F, pr.MODE_LANE).vec == (4 if F % 4 == 0 else 1)
+    for flags in (0, pr.FLAG_ROUND_BF16, pr.FLAG_FEATURE_MAJOR):
+        got = pr.probe_gather(table, idx, mode=pr.MODE_LANE, flags=flags)
+        assert torch.equal(got, pr.probe_gather_plain(table, idx, pr.MODE_LANE, flags=flags))
+    t_t = table.t().contiguous()
+    got = pr.probe_gather(t_t, idx, mode=pr.MODE_LANE, flags=pr.FLAG_TRANSPOSED)
+    assert torch.equal(got, pr.probe_gather_plain(t_t, idx, pr.MODE_LANE, flags=pr.FLAG_TRANSPOSED))
+    odd = _offset_by_one(idx)
+    assert torch.equal(pr.probe_gather(table, odd, mode=pr.MODE_LANE), pr.probe_gather_plain(table, odd, pr.MODE_LANE))
 
 
 @pytest.mark.parametrize("mode", ["lane", "window", "window_aligned", "tile_sum", "copy", "two_tables",
@@ -437,9 +501,13 @@ def test_probe_gather_modes_match_plain(dev, mode):
 @pytest.mark.parametrize("acc", [probe_rows.ACC_GLOBAL, probe_rows.ACC_SHARED])
 @pytest.mark.parametrize("S", [64, 4096])
 def test_probe_scatter_add_matches_plain(dev, S, acc):
+    """ADD, rows outside the table skipped; with ACC_SHARED the plan
+    privatises at S = 64 (2,048 rows a slot) and not at S = 4096 (32)."""
     rng = np.random.default_rng(S)
     idx = torch.from_numpy(rng.integers(-3, S + 3, 2**17).astype(np.int32)).to(dev)
     rows = torch.from_numpy(rng.normal(0, 1, (2**17, 8)).astype(np.float32)).to(dev)
+    plan = probe_rows.scatter_plan(2**17, S, 8, acc, torch.cuda.get_device_properties(dev).multi_processor_count)
+    assert (plan.private > 0) == (acc == probe_rows.ACC_SHARED and S == 64)
     before = probe_rows.SCATTER_LAUNCHES
     got = probe_rows.probe_scatter(idx, rows, S, probe_rows.OP_ADD, acc)
     assert probe_rows.SCATTER_LAUNCHES == before + 1
@@ -448,10 +516,29 @@ def test_probe_scatter_add_matches_plain(dev, S, acc):
     assert bool(((got - want).abs() <= 1e-6 * S_abs).all())
 
 
-def test_probe_scatter_store_last_is_the_last_write(dev):
+@pytest.mark.parametrize("acc", [probe_rows.ACC_GLOBAL, probe_rows.ACC_SHARED])
+@pytest.mark.parametrize("R", [1, 2, 3, 4, 8, 128])
+def test_probe_scatter_add_row_widths(dev, R, acc):
+    """ADD at every vector width (R = 1, 3: scalar; 2: float2; 4, 8, 128:
+    float4, 1-32 threads a row), N = 0, 7 and 2^16 + 3 rows with indices
+    outside the table, and rows 4 bytes off 16-byte alignment (scalar)."""
+    S = 64
+    rng = np.random.default_rng(R)
+    for N in (0, 7, 2**16 + 3):
+        idx = torch.from_numpy(rng.integers(-3, S + 3, N).astype(np.int32)).to(dev)
+        rows = torch.from_numpy(rng.normal(0, 1, (N, R)).astype(np.float32)).to(dev)
+        for r in (rows, _offset_by_one(rows)):
+            got = probe_rows.probe_scatter(idx, r, S, probe_rows.OP_ADD, acc)
+            want = probe_rows.probe_scatter_plain(idx, r, S)
+            S_abs = probe_rows.probe_scatter_plain(idx, r.abs(), S)
+            assert got.shape == (S, R) and bool(((got - want).abs() <= 1e-6 * S_abs).all())
+
+
+@pytest.mark.parametrize("R", [2, 3, 8])
+def test_probe_scatter_store_last_is_the_last_write(dev, R):
     rng = np.random.default_rng(3)
     idx = torch.from_numpy(rng.integers(-2, 5000, 2**16).astype(np.int32)).to(dev)
-    rows = torch.from_numpy(rng.normal(0, 1, (2**16, 8)).astype(np.float32)).to(dev)
+    rows = torch.from_numpy(rng.normal(0, 1, (2**16, R)).astype(np.float32)).to(dev)
     got = probe_rows.probe_scatter(idx, rows, 4096, probe_rows.OP_STORE_LAST)
     assert torch.equal(got, probe_rows.probe_scatter_plain(idx, rows, 4096, probe_rows.OP_STORE_LAST))
 

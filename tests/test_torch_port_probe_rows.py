@@ -235,3 +235,20 @@ def test_probe_entry_point_checks_and_reports_every_probe(capsys):
     assert all("ns/row" in line for line in out[:-1])
     with pytest.raises(SystemExit):
         drv.main(["--device", "cpu", "--only", "nope"])
+
+
+def test_probe_entry_point_times_the_static_copys_library_call(capsys):
+    """P12's library call (``repeat`` of the first tile) joins the probes:
+    its time is in the JSON on the CPU too; device times and the host's
+    launch costs are the card's only (None here)."""
+    result = drv.main(["--device", "cpu", "--log-b", "12", "--log-s", "12", "--reps", "1",
+                       "--only", "static_copy,sp_serial"])
+    rec = {r["p"]: r for r in result["probes"]}
+    assert rec["P12"]["library"] == "repeat" and rec["P12"]["library_ms"] > 0
+    assert rec["P6"]["library"] == "index_select" and rec["P6"]["library_ms"] > 0
+    assert all(r["device_ms"] is None and r["library_device_ms"] is None for r in result["probes"])
+    assert result["host_us"] is None
+    table, idx = _inputs(S=4096, F=8, B=2 * TILE)
+    got = torch.from_numpy(table)[:TILE].repeat(2, 1).numpy()
+    np.testing.assert_array_equal(got, pr.probe_gather_plain(_t(table), _t(idx), pr.MODE_COPY).numpy())
+    capsys.readouterr()
