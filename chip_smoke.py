@@ -13,8 +13,9 @@ Phases, each printing lines of its own; any failure exits non-zero:
    depths x activations x batch sizes, then at the flagship's shapes.
 4. kernel 2 (grid lookup) against its plain version: the flagship encoding
    at B = 2^18 plus cell-boundary points and points outside [0, 1]; again
-   with table_dtype bfloat16 and with the CoherentPrime (XOR) hash; then the
-   encoding's own table_dtype level by level (rounded_levels: a stratified
+   with table_dtype bfloat16 and with the CoherentPrime (XOR) hash, each
+   also bitwise against the earlier lookup kernel (v1) in fp32 and bf16
+   output; then the encoding's own table_dtype level by level (rounded_levels: a stratified
    2^18 batch in bf16 and fp16, the 1024^2 raster, gather_strategy fused,
    quad_fused and per_level), forward and input gradient (G1) against the
    plain path.
@@ -31,12 +32,12 @@ Phases, each printing lines of its own; any failure exits non-zero:
 7. the fused Adam step against its plain version at the flagship's
    715,760 params, over the optimizer's knobs, three steps each.
 8. the table gradient (flagship encoding, B = 2^18 uniform points) and the
-   generic row scatter (2^18 rows into 64 slots) against their plain
-   versions in the four gradient classes; the table gradient level by level
-   in each level's class on a stratified flagship batch (its own classes
-   and factored_sr) and on the 3D model at 2^18 (13 levels add in bf16);
-   the earlier atomic table-gradient kernel once against the plain
-   version.
+   generic row scatter (2^18 rows into 64 slots: private blocks for fp32
+   sums; small integers into 2^14 slots: vector atomics) against their
+   plain versions in the four gradient classes; the table gradient level by
+   level in each level's class on a stratified flagship batch (its own
+   classes and factored_sr) and on the 3D model at 2^18 (13 levels add in
+   bf16).
 9. the packed-I/O MLP (K7/K8) against its block-diagonal plain versions at
    the reference's MLP benchmark protocol (B = 2^20, widths 16/32/64, 3 and
    0 hidden layers, a ragged row count), then the protocol through
@@ -58,13 +59,17 @@ Phases, each printing lines of its own; any failure exits non-zero:
 13. times (CUDA events / synced host clock, median of repeats), each
    kernel's bound from its shapes (bytes over 3.35 TB/s or operations over
    the peak of their type) and, where one PyTorch call computes the same
-   function, that call's time; the table gradient against the earlier
-   atomic kernel and the plain version in turns at three shapes (the
-   stratified flagship batch, uniform flagship points, the 3D model in its
-   training classes), beside one index_add_ of the precomputed (row,
-   contribution) pairs; K2 against the earlier atomic kernel and
-   the plain version in turns at the flagship, at 128 x 5 with in 128 and
-   at the K8 view, and its walk and weight gradient on their own (the latter beside
+   function, that call's time; the table gradient and the plain version
+   in turns at three shapes (the stratified flagship batch, uniform
+   flagship points, the 3D model in its training classes), beside one
+   index_add_ of the precomputed (row, contribution) pairs; the lookup
+   against the earlier kernel (v1) in turns at four shapes (stratified and
+   uniform flagship batches, the 3D model, the 1024^2 raster) with both
+   kernels' SASS instruction counts; the row scatter beside index_add_ in
+   device and call time at 2^18 x 4 into 64 slots and the P3 and P19
+   shapes (benchmarks.lookup_scatter_times); K2 and the plain version in
+   turns at the flagship, at 128 x 5 with in 128 and at the K8 view, and
+   its walk and weight gradient on their own (the latter beside
    torch.matmul(D_l.T, H_l) over the layers).
 14. probes: the row gather and scatter probes (P1-P19) at their default
    shapes, each kernel against its plain version (gathers, tile sums,
@@ -79,8 +84,9 @@ Phases, each printing lines of its own; any failure exits non-zero:
    (events over back-to-back calls) of each P3 and P5 case and of the JSON
    shape, kernel beside library call, and the host's microseconds a whole
    call at P5 C1's size, the wrapper beside torch.gather.
-15. floors: the grid kernels' random rows (lookup, table gradient on the
-   stratified batch, uniform points and the 3D model, G1, G2) against the
+15. floors: the grid kernels' random rows (lookup on uniform and
+   stratified flagship points, v1 beside it, and in 3D; table gradient on
+   the stratified batch, uniform points and the 3D model, G1, G2) against the
    probe sweep's fastest measured rate per operation and table size (over
    every source and the library call, named), beside their measured times.
 16. benches: the port's entry points, each count at 0 before and read after:
@@ -261,10 +267,12 @@ def phase_kernel2(flagship):
     import torch
 
     from tcnn_tpu_torch.encodings import create_encoding
+    from tcnn_tpu_torch.encodings.grid import _INTERP_CODES as INTERP_CODES
+    from tcnn_tpu_torch.ops import grid_encode as ge
 
     dev = torch.device("cuda")
     rng = np.random.default_rng(SEED)
-    results = {}
+    results, v1_err = {}, 0.0
     variants = {
         "flagship": flagship["encoding"],
         "table_dtype bfloat16": dict(flagship["encoding"], table_dtype="bfloat16"),
@@ -292,10 +300,22 @@ def phase_kernel2(flagship):
         # order of addition on the card.
         check(torch.allclose(got, want, rtol=1e-5, atol=1e-6), f"grid {name}: max|diff| {err:.3e}")
         check(torch.equal(got16, got.to(torch.bfloat16)), f"grid {name}: bf16 store differs")
+        # The earlier kernel (v1) on the same level table: bitwise equal.
+        lv, interp = enc._levels_on(dev), INTERP_CODES[enc.interpolation_type]
+        for dt in (torch.float32, torch.bfloat16):
+            args = (x, params, lv, 2, enc.padded_output_width, interp, dt)
+            new, old = ge.grid_encode(*args), ge.grid_encode_v1(*args)
+            check(torch.equal(new.view(torch.int16 if dt == torch.bfloat16 else torch.int32),
+                              old.view(torch.int16 if dt == torch.bfloat16 else torch.int32)),
+                  f"grid {name}: the new kernel's {dt} output differs from the earlier kernel's")
+            if dt == torch.float32:
+                v1_err = max(v1_err, float((old - want).abs().max()))
         log(f"kernel2: {name}: {len(x_np)} points (2^18 uniform, 4096 outside [0,1], "
             f"{len(x_np) - B_FLAG - 4096} on cell boundaries) match the plain lookup "
-            f"(fp32 rtol 1e-5 atol 1e-6), max|diff| {err:.3e}; bf16 output = rounded fp32")
+            f"(fp32 rtol 1e-5 atol 1e-6), max|diff| {err:.3e}; bf16 output = rounded fp32; fp32 and bf16 outputs "
+            f"bitwise equal to the earlier kernel (v1)")
         results[name] = (enc, params, x[:B_FLAG].contiguous(), err)
+    results["v1_err"] = v1_err
     return results
 
 
@@ -603,7 +623,7 @@ def phase_scatter(flagship):
     # The stratified flagship batch (the training path's layout) in the
     # flagship's own classes and under factored_sr, and the 3D model at 2^18
     # in its training classes (13 levels add in bf16), level by level in each
-    # level's class; then the earlier kernel once against the plain version.
+    # level's class.
     from tcnn_tpu_torch.utils.sampling import stratified_uniform
 
     gen = torch.Generator(device=dev).manual_seed(SEED + 10)
@@ -625,21 +645,18 @@ def phase_scatter(flagship):
         log(f"kernel grid_bwd: {name}: matches the plain backward level by level in each level's class "
             f"({CLASS_TOL[0]}; bf16 levels: {CLASS_TOL[1]}); untouched entries exactly 0; levels privatised "
             f"{[l for l, p in enumerate(plan.privatised) if p]}; max|diff| {errs[name]:.3e}")
-    classes = torch.from_numpy(enc.gradient_classes(B_FLAG)).to(dev)
-    ge.ATOMIC_BWD_LAUNCHES = 0
-    old = ge._grid_backward_atomic(x_strat, dy, levels, 2, ge.INTERP_LINEAR, classes)
-    atomic_err = _levels_check(enc, old, x_strat, dy, classes, "grid_bwd_atomic")
-    check(ge.ATOMIC_BWD_LAUNCHES == 1, "grid_bwd_atomic: the earlier kernel did not launch")
-    log(f"kernel grid_bwd_atomic (the earlier kernel, A/B only): flagship stratified B=2^18: matches the plain "
-        f"backward ({CLASS_TOL[0]}); max|diff| {atomic_err:.3e}")
     idx = torch.from_numpy(rng.integers(0, 64, B_FLAG).astype(np.int32)).to(dev)
     rows = torch.from_numpy(rng.normal(0, 1, (B_FLAG, 4)).astype(np.float32)).to(dev)
     S_rows = sr.scatter_rows_plain(idx, rows.abs(), 64)
     ints = torch.from_numpy(rng.integers(-2, 3, (B_FLAG, 4)).astype(np.float32)).to(dev)
     idx_spread = torch.from_numpy(rng.integers(0, 2**14, B_FLAG).astype(np.int32)).to(dev)
     s_errs = {}
+    n_sms = torch.cuda.get_device_properties(dev).multi_processor_count
     for name, (contrib, acc) in GRAD_CLASSES.items():
         acc_dtype = torch.bfloat16 if acc else torch.float32
+        private = [sr.scatter_rows_plan(B_FLAG, S, 4, acc, n_sms).private for S in (64, 2**14)]
+        check(private[1] == 0 and (private[0] > 0) == (acc == 0),
+              f"scatter_rows {name}: the plan privatises {private} blocks at 64 / 2^14 slots")
         got = sr.scatter_rows(idx, rows, 64, contrib, acc_dtype)
         plain = sr.scatter_rows_plain(idx, rows, 64, contrib, acc_dtype)
         exact = sr.scatter_rows_plain(idx, rows, 64, contrib, torch.float32)
@@ -647,14 +664,15 @@ def phase_scatter(flagship):
         same = torch.equal(sr.scatter_rows(idx_spread, ints, 2**14, contrib, acc_dtype),
                            sr.scatter_rows_plain(idx_spread, ints, 2**14, contrib, acc_dtype))
         check(same, f"scatter_rows {name}: small-integer sums are not exact")
-        log(f"kernel scatter_rows: 2^18 rows x 4 into 64 slots, class {name}: matches the plain scatter "
-            f"({CLASS_TOL[acc]}); small-integer rows into 2^14 slots bitwise equal; max|diff| {s_errs[name]:.3e}")
+        log(f"kernel scatter_rows: 2^18 rows x 4 into 64 slots ({private[0]} private blocks), class {name}: matches "
+            f"the plain scatter ({CLASS_TOL[acc]}); small-integer rows into 2^14 slots (vector atomics, no private "
+            f"block) bitwise equal; max|diff| {s_errs[name]:.3e}")
     # The JSON line's error: the fp32-accumulation comparisons (a bf16 sum's
     # difference is a few bf16 ulps of the sum, held by CLASS_TOL instead).
     fp32_cases = ("(none, fp32)", "(SR, fp32)", "flagship stratified B=2^18, its classes",
                   "flagship stratified B=2^18, factored_sr")
     return {"enc": enc, "x": x, "dy": dy, "levels": levels, "grid_err": max(errs[k] for k in fp32_cases),
-            "atomic_err": atomic_err, "scatter_err": s_errs["(none, fp32)"], "idx": idx, "rows": rows,
+            "scatter_err": s_errs["(none, fp32)"], "idx": idx, "rows": rows,
             "x_strat": x_strat, "enc3": enc3, "x3": x3, "dy3": dy3}
 
 
@@ -1309,11 +1327,10 @@ def _k2_bounds(batch, in_w, out_w, n_w, rows_padded, scratch_cols):
 
 
 def phase_k2_times(card, kb):
-    """The new K2 (walk + split-K dW + reduce), the earlier atomic kernel and the plain
-    version in one call, in turns, at the flagship, at 128 x 5 with in 128
-    and at the K8 view; then the walk and the weight gradient on their own
-    at the flagship, the latter beside torch.matmul(D_l.T, H_l) over the
-    layers."""
+    """K2 (walk + split-K dW + reduce) and the plain version in one call, in
+    turns, at the flagship, at 128 x 5 with in 128 and at the K8 view; then
+    the walk and the weight gradient on their own at the flagship, the
+    latter beside torch.matmul(D_l.T, H_l) over the layers."""
     import torch
 
     from tcnn_tpu_torch.common import Activation
@@ -1333,23 +1350,21 @@ def phase_k2_times(card, kb):
     x, g, ws = kb["x"], kb["g"], kb["ws"]
     cases = {
         "flagship (B=2^18, 32->64x2->16)": (
-            lambda: F.ffmlp_backward(x, g, ws, relu, none), lambda: F._ffmlp_backward_atomic(x, g, ws, relu, none),
+            lambda: F.ffmlp_backward(x, g, ws, relu, none),
             lambda: F.ffmlp_backward_plain(x, g, ws, relu, none), (B_FLAG, 32, 16, ws)),
         "128 x 5, in 128 (B=2^18, bench_image's net)": (
             lambda: F.ffmlp_backward(x128, g128, ws128, relu, none),
-            lambda: F._ffmlp_backward_atomic(x128, g128, ws128, relu, none),
             lambda: F.ffmlp_backward_plain(x128, g128, ws128, relu, none), (B_FLAG, 128, 16, ws128)),
         "K8 view (w64, 3 hidden, B=2^20; plain: block-diagonal)": (
             lambda: F.ffmlp_backward_packed(xp, gp, ws8, relu, none),
-            lambda: F._ffmlp_backward_atomic(xp.view(B_PACKED, w), gp.view(B_PACKED, w), ws8, relu, none),
             lambda: F.ffmlp_backward_packed_plain(xp, gp, ws8, relu, none), (B_PACKED, w, w, ws8)),
     }
     out = {}
     with torch.no_grad():
-        for name, (new, atomic, plain, (batch, in_w, out_w, wl)) in cases.items():
-            fns = {"plain": plain, "kernel": new, "atomic": atomic}
+        for name, (new, plain, (batch, in_w, out_w, wl)) in cases.items():
+            fns = {"plain": plain, "kernel": new}
             runs = {k: [] for k in fns}
-            for kind in ("plain", "kernel", "atomic", "atomic", "kernel", "plain"):
+            for kind in ("plain", "kernel", "kernel", "plain"):
                 runs[kind].append(_event_ms(fns[kind]))
             r = {k: statistics.median(v) for k, v in runs.items()}
             n_w = sum(int(t.numel()) for t in wl)
@@ -1357,10 +1372,9 @@ def phase_k2_times(card, kb):
             n_hidden, width = len(wl) - 1, wl[0].shape[0]
             r["bound"] = _k2_bounds(batch, in_w, out_w, n_w, rows_padded, 2 * n_hidden * width + out_w)["ffmlp_bwd"]
             out[name] = r
-            log(f"time [{card}]: K2 A/B {name}: new (walk + dW + reduce) {r['kernel']:.4f} ms, atomic kernel "
-                f"{r['atomic']:.4f} ms, plain {r['plain']:.4f} ms, bound {r['bound'][0]:.4f} ms ({r['bound'][1]}); "
-                f"atomic / new {r['atomic'] / r['kernel']:.2f}x (CUDA events, median; turns plain, new, atomic, "
-                f"atomic, new, plain)")
+            log(f"time [{card}]: K2 {name}: kernel (walk + dW + reduce) {r['kernel']:.4f} ms, plain "
+                f"{r['plain']:.4f} ms, bound {r['bound'][0]:.4f} ms ({r['bound'][1]}) (CUDA events, median; turns "
+                f"plain, kernel, kernel, plain)")
 
         # The parts at the flagship, from the same operands.
         width, n_hidden, out_w, flat = F._backward_operands("k2 parts", x, g, ws)
@@ -1440,10 +1454,10 @@ def _contribution_pairs(enc, x, dy):
 
 def phase_grid_bwd_times(card, ks):
     """The table gradient at three shapes, each in its training classes: the
-    new kernel, the earlier atomic kernel and the plain version in turns
-    (plain, new, atomic, atomic, new, plain; CUDA events, median of each
-    kind's two runs), beside one index_add_ of the precomputed (flat row,
-    contribution) pairs, and the bound from the shapes."""
+    kernel and the plain version in turns (plain, new, new, plain; CUDA
+    events, median of each kind's two runs), beside one index_add_ of the
+    precomputed (flat row, contribution) pairs, and the bound from the
+    shapes."""
     import torch
 
     from tcnn_tpu_torch.ops import grid_encode as ge
@@ -1462,12 +1476,11 @@ def phase_grid_bwd_times(card, ks):
         plan = ge.backward_plan(e.level_table(), 2, B_FLAG, classes_np)
         fns = {
             "new": lambda: ge.grid_backward(x, dy, levels, 2, ge.INTERP_LINEAR, classes, plan),
-            "atomic": lambda: ge._grid_backward_atomic(x, dy, levels, 2, ge.INTERP_LINEAR, classes),
             "plain": lambda: ge.grid_backward_plain(x, dy, levels, 2, ge.INTERP_LINEAR, classes),
         }
         runs = {k: [] for k in fns}
         with torch.no_grad():
-            for kind in ("plain", "new", "atomic", "atomic", "new", "plain"):
+            for kind in ("plain", "new", "new", "plain"):
                 runs[kind].append(_event_ms(fns[kind]))
             rows, contribs = _contribution_pairs(e, x, dy)
             table = torch.zeros((e.n_params // 2, 2), device="cuda")
@@ -1479,12 +1492,46 @@ def phase_grid_bwd_times(card, ks):
         out[shape].update(library=library, bound=b, acc=classes_np[:, 1].tolist(),
                           privatised=[l for l, p in enumerate(plan.privatised) if p])
         r = out[shape]
-        log(f"time [{card}]: table gradient A/B, {shape}, accumulation codes {r['acc']}: new kernel "
-            f"{r['new']:.4f} ms (levels {r['privatised']} privatised), earlier atomic kernel {r['atomic']:.4f} ms "
-            f"({r['atomic'] / r['new']:.2f}x), plain {r['plain']:.4f} ms, index_add_ of the {B_FLAG * L * 2**d} "
+        log(f"time [{card}]: table gradient, {shape}, accumulation codes {r['acc']}: kernel {r['new']:.4f} ms "
+            f"(levels {r['privatised']} privatised), plain {r['plain']:.4f} ms, index_add_ of the {B_FLAG * L * 2**d} "
             f"precomputed fp32 (row, contribution) pairs {library:.4f} ms, bound {b[0]:.4f} ms ({b[1]}) "
             f"(CUDA events, median; in turns)")
     return out
+
+
+LOOKUP_SHAPES = ("flagship stratified", "flagship uniform", "3D model uniform", "flagship raster 1024^2")
+
+
+def phase_lookup_scatter_times(card):
+    """``benchmarks.lookup_scatter_times``' lookup and scatter measurements:
+    the lookup, new kernel and v1 in turns (each twice: in order, then in
+    reverse; CUDA events, the mean of the two medians) at LOOKUP_SHAPES,
+    with the compiler's report of both kernels; the row scatter beside
+    index_add_ at its four shapes (device ms a call behind a spin kernel,
+    call ms over back-to-back calls, the host's us a call)."""
+    import torch
+
+    from tcnn_tpu_torch.benchmarks import lookup_scatter_times as lst
+
+    dev = torch.device("cuda")
+    args = lst.build_parser().parse_args([])
+    recs = lst.time_lookups(args, dev, card)
+    lookup = {r["shape"]: r["ms"] for r in recs if r["what"] == "lookup"}
+    for shape in LOOKUP_SHAPES:
+        ms = lookup[shape]
+        log(f"time [{card}]: lookup A/B {shape}: new kernel {ms['grid_encode']:.4f} ms, earlier kernel v1 "
+            f"{ms['grid_encode_v1']:.4f} ms ({ms['grid_encode_v1'] / ms['grid_encode']:.2f}x) (CUDA events, in turns)")
+    report = next(r for r in recs if r["what"] == "lookup compiler report")
+    for name, k in report["sass"].items():
+        log(f"lookup sass: {name}: {k['instructions']} instructions, calls {k['calls']}")
+    scatter = {}
+    for r in lst.time_scatters(args, dev, card):
+        scatter[r["shape"]] = r
+        d, c, h = r["device_ms"], r["call_ms"], r["host_us"]
+        log(f"time [{card}]: scatter_rows vs index_add_, {r['shape']}: device ms a call {d['scatter_rows']:.4f} vs "
+            f"{d['index_add_']:.4f}; call ms {c['scatter_rows']:.4f} vs {c['index_add_']:.4f}; host us a call "
+            f"{h['scatter_rows']:.2f} vs {h['index_add_']:.2f}")
+    return lookup, scatter
 
 
 def phase_times(card, k1, k2, m, x_np, kb, ks):
@@ -1551,15 +1598,17 @@ def phase_times(card, k1, k2, m, x_np, kb, ks):
     for which in timed:
         for kind in ("kernel", "plain"):
             t[f"{which}_{kind}_ms"] = statistics.median(runs[which][kind])
-    # The table gradient: the A/B against the earlier kernel in one call; the
-    # JSON line takes the stratified flagship batch, the training path's.
+    # The table gradient at three shapes; the JSON line takes the stratified
+    # flagship batch, the training path's.
     t["grid_bwd_ab"] = phase_grid_bwd_times(card, ks)
     strat = t["grid_bwd_ab"][GRID_BWD_SHAPES[0]]
     t["grid_bwd_kernel_ms"], t["grid_bwd_plain_ms"] = strat["new"], strat["plain"]
     t["grid_bwd_library_ms"] = strat["library"]
-    t["grid_bwd_atomic_kernel_ms"], t["grid_bwd_atomic_plain_ms"] = strat["atomic"], strat["plain"]
-    t["grid_bwd_atomic_library_ms"] = strat["library"]
-    # K2 and its parts: the A/B against the atomic kernel in one call.
+    # The lookup against the earlier kernel (v1) at four shapes and the row
+    # scatter against index_add_ (device and call time), by the benchmark
+    # entry point that records them.
+    t["lookup_ab"], t["scatter_ab"] = phase_lookup_scatter_times(card)
+    # K2 and its parts.
     t["k2"] = phase_k2_times(card, kb)
     flag = t["k2"]["flagship (B=2^18, 32->64x2->16)"]
     t["ffmlp_bwd_kernel_ms"], t["ffmlp_bwd_plain_ms"] = flag["kernel"], flag["plain"]
@@ -1589,7 +1638,6 @@ def phase_times(card, k1, k2, m, x_np, kb, ks):
         "ffmlp_bwd_dw": t["k2"]["dw"]["bound"],
         "adam_step": bound(715760 * 36, 715760 * 20, "fp32"),
         "grid_bwd": strat["bound"],
-        "grid_bwd_atomic": strat["bound"],
         "scatter_rows": bound(B_FLAG * 4 + B_FLAG * 4 * 4 + 64 * 4 * 4, B_FLAG * 4, "fp32"),
         "grid_bwd_input": bound(B_SDF * d3 * 4 * 2 + B_SDF * 32 * 2 + n3 * 4,
                                 B_SDF * L3 * 8 * (2 * F + d3 * d3 + 2 * d3), "fp32"),
@@ -1784,11 +1832,14 @@ def phase_floors(card, records, t, train_profile, sdf_profile):
     flag_rows, rows3d = B_FLAG * 16 * 4, B_SDF * 16 * 8
     ab = t["grid_bwd_ab"]
     cases = (
-        ("lookup, flagship (events)", flag_rows, ["gather"], (2**15, 2**15), t["k2_kernel_ms"]),
+        ("lookup, flagship uniform (events)", flag_rows, ["gather"], (2**15, 2**15), t["k2_kernel_ms"]),
+        ("lookup, flagship stratified (events)", flag_rows, ["gather"], (2**15, 2**15),
+         t["lookup_ab"][LOOKUP_SHAPES[0]]["grid_encode"]),
+        ("lookup, flagship stratified, earlier kernel v1 (events)", flag_rows, ["gather"], (2**15, 2**15),
+         t["lookup_ab"][LOOKUP_SHAPES[0]]["grid_encode_v1"]),
+        ("lookup, 3D (events)", rows3d, ["gather"], (2**19, 2**23), t["lookup_ab"][LOOKUP_SHAPES[2]]["grid_encode"]),
         ("table gradient, flagship, stratified batch (events)", flag_rows, ["scatter-add"], (2**15, 2**15),
          ab[GRID_BWD_SHAPES[0]]["new"]),
-        ("table gradient, flagship, stratified batch, earlier atomic kernel (events)", flag_rows, ["scatter-add"],
-         (2**15, 2**15), ab[GRID_BWD_SHAPES[0]]["atomic"]),
         ("table gradient, flagship, uniform points (events)", flag_rows, ["scatter-add"], (2**15, 2**15),
          ab[GRID_BWD_SHAPES[1]]["new"]),
         ("table gradient in the training step, stratified batch (profile)", flag_rows, ["scatter-add"],
@@ -1970,8 +2021,10 @@ def main() -> int:
               "adam_step", "training"),
         entry("grid_bwd", "grid_bwd.cu", "tcnn_tpu/ops/scatter_rows.py:259", train["grid_bwd"], ks["grid_err"],
               "grid_bwd", "training"),
-        entry("grid_bwd_atomic", "grid_bwd.cu", "tcnn_tpu/ops/scatter_rows.py:259", ge.ATOMIC_BWD_LAUNCHES,
-              ks["atomic_err"], "grid_bwd_atomic", "A/B only (phase 8 check, phase 13 times; launches: those)"),
+        entry("grid_fwd_v1", "grid_fwd.cu", "tcnn_tpu/encodings/grid.py:1354", ge.V1_LAUNCHES, k2["v1_err"], None,
+              "A/B only (phase 4 bitwise check, phase 13 times; launches: those)", {
+                  "kernel": t["lookup_ab"][LOOKUP_SHAPES[1]]["grid_encode_v1"], "plain": t["k2_plain_ms"],
+                  "bound": t["bounds"]["k2"], "library": None}),
         entry("scatter_rows", "grid_bwd.cu", "tcnn_tpu/ops/scatter_rows.py:68", probes["launches"]["scatter_rows"],
               max(ks["scatter_err"], probes["errs"]["scatter_rows"]), "scatter_rows", "probes (P3, P19)"),
         entry("ffmlp_fwd_packed", "ffmlp_fwd.cu", "tcnn_tpu/ops/ffmlp.py:422", kp["launches"]["ffmlp_fwd_packed"],

@@ -1,11 +1,14 @@
 """The port's benchmark entry points, each run as
 ``python -m tcnn_tpu_torch.benchmarks.<name>``: ``bench`` (the headline
 image-fit protocols of the repo's ``bench.py``), ``bench_mlp``,
-``bench_image``, ``probe_rows`` (the row gather and scatter probes) and
-``grid_bwd_plans`` (the table-gradient kernel's launch plans). They
+``bench_image``, ``probe_rows`` (the row gather and scatter probes),
+``grid_bwd_plans`` (the table-gradient kernel's launch plans) and
+``lookup_scatter_times`` (the grid lookup and the row scatter at the main
+path's shapes, against the earlier lookup kernel and ``index_add_``). They
 run on the CUDA card (``--device cuda``, the default) and fail without one;
-``--device cpu`` runs the kernels' plain versions, for tests only: its times
-are the CPU's. Nothing here runs at import.
+``--device cpu`` (all but ``lookup_scatter_times``, which times kernels
+only) runs the kernels' plain versions, for tests only: its times are the
+CPU's. Nothing here runs at import.
 
 The helpers below are shared by the entry points.
 """

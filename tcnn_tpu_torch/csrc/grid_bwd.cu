@@ -9,7 +9,8 @@
 // uses as the transpose of the grid lookup (encodings/grid.py, via
 // ops/scatter_rows.py:_factored_scatter_of :514) next to XLA's scatter-add
 // emitter in fp32 or bf16. On this card the sum is what the reference does
-// (encodings/grid.h atomics): every contribution is added atomically. The
+// (encodings/grid.h atomics): every contribution is added atomically
+// (straight into the result, or into a block's shared-memory copy). The
 // input gradient (tcnn_grid_backward_input, G1) and the double backward
 // (tcnn_grid_backward_backward, G2) replace XLA autodiff of
 // tcnn_tpu/encodings/grid.py:GridEncoding.apply (:1354), which has no Pallas
@@ -48,9 +49,9 @@
 // batches are stratified (sample j in raster tile j of a 512^2 partition):
 // neighbouring samples fall in the same cells of the coarse levels, about
 // 1,100 samples a cell at level 0, so a kernel that adds every contribution
-// on its own sends long runs of adds to a few addresses. The earlier kernel
-// (tcnn_grid_backward_atomic, one thread per (sample, level), level
-// fastest, a scalar atomic per contribution: 33.5 M at the flagship) took
+// on its own sends long runs of adds to a few addresses. An earlier kernel
+// (one thread per (sample, level), level fastest, a scalar atomic per
+// contribution: 33.5 M at the flagship; deleted since) took
 // 1.6043 ms on a stratified batch and 0.7465 ms on uniform points (NVIDIA
 // H100 80GB HBM3, 700 W, chip_smoke.py phase 13 and the training profile).
 //
@@ -88,11 +89,27 @@
 // class: the same terms bit for bit; only the order of the sums differs,
 // which the fp32 and bf16 tolerances of the tests allow.
 //
+// tcnn_scatter_rows (the generic row scatter, K5/K6) is bound by its
+// atomics: into a small table every address takes a long serial run of
+// adds in the L2 (2^18 rows of 4 into 64 slots: 4,096 adds an address; the
+// earlier one-thread-an-element kernel and index_add_ both took ~0.1 ms
+// there, against a bytes bound of 0.0016 ms). The host plan
+// (ops/scatter_rows.py:scatter_rows_plan) picks the vector width and, for
+// fp32 sums where the flushes would be at most an eighth of the adds with
+// a block on every SM, private blocks: each adds into a shared-memory copy
+// of the whole table and flushes it once with float4 atomics. Every other case
+// (bf16 sums included: their every add rounds to bf16, which the private
+// copy would have to repeat) adds one vector atomic a row chunk straight
+// into the result, four chunks a thread in flight; index math is 32-bit.
+// Measured (benchmarks/lookup_scatter_times.py, NVIDIA H100 80GB HBM3, 700
+// W; device ms a call, kernel / index_add_): 64 slots 0.0187 / 0.1000, the
+// P3 shapes 0.0126 / 0.0197 and 0.0122 / 0.0197, P19 0.0078 / 0.0085.
+//
 // G1 and G2 run one thread per sample that walks the levels in order and
 // keeps its d input-gradient sums in registers, so the sum over levels and
 // corners is deterministic and needs no atomics; G2 writes its d/d(dL_dy)
 // row directly and scatters into the table with the same class rounding and
-// scalar atomics as the earlier table gradient. G1 and G2 read B * L * 2^d
+// scalar atomics as that earlier table gradient. G1 and G2 read B * L * 2^d
 // random table rows (32.5 M 8-byte rows at the 3D model, B = 2^18, in a
 // 52 MB table that does not fit the L2): random sector reads bound them,
 // and G2's scatter adds as many atomics again.
@@ -132,54 +149,6 @@ __device__ __forceinline__ void accumulate(float* out32, __nv_bfloat16* out16, i
     atomicAdd(out16 + i, __float2bfloat16_rn(v));
   } else {
     atomicAdd(out32 + i, v);
-  }
-}
-
-__global__ void scatter_rows_kernel(const int* __restrict__ idx, const float* __restrict__ rows,
-                                    float* __restrict__ out32, __nv_bfloat16* __restrict__ out16,
-                                    int64_t n, int r_width, int64_t size, int contrib, int acc) {
-  const int64_t tid = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
-  if (tid >= n * r_width) return;
-  const int64_t row = tid / r_width;
-  const int col = (int)(tid % r_width);
-  const int target = __ldg(idx + row);
-  if (target < 0 || target >= size) return;  // outside the table: no row to add to
-  accumulate(out32, out16, (int64_t)target * r_width + col,
-             round_contribution(__ldg(rows + tid), contrib), acc);
-}
-
-// The earlier table gradient (tcnn_grid_backward_atomic): one thread per
-// (sample, level), level fastest, a scalar atomic add per contribution.
-template <typename DyT>
-__global__ void grid_backward_atomic_kernel(const float* __restrict__ x, const DyT* __restrict__ dy,
-                                     const Level* __restrict__ levels,
-                                     const int* __restrict__ classes, float* __restrict__ grad32,
-                                     __nv_bfloat16* __restrict__ grad16, int batch, int n_dims,
-                                     int n_levels, int F, int dy_width, int interp) {
-  const int64_t tid = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
-  if (tid >= (int64_t)batch * n_levels) return;
-  const int64_t b = tid / n_levels;
-  const int lvl = (int)(tid % n_levels);
-  const int contrib = __ldg(classes + 2 * lvl);
-  const int acc = __ldg(classes + 2 * lvl + 1);
-  if (acc == kAccDrop) return;
-  const Level lv = levels[lvl];
-  const Cell cell = locate(x + b * n_dims, lv, n_dims, interp);
-
-  float g[kMaxF];
-  const DyT* grow = dy + b * dy_width + lvl * F;
-#pragma unroll
-  for (int f = 0; f < kMaxF; ++f) g[f] = f < F ? (float)grow[f] : 0.0f;
-
-  const int n_corners = interp == kNearest ? 1 : 1 << n_dims;
-  for (int c = 0; c < n_corners; ++c) {
-    float weight;
-    const uint32_t idx = corner(cell, lv, n_dims, interp, c, &weight);
-    const int64_t row = ((int64_t)lv.offset + idx) * F;
-#pragma unroll
-    for (int f = 0; f < kMaxF; ++f) {
-      if (f < F) accumulate(grad32, grad16, row + f, round_contribution(__fmul_rn(weight, g[f]), contrib), acc);
-    }
   }
 }
 
@@ -264,6 +233,107 @@ __device__ __forceinline__ void add_row_bf16(__nv_bfloat16* p, const float (&v)[
 #pragma unroll
     for (int f = 0; f < F; ++f)
       if (v[f] != 0.0f) atomicAdd(p + f, __float2bfloat16_rn(v[f]));
+  }
+}
+
+// The row scatter (tcnn_scatter_rows), laid out by the host's plan
+// (ops/scatter_rows.py:scatter_rows_plan, ScatterRowsPlan.args), entry by
+// entry.
+enum ScatterArg { sN, sS, sR, sAcc, sPrivate, sVec, sPerRow, sPerRowShift, sThreads, sGrid, sSmem };
+constexpr int kPrivateThreads = 1024;
+
+// Item t of the scatter: row n = t / T and its VEC-wide chunk (T = R / VEC
+// threads a row; a shift where T is a power of two).
+__device__ __forceinline__ uint32_t item_row(uint32_t t, int T, int t_shift) {
+  return t_shift >= 0 ? t >> t_shift : t / (uint32_t)T;
+}
+
+template <int VEC>
+__device__ __forceinline__ void load_chunk(const float* p, float (&v)[VEC]) {
+  if constexpr (VEC == 4) {
+    const float4 t = __ldg(reinterpret_cast<const float4*>(p));
+    v[0] = t.x, v[1] = t.y, v[2] = t.z, v[3] = t.w;
+  } else if constexpr (VEC == 2) {
+    const float2 t = __ldg(reinterpret_cast<const float2*>(p));
+    v[0] = t.x, v[1] = t.y;
+  } else {
+    v[0] = __ldg(p);
+  }
+}
+
+// out[idx[n], :] += round(rows[n, :]), 32-bit index math (N x R and S x R
+// below 2^31, checked on the host). kIlp items a thread in flight
+// (grid-stride), each an index and a VEC-wide row chunk loaded and rounded
+// before any add. PRIVATE (fp32 sums only): the block zeroes its shared
+// copy of the whole (S, R) result, adds into it with scalar shared atomics,
+// then flushes every non-zero float4 of it with one vector atomic; the plan
+// privatises only where the flushes are at most an eighth of the adds.
+// Else one vector atomic a chunk straight into the result: float4 / float2
+// for fp32 sums; for bf16 sums (every add rounded to bf16) bf16x2 atomics
+// into the bf16 buffer, which stays on this global path (no private bf16
+// copy), folded into the fp32 result afterwards. An all-zero chunk adds
+// nothing.
+template <int VEC, bool PRIVATE, bool BF16>
+__global__ void __launch_bounds__(PRIVATE ? kPrivateThreads : kMaxThreads)
+    scatter_rows_kernel(const int* __restrict__ idx, const float* __restrict__ rows, float* __restrict__ out32,
+                        __nv_bfloat16* __restrict__ out16, uint32_t N, uint32_t S, int R, int T, int t_shift,
+                        int contrib) {
+  constexpr int kIlp = PRIVATE ? 2 : 4;
+  extern __shared__ __align__(16) float acc[];
+  const uint32_t n_acc = S * (uint32_t)R;
+  if constexpr (PRIVATE) {
+    const float4 zero = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+    for (uint32_t e = threadIdx.x; e < n_acc / 4; e += blockDim.x) reinterpret_cast<float4*>(acc)[e] = zero;
+    for (uint32_t e = n_acc / 4 * 4 + threadIdx.x; e < n_acc; e += blockDim.x) acc[e] = 0.0f;
+    __syncthreads();
+  }
+  const uint32_t n_items = N * (uint32_t)T;
+  const uint32_t stride = gridDim.x * blockDim.x;
+  for (uint32_t t0 = blockIdx.x * blockDim.x + threadIdx.x; t0 < n_items; t0 += kIlp * stride) {
+    uint32_t r[kIlp], at[kIlp];
+    float v[kIlp][VEC];
+#pragma unroll
+    for (int k = 0; k < kIlp; ++k) {
+      const uint32_t t = t0 + k * stride;
+      r[k] = 0xFFFFFFFFu, at[k] = 0;
+      if (t < n_items) {
+        const uint32_t n = item_row(t, T, t_shift);
+        const uint32_t c = (t - n * (uint32_t)T) * VEC;
+        r[k] = (uint32_t)__ldg(idx + n);
+        at[k] = c;
+        load_chunk<VEC>(rows + n * (uint32_t)R + c, v[k]);
+      }
+    }
+#pragma unroll
+    for (int k = 0; k < kIlp; ++k) {
+      if (r[k] >= S) continue;  // outside the table (or no item): no row to add to
+      bool any = false;
+#pragma unroll
+      for (int j = 0; j < VEC; ++j) {
+        v[k][j] = round_contribution(v[k][j], contrib);
+        any |= v[k][j] != 0.0f;
+      }
+      if (!any) continue;  // +-0 adds nothing
+      const uint32_t e = r[k] * (uint32_t)R + at[k];
+      if constexpr (PRIVATE) {
+#pragma unroll
+        for (int j = 0; j < VEC; ++j)
+          if (v[k][j] != 0.0f) atomicAdd(acc + e + j, v[k][j]);
+      } else if constexpr (BF16) {
+        add_row_bf16<VEC>(out16 + e, v[k]);
+      } else {
+        add_row_f32_global<VEC>(out32 + e, v[k]);
+      }
+    }
+  }
+  if constexpr (PRIVATE) {
+    __syncthreads();
+    for (uint32_t e = threadIdx.x; e < n_acc / 4; e += blockDim.x) {
+      const float4 a = reinterpret_cast<const float4*>(acc)[e];
+      if (a.x != 0.0f || a.y != 0.0f || a.z != 0.0f || a.w != 0.0f) atomicAdd(reinterpret_cast<float4*>(out32) + e, a);
+    }
+    for (uint32_t e = n_acc / 4 * 4 + threadIdx.x; e < n_acc; e += blockDim.x)
+      if (acc[e] != 0.0f) atomicAdd(out32 + e, acc[e]);
   }
 }
 
@@ -376,14 +446,12 @@ template <typename DyT, int F>
 cudaError_t launch_tiled(unsigned blocks, const Plan& plan, cudaStream_t s, const float* x, const DyT* dy,
                          const Level* levels, const int* classes, float* grad32, __nv_bfloat16* grad16, int batch,
                          int n_dims, int n_levels, int dy_width, int interp) {
-  // Above 48 KB a block's dynamic shared memory must be allowed first; the
-  // largest size allowed so far is kept per instantiation.
-  static int allowed = 48 * 1024;
-  if (plan.smem_bytes > allowed) {
+  // Above 48 KB a block's dynamic shared memory must be allowed first. The
+  // attribute holds for the current device only, so every such launch sets it.
+  if (plan.smem_bytes > 48 * 1024) {
     const cudaError_t err = cudaFuncSetAttribute(grid_backward_kernel<DyT, F>,
                                                  cudaFuncAttributeMaxDynamicSharedMemorySize, plan.smem_bytes);
     if (err != cudaSuccess) return err;
-    allowed = plan.smem_bytes;
   }
   grid_backward_kernel<DyT, F><<<blocks, plan.threads, plan.smem_bytes, s>>>(
       x, dy, levels, classes, grad32, grad16, batch, n_dims, n_levels, dy_width, interp, plan);
@@ -582,25 +650,55 @@ unsigned blocks_for(int64_t n) { return (unsigned)((n + kThreads - 1) / kThreads
 // needed (non-null) only when some contribution accumulates in bf16; its
 // sums are folded into the fp32 output at the end.
 
-// out (size, r_width) fp32 = sum over n of round(rows[n]) at row idx[n].
-extern "C" int tcnn_scatter_rows(const void* idx, const void* rows, void* out32, void* out16,
-                                 int64_t n, int r_width, int64_t size, int contrib, int acc,
-                                 void* stream) {
+template <int VEC>
+cudaError_t launch_scatter(const int32_t* p, cudaStream_t s, const int* idx, const float* rows, float* out32,
+                           __nv_bfloat16* out16, int contrib) {
+  const dim3 grid(p[sGrid]), block(p[sThreads]);
+  const size_t smem = (size_t)p[sSmem];
+  const uint32_t N = p[sN], S = p[sS];
+  const int R = p[sR], T = p[sPerRow], ts = p[sPerRowShift];
+  if (p[sPrivate] > 0) {
+    if (smem > 48 * 1024) {
+      const cudaError_t err = cudaFuncSetAttribute(scatter_rows_kernel<VEC, true, false>,
+                                                   cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+      if (err != cudaSuccess) return err;
+    }
+    scatter_rows_kernel<VEC, true, false><<<grid, block, smem, s>>>(idx, rows, out32, out16, N, S, R, T, ts, contrib);
+  } else if (p[sAcc] == kAccBf16) {
+    scatter_rows_kernel<VEC, false, true><<<grid, block, 0, s>>>(idx, rows, out32, out16, N, S, R, T, ts, contrib);
+  } else {
+    scatter_rows_kernel<VEC, false, false><<<grid, block, 0, s>>>(idx, rows, out32, out16, N, S, R, T, ts, contrib);
+  }
+  return cudaGetLastError();
+}
+
+// out (S, R) fp32 = sum over n of round(rows[n]) at row idx[n]: `plan` is
+// the host plan's int32 array (ScatterArg above), `contrib` the
+// contribution rounding; out16 is bf16 scratch of the output's size for
+// ACC_BF16 (else null).
+extern "C" int tcnn_scatter_rows(const void* idx, const void* rows, void* out32, void* out16, int contrib,
+                                 const int32_t* plan, void* stream) {
+  const int32_t* p = plan;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const int64_t n_out = size * r_width;
+  const int acc = p[sAcc], vec = p[sVec];
+  const int64_t n_out = (int64_t)p[sS] * p[sR];
   if (acc == kAccBf16 && out16 == nullptr) return (int)cudaErrorInvalidValue;
   cudaError_t err = cudaMemsetAsync(out32, 0, n_out * 4, s);
   if (err == cudaSuccess && acc == kAccBf16) err = cudaMemsetAsync(out16, 0, n_out * 2, s);
   if (err != cudaSuccess) return (int)err;
-  if (n > 0 && acc != kAccDrop) {
-    scatter_rows_kernel<<<blocks_for(n * r_width), kThreads, 0, s>>>(
-        static_cast<const int*>(idx), static_cast<const float*>(rows), static_cast<float*>(out32),
-        static_cast<__nv_bfloat16*>(out16), n, r_width, size, contrib, acc);
-    if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
+  if (p[sN] > 0 && p[sGrid] > 0 && acc != kAccDrop) {
+    const int* ix = static_cast<const int*>(idx);
+    const float* rw = static_cast<const float*>(rows);
+    float* o32 = static_cast<float*>(out32);
+    __nv_bfloat16* o16 = static_cast<__nv_bfloat16*>(out16);
+    err = vec == 4 ? launch_scatter<4>(p, s, ix, rw, o32, o16, contrib)
+        : vec == 2 ? launch_scatter<2>(p, s, ix, rw, o32, o16, contrib)
+                   : launch_scatter<1>(p, s, ix, rw, o32, o16, contrib);
+    if (err != cudaSuccess) return (int)err;
   }
   if (acc == kAccBf16) {
-    fold_bf16_kernel<<<blocks_for(n_out), kThreads, 0, s>>>(
-        static_cast<float*>(out32), static_cast<const __nv_bfloat16*>(out16), n_out);
+    fold_bf16_kernel<<<blocks_for(n_out), kThreads, 0, s>>>(static_cast<float*>(out32),
+                                                             static_cast<const __nv_bfloat16*>(out16), n_out);
   }
   return (int)cudaGetLastError();
 }
@@ -643,42 +741,6 @@ extern "C" int tcnn_grid_backward(const void* x, const void* dy, const void* lev
                   : launch_by_features(F, blocks, p, s, xf, static_cast<const float*>(dy), lv, cls, g32, g16,
                                        batch, n_dims, n_levels, dy_width, interp);
     if (err != cudaSuccess) return (int)err;
-  }
-  if (grad16 != nullptr) {
-    fold_bf16_kernel<<<blocks_for(n_values), kThreads, 0, s>>>(
-        static_cast<float*>(grad32), static_cast<const __nv_bfloat16*>(grad16), n_values);
-  }
-  return (int)cudaGetLastError();
-}
-
-// The earlier table-gradient kernel, kept to be timed and checked beside
-// tcnn_grid_backward: the same function and arguments without the plan.
-extern "C" int tcnn_grid_backward_atomic(const void* x, const void* dy, const void* levels,
-                                  const void* classes, void* grad32, void* grad16, int batch,
-                                  int n_dims, int n_levels, int F, int dy_width, int interp,
-                                  int dy_bf16, int64_t n_values, void* stream) {
-  if (n_dims < 1 || n_dims > kMaxDims || F < 1 || F > kMaxF) return (int)cudaErrorInvalidValue;
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  cudaError_t err = cudaMemsetAsync(grad32, 0, n_values * 4, s);
-  if (err == cudaSuccess && grad16 != nullptr) err = cudaMemsetAsync(grad16, 0, n_values * 2, s);
-  if (err != cudaSuccess) return (int)err;
-  if (batch > 0) {
-    const unsigned blocks = blocks_for((int64_t)batch * n_levels);
-    const float* xf = static_cast<const float*>(x);
-    const Level* lv = static_cast<const Level*>(levels);
-    const int* cls = static_cast<const int*>(classes);
-    float* g32 = static_cast<float*>(grad32);
-    __nv_bfloat16* g16 = static_cast<__nv_bfloat16*>(grad16);
-    if (dy_bf16) {
-      grid_backward_atomic_kernel<__nv_bfloat16><<<blocks, kThreads, 0, s>>>(
-          xf, static_cast<const __nv_bfloat16*>(dy), lv, cls, g32, g16, batch, n_dims, n_levels, F,
-          dy_width, interp);
-    } else {
-      grid_backward_atomic_kernel<float><<<blocks, kThreads, 0, s>>>(
-          xf, static_cast<const float*>(dy), lv, cls, g32, g16, batch, n_dims, n_levels, F, dy_width,
-          interp);
-    }
-    if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
   }
   if (grad16 != nullptr) {
     fold_bf16_kernel<<<blocks_for(n_values), kThreads, 0, s>>>(

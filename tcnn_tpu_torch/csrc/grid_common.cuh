@@ -11,6 +11,14 @@
 // arithmetic, then mod the level size); the d-linear (or smoothstep, or
 // nearest) weights, multiplied in dimension order.
 //
+// The reductions mod the level size are 32-bit and take no hardware
+// division: a power-of-two size masks, any other multiplies by the level
+// table's reciprocal (reduce(): a high product and two shifts, exact for
+// every uint32), and the affine quad corner adds its per-dim deltas (each
+// already below the size) to the base with at most one subtraction each
+// (add_mod()). The results are the plain remainders of the 64-bit and
+// 32-bit '%' they replace, bit for bit.
+//
 // The input-gradient kernels also need the derivatives of the weights: the
 // weight of corner c is prod_d f_cd with f_cd = w_d (upper neighbour in dim
 // d) or 1 - w_d (lower), so d f_cd / d x_d = +-w_d'(x_d) and d^2 f_cd / d x_d^2
@@ -33,7 +41,7 @@ namespace tcnn_grid {
 constexpr int kMaxDims = 10;
 constexpr int kMaxF = 8;
 
-// Layout of one row of the (L, 26) int32 level table built by
+// Layout of one row of the (L, 28) int32 level table built by
 // tcnn_tpu_torch/ops/grid_encode.py:level_table.
 struct Level {
   uint32_t offset;                 // first table row of the level
@@ -44,11 +52,31 @@ struct Level {
   uint32_t stride_mod[kMaxDims];   // per-dim factor mod size (kQuad deltas)
   int32_t serve_round;             // serve-time rounding of this level's reads (kRound*)
   int32_t own_round;               // rounding of its reads to the encoding's table dtype (kRound*)
+  uint32_t mod_magic;              // reduce()'s multiplier; 0 for a power-of-two size (a mask)
+  uint32_t mod_shift;              // reduce()'s final shift
 };
-static_assert(sizeof(Level) == 104, "Level must match the host table layout");
+static_assert(sizeof(Level) == 112, "Level must match the host table layout");
 
 enum { kFold = 0, kQuad = 1, kXor = 2, kBaseConvert = 3 };
 enum { kNearest = 0, kLinear = 1, kSmoothstep = 2 };
+
+// h mod lv.size for any uint32 h: a mask for a power-of-two size, else the
+// round-up reciprocal method (q = floor(h / size) from one high product,
+// t = ((h - hi) >> 1) + hi, q = t >> shift; the host's level_table computes
+// magic = floor(2^(33 + s) / size) + 1 - 2^32 and shift = s, s =
+// floor(log2 size)), then h - q size.
+__device__ __forceinline__ uint32_t reduce(uint32_t h, const Level& lv) {
+  if (lv.mod_magic == 0) return h & (lv.size - 1u);
+  const uint32_t hi = __umulhi(h, lv.mod_magic);
+  const uint32_t q = (((h - hi) >> 1) + hi) >> lv.mod_shift;
+  return h - q * lv.size;
+}
+
+// (a + b) mod n for a, b < n, with the 32-bit sum's carry.
+__device__ __forceinline__ uint32_t add_mod(uint32_t a, uint32_t b, uint32_t n) {
+  const uint32_t s = a + b;
+  return s < a || s >= n ? s - n : s;
+}
 
 // A sample's cell on one level: grid position, interpolation fractions and
 // (kQuad) the base index.
@@ -80,7 +108,7 @@ __device__ __forceinline__ Cell locate(const float* __restrict__ xrow, const Lev
     for (int d = 0; d < kMaxDims; ++d) {
       if (d < n_dims) cell.base += cell.pg[d] * lv.stride[d];
     }
-    cell.base %= lv.size;
+    cell.base = reduce(cell.base, lv);
   }
   return cell;
 }
@@ -90,8 +118,7 @@ __device__ __forceinline__ Cell locate(const float* __restrict__ xrow, const Lev
 __device__ __forceinline__ uint32_t corner(const Cell& cell, const Level& lv, int n_dims, int interp,
                                            int c, float* weight) {
   float wt = 1.0f;
-  uint32_t h = 0;
-  uint64_t delta = 0;
+  uint32_t h = 0, delta = 0;
 #pragma unroll
   for (int d = 0; d < kMaxDims; ++d) {
     if (d < n_dims) {
@@ -100,15 +127,16 @@ __device__ __forceinline__ uint32_t corner(const Cell& cell, const Level& lv, in
       if (interp != kNearest) wt = __fmul_rn(wt, bit ? cell.w[d] : __fsub_rn(1.0f, cell.w[d]));
       switch (lv.mode) {
         case kFold: h += p * lv.stride[d]; break;
-        case kQuad: delta += bit * lv.stride_mod[d]; break;
+        case kQuad:
+          if (bit) delta = add_mod(delta, lv.stride_mod[d], lv.size);
+          break;
         case kXor: h ^= p * lv.stride[d]; break;
         default: h = (h + p) * 2531011u; break;  // kBaseConvert
       }
     }
   }
   *weight = wt;
-  return lv.mode == kQuad ? (uint32_t)(((uint64_t)cell.base + delta % lv.size) % lv.size)
-                          : h % lv.size;
+  return lv.mode == kQuad ? add_mod(cell.base, delta, lv.size) : reduce(h, lv);
 }
 
 enum { kRoundNone = 0, kRoundFp16 = 1, kRoundBf16 = 2 };
@@ -119,12 +147,13 @@ __device__ __forceinline__ float round_to(float v, int code) {
   return v;
 }
 
-// A table value as the lookup reads it on level lv: fp32, rounded to the
+// A table value v as the lookup reads it on level lv: fp32, rounded to the
 // encoding's table dtype where the level reads it so, then to the level's
 // serve-time dtype where it has one.
-__device__ __forceinline__ float read_rounded(const float* p, const Level& lv) {
-  return round_to(round_to(__ldg(p), lv.own_round), lv.serve_round);
+__device__ __forceinline__ float rounded(float v, const Level& lv) {
+  return round_to(round_to(v, lv.own_round), lv.serve_round);
 }
+__device__ __forceinline__ float read_rounded(const float* p, const Level& lv) { return rounded(__ldg(p), lv); }
 
 // Per dim, the first (d1) and second (d2) derivative of the interpolation
 // fraction w_d with respect to x_d.

@@ -407,7 +407,7 @@ class GridEncoding(Encoding):
 
     def level_table(self, table_dtype: Optional[str] = None, raster_sides=None, batch: Optional[int] = None,
                     stratified: Optional[bool] = None) -> np.ndarray:
-        """The (n_levels, 26) int32 level table of this encoding for a call
+        """The (n_levels, 28) int32 level table of this encoding for a call
         on ``batch`` samples or on the raster of ``raster_sides``: the
         levels ``rounded_levels`` names round their reads to the encoding's
         ``table_dtype``; with a serve-time ``table_dtype``, the levels

@@ -19,6 +19,8 @@ import threading
 from pathlib import Path
 from typing import Dict
 
+import torch
+
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "tcnn_tpu_torch"
 NVCC_FLAGS = (
@@ -102,3 +104,12 @@ def kernel(name: str, symbol: str, argtypes):
         with _lock:
             _bound[key] = fn
     return fn
+
+
+def stream(index: int) -> int:
+    """The raw handle of the current stream of CUDA device ``index``, read
+    anew each call (the caller may switch streams): what every kernel
+    wrapper passes its C entry point. Cheaper on the host than
+    ``torch.cuda.current_stream(dev).cuda_stream``, which builds a Stream
+    object (PERF.md gives both readings)."""
+    return torch._C._cuda_getCurrentRawStream(index)

@@ -46,14 +46,13 @@ from ..networks.activations import ACTIVATION_CODES, activation_backward, activa
 # wrapper's kernel, nowhere else): the forward and the backward (K2, whose
 # parts count on their own too: the walk, and the weight-gradient product
 # with its reduce), the same two launched by the packed-I/O wrappers (K7,
-# K8), and the earlier atomic backward kept for timing (``_ffmlp_backward_atomic``).
+# K8).
 LAUNCHES = 0
 BWD_LAUNCHES = 0
 WALK_LAUNCHES = 0
 DW_LAUNCHES = 0
 PACKED_LAUNCHES = 0
 PACKED_BWD_LAUNCHES = 0
-ATOMIC_LAUNCHES = 0
 
 FFMLP_WIDTHS = (16, 32, 64, 128)
 
@@ -199,7 +198,6 @@ _FWD_ARGS = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 7 + [ctypes.c_void_p]
 _WALK_ARGS = [ctypes.c_void_p] * 7 + [ctypes.c_longlong] + [ctypes.c_int] * 8 + [ctypes.c_void_p]
 _WALK_SCRATCH_ARGS = [ctypes.c_int] * 4 + [ctypes.c_void_p]
 _DW_ARGS = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 8 + [ctypes.c_void_p]
-_ATOMIC_ARGS = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 7 + [ctypes.c_void_p]
 
 
 def _kernel_operands(what: str, x: torch.Tensor, weights: Sequence[torch.Tensor]):
@@ -224,7 +222,7 @@ def _check(what: str, err: int) -> None:
 def _launch_forward(what: str, x, weights, activation, output_activation) -> torch.Tensor:
     """Checks the operands and launches ``csrc/ffmlp_fwd.cu``; raises if the
     launch fails."""
-    from ._build import kernel
+    from ._build import kernel, stream
 
     width, n_hidden, out_width, flat = _kernel_operands(what, x, weights)
     batch = x.shape[0]
@@ -235,7 +233,7 @@ def _launch_forward(what: str, x, weights, activation, output_activation) -> tor
         x.data_ptr(), flat.data_ptr(), out.data_ptr(),
         batch, x.shape[1], width, n_hidden, out_width,
         ACTIVATION_CODES[activation], ACTIVATION_CODES[output_activation],
-        torch.cuda.current_stream(x.device).cuda_stream,
+        stream(x.get_device()),
     ))
     return out
 
@@ -288,7 +286,7 @@ def _walk_z_floats(what: str, in_width: int, dims) -> int:
 def _walk(what: str, x, g, flat, dims, act_codes, rows_padded: int):
     """Launches the walk (``tcnn_ffmlp_bwd_walk``) for a non-empty batch:
     returns (dx, D scratch, H scratch)."""
-    from ._build import kernel
+    from ._build import kernel, stream
 
     global WALK_LAUNCHES
     width, n_hidden, out_width = dims
@@ -300,7 +298,7 @@ def _walk(what: str, x, g, flat, dims, act_codes, rows_padded: int):
     _check(what, kernel("ffmlp_bwd", "tcnn_ffmlp_bwd_walk", _WALK_ARGS)(
         x.data_ptr(), g.data_ptr(), flat.data_ptr(), dx.data_ptr(), d_scr.data_ptr(), h_scr.data_ptr(),
         z_scr.data_ptr(), z_floats, x.shape[0], rows_padded, x.shape[1], width, n_hidden, out_width, *act_codes,
-        torch.cuda.current_stream(x.device).cuda_stream,
+        stream(x.get_device()),
     ))
     WALK_LAUNCHES += 1
     return dx, d_scr, h_scr
@@ -309,7 +307,7 @@ def _walk(what: str, x, g, flat, dims, act_codes, rows_padded: int):
 def _weight_grad(what: str, x, d_scr, h_scr, flat, dims, split) -> torch.Tensor:
     """Launches the split-K weight-gradient product and its reduce
     (``tcnn_ffmlp_bwd_dw``): returns dW flat, bf16, in the weights' layout."""
-    from ._build import kernel
+    from ._build import kernel, stream
 
     global DW_LAUNCHES
     width, n_hidden, out_width = dims
@@ -319,7 +317,7 @@ def _weight_grad(what: str, x, d_scr, h_scr, flat, dims, split) -> torch.Tensor:
     _check(what, kernel("ffmlp_bwd", "tcnn_ffmlp_bwd_dw", _DW_ARGS)(
         x.data_ptr(), d_scr.data_ptr(), h_scr.data_ptr(), partial.data_ptr(), dw16.data_ptr(),
         x.shape[0], rows_padded, x.shape[1], width, n_hidden, out_width, tiles_per_split, splits,
-        torch.cuda.current_stream(x.device).cuda_stream,
+        stream(x.get_device()),
     ))
     DW_LAUNCHES += 1
     return dw16
@@ -343,31 +341,6 @@ def _launch_backward(what: str, x, g, weights, activation, output_activation):
     else:
         dx, d_scr, h_scr = torch.empty_like(x), x, x
     return dx, _unflatten(_weight_grad(what, x, d_scr, h_scr, flat, dims, split), weights)
-
-
-def _ffmlp_backward_atomic(x, g, weights, activation, output_activation):
-    """The earlier backward kernel (``tcnn_ffmlp_backward_atomic``: dW summed
-    with shared-memory atomics, layer groups re-launched when the fp32
-    partial does not fit). Kept only so that chip_smoke.py can time the new
-    design against it in one call (run-to-run medians drift too far to
-    compare across calls) and one on-card test can hold the two against
-    each other; no path of the port calls it. CUDA tensors only. Returns
-    (dx, [dW...])."""
-    from ._build import kernel
-
-    global ATOMIC_LAUNCHES
-    width, n_hidden, out_width, flat = _backward_operands("_ffmlp_backward_atomic", x, g, weights)
-    dx = torch.empty_like(x)
-    dw32 = torch.empty(flat.numel(), dtype=torch.float32, device=x.device)
-    dw16 = torch.empty_like(flat)
-    _check("_ffmlp_backward_atomic", kernel("ffmlp_bwd", "tcnn_ffmlp_backward_atomic", _ATOMIC_ARGS)(
-        x.data_ptr(), g.data_ptr(), flat.data_ptr(), dx.data_ptr(), dw32.data_ptr(), dw16.data_ptr(),
-        x.shape[0], x.shape[1], width, n_hidden, out_width,
-        ACTIVATION_CODES[activation], ACTIVATION_CODES[output_activation],
-        torch.cuda.current_stream(x.device).cuda_stream,
-    ))
-    ATOMIC_LAUNCHES += 1
-    return dx, _unflatten(dw16, weights)
 
 
 def ffmlp_backward(

@@ -100,12 +100,12 @@ def adam_step(
     if hp.n != n:
         raise ValueError(f"adam_step: hyperparameters are for {hp.n} parameters, got {n}")
     global LAUNCHES
-    from ._build import kernel
+    from ._build import kernel, stream
 
     err = kernel("adam_step", "tcnn_adam_step", [ctypes.c_void_p] * 8)(
         params.data_ptr(), grads.data_ptr(), first_moments.data_ptr(), second_moments.data_ptr(),
         param_steps.data_ptr(), step.data_ptr(), ctypes.addressof(hp),
-        torch.cuda.current_stream(params.device).cuda_stream,
+        stream(params.get_device()),
     )
     if err != 0:
         raise RuntimeError(f"adam_step: CUDA launch failed (cudaError {err})")

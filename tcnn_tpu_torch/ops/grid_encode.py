@@ -1,23 +1,25 @@
 """Multiresolution grid lookup and its derivatives: the CUDA kernels'
 wrappers, their plain versions and the autograd Functions that bind them.
 
-The lookup kernel (``csrc/grid_fwd.cu``) covers every level in one launch,
-one thread per (sample, level). Its plain version ``grid_encode_plain`` is a
-vectorised torch lookup level by level. The table-gradient kernel
+The lookup kernel (``csrc/grid_fwd.cu``) covers every level in one launch:
+a block owns 32 consecutive samples, a warp takes one level of them at a
+time, with 32-bit index arithmetic and no division; the earlier kernel (one
+thread per (sample, level)) stays as ``grid_encode_v1``, for timing and the
+bitwise check only. Its plain version ``grid_encode_plain`` is a vectorised
+torch lookup level by level. The table-gradient kernel
 (``csrc/grid_bwd.cu:tcnn_grid_backward``) recomputes each (sample, level)'s
 corners the same way and adds the rounded contributions into the table
 gradient, level-major, as the host's ``backward_plan`` lays it out: small
 levels in shared-memory copies, equal rows of neighbouring samples summed in
 the warp first, one vector atomic a row; its plain version is
-``grid_backward_plain``, and the earlier one-atomic-per-contribution kernel
-stays as ``_grid_backward_atomic``, for timing and checking only. The input
-gradient (``tcnn_grid_backward_input``, plain ``grid_backward_input_plain``)
-and the double backward (``tcnn_grid_backward_backward``, plain
-``grid_backward_backward_plain``) replace what the JAX package gets from XLA
+``grid_backward_plain``. The input gradient (``tcnn_grid_backward_input``,
+plain ``grid_backward_input_plain``) and the double backward
+(``tcnn_grid_backward_backward``, plain ``grid_backward_backward_plain``)
+replace what the JAX package gets from XLA
 autodiff of ``GridEncoding.apply`` (tcnn_tpu/encodings/grid.py:1354): they
 differentiate the corner weights with respect to x, exactly in every term
 (``jax.grad`` of ``jax.grad``). All of them read the same description of the
-grid: the (n_levels, 26) int32 level table built by ``level_table``; the
+grid: the (n_levels, 28) int32 level table built by ``level_table``; the
 table-gradient scatters also read the per-level gradient rounding classes
 (``ops.scatter_rows`` codes).
 
@@ -41,13 +43,13 @@ import torch
 
 # Launches of the CUDA kernels (each incremented once per launch of its
 # wrapper's kernel, nowhere else): the lookup, the table gradient, the input
-# gradient (G1), the double backward (G2) and the earlier table-gradient
-# kernel kept for timing (``_grid_backward_atomic``).
+# gradient (G1), the double backward (G2) and the earlier lookup kept for
+# the A/B (``grid_encode_v1``).
 LAUNCHES = 0
+V1_LAUNCHES = 0
 BWD_LAUNCHES = 0
 INPUT_LAUNCHES = 0
 BWDBWD_LAUNCHES = 0
-ATOMIC_BWD_LAUNCHES = 0
 
 # Level index modes (csrc/grid_fwd.cu switches on the same values).
 MODE_FOLD = 0  # affine: (sum_d uint32(pos_grid_d + bit_d) * stride_d) mod size
@@ -66,10 +68,12 @@ _ROUND_DTYPES = {ROUND_FP16: torch.float16, ROUND_BF16: torch.bfloat16}
 
 MAX_DIMS = 10
 MAX_FEATURES = 8
-MAX_LEVELS = 128  # csrc/grid_bwd.cu kMaxLevels (common.MAX_N_LEVELS)
+MAX_LEVELS = 128  # csrc/grid_fwd.cu, grid_bwd.cu kMaxLevels (common.MAX_N_LEVELS)
 _SERVE_COL = 4 + 2 * MAX_DIMS
 _OWN_COL = _SERVE_COL + 1
-_LEVEL_COLS = _OWN_COL + 1
+_MAGIC_COL = _OWN_COL + 1
+_SHIFT_COL = _MAGIC_COL + 1
+_LEVEL_COLS = _SHIFT_COL + 1
 _M32 = 0xFFFFFFFF
 _BASE_CONVERT_FACTOR = 2531011
 
@@ -83,12 +87,13 @@ def level_table(
     serve_rounds: Optional[Sequence[int]] = None,
     own_rounds: Optional[Sequence[int]] = None,
 ) -> np.ndarray:
-    """The (n_levels, 26) int32 level table: per level the row offset, the
+    """The (n_levels, 28) int32 level table: per level the row offset, the
     row count, the index mode, the fp32 scale (bit pattern), the per-dim
     factors masked to 32 bits, the per-dim factors mod the level size, the
-    serve-time rounding of the level's reads and the rounding of its reads
+    serve-time rounding of the level's reads, the rounding of its reads
     to the encoding's own table dtype (ROUND_* codes; reads round by the
-    own code first; ROUND_NONE where the sequence is None).
+    own code first; ROUND_NONE where the sequence is None) and the
+    reciprocal of the level size (``mod_reciprocal``).
     ``strides[l]`` are the exact (unmasked) per-dim factors of level l."""
     n = len(offsets)
     t = np.zeros((n, _LEVEL_COLS), np.uint32)
@@ -105,7 +110,22 @@ def level_table(
         t[lvl, 4 + MAX_DIMS : 4 + MAX_DIMS + len(st)] = [s % size for s in st]
         t[lvl, _SERVE_COL] = ROUND_NONE if serve_rounds is None else int(serve_rounds[lvl])
         t[lvl, _OWN_COL] = ROUND_NONE if own_rounds is None else int(own_rounds[lvl])
+        t[lvl, _MAGIC_COL], t[lvl, _SHIFT_COL] = mod_reciprocal(size)
     return t.view(np.int32)
+
+
+def mod_reciprocal(size: int) -> Tuple[int, int]:
+    """(magic, shift) with which the kernels reduce a uint32 mod ``size``
+    (csrc/grid_common.cuh:reduce): (0, 0) for a power of two, which they
+    mask; else shift = floor(log2 size) and magic = floor(2^(33 + shift) /
+    size) + 1 - 2^32, in [1, 2^32)."""
+    size = int(size)
+    if size < 1 or size >= 2**32:
+        raise ValueError(f"a level holds 1 to 2^32 - 1 rows, not {size}")
+    if size & (size - 1) == 0:
+        return 0, 0
+    shift = size.bit_length() - 1
+    return 2 ** (33 + shift) // size + 1 - 2**32, shift
 
 
 def _mul32(a: torch.Tensor, b: int) -> torch.Tensor:
@@ -396,7 +416,6 @@ def grid_backward_backward_plain(
 
 _FWD_ARGS = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 7 + [ctypes.c_void_p]
 _BWD_ARGS = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 7 + [ctypes.c_int64, ctypes.c_void_p, ctypes.c_void_p]
-_ATOMIC_BWD_ARGS = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 7 + [ctypes.c_int64, ctypes.c_void_p]
 _INPUT_ARGS = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 7 + [ctypes.c_void_p]
 _BWDBWD_ARGS = [ctypes.c_void_p] * 11 + [ctypes.c_int] * 7 + [ctypes.c_int64, ctypes.c_void_p]
 
@@ -405,7 +424,7 @@ def _check_kernel_inputs(what: str, x: torch.Tensor, levels: torch.Tensor, n_fea
     if x.dim() != 2 or x.dtype != torch.float32 or not x.is_contiguous():
         raise ValueError(f"{what}: x must be a contiguous 2-D float32 tensor")
     if levels.dtype != torch.int32 or levels.shape[1:] != (_LEVEL_COLS,) or levels.device != x.device:
-        raise ValueError(f"{what}: levels must be the (L, 26) int32 level table on the device of x")
+        raise ValueError(f"{what}: levels must be the (L, {_LEVEL_COLS}) int32 level table on the device of x")
     if not 1 <= x.shape[1] <= MAX_DIMS or not 1 <= int(n_features_per_level) <= MAX_FEATURES:
         raise ValueError(f"{what}: unsupported shape (dims {x.shape[1]}, features per level {n_features_per_level})")
 
@@ -432,13 +451,36 @@ def _check_classes(what: str, level_round: torch.Tensor, x: torch.Tensor, n_leve
 
 
 
-def _stream(x: torch.Tensor) -> int:
-    return torch.cuda.current_stream(x.device).cuda_stream
-
-
 def _launch(what: str, err: int) -> None:
     if err != 0:
         raise RuntimeError(f"{what}: CUDA launch failed (cudaError {err})")
+
+
+def _lookup(what, symbol, x, params, levels, n_features_per_level, padded_width, interpolation, out_dtype):
+    """Checks the operands and launches the lookup kernel ``symbol``;
+    returns the (B, padded_width) output."""
+    _check_kernel_inputs(what, x, levels, n_features_per_level)
+    _check_params(what, params, x)
+    if out_dtype not in (torch.bfloat16, torch.float32):
+        raise ValueError(f"{what}: the kernel writes bfloat16 or float32, not {out_dtype}")
+    if params.numel() >= 2**31:
+        raise ValueError(f"{what}: the kernel indexes the table in 32 bits (below 2^31 values)")
+    F = int(n_features_per_level)
+    batch, d = x.shape
+    n_levels = levels.shape[0]
+    if not 1 <= n_levels <= MAX_LEVELS or padded_width < n_levels * F:
+        raise ValueError(f"{what}: {n_levels} levels (1 to {MAX_LEVELS}) of {F} features into width {padded_width}")
+    out = torch.empty((batch, padded_width), dtype=out_dtype, device=x.device)
+    if batch == 0:
+        return out
+    from ._build import kernel, stream
+
+    _launch(what, kernel("grid_fwd", symbol, _FWD_ARGS)(
+        x.data_ptr(), params.data_ptr(), levels.data_ptr(), out.data_ptr(),
+        batch, d, n_levels, F, padded_width, int(interpolation), int(out_dtype == torch.bfloat16),
+        stream(x.get_device()),
+    ))
+    return out
 
 
 def grid_encode(
@@ -456,26 +498,27 @@ def grid_encode(
         return grid_encode_plain(x, params, levels, n_features_per_level, padded_width, interpolation, out_dtype)
     if x.device.type != "cuda":
         raise ValueError(f"grid_encode: unsupported device {x.device}")
-    _check_kernel_inputs("grid_encode", x, levels, n_features_per_level)
-    _check_params("grid_encode", params, x)
-    if out_dtype not in (torch.bfloat16, torch.float32):
-        raise ValueError(f"grid_encode: the kernel writes bfloat16 or float32, not {out_dtype}")
-    F = int(n_features_per_level)
-    batch, d = x.shape
-    n_levels = levels.shape[0]
-    if padded_width < n_levels * F:
-        raise ValueError(f"grid_encode: output width {padded_width} < {n_levels} levels x {F} features")
-    out = torch.empty((batch, padded_width), dtype=out_dtype, device=x.device)
-    if batch == 0:
-        return out
-    from ._build import kernel
-
     global LAUNCHES
-    _launch("grid_encode", kernel("grid_fwd", "tcnn_grid_forward", _FWD_ARGS)(
-        x.data_ptr(), params.data_ptr(), levels.data_ptr(), out.data_ptr(),
-        batch, d, n_levels, F, padded_width, int(interpolation), int(out_dtype == torch.bfloat16), _stream(x),
-    ))
-    LAUNCHES += 1
+    out = _lookup("grid_encode", "tcnn_grid_forward", x, params, levels, n_features_per_level, padded_width,
+                  interpolation, out_dtype)
+    if x.shape[0]:
+        LAUNCHES += 1
+    return out
+
+
+def grid_encode_v1(x, params, levels, n_features_per_level, padded_width, interpolation, out_dtype=torch.bfloat16):
+    """The earlier lookup kernel (``tcnn_grid_forward_v1``: one thread per
+    (sample, level), level fastest, 64-bit index arithmetic), kept only so
+    that chip_smoke.py can time the new kernel against it in one call and
+    hold the two bitwise equal; no path of the port calls it. CUDA tensors
+    only; the contract of ``grid_encode``."""
+    if x.device.type != "cuda":
+        raise ValueError("grid_encode_v1: CUDA tensors only")
+    global V1_LAUNCHES
+    out = _lookup("grid_encode_v1", "tcnn_grid_forward_v1", x, params, levels, n_features_per_level, padded_width,
+                  interpolation, out_dtype)
+    if x.shape[0]:
+        V1_LAUNCHES += 1
     return out
 
 
@@ -605,48 +648,16 @@ def grid_backward(
         )
     n_values = plan.n_rows * F
     grad, grad16 = _grad_buffers(levels.device, n_values, plan.accumulates_bf16)
-    from ._build import kernel
+    from ._build import kernel, stream
 
     global BWD_LAUNCHES
     _launch("grid_backward", kernel("grid_bwd", "tcnn_grid_backward", _BWD_ARGS)(
         x.data_ptr(), dL_dy.data_ptr(), levels.data_ptr(), level_round.data_ptr(), grad.data_ptr(),
         None if grad16 is None else grad16.data_ptr(),
         batch, d, n_levels, F, dL_dy.shape[1], int(interpolation), int(dL_dy.dtype == torch.bfloat16),
-        n_values, plan.array.ctypes.data, _stream(x),
+        n_values, plan.array.ctypes.data, stream(x.get_device()),
     ))
     BWD_LAUNCHES += 1
-    return grad
-
-
-def _grid_backward_atomic(x, dL_dy, levels, n_features_per_level, interpolation, level_round):
-    """The earlier table-gradient kernel (``tcnn_grid_backward_atomic``: one
-    thread per (sample, level), level fastest, a scalar atomic add per
-    contribution), kept only to be timed and checked beside
-    ``tcnn_grid_backward``; CUDA tensors only. Same contract as
-    ``grid_backward``."""
-    from .scatter_rows import ACC_BF16
-
-    what = "_grid_backward_atomic"
-    if x.device.type != "cuda":
-        raise ValueError(f"{what}: CUDA tensors only")
-    _check_kernel_inputs(what, x, levels, n_features_per_level)
-    F = int(n_features_per_level)
-    batch, d = x.shape
-    n_levels = levels.shape[0]
-    _check_dy(what, dL_dy, x, n_levels, F)
-    _check_classes(what, level_round, x, n_levels)
-    n_values = _table_rows(levels.cpu().numpy().view(np.uint32).astype(np.int64)) * F
-    grad, grad16 = _grad_buffers(levels.device, n_values, bool((level_round[:, 1] == ACC_BF16).any()))
-    from ._build import kernel
-
-    global ATOMIC_BWD_LAUNCHES
-    _launch(what, kernel("grid_bwd", "tcnn_grid_backward_atomic", _ATOMIC_BWD_ARGS)(
-        x.data_ptr(), dL_dy.data_ptr(), levels.data_ptr(), level_round.data_ptr(), grad.data_ptr(),
-        None if grad16 is None else grad16.data_ptr(),
-        batch, d, n_levels, F, dL_dy.shape[1], int(interpolation), int(dL_dy.dtype == torch.bfloat16),
-        n_values, _stream(x),
-    ))
-    ATOMIC_BWD_LAUNCHES += 1
     return grad
 
 
@@ -682,12 +693,13 @@ def grid_backward_input(
     dx = torch.empty((batch, d), dtype=torch.float32, device=x.device)
     if batch == 0:
         return dx
-    from ._build import kernel
+    from ._build import kernel, stream
 
     global INPUT_LAUNCHES
     _launch("grid_backward_input", kernel("grid_bwd", "tcnn_grid_backward_input", _INPUT_ARGS)(
         x.data_ptr(), dL_dy.data_ptr(), params.data_ptr(), levels.data_ptr(), dx.data_ptr(),
-        batch, d, n_levels, F, dL_dy.shape[1], int(interpolation), int(dL_dy.dtype == torch.bfloat16), _stream(x),
+        batch, d, n_levels, F, dL_dy.shape[1], int(interpolation), int(dL_dy.dtype == torch.bfloat16),
+        stream(x.get_device()),
     ))
     INPUT_LAUNCHES += 1
     return dx
@@ -740,7 +752,7 @@ def grid_backward_backward(
             grad, grad16 = _grad_buffers(x.device, n_values, accumulates_bf16)
     d_x = torch.empty((batch, d), dtype=torch.float32, device=x.device)
     d_dy = torch.empty((batch, dL_dy.shape[1]), dtype=torch.float32, device=x.device)
-    from ._build import kernel
+    from ._build import kernel, stream
 
     def ptr(t):
         return None if t is None else t.data_ptr()
@@ -750,7 +762,7 @@ def grid_backward_backward(
         x.data_ptr(), dL_dy.data_ptr(), params.data_ptr(), ptr(cgp), ptr(cgx), levels.data_ptr(), ptr(level_round),
         ptr(grad), ptr(grad16), d_x.data_ptr(), d_dy.data_ptr(),
         batch, d, n_levels, F, dL_dy.shape[1], int(interpolation), int(dL_dy.dtype == torch.bfloat16), n_values,
-        _stream(x),
+        stream(x.get_device()),
     ))
     BWDBWD_LAUNCHES += 1
     return grad, d_x, d_dy

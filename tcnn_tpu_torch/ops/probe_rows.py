@@ -47,7 +47,9 @@ import functools
 
 import torch
 
-from ._build import kernel
+from ._build import kernel, stream
+from ._plans import (FLUSH_SHARE, N_SMS, PRIVATE_THREADS, SHARED_BYTES, THREADS, Plan, alignment, ceil_div,
+                     pow2_shift, resident_blocks, sm_count, stride_grid, vec_width)
 
 # Launches of the CUDA kernels (incremented once per launch, nowhere else).
 GATHER_LAUNCHES = 0
@@ -79,8 +81,6 @@ OP_STORE_LAST = 1
 ACC_GLOBAL = 0
 ACC_SHARED = 1
 
-# Dynamic shared memory a block may use on sm_90 (232,448 bytes).
-SHARED_BYTES = 227 * 1024
 TILE = 2048  # rows per tile of MODE_TILE_SUM / MODE_COPY / feature-major output (the probes' TILE)
 DOT_COLS = 128
 
@@ -173,72 +173,12 @@ def probe_gather_dot_plain(table: torch.Tensor, idx: torch.Tensor, w: torch.Tens
 # ---------------------------------------------------------------------------
 # Launch plans: host functions, reached by the CPU tests
 # ---------------------------------------------------------------------------
-N_SMS = 132  # SMs of an H100 SXM: the plans' default card
-THREADS = 256  # threads a block of the L2 and LANE gathers and of the scatters
 SHARED_THREADS = 1024  # threads a block of the SHARED gather (one block an SM)
-PRIVATE_THREADS = 1024  # threads a block of the private scatter (at most two blocks an SM)
-SM_THREADS = 2048  # resident threads an SM holds
-SM_BLOCKS = 32  # resident blocks an SM holds
-SM_SHARED_BYTES = 228 * 1024  # shared memory of one SM (a block may take SHARED_BYTES of it)
 ROWS_PER_THREAD = 4  # the L2 gather's rows a thread (a warp's: 32 x 4)
-FLUSH_SHARE = 8  # a private scatter's flush atomics are at most 1 / FLUSH_SHARE of its adds
 TILE_SHIFT = TILE.bit_length() - 1
 
 
-def _ceil(a: int, b: int) -> int:
-    return -(-a // b)
-
-
-def _vec(n: int, align: int) -> int:
-    """The widest of 4, 2, 1 floats that divides ``n`` and whose bytes
-    divide the pointers' alignment ``align``."""
-    return next(v for v in (4, 2, 1) if n % v == 0 and align % (4 * v) == 0)
-
-
-def _shift(n: int) -> int:
-    """log2(n) for a power of two, else -1."""
-    return n.bit_length() - 1 if n > 0 and n & (n - 1) == 0 else -1
-
-
-def _resident(threads: int, smem_bytes: int = 0) -> int:
-    """Blocks of ``threads`` threads and ``smem_bytes`` of shared memory that
-    one SM holds at once."""
-    per_sm = min(SM_BLOCKS, SM_THREADS // threads)
-    if smem_bytes:
-        per_sm = min(per_sm, SM_SHARED_BYTES // (smem_bytes + 1024))  # 1 KB reserved a block
-    return max(1, per_sm)
-
-
-def _grid(items: int, threads: int, n_sms: int, smem_bytes: int = 0) -> int:
-    """Blocks for a grid-stride loop over ``items``: one item a thread, at
-    most what the card holds at once (0 for no item)."""
-    return min(_ceil(items, threads), n_sms * _resident(threads, smem_bytes)) if items > 0 else 0
-
-
-def alignment(t: torch.Tensor) -> int:
-    """The alignment of ``t``'s data pointer in bytes, up to 16."""
-    ptr = t.data_ptr()
-    return 16 if ptr == 0 else min(16, ptr & -ptr)
-
-
-class _Plan:
-    """A launch plan: its fields by name and, as ``args`` (at address
-    ``args_ptr``), the int32 array the C entry point reads, built once with
-    the plan."""
-
-    FIELDS: tuple = ()
-
-    def __init__(self, **fields):
-        for name in self.FIELDS:
-            setattr(self, name, int(fields[name]))
-        self.args = (ctypes.c_int32 * len(self.FIELDS))(*(getattr(self, n) for n in self.FIELDS))
-        self.args_ptr = ctypes.addressof(self.args)
-
-    def __repr__(self):
-        return f"{type(self).__name__}({', '.join(f'{n}={getattr(self, n)}' for n in self.FIELDS)})"
-
-
-class GatherPlan(_Plan):
+class GatherPlan(Plan):
     """How ``tcnn_probe_gather`` runs one call (``csrc/probe_rows.cu``,
     ``GatherArg``): ``vec`` floats a vector access, ``rows`` rows a thread
     (L2 ROW/WINDOW/COPY: a warp takes 32 x rows, lane l rows l + 32 u),
@@ -250,7 +190,7 @@ class GatherPlan(_Plan):
               "threads", "grid", "smem_bytes")
 
 
-class ScatterPlan(_Plan):
+class ScatterPlan(Plan):
     """How ``tcnn_probe_scatter`` runs one call (``ScatterArg``): ``vec``
     floats a row chunk (load and atomic), ``per_row`` = R / vec threads a
     row (``per_row_shift`` its log2 or -1), ``private`` blocks adding into
@@ -279,26 +219,26 @@ def gather_plan(B: int, S: int, F: int, mode: int = MODE_ROW, source: int = SOUR
     - Shared memory: the whole table (SHARED), in_flight rows (ASYNC), a
       tile's rows (TILE_SUM)."""
     B, S, F = int(B), int(S), int(F)
-    vec, rows, per_row, threads, smem = _vec(F, table_align), 1, 1, THREADS, 0
+    vec, rows, per_row, threads, smem = vec_width(F, table_align), 1, 1, THREADS, 0
     if source == SOURCE_SHARED:
         threads, smem = SHARED_THREADS, 4 * S * F
-        grid = min(n_sms, _ceil(B, threads))
+        grid = min(n_sms, ceil_div(B, threads))
     elif source == SOURCE_ASYNC:
         threads, smem = int(in_flight), 4 * int(in_flight) * F
-        grid = _grid(B, threads, n_sms, smem)
+        grid = stride_grid(B, threads, n_sms, smem)
     elif mode == MODE_TILE_SUM:
         vec, smem, grid = 1, 4 * TILE * F, B // TILE
     elif mode == MODE_LANE:
-        per_row = _ceil(F, 4)
+        per_row = ceil_div(F, 4)
         vec = 4 if F % 4 == 0 and idx_align % 16 == 0 else 1
-        grid = _grid(B * per_row, threads, n_sms)
+        grid = stride_grid(B * per_row, threads, n_sms)
     else:  # ROW, WINDOW, COPY from L2
         if flags & FLAG_TRANSPOSED:
             vec = 1
         rows = ROWS_PER_THREAD if unroll is None else int(unroll)
-        grid = _grid(32 * _ceil(B, 32 * rows), threads, n_sms)
+        grid = stride_grid(32 * ceil_div(B, 32 * rows), threads, n_sms)
     return GatherPlan(B=B, S=S, F=F, mode=mode, source=source, flags=flags, tile_shift=TILE_SHIFT, vec=vec, rows=rows,
-                      per_row=per_row, per_row_shift=_shift(per_row), threads=threads, grid=grid if B > 0 else 0,
+                      per_row=per_row, per_row_shift=pow2_shift(per_row), threads=threads, grid=grid if B > 0 else 0,
                       smem_bytes=smem)
 
 
@@ -318,15 +258,15 @@ def scatter_plan(N: int, S: int, R: int, acc: int = ACC_GLOBAL, n_sms: int = N_S
       straight into the result, as for ACC_GLOBAL.
     - Grid: at most the blocks the card holds at once (grid-stride)."""
     N, S, R = int(N), int(S), int(R)
-    vec = _vec(R, align)
+    vec = vec_width(R, align)
     per_row, threads, private, smem = R // vec, THREADS, 0, 0
     if op == OP_ADD and acc == ACC_SHARED and S > 0:
-        p = min(N // (FLUSH_SHARE * S), n_sms * _resident(PRIVATE_THREADS, 4 * S * R))
+        p = min(N // (FLUSH_SHARE * S), n_sms * resident_blocks(PRIVATE_THREADS, 4 * S * R))
         if p >= n_sms:
             private, smem, threads = p, 4 * S * R, PRIVATE_THREADS
-    grid = private if private else _grid(N * per_row, threads, n_sms)
+    grid = private if private else stride_grid(N * per_row, threads, n_sms)
     return ScatterPlan(N=N, S=S, R=R, op=op, private=private, vec=vec, per_row=per_row,
-                       per_row_shift=_shift(per_row), threads=threads, grid=grid, smem_bytes=smem)
+                       per_row_shift=pow2_shift(per_row), threads=threads, grid=grid, smem_bytes=smem)
 
 
 # ---------------------------------------------------------------------------
@@ -335,23 +275,6 @@ def scatter_plan(N: int, S: int, R: int, acc: int = ACC_GLOBAL, n_sms: int = N_S
 _GATHER_ARGS = [ctypes.c_void_p] * 6
 _SCATTER_ARGS = [ctypes.c_void_p] * 6
 _DOT_ARGS = [ctypes.c_void_p] * 4 + [ctypes.c_int64] * 2 + [ctypes.c_int] + [ctypes.c_void_p]
-_SMS = {}
-
-
-def _stream(index: int) -> int:
-    """The raw handle of the current stream of device ``index``, read anew
-    each call (the caller may switch streams); cheaper on the host than
-    ``torch.cuda.current_stream(dev)``, which builds a Stream object
-    (PERF.md §6 gives both readings)."""
-    return torch._C._cuda_getCurrentRawStream(index)
-
-
-def _n_sms(index: int) -> int:
-    """The SM count of device ``index``, read once (7.9 us a call)."""
-    n = _SMS.get(index)
-    if n is None:
-        n = _SMS[index] = torch.cuda.get_device_properties(index).multi_processor_count
-    return n
 
 
 def _check(what: str, t: torch.Tensor, dtype, dims: int, index: int):
@@ -394,7 +317,7 @@ def probe_gather(
     B = idx.shape[0]
     if mode not in MODE_NAMES or source not in SOURCE_NAMES or unroll not in (None, 1, 8):
         raise ValueError(f"probe_gather: unsupported mode {mode}, source {source} or unroll {unroll}")
-    if B >= 2**31 or S >= 2**31 or B * _ceil(F, 4) >= 2**31:
+    if B >= 2**31 or S >= 2**31 or B * ceil_div(F, 4) >= 2**31:
         raise ValueError("probe_gather: the kernels index rows (and LANE quads) in 32 bits")
     if mode == MODE_LANE and idx.shape[1] != F:
         raise ValueError("probe_gather: MODE_LANE needs (B, F) indices")
@@ -422,7 +345,7 @@ def probe_gather(
         if table2.shape != table.shape:
             raise ValueError("probe_gather: table2 must have the table's shape")
         align = min(align, alignment(table2))
-    plan = gather_plan(B, S, F, mode, source, int(flags), align, alignment(idx), _n_sms(index), unroll,
+    plan = gather_plan(B, S, F, mode, source, int(flags), align, alignment(idx), sm_count(index), unroll,
                        int(in_flight) if source == SOURCE_ASYNC else 64)
     if flags & FLAG_FEATURE_MAJOR:
         out = torch.empty((B // TILE, F, TILE), dtype=torch.float32, device=dev)
@@ -433,7 +356,7 @@ def probe_gather(
     global GATHER_LAUNCHES
     err = kernel("probe_rows", "tcnn_probe_gather", _GATHER_ARGS)(
         table.data_ptr(), None if table2 is None else table2.data_ptr(), idx.data_ptr(), out.data_ptr(),
-        plan.args_ptr, _stream(index),
+        plan.args_ptr, stream(index),
     )
     _launch("probe_gather", err)
     GATHER_LAUNCHES += 1
@@ -465,13 +388,13 @@ def probe_scatter(
         raise ValueError(f"probe_scatter: unsupported op {op} or accumulator {acc}")
     if acc == ACC_SHARED and (op != OP_ADD or not fits_shared(size * R)):
         raise ValueError(f"probe_scatter: a shared accumulator needs OP_ADD and a table that fits ({size} x {R})")
-    plan = scatter_plan(N, size, R, acc, _n_sms(index), alignment(rows), op)
+    plan = scatter_plan(N, size, R, acc, sm_count(index), alignment(rows), op)
     out = torch.empty((size, R), dtype=torch.float32, device=dev)
     winner = torch.empty((size,), dtype=torch.int32, device=dev) if op == OP_STORE_LAST else None
     global SCATTER_LAUNCHES
     err = kernel("probe_rows", "tcnn_probe_scatter", _SCATTER_ARGS)(
         idx.data_ptr(), rows.data_ptr(), out.data_ptr(), None if winner is None else winner.data_ptr(),
-        plan.args_ptr, _stream(index),
+        plan.args_ptr, stream(index),
     )
     _launch("probe_scatter", err)
     SCATTER_LAUNCHES += 1
@@ -497,7 +420,7 @@ def probe_gather_dot(table: torch.Tensor, idx: torch.Tensor, w: torch.Tensor) ->
     out = torch.empty((idx.shape[0], DOT_COLS), dtype=torch.float32, device=dev)
     global DOT_LAUNCHES
     err = kernel("probe_rows", "tcnn_probe_gather_dot", _DOT_ARGS)(
-        table.data_ptr(), idx.data_ptr(), w.data_ptr(), out.data_ptr(), idx.shape[0], S, F, _stream(index),
+        table.data_ptr(), idx.data_ptr(), w.data_ptr(), out.data_ptr(), idx.shape[0], S, F, stream(index),
     )
     _launch("probe_gather_dot", err)
     DOT_LAUNCHES += 1

@@ -9,9 +9,13 @@ round(rows[n, :])``; what tells them apart is the rounding class: how each
 contribution is rounded (``CONTRIB_*``: none, round-to-nearest bf16, or
 value-hashed stochastic bf16) and where the sum accumulates (``ACC_*``:
 fp32, or bf16 with a rounding at every add). The kernel
-(``csrc/grid_bwd.cu:tcnn_scatter_rows``) adds every contribution
-atomically; the grid encoding's table gradient (``ops.grid_encode``) is
-built on the same device functions.
+(``csrc/grid_bwd.cu:tcnn_scatter_rows``) adds each row chunk with one
+vector atomic, or, for fp32 sums into a small table with many rows a slot,
+into per-block shared-memory copies of the table flushed once each; the
+host function ``scatter_rows_plan`` decides which (and the vector width,
+the grid and the shared bytes) and the C entry point reads its int32
+array. The grid encoding's table gradient (``ops.grid_encode``) is built
+on the same device functions.
 
 The JAX pair class (a compensated bf16 pair, fp32 to about 3e-6 relative)
 is the fp32 class here. fp32 atomics make the last bits of each sum depend
@@ -26,10 +30,14 @@ is.
 from __future__ import annotations
 
 import ctypes
+import functools
 
 import torch
 
+from ._build import kernel, stream
 from .grid_encode import _M32, _mul32
+from ._plans import (FLUSH_SHARE, N_SMS, PRIVATE_THREADS, SHARED_BYTES, THREADS, Plan, alignment, pow2_shift,
+                     resident_blocks, sm_count, stride_grid, vec_width)
 
 # Launches of the CUDA kernel (incremented once per launch, nowhere else).
 LAUNCHES = 0
@@ -94,9 +102,53 @@ def scatter_rows_plain(
     return out.to(torch.float32)
 
 
-_SCATTER_ARGS = [ctypes.c_void_p] * 4 + [ctypes.c_int64, ctypes.c_int, ctypes.c_int64] + [ctypes.c_int] * 2 + [
-    ctypes.c_void_p
-]
+# The 32-bit index math of the kernel: N x R and size x R below this.
+INDEX_LIMIT = 2**31
+
+
+class ScatterRowsPlan(Plan):
+    """How ``tcnn_scatter_rows`` runs one call (``csrc/grid_bwd.cu``,
+    ``ScatterArg``): ``vec`` floats a row chunk (load and atomic),
+    ``per_row`` = R / vec threads a row (``per_row_shift`` its log2 or -1),
+    ``private`` blocks adding into their own shared-memory copy of the
+    table (0: vector atomics straight into the result), blocks of
+    ``threads``, ``grid`` blocks and ``smem_bytes``."""
+
+    FIELDS = ("N", "S", "R", "acc", "private", "vec", "per_row", "per_row_shift", "threads", "grid", "smem_bytes")
+
+
+@functools.lru_cache(maxsize=1024)
+def scatter_rows_plan(N: int, size: int, R: int, acc: int = ACC_F32, n_sms: int = N_SMS,
+                      align: int = 16) -> ScatterRowsPlan:
+    """The launch plan of ``scatter_rows`` for N rows of R into ``size``
+    slots in the accumulation ``acc`` (``ACC_*``); ``align``: the alignment
+    in bytes of the rows' data pointer. The rules of ``ops.probe_rows.scatter_plan``,
+    on the same helpers (``ops._plans``):
+
+    - Vector width: the widest of 4, 2, 1 floats dividing R and ``align``;
+      R / vec threads a row.
+    - fp32 sums privatise P = min(N // (FLUSH_SHARE * size), the blocks of
+      PRIVATE_THREADS the card holds with the copy) blocks, each with a
+      shared-memory copy of the whole (size, R) table: their flush, at most
+      P x size x R entries, is at most 1 / FLUSH_SHARE of the N x R adds.
+      Fewer than one block an SM would leave SMs idle, so then (and for bf16
+      sums, and where the copy does not fit a block) nothing is privatised.
+    - Grid: at most the blocks the card holds at once (grid-stride); none
+      for no row or a dropped sum."""
+    N, S, R = int(N), int(size), int(R)
+    vec = vec_width(R, align)
+    per_row, threads, private, smem = R // vec, THREADS, 0, 0
+    if acc == ACC_F32 and S > 0:
+        p = min(N // (FLUSH_SHARE * S), n_sms * resident_blocks(PRIVATE_THREADS, 4 * S * R))
+        if p >= n_sms and 4 * S * R <= SHARED_BYTES:
+            private, smem, threads = p, 4 * S * R, PRIVATE_THREADS
+    grid = private if private else stride_grid(N * per_row, threads, n_sms)
+    return ScatterRowsPlan(N=N, S=S, R=R, acc=acc, private=private, vec=vec, per_row=per_row,
+                           per_row_shift=pow2_shift(per_row), threads=threads, grid=0 if acc == ACC_DROP else grid,
+                           smem_bytes=smem)
+
+
+_SCATTER_ARGS = [ctypes.c_void_p] * 4 + [ctypes.c_int] + [ctypes.c_void_p] * 2
 
 
 def scatter_rows(
@@ -119,17 +171,18 @@ def scatter_rows(
         raise ValueError("scatter_rows: idx must be a contiguous (N,) int32 tensor on the device of rows")
     if contrib_round not in (CONTRIB_NONE, CONTRIB_RN, CONTRIB_SR) or acc_dtype not in _ACC_CODES:
         raise ValueError(f"scatter_rows: unsupported class ({contrib_round}, {acc_dtype})")
-    size = int(size)
-    out = torch.empty((size, rows.shape[1]), dtype=torch.float32, device=rows.device)
+    size, (N, R) = int(size), rows.shape
+    if N * max(R, 1) >= INDEX_LIMIT or size * max(R, 1) >= INDEX_LIMIT:
+        raise ValueError(f"scatter_rows: N x R and size x R must stay below 2^31 (32-bit index math): {N}, {size}, {R}")
+    index = rows.get_device()
     acc = _ACC_CODES[acc_dtype]
-    out16 = torch.empty((size, rows.shape[1]), dtype=torch.bfloat16, device=rows.device) if acc == ACC_BF16 else None
+    plan = scatter_rows_plan(N, size, R, acc, sm_count(index), alignment(rows))
+    out = torch.empty((size, R), dtype=torch.float32, device=rows.device)
+    out16 = torch.empty((size, R), dtype=torch.bfloat16, device=rows.device) if acc == ACC_BF16 else None
     global LAUNCHES
-    from ._build import kernel
-
     err = kernel("grid_bwd", "tcnn_scatter_rows", _SCATTER_ARGS)(
-        idx.data_ptr(), rows.data_ptr(), out.data_ptr(), None if out16 is None else out16.data_ptr(),
-        rows.shape[0], rows.shape[1], size, contrib_round, acc,
-        torch.cuda.current_stream(rows.device).cuda_stream,
+        idx.data_ptr(), rows.data_ptr(), out.data_ptr(), None if out16 is None else out16.data_ptr(), contrib_round,
+        plan.args_ptr, stream(index),
     )
     if err != 0:
         raise RuntimeError(f"scatter_rows: CUDA launch failed (cudaError {err})")

@@ -230,3 +230,46 @@ def test_benchmarks_need_a_card_unless_told_cpu():
     r = subprocess.run([sys.executable, "-c", code], cwd=ROOT, env=env, capture_output=True, text=True, timeout=300)
     assert r.returncode == 0, r.stderr
     assert r.stdout.strip() == "ok"
+
+
+def test_lookup_scatter_times_needs_a_card():
+    code = (
+        "from tcnn_tpu_torch.benchmarks import lookup_scatter_times as m\n"
+        "try:\n"
+        "    m.main([])\n"
+        "except RuntimeError as e:\n"
+        "    assert 'no CUDA device' in str(e), e\n"
+        "else:\n"
+        "    raise AssertionError('ran without a card')\n"
+        "print('ok')\n"
+    )
+    env = dict(os.environ, CUDA_VISIBLE_DEVICES="", PYTHONPATH=str(ROOT))
+    r = subprocess.run([sys.executable, "-c", code], cwd=ROOT, env=env, capture_output=True, text=True, timeout=300)
+    assert r.returncode == 0, r.stderr
+    assert r.stdout.strip() == "ok"
+
+
+def test_lookup_scatter_times_inputs_and_sass_parser():
+    """The timed shapes (built here on the CPU at a small batch) and the
+    SASS parser."""
+    import torch
+
+    from tcnn_tpu_torch.benchmarks import lookup_scatter_times as m
+
+    inputs = m.lookup_inputs(1024, 32, torch.device("cpu"), 0)
+    assert list(inputs) == ["flagship stratified", "flagship uniform", "3D model uniform", "flagship raster 32^2"]
+    for enc, x, levels, params in inputs.values():
+        assert x.shape[1] == enc.n_dims_to_encode and levels.shape == (16, 28) and params.numel() == enc.n_params
+    cases = m.scatter_cases(torch.device("cpu"), 0)
+    assert [(i.shape[0], r.shape[1], s) for i, r, s, _ in cases.values()] == [
+        (2**18, 4, 64), (2**18, 8, 4096), (2**18, 8, 32768), (8192, 8, 65536)]
+    sass = "\n".join([
+        "        Function : _Z20grid_forward_kernelIfEvv",
+        "        /*0000*/                   LDC R1, c[0x0][0x28] ;",
+        "        /*0010*/                   CALL.REL.NOINC `($__internal_0_$__cuda_sm20_rem_u64) ;",
+        "        Function : _Z5otherv",
+        "        /*0000*/                   EXIT ;",
+    ])
+    assert m.parse_sass(sass) == {
+        "_Z20grid_forward_kernelIfEvv": {"instructions": 2, "calls": ["$__internal_0_$__cuda_sm20_rem_u64"]},
+        "_Z5otherv": {"instructions": 1, "calls": []}}

@@ -619,22 +619,6 @@ def test_ffmlp_backward_is_deterministic(dev, shape):
     assert torch.equal(dx1, dx2) and all(torch.equal(a, b) for a, b in zip(dw1, dw2))
 
 
-@pytest.mark.parametrize("shape", sorted(K2_SHAPES))
-def test_atomic_backward_kernel_matches_the_new_one(dev, shape):
-    """The earlier atomic kernel, kept for chip_smoke.py's A/B timing, against the new
-    K2 and the plain backward (tolerance of the MLP backward)."""
-    x, g, ws = _backward_case(dev, K2_SHAPES[shape], 2**17 + 5, 5)
-    before = ffmlp.ATOMIC_LAUNCHES
-    old = ffmlp._ffmlp_backward_atomic(x, g, ws, Activation.ReLU, Activation.NONE)
-    assert ffmlp.ATOMIC_LAUNCHES == before + 1
-    new = ffmlp.ffmlp_backward(x, g, ws, Activation.ReLU, Activation.NONE)
-    plain = ffmlp.ffmlp_backward_plain(x, g, ws, Activation.ReLU, Activation.NONE)
-    for a, b, c in zip((old[0], *old[1]), (new[0], *new[1]), (plain[0], *plain[1])):
-        _close_bf16_backward(a, c)
-        _close_bf16_backward(b, c)
-        _close_bf16_backward(a, b)
-
-
 # The table gradient (tcnn_grid_backward: level-major tiles, privatised
 # coarse levels, merged runs, vector atomics) against its plain version,
 # level by level in the level's class (``_check_levels``).
@@ -780,24 +764,6 @@ def test_table_gradient_3d_model_classes(dev):
     _check_levels(enc, _table_grad(enc, x, dy, classes), x, dy, classes)
 
 
-def test_atomic_table_gradient_kernel_matches_the_new_one(dev):
-    """The earlier kernel, kept for chip_smoke.py's A/B timing, against the
-    plain version on a stratified flagship batch (the same tolerances)."""
-    from tcnn_tpu_torch.utils.sampling import stratified_uniform
-
-    enc = create_encoding(2, FLAGSHIP_GRID, alignment=16)
-    gen = torch.Generator(device=dev).manual_seed(4)
-    x = stratified_uniform(2**16, 2, gen, device=dev)
-    dy = torch.randn((2**16, 32), generator=gen, device=dev).bfloat16()
-    classes = torch.from_numpy(enc.gradient_classes(2**16)).to(dev)
-    before = (grid_encode.ATOMIC_BWD_LAUNCHES, grid_encode.BWD_LAUNCHES)
-    old = grid_encode._grid_backward_atomic(x, dy, enc._levels_on(dev), 2, grid_encode.INTERP_LINEAR, classes)
-    torch.cuda.synchronize()
-    assert (grid_encode.ATOMIC_BWD_LAUNCHES, grid_encode.BWD_LAUNCHES) == (before[0] + 1, before[1])
-    _check_levels(enc, old, x, dy, classes)
-    _check_levels(enc, _table_grad(enc, x, dy, classes), x, dy, classes)
-
-
 def test_training_step_goes_through_the_table_gradient_kernel(dev):
     """GridEncoding's own autograd path (its cached plan) launches the
     kernel once a backward and matches the plain path's gradient."""
@@ -815,3 +781,112 @@ def test_training_step_goes_through_the_table_gradient_kernel(dev):
     dy = w.bfloat16()
     classes = torch.from_numpy(enc.gradient_classes(2**16)).to(dev)
     _check_levels(enc, g, x, dy, classes)
+
+
+# The lookup (tcnn_grid_forward: level-major warps, 32-bit index arithmetic
+# without division, vector row loads, staged output rows) against the
+# earlier kernel (grid_encode_v1): the same float operations in the same
+# order, so the outputs are bitwise equal, on uniform points, points outside
+# [0, 1] and points on the cells' boundaries.
+SMALL_GRID = dict(GRID, log2_hashmap_size=12)
+LOOKUP_CASES = {
+    "flagship": (2, FLAGSHIP_GRID, None),
+    "3D model": (3, ENC3D_GRID, None),
+    "CoherentPrime": (2, dict(FLAGSHIP_GRID, hash="CoherentPrime"), None),
+    "Prime 3D": (3, dict(SMALL_GRID, hash="Prime", gather_strategy="per_level"), None),
+    "BaseConvert 2D": (2, dict(SMALL_GRID, hash="BaseConvert"), None),
+    "Smoothstep": (2, dict(FLAGSHIP_GRID, interpolation="Smoothstep"), None),
+    "Nearest": (3, dict(SMALL_GRID, interpolation="Nearest"), None),
+    "F=1": (2, dict(SMALL_GRID, n_features_per_level=1), None),
+    "F=4": (3, dict(SMALL_GRID, n_features_per_level=4, n_levels=6), None),
+    "F=8": (2, dict(SMALL_GRID, n_features_per_level=8, n_levels=4), None),
+    "F=3 4D": (4, dict(SMALL_GRID, n_features_per_level=3, n_levels=5), None),
+    "1D": (1, SMALL_GRID, None),
+    "table_dtype bfloat16": (2, dict(FLAGSHIP_GRID, table_dtype="bfloat16"), None),
+    "table_dtype float16": (3, dict(SMALL_GRID, table_dtype="float16", gather_strategy="per_level"), None),
+    "serve-time bfloat16": (2, FLAGSHIP_GRID, "bfloat16"),
+    "serve-time float16 over own bfloat16": (2, dict(FLAGSHIP_GRID, table_dtype="bfloat16"), "float16"),
+}
+
+
+def _lookup_points(enc, rng, n=2**16):
+    d = enc.n_dims_to_encode
+    pts = [rng.uniform(0, 1, (n, d)), rng.uniform(-0.5, 1.5, (4096, d))]
+    for s in enc.scales:
+        k = rng.integers(0, int(np.ceil(s)) + 2, size=(64, d)).astype(np.float32)
+        on = (k - np.float32(0.5)) / np.float32(s)
+        pts += [on, np.nextafter(on, np.float32(np.inf)), np.nextafter(on, np.float32(-np.inf))]
+    return np.concatenate(pts).astype(np.float32)
+
+
+def _bits(t):
+    return t.view(torch.int16 if t.dtype == torch.bfloat16 else torch.int32)
+
+
+@pytest.mark.parametrize("out_dtype", [torch.float32, torch.bfloat16], ids=["fp32", "bf16"])
+@pytest.mark.parametrize("case", sorted(LOOKUP_CASES))
+def test_lookup_is_bitwise_equal_to_the_earlier_kernel(dev, case, out_dtype):
+    d, cfg, serve = LOOKUP_CASES[case]
+    enc = create_encoding(d, cfg, alignment=16)
+    rng = np.random.default_rng(11)
+    x = torch.from_numpy(_lookup_points(enc, rng)).to(dev)
+    params = torch.from_numpy(rng.uniform(-1, 1, enc.n_params).astype(np.float32)).to(dev)
+    levels = enc._levels_on(dev, table_dtype=serve)
+    args = (x, params, levels, enc.n_features_per_level, enc.padded_output_width, _interp_code(enc), out_dtype)
+    before = (grid_encode.LAUNCHES, grid_encode.V1_LAUNCHES)
+    new, old = grid_encode.grid_encode(*args), grid_encode.grid_encode_v1(*args)
+    assert (grid_encode.LAUNCHES, grid_encode.V1_LAUNCHES) == (before[0] + 1, before[1] + 1)
+    assert torch.equal(_bits(new), _bits(old))
+    plain = grid_encode.grid_encode_plain(*args[:6], torch.float32)
+    torch.testing.assert_close(new.float(), plain.to(out_dtype).float(), rtol=1e-2 if out_dtype == torch.bfloat16
+                               else 1e-5, atol=1e-6)
+
+
+@pytest.mark.parametrize("batch", [1, 31, 33, 1000])
+@pytest.mark.parametrize("alignment", [1, 16])
+def test_lookup_batch_edges_and_unpadded_rows(dev, batch, alignment):
+    """Batches that end inside a block's 32-sample tile, and rows whose
+    bytes are no multiple of 4 (3 levels of 1 bf16 feature, no padding:
+    the element-wise copy), against the earlier kernel and unaligned
+    parameters (a table that starts 4 bytes into a buffer: scalar reads)."""
+    enc = create_encoding(2, dict(SMALL_GRID, n_features_per_level=1, n_levels=3), alignment=alignment)
+    rng = np.random.default_rng(batch)
+    x = torch.from_numpy(rng.uniform(-0.2, 1.2, (batch, 2)).astype(np.float32)).to(dev)
+    buf = torch.from_numpy(rng.uniform(-1, 1, enc.n_params + 1).astype(np.float32)).to(dev)
+    for params in (buf[:-1], buf[1:]):
+        for out_dtype in (torch.bfloat16, torch.float32):
+            args = (x, params, enc._levels_on(dev), 1, enc.padded_output_width, _interp_code(enc), out_dtype)
+            assert torch.equal(_bits(grid_encode.grid_encode(*args)), _bits(grid_encode.grid_encode_v1(*args)))
+
+
+# The row scatter's two paths (scatter_rows_plan): fp32 sums into 64 slots
+# with many rows a slot go through per-block shared-memory copies; 2^14
+# slots, and every bf16 sum, through vector atomics into the result.
+@pytest.mark.parametrize("R", [1, 3, 4, 8])
+@pytest.mark.parametrize("S", [64, 2**14])
+@pytest.mark.parametrize("cls", SCATTER_CLASSES, ids=str)
+def test_scatter_rows_private_and_global_paths(dev, cls, S, R):
+    contrib, acc = cls
+    rng = np.random.default_rng(S + R)
+    n = 2**18
+    idx = torch.from_numpy(rng.integers(-3, S + 3, n).astype(np.int32)).to(dev)
+    rows = torch.from_numpy(rng.normal(0, 1, (n, R)).astype(np.float32)).to(dev)
+    acc_code = scatter_rows.ACC_BF16 if acc == torch.bfloat16 else scatter_rows.ACC_F32
+    n_sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    plan = scatter_rows.scatter_rows_plan(n, S, R, acc_code, n_sms)
+    assert (plan.private > 0) == (S == 64 and acc == torch.float32)
+    before = scatter_rows.LAUNCHES
+    got = scatter_rows.scatter_rows(idx, rows, S, contrib, acc)
+    assert scatter_rows.LAUNCHES == before + 1
+    keep = (idx >= 0) & (idx < S)  # the kernel skips rows outside the table
+    vi, vr = idx[keep], rows[keep].contiguous()
+    plain = scatter_rows.scatter_rows_plain(vi, vr, S, contrib, acc)
+    exact = scatter_rows.scatter_rows_plain(vi, vr, S, contrib, torch.float32)
+    _check_class(got, plain, exact, scatter_rows.scatter_rows_plain(vi, vr.abs(), S), acc)
+    # Sums of small integers are exact in any order: bitwise equal (bf16
+    # sums on 16 rows a slot, so that no partial sum leaves bf16's 8 bits).
+    m = n if acc == torch.float32 else 16 * S
+    ints = torch.from_numpy(rng.integers(-2, 3, (m, R)).astype(np.float32)).to(dev)
+    keep = keep[:m]
+    assert torch.equal(scatter_rows.scatter_rows(idx[:m].contiguous(), ints, S, contrib, acc),
+                       scatter_rows.scatter_rows_plain(idx[:m][keep], ints[keep].contiguous(), S, contrib, acc))

@@ -345,3 +345,129 @@ def test_own_table_dtype_rounds_the_levels_jax_gathers(case):
     F = te.n_features_per_level
     assert [not torch.equal(got[:, l * F:(l + 1) * F], unrounded[:, l * F:(l + 1) * F])
             for l in range(te.n_levels)] == rounded
+
+
+# The kernels' index arithmetic without division (csrc/grid_common.cuh:
+# reduce, add_mod), reproduced in torch (uint32 values in int64, masked to
+# 32 bits as the device wraps) and held to numpy's uint32 remainder and to
+# the plain lookup's corner rows, on every level of the flagship encoding,
+# the 3D model and CoherentPrime, and on dense levels whose sizes are no
+# powers of two.
+FLAGSHIP_ENC = {
+    "otype": "HashGrid", "n_levels": 16, "n_features_per_level": 2, "log2_hashmap_size": 15,
+    "base_resolution": 16, "per_level_scale": 1.5, "hash": "CoherentAdditive", "gather_strategy": "stratified",
+}
+INDEX_CASES = {
+    "flagship": (2, FLAGSHIP_ENC),
+    "3D model": (3, dict(FLAGSHIP_ENC, log2_hashmap_size=19, gather_strategy="auto")),
+    "CoherentPrime": (2, dict(FLAGSHIP_ENC, hash="CoherentPrime")),
+    "dense": (3, {"otype": "DenseGrid", "n_levels": 4, "n_features_per_level": 2, "base_resolution": 5,
+                  "per_level_scale": 1.7}),
+    "prime 4D": (4, _cfg(hash="Prime", gather_strategy="per_level", strata=None)),
+}
+
+
+def _umulhi32(a, b):
+    """(a * b) >> 32 for int64 ``a`` in [0, 2^32) and ``b`` in [0, 2^32)
+    (``__umulhi``), without overflowing int64."""
+    return (((a * (b & 0xFFFF)) >> 16) + a * (b >> 16)) >> 16
+
+
+def reduce_like_device(h, row):
+    """``h`` mod the level size by csrc/grid_common.cuh:reduce from the
+    level's row of the level table (uint32 values in int64, masked to 32
+    bits as the device wraps)."""
+    size, magic, shift = int(row[1]), int(row[26]), int(row[27])
+    if magic == 0:
+        return h & (size - 1)
+    hi = _umulhi32(h, magic)
+    q = ((((h - hi) & ge._M32) >> 1) + hi) >> shift
+    return (h - ge._mul32(q, size)) & ge._M32
+
+
+def _levels_of(case):
+    d, cfg = INDEX_CASES[case]
+    enc = tenc.create_encoding(d, cfg, alignment=16)
+    return d, enc, enc.level_table().view(np.uint32).astype(np.int64)
+
+
+@pytest.mark.parametrize("case", sorted(INDEX_CASES))
+def test_device_reduction_equals_the_uint32_remainder(case):
+    _, _, lt = _levels_of(case)
+    rng = np.random.default_rng(7)
+    non_power = 0
+    for row in lt:
+        size = int(row[1])
+        non_power += size & (size - 1) != 0
+        h = np.concatenate([[0, 1, size - 1, size, size + 1, 2**32 - 1, 2**32 - 2, (2**32 - 1) // size * size],
+                            rng.integers(0, 2**32, 20_000)]).astype(np.int64)
+        got = reduce_like_device(torch.from_numpy(h), row).numpy()
+        want = (h.astype(np.uint32) % np.uint32(size)).astype(np.int64)
+        np.testing.assert_array_equal(got, want)
+    if case in ("flagship", "dense"):
+        assert non_power > 0  # dense levels of res^d rows take the reciprocal
+
+
+def _device_corner_rows(x, row, n_dims, bits):
+    """The rows of csrc/grid_common.cuh:locate/corner: uint32 base reduced
+    once (reduce), per-dim deltas added with add_mod; hashed modes reduced
+    by reduce. (B, C) int64, level-local."""
+    size, mode = int(row[1]), int(row[2])
+    scale = float(np.int64(row[3]).astype(np.uint32).view(np.float32))
+    pos = x * scale + 0.5
+    pg = torch.floor(pos).to(torch.int32).to(torch.int64) & ge._M32
+    s32 = [int(v) for v in row[4:4 + n_dims]]
+    smod = [int(v) for v in row[4 + ge.MAX_DIMS:4 + ge.MAX_DIMS + n_dims]]
+
+    def add_mod(a, b):
+        s = (a + b) & ge._M32
+        return torch.where((s < a) | (s >= size), (s - size) & ge._M32, s)
+
+    cols = []
+    if mode == ge.MODE_QUAD:
+        base = torch.zeros_like(pg[:, 0])
+        for k in range(n_dims):
+            base = (base + ge._mul32(pg[:, k], s32[k])) & ge._M32
+        base = reduce_like_device(base, row)
+        for c in bits:
+            delta = torch.zeros_like(base)
+            for k in range(n_dims):
+                if c[k]:
+                    delta = add_mod(delta, torch.full_like(base, smod[k]))
+            cols.append(add_mod(base, delta))
+    else:
+        for c in bits:
+            h = torch.zeros_like(pg[:, 0])
+            for k in range(n_dims):
+                p = (pg[:, k] + int(c[k])) & ge._M32
+                if mode == ge.MODE_FOLD:
+                    h = (h + ge._mul32(p, s32[k])) & ge._M32
+                elif mode == ge.MODE_XOR:
+                    h = h ^ ge._mul32(p, s32[k])
+                else:
+                    h = ge._mul32((h + p) & ge._M32, 2531011)
+            cols.append(reduce_like_device(h, row))
+    return torch.stack(cols, dim=1)
+
+
+@pytest.mark.parametrize("case", sorted(INDEX_CASES))
+def test_device_corner_rows_equal_the_plain_lookups(case):
+    n_dims, enc, lt = _levels_of(case)
+    rng = np.random.default_rng(8)
+    x = torch.from_numpy(np.concatenate([rng.uniform(0, 1, (3000, n_dims)), rng.uniform(-3, 4, (1000, n_dims)),
+                                         _boundary_points(enc.scales, n_dims, rng)]).astype(np.float32))
+    bits = ge._corner_bits(n_dims, ge.INTERP_LINEAR)
+    for row in lt:
+        idx, _ = ge._level_rows(x, row, ge.INTERP_LINEAR, bits)
+        torch.testing.assert_close(_device_corner_rows(x, row, n_dims, bits) + int(row[0]), idx, rtol=0, atol=0)
+
+
+@pytest.mark.parametrize("size", [1, 2, 3, 7, 256, 576, 3032, 14888, 2**15, 2**19 + 1, 2**31 - 1, 2**31, 2**32 - 1])
+def test_mod_reciprocal_fields(size):
+    magic, shift = ge.mod_reciprocal(size)
+    if size & (size - 1) == 0:
+        assert (magic, shift) == (0, 0)
+    else:
+        assert 1 <= magic < 2**32 and 2**shift < size < 2**(shift + 1)
+    t = ge.level_table([0], [size], [ge.MODE_XOR], [1.0], [[1, 3]]).view(np.uint32)
+    assert t.shape == (1, 28) and (int(t[0, 26]), int(t[0, 27])) == (magic, shift)

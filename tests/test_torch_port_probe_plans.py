@@ -22,6 +22,7 @@ functions, held here to the invariants the kernels in
 import numpy as np
 import pytest
 
+from tcnn_tpu_torch.ops import _plans as plans
 from tcnn_tpu_torch.ops import probe_rows as pr
 
 SIZES = (0, 1, 7, 2**18 + 3)
@@ -117,12 +118,12 @@ def test_gather_plan_grid_and_shared_memory_fit_the_card(kind, n_sms):
             if source == pr.SOURCE_SHARED and not pr.fits_shared(S * F):
                 continue  # the wrapper refuses it
             plan = pr.gather_plan(B, S, F, mode, source, 0, 16, 16, n_sms, **kw)
-            assert 1 <= plan.grid <= n_sms * pr.SM_BLOCKS
-            assert plan.grid * plan.threads <= n_sms * pr.SM_THREADS
+            assert 1 <= plan.grid <= n_sms * plans.SM_BLOCKS
+            assert plan.grid * plan.threads <= n_sms * plans.SM_THREADS
             assert plan.smem_bytes <= BLOCK_SHARED_LIMIT
             assert plan.threads <= 1024
             if plan.smem_bytes:
-                assert -(-plan.grid // n_sms) * (plan.smem_bytes + 1024) <= pr.SM_SHARED_BYTES
+                assert -(-plan.grid // n_sms) * (plan.smem_bytes + 1024) <= plans.SM_SHARED_BYTES
 
 
 def test_tile_sum_plan_takes_a_block_a_tile():
@@ -168,7 +169,7 @@ def test_scatter_plan_bounds_the_private_flush(acc, n_sms):
                 if not pr.fits_shared(S * R):
                     continue
                 plan = pr.scatter_plan(N, S, R, acc, n_sms)
-                assert plan.grid * plan.threads <= n_sms * pr.SM_THREADS
+                assert plan.grid * plan.threads <= n_sms * plans.SM_THREADS
                 if plan.private:
                     seen_private = True
                     assert acc == pr.ACC_SHARED
@@ -176,7 +177,7 @@ def test_scatter_plan_bounds_the_private_flush(acc, n_sms):
                     assert n_sms <= plan.private == plan.grid
                     assert plan.smem_bytes == 4 * S * R <= BLOCK_SHARED_LIMIT
                     per_sm = -(-plan.grid // n_sms)
-                    assert per_sm * (plan.smem_bytes + 1024) <= pr.SM_SHARED_BYTES
+                    assert per_sm * (plan.smem_bytes + 1024) <= plans.SM_SHARED_BYTES
                 else:
                     assert plan.smem_bytes == 0
                     if acc == pr.ACC_SHARED:
