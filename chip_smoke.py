@@ -59,7 +59,10 @@ Phases, each printing lines of its own; any failure exits non-zero:
 13. times (CUDA events / synced host clock, median of repeats), each
    kernel's bound from its shapes (bytes over 3.35 TB/s or operations over
    the peak of their type) and, where one PyTorch call computes the same
-   function, that call's time; the table gradient and the plain version
+   function, that call's time; G1 and G2 (cgx only, and with cgp) at the
+   SDF path's shapes beside the 3D lookup and table gradient, with their
+   row0 and no-scatter variants, plain versions and compiler report
+   (benchmarks.grid_second_order_times); the table gradient and the plain version
    in turns at three shapes (the stratified flagship batch, uniform
    flagship points, the 3D model in its training classes), beside one
    index_add_ of the precomputed (row, contribution) pairs; the lookup
@@ -78,7 +81,8 @@ Phases, each printing lines of its own; any failure exits non-zero:
    out-of-range rows reading zeros; then the path,
    tcnn_tpu_torch.benchmarks.probe_rows --sweep with every count at 0: the
    probes and the gather and scatter-add at the grid's row widths (F = 2, 8;
-   S = 2^12 .. 2^23; B = 2^18 and 2^24) per source, ns/row beside the bytes
+   S = 2^12 .. 2^23; B = 2^18 and 2^24; and the 3D model's own 6,522,408-row
+   table at F = 2, B = 2^24) per source, ns/row beside the bytes
    bound and the library call (index_select, index_add_); the device time
    (events around a call whose issue the device cannot see) and call time
    (events over back-to-back calls) of each P3 and P5 case and of the JSON
@@ -88,7 +92,8 @@ Phases, each printing lines of its own; any failure exits non-zero:
    stratified flagship points, v1 beside it, and in 3D; table gradient on
    the stratified batch, uniform points and the 3D model, G1, G2) against the
    probe sweep's fastest measured rate per operation and table size (over
-   every source and the library call, named), beside their measured times.
+   every source and the library call, named; the 3D kernels at the 3D
+   model's own table), beside their measured times.
 16. benches: the port's entry points, each count at 0 before and read after:
    benchmarks.bench (the 2D default with its phase-locked secondary,
    --protocol 3d, --reference-verbatim, --serving), bench_mlp, bench_image
@@ -796,6 +801,7 @@ def phase_train(name, cfg, card, image):
     import torch
 
     import tcnn_tpu_torch as tt
+    from tcnn_tpu_torch.benchmarks.grid_second_order_times import profile_steps
     from tcnn_tpu_torch.utils.sampling import stratified_uniform
 
     dev = torch.device("cuda")
@@ -870,7 +876,6 @@ N_SDF_STEPS = 300
 # Adam's learning rate: a linear warm-up to SDF_LR over SDF_WARMUP steps,
 # then an exponential decay to SDF_LR_END at the last step.
 SDF_LR, SDF_WARMUP, SDF_LR_END = 1e-2, 100, 1e-3
-EIKONAL_WEIGHT = 0.1
 # The reference's MLP benchmark protocol (benchmarks/bench_mlp.py:23-80):
 # B = 2^20, input = output = hidden width, 3 hidden layers, ReLU.
 B_PACKED = 2**20
@@ -1099,31 +1104,6 @@ def phase_grid_second_order():
     return errs
 
 
-def sphere_sdf(x):
-    """The analytic SDF the slice fits: a sphere of radius 0.3 at the
-    centre of the unit cube."""
-    return (x - 0.5).norm(dim=1, keepdim=True) - 0.3
-
-
-def _sdf_loss(f_of, x, target):
-    """L2 + 0.1 mean((|grad_x f| - 1)^2), the gradient taken with
-    create_graph so that the loss differentiates it again."""
-    import torch
-
-    x = x.requires_grad_(True)
-    f = f_of(x)
-    (g,) = torch.autograd.grad(f, x, torch.ones_like(f), create_graph=True)
-    return ((f - target) ** 2).mean() + EIKONAL_WEIGHT * ((g.norm(dim=1) - 1) ** 2).mean()
-
-
-def _sdf_step(opt, f_of, x, target):
-    opt.zero_grad(set_to_none=True)
-    loss = _sdf_loss(f_of, x, target)
-    loss.backward()
-    opt.step()
-    return loss.detach()
-
-
 # The K2 counters: the backward as a whole and its two launches.
 K2_COUNTERS = {
     "ffmlp_bwd": ("ffmlp", "BWD_LAUNCHES"), "ffmlp_bwd_walk": ("ffmlp", "WALK_LAUNCHES"),
@@ -1153,6 +1133,7 @@ def phase_sdf(card, lr=SDF_LR, warmup=SDF_WARMUP, lr_end=SDF_LR_END):
     import torch
 
     from tcnn_tpu_torch import modules
+    from tcnn_tpu_torch.benchmarks.grid_second_order_times import EIKONAL_WEIGHT, profile_steps, sdf_step, sphere_sdf
     from tcnn_tpu_torch.ops import ffmlp, grid_encode
 
     mods = {"ffmlp": ffmlp, "grid_encode": grid_encode}
@@ -1176,11 +1157,11 @@ def phase_sdf(card, lr=SDF_LR, warmup=SDF_WARMUP, lr_end=SDF_LR_END):
     # plain versions.
     p0 = m.params.detach().clone()
     x, target = batch()
-    loss_k = _sdf_step(new_opt()[0], m, x.clone(), target)
+    loss_k = sdf_step(new_opt()[0], m, x.clone(), target)
     p_k = m.params.detach().clone()
     with torch.no_grad():
         m.params.copy_(p0)
-    loss_p = _sdf_step(new_opt()[0], plain, x.clone(), target)
+    loss_p = sdf_step(new_opt()[0], plain, x.clone(), target)
     p_p = m.params.detach().clone()
     with torch.no_grad():
         m.params.copy_(p0)
@@ -1208,7 +1189,7 @@ def phase_sdf(card, lr=SDF_LR, warmup=SDF_WARMUP, lr_end=SDF_LR_END):
         if i >= 50:
             torch.cuda.synchronize()
             t0 = time.perf_counter()
-        losses.append(_sdf_step(opt, m, x, target))
+        losses.append(sdf_step(opt, m, x, target))
         schedule.step()
         if i >= 50:
             torch.cuda.synchronize()
@@ -1236,45 +1217,11 @@ def phase_sdf(card, lr=SDF_LR, warmup=SDF_WARMUP, lr_end=SDF_LR_END):
     check(last < 0.1 * first, f"sdf: loss did not fall below a tenth ({first:.4e} -> {last:.4e})")
     for k, v in launches.items():
         check(v > 0, f"sdf: kernel {k} was not launched on the module-API path")
-    wall, busy, idle, kernels = profile_steps(lambda: _sdf_step(opt, m, *batch()))
+    wall, busy, idle, kernels = profile_steps(lambda: sdf_step(opt, m, *batch()))
     log(f"profile [{card}]: SDF step B=2^18, 10 steps back to back under torch.profiler: {wall:.4f} ms/step, device "
         f"busy {busy:.4f} ms, idle share {idle:.3f}, {len(kernels)} distinct device ops; largest (ms/step): "
         + "; ".join(f"{name[:60]} {ms:.4f}" for name, ms in kernels[:12]))
     return {"launches": launches, "ms": med, "loss": (first, last), "losses": losses, "profile": dict(kernels)}
-
-
-def profile_steps(step, n=10):
-    """Device time of ``n`` back-to-back calls of ``step`` under
-    torch.profiler: (wall ms, device-busy ms, idle share, [(kernel, ms)]
-    per call, largest first). Busy time is the union of the device
-    activities' intervals."""
-    import torch
-    from torch.profiler import ProfilerActivity, profile
-
-    for _ in range(3):
-        step()
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        for _ in range(n):
-            step()
-        torch.cuda.synchronize()
-        wall = (time.perf_counter() - t0) * 1e3 / n
-    spans, by_name = [], {}
-    for e in prof.events():
-        # Device activities only; a user annotation (e.g. Optimizer.step)
-        # spans other kernels and the gaps between them.
-        if e.device_type == torch.autograd.DeviceType.CUDA and not getattr(e, "is_user_annotation", False):
-            spans.append((e.time_range.start, e.time_range.end))
-            by_name[e.name] = by_name.get(e.name, 0.0) + (e.time_range.end - e.time_range.start) / 1e3 / n
-    check(spans, "profile: the profiler recorded no device activity")
-    busy, end = 0.0, -1.0
-    for a, b in sorted(spans):
-        if b > end:
-            busy += b - max(a, end)
-            end = b
-    busy = busy / 1e3 / n
-    return wall, busy, 1.0 - busy / wall, sorted(by_name.items(), key=lambda kv: -kv[1])
 
 
 def _event_ms(fn, iters=10, reps=7):
@@ -1534,11 +1481,36 @@ def phase_lookup_scatter_times(card):
     return lookup, scatter
 
 
+def phase_second_order_times(card):
+    """``benchmarks.grid_second_order_times``' kernel measurements: G1, G2
+    (cgx only, the SDF path; and with cgp), the 3D lookup and table gradient
+    and their row0 / no-scatter variants, each twice in turns (CUDA events),
+    G1's and G2's plain versions, and the compiler's report of both kernels
+    (ptxas registers and spills, SASS instructions)."""
+    import torch
+
+    from tcnn_tpu_torch.benchmarks import grid_second_order_times as gso
+    from tcnn_tpu_torch.encodings import create_encoding
+    from tcnn_tpu_torch.ops import _build
+
+    dev = torch.device("cuda")
+    args = gso.build_parser().parse_args([])
+    (rec,) = gso.time_kernels(args, dev, card, plain=True)
+    ms = rec["ms"]
+    log(f"time [{card}]: second order, 3D model B=2^18 uniform, bf16 dy, classes of the batch (accumulation codes "
+        f"{rec['acc']}): " + "; ".join(f"{k} {v:.4f} ms" for k, v in ms.items())
+        + " (CUDA events, kernels in turns; row0: every level one row long; no scatter: no class table)")
+    for name, k in gso.compiler_report(_build.build_library("grid_bwd")).items():
+        log(f"second order kernel: {name[:90]}: {k.get('registers')} registers, spill stores "
+            f"{k.get('spill_stores')} / loads {k.get('spill_loads')} bytes, {k.get('instructions')} SASS instructions")
+    enc = create_encoding(3, ENC3D, alignment=16)
+    return {"ms": ms, "n_params": enc.n_params, "n_levels": enc.n_levels}
+
+
 def phase_times(card, k1, k2, m, x_np, kb, ks):
     import torch
 
     from tcnn_tpu_torch.common import Activation
-    from tcnn_tpu_torch.ops import grid_encode as ge
     from tcnn_tpu_torch.ops import scatter_rows as sr
     from tcnn_tpu_torch.ops.ffmlp import ffmlp_forward, ffmlp_forward_plain
     from tcnn_tpu_torch.optimizers import AdamOptimizer
@@ -1566,24 +1538,12 @@ def phase_times(card, k1, k2, m, x_np, kb, ks):
         ("kernel", "scatter_rows"): lambda: sr.scatter_rows(ks["idx"], ks["rows"], 64),
         ("plain", "scatter_rows"): lambda: sr.scatter_rows_plain(ks["idx"], ks["rows"], 64),
     }
-    # G1 and G2 on the SDF path's inputs: the 3D model, B = 2^18, bf16 dy,
-    # the classes of a 2^18 batch, the input-gradient cotangent only.
-    g = _grid_inputs(ENC3D, np.random.default_rng(SEED + 8), torch.device("cuda"), B_SDF, boundary=False)
-    g_args = _grid_args(g)
-    fns.update({
-        ("kernel", "grid_bwd_input"): lambda: ge.grid_backward_input(g["x"], g["dy"], g["params"], *g_args),
-        ("plain", "grid_bwd_input"): lambda: ge.grid_backward_input_plain(g["x"], g["dy"], g["params"], *g_args),
-        ("kernel", "grid_bwdbwd"): lambda: ge.grid_backward_backward(
-            g["x"], g["dy"], g["params"], *g_args, g["classes"], None, g["cgx"]),
-        ("plain", "grid_bwdbwd"): lambda: ge.grid_backward_backward_plain(
-            g["x"], g["dy"], g["params"], *g_args, g["classes"], None, g["cgx"]),
-    })
     # One PyTorch call that computes the same function, where there is one:
     # the fp32 row scatter is index_add_.
     s_out = torch.zeros((64, 4), device="cuda")
     s_idx = ks["idx"].long()
     library = {"scatter_rows": lambda: s_out.index_add_(0, s_idx, ks["rows"])}
-    timed = ("k1", "k2", "adam_step", "scatter_rows", "grid_bwd_input", "grid_bwdbwd")
+    timed = ("k1", "k2", "adam_step", "scatter_rows")
     runs = {which: {"kernel": [], "plain": []} for which in timed}
     with torch.no_grad():
         for which in timed:
@@ -1598,6 +1558,12 @@ def phase_times(card, k1, k2, m, x_np, kb, ks):
     for which in timed:
         for kind in ("kernel", "plain"):
             t[f"{which}_{kind}_ms"] = statistics.median(runs[which][kind])
+    # G1 and G2 at the SDF path's shapes, beside the 3D lookup and table
+    # gradient, by the benchmark entry point that records them.
+    t["second_order"] = phase_second_order_times(card)
+    so = t["second_order"]["ms"]
+    t["grid_bwd_input_kernel_ms"], t["grid_bwd_input_plain_ms"] = so["G1"], so["G1 plain"]
+    t["grid_bwdbwd_kernel_ms"], t["grid_bwdbwd_plain_ms"] = so["G2 cgx"], so["G2 cgx plain"]
     # The table gradient at three shapes; the JSON line takes the stratified
     # flagship batch, the training path's.
     t["grid_bwd_ab"] = phase_grid_bwd_times(card, ks)
@@ -1629,7 +1595,7 @@ def phase_times(card, k1, k2, m, x_np, kb, ks):
     n_w = sum(int(w.numel()) for w in ws)
     enc2, L2, F = enc, enc.n_levels, 2
     n_enc = enc2.n_params
-    d3, n3, L3 = 3, g["enc"].n_params, g["enc"].n_levels
+    d3, n3, L3 = 3, t["second_order"]["n_params"], t["second_order"]["n_levels"]
     t["bounds"] = {
         "k1": bound(B_FLAG * (32 + 16) * 2 + n_w * 2, 2 * B_FLAG * n_w, "bf16"),
         "k2": bound(B_FLAG * 2 * 4 + n_enc * 4 + B_FLAG * 32 * 2, B_FLAG * L2 * 4 * (2 + 2 * F), "fp32"),
@@ -1821,45 +1787,48 @@ def phase_floors(card, records, t, train_profile, sdf_profile):
     rates from the probe sweep (2^24 uniform rows of F = 2; for each
     operation and table size the fastest source or library call of this
     run, named): the flagship's tables (levels of at most 2^15 rows, 2.8
-    MB) at the 2^15 rates; the 3D model's (52 MB of 2^19-row levels)
-    between the 2^19 and 2^23 rates, since it holds more than the L2 and
-    its levels each less. Measured times: CUDA events (phase 13) or the
-    profiles' device ms per step (launches per step named)."""
+    MB) at the 2^15 rates; the 3D model's at the rates of its own table
+    (probe_rows.MODEL_3D_ROWS rows, 52 MB, more than the L2). Measured
+    times: CUDA events (phase 13) or the profiles' device ms per step
+    (launches per step named)."""
+    from tcnn_tpu_torch.benchmarks.probe_rows import MODEL_3D_ROWS
+
     best = fastest_rates(records)
     for (op, S), (ns, what) in sorted(best.items()):
-        log(f"floor rate [{card}]: {op} S=2^{int(np.log2(S))}: {ns:.4f} ns/row, fastest of this run: {what}")
+        log(f"floor rate [{card}]: {op} S={S}: {ns:.4f} ns/row, fastest of this run: {what}")
     rate = {key: ns for key, (ns, _) in best.items()}
     flag_rows, rows3d = B_FLAG * 16 * 4, B_SDF * 16 * 8
     ab = t["grid_bwd_ab"]
+    S3 = MODEL_3D_ROWS
     cases = (
         ("lookup, flagship uniform (events)", flag_rows, ["gather"], (2**15, 2**15), t["k2_kernel_ms"]),
         ("lookup, flagship stratified (events)", flag_rows, ["gather"], (2**15, 2**15),
          t["lookup_ab"][LOOKUP_SHAPES[0]]["grid_encode"]),
         ("lookup, flagship stratified, earlier kernel v1 (events)", flag_rows, ["gather"], (2**15, 2**15),
          t["lookup_ab"][LOOKUP_SHAPES[0]]["grid_encode_v1"]),
-        ("lookup, 3D (events)", rows3d, ["gather"], (2**19, 2**23), t["lookup_ab"][LOOKUP_SHAPES[2]]["grid_encode"]),
+        ("lookup, 3D (events)", rows3d, ["gather"], (S3, S3), t["lookup_ab"][LOOKUP_SHAPES[2]]["grid_encode"]),
         ("table gradient, flagship, stratified batch (events)", flag_rows, ["scatter-add"], (2**15, 2**15),
          ab[GRID_BWD_SHAPES[0]]["new"]),
         ("table gradient, flagship, uniform points (events)", flag_rows, ["scatter-add"], (2**15, 2**15),
          ab[GRID_BWD_SHAPES[1]]["new"]),
         ("table gradient in the training step, stratified batch (profile)", flag_rows, ["scatter-add"],
          (2**15, 2**15), _profile_ms(train_profile, "grid_backward_kernel")),
-        ("lookup, 3D (profile)", rows3d, ["gather"], (2**19, 2**23), _profile_ms(sdf_profile, "grid_forward_kernel")),
-        ("G1, 3D (events)", rows3d, ["gather"], (2**19, 2**23), t["grid_bwd_input_kernel_ms"]),
-        ("table gradient, 3D, one of two launches (profile)", rows3d, ["scatter-add"], (2**19, 2**23),
+        ("lookup, 3D (profile)", rows3d, ["gather"], (S3, S3), _profile_ms(sdf_profile, "grid_forward_kernel")),
+        ("G1, 3D (events)", rows3d, ["gather"], (S3, S3), t["grid_bwd_input_kernel_ms"]),
+        ("table gradient, 3D, one of two launches (profile)", rows3d, ["scatter-add"], (S3, S3),
          _profile_ms(sdf_profile, "grid_backward_kernel") / 2),
-        ("table gradient, 3D, training classes (events)", rows3d, ["scatter-add"], (2**19, 2**23),
+        ("table gradient, 3D, training classes (events)", rows3d, ["scatter-add"], (S3, S3),
          ab[GRID_BWD_SHAPES[2]]["new"]),
-        ("G2, 3D (events)", rows3d, ["gather", "scatter-add"], (2**19, 2**23), t["grid_bwdbwd_kernel_ms"]),
+        ("G2, 3D (events)", rows3d, ["gather", "scatter-add"], (S3, S3), t["grid_bwdbwd_kernel_ms"]),
     )
     for name, rows, ops, (s_lo, s_hi), ms in cases:
         lo = sum(rows * rate[(op, s_lo)] for op in ops) * 1e-6
         hi = sum(rows * rate[(op, s_hi)] for op in ops) * 1e-6
         lo, hi = min(lo, hi), max(lo, hi)
         whats = sorted({best[(op, s)][1] for op in ops for s in (s_lo, s_hi)})
-        log(f"floor [{card}]: {name}: {rows} rows x {'+'.join(ops)} at the fastest random-row rates of S = 2^"
-            f"{int(np.log2(s_lo))}..2^{int(np.log2(s_hi))} ({', '.join(whats)}): {lo:.4f}-{hi:.4f} ms; measured "
-            f"{ms:.4f} ms ({ms / hi:.2f}-{ms / lo:.2f}x)")
+        sizes = f"S = {s_lo}" if s_lo == s_hi else f"S = {s_lo}..{s_hi}"
+        log(f"floor [{card}]: {name}: {rows} rows x {'+'.join(ops)} at the fastest random-row rates of {sizes} "
+            f"({', '.join(whats)}): {lo:.4f}-{hi:.4f} ms; measured {ms:.4f} ms ({ms / hi:.2f}-{ms / lo:.2f}x)")
 
 
 BENCH_COUNTERS = {

@@ -2,13 +2,15 @@
 ``python -m tcnn_tpu_torch.benchmarks.<name>``: ``bench`` (the headline
 image-fit protocols of the repo's ``bench.py``), ``bench_mlp``,
 ``bench_image``, ``probe_rows`` (the row gather and scatter probes),
-``grid_bwd_plans`` (the table-gradient kernel's launch plans) and
+``grid_bwd_plans`` (the table-gradient kernel's launch plans),
 ``lookup_scatter_times`` (the grid lookup and the row scatter at the main
-path's shapes, against the earlier lookup kernel and ``index_add_``). They
-run on the CUDA card (``--device cuda``, the default) and fail without one;
-``--device cpu`` (all but ``lookup_scatter_times``, which times kernels
-only) runs the kernels' plain versions, for tests only: its times are the
-CPU's. Nothing here runs at import.
+path's shapes, against the earlier lookup kernel and ``index_add_``) and
+``grid_second_order_times`` (the grid's input gradient and double backward
+at the SDF path's shapes, and the SDF step). They run on the CUDA card
+(``--device cuda``, the default) and fail without one; ``--device cpu``
+(all but the last two, which time kernels only) runs the kernels' plain
+versions, for tests only: its times are the CPU's. Nothing here runs at
+import.
 
 The helpers below are shared by the entry points.
 """

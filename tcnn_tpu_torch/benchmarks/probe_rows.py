@@ -9,7 +9,8 @@ checked against its plain version, then timed; one line per variant in the
 probes' form and one JSON line at the end. ``--sweep`` adds the gather and
 the scatter-add at the grid's row widths (F = 2 and 8) over table sizes
 S = 2^12, 2^15, 2^19 and 2^23 (64 MB at F = 2, beyond the 50 MB L2) for
-every source, with the library calls beside them.
+every source, with the library calls beside them, and at the 3D model's
+own table (6,522,408 rows of F = 2, 52 MB).
 
 Usage: python -m tcnn_tpu_torch.benchmarks.probe_rows [--log-b 17]
        [--log-s 15] [--feat 8] [--reps 20] [--only sp_serial,ds8]
@@ -309,20 +310,31 @@ def build_cases(args, dev) -> List[Case]:
     return cases
 
 
-def sweep_cases(dev, log_bs=(18, 24), sizes=(12, 15, 19, 23), feats=(2, 8), seed: int = 0) -> List[Case]:
+# The 3D model's table (the root bench.py's --protocol 3d encoding,
+# log2_hashmap_size 19: 13,044,816 values, F = 2, 52 MB, more than the L2):
+# the rows its lookup, table gradient, G1 and G2 read and add into.
+MODEL_3D_ROWS = 6_522_408
+
+
+def sweep_cases(dev, log_bs=(18, 24), sizes=(12, 15, 19, 23), feats=(2, 8), seed: int = 0,
+                model_rows=(MODEL_3D_ROWS,)) -> List[Case]:
     """The gather and the ADD scatter at the grid's row widths: B = 2^log_b
     uniform indices into (2^s, F) tables, every source, and the library
-    calls (``index_select``, ``index_add_``) beside them. At B = 2^18 a call
-    lasts about as long as its launch; B = 2^24 is the row count of the
-    flagship lookup (2^18 samples x 16 levels x 4 corners)."""
+    calls (``index_select``, ``index_add_``) beside them; then the same at
+    the largest B and F = 2 into each table of ``model_rows`` rows (the 3D
+    model's own). At B = 2^18 a call lasts about as long as its launch; B = 2^24 is
+    the row count of the flagship lookup (2^18 samples x 16 levels x 4
+    corners)."""
     gen = torch.Generator(device=dev).manual_seed(seed)
+    points = [(b, 1 << s, f) for b in log_bs for s in sizes for f in feats] + [(log_bs[-1], int(S), 2) for S in model_rows]
     cases = []
-    for log_b, s, F in ((b, s, f) for b in log_bs for s in sizes for f in feats):
-        B, S = 1 << log_b, 1 << s
+    for log_b, S, F in points:
+        B = 1 << log_b
         table = torch.randn((S, F), generator=gen, device=dev)
         idx = torch.randint(0, S, (B,), generator=gen, device=dev, dtype=torch.int32)
         rows = torch.randn((B, F), generator=gen, device=dev)
-        tag = f"S=2^{s} F={F} B=2^{log_b}"
+        size = f"2^{S.bit_length() - 1}" if S & (S - 1) == 0 else str(S)
+        tag = f"S={size} F={F} B=2^{log_b}"
         sources = [(pr.SOURCE_L2, {}), (pr.SOURCE_L2, {"unroll": 8}), (pr.SOURCE_ASYNC, {"in_flight": 64})]
         if pr.fits_shared(S * F):
             sources.append((pr.SOURCE_SHARED, {}))

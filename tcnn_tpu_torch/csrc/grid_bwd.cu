@@ -105,14 +105,32 @@
 // W; device ms a call, kernel / index_add_): 64 slots 0.0187 / 0.1000, the
 // P3 shapes 0.0126 / 0.0197 and 0.0122 / 0.0197, P19 0.0078 / 0.0085.
 //
-// G1 and G2 run one thread per sample that walks the levels in order and
-// keeps its d input-gradient sums in registers, so the sum over levels and
-// corners is deterministic and needs no atomics; G2 writes its d/d(dL_dy)
-// row directly and scatters into the table with the same class rounding and
-// scalar atomics as that earlier table gradient. G1 and G2 read B * L * 2^d
-// random table rows (32.5 M 8-byte rows at the 3D model, B = 2^18, in a
-// 52 MB table that does not fit the L2): random sector reads bound them,
-// and G2's scatter adds as many atomics again.
+// G1 and G2 read B * L * 2^d random table rows (32.5 M 8-byte rows at the
+// 3D model, B = 2^18, in a 52 MB table that does not fit the L2), and G2
+// adds as many rows into the table gradient. The earlier kernels (one
+// thread per sample walking every level and corner in order, loops
+// unrolled to kMaxDims with run-time guards, a kMaxDims^3 Hessian loop a
+// corner, 115 and 158 registers, one scalar atomic a contribution; deleted
+// since) took 0.8447 and 4.3971 ms there, and kept 88% (G1) and 91% (G2
+// without its table scatter) of it with every corner reading one row:
+// arithmetic and latency, not the rows, set them; G2's scalar atomics took
+// 2.02 ms more (benchmarks/grid_second_order_times.py, NVIDIA H100 80GB
+// HBM3, 700 W).
+//
+// Design (G1, G2): level-major tiles, as the lookup: a block owns 32
+// samples, warp w takes levels w, w + 8, ...; d (2, 3) and F are compile-
+// time constants, so every corner's row and weight is computed first and
+// all row loads issued before any is used, the weight derivatives take
+// d^2 products of d factors a corner (27 at d = 3), and x and cgx are read
+// once a lane. d/dx sums in registers a warp and in warp order over the
+// block: deterministic, no atomics. G2 stages its d/d(dL_dy) rows in shared
+// memory and writes them whole, and scatters its table gradient as the
+// table gradient kernel does (merged runs, one vector atomic a row). No
+// level is privatised: a block's 32 samples leave nothing to amortise a
+// private copy over. Measured at the 3D model (same tool and card; ms, new
+// / earlier kernel in one call): G1 0.2598 / 0.8434 (the lookup over the
+// same rows 0.2616), G2 with cgx 1.0898 / 4.3963 (without its scatter
+// 0.3760), with cgx and cgp 1.6315 / 4.6378.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -481,148 +499,357 @@ cudaError_t launch_by_features(int F, unsigned blocks, const Plan& plan, cudaStr
 #undef TCNN_GRID_BWD_CASE
 }
 
-// G1: one thread per sample, levels and corners in order.
-template <typename DyT>
-__global__ void grid_backward_input_kernel(const float* __restrict__ x, const DyT* __restrict__ dy,
-                                           const float* __restrict__ params,
-                                           const Level* __restrict__ levels, float* __restrict__ dx,
-                                           int batch, int n_dims, int n_levels, int F, int dy_width,
-                                           int interp) {
-  const int64_t b = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
-  if (b >= batch) return;
-  const float* xrow = x + b * n_dims;
-  float acc[kMaxDims];
+// G1 and G2: level-major tiles, as the lookup (grid_fwd.cu). A block of
+// kWarps warps owns kTile = 32 consecutive samples, one a lane; warp w takes
+// levels w, w + kWarps, ..., so a warp's lanes are 32 samples on one level
+// and the level table sits in shared memory. A lane reads its sample's x
+// (and cgx) once. With the dims at compile time (D = 2, 3) every corner's
+// row is computed first and all its row loads (T, and cgp for G2) are
+// issued before any is used. Each warp sums its levels' d/dx terms in
+// registers, leaves them in shared memory, and the block adds the kWarps
+// partials in warp order and writes the tile's d/dx rows whole: one fixed
+// order, no atomics. G2 stages its d/d(dL_dy) rows in shared memory (a
+// padded row a sample, padding columns zero) and writes them whole, and
+// adds its table gradient as the table gradient kernel does: lanes on
+// equal rows merged first (merge_runs), then one vector atomic a row.
+constexpr int kTile = 32;
+constexpr int kWarps = 8;
+
+// The per-level part of G1's and G2's shared memory: the level table and
+// the class codes, then the warps' d/dx partials, [warp][dim][lane].
+__device__ __forceinline__ float* stage_levels(unsigned char* smem, const Level* __restrict__ levels,
+                                               const int* __restrict__ classes, int n_levels, int** s_classes) {
+  Level* s_levels = reinterpret_cast<Level*>(smem);
+  int* cls = reinterpret_cast<int*>(s_levels + n_levels);
+  const int* src = reinterpret_cast<const int*>(levels);
+  int* dst = reinterpret_cast<int*>(s_levels);
+  for (int i = threadIdx.x; i < n_levels * (int)(sizeof(Level) / 4); i += blockDim.x) dst[i] = __ldg(src + i);
+  for (int i = threadIdx.x; i < 2 * n_levels; i += blockDim.x)
+    cls[i] = classes != nullptr ? __ldg(classes + i) : (i & 1 ? kAccF32 : kContribNone);
+  *s_classes = cls;
+  return reinterpret_cast<float*>(cls + 2 * n_levels);
+}
+
+// d/dx of the tile: the sum of the warps' partials in warp order, written
+// as the tile's contiguous (rows, dims) block.
+__device__ __forceinline__ void write_dx(const float* s_part, float* __restrict__ out, int b0, int rows, int dims) {
+  for (int e = threadIdx.x; e < rows * dims; e += blockDim.x) {
+    const int r = e / dims, k = e - r * dims;
+    float s = 0.0f;
 #pragma unroll
-  for (int e = 0; e < kMaxDims; ++e) acc[e] = 0.0f;
-  const int n_corners = interp == kNearest ? 1 : 1 << n_dims;
-  for (int lvl = 0; lvl < n_levels; ++lvl) {
-    const Level lv = levels[lvl];
-    const Cell cell = locate(xrow, lv, n_dims, interp);
-    float d1[kMaxDims], d2[kMaxDims];
-    fraction_derivatives(xrow, lv, n_dims, interp, d1, d2);
-    float g[kMaxF];
-    const DyT* grow = dy + b * dy_width + lvl * F;
-#pragma unroll
-    for (int f = 0; f < kMaxF; ++f) g[f] = f < F ? (float)grow[f] : 0.0f;
-    for (int c = 0; c < n_corners; ++c) {
-      float weight;
-      const uint32_t idx = corner(cell, lv, n_dims, interp, c, &weight);
-      const float* trow = params + ((int64_t)lv.offset + idx) * F;
-      float dot = 0.0f;
-#pragma unroll
-      for (int f = 0; f < kMaxF; ++f) {
-        if (f < F) dot = __fadd_rn(dot, __fmul_rn(g[f], read_rounded(trow + f, lv)));
-      }
-      float fac[kMaxDims], dw[kMaxDims];
-#pragma unroll
-      for (int k = 0; k < kMaxDims; ++k) fac[k] = k < n_dims ? factor(cell, c, k) : 1.0f;
-      weight_gradient(fac, d1, c, n_dims, dw);
-#pragma unroll
-      for (int e = 0; e < kMaxDims; ++e) {
-        if (e < n_dims) acc[e] = __fadd_rn(acc[e], __fmul_rn(dw[e], dot));
-      }
-    }
-  }
-#pragma unroll
-  for (int e = 0; e < kMaxDims; ++e) {
-    if (e < n_dims) dx[b * n_dims + e] = acc[e];
+    for (int w = 0; w < kWarps; ++w) s = __fadd_rn(s, s_part[(w * dims + k) * kTile + r]);
+    out[(size_t)b0 * dims + e] = s;
   }
 }
 
-// G2: one thread per sample. cgp / cgx may be null (zero cotangents);
-// classes may be null (no class table: no level drops); grad32 null: no
-// table scatter.
-template <typename DyT>
-__global__ void grid_backward_backward_kernel(
-    const float* __restrict__ x, const DyT* __restrict__ dy, const float* __restrict__ params,
-    const float* __restrict__ cgp, const float* __restrict__ cgx, const Level* __restrict__ levels,
-    const int* __restrict__ classes, float* __restrict__ grad32, __nv_bfloat16* __restrict__ grad16,
-    float* __restrict__ d_x, float* __restrict__ d_dy, int batch, int n_dims, int n_levels, int F,
-    int dy_width, int interp) {
-  const int64_t b = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
-  if (b >= batch) return;
-  const float* xrow = x + b * n_dims;
-  float cx[kMaxDims], ax[kMaxDims];
+template <typename DyT, int F>
+__device__ __forceinline__ void load_dy(const DyT* __restrict__ row, bool valid, float (&g)[F]) {
 #pragma unroll
-  for (int e = 0; e < kMaxDims; ++e) {
-    cx[e] = cgx != nullptr && e < n_dims ? __ldg(cgx + b * n_dims + e) : 0.0f;
-    ax[e] = 0.0f;
+  for (int f = 0; f < F; ++f) g[f] = valid ? as_float(row[f]) : 0.0f;
+}
+
+// One corner of G1: acc[e] += dw_c[e] <g, T_c>.
+template <int F, int K>
+__device__ __forceinline__ void input_corner(const Cell& cell, const float (&d1)[K], const float (&d2)[K], int c,
+                                             int dims, const float (&g)[F], const float (&t)[F], float (&acc)[K]) {
+  float dw[K], h[K];
+  corner_derivatives<K>(cell, d1, d2, d1, c, dims, false, dw, h);  // no Hessian: its cx (here d1) is not read
+  float dot = 0.0f;
+#pragma unroll
+  for (int f = 0; f < F; ++f) dot = __fadd_rn(dot, __fmul_rn(g[f], t[f]));
+#pragma unroll
+  for (int e = 0; e < K; ++e) {
+    if (e < dims) acc[e] = __fadd_rn(acc[e], __fmul_rn(dw[e], dot));
   }
-  const int n_corners = interp == kNearest ? 1 : 1 << n_dims;
-  for (int lvl = 0; lvl < n_levels; ++lvl) {
-    const int contrib = classes != nullptr ? __ldg(classes + 2 * lvl) : kContribNone;
-    const int acc = classes != nullptr ? __ldg(classes + 2 * lvl + 1) : kAccF32;
+}
+
+// G1. D > 0: the dims at compile time; D = 0: n_dims at run time, corner
+// by corner.
+template <typename DyT, int F, int D>
+__global__ void __launch_bounds__(kWarps * 32)
+    grid_backward_input_kernel(const float* __restrict__ x, const DyT* __restrict__ dy,
+                               const float* __restrict__ params, const Level* __restrict__ levels,
+                               float* __restrict__ dx, int batch, int n_dims, int n_levels, int dy_width, int interp,
+                               int aligned) {
+  constexpr int K = D > 0 ? D : kMaxDims;
+  extern __shared__ __align__(16) unsigned char smem[];
+  int* s_classes;
+  float* s_part = stage_levels(smem, levels, nullptr, n_levels, &s_classes);
+  const Level* s_levels = reinterpret_cast<const Level*>(smem);
+  __syncthreads();
+
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int dims = D > 0 ? D : n_dims;
+  const int b0 = blockIdx.x * kTile, b = b0 + lane;
+  const bool valid = b < batch;
+  float xv[K], acc[K];
+#pragma unroll
+  for (int k = 0; k < K; ++k) {
+    if (k < dims) {
+      xv[k] = valid ? __ldg(x + (size_t)b * dims + k) : 0.0f;
+      acc[k] = 0.0f;
+    }
+  }
+  const DyT* grow = dy + (size_t)(valid ? b : b0) * dy_width;
+  const int n_corners = interp == kNearest ? 1 : 1 << dims;
+  for (int lvl = warp; lvl < n_levels; lvl += kWarps) {
+    const Level& lv = s_levels[lvl];
+    float g[F], d1[K], d2[K];
+    load_dy<DyT, F>(grow + lvl * F, valid, g);
+    const Cell cell = cell_of(xv, lv, dims, interp);
+    fraction_derivatives<K>(xv, lv, dims, interp, d1, d2);
+    if constexpr (D > 0) {
+      constexpr int C = 1 << D;
+      uint32_t row[C];
+      float t[C][F];
+#pragma unroll
+      for (int c = 0; c < C; ++c) {
+        float w;
+        if (c < n_corners) row[c] = lv.offset + corner(cell, lv, D, interp, c, &w);
+      }
+#pragma unroll
+      for (int c = 0; c < C; ++c) {
+        if (c < n_corners) load_row<F>(params, row[c], aligned, lv, t[c]);
+      }
+#pragma unroll
+      for (int c = 0; c < C; ++c) {
+        if (c < n_corners) input_corner<F, K>(cell, d1, d2, c, dims, g, t[c], acc);
+      }
+    } else {
+      for (int c = 0; c < n_corners; ++c) {
+        float w, t[F];
+        load_row<F>(params, lv.offset + corner(cell, lv, dims, interp, c, &w), aligned, lv, t);
+        input_corner<F, K>(cell, d1, d2, c, dims, g, t, acc);
+      }
+    }
+  }
+#pragma unroll
+  for (int k = 0; k < K; ++k) {
+    if (k < dims) s_part[(warp * dims + k) * kTile + lane] = acc[k];
+  }
+  __syncthreads();
+  write_dx(s_part, dx, b0, min(batch - b0, kTile), dims);
+}
+
+// One corner of G2: its d/d(dL_dy) terms into gdy, its d/dx terms into ax;
+// returns a_c = sum_e cgx_e dw_c[e].
+template <int F, int K>
+__device__ __forceinline__ float second_order_corner(const Cell& cell, const float (&d1)[K], const float (&d2)[K],
+                                                     const float (&cx)[K], int c, int dims, bool has_cgx,
+                                                     bool use_cgp, float w, const float (&g)[F], const float (&t)[F],
+                                                     const float (&p)[F], float (&gdy)[F], float (&ax)[K]) {
+  float dw[K], h[K];
+  corner_derivatives<K>(cell, d1, d2, cx, c, dims, has_cgx, dw, h);
+  float a = 0.0f;
+#pragma unroll
+  for (int e = 0; e < K; ++e) {
+    if (e < dims) a = __fadd_rn(a, __fmul_rn(cx[e], dw[e]));
+  }
+  float dot = 0.0f, pdot = 0.0f;
+#pragma unroll
+  for (int f = 0; f < F; ++f) {
+    dot = __fadd_rn(dot, __fmul_rn(g[f], t[f]));
+    gdy[f] = __fadd_rn(gdy[f], __fmul_rn(a, t[f]));
+    if (use_cgp) {
+      pdot = __fadd_rn(pdot, __fmul_rn(g[f], p[f]));
+      gdy[f] = __fadd_rn(gdy[f], __fmul_rn(w, p[f]));
+    }
+  }
+#pragma unroll
+  for (int e = 0; e < K; ++e) {
+    if (e < dims) ax[e] = __fadd_rn(ax[e], __fadd_rn(__fmul_rn(h[e], dot), __fmul_rn(dw[e], pdot)));
+  }
+  return a;
+}
+
+// G2's table gradient for one corner: round(a_c * g_f) with the level's
+// class added at table row `row` (kNoRow: this lane adds nothing). Lanes on
+// equal rows merge first, then one vector atomic a row. Warp-uniform.
+template <int F>
+__device__ __forceinline__ void scatter_corner(uint32_t row, float a, const float (&g)[F], int contrib, bool half,
+                                               float* __restrict__ grad32, __nv_bfloat16* __restrict__ grad16) {
+  float v[F];
+#pragma unroll
+  for (int f = 0; f < F; ++f) {
+    const float t = round_contribution(__fmul_rn(a, g[f]), contrib);
+    v[f] = row == kNoRow ? 0.0f : half ? bf16_round(t) : t;
+  }
+  if (!merge_runs<F>(row, v, half) || row == kNoRow) return;
+  bool any = false;
+#pragma unroll
+  for (int f = 0; f < F; ++f) any |= v[f] != 0.0f;
+  if (!any) return;  // +-0 adds nothing
+  if (half) {
+    add_row_bf16<F>(grad16 + (size_t)row * F, v);
+  } else {
+    add_row_f32_global<F>(grad32 + (size_t)row * F, v);
+  }
+}
+
+// G2. cgp / cgx may be null (zero cotangents); classes may be null (no
+// class table: no level drops); grad32 null: no table scatter. Shared
+// memory: the level table, the class codes, the d/dx partials, then the
+// tile's d/d(dL_dy) rows (`row_stride` floats each, odd).
+template <typename DyT, int F, int D>
+__global__ void __launch_bounds__(kWarps * 32)
+    grid_backward_backward_kernel(const float* __restrict__ x, const DyT* __restrict__ dy,
+                                  const float* __restrict__ params, const float* __restrict__ cgp,
+                                  const float* __restrict__ cgx, const Level* __restrict__ levels,
+                                  const int* __restrict__ classes, float* __restrict__ grad32,
+                                  __nv_bfloat16* __restrict__ grad16, float* __restrict__ d_x,
+                                  float* __restrict__ d_dy, int batch, int n_dims, int n_levels, int dy_width,
+                                  int interp, int aligned, int row_stride) {
+  constexpr int K = D > 0 ? D : kMaxDims;
+  extern __shared__ __align__(16) unsigned char smem[];
+  int* s_classes;
+  float* s_part = stage_levels(smem, levels, classes, n_levels, &s_classes);
+  const Level* s_levels = reinterpret_cast<const Level*>(smem);
+  const int dims = D > 0 ? D : n_dims;
+  float* s_rows = s_part + kWarps * dims * kTile;
+  if (dy_width > n_levels * F) {  // padding columns: zeros
+    for (int i = threadIdx.x; i < kTile * row_stride; i += blockDim.x) s_rows[i] = 0.0f;
+  }
+  __syncthreads();
+
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int b0 = blockIdx.x * kTile, b = b0 + lane;
+  const bool valid = b < batch, has_cgx = cgx != nullptr;
+  float xv[K], cx[K], ax[K];
+#pragma unroll
+  for (int k = 0; k < K; ++k) {
+    if (k < dims) {
+      xv[k] = valid ? __ldg(x + (size_t)b * dims + k) : 0.0f;
+      cx[k] = valid && has_cgx ? __ldg(cgx + (size_t)b * dims + k) : 0.0f;
+      ax[k] = 0.0f;
+    }
+  }
+  const DyT* grow = dy + (size_t)(valid ? b : b0) * dy_width;
+  float* srow = s_rows + lane * row_stride;
+  const int n_corners = interp == kNearest ? 1 : 1 << dims;
+  for (int lvl = warp; lvl < n_levels; lvl += kWarps) {
+    const Level& lv = s_levels[lvl];
+    const int contrib = s_classes[2 * lvl], acc = s_classes[2 * lvl + 1];
     const bool use_cgp = cgp != nullptr && acc != kAccDrop;
     const bool scatter = grad32 != nullptr && acc != kAccDrop;
-    const Level lv = levels[lvl];
-    const Cell cell = locate(xrow, lv, n_dims, interp);
-    float d1[kMaxDims], d2[kMaxDims];
-    fraction_derivatives(xrow, lv, n_dims, interp, d1, d2);
-    float g[kMaxF], gdy[kMaxF];
-    const DyT* grow = dy + b * dy_width + lvl * F;
+    const bool half = acc == kAccBf16;
+    float g[F], gdy[F], d1[K], d2[K];
+    load_dy<DyT, F>(grow + lvl * F, valid, g);
 #pragma unroll
-    for (int f = 0; f < kMaxF; ++f) {
-      g[f] = f < F ? (float)grow[f] : 0.0f;
-      gdy[f] = 0.0f;
-    }
-    for (int c = 0; c < n_corners; ++c) {
-      float weight;
-      const uint32_t idx = corner(cell, lv, n_dims, interp, c, &weight);
-      const int64_t row = ((int64_t)lv.offset + idx) * F;
-      float fac[kMaxDims], dw[kMaxDims];
+    for (int f = 0; f < F; ++f) gdy[f] = 0.0f;
+    const Cell cell = cell_of(xv, lv, dims, interp);
+    fraction_derivatives<K>(xv, lv, dims, interp, d1, d2);
+    if constexpr (D > 0) {
+      constexpr int C = 1 << D;
+      uint32_t row[C];
+      float w[C], t[C][F], p[C][F];
 #pragma unroll
-      for (int k = 0; k < kMaxDims; ++k) fac[k] = k < n_dims ? factor(cell, c, k) : 1.0f;
-      weight_gradient(fac, d1, c, n_dims, dw);
-      float a = 0.0f;
-#pragma unroll
-      for (int e = 0; e < kMaxDims; ++e) {
-        if (e < n_dims) a = __fadd_rn(a, __fmul_rn(cx[e], dw[e]));
+      for (int c = 0; c < C; ++c) {
+        if (c < n_corners) row[c] = lv.offset + corner(cell, lv, D, interp, c, &w[c]);
       }
-      float dot = 0.0f, pdot = 0.0f;
 #pragma unroll
-      for (int f = 0; f < kMaxF; ++f) {
-        if (f < F) {
-          const float t = read_rounded(params + row + f, lv);
-          dot = __fadd_rn(dot, __fmul_rn(g[f], t));
-          gdy[f] = __fadd_rn(gdy[f], __fmul_rn(a, t));
-          if (use_cgp) {
-            const float p = __ldg(cgp + row + f);
-            pdot = __fadd_rn(pdot, __fmul_rn(g[f], p));
-            gdy[f] = __fadd_rn(gdy[f], __fmul_rn(weight, p));
-          }
+      for (int c = 0; c < C; ++c) {
+        if (c < n_corners) {
+          load_row<F>(params, row[c], aligned, lv, t[c]);
+          if (use_cgp) load_row_raw<F>(cgp, row[c], aligned, p[c]);
         }
       }
 #pragma unroll
-      for (int e2 = 0; e2 < kMaxDims; ++e2) {
-        if (e2 < n_dims) {
-          float h = 0.0f;
-          if (cgx != nullptr) {
-#pragma unroll
-            for (int e = 0; e < kMaxDims; ++e) {
-              if (e < n_dims) h = __fadd_rn(h, __fmul_rn(cx[e], weight_hessian(fac, d1, d2, c, n_dims, e, e2)));
-            }
-          }
-          ax[e2] = __fadd_rn(ax[e2], __fadd_rn(__fmul_rn(h, dot), __fmul_rn(dw[e2], pdot)));
+      for (int c = 0; c < C; ++c) {
+        if (c < n_corners) {
+          const float a = second_order_corner<F, K>(cell, d1, d2, cx, c, dims, has_cgx, use_cgp, w[c], g, t[c],
+                                                    p[c], gdy, ax);
+          if (scatter) scatter_corner<F>(valid ? row[c] : kNoRow, a, g, contrib, half, grad32, grad16);
         }
       }
-      if (scatter) {
-#pragma unroll
-        for (int f = 0; f < kMaxF; ++f) {
-          if (f < F) accumulate(grad32, grad16, row + f, round_contribution(__fmul_rn(a, g[f]), contrib), acc);
-        }
+    } else {
+      for (int c = 0; c < n_corners; ++c) {
+        float w, t[F], p[F];
+        const uint32_t row = lv.offset + corner(cell, lv, dims, interp, c, &w);
+        load_row<F>(params, row, aligned, lv, t);
+        if (use_cgp) load_row_raw<F>(cgp, row, aligned, p);
+        const float a = second_order_corner<F, K>(cell, d1, d2, cx, c, dims, has_cgx, use_cgp, w, g, t, p, gdy, ax);
+        if (scatter) scatter_corner<F>(valid ? row : kNoRow, a, g, contrib, half, grad32, grad16);
       }
     }
-    float* orow = d_dy + b * dy_width + lvl * F;
 #pragma unroll
-    for (int f = 0; f < kMaxF; ++f) {
-      if (f < F) orow[f] = gdy[f];
-    }
+    for (int f = 0; f < F; ++f) srow[lvl * F + f] = gdy[f];
   }
-  for (int col = n_levels * F; col < dy_width; ++col) d_dy[b * dy_width + col] = 0.0f;
 #pragma unroll
-  for (int e = 0; e < kMaxDims; ++e) {
-    if (e < n_dims) d_x[b * n_dims + e] = ax[e];
+  for (int k = 0; k < K; ++k) {
+    if (k < dims) s_part[(warp * dims + k) * kTile + lane] = ax[k];
   }
+  __syncthreads();
+  const int rows = min(batch - b0, kTile);
+  write_dx(s_part, d_x, b0, rows, dims);
+  for (int r = warp; r < rows; r += kWarps) {
+    for (int c = lane; c < dy_width; c += 32) d_dy[(size_t)(b0 + r) * dy_width + c] = s_rows[r * row_stride + c];
+  }
+}
+
+// Above 48 KB a block's dynamic shared memory must be allowed first. The
+// attribute holds for the current device only, so every such launch sets it.
+template <typename Kernel>
+cudaError_t allow_smem(Kernel kernel, size_t smem) {
+  if (smem <= 48 * 1024) return cudaSuccess;
+  return cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+}
+
+// One launch of G1 or G2 with F and D fixed; dispatch() picks them.
+struct InputLaunch {
+  template <typename DyT, int F, int D>
+  static cudaError_t run(unsigned blocks, size_t smem, cudaStream_t s, const float* x, const DyT* dy,
+                         const float* params, const Level* lv, float* dx, int batch, int n_dims, int n_levels,
+                         int dy_width, int interp, int aligned) {
+    const cudaError_t err = allow_smem(grid_backward_input_kernel<DyT, F, D>, smem);
+    if (err != cudaSuccess) return err;
+    grid_backward_input_kernel<DyT, F, D><<<blocks, kWarps * 32, smem, s>>>(x, dy, params, lv, dx, batch, n_dims,
+                                                                            n_levels, dy_width, interp, aligned);
+    return cudaGetLastError();
+  }
+};
+
+struct SecondOrderLaunch {
+  template <typename DyT, int F, int D>
+  static cudaError_t run(unsigned blocks, size_t smem, cudaStream_t s, const float* x, const DyT* dy,
+                         const float* params, const float* cgp, const float* cgx, const Level* lv, const int* cls,
+                         float* g32, __nv_bfloat16* g16, float* ox, float* ody, int batch, int n_dims, int n_levels,
+                         int dy_width, int interp, int aligned, int row_stride) {
+    const cudaError_t err = allow_smem(grid_backward_backward_kernel<DyT, F, D>, smem);
+    if (err != cudaSuccess) return err;
+    grid_backward_backward_kernel<DyT, F, D><<<blocks, kWarps * 32, smem, s>>>(
+        x, dy, params, cgp, cgx, lv, cls, g32, g16, ox, ody, batch, n_dims, n_levels, dy_width, interp, aligned,
+        row_stride);
+    return cudaGetLastError();
+  }
+};
+
+// Launch::run with F (1-8) and D (2, 3, else 0: the dims at run time) as
+// compile-time constants.
+template <typename Launch, typename DyT, typename... Args>
+cudaError_t dispatch(int F, int n_dims, Args... args) {
+#define TCNN_G_CASE(NF)                                                          \
+  case NF:                                                                       \
+    if (n_dims == 2) return Launch::template run<DyT, NF, 2>(args...);           \
+    if (n_dims == 3) return Launch::template run<DyT, NF, 3>(args...);           \
+    return Launch::template run<DyT, NF, 0>(args...);
+  switch (F) {
+    TCNN_G_CASE(1)
+    TCNN_G_CASE(2)
+    TCNN_G_CASE(3)
+    TCNN_G_CASE(4)
+    TCNN_G_CASE(5)
+    TCNN_G_CASE(6)
+    TCNN_G_CASE(7)
+    TCNN_G_CASE(8)
+    default:
+      return cudaErrorInvalidValue;
+  }
+#undef TCNN_G_CASE
+}
+
+// Bytes of G1's (rows 0) and G2's shared memory.
+size_t second_order_smem(int n_levels, int n_dims, int row_stride) {
+  return n_levels * (sizeof(Level) + 8) + (size_t)kWarps * n_dims * kTile * 4 + (size_t)kTile * row_stride * 4;
 }
 
 // Copies the bf16 sums into the fp32 output. An entry takes adds in one of
@@ -756,22 +983,24 @@ extern "C" int tcnn_grid_backward_input(const void* x, const void* dy, const voi
                                         const void* levels, void* dx, int batch, int n_dims,
                                         int n_levels, int F, int dy_width, int interp,
                                         int dy_bf16, void* stream) {
-  if (n_dims < 1 || n_dims > kMaxDims || F < 1 || F > kMaxF) return (int)cudaErrorInvalidValue;
+  if (n_dims < 1 || n_dims > kMaxDims || F < 1 || F > kMaxF || n_levels < 1 || n_levels > kMaxLevels ||
+      dy_width < n_levels * F)
+    return (int)cudaErrorInvalidValue;
   if (batch <= 0) return 0;
+  const unsigned blocks = (unsigned)((batch + kTile - 1) / kTile);
+  const size_t smem = second_order_smem(n_levels, n_dims, 0);
+  const int aligned = reinterpret_cast<uintptr_t>(params) % 16 == 0;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const float* xf = static_cast<const float*>(x);
   const float* pf = static_cast<const float*>(params);
   const Level* lv = static_cast<const Level*>(levels);
   float* out = static_cast<float*>(dx);
-  if (dy_bf16) {
-    grid_backward_input_kernel<__nv_bfloat16><<<blocks_for(batch), kThreads, 0, s>>>(
-        xf, static_cast<const __nv_bfloat16*>(dy), pf, lv, out, batch, n_dims, n_levels, F, dy_width,
-        interp);
-  } else {
-    grid_backward_input_kernel<float><<<blocks_for(batch), kThreads, 0, s>>>(
-        xf, static_cast<const float*>(dy), pf, lv, out, batch, n_dims, n_levels, F, dy_width, interp);
-  }
-  return (int)cudaGetLastError();
+  return (int)(dy_bf16 ? dispatch<InputLaunch, __nv_bfloat16>(F, n_dims, blocks, smem, s, xf,
+                                                              static_cast<const __nv_bfloat16*>(dy), pf, lv, out,
+                                                              batch, n_dims, n_levels, dy_width, interp, aligned)
+                       : dispatch<InputLaunch, float>(F, n_dims, blocks, smem, s, xf, static_cast<const float*>(dy),
+                                                      pf, lv, out, batch, n_dims, n_levels, dy_width, interp,
+                                                      aligned));
 }
 
 // The double backward of the lookup for the cotangents cgp (n_values,) and
@@ -787,13 +1016,19 @@ extern "C" int tcnn_grid_backward_backward(const void* x, const void* dy, const 
                                            int n_levels, int F, int dy_width, int interp,
                                            int dy_bf16, int64_t n_values,
                                            void* stream) {
-  if (n_dims < 1 || n_dims > kMaxDims || F < 1 || F > kMaxF) return (int)cudaErrorInvalidValue;
+  if (n_dims < 1 || n_dims > kMaxDims || F < 1 || F > kMaxF || n_levels < 1 || n_levels > kMaxLevels ||
+      dy_width < n_levels * F)
+    return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   cudaError_t err = cudaSuccess;
   if (grad32 != nullptr) err = cudaMemsetAsync(grad32, 0, n_values * 4, s);
   if (err == cudaSuccess && grad16 != nullptr) err = cudaMemsetAsync(grad16, 0, n_values * 2, s);
   if (err != cudaSuccess) return (int)err;
   if (batch > 0) {
+    const unsigned blocks = (unsigned)((batch + kTile - 1) / kTile);
+    const int row_stride = dy_width | 1;
+    const size_t smem = second_order_smem(n_levels, n_dims, row_stride);
+    const int aligned = reinterpret_cast<uintptr_t>(params) % 16 == 0 && reinterpret_cast<uintptr_t>(cgp) % 16 == 0;
     const float* xf = static_cast<const float*>(x);
     const float* pf = static_cast<const float*>(params);
     const float* cp = static_cast<const float*>(cgp);
@@ -804,16 +1039,13 @@ extern "C" int tcnn_grid_backward_backward(const void* x, const void* dy, const 
     __nv_bfloat16* g16 = static_cast<__nv_bfloat16*>(grad16);
     float* ox = static_cast<float*>(d_x);
     float* ody = static_cast<float*>(d_dy);
-    if (dy_bf16) {
-      grid_backward_backward_kernel<__nv_bfloat16><<<blocks_for(batch), kThreads, 0, s>>>(
-          xf, static_cast<const __nv_bfloat16*>(dy), pf, cp, cx, lv, cls, g32, g16, ox, ody, batch,
-          n_dims, n_levels, F, dy_width, interp);
-    } else {
-      grid_backward_backward_kernel<float><<<blocks_for(batch), kThreads, 0, s>>>(
-          xf, static_cast<const float*>(dy), pf, cp, cx, lv, cls, g32, g16, ox, ody, batch, n_dims,
-          n_levels, F, dy_width, interp);
-    }
-    if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
+    err = dy_bf16 ? dispatch<SecondOrderLaunch, __nv_bfloat16>(
+                        F, n_dims, blocks, smem, s, xf, static_cast<const __nv_bfloat16*>(dy), pf, cp, cx, lv, cls,
+                        g32, g16, ox, ody, batch, n_dims, n_levels, dy_width, interp, aligned, row_stride)
+                  : dispatch<SecondOrderLaunch, float>(F, n_dims, blocks, smem, s, xf, static_cast<const float*>(dy),
+                                                       pf, cp, cx, lv, cls, g32, g16, ox, ody, batch, n_dims,
+                                                       n_levels, dy_width, interp, aligned, row_stride);
+    if (err != cudaSuccess) return (int)err;
   }
   if (grad32 != nullptr && grad16 != nullptr) {
     fold_bf16_kernel<<<blocks_for(n_values), kThreads, 0, s>>>(

@@ -86,13 +86,14 @@ struct Cell {
   uint32_t base;
 };
 
-__device__ __forceinline__ Cell locate(const float* __restrict__ xrow, const Level& lv, int n_dims,
-                                       int interp) {
+// The cell of a sample on one level; coord(d) gives its coordinate d.
+template <typename Coord>
+__device__ __forceinline__ Cell cell_at(Coord coord, const Level& lv, int n_dims, int interp) {
   Cell cell;
 #pragma unroll
   for (int d = 0; d < kMaxDims; ++d) {
     if (d < n_dims) {
-      const float pos = __fadd_rn(__fmul_rn(__ldg(xrow + d), lv.scale), 0.5f);
+      const float pos = __fadd_rn(__fmul_rn(coord(d), lv.scale), 0.5f);
       const float pf = floorf(pos);
       cell.pg[d] = (uint32_t)(int32_t)pf;
       float t = __fsub_rn(pos, pf);
@@ -111,6 +112,16 @@ __device__ __forceinline__ Cell locate(const float* __restrict__ xrow, const Lev
     cell.base = reduce(cell.base, lv);
   }
   return cell;
+}
+
+// ... of the sample whose coordinates are in global memory at xrow.
+__device__ __forceinline__ Cell locate(const float* __restrict__ xrow, const Level& lv, int n_dims, int interp) {
+  return cell_at([xrow](int d) { return __ldg(xrow + d); }, lv, n_dims, interp);
+}
+
+// ... of the sample whose coordinates xv[0..n_dims-1] are at hand.
+__device__ __forceinline__ Cell cell_of(const float* xv, const Level& lv, int n_dims, int interp) {
+  return cell_at([xv](int d) { return xv[d]; }, lv, n_dims, interp);
 }
 
 // Level-local row of corner c (bit d of c: upper neighbour in dim d) and
@@ -155,14 +166,51 @@ __device__ __forceinline__ float rounded(float v, const Level& lv) {
 }
 __device__ __forceinline__ float read_rounded(const float* p, const Level& lv) { return rounded(__ldg(p), lv); }
 
-// Per dim, the first (d1) and second (d2) derivative of the interpolation
-// fraction w_d with respect to x_d.
-__device__ __forceinline__ void fraction_derivatives(const float* __restrict__ xrow, const Level& lv,
-                                                     int n_dims, int interp, float* d1, float* d2) {
+// The F fp32 values of table row g: float2 / float4 loads where F and the
+// table's alignment (`aligned`: 16 bytes) allow. load_row also rounds them
+// as level lv reads them.
+template <int F>
+__device__ __forceinline__ void load_row_raw(const float* __restrict__ table, uint32_t g, bool aligned,
+                                             float (&v)[F]) {
+  const float* p = table + g * (uint32_t)F;
+  if constexpr (F % 4 == 0) {
+    if (aligned) {
 #pragma unroll
-  for (int d = 0; d < kMaxDims; ++d) {
+      for (int k = 0; k < F / 4; ++k) {
+        const float4 t = __ldg(reinterpret_cast<const float4*>(p) + k);
+        v[4 * k] = t.x, v[4 * k + 1] = t.y, v[4 * k + 2] = t.z, v[4 * k + 3] = t.w;
+      }
+      return;
+    }
+  } else if constexpr (F == 2) {
+    if (aligned) {
+      const float2 t = __ldg(reinterpret_cast<const float2*>(p));
+      v[0] = t.x, v[1] = t.y;
+      return;
+    }
+  }
+#pragma unroll
+  for (int f = 0; f < F; ++f) v[f] = __ldg(p + f);
+}
+
+template <int F>
+__device__ __forceinline__ void load_row(const float* __restrict__ params, uint32_t g, bool aligned,
+                                         const Level& lv, float (&v)[F]) {
+  load_row_raw<F>(params, g, aligned, v);
+#pragma unroll
+  for (int f = 0; f < F; ++f) v[f] = rounded(v[f], lv);
+}
+
+// Per dim, the first (d1) and second (d2) derivative of the interpolation
+// weight w_d with respect to x_d. K: the arrays' length (the dims at
+// compile time, or kMaxDims).
+template <int K>
+__device__ __forceinline__ void fraction_derivatives(const float* xv, const Level& lv, int n_dims, int interp,
+                                                     float (&d1)[K], float (&d2)[K]) {
+#pragma unroll
+  for (int d = 0; d < K; ++d) {
     if (d < n_dims) {
-      const float pos = __fadd_rn(__fmul_rn(__ldg(xrow + d), lv.scale), 0.5f);
+      const float pos = __fadd_rn(__fmul_rn(xv[d], lv.scale), 0.5f);
       const float t = __fsub_rn(pos, floorf(pos));
       float s1 = interp == kNearest ? 0.0f : 1.0f;
       float s2 = 0.0f;
@@ -176,47 +224,61 @@ __device__ __forceinline__ void fraction_derivatives(const float* __restrict__ x
   }
 }
 
-// The factor of dim d in corner c's weight, and a derivative of it: +v for
-// the upper neighbour, -v for the lower.
-__device__ __forceinline__ float factor(const Cell& cell, int c, int d) {
-  return (c >> d) & 1 ? cell.w[d] : __fsub_rn(1.0f, cell.w[d]);
-}
-__device__ __forceinline__ float signed_by_bit(int c, int d, float v) { return (c >> d) & 1 ? v : -v; }
-
-// dW[e] = d(weight of corner c) / d x_e: the weight's product with dim e's
-// factor replaced by its derivative.
-__device__ __forceinline__ void weight_gradient(const float* f, const float* d1, int c, int n_dims, float* dW) {
-#pragma unroll
-  for (int e = 0; e < kMaxDims; ++e) {
-    if (e < n_dims) {
-      float p = 1.0f;
-#pragma unroll
-      for (int d = 0; d < kMaxDims; ++d) {
-        if (d < n_dims) p = __fmul_rn(p, d == e ? signed_by_bit(c, d, d1[d]) : f[d]);
-      }
-      dW[e] = p;
-    }
-  }
-}
-
-// d^2(weight of corner c) / d x_d d x_e: dims d and e replaced by their
-// derivatives (d != e), or dim d by its second derivative (d == e).
-__device__ __forceinline__ float weight_hessian(const float* f, const float* d1, const float* d2, int c,
-                                                int n_dims, int d, int e) {
+// The product of a corner's factors f_k in dimension order from 1.0, with
+// dims e and e2 replaced by their signed derivatives s1 (dim e by its
+// second derivative s2 where e = e2; e2 = -1: dim e alone by s1).
+template <int K>
+__device__ __forceinline__ float replaced_product(const float (&f)[K], const float (&s1)[K], const float (&s2)[K],
+                                                  int e, int e2, int n_dims) {
   float p = 1.0f;
 #pragma unroll
-  for (int k = 0; k < kMaxDims; ++k) {
-    if (k < n_dims) {
-      float v = f[k];
-      if (k == d && d == e) {
-        v = signed_by_bit(c, k, d2[k]);
-      } else if (k == d || k == e) {
-        v = signed_by_bit(c, k, d1[k]);
-      }
-      p = __fmul_rn(p, v);
-    }
+  for (int k = 0; k < K; ++k) {
+    if (k < n_dims) p = __fmul_rn(p, k == e && k == e2 ? s2[k] : k == e || k == e2 ? s1[k] : f[k]);
   }
   return p;
+}
+
+// Corner c's weight derivatives, from its factors f_k (w_k for the upper
+// neighbour in dim k, 1 - w_k for the lower) and their signed derivatives:
+// dw[e] = d w_c / d x_e and, with `hess`, h[e2] = sum_e cx[e] d^2 w_c / d x_e
+// d x_e2 (h = 0 without). Sums run in index order, as the plain versions
+// write them: n_dims^2 products of n_dims factors for the Hessian (27 at
+// d = 3). K: the dims at compile time, where the loops unroll; K =
+// kMaxDims (the dims at run time) loops.
+template <int K>
+__device__ __forceinline__ void corner_derivatives(const Cell& cell, const float (&d1)[K], const float (&d2)[K],
+                                                   const float (&cx)[K], int c, int n_dims, bool hess,
+                                                   float (&dw)[K], float (&h)[K]) {
+  float f[K], s1[K], s2[K];
+#pragma unroll
+  for (int k = 0; k < K; ++k) {
+    if (k < n_dims) {
+      const bool up = (c >> k) & 1;
+      f[k] = up ? cell.w[k] : __fsub_rn(1.0f, cell.w[k]);
+      s1[k] = up ? d1[k] : -d1[k];
+      s2[k] = up ? d2[k] : -d2[k];
+    }
+  }
+  auto hessian_row = [&](int e2) {
+    float acc = 0.0f;
+    if (hess) {
+      for (int e = 0; e < n_dims; ++e) acc = __fadd_rn(acc, __fmul_rn(cx[e], replaced_product<K>(f, s1, s2, e, e2, n_dims)));
+    }
+    return acc;
+  };
+  if constexpr (K < kMaxDims) {
+#pragma unroll
+    for (int e = 0; e < K; ++e) {
+      dw[e] = replaced_product<K>(f, s1, s2, e, -1, n_dims);
+      h[e] = hessian_row(e);
+    }
+  } else {
+#pragma unroll 1
+    for (int e = 0; e < n_dims; ++e) {
+      dw[e] = replaced_product<K>(f, s1, s2, e, -1, n_dims);
+      h[e] = hessian_row(e);
+    }
+  }
 }
 
 }  // namespace tcnn_grid

@@ -72,38 +72,6 @@ constexpr int kMaxLevels = 128;  // tcnn_tpu_torch/common.py MAX_N_LEVELS
 __device__ __forceinline__ void store(float* p, float v) { *p = v; }
 __device__ __forceinline__ void store(__nv_bfloat16* p, float v) { *p = __float2bfloat16_rn(v); }
 
-// The F fp32 values of table row g (already rounded as level lv reads
-// them): float2 / float4 loads where F and the table's alignment allow.
-template <int F>
-__device__ __forceinline__ void load_row(const float* __restrict__ params, uint32_t g, bool aligned,
-                                         const Level& lv, float (&v)[F]) {
-  const float* p = params + g * (uint32_t)F;
-  if constexpr (F % 4 == 0) {
-    if (aligned) {
-#pragma unroll
-      for (int k = 0; k < F / 4; ++k) {
-        const float4 t = __ldg(reinterpret_cast<const float4*>(p) + k);
-        v[4 * k] = t.x, v[4 * k + 1] = t.y, v[4 * k + 2] = t.z, v[4 * k + 3] = t.w;
-      }
-    } else {
-#pragma unroll
-      for (int f = 0; f < F; ++f) v[f] = __ldg(p + f);
-    }
-  } else if constexpr (F == 2) {
-    if (aligned) {
-      const float2 t = __ldg(reinterpret_cast<const float2*>(p));
-      v[0] = t.x, v[1] = t.y;
-    } else {
-      v[0] = __ldg(p), v[1] = __ldg(p + 1);
-    }
-  } else {
-#pragma unroll
-    for (int f = 0; f < F; ++f) v[f] = __ldg(p + f);
-  }
-#pragma unroll
-  for (int f = 0; f < F; ++f) v[f] = rounded(v[f], lv);
-}
-
 // One (sample, level): the F sums in corner order. D > 0: the dims at
 // compile time (every corner's row first, then all loads, then the sums);
 // D = 0: n_dims at run time, corner by corner.

@@ -18,7 +18,12 @@ plain ``grid_backward_input_plain``) and the double backward
 replace what the JAX package gets from XLA
 autodiff of ``GridEncoding.apply`` (tcnn_tpu/encodings/grid.py:1354): they
 differentiate the corner weights with respect to x, exactly in every term
-(``jax.grad`` of ``jax.grad``). All of them read the same description of the
+(``jax.grad`` of ``jax.grad``). Both run level-major like the lookup (a
+block owns 32 samples, a warp one level of them) and sum d/dx and
+d/d(dL_dy) in one fixed order without atomics, so two calls give the same
+bits; G2 adds its table gradient as the table-gradient kernel does (equal
+rows of neighbouring samples merged in the warp, one vector atomic a
+row). All of them read the same description of the
 grid: the (n_levels, 28) int32 level table built by ``level_table``; the
 table-gradient scatters also read the per-level gradient rounding classes
 (``ops.scatter_rows`` codes).

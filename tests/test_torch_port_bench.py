@@ -273,3 +273,59 @@ def test_lookup_scatter_times_inputs_and_sass_parser():
     assert m.parse_sass(sass) == {
         "_Z20grid_forward_kernelIfEvv": {"instructions": 2, "calls": ["$__internal_0_$__cuda_sm20_rem_u64"]},
         "_Z5otherv": {"instructions": 1, "calls": []}}
+
+
+def test_grid_second_order_times_needs_a_card():
+    code = (
+        "from tcnn_tpu_torch.benchmarks import grid_second_order_times as m\n"
+        "try:\n"
+        "    m.main([])\n"
+        "except RuntimeError as e:\n"
+        "    assert 'no CUDA device' in str(e), e\n"
+        "else:\n"
+        "    raise AssertionError('ran without a card')\n"
+        "print('ok')\n"
+    )
+    env = dict(os.environ, CUDA_VISIBLE_DEVICES="", PYTHONPATH=str(ROOT))
+    r = subprocess.run([sys.executable, "-c", code], cwd=ROOT, env=env, capture_output=True, text=True, timeout=300)
+    assert r.returncode == 0, r.stderr
+    assert r.stdout.strip() == "ok"
+
+
+def test_grid_second_order_times_inputs_and_report_parsers():
+    """The timed operands and calls (built and run here on the CPU at a
+    small batch: the wrappers take their plain versions), the row0 level
+    table, and the ptxas report parser."""
+    import numpy as np
+    import torch
+
+    from tcnn_tpu_torch.benchmarks import grid_second_order_times as m
+
+    t = m.inputs(64, torch.device("cpu"), 0)
+    enc = t["enc"]
+    assert (enc.n_dims_to_encode, enc.n_levels, enc.n_features_per_level, enc.n_params) == (3, 16, 2, 13_044_816)
+    assert t["x"].shape == (64, 3) and t["dy"].shape == (64, 32) and t["dy"].dtype == torch.bfloat16
+    assert t["cgx"].shape == (64, 3) and t["cgp"].shape == t["params"].shape and t["classes"].shape == (16, 2)
+    row0 = t["levels_row0"].numpy().view(np.uint32)
+    levels = t["levels"].numpy().view(np.uint32)
+    assert (row0[:, 1] == 1).all() and (row0[:, 0] == levels[:, 0]).all() and not row0[:, -2:].any()
+    fns = m.cases(t, plain=True)
+    assert list(fns) == ["lookup", "table gradient", "G1", "G2 cgx", "G2 cgx+cgp", "G1 row0", "G2 cgx, no scatter",
+                         "G2 cgx, row0, no scatter", "lookup row0", "G1 plain", "G2 cgx plain"]
+    # row0: every corner reads its level's first row, whose weights sum to 1.
+    table = t["params"].view(-1, 2)[torch.from_numpy(levels[:, 0].astype(np.int64))]
+    want = table.reshape(1, -1).expand(64, -1)
+    torch.testing.assert_close(fns["lookup row0"]().float(), want.bfloat16().float(), rtol=1e-2, atol=1e-2)
+    d_params, d_x, d_dy = fns["G2 cgx"]()
+    assert d_params.shape == t["params"].shape and d_x.shape == (64, 3) and d_dy.shape == (64, 32)
+    assert fns["G2 cgx, no scatter"]()[0] is None
+    torch.testing.assert_close(fns["G1"](), fns["G1 plain"]())
+    log = "\n".join([
+        "ptxas info    : Compiling entry function '_Z26grid_backward_input_kernelIfLi2ELi3EEvv' for 'sm_90a'",
+        "ptxas info    : Function properties for _Z26grid_backward_input_kernelIfLi2ELi3EEvv",
+        "    0 bytes stack frame, 8 bytes spill stores, 4 bytes spill loads",
+        "ptxas info    : Used 72 registers, used 1 barriers, 400 bytes cmem[0]",
+    ])
+    assert m.parse_ptxas(log) == {"_Z26grid_backward_input_kernelIfLi2ELi3EEvv": {
+        "registers": 72, "spill_stores": 8, "spill_loads": 4}}
+

@@ -310,7 +310,7 @@ def _close_f32(got, want):
     {}, {"interpolation": "Smoothstep"}, {"table_dtype": "bfloat16"}, {"scatter_strategy": "factored_sr"},
     {"hash": "CoherentPrime"}, {"interpolation": "Nearest"},
 ], ids=str)
-@pytest.mark.parametrize("n_dims", [2, 3])
+@pytest.mark.parametrize("n_dims", [2, 3, 4])
 def test_grid_input_gradient_and_double_backward_match_plain(dev, n_dims, over):
     """G1 and G2 against their plain versions (fp32: the same products,
     sums in another order; the table-gradient scatter of an fp32 class
@@ -338,6 +338,122 @@ def test_grid_input_gradient_and_double_backward_match_plain(dev, n_dims, over):
         for a, b in zip(got, want):
             _close_f32(a, b)
     assert (grid_encode.INPUT_LAUNCHES, grid_encode.BWDBWD_LAUNCHES) == (before[0] + 1, before[1] + 2)
+
+
+SECOND_ORDER_GRID = {
+    "otype": "HashGrid", "n_levels": 10, "log2_hashmap_size": 12, "base_resolution": 4, "per_level_scale": 1.5,
+    "hash": "CoherentAdditive",
+}
+
+
+def _second_order_inputs(dev, n_dims, F, n, dy_dtype, seed):
+    enc = create_encoding(n_dims, dict(SECOND_ORDER_GRID, n_features_per_level=F), alignment=16)
+    rng = np.random.default_rng(seed)
+    t = {
+        "x": rng.uniform(-0.2, 1.2, (n, n_dims)), "params": rng.uniform(-1, 1, enc.n_params),
+        "dy": rng.normal(0, 1, (n, enc.padded_output_width)), "cgx": rng.normal(0, 1, (n, n_dims)),
+        "cgp": rng.normal(0, 1, enc.n_params),
+    }
+    t = {k: torch.from_numpy(v.astype(np.float32)).to(dev) for k, v in t.items()}
+    t["dy"] = t["dy"].to(dy_dtype)
+    # Every level (none, fp32) but level 1 (RN, bf16), level 2 (SR, fp32)
+    # and level 3 (drop).
+    classes = torch.zeros((enc.n_levels, 2), dtype=torch.int32)
+    classes[1] = torch.tensor([scatter_rows.CONTRIB_RN, scatter_rows.ACC_BF16])
+    classes[2] = torch.tensor([scatter_rows.CONTRIB_SR, scatter_rows.ACC_F32])
+    classes[3] = torch.tensor([scatter_rows.CONTRIB_NONE, scatter_rows.ACC_DROP])
+    t["classes"] = classes.to(dev)
+    return enc, t
+
+
+def _check_second_order_table(enc, got, plain, exact, classes):
+    """G2's table gradient level by level: an fp32 level within 1e-5 of its
+    max |plain| (atomics add in any order); a bf16 level at most twice the
+    plain sequential sum's error against the fp32 sum of the same rounded
+    contributions, in norm."""
+    F = enc.n_features_per_level
+    assert got.shape == plain.shape and torch.isfinite(got).all()
+    for lvl in range(enc.n_levels):
+        lo, hi = int(enc.offset_table[lvl]) * F, int(enc.offset_table[lvl + 1]) * F
+        g, p, e = got[lo:hi], plain[lo:hi], exact[lo:hi]
+        if int(classes[lvl, 1]) == scatter_rows.ACC_BF16:
+            assert float((g - e).norm()) <= 2 * float((p - e).norm()) + 1e-6 * float(e.norm()), lvl
+        else:
+            assert float((g - p).abs().max()) <= 1e-5 * float(p.abs().max()) + 1e-30, lvl
+
+
+@pytest.mark.parametrize("dy_dtype", [torch.bfloat16, torch.float32], ids=["bf16", "fp32"])
+@pytest.mark.parametrize("n_dims", [2, 3, 4])
+@pytest.mark.parametrize("F", [1, 2, 3, 4, 5, 6, 7, 8])
+def test_grid_second_order_every_instantiation(dev, F, n_dims, dy_dtype):
+    """G1 and G2 at every compiled (F, d) pair and at a run-time d (4), in
+    both dy types: 10 levels (some warps take two, some one) into a padded
+    width, 3,037 points (a ragged last tile), points outside [0, 1]. G2 with
+    and without cgp, without cgx, and without a class table (no table
+    gradient); the class table holds an (RN, bf16), an (SR, fp32) and a
+    dropped level. fp32 results as ``_close_f32``."""
+    enc, t = _second_order_inputs(dev, n_dims, F, 3037, dy_dtype, 100 * F + n_dims)
+    x, dy, params, cgx, cgp, classes = (t[k] for k in ("x", "dy", "params", "cgx", "cgp", "classes"))
+    args = (enc._levels_on(dev), F, _interp_code(enc))
+    exact_cls = classes.clone()
+    exact_cls[1, 1] = scatter_rows.ACC_F32
+    before = (grid_encode.INPUT_LAUNCHES, grid_encode.BWDBWD_LAUNCHES)
+    _close_f32(grid_encode.grid_backward_input(x, dy, params, *args),
+               grid_encode.grid_backward_input_plain(x, dy, params, *args))
+    cases = ((classes, cgp, cgx), (classes, None, cgx), (None, cgp, cgx), (classes, cgp, None))
+    for cls, cp, cx in cases:
+        got = grid_encode.grid_backward_backward(x, dy, params, *args, cls, cp, cx)
+        want = grid_encode.grid_backward_backward_plain(x, dy, params, *args, cls, cp, cx)
+        _close_f32(got[1], want[1])
+        _close_f32(got[2], want[2])
+        if cls is None or cx is None:
+            assert got[0] is None and want[0] is None
+        else:
+            exact = grid_encode.grid_backward_backward_plain(x, dy, params, *args, exact_cls, cp, cx)[0]
+            _check_second_order_table(enc, got[0], want[0], exact, cls)
+            lo, hi = int(enc.offset_table[3]) * F, int(enc.offset_table[4]) * F
+            assert not got[0][lo:hi].any()  # the dropped level
+    assert (grid_encode.INPUT_LAUNCHES, grid_encode.BWDBWD_LAUNCHES) == (before[0] + 1, before[1] + len(cases))
+
+
+@pytest.mark.parametrize("batch", [0, 1, 33])
+def test_grid_second_order_batch_sizes(dev, batch):
+    """Batches of 0, 1 and 33 samples (one full tile and one lane of the
+    next): the outputs' shapes, and the plain versions' values."""
+    enc, t = _second_order_inputs(dev, 3, 2, batch, torch.bfloat16, batch)
+    x, dy, params, cgx, cgp, classes = (t[k] for k in ("x", "dy", "params", "cgx", "cgp", "classes"))
+    args = (enc._levels_on(dev), 2, _interp_code(enc))
+    dx = grid_encode.grid_backward_input(x, dy, params, *args)
+    d_params, d_x, d_dy = grid_encode.grid_backward_backward(x, dy, params, *args, classes, cgp, cgx)
+    torch.cuda.synchronize()
+    assert dx.shape == d_x.shape == (batch, 3) and d_dy.shape == dy.shape and d_params.shape == params.shape
+    if batch == 0:
+        assert not d_params.any()
+        return
+    _close_f32(dx, grid_encode.grid_backward_input_plain(x, dy, params, *args))
+    want = grid_encode.grid_backward_backward_plain(x, dy, params, *args, classes, cgp, cgx)
+    _close_f32(d_x, want[1])
+    _close_f32(d_dy, want[2])
+
+
+def test_grid_second_order_is_deterministic(dev):
+    """d/dx (G1 and G2) and d/d(dL_dy) take no atomics: two calls on the
+    same inputs give the same bits (the 3D model at 2^16 points, in its
+    training classes, both cotangents)."""
+    enc = create_encoding(3, ENC3D_GRID, alignment=16)
+    gen = torch.Generator(device=dev).manual_seed(4)
+    n = 2**16
+    x = torch.rand((n, 3), generator=gen, device=dev)
+    params = torch.rand((enc.n_params,), generator=gen, device=dev) * 2 - 1
+    dy = torch.randn((n, 32), generator=gen, device=dev).bfloat16()
+    cgx = torch.randn((n, 3), generator=gen, device=dev)
+    cgp = torch.randn((enc.n_params,), generator=gen, device=dev)
+    classes = torch.from_numpy(enc.gradient_classes(n)).to(dev)
+    args = (enc._levels_on(dev), 2, grid_encode.INTERP_LINEAR)
+    runs = [(grid_encode.grid_backward_input(x, dy, params, *args),
+             *grid_encode.grid_backward_backward(x, dy, params, *args, classes, cgp, cgx)[1:]) for _ in range(2)]
+    for a, b in zip(*runs):
+        assert torch.equal(a, b)
 
 
 def test_module_second_order_matches_plain(dev):

@@ -252,3 +252,25 @@ def test_probe_entry_point_times_the_static_copys_library_call(capsys):
     got = torch.from_numpy(table)[:TILE].repeat(2, 1).numpy()
     np.testing.assert_array_equal(got, pr.probe_gather_plain(_t(table), _t(idx), pr.MODE_COPY).numpy())
     capsys.readouterr()
+
+
+def test_sweep_holds_the_3d_models_own_table():
+    """The sweep's model point is the 3D model's table (its rows of F = 2),
+    gathered from every source and scatter-added, each case matching its
+    plain version (here at 2^10 rows into a 1,000-row table on the CPU)."""
+    from tcnn_tpu_torch.benchmarks.grid_bwd_plans import ENCODING_3D
+    from tcnn_tpu_torch.encodings import create_encoding
+
+    enc = create_encoding(3, ENCODING_3D, alignment=16)
+    assert drv.MODEL_3D_ROWS * 2 == enc.n_params
+    cases = drv.sweep_cases(torch.device("cpu"), log_bs=(10,), sizes=(), model_rows=(1000,))
+    assert [(c.label, c.source) for c in cases] == [
+        ("gather S=1000 F=2 B=2^10", "l2"), ("gather S=1000 F=2 B=2^10", "l2 x8"),
+        ("gather S=1000 F=2 B=2^10", "async 64 in flight"), ("gather S=1000 F=2 B=2^10", "shared"),
+        ("scatter-add S=1000 F=2 B=2^10", "global"), ("scatter-add S=1000 F=2 B=2^10", "shared")]
+    assert all(c.shape["S"] == 1000 and c.shape["B"] == 2**10 for c in cases)
+    for c in cases:
+        drv.check_case(c)
+    log_bs, *_, model_rows = drv.sweep_cases.__defaults__
+    assert log_bs[-1] == 24 and model_rows == (drv.MODEL_3D_ROWS,)
+
