@@ -10,7 +10,10 @@ Phases, each printing lines of its own; any failure exits non-zero:
 2. build: compiles all six kernel libraries from tcnn_tpu_torch/csrc, one
    nvcc each, all started together.
 3. kernel 1 (fused MLP forward) against its plain chain, over widths x
-   depths x activations x batch sizes, then at the flagship's shapes.
+   depths x activation pairs x batch sizes (ragged last tiles: 1, 15, 17,
+   31, 33, 1000, 2^18 + 7), every activation as the hidden and as the
+   output one, then at the flagship's shapes, where two calls give the same
+   bits.
 4. kernel 2 (grid lookup) against its plain version: the flagship encoding
    at B = 2^18 plus cell-boundary points and points outside [0, 1]; again
    with table_dtype bfloat16 and with the CoherentPrime (XOR) hash, each
@@ -59,7 +62,8 @@ Phases, each printing lines of its own; any failure exits non-zero:
 13. times (CUDA events / synced host clock, median of repeats), each
    kernel's bound from its shapes (bytes over 3.35 TB/s or operations over
    the peak of their type) and, where one PyTorch call computes the same
-   function, that call's time; G1 and G2 (cgx only, and with cgp) at the
+   function, that call's time; K1's and K3's device time a call beside
+   their call time; G1 and G2 (cgx only, and with cgp) at the
    SDF path's shapes beside the 3D lookup and table gradient, with their
    row0 and no-scatter variants, plain versions and compiler report
    (benchmarks.grid_second_order_times); the table gradient and the plain version
@@ -196,6 +200,7 @@ def gpu_name_and_limit() -> str:
 
 
 def phase_build():
+    from tcnn_tpu_torch.benchmarks.grid_second_order_times import demangle, parse_ptxas
     from tcnn_tpu_torch.ops import _build
 
     t0 = time.perf_counter()
@@ -206,18 +211,36 @@ def phase_build():
         log(f"build: {src} -> {os.path.relpath(path)} (all {len(paths)} in parallel: {dt:.1f} s)")
         logfile = path.with_suffix(".log")
         if logfile.exists():
-            for line in logfile.read_text().splitlines():
-                if "registers" in line or "spill" in line:
-                    log(f"  ptxas: {line.strip()}")
+            report = parse_ptxas(logfile.read_text())
+            readable = demangle(report)
+            for fn, r in report.items():
+                log(f"  ptxas: {_kernel_name(readable[fn])}: {r['registers']} registers, spill stores "
+                    f"{r['spill_stores']} / loads {r['spill_loads']} bytes")
+
+
+def _kernel_name(readable: str) -> str:
+    """A demangled kernel name without its return type and parameter list:
+    ``void ns::k<(int)64, (int)2>(ns::Args)`` -> ``ns::k<(int)64, (int)2>``."""
+    depth, cut = 0, len(readable)
+    for i in range(len(readable) - 1, -1, -1):
+        depth += {")": 1, "(": -1}.get(readable[i], 0)
+        if depth == 0 and readable[i] == "(":
+            cut = i
+            break
+    return readable[:cut].removeprefix("void ").strip()
 
 
 def _mlp_weights(gen, shapes, gain, device):
+    """Uniform weights at gain / sqrt(fan_in), bf16 views of one buffer in
+    flat-parameter order, as a network's layers are."""
     import torch
 
-    ws = []
+    flat = torch.cat([((torch.rand((rows * cols,), generator=gen, device=device) * 2 - 1) * (gain / np.sqrt(cols)))
+                      for rows, cols in shapes]).to(torch.bfloat16)
+    ws, off = [], 0
     for rows, cols in shapes:
-        w = (torch.rand((rows, cols), generator=gen, device=device) * 2 - 1) * (gain / np.sqrt(cols))
-        ws.append(w.to(torch.bfloat16))
+        ws.append(flat[off:off + rows * cols].view(rows, cols))
+        off += rows * cols
     return ws
 
 
@@ -225,6 +248,11 @@ def _shapes(in_w, width, n_hidden, out_w):
     if n_hidden == 0:
         return [(out_w, in_w)]
     return [(width, in_w)] + [(width, width)] * (n_hidden - 1) + [(out_w, width)]
+
+
+# Batches of phase 3: one row, ragged last tiles around the kernel's 16- and
+# 32-row warp tiles, and the flagship batch plus a ragged tail.
+K1_BATCHES = (1, 15, 17, 31, 33, 1000, B_FLAG + 7)
 
 
 def phase_kernel1():
@@ -237,24 +265,39 @@ def phase_kernel1():
     gen = torch.Generator(device=dev).manual_seed(SEED)
     n = 0
     worst = 0.0
+    acts = ((Activation.ReLU, Activation.NONE), (Activation.Sigmoid, Activation.Tanh),
+            (Activation.Sine, Activation.Sigmoid))
     for width in (16, 32, 64, 128):
         for n_hidden in (0, 2, 5):
-            for act in (Activation.ReLU, Activation.Sigmoid, Activation.Sine):
+            for act, out_act in acts:
                 ws = _mlp_weights(gen, _shapes(32, width, n_hidden, 16), 2.0, dev)
-                for batch in (1, 1000, B_FLAG):
+                for batch in K1_BATCHES:
                     x = (torch.rand((batch, 32), generator=gen, device=dev) * 2 - 1).to(torch.bfloat16)
-                    got = ffmlp_forward(x, ws, act, Activation.NONE)
-                    want = ffmlp_forward_plain(x, ws, act, Activation.NONE)
+                    got = ffmlp_forward(x, ws, act, out_act)
+                    want = ffmlp_forward_plain(x, ws, act, out_act)
                     torch.cuda.synchronize()
-                    worst = max(worst, bf16_close(got, want, f"ffmlp w{width} h{n_hidden} {act.value} B{batch}"))
+                    worst = max(worst, bf16_close(got, want, f"ffmlp w{width} h{n_hidden} {act.value}/"
+                                                              f"{out_act.value} B{batch}"))
                     n += 1
-    log(f"kernel1: {n} cases match the plain chain ({TOL_NOTE}); worst max|diff| {worst:.3e}")
+    # Every activation as the hidden one and as the output one, at the
+    # flagship's shapes on a ragged batch.
+    ws = _mlp_weights(gen, _shapes(32, 64, 2, 16), 1.0, dev)
+    x = (torch.rand((B_FLAG + 7, 32), generator=gen, device=dev) * 2 - 1).to(torch.bfloat16)
+    for a in Activation:
+        for act, out_act in ((a, Activation.NONE), (Activation.ReLU, a)):
+            worst = max(worst, bf16_close(ffmlp_forward(x, ws, act, out_act), ffmlp_forward_plain(x, ws, act, out_act),
+                                          f"ffmlp flagship shapes {act.value}/{out_act.value} B{B_FLAG + 7}"))
+            n += 1
+    log(f"kernel1: {n} cases match the plain chain ({TOL_NOTE}); batches {K1_BATCHES}, every activation as the "
+        f"hidden and as the output one; worst max|diff| {worst:.3e}")
     ws = _mlp_weights(gen, _shapes(32, 64, 2, 16), 1.0, dev)
     x = (torch.rand((B_FLAG, 32), generator=gen, device=dev) * 2 - 1).to(torch.bfloat16)
     got = ffmlp_forward(x, ws, Activation.ReLU, Activation.NONE)
     want = ffmlp_forward_plain(x, ws, Activation.ReLU, Activation.NONE)
     err = bf16_close(got, want, "ffmlp flagship shapes")
-    log(f"kernel1: flagship shapes (B 2^18, 32 -> 64 x2 -> 16, ReLU) max|diff| {err:.3e}")
+    check(torch.equal(got, ffmlp_forward(x, ws, Activation.ReLU, Activation.NONE)),
+          "ffmlp flagship shapes: two calls on the same inputs differ")
+    log(f"kernel1: flagship shapes (B 2^18, 32 -> 64 x2 -> 16, ReLU) max|diff| {err:.3e}; two calls give the same bits")
     return {"x": x, "ws": ws, "err": err}
 
 
@@ -1558,6 +1601,20 @@ def phase_times(card, k1, k2, m, x_np, kb, ks):
     for which in timed:
         for kind in ("kernel", "plain"):
             t[f"{which}_{kind}_ms"] = statistics.median(runs[which][kind])
+    # Device time of one call, apart from the host's time to issue it (the
+    # call times above are events over back-to-back calls): K1, and K3
+    # through AdamOptimizer.step (the step count's increment and the
+    # kernel) and alone.
+    from tcnn_tpu_torch.benchmarks.probe_rows import device_ms
+    from tcnn_tpu_torch.ops import fused_adam
+
+    a_hp = fused_adam.hyperparams_of(opt, 715760, opt.n_matrix_weights, 128.0)
+    with torch.no_grad():
+        t["k1_device_ms"] = device_ms(fns[("kernel", "k1")], torch.device("cuda"), 21)
+    t["adam_step_device_ms"] = device_ms(fns[("kernel", "adam_step")], torch.device("cuda"), 21)
+    t["adam_step_kernel_device_ms"] = device_ms(lambda: fused_adam.adam_step(
+        a_params, a_grads, a_state["first_moments"], a_state["second_moments"], a_state["param_steps"],
+        a_state["step"], a_hp), torch.device("cuda"), 21)
     # G1 and G2 at the SDF path's shapes, beside the 3D lookup and table
     # gradient, by the benchmark entry point that records them.
     t["second_order"] = phase_second_order_times(card)
@@ -1582,8 +1639,12 @@ def phase_times(card, k1, k2, m, x_np, kb, ks):
         p = t["k2"][part]
         t[f"ffmlp_bwd_{part}_kernel_ms"], t[f"ffmlp_bwd_{part}_plain_ms"] = p["kernel"], p["plain"]
         t[f"ffmlp_bwd_{part}_library_ms"] = p["library"]
-    log(f"time [{card}]: kernel1 ffmlp_fwd B=2^18 32->64x2->16: kernel {t['k1_kernel_ms']:.4f} ms, "
-        f"plain chain {t['k1_plain_ms']:.4f} ms (CUDA events, median)")
+    log(f"time [{card}]: kernel1 ffmlp_fwd B=2^18 32->64x2->16: kernel {t['k1_kernel_ms']:.4f} ms (device "
+        f"{t['k1_device_ms']:.4f}), plain chain {t['k1_plain_ms']:.4f} ms (CUDA events, median)")
+    log(f"time [{card}]: kernel adam_step device time a call (715,760 params): AdamOptimizer.step "
+        f"{t['adam_step_device_ms']:.4f} ms (the step count's increment and the kernel), the kernel alone "
+        f"{t['adam_step_kernel_device_ms']:.4f} ms, beside the call time {t['adam_step_kernel_ms']:.4f} ms of "
+        f"back-to-back AdamOptimizer.step calls")
     log(f"time [{card}]: kernel2 grid_fwd flagship B=2^18: kernel {t['k2_kernel_ms']:.4f} ms, "
         f"plain lookup {t['k2_plain_ms']:.4f} ms (CUDA events, median)")
     log(f"time [{card}]: Trainer.inference B=2^18 (device input): {t['inference_ms']:.4f} ms "
@@ -1968,10 +2029,13 @@ def main() -> int:
     def entry(name, source, replaces, launches_, err, which, path, times=None):
         times = times or {"kernel": t[f"{which}_kernel_ms"], "plain": t[f"{which}_plain_ms"],
                           "bound": t["bounds"][which], "library": t.get(f"{which}_library_ms")}
-        return {"name": name, "route": "cuda", "source": f"tcnn_tpu_torch/csrc/{source}", "replaces": replaces,
-                "launches": launches_, "max_abs_err": err, "ms": times["kernel"], "plain_ms": times["plain"],
-                "bound_ms": times["bound"][0], "bound_by": times["bound"][1], "library_ms": times["library"],
-                "path": path}
+        out = {"name": name, "route": "cuda", "source": f"tcnn_tpu_torch/csrc/{source}", "replaces": replaces,
+               "launches": launches_, "max_abs_err": err, "ms": times["kernel"], "plain_ms": times["plain"],
+               "bound_ms": times["bound"][0], "bound_by": times["bound"][1], "library_ms": times["library"],
+               "path": path}
+        if f"{which}_device_ms" in t:
+            out["device_ms"] = t[f"{which}_device_ms"]
+        return out
 
     from tcnn_tpu_torch.ops import grid_encode as ge
 

@@ -63,10 +63,15 @@ class FullyFusedMLP(MLP):
             return super().apply(params, x)
         return self._fused(params, x, plain=True)
 
+    def _cast_weights(self, params):
+        """The layers as views of one cast of the network's parameter slice:
+        consecutive in one buffer, which the kernels take as it is."""
+        return self._weights(params[: self.n_params].to(self.compute_dtype))
+
     def _fused(self, params, x, plain: bool):
-        dt = self.compute_dtype
-        ws = [w.to(dt) for w in self._weights(params)]
-        return FfmlpFunction.apply(x.to(dt).contiguous(), self.activation, self.output_activation, plain, *ws)
+        ws = self._cast_weights(params)
+        return FfmlpFunction.apply(x.to(self.compute_dtype).contiguous(), self.activation, self.output_activation,
+                                   plain, *ws)
 
     def apply_packed(self, params: torch.Tensor, x_packed: torch.Tensor) -> torch.Tensor:
         """Packed-I/O path (tcnn_tpu/networks/fully_fused.py:apply_packed):
@@ -84,8 +89,7 @@ class FullyFusedMLP(MLP):
         return self._packed(params, x_packed, plain=True)
 
     def _packed(self, params, x_packed, plain: bool):
-        dt = self.compute_dtype
-        ws = [w.to(dt) for w in self._weights(params)]
+        ws = self._cast_weights(params)
         return FfmlpPackedFunction.apply(
-            x_packed.to(dt).contiguous(), self.activation, self.output_activation, plain, *ws
+            x_packed.to(self.compute_dtype).contiguous(), self.activation, self.output_activation, plain, *ws
         )

@@ -4,8 +4,9 @@ plain versions and the autograd Function that binds them.
 Replaces the Pallas kernels ``tcnn_tpu/ops/ffmlp.py:mlp_forward_pallas`` and
 ``mlp_backward_pallas`` (bound by the custom VJP ``ffmlp_apply``). The
 forward kernel (``csrc/ffmlp_fwd.cu``) runs the whole MLP for a tile of rows
-in one launch: weights staged once in shared memory, activations kept on
-chip between layers. Numerics are those of the plain chain
+in one launch: persistent blocks stage the weights once in shared memory,
+``mma.sync`` tiles keep the activations in registers between layers, laid
+out by the host plan ``forward_plan``. Numerics are those of the plain chain
 ``ffmlp_forward_plain``: bf16 operands, exact products, fp32 sums,
 activation in fp32, then a round to bf16 before the next layer. The
 backward (``csrc/ffmlp_bwd.cu``) computes what ``ffmlp_backward_plain``
@@ -35,12 +36,14 @@ from one to the other.
 from __future__ import annotations
 
 import ctypes
+import functools
 from typing import List, Sequence, Tuple
 
 import torch
 
 from ..common import Activation
 from ..networks.activations import ACTIVATION_CODES, activation_backward, activation_fn
+from ._plans import SHARED_BYTES, Plan, ceil_div
 
 # Launches of the CUDA kernels (each incremented once per launch of its
 # wrapper's kernel, nowhere else): the forward and the backward (K2, whose
@@ -67,6 +70,76 @@ DW_MIN_TILES = 4
 
 def _cdiv(a: int, b: int) -> int:
     return -(-a // b)
+
+
+# The forward kernel's launch plan (csrc/ffmlp_fwd.cu). Rows of the staged
+# weights and x tiles are padded by FWD_PAD bf16 so that ldmatrix reads them
+# without bank conflicts; the output is staged 16 columns at a time in rows
+# of FWD_OUT_STRIDE bf16. A warp owns 32 rows at widths <= 64 and 16 at
+# width 128 (and 16 wherever 32 would not fit).
+FWD_MAX_WARPS = 8
+FWD_PAD = 8
+FWD_OUT_STRIDE = 24
+
+
+class ForwardPlan(Plan):
+    """The forward kernel's launch: ``blocks`` of ``warps`` warps, each warp
+    owning ``rows_per_warp`` rows a tile and taking at most
+    ``tiles_per_warp`` tiles; ``smem_bytes`` of dynamic shared memory: the
+    weights (``weight_bytes``, rows padded by ``w_pad`` bf16), then per warp
+    ``warp_bytes``: ``x_bufs`` x tiles (2: the next tile prefetched) and
+    the output staging tile."""
+
+    FIELDS = ("blocks", "warps", "rows_per_warp", "tiles_per_warp", "smem_bytes", "w_pad", "x_bufs",
+              "weight_bytes", "warp_bytes")
+
+
+def _round128(n: int) -> int:
+    return _cdiv(n, 128) * 128
+
+
+def forward_layout(in_w: int, width: int, n_hidden: int, out_w: int):
+    """(rows_per_warp, w_pad, x_bufs, warps, weight_bytes, warp_bytes) of
+    the forward kernel for these shapes: of (padded weights, two x buffers,
+    the width's rows a warp), then one x buffer, then unpadded weights, then
+    16 rows a warp, the first that fits the most warps (up to
+    FWD_MAX_WARPS, halving). ValueError when not even one warp fits: the
+    weights alone all but fill what a block may use."""
+    shapes = [(out_w, in_w)] if n_hidden == 0 else (
+        [(width, in_w)] + [(width, width)] * (n_hidden - 1) + [(out_w, width)])
+    rows_max = 16 if n_hidden and width == 128 else 32
+    best = None
+    for w_pad, x_bufs, rows in ((FWD_PAD, 2, rows_max), (FWD_PAD, 1, rows_max), (0, 2, rows_max),
+                                (0, 1, rows_max), (0, 1, 16)):
+        weight_bytes = _round128(sum(fo * (fi + w_pad) for fo, fi in shapes) * 2)
+        warp_bytes = _round128(x_bufs * rows * (in_w + FWD_PAD) * 2 + rows * FWD_OUT_STRIDE * 2)
+        warps = FWD_MAX_WARPS
+        while warps >= 1 and weight_bytes + warps * warp_bytes > SHARED_BYTES:
+            warps //= 2
+        if warps >= 1 and (best is None or warps > best[3]):
+            best = (rows, w_pad, x_bufs, warps, weight_bytes, warp_bytes)
+    if best is None:
+        raise ValueError(
+            f"ffmlp_forward: weights of {sum(fo * fi for fo, fi in shapes) * 2} bytes do not fit the "
+            f"{SHARED_BYTES} bytes of shared memory a block may use")
+    return best
+
+
+def forward_plan(batch: int, in_w: int, width: int, n_hidden: int, out_w: int, n_sms: int,
+                 blocks_per_sm: int) -> ForwardPlan:
+    """The forward kernel's plan for ``batch`` rows: ``forward_layout``, and
+    persistent blocks: at most ``n_sms * blocks_per_sm`` (the blocks an SM
+    holds at once, as the card reports them for the kernel's registers and
+    shared memory), spread so that every warp takes ``tiles_per_warp``
+    tiles, but the last ones fewer."""
+    rows, w_pad, x_bufs, warps, weight_bytes, warp_bytes = forward_layout(in_w, width, n_hidden, out_w)
+    smem = weight_bytes + warps * warp_bytes
+    tiles = ceil_div(batch, rows)
+    tiles_per_warp = ceil_div(tiles, n_sms * blocks_per_sm * warps) if tiles else 0
+    blocks = ceil_div(ceil_div(tiles, tiles_per_warp), warps) if tiles else 0
+    return ForwardPlan(blocks=blocks, warps=warps, rows_per_warp=rows, tiles_per_warp=tiles_per_warp,
+                       smem_bytes=smem, w_pad=w_pad, x_bufs=x_bufs, weight_bytes=weight_bytes,
+                       warp_bytes=warp_bytes)
 
 
 def dw_split(batch: int, shapes: Sequence[Tuple[int, int]]) -> Tuple[int, int, int]:
@@ -194,23 +267,42 @@ def _check_shapes(in_width: int, shapes: Sequence[Tuple[int, int]]) -> Tuple[int
     return width, n_hidden, out_width
 
 
-_FWD_ARGS = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 7 + [ctypes.c_void_p]
+_FWD_ARGS = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 7 + [ctypes.c_void_p] * 2
+_OCC_ARGS = [ctypes.c_int] * 5 + [ctypes.c_void_p]
 _WALK_ARGS = [ctypes.c_void_p] * 7 + [ctypes.c_longlong] + [ctypes.c_int] * 8 + [ctypes.c_void_p]
 _WALK_SCRATCH_ARGS = [ctypes.c_int] * 4 + [ctypes.c_void_p]
 _DW_ARGS = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 8 + [ctypes.c_void_p]
 
 
+def flat_weights(weights: Sequence[torch.Tensor]) -> torch.Tensor:
+    """The weights as one contiguous buffer in flat-parameter order, what
+    the kernels read. Consecutive contiguous views of one buffer (a
+    network's layers, ``MLP._weights``) are that buffer already: a view of
+    it is returned and nothing is copied; other weights are concatenated."""
+    first = weights[0]
+    end = first.data_ptr()
+    for w in weights:
+        if not w.is_contiguous() or w.data_ptr() != end:
+            break
+        end += w.numel() * w.element_size()
+    else:
+        if weights[-1].untyped_storage().data_ptr() == first.untyped_storage().data_ptr():
+            return first.as_strided((sum(w.numel() for w in weights),), (1,))
+    return torch.cat([w.reshape(-1) for w in weights])
+
+
 def _kernel_operands(what: str, x: torch.Tensor, weights: Sequence[torch.Tensor]):
     """Checks what the kernels take; returns (width, n_hidden, out_width,
-    flat weights). The weights go as one contiguous buffer in flat-parameter
-    order, which the kernels stage into shared memory with one copy loop."""
+    flat weights): ``flat_weights``, 16-byte aligned."""
     if x.dim() != 2 or x.dtype != torch.bfloat16 or not x.is_contiguous() or x.data_ptr() % 16:
         raise ValueError(f"{what}: x must be a contiguous, 16-byte aligned 2-D bfloat16 tensor")
     width, n_hidden, out_width = _check_shapes(x.shape[1], [tuple(w.shape) for w in weights])
     for w in weights:
         if w.device != x.device or w.dtype != torch.bfloat16:
             raise ValueError(f"{what}: weights must be bfloat16 on the device of x")
-    flat = torch.cat([w.reshape(-1) for w in weights]).contiguous()
+    flat = flat_weights(weights)
+    if flat.data_ptr() % 16:
+        flat = flat.clone()
     return width, n_hidden, out_width, flat
 
 
@@ -219,9 +311,27 @@ def _check(what: str, err: int) -> None:
         raise RuntimeError(f"{what}: CUDA launch failed (cudaError {err})")
 
 
+@functools.lru_cache(maxsize=256)
+def _device_forward_plan(index: int, batch: int, in_w: int, width: int, n_hidden: int, out_w: int) -> ForwardPlan:
+    """``forward_plan`` on CUDA device ``index``: its SM count, and the
+    blocks an SM holds as the card reports them for the kernel's registers
+    (``tcnn_ffmlp_forward_occupancy``, which first lets the kernel take the
+    card's shared memory, once per instantiation and device)."""
+    from ._build import kernel
+    from ._plans import sm_count
+
+    rows, _, _, warps, weight_bytes, warp_bytes = forward_layout(in_w, width, n_hidden, out_w)
+    per_sm = ctypes.c_int(0)
+    _check("ffmlp_forward", kernel("ffmlp_fwd", "tcnn_ffmlp_forward_occupancy", _OCC_ARGS)(
+        width, n_hidden, rows, 32 * warps, weight_bytes + warps * warp_bytes, ctypes.addressof(per_sm)))
+    if per_sm.value < 1:
+        raise RuntimeError(f"ffmlp_forward: the kernel does not fit an SM ({per_sm.value} blocks)")
+    return forward_plan(batch, in_w, width, n_hidden, out_w, sm_count(index), per_sm.value)
+
+
 def _launch_forward(what: str, x, weights, activation, output_activation) -> torch.Tensor:
-    """Checks the operands and launches ``csrc/ffmlp_fwd.cu``; raises if the
-    launch fails."""
+    """Checks the operands and launches ``csrc/ffmlp_fwd.cu`` by the plan of
+    ``_device_forward_plan``; raises if the launch fails."""
     from ._build import kernel, stream
 
     width, n_hidden, out_width, flat = _kernel_operands(what, x, weights)
@@ -229,11 +339,13 @@ def _launch_forward(what: str, x, weights, activation, output_activation) -> tor
     out = torch.empty((batch, out_width), dtype=torch.bfloat16, device=x.device)
     if batch == 0:
         return out
+    index = x.get_device()
+    plan = _device_forward_plan(index, batch, x.shape[1], width, n_hidden, out_width)
     _check(what, kernel("ffmlp_fwd", "tcnn_ffmlp_forward", _FWD_ARGS)(
         x.data_ptr(), flat.data_ptr(), out.data_ptr(),
         batch, x.shape[1], width, n_hidden, out_width,
         ACTIVATION_CODES[activation], ACTIVATION_CODES[output_activation],
-        stream(x.get_device()),
+        plan.args_ptr, stream(index),
     ))
     return out
 

@@ -2,9 +2,12 @@
 
 Replaces the Pallas kernel ``tcnn_tpu/ops/fused_adam.py:adam_step_fused``.
 The kernel (``csrc/adam_step.cu``) applies tiny-cuda-nn's Adam to the flat
-parameter vector in one pass and in place. Its plain version is
-``optimizers.adam.AdamOptimizer._step_plain``; ``AdamOptimizer.step`` picks
-between the two by the device of the parameters.
+parameter vector in one pass and in place: a grid-stride loop of 16-byte
+accesses, the debiased learning rate at the global step computed once a
+thread. Its plain version is ``optimizers.adam.AdamOptimizer._step_plain``;
+``AdamOptimizer.step`` picks between the two by the device of the
+parameters and keeps the struct of ``hyperparams_of`` until a
+hyperparameter or the loss scale changes.
 """
 
 from __future__ import annotations
@@ -99,6 +102,8 @@ def adam_step(
         raise ValueError("adam_step: step must be a one-element int32 tensor on the device of params")
     if hp.n != n:
         raise ValueError(f"adam_step: hyperparameters are for {hp.n} parameters, got {n}")
+    if n >= 2**31:
+        raise ValueError(f"adam_step: {n} parameters; the kernel indexes with 32 bits")
     global LAUNCHES
     from ._build import kernel, stream
 

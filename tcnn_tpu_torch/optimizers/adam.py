@@ -74,12 +74,26 @@ class AdamOptimizer(Optimizer):
         if params.shape != (self.n_weights,):
             raise ValueError(f"AdamOptimizer.step: params {tuple(params.shape)}, allocated for {self.n_weights}")
         state["step"].add_(1)
-        hp = fused_adam.hyperparams_of(self, self.n_weights, self.n_matrix_weights, loss_scale)
         fused_adam.adam_step(
             params, grads.to(torch.float32).contiguous(), state["first_moments"], state["second_moments"],
-            state["param_steps"], state["step"], hp,
+            state["param_steps"], state["step"], self.kernel_hyperparams(loss_scale),
         )
         return state, params
+
+    def __setattr__(self, name, value):
+        if name in AdamOptimizer._STRUCT_ATTRS:
+            self.__dict__["_struct"] = None
+        super().__setattr__(name, value)
+
+    def kernel_hyperparams(self, loss_scale: float) -> fused_adam.AdamHyperparams:
+        """The kernel's struct (``fused_adam.hyperparams_of``), built again
+        only when a hyperparameter, the allocation or the loss scale has
+        changed since the last call."""
+        cached = self.__dict__.get("_struct")
+        if cached is None or cached[0] != loss_scale:
+            cached = (loss_scale, fused_adam.hyperparams_of(self, self.n_weights, self.n_matrix_weights, loss_scale))
+            self.__dict__["_struct"] = cached
+        return cached[1]
 
     def _step_plain(self, state, params, grads, loss_scale: float):
         """The update in plain torch ops, fp32, as _step_xla writes it;
@@ -166,6 +180,10 @@ class AdamOptimizer(Optimizer):
         ("optimize_non_matrix_params", "optimize_non_matrix_params"),
         ("skip_zero_grad_non_matrix_params", "skip_zero_grad_non_matrix_params"),
     )
+
+    # What the kernel's struct is made of: assigning any of these drops the
+    # cached struct (``kernel_hyperparams``).
+    _STRUCT_ATTRS = frozenset([attr for _, attr in _KEYS] + ["n_weights", "layer_sizes"])
 
     def update_hyperparams(self, params: Dict):
         for key, attr in self._KEYS:

@@ -329,3 +329,60 @@ def test_grid_second_order_times_inputs_and_report_parsers():
     assert m.parse_ptxas(log) == {"_Z26grid_backward_input_kernelIfLi2ELi3EEvv": {
         "registers": 72, "spill_stores": 8, "spill_loads": 4}}
 
+
+
+def test_ffmlp_adam_times_needs_a_card():
+    code = (
+        "from tcnn_tpu_torch.benchmarks import ffmlp_adam_times as m\n"
+        "try:\n"
+        "    m.main([])\n"
+        "except RuntimeError as e:\n"
+        "    assert 'no CUDA device' in str(e), e\n"
+        "else:\n"
+        "    raise AssertionError('ran without a card')\n"
+        "print('ok')\n"
+    )
+    env = dict(os.environ, CUDA_VISIBLE_DEVICES="", PYTHONPATH=str(ROOT))
+    r = subprocess.run([sys.executable, "-c", code], cwd=ROOT, env=env, capture_output=True, text=True, timeout=300)
+    assert r.returncode == 0, r.stderr
+    assert r.stdout.strip() == "ok"
+
+
+def test_ffmlp_adam_times_arguments_bounds_and_operands():
+    """The parser's defaults, the bounds of every timed shape (the numbers
+    chip_smoke.py gives the same kernels), and the operands built here on
+    the CPU at small sizes: the weights views of one buffer in
+    flat-parameter order, Adam's share of exactly-zero gradients."""
+    import torch
+
+    from tcnn_tpu_torch.benchmarks import ffmlp_adam_times as m
+    from tcnn_tpu_torch.ops import ffmlp
+
+    args = m.build_parser().parse_args([])
+    assert (args.reps, args.seed, args.end_to_end, args.steps) == (20, 0, False, 50)
+    args = m.build_parser().parse_args(["--end-to-end", "--steps", "7", "--reps", "3"])
+    assert (args.reps, args.end_to_end, args.steps) == (3, True, 7)
+
+    bounds = {k: m.k1_bound(*s) for k, s in m.K1_SHAPES.items()}
+    flagship = bounds["flagship B=2^18 32->64x2->16"]
+    assert flagship[1] == "bytes" and flagship[0] == pytest.approx((2**18 * 48 * 2 + 7168 * 2) / 3.35e9)
+    assert flagship[0] == pytest.approx(0.0075, abs=5e-5)
+    assert bounds["raster B=2^20 32->64x2->16"][0] == pytest.approx(4 * flagship[0], rel=1e-3)
+    # 128 x 5: 83,968 weights a row, past the bf16 ridge.
+    image = bounds["bench_image B=2^18 128->128x5->16"]
+    assert image[1] == "operations" and image[0] == pytest.approx(2 * 2**18 * 83968 / 989e9)
+    k7 = m.k1_bound(*m.K7_SHAPE[1])
+    assert k7[1] == "bytes" and k7[0] == pytest.approx(0.0801, abs=1e-4)
+    a, b = (m.adam_bound(n) for n, _ in m.ADAM_SIZES.values())
+    assert a[1] == b[1] == "bytes"
+    assert a[0] == pytest.approx(715_760 * 36 / 3.35e9) and a[0] == pytest.approx(0.0077, abs=1e-4)
+    assert b[0] == pytest.approx(0.1403, abs=1e-4)
+
+    gen = torch.Generator().manual_seed(0)
+    x, ws = m.mlp_operands((40, 32, 64, 2, 16), torch.device("cpu"), gen)
+    assert x.shape == (40, 32) and x.dtype == torch.bfloat16
+    assert [tuple(w.shape) for w in ws] == [(64, 32), (64, 64), (16, 64)]
+    assert ffmlp.flat_weights(ws).data_ptr() == ws[0].data_ptr()
+    opt, state, params, grads = m.adam_operands(1000, 100, torch.device("cpu"), 0)
+    assert params.shape == grads.shape == (1000,) and opt.n_matrix_weights == 100
+    assert (grads[:100] != 0).all() and 0 < int((grads[100:] == 0).sum()) < 300

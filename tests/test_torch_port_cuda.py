@@ -122,6 +122,107 @@ def test_ffmlp_backward_kernel_matches_plain(dev, width, n_hidden, act):
             _close_bf16_backward(a, b)
 
 
+RAGGED_BATCHES = (1, 15, 17, 31, 33, 2**18 + 7)
+
+
+def _mlp(dev, gen, in_w, width, n_hidden, out_w, gain=2.0):
+    """Weights as views of one bf16 buffer (a network's layout)."""
+    shapes = [(out_w, in_w)] if n_hidden == 0 else (
+        [(width, in_w)] + [(width, width)] * (n_hidden - 1) + [(out_w, width)])
+    flat = torch.cat([((torch.rand(r * c, generator=gen, device=dev) * 2 - 1) * gain / c ** 0.5) for r, c in shapes])
+    flat = flat.bfloat16()
+    ws, off = [], 0
+    for r, c in shapes:
+        ws.append(flat[off:off + r * c].view(r, c))
+        off += r * c
+    return ws
+
+
+@pytest.mark.parametrize("out_w", [16, 32, 64])
+@pytest.mark.parametrize("n_hidden", [0, 1, 2, 5])
+@pytest.mark.parametrize("width", [16, 32, 64, 128])
+def test_ffmlp_forward_ragged_batches(dev, width, n_hidden, out_w):
+    """The persistent kernel at batches with a ragged last tile, up to 2^18
+    + 7 rows, every layout of the host plan."""
+    gen = torch.Generator(device=dev).manual_seed(width * 100 + n_hidden * 10 + out_w)
+    ws = _mlp(dev, gen, 32, width, n_hidden, out_w)
+    for batch in RAGGED_BATCHES:
+        x = (torch.rand((batch, 32), generator=gen, device=dev) * 2 - 1).bfloat16()
+        before = ffmlp.LAUNCHES
+        got = ffmlp.ffmlp_forward(x, ws, Activation.ReLU, Activation.NONE)
+        assert ffmlp.LAUNCHES == before + 1 and got.shape == (batch, out_w)
+        _close_bf16(got, ffmlp.ffmlp_forward_plain(x, ws, Activation.ReLU, Activation.NONE))
+
+
+@pytest.mark.parametrize("out_act", [a for a in Activation])
+@pytest.mark.parametrize("act", [a for a in Activation])
+def test_ffmlp_forward_every_activation_pair(dev, act, out_act):
+    """Every activation as the hidden one and as the output one, through the
+    32-row (width 64) and 16-row (width 128) layouts."""
+    gen = torch.Generator(device=dev).manual_seed(list(Activation).index(act) * 10 + list(Activation).index(out_act))
+    gain = 0.5 if Activation.Exponential in (act, out_act) else 2.0
+    for width in (64, 128):
+        ws = _mlp(dev, gen, 32, width, 2, 16, gain)
+        x = (torch.rand((1000, 32), generator=gen, device=dev) * 2 - 1).bfloat16()
+        _close_bf16(ffmlp.ffmlp_forward(x, ws, act, out_act), ffmlp.ffmlp_forward_plain(x, ws, act, out_act))
+
+
+@pytest.mark.parametrize("shape", [(32, 64, 2, 16), (128, 128, 5, 16), (32, 16, 0, 16), (64, 128, 7, 16)],
+                         ids=str)
+def test_ffmlp_forward_is_bitwise_repeatable(dev, shape):
+    """No atomics: two calls on the same inputs give the same bits (the last
+    shape takes the plan's single x buffer)."""
+    gen = torch.Generator(device=dev).manual_seed(7)
+    ws = _mlp(dev, gen, *shape)
+    x = (torch.rand((2**18 + 7, shape[0]), generator=gen, device=dev) * 2 - 1).bfloat16()
+    a = ffmlp.ffmlp_forward(x, ws, Activation.ReLU, Activation.NONE)
+    b = ffmlp.ffmlp_forward(x, ws, Activation.ReLU, Activation.NONE)
+    assert torch.equal(a, b)
+    _close_bf16(a, ffmlp.ffmlp_forward_plain(x, ws, Activation.ReLU, Activation.NONE))
+
+
+@pytest.mark.parametrize("shape", [(16, 64, 26, 16), (256, 32, 33, 64), (1024, 16, 0, 64)], ids=str)
+def test_ffmlp_forward_sixteen_row_layouts(dev, shape):
+    """Shapes whose host plan gives 16 rows a warp below width 128 (weights
+    or x tiles too large for 32), so that the instantiations a network
+    reaches only at such shapes run too."""
+    assert ffmlp.forward_layout(*shape)[0] == 16
+    gen = torch.Generator(device=dev).manual_seed(sum(shape))
+    ws = _mlp(dev, gen, *shape, gain=6 ** 0.5)  # ReLU keeps the scale through 33 layers
+    x = (torch.rand((4099, shape[0]), generator=gen, device=dev) * 2 - 1).bfloat16()
+    _close_bf16(ffmlp.ffmlp_forward(x, ws, Activation.ReLU, Activation.NONE),
+                ffmlp.ffmlp_forward_plain(x, ws, Activation.ReLU, Activation.NONE))
+
+
+def test_ffmlp_forward_separate_weights_and_too_large(dev):
+    """Weights that are not views of one buffer are concatenated first; a
+    network whose weights do not fit shared memory raises."""
+    gen = torch.Generator(device=dev).manual_seed(11)
+    ws = [w.clone() for w in _mlp(dev, gen, 32, 64, 2, 16)]
+    x = (torch.rand((777, 32), generator=gen, device=dev) * 2 - 1).bfloat16()
+    _close_bf16(ffmlp.ffmlp_forward(x, ws, Activation.ReLU, Activation.NONE),
+                ffmlp.ffmlp_forward_plain(x, ws, Activation.ReLU, Activation.NONE))
+    big = _mlp(dev, gen, 128, 128, 8, 16)
+    with pytest.raises(ValueError, match="do not fit"):
+        ffmlp.ffmlp_forward(torch.zeros((16, 128), dtype=torch.bfloat16, device=dev), big, Activation.ReLU,
+                            Activation.NONE)
+
+
+@pytest.mark.parametrize("n_hidden", [0, 3])
+@pytest.mark.parametrize("w", [16, 32, 64])
+def test_packed_forward_at_packed_widths(dev, w, n_hidden):
+    """K7 (the forward on the (B, w) view) at the packed protocol's widths,
+    a ragged row count."""
+    G = 128 // w
+    gen = torch.Generator(device=dev).manual_seed(w + n_hidden)
+    ws = _mlp(dev, gen, w, w, n_hidden, w, 1.0)
+    xp = torch.randn((4099, 128), generator=gen, device=dev).bfloat16()
+    before = ffmlp.PACKED_LAUNCHES
+    got = ffmlp.ffmlp_forward_packed(xp, ws, Activation.ReLU, Activation.NONE)
+    assert ffmlp.PACKED_LAUNCHES == before + 1 and got.shape == (4099, G * w)
+    _close_bf16(got, ffmlp.ffmlp_forward_packed_plain(xp, ws, Activation.ReLU, Activation.NONE))
+
+
 ADAM_KNOBS = [
     {},
     {"l2_reg": 1e-4, "non_matrix_l2_reg": 1e-5},
@@ -153,6 +254,33 @@ def test_adam_kernel_matches_plain(dev, hp):
         sk, pk2 = opt.step(sk, pk, g, 128.0)
         assert pk2 is pk and fused_adam.LAUNCHES == before + 1
     assert int(sk["step"]) == int(sp["step"]) == 3
+    assert torch.equal(sk["param_steps"], sp["param_steps"])
+    for a, b in ((pk, pp), (sk["first_moments"], sp["first_moments"]), (sk["second_moments"], sp["second_moments"])):
+        torch.testing.assert_close(a, b, rtol=1e-6, atol=1e-7)
+
+
+@pytest.mark.parametrize("hp", ADAM_KNOBS, ids=[str(sorted(k)) for k in ADAM_KNOBS])
+def test_adam_kernel_ragged_size_and_odd_matrix_boundary(dev, hp):
+    """n no multiple of 4 and an odd n_matrix (the matrix boundary inside a
+    16-byte vector), and the scalar path of a misaligned view; param_steps
+    equal, the rest to rtol 1e-6, atol 1e-7."""
+    n, n_matrix = 50_003, 7_167
+    opt = AdamOptimizer(hp)
+    opt.allocate(n, [(1, n_matrix)])
+    rng = np.random.default_rng(len(hp) + 100)
+    p0 = torch.from_numpy(rng.normal(0, 0.3, n).astype(np.float32)).to(dev)
+    sk, sp, pk, pp = opt.init_state(dev), opt.init_state(dev), p0.clone(), p0.clone()
+    for i in range(3):
+        g = rng.normal(0, 1, n).astype(np.float32) * 128
+        g[n_matrix:][rng.random(n - n_matrix) < 0.1] = 0.0
+        g = torch.from_numpy(g).to(dev)
+        sp, pp = opt.step(sp, pp, g, 128.0, plain=True)
+        if i == 1:
+            # One step on views one float past 16-byte alignment.
+            pad = torch.zeros(n + 1, device=dev)
+            pad[1:] = g
+            g = pad[1:]
+        sk, pk = opt.step(sk, pk, g, 128.0)
     assert torch.equal(sk["param_steps"], sp["param_steps"])
     for a, b in ((pk, pp), (sk["first_moments"], sp["first_moments"]), (sk["second_moments"], sp["second_moments"])):
         torch.testing.assert_close(a, b, rtol=1e-6, atol=1e-7)
