@@ -59,6 +59,20 @@ Phases, each printing lines of its own; any failure exits non-zero:
    B = 2^18 on stratified batches of the synthetic 512^2 image; the loss
    falls, everything stays finite, the PSNR of the fitted image clears its
    floor, and every training kernel's launch counter rises.
+12b. the captured step (Trainer.training_steps: one training step captured
+   as a CUDA graph and replayed): both configs 20 steps through the graph
+   against 20 training_step calls from the same seed on the same batches
+   (first loss bitwise, then 1e-4 relative; params and inference params
+   max |diff| <= 2 lr and 1e-2 relative in norm, beside the same loop run
+   twice), the counts at 0 just before the call and read just after
+   (warm-up and capture launch each kernel; each replay repeats them); the
+   flagship's synced ms/step through the graph and the loop, each with the
+   batch drawn on the card, in turns, and their profiled busy time and
+   idle share; serialize(True) -> json.dumps -> deserialize and save_npz /
+   load_npz give bitwise equal inference and optimizer state, and training
+   resumes from each as from the original; SGD, Novograd, Average, Batched,
+   Lookahead, ExponentialDecay, Composite and the seven other losses 5
+   steps each on a small grid model through both paths.
 13. times (CUDA events / synced host clock, median of repeats), each
    kernel's bound from its shapes (bytes over 3.35 TB/s or operations over
    the peak of their type) and, where one PyTorch call computes the same
@@ -906,6 +920,239 @@ def phase_train(name, cfg, card, image):
         f"(host clock + synchronize, median of steps 100-{N_TRAIN_STEPS - 1}); {N_TRAIN_STEPS} steps with the "
         f"batch sampling in {wall:.2f} s")
     return {"launches": launches, "psnr": psnr, "ms": med, "loss": (first, last), "profile": dict(kernels)}
+
+
+# The captured training step (Trainer.training_steps): steps each path
+# runs against the training_step loop, and of the timed window.
+N_GRAPH_STEPS = 20
+N_TIMED_STEPS = 100
+# The small grid model on which each new optimizer and loss runs five
+# steps through both paths; Sigmoid keeps the predictions that
+# CrossEntropy takes the log of, and Variance divides by, positive.
+SMALL_CONFIG = {
+    "encoding": {"otype": "HashGrid", "n_levels": 8, "n_features_per_level": 2, "log2_hashmap_size": 14,
+                 "base_resolution": 8, "per_level_scale": 1.5},
+    "network": {"otype": "FullyFusedMLP", "n_neurons": 64, "n_hidden_layers": 2, "output_activation": "Sigmoid"},
+}
+SMALL_OPTIMIZERS = [
+    {"otype": "SGD", "learning_rate": 1e-1},
+    {"otype": "Novograd", "learning_rate": 1e-2},
+    {"otype": "Average", "n_samples": 4, "nested": {"otype": "Adam", "learning_rate": 1e-2}},
+    {"otype": "Batched", "batch_size_multiplier": 2, "nested": {"otype": "Adam", "learning_rate": 1e-2}},
+    {"otype": "Lookahead", "n_steps": 2, "nested": {"otype": "Adam", "learning_rate": 1e-2}},
+    {"otype": "ExponentialDecay", "decay_base": 0.5, "decay_start": 2, "decay_interval": 2,
+     "nested": {"otype": "Adam", "learning_rate": 1e-2}},
+    {"otype": "Composite", "nested": [{"otype": "Novograd", "learning_rate": 1e-2, "n_params_to_optimize": 6144},
+                                      {"otype": "EMA", "nested": {"otype": "Adam", "learning_rate": 1e-2}}]},
+]
+SMALL_LOSSES = ["RelativeL2Luminance", "L1", "RelativeL1", "Mape", "Smape", "CrossEntropy", "Variance"]
+
+
+def _image_batches(image, gen, n, batch):
+    """``n`` stratified batches of the image, stacked on the card."""
+    import torch
+
+    from tcnn_tpu_torch.utils.sampling import stratified_uniform
+
+    h, w, _ = image.shape
+    img = torch.from_numpy(image).cuda().reshape(h * w, 3)
+    xs = torch.stack([stratified_uniform(batch, 2, gen) for _ in range(n)])
+    ij = torch.clamp((xs[..., 1] * h).long(), 0, h - 1) * w + torch.clamp((xs[..., 0] * w).long(), 0, w - 1)
+    return {"x": xs, "t": img[ij]}
+
+
+def _nth_batch(d, i):
+    import torch
+
+    idx = i.reshape(1).to(torch.int64)
+    return torch.index_select(d["x"], 0, idx)[0], torch.index_select(d["t"], 0, idx)[0]
+
+
+def _graph_vs_loop(name, graph, loop, data, n, lr, counters=None):
+    """``n`` replays of the captured step on ``graph`` against ``n``
+    training_step calls on ``loop`` from the same state on the same
+    batches, held to _compare_one_step's tolerance: the first loss bitwise
+    (the forward is deterministic), the others to 1e-4 relative; params and
+    inference params max |diff| <= 2 lr (Adam's step is ~lr x sign(grad),
+    and the table gradient's fp32 atomics add in another order, so a
+    gradient near 0 may flip) and within 1e-2 relative in norm (its state
+    bound; after many steps the atomics' differences reach most entries,
+    as between two loops). Returns the two loss vectors, the largest
+    relative loss difference, the params' largest difference and the
+    ``counters`` (a TRAIN_COUNTERS-like table) of the training_steps call
+    alone, set to 0 just before it and read just after."""
+    import torch
+
+    if counters:
+        _zero_counts(counters)
+    got = graph.trainer.training_steps(_nth_batch, n, data)
+    launches = _read_counts(counters) if counters else None
+    want = torch.stack([loop.training_step(*_nth_batch(data, torch.tensor(k, device="cuda"))) for k in range(n)])
+    torch.cuda.synchronize()
+    check(torch.isfinite(got).all() and got.shape == (n,), f"{name}: non-finite or misshapen graph losses")
+    check(torch.equal(got[0], want[0]), f"{name}: first loss graph {float(got[0])} vs loop {float(want[0])}")
+    rel = float(((got - want).abs() / want.abs()).max())
+    check(rel <= 1e-4, f"{name}: graph vs loop losses differ by {rel:.3e} relative")
+    worst = 0.0
+    for what, a, b in (("params", graph.params, loop.params),
+                       ("inference params", graph.trainer.inference_params(), loop.trainer.inference_params())):
+        d = (a - b).abs()
+        rel_n = float((a - b).norm()) / max(float(b.norm()), 1e-30)
+        check(torch.isfinite(a).all() and float(d.max()) <= 2 * lr * 1.0001 and rel_n <= 1e-2,
+              f"{name}: {what} max|diff| {float(d.max()):.3e}, relative difference {rel_n:.3e} (norm)")
+        worst = max(worst, float(d.max()))
+    return got, want, rel, worst, launches
+
+
+def _timed(fn, n_steps, reps=3):
+    """Host clock around ``fn`` (``n_steps`` steps) between synchronisations;
+    the median of ``reps`` calls, in ms a step."""
+    import torch
+
+    out = []
+    for _ in range(reps):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        out.append((time.perf_counter() - t0) * 1e3 / n_steps)
+    return statistics.median(out), out
+
+
+def phase_graph(card, configs, image):
+    """Trainer.training_steps: one training step captured as a CUDA graph
+    and replayed, against the training_step loop; its step time; the
+    checkpoints; the ported optimizers and losses through both paths."""
+    import tempfile
+
+    import torch
+
+    import tcnn_tpu_torch as tt
+    from tcnn_tpu_torch.benchmarks.grid_second_order_times import profile_steps
+    from tcnn_tpu_torch.utils import checkpoint
+    from tcnn_tpu_torch.utils.sampling import stratified_uniform
+
+    out = {}
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 7)
+    data = _image_batches(image, gen, N_GRAPH_STEPS, B_FLAG)
+    flagship = None
+    for name, cfg in configs.items():
+        graph, loop, again = (tt.create_from_config(2, 3, cfg, seed=SEED, device="cuda") for _ in range(3))
+        lr = float(loop.trainer.learning_rate)
+        got, want, rel, worst, launches = _graph_vs_loop(name, graph, loop, data, N_GRAPH_STEPS, lr, TRAIN_COUNTERS)
+        for k, v in launches.items():
+            check(v > 0, f"{name}: kernel {k} was not launched by training_steps (warm-up and capture)")
+        # The same loop again: how far two loops from one seed drift apart.
+        for k in range(N_GRAPH_STEPS):
+            again.training_step(*_nth_batch(data, torch.tensor(k, device="cuda")))
+        d_gl, d_ll = graph.params - loop.params, again.params - loop.params
+        log(f"graph [{name}]: training_steps({N_GRAPH_STEPS}) as one captured CUDA graph replayed vs "
+            f"{N_GRAPH_STEPS} training_step calls, same seed and batches (B=2^18): losses {float(got[0]):.6f} -> "
+            f"{float(got[-1]):.6f} vs {float(want[0]):.6f} -> {float(want[-1]):.6f}, first bitwise, max rel "
+            f"{rel:.2e} (bound 1e-4); params and inference params max|diff| {worst:.3e} (bound 2 lr); params "
+            f"graph vs loop max|diff| {float(d_gl.abs().max()):.3e}, norm {float(d_gl.norm()):.3e}, "
+            f"{float((d_gl.abs() > 1e-6).float().mean()):.3f} of them beyond 1e-6; loop vs the same loop again "
+            f"{float(d_ll.abs().max()):.3e}, {float(d_ll.norm()):.3e}, {float((d_ll.abs() > 1e-6).float().mean()):.3f} "
+            f"(params norm {float(loop.params.norm()):.3e}); kernel launches of warm-up and capture (each replay "
+            f"repeats the captured ones; counts at 0 just before the call, read just after): {launches}")
+        out[name] = {"launches": launches, "rel": rel}
+        if flagship is None:
+            flagship = graph
+
+    # Step time: the flagship step synced, batch drawn on the card, through
+    # the graph and through training_step, in one call.
+    h, w, _ = image.shape
+    img = torch.from_numpy(image).cuda().reshape(h * w, 3)
+
+    def batch(g):
+        xy = stratified_uniform(B_FLAG, 2, g)
+        return xy, img[torch.clamp((xy[:, 1] * h).long(), 0, h - 1) * w + torch.clamp((xy[:, 0] * w).long(), 0, w - 1)]
+
+    def drawn(d, i):
+        return batch(d["gen"])
+
+    m = tt.create_from_config(2, 3, configs["FLAGSHIP_CONFIG"], seed=SEED, device="cuda")
+    steps_data = {"gen": torch.Generator(device="cuda").manual_seed(SEED + 8)}
+    loop_gen = torch.Generator(device="cuda").manual_seed(SEED + 9)
+    t_cap = time.perf_counter()
+    m.trainer.training_steps(drawn, N_TIMED_STEPS, steps_data)
+    torch.cuda.synchronize()
+    t_cap = time.perf_counter() - t_cap
+    timings = {}
+    for label, fn in (("training_step", lambda: [m.training_step(*batch(loop_gen)) for _ in range(N_TIMED_STEPS)]),
+                      ("training_steps", lambda: m.trainer.training_steps(drawn, N_TIMED_STEPS, steps_data))):
+        timings[label] = _timed(fn, N_TIMED_STEPS)
+    # And in the other order, so that neither side always runs first.
+    for label, fn in (("training_steps", lambda: m.trainer.training_steps(drawn, N_TIMED_STEPS, steps_data)),
+                      ("training_step", lambda: [m.training_step(*batch(loop_gen)) for _ in range(N_TIMED_STEPS)])):
+        ms, runs = _timed(fn, N_TIMED_STEPS)
+        timings[label] = (timings[label][0], timings[label][1] + runs)
+    profiles = {
+        "training_step": profile_steps(lambda: m.training_step(*batch(loop_gen)), n=10),
+        "training_steps": profile_steps(lambda: m.trainer.training_steps(drawn, 10, steps_data), n=2),
+    }
+    for label, per_call in (("training_step", 1), ("training_steps", 10)):
+        wall_p, busy, idle, kernels = profiles[label]
+        runs = timings[label][1]
+        ms = statistics.median(runs)
+        wall_p, busy = wall_p / per_call, busy / per_call
+        log(f"time [{card}]: flagship {label} B=2^18 synced, batch drawn on the card: {ms:.4f} ms/step (median of "
+            f"{len(runs)} windows of {N_TIMED_STEPS} steps: {', '.join(f'{r:.4f}' for r in runs)}); under "
+            f"torch.profiler {wall_p:.4f} ms/step, device busy {busy:.4f} ms/step, idle share {idle:.3f} (1 - busy "
+            f"/ the unprofiled synced time: {1 - busy / ms:.3f}); largest "
+            f"(ms/call of {per_call} step(s)): " + "; ".join(f"{k[:50]} {v:.4f}" for k, v in kernels[:6]))
+        out[f"{label}_ms"], out[f"{label}_busy_ms"], out[f"{label}_idle"] = ms, busy, idle
+    log(f"time [{card}]: training_steps({N_TIMED_STEPS}) first call (warm-up, capture and {N_TIMED_STEPS} replays) "
+        f"{t_cap:.3f} s; synced ms/step training_steps {out['training_steps_ms']:.4f} vs training_step "
+        f"{out['training_step_ms']:.4f}")
+
+    # Checkpoints of the Adam-only flagship trainer the graph trained.
+    tr = flagship.trainer
+    x = stratified_uniform(B_FLAG, 2, torch.Generator(device="cuda").manual_seed(SEED + 10))
+    y_ref = tr.inference(x)
+    t0 = time.perf_counter()
+    text = json.dumps(tr.serialize(serialize_optimizer=True))
+    fresh = tt.create_from_config(2, 3, configs["FLAGSHIP_CONFIG"], seed=SEED + 1, device="cuda")
+    fresh.trainer.deserialize(json.loads(text))
+    t_json = time.perf_counter() - t0
+    check(torch.equal(fresh.trainer.inference(x), y_ref), "checkpoint: inference after serialize/deserialize differs")
+    for k, v in tr.opt_state.items():
+        check(torch.equal(fresh.trainer.opt_state[k], v), f"checkpoint: optimizer state {k} differs after JSON")
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "state.npz")
+        checkpoint.save_npz(path, tr)
+        from_npz = tt.create_from_config(2, 3, configs["FLAGSHIP_CONFIG"], seed=SEED + 2, device="cuda")
+        checkpoint.load_npz(path, from_npz.trainer)
+    check(torch.equal(from_npz.trainer.inference(x), y_ref), "checkpoint: inference after save_npz/load_npz differs")
+    for k, v in tr.opt_state.items():
+        check(torch.equal(from_npz.trainer.opt_state[k], v), f"checkpoint: optimizer state {k} differs after npz")
+    saved = tr.params.clone(), tt.optimizers.base.tree_map(torch.clone, tr.opt_state)
+    resumed = []
+    for other in (fresh, from_npz):
+        tr.params, tr.opt_state = saved[0], tt.optimizers.base.tree_map(torch.clone, saved[1])
+        a, b = _graph_vs_loop("resumed", flagship, other, data, 3, float(tr.learning_rate))[:2]
+        resumed.append((float(a[-1]), float(b[-1])))
+    log(f"checkpoint: serialize(True) -> json.dumps ({len(text) / 1e6:.1f} MB) -> deserialize in {t_json:.2f} s and "
+        f"save_npz/load_npz of the flagship (715,760 params, Adam): inference bitwise equal on a 2^18 batch, "
+        f"optimizer state bitwise equal; 3 steps resumed from each as the original (graph) and the restored "
+        f"(loop) trainer, held as graph vs loop: last losses {resumed}")
+
+    # The ported optimizers and losses on the small grid model, 5 steps
+    # through training_steps against 5 through training_step.
+    small = _image_batches(image, gen, 5, 2**14)
+    results = []
+    cases = [({"otype": "RelativeL2"}, o) for o in SMALL_OPTIMIZERS]
+    cases += [({"otype": loss}, {"otype": "Adam", "learning_rate": 1e-2}) for loss in SMALL_LOSSES]
+    for loss_cfg, opt_cfg in cases:
+        cfg = dict(SMALL_CONFIG, loss=loss_cfg, optimizer=opt_cfg)
+        label = f"{loss_cfg['otype']} + {opt_cfg['otype']}"
+        g, lp = (tt.create_from_config(2, 3, cfg, seed=SEED, device="cuda") for _ in range(2))
+        lr = max(float(lp.trainer.learning_rate), 1e-2)
+        got, want, rel, worst, _ = _graph_vs_loop(label, g, lp, small, 5, lr)
+        results.append(f"{label}: {float(got[0]):.4e} -> {float(got[-1]):.4e} (rel {rel:.1e}, params {worst:.1e})")
+    log(f"graph: the ported optimizers and losses on a small grid model (8 levels, FFMLP 64x2, Sigmoid output, "
+        f"B=2^14), 5 steps through training_steps vs training_step, the graph-vs-loop tolerance: " + "; ".join(results))
+    return out
 
 
 # The module-API slice on the repo's --protocol 3d model (bench.py:304-330,
@@ -2011,6 +2258,7 @@ def main() -> int:
             os.path.dirname(os.path.abspath(__file__)), "benchmarks", "configs", "config_hash_strat_sr_ema.json")),
     }
     trained = {name: phase_train(name, cfg, card, image) for name, cfg in configs.items()}
+    phase_graph(card, configs, image)
     t = phase_times(card, k1, k2, m, x_flag, kb, ks)
     probes = phase_probes(card)
     phase_floors(card, probes["records"], t, trained["FLAGSHIP_CONFIG"]["profile"], sdf["profile"])

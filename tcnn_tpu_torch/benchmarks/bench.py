@@ -25,9 +25,10 @@ their ``--stratified-variants``, phase-locked snapping, the scatter
 strategy's and ``--locked-rounding``'s gradient classes, the table dtype,
 EMA) take effect; the TPU execution knobs (``--quad-build``, ``--layout``,
 ``--strat-accum``, ``--level-split``, ``--locked-fwd``, ``--split-state``)
-are passed on as they are and logged as ignored. ``--steps-per-call`` runs
-that many steps between synchronisations (a ``lax.scan`` in JAX, a plain
-loop here). ``--device cpu`` runs the plain versions on the CPU, for tests.
+are passed on as they are and logged as ignored. ``--steps-per-call N`` above 1
+runs the steps through ``Trainer.training_steps(batch_fn, N)``: on the card
+one captured CUDA graph of a step, batch included, replayed N times (a
+``lax.scan`` in JAX, bench.py:485-530; on the CPU a loop). ``--device cpu`` runs the plain versions on the CPU, for tests.
 
 Prints ONE JSON line on stdout (the root bench's metric names and keys) and
 a comment line naming the card and its power limit on stderr.
@@ -73,7 +74,8 @@ def build_parser():
                         help="'2d': the reference flagship image fit (2D HashGrid 16x2 @ 2^15 + FFMLP 64x2); "
                         "'3d': 3D HashGrid 16x2 @ 2^19 + FFMLP 64x2, batch 2^18 = 64^3 strata, analytic targets")
     parser.add_argument("--steps-per-call", type=int, default=1,
-                        help="training steps between synchronisations within a block (the JAX bench's lax.scan)")
+                        help="training steps a call of Trainer.training_steps (one captured CUDA graph "
+                        "replayed; the JAX bench's lax.scan); 1: training_step calls")
     parser.add_argument("--serving", action="store_true",
                         help="time FrozenServer on the 1024^2 raster, 16 rasters a block, instead of training")
     parser.add_argument("--serving-dtype", choices=["float32", "bfloat16"], default="float32",
@@ -291,40 +293,48 @@ def measure_training(args, sampler, ema, dev, image=None, scatter=None):
     gen = torch.Generator(device=dev).manual_seed(0)
     img = None if image is None else torch.from_numpy(image).to(dev).reshape(RES * RES, 3)
 
-    def make_batch():
+    def batch(generator):
         if sampler in ("stratified", "phase_locked"):
-            return stratified_uniform(args.batch, n_dims, gen,
-                                      phase_locked=args.locked_phases if sampler == "phase_locked" else False)
-        return torch.rand((args.batch, n_dims), generator=gen, device=dev)
-
-    def step():
-        x = make_batch()
+            x = stratified_uniform(args.batch, n_dims, generator,
+                                   phase_locked=args.locked_phases if sampler == "phase_locked" else False)
+        else:
+            x = torch.rand((args.batch, n_dims), generator=generator, device=dev)
         if args.protocol == "3d":
-            return trainer.training_step(x, targets_3d(x))
+            return x, targets_3d(x)
         if args.sort_batch:
             x = morton_sort(x)
         if sampler in ("stratified", "phase_locked") and args.batch == RES * RES and not args.sort_batch:
-            target = img  # strata == res: the nearest pixel of sample j is pixel j (bench.py:468-474)
-        else:
-            ij = torch.clamp((x * RES).to(torch.int64), 0, RES - 1)
-            target = img[ij[:, 1] * RES + ij[:, 0]]
-        return trainer.training_step(x, target)
+            return x, img  # strata == res: the nearest pixel of sample j is pixel j (bench.py:468-474)
+        ij = torch.clamp((x * RES).to(torch.int64), 0, RES - 1)
+        return x, img[ij[:, 1] * RES + ij[:, 0]]
 
     spc = max(1, args.steps_per_call)
+    data = {"gen": gen}
+
+    def batch_fn(d, i):
+        return batch(d["gen"])
+
+    def call():
+        """``spc`` steps; their losses."""
+        if spc == 1:
+            return trainer.training_step(*batch(gen)).reshape(1)
+        return trainer.training_steps(batch_fn, spc, data)
+
     k = max(1, args.timing_blocks)
     steps_per_block = max(spc, (args.steps // k) // spc * spc)
-    n_warm = max(1, -(-args.warmup // spc)) * spc
+    n_warm = max(1, -(-args.warmup // spc))
 
-    first_loss = float(step())
+    losses = call()
+    first_loss = float(losses[0])
     for _ in range(n_warm - 1):
-        loss = step()
+        losses = call()
     sync(dev)
     ms_blocks = []
     for _ in range(k):
         t0 = time.perf_counter()
         for _ in range(steps_per_block // spc):
-            for _ in range(spc):
-                loss = step()
+            losses = call()
+        loss = losses[-1]
         sync(dev)
         ms_blocks.append((time.perf_counter() - t0) / steps_per_block * 1e3)
     median_ms = statistics.median(ms_blocks)

@@ -85,6 +85,13 @@ class Encoding(nn.Module):
     def forward(self, params: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
         return self.apply(params, x)
 
+    # Config surface (reference: object.h:50-55).
+    def update_hyperparams(self, params):
+        pass
+
+    def hyperparams(self):
+        return {"otype": self.otype}
+
     def _pad(self, y: torch.Tensor) -> torch.Tensor:
         """Append padding columns and cast to the output dtype."""
         if self.n_to_pad > 0:

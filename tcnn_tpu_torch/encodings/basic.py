@@ -27,6 +27,9 @@ class IdentityEncoding(Encoding):
     def apply(self, params: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
         return self._pad(x.to(torch.float32) * self.scale + self.offset)
 
+    def hyperparams(self):
+        return {"otype": self.otype, "scale": self.scale, "offset": self.offset}
+
 
 def _quartic_cdf(x: torch.Tensor, inv_radius: float) -> torch.Tensor:
     """CDF of the quartic kernel (reference: common_device.h:1080-1095;
@@ -54,6 +57,9 @@ class OneBlobEncoding(Encoding):
             raise ValueError("OneBlob: n_bins must be a power of two")
         self.n_bins = int(n_bins)
         self.n_output_dims = self.n_dims_to_encode * self.n_bins
+
+    def hyperparams(self):
+        return {"otype": self.otype, "n_bins": self.n_bins}
 
     def apply(self, params: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
         x = x.to(torch.float32)

@@ -188,6 +188,16 @@ class GridEncoding(Encoding):
         self.scatter_strategy = "auto"
         self.locked_rounding = "pair"
         self.quad_pack = "auto"
+        # TPU execution-strategy keys: validated, kept for hyperparams(),
+        # otherwise ignored.
+        self.quad_build = "auto"
+        self.level_split = "auto"
+        self.strat_accum = "auto"
+        self.locked_phases = 1
+        self.locked_fwd = "unpacked"
+        # Whether the hash came from "auto" (deserialize warns then: a
+        # reference checkpoint needs the reference's CoherentPrime).
+        self.hash_auto_resolved = False
         # Training with stochastic interpolation is not ported (the forward
         # is the deterministic lookup either way).
         self.stochastic_interpolation = False
@@ -594,6 +604,35 @@ class GridEncoding(Encoding):
         levels = self._levels_on(x.device, table_dtype, raster_sides, x.shape[0], stratified)
         return ge.GridEncodeFunction.apply(x, params, levels, classes, meta)
 
+    def hyperparams(self):
+        """The JAX package's ``GridEncoding.hyperparams()``, its TPU
+        strategy keys included as the config gave them."""
+        hp = {
+            "otype": self.otype,
+            "type": self.grid_type.value,
+            "n_levels": self.n_levels,
+            "n_features_per_level": self.n_features_per_level,
+            "log2_hashmap_size": self.log2_hashmap_size,
+            "base_resolution": self.base_resolution,
+            "per_level_scale": self.per_level_scale,
+            "interpolation": self.interpolation_type.value,
+            "hash": self.hash_type.value,
+            "gather_strategy": self.gather_strategy,
+            "scatter_strategy": self.scatter_strategy,
+            "quad_pack": self.quad_pack,
+            "quad_build": self.quad_build,
+            "level_split": self.level_split,
+            "strat_accum": self.strat_accum,
+            "table_dtype": self.table_dtype,
+        }
+        if self.raster_max_scale is not None:
+            hp["stratified_max_variants"] = self.stratified_max_variants
+            hp["strata"] = int(self.raster_max_scale / max(self.stratified_max_variants - 1, 1))
+        if self.phase_locked:
+            hp.update(phase_locked=True, locked_rounding=self.locked_rounding, locked_phases=self.locked_phases,
+                      locked_snap_tol=self.locked_snap_tol, locked_fwd=self.locked_fwd)
+        return hp
+
     def apply_raster(self, params: torch.Tensor, side, table_dtype: Optional[str] = None) -> torch.Tensor:
         """Encode the tile-center raster (``utils.sampling.raster_centers``
         layout), built on the device of ``params``, by per-sample lookup; a
@@ -670,6 +709,8 @@ def create_grid_encoding(n_dims_to_encode: int, encoding: dict) -> GridEncoding:
     for key, allowed in (("quad_build", _QUAD_BUILDS), ("level_split", _LEVEL_SPLITS)):
         if json_value(encoding, key, "auto") not in allowed:
             raise ValueError(f"invalid {key} {json_value(encoding, key, None)!r}")
+        setattr(enc, key, json_value(encoding, key, "auto"))
+    enc.hash_auto_resolved = json_value(encoding, "hash", "auto").lower() == "auto" and grid_type == GridType.Hash
     ignored = [k for k in TPU_STRATEGY_KEYS if json_value(encoding, k, None) is not None]
     if ignored:
         log_info(f"GridEncoding: TPU execution-strategy keys {ignored} are ignored by the port")
@@ -695,10 +736,12 @@ def create_grid_encoding(n_dims_to_encode: int, encoding: dict) -> GridEncoding:
         for key, default, allowed in (("strat_accum", "auto", _STRAT_ACCUMS), ("locked_fwd", "unpacked", _LOCKED_FWDS)):
             if json_value(encoding, key, default) not in allowed:
                 raise ValueError(f"invalid {key} {json_value(encoding, key, default)!r}")
-        # Read only to be validated: the phase count shapes the JAX
+            setattr(enc, key, json_value(encoding, key, default))
+        # Kept only for hyperparams(): the phase count shapes the JAX
         # package's locked-level transpose, not the function computed.
-        if int(json_value(encoding, "locked_phases", 1)) < 1:
-            raise ValueError(f"locked_phases must be >= 1: {json_value(encoding, 'locked_phases', 1)}")
+        enc.locked_phases = int(json_value(encoding, "locked_phases", 1))
+        if enc.locked_phases < 1:
+            raise ValueError(f"locked_phases must be >= 1: {enc.locked_phases}")
         enc.locked_rounding = json_value(encoding, "locked_rounding", "pair")
         if enc.locked_rounding not in _LOCKED_CLASSES:
             raise ValueError(f"invalid locked_rounding {enc.locked_rounding!r}")

@@ -10,8 +10,8 @@ of the value: relative losses treat their normaliser as a constant. Plain
 torch: the JAX package computes the losses in XLA, not in a kernel.
 
 ``create_loss(config)`` (case-insensitive ``otype``, default RelativeL2)
-builds L2 and RelativeL2; the JAX package's other losses raise
-``NotImplementedError``.
+builds every loss the JAX package registers; ``ConstantLoss`` is a class
+only, unregistered there as in the reference.
 """
 
 from __future__ import annotations
@@ -112,22 +112,135 @@ class RelativeL2Loss(Loss):
         return values, gradient
 
 
-_LOSSES: CIDict = CIDict({"L2": L2Loss, "RelativeL2": RelativeL2Loss})
-_NOT_PORTED = ("RelativeL2Luminance", "L1", "RelativeL1", "Mape", "Smape", "CrossEntropy", "Variance")
+class RelativeL2LuminanceLoss(Loss):
+    """RelativeL2 normalised by the predicted RGB luminance (reference:
+    losses/relative_l2_luminance.h:40-88). Needs dims >= 3; with dims >= 6
+    the first two RGB triplets are summed before the luminance."""
+
+    otype = "RelativeL2Luminance"
+
+    def _value_and_gradient(self, pred, target, pdf, n_total):
+        dims = pred.shape[1]
+        if dims < 3:
+            raise ValueError("RelativeL2Luminance requires at least 3 output dims")
+        r, g, b = pred[:, 0], pred[:, 1], pred[:, 2]
+        if dims >= 6:
+            r, g, b = r + pred[:, 3], g + pred[:, 4], b + pred[:, 5]
+        luminance = 0.299 * r + 0.587 * g + 0.114 * b
+        norm = (luminance * luminance + 0.01)[:, None]
+        diff = pred - target
+        values = diff * diff / norm / pdf / n_total
+        gradient = 2.0 * diff / norm / pdf / n_total
+        return values, gradient
+
+
+def _signed(diff, scale):
+    """``scale`` where ``diff >= 0``, else ``-scale`` (the L1 family's
+    gradient sign, 1 at 0 as in the reference)."""
+    return torch.where(diff >= 0, scale, -scale)
+
+
+class L1Loss(Loss):
+    """(reference: losses/l1.h)"""
+
+    otype = "L1"
+
+    def _value_and_gradient(self, pred, target, pdf, n_total):
+        diff = pred - target
+        values = torch.abs(diff) / pdf / n_total
+        gradient = _signed(diff, torch.ones_like(diff)) / pdf / n_total
+        return values, gradient
+
+
+class RelativeL1Loss(Loss):
+    """L1 normalised by |prediction| + 0.01 (reference: losses/relative_l1.h)."""
+
+    otype = "RelativeL1"
+
+    def _value_and_gradient(self, pred, target, pdf, n_total):
+        diff = pred - target
+        scale = 1.0 / (torch.abs(pred) + 1e-2) / pdf
+        return torch.abs(diff) * scale / n_total, _signed(diff, scale) / n_total
+
+
+class MapeLoss(Loss):
+    """Mean absolute percentage error (reference: losses/mape.h)."""
+
+    otype = "Mape"
+
+    def _value_and_gradient(self, pred, target, pdf, n_total):
+        diff = pred - target
+        scale = 1.0 / (torch.abs(target) + 1e-2) / pdf
+        return torch.abs(diff) * scale / n_total, _signed(diff, scale) / n_total
+
+
+class SmapeLoss(Loss):
+    """Symmetric MAPE (reference: losses/smape.h)."""
+
+    otype = "Smape"
+
+    def _value_and_gradient(self, pred, target, pdf, n_total):
+        diff = pred - target
+        scale = 1.0 / (0.5 * (torch.abs(target) + torch.abs(pred)) + 1e-2) / pdf
+        return torch.abs(diff) * scale / n_total, _signed(diff, scale) / n_total
+
+
+class CrossEntropyLoss(Loss):
+    """-target * log(pred) (reference: losses/cross_entropy.h); the 1/n_total
+    normalisation is folded into ``factor``, so it scales the value and the
+    gradient alike."""
+
+    otype = "CrossEntropy"
+
+    def _value_and_gradient(self, pred, target, pdf, n_total):
+        factor = -target / pdf / n_total
+        return factor * torch.log(pred), factor / pred
+
+
+class VarianceIsLoss(Loss):
+    """Variance of an importance sampler (reference: losses/variance_is.h)."""
+
+    otype = "Variance"
+
+    def _value_and_gradient(self, pred, target, pdf, n_total):
+        factor = target * target / pdf / n_total
+        return factor / pred - factor / pdf, -factor / (pred * pred)
+
+
+class ConstantLoss(Loss):
+    """Constant-gradient debugging loss (reference: losses/constant.h); not
+    registered in the factory, there or in the JAX package."""
+
+    otype = "Constant"
+
+    def _value_and_gradient(self, pred, target, pdf, n_total):
+        return pred / n_total, torch.ones_like(pred) / n_total
+
+
+_LOSSES: CIDict = CIDict({
+    cls.otype: cls
+    for cls in (
+        L2Loss, RelativeL2Loss, RelativeL2LuminanceLoss, L1Loss, RelativeL1Loss, MapeLoss, SmapeLoss,
+        CrossEntropyLoss, VarianceIsLoss,
+    )
+})
 
 
 def create_loss(config: Optional[Dict] = None) -> Loss:
     """Factory (reference: src/loss.cu:81-90; default otype RelativeL2)."""
     name = json_value(config, "otype", "RelativeL2")
     if name not in _LOSSES:
-        if name.lower() in (n.lower() for n in _NOT_PORTED):
-            raise NotImplementedError(
-                f"Loss '{name}' is not ported yet (ROADMAP.md, Queue 1 item 6: other losses and optimizers)"
-            )
         raise ValueError(f"Loss '{name}' not found")
     loss = _LOSSES[name]()
     loss.update_hyperparams(config or {})
     return loss
 
 
-__all__ = ["L2Loss", "Loss", "RelativeL2Loss", "create_loss"]
+def builtin_losses():
+    return sorted(_LOSSES.keys())
+
+
+__all__ = [
+    "ConstantLoss", "CrossEntropyLoss", "L1Loss", "L2Loss", "Loss", "MapeLoss", "RelativeL1Loss", "RelativeL2Loss",
+    "RelativeL2LuminanceLoss", "SmapeLoss", "VarianceIsLoss", "builtin_losses", "create_loss",
+]

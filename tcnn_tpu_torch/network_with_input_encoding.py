@@ -98,3 +98,15 @@ class NetworkWithInputEncoding(nn.Module):
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         return self.apply(self.params, x)
+
+    # Config surface (tcnn_tpu/network_with_input_encoding.py:125-133).
+    def update_hyperparams(self, params):
+        self.encoding.update_hyperparams(params.get("encoding", {}))
+        self.network.update_hyperparams(params.get("network", {}))
+
+    def hyperparams(self):
+        return {
+            "otype": "NetworkWithInputEncoding",
+            "encoding": self.encoding.hyperparams(),
+            "network": self.network.hyperparams(),
+        }

@@ -50,3 +50,10 @@ class Network(nn.Module):
 
     def forward(self, params: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
         return self.apply(params, x)
+
+    # Config surface (reference: object.h:50-55).
+    def update_hyperparams(self, params):
+        pass
+
+    def hyperparams(self):
+        return {"otype": self.otype}

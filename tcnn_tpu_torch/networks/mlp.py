@@ -96,6 +96,15 @@ class MLP(Network):
             for (rows, cols), off in zip(self._shapes, self._offsets)
         ]
 
+    def hyperparams(self):
+        return {
+            "otype": self.otype,
+            "activation": self.activation.value,
+            "output_activation": self.output_activation.value,
+            "n_neurons": self.width,
+            "n_hidden_layers": self.n_hidden_layers,
+        }
+
     def apply(self, params: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
         dt = self.compute_dtype
         ws = [w.to(dt) for w in self._weights(params)]

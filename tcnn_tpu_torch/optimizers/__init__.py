@@ -1,6 +1,6 @@
 """Optimizer factory (port of ``tcnn_tpu.optimizers``; reference:
-src/optimizer.cu:49-80; default Adam). Adam and the EMA wrapper are
-ported; the JAX package's other optimizers raise ``NotImplementedError``."""
+src/optimizer.cu:49-80; default Adam). Shampoo is not ported yet and
+raises ``NotImplementedError``."""
 
 from __future__ import annotations
 
@@ -9,24 +9,46 @@ from typing import Dict, Optional
 from ..common import json_value
 from .adam import AdamOptimizer
 from .base import Optimizer
-from .wrappers import EmaOptimizer, WrapperOptimizer
+from .composite import CompositeOptimizer
+from .novograd import NovogradOptimizer
+from .sgd import SGDOptimizer
+from .wrappers import (
+    AverageOptimizer,
+    BatchedOptimizer,
+    EmaOptimizer,
+    ExponentialDecayOptimizer,
+    LookaheadOptimizer,
+    WrapperOptimizer,
+)
 
-_NOT_PORTED = ("average", "batched", "composite", "exponentialdecay", "lookahead", "novograd", "sgd", "shampoo")
+_OPTIMIZERS = {
+    "adam": AdamOptimizer,
+    "average": AverageOptimizer,
+    "batched": BatchedOptimizer,
+    "composite": CompositeOptimizer,
+    "ema": EmaOptimizer,
+    "exponentialdecay": ExponentialDecayOptimizer,
+    "lookahead": LookaheadOptimizer,
+    "novograd": NovogradOptimizer,
+    "sgd": SGDOptimizer,
+}
 
 
 def create_optimizer(optimizer: Optional[Dict] = None) -> Optimizer:
     optimizer = optimizer or {}
     otype = json_value(optimizer, "otype", "Adam")
-    kind = otype.lower()
-    if kind == "adam":
-        return AdamOptimizer(optimizer)
-    if kind == "ema":
-        return EmaOptimizer(optimizer)
-    if kind in _NOT_PORTED:
+    cls = _OPTIMIZERS.get(otype.lower())
+    if cls is not None:
+        return cls(optimizer)
+    if otype.lower() == "shampoo":
         raise NotImplementedError(
             f"Optimizer '{otype}' is not ported yet (ROADMAP.md, Queue 1 item 6: other losses and optimizers)"
         )
     raise ValueError(f"Invalid optimizer type: {otype}")
 
 
-__all__ = ["AdamOptimizer", "EmaOptimizer", "Optimizer", "WrapperOptimizer", "create_optimizer"]
+__all__ = [
+    "AdamOptimizer", "AverageOptimizer", "BatchedOptimizer", "CompositeOptimizer", "EmaOptimizer",
+    "ExponentialDecayOptimizer", "LookaheadOptimizer", "NovogradOptimizer", "Optimizer", "SGDOptimizer",
+    "WrapperOptimizer", "create_optimizer",
+]

@@ -13,16 +13,44 @@ optimizer.h:39-63).
   the update runs in place, so the returned tensors are the ones passed in.
   ``plain=True`` runs every kernel's plain torch version instead, on any
   device (the reference the kernel path is checked against).
-- ``custom_weights(state)``: separate inference weights (EMA), else None.
+- ``custom_weights(state)``: separate inference weights (EMA, Average,
+  Lookahead), else None; Composite returns a function of the live params.
+
+Every schedule stays on the device: step counters are 0-d int32 tensors and
+every choice that depends on them (Batched's accumulate-then-step, the
+decay factor, Novograd's first step, Lookahead's sync) is a ``torch.where``,
+never a host ``if``, as the JAX package writes them under ``jit``. So a
+captured training step (``Trainer.training_steps``) replays them right.
 """
 
 from __future__ import annotations
 
-from typing import Dict, List, Optional, Tuple
+from typing import Callable, Dict, List, Optional, Tuple
 
 import torch
 
 from ..common import resolve_device
+
+
+def tree_map(fn: Callable, tree, *rest):
+    """``fn`` over the leaves of a state tree (dicts and lists of tensors),
+    with the same-shaped trees ``rest`` beside it, in ``tree_leaves``
+    order."""
+    if isinstance(tree, dict):
+        return {k: tree_map(fn, tree[k], *(r[k] for r in rest)) for k in sorted(tree)}
+    if isinstance(tree, (list, tuple)):
+        return [tree_map(fn, v, *(r[i] for r in rest)) for i, v in enumerate(tree)]
+    return fn(tree, *rest)
+
+
+def tree_leaves(tree) -> List:
+    """The leaves of a state tree in the JAX package's order (dict keys
+    sorted, lists in order), the order its npz checkpoints number them in."""
+    if isinstance(tree, dict):
+        return [leaf for k in sorted(tree) for leaf in tree_leaves(tree[k])]
+    if isinstance(tree, (list, tuple)):
+        return [leaf for v in tree for leaf in tree_leaves(v)]
+    return [tree]
 
 
 class Optimizer:
@@ -52,6 +80,12 @@ class Optimizer:
     @learning_rate.setter
     def learning_rate(self, value: float):
         raise NotImplementedError
+
+    def n_nested(self) -> int:
+        return 0
+
+    def nested(self, idx: int = 0) -> "Optimizer":
+        raise IndexError("optimizer has no nested optimizers")
 
     def update_hyperparams(self, params: Dict):
         pass

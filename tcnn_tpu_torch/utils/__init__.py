@@ -1,1 +1,1 @@
-"""Utilities: logging, batch samplers and serving-raster positions, image metrics."""
+"""Utilities: logging, batch samplers and serving-raster positions, image metrics, npz checkpoints."""

@@ -123,8 +123,13 @@ def test_factory():
     ema = topt.create_optimizer({"otype": "ema", "nested": {"otype": "Adam", "fused": True, "beta1": 0.5}})
     assert isinstance(ema, topt.EmaOptimizer) and ema.nested(0).beta1 == 0.5
     assert ema.hyperparams()["nested"]["beta1"] == 0.5
-    for otype in ("SGD", "Novograd", "Shampoo", "Average", "Lookahead", "Composite"):
-        with pytest.raises(NotImplementedError, match="Queue 1 item 6"):
-            topt.create_optimizer({"otype": otype})
+    for otype, cls in (("sgd", topt.SGDOptimizer), ("Novograd", topt.NovogradOptimizer),
+                       ("Average", topt.AverageOptimizer), ("Lookahead", topt.LookaheadOptimizer),
+                       ("Batched", topt.BatchedOptimizer), ("ExponentialDecay", topt.ExponentialDecayOptimizer)):
+        assert isinstance(topt.create_optimizer({"otype": otype}), cls)
+    comp = topt.create_optimizer({"otype": "Composite", "nested": [{"otype": "SGD"}]})
+    assert isinstance(comp, topt.CompositeOptimizer)
+    with pytest.raises(NotImplementedError, match="Queue 1 item 6"):
+        topt.create_optimizer({"otype": "Shampoo"})
     with pytest.raises(ValueError, match="Invalid optimizer"):
         topt.create_optimizer({"otype": "NoSuch"})

@@ -156,6 +156,29 @@ def test_bench_training_loss_falls_and_serving_line(monkeypatch):
     assert result["metric"] == "flagship_serving_throughput_raster1024_frozen"
 
 
+def test_steps_per_call_runs_through_training_steps(monkeypatch):
+    """--steps-per-call 2 runs its steps through Trainer.training_steps
+    (the captured graph on the card; on the CPU a loop of the same steps),
+    so the losses equal the one-step-a-call run's: the same batches from
+    the same generator."""
+    from tcnn_tpu_torch.trainer import Trainer
+
+    argv = ["--device", "cpu", "--batch", "4096", "--steps", "8", "--timing-blocks", "2", "--warmup", "2", "--no-ab"]
+    _, one = tbench.main(argv)
+    calls = []
+    steps = Trainer.training_steps
+
+    def counted(self, batch_fn, n_steps, data=None):
+        calls.append(n_steps)
+        return steps(self, batch_fn, n_steps, data)
+
+    monkeypatch.setattr(Trainer, "training_steps", counted)
+    _, two = tbench.main(argv + ["--steps-per-call", "2"])
+    assert calls == [2] * 5
+    for key in ("first_loss", "final_loss"):
+        assert two["primary"][key] == one["primary"][key]
+
+
 def test_3d_default_resolves_the_jax_gradient_classes():
     """--protocol 3d: phase_locked with locked_rounding single. The port's
     encoding snaps the same levels, locks the same levels at the 2^18 =

@@ -1134,3 +1134,141 @@ def test_scatter_rows_private_and_global_paths(dev, cls, S, R):
     keep = keep[:m]
     assert torch.equal(scatter_rows.scatter_rows(idx[:m].contiguous(), ints, S, contrib, acc),
                        scatter_rows.scatter_rows_plain(idx[:m][keep], ints[keep].contiguous(), S, contrib, acc))
+
+
+# -- Trainer.training_steps: one step captured as a CUDA graph, replayed --
+
+GRAPH_CONFIG = {
+    "loss": {"otype": "RelativeL2"},
+    "encoding": {"otype": "HashGrid", "n_levels": 8, "n_features_per_level": 2, "log2_hashmap_size": 14,
+                 "base_resolution": 8, "per_level_scale": 1.5},
+    "network": {"otype": "FullyFusedMLP", "n_neurons": 64, "n_hidden_layers": 2},
+}
+GRAPH_OPTIMIZERS = {
+    "adam_ema": {"otype": "EMA", "decay": 0.9, "nested": {"otype": "Adam", "learning_rate": 1e-2}},
+    "sgd": {"otype": "SGD", "learning_rate": 1e-1},
+    "batched": {"otype": "Batched", "batch_size_multiplier": 2, "nested": {"otype": "Adam", "learning_rate": 1e-2}},
+    "exponential_decay": {"otype": "ExponentialDecay", "decay_base": 0.5, "decay_start": 2, "decay_interval": 2,
+                          "nested": {"otype": "Adam", "learning_rate": 1e-2}},
+}
+
+
+def _graph_data(dev, n, batch=2**14, seed=0):
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    xs = torch.rand((n, batch, 2), generator=gen, device=dev)
+    ts = torch.stack([torch.sin(5 * xs[..., 0]), torch.cos(3 * xs[..., 1]), xs[..., 0] * xs[..., 1]], -1)
+    return {"x": xs, "t": 0.5 + 0.5 * ts}
+
+
+def _pick_step(d, i):
+    idx = i.reshape(1).to(torch.int64)
+    return torch.index_select(d["x"], 0, idx)[0], torch.index_select(d["t"], 0, idx)[0]
+
+
+def _params_close(a, b, lr):
+    """As chip_smoke's graph phase: the table gradient's fp32 atomics add in
+    another order, so an Adam step (about lr x sign(grad)) may flip for a
+    gradient near 0: max |diff| <= 2 lr; and within 1e-2 relative in norm
+    (after a few steps the atomics' differences reach many entries, as
+    between two runs of the loop)."""
+    d = (a - b).abs()
+    assert float(d.max()) <= 2 * lr * 1.0001
+    assert float((a - b).norm()) <= 1e-2 * float(b.norm())
+
+
+@pytest.mark.parametrize("opt", sorted(GRAPH_OPTIMIZERS))
+def test_training_steps_graph_matches_the_loop(dev, opt):
+    """Six replays of the captured step against six training_step calls
+    from the same seed on the same batches: the first loss bitwise (the
+    forward is deterministic), the rest to 1e-4 relative; params and the
+    inference params as _params_close; the kernels ran at the capture."""
+    cfg = dict(GRAPH_CONFIG, optimizer=GRAPH_OPTIMIZERS[opt])
+    n = 6
+    data = _graph_data(dev, n)
+    graph, loop = (tt.create_from_config(2, 3, cfg, seed=3) for _ in range(2))
+    before = (ffmlp.LAUNCHES, ffmlp.BWD_LAUNCHES, grid_encode.LAUNCHES, grid_encode.BWD_LAUNCHES)
+    losses = graph.trainer.training_steps(_pick_step, n, data)
+    after = (ffmlp.LAUNCHES, ffmlp.BWD_LAUNCHES, grid_encode.LAUNCHES, grid_encode.BWD_LAUNCHES)
+    assert all(a > b for a, b in zip(after, before))
+    want = torch.stack([loop.training_step(*_pick_step(data, torch.tensor(k, device=dev))) for k in range(n)])
+    torch.cuda.synchronize()
+    assert losses.shape == (n,) and losses.is_cuda and torch.isfinite(losses).all()
+    assert torch.equal(losses[0], want[0])
+    assert float(((losses - want).abs() / want.abs()).max()) <= 1e-4
+    lr = max(1e-2, float(loop.trainer.learning_rate))
+    _params_close(graph.params, loop.params, lr)
+    _params_close(graph.trainer.inference_params(), loop.trainer.inference_params(), lr)
+    # Replaying again continues from there (the step counter restarts, the
+    # state does not).
+    more = graph.trainer.training_steps(_pick_step, n, data)
+    want = torch.stack([loop.training_step(*_pick_step(data, torch.tensor(k, device=dev))) for k in range(n)])
+    assert float(((more - want).abs() / want.abs()).max()) <= 1e-3
+
+
+def test_training_steps_draws_anew_each_replay(dev):
+    """A generator in ``data`` is registered with the graph: each replay
+    draws another batch, the same batches an uncaptured loop draws from the
+    same seed, and the warm-up before the capture draws nothing that
+    counts."""
+    cfg = dict(GRAPH_CONFIG, optimizer={"otype": "Adam", "learning_rate": 1e-2})
+    m = tt.create_from_config(2, 3, cfg)
+    n, batch = 3, 4096
+    seen = torch.zeros((2 * n, batch, 2), device=dev)
+    from tcnn_tpu_torch.utils.sampling import stratified_uniform
+
+    def batch_fn(d, i):
+        x = stratified_uniform(batch, 2, d["gen"])
+        seen.index_copy_(0, (i + d["base"]).reshape(1).to(torch.int64), x.reshape(1, batch, 2))
+        return x, x[:, :1].expand(batch, 3) * 0.5
+
+    data = {"gen": torch.Generator(device=dev).manual_seed(11), "base": torch.zeros((), dtype=torch.int32,
+                                                                                  device=dev)}
+    m.trainer.training_steps(batch_fn, n, data)
+    data["base"].fill_(n)
+    m.trainer.training_steps(batch_fn, n, data)
+    torch.cuda.synchronize()
+    ref = torch.Generator(device=dev).manual_seed(11)
+    want = torch.stack([stratified_uniform(batch, 2, ref) for _ in range(2 * n)])
+    assert torch.equal(seen, want)
+    assert not torch.equal(seen[0], seen[1])
+
+
+def test_training_steps_learning_rate_after_capture(dev):
+    """A learning rate set after a capture takes effect: at 0 the captured
+    Adam leaves the params as they are while its step count runs on."""
+    cfg = dict(GRAPH_CONFIG, optimizer={"otype": "Adam", "learning_rate": 1e-2, "l2_reg": 0.0})
+    m = tt.create_from_config(2, 3, cfg)
+    data = _graph_data(dev, 2)
+    m.trainer.training_steps(_pick_step, 2, data)
+    p = m.params.clone()
+    m.trainer.learning_rate = 0.0
+    m.trainer.training_steps(_pick_step, 2, data)
+    torch.cuda.synchronize()
+    assert torch.equal(m.params, p) and int(m.trainer.opt_state["step"]) == 4
+    m.trainer.update_hyperparams({"optimizer": {"learning_rate": 1e-2}})
+    m.trainer.training_steps(_pick_step, 2, data)
+    assert not torch.equal(m.params, p)
+
+
+def test_training_steps_new_data_captures_again(dev):
+    """The same batch_fn with new tensors in ``data`` captures again: the
+    graph would otherwise read the first call's tensors."""
+    cfg = dict(GRAPH_CONFIG, optimizer={"otype": "Adam", "learning_rate": 1e-2})
+    graph, loop = (tt.create_from_config(2, 3, cfg, seed=5) for _ in range(2))
+    for seed in (1, 2):
+        data = _graph_data(dev, 2, seed=seed)
+        got = graph.trainer.training_steps(_pick_step, 2, data)
+        want = torch.stack([loop.training_step(*_pick_step(data, torch.tensor(k, device=dev))) for k in range(2)])
+        assert float(((got - want).abs() / want.abs()).max()) <= 1e-4
+    assert len(graph.trainer._graphs) == 1
+
+
+def test_training_steps_raises_where_capture_fails(dev):
+    """A batch_fn that reads the step on the host cannot be captured: the
+    call raises, and does not fall back to a loop."""
+    cfg = dict(GRAPH_CONFIG, optimizer={"otype": "Adam"})
+    m = tt.create_from_config(2, 3, cfg)
+    data = _graph_data(dev, 2)
+    with pytest.raises(RuntimeError):
+        m.trainer.training_steps(lambda d, i: _pick_step(d, torch.tensor(int(i), device=dev)), 2, data)
+    torch.cuda.synchronize()

@@ -24,9 +24,14 @@ from tcnn_tpu_torch.common import default_loss_scale
 BATCH, DIMS, STRIDE = 257, 3, 16
 
 
-def _inputs(seed, with_pdf):
+# Losses that take log(pred) or divide by pred see positive predictions.
+POSITIVE = ("CrossEntropy", "Variance")
+OTYPES = ["L2", "RelativeL2", "RelativeL2Luminance", "L1", "RelativeL1", "Mape", "Smape", "CrossEntropy", "Variance"]
+
+
+def _inputs(seed, with_pdf, low=-1.0):
     rng = np.random.default_rng(seed)
-    pred = rng.uniform(-1, 2, (BATCH, STRIDE)).astype(np.float32)
+    pred = rng.uniform(low, 2, (BATCH, STRIDE)).astype(np.float32)
     pred = np.asarray(jnp.asarray(jnp.asarray(pred, jnp.bfloat16), jnp.float32))  # bf16 values
     target = rng.uniform(0, 1, (BATCH, DIMS)).astype(np.float32)
     pdf = rng.uniform(0.2, 2.0, (BATCH, DIMS)).astype(np.float32) if with_pdf else None
@@ -47,10 +52,10 @@ def _assert_bf16_within_one_ulp(got, want):
 
 @pytest.mark.parametrize("scale", [1.0, 128.0])
 @pytest.mark.parametrize("with_pdf", [False, True])
-@pytest.mark.parametrize("otype", ["L2", "RelativeL2"])
+@pytest.mark.parametrize("otype", OTYPES)
 def test_evaluate_matches_jax(otype, with_pdf, scale):
     jl, tl = _both(otype)
-    pred, target, pdf = _inputs(len(otype) * 2 + with_pdf, with_pdf)
+    pred, target, pdf = _inputs(len(otype) * 2 + with_pdf, with_pdf, 0.1 if otype in POSITIVE else -1.0)
     jv, jg = jl.evaluate(
         scale, jnp.asarray(pred, jnp.bfloat16), jnp.asarray(target), None if pdf is None else jnp.asarray(pdf)
     )
@@ -68,10 +73,10 @@ def test_evaluate_matches_jax(otype, with_pdf, scale):
 
 @pytest.mark.parametrize("scale", [1.0, 128.0])
 @pytest.mark.parametrize("with_pdf", [False, True])
-@pytest.mark.parametrize("otype", ["L2", "RelativeL2"])
+@pytest.mark.parametrize("otype", OTYPES)
 def test_sum_and_gradient_matches_jax(otype, with_pdf, scale):
     jl, tl = _both(otype)
-    pred, target, pdf = _inputs(100 + len(otype) * 2 + with_pdf, with_pdf)
+    pred, target, pdf = _inputs(100 + len(otype) * 2 + with_pdf, with_pdf, 0.1 if otype in POSITIVE else -1.0)
     js, jg = jl.evaluate_sum_and_gradient(
         scale, jnp.asarray(pred, jnp.bfloat16), jnp.asarray(target), None if pdf is None else jnp.asarray(pdf)
     )
@@ -103,8 +108,11 @@ def test_relative_l2_gradient_is_not_autograd():
 def test_factory_and_loss_scale():
     assert isinstance(tlosses.create_loss(None), tlosses.RelativeL2Loss)
     assert isinstance(tlosses.create_loss({"otype": "l2"}), tlosses.L2Loss)
-    with pytest.raises(NotImplementedError, match="Queue 1 item 6"):
-        tlosses.create_loss({"otype": "L1"})
+    assert isinstance(tlosses.create_loss({"otype": "l1"}), tlosses.L1Loss)
+    assert tlosses.builtin_losses() == sorted(OTYPES)
+    # Constant is a class only, as in the JAX package and the reference.
+    with pytest.raises(ValueError, match="not found"):
+        tlosses.create_loss({"otype": "Constant"})
     with pytest.raises(ValueError, match="not found"):
         tlosses.create_loss({"otype": "NoSuchLoss"})
     loss = tlosses.create_loss({"otype": "L2"})
@@ -116,3 +124,39 @@ def test_factory_and_loss_scale():
     assert default_loss_scale("fp16") == 128.0
     assert default_loss_scale(torch.float32) == 1.0
     assert default_loss_scale(None) == 128.0
+
+
+@pytest.mark.parametrize("with_pdf", [False, True])
+@pytest.mark.parametrize("otype", OTYPES + ["Constant"])
+def test_fp32_values_and_gradients_match_jax(otype, with_pdf):
+    """fp32 predictions: values, sums and the explicit gradients (no bf16
+    cast) to rtol 1e-6; Constant, unregistered, through its class."""
+    if otype == "Constant":
+        jl, tl = jlosses.ConstantLoss(), tlosses.ConstantLoss()
+    else:
+        jl, tl = _both(otype)
+    pred, target, pdf = _inputs(300 + len(otype) + with_pdf, with_pdf, 0.1 if otype in POSITIVE else -1.0)
+    jpdf, tpdf = (None, None) if pdf is None else (jnp.asarray(pdf), torch.from_numpy(pdf))
+    jv, jg = jl.evaluate(128.0, jnp.asarray(pred), jnp.asarray(target), jpdf)
+    tv, tg = tl.evaluate(128.0, torch.from_numpy(pred), torch.from_numpy(target), tpdf)
+    assert tg.dtype == torch.float32
+    np.testing.assert_allclose(tv.numpy(), np.asarray(jv), rtol=1e-6, atol=0)
+    np.testing.assert_allclose(tg.numpy(), np.asarray(jg), rtol=1e-6, atol=0)
+    js, _ = jl.evaluate_sum_and_gradient(128.0, jnp.asarray(pred), jnp.asarray(target), jpdf)
+    ts, _ = tl.evaluate_sum_and_gradient(128.0, torch.from_numpy(pred), torch.from_numpy(target), tpdf)
+    np.testing.assert_allclose(float(ts), float(js), rtol=1e-6)
+
+
+def test_relative_l2_luminance_sums_two_triplets():
+    """With six or more dims the luminance adds the first two RGB triplets
+    (relative_l2_luminance.h); fewer than three dims raise."""
+    rng = np.random.default_rng(7)
+    pred = rng.uniform(-1, 2, (64, 8)).astype(np.float32)
+    target = rng.uniform(0, 1, (64, 6)).astype(np.float32)
+    jv, jg = jlosses.create_loss({"otype": "RelativeL2Luminance"}).evaluate(1.0, jnp.asarray(pred), jnp.asarray(target))
+    tl = tlosses.create_loss({"otype": "RelativeL2Luminance"})
+    tv, tg = tl.evaluate(1.0, torch.from_numpy(pred), torch.from_numpy(target))
+    np.testing.assert_allclose(tv.numpy(), np.asarray(jv), rtol=1e-6, atol=0)
+    np.testing.assert_allclose(tg.numpy(), np.asarray(jg), rtol=1e-6, atol=0)
+    with pytest.raises(ValueError, match="at least 3"):
+        tl.evaluate(1.0, torch.zeros((4, 8)), torch.zeros((4, 2)))

@@ -28,7 +28,8 @@ def test_import_loads_no_jax():
     code = (
         "import sys, tcnn_tpu_torch, tcnn_tpu_torch.ops.ffmlp, tcnn_tpu_torch.ops.grid_encode, "
         "tcnn_tpu_torch.ops._build, tcnn_tpu_torch.ops.scatter_rows, tcnn_tpu_torch.ops.fused_adam, "
-        "tcnn_tpu_torch.losses, tcnn_tpu_torch.optimizers, tcnn_tpu_torch.utils.sampling\n"
+        "tcnn_tpu_torch.losses, tcnn_tpu_torch.optimizers, tcnn_tpu_torch.utils.sampling, "
+        "tcnn_tpu_torch.interchange, tcnn_tpu_torch.utils.checkpoint, tcnn_tpu_torch.optimizers.composite\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'tcnn_tpu'))\n"
         "assert not bad, bad\n"
         "print('ok')\n"

@@ -205,3 +205,34 @@ def test_params_from_numpy_checks_length_and_dtype():
     other = tt.create_from_config(2, 3, cfg, device="cpu")
     with pytest.raises(ValueError, match="shape"):
         tt.params_from_numpy(m.params.numpy(), other.model)
+
+
+def test_inference_stratified_argument_matches_jax():
+    """Under gather_strategy "stratified" with the encoding's own
+    table_dtype, which levels round depends on whether a batch is taken for
+    the stratified layout: ``inference(x)`` serves it as an arbitrary batch
+    and ``inference(x, stratified=True)`` opts in, in both packages
+    (tcnn_tpu/trainer.py: _inference_kwargs). Same random parameters, a
+    stratified 16^2 batch; each mode matches the JAX package's (tolerance
+    above) and lies nearer to it than the two modes lie to each other."""
+    cfg = copy.deepcopy(CONFIG)
+    cfg["optimizer"] = CONFIG["optimizer"]["nested"]
+    cfg["encoding"]["table_dtype"] = "bfloat16"
+    jm = tc.create_from_config(2, 3, cfg)
+    tm = tt.create_from_config(2, 3, cfg, device="cpu")
+    r = np.random.default_rng(11)
+    n_net = tm.model.network.n_params
+    flat = np.concatenate([r.uniform(-0.2, 0.2, n_net), r.uniform(-1, 1, tm.model.n_params - n_net)])
+    flat = flat.astype(np.float32)
+    jm.trainer.params = jnp.asarray(flat)
+    tm.trainer.params = tt.params_from_numpy(flat, tm.model)
+    x = np.asarray(stratified_uniform(jax.random.PRNGKey(3), B, 2))
+    want = np.asarray(jm.trainer.inference(jnp.asarray(x)))
+    want_strat = np.asarray(jm.trainer.inference(jnp.asarray(x), stratified=True))
+    got = tm.trainer.inference(x).numpy()
+    got_strat = tm.trainer.inference(x, stratified=True).numpy()
+    assert_bf16_close(got, want)
+    assert_bf16_close(got_strat, want_strat)
+    between = np.abs(want - want_strat).max()
+    assert between > 0
+    assert np.abs(got - want).max() < between / 4 and np.abs(got_strat - want_strat).max() < between / 4
