@@ -17,8 +17,10 @@ layout, byte for byte the JAX package's; ``utils.checkpoint``: npz) and
 (``modules.Encoding``, ``Network``, ``NetworkWithInputEncoding`` as
 ``torch.nn`` modules, differentiable twice with respect to params and inputs
 through the grid's input-gradient and double-backward kernels; the
-packed-I/O ``FullyFusedMLP.apply_packed``). Entry points run on the CUDA
-card unless the caller names another device.
+packed-I/O ``FullyFusedMLP.apply_packed``), and every encoding the JAX
+package registers (the spherical harmonics through their own kernel), with
+the radiance-field sample ``samples.nerf_synthetic``. Entry points run on
+the CUDA card unless the caller names another device.
 """
 
 __version__ = "0.1.0"

@@ -7,6 +7,7 @@ that one JSON config drives both; ``as_dtype`` resolves to torch dtypes.
 from __future__ import annotations
 
 import enum
+import math
 from typing import Dict, Mapping, Optional
 
 import torch
@@ -56,6 +57,14 @@ class InterpolationType(str, enum.Enum):
     Smoothstep = "Smoothstep"
 
 
+class ReductionType(str, enum.Enum):
+    """Composite-encoding reduction (reference: common.h:178-182)."""
+
+    Concatenation = "Concatenation"
+    Sum = "Sum"
+    Product = "Product"
+
+
 # Squareplus / Softplus sharpness (reference: common_device.h:108).
 K_ACT = 10.0
 
@@ -93,6 +102,13 @@ def default_loss_scale(dtype) -> float:
 
 def div_round_up(val: int, divisor: int) -> int:
     return (val + divisor - 1) // divisor
+
+
+def lcm_list(values) -> int:
+    out = 1
+    for v in values:
+        out = math.lcm(out, int(v))
+    return out
 
 
 def next_multiple(val: int, divisor: int) -> int:
@@ -150,6 +166,7 @@ string_to_activation = _make_enum_parser(Activation)
 string_to_grid_type = _make_enum_parser(GridType)
 string_to_hash_type = _make_enum_parser(HashType)
 string_to_interpolation_type = _make_enum_parser(InterpolationType)
+string_to_reduction_type = _make_enum_parser(ReductionType)
 
 
 def json_value(config: Optional[Mapping], key: str, default):

@@ -1,0 +1,307 @@
+// Spherical-harmonics direction encoding and its input gradient, for Hopper
+// (sm_90a).
+//
+// Replaces: the XLA computation of tcnn_tpu/encodings/spherical_harmonics.py:
+// SphericalHarmonicsEncoding.apply (:106) and its autodiff; the reference
+// computes the same basis in one CUDA kernel (encodings/spherical_harmonics.h,
+// sh_enc / sh_enc_grad). The JAX package evaluates the real SH basis of
+// degree 1-8 from the Sloan recurrences, unrolled: A_m + i B_m = (x + iy)^m,
+// q_l^m = P_l^m(z) / sin^m(theta) with the Condon-Shortley sign folded into
+// q_m^m = (-1)^m (2m-1)!!, and Y_lm = K q_l^|m| A_|m| (m > 0), K q_l^|m|
+// B_|m| (m < 0), K q_l^0 (m = 0), with K = sqrt(2) K_l|m| for m != 0. Inputs
+// in [0, 1]^3 are remapped to [-1, 1]^3; the padding columns come BEFORE the
+// SH values (spherical_harmonics.h:53-63, the reference's layout).
+//
+// tcnn_sh_forward computes every product, sum and quotient on its own (the
+// _rn intrinsics, no fused multiply-add) in the order of the plain version
+// (tcnn_tpu_torch/ops/sh_encode.py:sh_enc), with its fp32 constants, so the
+// two agree to the last bit wherever the plain version's arithmetic is
+// plain fp32. tcnn_sh_backward_input carries the partial derivatives through
+// the same recurrences in registers (forward mode: dA_m/dx = m A_{m-1},
+// dA_m/dy = -m B_{m-1}, dB_m/dx = m B_{m-1}, dB_m/dy = m A_{m-1}; dq/dz by
+// the recurrence's derivative) and contracts them with dL/dy, times 2 for
+// the remap.
+//
+// What bounds it on this card: HBM. A sample reads 12 bytes of position and
+// writes (n_to_pad + degree^2) values; at the NeRF path's 2^18 samples in
+// bf16 (7 + 9 columns) that is 11.5 MB, ~3.4 us at 3.35 TB/s, against ~100
+// fp32 operations a sample (~0.4 us at 67 TFLOP/s).
+//
+// Design: one thread per sample, the degree a template constant so that the
+// recurrences unroll into registers. A block of 128 samples stages its
+// degree^2 values a sample in shared memory (a row stride of degree^2 | 1
+// words, so a warp's rows fall in distinct banks), then the block writes its
+// contiguous (128, padded_width) output tile in one flat, coalesced loop,
+// the padding columns included. The backward stages the block's dL/dy SH
+// columns the same way before each thread contracts its own row. Positions
+// are read with a row stride, so a column slice of a wider input needs no
+// copy.
+
+#include <cuda_bf16.h>
+#include <cuda_runtime.h>
+#include <stdint.h>
+
+namespace {
+
+constexpr int kThreads = 128;
+constexpr int kMaxDegree = 8;
+
+// fp32(K_l0) for m = 0 and fp32(sqrt(2) K_l|m|) for m != 0, at index
+// l (l + 1) / 2 + |m|: the constants of the plain version, K_lm =
+// sqrt((2l + 1) (l - |m|)! / (4 pi (l + |m|)!)) taken in double and rounded
+// to fp32 (tests/test_torch_port_composite.py checks them against it).
+__constant__ float kCoef[kMaxDegree * (kMaxDegree + 1) / 2] = {
+    // l = 0
+    2.820948e-01f,
+    // l = 1
+    4.8860252e-01f, 4.8860252e-01f,
+    // l = 2
+    6.3078314e-01f, 3.641828e-01f, 1.820914e-01f,
+    // l = 3
+    7.463527e-01f, 3.046972e-01f, 9.635372e-02f, 3.9336238e-02f,
+    // l = 4
+    8.462844e-01f, 2.6761863e-01f, 6.3078314e-02f, 1.6858388e-02f, 5.96034e-03f,
+    // l = 5
+    9.356026e-01f, 2.4157155e-01f, 4.5652732e-02f, 9.318825e-03f, 2.196468e-03f, 6.9458416e-04f,
+    // l = 6
+    1.0171072e+00f, 2.21951e-01f, 3.5093535e-02f, 5.8489223e-03f, 1.0678623e-03f, 2.2766899e-04f,
+    6.572238e-05f,
+    // l = 7
+    1.0925485e+00f, 2.0647225e-01f, 2.8097313e-02f, 3.9735604e-03f, 5.9903675e-04f, 9.983946e-05f,
+    1.9580128e-05f, 5.2330092e-06f,
+};
+
+__host__ __device__ constexpr int coef_index(int l, int m) { return l * (l + 1) / 2 + m; }
+
+// Row stride of the shared-memory stage: odd, so that 32 threads' rows fall
+// in 32 distinct banks.
+template <int DEG>
+__host__ __device__ constexpr int stage_stride() {
+  return DEG * DEG + ((DEG * DEG) % 2 == 0 ? 1 : 0);
+}
+
+// (2m - 1)!! with the Condon-Shortley sign: q_m^m.
+__host__ __device__ constexpr float qmm(int m) {
+  float v = 1.0f;
+  for (int k = 1; k < m; ++k) v *= static_cast<float>(2 * k + 1);
+  return (m % 2) ? -v : v;
+}
+
+__device__ __forceinline__ float load_value(const void* p, int64_t i, int bf16) {
+  return bf16 ? __bfloat162float(static_cast<const __nv_bfloat16*>(p)[i]) : static_cast<const float*>(p)[i];
+}
+
+__device__ __forceinline__ void store_value(void* p, int64_t i, float v, int bf16) {
+  if (bf16) {
+    static_cast<__nv_bfloat16*>(p)[i] = __float2bfloat16_rn(v);
+  } else {
+    static_cast<float*>(p)[i] = v;
+  }
+}
+
+// The degree^2 SH values at (x, y, z) in [-1, 1]^3, level-major with m =
+// -l..l, into out[l * l + l + m].
+template <int DEG>
+__device__ __forceinline__ void sh_values(float x, float y, float z, float* out) {
+  float a[DEG], b[DEG];
+  a[0] = 1.0f;
+  b[0] = 0.0f;
+#pragma unroll
+  for (int m = 1; m < DEG; ++m) {
+    a[m] = __fsub_rn(__fmul_rn(x, a[m - 1]), __fmul_rn(y, b[m - 1]));
+    b[m] = __fadd_rn(__fmul_rn(x, b[m - 1]), __fmul_rn(y, a[m - 1]));
+  }
+#pragma unroll
+  for (int m = 0; m < DEG; ++m) {
+    float q[DEG];  // q[l] = q_l^m for l = m..DEG-1
+    q[m] = qmm(m);
+    if (m + 1 < DEG) q[m + 1] = __fmul_rn(__fmul_rn(static_cast<float>(2 * m + 1), z), q[m]);
+#pragma unroll
+    for (int l = m + 2; l < DEG; ++l) {
+      q[l] = __fdiv_rn(__fsub_rn(__fmul_rn(__fmul_rn(static_cast<float>(2 * l - 1), z), q[l - 1]),
+                                 __fmul_rn(static_cast<float>(l + m - 1), q[l - 2])),
+                       static_cast<float>(l - m));
+    }
+#pragma unroll
+    for (int l = m; l < DEG; ++l) {
+      const float c = kCoef[coef_index(l, m)];
+      if (m == 0) {
+        out[l * l + l] = __fmul_rn(c, q[l]);
+      } else {
+        out[l * l + l + m] = __fmul_rn(__fmul_rn(c, q[l]), a[m]);
+        out[l * l + l - m] = __fmul_rn(__fmul_rn(c, q[l]), b[m]);
+      }
+    }
+  }
+}
+
+template <int DEG>
+__global__ void __launch_bounds__(kThreads)
+    sh_forward_kernel(const float* __restrict__ x, int64_t x_stride, void* __restrict__ out, int64_t batch,
+                      int n_to_pad, int padded_width, float pad_value, int out_bf16) {
+  constexpr int D2 = DEG * DEG;
+  constexpr int S = stage_stride<DEG>();
+  __shared__ float stage[kThreads * S];
+  const int64_t row0 = static_cast<int64_t>(blockIdx.x) * kThreads;
+  const int rows = static_cast<int>(min(static_cast<int64_t>(kThreads), batch - row0));
+  const int t = threadIdx.x;
+  if (t < rows) {
+    const float* p = x + (row0 + t) * x_stride;
+    float v[D2];
+    sh_values<DEG>(__fsub_rn(__fmul_rn(p[0], 2.0f), 1.0f), __fsub_rn(__fmul_rn(p[1], 2.0f), 1.0f),
+                   __fsub_rn(__fmul_rn(p[2], 2.0f), 1.0f), v);
+#pragma unroll
+    for (int j = 0; j < D2; ++j) stage[t * S + j] = v[j];
+  }
+  __syncthreads();
+  // The block's output rows are one contiguous span of rows * padded_width.
+  const int total = rows * padded_width;
+  const int64_t base = row0 * padded_width;
+  for (int i = t; i < total; i += kThreads) {
+    const int r = i / padded_width;
+    const int c = i - r * padded_width;
+    const float v = c < n_to_pad ? pad_value : stage[r * S + (c - n_to_pad)];
+    store_value(out, base + i, v, out_bf16);
+  }
+}
+
+template <int DEG>
+__global__ void __launch_bounds__(kThreads)
+    sh_backward_input_kernel(const float* __restrict__ x, int64_t x_stride, const void* __restrict__ dy, int dy_bf16,
+                             float* __restrict__ dx, int64_t batch, int n_to_pad, int padded_width) {
+  constexpr int D2 = DEG * DEG;
+  constexpr int S = stage_stride<DEG>();
+  __shared__ float stage[kThreads * S];
+  const int64_t row0 = static_cast<int64_t>(blockIdx.x) * kThreads;
+  const int rows = static_cast<int>(min(static_cast<int64_t>(kThreads), batch - row0));
+  const int t = threadIdx.x;
+  for (int i = t; i < rows * D2; i += kThreads) {
+    const int r = i / D2;
+    const int c = i - r * D2;
+    stage[r * S + c] = load_value(dy, (row0 + r) * padded_width + n_to_pad + c, dy_bf16);
+  }
+  __syncthreads();
+  if (t >= rows) return;
+  const float* p = x + (row0 + t) * x_stride;
+  const float x0 = __fsub_rn(__fmul_rn(p[0], 2.0f), 1.0f);
+  const float y0 = __fsub_rn(__fmul_rn(p[1], 2.0f), 1.0f);
+  const float z0 = __fsub_rn(__fmul_rn(p[2], 2.0f), 1.0f);
+  const float* g = stage + t * S;
+
+  float a[DEG], b[DEG];
+  a[0] = 1.0f;
+  b[0] = 0.0f;
+#pragma unroll
+  for (int m = 1; m < DEG; ++m) {
+    a[m] = x0 * a[m - 1] - y0 * b[m - 1];
+    b[m] = x0 * b[m - 1] + y0 * a[m - 1];
+  }
+  float gx = 0.0f, gy = 0.0f, gz = 0.0f;
+#pragma unroll
+  for (int m = 0; m < DEG; ++m) {
+    float q[DEG], dq[DEG];  // q_l^m and dq_l^m / dz
+    q[m] = qmm(m);
+    dq[m] = 0.0f;
+    if (m + 1 < DEG) {
+      q[m + 1] = static_cast<float>(2 * m + 1) * z0 * q[m];
+      dq[m + 1] = static_cast<float>(2 * m + 1) * q[m];
+    }
+#pragma unroll
+    for (int l = m + 2; l < DEG; ++l) {
+      const float inv = 1.0f / static_cast<float>(l - m);
+      q[l] = (static_cast<float>(2 * l - 1) * z0 * q[l - 1] - static_cast<float>(l + m - 1) * q[l - 2]) * inv;
+      dq[l] = (static_cast<float>(2 * l - 1) * (q[l - 1] + z0 * dq[l - 1]) -
+               static_cast<float>(l + m - 1) * dq[l - 2]) *
+              inv;
+    }
+    // dA_m / dx = m A_{m-1}, dA_m / dy = -m B_{m-1}; dB_m / dx = m B_{m-1},
+    // dB_m / dy = m A_{m-1}.
+    const float fm = static_cast<float>(m);
+    const float dax = m ? fm * a[m - 1] : 0.0f, day = m ? -fm * b[m - 1] : 0.0f;
+    const float dbx = m ? fm * b[m - 1] : 0.0f, dby = m ? fm * a[m - 1] : 0.0f;
+#pragma unroll
+    for (int l = m; l < DEG; ++l) {
+      const float c = kCoef[coef_index(l, m)];
+      if (m == 0) {
+        gz += g[l * l + l] * c * dq[l];
+      } else {
+        const float gp = g[l * l + l + m] * c, gn = g[l * l + l - m] * c;
+        gx += q[l] * (gp * dax + gn * dbx);
+        gy += q[l] * (gp * day + gn * dby);
+        gz += dq[l] * (gp * a[m] + gn * b[m]);
+      }
+    }
+  }
+  // d(2x - 1) / dx = 2.
+  float* o = dx + (row0 + t) * 3;
+  o[0] = 2.0f * gx;
+  o[1] = 2.0f * gy;
+  o[2] = 2.0f * gz;
+}
+
+template <template <int> class Launch, typename... Args>
+cudaError_t dispatch_degree(int degree, Args... args) {
+  switch (degree) {
+    case 1: return Launch<1>::run(args...);
+    case 2: return Launch<2>::run(args...);
+    case 3: return Launch<3>::run(args...);
+    case 4: return Launch<4>::run(args...);
+    case 5: return Launch<5>::run(args...);
+    case 6: return Launch<6>::run(args...);
+    case 7: return Launch<7>::run(args...);
+    case 8: return Launch<8>::run(args...);
+    default: return cudaErrorInvalidValue;
+  }
+}
+
+template <int DEG>
+struct LaunchForward {
+  static cudaError_t run(const float* x, int64_t x_stride, void* out, int64_t batch, int n_to_pad, int padded_width,
+                         float pad_value, int out_bf16, cudaStream_t stream) {
+    const int64_t blocks = (batch + kThreads - 1) / kThreads;
+    sh_forward_kernel<DEG><<<static_cast<unsigned>(blocks), kThreads, 0, stream>>>(
+        x, x_stride, out, batch, n_to_pad, padded_width, pad_value, out_bf16);
+    return cudaGetLastError();
+  }
+};
+
+template <int DEG>
+struct LaunchBackward {
+  static cudaError_t run(const float* x, int64_t x_stride, const void* dy, int dy_bf16, float* dx, int64_t batch,
+                         int n_to_pad, int padded_width, cudaStream_t stream) {
+    const int64_t blocks = (batch + kThreads - 1) / kThreads;
+    sh_backward_input_kernel<DEG><<<static_cast<unsigned>(blocks), kThreads, 0, stream>>>(
+        x, x_stride, dy, dy_bf16, dx, batch, n_to_pad, padded_width);
+    return cudaGetLastError();
+  }
+};
+
+bool shape_ok(int64_t batch, int degree, int n_to_pad, int padded_width) {
+  // The flat write loop indexes a block's tile in 32 bits.
+  return batch > 0 && degree >= 1 && degree <= kMaxDegree && n_to_pad >= 0 &&
+         padded_width == n_to_pad + degree * degree &&
+         static_cast<int64_t>(kThreads) * padded_width < (int64_t{1} << 31) &&
+         (batch + kThreads - 1) / kThreads < (int64_t{1} << 31);
+}
+
+}  // namespace
+
+// out (batch, padded_width), bf16 (out_bf16) or fp32, contiguous: n_to_pad
+// columns of pad_value, then degree^2 SH values of the row x[r * x_stride
+// + 0..2] (fp32, [0, 1]^3). padded_width must be n_to_pad + degree^2.
+extern "C" int tcnn_sh_forward(const float* x, int64_t x_stride, void* out, int64_t batch, int degree,
+                               int n_to_pad, int padded_width, float pad_value, int out_bf16, cudaStream_t stream) {
+  if (!shape_ok(batch, degree, n_to_pad, padded_width) || x_stride < 3) return cudaErrorInvalidValue;
+  return dispatch_degree<LaunchForward>(degree, x, x_stride, out, batch, n_to_pad, padded_width, pad_value, out_bf16,
+                                        stream);
+}
+
+// dx (batch, 3) fp32, contiguous: dL/dx from dL/dy (batch, padded_width),
+// bf16 (dy_bf16) or fp32, contiguous; the padding columns of dL/dy are not
+// read (the padding does not depend on x).
+extern "C" int tcnn_sh_backward_input(const float* x, int64_t x_stride, const void* dy, int dy_bf16, float* dx,
+                                      int64_t batch, int degree, int n_to_pad, int padded_width,
+                                      cudaStream_t stream) {
+  if (!shape_ok(batch, degree, n_to_pad, padded_width) || x_stride < 3) return cudaErrorInvalidValue;
+  return dispatch_degree<LaunchBackward>(degree, x, x_stride, dy, dy_bf16, dx, batch, n_to_pad, padded_width, stream);
+}

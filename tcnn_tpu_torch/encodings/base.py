@@ -14,6 +14,7 @@ import torch
 from torch import nn
 
 from ..common import default_network_precision, next_multiple
+from ..utils.sampling import raster_centers_torch
 
 
 class Encoding(nn.Module):
@@ -22,8 +23,9 @@ class Encoding(nn.Module):
     Attributes:
       n_dims_to_encode: input width consumed.
       n_output_dims: natural (unpadded) output width.
-      n_to_pad: extra output columns appended so the output width matches
-        the network's required input alignment.
+      n_to_pad: extra output columns appended (or, for SphericalHarmonics,
+        prepended) so the output width matches the network's required input
+        alignment.
       pad_value: value written into padding columns.
       output_dtype: dtype of the encoded output fed to the network.
     """
@@ -37,6 +39,8 @@ class Encoding(nn.Module):
         self.n_output_dims = 0
         self.n_to_pad = 0
         self.output_dtype = default_network_precision
+        # Constant tensors of elementwise encodings, by device (basic._cached).
+        self._consts = {}
 
     @property
     def input_width(self) -> int:
@@ -56,6 +60,9 @@ class Encoding(nn.Module):
                 f"{self.otype}: padded output width {padded_output_width} < natural width {self.n_output_dims}"
             )
         self.n_to_pad = padded_output_width - self.n_output_dims
+
+    def required_output_alignment(self) -> int:
+        return 1
 
     def set_alignment(self, alignment: int):
         self.set_padded_output_width(next_multiple(self.padded_output_width, alignment))
@@ -81,6 +88,16 @@ class Encoding(nn.Module):
         """``apply`` through plain torch versions only, on any device; the
         same as ``apply`` for encodings without kernels."""
         return self.apply(params, x)
+
+    def apply_raster(self, params: torch.Tensor, side, **kwargs) -> torch.Tensor:
+        """Encode the tile-centre raster (``utils.sampling.raster_centers``
+        layout: sample ``j`` at the centre of raster tile ``j``, dim 0
+        fastest; ``side`` an int or a per-dim tuple), built on the device of
+        ``params``. Encodings with a raster fast path override this
+        (``GridEncoding.apply_raster``); the default builds the positions and
+        applies normally (tcnn_tpu/encodings/base.py:106-118)."""
+        x = raster_centers_torch(side, self.n_dims_to_encode, params.device)
+        return self.apply(params, x, **kwargs)
 
     def forward(self, params: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
         return self.apply(params, x)

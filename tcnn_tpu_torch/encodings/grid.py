@@ -559,7 +559,7 @@ class GridEncoding(Encoding):
         return hit
 
     def apply(self, params: torch.Tensor, x: torch.Tensor, table_dtype: Optional[str] = None,
-              stratified: Optional[bool] = None) -> torch.Tensor:
+              stratified: Optional[bool] = None, max_level: Optional[float] = None) -> torch.Tensor:
         """Encode positions ``x`` (batch, n_dims) to (batch,
         padded_output_width) in ``output_dtype``. The encoding's own
         ``table_dtype`` rounds the reads of ``rounded_levels``;
@@ -567,19 +567,35 @@ class GridEncoding(Encoding):
         ``served_levels()`` round their reads to it after that.
         ``stratified=False`` (what ``FrozenServer`` passes for batches) says
         the batch is not the stratified layout, as in the JAX package.
+        ``max_level`` (a float in [0, 1]) masks coarse to fine: level ``l``
+        outputs zeros unless ``l < max_level * n_levels + 1e-3``
+        (reference: grid.h:69-92; tcnn_tpu/encodings/grid.py:2012-2016), so
+        the masked levels get no table gradient.
         Differentiable twice with respect to ``params`` and ``x``
         (``ops.grid_encode``: the lookup, table-gradient, input-gradient and
         double-backward kernels on the card, their plain versions on the
         CPU)."""
-        return self._encode(params, x, table_dtype, plain=False, stratified=stratified)
+        return self._encode(params, x, table_dtype, plain=False, stratified=stratified, max_level=max_level)
 
     def apply_plain(self, params: torch.Tensor, x: torch.Tensor, table_dtype: Optional[str] = None,
-                    stratified: Optional[bool] = None) -> torch.Tensor:
+                    stratified: Optional[bool] = None, max_level: Optional[float] = None) -> torch.Tensor:
         """``apply`` through the kernels' plain torch versions, on any
         device (the reference the kernels are checked against)."""
-        return self._encode(params, x, table_dtype, plain=True, stratified=stratified)
+        return self._encode(params, x, table_dtype, plain=True, stratified=stratified, max_level=max_level)
 
-    def _encode(self, params, x, table_dtype, plain: bool, raster_sides=None, stratified=None):
+    def _column_levels(self, device: torch.device) -> torch.Tensor:
+        """(padded_output_width,) fp32: each output column's level, -1 for
+        the padding; cached per device, so that a captured graph copies
+        nothing from the host."""
+        key = ("column_levels", device.type, device.index)
+        levels = self._level_tables.get(key)
+        if levels is None:
+            cols = np.arange(self.padded_output_width) // self.n_features_per_level
+            cols = np.where(cols < self.n_levels, cols, -1).astype(np.float32)
+            levels = self._level_tables[key] = torch.from_numpy(cols).to(device)
+        return levels
+
+    def _encode(self, params, x, table_dtype, plain: bool, raster_sides=None, stratified=None, max_level=None):
         x = x.to(torch.float32).contiguous()
         # Input gradients stay exact with stochastic interpolation (the JAX
         # package's GridEncoding.apply, tcnn_tpu/encodings/grid.py:1391-1395);
@@ -602,7 +618,13 @@ class GridEncoding(Encoding):
             plan,
         )
         levels = self._levels_on(x.device, table_dtype, raster_sides, x.shape[0], stratified)
-        return ge.GridEncodeFunction.apply(x, params, levels, classes, meta)
+        y = ge.GridEncodeFunction.apply(x, params, levels, classes, meta)
+        if max_level is not None:
+            # By torch.where, not a multiply, as the JAX package masks.
+            # The limit in fp32, as the JAX package compares.
+            limit = float(np.float32(max_level) * np.float32(self.n_levels) + np.float32(1e-3))
+            y = torch.where(self._column_levels(x.device) < limit, y, torch.zeros((), dtype=y.dtype, device=y.device))
+        return y
 
     def hyperparams(self):
         """The JAX package's ``GridEncoding.hyperparams()``, its TPU
@@ -633,15 +655,16 @@ class GridEncoding(Encoding):
                       locked_snap_tol=self.locked_snap_tol, locked_fwd=self.locked_fwd)
         return hp
 
-    def apply_raster(self, params: torch.Tensor, side, table_dtype: Optional[str] = None) -> torch.Tensor:
+    def apply_raster(self, params: torch.Tensor, side, table_dtype: Optional[str] = None,
+                     max_level: Optional[float] = None) -> torch.Tensor:
         """Encode the tile-center raster (``utils.sampling.raster_centers``
         layout), built on the device of ``params``, by per-sample lookup; a
         serve-time ``table_dtype`` rounds the levels ``served_levels`` names
-        for this raster."""
+        for this raster; ``max_level`` masks as in ``apply``."""
         d = self.n_dims_to_encode
         sides = (int(side),) * d if np.isscalar(side) else tuple(int(s) for s in side)
         x = raster_centers_torch(side, d, params.device)
-        return self._encode(params, x, table_dtype, plain=False, raster_sides=sides)
+        return self._encode(params, x, table_dtype, plain=False, raster_sides=sides, max_level=max_level)
 
 
 def _resolve_hash_type(name: str, grid_type) -> HashType:

@@ -287,8 +287,19 @@ class Trainer:
         graph = torch.cuda.CUDAGraph()
         for g in generators:
             graph.register_generator_state(g)
-        with torch.cuda.graph(graph):
-            step()
+        try:
+            with torch.cuda.graph(graph):
+                step()
+        except BaseException:
+            # A failed capture leaves the generators it registered in
+            # capture mode (CUDAGraph.capture_end raises before their
+            # epilogue), and every later draw from them raises: give each a
+            # fresh state, at the seed and offset it had before the capture.
+            default = torch.cuda.default_generators[dev.index if dev.index is not None else torch.cuda.current_device()]
+            for g, state in zip([default, *generators], [rng[1], *rng[0]]):
+                g.graphsafe_set_state(torch.Generator(device=g.device))
+                g.set_state(state)
+            raise
         return _CapturedSteps(graph, counter, losses, batch_fn, leaves)
 
     def training_step_with_gradients(self, inputs, dL_doutput):

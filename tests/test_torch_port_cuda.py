@@ -27,7 +27,11 @@ The eikonal gradients through the module API: 1e-2 of the norm (bf16
 network). The row gather and scatter probes (ops.probe_rows): gathers, tile
 sums, copies and STORE_LAST bit-exact; ADD within 1e-6 of the sum of
 |contributions| per entry (fp32 atomics add in any order); the gather-dot
-within 1e-5 of max |plain| (the matmul sums in another order).
+within 1e-5 of max |plain| (the matmul sums in another order). The SH
+kernels (ops.sh_encode): the fp32 forward and dL/dx within 1e-5 of max
+|plain| (the same operations, but torch divides by a scalar on the card as
+a multiply by its reciprocal; the backward sums the terms in another
+order), bf16 within one bf16 ulp more; the NeRF composite's model outputs as the MLP forward.
 """
 
 import numpy as np
@@ -37,7 +41,7 @@ import torch
 import tcnn_tpu_torch as tt
 from tcnn_tpu_torch.common import Activation
 from tcnn_tpu_torch.encodings import create_encoding
-from tcnn_tpu_torch.ops import ffmlp, fused_adam, grid_encode, probe_rows, scatter_rows
+from tcnn_tpu_torch.ops import ffmlp, fused_adam, grid_encode, probe_rows, scatter_rows, sh_encode
 from tcnn_tpu_torch.optimizers import AdamOptimizer
 
 pytestmark = pytest.mark.cuda
@@ -1265,10 +1269,77 @@ def test_training_steps_new_data_captures_again(dev):
 
 def test_training_steps_raises_where_capture_fails(dev):
     """A batch_fn that reads the step on the host cannot be captured: the
-    call raises, and does not fall back to a loop."""
+    call raises, and does not fall back to a loop. The default generator
+    and the one in ``data``, which the capture registered, then draw again
+    from where they were."""
     cfg = dict(GRAPH_CONFIG, optimizer={"otype": "Adam"})
     m = tt.create_from_config(2, 3, cfg)
-    data = _graph_data(dev, 2)
+    gen = torch.Generator(device=dev).manual_seed(7)
+    data = dict(_graph_data(dev, 2), gen=gen)
+    before = torch.cuda.get_rng_state(dev), gen.get_state()
     with pytest.raises(RuntimeError):
         m.trainer.training_steps(lambda d, i: _pick_step(d, torch.tensor(int(i), device=dev)), 2, data)
     torch.cuda.synchronize()
+    assert torch.equal(torch.cuda.get_rng_state(dev), before[0]) and torch.equal(gen.get_state(), before[1])
+    assert torch.rand(4, device=dev).shape == torch.rand(4, generator=gen, device=dev).shape == (4,)
+
+
+@pytest.mark.parametrize("degree", range(1, 9))
+@pytest.mark.parametrize("batch", [1, 129, 4099])
+def test_sh_encode_kernel_matches_plain(dev, degree, batch):
+    """tcnn_sh_forward (strided input, prepended padding, fp32 and bf16)
+    and tcnn_sh_backward_input against their plain versions."""
+    gen = torch.Generator(device=dev).manual_seed(degree * 1000 + batch)
+    x = torch.rand((batch, 6), generator=gen, device=dev)[:, 3:]
+    pad = 5
+    want = sh_encode.sh_encode_plain(x, degree, pad, 1.0, torch.float32)
+    before = sh_encode.LAUNCHES
+    got = sh_encode.sh_encode(x, degree, pad, 1.0, torch.float32)
+    assert sh_encode.LAUNCHES == before + 1
+    scale = float(want.abs().max())
+    assert float((got - want).abs().max()) <= 1e-5 * scale
+    got16 = sh_encode.sh_encode(x, degree, pad, 1.0, torch.bfloat16).float()
+    ulp = torch.exp2(torch.floor(torch.log2(want.abs().clamp_min(1e-30))) - 7)
+    assert bool(((got16 - want).abs() <= ulp + 1e-5 * scale).all())
+    dy = torch.randn((batch, pad + degree * degree), generator=gen, device=dev)
+    got_dx = sh_encode.sh_backward_input(x, dy, degree, pad)
+    want_dx = sh_encode.sh_backward_input_plain(x, dy, degree, pad)
+    assert float((got_dx - want_dx).abs().max()) <= 1e-5 * max(float(want_dx.abs().max()), 1e-30)
+
+
+def test_sh_second_order_takes_the_first_order_from_the_kernel(dev):
+    """With create_graph the first-order dL/dx still comes from
+    tcnn_sh_backward_input (one launch, within 1e-5 of max |plain|); its
+    own gradient is the plain chain's, as through apply_plain (within 1e-4
+    of max |plain|: it is taken at the kernel's dL/dy and dL/dx)."""
+    from tcnn_tpu_torch.encodings import create_encoding
+
+    enc = create_encoding(3, {"otype": "SphericalHarmonics", "degree": 4}, alignment=16)
+    enc.output_dtype = torch.float32  # both paths then differentiate the same fp32 values
+    x = torch.rand((4099, 3), generator=torch.Generator(device=dev).manual_seed(11), device=dev)
+    grads = {}
+    for name, fn in (("kernel", enc.apply), ("plain", enc.apply_plain)):
+        xx = x.clone().requires_grad_(True)
+        before = sh_encode.BWD_LAUNCHES
+        (dx,) = torch.autograd.grad((fn(torch.zeros(0), xx).float() ** 2).sum(), xx, create_graph=True)
+        assert sh_encode.BWD_LAUNCHES == before + (name == "kernel")
+        (ddx,) = torch.autograd.grad((dx**2).sum(), xx)
+        grads[name] = dx.detach(), ddx
+    for (got, want), rtol in zip(zip(grads["kernel"], grads["plain"]), (1e-5, 1e-4)):
+        assert float((got - want).abs().max()) <= rtol * float(want.abs().max())
+
+
+def test_nerf_composite_model_kernel_matches_plain(dev):
+    """The NeRF sample's model on the card: apply (grid lookup, SH kernel,
+    fused MLP) against apply_plain, and the parameter gradient."""
+    from tcnn_tpu_torch.samples import nerf_synthetic as ns
+
+    m = tt.create_from_config(6, 4, ns.CONFIG, device="cuda")
+    gen = torch.Generator(device=dev).manual_seed(5)
+    x = torch.rand((4096, 6), generator=gen, device=dev)
+    counts = sh_encode.LAUNCHES, grid_encode.LAUNCHES, ffmlp.LAUNCHES
+    got = m.model.apply(m.params, x)
+    assert (sh_encode.LAUNCHES, grid_encode.LAUNCHES, ffmlp.LAUNCHES) == tuple(c + 1 for c in counts)
+    _close_bf16(got, m.model.apply_plain(m.params, x))
+    out = ns.render(ns.model_field(m.model.apply, m.params), *ns.make_rays(torch.rand((64, 2), device=dev)))
+    assert out.shape == (64, 3) and torch.isfinite(out).all()

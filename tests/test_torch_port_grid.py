@@ -186,8 +186,11 @@ def test_rng_hash_and_fixed_point_raise():
         tenc.create_encoding(2, _cfg(hash="Rng"))
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         tenc.create_encoding(2, _cfg(fixed_point_pos=True))
+    # Training under stochastic interpolation (its table gradient) is not
+    # ported either; its forward is.
+    st = tenc.create_encoding(2, _cfg(stochastic_interpolation=True, gather_strategy="per_level"))
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tenc.create_encoding(2, {"otype": "Frequency"})
+        st.apply(torch.zeros(st.n_params, requires_grad=True), torch.zeros((4, 2)))
 
 
 # Serve-time table_dtype, level by level: the JAX package's FrozenServer

@@ -29,7 +29,8 @@ def test_import_loads_no_jax():
         "import sys, tcnn_tpu_torch, tcnn_tpu_torch.ops.ffmlp, tcnn_tpu_torch.ops.grid_encode, "
         "tcnn_tpu_torch.ops._build, tcnn_tpu_torch.ops.scatter_rows, tcnn_tpu_torch.ops.fused_adam, "
         "tcnn_tpu_torch.losses, tcnn_tpu_torch.optimizers, tcnn_tpu_torch.utils.sampling, "
-        "tcnn_tpu_torch.interchange, tcnn_tpu_torch.utils.checkpoint, tcnn_tpu_torch.optimizers.composite\n"
+        "tcnn_tpu_torch.interchange, tcnn_tpu_torch.utils.checkpoint, tcnn_tpu_torch.optimizers.composite, "
+        "tcnn_tpu_torch.ops.sh_encode, tcnn_tpu_torch.samples.nerf_synthetic\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'tcnn_tpu'))\n"
         "assert not bad, bad\n"
         "print('ok')\n"
@@ -56,7 +57,7 @@ def test_chip_smoke_fails_outside_a_checkout(tmp_path):
 def test_kernel_sources_and_build_paths():
     from tcnn_tpu_torch.ops import _build
 
-    for name in ("ffmlp_fwd", "grid_fwd", "ffmlp_bwd", "adam_step", "grid_bwd", "probe_rows"):
+    for name in ("ffmlp_fwd", "grid_fwd", "ffmlp_bwd", "adam_step", "grid_bwd", "probe_rows", "sh_encode"):
         src = _build.CSRC / f"{name}.cu"
         assert src.exists()
         text = src.read_text()
