@@ -76,8 +76,8 @@ Phases, each printing lines of its own; any failure exits non-zero:
    idle share; serialize(True) -> json.dumps -> deserialize and save_npz /
    load_npz give bitwise equal inference and optimizer state, and training
    resumes from each as from the original; SGD, Novograd, Average, Batched,
-   Lookahead, ExponentialDecay, Composite and the seven other losses 5
-   steps each on a small grid model through both paths.
+   Lookahead, ExponentialDecay, Composite, Shampoo and the seven other
+   losses 5 steps each on a small grid model through both paths.
 12c. the NeRF path: samples.nerf_synthetic at its own CONFIG (Composite
    of a 8-level 2^15 hash grid and SH degree 3 into FFMLP 64 x 2, 256,480
    params) for 600 steps of 8192 rays x 32 samples, every count at 0 just
@@ -87,6 +87,21 @@ Phases, each printing lines of its own; any failure exits non-zero:
    plain and the step's profile; then tests/test_nerf_config.py's
    NERF_CONFIG 20 steps through training_steps against 20 training_step
    calls (the graph-vs-loop tolerances).
+12d. the grid extras and the trainer's extras at the flagship's width (B =
+   2^18): the Rng hash's lookup, table gradient, G1 and G2, the
+   fixed-point lookup and table gradient (uint32 positions) and the
+   stochastic table gradient (the same uniforms; its own classes and every
+   level (RN, bf16)) against their plain versions, then timed beside the
+   CoherentAdditive kernels, with the Rng bound from this run's set bits;
+   then FLAGSHIP_CONFIG with each extra in turn (hash Rng,
+   fixed_point_pos on uint32 points, stochastic_interpolation through the
+   Trainer, Shampoo, perturbation_sigma 0.1): one step kernel vs plain
+   from the same state, 100 steps through training_steps with the counts
+   at 0 just before and read just after, the loss halving, and the
+   replayed ms/step (Shampoo's beside Adam's, and one eager Shampoo
+   step); and the one-corner gradient through
+   NetworkWithInputEncoding.apply(rng=generator) with torch.optim.Adam:
+   its gradient kernel vs plain on the same uniforms, then 100 steps.
 13. times (CUDA events / synced host clock, median of repeats), each
    kernel's bound from its shapes (bytes over 3.35 TB/s or operations over
    the peak of their type) and, where one PyTorch call computes the same
@@ -752,22 +767,24 @@ def phase_scatter(flagship):
             "x_strat": x_strat, "enc3": enc3, "x3": x3, "dy3": dy3}
 
 
-def _levels_check(enc, got, x, dy, classes, what):
+def _levels_check(enc, got, x, dy, classes, what, u=None):
     """The table gradient level by level in its class against the plain
     version: fp32 sums within 1e-5 S per entry, bf16 sums at most twice the
     plain sum's error against the fp32 sum of the same rounded contributions
-    (CLASS_TOL); untouched entries exactly 0. Returns max |kernel - plain|."""
+    (CLASS_TOL); untouched entries exactly 0. ``u``: stochastic
+    interpolation's uniforms, the plain version's too. Returns max |kernel
+    - plain|."""
     import torch
 
     from tcnn_tpu_torch.ops import grid_encode as ge
     from tcnn_tpu_torch.ops.scatter_rows import ACC_BF16, ACC_F32
 
     levels, F = enc._levels_on(x.device), enc.n_features_per_level
-    plain = ge.grid_backward_plain(x, dy, levels, F, ge.INTERP_LINEAR, classes)
+    plain = ge.grid_backward_plain(x, dy, levels, F, ge.INTERP_LINEAR, classes, u)
     f32 = classes.clone()
     f32[:, 1] = torch.where(f32[:, 1] == ACC_BF16, ACC_F32, f32[:, 1])
-    exact = ge.grid_backward_plain(x, dy, levels, F, ge.INTERP_LINEAR, f32)
-    S = ge.grid_backward_plain(x, dy.float().abs(), levels, F, ge.INTERP_LINEAR, torch.zeros_like(classes))
+    exact = ge.grid_backward_plain(x, dy, levels, F, ge.INTERP_LINEAR, f32, u)
+    S = ge.contribution_magnitudes(x, dy, levels, F, ge.INTERP_LINEAR, u)
     torch.cuda.synchronize()
     check(got.shape == plain.shape and bool(torch.isfinite(got).all()), f"{what}: bad output")
     for lvl in range(enc.n_levels):
@@ -790,13 +807,15 @@ def _clone_state(tree):
 
     if isinstance(tree, dict):
         return {k: _clone_state(v) for k, v in tree.items()}
+    if isinstance(tree, list):
+        return [_clone_state(v) for v in tree]
     return tree.clone() if isinstance(tree, torch.Tensor) else tree
 
 
 def _flat_state(tree, prefix=""):
-    if isinstance(tree, dict):
+    if isinstance(tree, (dict, list)):
         out = {}
-        for k, v in tree.items():
+        for k, v in (tree.items() if isinstance(tree, dict) else enumerate(tree)):
             out.update(_flat_state(v, f"{prefix}{k}."))
         return out
     return {prefix[:-1]: tree}
@@ -962,6 +981,7 @@ SMALL_OPTIMIZERS = [
      "nested": {"otype": "Adam", "learning_rate": 1e-2}},
     {"otype": "Composite", "nested": [{"otype": "Novograd", "learning_rate": 1e-2, "n_params_to_optimize": 6144},
                                       {"otype": "EMA", "nested": {"otype": "Adam", "learning_rate": 1e-2}}]},
+    {"otype": "Shampoo", "learning_rate": 1e-2},
 ]
 SMALL_LOSSES = ["RelativeL2Luminance", "L1", "RelativeL1", "Mape", "Smape", "CrossEntropy", "Variance"]
 
@@ -1203,9 +1223,12 @@ SDF_LR, SDF_WARMUP, SDF_LR_END = 1e-2, 100, 1e-3
 B_PACKED = 2**20
 PACKED_WIDTHS = (16, 32, 64)
 # Published peaks of one H100 SXM (NVIDIA's data sheet, dense) for the
-# bounds: HBM bytes/s and operations/s by type.
+# bounds: HBM bytes/s and operations/s by type; INT32 instructions a second
+# (the Rng hash's bound): 132 SMs x 64 INT32 lanes (the Hopper architecture
+# white paper: half the FP32 lanes) x 1.98 GHz, a multiply-add counted as
+# one instruction.
 HBM_BYTES_S = 3.35e12
-PEAK_OPS_S = {"bf16": 989e12, "fp32": 67e12}
+PEAK_OPS_S = {"bf16": 989e12, "fp32": 67e12, "int32": 132 * 64 * 1.98e9}
 TOL_F32_NOTE = ("max|kernel - plain| <= 1e-5 max|plain| and ||kernel - plain|| <= 1e-5 ||plain|| (the same fp32 "
                 "products; sums over levels, corners and dims in another order)")
 
@@ -2478,6 +2501,313 @@ def phase_nerf_graph(card):
     return {"launches": launches, "rel": rel}
 
 
+# The grid extras and the trainer's extras at the flagship's full width
+# (FLAGSHIP_CONFIG, B = 2^18), one at a time: the Rng hash, fixed_point_pos
+# (the sampler's points as uint32), stochastic interpolation through the
+# Trainer (deterministic, as the JAX package's trainer) and through
+# GridEncoding.apply(rng=generator) (the one-corner table gradient, via
+# NetworkWithInputEncoding.apply and torch.optim.Adam), Shampoo and
+# perturbation_sigma = 0.1.
+EXTRA_FIT_STEPS = 100
+EXTRA_PATHS = ("Rng", "fixed_point_pos", "stochastic_interpolation", "Shampoo", "perturbation_sigma")
+
+
+def _extra_config(flagship, name):
+    import copy
+
+    cfg = copy.deepcopy(flagship)
+    if name == "Rng":
+        cfg["encoding"]["hash"] = "Rng"
+    elif name == "fixed_point_pos":
+        cfg["encoding"]["fixed_point_pos"] = True
+    elif name == "stochastic_interpolation":
+        cfg["encoding"]["stochastic_interpolation"] = True
+    elif name == "Shampoo":
+        cfg["optimizer"] = {"otype": "Shampoo", "learning_rate": 1e-2}
+    return cfg
+
+
+def _as_fixed(xy):
+    """Positions in [0, 1) as uint32 fixed point (x * 2^32, floored)."""
+    import torch
+
+    return torch.clamp((xy.double() * 2.0**32).floor(), 0, 2**32 - 1).to(torch.int64).to(torch.uint32)
+
+
+def _popcount(v):
+    """Set bits of each uint32 value held in int64 (SWAR)."""
+    v = v - ((v >> 1) & 0x55555555)
+    v = (v & 0x33333333) + ((v >> 2) & 0x33333333)
+    v = (v + (v >> 4)) & 0x0F0F0F0F
+    return ((v * 0x01010101) & 0xFFFFFFFF) >> 24
+
+
+def _rng_ops(enc, x):
+    """INT32 instructions the Rng hash needs for these positions: per
+    (sample, Rng level, corner) one 64-bit multiply and one 64-bit
+    multiply-add a set bit of the step, and one multiply-add at the end, 3
+    32-bit multiply-adds each (IMAD.WIDE and two IMAD). The set bits are
+    this run's."""
+    import torch
+
+    from tcnn_tpu_torch.ops import grid_encode as ge
+    from tcnn_tpu_torch.ops.pcg32_jump import rng_step
+
+    lt = enc.level_table().view(np.uint32).astype(np.int64)
+    bits = torch.from_numpy(ge._corner_bits(2, ge.INTERP_LINEAR)).to(x.device)
+    ops, n_levels = 0, 0
+    for row in lt:
+        if int(row[2]) != ge.MODE_RNG:
+            continue
+        pos_grid, _ = ge._level_cell(x, row, ge.INTERP_LINEAR)
+        hi, lo = rng_step((pos_grid[:, None, :] + bits[None]) & 0xFFFFFFFF)
+        ops += int(((_popcount(hi) + _popcount(lo)) * 2 + 1).sum()) * 3
+        n_levels += 1
+    return ops, n_levels
+
+
+def _extra_kernels(card, flagship):
+    """Each new mode of the lookup and the table gradient (and G1 / G2 under
+    Rng) against its plain version at the flagship's shapes, then their
+    times beside the CoherentAdditive kernels, in one call."""
+    import torch
+
+    from tcnn_tpu_torch.encodings import create_encoding
+    from tcnn_tpu_torch.ops import grid_encode as ge
+    from tcnn_tpu_torch.ops.scatter_rows import ACC_BF16, CONTRIB_RN
+
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(SEED + 40)
+    B = B_FLAG
+    encs = {name: create_encoding(2, _extra_config(flagship, name)["encoding"], alignment=16)
+            for name in ("CoherentAdditive", "Rng", "fixed_point_pos", "stochastic_interpolation")}
+    params = torch.rand((encs["Rng"].n_params,), generator=gen, device=dev) * 2 - 1
+    x = torch.rand((B, 2), generator=gen, device=dev)
+    x[:256] = torch.rand((256, 2), generator=gen, device=dev) * 1.4 - 0.2  # points outside [0, 1]
+    xs = {name: _as_fixed(x.clamp(0, 1)) if name == "fixed_point_pos" else x for name in encs}
+    dy = torch.randn((B, 32), generator=gen, device=dev).bfloat16()
+    u = encs["stochastic_interpolation"]._uniforms(gen, B, dev)
+    err, out = {}, {}
+    for name, enc in encs.items():
+        if name == "CoherentAdditive":
+            continue
+        xe = xs[name]
+        enc.output_dtype = torch.float32
+        with torch.no_grad():
+            got, want = enc.apply(params, xe), enc.apply_plain(params, xe)
+        torch.cuda.synchronize()
+        check(bool(torch.isfinite(got).all()), f"extras {name}: bad lookup output")
+        e = float((got - want).abs().max())
+        check(torch.allclose(got, want, rtol=1e-5, atol=1e-6), f"extras {name}: lookup max|diff| {e:.3e}")
+        err[f"{name} fwd"] = e
+        enc.output_dtype = torch.bfloat16
+        uu = u if name == "stochastic_interpolation" else None
+        stratified = False if uu is not None else None
+        classes_sets = {"own classes": torch.from_numpy(enc.gradient_classes(B, stratified)).to(dev)}
+        if name == "stochastic_interpolation":
+            classes_sets["(RN, bf16)"] = torch.tensor([[CONTRIB_RN, ACC_BF16]] * enc.n_levels, dtype=torch.int32,
+                                                      device=dev)
+        for label, classes in classes_sets.items():
+            g = ge.grid_backward(xe, dy, enc._levels_on(dev), 2, ge.INTERP_LINEAR, classes, u=uu)
+            e = _levels_check(enc, g, xe, dy, classes, f"extras {name} table gradient ({label})", u=uu)
+            err[f"{name} bwd {label}"] = e
+    # G1 and G2 under Rng (not on a training path: the kernels' check).
+    enc = encs["Rng"]
+    args = (enc._levels_on(dev), 2, ge.INTERP_LINEAR)
+    cgx = torch.randn((B, 2), generator=gen, device=dev)
+    cgp = torch.randn((enc.n_params,), generator=gen, device=dev)
+    classes = torch.from_numpy(enc.gradient_classes(B)).to(dev)
+    err["Rng G1"] = f32_close(ge.grid_backward_input(x, dy, params, *args),
+                              ge.grid_backward_input_plain(x, dy, params, *args), "extras Rng G1")
+    got = ge.grid_backward_backward(x, dy, params, *args, classes, cgp, cgx)
+    want = ge.grid_backward_backward_plain(x, dy, params, *args, classes, cgp, cgx)
+    err["Rng G2"] = max(f32_close(a, b, "extras Rng G2") for a, b in zip(got, want))
+    log(f"kernel extras (flagship encoding, B=2^18, uniform points with 256 outside [0,1]; fixed point: the same "
+        f"points as uint32; stochastic: one uniform per (sample, level) handed to kernel and plain alike): max "
+        f"|kernel - plain| " + "; ".join(f"{k} {v:.3e}" for k, v in err.items()) + f"; lookup fp32 rtol 1e-5 atol "
+        f"1e-6, table gradient {CLASS_TOL[0]} / {CLASS_TOL[1]}, G1/G2 {TOL_F32_NOTE}")
+
+    # Times: each mode beside the CoherentAdditive kernels, plain, kernel,
+    # kernel, plain; bf16 output and dy as on the training path.
+    n_rng_ops, n_rng_levels = _rng_ops(encs["Rng"], x)
+    n_params = encs["Rng"].n_params
+    lookup_bytes = B * 2 * 4 + n_params * 4 + B * 32 * 2
+    bwd_bytes = B * 2 * 4 + B * 32 * 2 + n_params * 4
+    fns = {}
+    for name, enc in encs.items():
+        xe, uu = xs[name], (u if name == "stochastic_interpolation" else None)
+        cls = torch.from_numpy(enc.gradient_classes(B, False if uu is not None else None)).to(dev)
+        lv = enc._levels_on(dev)
+        plan = ge.backward_plan(enc.level_table(), 2, B, cls)
+        if name != "stochastic_interpolation":  # its lookup is the deterministic one
+            fns[(name, "fwd")] = (lambda e=enc, xx=xe: e.apply(params, xx),
+                                  lambda e=enc, xx=xe: e.apply_plain(params, xx))
+        fns[(name, "bwd")] = (
+            lambda xx=xe, l=lv, c=cls, p=plan, q=uu: ge.grid_backward(xx, dy, l, 2, ge.INTERP_LINEAR, c, p, q),
+            lambda xx=xe, l=lv, c=cls, q=uu: ge.grid_backward_plain(xx, dy, l, 2, ge.INTERP_LINEAR, c, q))
+    ms = {k: {"kernel": [], "plain": []} for k in fns}
+    with torch.no_grad():
+        for side in ("plain", "kernel", "kernel", "plain"):
+            for key, (kern, plain) in fns.items():
+                if side == "kernel":
+                    ms[key]["kernel"].append(_event_ms(kern))
+                else:
+                    ms[key]["plain"].append(_event_ms(plain, iters=1, reps=3))
+    bounds = {
+        ("Rng", "fwd"): bound(lookup_bytes, n_rng_ops, "int32"),
+        ("Rng", "bwd"): bound(bwd_bytes, n_rng_ops, "int32"),
+        ("fixed_point_pos", "fwd"): bound(lookup_bytes, B * 16 * 4 * (2 + 2 * 2), "fp32"),
+        ("fixed_point_pos", "bwd"): bound(bwd_bytes, B * 16 * 4 * 2, "fp32"),
+        ("stochastic_interpolation", "bwd"): bound(bwd_bytes + B * 16 * 4, B * 16 * 2, "fp32"),
+        ("CoherentAdditive", "fwd"): bound(lookup_bytes, B * 16 * 4 * (2 + 2 * 2), "fp32"),
+        ("CoherentAdditive", "bwd"): bound(bwd_bytes, B * 16 * 4 * 2, "fp32"),
+    }
+    for key, runs in ms.items():
+        k, p = statistics.median(runs["kernel"]), statistics.median(runs["plain"])
+        b = bounds.get(key)
+        out[key] = {"kernel": k, "plain": p, "bound": b, "library": None}
+        what = "lookup tcnn_grid_forward" if key[1] == "fwd" else "table gradient tcnn_grid_backward"
+        log(f"time [{card}]: extras {key[0]} {what} B=2^18 (uniform points, bf16, its training classes): kernel "
+            f"{k:.4f} ms, plain {p:.4f} ms (CUDA events, medians of plain, kernel, kernel, plain)"
+            + (f", bound {b[0]:.4f} ms ({b[1]})" if b else "")
+            + ("; no single PyTorch call computes a hashed interpolation" if key[0] != "CoherentAdditive" else ""))
+    log(f"extras Rng bound: {n_rng_levels} of 16 levels take the Rng hash; {n_rng_ops:.4e} INT32 instructions "
+        f"for this run's steps (3 a 64-bit multiply-add, 2 a set bit and 1 a corner) at {PEAK_OPS_S['int32']:.4e}/s")
+    return {"err": err, "times": out}
+
+
+def _extra_path(name, cfg, card, image, gen):
+    """One extra's trainer path at full width: one step kernel vs plain from
+    the same state, then EXTRA_FIT_STEPS steps through training_steps with
+    the counts at 0 just before and read just after; the loss falls; its
+    synced ms/step through the graph."""
+    import torch
+
+    import tcnn_tpu_torch as tt
+
+    m = tt.create_from_config(2, 3, cfg, seed=SEED, device="cuda")
+    if name == "perturbation_sigma":
+        m.trainer = tt.Trainer(m.model, cfg["loss"], cfg["optimizer"], seed=SEED, perturbation_sigma=0.1)
+    data = _image_batches(image, gen, EXTRA_FIT_STEPS, B_FLAG)
+    fixed = name == "fixed_point_pos"
+    if fixed:
+        data["x"] = _as_fixed(data["x"]).to(torch.int64)
+
+    def batch(d, i):
+        x, y = _nth_batch(d, i)
+        return (x.to(torch.uint32), y) if fixed else (x, y)
+
+    t = m.trainer
+    x0, y0 = batch(data, torch.zeros((), dtype=torch.int32, device="cuda"))
+    state = None if t.perturbation_generator is None else t.perturbation_generator.get_state()
+
+    def one(plain):
+        if state is not None:
+            t.perturbation_generator.set_state(state)
+        return (t.training_step_plain if plain else t.training_step)(x0, y0)
+
+    _compare_one_step(f"extras {name}", m, float(t.learning_rate), one)
+    counters = {k: v for k, v in TRAIN_COUNTERS.items() if not (name == "Shampoo" and k == "adam_step")}
+    _zero_counts(counters)
+    losses = t.training_steps(batch, EXTRA_FIT_STEPS, data)
+    launches = _read_counts(counters)
+    losses = losses.float().cpu().numpy()
+    check(np.isfinite(losses).all() and bool(torch.isfinite(m.params).all()), f"extras {name}: non-finite loss")
+    first, last = float(losses[:10].mean()), float(losses[-10:].mean())
+    check(last < 0.5 * first, f"extras {name}: loss did not fall ({first:.4e} -> {last:.4e})")
+    for k, v in launches.items():
+        check(v > 0, f"extras {name}: kernel {k} was not launched by training_steps")
+    ms, runs = _timed(lambda: t.training_steps(batch, EXTRA_FIT_STEPS, data), EXTRA_FIT_STEPS)
+    log(f"extras [{name}]: training_steps({EXTRA_FIT_STEPS}) at B=2^18 on stratified batches of the synthetic image: "
+        f"loss {first:.4e} (mean of steps 0-9) -> {last:.4e} (steps {EXTRA_FIT_STEPS - 10}-{EXTRA_FIT_STEPS - 1}); "
+        f"kernel launches of warm-up, capture and {EXTRA_FIT_STEPS} replays (counts at 0 just before, read just "
+        f"after): {launches}")
+    log(f"time [{card}]: extras [{name}] training_steps replayed, B=2^18: {ms:.4f} ms/step (host clock over "
+        f"{EXTRA_FIT_STEPS} steps synced at their ends, median of {len(runs)}: {', '.join(f'{r:.4f}' for r in runs)})")
+    return {"launches": launches, "loss": (first, last), "ms": ms, "model": m, "data": data, "batch": batch}
+
+
+def _stochastic_apply_path(cfg, card, image, gen):
+    """Stochastic interpolation's one-corner table gradient on the module
+    API: NetworkWithInputEncoding.apply(params, x, rng=generator), a
+    RelativeL2 loss and torch.optim.Adam, eagerly. One gradient kernel vs
+    plain with the same uniforms, then EXTRA_FIT_STEPS steps with the counts
+    at 0 just before and read just after."""
+    import torch
+
+    import tcnn_tpu_torch as tt
+
+    model = tt.create_from_config(2, 3, cfg, seed=SEED, device="cuda").model
+    data = _image_batches(image, gen, EXTRA_FIT_STEPS, B_FLAG)
+    rng = torch.Generator(device="cuda").manual_seed(SEED + 42)
+
+    def loss_of(out, y):
+        pred = out[:, :3].float()
+        return torch.mean((pred - y) ** 2 / (pred.detach() ** 2 + 0.01))
+
+    x0, y0 = _nth_batch(data, torch.zeros((), dtype=torch.int64, device="cuda"))
+    u = model.encoding._uniforms(rng, B_FLAG, x0.device)
+    grads = {}
+    for plain in (False, True):
+        apply = model.apply_plain if plain else model.apply
+        (grads[plain],) = torch.autograd.grad(loss_of(apply(model.params, x0, rng=u), y0), model.params)
+    torch.cuda.synchronize()
+    n_net = model.network.n_params
+    rel = {}
+    for part, sl in (("network", slice(0, n_net)), ("grid", slice(n_net, None))):
+        a, b = grads[False][sl], grads[True][sl]
+        rel[part] = float((a - b).norm()) / max(float(b.norm()), 1e-30)
+        check(rel[part] <= 1e-2, f"extras stochastic apply: {part} gradient relative difference {rel[part]:.3e}")
+    opt = torch.optim.Adam([model.params], lr=1e-2, betas=(0.9, 0.99), eps=1e-15)
+    _zero_counts(TRAIN_COUNTERS)
+    losses = []
+    for i in range(EXTRA_FIT_STEPS):
+        x, y = _nth_batch(data, torch.tensor(i, device="cuda"))
+        loss = loss_of(model.apply(model.params, x, rng=rng), y)
+        opt.zero_grad(set_to_none=True)
+        loss.backward()
+        opt.step()
+        losses.append(loss.detach())
+    counters = {k: v for k, v in TRAIN_COUNTERS.items() if k != "adam_step"}
+    launches = {k: v for k, v in _read_counts(TRAIN_COUNTERS).items() if k in counters}
+    losses = torch.stack(losses).cpu().numpy()
+    first, last = float(losses[:10].mean()), float(losses[-10:].mean())
+    check(np.isfinite(losses).all() and last < 0.5 * first, f"extras stochastic apply: loss {first:.4e} -> {last:.4e}")
+    for k, v in launches.items():
+        check(v > 0, f"extras stochastic apply: kernel {k} was not launched")
+    log(f"extras [stochastic_interpolation, apply(rng=generator)]: the gradient kernel vs plain with the same "
+        f"uniforms: relative difference (norm) network {rel['network']:.3e}, grid {rel['grid']:.3e} (bound 1e-2: bf16 "
+        f"network); {EXTRA_FIT_STEPS} eager steps of NetworkWithInputEncoding.apply(rng=generator) + torch.optim.Adam "
+        f"at B=2^18: loss {first:.4e} -> {last:.4e}; kernel launches (counts at 0 just before, read just after): "
+        f"{launches}")
+    return {"launches": launches, "loss": (first, last)}
+
+
+def phase_extras(card, flagship, image):
+    """The extras' kernels against their plain versions and timed, then
+    each extra's path at full width."""
+    import torch
+
+    kernels = _extra_kernels(card, flagship)
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 43)
+    paths = {name: _extra_path(name, _extra_config(flagship, name), card, image, gen) for name in EXTRA_PATHS}
+    paths["stochastic apply"] = _stochastic_apply_path(_extra_config(flagship, "stochastic_interpolation"), card,
+                                                       image, gen)
+    # Shampoo's cost a flagship step: the same replayed steps with Adam.
+    base = _extra_path("Adam", _extra_config(flagship, "Adam"), card, image, gen)
+    sh = paths["Shampoo"]
+    t_sh = sh["model"].trainer
+    x, y = sh["batch"](sh["data"], torch.zeros((), dtype=torch.int32, device="cuda"))
+    eager = _timed(lambda: t_sh.training_step(x, y), 1, reps=7)[0]
+    log(f"time [{card}]: extras Shampoo's cost: the flagship step through training_steps {sh['ms']:.4f} ms/step with "
+        f"Shampoo against {base['ms']:.4f} with Adam (same batches; the Newton iteration's 30 steps on every "
+        f"matrix, every step, so that the schedule stays on the device); eagerly one training_step {eager:.4f} ms "
+        f"(host clock, synced, median of 7)")
+    for p in paths.values():
+        p.pop("model", None), p.pop("data", None)
+    return {"kernels": kernels, "paths": paths, "shampoo_ms": (sh["ms"], base["ms"], eager)}
+
+
 def main() -> int:
     import torch
 
@@ -2498,6 +2828,7 @@ def main() -> int:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
 
+    t_main = time.perf_counter()
     card = gpu_name_and_limit()
     log(card)
     log(f"device: torch {torch.__version__}, CUDA {torch.version.cuda}, "
@@ -2529,6 +2860,7 @@ def main() -> int:
     phase_graph(card, configs, image)
     nerf = phase_nerf(card)
     phase_nerf_graph(card)
+    extras = phase_extras(card, FLAGSHIP_CONFIG, image)
     t = phase_times(card, k1, k2, m, x_flag, kb, ks)
     probes = phase_probes(card)
     phase_floors(card, probes["records"], t, trained["FLAGSHIP_CONFIG"]["profile"], sdf["profile"])
@@ -2596,11 +2928,33 @@ def main() -> int:
               "kernel check only (no path of the NeRF sample differentiates directions; launches: the check's)",
               ksh["times"]["bwd"]),
     ]
+    # The grid extras' modes of the lookup and the table gradient; launches
+    # from each extra's own path (training_steps with the Rng hash, with
+    # fixed_point_pos; the stochastic table gradient from the module-API
+    # fit through GridEncoding.apply(rng=generator)).
+    ek, ep = extras["kernels"], extras["paths"]
+    for name, source, replaces, key, err_key, path, launches_ in (
+        ("grid_fwd_rng", "grid_fwd.cu", "tcnn_tpu/encodings/grid.py:89", ("Rng", "fwd"), "Rng fwd",
+         "training_steps, hash Rng", ep["Rng"]["launches"]["grid_fwd"]),
+        ("grid_bwd_rng", "grid_bwd.cu", "tcnn_tpu/encodings/grid.py:89", ("Rng", "bwd"), "Rng bwd own classes",
+         "training_steps, hash Rng", ep["Rng"]["launches"]["grid_bwd"]),
+        ("grid_fwd_fixed_point", "grid_fwd.cu", "tcnn_tpu/encodings/grid.py:1580", ("fixed_point_pos", "fwd"),
+         "fixed_point_pos fwd", "training_steps, fixed_point_pos", ep["fixed_point_pos"]["launches"]["grid_fwd"]),
+        ("grid_bwd_fixed_point", "grid_bwd.cu", "tcnn_tpu/encodings/grid.py:1580", ("fixed_point_pos", "bwd"),
+         "fixed_point_pos bwd own classes", "training_steps, fixed_point_pos",
+         ep["fixed_point_pos"]["launches"]["grid_bwd"]),
+        ("grid_bwd_stochastic", "grid_bwd.cu", "tcnn_tpu/encodings/grid.py:130", ("stochastic_interpolation", "bwd"),
+         None, "module API, GridEncoding.apply(rng=generator)", ep["stochastic apply"]["launches"]["grid_bwd"]),
+    ):
+        err = (ek["err"][err_key] if err_key else
+               max(v for k, v in ek["err"].items() if k.startswith("stochastic_interpolation bwd")))
+        kernels.append(entry(name, source, replaces, launches_, err, None, path, ek["times"][key]))
     for name, replaces in (("probe_gather", "benchmarks/probe_mosaic_gather.py:63"),
                            ("probe_scatter", "benchmarks/probe_mosaic_gather.py:121"),
                            ("probe_gather_dot", "benchmarks/probe_r5_pallas_gather2.py:348")):
         kernels.append(entry(name, "probe_rows.cu", replaces, probes["launches"][name], probes["errs"][name], None,
                              "probes", probes["times"][name]))
+    log(f"chip_smoke: every phase passed in {time.perf_counter() - t_main:.1f} s")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0), "count": torch.cuda.device_count(),

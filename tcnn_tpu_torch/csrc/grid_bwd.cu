@@ -355,12 +355,22 @@ __global__ void __launch_bounds__(PRIVATE ? kPrivateThreads : kMaxThreads)
   }
 }
 
-template <typename DyT, int F>
+// x: fp32 positions, or the uint32 ones of fixed_point_pos (`fixed`). u:
+// null, or stochastic interpolation's (batch, n_levels) uniforms: per
+// (sample, level) one corner, sampled_corner(), takes the whole dL_dy row
+// with weight 1 (tcnn_tpu/encodings/grid.py:_stochastic_combine), so the
+// corner loop runs once; the merges, private copies and atomics are the
+// same. kExtras: the instantiation for those and for Rng levels; without
+// it their code is left out, which keeps the common launch at its register
+// count and occupancy (with it always compiled in, 72 registers instead of
+// 63 gave 3 blocks an SM instead of 4, and the flagship's table gradient
+// took 0.32 ms instead of 0.19: PERF.md).
+template <typename DyT, int F, bool kExtras>
 __global__ void __launch_bounds__(kMaxThreads, 2)
-    grid_backward_kernel(const float* __restrict__ x, const DyT* __restrict__ dy, const Level* __restrict__ levels,
-                         const int* __restrict__ classes, float* __restrict__ grad32,
+    grid_backward_kernel(const void* __restrict__ x, const DyT* __restrict__ dy, const Level* __restrict__ levels,
+                         const int* __restrict__ classes, const float* __restrict__ u, float* __restrict__ grad32,
                          __nv_bfloat16* __restrict__ grad16, int batch, int n_dims, int n_levels, int dy_width,
-                         int interp, const Plan plan) {
+                         int interp, int fixed, const Plan plan) {
   extern __shared__ __align__(16) unsigned char smem[];
   Level* s_levels = reinterpret_cast<Level*>(smem + plan.levels_offset);
   int* s_classes = reinterpret_cast<int*>(s_levels + n_levels);
@@ -377,7 +387,8 @@ __global__ void __launch_bounds__(kMaxThreads, 2)
 
   const int64_t start = (int64_t)blockIdx.x * plan.chunk;
   const int64_t end = start + plan.chunk < batch ? start + plan.chunk : (int64_t)batch;
-  const int n_corners = interp == kNearest ? 1 : 1 << n_dims;
+  const bool sampled_path = kExtras && u != nullptr;
+  const int n_corners = sampled_path ? 1 : interp == kNearest ? 1 : 1 << n_dims;
   for (int64_t t0 = start; t0 < end; t0 += T) {
     const int64_t b = t0 + tid;
     const bool valid = b < end;
@@ -390,8 +401,15 @@ __global__ void __launch_bounds__(kMaxThreads, 2)
       const int priv = plan.priv_offset[lvl];
       Cell cell;
       float g[F];
+      int sampled = 0;
       if (valid) {
-        cell = locate(x + b * n_dims, lv, n_dims, interp);
+        if constexpr (kExtras) {
+          cell = fixed ? locate(static_cast<const uint32_t*>(x) + b * n_dims, lv, n_dims, interp)
+                       : locate(static_cast<const float*>(x) + b * n_dims, lv, n_dims, interp);
+          if (sampled_path) sampled = sampled_corner(cell, n_dims, __ldg(u + b * n_levels + lvl));
+        } else {
+          cell = locate(static_cast<const float*>(x) + b * n_dims, lv, n_dims, interp);
+        }
 #pragma unroll
         for (int f = 0; f < F; ++f)
           g[f] = as_float(__ldg(dy + b * dy_width + lvl * F + f));
@@ -403,7 +421,8 @@ __global__ void __launch_bounds__(kMaxThreads, 2)
         for (int f = 0; f < F; ++f) v[f] = 0.0f;
         if (valid) {
           float weight;
-          key = corner(cell, lv, n_dims, interp, c, &weight);
+          key = corner<kExtras>(cell, lv, n_dims, interp, sampled_path ? sampled : c, &weight);
+          if (sampled_path) weight = 1.0f;
 #pragma unroll
           for (int f = 0; f < F; ++f) {
             const float t = round_contribution(__fmul_rn(weight, g[f]), contrib);
@@ -461,29 +480,32 @@ __global__ void __launch_bounds__(kMaxThreads, 2)
 }
 
 template <typename DyT, int F>
-cudaError_t launch_tiled(unsigned blocks, const Plan& plan, cudaStream_t s, const float* x, const DyT* dy,
-                         const Level* levels, const int* classes, float* grad32, __nv_bfloat16* grad16, int batch,
-                         int n_dims, int n_levels, int dy_width, int interp) {
+cudaError_t launch_tiled(unsigned blocks, const Plan& plan, cudaStream_t s, const void* x, const DyT* dy,
+                         const Level* levels, const int* classes, const float* u, float* grad32,
+                         __nv_bfloat16* grad16, int batch, int n_dims, int n_levels, int dy_width, int interp,
+                         int fixed, int rng_levels) {
   // Above 48 KB a block's dynamic shared memory must be allowed first. The
   // attribute holds for the current device only, so every such launch sets it.
+  const bool extras = fixed || u != nullptr || rng_levels;
+  auto kernel = extras ? grid_backward_kernel<DyT, F, true> : grid_backward_kernel<DyT, F, false>;
   if (plan.smem_bytes > 48 * 1024) {
-    const cudaError_t err = cudaFuncSetAttribute(grid_backward_kernel<DyT, F>,
-                                                 cudaFuncAttributeMaxDynamicSharedMemorySize, plan.smem_bytes);
+    const cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, plan.smem_bytes);
     if (err != cudaSuccess) return err;
   }
-  grid_backward_kernel<DyT, F><<<blocks, plan.threads, plan.smem_bytes, s>>>(
-      x, dy, levels, classes, grad32, grad16, batch, n_dims, n_levels, dy_width, interp, plan);
+  kernel<<<blocks, plan.threads, plan.smem_bytes, s>>>(x, dy, levels, classes, u, grad32, grad16, batch, n_dims,
+                                                       n_levels, dy_width, interp, fixed, plan);
   return cudaGetLastError();
 }
 
 template <typename DyT>
-cudaError_t launch_by_features(int F, unsigned blocks, const Plan& plan, cudaStream_t s, const float* x, const DyT* dy,
-                               const Level* levels, const int* classes, float* grad32, __nv_bfloat16* grad16,
-                               int batch, int n_dims, int n_levels, int dy_width, int interp) {
+cudaError_t launch_by_features(int F, unsigned blocks, const Plan& plan, cudaStream_t s, const void* x, const DyT* dy,
+                               const Level* levels, const int* classes, const float* u, float* grad32,
+                               __nv_bfloat16* grad16, int batch, int n_dims, int n_levels, int dy_width, int interp,
+                               int fixed, int rng_levels) {
 #define TCNN_GRID_BWD_CASE(NF)                                                                                  \
   case NF:                                                                                                      \
-    return launch_tiled<DyT, NF>(blocks, plan, s, x, dy, levels, classes, grad32, grad16, batch, n_dims, n_levels, \
-                                 dy_width, interp);
+    return launch_tiled<DyT, NF>(blocks, plan, s, x, dy, levels, classes, u, grad32, grad16, batch, n_dims,      \
+                                 n_levels, dy_width, interp, fixed, rng_levels);
   switch (F) {
     TCNN_GRID_BWD_CASE(1)
     TCNN_GRID_BWD_CASE(2)
@@ -931,14 +953,16 @@ extern "C" int tcnn_scatter_rows(const void* idx, const void* rows, void* out32,
 }
 
 // grad32 (n_values,) fp32: the table gradient of the flat grid parameters
-// for output gradient dy (batch, dy_width), bf16 when dy_bf16 else fp32.
+// for output gradient dy (batch, dy_width), bf16 when dy_bf16 else fp32, at
+// positions x (batch, n_dims), fp32 or, with fixed_point, uint32.
 // `classes` is the device copy of the (n_levels, 2) int32 table of
-// (contribution rounding, accumulation) codes; `plan` is a host array of
-// kPlanHeader + n_levels int32 (ops/grid_encode.py:BackwardPlan.array).
+// (contribution rounding, accumulation) codes; `u` null or stochastic
+// interpolation's (batch, n_levels) fp32 uniforms; `plan` is a host array
+// of kPlanHeader + n_levels int32 (ops/grid_encode.py:BackwardPlan.array).
 extern "C" int tcnn_grid_backward(const void* x, const void* dy, const void* levels, const void* classes,
-                                  void* grad32, void* grad16, int batch, int n_dims, int n_levels, int F,
-                                  int dy_width, int interp, int dy_bf16, int64_t n_values, const void* plan,
-                                  void* stream) {
+                                  const void* u, void* grad32, void* grad16, int batch, int n_dims, int n_levels,
+                                  int F, int dy_width, int interp, int dy_bf16, int fixed_point, int rng_levels,
+                                  int64_t n_values, const void* plan, void* stream) {
   if (n_dims < 1 || n_dims > kMaxDims || F < 1 || F > kMaxF || n_levels < 1 || n_levels > kMaxLevels ||
       plan == nullptr)
     return (int)cudaErrorInvalidValue;
@@ -958,15 +982,15 @@ extern "C" int tcnn_grid_backward(const void* x, const void* dy, const void* lev
   if (err != cudaSuccess) return (int)err;
   if (batch > 0) {
     const unsigned blocks = (unsigned)(((int64_t)batch + p.chunk - 1) / p.chunk);
-    const float* xf = static_cast<const float*>(x);
     const Level* lv = static_cast<const Level*>(levels);
     const int* cls = static_cast<const int*>(classes);
+    const float* uf = static_cast<const float*>(u);
     float* g32 = static_cast<float*>(grad32);
     __nv_bfloat16* g16 = static_cast<__nv_bfloat16*>(grad16);
-    err = dy_bf16 ? launch_by_features(F, blocks, p, s, xf, static_cast<const __nv_bfloat16*>(dy), lv, cls, g32,
-                                       g16, batch, n_dims, n_levels, dy_width, interp)
-                  : launch_by_features(F, blocks, p, s, xf, static_cast<const float*>(dy), lv, cls, g32, g16,
-                                       batch, n_dims, n_levels, dy_width, interp);
+    err = dy_bf16 ? launch_by_features(F, blocks, p, s, x, static_cast<const __nv_bfloat16*>(dy), lv, cls, uf, g32,
+                                       g16, batch, n_dims, n_levels, dy_width, interp, fixed_point, rng_levels)
+                  : launch_by_features(F, blocks, p, s, x, static_cast<const float*>(dy), lv, cls, uf, g32, g16,
+                                       batch, n_dims, n_levels, dy_width, interp, fixed_point, rng_levels);
     if (err != cudaSuccess) return (int)err;
   }
   if (grad16 != nullptr) {

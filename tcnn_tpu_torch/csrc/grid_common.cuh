@@ -28,6 +28,22 @@
 // and Nearest weights are constant). Every product is taken in dimension
 // order from 1.0, each operation correctly rounded, as the plain versions in
 // tcnn_tpu_torch/ops/grid_encode.py write them.
+//
+// Two inputs and one hash beside those (the JAX package's grid extras,
+// tcnn_tpu/encodings/grid.py:89-107 and :1580-1592):
+// - fixed_point_pos: positions are uint32 spanning [0, 1); per dim pos = x +
+//   cell / 2 (wrapping), pos_grid = pos / cell, plus int(scale) where pos
+//   wrapped, and t = float(pos - pos_grid * cell) * (scale / (2^32 - 1)) in
+//   fp32, with the level table's fixed-point columns (reference:
+//   grid.h:1143-1151). cell_at() takes the coordinate type as a template.
+// - the Rng hash (kRng): the corner's coordinates XORed into one 64-bit
+//   step, coordinate d shifted to bit d * (64 / n_dims), and the uint32
+//   output of pcg32(1337) jumped ahead by that step (reference:
+//   common_device.h:814-827): one 64-bit multiply and one multiply-add a
+//   set bit of the step, the bit's (multiplier, increment) pair read from
+//   __constant__ memory at the loop counter, the same address for every
+//   lane (a broadcast). Only hashed levels of an encoding with "hash":
+//   "Rng" take this mode; the others never enter its branch.
 
 #pragma once
 
@@ -41,7 +57,7 @@ namespace tcnn_grid {
 constexpr int kMaxDims = 10;
 constexpr int kMaxF = 8;
 
-// Layout of one row of the (L, 28) int32 level table built by
+// Layout of one row of the (L, 32) int32 level table built by
 // tcnn_tpu_torch/ops/grid_encode.py:level_table.
 struct Level {
   uint32_t offset;                 // first table row of the level
@@ -54,10 +70,14 @@ struct Level {
   int32_t own_round;               // rounding of its reads to the encoding's table dtype (kRound*)
   uint32_t mod_magic;              // reduce()'s multiplier; 0 for a power-of-two size (a mask)
   uint32_t mod_shift;              // reduce()'s final shift
+  uint32_t fp_cell;                // fixed_point_pos: cell width in uint32 units
+  uint32_t fp_half;                // fp_cell / 2
+  uint32_t fp_int_scale;           // int(scale)
+  float fp_factor;                 // fp32(scale / (2^32 - 1))
 };
-static_assert(sizeof(Level) == 112, "Level must match the host table layout");
+static_assert(sizeof(Level) == 128, "Level must match the host table layout");
 
-enum { kFold = 0, kQuad = 1, kXor = 2, kBaseConvert = 3 };
+enum { kFold = 0, kQuad = 1, kXor = 2, kBaseConvert = 3, kRng = 4 };
 enum { kNearest = 0, kLinear = 1, kSmoothstep = 2 };
 
 // h mod lv.size for any uint32 h: a mask for a power-of-two size, else the
@@ -78,6 +98,68 @@ __device__ __forceinline__ uint32_t add_mod(uint32_t a, uint32_t b, uint32_t n) 
   return s < a || s >= n ? s - n : s;
 }
 
+// The Rng hash's PCG32: the state of pcg32 seeded with 1337, and per bit b
+// of a jump the (multiplier, increment) of 2^b steps of its LCG (s' = a s +
+// c mod 2^64; tcnn_tpu_torch/ops/pcg32_jump.py:PCG32_JUMP_TABLE, which a
+// CPU test holds this copy to).
+struct PcgJump {
+  uint64_t mult, plus;
+};
+constexpr uint64_t kPcgState0 = 0x4cfa1d1cde85af8full;
+static __constant__ PcgJump kPcgJump[64] = {
+    {0x5851f42d4c957f2dull, 0x0000000000000003ull}, {0x685f98a2018fade9ull, 0x08f5dc87e5c07d8aull},
+    {0xfb4d3ae39272be11ull, 0x6321e2d2c0df0224ull}, {0xb59dda5f38413d21ull, 0xcfa27e6a8f4cde88ull},
+    {0x8d5e2ddc895abe41ull, 0xf889c5f699c3f610ull}, {0x96481983e5188c81ull, 0xa5f6430626c55020ull},
+    {0x4425ebbf6f4d5901ull, 0x21c2a9dfbb043040ull}, {0x8980d00b878bb201ull, 0x64a0ecb22e0ea080ull},
+    {0x02078e0dd6db6401ull, 0xc5e75b7f2d364100ull}, {0x659acb4fecc6c801ull, 0xabf2b96726d08200ull},
+    {0xaa1421b9d5cd9001ull, 0xfbbc643dbf310400ull}, {0x88f21a239c9b2001ull, 0x61514a9b44a20800ull},
+    {0x469c6146fd364001ull, 0x1cc260c5a2441000ull}, {0x1dd8088d0a6c8001ull, 0x75700847a8882000ull},
+    {0x7fa1b91654d90001ull, 0x4dcdef80e1104000ull}, {0x52ae921da9b20001ull, 0x3f597ac802208000ull},
+    {0x902da3ff53640001ull, 0xadda64a904410000ull}, {0xb4bd470ea6c80001ull, 0x19da85b608820000ull},
+    {0x04028a5d4d900001ull, 0x388bfcfc11040000ull}, {0xba2505ba9b200001ull, 0xe673c03822080000ull},
+    {0x7cc9cf7536400001ull, 0xb256997044100000ull}, {0x1b92aeea6c800001ull, 0x7a6996e088200000ull},
+    {0xbf219dd4d9000001ull, 0x4bc4bdc110400000ull}, {0x9e343ba9b2000001ull, 0xf34fbb8220800000ull},
+    {0xbc2c775364000001ull, 0x55b8770441000000ull}, {0x7768eea6c8000001ull, 0x67d4ee0882000000ull},
+    {0xeb11dd4d90000001ull, 0xc139dc1104000000ull}, {0xc723ba9b20000001ull, 0x48b3b82208000000ull},
+    {0x5247753640000001ull, 0xaa67704410000000ull}, {0xb48eea6c80000001ull, 0xb8cee08820000000ull},
+    {0xa91dd4d900000001ull, 0x019dc11040000000ull}, {0x523ba9b200000001ull, 0x433b822080000000ull},
+    {0xa477536400000001ull, 0x8677044100000000ull}, {0x48eea6c800000001ull, 0x0cee088200000000ull},
+    {0x91dd4d9000000001ull, 0x19dc110400000000ull}, {0x23ba9b2000000001ull, 0x33b8220800000000ull},
+    {0x4775364000000001ull, 0x6770441000000000ull}, {0x8eea6c8000000001ull, 0xcee0882000000000ull},
+    {0x1dd4d90000000001ull, 0x9dc1104000000000ull}, {0x3ba9b20000000001ull, 0x3b82208000000000ull},
+    {0x7753640000000001ull, 0x7704410000000000ull}, {0xeea6c80000000001ull, 0xee08820000000000ull},
+    {0xdd4d900000000001ull, 0xdc11040000000000ull}, {0xba9b200000000001ull, 0xb822080000000000ull},
+    {0x7536400000000001ull, 0x7044100000000000ull}, {0xea6c800000000001ull, 0xe088200000000000ull},
+    {0xd4d9000000000001ull, 0xc110400000000000ull}, {0xa9b2000000000001ull, 0x8220800000000000ull},
+    {0x5364000000000001ull, 0x0441000000000000ull}, {0xa6c8000000000001ull, 0x0882000000000000ull},
+    {0x4d90000000000001ull, 0x1104000000000000ull}, {0x9b20000000000001ull, 0x2208000000000000ull},
+    {0x3640000000000001ull, 0x4410000000000000ull}, {0x6c80000000000001ull, 0x8820000000000000ull},
+    {0xd900000000000001ull, 0x1040000000000000ull}, {0xb200000000000001ull, 0x2080000000000000ull},
+    {0x6400000000000001ull, 0x4100000000000000ull}, {0xc800000000000001ull, 0x8200000000000000ull},
+    {0x9000000000000001ull, 0x0400000000000000ull}, {0x2000000000000001ull, 0x0800000000000000ull},
+    {0x4000000000000001ull, 0x1000000000000000ull}, {0x8000000000000001ull, 0x2000000000000000ull},
+    {0x0000000000000001ull, 0x4000000000000000ull}, {0x0000000000000001ull, 0x8000000000000000ull},
+};
+
+// pcg32(1337).advance(step).next_uint(). The loop runs to the step's
+// highest set bit; every lane reads the pair at the loop counter.
+__device__ __forceinline__ uint32_t pcg32_jump_output(uint64_t step) {
+  uint64_t acc_mult = 1, acc_plus = 0;
+  const int top = 64 - __clzll((long long)step);
+#pragma unroll 1
+  for (int bit = 0; bit < top; ++bit) {
+    const PcgJump j = kPcgJump[bit];
+    if ((step >> bit) & 1) {
+      acc_mult *= j.mult;
+      acc_plus = acc_plus * j.mult + j.plus;
+    }
+  }
+  const uint64_t s = acc_mult * kPcgState0 + acc_plus;
+  const uint32_t xorshifted = (uint32_t)(((s >> 18) ^ s) >> 27);
+  const uint32_t rot = (uint32_t)(s >> 59);
+  return (xorshifted >> rot) | (xorshifted << ((32u - rot) & 31u));
+}
+
 // A sample's cell on one level: grid position, interpolation fractions and
 // (kQuad) the base index.
 struct Cell {
@@ -86,17 +168,42 @@ struct Cell {
   uint32_t base;
 };
 
-// The cell of a sample on one level; coord(d) gives its coordinate d.
+// The Rng hash of corner c of a cell: its coordinates XORed into the step,
+// coordinate d at bit d * (64 / n_dims), then the jump: a loop of its own,
+// so that the 64-bit step is not live in corner()'s loop over the dims.
+__device__ __forceinline__ uint32_t rng_hash(const Cell& cell, int n_dims, int c) {
+  uint64_t step = 0;
+#pragma unroll
+  for (int d = 0; d < kMaxDims; ++d) {
+    if (d < n_dims) step ^= (uint64_t)(cell.pg[d] + ((c >> d) & 1)) << (d * (64 / n_dims));
+  }
+  return pcg32_jump_output(step);
+}
+
+// Grid position and fraction of one coordinate: fp32 positions, or the
+// uint32 positions of fixed_point_pos.
+__device__ __forceinline__ void fraction(float x, const Level& lv, uint32_t& pg, float& t) {
+  const float pos = __fadd_rn(__fmul_rn(x, lv.scale), 0.5f);
+  const float pf = floorf(pos);
+  pg = (uint32_t)(int32_t)pf;
+  t = __fsub_rn(pos, pf);
+}
+__device__ __forceinline__ void fraction(uint32_t x, const Level& lv, uint32_t& pg, float& t) {
+  const uint32_t pos = x + lv.fp_half;
+  pg = pos / lv.fp_cell + (pos < lv.fp_half ? lv.fp_int_scale : 0u);
+  t = __fmul_rn(__uint2float_rn(pos - pg * lv.fp_cell), lv.fp_factor);
+}
+
+// The cell of a sample on one level; coord(d) gives its coordinate d (a
+// float, or a uint32 under fixed_point_pos).
 template <typename Coord>
 __device__ __forceinline__ Cell cell_at(Coord coord, const Level& lv, int n_dims, int interp) {
   Cell cell;
 #pragma unroll
   for (int d = 0; d < kMaxDims; ++d) {
     if (d < n_dims) {
-      const float pos = __fadd_rn(__fmul_rn(coord(d), lv.scale), 0.5f);
-      const float pf = floorf(pos);
-      cell.pg[d] = (uint32_t)(int32_t)pf;
-      float t = __fsub_rn(pos, pf);
+      float t;
+      fraction(coord(d), lv, cell.pg[d], t);
       if (interp == kSmoothstep) {
         t = __fmul_rn(__fmul_rn(t, t), __fsub_rn(3.0f, __fmul_rn(2.0f, t)));
       }
@@ -114,8 +221,10 @@ __device__ __forceinline__ Cell cell_at(Coord coord, const Level& lv, int n_dims
   return cell;
 }
 
-// ... of the sample whose coordinates are in global memory at xrow.
-__device__ __forceinline__ Cell locate(const float* __restrict__ xrow, const Level& lv, int n_dims, int interp) {
+// ... of the sample whose coordinates (float, or uint32 under
+// fixed_point_pos) are in global memory at xrow.
+template <typename CoordT>
+__device__ __forceinline__ Cell locate(const CoordT* __restrict__ xrow, const Level& lv, int n_dims, int interp) {
   return cell_at([xrow](int d) { return __ldg(xrow + d); }, lv, n_dims, interp);
 }
 
@@ -125,7 +234,9 @@ __device__ __forceinline__ Cell cell_of(const float* xv, const Level& lv, int n_
 }
 
 // Level-local row of corner c (bit d of c: upper neighbour in dim d) and
-// its interpolation weight.
+// its interpolation weight. kRngMode false: the caller has no Rng level
+// (no code for it).
+template <bool kRngMode = true>
 __device__ __forceinline__ uint32_t corner(const Cell& cell, const Level& lv, int n_dims, int interp,
                                            int c, float* weight) {
   float wt = 1.0f;
@@ -142,12 +253,28 @@ __device__ __forceinline__ uint32_t corner(const Cell& cell, const Level& lv, in
           if (bit) delta = add_mod(delta, lv.stride_mod[d], lv.size);
           break;
         case kXor: h ^= p * lv.stride[d]; break;
+        case kRng: break;  // rng_hash() below, apart from this loop's live values
         default: h = (h + p) * 2531011u; break;  // kBaseConvert
       }
     }
   }
   *weight = wt;
+  if constexpr (kRngMode) {
+    if (lv.mode == kRng) h = rng_hash(cell, n_dims, c);
+  }
   return lv.mode == kQuad ? add_mod(cell.base, delta, lv.size) : reduce(h, lv);
+}
+
+// Stochastic interpolation's corner of a cell for the uniform u: bit d set
+// where u < w_d, the (smoothstepped) weight of the upper neighbour in dim d
+// (reference: grid.h:284-299).
+__device__ __forceinline__ int sampled_corner(const Cell& cell, int n_dims, float u) {
+  int c = 0;
+#pragma unroll
+  for (int d = 0; d < kMaxDims; ++d) {
+    if (d < n_dims && u < cell.w[d]) c |= 1 << d;
+  }
+  return c;
 }
 
 enum { kRoundNone = 0, kRoundFp16 = 1, kRoundBf16 = 2 };

@@ -72,16 +72,15 @@ constexpr int kMaxLevels = 128;  // tcnn_tpu_torch/common.py MAX_N_LEVELS
 __device__ __forceinline__ void store(float* p, float v) { *p = v; }
 __device__ __forceinline__ void store(__nv_bfloat16* p, float v) { *p = __float2bfloat16_rn(v); }
 
-// One (sample, level): the F sums in corner order. D > 0: the dims at
-// compile time (every corner's row first, then all loads, then the sums);
-// D = 0: n_dims at run time, corner by corner.
-template <int F, int D>
-__device__ __forceinline__ void interpolate(const float* __restrict__ xrow, const float* __restrict__ params,
+// One (sample, level) of the cell `cell`: the F sums in corner order. D > 0:
+// the dims at compile time (every corner's row first, then all loads, then
+// the sums); D = 0: n_dims at run time, corner by corner.
+template <int F, int D, bool kExtras>
+__device__ __forceinline__ void interpolate(const Cell& cell, const float* __restrict__ params,
                                             const Level& lv, int n_dims, int interp, bool aligned, float (&acc)[F]) {
 #pragma unroll
   for (int f = 0; f < F; ++f) acc[f] = 0.0f;
   const int dims = D > 0 ? D : n_dims;
-  const Cell cell = locate(xrow, lv, dims, interp);
   const int n_corners = interp == kNearest ? 1 : 1 << dims;
   if constexpr (D > 0) {
     constexpr int C = 1 << D;
@@ -89,7 +88,7 @@ __device__ __forceinline__ void interpolate(const float* __restrict__ xrow, cons
     float w[C], v[C][F];
 #pragma unroll
     for (int c = 0; c < C; ++c) {
-      if (c < n_corners) g[c] = lv.offset + corner(cell, lv, D, interp, c, &w[c]);
+      if (c < n_corners) g[c] = lv.offset + corner<kExtras>(cell, lv, D, interp, c, &w[c]);
     }
 #pragma unroll
     for (int c = 0; c < C; ++c) {
@@ -105,7 +104,7 @@ __device__ __forceinline__ void interpolate(const float* __restrict__ xrow, cons
   } else {
     for (int c = 0; c < n_corners; ++c) {
       float w, v[F];
-      const uint32_t g = lv.offset + corner(cell, lv, dims, interp, c, &w);
+      const uint32_t g = lv.offset + corner<kExtras>(cell, lv, dims, interp, c, &w);
       load_row<F>(params, g, aligned, lv, v);
 #pragma unroll
       for (int f = 0; f < F; ++f) acc[f] = __fadd_rn(acc[f], __fmul_rn(w, v[f]));
@@ -116,11 +115,14 @@ __device__ __forceinline__ void interpolate(const float* __restrict__ xrow, cons
 // Shared memory: the level table, then kTile staged output rows of
 // `row_stride` 32-bit words each (the row's bytes in words, padded to an
 // odd count so that the lanes' stores fall in distinct banks).
-template <typename OutT, int F, int D>
+// x: fp32 positions, or the uint32 ones of fixed_point_pos (`fixed`).
+// kExtras: the instantiation for uint32 positions and Rng levels; the
+// other launches leave their code out (registers: PERF.md).
+template <typename OutT, int F, int D, bool kExtras>
 __global__ void __launch_bounds__(kWarps * 32)
-    grid_forward_kernel(const float* __restrict__ x, const float* __restrict__ params,
+    grid_forward_kernel(const void* __restrict__ x, const float* __restrict__ params,
                         const Level* __restrict__ levels, OutT* __restrict__ out, int batch, int n_dims,
-                        int n_levels, int out_width, int interp, int row_stride, int aligned) {
+                        int n_levels, int out_width, int interp, int row_stride, int aligned, int fixed) {
   extern __shared__ __align__(16) unsigned char smem[];
   Level* s_levels = reinterpret_cast<Level*>(smem);
   uint32_t* s_rows = reinterpret_cast<uint32_t*>(smem + n_levels * sizeof(Level));
@@ -138,12 +140,20 @@ __global__ void __launch_bounds__(kWarps * 32)
   const int b0 = blockIdx.x * kTile;
   const int b = b0 + lane;
   const int dims = D > 0 ? D : n_dims;
-  const float* xrow = x + (size_t)b * dims;
+  const float* xrow = static_cast<const float*>(x) + (size_t)b * dims;
+  const uint32_t* xrow_fixed = static_cast<const uint32_t*>(x) + (size_t)b * dims;
   OutT* srow = reinterpret_cast<OutT*>(s_rows + lane * row_stride);
   if (b < batch) {
     for (int lvl = warp; lvl < n_levels; lvl += kWarps) {
+      const Level& lv = s_levels[lvl];
+      Cell cell;
+      if constexpr (kExtras) {
+        cell = fixed ? locate(xrow_fixed, lv, dims, interp) : locate(xrow, lv, dims, interp);
+      } else {
+        cell = locate(xrow, lv, dims, interp);
+      }
       float acc[F];
-      interpolate<F, D>(xrow, params, s_levels[lvl], n_dims, interp, aligned != 0, acc);
+      interpolate<F, D, kExtras>(cell, params, lv, n_dims, interp, aligned != 0, acc);
 #pragma unroll
       for (int f = 0; f < F; ++f) store(srow + lvl * F + f, acc[f]);
     }
@@ -168,43 +178,44 @@ __global__ void __launch_bounds__(kWarps * 32)
 }
 
 template <typename OutT, int F, int D>
-cudaError_t launch_forward(unsigned blocks, size_t smem, cudaStream_t s, const float* x, const float* params,
+cudaError_t launch_forward(unsigned blocks, size_t smem, cudaStream_t s, const void* x, const float* params,
                            const Level* levels, OutT* out, int batch, int n_dims, int n_levels, int out_width,
-                           int interp, int row_stride, int aligned) {
+                           int interp, int row_stride, int aligned, int fixed, int rng_levels) {
+  auto kernel = fixed || rng_levels ? grid_forward_kernel<OutT, F, D, true> : grid_forward_kernel<OutT, F, D, false>;
   // Above 48 KB a block's dynamic shared memory must be allowed first. The
   // attribute holds for the current device only, so every such launch sets it.
   if (smem > 48 * 1024) {
-    const cudaError_t err = cudaFuncSetAttribute(grid_forward_kernel<OutT, F, D>,
-                                                 cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    const cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
     if (err != cudaSuccess) return err;
   }
-  grid_forward_kernel<OutT, F, D><<<blocks, kWarps * 32, smem, s>>>(x, params, levels, out, batch, n_dims, n_levels,
-                                                                    out_width, interp, row_stride, aligned);
+  kernel<<<blocks, kWarps * 32, smem, s>>>(x, params, levels, out, batch, n_dims, n_levels, out_width, interp,
+                                           row_stride, aligned, fixed);
   return cudaGetLastError();
 }
 
 template <typename OutT, int F>
-cudaError_t launch_by_dims(unsigned blocks, size_t smem, cudaStream_t s, const float* x, const float* params,
+cudaError_t launch_by_dims(unsigned blocks, size_t smem, cudaStream_t s, const void* x, const float* params,
                            const Level* levels, OutT* out, int batch, int n_dims, int n_levels, int out_width,
-                           int interp, int row_stride, int aligned) {
+                           int interp, int row_stride, int aligned, int fixed, int rng_levels) {
   if (n_dims == 2)
     return launch_forward<OutT, F, 2>(blocks, smem, s, x, params, levels, out, batch, n_dims, n_levels, out_width,
-                                      interp, row_stride, aligned);
+                                      interp, row_stride, aligned, fixed, rng_levels);
   if (n_dims == 3)
     return launch_forward<OutT, F, 3>(blocks, smem, s, x, params, levels, out, batch, n_dims, n_levels, out_width,
-                                      interp, row_stride, aligned);
+                                      interp, row_stride, aligned, fixed, rng_levels);
   return launch_forward<OutT, F, 0>(blocks, smem, s, x, params, levels, out, batch, n_dims, n_levels, out_width,
-                                    interp, row_stride, aligned);
+                                    interp, row_stride, aligned, fixed, rng_levels);
 }
 
 template <typename OutT>
-cudaError_t launch_by_features(int F, unsigned blocks, size_t smem, cudaStream_t s, const float* x,
+cudaError_t launch_by_features(int F, unsigned blocks, size_t smem, cudaStream_t s, const void* x,
                                const float* params, const Level* levels, OutT* out, int batch, int n_dims,
-                               int n_levels, int out_width, int interp, int row_stride, int aligned) {
+                               int n_levels, int out_width, int interp, int row_stride, int aligned, int fixed,
+                               int rng_levels) {
 #define TCNN_GRID_FWD_CASE(NF)                                                                                 \
   case NF:                                                                                                     \
     return launch_by_dims<OutT, NF>(blocks, smem, s, x, params, levels, out, batch, n_dims, n_levels, out_width, \
-                                    interp, row_stride, aligned);
+                                    interp, row_stride, aligned, fixed, rng_levels);
   switch (F) {
     TCNN_GRID_FWD_CASE(1)
     TCNN_GRID_FWD_CASE(2)
@@ -315,11 +326,13 @@ __global__ void grid_forward_v1_kernel(const float* __restrict__ x, const float*
 
 // Both entry points return the cudaError_t of the launch (0 on success),
 // launch on `stream` and do not synchronise. `levels` points to the device
-// copy of the (n_levels, 28) int32 level table; out is (batch, out_width),
-// bf16 when out_bf16 else fp32.
+// copy of the (n_levels, 32) int32 level table; out is (batch, out_width),
+// bf16 when out_bf16 else fp32; x is (batch, n_dims) fp32, or uint32 when
+// fixed_point (tcnn_grid_forward only); rng_levels: the table has an Rng
+// level (tcnn_grid_forward only).
 extern "C" int tcnn_grid_forward(const void* x, const void* params, const void* levels, void* out,
                                  int batch, int n_dims, int n_levels, int F, int out_width,
-                                 int interp, int out_bf16, void* stream) {
+                                 int interp, int out_bf16, int fixed_point, int rng_levels, void* stream) {
   if (batch <= 0) return 0;
   const int elem = out_bf16 ? 2 : 4;
   if (n_dims < 1 || n_dims > kMaxDims || F < 1 || F > kMaxF || n_levels < 1 || n_levels > kMaxLevels ||
@@ -330,22 +343,22 @@ extern "C" int tcnn_grid_forward(const void* x, const void* params, const void* 
   const unsigned blocks = (unsigned)((batch + kTile - 1) / kTile);
   const int aligned = reinterpret_cast<uintptr_t>(params) % 16 == 0;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const float* xf = static_cast<const float*>(x);
   const float* pf = static_cast<const float*>(params);
   const Level* lv = static_cast<const Level*>(levels);
   const cudaError_t err =
-      out_bf16 ? launch_by_features(F, blocks, smem, s, xf, pf, lv, static_cast<__nv_bfloat16*>(out), batch, n_dims,
-                                    n_levels, out_width, interp, row_stride, aligned)
-               : launch_by_features(F, blocks, smem, s, xf, pf, lv, static_cast<float*>(out), batch, n_dims,
-                                    n_levels, out_width, interp, row_stride, aligned);
+      out_bf16 ? launch_by_features(F, blocks, smem, s, x, pf, lv, static_cast<__nv_bfloat16*>(out), batch, n_dims,
+                                    n_levels, out_width, interp, row_stride, aligned, fixed_point, rng_levels)
+               : launch_by_features(F, blocks, smem, s, x, pf, lv, static_cast<float*>(out), batch, n_dims,
+                                    n_levels, out_width, interp, row_stride, aligned, fixed_point, rng_levels);
   return (int)err;
 }
 
 extern "C" int tcnn_grid_forward_v1(const void* x, const void* params, const void* levels, void* out,
                                     int batch, int n_dims, int n_levels, int F, int out_width,
-                                    int interp, int out_bf16, void* stream) {
+                                    int interp, int out_bf16, int fixed_point, int rng_levels, void* stream) {
   if (batch <= 0) return 0;
-  if (n_dims < 1 || n_dims > kMaxDims || F < 1 || F > kMaxF) return (int)cudaErrorInvalidValue;
+  if (n_dims < 1 || n_dims > kMaxDims || F < 1 || F > kMaxF || fixed_point || rng_levels)
+    return (int)cudaErrorInvalidValue;
   const int threads = 256;
   const int64_t n = (int64_t)batch * n_levels;
   const unsigned blocks = (unsigned)((n + threads - 1) / threads);

@@ -6,7 +6,11 @@ n_features_per_level`` floats; level ``l`` owns rows
 (reference: grid.h:673-737).
 
 Everything that changes the function computed is reproduced exactly: the
-hash type (``"auto"`` -> CoherentAdditive), the raster strides that
+hash type (``"auto"`` -> CoherentAdditive; ``"Rng"`` through
+``ops.pcg32_jump``), uint32 positions under ``fixed_point_pos``, the
+one-corner table gradient of ``stochastic_interpolation`` when ``apply`` is
+given ``rng`` (as the JAX package's, which its trainer never gives it), the
+raster strides that
 ``gather_strategy: "stratified"`` gives coarse levels (``raster_max_scale``),
 the phase-locked scale snapping, the interpolation, ``table_dtype`` rounding
 on read on exactly the levels the JAX package reads through a rounding
@@ -149,10 +153,6 @@ class GridEncoding(Encoding):
                 f"GridEncoding: n_features={n_features} must be a multiple of "
                 f"n_features_per_level={n_features_per_level}"
             )
-        if hash_type == HashType.Rng:
-            raise NotImplementedError(
-                "GridEncoding: the Rng hash is not ported yet (ROADMAP.md, Queue 1: other encodings and grid extras)"
-            )
         self.n_features = int(n_features)
         self.n_features_per_level = int(n_features_per_level)
         self.n_levels = self.n_features // self.n_features_per_level
@@ -198,9 +198,13 @@ class GridEncoding(Encoding):
         # Whether the hash came from "auto" (deserialize warns then: a
         # reference checkpoint needs the reference's CoherentPrime).
         self.hash_auto_resolved = False
-        # Training with stochastic interpolation is not ported (the forward
-        # is the deterministic lookup either way).
+        # Stochastic interpolation: the table gradient of a call given
+        # ``rng`` goes to one sampled corner per (sample, level); the
+        # forward and the input gradient stay the deterministic ones.
         self.stochastic_interpolation = False
+        # Positions given as uint32 fixed point spanning [0, 1) (reference:
+        # grid.h:1143-1151).
+        self.fixed_point_pos = False
         self._level_tables: Dict[tuple, torch.Tensor] = {}
         self._class_tables: Dict[tuple, tuple] = {}
 
@@ -346,9 +350,12 @@ class GridEncoding(Encoding):
 
     def _stratified_path(self) -> bool:
         """Whether the JAX package's stratified static path can run for this
-        encoding (tcnn_tpu/encodings/grid.py:1457-1470, 1482-1493)."""
+        encoding (tcnn_tpu/encodings/grid.py:1457-1470, 1482-1493): not
+        under ``fixed_point_pos``; a call that interpolates stochastically
+        takes it as ``stratified=False`` (``_encode``)."""
         return (
             self.gather_strategy == "stratified"
+            and not self.fixed_point_pos
             and self.raster_max_scale is not None
             and self.interpolation_type in (InterpolationType.Linear, InterpolationType.Smoothstep)
             and self.n_dims_to_encode in (2, 3)
@@ -417,7 +424,7 @@ class GridEncoding(Encoding):
 
     def level_table(self, table_dtype: Optional[str] = None, raster_sides=None, batch: Optional[int] = None,
                     stratified: Optional[bool] = None) -> np.ndarray:
-        """The (n_levels, 28) int32 level table of this encoding for a call
+        """The (n_levels, 32) int32 level table of this encoding for a call
         on ``batch`` samples or on the raster of ``raster_sides``: the
         levels ``rounded_levels`` names round their reads to the encoding's
         ``table_dtype``; with a serve-time ``table_dtype``, the levels
@@ -432,15 +439,16 @@ class GridEncoding(Encoding):
             if st is not None:
                 modes.append(ge.MODE_QUAD if quad else ge.MODE_FOLD)
                 strides.append(st)
-            elif self.hash_type == HashType.BaseConvert:
-                modes.append(ge.MODE_BASECONVERT)
+            elif self.hash_type in (HashType.BaseConvert, HashType.Rng):
+                modes.append(ge.MODE_BASECONVERT if self.hash_type == HashType.BaseConvert else ge.MODE_RNG)
                 strides.append([0] * self.n_dims_to_encode)
             else:
                 modes.append(ge.MODE_XOR)
                 strides.append(_hash_factors(self.hash_type, self.n_dims_to_encode))
         off = self.offset_table
         serve, own = self._round_codes(table_dtype, raster_sides, batch, stratified)
-        return ge.level_table(off[:-1], off[1:] - off[:-1], modes, self.scales, strides, serve, own)
+        return ge.level_table(off[:-1], off[1:] - off[:-1], modes, self.scales, strides, serve, own,
+                              fixed_point=self.fixed_point_pos)
 
     def _round_codes(self, table_dtype, raster_sides, batch, stratified):
         """Per level, the (serve-time, own) ROUND_* codes of its reads."""
@@ -457,7 +465,7 @@ class GridEncoding(Encoding):
         t = self._level_tables.get(key)
         if t is None:
             table = self.level_table(table_dtype, raster_sides, batch, stratified)
-            t = self._level_tables[key] = torch.from_numpy(table).to(device)
+            t = self._level_tables[key] = ge.level_table_on(table, device)
         return t
 
     def _pack_k(self) -> int:
@@ -477,6 +485,7 @@ class GridEncoding(Encoding):
             or self.strata != strat_strata
             or self.gather_strategy != "stratified"
             or self.interpolation_type != InterpolationType.Linear
+            or self.fixed_point_pos
             or self.quad_pack == "off"
         ):
             return set()
@@ -510,10 +519,14 @@ class GridEncoding(Encoding):
                 return "xla_half"
         return "xla"
 
-    def gradient_classes(self, batch: int) -> np.ndarray:
+    def gradient_classes(self, batch: int, stratified: Optional[bool] = None) -> np.ndarray:
         """Per level, the (contribution rounding, accumulation) class of the
         table gradient (``ops.scatter_rows`` codes) that the JAX package
-        gives a training batch of ``batch`` samples, as (L, 2) int32.
+        gives a training batch of ``batch`` samples, as (L, 2) int32;
+        ``stratified=False`` as ``GridEncoding.apply`` takes it (no static
+        or phase-locked level), which is also what a stochastic call gets:
+        its one-hot cotangents reach the same gathers' scatters
+        (tcnn_tpu/encodings/grid.py:1790-1830, 1984-1990).
 
         Resolved as ``GridEncoding.apply`` does there
         (tcnn_tpu/encodings/grid.py:1457-1470, 1683-1753, 1765-1982): the
@@ -525,10 +538,10 @@ class GridEncoding(Encoding):
         ``batch`` rows, per-corner levels that of ``batch * 2^d`` rows. The
         fp32 levels are those the forward reads without a rounding gather
         (``rounded_levels``)."""
-        strat_strata = self._batch_strata(batch)
+        strat_strata = 0 if stratified is False else self._batch_strata(batch)
         locked = self._locked_levels(strat_strata) if strat_strata else set()
         n_corners = 1 if self.interpolation_type == InterpolationType.Nearest else 2**self.n_dims_to_encode
-        gathered = self.rounded_levels(batch)
+        gathered = self.rounded_levels(batch, stratified=stratified)
         out = []
         for lvl in range(self.n_levels):
             size = int(self.offset_table[lvl + 1] - self.offset_table[lvl])
@@ -543,26 +556,28 @@ class GridEncoding(Encoding):
                 out.append(_MODE_CLASSES[self._scatter_mode(batch * n_corners, size)])
         return np.asarray(out, np.int32).reshape(self.n_levels, 2)
 
-    def _classes_on(self, device: torch.device, batch: int):
+    def _classes_on(self, device: torch.device, batch: int, stratified: Optional[bool] = None):
         """(class table on ``device``, whether a level sums in bf16, the
         table gradient's ``backward_plan``)."""
         key = (
-            device.type, device.index, int(batch), self.gather_strategy, self.scatter_strategy,
-            self.locked_rounding, self.quad_pack,
+            device.type, device.index, int(batch), stratified is False, self.gather_strategy,
+            self.scatter_strategy, self.locked_rounding, self.quad_pack,
         )
         hit = self._class_tables.get(key)
         if hit is None:
-            classes = self.gradient_classes(batch)
+            classes = self.gradient_classes(batch, stratified)
             plan = ge.backward_plan(self.level_table(), self.n_features_per_level, batch, classes)
             hit = (torch.from_numpy(classes).to(device), bool((classes[:, 1] == sr.ACC_BF16).any()), plan)
             self._class_tables[key] = hit
         return hit
 
     def apply(self, params: torch.Tensor, x: torch.Tensor, table_dtype: Optional[str] = None,
-              stratified: Optional[bool] = None, max_level: Optional[float] = None) -> torch.Tensor:
+              stratified: Optional[bool] = None, max_level: Optional[float] = None, rng=None) -> torch.Tensor:
         """Encode positions ``x`` (batch, n_dims) to (batch,
-        padded_output_width) in ``output_dtype``. The encoding's own
-        ``table_dtype`` rounds the reads of ``rounded_levels``;
+        padded_output_width) in ``output_dtype``: fp32 positions, or uint32
+        ones spanning [0, 1) under ``fixed_point_pos`` (any other dtype
+        raises ``TypeError`` there, as in the JAX package). The encoding's
+        own ``table_dtype`` rounds the reads of ``rounded_levels``;
         ``table_dtype`` here is the serve-time precision: the levels of
         ``served_levels()`` round their reads to it after that.
         ``stratified=False`` (what ``FrozenServer`` passes for batches) says
@@ -571,17 +586,52 @@ class GridEncoding(Encoding):
         outputs zeros unless ``l < max_level * n_levels + 1e-3``
         (reference: grid.h:69-92; tcnn_tpu/encodings/grid.py:2012-2016), so
         the masked levels get no table gradient.
+        ``rng``, for an encoding built with ``stochastic_interpolation``
+        (and not Nearest), makes the table gradient stochastic (reference:
+        grid.h:284-299; tcnn_tpu/encodings/grid.py:1391-1395): each
+        (sample, level) adds its whole dL/dy row to the one corner whose
+        bit in dim k is u < w_k, for one uniform u: a ``torch.Generator``
+        on the device of ``params`` draws the (batch, n_levels) uniforms,
+        or a (batch, n_levels) fp32 tensor gives them. The call then takes
+        the per-sample path (``stratified=True`` raises). The forward and
+        the input gradient stay exact; without ``rng`` the table gradient
+        is the deterministic one.
         Differentiable twice with respect to ``params`` and ``x``
         (``ops.grid_encode``: the lookup, table-gradient, input-gradient and
         double-backward kernels on the card, their plain versions on the
         CPU)."""
-        return self._encode(params, x, table_dtype, plain=False, stratified=stratified, max_level=max_level)
+        return self._encode(params, x, table_dtype, plain=False, stratified=stratified, max_level=max_level,
+                            rng=rng)
 
     def apply_plain(self, params: torch.Tensor, x: torch.Tensor, table_dtype: Optional[str] = None,
-                    stratified: Optional[bool] = None, max_level: Optional[float] = None) -> torch.Tensor:
+                    stratified: Optional[bool] = None, max_level: Optional[float] = None, rng=None) -> torch.Tensor:
         """``apply`` through the kernels' plain torch versions, on any
         device (the reference the kernels are checked against)."""
-        return self._encode(params, x, table_dtype, plain=True, stratified=stratified, max_level=max_level)
+        return self._encode(params, x, table_dtype, plain=True, stratified=stratified, max_level=max_level, rng=rng)
+
+    def _positions(self, x) -> torch.Tensor:
+        if self.fixed_point_pos:
+            if x.dtype != torch.uint32:
+                raise TypeError("fixed_point_pos expects uint32 inputs spanning [0, 1)")
+            return x.contiguous()
+        return x.to(torch.float32).contiguous()
+
+    def _stochastic(self, rng) -> bool:
+        """Whether a call given ``rng`` interpolates stochastically."""
+        return (rng is not None and self.stochastic_interpolation
+                and self.interpolation_type != InterpolationType.Nearest)
+
+    def _uniforms(self, rng, batch: int, device: torch.device) -> Optional[torch.Tensor]:
+        """Stochastic interpolation's (batch, n_levels) fp32 uniforms for a
+        call given ``rng``, or None where the call is deterministic."""
+        if not self._stochastic(rng):
+            return None
+        if isinstance(rng, torch.Generator):
+            return torch.rand((batch, self.n_levels), generator=rng, device=device)
+        u = torch.as_tensor(rng, dtype=torch.float32, device=device).contiguous()
+        if u.shape != (batch, self.n_levels):
+            raise ValueError(f"GridEncoding: rng uniforms of shape {tuple(u.shape)}, not ({batch}, {self.n_levels})")
+        return u
 
     def _column_levels(self, device: torch.device) -> torch.Tensor:
         """(padded_output_width,) fp32: each output column's level, -1 for
@@ -595,19 +645,22 @@ class GridEncoding(Encoding):
             levels = self._level_tables[key] = torch.from_numpy(cols).to(device)
         return levels
 
-    def _encode(self, params, x, table_dtype, plain: bool, raster_sides=None, stratified=None, max_level=None):
-        x = x.to(torch.float32).contiguous()
-        # Input gradients stay exact with stochastic interpolation (the JAX
-        # package's GridEncoding.apply, tcnn_tpu/encodings/grid.py:1391-1395);
-        # only its table gradient is not ported.
-        if torch.is_grad_enabled() and params.requires_grad and self.stochastic_interpolation:
-            raise NotImplementedError(
-                "GridEncoding: training with stochastic_interpolation is not ported yet "
-                "(ROADMAP.md, Queue 1 item 5: other encodings and grid extras)"
-            )
+    def _encode(self, params, x, table_dtype, plain: bool, raster_sides=None, stratified=None, max_level=None,
+                rng=None):
+        x = self._positions(x)
+        training = torch.is_grad_enabled() and params.requires_grad
+        u = None
+        if self._stochastic(rng):
+            # The JAX package's stochastic call takes no static path
+            # (tcnn_tpu/encodings/grid.py:1457-1505), gradient or not.
+            if stratified:
+                raise ValueError("stratified=True but the static path is unavailable under stochastic interpolation")
+            stratified = False
+            if training:
+                u = self._uniforms(rng, x.shape[0], x.device)
         classes, acc16, plan = None, False, None
-        if torch.is_grad_enabled() and params.requires_grad:
-            classes, acc16, plan = self._classes_on(x.device, x.shape[0])
+        if training:
+            classes, acc16, plan = self._classes_on(x.device, x.shape[0], stratified)
         meta = (
             self.n_features_per_level,
             self.padded_output_width,
@@ -618,7 +671,7 @@ class GridEncoding(Encoding):
             plan,
         )
         levels = self._levels_on(x.device, table_dtype, raster_sides, x.shape[0], stratified)
-        y = ge.GridEncodeFunction.apply(x, params, levels, classes, meta)
+        y = ge.GridEncodeFunction.apply(x, params, levels, classes, u, meta)
         if max_level is not None:
             # By torch.where, not a multiply, as the JAX package masks.
             # The limit in fp32, as the JAX package compares.
@@ -664,6 +717,8 @@ class GridEncoding(Encoding):
         d = self.n_dims_to_encode
         sides = (int(side),) * d if np.isscalar(side) else tuple(int(s) for s in side)
         x = raster_centers_torch(side, d, params.device)
+        if self.fixed_point_pos:
+            raise TypeError("fixed_point_pos expects uint32 inputs spanning [0, 1); the raster's are float")
         return self._encode(params, x, table_dtype, plain=False, raster_sides=sides, max_level=max_level)
 
 
@@ -710,14 +765,9 @@ def create_grid_encoding(n_dims_to_encode: int, encoding: dict) -> GridEncoding:
     else:
         default_scale = 2.0
 
-    # Stochastic interpolation only changes the table gradient of training
-    # steps (not ported: training such an encoding raises); the forward is
-    # the deterministic lookup.
+    # Stochastic interpolation changes only the table gradient, and only of
+    # a call given ``rng``; the forward is the deterministic lookup.
     stochastic = bool(json_value(encoding, "stochastic_interpolation", False))
-    if json_value(encoding, "fixed_point_pos", False):
-        raise NotImplementedError(
-            "GridEncoding: fixed_point_pos is not ported yet (ROADMAP.md, Queue 1: other encodings and grid extras)"
-        )
     enc = GridEncoding(
         n_dims_to_encode=n_dims_to_encode,
         n_features=n_features,
@@ -745,6 +795,7 @@ def create_grid_encoding(n_dims_to_encode: int, encoding: dict) -> GridEncoding:
         raise ValueError(f"invalid gather_strategy {gs!r}")
     enc.gather_strategy = gs
     enc.stochastic_interpolation = stochastic
+    enc.fixed_point_pos = bool(json_value(encoding, "fixed_point_pos", False))
     enc.scatter_strategy = json_value(encoding, "scatter_strategy", "auto")
     if enc.scatter_strategy not in SCATTER_STRATEGIES:
         raise ValueError(f"invalid scatter_strategy {enc.scatter_strategy!r}")

@@ -6,6 +6,7 @@ optimizer state in each optimizer's reference format (adam.h:304-325,
 sgd.h:134-139, novograd.h:225-231, ema.h:190-194, average.h:151-156,
 batched.h:138-144, lookahead.h:150-154, exponential_decay.h:136-141,
 composite.h:142-153). The JAX package writes and reads the same bytes.
+Shampoo raises, as the reference does (shampoo.h:963-965).
 
 Binary blobs follow nlohmann::json's ``binary_t`` convention (reference:
 gpu_memory_json.h:36-71): native ``bin`` values in MessagePack dumps
@@ -165,6 +166,9 @@ def serialize_optimizer(opt, state) -> Dict:
             "base_learning_rates": [float(o.learning_rate) for o in opt._nested],
             "learning_rate_factor": 1.0,
         }
+    if otype == "Shampoo":
+        # (reference: shampoo.h:963-965)
+        raise NotImplementedError("The Shampoo optimizer does not yet support serialization.")
     raise NotImplementedError(f"no reference serialization for {otype}")
 
 
@@ -237,6 +241,8 @@ def deserialize_optimizer(opt, state, data: Dict):
         return {
             "nested": [deserialize_optimizer(o, s, d) for o, s, d in zip(opt._nested, state["nested"], data["nested"])]
         }
+    if otype == "Shampoo":
+        raise NotImplementedError("The Shampoo optimizer does not yet support deserialization.")
     raise NotImplementedError(f"no reference deserialization for {otype}")
 
 

@@ -61,7 +61,10 @@ class Module(nn.Module):
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         if x.shape[-1] != self.n_input_dims:
             raise ValueError(f"input has {x.shape[-1]} dims, module expects {self.n_input_dims}")
-        return self.apply(self.params, x.float())[:, : self.n_output_dims].float()
+        # uint32 positions (a fixed_point_pos grid) pass as they are, as in
+        # the JAX package.
+        x = x if x.dtype == torch.uint32 else x.float()
+        return self.apply(self.params, x)[:, : self.n_output_dims].float()
 
     def extra_repr(self) -> str:
         return f"n_input_dims={self.n_input_dims}, n_output_dims={self.n_output_dims}, n_params={self.n_params}"

@@ -83,11 +83,11 @@ class NetworkWithInputEncoding(nn.Module):
         encoded = self.encoding.apply(enc_params, x, **encoding_kwargs)
         return self.network.apply(net_params, encoded)
 
-    def apply_plain(self, params: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
+    def apply_plain(self, params: torch.Tensor, x: torch.Tensor, **encoding_kwargs) -> torch.Tensor:
         """``apply`` through every kernel's plain torch version, on any
         device (the reference the kernel path is checked against)."""
         net_params, enc_params = self._split(params)
-        return self.network.apply_plain(net_params, self.encoding.apply_plain(enc_params, x))
+        return self.network.apply_plain(net_params, self.encoding.apply_plain(enc_params, x, **encoding_kwargs))
 
     def apply_raster(self, params: torch.Tensor, side, **encoding_kwargs) -> torch.Tensor:
         """Forward over the tile-center raster of ``side`` (int or per-dim

@@ -24,7 +24,7 @@ d/d(dL_dy) in one fixed order without atomics, so two calls give the same
 bits; G2 adds its table gradient as the table-gradient kernel does (equal
 rows of neighbouring samples merged in the warp, one vector atomic a
 row). All of them read the same description of the
-grid: the (n_levels, 28) int32 level table built by ``level_table``; the
+grid: the (n_levels, 32) int32 level table built by ``level_table``; the
 table-gradient scatters also read the per-level gradient rounding classes
 (``ops.scatter_rows`` codes).
 
@@ -32,7 +32,12 @@ Index arithmetic is uint32 with wrap-around, as in the JAX package
 (``tcnn_tpu/encodings/grid.py:_grid_hash`` and the affine corner fold).
 torch has no uint32 add/shift/remainder on the CPU, so the plain version
 holds uint32 values in int64 and masks to 32 bits after every add; its
-products are split so they never overflow int64 (``_mul32``).
+products are split so they never overflow int64 (``_mul32``). The
+``"Rng"`` hash runs its 64-bit PCG32 jump on (hi, lo) halves the same way
+(``ops.pcg32_jump``); ``fixed_point_pos`` positions are uint32 (held in
+int64 by the plain versions), and their cell comes from the level table's
+fixed-point columns. The lookup and the table gradient take both; the
+table gradient also takes stochastic interpolation's uniforms ``u``.
 
 Every wrapper dispatches on the device of ``x``: a CPU tensor takes the
 plain version, a CUDA tensor launches the kernel or raises.
@@ -61,6 +66,7 @@ MODE_FOLD = 0  # affine: (sum_d uint32(pos_grid_d + bit_d) * stride_d) mod size
 MODE_QUAD = 1  # affine: (base mod size + corner delta mod size) mod size
 MODE_XOR = 2  # Prime / CoherentPrime / ReversedPrime hash
 MODE_BASECONVERT = 3
+MODE_RNG = 4  # pcg32(1337) jumped by the packed corner coordinates (ops.pcg32_jump)
 
 INTERP_NEAREST = 0
 INTERP_LINEAR = 1
@@ -78,7 +84,13 @@ _SERVE_COL = 4 + 2 * MAX_DIMS
 _OWN_COL = _SERVE_COL + 1
 _MAGIC_COL = _OWN_COL + 1
 _SHIFT_COL = _MAGIC_COL + 1
-_LEVEL_COLS = _SHIFT_COL + 1
+# fixed_point_pos: the cell width in uint32 units, half of it, int(scale)
+# and the fp32 factor scale / (2^32 - 1) (reference: grid.h:1143-1151).
+_CELL_COL = _SHIFT_COL + 1
+_HALF_COL = _CELL_COL + 1
+_INT_SCALE_COL = _HALF_COL + 1
+_FACTOR_COL = _INT_SCALE_COL + 1
+_LEVEL_COLS = _FACTOR_COL + 1
 _M32 = 0xFFFFFFFF
 _BASE_CONVERT_FACTOR = 2531011
 
@@ -91,15 +103,18 @@ def level_table(
     strides: Sequence[Sequence[int]],
     serve_rounds: Optional[Sequence[int]] = None,
     own_rounds: Optional[Sequence[int]] = None,
+    fixed_point: bool = False,
 ) -> np.ndarray:
-    """The (n_levels, 28) int32 level table: per level the row offset, the
+    """The (n_levels, 32) int32 level table: per level the row offset, the
     row count, the index mode, the fp32 scale (bit pattern), the per-dim
     factors masked to 32 bits, the per-dim factors mod the level size, the
     serve-time rounding of the level's reads, the rounding of its reads
     to the encoding's own table dtype (ROUND_* codes; reads round by the
-    own code first; ROUND_NONE where the sequence is None) and the
-    reciprocal of the level size (``mod_reciprocal``).
-    ``strides[l]`` are the exact (unmasked) per-dim factors of level l."""
+    own code first; ROUND_NONE where the sequence is None), the
+    reciprocal of the level size (``mod_reciprocal``) and, with
+    ``fixed_point``, the cell of uint32 positions (``fixed_point_cell``;
+    zeros without). ``strides[l]`` are the exact (unmasked) per-dim factors
+    of level l; ``scales`` the exact (float64) scales."""
     n = len(offsets)
     t = np.zeros((n, _LEVEL_COLS), np.uint32)
     for lvl in range(n):
@@ -116,7 +131,23 @@ def level_table(
         t[lvl, _SERVE_COL] = ROUND_NONE if serve_rounds is None else int(serve_rounds[lvl])
         t[lvl, _OWN_COL] = ROUND_NONE if own_rounds is None else int(own_rounds[lvl])
         t[lvl, _MAGIC_COL], t[lvl, _SHIFT_COL] = mod_reciprocal(size)
+        if fixed_point:
+            cell, factor = fixed_point_cell(float(scales[lvl]))
+            t[lvl, _CELL_COL : _FACTOR_COL] = [cell, cell // 2, int(scales[lvl])]
+            t[lvl, _FACTOR_COL] = factor.view(np.uint32)
     return t.view(np.int32)
+
+
+def fixed_point_cell(scale: float) -> Tuple[int, np.float32]:
+    """A level's cell in uint32 fixed point (positions spanning [0, 1) as
+    0 .. 2^32 - 1): its width max(int((2^32 - 1) / scale), 1) and the fp32
+    factor scale / (2^32 - 1) that turns a position within the cell into
+    the interpolation fraction (tcnn_tpu/encodings/grid.py:1580-1592;
+    reference: grid.h:1143-1151)."""
+    cell = max(int(float(_M32) / scale), 1)
+    if cell > _M32 or not 0 <= int(scale) <= _M32:
+        raise ValueError(f"fixed_point_pos: a level of scale {scale} has no uint32 cell")
+    return cell, np.float32(scale / float(_M32))
 
 
 def mod_reciprocal(size: int) -> Tuple[int, int]:
@@ -141,26 +172,49 @@ def _mul32(a: torch.Tensor, b: int) -> torch.Tensor:
     return (lo + hi) & _M32
 
 
+def _level_cell(x: torch.Tensor, row: np.ndarray, interpolation: int) -> Tuple[torch.Tensor, torch.Tensor]:
+    """One level's cell for every sample: (grid position (B, d) int64,
+    interpolation weights w (B, d) fp32, smoothstepped under Smoothstep).
+    ``x`` fp32, or int64 holding the uint32 positions of fixed_point_pos."""
+    if x.dtype == torch.int64:
+        cell, half, int_scale = (int(v) for v in row[_CELL_COL:_FACTOR_COL])
+        factor = float(np.int64(row[_FACTOR_COL]).astype(np.uint32).view(np.float32))
+        pos = (x + half) & _M32
+        pos_grid = pos // cell + torch.where(pos < half, int_scale, 0)
+        # The remainder rounds once to fp32; the product is an fp32 one.
+        t = ((pos - pos_grid * cell) & _M32).to(torch.float32) * factor
+    else:
+        scale = float(np.int64(row[3]).astype(np.uint32).view(np.float32))
+        # x * scale is exact in double and rounds once to fp32: the same
+        # value as the fp32 product; the +0.5 is a separate fp32 add.
+        pos = x * scale + 0.5
+        pos_floor = torch.floor(pos)
+        pos_grid = pos_floor.to(torch.int32).to(torch.int64)
+        t = pos - pos_floor
+    if interpolation == INTERP_SMOOTHSTEP:
+        t = t * t * (3.0 - 2.0 * t)
+    return pos_grid, t
+
+
 def _level_rows(
     x: torch.Tensor, row: np.ndarray, interpolation: int, bits_np: np.ndarray
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """One level's corners for every sample: (table row (B, C) int64,
     weight (B, C) fp32), from the level's row of the level table."""
+    return _level_corners(x, row, interpolation, bits_np)[:2]
+
+
+def _level_corners(
+    x: torch.Tensor, row: np.ndarray, interpolation: int, bits_np: np.ndarray
+) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """``_level_rows`` and the per-dim weights w (B, d) fp32."""
     batch, d = x.shape
     dev = x.device
     offset, size, mode = int(row[0]), int(row[1]), int(row[2])
-    scale = float(np.int64(row[3]).astype(np.uint32).view(np.float32))
     s32 = [int(v) for v in row[4 : 4 + d]]
     smod = [int(v) for v in row[4 + MAX_DIMS : 4 + MAX_DIMS + d]]
     bits = torch.from_numpy(bits_np).to(dev)  # (C, d)
-    # x * scale is exact in double and rounds once to fp32: the same
-    # value as the fp32 product; the +0.5 is a separate fp32 add.
-    pos = x * scale + 0.5
-    pos_floor = torch.floor(pos)
-    pos_grid = pos_floor.to(torch.int32).to(torch.int64)  # (B, d)
-    t = pos - pos_floor
-    if interpolation == INTERP_SMOOTHSTEP:
-        t = t * t * (3.0 - 2.0 * t)
+    pos_grid, t = _level_cell(x, row, interpolation)
     corner = (pos_grid[:, None, :] + bits[None]) & _M32  # (B, C, d) uint32 values
     if interpolation == INTERP_NEAREST:
         weights = torch.ones((batch, 1), dtype=torch.float32, device=dev)
@@ -173,6 +227,10 @@ def _level_rows(
             base = (base + _mul32(pos_grid[:, k] & _M32, s32[k])) & _M32
         delta = torch.from_numpy((bits_np @ np.asarray(smod, np.int64)) % size).to(dev)
         idx = (base[:, None] % size + delta[None]) % size
+    elif mode == MODE_RNG:
+        from .pcg32_jump import rng_hash
+
+        idx = rng_hash(corner) % size
     else:
         h = torch.zeros(corner.shape[:-1], dtype=torch.int64, device=dev)
         for k in range(d):
@@ -183,7 +241,21 @@ def _level_rows(
             else:  # MODE_BASECONVERT
                 h = _mul32((h + corner[..., k]) & _M32, _BASE_CONVERT_FACTOR)
         idx = h % size
-    return idx + offset, weights
+    return idx + offset, weights, t
+
+
+def _positions(x: torch.Tensor) -> torch.Tensor:
+    """The positions as the plain versions read them: fp32, or the uint32
+    positions of fixed_point_pos held in int64."""
+    return x.to(torch.int64) if x.dtype == torch.uint32 else x
+
+
+def _sampled_corner(t: torch.Tensor, u: torch.Tensor) -> torch.Tensor:
+    """Stochastic interpolation's corner of each sample on one level: bit k
+    set where u < w_k (the weight of the upper neighbour in dim k;
+    reference: grid.h:284-299), as a (B, 1) index into the corners."""
+    bits = (u[:, None] < t).to(torch.int64)  # (B, d)
+    return torch.sum(bits << torch.arange(t.shape[1], device=t.device), dim=1, keepdim=True)
 
 
 def _corner_bits(d: int, interpolation: int) -> np.ndarray:
@@ -261,10 +333,11 @@ def grid_encode_plain(
     interpolation: int,
     out_dtype: torch.dtype,
 ) -> torch.Tensor:
-    """Plain torch lookup. ``x`` (B, d) fp32, ``params`` the flat fp32 grid
-    parameters, ``levels`` the level table (any device). Returns (B,
-    padded_width) in ``out_dtype``."""
+    """Plain torch lookup. ``x`` (B, d) fp32 (uint32 for fixed_point_pos),
+    ``params`` the flat fp32 grid parameters, ``levels`` the level table
+    (any device). Returns (B, padded_width) in ``out_dtype``."""
     batch, d = x.shape
+    x = _positions(x)
     F = int(n_features_per_level)
     table = params.view(-1, F)
     lt = levels.cpu().numpy().view(np.uint32).astype(np.int64)
@@ -291,6 +364,7 @@ def grid_backward_plain(
     n_features_per_level: int,
     interpolation: int,
     level_round: torch.Tensor,
+    u: Optional[torch.Tensor] = None,
 ) -> torch.Tensor:
     """Plain table gradient: (n_rows * F,) fp32 for the flat grid
     parameters, where n_rows is the table size the level table describes.
@@ -298,10 +372,16 @@ def grid_backward_plain(
     rounded by the level's class in ``level_round`` ((L, 2): contribution
     rounding, accumulation; ``ops.scatter_rows`` codes) and added with
     ``scatter_rows_plain``. A ``table_dtype`` rounding on read does not enter
-    the backward (straight-through, as the JAX package's linear pair)."""
+    the backward (straight-through, as the JAX package's linear pair).
+
+    ``u`` (B, L) fp32 uniforms: stochastic interpolation's table gradient
+    (tcnn_tpu/encodings/grid.py:_stochastic_combine): per (sample, level)
+    the whole dL_dy row, weight 1, to the one corner ``_sampled_corner``
+    picks."""
     from .scatter_rows import ACC_BF16, ACC_DROP, scatter_rows_plain
 
     batch, d = x.shape
+    x = _positions(x)
     F = int(n_features_per_level)
     lt = levels.cpu().numpy().view(np.uint32).astype(np.int64)
     classes = level_round.cpu().numpy().reshape(-1, 2)
@@ -313,13 +393,49 @@ def grid_backward_plain(
         if acc == ACC_DROP:
             continue
         offset, size = int(row[0]), int(row[1])
-        idx, weights = _level_rows(x, row, interpolation, bits_np)
-        contrib = weights[..., None] * g[:, None, lvl * F : (lvl + 1) * F]  # (B, C, F)
+        idx, weights, t = _level_corners(x, row, interpolation, bits_np)
+        gl = g[:, None, lvl * F : (lvl + 1) * F]
+        if u is None:
+            contrib = weights[..., None] * gl  # (B, C, F)
+        else:
+            idx, contrib = torch.gather(idx, 1, _sampled_corner(t, u[:, lvl])), gl
         acc_dtype = torch.bfloat16 if acc == ACC_BF16 else torch.float32
         grad[offset : offset + size] += scatter_rows_plain(
             (idx - offset).reshape(-1), contrib.reshape(-1, F), size, contrib_round, acc_dtype
         )
     return grad.reshape(-1)
+
+
+def contribution_magnitudes(
+    x: torch.Tensor,
+    dL_dy: torch.Tensor,
+    levels: torch.Tensor,
+    n_features_per_level: int,
+    interpolation: int,
+    u: Optional[torch.Tensor] = None,
+) -> torch.Tensor:
+    """Per entry of the table gradient, the sum of |w_c * dL_dy| over the
+    contributions it takes (fp32, flat): the scale against which a kernel's
+    sums in another order are held. Not the table gradient of |dL_dy|:
+    fixed_point_pos cells give weights outside [0, 1] (a fraction above 1
+    where int(scale) cells do not fill the uint32 range), so w_c may be
+    negative."""
+    batch, d = x.shape
+    x = _positions(x)
+    F = int(n_features_per_level)
+    lt = levels.cpu().numpy().view(np.uint32).astype(np.int64)
+    bits_np = _corner_bits(d, interpolation)
+    out = torch.zeros((_table_rows(lt), F), dtype=torch.float32, device=x.device)
+    g = dL_dy.to(torch.float32).abs()
+    for lvl, row in enumerate(lt):
+        idx, weights, t = _level_corners(x, row, interpolation, bits_np)
+        gl = g[:, None, lvl * F : (lvl + 1) * F]
+        if u is None:
+            contrib = weights.abs()[..., None] * gl
+        else:
+            idx, contrib = torch.gather(idx, 1, _sampled_corner(t, u[:, lvl])), gl
+        out.index_add_(0, idx.reshape(-1), contrib.reshape(-1, F))
+    return out.reshape(-1)
 
 
 def grid_backward_input_plain(
@@ -419,15 +535,40 @@ def grid_backward_backward_plain(
     return (None if d_params is None else d_params.reshape(-1)), d_x, d_dy
 
 
-_FWD_ARGS = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 7 + [ctypes.c_void_p]
-_BWD_ARGS = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 7 + [ctypes.c_int64, ctypes.c_void_p, ctypes.c_void_p]
+_FWD_ARGS = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 9 + [ctypes.c_void_p]
+_BWD_ARGS = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 9 + [ctypes.c_int64, ctypes.c_void_p, ctypes.c_void_p]
+
+# Whether a level table has an Rng level, kept on its tensor: the lookup
+# and the table gradient then launch their instantiation with the extras'
+# code (kExtras), which the other modes do not pay for in registers.
+_RNG_ATTR = "_has_rng_levels"
+
+
+def level_table_on(table: np.ndarray, device) -> torch.Tensor:
+    """The level table ``table`` (``level_table``'s int32 array) on
+    ``device``, with whether it has an Rng level noted on the host."""
+    t = torch.from_numpy(table).to(device)
+    setattr(t, _RNG_ATTR, bool((table[:, 2] == MODE_RNG).any()))
+    return t
+
+
+def _rng_levels(levels: torch.Tensor) -> bool:
+    """Whether ``levels`` has an Rng level: noted by ``level_table_on``,
+    else read once from the device and kept on the tensor."""
+    hit = getattr(levels, _RNG_ATTR, None)
+    if hit is None:
+        hit = bool((levels[:, 2] == MODE_RNG).any())
+        setattr(levels, _RNG_ATTR, hit)
+    return hit
 _INPUT_ARGS = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 7 + [ctypes.c_void_p]
 _BWDBWD_ARGS = [ctypes.c_void_p] * 11 + [ctypes.c_int] * 7 + [ctypes.c_int64, ctypes.c_void_p]
 
 
-def _check_kernel_inputs(what: str, x: torch.Tensor, levels: torch.Tensor, n_features_per_level: int):
-    if x.dim() != 2 or x.dtype != torch.float32 or not x.is_contiguous():
-        raise ValueError(f"{what}: x must be a contiguous 2-D float32 tensor")
+def _check_kernel_inputs(what: str, x: torch.Tensor, levels: torch.Tensor, n_features_per_level: int,
+                         fixed_point_ok: bool = False):
+    dtypes = (torch.float32, torch.uint32) if fixed_point_ok else (torch.float32,)
+    if x.dim() != 2 or x.dtype not in dtypes or not x.is_contiguous():
+        raise ValueError(f"{what}: x must be a contiguous 2-D tensor of {' or '.join(map(str, dtypes))}")
     if levels.dtype != torch.int32 or levels.shape[1:] != (_LEVEL_COLS,) or levels.device != x.device:
         raise ValueError(f"{what}: levels must be the (L, {_LEVEL_COLS}) int32 level table on the device of x")
     if not 1 <= x.shape[1] <= MAX_DIMS or not 1 <= int(n_features_per_level) <= MAX_FEATURES:
@@ -454,6 +595,10 @@ def _check_classes(what: str, level_round: torch.Tensor, x: torch.Tensor, n_leve
         raise ValueError(f"{what}: level_round must be the (L, 2) int32 class table on the device of x")
 
 
+def _check_uniforms(what: str, u: torch.Tensor, x: torch.Tensor, n_levels: int):
+    if (u.shape != (x.shape[0], n_levels) or u.dtype != torch.float32 or not u.is_contiguous()
+            or u.device != x.device):
+        raise ValueError(f"{what}: u must be a contiguous ({x.shape[0]}, {n_levels}) float32 tensor on the device of x")
 
 
 def _launch(what: str, err: int) -> None:
@@ -464,7 +609,7 @@ def _launch(what: str, err: int) -> None:
 def _lookup(what, symbol, x, params, levels, n_features_per_level, padded_width, interpolation, out_dtype):
     """Checks the operands and launches the lookup kernel ``symbol``;
     returns the (B, padded_width) output."""
-    _check_kernel_inputs(what, x, levels, n_features_per_level)
+    _check_kernel_inputs(what, x, levels, n_features_per_level, fixed_point_ok=True)
     _check_params(what, params, x)
     if out_dtype not in (torch.bfloat16, torch.float32):
         raise ValueError(f"{what}: the kernel writes bfloat16 or float32, not {out_dtype}")
@@ -483,7 +628,7 @@ def _lookup(what, symbol, x, params, levels, n_features_per_level, padded_width,
     _launch(what, kernel("grid_fwd", symbol, _FWD_ARGS)(
         x.data_ptr(), params.data_ptr(), levels.data_ptr(), out.data_ptr(),
         batch, d, n_levels, F, padded_width, int(interpolation), int(out_dtype == torch.bfloat16),
-        stream(x.get_device()),
+        int(x.dtype == torch.uint32), int(_rng_levels(levels)), stream(x.get_device()),
     ))
     return out
 
@@ -497,8 +642,10 @@ def grid_encode(
     interpolation: int,
     out_dtype: torch.dtype = torch.bfloat16,
 ) -> torch.Tensor:
-    """All-levels grid lookup. On a CUDA ``x`` the kernel runs; ``levels``
-    must then be the level table on that device."""
+    """All-levels grid lookup of positions ``x`` (B, d): fp32, or uint32
+    spanning [0, 1) for fixed_point_pos (``levels`` then built with
+    ``fixed_point=True``). On a CUDA ``x`` the kernel runs; ``levels`` must
+    then be the level table on that device."""
     if x.device.type == "cpu":
         return grid_encode_plain(x, params, levels, n_features_per_level, padded_width, interpolation, out_dtype)
     if x.device.type != "cuda":
@@ -516,9 +663,9 @@ def grid_encode_v1(x, params, levels, n_features_per_level, padded_width, interp
     (sample, level), level fastest, 64-bit index arithmetic), kept only so
     that chip_smoke.py can time the new kernel against it in one call and
     hold the two bitwise equal; no path of the port calls it. CUDA tensors
-    only; the contract of ``grid_encode``."""
-    if x.device.type != "cuda":
-        raise ValueError("grid_encode_v1: CUDA tensors only")
+    only; the contract of ``grid_encode`` for fp32 positions."""
+    if x.device.type != "cuda" or x.dtype != torch.float32:
+        raise ValueError("grid_encode_v1: fp32 CUDA tensors only")
     global V1_LAUNCHES
     out = _lookup("grid_encode_v1", "tcnn_grid_forward_v1", x, params, levels, n_features_per_level, padded_width,
                   interpolation, out_dtype)
@@ -626,24 +773,28 @@ def grid_backward(
     interpolation: int,
     level_round: torch.Tensor,
     plan: Optional[BackwardPlan] = None,
+    u: Optional[torch.Tensor] = None,
 ) -> torch.Tensor:
     """Table gradient of the all-levels lookup: (n_rows * F,) fp32 for the
     flat grid parameters, for the output gradient ``dL_dy`` (B, width >= L*F)
-    in bf16 or fp32. On a CUDA ``x``, ``levels`` and ``level_round`` ((L, 2)
-    int32 classes) must lie on that device, and the kernel
-    ``tcnn_grid_backward`` runs with ``plan`` (``backward_plan`` of these
-    tables and batch; None: made here, which reads the tables back from the
-    device)."""
+    in bf16 or fp32, at positions ``x`` as ``grid_encode`` takes them. On a
+    CUDA ``x``, ``levels`` and ``level_round`` ((L, 2) int32 classes) must
+    lie on that device, and the kernel ``tcnn_grid_backward`` runs with
+    ``plan`` (``backward_plan`` of these tables and batch; None: made here,
+    which reads the tables back from the device). ``u``: stochastic
+    interpolation's (B, L) fp32 uniforms (see ``grid_backward_plain``)."""
     if x.device.type == "cpu":
-        return grid_backward_plain(x, dL_dy, levels, n_features_per_level, interpolation, level_round)
+        return grid_backward_plain(x, dL_dy, levels, n_features_per_level, interpolation, level_round, u)
     if x.device.type != "cuda":
         raise ValueError(f"grid_backward: unsupported device {x.device}")
-    _check_kernel_inputs("grid_backward", x, levels, n_features_per_level)
+    _check_kernel_inputs("grid_backward", x, levels, n_features_per_level, fixed_point_ok=True)
     F = int(n_features_per_level)
     batch, d = x.shape
     n_levels = levels.shape[0]
     _check_dy("grid_backward", dL_dy, x, n_levels, F)
     _check_classes("grid_backward", level_round, x, n_levels)
+    if u is not None:
+        _check_uniforms("grid_backward", u, x, n_levels)
     if plan is None:
         plan = backward_plan(levels, F, batch, level_round)
     elif (plan.batch, plan.n_levels, plan.F) != (batch, n_levels, F):
@@ -657,10 +808,11 @@ def grid_backward(
 
     global BWD_LAUNCHES
     _launch("grid_backward", kernel("grid_bwd", "tcnn_grid_backward", _BWD_ARGS)(
-        x.data_ptr(), dL_dy.data_ptr(), levels.data_ptr(), level_round.data_ptr(), grad.data_ptr(),
-        None if grad16 is None else grad16.data_ptr(),
+        x.data_ptr(), dL_dy.data_ptr(), levels.data_ptr(), level_round.data_ptr(),
+        None if u is None else u.data_ptr(), grad.data_ptr(), None if grad16 is None else grad16.data_ptr(),
         batch, d, n_levels, F, dL_dy.shape[1], int(interpolation), int(dL_dy.dtype == torch.bfloat16),
-        n_values, plan.array.ctypes.data, stream(x.get_device()),
+        int(x.dtype == torch.uint32), int(_rng_levels(levels)), n_values, plan.array.ctypes.data,
+        stream(x.get_device()),
     ))
     BWD_LAUNCHES += 1
     return grad
@@ -784,41 +936,43 @@ class GridEncodeFunction(torch.autograd.Function):
     backward kernel: the exact second order that ``jax.grad`` of
     ``jax.grad`` gives in the JAX package.
 
-    ``GridEncodeFunction.apply(x, params, levels, level_round, meta)`` with
-    ``meta`` = (n_features_per_level, padded_width, interpolation,
+    ``GridEncodeFunction.apply(x, params, levels, level_round, u, meta)``
+    with ``meta`` = (n_features_per_level, padded_width, interpolation,
     out_dtype, plain, accumulates_bf16, plan), ``plan`` the table gradient's
-    ``backward_plan`` (None: made at the backward).
+    ``backward_plan`` (None: made at the backward) and ``u`` None or
+    stochastic interpolation's (B, L) uniforms, which only the table
+    gradient reads. Positions of fixed_point_pos (uint32) have no gradient.
     """
 
     @staticmethod
-    def forward(ctx, x, params, levels, level_round, meta):
+    def forward(ctx, x, params, levels, level_round, u, meta):
         F, padded_width, interp, out_dtype, plain, acc16, plan = meta
         ctx.meta = (F, interp, plain, acc16, plan)
-        ctx.save_for_backward(x, params, levels, level_round)
+        ctx.save_for_backward(x, params, levels, level_round, u)
         fwd = grid_encode_plain if plain else grid_encode
         return fwd(x, params, levels, F, padded_width, interp, out_dtype)
 
     @staticmethod
     def backward(ctx, dy):
-        x, params, levels, level_round = ctx.saved_tensors
+        x, params, levels, level_round, u = ctx.saved_tensors
         F, interp, plain, acc16, plan = ctx.meta
         need_x, need_params = ctx.needs_input_grad[0], ctx.needs_input_grad[1]
         dy = dy.contiguous()
         if torch.is_grad_enabled():
             dparams, dx = GridEncodeBackwardFunction.apply(
-                x, params, dy, levels, level_round if need_params else None, ctx.meta, need_x
+                x, params, dy, levels, level_round if need_params else None, u, ctx.meta, need_x
             )
-            return dx, dparams, None, None, None
+            return dx, dparams, None, None, None, None
         dparams = dx = None
         if need_params:
             if plain:
-                dparams = grid_backward_plain(x, dy, levels, F, interp, level_round)
+                dparams = grid_backward_plain(x, dy, levels, F, interp, level_round, u)
             else:
-                dparams = grid_backward(x, dy, levels, F, interp, level_round, plan)
+                dparams = grid_backward(x, dy, levels, F, interp, level_round, plan, u)
         if need_x:
             bwd_x = grid_backward_input_plain if plain else grid_backward_input
             dx = bwd_x(x, dy, params, levels, F, interp)
-        return dx, dparams, None, None, None
+        return dx, dparams, None, None, None, None
 
 
 class GridEncodeBackwardFunction(torch.autograd.Function):
@@ -828,25 +982,28 @@ class GridEncodeBackwardFunction(torch.autograd.Function):
     its backward is the double backward (``grid_backward_backward``, or its
     plain version with ``plain``). Like the JAX package's torch bridge
     (tcnn_tpu/torch_modules.py:92-130) it is differentiable once: a third
-    order raises ``RuntimeError``.
+    order raises ``RuntimeError``. The double backward takes fp32
+    positions and the deterministic table gradient: a cotangent of the
+    table gradient (``cgp``) of a fixed_point_pos lookup or of a stochastic
+    one raises ``NotImplementedError``.
 
     ``GridEncodeBackwardFunction.apply(x, params, dL_dy, levels,
-    level_round, meta, need_x)`` with the ``meta`` that
+    level_round, u, meta, need_x)`` with the ``meta`` that
     ``GridEncodeFunction`` keeps.
     """
 
     @staticmethod
-    def forward(ctx, x, params, dy, levels, level_round, meta, need_x):
+    def forward(ctx, x, params, dy, levels, level_round, u, meta, need_x):
         F, interp, plain, acc16, plan = meta
         ctx.meta = meta
         ctx.set_materialize_grads(False)
-        ctx.save_for_backward(x, params, dy, levels, level_round)
+        ctx.save_for_backward(x, params, dy, levels, level_round, u)
         dparams = dx = None
         if level_round is not None:
             if plain:
-                dparams = grid_backward_plain(x, dy, levels, F, interp, level_round)
+                dparams = grid_backward_plain(x, dy, levels, F, interp, level_round, u)
             else:
-                dparams = grid_backward(x, dy, levels, F, interp, level_round, plan)
+                dparams = grid_backward(x, dy, levels, F, interp, level_round, plan, u)
         if need_x:
             bwd_x = grid_backward_input_plain if plain else grid_backward_input
             dx = bwd_x(x, dy, params, levels, F, interp)
@@ -855,10 +1012,15 @@ class GridEncodeBackwardFunction(torch.autograd.Function):
     @staticmethod
     @torch.autograd.function.once_differentiable
     def backward(ctx, cgp, cgx):
-        x, params, dy, levels, level_round = ctx.saved_tensors
+        x, params, dy, levels, level_round, u = ctx.saved_tensors
         F, interp, plain, acc16, plan = ctx.meta
         if cgp is None and cgx is None:
-            return (None,) * 7
+            return (None,) * 8
+        if x.dtype != torch.float32 or (u is not None and cgp is not None):
+            raise NotImplementedError(
+                "GridEncoding: no second derivative through the table gradient of a "
+                + ("fixed_point_pos" if x.dtype != torch.float32 else "stochastic") + " lookup"
+            )
         cgp = None if cgp is None else cgp.contiguous()
         cgx = None if cgx is None else cgx.contiguous()
         bwdbwd = grid_backward_backward_plain if plain else grid_backward_backward
@@ -868,5 +1030,5 @@ class GridEncodeBackwardFunction(torch.autograd.Function):
             d_x if ctx.needs_input_grad[0] else None,
             d_params if ctx.needs_input_grad[1] else None,
             d_dy.to(dy.dtype) if ctx.needs_input_grad[2] else None,
-            None, None, None, None,
+            None, None, None, None, None,
         )

@@ -1,6 +1,5 @@
 """Optimizer factory (port of ``tcnn_tpu.optimizers``; reference:
-src/optimizer.cu:49-80; default Adam). Shampoo is not ported yet and
-raises ``NotImplementedError``."""
+src/optimizer.cu:49-80; default Adam)."""
 
 from __future__ import annotations
 
@@ -12,6 +11,7 @@ from .base import Optimizer
 from .composite import CompositeOptimizer
 from .novograd import NovogradOptimizer
 from .sgd import SGDOptimizer
+from .shampoo import ShampooOptimizer
 from .wrappers import (
     AverageOptimizer,
     BatchedOptimizer,
@@ -31,6 +31,7 @@ _OPTIMIZERS = {
     "lookahead": LookaheadOptimizer,
     "novograd": NovogradOptimizer,
     "sgd": SGDOptimizer,
+    "shampoo": ShampooOptimizer,
 }
 
 
@@ -40,15 +41,11 @@ def create_optimizer(optimizer: Optional[Dict] = None) -> Optimizer:
     cls = _OPTIMIZERS.get(otype.lower())
     if cls is not None:
         return cls(optimizer)
-    if otype.lower() == "shampoo":
-        raise NotImplementedError(
-            f"Optimizer '{otype}' is not ported yet (ROADMAP.md, Queue 1 item 6: other losses and optimizers)"
-        )
     raise ValueError(f"Invalid optimizer type: {otype}")
 
 
 __all__ = [
     "AdamOptimizer", "AverageOptimizer", "BatchedOptimizer", "CompositeOptimizer", "EmaOptimizer",
     "ExponentialDecayOptimizer", "LookaheadOptimizer", "NovogradOptimizer", "Optimizer", "SGDOptimizer",
-    "WrapperOptimizer", "create_optimizer",
+    "ShampooOptimizer", "WrapperOptimizer", "create_optimizer",
 ]

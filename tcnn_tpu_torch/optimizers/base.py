@@ -18,8 +18,9 @@ optimizer.h:39-63).
 
 Every schedule stays on the device: step counters are 0-d int32 tensors and
 every choice that depends on them (Batched's accumulate-then-step, the
-decay factor, Novograd's first step, Lookahead's sync) is a ``torch.where``,
-never a host ``if``, as the JAX package writes them under ``jit``. So a
+decay factor, Novograd's first step, Lookahead's sync, Shampoo's root
+refresh and its Newton iteration's stop) is a ``torch.where``, never a host
+``if``, as the JAX package writes them under ``jit``. So a
 captured training step (``Trainer.training_steps``) replays them right.
 """
 

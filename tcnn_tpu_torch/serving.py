@@ -48,8 +48,11 @@ class FrozenServer:
 
     @torch.no_grad()
     def __call__(self, x) -> torch.Tensor:
-        """Serve an arbitrary (B, d) batch; returns (B, n_output_dims) fp32."""
-        x = torch.as_tensor(x, dtype=torch.float32, device=self._params.device)
+        """Serve an arbitrary (B, d) batch, fp32 or the uint32 positions of
+        a fixed_point_pos grid; returns (B, n_output_dims) fp32."""
+        x = torch.as_tensor(x, device=self._params.device)
+        if x.dtype != torch.uint32:
+            x = x.to(torch.float32)
         kw = self._kw()
         # Arbitrary batches are not the stratified layout (the JAX package's
         # FrozenServer passes stratified=False for them).

@@ -24,6 +24,11 @@ hyperparameter baked into a kernel's arguments (``learning_rate``,
 ``update_hyperparams``) drops the captured graphs, as the JAX package drops
 its jitted programs.
 
+``perturbation_sigma`` adds logistic noise to the output the loss sees
+(reference: trainer.h:114-123), drawn from the trainer's own generator on
+its device, seeded from ``seed``; a captured step registers it, so each
+replay draws anew.
+
 Checkpoints: ``serialize`` / ``deserialize`` give and take the reference's
 snapshot layout (``interchange``); ``utils.checkpoint`` has the npz form.
 
@@ -86,10 +91,6 @@ class Trainer:
         perturbation_sigma: Optional[float] = None,
         split_grid_state: bool = False,
     ):
-        if perturbation_sigma is not None:
-            raise NotImplementedError(
-                "Trainer: perturbation_sigma is not ported yet (ROADMAP.md, Queue 1 item 6: other losses and optimizers)"
-            )
         if split_grid_state:
             raise NotImplementedError(
                 "Trainer: split_grid_state is a TPU layout of the JAX package and is not ported "
@@ -102,6 +103,8 @@ class Trainer:
         self.loss = create_loss(self.loss_config)
         self.optimizer = create_optimizer(self.optimizer_config)
         self.loss_scale = float(loss_scale) if loss_scale is not None else default_loss_scale(model.compute_dtype)
+        self.perturbation_sigma = perturbation_sigma
+        self.perturbation_generator: Optional[torch.Generator] = None
         self.optimizer.allocate(model.n_params, model.layer_sizes())
         self.initialize_params(seed)
 
@@ -117,6 +120,8 @@ class Trainer:
             raise RuntimeError(f"initialize_params: got {params.shape}, expected ({self.model.n_params},)")
         self.params = params
         self.opt_state = self.optimizer.init_state(self.device)
+        if self.perturbation_sigma is not None:
+            self.perturbation_generator = torch.Generator(device=self.device).manual_seed(int(seed))
 
     @property
     def opt_state(self) -> Dict[str, Any]:
@@ -158,7 +163,31 @@ class Trainer:
 
     # -- training ------------------------------------------------------------
     def _as_input(self, inputs) -> torch.Tensor:
-        return torch.as_tensor(inputs, dtype=torch.float32, device=self.device)
+        """Positions on the trainer's device: fp32, except uint32 ones
+        (a fixed_point_pos grid's), which pass as they are, as the JAX
+        trainer passes its inputs."""
+        x = torch.as_tensor(inputs, device=self.device)
+        return x if x.dtype == torch.uint32 else x.to(torch.float32)
+
+    def perturbation_uniforms(self, batch: int, width: int) -> torch.Tensor:
+        """The (batch, width) fp32 uniforms of one step's output noise, in
+        [1e-9, 1) as the JAX package's ``jax.random.uniform(key, shape,
+        float32, 1e-9, 1 - 1e-9)`` gives them, drawn from
+        ``perturbation_generator``. An instance attribute of the same name
+        replaces the draw (a test hands over the JAX package's)."""
+        u = torch.rand((batch, width), generator=self.perturbation_generator, device=self.device) + 1e-9
+        return torch.clamp_min(u, 1e-9)
+
+    def _perturbed(self, out: torch.Tensor) -> torch.Tensor:
+        """The output the loss sees: with ``perturbation_sigma``, plus
+        sigma * sqrt(3) / pi * log(u / (1 - u)) in fp32, back in the
+        output's dtype (tcnn_tpu/trainer.py:243-266, 220-224); the loss's
+        gradient with respect to it is taken as the output's."""
+        if self.perturbation_sigma is None:
+            return out
+        u = self.perturbation_uniforms(out.shape[0], out.shape[1])
+        noise = float(self.perturbation_sigma * 0.551328895421792050) * torch.log(u / (1.0 - u))
+        return (out.to(torch.float32) + noise).to(out.dtype)
 
     def _backward(self, inputs, plain: bool, output_gradient):
         """Forward with autograd, then the parameter gradient for the output
@@ -185,7 +214,7 @@ class Trainer:
         pdf = None if data_pdf is None else torch.as_tensor(data_pdf, dtype=torch.float32, device=self.device)
 
         def loss_gradient(out):
-            loss_sum, dL_dy = self.loss.evaluate_sum_and_gradient(self.loss_scale, out, y, pdf)
+            loss_sum, dL_dy = self.loss.evaluate_sum_and_gradient(self.loss_scale, self._perturbed(out), y, pdf)
             return dL_dy, loss_sum
 
         grads, loss_sum = self._backward(inputs, plain, loss_gradient)
@@ -257,6 +286,8 @@ class Trainer:
     def _capture(self, batch_fn, n_steps: int, data, leaves) -> _CapturedSteps:
         dev = self.device
         generators = [g for g in leaves if isinstance(g, torch.Generator)]
+        if self.perturbation_generator is not None:
+            generators.append(self.perturbation_generator)
         counter = torch.zeros((), dtype=torch.int32, device=dev)
         losses = torch.zeros((n_steps,), dtype=torch.float32, device=dev)
 

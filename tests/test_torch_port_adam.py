@@ -129,7 +129,6 @@ def test_factory():
         assert isinstance(topt.create_optimizer({"otype": otype}), cls)
     comp = topt.create_optimizer({"otype": "Composite", "nested": [{"otype": "SGD"}]})
     assert isinstance(comp, topt.CompositeOptimizer)
-    with pytest.raises(NotImplementedError, match="Queue 1 item 6"):
-        topt.create_optimizer({"otype": "Shampoo"})
+    assert isinstance(topt.create_optimizer({"otype": "Shampoo"}), topt.ShampooOptimizer)
     with pytest.raises(ValueError, match="Invalid optimizer"):
         topt.create_optimizer({"otype": "NoSuch"})

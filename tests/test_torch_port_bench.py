@@ -282,7 +282,7 @@ def test_lookup_scatter_times_inputs_and_sass_parser():
     inputs = m.lookup_inputs(1024, 32, torch.device("cpu"), 0)
     assert list(inputs) == ["flagship stratified", "flagship uniform", "3D model uniform", "flagship raster 32^2"]
     for enc, x, levels, params in inputs.values():
-        assert x.shape[1] == enc.n_dims_to_encode and levels.shape == (16, 28) and params.numel() == enc.n_params
+        assert x.shape[1] == enc.n_dims_to_encode and levels.shape == (16, 32) and params.numel() == enc.n_params
     cases = m.scatter_cases(torch.device("cpu"), 0)
     assert [(i.shape[0], r.shape[1], s) for i, r, s, _ in cases.values()] == [
         (2**18, 4, 64), (2**18, 8, 4096), (2**18, 8, 32768), (8192, 8, 65536)]
@@ -409,3 +409,19 @@ def test_ffmlp_adam_times_arguments_bounds_and_operands():
     opt, state, params, grads = m.adam_operands(1000, 100, torch.device("cpu"), 0)
     assert params.shape == grads.shape == (1000,) and opt.n_matrix_weights == 100
     assert (grads[:100] != 0).all() and 0 < int((grads[100:] == 0).sum()) < 300
+
+
+def test_grid_ab_times_needs_a_card_and_names_kernels():
+    """The grid A/B entry point refuses to run without a card (its times
+    and compiler report are the card's), and shortens the compiler's
+    demangled names to the kernel and its template arguments."""
+    import torch
+
+    from tcnn_tpu_torch.benchmarks import grid_ab_times as m
+
+    if not torch.cuda.is_available():
+        with pytest.raises(SystemExit, match="CUDA"):
+            m.main([])
+    assert m._kernel("void <unnamed>::grid_forward_kernel<float, (int)2, (int)2, (bool)0>(const void *, int)") == (
+        "grid_forward_kernel<float, (int)2, (int)2, (bool)0>")
+    assert m._kernel("void <unnamed>::fold_bf16_kernel(float *, long)") == "fold_bf16_kernel"

@@ -489,9 +489,13 @@ def _second_order_inputs(dev, n_dims, F, n, dy_dtype, seed):
     t = {k: torch.from_numpy(v.astype(np.float32)).to(dev) for k, v in t.items()}
     t["dy"] = t["dy"].to(dy_dtype)
     # Every level (none, fp32) but level 1 (RN, bf16), level 2 (SR, fp32)
-    # and level 3 (drop).
+    # and level 3 (drop). At d = 1 the bf16 class goes to the finest level
+    # instead: level 1 has 6 rows there, about 1,000 bf16 adds each, whose error
+    # depends on the order too much for a norm over 6 entries to compare
+    # two orders (``_check_second_order_table``).
     classes = torch.zeros((enc.n_levels, 2), dtype=torch.int32)
-    classes[1] = torch.tensor([scatter_rows.CONTRIB_RN, scatter_rows.ACC_BF16])
+    t["bf16_level"] = 1 if n_dims > 1 else enc.n_levels - 1
+    classes[t["bf16_level"]] = torch.tensor([scatter_rows.CONTRIB_RN, scatter_rows.ACC_BF16])
     classes[2] = torch.tensor([scatter_rows.CONTRIB_SR, scatter_rows.ACC_F32])
     classes[3] = torch.tensor([scatter_rows.CONTRIB_NONE, scatter_rows.ACC_DROP])
     t["classes"] = classes.to(dev)
@@ -515,10 +519,10 @@ def _check_second_order_table(enc, got, plain, exact, classes):
 
 
 @pytest.mark.parametrize("dy_dtype", [torch.bfloat16, torch.float32], ids=["bf16", "fp32"])
-@pytest.mark.parametrize("n_dims", [2, 3, 4])
+@pytest.mark.parametrize("n_dims", [2, 3, 4, 1, 5])
 @pytest.mark.parametrize("F", [1, 2, 3, 4, 5, 6, 7, 8])
 def test_grid_second_order_every_instantiation(dev, F, n_dims, dy_dtype):
-    """G1 and G2 at every compiled (F, d) pair and at a run-time d (4), in
+    """G1 and G2 at every compiled (F, d) pair and at run-time d (1, 4, 5), in
     both dy types: 10 levels (some warps take two, some one) into a padded
     width, 3,037 points (a ragged last tile), points outside [0, 1]. G2 with
     and without cgp, without cgx, and without a class table (no table
@@ -528,7 +532,7 @@ def test_grid_second_order_every_instantiation(dev, F, n_dims, dy_dtype):
     x, dy, params, cgx, cgp, classes = (t[k] for k in ("x", "dy", "params", "cgx", "cgp", "classes"))
     args = (enc._levels_on(dev), F, _interp_code(enc))
     exact_cls = classes.clone()
-    exact_cls[1, 1] = scatter_rows.ACC_F32
+    exact_cls[t["bf16_level"], 1] = scatter_rows.ACC_F32
     before = (grid_encode.INPUT_LAUNCHES, grid_encode.BWDBWD_LAUNCHES)
     _close_f32(grid_encode.grid_backward_input(x, dy, params, *args),
                grid_encode.grid_backward_input_plain(x, dy, params, *args))
@@ -878,17 +882,18 @@ ENC3D_GRID = {"otype": "HashGrid", "n_levels": 16, "n_features_per_level": 2, "l
               "base_resolution": 16, "per_level_scale": 1.5, "hash": "CoherentAdditive"}
 
 
-def _check_levels(enc, got, x, dy, classes):
+def _check_levels(enc, got, x, dy, classes, u=None):
     """Per level: fp32 sums within 1e-5 of the sum of |contributions| per
     entry; bf16 sums at most twice the plain sequential sum's error against
     the fp32 sum of the same rounded contributions, in norm. Entries no
-    sample touched are exactly 0."""
+    sample touched are exactly 0. ``u``: stochastic interpolation's
+    uniforms, for kernel and plain version alike."""
     levels, F, interp = enc._levels_on(x.device), enc.n_features_per_level, _interp_code(enc)
-    plain = grid_encode.grid_backward_plain(x, dy, levels, F, interp, classes)
+    plain = grid_encode.grid_backward_plain(x, dy, levels, F, interp, classes, u)
     f32 = classes.clone()
     f32[:, 1] = torch.where(f32[:, 1] == scatter_rows.ACC_BF16, scatter_rows.ACC_F32, f32[:, 1])
-    exact = grid_encode.grid_backward_plain(x, dy, levels, F, interp, f32)
-    S = grid_encode.grid_backward_plain(x, dy.float().abs(), levels, F, interp, torch.zeros_like(classes))
+    exact = grid_encode.grid_backward_plain(x, dy, levels, F, interp, f32, u)
+    S = grid_encode.contribution_magnitudes(x, dy, levels, F, interp, u)
     assert got.shape == plain.shape and torch.isfinite(got).all()
     for lvl in range(enc.n_levels):
         lo, hi = int(enc.offset_table[lvl]) * F, int(enc.offset_table[lvl + 1]) * F
@@ -906,10 +911,10 @@ def _interp_code(enc):
     return _INTERP_CODES[enc.interpolation_type]
 
 
-def _table_grad(enc, x, dy, classes):
+def _table_grad(enc, x, dy, classes, u=None):
     before = grid_encode.BWD_LAUNCHES
     got = grid_encode.grid_backward(x, dy, enc._levels_on(x.device), enc.n_features_per_level, _interp_code(enc),
-                                    classes)
+                                    classes, u=u)
     torch.cuda.synchronize()
     assert grid_encode.BWD_LAUNCHES == before + 1
     return got
@@ -1343,3 +1348,115 @@ def test_nerf_composite_model_kernel_matches_plain(dev):
     _close_bf16(got, m.model.apply_plain(m.params, x))
     out = ns.render(ns.model_field(m.model.apply, m.params), *ns.make_rays(torch.rand((64, 2), device=dev)))
     assert out.shape == (64, 3) and torch.isfinite(out).all()
+
+
+# The grid extras: the Rng hash (kRng in csrc/grid_common.cuh's corner(),
+# so the lookup, the table gradient, G1 and G2 alike), fixed_point_pos
+# (uint32 positions: the lookup and the table gradient) and stochastic
+# interpolation's table gradient (one corner per (sample, level) for the
+# uniforms u), each against its plain version on the same inputs.
+EXTRAS_GRID = {"otype": "HashGrid", "n_levels": 8, "n_features_per_level": 2, "log2_hashmap_size": 12,
+               "base_resolution": 8, "per_level_scale": 1.5}
+
+
+def _fixed_positions(rng, n, d, dev):
+    x = rng.integers(0, 2**32, (n, d), dtype=np.uint64)
+    x[:64] = 0
+    x[64:128] = 2**32 - 1
+    return torch.from_numpy(x.astype(np.int64)).to(torch.uint32).to(dev)
+
+
+@pytest.mark.parametrize("interp", ["Linear", "Smoothstep"])
+@pytest.mark.parametrize("n_dims", [2, 3])
+def test_rng_hash_kernels_match_plain(dev, n_dims, interp):
+    """The Rng hash in the lookup (fp32 rtol 1e-5, atol 1e-6), the table
+    gradient (level by level in its classes) and G1 / G2 (``_close_f32``)."""
+    enc = create_encoding(n_dims, dict(EXTRAS_GRID, hash="Rng", interpolation=interp), alignment=16)
+    enc.output_dtype = torch.float32
+    levels = enc._levels_on(dev)
+    assert int((levels[:, 2] == grid_encode.MODE_RNG).sum()) >= 2
+    rng = np.random.default_rng(n_dims)
+    n = 30_001
+    x = torch.from_numpy(rng.uniform(-0.2, 1.2, (n, n_dims)).astype(np.float32)).to(dev)
+    params = torch.from_numpy(rng.uniform(-1, 1, enc.n_params).astype(np.float32)).to(dev)
+    torch.testing.assert_close(enc.apply(params, x), enc.apply_plain(params, x), rtol=1e-5, atol=1e-6)
+    dy = torch.from_numpy(rng.normal(0, 1, (n, enc.padded_output_width)).astype(np.float32)).to(dev).bfloat16()
+    classes = torch.from_numpy(enc.gradient_classes(n)).to(dev)
+    classes[1::2] = torch.tensor([scatter_rows.CONTRIB_SR, scatter_rows.ACC_BF16], dtype=torch.int32)
+    _check_levels(enc, _table_grad(enc, x, dy, classes), x, dy, classes)
+    args = (levels, 2, _interp_code(enc))
+    f32 = torch.from_numpy(enc.gradient_classes(n)).to(dev)
+    cgx = torch.from_numpy(rng.normal(0, 1, (n, n_dims)).astype(np.float32)).to(dev)
+    cgp = torch.from_numpy(rng.normal(0, 1, enc.n_params).astype(np.float32)).to(dev)
+    _close_f32(grid_encode.grid_backward_input(x, dy, params, *args),
+               grid_encode.grid_backward_input_plain(x, dy, params, *args))
+    got = grid_encode.grid_backward_backward(x, dy, params, *args, f32, cgp, cgx)
+    want = grid_encode.grid_backward_backward_plain(x, dy, params, *args, f32, cgp, cgx)
+    for a, b in zip(got, want):
+        _close_f32(a, b)
+
+
+@pytest.mark.parametrize("over", [{}, {"interpolation": "Smoothstep", "hash": "Rng"}, {"n_features_per_level": 4},
+                                  {"gather_strategy": "quad", "table_dtype": "bfloat16"}], ids=str)
+@pytest.mark.parametrize("n_dims", [2, 3, 1])
+def test_fixed_point_kernels_match_plain(dev, n_dims, over):
+    """uint32 positions (with 0 and 2^32 - 1 among them) through the lookup
+    (fp32 rtol 1e-5, atol 1e-6; bf16 output within 4 bf16 ulps) and the
+    table gradient (its classes, and every level (RN, bf16))."""
+    enc = create_encoding(n_dims, dict(EXTRAS_GRID, fixed_point_pos=True, **over), alignment=16)
+    enc.output_dtype = torch.float32
+    rng = np.random.default_rng(10 + n_dims)
+    n = 20_000
+    x = _fixed_positions(rng, n, n_dims, dev)
+    params = torch.from_numpy(rng.uniform(-1, 1, enc.n_params).astype(np.float32)).to(dev)
+    before = grid_encode.LAUNCHES
+    got = enc.apply(params, x)
+    assert grid_encode.LAUNCHES == before + 1
+    want = enc.apply_plain(params, x)
+    torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-6)
+    enc.output_dtype = torch.bfloat16
+    _close_bf16(enc.apply(params, x), want)
+    dy = torch.from_numpy(rng.normal(0, 1, (n, enc.padded_output_width)).astype(np.float32)).to(dev).bfloat16()
+    for classes in (torch.from_numpy(enc.gradient_classes(n)).to(dev),
+                    torch.tensor([[scatter_rows.CONTRIB_RN, scatter_rows.ACC_BF16]] * enc.n_levels,
+                                 dtype=torch.int32, device=dev)):
+        _check_levels(enc, _table_grad(enc, x, dy, classes), x, dy, classes)
+    with pytest.raises(ValueError, match="float32"):
+        grid_encode.grid_backward_input(x, dy, params, enc._levels_on(dev), enc.n_features_per_level,
+                                        _interp_code(enc))
+
+
+@pytest.mark.parametrize("case", ["fp32", "bf16", "3d-smoothstep", "nearest"])
+def test_stochastic_table_gradient_matches_plain(dev, case):
+    """One corner per (sample, level) for the same uniforms u in kernel and
+    plain version: the fp32 class, the (RN, bf16) class (bf16 sums), d = 3
+    with Smoothstep and F = 4 (float4 adds), and Nearest (no u: the
+    deterministic one-corner gradient); a stratified flagship-like batch,
+    where long runs of lanes share rows and levels are privatised."""
+    from tcnn_tpu_torch.utils.sampling import stratified_uniform
+
+    d = 3 if case == "3d-smoothstep" else 2
+    over = {"3d-smoothstep": {"interpolation": "Smoothstep", "n_features_per_level": 4},
+            "nearest": {"interpolation": "Nearest"}}.get(case, {})
+    enc = create_encoding(d, dict(FLAGSHIP_GRID, stochastic_interpolation=True, **over), alignment=16)
+    gen = torch.Generator(device=dev).manual_seed(31)
+    n = 2**18 if d == 2 else 64**3
+    x = stratified_uniform(n, d, gen, device=dev)
+    dy = torch.randn((n, enc.padded_output_width), generator=gen, device=dev).bfloat16()
+    u = enc._uniforms(gen, n, dev)
+    assert (u is None) == (case == "nearest")
+    classes = torch.from_numpy(enc.gradient_classes(n, stratified=False)).to(dev)
+    if case == "bf16":
+        classes[:] = torch.tensor([scatter_rows.CONTRIB_RN, scatter_rows.ACC_BF16], dtype=torch.int32)
+    got = _table_grad(enc, x, dy, classes, u)
+    _check_levels(enc, got, x, dy, classes, u)
+    if u is not None:
+        det = _table_grad(enc, x, dy, classes)
+        assert int((got != 0).sum()) < int((det != 0).sum())
+    # Through the encoding: a generator on the card draws u; the forward is
+    # the deterministic lookup.
+    p = torch.zeros(enc.n_params, device=dev, requires_grad=True)
+    before = (grid_encode.LAUNCHES, grid_encode.BWD_LAUNCHES)
+    (g,) = torch.autograd.grad(enc.apply(p, x, rng=gen).float().sum(), p)
+    assert (grid_encode.LAUNCHES, grid_encode.BWD_LAUNCHES) == (before[0] + 1, before[1] + 1)
+    assert torch.isfinite(g).all() and g.any()

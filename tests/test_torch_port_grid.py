@@ -182,15 +182,24 @@ def test_mul32_is_uint32_product(seed):
 
 
 def test_rng_hash_and_fixed_point_raise():
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tenc.create_encoding(2, _cfg(hash="Rng"))
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tenc.create_encoding(2, _cfg(fixed_point_pos=True))
-    # Training under stochastic interpolation (its table gradient) is not
-    # ported either; its forward is.
+    """The grid extras these once raised on are accepted now (their parity
+    with the JAX package: test_torch_port_grid_extras.py): the Rng hash on
+    the hashed levels, fixed_point_pos on uint32 positions only, and a
+    training call under stochastic interpolation."""
+    rng = tenc.create_encoding(2, _cfg(hash="Rng"))
+    # Hashed levels above raster_max_scale (6-7); the raster-additive
+    # hashed levels 4-5 and the dense 0-3 keep their affine modes.
+    modes = rng.level_table()[:, 2]
+    assert [m == ge.MODE_RNG for m in modes] == [rng._level_strides(lvl) is None for lvl in range(8)]
+    assert list(modes[6:]) == [ge.MODE_RNG] * 2
+    fixed = tenc.create_encoding(2, _cfg(fixed_point_pos=True))
+    assert fixed.fixed_point_pos and fixed.apply(torch.zeros(fixed.n_params), torch.zeros((4, 2), dtype=torch.uint32)).shape == (4, 16)
+    with pytest.raises(TypeError, match="uint32"):
+        fixed.apply(torch.zeros(fixed.n_params), torch.zeros((4, 2)))
     st = tenc.create_encoding(2, _cfg(stochastic_interpolation=True, gather_strategy="per_level"))
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        st.apply(torch.zeros(st.n_params, requires_grad=True), torch.zeros((4, 2)))
+    p = torch.zeros(st.n_params, requires_grad=True)
+    (g,) = torch.autograd.grad(st.apply(p, torch.full((4, 2), 0.3)).float().sum(), p)
+    assert g.shape == p.shape and g.any()
 
 
 # Serve-time table_dtype, level by level: the JAX package's FrozenServer
@@ -473,4 +482,4 @@ def test_mod_reciprocal_fields(size):
     else:
         assert 1 <= magic < 2**32 and 2**shift < size < 2**(shift + 1)
     t = ge.level_table([0], [size], [ge.MODE_XOR], [1.0], [[1, 3]]).view(np.uint32)
-    assert t.shape == (1, 28) and (int(t[0, 26]), int(t[0, 27])) == (magic, shift)
+    assert t.shape == (1, 32) and (int(t[0, 26]), int(t[0, 27])) == (magic, shift)
