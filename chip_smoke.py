@@ -88,11 +88,13 @@ Phases, each printing lines of its own; any failure exits non-zero:
    NERF_CONFIG 20 steps through training_steps against 20 training_step
    calls (the graph-vs-loop tolerances).
 12d. the grid extras and the trainer's extras at the flagship's width (B =
-   2^18): the Rng hash's lookup, table gradient, G1 and G2, the
+   2^18): the Rng hash's lookup (bitwise), table gradient, G1 and G2, the
    fixed-point lookup and table gradient (uint32 positions) and the
    stochastic table gradient (the same uniforms; its own classes and every
    level (RN, bf16)) against their plain versions, then timed beside the
-   CoherentAdditive kernels, with the Rng bound from this run's set bits;
+   CoherentAdditive kernels, with the Rng bound from this run's set bits as
+   the kernels hash a cell (the per-corner jump's count beside it, and the
+   share of (sample, Rng level) pairs that took it);
    then FLAGSHIP_CONFIG with each extra in turn (hash Rng,
    fixed_point_pos on uint32 points, stochastic_interpolation through the
    Trainer, Shampoo, perturbation_sigma 0.1): one step kernel vs plain
@@ -173,7 +175,7 @@ TOL_BWD_NOTE = (
     "derivative that jumps, ReLU's at 0 or a bf16 rounding of the recomputed forward, turns an fp32 sum-order "
     "difference into an O(1) change of a few entries)"
 )
-KERNELS = ("ffmlp_fwd", "grid_fwd", "ffmlp_bwd", "adam_step", "grid_bwd", "probe_rows", "sh_encode")
+KERNELS = ("ffmlp_fwd", "grid_fwd", "ffmlp_bwd", "adam_step", "grid_bwd", "grid_bwd_rng", "probe_rows", "sh_encode")
 N_TRAIN_STEPS = 1000
 # PSNR floors of the 1000-step fits (dB) and the JAX package's TPU v5e
 # readings beside them (benchmarks/golden_strat_sr/metrics.json; the
@@ -2543,27 +2545,44 @@ def _popcount(v):
 
 
 def _rng_ops(enc, x):
-    """INT32 instructions the Rng hash needs for these positions: per
-    (sample, Rng level, corner) one 64-bit multiply and one 64-bit
-    multiply-add a set bit of the step, and one multiply-add at the end, 3
-    32-bit multiply-adds each (IMAD.WIDE and two IMAD). The set bits are
-    this run's."""
+    """INT32 instructions the Rng hash needs for these positions, counting
+    3 a 64-bit multiply or multiply-add (IMAD.WIDE and two IMAD), as
+    csrc/grid_common.cuh:rng_corners computes the keys: per (sample, Rng
+    level) whose fields stay apart, a multiply and a multiply-add per set bit
+    of each field (below bit 64), 2 a dim for the upper neighbour's jump and
+    2^(d+1) - 2 multiply-adds for the corners' states; per other pair, and
+    per corner, the per-corner jump (rng_hash): 2 a set bit of the step and 1
+    at the end. Returns (those instructions, the per-corner jump's for every
+    pair, Rng levels, the share of pairs that jumped corner by corner). The
+    set bits are this run's."""
     import torch
 
     from tcnn_tpu_torch.ops import grid_encode as ge
     from tcnn_tpu_torch.ops.pcg32_jump import rng_step
 
     lt = enc.level_table().view(np.uint32).astype(np.int64)
-    bits = torch.from_numpy(ge._corner_bits(2, ge.INTERP_LINEAR)).to(x.device)
-    ops, n_levels = 0, 0
+    d = x.shape[1]
+    w = 64 // d
+    bits = torch.from_numpy(ge._corner_bits(d, ge.INTERP_LINEAR)).to(x.device)
+    ops, per_corner, n_levels, n_corner_pairs, n_pairs = 0, 0, 0, 0, 0
     for row in lt:
         if int(row[2]) != ge.MODE_RNG:
             continue
         pos_grid, _ = ge._level_cell(x, row, ge.INTERP_LINEAR)
-        hi, lo = rng_step((pos_grid[:, None, :] + bits[None]) & 0xFFFFFFFF)
-        ops += int(((_popcount(hi) + _popcount(lo)) * 2 + 1).sum()) * 3
+        p = pos_grid & 0xFFFFFFFF
+        hi, lo = rng_step((p[:, None, :] + bits[None]) & 0xFFFFFFFF)
+        corner_ops = ((_popcount(hi) + _popcount(lo)) * 2 + 1).sum(dim=1) * 3
+        apart = (p != 0xFFFFFFFF).all(dim=1)
+        if w < 32:
+            apart &= (p[:, :-1] + 1 < 2**w).all(dim=1)
+        field_bits = sum(_popcount(p[:, i] & (2 ** min(32, 64 - i * w) - 1)) for i in range(d))
+        cell_ops = (field_bits * 2 + 2 * d + 2 ** (d + 1) - 2) * 3
+        ops += int(torch.where(apart, cell_ops, corner_ops).sum())
+        per_corner += int(corner_ops.sum())
+        n_corner_pairs += int((~apart).sum())
+        n_pairs += len(p)
         n_levels += 1
-    return ops, n_levels
+    return ops, per_corner, n_levels, n_corner_pairs / max(n_pairs, 1)
 
 
 def _extra_kernels(card, flagship):
@@ -2598,7 +2617,10 @@ def _extra_kernels(card, flagship):
         torch.cuda.synchronize()
         check(bool(torch.isfinite(got).all()), f"extras {name}: bad lookup output")
         e = float((got - want).abs().max())
-        check(torch.allclose(got, want, rtol=1e-5, atol=1e-6), f"extras {name}: lookup max|diff| {e:.3e}")
+        if name == "Rng":  # the hash changes no float operation: bit for bit
+            check(torch.equal(got, want), f"extras {name}: lookup not bitwise, max|diff| {e:.3e}")
+        else:
+            check(torch.allclose(got, want, rtol=1e-5, atol=1e-6), f"extras {name}: lookup max|diff| {e:.3e}")
         err[f"{name} fwd"] = e
         enc.output_dtype = torch.bfloat16
         uu = u if name == "stochastic_interpolation" else None
@@ -2625,11 +2647,11 @@ def _extra_kernels(card, flagship):
     log(f"kernel extras (flagship encoding, B=2^18, uniform points with 256 outside [0,1]; fixed point: the same "
         f"points as uint32; stochastic: one uniform per (sample, level) handed to kernel and plain alike): max "
         f"|kernel - plain| " + "; ".join(f"{k} {v:.3e}" for k, v in err.items()) + f"; lookup fp32 rtol 1e-5 atol "
-        f"1e-6, table gradient {CLASS_TOL[0]} / {CLASS_TOL[1]}, G1/G2 {TOL_F32_NOTE}")
+        f"1e-6 (Rng: bitwise), table gradient {CLASS_TOL[0]} / {CLASS_TOL[1]}, G1/G2 {TOL_F32_NOTE}")
 
     # Times: each mode beside the CoherentAdditive kernels, plain, kernel,
     # kernel, plain; bf16 output and dy as on the training path.
-    n_rng_ops, n_rng_levels = _rng_ops(encs["Rng"], x)
+    n_rng_ops, n_corner_ops, n_rng_levels, corner_share = _rng_ops(encs["Rng"], x)
     n_params = encs["Rng"].n_params
     lookup_bytes = B * 2 * 4 + n_params * 4 + B * 32 * 2
     bwd_bytes = B * 2 * 4 + B * 32 * 2 + n_params * 4
@@ -2672,8 +2694,11 @@ def _extra_kernels(card, flagship):
             + (f", bound {b[0]:.4f} ms ({b[1]})" if b else "")
             + ("; no single PyTorch call computes a hashed interpolation" if key[0] != "CoherentAdditive" else ""))
     log(f"extras Rng bound: {n_rng_levels} of 16 levels take the Rng hash; {n_rng_ops:.4e} INT32 instructions "
-        f"for this run's steps (3 a 64-bit multiply-add, 2 a set bit and 1 a corner) at {PEAK_OPS_S['int32']:.4e}/s")
-    return {"err": err, "times": out}
+        f"for this run's cells as the kernels hash them (3 a 64-bit multiply-add; a cell whose fields stay apart: "
+        f"2 a set bit of its fields, 2 a dim and 2^(d+1) - 2 for its corners; else per corner 2 a set bit of its "
+        f"step and 1) at {PEAK_OPS_S['int32']:.4e}/s; the per-corner jump of every cell would take "
+        f"{n_corner_ops:.4e}; (sample, Rng level) pairs that jumped corner by corner: {corner_share:.6f}")
+    return {"err": err, "times": out, "rng_corner_share": corner_share}
 
 
 def _extra_path(name, cfg, card, image, gen):
@@ -2936,7 +2961,7 @@ def main() -> int:
     for name, source, replaces, key, err_key, path, launches_ in (
         ("grid_fwd_rng", "grid_fwd.cu", "tcnn_tpu/encodings/grid.py:89", ("Rng", "fwd"), "Rng fwd",
          "training_steps, hash Rng", ep["Rng"]["launches"]["grid_fwd"]),
-        ("grid_bwd_rng", "grid_bwd.cu", "tcnn_tpu/encodings/grid.py:89", ("Rng", "bwd"), "Rng bwd own classes",
+        ("grid_bwd_rng", "grid_bwd_rng.cu", "tcnn_tpu/encodings/grid.py:89", ("Rng", "bwd"), "Rng bwd own classes",
          "training_steps, hash Rng", ep["Rng"]["launches"]["grid_bwd"]),
         ("grid_fwd_fixed_point", "grid_fwd.cu", "tcnn_tpu/encodings/grid.py:1580", ("fixed_point_pos", "fwd"),
          "fixed_point_pos fwd", "training_steps, fixed_point_pos", ep["fixed_point_pos"]["launches"]["grid_fwd"]),

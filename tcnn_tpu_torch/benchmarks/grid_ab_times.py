@@ -1,20 +1,26 @@
 """The lookup and the table gradient at the flagship (B = 2^18, stratified
-and uniform points) and on the 3D model (uniform points), through the
-public wrappers, and with ``--ptxas`` the grid libraries' build seconds and
-every kernel's registers and spills. Card only.
+and uniform points; with ``"hash": "Rng"`` on uniform points) and on the 3D
+model (uniform points), through the public wrappers; with ``--ptxas`` the
+grid libraries' build seconds and every kernel's registers and spills;
+with ``--steps N`` the flagship training step, as configured and with the
+Rng hash, through ``Trainer.training_steps`` (N steps of one captured step
+replayed). Card only.
 
-Prints one JSON line ``{"times": {...}, "ptxas": {...}}``: CUDA events,
-median of 7 runs of 20 calls each, bf16 output and dL/dy, each encoding in
-its own training classes. For a parent-beside-change pair, copy this file
-into the parent's ``tcnn_tpu_torch/benchmarks/`` and run it from both roots
-in turns (parent, change, change, parent) in one call:
+Prints one JSON line ``{"times": {...}, "ptxas": {...}, "steps": {...}}``:
+kernels by CUDA events, median of 7 runs of 20 calls each, bf16 output and
+dL/dy, each encoding in its own training classes; steps by the host clock
+over N steps synced at their ends, median of 3. For a parent-beside-change
+pair, copy this file into the parent's ``tcnn_tpu_torch/benchmarks/`` and
+run it from both roots in turns (parent, change, change, parent) in one
+call:
 
-    python -m tcnn_tpu_torch.benchmarks.grid_ab_times [--ptxas]
+    python -m tcnn_tpu_torch.benchmarks.grid_ab_times [--ptxas] [--steps 100]
 """
 
 from __future__ import annotations
 
 import argparse
+import copy
 import json
 import statistics
 import time
@@ -23,7 +29,17 @@ FLAGSHIP = {"otype": "HashGrid", "n_levels": 16, "n_features_per_level": 2, "log
             "base_resolution": 16, "per_level_scale": 1.5, "hash": "CoherentAdditive", "gather_strategy": "stratified"}
 MODEL_3D = {"otype": "HashGrid", "n_levels": 16, "n_features_per_level": 2, "log2_hashmap_size": 19,
             "base_resolution": 16, "per_level_scale": 1.5, "hash": "CoherentAdditive"}
+FLAGSHIP_RNG = dict(FLAGSHIP, hash="Rng")
 BATCH = 2**18
+# The libraries the timed calls use (those of them the checkout has).
+LIBRARIES = ("grid_fwd", "grid_bwd", "grid_bwd_rng", "ffmlp_fwd", "ffmlp_bwd", "adam_step")
+
+
+def _build_all():
+    """Builds every library of LIBRARIES the checkout has, in parallel."""
+    from ..ops import _build
+
+    _build.build_libraries(n for n in LIBRARIES if (_build.CSRC / f"{n}.cu").exists())
 
 
 def _event_ms(fn, iters=20, reps=7):
@@ -54,13 +70,13 @@ def times(seed: int = 5) -> dict:
     dev = torch.device("cuda")
     gen = torch.Generator(device=dev).manual_seed(seed)
     out = {}
-    for name, cfg, d in (("flagship", FLAGSHIP, 2), ("3D model", MODEL_3D, 3)):
+    for name, cfg, d in (("flagship", FLAGSHIP, 2), ("flagship Rng", FLAGSHIP_RNG, 2), ("3D model", MODEL_3D, 3)):
         enc = create_encoding(d, cfg, alignment=16)
         enc.output_dtype = torch.bfloat16
         params = torch.rand((enc.n_params,), generator=gen, device=dev) * 2 - 1
         dy = torch.randn((BATCH, enc.padded_output_width), generator=gen, device=dev).bfloat16()
         points = {"uniform": torch.rand((BATCH, d), generator=gen, device=dev)}
-        if d == 2:
+        if cfg is FLAGSHIP:
             points["stratified"] = stratified_uniform(BATCH, 2, gen, device=dev)
         levels = enc._levels_on(dev)
         classes = torch.from_numpy(enc.gradient_classes(BATCH)).to(dev)
@@ -73,6 +89,47 @@ def times(seed: int = 5) -> dict:
     return out
 
 
+def steps(n_steps: int, seed: int = 5) -> dict:
+    """ms a step of FLAGSHIP_CONFIG, and of it with "hash": "Rng", through
+    Trainer.training_steps: stratified batches drawn on the card beforehand
+    (targets a smooth function of x), one call to capture, then the host
+    clock over ``n_steps`` replayed steps synced at their ends, median of 3."""
+    import torch
+
+    import tcnn_tpu_torch as tt
+    from __graft_entry__ import FLAGSHIP_CONFIG
+
+    from ..utils.sampling import stratified_uniform
+
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    xs = torch.stack([stratified_uniform(BATCH, 2, gen) for _ in range(n_steps)])
+    data = {"x": xs, "t": torch.stack([torch.sin(6 * xs[..., 0]), torch.cos(5 * xs[..., 1]),
+                                       xs[..., 0] * xs[..., 1]], -1)}
+
+    def batch(d, i):
+        idx = i.reshape(1).to(torch.int64)
+        return torch.index_select(d["x"], 0, idx)[0], torch.index_select(d["t"], 0, idx)[0]
+
+    out = {}
+    for name, hash_type in (("flagship", None), ("flagship Rng", "Rng")):
+        cfg = copy.deepcopy(FLAGSHIP_CONFIG)
+        if hash_type:
+            cfg["encoding"]["hash"] = hash_type
+        trainer = tt.create_from_config(2, 3, cfg, seed=seed, device=dev).trainer
+        trainer.training_steps(batch, n_steps, data)  # warm-up and capture
+        runs = []
+        for _ in range(3):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            trainer.training_steps(batch, n_steps, data)
+            torch.cuda.synchronize()
+            runs.append((time.perf_counter() - t0) * 1e3 / n_steps)
+        out[f"{name} training_steps ms/step"] = statistics.median(runs)
+        out[f"{name} training_steps runs"] = runs
+    return out
+
+
 def _kernel(readable: str) -> str:
     """A demangled kernel name without its return type and parameters."""
     name = readable.replace("void ", "", 1).replace("<unnamed>::", "")
@@ -80,8 +137,9 @@ def _kernel(readable: str) -> str:
 
 
 def ptxas() -> dict:
-    """Builds grid_fwd and grid_bwd together (unless built) and reads each
-    kernel's registers and spills from the compiler's report."""
+    """Builds the grid libraries together (unless built: grid_fwd, grid_bwd
+    and, where the checkout has it, grid_bwd_rng) and reads each kernel's
+    registers and spills from the compiler's report."""
     from concurrent.futures import ThreadPoolExecutor
 
     from ..ops import _build
@@ -92,8 +150,9 @@ def ptxas() -> dict:
         path = _build.build_library(name)
         return path, time.perf_counter() - t0
 
-    with ThreadPoolExecutor(2) as pool:
-        built = dict(zip(("grid_fwd", "grid_bwd"), pool.map(build, ("grid_fwd", "grid_bwd"))))
+    names = [n for n in ("grid_fwd", "grid_bwd", "grid_bwd_rng") if (_build.CSRC / f"{n}.cu").exists()]
+    with ThreadPoolExecutor(len(names)) as pool:
+        built = dict(zip(names, pool.map(build, names)))
     out = {}
     for name, (path, seconds) in built.items():
         report = parse_ptxas(path.with_suffix(".log").read_text())
@@ -106,13 +165,16 @@ def ptxas() -> dict:
 def main(argv=None) -> dict:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--ptxas", action="store_true", help="also the build seconds, registers and spills")
+    parser.add_argument("--steps", type=int, default=0, help="also the flagship step through training_steps")
     args = parser.parse_args(argv)
     import torch
 
     if not torch.cuda.is_available():
         raise SystemExit("grid_ab_times: needs a CUDA device")
     result = {"ptxas": ptxas() if args.ptxas else None}
+    _build_all()
     result["times"] = times()
+    result["steps"] = steps(args.steps) if args.steps > 0 else None
     result["device"] = torch.cuda.get_device_name(0)
     print(json.dumps(result))
     return result

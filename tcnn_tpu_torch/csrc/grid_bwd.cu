@@ -87,7 +87,11 @@
 // the private copies remove atomics.
 // The contribution is still round(__fmul_rn(w_c, g_f)) with the level's
 // class: the same terms bit for bit; only the order of the sums differs,
-// which the fp32 and bf16 tolerances of the tests allow.
+// which the fp32 and bf16 tolerances of the tests allow. The kernel and
+// its helpers live in grid_table_grad.cuh, shared with grid_bwd_rng.cu,
+// which launches it for tables with Rng levels (fp32 positions, d = 2, 3)
+// with the dims at compile time: an Rng level's keys a cell at once
+// (grid_common.cuh:rng_corners).
 //
 // tcnn_scatter_rows (the generic row scatter, K5/K6) is bound by its
 // atomics: into a small table every address takes a long serial run of
@@ -137,122 +141,11 @@
 #include <stdint.h>
 
 #include "grid_common.cuh"
+#include "grid_table_grad.cuh"
 
 using namespace tcnn_grid;
 
 namespace {
-
-// Contribution rounding and accumulation codes:
-// tcnn_tpu_torch/ops/scatter_rows.py CONTRIB_* and ACC_*.
-enum { kContribNone = 0, kContribRN = 1, kContribSR = 2 };
-enum { kAccF32 = 0, kAccBf16 = 1, kAccDrop = 2 };
-
-__device__ __forceinline__ uint32_t sr_round_bits(uint32_t bits) {
-  uint32_t h = bits * 0x9E3779B9u;
-  h ^= h >> 15;
-  h *= 0x85EBCA6Bu;
-  return (bits + (h >> 16)) & 0xFFFF0000u;
-}
-
-__device__ __forceinline__ float round_contribution(float v, int mode) {
-  if (mode == kContribRN) return __bfloat162float(__float2bfloat16_rn(v));
-  if (mode == kContribSR) return __uint_as_float(sr_round_bits(__float_as_uint(v)));
-  return v;
-}
-
-__device__ __forceinline__ void accumulate(float* out32, __nv_bfloat16* out16, int64_t i, float v,
-                                           int acc) {
-  if (v == 0.0f) return;  // +-0 adds nothing
-  if (acc == kAccBf16) {
-    atomicAdd(out16 + i, __float2bfloat16_rn(v));
-  } else {
-    atomicAdd(out32 + i, v);
-  }
-}
-
-// The table gradient (tcnn_grid_backward): level-major tiles. A block owns
-// `chunk` consecutive samples and takes them `threads` at a time; for each
-// tile it walks the levels in order with one sample per thread, so a warp's
-// 32 lanes are 32 consecutive samples on one level.
-constexpr int kMaxLevels = 128;  // tcnn_tpu_torch/common.py MAX_N_LEVELS
-constexpr int kMaxThreads = 256;
-constexpr int kPlanHeader = 4;
-constexpr unsigned kFullMask = 0xFFFFFFFFu;
-constexpr uint32_t kNoRow = 0xFFFFFFFFu;  // a lane without a sample
-
-// The host's plan (ops/grid_encode.py:backward_plan), by value. Offsets are
-// bytes into the dynamic shared memory.
-struct Plan {
-  int threads, chunk, levels_offset, smem_bytes;
-  int priv_offset[kMaxLevels];  // the level's private copy, or -1
-};
-
-__device__ __forceinline__ float bf16_round(float v) { return __bfloat162float(__float2bfloat16_rn(v)); }
-__device__ __forceinline__ float as_float(float v) { return v; }
-__device__ __forceinline__ float as_float(__nv_bfloat16 v) { return __bfloat162float(v); }
-
-// Sums the contributions of lanes whose rows are equal and whose lanes are
-// neighbours (a run), in fp32 or, with `half`, rounding every add to bf16.
-// Returns whether this lane holds its run's sum (the run's first lane).
-// Warp-uniform: every lane calls it with the same `half`.
-template <int F>
-__device__ __forceinline__ bool merge_runs(uint32_t key, float (&v)[F], bool half) {
-  const int lane = threadIdx.x & 31;
-  const uint32_t prev = __shfl_up_sync(kFullMask, key, 1);
-  const unsigned heads = __ballot_sync(kFullMask, lane == 0 || prev != key);
-  if (heads == kFullMask) return true;  // no two neighbours share a row
-  const unsigned later = heads & ~((2u << lane) - 1u);
-  const int run_end = later ? __ffs(later) - 2 : 31;
-#pragma unroll
-  for (int off = 1; off < 32; off <<= 1) {
-#pragma unroll
-    for (int f = 0; f < F; ++f) {
-      const float o = __shfl_down_sync(kFullMask, v[f], off);
-      if (lane + off <= run_end) v[f] = half ? bf16_round(v[f] + o) : v[f] + o;
-    }
-  }
-  return (heads >> lane) & 1u;
-}
-
-// Adds one row of F fp32 values at p: float4 / float2 vector atomics where F
-// allows (global memory, compute capability 9.x), else scalar atomics.
-template <int F>
-__device__ __forceinline__ void add_row_f32_global(float* p, const float (&v)[F]) {
-  if constexpr (F % 4 == 0) {
-#pragma unroll
-    for (int k = 0; k < F / 4; ++k)
-      atomicAdd(reinterpret_cast<float4*>(p) + k, make_float4(v[4 * k], v[4 * k + 1], v[4 * k + 2], v[4 * k + 3]));
-  } else if constexpr (F % 2 == 0) {
-#pragma unroll
-    for (int k = 0; k < F / 2; ++k) atomicAdd(reinterpret_cast<float2*>(p) + k, make_float2(v[2 * k], v[2 * k + 1]));
-  } else {
-#pragma unroll
-    for (int f = 0; f < F; ++f)
-      if (v[f] != 0.0f) atomicAdd(p + f, v[f]);
-  }
-}
-
-template <int F>
-__device__ __forceinline__ void add_row_f32_shared(float* p, const float (&v)[F]) {
-#pragma unroll
-  for (int f = 0; f < F; ++f)
-    if (v[f] != 0.0f) atomicAdd(p + f, v[f]);
-}
-
-// Adds one row of F bf16 values (each v[f] already a bf16 value) at p, in
-// global or shared memory: bf16x2 atomics where F is even.
-template <int F>
-__device__ __forceinline__ void add_row_bf16(__nv_bfloat16* p, const float (&v)[F]) {
-  if constexpr (F % 2 == 0) {
-#pragma unroll
-    for (int k = 0; k < F / 2; ++k)
-      atomicAdd(reinterpret_cast<__nv_bfloat162*>(p) + k, __floats2bfloat162_rn(v[2 * k], v[2 * k + 1]));
-  } else {
-#pragma unroll
-    for (int f = 0; f < F; ++f)
-      if (v[f] != 0.0f) atomicAdd(p + f, __float2bfloat16_rn(v[f]));
-  }
-}
 
 // The row scatter (tcnn_scatter_rows), laid out by the host's plan
 // (ops/scatter_rows.py:scatter_rows_plan, ScatterRowsPlan.args), entry by
@@ -355,171 +248,22 @@ __global__ void __launch_bounds__(PRIVATE ? kPrivateThreads : kMaxThreads)
   }
 }
 
-// x: fp32 positions, or the uint32 ones of fixed_point_pos (`fixed`). u:
-// null, or stochastic interpolation's (batch, n_levels) uniforms: per
-// (sample, level) one corner, sampled_corner(), takes the whole dL_dy row
-// with weight 1 (tcnn_tpu/encodings/grid.py:_stochastic_combine), so the
-// corner loop runs once; the merges, private copies and atomics are the
-// same. kExtras: the instantiation for those and for Rng levels; without
-// it their code is left out, which keeps the common launch at its register
-// count and occupancy (with it always compiled in, 72 registers instead of
-// 63 gave 3 blocks an SM instead of 4, and the flagship's table gradient
-// took 0.32 ms instead of 0.19: PERF.md).
-template <typename DyT, int F, bool kExtras>
-__global__ void __launch_bounds__(kMaxThreads, 2)
-    grid_backward_kernel(const void* __restrict__ x, const DyT* __restrict__ dy, const Level* __restrict__ levels,
-                         const int* __restrict__ classes, const float* __restrict__ u, float* __restrict__ grad32,
-                         __nv_bfloat16* __restrict__ grad16, int batch, int n_dims, int n_levels, int dy_width,
-                         int interp, int fixed, const Plan plan) {
-  extern __shared__ __align__(16) unsigned char smem[];
-  Level* s_levels = reinterpret_cast<Level*>(smem + plan.levels_offset);
-  int* s_classes = reinterpret_cast<int*>(s_levels + n_levels);
-  const int tid = threadIdx.x, T = blockDim.x;
-  {
-    const int* src = reinterpret_cast<const int*>(levels);
-    int* dst = reinterpret_cast<int*>(s_levels);
-    for (int i = tid; i < n_levels * (int)(sizeof(Level) / 4); i += T) dst[i] = __ldg(src + i);
-    for (int i = tid; i < 2 * n_levels; i += T) s_classes[i] = __ldg(classes + i);
-    uint4* priv = reinterpret_cast<uint4*>(smem);
-    for (int i = tid; i < plan.levels_offset / 16; i += T) priv[i] = make_uint4(0u, 0u, 0u, 0u);
-  }
-  __syncthreads();
-
-  const int64_t start = (int64_t)blockIdx.x * plan.chunk;
-  const int64_t end = start + plan.chunk < batch ? start + plan.chunk : (int64_t)batch;
-  const bool sampled_path = kExtras && u != nullptr;
-  const int n_corners = sampled_path ? 1 : interp == kNearest ? 1 : 1 << n_dims;
-  for (int64_t t0 = start; t0 < end; t0 += T) {
-    const int64_t b = t0 + tid;
-    const bool valid = b < end;
-    for (int lvl = 0; lvl < n_levels; ++lvl) {
-      const int acc = s_classes[2 * lvl + 1];
-      if (acc == kAccDrop) continue;
-      const int contrib = s_classes[2 * lvl];
-      const bool half = acc == kAccBf16;
-      const Level& lv = s_levels[lvl];
-      const int priv = plan.priv_offset[lvl];
-      Cell cell;
-      float g[F];
-      int sampled = 0;
-      if (valid) {
-        if constexpr (kExtras) {
-          cell = fixed ? locate(static_cast<const uint32_t*>(x) + b * n_dims, lv, n_dims, interp)
-                       : locate(static_cast<const float*>(x) + b * n_dims, lv, n_dims, interp);
-          if (sampled_path) sampled = sampled_corner(cell, n_dims, __ldg(u + b * n_levels + lvl));
-        } else {
-          cell = locate(static_cast<const float*>(x) + b * n_dims, lv, n_dims, interp);
-        }
-#pragma unroll
-        for (int f = 0; f < F; ++f)
-          g[f] = as_float(__ldg(dy + b * dy_width + lvl * F + f));
-      }
-      for (int c = 0; c < n_corners; ++c) {
-        uint32_t key = kNoRow;
-        float v[F];
-#pragma unroll
-        for (int f = 0; f < F; ++f) v[f] = 0.0f;
-        if (valid) {
-          float weight;
-          key = corner<kExtras>(cell, lv, n_dims, interp, sampled_path ? sampled : c, &weight);
-          if (sampled_path) weight = 1.0f;
-#pragma unroll
-          for (int f = 0; f < F; ++f) {
-            const float t = round_contribution(__fmul_rn(weight, g[f]), contrib);
-            v[f] = half ? bf16_round(t) : t;
-          }
-        }
-        if (!merge_runs<F>(key, v, half) || key == kNoRow) continue;
-        bool any = false;
-#pragma unroll
-        for (int f = 0; f < F; ++f) any |= v[f] != 0.0f;
-        if (!any) continue;  // +-0 adds nothing
-        if (priv >= 0) {
-          if (half) {
-            add_row_bf16<F>(reinterpret_cast<__nv_bfloat16*>(smem + priv) + (int64_t)key * F, v);
-          } else {
-            add_row_f32_shared<F>(reinterpret_cast<float*>(smem + priv) + (int64_t)key * F, v);
-          }
-        } else {
-          const int64_t row = ((int64_t)lv.offset + key) * F;
-          if (half) {
-            add_row_bf16<F>(grad16 + row, v);
-          } else {
-            add_row_f32_global<F>(grad32 + row, v);
-          }
-        }
-      }
-    }
-  }
-  __syncthreads();
-
-  // Flush each privatised level's non-zero rows with one add each.
-  for (int lvl = 0; lvl < n_levels; ++lvl) {
-    const int priv = plan.priv_offset[lvl];
-    if (priv < 0) continue;
-    const Level& lv = s_levels[lvl];
-    const bool half = s_classes[2 * lvl + 1] == kAccBf16;
-    for (uint32_t r = tid; r < lv.size; r += T) {
-      float v[F];
-      bool any = false;
-#pragma unroll
-      for (int f = 0; f < F; ++f) {
-        v[f] = half ? __bfloat162float(reinterpret_cast<const __nv_bfloat16*>(smem + priv)[(int64_t)r * F + f])
-                    : reinterpret_cast<const float*>(smem + priv)[(int64_t)r * F + f];
-        any |= v[f] != 0.0f;
-      }
-      if (!any) continue;
-      const int64_t row = ((int64_t)lv.offset + r) * F;
-      if (half) {
-        add_row_bf16<F>(grad16 + row, v);
-      } else {
-        add_row_f32_global<F>(grad32 + row, v);
-      }
-    }
-  }
-}
-
-template <typename DyT, int F>
-cudaError_t launch_tiled(unsigned blocks, const Plan& plan, cudaStream_t s, const void* x, const DyT* dy,
+// The table gradient's instantiations with the dims at run time: the
+// common one, and kExtras for uint32 positions, u or an Rng level
+// (tcnn_grid_backward_rng, grid_bwd_rng.cu, takes an Rng table with fp32
+// positions and d = 2, 3).
+struct CommonOrExtras {
+  template <typename DyT, int F>
+  static cudaError_t run(unsigned blocks, const Plan& plan, cudaStream_t s, const void* x, const DyT* dy,
                          const Level* levels, const int* classes, const float* u, float* grad32,
                          __nv_bfloat16* grad16, int batch, int n_dims, int n_levels, int dy_width, int interp,
                          int fixed, int rng_levels) {
-  // Above 48 KB a block's dynamic shared memory must be allowed first. The
-  // attribute holds for the current device only, so every such launch sets it.
-  const bool extras = fixed || u != nullptr || rng_levels;
-  auto kernel = extras ? grid_backward_kernel<DyT, F, true> : grid_backward_kernel<DyT, F, false>;
-  if (plan.smem_bytes > 48 * 1024) {
-    const cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, plan.smem_bytes);
-    if (err != cudaSuccess) return err;
+    const bool extras = fixed || u != nullptr || rng_levels;
+    return (extras ? launch_tiled<DyT, F, true, 0> : launch_tiled<DyT, F, false, 0>)(
+        blocks, plan, s, x, dy, levels, classes, u, grad32, grad16, batch, n_dims, n_levels, dy_width, interp,
+        fixed);
   }
-  kernel<<<blocks, plan.threads, plan.smem_bytes, s>>>(x, dy, levels, classes, u, grad32, grad16, batch, n_dims,
-                                                       n_levels, dy_width, interp, fixed, plan);
-  return cudaGetLastError();
-}
-
-template <typename DyT>
-cudaError_t launch_by_features(int F, unsigned blocks, const Plan& plan, cudaStream_t s, const void* x, const DyT* dy,
-                               const Level* levels, const int* classes, const float* u, float* grad32,
-                               __nv_bfloat16* grad16, int batch, int n_dims, int n_levels, int dy_width, int interp,
-                               int fixed, int rng_levels) {
-#define TCNN_GRID_BWD_CASE(NF)                                                                                  \
-  case NF:                                                                                                      \
-    return launch_tiled<DyT, NF>(blocks, plan, s, x, dy, levels, classes, u, grad32, grad16, batch, n_dims,      \
-                                 n_levels, dy_width, interp, fixed, rng_levels);
-  switch (F) {
-    TCNN_GRID_BWD_CASE(1)
-    TCNN_GRID_BWD_CASE(2)
-    TCNN_GRID_BWD_CASE(3)
-    TCNN_GRID_BWD_CASE(4)
-    TCNN_GRID_BWD_CASE(5)
-    TCNN_GRID_BWD_CASE(6)
-    TCNN_GRID_BWD_CASE(7)
-    TCNN_GRID_BWD_CASE(8)
-    default:
-      return cudaErrorInvalidValue;
-  }
-#undef TCNN_GRID_BWD_CASE
-}
+};
 
 // G1 and G2: level-major tiles, as the lookup (grid_fwd.cu). A block of
 // kWarps warps owns kTile = 32 consecutive samples, one a lane; warp w takes
@@ -874,23 +618,6 @@ size_t second_order_smem(int n_levels, int n_dims, int row_stride) {
   return n_levels * (sizeof(Level) + 8) + (size_t)kWarps * n_dims * kTile * 4 + (size_t)kTile * row_stride * 4;
 }
 
-// Copies the bf16 sums into the fp32 output. An entry takes adds in one of
-// the two buffers only (its level's class picks which), so a non-zero bf16
-// sum lands on an fp32 zero and is stored, not added: the fp32 output is not
-// read.
-__global__ void fold_bf16_kernel(float* __restrict__ out32, const __nv_bfloat16* __restrict__ in16,
-                                 int64_t n) {
-  const int64_t i = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
-  if (i < n) {
-    const float v = __bfloat162float(in16[i]);
-    if (v != 0.0f) out32[i] = v;
-  }
-}
-
-constexpr int kThreads = 256;
-
-unsigned blocks_for(int64_t n) { return (unsigned)((n + kThreads - 1) / kThreads); }
-
 }  // namespace
 
 // Both entry points return the cudaError_t of their launches (0 on
@@ -963,41 +690,8 @@ extern "C" int tcnn_grid_backward(const void* x, const void* dy, const void* lev
                                   const void* u, void* grad32, void* grad16, int batch, int n_dims, int n_levels,
                                   int F, int dy_width, int interp, int dy_bf16, int fixed_point, int rng_levels,
                                   int64_t n_values, const void* plan, void* stream) {
-  if (n_dims < 1 || n_dims > kMaxDims || F < 1 || F > kMaxF || n_levels < 1 || n_levels > kMaxLevels ||
-      plan == nullptr)
-    return (int)cudaErrorInvalidValue;
-  const int* ph = static_cast<const int*>(plan);
-  Plan p;
-  p.threads = ph[0];
-  p.chunk = ph[1];
-  p.levels_offset = ph[2];
-  p.smem_bytes = ph[3];
-  for (int l = 0; l < kMaxLevels; ++l) p.priv_offset[l] = l < n_levels ? ph[kPlanHeader + l] : -1;
-  if (p.threads < 32 || p.threads > kMaxThreads || p.threads % 32 || p.chunk < p.threads || p.chunk % p.threads ||
-      p.levels_offset % 16 || p.smem_bytes < p.levels_offset + n_levels * (int)(sizeof(Level) + 8))
-    return (int)cudaErrorInvalidValue;
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  cudaError_t err = cudaMemsetAsync(grad32, 0, n_values * 4, s);
-  if (err == cudaSuccess && grad16 != nullptr) err = cudaMemsetAsync(grad16, 0, n_values * 2, s);
-  if (err != cudaSuccess) return (int)err;
-  if (batch > 0) {
-    const unsigned blocks = (unsigned)(((int64_t)batch + p.chunk - 1) / p.chunk);
-    const Level* lv = static_cast<const Level*>(levels);
-    const int* cls = static_cast<const int*>(classes);
-    const float* uf = static_cast<const float*>(u);
-    float* g32 = static_cast<float*>(grad32);
-    __nv_bfloat16* g16 = static_cast<__nv_bfloat16*>(grad16);
-    err = dy_bf16 ? launch_by_features(F, blocks, p, s, x, static_cast<const __nv_bfloat16*>(dy), lv, cls, uf, g32,
-                                       g16, batch, n_dims, n_levels, dy_width, interp, fixed_point, rng_levels)
-                  : launch_by_features(F, blocks, p, s, x, static_cast<const float*>(dy), lv, cls, uf, g32, g16,
-                                       batch, n_dims, n_levels, dy_width, interp, fixed_point, rng_levels);
-    if (err != cudaSuccess) return (int)err;
-  }
-  if (grad16 != nullptr) {
-    fold_bf16_kernel<<<blocks_for(n_values), kThreads, 0, s>>>(
-        static_cast<float*>(grad32), static_cast<const __nv_bfloat16*>(grad16), n_values);
-  }
-  return (int)cudaGetLastError();
+  return table_gradient<CommonOrExtras>(x, dy, levels, classes, u, grad32, grad16, batch, n_dims, n_levels, F,
+                                        dy_width, interp, dy_bf16, fixed_point, rng_levels, n_values, plan, stream);
 }
 
 // dx (batch, n_dims) fp32: the input gradient of the lookup for output

@@ -44,6 +44,19 @@
 //   __constant__ memory at the loop counter, the same address for every
 //   lane (a broadcast). Only hashed levels of an encoding with "hash":
 //   "Rng" take this mode; the others never enter its branch.
+//   With the dims at compile time (D = 1, 2, 3) rng_corners() hashes a
+//   whole cell at once. Every jump is a power of one LCG: the jumps commute,
+//   J(a + b) = J(a) o J(b), with period 2^64. Where the corners' fields
+//   stay apart (p_i + 1 < 2^(64 / D) for every field but the top one) and
+//   no coordinate wraps (p_i + 1 < 2^32), the XOR of the shifted
+//   coordinates is their sum, so corner c's jump is the product over dims
+//   of J(p_i << s_i), times J(1 << s_i) (kPcgJump[s_i]) where bit i of c is
+//   set: one loop over the fields' own bits (all D fields in it, each a
+//   chain of its own), one composition a dim, then 2^D multiply-adds from
+//   the seeded state (tests/test_torch_port_rng_fields.py models it with
+//   Python integers). A cell outside that condition (negative or huge
+//   coordinates) takes the per-corner jump. At the flagship's finest level
+//   (p < 2^13, D = 2) that is 13 loop steps a cell instead of ~45 a corner.
 
 #pragma once
 
@@ -141,6 +154,13 @@ static __constant__ PcgJump kPcgJump[64] = {
     {0x0000000000000001ull, 0x4000000000000000ull}, {0x0000000000000001ull, 0x8000000000000000ull},
 };
 
+// pcg32's output of state s (next_uint() reads the state before its step).
+__device__ __forceinline__ uint32_t pcg32_output(uint64_t s) {
+  const uint32_t xorshifted = (uint32_t)(((s >> 18) ^ s) >> 27);
+  const uint32_t rot = (uint32_t)(s >> 59);
+  return (xorshifted >> rot) | (xorshifted << ((32u - rot) & 31u));
+}
+
 // pcg32(1337).advance(step).next_uint(). The loop runs to the step's
 // highest set bit; every lane reads the pair at the loop counter.
 __device__ __forceinline__ uint32_t pcg32_jump_output(uint64_t step) {
@@ -154,10 +174,7 @@ __device__ __forceinline__ uint32_t pcg32_jump_output(uint64_t step) {
       acc_plus = acc_plus * j.mult + j.plus;
     }
   }
-  const uint64_t s = acc_mult * kPcgState0 + acc_plus;
-  const uint32_t xorshifted = (uint32_t)(((s >> 18) ^ s) >> 27);
-  const uint32_t rot = (uint32_t)(s >> 59);
-  return (xorshifted >> rot) | (xorshifted << ((32u - rot) & 31u));
+  return pcg32_output(acc_mult * kPcgState0 + acc_plus);
 }
 
 // A sample's cell on one level: grid position, interpolation fractions and
@@ -178,6 +195,63 @@ __device__ __forceinline__ uint32_t rng_hash(const Cell& cell, int n_dims, int c
     if (d < n_dims) step ^= (uint64_t)(cell.pg[d] + ((c >> d) & 1)) << (d * (64 / n_dims));
   }
   return pcg32_jump_output(step);
+}
+
+// The Rng keys of all 2^D corners of a cell (D = 1, 2, 3: the dims at
+// compile time), key c as rng_hash(cell, D, c) gives it: the field-
+// decomposed jump of the head of this file where the cell's fields stay
+// apart, else corner by corner. The loop runs to the highest set bit of any
+// coordinate; at step k every lane reads the pairs of bits s_i + k.
+template <int D>
+__device__ __forceinline__ void rng_corners(const Cell& cell, uint32_t (&keys)[1 << D]) {
+  constexpr int kW = 64 / D;  // field width: field i starts at bit i * kW
+  bool apart = true;
+  uint32_t any = 0;
+#pragma unroll
+  for (int d = 0; d < D; ++d) {
+    const uint32_t p = cell.pg[d];
+    apart &= p != 0xFFFFFFFFu;
+    if constexpr (kW < 32) {
+      if (d < D - 1) apart &= p + 1u < (1u << kW);
+    }
+    any |= p;
+  }
+  if (!apart) {
+#pragma unroll
+    for (int c = 0; c < (1 << D); ++c) keys[c] = rng_hash(cell, D, c);
+    return;
+  }
+  uint64_t mult[D], plus[D];  // J(p_i << s_i), field by field
+#pragma unroll
+  for (int d = 0; d < D; ++d) mult[d] = 1, plus[d] = 0;
+  const int top = 32 - __clz(any);
+#pragma unroll 1
+  for (int k = 0; k < top; ++k) {
+#pragma unroll
+    for (int d = 0; d < D; ++d) {
+      const int bit = d * kW + k;  // past bit 63 (the top field): the period
+      if ((d < D - 1 || bit < 64) && ((cell.pg[d] >> k) & 1)) {
+        const PcgJump j = kPcgJump[bit];
+        mult[d] *= j.mult;
+        plus[d] = plus[d] * j.mult + j.plus;
+      }
+    }
+  }
+  // The corners' states: dim d doubles them, lower and upper neighbour.
+  uint64_t s[1 << D];
+  s[0] = kPcgState0;
+#pragma unroll
+  for (int d = 0; d < D; ++d) {
+    const PcgJump one = kPcgJump[d * kW];
+    const uint64_t up_mult = mult[d] * one.mult, up_plus = plus[d] * one.mult + one.plus;
+#pragma unroll
+    for (int c = 0; c < (1 << d); ++c) {
+      s[c + (1 << d)] = up_mult * s[c] + up_plus;
+      s[c] = mult[d] * s[c] + plus[d];
+    }
+  }
+#pragma unroll
+  for (int c = 0; c < (1 << D); ++c) keys[c] = pcg32_output(s[c]);
 }
 
 // Grid position and fraction of one coordinate: fp32 positions, or the
@@ -263,6 +337,26 @@ __device__ __forceinline__ uint32_t corner(const Cell& cell, const Level& lv, in
     if (lv.mode == kRng) h = rng_hash(cell, n_dims, c);
   }
   return lv.mode == kQuad ? add_mod(cell.base, delta, lv.size) : reduce(h, lv);
+}
+
+// Corner c's interpolation weight alone, as corner() computes it.
+__device__ __forceinline__ float corner_weight(const Cell& cell, int n_dims, int interp, int c) {
+  float wt = 1.0f;
+#pragma unroll
+  for (int d = 0; d < kMaxDims; ++d) {
+    if (d < n_dims && interp != kNearest) wt = __fmul_rn(wt, (c >> d) & 1 ? cell.w[d] : __fsub_rn(1.0f, cell.w[d]));
+  }
+  return wt;
+}
+
+// corner() with the dims at compile time, for a cell whose Rng keys
+// (rng_corners(); read on an Rng level only) are at hand.
+template <int D>
+__device__ __forceinline__ uint32_t corner_of(const Cell& cell, const Level& lv, int interp, int c,
+                                              const uint32_t (&rng_keys)[1 << D], float* weight) {
+  if (lv.mode != kRng) return corner<false>(cell, lv, D, interp, c, weight);
+  *weight = corner_weight(cell, D, interp, c);
+  return reduce(rng_keys[c], lv);
 }
 
 // Stochastic interpolation's corner of a cell for the uniform u: bit d set

@@ -49,6 +49,15 @@
 // division subroutine is left in the SASS (944 instructions at d = 2, F =
 // 2, bf16).
 //
+// An Rng level (the kExtras instantiation) with the dims at compile time
+// takes its 2^d keys a cell at once from grid_common.cuh's rng_corners():
+// one loop over the coordinate fields' own bits, then 2^d multiply-adds,
+// where one 64-bit jump a corner looped to the step's highest set bit
+// (~45 of 64 at d = 2). Flagship encoding with "hash": "Rng", uniform
+// points, B = 2^18: 0.1102-0.1151 ms against 0.2763-0.2784 for the
+// per-corner jump in the same call (benchmarks/grid_ab_times.py, NVIDIA
+// H100 80GB HBM3, 700 W; the CoherentAdditive lookup 0.087-0.089).
+//
 // tcnn_grid_forward_v1 keeps the earlier kernel (one thread per (sample,
 // level), level fastest, 64-bit index division and remainders, scalar
 // reads) for chip_smoke.py's A/B and the on-card bitwise check; no path of
@@ -73,8 +82,9 @@ __device__ __forceinline__ void store(float* p, float v) { *p = v; }
 __device__ __forceinline__ void store(__nv_bfloat16* p, float v) { *p = __float2bfloat16_rn(v); }
 
 // One (sample, level) of the cell `cell`: the F sums in corner order. D > 0:
-// the dims at compile time (every corner's row first, then all loads, then
-// the sums); D = 0: n_dims at run time, corner by corner.
+// the dims at compile time (every corner's row first, an Rng level's keys
+// for the whole cell at once, then all loads, then the sums); D = 0: n_dims
+// at run time, corner by corner.
 template <int F, int D, bool kExtras>
 __device__ __forceinline__ void interpolate(const Cell& cell, const float* __restrict__ params,
                                             const Level& lv, int n_dims, int interp, bool aligned, float (&acc)[F]) {
@@ -86,9 +96,18 @@ __device__ __forceinline__ void interpolate(const Cell& cell, const float* __res
     constexpr int C = 1 << D;
     uint32_t g[C];
     float w[C], v[C][F];
+    if constexpr (kExtras) {
+      uint32_t keys[C];
+      if (lv.mode == kRng) rng_corners<D>(cell, keys);
 #pragma unroll
-    for (int c = 0; c < C; ++c) {
-      if (c < n_corners) g[c] = lv.offset + corner<kExtras>(cell, lv, D, interp, c, &w[c]);
+      for (int c = 0; c < C; ++c) {
+        if (c < n_corners) g[c] = lv.offset + corner_of<D>(cell, lv, interp, c, keys, &w[c]);
+      }
+    } else {
+#pragma unroll
+      for (int c = 0; c < C; ++c) {
+        if (c < n_corners) g[c] = lv.offset + corner<false>(cell, lv, D, interp, c, &w[c]);
+      }
     }
 #pragma unroll
     for (int c = 0; c < C; ++c) {

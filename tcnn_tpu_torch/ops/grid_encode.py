@@ -781,8 +781,11 @@ def grid_backward(
     CUDA ``x``, ``levels`` and ``level_round`` ((L, 2) int32 classes) must
     lie on that device, and the kernel ``tcnn_grid_backward`` runs with
     ``plan`` (``backward_plan`` of these tables and batch; None: made here,
-    which reads the tables back from the device). ``u``: stochastic
-    interpolation's (B, L) fp32 uniforms (see ``grid_backward_plain``)."""
+    which reads the tables back from the device); a table with an Rng level,
+    fp32 positions, no ``u`` and d = 2 or 3 takes its instantiation with the
+    dims at compile time (``tcnn_grid_backward_rng``: an Rng level's keys a
+    cell at once). ``u``: stochastic interpolation's (B, L) fp32 uniforms
+    (see ``grid_backward_plain``)."""
     if x.device.type == "cpu":
         return grid_backward_plain(x, dL_dy, levels, n_features_per_level, interpolation, level_round, u)
     if x.device.type != "cuda":
@@ -807,12 +810,15 @@ def grid_backward(
     from ._build import kernel, stream
 
     global BWD_LAUNCHES
-    _launch("grid_backward", kernel("grid_bwd", "tcnn_grid_backward", _BWD_ARGS)(
+    rng = _rng_levels(levels)
+    fixed = x.dtype == torch.uint32
+    library, symbol = (("grid_bwd_rng", "tcnn_grid_backward_rng") if rng and not fixed and u is None and d in (2, 3)
+                       else ("grid_bwd", "tcnn_grid_backward"))
+    _launch("grid_backward", kernel(library, symbol, _BWD_ARGS)(
         x.data_ptr(), dL_dy.data_ptr(), levels.data_ptr(), level_round.data_ptr(),
         None if u is None else u.data_ptr(), grad.data_ptr(), None if grad16 is None else grad16.data_ptr(),
         batch, d, n_levels, F, dL_dy.shape[1], int(interpolation), int(dL_dy.dtype == torch.bfloat16),
-        int(x.dtype == torch.uint32), int(_rng_levels(levels)), n_values, plan.array.ctypes.data,
-        stream(x.get_device()),
+        int(fixed), int(rng), n_values, plan.array.ctypes.data, stream(x.get_device()),
     ))
     BWD_LAUNCHES += 1
     return grad

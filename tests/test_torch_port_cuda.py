@@ -1366,20 +1366,55 @@ def _fixed_positions(rng, n, d, dev):
     return torch.from_numpy(x.astype(np.int64)).to(torch.uint32).to(dev)
 
 
+def _rng_edge_points(enc, rng, n_dims):
+    """Points that put an Rng level's cell outside the field-decomposed
+    jump's condition (csrc/grid_common.cuh:rng_corners): grid position
+    0xFFFFFFFF (x = -1 / scale) in one dim and in all, on every Rng level;
+    coordinates of 2^22 and more (large x). Asserts that both occur."""
+    lt = enc.level_table()
+    rows = lt[lt[:, 2] == grid_encode.MODE_RNG]
+    scales = rows[:, 3].view(np.float32).astype(np.float64)
+    base = rng.uniform(0, 1, (len(scales) * (n_dims + 1), n_dims))
+    for j, s in enumerate(scales):
+        for k in range(n_dims + 1):
+            if k < n_dims:
+                base[j * (n_dims + 1) + k, k] = -1 / s
+            else:
+                base[j * (n_dims + 1) + k] = -1 / s
+    big = rng.uniform(0, 1, (512, n_dims))
+    big[:, 0] = 2.0**22 / scales.min() * rng.uniform(1, 2, 512)
+    pts = np.concatenate([base, big]).astype(np.float32)
+    cells = [grid_encode._level_cell(torch.from_numpy(pts), row.view(np.uint32).astype(np.int64),
+                                     grid_encode.INTERP_LINEAR)[0] & 0xFFFFFFFF for row in rows]
+    assert all(bool((c == 0xFFFFFFFF).any()) for c in cells)
+    assert any(bool((c >= 2**22).any()) for c in cells)
+    return pts
+
+
 @pytest.mark.parametrize("interp", ["Linear", "Smoothstep"])
-@pytest.mark.parametrize("n_dims", [2, 3])
+@pytest.mark.parametrize("n_dims", [1, 2, 3, 4])
 def test_rng_hash_kernels_match_plain(dev, n_dims, interp):
-    """The Rng hash in the lookup (fp32 rtol 1e-5, atol 1e-6), the table
-    gradient (level by level in its classes) and G1 / G2 (``_close_f32``)."""
-    enc = create_encoding(n_dims, dict(EXTRAS_GRID, hash="Rng", interpolation=interp), alignment=16)
+    """The Rng hash in the lookup (fp32: bitwise at d = 1, 2; at d = 3, 4
+    rtol 1e-5, atol 1e-6, where torch's reduction adds the corners or
+    multiplies the weights in another order, 1-2 ulps apart), the table
+    gradient (level by level in its classes) and G1 / G2 (``_close_f32``):
+    d = 2, 3 take the whole-cell keys (rng_corners), d = 1, 4 the run-time
+    dims' per-corner jump; among the points those whose Rng cells take the
+    per-corner path (grid position 0xFFFFFFFF, large x). Then the same hash
+    with fixed_point_pos (uint32 positions: the lookup as above, the table
+    gradient in its classes)."""
+    cfg = dict(EXTRAS_GRID, hash="Rng", interpolation=interp, **({"log2_hashmap_size": 6} if n_dims == 1 else {}))
+    enc = create_encoding(n_dims, cfg, alignment=16)
     enc.output_dtype = torch.float32
     levels = enc._levels_on(dev)
     assert int((levels[:, 2] == grid_encode.MODE_RNG).sum()) >= 2
     rng = np.random.default_rng(n_dims)
-    n = 30_001
-    x = torch.from_numpy(rng.uniform(-0.2, 1.2, (n, n_dims)).astype(np.float32)).to(dev)
+    x_np = rng.uniform(-0.2, 1.2, (30_001, n_dims)).astype(np.float32)
+    x = torch.from_numpy(np.concatenate([x_np, _rng_edge_points(enc, rng, n_dims)])).to(dev)
+    n = len(x)
     params = torch.from_numpy(rng.uniform(-1, 1, enc.n_params).astype(np.float32)).to(dev)
-    torch.testing.assert_close(enc.apply(params, x), enc.apply_plain(params, x), rtol=1e-5, atol=1e-6)
+    tol = {"rtol": 0, "atol": 0} if n_dims <= 2 else {"rtol": 1e-5, "atol": 1e-6}
+    torch.testing.assert_close(enc.apply(params, x), enc.apply_plain(params, x), **tol)
     dy = torch.from_numpy(rng.normal(0, 1, (n, enc.padded_output_width)).astype(np.float32)).to(dev).bfloat16()
     classes = torch.from_numpy(enc.gradient_classes(n)).to(dev)
     classes[1::2] = torch.tensor([scatter_rows.CONTRIB_SR, scatter_rows.ACC_BF16], dtype=torch.int32)
@@ -1394,6 +1429,15 @@ def test_rng_hash_kernels_match_plain(dev, n_dims, interp):
     want = grid_encode.grid_backward_backward_plain(x, dy, params, *args, f32, cgp, cgx)
     for a, b in zip(got, want):
         _close_f32(a, b)
+    # fixed_point_pos: the lookup's kExtras instantiation (whole-cell keys
+    # at d = 2, 3), the table gradient's (per corner).
+    encf = create_encoding(n_dims, dict(cfg, fixed_point_pos=True), alignment=16)
+    encf.output_dtype = torch.float32
+    xf = _fixed_positions(rng, 8192, n_dims, dev)
+    torch.testing.assert_close(encf.apply(params, xf), encf.apply_plain(params, xf), **tol)
+    dyf = dy[: len(xf)].contiguous()
+    classes_f = torch.from_numpy(encf.gradient_classes(len(xf))).to(dev)
+    _check_levels(encf, _table_grad(encf, xf, dyf, classes_f), xf, dyf, classes_f)
 
 
 @pytest.mark.parametrize("over", [{}, {"interpolation": "Smoothstep", "hash": "Rng"}, {"n_features_per_level": 4},
