@@ -175,7 +175,8 @@ TOL_BWD_NOTE = (
     "derivative that jumps, ReLU's at 0 or a bf16 rounding of the recomputed forward, turns an fp32 sum-order "
     "difference into an O(1) change of a few entries)"
 )
-KERNELS = ("ffmlp_fwd", "grid_fwd", "ffmlp_bwd", "adam_step", "grid_bwd", "grid_bwd_rng", "probe_rows", "sh_encode")
+KERNELS = ("ffmlp_fwd", "grid_fwd", "ffmlp_bwd", "adam_step", "grid_bwd", "grid_bwd_rng", "grid_bwd_modes", "probe_rows",
+           "sh_encode")
 N_TRAIN_STEPS = 1000
 # PSNR floors of the 1000-step fits (dB) and the JAX package's TPU v5e
 # readings beside them (benchmarks/golden_strat_sr/metrics.json; the
@@ -249,11 +250,11 @@ def phase_build():
     from tcnn_tpu_torch.ops import _build
 
     t0 = time.perf_counter()
-    paths = _build.build_libraries(KERNELS)
+    built = _build.build_libraries_timed(KERNELS)
     dt = time.perf_counter() - t0
-    for name, path in paths.items():
+    for name, (path, seconds) in built.items():
         src = os.path.relpath(_build.CSRC / f"{name}.cu")
-        log(f"build: {src} -> {os.path.relpath(path)} (all {len(paths)} in parallel: {dt:.1f} s)")
+        log(f"build: {src} -> {os.path.relpath(path)} ({seconds:.1f} s; all {len(built)} in parallel: {dt:.1f} s)")
         logfile = path.with_suffix(".log")
         if logfile.exists():
             report = parse_ptxas(logfile.read_text())
@@ -2008,20 +2009,27 @@ def _record(result, op, shape, source):
 
 
 def _counters(table):
+    """A table of counts, name -> (module, attribute) or (module, attribute,
+    key) for a count kept in a dict (the table gradient's by route), as
+    (module object, attribute, key or None)."""
     from tcnn_tpu_torch.ops import ffmlp, fused_adam, grid_encode, probe_rows, scatter_rows, sh_encode
 
     mods = {"ffmlp": ffmlp, "fused_adam": fused_adam, "grid_encode": grid_encode, "probe_rows": probe_rows,
             "scatter_rows": scatter_rows, "sh_encode": sh_encode}
-    return {name: (mods[mod], attr) for name, (mod, attr) in table.items()}
+    return {name: (mods[spec[0]], spec[1], spec[2] if len(spec) > 2 else None) for name, spec in table.items()}
 
 
 def _zero_counts(table):
-    for mod, attr in _counters(table).values():
-        setattr(mod, attr, 0)
+    for mod, attr, key in _counters(table).values():
+        if key is None:
+            setattr(mod, attr, 0)
+        else:
+            getattr(mod, attr)[key] = 0
 
 
 def _read_counts(table):
-    return {name: getattr(mod, attr) for name, (mod, attr) in _counters(table).items()}
+    return {name: getattr(mod, attr) if key is None else getattr(mod, attr).get(key, 0)
+            for name, (mod, attr, key) in _counters(table).items()}
 
 
 def phase_probes(card):
@@ -2512,6 +2520,14 @@ def phase_nerf_graph(card):
 # perturbation_sigma = 0.1.
 EXTRA_FIT_STEPS = 100
 EXTRA_PATHS = ("Rng", "fixed_point_pos", "stochastic_interpolation", "Shampoo", "perturbation_sigma")
+# The table gradient's instantiation (library, C entry point) of each grid
+# extra at the flagship's d = 2 (ops/grid_encode.py:_backward_route); the
+# Trainer's stochastic_interpolation is deterministic: the common one.
+EXTRA_ROUTES = {
+    "Rng": ("grid_bwd_rng", "tcnn_grid_backward_rng"),
+    "fixed_point_pos": ("grid_bwd_modes", "tcnn_grid_backward_fixed"),
+    "stochastic_interpolation": ("grid_bwd_modes", "tcnn_grid_backward_sampled"),
+}
 
 
 def _extra_config(flagship, name):
@@ -2629,8 +2645,12 @@ def _extra_kernels(card, flagship):
         if name == "stochastic_interpolation":
             classes_sets["(RN, bf16)"] = torch.tensor([[CONTRIB_RN, ACC_BF16]] * enc.n_levels, dtype=torch.int32,
                                                       device=dev)
+        route = EXTRA_ROUTES[name]
         for label, classes in classes_sets.items():
+            before = ge.BWD_ROUTE_LAUNCHES.get(route, 0)
             g = ge.grid_backward(xe, dy, enc._levels_on(dev), 2, ge.INTERP_LINEAR, classes, u=uu)
+            check(ge.BWD_ROUTE_LAUNCHES.get(route, 0) == before + 1,
+                  f"extras {name} table gradient: {route[1]} of {route[0]} was not launched")
             e = _levels_check(enc, g, xe, dy, classes, f"extras {name} table gradient ({label})", u=uu)
             err[f"{name} bwd {label}"] = e
     # G1 and G2 under Rng (not on a training path: the kernels' check).
@@ -2693,6 +2713,12 @@ def _extra_kernels(card, flagship):
             f"{k:.4f} ms, plain {p:.4f} ms (CUDA events, medians of plain, kernel, kernel, plain)"
             + (f", bound {b[0]:.4f} ms ({b[1]})" if b else "")
             + ("; no single PyTorch call computes a hashed interpolation" if key[0] != "CoherentAdditive" else ""))
+    ca = out[("CoherentAdditive", "bwd")]["kernel"]
+    fixed, sampled = out[("fixed_point_pos", "bwd")]["kernel"], out[("stochastic_interpolation", "bwd")]["kernel"]
+    log(f"time [{card}]: extras table gradients beside CoherentAdditive's over the same points ({ca:.4f} ms): "
+        f"fixed_point_pos ({EXTRA_ROUTES['fixed_point_pos'][1]}) {fixed:.4f} ms, {fixed / ca:.4f}x (target 1.05x); "
+        f"stochastic ({EXTRA_ROUTES['stochastic_interpolation'][1]}) {sampled:.4f} ms, {sampled / ca:.4f}x (target "
+        f"0.5x)")
     log(f"extras Rng bound: {n_rng_levels} of 16 levels take the Rng hash; {n_rng_ops:.4e} INT32 instructions "
         f"for this run's cells as the kernels hash them (3 a 64-bit multiply-add; a cell whose fields stay apart: "
         f"2 a set bit of its fields, 2 a dim and 2^(d+1) - 2 for its corners; else per corner 2 a set bit of its "
@@ -2733,6 +2759,8 @@ def _extra_path(name, cfg, card, image, gen):
 
     _compare_one_step(f"extras {name}", m, float(t.learning_rate), one)
     counters = {k: v for k, v in TRAIN_COUNTERS.items() if not (name == "Shampoo" and k == "adam_step")}
+    if name in ("Rng", "fixed_point_pos"):  # the table gradient's own instantiation
+        counters[EXTRA_ROUTES[name][0]] = ("grid_encode", "BWD_ROUTE_LAUNCHES", EXTRA_ROUTES[name])
     _zero_counts(counters)
     losses = t.training_steps(batch, EXTRA_FIT_STEPS, data)
     launches = _read_counts(counters)
@@ -2784,7 +2812,9 @@ def _stochastic_apply_path(cfg, card, image, gen):
         rel[part] = float((a - b).norm()) / max(float(b.norm()), 1e-30)
         check(rel[part] <= 1e-2, f"extras stochastic apply: {part} gradient relative difference {rel[part]:.3e}")
     opt = torch.optim.Adam([model.params], lr=1e-2, betas=(0.9, 0.99), eps=1e-15)
-    _zero_counts(TRAIN_COUNTERS)
+    counters = {k: v for k, v in TRAIN_COUNTERS.items() if k != "adam_step"}
+    counters["grid_bwd_modes"] = ("grid_encode", "BWD_ROUTE_LAUNCHES", EXTRA_ROUTES["stochastic_interpolation"])
+    _zero_counts(counters)
     losses = []
     for i in range(EXTRA_FIT_STEPS):
         x, y = _nth_batch(data, torch.tensor(i, device="cuda"))
@@ -2793,8 +2823,7 @@ def _stochastic_apply_path(cfg, card, image, gen):
         loss.backward()
         opt.step()
         losses.append(loss.detach())
-    counters = {k: v for k, v in TRAIN_COUNTERS.items() if k != "adam_step"}
-    launches = {k: v for k, v in _read_counts(TRAIN_COUNTERS).items() if k in counters}
+    launches = _read_counts(counters)
     losses = torch.stack(losses).cpu().numpy()
     first, last = float(losses[:10].mean()), float(losses[-10:].mean())
     check(np.isfinite(losses).all() and last < 0.5 * first, f"extras stochastic apply: loss {first:.4e} -> {last:.4e}")
@@ -2956,20 +2985,22 @@ def main() -> int:
     # The grid extras' modes of the lookup and the table gradient; launches
     # from each extra's own path (training_steps with the Rng hash, with
     # fixed_point_pos; the stochastic table gradient from the module-API
-    # fit through GridEncoding.apply(rng=generator)).
+    # fit through GridEncoding.apply(rng=generator)), the table gradients'
+    # those of their own instantiation (EXTRA_ROUTES).
     ek, ep = extras["kernels"], extras["paths"]
     for name, source, replaces, key, err_key, path, launches_ in (
         ("grid_fwd_rng", "grid_fwd.cu", "tcnn_tpu/encodings/grid.py:89", ("Rng", "fwd"), "Rng fwd",
          "training_steps, hash Rng", ep["Rng"]["launches"]["grid_fwd"]),
         ("grid_bwd_rng", "grid_bwd_rng.cu", "tcnn_tpu/encodings/grid.py:89", ("Rng", "bwd"), "Rng bwd own classes",
-         "training_steps, hash Rng", ep["Rng"]["launches"]["grid_bwd"]),
+         "training_steps, hash Rng", ep["Rng"]["launches"]["grid_bwd_rng"]),
         ("grid_fwd_fixed_point", "grid_fwd.cu", "tcnn_tpu/encodings/grid.py:1580", ("fixed_point_pos", "fwd"),
          "fixed_point_pos fwd", "training_steps, fixed_point_pos", ep["fixed_point_pos"]["launches"]["grid_fwd"]),
-        ("grid_bwd_fixed_point", "grid_bwd.cu", "tcnn_tpu/encodings/grid.py:1580", ("fixed_point_pos", "bwd"),
+        ("grid_bwd_fixed_point", "grid_bwd_modes.cu", "tcnn_tpu/encodings/grid.py:1580", ("fixed_point_pos", "bwd"),
          "fixed_point_pos bwd own classes", "training_steps, fixed_point_pos",
-         ep["fixed_point_pos"]["launches"]["grid_bwd"]),
-        ("grid_bwd_stochastic", "grid_bwd.cu", "tcnn_tpu/encodings/grid.py:130", ("stochastic_interpolation", "bwd"),
-         None, "module API, GridEncoding.apply(rng=generator)", ep["stochastic apply"]["launches"]["grid_bwd"]),
+         ep["fixed_point_pos"]["launches"]["grid_bwd_modes"]),
+        ("grid_bwd_stochastic", "grid_bwd_modes.cu", "tcnn_tpu/encodings/grid.py:130",
+         ("stochastic_interpolation", "bwd"), None, "module API, GridEncoding.apply(rng=generator)",
+         ep["stochastic apply"]["launches"]["grid_bwd_modes"]),
     ):
         err = (ek["err"][err_key] if err_key else
                max(v for k, v in ek["err"].items() if k.startswith("stochastic_interpolation bwd")))

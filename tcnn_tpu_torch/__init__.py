@@ -26,11 +26,11 @@ the CUDA card unless the caller names another device.
 __version__ = "0.1.0"
 
 from . import encodings, interchange, losses, modules, networks, ops, optimizers, utils
-from .common import Activation, GridType, HashType, InterpolationType, default_device
+from .common import Activation, GridType, HashType, InterpolationType, ReductionType, default_device, default_loss_scale
 from .config import TrainableModel, create_from_config, load_config, loads_config, strip_json_comments
 from .encodings import builtin_encodings, create_encoding, register_encoding
 from .interchange import params_from_numpy
-from .losses import create_loss
+from .losses import builtin_losses, create_loss, register_loss
 from .network_with_input_encoding import NetworkWithInputEncoding
 from .networks import create_network
 from .optimizers import create_optimizer
@@ -44,20 +44,24 @@ __all__ = [
     "HashType",
     "InterpolationType",
     "NetworkWithInputEncoding",
+    "ReductionType",
     "TrainableModel",
     "Trainer",
     "builtin_encodings",
+    "builtin_losses",
     "create_encoding",
     "create_from_config",
     "create_loss",
     "create_network",
     "create_optimizer",
     "default_device",
+    "default_loss_scale",
     "load_config",
     "loads_config",
     "modules",
     "params_from_numpy",
     "register_encoding",
+    "register_loss",
     "strip_json_comments",
     "__version__",
 ]

@@ -1,10 +1,13 @@
 """The lookup and the table gradient at the flagship (B = 2^18, stratified
-and uniform points; with ``"hash": "Rng"`` on uniform points) and on the 3D
-model (uniform points), through the public wrappers; with ``--ptxas`` the
-grid libraries' build seconds and every kernel's registers and spills;
-with ``--steps N`` the flagship training step, as configured and with the
-Rng hash, through ``Trainer.training_steps`` (N steps of one captured step
-replayed). Card only.
+and uniform points; with ``"hash": "Rng"`` on uniform points; the table
+gradients of ``fixed_point_pos`` and of stochastic interpolation on the
+same uniform points, as uint32 and with one uniform per (sample, level))
+and on the 3D model (uniform points), through the public wrappers; with
+``--ptxas`` the grid libraries' build seconds and every kernel's registers
+and spills; with ``--steps N`` the flagship training step, as configured,
+with the Rng hash and with ``fixed_point_pos``, through
+``Trainer.training_steps`` (N steps of one captured step replayed). Card
+only.
 
 Prints one JSON line ``{"times": {...}, "ptxas": {...}, "steps": {...}}``:
 kernels by CUDA events, median of 7 runs of 20 calls each, bf16 output and
@@ -32,7 +35,8 @@ MODEL_3D = {"otype": "HashGrid", "n_levels": 16, "n_features_per_level": 2, "log
 FLAGSHIP_RNG = dict(FLAGSHIP, hash="Rng")
 BATCH = 2**18
 # The libraries the timed calls use (those of them the checkout has).
-LIBRARIES = ("grid_fwd", "grid_bwd", "grid_bwd_rng", "ffmlp_fwd", "ffmlp_bwd", "adam_step")
+LIBRARIES = ("grid_fwd", "grid_bwd", "grid_bwd_rng", "grid_bwd_modes", "ffmlp_fwd", "ffmlp_bwd", "adam_step")
+GRID_LIBRARIES = ("grid_fwd", "grid_bwd", "grid_bwd_rng", "grid_bwd_modes")
 
 
 def _build_all():
@@ -58,6 +62,14 @@ def _event_ms(fn, iters=20, reps=7):
         end.synchronize()
         times.append(start.elapsed_time(end) / iters)
     return statistics.median(times)
+
+
+def _as_fixed(x):
+    """Positions in [0, 1] as fixed_point_pos's uint32 (x * 2^32, floored,
+    clamped), held in int64."""
+    import torch
+
+    return torch.clamp((x.double() * 2.0**32).floor(), 0, 2**32 - 1).to(torch.int64)
 
 
 def times(seed: int = 5) -> dict:
@@ -86,11 +98,26 @@ def times(seed: int = 5) -> dict:
                 out[f"{name} {label} lookup"] = _event_ms(lambda: enc.apply(params, x))
                 out[f"{name} {label} table gradient"] = _event_ms(
                     lambda: ge.grid_backward(x, dy, levels, enc.n_features_per_level, ge.INTERP_LINEAR, classes, plan))
+        if cfg is FLAGSHIP:  # the two modes' table gradients over the same uniform points
+            x = points["uniform"]
+            for mode, over in (("fixed_point_pos", {"fixed_point_pos": True}),
+                               ("stochastic", {"stochastic_interpolation": True})):
+                menc = create_encoding(d, dict(cfg, **over), alignment=16)
+                xm = _as_fixed(x).to(torch.uint32) if mode == "fixed_point_pos" else x
+                u = menc._uniforms(gen, BATCH, dev)
+                mcls = torch.from_numpy(menc.gradient_classes(BATCH, False if u is not None else None)).to(dev)
+                mplan = ge.backward_plan(menc.level_table(), menc.n_features_per_level, BATCH, mcls)
+                mlevels = menc._levels_on(dev)
+                with torch.no_grad():
+                    out[f"{name} uniform {mode} table gradient"] = _event_ms(
+                        lambda: ge.grid_backward(xm, dy, mlevels, menc.n_features_per_level, ge.INTERP_LINEAR, mcls,
+                                                 mplan, u))
     return out
 
 
 def steps(n_steps: int, seed: int = 5) -> dict:
-    """ms a step of FLAGSHIP_CONFIG, and of it with "hash": "Rng", through
+    """ms a step of FLAGSHIP_CONFIG, and of it with "hash": "Rng" and with
+    "fixed_point_pos" (the same points as uint32), through
     Trainer.training_steps: stratified batches drawn on the card beforehand
     (targets a smooth function of x), one call to capture, then the host
     clock over ``n_steps`` replayed steps synced at their ends, median of 3."""
@@ -111,18 +138,24 @@ def steps(n_steps: int, seed: int = 5) -> dict:
         idx = i.reshape(1).to(torch.int64)
         return torch.index_select(d["x"], 0, idx)[0], torch.index_select(d["t"], 0, idx)[0]
 
+    def batch_fixed(d, i):  # the positions as uint32, gathered as int64
+        idx = i.reshape(1).to(torch.int64)
+        return torch.index_select(d["xf"], 0, idx)[0].to(torch.uint32), torch.index_select(d["t"], 0, idx)[0]
+
     out = {}
-    for name, hash_type in (("flagship", None), ("flagship Rng", "Rng")):
+    for name, over, batch_fn in (("flagship", {}, batch), ("flagship Rng", {"hash": "Rng"}, batch),
+                                 ("flagship fixed_point_pos", {"fixed_point_pos": True}, batch_fixed)):
         cfg = copy.deepcopy(FLAGSHIP_CONFIG)
-        if hash_type:
-            cfg["encoding"]["hash"] = hash_type
+        cfg["encoding"].update(over)
+        if "fixed_point_pos" in over:
+            data["xf"] = _as_fixed(xs)
         trainer = tt.create_from_config(2, 3, cfg, seed=seed, device=dev).trainer
-        trainer.training_steps(batch, n_steps, data)  # warm-up and capture
+        trainer.training_steps(batch_fn, n_steps, data)  # warm-up and capture
         runs = []
         for _ in range(3):
             torch.cuda.synchronize()
             t0 = time.perf_counter()
-            trainer.training_steps(batch, n_steps, data)
+            trainer.training_steps(batch_fn, n_steps, data)
             torch.cuda.synchronize()
             runs.append((time.perf_counter() - t0) * 1e3 / n_steps)
         out[f"{name} training_steps ms/step"] = statistics.median(runs)
@@ -137,22 +170,13 @@ def _kernel(readable: str) -> str:
 
 
 def ptxas() -> dict:
-    """Builds the grid libraries together (unless built: grid_fwd, grid_bwd
-    and, where the checkout has it, grid_bwd_rng) and reads each kernel's
-    registers and spills from the compiler's report."""
-    from concurrent.futures import ThreadPoolExecutor
-
+    """Builds the grid libraries together (unless built: those of
+    GRID_LIBRARIES the checkout has) and reads each kernel's registers and
+    spills from the compiler's report."""
     from ..ops import _build
     from .grid_second_order_times import demangle, parse_ptxas
 
-    def build(name):
-        t0 = time.perf_counter()
-        path = _build.build_library(name)
-        return path, time.perf_counter() - t0
-
-    names = [n for n in ("grid_fwd", "grid_bwd", "grid_bwd_rng") if (_build.CSRC / f"{n}.cu").exists()]
-    with ThreadPoolExecutor(len(names)) as pool:
-        built = dict(zip(names, pool.map(build, names)))
+    built = _build.build_libraries_timed(n for n in GRID_LIBRARIES if (_build.CSRC / f"{n}.cu").exists())
     out = {}
     for name, (path, seconds) in built.items():
         report = parse_ptxas(path.with_suffix(".log").read_text())

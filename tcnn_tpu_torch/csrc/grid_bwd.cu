@@ -91,7 +91,10 @@
 // its helpers live in grid_table_grad.cuh, shared with grid_bwd_rng.cu,
 // which launches it for tables with Rng levels (fp32 positions, d = 2, 3)
 // with the dims at compile time: an Rng level's keys a cell at once
-// (grid_common.cuh:rng_corners).
+// (grid_common.cuh:rng_corners), and with grid_bwd_modes.cu, which
+// launches it for uint32 positions and for a sampled corner (no Rng level,
+// d = 2, 3) with the dims, the position type and the sampling at compile
+// time.
 //
 // tcnn_scatter_rows (the generic row scatter, K5/K6) is bound by its
 // atomics: into a small table every address takes a long serial run of
@@ -249,9 +252,11 @@ __global__ void __launch_bounds__(PRIVATE ? kPrivateThreads : kMaxThreads)
 }
 
 // The table gradient's instantiations with the dims at run time: the
-// common one, and kExtras for uint32 positions, u or an Rng level
-// (tcnn_grid_backward_rng, grid_bwd_rng.cu, takes an Rng table with fp32
-// positions and d = 2, 3).
+// common one, and kExtras for uint32 positions, u or an Rng level where no
+// compile-time-d instantiation takes them (ops/grid_encode.py:
+// _backward_route; grid_bwd_rng.cu takes an Rng table with fp32 positions
+// and d = 2, 3, grid_bwd_modes.cu uint32 positions or u without Rng levels
+// at d = 2, 3).
 struct CommonOrExtras {
   template <typename DyT, int F>
   static cudaError_t run(unsigned blocks, const Plan& plan, cudaStream_t s, const void* x, const DyT* dy,

@@ -1,15 +1,19 @@
 // The grid's table gradient (tcnn_grid_backward), shared by grid_bwd.cu
 // (the common and the extras' instantiations, and the row scatter, G1 and
-// G2, which use its helpers) and grid_bwd_rng.cu (the instantiations for
-// tables with Rng levels, the dims at compile time, built as a library of
-// their own so that grid_bwd.cu's build does not grow). What it computes,
-// what bounds it and its design: the head of grid_bwd.cu.
+// G2, which use its helpers), grid_bwd_rng.cu (the instantiations for
+// tables with Rng levels) and grid_bwd_modes.cu (those for uint32 positions
+// and for a sampled corner), the last two with the dims at compile time and
+// each built as a library of its own so that grid_bwd.cu's build does not
+// grow. What it computes, what bounds it and its design: the head of
+// grid_bwd.cu.
 
 #pragma once
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include <type_traits>
 
 #include "grid_common.cuh"
 
@@ -122,16 +126,26 @@ __device__ __forceinline__ void add_row_bf16(__nv_bfloat16* p, const float (&v)[
 // (sample, level) one corner, sampled_corner(), takes the whole dL_dy row
 // with weight 1 (tcnn_tpu/encodings/grid.py:_stochastic_combine), so the
 // corner loop runs once; the merges, private copies and atomics are the
-// same. kExtras: the instantiation for those and for Rng levels; without
-// it their code is left out, which keeps the common launch at its register
-// count and occupancy (with it always compiled in, 72 registers instead of
-// 63 gave 3 blocks an SM instead of 4, and the flagship's table gradient
-// took 0.32 ms instead of 0.19: PERF.md). D > 0 (2, 3; never with
-// kExtras): the dims at compile time, for tables with Rng levels and fp32
-// positions: an Rng level's keys come a cell at once from rng_corners()
-// before the corner loop, which unrolls so that they stay in registers
-// (grid_bwd_rng.cu launches it). D = 0: n_dims at run time.
-template <typename DyT, int F, bool kExtras, int D>
+// same. The instantiations:
+// - D = 0, !kExtras (the common one): fp32 positions, no u, no Rng level,
+//   n_dims at run time; none of the extras' code is compiled in, which
+//   keeps it at its register count and occupancy (with the extras always
+//   compiled in, 72 registers instead of 63 gave 3 blocks an SM instead of
+//   4, and the flagship's table gradient took 0.32 ms instead of 0.19:
+//   PERF.md);
+// - D = 0, kExtras: uint32 positions, u and Rng levels (the per-corner
+//   jump) as run-time branches, n_dims at run time: what no instantiation
+//   below takes;
+// - D > 0 (2, 3), the dims at compile time and the corner loop unrolled,
+//   PosT the position type (float, or uint32_t under fixed_point_pos) and
+//   kSampled whether u is read:
+//   - fp32 positions, no u (grid_bwd_rng.cu): a table with Rng levels; an
+//     Rng level's keys come a cell at once from rng_corners() before the
+//     loop and stay in registers;
+//   - uint32 positions, no u, no Rng level (grid_bwd_modes.cu);
+//   - fp32 positions with u, no Rng level (grid_bwd_modes.cu): the corner
+//     is sampled before the loop, which runs once; no per-corner state.
+template <typename DyT, int F, bool kExtras, int D, typename PosT = float, bool kSampled = false>
 __global__ void __launch_bounds__(kMaxThreads, 2)
     grid_backward_kernel(const void* __restrict__ x, const DyT* __restrict__ dy, const Level* __restrict__ levels,
                          const int* __restrict__ classes, const float* __restrict__ u, float* __restrict__ grad32,
@@ -140,7 +154,12 @@ __global__ void __launch_bounds__(kMaxThreads, 2)
   extern __shared__ __align__(16) unsigned char smem[];
   Level* s_levels = reinterpret_cast<Level*>(smem + plan.levels_offset);
   int* s_classes = reinterpret_cast<int*>(s_levels + n_levels);
-  static_assert(D == 0 || !kExtras, "the compile-time dims take fp32 positions and no u");
+  constexpr bool kFixed = std::is_same<PosT, uint32_t>::value;
+  constexpr bool kRngCells = D > 0 && !kFixed && !kSampled;  // an Rng level's keys a cell at once
+  static_assert(D == 0 || !kExtras, "kExtras takes the dims at run time");
+  static_assert(D > 0 || (!kFixed && !kSampled), "at run-time dims, kExtras takes uint32 positions and u");
+  static_assert(kFixed || std::is_same<PosT, float>::value, "positions are fp32 or uint32");
+  static_assert(!(kFixed && kSampled), "kExtras takes uint32 positions with u");
   const int tid = threadIdx.x, T = blockDim.x;
   {
     const int* src = reinterpret_cast<const int*>(levels);
@@ -154,7 +173,7 @@ __global__ void __launch_bounds__(kMaxThreads, 2)
 
   const int64_t start = (int64_t)blockIdx.x * plan.chunk;
   const int64_t end = start + plan.chunk < batch ? start + plan.chunk : (int64_t)batch;
-  const bool sampled_path = kExtras && u != nullptr;
+  const bool sampled_path = kSampled || (kExtras && u != nullptr);
   const int dims = D > 0 ? D : n_dims;
   const int n_corners = sampled_path ? 1 : interp == kNearest ? 1 : 1 << dims;
   for (int64_t t0 = start; t0 < end; t0 += T) {
@@ -170,15 +189,16 @@ __global__ void __launch_bounds__(kMaxThreads, 2)
       Cell cell;
       float g[F];
       int sampled = 0;
-      uint32_t keys[1 << D];  // D > 0: an Rng level's keys
+      uint32_t keys[kRngCells ? 1 << D : 1];  // kRngCells: an Rng level's keys
       if (valid) {
         if constexpr (kExtras) {
           cell = fixed ? locate(static_cast<const uint32_t*>(x) + b * n_dims, lv, n_dims, interp)
                        : locate(static_cast<const float*>(x) + b * n_dims, lv, n_dims, interp);
           if (sampled_path) sampled = sampled_corner(cell, n_dims, __ldg(u + b * n_levels + lvl));
         } else {
-          cell = locate(static_cast<const float*>(x) + b * dims, lv, dims, interp);
-          if constexpr (D > 0) {
+          cell = locate(static_cast<const PosT*>(x) + b * dims, lv, dims, interp);
+          if constexpr (kSampled) sampled = sampled_corner(cell, D, __ldg(u + b * n_levels + lvl));
+          if constexpr (kRngCells) {
             if (lv.mode == kRng) rng_corners<D>(cell, keys);
           }
         }
@@ -194,10 +214,10 @@ __global__ void __launch_bounds__(kMaxThreads, 2)
         for (int f = 0; f < F; ++f) v[f] = 0.0f;
         if (valid) {
           float weight;
-          if constexpr (D > 0) {
+          if constexpr (kRngCells) {
             key = corner_of<D>(cell, lv, interp, c, keys, &weight);
           } else {
-            key = corner<kExtras>(cell, lv, n_dims, interp, sampled_path ? sampled : c, &weight);
+            key = corner<kExtras>(cell, lv, dims, interp, sampled_path ? sampled : c, &weight);
           }
           if (sampled_path) weight = 1.0f;
 #pragma unroll
@@ -228,7 +248,7 @@ __global__ void __launch_bounds__(kMaxThreads, 2)
       };
       if constexpr (D > 0) {
 #pragma unroll
-        for (int c = 0; c < (1 << D); ++c) {
+        for (int c = 0; c < (kSampled ? 1 : 1 << D); ++c) {
           if (c < n_corners) add_corner(c);
         }
       } else {
@@ -264,13 +284,13 @@ __global__ void __launch_bounds__(kMaxThreads, 2)
   }
 }
 
-// One launch of grid_backward_kernel<DyT, F, kExtras, D>.
-template <typename DyT, int F, bool kExtras, int D>
+// One launch of grid_backward_kernel<DyT, F, kExtras, D, PosT, kSampled>.
+template <typename DyT, int F, bool kExtras, int D, typename PosT = float, bool kSampled = false>
 cudaError_t launch_tiled(unsigned blocks, const Plan& plan, cudaStream_t s, const void* x, const DyT* dy,
                          const Level* levels, const int* classes, const float* u, float* grad32,
                          __nv_bfloat16* grad16, int batch, int n_dims, int n_levels, int dy_width, int interp,
                          int fixed) {
-  auto kernel = grid_backward_kernel<DyT, F, kExtras, D>;
+  auto kernel = grid_backward_kernel<DyT, F, kExtras, D, PosT, kSampled>;
   // Above 48 KB a block's dynamic shared memory must be allowed first. The
   // attribute holds for the current device only, so every such launch sets it.
   if (plan.smem_bytes > 48 * 1024) {

@@ -109,6 +109,10 @@ class Encoding(nn.Module):
     def hyperparams(self):
         return {"otype": self.otype}
 
+    @property
+    def name(self) -> str:
+        return type(self).__name__
+
     def _pad(self, y: torch.Tensor) -> torch.Tensor:
         """Append padding columns and cast to the output dtype."""
         if self.n_to_pad > 0:

@@ -10,13 +10,14 @@ of the value: relative losses treat their normaliser as a constant. Plain
 torch: the JAX package computes the losses in XLA, not in a kernel.
 
 ``create_loss(config)`` (case-insensitive ``otype``, default RelativeL2)
-builds every loss the JAX package registers; ``ConstantLoss`` is a class
-only, unregistered there as in the reference.
+builds every loss the JAX package registers, and any a user adds with
+``register_loss(name, factory)``; ``ConstantLoss`` is a class only,
+unregistered there as in the reference.
 """
 
 from __future__ import annotations
 
-from typing import Dict, Optional
+from typing import Callable, Dict, Optional
 
 import torch
 
@@ -217,30 +218,40 @@ class ConstantLoss(Loss):
         return pred / n_total, torch.ones_like(pred) / n_total
 
 
-_LOSSES: CIDict = CIDict({
-    cls.otype: cls
-    for cls in (
-        L2Loss, RelativeL2Loss, RelativeL2LuminanceLoss, L1Loss, RelativeL1Loss, MapeLoss, SmapeLoss,
-        CrossEntropyLoss, VarianceIsLoss,
-    )
-})
+_LOSS_FACTORIES: CIDict = CIDict()
+
+
+def register_loss(name: str, factory: Callable[[Dict], Loss]):
+    """Adds ``factory(config) -> Loss`` under ``name`` (case-insensitive) to
+    what ``create_loss`` builds; a second registration of a name raises
+    (tcnn_tpu/losses/__init__.py:320-323)."""
+    if name in _LOSS_FACTORIES:
+        raise RuntimeError(f"Can not register loss '{name}' twice.")
+    _LOSS_FACTORIES[name] = factory
+
+
+for _cls in (
+    L2Loss, RelativeL2Loss, RelativeL2LuminanceLoss, L1Loss, RelativeL1Loss, MapeLoss, SmapeLoss, CrossEntropyLoss,
+    VarianceIsLoss,
+):
+    register_loss(_cls.otype, lambda cfg, c=_cls: c())
 
 
 def create_loss(config: Optional[Dict] = None) -> Loss:
     """Factory (reference: src/loss.cu:81-90; default otype RelativeL2)."""
     name = json_value(config, "otype", "RelativeL2")
-    if name not in _LOSSES:
+    if name not in _LOSS_FACTORIES:
         raise ValueError(f"Loss '{name}' not found")
-    loss = _LOSSES[name]()
+    loss = _LOSS_FACTORIES[name](config or {})
     loss.update_hyperparams(config or {})
     return loss
 
 
 def builtin_losses():
-    return sorted(_LOSSES.keys())
+    return sorted(_LOSS_FACTORIES.keys())
 
 
 __all__ = [
     "ConstantLoss", "CrossEntropyLoss", "L1Loss", "L2Loss", "Loss", "MapeLoss", "RelativeL1Loss", "RelativeL2Loss",
-    "RelativeL2LuminanceLoss", "SmapeLoss", "VarianceIsLoss", "builtin_losses", "create_loss",
+    "RelativeL2LuminanceLoss", "SmapeLoss", "VarianceIsLoss", "builtin_losses", "create_loss", "register_loss",
 ]

@@ -99,6 +99,20 @@ class NetworkWithInputEncoding(nn.Module):
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         return self.apply(self.params, x)
 
+    def input_gradient(self, params: torch.Tensor, x: torch.Tensor, output_index: int) -> torch.Tensor:
+        """d output[:, output_index] / d x, (batch, n_input_dims) in x's
+        dtype: the backward of a one-hot output gradient (reference:
+        object.h:592-616; tcnn_tpu/network_with_input_encoding.py:116-122),
+        through the grid's input-gradient kernel on the card; ``params``
+        is read detached, so no parameter gradient is computed."""
+        x = x.detach().requires_grad_(True)
+        with torch.enable_grad():
+            out = self.apply(params.detach(), x)
+            onehot = torch.zeros_like(out)
+            onehot[:, output_index] = 1
+            (dx,) = torch.autograd.grad(out, x, onehot)
+        return dx
+
     # Config surface (tcnn_tpu/network_with_input_encoding.py:125-133).
     def update_hyperparams(self, params):
         self.encoding.update_hyperparams(params.get("encoding", {}))

@@ -29,6 +29,11 @@ class Network(nn.Module):
     def padded_output_width(self) -> int:
         raise NotImplementedError
 
+    def required_input_alignment(self) -> int:
+        """Alignment the preceding encoding's output must satisfy
+        (reference: network.cu:79-98 minimum_alignment)."""
+        return 16
+
     @property
     def n_params(self) -> int:
         raise NotImplementedError
@@ -57,3 +62,7 @@ class Network(nn.Module):
 
     def hyperparams(self):
         return {"otype": self.otype}
+
+    @property
+    def name(self) -> str:
+        return type(self).__name__

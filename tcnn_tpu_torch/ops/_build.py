@@ -16,8 +16,9 @@ import os
 import shutil
 import subprocess
 import threading
+import time
 from pathlib import Path
-from typing import Dict
+from typing import Dict, Tuple
 
 import torch
 
@@ -71,15 +72,26 @@ def build_library(name: str) -> Path:
     return out
 
 
-def build_libraries(names) -> Dict[str, Path]:
+def build_libraries_timed(names) -> Dict[str, Tuple[Path, float]]:
     """``build_library`` for several sources at once, one ``nvcc`` each,
-    all started together. Raises the first failure after all have ended."""
+    all started together: each library's path and the seconds its build
+    took (about 0 where it was built already). Raises the first failure
+    after all have ended."""
     from concurrent.futures import ThreadPoolExecutor
+
+    def timed(name):
+        t0 = time.perf_counter()
+        return build_library(name), time.perf_counter() - t0
 
     names = list(names)
     with ThreadPoolExecutor(max_workers=max(1, len(names))) as pool:
-        futures = {name: pool.submit(build_library, name) for name in names}
+        futures = {name: pool.submit(timed, name) for name in names}
     return {name: f.result() for name, f in futures.items()}
+
+
+def build_libraries(names) -> Dict[str, Path]:
+    """``build_libraries_timed`` without the seconds."""
+    return {name: path for name, (path, _) in build_libraries_timed(names).items()}
 
 
 def load_library(name: str) -> ctypes.CDLL:

@@ -46,7 +46,7 @@ plain version, a CUDA tensor launches the kernel or raises.
 from __future__ import annotations
 
 import ctypes
-from typing import Optional, Sequence, Tuple
+from typing import Dict, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -58,6 +58,9 @@ import torch
 LAUNCHES = 0
 V1_LAUNCHES = 0
 BWD_LAUNCHES = 0
+# The table gradient's launches by route, (library, symbol) as
+# _backward_route gives it: which instantiation each launch took.
+BWD_ROUTE_LAUNCHES: Dict[Tuple[str, str], int] = {}
 INPUT_LAUNCHES = 0
 BWDBWD_LAUNCHES = 0
 
@@ -765,6 +768,29 @@ def backward_plan(levels, n_features_per_level: int, batch: int, classes=None, t
                         used + meta)
 
 
+def _backward_route(rng: bool, fixed: bool, sampled: bool, d: int) -> Tuple[str, str]:
+    """The (library, C entry point) of the table gradient for a table with
+    (``rng``) or without Rng levels, uint32 (``fixed``) or fp32 positions,
+    with (``sampled``) or without stochastic interpolation's uniforms, at
+    ``d`` dims. The instantiations with the dims at compile time take
+    d = 2, 3: an Rng table with fp32 positions and no uniforms
+    (``grid_bwd_rng``); without Rng levels, uint32 positions and no
+    uniforms (``grid_bwd_modes`` fixed), or fp32 positions with uniforms
+    (``grid_bwd_modes`` sampled). A table with none of the three takes the
+    common instantiation, and every other combination the ``kExtras`` one
+    with the dims at run time (both ``grid_bwd``): d = 1 or >= 4 with any
+    of them, uint32 positions with an Rng level, uniforms with an Rng level
+    or with uint32 positions."""
+    if d in (2, 3):
+        if rng and not fixed and not sampled:
+            return "grid_bwd_rng", "tcnn_grid_backward_rng"
+        if not rng and fixed and not sampled:
+            return "grid_bwd_modes", "tcnn_grid_backward_fixed"
+        if not rng and sampled and not fixed:
+            return "grid_bwd_modes", "tcnn_grid_backward_sampled"
+    return "grid_bwd", "tcnn_grid_backward"
+
+
 def grid_backward(
     x: torch.Tensor,
     dL_dy: torch.Tensor,
@@ -781,11 +807,10 @@ def grid_backward(
     CUDA ``x``, ``levels`` and ``level_round`` ((L, 2) int32 classes) must
     lie on that device, and the kernel ``tcnn_grid_backward`` runs with
     ``plan`` (``backward_plan`` of these tables and batch; None: made here,
-    which reads the tables back from the device); a table with an Rng level,
-    fp32 positions, no ``u`` and d = 2 or 3 takes its instantiation with the
-    dims at compile time (``tcnn_grid_backward_rng``: an Rng level's keys a
-    cell at once). ``u``: stochastic interpolation's (B, L) fp32 uniforms
-    (see ``grid_backward_plain``)."""
+    which reads the tables back from the device); ``_backward_route``
+    picks the kernel's instantiation, counted in ``BWD_ROUTE_LAUNCHES``.
+    ``u``: stochastic interpolation's (B, L) fp32 uniforms (see
+    ``grid_backward_plain``)."""
     if x.device.type == "cpu":
         return grid_backward_plain(x, dL_dy, levels, n_features_per_level, interpolation, level_round, u)
     if x.device.type != "cuda":
@@ -812,8 +837,7 @@ def grid_backward(
     global BWD_LAUNCHES
     rng = _rng_levels(levels)
     fixed = x.dtype == torch.uint32
-    library, symbol = (("grid_bwd_rng", "tcnn_grid_backward_rng") if rng and not fixed and u is None and d in (2, 3)
-                       else ("grid_bwd", "tcnn_grid_backward"))
+    route = library, symbol = _backward_route(rng, fixed, u is not None, d)
     _launch("grid_backward", kernel(library, symbol, _BWD_ARGS)(
         x.data_ptr(), dL_dy.data_ptr(), levels.data_ptr(), level_round.data_ptr(),
         None if u is None else u.data_ptr(), grad.data_ptr(), None if grad16 is None else grad16.data_ptr(),
@@ -821,6 +845,7 @@ def grid_backward(
         int(fixed), int(rng), n_values, plan.array.ctypes.data, stream(x.get_device()),
     ))
     BWD_LAUNCHES += 1
+    BWD_ROUTE_LAUNCHES[route] = BWD_ROUTE_LAUNCHES.get(route, 0) + 1
     return grad
 
 

@@ -97,3 +97,19 @@ class PCG32:
 def make_rng(seed: int = 1337) -> PCG32:
     """Default RNG factory mirroring ``default_rng_t`` usage."""
     return PCG32(seed)
+
+
+# Batched distributions (reference: random.h:38-85; tcnn_tpu/rng.py:136-146).
+
+
+def generate_random_uniform(rng: PCG32, n: int, low: float = 0.0, high: float = 1.0) -> np.ndarray:
+    """n fp32 uniforms in [low, high) from ``rng``'s next n floats."""
+    return (rng.next_float(n) * (high - low) + low).astype(np.float32)
+
+
+def generate_random_logistic(rng: PCG32, n: int, mean: float = 0.0, stddev: float = 1.0) -> np.ndarray:
+    """n fp32 logistic draws of the given mean and standard deviation
+    (sqrt(3) / pi * stddev is the scale), computed in fp64 from ``rng``'s
+    next n floats, each clipped to [1e-12, 1 - 1e-12]."""
+    u = np.clip(rng.next_float(n).astype(np.float64), 1e-12, 1 - 1e-12)
+    return (mean + stddev * 0.551328895421792050 * np.log(u / (1 - u))).astype(np.float32)

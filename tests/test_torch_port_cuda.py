@@ -911,12 +911,21 @@ def _interp_code(enc):
     return _INTERP_CODES[enc.interpolation_type]
 
 
-def _table_grad(enc, x, dy, classes, u=None):
-    before = grid_encode.BWD_LAUNCHES
+def _route_launches(route):
+    return grid_encode.BWD_LAUNCHES, grid_encode.BWD_ROUTE_LAUNCHES.get(route, 0)
+
+
+def _table_grad(enc, x, dy, classes, u=None, route=None):
+    """One table-gradient launch; ``route``: the (library, C entry point)
+    that must have launched it."""
+    before = _route_launches(route)
     got = grid_encode.grid_backward(x, dy, enc._levels_on(x.device), enc.n_features_per_level, _interp_code(enc),
                                     classes, u=u)
     torch.cuda.synchronize()
-    assert grid_encode.BWD_LAUNCHES == before + 1
+    after = _route_launches(route)
+    assert after[0] == before[0] + 1
+    if route is not None:
+        assert after[1] == before[1] + 1, f"the table gradient did not launch {route}"
     return got
 
 
@@ -1418,7 +1427,8 @@ def test_rng_hash_kernels_match_plain(dev, n_dims, interp):
     dy = torch.from_numpy(rng.normal(0, 1, (n, enc.padded_output_width)).astype(np.float32)).to(dev).bfloat16()
     classes = torch.from_numpy(enc.gradient_classes(n)).to(dev)
     classes[1::2] = torch.tensor([scatter_rows.CONTRIB_SR, scatter_rows.ACC_BF16], dtype=torch.int32)
-    _check_levels(enc, _table_grad(enc, x, dy, classes), x, dy, classes)
+    rng_route = ("grid_bwd_rng", "tcnn_grid_backward_rng") if n_dims in (2, 3) else ("grid_bwd", "tcnn_grid_backward")
+    _check_levels(enc, _table_grad(enc, x, dy, classes, route=rng_route), x, dy, classes)
     args = (levels, 2, _interp_code(enc))
     f32 = torch.from_numpy(enc.gradient_classes(n)).to(dev)
     cgx = torch.from_numpy(rng.normal(0, 1, (n, n_dims)).astype(np.float32)).to(dev)
@@ -1430,14 +1440,16 @@ def test_rng_hash_kernels_match_plain(dev, n_dims, interp):
     for a, b in zip(got, want):
         _close_f32(a, b)
     # fixed_point_pos: the lookup's kExtras instantiation (whole-cell keys
-    # at d = 2, 3), the table gradient's (per corner).
+    # at d = 2, 3), the table gradient's (per corner; uint32 positions with
+    # an Rng level stay there at every d).
     encf = create_encoding(n_dims, dict(cfg, fixed_point_pos=True), alignment=16)
     encf.output_dtype = torch.float32
     xf = _fixed_positions(rng, 8192, n_dims, dev)
     torch.testing.assert_close(encf.apply(params, xf), encf.apply_plain(params, xf), **tol)
     dyf = dy[: len(xf)].contiguous()
     classes_f = torch.from_numpy(encf.gradient_classes(len(xf))).to(dev)
-    _check_levels(encf, _table_grad(encf, xf, dyf, classes_f), xf, dyf, classes_f)
+    _check_levels(encf, _table_grad(encf, xf, dyf, classes_f, route=("grid_bwd", "tcnn_grid_backward")), xf, dyf,
+                  classes_f)
 
 
 @pytest.mark.parametrize("over", [{}, {"interpolation": "Smoothstep", "hash": "Rng"}, {"n_features_per_level": 4},
@@ -1446,7 +1458,9 @@ def test_rng_hash_kernels_match_plain(dev, n_dims, interp):
 def test_fixed_point_kernels_match_plain(dev, n_dims, over):
     """uint32 positions (with 0 and 2^32 - 1 among them) through the lookup
     (fp32 rtol 1e-5, atol 1e-6; bf16 output within 4 bf16 ulps) and the
-    table gradient (its classes, and every level (RN, bf16))."""
+    table gradient (its classes, and every level (RN, bf16)), which takes
+    grid_bwd_modes' fixed-point instantiation without Rng levels at d = 2,
+    3, else grid_bwd's kExtras one."""
     enc = create_encoding(n_dims, dict(EXTRAS_GRID, fixed_point_pos=True, **over), alignment=16)
     enc.output_dtype = torch.float32
     rng = np.random.default_rng(10 + n_dims)
@@ -1461,10 +1475,12 @@ def test_fixed_point_kernels_match_plain(dev, n_dims, over):
     enc.output_dtype = torch.bfloat16
     _close_bf16(enc.apply(params, x), want)
     dy = torch.from_numpy(rng.normal(0, 1, (n, enc.padded_output_width)).astype(np.float32)).to(dev).bfloat16()
+    own = n_dims in (2, 3) and over.get("hash") != "Rng"
+    route = ("grid_bwd_modes", "tcnn_grid_backward_fixed") if own else ("grid_bwd", "tcnn_grid_backward")
     for classes in (torch.from_numpy(enc.gradient_classes(n)).to(dev),
                     torch.tensor([[scatter_rows.CONTRIB_RN, scatter_rows.ACC_BF16]] * enc.n_levels,
                                  dtype=torch.int32, device=dev)):
-        _check_levels(enc, _table_grad(enc, x, dy, classes), x, dy, classes)
+        _check_levels(enc, _table_grad(enc, x, dy, classes, route=route), x, dy, classes)
     with pytest.raises(ValueError, match="float32"):
         grid_encode.grid_backward_input(x, dy, params, enc._levels_on(dev), enc.n_features_per_level,
                                         _interp_code(enc))
@@ -1476,7 +1492,9 @@ def test_stochastic_table_gradient_matches_plain(dev, case):
     plain version: the fp32 class, the (RN, bf16) class (bf16 sums), d = 3
     with Smoothstep and F = 4 (float4 adds), and Nearest (no u: the
     deterministic one-corner gradient); a stratified flagship-like batch,
-    where long runs of lanes share rows and levels are privatised."""
+    where long runs of lanes share rows and levels are privatised. With u
+    the launch takes grid_bwd_modes' sampled instantiation, without it the
+    common one."""
     from tcnn_tpu_torch.utils.sampling import stratified_uniform
 
     d = 3 if case == "3d-smoothstep" else 2
@@ -1492,15 +1510,17 @@ def test_stochastic_table_gradient_matches_plain(dev, case):
     classes = torch.from_numpy(enc.gradient_classes(n, stratified=False)).to(dev)
     if case == "bf16":
         classes[:] = torch.tensor([scatter_rows.CONTRIB_RN, scatter_rows.ACC_BF16], dtype=torch.int32)
-    got = _table_grad(enc, x, dy, classes, u)
+    common, sampled = ("grid_bwd", "tcnn_grid_backward"), ("grid_bwd_modes", "tcnn_grid_backward_sampled")
+    route = common if u is None else sampled
+    got = _table_grad(enc, x, dy, classes, u, route=route)
     _check_levels(enc, got, x, dy, classes, u)
     if u is not None:
-        det = _table_grad(enc, x, dy, classes)
+        det = _table_grad(enc, x, dy, classes, route=common)
         assert int((got != 0).sum()) < int((det != 0).sum())
     # Through the encoding: a generator on the card draws u; the forward is
     # the deterministic lookup.
     p = torch.zeros(enc.n_params, device=dev, requires_grad=True)
-    before = (grid_encode.LAUNCHES, grid_encode.BWD_LAUNCHES)
+    before = (grid_encode.LAUNCHES, *_route_launches(route))
     (g,) = torch.autograd.grad(enc.apply(p, x, rng=gen).float().sum(), p)
-    assert (grid_encode.LAUNCHES, grid_encode.BWD_LAUNCHES) == (before[0] + 1, before[1] + 1)
+    assert (grid_encode.LAUNCHES, *_route_launches(route)) == (before[0] + 1, before[1] + 1, before[2] + 1)
     assert torch.isfinite(g).all() and g.any()
