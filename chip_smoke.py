@@ -15,10 +15,13 @@ Phases, each printing lines of its own; any failure exits non-zero:
    output one, then at the flagship's shapes, where two calls give the same
    bits.
 3b. the spherical-harmonics kernels (forward and input gradient) against
-   their plain versions: degrees 1-8, fp32 and bf16 output, B in {1, 31,
-   1000, 2^18 + 7}, a strided (B, 6)[:, 3:] input with 7 pad columns and a
-   contiguous one; two calls give the same bits; then both timed at the
-   NeRF path's shapes.
+   their plain versions on both routes (vector: the padding that fills a
+   row's last 16-byte vector; staged: one column more): degrees 1-8, fp32
+   and bf16 output, bf16 and fp32 dL/dy, B in {1, 31, 1000, 2^18 + 7}, a
+   strided (B, 6)[:, 3:] input and a contiguous one, each launch moving its
+   route's count; two calls give the same bits; then both timed at the NeRF
+   path's shapes (benchmarks.sh_times: device time cold over a ring of
+   buffers beyond L2 and warm, call time, each beside the bytes bound).
 4. kernel 2 (grid lookup) against its plain version: the flagship encoding
    at B = 2^18 plus cell-boundary points and points outside [0, 1]; again
    with table_dtype bfloat16 and with the CoherentPrime (XOR) hash, each
@@ -83,7 +86,7 @@ Phases, each printing lines of its own; any failure exits non-zero:
    params) for 600 steps of 8192 rays x 32 samples, every count at 0 just
    before and read just after: the loss falls, the validation PSNR clears
    its floor, the served render's frames/s, and the lookup, K1, K2, the
-   table gradient, K3 and the SH kernel each launch; one step kernel vs
+   table gradient, K3 and the SH kernel (its vector route) each launch; one step kernel vs
    plain and the step's profile; then tests/test_nerf_config.py's
    NERF_CONFIG 20 steps through training_steps against 20 training_step
    calls (the graph-vs-loop tolerances).
@@ -134,7 +137,7 @@ Phases, each printing lines of its own; any failure exits non-zero:
    table at F = 2, B = 2^24) per source, ns/row beside the bytes
    bound and the library call (index_select, index_add_); the device time
    (events around a call whose issue the device cannot see) and call time
-   (events over back-to-back calls) of each P3 and P5 case and of the JSON
+   (events over back-to-back calls) of each probe case and of the JSON
    shape, kernel beside library call, and the host's microseconds a whole
    call at P5 C1's size, the wrapper beside torch.gather.
 15. floors: the grid kernels' random rows (lookup on uniform and
@@ -156,6 +159,7 @@ The second-to-last line is the kernels' JSON record; the last line is
 
 from __future__ import annotations
 
+import itertools
 import json
 import os
 import statistics
@@ -2103,12 +2107,12 @@ def phase_probes(card):
     # Device time (CUDA events around one call queued behind a spin kernel:
     # the call's kernels and memsets) and call time (CUDA events over
     # back-to-back calls: the host's time or the device's, the larger) of
-    # each P3 and P5 case and of the JSON shape, kernel beside library call;
+    # each probe case and of the JSON shape, kernel beside library call;
     # then the host's cost of a whole call, the wrapper beside torch.gather.
     for rec in result["probes"]:
         if rec["device_ms"] is None or (rec["p"] == "sweep" and not rec["label"].endswith(JSON_SHAPE)):
             continue
-        lib = rec["library"]
+        lib = rec["library"] if rec["library_device_ms"] is not None else None
         log(f"probe times [{card}]: {rec['label']} [{rec['kernel']} {rec['source']}]: device ms a call: kernel "
             f"{rec['device_ms']:.4f}" + ("" if lib is None else f", {lib} {rec['library_device_ms']:.4f}")
             + f"; call ms: kernel {rec['ms']:.4f}" + ("" if lib is None else f", {lib} {rec['library_ms']:.4f}"))
@@ -2288,7 +2292,8 @@ SH_TOL_NOTE = ("forward fp32 max|kernel - plain| <= 1e-5 max|plain| (the same fp
 # nerf_synthetic.py) at 600 steps of 8192 rays x 32 samples (2^18 field
 # evaluations a step).
 NERF_STEPS, NERF_RAYS = 600, 8192
-NERF_COUNTERS = {**TRAIN_COUNTERS, "sh_encode": ("sh_encode", "LAUNCHES")}
+NERF_COUNTERS = {**TRAIN_COUNTERS, "sh_encode": ("sh_encode", "LAUNCHES"),
+                 "sh_encode vector": ("sh_encode", "ROUTE_LAUNCHES", ("forward", "vector"))}
 # The validation PSNR floors of the 600-step runs (dB), from 25 runs on an
 # H100 (seeds 0-7; seed 0 seven times): 43.940-58.889 dB, median 54.557. The
 # last step's weights dither without EMA (a late loss spike took one seed-0
@@ -2318,47 +2323,62 @@ NERF_TEST_CONFIG = {
 def phase_sh_kernel(card):
     import torch
 
+    from tcnn_tpu_torch.benchmarks import sh_times
     from tcnn_tpu_torch.ops import sh_encode as sh
 
     gen = torch.Generator(device="cuda").manual_seed(SEED + 20)
     err_fwd = err_bwd = 0.0
     n_cases = 0
+    sh.ROUTE_LAUNCHES.clear()
     for degree in range(1, sh.MAX_DEGREE + 1):
         for batch in SH_BATCHES:
             wide = torch.rand((batch, 6), generator=gen, device="cuda")
-            for strided in (True, False):
+            for strided, which in itertools.product((True, False), ("vector", "staged")):
                 x = wide[:, 3:] if strided else wide[:, :3].contiguous()
-                pad = 7 if strided else 0
+                pad = (-degree * degree) % 8 + (which == "staged")
                 want = sh.sh_encode_plain(x, degree, pad, 1.0, torch.float32)
+                before = dict(sh.ROUTE_LAUNCHES)
                 got = sh.sh_encode(x, degree, pad, 1.0, torch.float32)
-                err_fwd = max(err_fwd, f32_close(got, want, f"sh forward degree {degree} B={batch} fp32"))
+                err_fwd = max(err_fwd, f32_close(got, want, f"sh forward degree {degree} B={batch} fp32 {which}"))
                 got16 = sh.sh_encode(x, degree, pad, 1.0, torch.bfloat16).float()
+                check(sh.ROUTE_LAUNCHES.get(("forward", which), 0) == before.get(("forward", which), 0) + 2,
+                      f"sh forward degree {degree} pad {pad}: not launched on the {which} route")
                 ulp = torch.where(want == 0, torch.zeros_like(want),
                                   torch.exp2(torch.floor(torch.log2(want.abs())) - 7))
                 check(bool(((got16 - want).abs() <= ulp + 1e-5 * want.abs().max()).all()),
-                      f"sh forward degree {degree} B={batch} bf16: beyond one bf16 ulp of the plain value")
+                      f"sh forward degree {degree} B={batch} bf16 {which}: beyond one bf16 ulp of the plain value")
                 check(bool((got16[:, :pad] == 1.0).all()), "sh: a padding column is not 1.0")
                 for dy_dtype in (torch.bfloat16, torch.float32):
                     dy = torch.randn((batch, pad + degree * degree), generator=gen, device="cuda").to(dy_dtype)
                     want_dx = sh.sh_backward_input_plain(x, dy, degree, pad)
+                    before = sh.ROUTE_LAUNCHES.get(("backward", which), 0)
                     got_dx = sh.sh_backward_input(x, dy, degree, pad)
+                    check(sh.ROUTE_LAUNCHES.get(("backward", which), 0) == before + 1,
+                          f"sh dL/dx degree {degree} pad {pad}: not launched on the {which} route")
                     if degree == 1:
                         check(not bool(got_dx.any()), "sh backward degree 1: the gradient of a constant is not 0")
                     else:
-                        err_bwd = max(err_bwd, f32_close(got_dx, want_dx, f"sh dL/dx degree {degree} B={batch}"))
+                        err_bwd = max(err_bwd, f32_close(got_dx, want_dx, f"sh dL/dx degree {degree} B={batch} "
+                                                                          f"{which}"))
                     check(torch.equal(got_dx, sh.sh_backward_input(x, dy, degree, pad)),
                           f"sh dL/dx degree {degree}: two calls differ")
                 check(torch.equal(got, sh.sh_encode(x, degree, pad, 1.0, torch.float32)),
                       f"sh forward degree {degree}: two calls differ")
                 n_cases += 1
     torch.cuda.synchronize()
-    log(f"kernel sh_encode: tcnn_sh_forward / tcnn_sh_backward_input vs plain, degrees 1-8 x B in {SH_BATCHES} x "
-        f"(a strided (B, 6)[:, 3:] input with 7 pad columns; a contiguous one without), fp32 and bf16 output, bf16 "
-        f"and fp32 dL/dy ({n_cases} cases): forward max|diff| {err_fwd:.3e}, dL/dx max|diff| {err_bwd:.3e}; two "
-        f"calls give the same bits; tolerance: {SH_TOL_NOTE}")
+    routes = {f"{k} {w}": v for (k, w), v in sorted(sh.ROUTE_LAUNCHES.items())}
+    log(f"kernel sh_encode: tcnn_sh_forward / tcnn_sh_backward_input vs plain on both routes, degrees 1-8 x B in "
+        f"{SH_BATCHES} x (a strided (B, 6)[:, 3:] input; a contiguous one) x (the vector route's padding; one "
+        f"column more, the staged route), fp32 and bf16 output, bf16 and fp32 dL/dy ({n_cases} cases; launches by "
+        f"route {routes}): forward max|diff| {err_fwd:.3e}, dL/dx max|diff| {err_bwd:.3e}; two calls give the "
+        f"same bits; tolerance: {SH_TOL_NOTE}")
 
     # Times at the NeRF path's shapes: 2^18 samples, degree 3, 7 pad
-    # columns, bf16 out, the directions a column slice of the (B, 6) input.
+    # columns, bf16 out and dL/dy, the directions a column slice of the
+    # (B, 6) input; device time (the kernel under the profiler; events
+    # beside it) cold (a ring of 8 buffer sets beyond the L2) and warm, and
+    # call time, the plain versions' in turns with the kernels' (plain,
+    # kernel, kernel, plain).
     B = 2**18
     x = torch.rand((B, 6), generator=gen, device="cuda")[:, 3:]
     dy = torch.randn((B, 16), generator=gen, device="cuda").to(torch.bfloat16)
@@ -2372,19 +2392,29 @@ def phase_sh_kernel(card):
     for side in ("plain", "kernel", "kernel", "plain"):
         for what in ("fwd", "bwd"):
             ms[(side, what)].append(_event_ms(fns[(side, what)]))
-    # Bytes: the 12-byte position read once and the 16 bf16 columns written
-    # (forward); the position and the 9 SH columns of dL/dy read and 12
-    # bytes of dL/dx written (backward). Operations: ~40 fp32 a sample
-    # forward, ~110 backward at degree 3, as the kernels unroll them.
-    bounds = {"fwd": bound(B * (12 + 32), B * 40, "fp32"), "bwd": bound(B * (12 + 18 + 12), B * 110, "fp32")}
+    dev_t = sh_times.times()
+    # Operations: ~40 fp32 a sample forward, ~110 backward at degree 3, as
+    # the kernels unroll them; bytes as sh_times.BYTES.
+    bounds = {"fwd": bound(sh_times.BYTES["forward"], B * 40, "fp32"),
+              "bwd": bound(sh_times.BYTES["backward"], B * 110, "fp32")}
     out = {}
-    for what, label in (("fwd", "tcnn_sh_forward"), ("bwd", "tcnn_sh_backward_input")):
-        k, p = statistics.median(ms[("kernel", what)]), statistics.median(ms[("plain", what)])
-        out[what] = {"kernel": k, "plain": p, "bound": bounds[what], "library": None}
-        log(f"time [{card}]: {label} B=2^18, degree 3, 7 pad columns, bf16, strided input: kernel {k:.4f} ms, plain "
-            f"{p:.4f} ms (CUDA events, medians of plain, kernel, kernel, plain), bound {bounds[what][0]:.4f} ms "
+    for what, key, label in (("fwd", "forward", "tcnn_sh_forward"), ("bwd", "backward", "tcnn_sh_backward_input")):
+        d = dev_t[key]
+        call, p = statistics.median(ms[("kernel", what)]), statistics.median(ms[("plain", what)])
+        b = bounds[what][0]
+        out[what] = {"kernel": d["cold_ms"], "plain": p, "bound": bounds[what], "library": None, "call_ms": call,
+                     "warm_ms": d["warm_ms"]}
+        log(f"time [{card}]: {label} B=2^18, degree 3, 7 pad columns, bf16, strided input: device ms (the kernel "
+            f"under torch.profiler) cold {d['cold_ms']:.4f} ({b / d['cold_ms']:.2f} of the bound), warm "
+            f"{d['warm_ms']:.4f} ({b / d['warm_ms']:.2f}: L2's rate, not HBM's); CUDA events around one call behind "
+            f"a spin kernel cold {d['cold_event_ms']:.4f}, warm {d['warm_event_ms']:.4f} (their floor, a one-cycle "
+            f"kernel: {dev_t['event_floor_ms']:.4f}); cold it moves {d['sector_bytes'] / 1e6:.1f} MB (the positions' "
+            f"sectors, whole rows) at {d['cold_tb_s']:.3f} TB/s, PyTorch's copy_ of the (B, 16) bf16 rows over the "
+            f"same buffers at {dev_t['copy_ of the (B, 16) bf16 rows']['cold_tb_s']:.3f}; call ms {call:.4f} (CUDA "
+            f"events over 10 calls, median of plain, kernel, kernel, plain: the wrapper's host time); plain "
+            f"{p:.4f} ms; bound {b:.4f} ms "
             f"({bounds[what][1]}); no single PyTorch call computes the SH basis")
-    return {"err_fwd": err_fwd, "err_bwd": err_bwd, "times": out}
+    return {"err_fwd": err_fwd, "err_bwd": err_bwd, "times": out, "routes": routes}
 
 
 def _nerf_grid_check(grid, pts, gen):
@@ -2974,14 +3004,25 @@ def main() -> int:
         entry("grid_bwdbwd", "grid_bwd.cu", "tcnn_tpu/encodings/grid.py:1354", sdf["launches"]["grid_bwdbwd"],
               kg["g2"], "grid_bwdbwd", "module API (SDF)"),
     ]
-    kernels += [
+    # The SH rows: ms is the cold device time (call_ms beside it); routes:
+    # the NeRF run's launches by route for the forward, the check's for the
+    # input gradient.
+    sh_rows = [
         entry("sh_encode", "sh_encode.cu", "tcnn_tpu/encodings/spherical_harmonics.py:106",
               nerf["launches"]["sh_encode"], ksh["err_fwd"], None, "NeRF sample", ksh["times"]["fwd"]),
         entry("sh_encode_backward_input", "sh_encode.cu", "tcnn_tpu/encodings/spherical_harmonics.py:106",
               sh_encode.BWD_LAUNCHES, ksh["err_bwd"], None,
-              "kernel check only (no path of the NeRF sample differentiates directions; launches: the check's)",
+              "kernel check only (no path of the NeRF sample differentiates directions; launches: the check's "
+              "and the timings')",
               ksh["times"]["bwd"]),
     ]
+    sh_rows[0]["routes"] = {"vector": nerf["launches"]["sh_encode vector"],
+                            "staged": nerf["launches"]["sh_encode"] - nerf["launches"]["sh_encode vector"]}
+    sh_rows[1]["routes"] = {w: ksh["routes"].get(f"backward {w}", 0) for w in ("vector", "staged")}
+    for row, what in zip(sh_rows, ("fwd", "bwd")):
+        row.update(device_ms=ksh["times"][what]["kernel"], call_ms=ksh["times"][what]["call_ms"],
+                   warm_device_ms=ksh["times"][what]["warm_ms"])
+    kernels += sh_rows
     # The grid extras' modes of the lookup and the table gradient; launches
     # from each extra's own path (training_steps with the Rng hash, with
     # fixed_point_pos; the stochastic table gradient from the module-API

@@ -4,12 +4,14 @@ image-fit protocols of the repo's ``bench.py``), ``bench_mlp``,
 ``bench_image``, ``probe_rows`` (the row gather and scatter probes),
 ``grid_bwd_plans`` (the table-gradient kernel's launch plans),
 ``lookup_scatter_times`` (the grid lookup and the row scatter at the main
-path's shapes, against the earlier lookup kernel and ``index_add_``) and
+path's shapes, against the earlier lookup kernel and ``index_add_``),
 ``grid_second_order_times`` (the grid's input gradient and double backward
-at the SDF path's shapes, and the SDF step). They run on the CUDA card
-(``--device cuda``, the default) and fail without one; ``--device cpu``
-(all but the last two, which time kernels only) runs the kernels' plain
-versions, for tests only: its times are the CPU's. Nothing here runs at
+at the SDF path's shapes, and the SDF step); ``ffmlp_adam_times``,
+``grid_ab_times`` and ``sh_times`` (the spherical-harmonics kernels' device
+and call times at the NeRF path's shapes) time kernels on the card only.
+They run on the CUDA card (``--device cuda``, the default) and fail without
+one; ``--device cpu`` (where an entry point takes it) runs the kernels'
+plain versions, for tests only: its times are the CPU's. Nothing here runs at
 import.
 
 The helpers below are shared by the entry points.

@@ -25,13 +25,14 @@ the same function where there is one (``index_select`` for a row gather,
 the bound: the larger of the bytes this run's data needs (the indices read,
 each distinct table element read, the output written, once each) over the
 H100's 3.35 TB/s and the operations over its fp32 peak of 67 TFLOP/s
-(NVIDIA's data sheet, SXM). For P3, P5 and the sweep's 2^24-row points the
-line also gives the device time a call of the kernel and of the library
-call (``device_ms``: CUDA events around one call queued behind a spin
-kernel, so the host's time to issue it is hidden; median of ``--reps``),
-which says whether a loss is the host's or the device's. On the card the
-JSON also carries ``host_us``: the host's microseconds a whole call at P5
-C1's size, the wrapper beside ``torch.gather``.
+(NVIDIA's data sheet, SXM). On the card every line also gives the device
+time a call of the kernel and of the library call (``device_ms``: CUDA
+events around one call queued behind a spin kernel, so the host's time to
+launch it is hidden; median of ``--reps``), which says whether a loss is the
+host's or the device's: a call time of a few tens of microseconds is the
+wrapper's host time. On the card the JSON also carries ``host_us``: the
+host's microseconds a whole call at P5 C1's size, the wrapper beside
+``torch.gather``.
 
 Tolerances of the checks: every gather, the tile sum, the copy and
 STORE_LAST bit-exact; ADD within 1e-6 of the sum of |contributions| per
@@ -184,7 +185,8 @@ def _add_case(name, p, label, idx, rows, size, kernel="probe_scatter", acc=pr.AC
         def library():
             return torch.zeros((size, R), device=rows.device).index_add_(0, idx, rows)
     return Case(name, p, label, run, plain, rows=B, kernel=kernel, n_bytes=4 * (B + B * R + int(size) * R),
-                n_ops=B * R, library=library, library_name="index_add_", source=source, check="add",
+                n_ops=B * R, library=library, library_name="index_add_" if library else "", source=source,
+                check="add",
                 abs_sum=lambda: sr.scatter_rows_plain(idx, rows.abs(), size, contrib),
                 shape={"S": int(size), "F": R, "B": B, "touched": _distinct(idx)})
 
@@ -369,12 +371,6 @@ def check_case(case: Case) -> float:
     return err
 
 
-def device_timed(case: Case) -> bool:
-    """Whether ``run_cases`` also takes the device time of ``case``: P3, P5
-    and the sweep's 2^24-row points."""
-    return case.p in ("P3", "P5") or (case.p == "sweep" and case.rows == 2**24)
-
-
 def device_ms(fn, dev: torch.device, reps: int, pad_cycles: int = 1_000_000) -> float:
     """Device ms a call of ``fn``: the median over ``reps`` calls of CUDA
     events recorded just before and just after the call, each call queued
@@ -436,7 +432,7 @@ def run_cases(cases: List[Case], dev, reps: int, out=sys.stdout) -> List[dict]:
     for case in cases:
         err = check_case(case)
         ms, blocks = timed_blocks(case.run, dev, reps)
-        timed_dev = dev.type == "cuda" and device_timed(case)
+        timed_dev = dev.type == "cuda"
         dev_ms = device_ms(case.run, dev, reps) if timed_dev else None
         key = (case.kernel, case.label)
         if key not in shared:

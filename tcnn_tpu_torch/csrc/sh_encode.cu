@@ -27,15 +27,42 @@
 // bf16 (7 + 9 columns) that is 11.5 MB, ~3.4 us at 3.35 TB/s, against ~100
 // fp32 operations a sample (~0.4 us at 67 TFLOP/s).
 //
-// Design: one thread per sample, the degree a template constant so that the
-// recurrences unroll into registers. A block of 128 samples stages its
-// degree^2 values a sample in shared memory (a row stride of degree^2 | 1
-// words, so a warp's rows fall in distinct banks), then the block writes its
-// contiguous (128, padded_width) output tile in one flat, coalesced loop,
-// the padding columns included. The backward stages the block's dL/dy SH
-// columns the same way before each thread contracts its own row. Positions
-// are read with a row stride, so a column slice of a wider input needs no
-// copy.
+// Design: one thread per sample's arithmetic, the degree a template
+// constant so that the recurrences unroll into registers. Two routes, chosen
+// by the wrapper (ops/sh_encode.py:route):
+//
+// - vector (tcnn_sh_forward_vector, tcnn_sh_backward_input_vector), where a
+//   row of padded_width values is a whole number of 16-byte vectors (at
+//   most kMaxRowVectors) and the row-vector tensor (the forward's output, the
+//   backward's dL/dy) starts on a 16-byte boundary. Then n_to_pad mod V (V =
+//   8 bf16 or 4 fp32 values a vector) is fixed by the degree: the row is
+//   n_to_pad / V whole vectors of padding (a run-time count of constant
+//   vectors) and then a compile-time layout of vectors in which the first
+//   kShift columns are padding (VectorRow). No register array is indexed by
+//   a run-time value, and nothing waits at a block barrier or divides at run
+//   time. A warp takes 32 consecutive rows at a time, a lane one of them;
+//   in the forward a lane takes 1-2 such rows (forward_rows), all their
+//   loads made before the first row's arithmetic. The forward's lanes
+//   assemble their rows in the warp's stage in shared memory and, after
+//   __syncwarp, the warp writes its rows' contiguous span as 16-byte
+//   vectors, lane after lane, so each 32-byte sector is written whole (a
+//   lane writing its own row's vectors would leave two half-written sectors
+//   a row for L2 to merge). The backward's lanes read their own dL/dy rows
+//   as 16-byte vectors (the two loads a 32-byte row fill whole sectors
+//   between them in L1) and stage dL/dx so that the warp writes its 32 rows
+//   as 24 float4s.
+//   At the NeRF path's shapes a row is 16 bf16 values: two vectors.
+// - staged (tcnn_sh_forward, tcnn_sh_backward_input), for every other width
+//   or alignment: a block of 128 samples stages its degree^2 values a sample
+//   in shared memory (a row stride of degree^2 | 1 words, so a warp's rows
+//   fall in distinct banks), then the block writes its contiguous (128,
+//   padded_width) output tile in one flat, coalesced loop, the padding
+//   columns included. The backward stages the block's dL/dy SH columns the
+//   same way before each thread contracts its own row.
+//
+// Positions are read with a row stride, so a column slice of a wider input
+// needs no copy. Both routes compute the same values in the same order, so
+// the forward's two routes give the same bits.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -99,6 +126,9 @@ __device__ __forceinline__ void store_value(void* p, int64_t i, float v, int bf1
   }
 }
 
+// [0, 1] -> [-1, 1], as the plain version computes it.
+__device__ __forceinline__ float remap(float v) { return __fsub_rn(__fmul_rn(v, 2.0f), 1.0f); }
+
 // The degree^2 SH values at (x, y, z) in [-1, 1]^3, level-major with m =
 // -l..l, into out[l * l + l + m].
 template <int DEG>
@@ -148,8 +178,7 @@ __global__ void __launch_bounds__(kThreads)
   if (t < rows) {
     const float* p = x + (row0 + t) * x_stride;
     float v[D2];
-    sh_values<DEG>(__fsub_rn(__fmul_rn(p[0], 2.0f), 1.0f), __fsub_rn(__fmul_rn(p[1], 2.0f), 1.0f),
-                   __fsub_rn(__fmul_rn(p[2], 2.0f), 1.0f), v);
+    sh_values<DEG>(remap(p[0]), remap(p[1]), remap(p[2]), v);
 #pragma unroll
     for (int j = 0; j < D2; ++j) stage[t * S + j] = v[j];
   }
@@ -165,29 +194,13 @@ __global__ void __launch_bounds__(kThreads)
   }
 }
 
-template <int DEG>
-__global__ void __launch_bounds__(kThreads)
-    sh_backward_input_kernel(const float* __restrict__ x, int64_t x_stride, const void* __restrict__ dy, int dy_bf16,
-                             float* __restrict__ dx, int64_t batch, int n_to_pad, int padded_width) {
-  constexpr int D2 = DEG * DEG;
-  constexpr int S = stage_stride<DEG>();
-  __shared__ float stage[kThreads * S];
-  const int64_t row0 = static_cast<int64_t>(blockIdx.x) * kThreads;
-  const int rows = static_cast<int>(min(static_cast<int64_t>(kThreads), batch - row0));
-  const int t = threadIdx.x;
-  for (int i = t; i < rows * D2; i += kThreads) {
-    const int r = i / D2;
-    const int c = i - r * D2;
-    stage[r * S + c] = load_value(dy, (row0 + r) * padded_width + n_to_pad + c, dy_bf16);
-  }
-  __syncthreads();
-  if (t >= rows) return;
-  const float* p = x + (row0 + t) * x_stride;
-  const float x0 = __fsub_rn(__fmul_rn(p[0], 2.0f), 1.0f);
-  const float y0 = __fsub_rn(__fmul_rn(p[1], 2.0f), 1.0f);
-  const float z0 = __fsub_rn(__fmul_rn(p[2], 2.0f), 1.0f);
-  const float* g = stage + t * S;
-
+// dL/d(x, y, z) of the position (x0, y0, z0) in [-1, 1]^3 from the
+// degree^2 SH columns g[0..degree^2) of its dL/dy row: the partial
+// derivatives carried through the recurrences in registers, then contracted
+// with g, times 2 for the remap. G is a pointer (the staged route's shared
+// row) or a register array (the vector route's), indexed at compile time.
+template <int DEG, typename G>
+__device__ __forceinline__ float3 sh_input_grad(float x0, float y0, float z0, const G& g) {
   float a[DEG], b[DEG];
   a[0] = 1.0f;
   b[0] = 0.0f;
@@ -233,10 +246,208 @@ __global__ void __launch_bounds__(kThreads)
     }
   }
   // d(2x - 1) / dx = 2.
+  return make_float3(2.0f * gx, 2.0f * gy, 2.0f * gz);
+}
+
+template <int DEG>
+__global__ void __launch_bounds__(kThreads)
+    sh_backward_input_kernel(const float* __restrict__ x, int64_t x_stride, const void* __restrict__ dy, int dy_bf16,
+                             float* __restrict__ dx, int64_t batch, int n_to_pad, int padded_width) {
+  constexpr int D2 = DEG * DEG;
+  constexpr int S = stage_stride<DEG>();
+  __shared__ float stage[kThreads * S];
+  const int64_t row0 = static_cast<int64_t>(blockIdx.x) * kThreads;
+  const int rows = static_cast<int>(min(static_cast<int64_t>(kThreads), batch - row0));
+  const int t = threadIdx.x;
+  for (int i = t; i < rows * D2; i += kThreads) {
+    const int r = i / D2;
+    const int c = i - r * D2;
+    stage[r * S + c] = load_value(dy, (row0 + r) * padded_width + n_to_pad + c, dy_bf16);
+  }
+  __syncthreads();
+  if (t >= rows) return;
+  const float* p = x + (row0 + t) * x_stride;
+  const float3 d = sh_input_grad<DEG>(remap(p[0]), remap(p[1]), remap(p[2]), stage + t * S);
   float* o = dx + (row0 + t) * 3;
-  o[0] = 2.0f * gx;
-  o[1] = 2.0f * gy;
-  o[2] = 2.0f * gz;
+  o[0] = d.x;
+  o[1] = d.y;
+  o[2] = d.z;
+}
+
+// The vector route's row layout: V values a 16-byte vector; a row of
+// n_to_pad + degree^2 values that is a whole number of vectors has
+// n_to_pad = V * pad_vectors + kShift, so after pad_vectors vectors of
+// padding come kVectors vectors whose first kShift columns are padding and
+// the rest the degree^2 SH values.
+template <int DEG, bool BF16>
+struct VectorRow {
+  static constexpr int kV = BF16 ? 8 : 4;
+  static constexpr int kShift = (kV - (DEG * DEG) % kV) % kV;
+  static constexpr int kVectors = (kShift + DEG * DEG) / kV;
+};
+
+// The vector route: a warp takes 32 consecutive rows at a time, a lane
+// one row of them; the warps of a block take consecutive spans of
+// 32 * rows_a_lane rows. At most kMaxRowVectors vectors a row: the
+// forward's stage, kWarps x 32 rows, then fits in 48 KB.
+constexpr int kWarps = kThreads / 32;
+constexpr int kMaxRowVectors = 24;
+
+// Rows a lane of the forward: each lane's positions are loaded for all its
+// rows before the first row's arithmetic; one row where a row has more
+// values to hold in registers. At the NeRF path's shapes 2 rows a lane make
+// 1024 blocks, one wave; a trial on an H100 ranked 2 first from L2 and
+// about even with 1 from HBM, ahead of 4 and 8. The backward takes one row
+// a lane: there the trial ranked 1 first from both.
+template <int DEG>
+__host__ __device__ constexpr int forward_rows() {
+  return DEG <= 6 ? 2 : 1;
+}
+
+// Two bf16 columns in one word, the first in the low half (little endian).
+__device__ __forceinline__ uint32_t pack2(float lo, float hi) {
+  const __nv_bfloat162 h = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<const uint32_t*>(&h);
+}
+
+// Vector k of the row's SH part (after its whole padding vectors), from the
+// SH values v and the padding value.
+template <int DEG, bool BF16>
+__device__ __forceinline__ uint4 row_vector(int k, const float (&v)[DEG * DEG], float pad_value) {
+  using Row = VectorRow<DEG, BF16>;
+  float e[Row::kV];
+#pragma unroll
+  for (int i = 0; i < Row::kV; ++i) {
+    const int c = k * Row::kV + i - Row::kShift;
+    e[i] = c < 0 ? pad_value : v[c < 0 ? 0 : c];
+  }
+  uint32_t w[4];
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    if constexpr (BF16) {
+      w[i] = pack2(e[2 * i], e[2 * i + 1]);
+    } else {
+      w[i] = __float_as_uint(e[i]);
+    }
+  }
+  return make_uint4(w[0], w[1], w[2], w[3]);
+}
+
+template <bool BF16>
+__device__ __forceinline__ uint4 pad_vector(float pad_value) {
+  uint32_t w;
+  if constexpr (BF16) {
+    w = pack2(pad_value, pad_value);
+  } else {
+    w = __float_as_uint(pad_value);
+  }
+  return make_uint4(w, w, w, w);
+}
+
+// The degree^2 SH columns of a dL/dy row from the 32-bit words of its
+// kVectors SH vectors.
+template <int DEG, bool BF16>
+__device__ __forceinline__ void unpack_row(const uint32_t (&w)[4 * VectorRow<DEG, BF16>::kVectors],
+                                           float (&g)[DEG * DEG]) {
+  constexpr int kShift = VectorRow<DEG, BF16>::kShift;
+#pragma unroll
+  for (int c = 0; c < DEG * DEG; ++c) {
+    const int e = c + kShift;  // the column within the SH vectors
+    if constexpr (BF16) {
+      g[c] = __uint_as_float(e % 2 ? (w[e / 2] & 0xffff0000u) : (w[e / 2] << 16));
+    } else {
+      g[c] = __uint_as_float(w[e]);
+    }
+  }
+}
+
+// Each lane assembles its row (padding vectors, then the SH vectors) in
+// its warp's stage in shared memory; after __syncwarp the warp writes its
+// 32 rows, one contiguous span, as 16-byte vectors, neighbouring lanes on
+// neighbouring vectors, so every 32-byte sector is written whole.
+template <int DEG, bool BF16>
+__global__ void __launch_bounds__(kThreads)
+    sh_forward_vector_kernel(const float* __restrict__ x, int64_t x_stride, uint4* __restrict__ out, int64_t batch,
+                             int pad_vectors, float pad_value) {
+  using Row = VectorRow<DEG, BF16>;
+  constexpr int R = forward_rows<DEG>();
+  extern __shared__ uint4 stage_rows[];  // kWarps x 32 rows x row_vectors
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int row_vectors = pad_vectors + Row::kVectors;
+  uint4* stage = stage_rows + warp * 32 * row_vectors;
+  const int64_t first = (static_cast<int64_t>(blockIdx.x) * kWarps + warp) * (32 * R);
+  float p[R][3];
+#pragma unroll
+  for (int j = 0; j < R; ++j) {
+    const int64_t r = first + j * 32 + lane;
+    const float* q = x + (r < batch ? r : 0) * x_stride;
+    p[j][0] = q[0];
+    p[j][1] = q[1];
+    p[j][2] = q[2];
+  }
+  const uint4 pad = pad_vector<BF16>(pad_value);
+#pragma unroll
+  for (int j = 0; j < R; ++j) {
+    const int64_t r0 = first + j * 32;
+    if (r0 >= batch) break;  // the same for the whole warp
+    const int rows = static_cast<int>(min(static_cast<int64_t>(32), batch - r0));
+    if (lane < rows) {
+      float v[DEG * DEG];
+      sh_values<DEG>(remap(p[j][0]), remap(p[j][1]), remap(p[j][2]), v);
+      uint4* s = stage + lane * row_vectors;
+      for (int k = 0; k < pad_vectors; ++k) s[k] = pad;
+      s += pad_vectors;
+#pragma unroll
+      for (int k = 0; k < Row::kVectors; ++k) s[k] = row_vector<DEG, BF16>(k, v, pad_value);
+    }
+    __syncwarp();
+    uint4* o = out + r0 * row_vectors;
+    for (int c = lane; c < rows * row_vectors; c += 32) o[c] = stage[c];
+    __syncwarp();
+  }
+}
+
+// Each lane reads its own dL/dy row's SH vectors (the 16-byte loads of a
+// warp's rows fill whole sectors between them in L1) and writes its dL/dx
+// to its warp's stage; the warp then writes its 32 rows' 384 bytes as 24
+// float4s.
+template <int DEG, bool BF16>
+__global__ void __launch_bounds__(kThreads)
+    sh_backward_input_vector_kernel(const float* __restrict__ x, int64_t x_stride, const uint4* __restrict__ dy,
+                                    float* __restrict__ dx, int64_t batch, int pad_vectors) {
+  using Row = VectorRow<DEG, BF16>;
+  __shared__ __align__(16) float stage_dx[kWarps][32 * 3];
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int64_t r0 = (static_cast<int64_t>(blockIdx.x) * kWarps + warp) * 32;
+  if (r0 >= batch) return;  // the same for the whole warp
+  const int rows = static_cast<int>(min(static_cast<int64_t>(32), batch - r0));
+  const int64_t r = r0 + (lane < rows ? lane : 0);
+  const float* q = x + r * x_stride;
+  const float x0 = q[0], y0 = q[1], z0 = q[2];
+  uint32_t w[4 * Row::kVectors];
+  const uint4* g = dy + r * (pad_vectors + Row::kVectors) + pad_vectors;
+#pragma unroll
+  for (int k = 0; k < Row::kVectors; ++k) {
+    const uint4 v = g[k];
+    w[4 * k] = v.x;
+    w[4 * k + 1] = v.y;
+    w[4 * k + 2] = v.z;
+    w[4 * k + 3] = v.w;
+  }
+  float gv[DEG * DEG];
+  unpack_row<DEG, BF16>(w, gv);
+  const float3 d = sh_input_grad<DEG>(remap(x0), remap(y0), remap(z0), gv);
+  float* stage = stage_dx[warp];
+  stage[lane * 3] = d.x;
+  stage[lane * 3 + 1] = d.y;
+  stage[lane * 3 + 2] = d.z;
+  __syncwarp();
+  float* o = dx + r0 * 3;
+  if (rows == 32 && (reinterpret_cast<uintptr_t>(dx) & 15) == 0) {
+    if (lane < 24) reinterpret_cast<float4*>(o)[lane] = reinterpret_cast<const float4*>(stage)[lane];
+  } else {
+    for (int c = lane; c < rows * 3; c += 32) o[c] = stage[c];
+  }
 }
 
 template <template <int> class Launch, typename... Args>
@@ -276,6 +487,54 @@ struct LaunchBackward {
   }
 };
 
+// The vector route's kernels, bf16 or fp32 rows. The entry points have
+// checked that a row is a whole number of vectors (so n_to_pad mod V is the
+// layout's kShift) and that the row-vector tensor is 16-byte aligned.
+template <int DEG>
+struct LaunchForwardVector {
+  template <bool BF16>
+  static cudaError_t go(const float* x, int64_t x_stride, void* out, int64_t batch, int n_to_pad, int padded_width,
+                        float pad_value, cudaStream_t stream) {
+    constexpr int V = VectorRow<DEG, BF16>::kV;
+    constexpr int rows = kThreads * forward_rows<DEG>();
+    const int64_t blocks = (batch + rows - 1) / rows;
+    const size_t stage = static_cast<size_t>(kWarps) * 32 * (padded_width / V) * sizeof(uint4);
+    sh_forward_vector_kernel<DEG, BF16><<<static_cast<unsigned>(blocks), kThreads, stage, stream>>>(
+        x, x_stride, static_cast<uint4*>(out), batch, n_to_pad / V, pad_value);
+    return cudaGetLastError();
+  }
+  static cudaError_t run(const float* x, int64_t x_stride, void* out, int64_t batch, int n_to_pad, int padded_width,
+                         float pad_value, int out_bf16, cudaStream_t stream) {
+    return out_bf16 ? go<true>(x, x_stride, out, batch, n_to_pad, padded_width, pad_value, stream)
+                    : go<false>(x, x_stride, out, batch, n_to_pad, padded_width, pad_value, stream);
+  }
+};
+
+template <int DEG>
+struct LaunchBackwardVector {
+  template <bool BF16>
+  static cudaError_t go(const float* x, int64_t x_stride, const void* dy, float* dx, int64_t batch, int n_to_pad,
+                        cudaStream_t stream) {
+    const int64_t blocks = (batch + kThreads - 1) / kThreads;
+    sh_backward_input_vector_kernel<DEG, BF16><<<static_cast<unsigned>(blocks), kThreads, 0, stream>>>(
+        x, x_stride, static_cast<const uint4*>(dy), dx, batch, n_to_pad / VectorRow<DEG, BF16>::kV);
+    return cudaGetLastError();
+  }
+  static cudaError_t run(const float* x, int64_t x_stride, const void* dy, int dy_bf16, float* dx, int64_t batch,
+                         int n_to_pad, int padded_width, cudaStream_t stream) {
+    return dy_bf16 ? go<true>(x, x_stride, dy, dx, batch, n_to_pad, stream)
+                   : go<false>(x, x_stride, dy, dx, batch, n_to_pad, stream);
+  }
+};
+
+// Whether rows of padded_width values of this type at p are whole 16-byte
+// vectors, at most kMaxRowVectors of them, starting on 16-byte boundaries
+// (the wrapper's route function decides the same).
+bool vector_ok(const void* p, int padded_width, int bf16) {
+  const int64_t bytes = static_cast<int64_t>(padded_width) * (bf16 ? 2 : 4);
+  return bytes % 16 == 0 && bytes <= 16 * kMaxRowVectors && reinterpret_cast<uintptr_t>(p) % 16 == 0;
+}
+
 bool shape_ok(int64_t batch, int degree, int n_to_pad, int padded_width) {
   // The flat write loop indexes a block's tile in 32 bits.
   return batch > 0 && degree >= 1 && degree <= kMaxDegree && n_to_pad >= 0 &&
@@ -304,4 +563,29 @@ extern "C" int tcnn_sh_backward_input(const float* x, int64_t x_stride, const vo
                                       cudaStream_t stream) {
   if (!shape_ok(batch, degree, n_to_pad, padded_width) || x_stride < 3) return cudaErrorInvalidValue;
   return dispatch_degree<LaunchBackward>(degree, x, x_stride, dy, dy_bf16, dx, batch, n_to_pad, padded_width, stream);
+}
+
+// tcnn_sh_forward's function on the vector route: the same arguments, and
+// padded_width x the element size a multiple of 16 bytes and at most 384,
+// out 16-byte aligned (cudaErrorInvalidValue otherwise).
+extern "C" int tcnn_sh_forward_vector(const float* x, int64_t x_stride, void* out, int64_t batch, int degree,
+                                      int n_to_pad, int padded_width, float pad_value, int out_bf16,
+                                      cudaStream_t stream) {
+  if (!shape_ok(batch, degree, n_to_pad, padded_width) || x_stride < 3 || !vector_ok(out, padded_width, out_bf16))
+    return cudaErrorInvalidValue;
+  return dispatch_degree<LaunchForwardVector>(degree, x, x_stride, out, batch, n_to_pad, padded_width, pad_value,
+                                              out_bf16, stream);
+}
+
+// tcnn_sh_backward_input's function on the vector route: the same
+// arguments, and padded_width x dL/dy's element size a multiple of 16
+// bytes and at most 384, dL/dy 16-byte aligned (cudaErrorInvalidValue
+// otherwise).
+extern "C" int tcnn_sh_backward_input_vector(const float* x, int64_t x_stride, const void* dy, int dy_bf16,
+                                             float* dx, int64_t batch, int degree, int n_to_pad, int padded_width,
+                                             cudaStream_t stream) {
+  if (!shape_ok(batch, degree, n_to_pad, padded_width) || x_stride < 3 || !vector_ok(dy, padded_width, dy_bf16))
+    return cudaErrorInvalidValue;
+  return dispatch_degree<LaunchBackwardVector>(degree, x, x_stride, dy, dy_bf16, dx, batch, n_to_pad, padded_width,
+                                               stream);
 }

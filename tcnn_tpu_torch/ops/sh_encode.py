@@ -6,11 +6,18 @@ package's ``SphericalHarmonicsEncoding.apply``
 (tcnn_tpu/encodings/spherical_harmonics.py:106) and its autodiff, as the
 reference computes the basis in one kernel (encodings/spherical_harmonics.h).
 ``tcnn_sh_forward`` writes the padding columns and then the degree^2 values
-of each sample, in bf16 or fp32, one thread a sample; ``tcnn_sh_backward_input``
-carries the three partial derivatives through the same recurrences and
-contracts them with dL/dy. The plain version ``sh_encode_plain`` evaluates
-``sh_enc``, the JAX package's recurrences in the same order, in torch; the
-input gradient's plain version is its autograd.
+of each sample, in bf16 or fp32; ``tcnn_sh_backward_input`` carries the
+three partial derivatives through the same recurrences and contracts them
+with dL/dy. Each has two routes, one C entry point each, picked by the pure
+function ``route``: "vector", where a row is a whole number of 16-byte
+vectors (at most 24) and the row-vector tensor (the forward's output, the
+backward's dL/dy) is 16-byte aligned (a warp's rows written or read as
+16-byte vectors, with no block barrier: the NeRF path's degree 3 with 7
+padding columns in bf16), and "staged" for every other width (a block's
+rows staged in shared memory behind a barrier). ``ROUTE_LAUNCHES`` counts
+the launches by (kernel, route). The plain version ``sh_encode_plain``
+evaluates ``sh_enc``, the JAX package's recurrences in the same order, in
+torch; the input gradient's plain version is its autograd.
 
 Every wrapper dispatches on the device of ``x``: a CPU tensor takes the
 plain version, a CUDA tensor launches the kernel or raises.
@@ -20,7 +27,7 @@ from __future__ import annotations
 
 import ctypes
 import math
-from typing import List
+from typing import Dict, List, Tuple
 
 import torch
 
@@ -28,6 +35,21 @@ import torch
 # wrapper's kernel, nowhere else): the forward and the input gradient.
 LAUNCHES = 0
 BWD_LAUNCHES = 0
+# The same launches by (kernel, route): ("forward" | "backward", "vector" |
+# "staged"), the route ``route`` picked.
+ROUTE_LAUNCHES: Dict[Tuple[str, str], int] = {}
+
+# The C entry point of each (kernel, route).
+SYMBOLS = {
+    ("forward", "vector"): "tcnn_sh_forward_vector",
+    ("forward", "staged"): "tcnn_sh_forward",
+    ("backward", "vector"): "tcnn_sh_backward_input_vector",
+    ("backward", "staged"): "tcnn_sh_backward_input",
+}
+VECTOR_BYTES = 16
+# The vector route's widest row (csrc/sh_encode.cu:kMaxRowVectors vectors):
+# its forward stages 128 rows in at most 48 KB of shared memory.
+VECTOR_MAX_ROW_BYTES = 24 * VECTOR_BYTES
 
 MAX_DEGREE = 8
 
@@ -128,6 +150,21 @@ def _check_x(what: str, x: torch.Tensor) -> torch.Tensor:
     return x
 
 
+def route(degree: int, n_to_pad: int, itemsize: int, address: int) -> str:
+    """The route of a call whose row-vector tensor (the forward's output,
+    the backward's dL/dy) holds rows of ``n_to_pad + degree^2`` elements of
+    ``itemsize`` bytes from ``address``: "vector" where a row is a whole
+    number of 16-byte vectors, at most ``VECTOR_MAX_ROW_BYTES``, and the
+    tensor starts on a 16-byte boundary, else "staged"."""
+    row_bytes = (int(n_to_pad) + int(degree) ** 2) * int(itemsize)
+    whole = row_bytes % VECTOR_BYTES == 0 and row_bytes <= VECTOR_MAX_ROW_BYTES
+    return "vector" if whole and int(address) % VECTOR_BYTES == 0 else "staged"
+
+
+def _count(kernel: str, which: str) -> None:
+    ROUTE_LAUNCHES[(kernel, which)] = ROUTE_LAUNCHES.get((kernel, which), 0) + 1
+
+
 def _check_shape(what: str, degree: int, n_to_pad: int):
     if not 1 <= int(degree) <= MAX_DEGREE or int(n_to_pad) < 0:
         raise ValueError(f"{what}: degree must be in [1, {MAX_DEGREE}] and n_to_pad >= 0")
@@ -142,8 +179,8 @@ def sh_encode(x: torch.Tensor, degree: int, n_to_pad: int, pad_value: float = 1.
               out_dtype: torch.dtype = torch.bfloat16) -> torch.Tensor:
     """The SH encoding of ``x`` (B, 3): on a CUDA ``x`` the kernel
     ``tcnn_sh_forward`` writes (B, n_to_pad + degree^2) in bf16 or fp32
-    (another ``out_dtype`` is cast from its fp32 output); on the CPU the
-    plain version."""
+    (another ``out_dtype`` is cast from its fp32 output), on the route
+    ``route`` picks; on the CPU the plain version."""
     if x.device.type == "cpu":
         return sh_encode_plain(x, degree, n_to_pad, pad_value, out_dtype)
     if x.device.type != "cuda":
@@ -156,20 +193,22 @@ def sh_encode(x: torch.Tensor, degree: int, n_to_pad: int, pad_value: float = 1.
     if x.shape[0]:
         from ._build import kernel, stream
 
-        _launch("sh_encode", kernel("sh_encode", "tcnn_sh_forward", _FWD_ARGS)(
+        which = route(degree, n_to_pad, out.element_size(), out.data_ptr())
+        _launch("sh_encode", kernel("sh_encode", SYMBOLS[("forward", which)], _FWD_ARGS)(
             x.data_ptr(), x.stride(0), out.data_ptr(), x.shape[0], int(degree), int(n_to_pad), width,
             float(pad_value), int(kernel_dtype == torch.bfloat16), stream(x.get_device()),
         ))
         global LAUNCHES
         LAUNCHES += 1
+        _count("forward", which)
     return out.to(out_dtype)
 
 
 def sh_backward_input(x: torch.Tensor, dy: torch.Tensor, degree: int, n_to_pad: int) -> torch.Tensor:
     """dL/dx (B, 3) fp32 from dL/dy (B, n_to_pad + degree^2): on a CUDA
     ``x`` the kernel ``tcnn_sh_backward_input`` (dL/dy bf16 or fp32; another
-    dtype is cast to fp32, a non-contiguous one made contiguous); on the CPU
-    the plain version."""
+    dtype is cast to fp32, a non-contiguous one made contiguous), on the
+    route ``route`` picks for dL/dy; on the CPU the plain version."""
     if x.device.type == "cpu":
         return sh_backward_input_plain(x, dy, degree, n_to_pad)
     if x.device.type != "cuda":
@@ -186,12 +225,14 @@ def sh_backward_input(x: torch.Tensor, dy: torch.Tensor, degree: int, n_to_pad: 
     if x.shape[0]:
         from ._build import kernel, stream
 
-        _launch("sh_backward_input", kernel("sh_encode", "tcnn_sh_backward_input", _BWD_ARGS)(
+        which = route(degree, n_to_pad, dy.element_size(), dy.data_ptr())
+        _launch("sh_backward_input", kernel("sh_encode", SYMBOLS[("backward", which)], _BWD_ARGS)(
             x.data_ptr(), x.stride(0), dy.data_ptr(), int(dy.dtype == torch.bfloat16), dx.data_ptr(), x.shape[0],
             int(degree), int(n_to_pad), width, stream(x.get_device()),
         ))
         global BWD_LAUNCHES
         BWD_LAUNCHES += 1
+        _count("backward", which)
     return dx
 
 

@@ -28,8 +28,8 @@ network). The row gather and scatter probes (ops.probe_rows): gathers, tile
 sums, copies and STORE_LAST bit-exact; ADD within 1e-6 of the sum of
 |contributions| per entry (fp32 atomics add in any order); the gather-dot
 within 1e-5 of max |plain| (the matmul sums in another order). The SH
-kernels (ops.sh_encode): the fp32 forward and dL/dx within 1e-5 of max
-|plain| (the same operations, but torch divides by a scalar on the card as
+kernels (ops.sh_encode), on both routes: the fp32 forward and dL/dx within
+1e-5 of max |plain| (the same operations, but torch divides by a scalar on the card as
 a multiply by its reciprocal; the backward sums the terms in another
 order), bf16 within one bf16 ulp more; the NeRF composite's model outputs as the MLP forward.
 """
@@ -1298,27 +1298,94 @@ def test_training_steps_raises_where_capture_fails(dev):
     assert torch.rand(4, device=dev).shape == torch.rand(4, generator=gen, device=dev).shape == (4,)
 
 
+def _sh_route_counts():
+    return dict(sh_encode.ROUTE_LAUNCHES)
+
+
+def _sh_moved(before, kernel, which):
+    """The route counts moved by exactly one launch of ``kernel`` on ``which``."""
+    after = _sh_route_counts()
+    want = dict(before)
+    want[(kernel, which)] = want.get((kernel, which), 0) + 1
+    return {k: v for k, v in after.items() if v} == {k: v for k, v in want.items() if v}
+
+
+@pytest.mark.parametrize("which", ["vector", "staged"])
+@pytest.mark.parametrize("strided", [True, False])
 @pytest.mark.parametrize("degree", range(1, 9))
-@pytest.mark.parametrize("batch", [1, 129, 4099])
-def test_sh_encode_kernel_matches_plain(dev, degree, batch):
-    """tcnn_sh_forward (strided input, prepended padding, fp32 and bf16)
-    and tcnn_sh_backward_input against their plain versions."""
+@pytest.mark.parametrize("batch", [1, 31, 129, 4099, 2**18 + 7])
+def test_sh_encode_kernel_matches_plain(dev, degree, batch, strided, which):
+    """tcnn_sh_forward (prepended padding, fp32 and bf16) and
+    tcnn_sh_backward_input (bf16 and fp32 dL/dy) against their plain
+    versions on each route: the padding that fills the last 16-byte vector
+    of a row in both types takes the vector route, one column more the
+    staged one; the positions a strided (B, 6)[:, 3:] view or contiguous.
+    Each launch moves its route's count; two calls give the same bits."""
     gen = torch.Generator(device=dev).manual_seed(degree * 1000 + batch)
-    x = torch.rand((batch, 6), generator=gen, device=dev)[:, 3:]
-    pad = 5
+    wide = torch.rand((batch, 6), generator=gen, device=dev)
+    x = wide[:, 3:] if strided else wide[:, :3].contiguous()
+    pad = (-degree * degree) % 8 + (which == "staged")
     want = sh_encode.sh_encode_plain(x, degree, pad, 1.0, torch.float32)
-    before = sh_encode.LAUNCHES
+    before, counts = sh_encode.LAUNCHES, _sh_route_counts()
     got = sh_encode.sh_encode(x, degree, pad, 1.0, torch.float32)
-    assert sh_encode.LAUNCHES == before + 1
+    assert sh_encode.LAUNCHES == before + 1 and _sh_moved(counts, "forward", which)
     scale = float(want.abs().max())
     assert float((got - want).abs().max()) <= 1e-5 * scale
+    assert torch.equal(got, sh_encode.sh_encode(x, degree, pad, 1.0, torch.float32))
+    counts = _sh_route_counts()
     got16 = sh_encode.sh_encode(x, degree, pad, 1.0, torch.bfloat16).float()
+    assert _sh_moved(counts, "forward", which)
     ulp = torch.exp2(torch.floor(torch.log2(want.abs().clamp_min(1e-30))) - 7)
     assert bool(((got16 - want).abs() <= ulp + 1e-5 * scale).all())
-    dy = torch.randn((batch, pad + degree * degree), generator=gen, device=dev)
-    got_dx = sh_encode.sh_backward_input(x, dy, degree, pad)
-    want_dx = sh_encode.sh_backward_input_plain(x, dy, degree, pad)
-    assert float((got_dx - want_dx).abs().max()) <= 1e-5 * max(float(want_dx.abs().max()), 1e-30)
+    assert bool((got16[:, :pad] == 1.0).all())
+    for dy_dtype in (torch.float32, torch.bfloat16):
+        dy = torch.randn((batch, pad + degree * degree), generator=gen, device=dev).to(dy_dtype)
+        counts = _sh_route_counts()
+        got_dx = sh_encode.sh_backward_input(x, dy, degree, pad)
+        assert _sh_moved(counts, "backward", which)
+        want_dx = sh_encode.sh_backward_input_plain(x, dy, degree, pad)
+        assert float((got_dx - want_dx).abs().max()) <= 1e-5 * max(float(want_dx.abs().max()), 1e-30)
+        assert torch.equal(got_dx, sh_encode.sh_backward_input(x, dy, degree, pad))
+
+
+@pytest.mark.parametrize("dy_dtype", [torch.float32, torch.bfloat16])
+def test_sh_backward_misaligned_dy_takes_the_staged_route(dev, dy_dtype):
+    """A dL/dy whose rows are whole vectors but which starts 4 or 2 bytes
+    past a 16-byte boundary goes to the staged kernel, and agrees with the
+    plain version."""
+    gen = torch.Generator(device=dev).manual_seed(3)
+    batch, degree, pad = 4099, 3, 7
+    x = torch.rand((batch, 6), generator=gen, device=dev)[:, 3:]
+    dy = torch.randn((batch * 16 + 1,), generator=gen, device=dev).to(dy_dtype)[1:].view(batch, 16)
+    assert dy.data_ptr() % 16 != 0
+    counts = _sh_route_counts()
+    got = sh_encode.sh_backward_input(x, dy, degree, pad)
+    assert _sh_moved(counts, "backward", "staged")
+    want = sh_encode.sh_backward_input_plain(x, dy, degree, pad)
+    assert float((got - want).abs().max()) <= 1e-5 * float(want.abs().max())
+
+
+@pytest.mark.parametrize("out_dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("degree", range(1, 9))
+def test_sh_forward_routes_give_the_same_bits(dev, degree, out_dtype):
+    """At a width both routes take, tcnn_sh_forward_vector and the staged
+    tcnn_sh_forward (called through their C entry points) write the same
+    bits: the same _rn arithmetic in the same order."""
+    from tcnn_tpu_torch.ops._build import kernel, stream
+
+    gen = torch.Generator(device=dev).manual_seed(degree)
+    batch, pad = 2**16 + 3, (-degree * degree) % 8 + 8
+    x = torch.rand((batch, 6), generator=gen, device=dev)[:, 3:]
+    outs = []
+    for which in ("vector", "staged"):
+        out = torch.empty((batch, pad + degree * degree), dtype=out_dtype, device=dev)
+        err = kernel("sh_encode", sh_encode.SYMBOLS[("forward", which)], sh_encode._FWD_ARGS)(
+            x.data_ptr(), x.stride(0), out.data_ptr(), batch, degree, pad, out.shape[1], 0.25,
+            int(out_dtype == torch.bfloat16), stream(dev.index or 0))
+        assert err == 0
+        outs.append(out)
+    torch.cuda.synchronize()
+    assert torch.equal(outs[0], outs[1])
 
 
 def test_sh_second_order_takes_the_first_order_from_the_kernel(dev):
