@@ -107,6 +107,23 @@ Phases, each printing lines of its own; any failure exits non-zero:
    step); and the one-corner gradient through
    NetworkWithInputEncoding.apply(rng=generator) with torch.optim.Adam:
    its gradient kernel vs plain on the same uniforms, then 100 steps.
+12e. the remaining samples and the host sampler, each count at 0 just before
+   its path and read just after, each with the card's name and power limit:
+   samples.sdf_learning at its CONFIG (8 levels of 2^15, Smoothstep,
+   CutlassMLP, the trainer's Adam kernel): total_loss and its parameter
+   gradient kernel vs plain, one step kernel vs plain, fit() at its defaults
+   held to the JAX sample test's criteria (loss below a fifth, validation
+   sdf-l2 < 5e-3, eikonal < 0.5), ms/step and the profile;
+   samples.realtime_render --steps 300 --side 512 --frames 120, a static and
+   a moving frame against the plain path with the same frozen params, both
+   frame rates and the launches a frame; samples.fused_ray_marcher's Marcher
+   (one CUDA graph of all 64 steps) against the eager march through the
+   kernels (bit for bit) and the plain march (bf16 bound), replays
+   repeatable, launches at capture and in replays, ms a render graph beside
+   eager, at the sample's params and at random tables, then the sample's
+   main; utils.data.HostImageSampler native, its contract on the 512^2
+   image, batches/s, and 100 FLAGSHIP_CONFIG steps fed from it beside the
+   same steps fed from the card.
 13. times (CUDA events / synced host clock, median of repeats), each
    kernel's bound from its shapes (bytes over 3.35 TB/s or operations over
    the peak of their type) and, where one PyTorch call computes the same
@@ -900,7 +917,7 @@ def phase_train(name, cfg, card, image):
     import torch
 
     import tcnn_tpu_torch as tt
-    from tcnn_tpu_torch.benchmarks.grid_second_order_times import profile_steps
+    from tcnn_tpu_torch.utils.profiling import profile_steps
     from tcnn_tpu_torch.utils.sampling import stratified_uniform
 
     dev = torch.device("cuda")
@@ -1087,7 +1104,7 @@ def phase_graph(card, configs, image):
     import torch
 
     import tcnn_tpu_torch as tt
-    from tcnn_tpu_torch.benchmarks.grid_second_order_times import profile_steps
+    from tcnn_tpu_torch.utils.profiling import profile_steps
     from tcnn_tpu_torch.utils import checkpoint
     from tcnn_tpu_torch.utils.sampling import stratified_uniform
 
@@ -1485,7 +1502,8 @@ def phase_sdf(card, lr=SDF_LR, warmup=SDF_WARMUP, lr_end=SDF_LR_END):
     import torch
 
     from tcnn_tpu_torch import modules
-    from tcnn_tpu_torch.benchmarks.grid_second_order_times import EIKONAL_WEIGHT, profile_steps, sdf_step, sphere_sdf
+    from tcnn_tpu_torch.benchmarks.grid_second_order_times import EIKONAL_WEIGHT, sdf_step, sphere_sdf
+    from tcnn_tpu_torch.utils.profiling import profile_steps
     from tcnn_tpu_torch.ops import ffmlp, grid_encode
 
     mods = {"ffmlp": ffmlp, "grid_encode": grid_encode}
@@ -2461,7 +2479,7 @@ def phase_nerf(card):
     import torch
 
     import tcnn_tpu_torch as tt
-    from tcnn_tpu_torch.benchmarks.grid_second_order_times import profile_steps
+    from tcnn_tpu_torch.utils.profiling import profile_steps
     from tcnn_tpu_torch.samples import nerf_synthetic as ns
 
     _zero_counts(NERF_COUNTERS)
@@ -2892,6 +2910,286 @@ def phase_extras(card, flagship, image):
     return {"kernels": kernels, "paths": paths, "shampoo_ms": (sh["ms"], base["ms"], eager)}
 
 
+# The counts of the kernels that the sample paths (the SDF, realtime-render
+# and ray-marcher samples, the host sampler's training) launch; each such
+# phase sets them to 0 just before its path and reads them just after.
+SAMPLE_COUNTERS = {**TRAIN_COUNTERS, "grid_bwd_input": ("grid_encode", "INPUT_LAUNCHES"),
+                   "grid_bwdbwd": ("grid_encode", "BWDBWD_LAUNCHES")}
+
+
+def _grads_close(got, want, n_net, what, rtol=1e-2):
+    """The network part ``[:n_net]`` and the table part of two gradients,
+    each within ``rtol`` of ``want`` in norm."""
+    for part, sl in (("network", slice(0, n_net)), ("table", slice(n_net, None))):
+        a, b = got[sl].float(), want[sl].float()
+        check(bool(a.isfinite().all()), f"{what}: non-finite {part} gradient")
+        rel = float((a - b).norm()) / max(float(b.norm()), 1e-30)
+        check(rel <= rtol, f"{what}: {part} gradient relative difference {rel:.3e} > {rtol}")
+        log(f"{what}: {part} gradient kernel vs plain, relative difference (norm) {rel:.3e} (bound {rtol}: the bf16 "
+            f"network's roundings flip where its fp32 inputs differ in the last bits)")
+
+
+def phase_sdf_sample(card):
+    """samples.sdf_learning at its own CONFIG (8 levels of 2^15, Smoothstep,
+    CutlassMLP, the trainer's Adam at loss scale 1): one step kernel vs
+    plain from one state, then fit() at its defaults (200 steps of 8192),
+    held to the JAX sample test's criteria, then its ms/step and profile."""
+    import torch
+
+    import tcnn_tpu_torch as tt
+    from tcnn_tpu_torch.samples import sdf_learning as ss
+    from tcnn_tpu_torch.utils.profiling import profile_steps, sync
+
+    m = tt.create_from_config(3, 1, ss.CONFIG, device="cuda")
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 31)
+    x, d = ss.draw(8192, gen)
+    params = m.model.params
+    terms = {}
+    for plain in (False, True):
+        loss, (data, eik) = ss.total_loss(m.model, params, x, d, plain=plain)
+        (g,) = torch.autograd.grad(loss, params)
+        terms[plain] = ([float(v.detach()) for v in (loss, data, eik)], g)
+    for name, a, b in zip(("loss", "data", "eik"), terms[False][0], terms[True][0]):
+        rel = abs(a - b) / abs(b)
+        check(np.isfinite(a) and rel <= 1e-3, f"sdf sample: {name} kernel {a} vs plain {b}")
+    log(f"sdf sample: total_loss at B=8192, kernel vs plain: loss, data, eik {terms[False][0]} vs {terms[True][0]} "
+        f"(bound 1e-3 relative)")
+    _grads_close(terms[False][1], terms[True][1], m.model.network.n_params, "sdf sample")
+    _compare_one_step("sdf sample", m, float(m.trainer.learning_rate),
+                      lambda plain: ss.train_step(m, x, d, plain=plain)[0])
+
+    _zero_counts(SAMPLE_COUNTERS)
+    t0 = time.perf_counter()
+    data_v, eik_v, history = ss.fit()
+    wall = time.perf_counter() - t0
+    launches = _read_counts(SAMPLE_COUNTERS)
+    check(np.isfinite([data_v, eik_v, *history]).all(), "sdf sample: a value is not finite")
+    check(history[-1] < 0.2 * history[0], f"sdf sample: loss did not fall below a fifth: {history}")
+    check(data_v < 5e-3 and eik_v < 0.5, f"sdf sample: validation sdf-l2 {data_v:.3e} (< 5e-3), eikonal {eik_v:.3e} "
+          f"(< 0.5)")
+    for k in ("grid_fwd", "grid_bwd", "grid_bwd_input", "grid_bwdbwd", "adam_step"):
+        check(launches[k] > 0, f"sdf sample: kernel {k} was not launched")
+    log(f"sdf sample [{card}]: fit() 200 steps of 8192: logged losses {', '.join(f'{v:.4e}' for v in history)}; "
+        f"validation sdf-l2 {data_v:.4e} (< 5e-3), eikonal residual {eik_v:.4e} (< 0.5); {wall:.2f} s in all; kernel "
+        f"launches (counts at 0 just before, read just after): {launches}")
+
+    m = tt.create_from_config(3, 1, ss.CONFIG, device="cuda")
+    step = lambda: ss.train_step(m, *ss.draw(8192, gen))  # noqa: E731
+    for _ in range(5):
+        step()
+    sync(m.params)
+    n = 50
+    t0 = time.perf_counter()
+    for _ in range(n):
+        out = step()
+    sync(out[0])
+    ms = (time.perf_counter() - t0) * 1e3 / n
+    wall_p, busy, idle, kernels = profile_steps(step)
+    log(f"time [{card}]: sdf sample step (8192 points, d = 3 Smoothstep lookup, G1, G2, table gradient, CutlassMLP, "
+        f"Adam kernel): {ms:.4f} ms/step (host clock, {n} steps synced at the ends); under torch.profiler "
+        f"{wall_p:.4f} ms/step, device busy {busy:.4f} ms, idle share {idle:.3f}; largest (ms/step): "
+        + "; ".join(f"{k[:60]} {v:.4f}" for k, v in kernels[:8]))
+    return {"launches": launches, "ms": ms, "busy": busy, "idle": idle, "sdf_l2": data_v, "eik": eik_v}
+
+
+def phase_realtime_render(card):
+    """samples.realtime_render at --steps 300 --side 512 --frames 120: the
+    training steps through training_steps, then the static and moving
+    views through a FrozenServer; one frame of each against the plain path
+    with the same frozen params, and each kernel's launches a frame."""
+    import torch
+
+    from tcnn_tpu_torch.ops import ffmlp, grid_encode
+    from tcnn_tpu_torch.samples import realtime_render as rr
+    from tcnn_tpu_torch.utils.sampling import raster_centers_torch
+
+    _zero_counts(SAMPLE_COUNTERS)
+    t0 = time.perf_counter()
+    res = rr.main(["--steps", "300", "--side", "512", "--frames", "120"])
+    wall = time.perf_counter() - t0
+    launches = _read_counts(SAMPLE_COUNTERS)
+    check(np.isfinite([res["loss"], res["static_fps"], res["moving_fps"]]).all(), "realtime render: not finite")
+    for k in TRAIN_COUNTERS:
+        check(launches[k] > 0, f"realtime render: kernel {k} was not launched")
+    server = res["server"]
+    base = rr.base_grid(512, "cuda")
+    per_frame = {}
+    for what, frame, x in (("static", lambda: server.raster((512, 512)), raster_centers_torch((512, 512), 2, "cuda")),
+                           ("moving", lambda: server(rr.view(base, 37, 120)), rr.view(base, 37, 120))):
+        ffmlp.LAUNCHES = grid_encode.LAUNCHES = 0
+        y = frame()
+        per_frame[what] = {"grid_fwd": grid_encode.LAUNCHES, "ffmlp_fwd": ffmlp.LAUNCHES}
+        with torch.no_grad():
+            want = server.model.apply_plain(server._params, x)[:, :3].float()
+        err = bf16_close(y, want, f"realtime render {what} frame")
+        log(f"realtime render: one {what} 512^2 frame against the plain path with the same frozen params: max|diff| "
+            f"{err:.3e} ({TOL_NOTE})")
+    log(f"realtime render [{card}]: trained 300 steps (loss {res['loss']:.4e}); static view {res['static_fps']:.1f} "
+        f"FPS, moving view {res['moving_fps']:.1f} FPS (120 frames of 512^2 each, synced at the ends); launches a "
+        f"frame: {per_frame}; {wall:.2f} s in all; kernel launches of the run (counts at 0 just before, read just "
+        f"after): {launches}")
+    return {"launches": launches, "static_fps": res["static_fps"], "moving_fps": res["moving_fps"],
+            "per_frame": per_frame}
+
+
+def _march_close(got, want, raw_max, what):
+    """A march against the plain march: colour within 2.25 and transmittance
+    within 1 times 4 bf16 ulps of the largest raw output (the MLP's bf16
+    outputs agree to 4 ulps; sigmoid' <= 1/4, softplus' and exp' <= 1, and
+    the steps' alpha * dt sum to 1)."""
+    ulp4 = 4 * 2.0 ** (np.floor(np.log2(raw_max)) - 7)
+    ec = float((got[0] - want[0]).abs().max())
+    et = float((got[1] - want[1]).abs().max())
+    check(bool(got[0].isfinite().all()) and bool(got[1].isfinite().all()), f"{what}: non-finite render")
+    check(ec <= 2.25 * ulp4 and et <= ulp4, f"{what}: colour max|diff| {ec:.3e} (bound {2.25 * ulp4:.3e}), "
+          f"transmittance {et:.3e} (bound {ulp4:.3e})")
+    return ec, et, ulp4
+
+
+def phase_ray_marcher(card):
+    """samples.fused_ray_marcher: the Marcher (one CUDA graph of all 64
+    steps) against the eager march through the kernels (bit for bit) and
+    through the plain versions (bf16 bound), at the sample's params and at
+    random tables; replays repeat bit for bit; the launches at capture and
+    a replay; ms a render, graph beside eager; then the sample's main."""
+    import torch
+
+    from tcnn_tpu_torch.ops import ffmlp, grid_encode
+    from tcnn_tpu_torch.samples import fused_ray_marcher as fm
+
+    dev = torch.device("cuda")
+    model, params = fm.make_model(dev)
+    origins, dirs = fm.make_rays(fm.N_RAYS, dev)
+    rng = np.random.default_rng(SEED + 41)
+    n_net = model.network.n_params
+    shaped = torch.from_numpy(np.concatenate([rng.uniform(-0.3, 0.3, n_net),
+                                              rng.uniform(-2, 2, model.n_params - n_net)]).astype(np.float32)).to(dev)
+    tilted = dirs + torch.from_numpy(rng.uniform(-0.3, 0.3, (fm.N_RAYS, 3)).astype(np.float32)).to(dev)
+    out = {}
+    for name, p, d in (("sample params", params, dirs), ("random tables, tilted rays", shaped, tilted)):
+        _zero_counts(SAMPLE_COUNTERS)
+        marcher = fm.Marcher(model, p, fm.N_RAYS, fm.N_STEPS)
+        torch.cuda.synchronize()
+        at_capture = _read_counts(SAMPLE_COUNTERS)
+        _zero_counts(SAMPLE_COUNTERS)
+        a = marcher(origins, d)
+        b = marcher(origins, d)
+        torch.cuda.synchronize()
+        per_replay = _read_counts(SAMPLE_COUNTERS)
+        check(at_capture["grid_fwd"] == at_capture["ffmlp_fwd"] == 2 * fm.N_STEPS,
+              f"ray marcher: launches at capture {at_capture}")
+        check(per_replay["grid_fwd"] == per_replay["ffmlp_fwd"] == 0, f"ray marcher: launches in replays {per_replay}")
+        check(all(torch.equal(u, v) for u, v in zip(a, b)), "ray marcher: two replays differ")
+        eager = fm.render_plain(model, p, origins, d)
+        check(all(torch.equal(u, v) for u, v in zip(a, eager)), "ray marcher: graph differs from the eager march")
+        plain = fm.render_plain(model, p, origins, d, plain=True)
+        with torch.no_grad():
+            raw_max = max(float(model.apply_plain(p, origins + d * ((i + 0.5) / fm.N_STEPS)).float().abs().max())
+                          for i in range(fm.N_STEPS))
+        ec, et, ulp4 = _march_close(a, plain, raw_max, f"ray marcher ({name})")
+        ms_graph = _event_ms(lambda: marcher(origins, d), iters=10, reps=5)
+        ms_eager = _event_ms(lambda: fm.render_plain(model, p, origins, d), iters=10, reps=5)
+        out[name] = {"at_capture": at_capture, "ms_graph": ms_graph, "ms_eager": ms_eager}
+        log(f"ray marcher [{card}] ({name}): {fm.N_RAYS} rays x {fm.N_STEPS} steps; graph replay vs eager march "
+            f"through the kernels: bitwise equal; two replays bitwise equal; vs the plain march: colour max|diff| "
+            f"{ec:.3e}, transmittance {et:.3e} (bounds {2.25 * ulp4:.3e} / {ulp4:.3e}: 2.25 and 1 times 4 bf16 ulps "
+            f"of max|raw| {raw_max:.4f}); mean colour {a[0].mean(0).tolist()}, mean transmittance "
+            f"{float(a[1].mean()):.4f}; launches at construction (warm-up + capture) {at_capture['grid_fwd']} "
+            f"lookups, {at_capture['ffmlp_fwd']} K1, in two replays {per_replay['grid_fwd']} / "
+            f"{per_replay['ffmlp_fwd']}; ms a render (CUDA events, median of 5 x 10): graph {ms_graph:.4f}, eager "
+            f"{ms_eager:.4f} ({ms_eager / ms_graph:.2f}x), graph {fm.N_RAYS / ms_graph * 1e3:.4e} rays/s")
+    res = fm.main([])
+    check(_all_finite(res), "ray marcher: the sample's main printed a value that is not finite")
+    launches = out["sample params"]["at_capture"]
+    return {"launches": launches, "times": out}
+
+
+def _stratified_up_to_rounding(xy):
+    """Whether sample ``j`` of a stratified (strata^2, 2) batch lies in raster
+    tile ``j`` (dim 0 fastest), or on that tile's upper edge in a dim where
+    the sampler's fp32 ``(col + u) / strata`` rounded ``col + u`` up to
+    ``col + 1``; fails otherwise. Returns the count of such edge samples."""
+    strata = int(round(np.sqrt(xy.shape[0])))
+    ids = np.arange(xy.shape[0])
+    on_edge = 0
+    for d, tile in ((0, ids % strata), (1, ids // strata)):
+        scaled = xy[:, d].astype(np.float64) * strata
+        got = np.floor(scaled).astype(np.int64)
+        edge = (got == tile + 1) & (scaled == tile + 1)
+        check(bool(np.all((got == tile) | edge)), f"host sampler: {int(np.sum((got != tile) & ~edge))} samples outside "
+              f"their tile in dim {d}")
+        on_edge += int(edge.sum())
+    return on_edge
+
+
+def phase_host_sampler(card, flagship):
+    """utils.data.HostImageSampler: native on this machine, its contract on
+    the 512^2 image at 2^18 stratified samples, its batches a second, and
+    100 FLAGSHIP_CONFIG training_step calls fed from it beside the same
+    steps fed from batches drawn on the card."""
+    import torch
+
+    import tcnn_tpu_torch as tt
+    from tcnn_tpu_torch.runtime import native
+    from tcnn_tpu_torch.utils.data import HostImageSampler
+    from tcnn_tpu_torch.utils.profiling import sync
+    from tcnn_tpu_torch.utils.sampling import stratified_uniform
+
+    image = _load_synthetic_image()
+    h, w, _ = image.shape
+    with HostImageSampler(image, B_FLAG, stratified=True, seed=SEED) as s:
+        is_native = s.native
+        check(is_native, f"host sampler: the native helper did not build or load ({native.build_error})")
+        xy, rgb = s.next()
+        px = np.minimum((xy[:, 0] * w).astype(np.int64), w - 1)
+        py = np.minimum((xy[:, 1] * h).astype(np.int64), h - 1)
+        check(np.array_equal(rgb, image[py, px]), "host sampler: rgb is not the pixel at xy")
+        on_edge = _stratified_up_to_rounding(xy)
+        check(0 <= xy.min() and xy.max() <= 1, "host sampler: positions outside [0, 1]")
+        n = 50
+        t0 = time.perf_counter()
+        for _ in range(n):
+            s.next()
+        batches_per_s = n / (time.perf_counter() - t0)
+
+        n_steps = 100
+        _zero_counts(SAMPLE_COUNTERS)
+        m = tt.create_from_config(2, 3, flagship, seed=SEED, device="cuda")
+        first = float(m.training_step(*s.next()))
+        t0 = time.perf_counter()
+        for _ in range(n_steps):
+            loss = m.training_step(*s.next())
+        last = sync(loss)
+        ms_host = (time.perf_counter() - t0) * 1e3 / n_steps
+        launches = _read_counts(SAMPLE_COUNTERS)
+    check(np.isfinite([first, last]).all() and last < first, f"host sampler: loss {first} -> {last}")
+    for k in TRAIN_COUNTERS:
+        check(launches[k] > 0, f"host sampler: kernel {k} was not launched")
+    m = tt.create_from_config(2, 3, flagship, seed=SEED, device="cuda")
+    img = torch.from_numpy(image).cuda().reshape(h * w, 3)
+    gen = torch.Generator(device="cuda").manual_seed(SEED)
+
+    def card_step():
+        x = stratified_uniform(B_FLAG, 2, gen)
+        ij = torch.clamp((x[:, 1] * h).long(), 0, h - 1) * w + torch.clamp((x[:, 0] * w).long(), 0, w - 1)
+        return m.training_step(x, img[ij])
+
+    sync(card_step())
+    t0 = time.perf_counter()
+    for _ in range(n_steps):
+        loss = card_step()
+    sync(loss)
+    ms_card = (time.perf_counter() - t0) * 1e3 / n_steps
+    log(f"host sampler [{card}]: native {is_native}; 512^2 image, 2^18 stratified samples a batch: rgb is the pixel "
+        f"at xy; every sample in its own tile but {on_edge} on its tile's upper edge, where the fp32 sum col + u "
+        f"rounds up to col + 1 (u within 2^-16 of 1 at 512 tiles a side; the JAX package's sampler, whose batches "
+        f"these are bit for bit, does the same); {batches_per_s:.2f} batches/s from the sampler alone ({n} next() calls); "
+        f"FLAGSHIP_CONFIG training_step fed from the sampler {ms_host:.4f} ms/step (loss {first:.4e} -> {last:.4e}) "
+        f"beside {ms_card:.4f} ms/step fed from batches drawn on the card ({n_steps} steps each, synced at the "
+        f"ends); kernel launches fed from the sampler (counts at 0 just before, read just after): {launches}")
+    return {"launches": launches, "batches_per_s": batches_per_s, "ms_host": ms_host, "ms_card": ms_card}
+
+
 def main() -> int:
     import torch
 
@@ -2944,6 +3242,12 @@ def main() -> int:
     phase_graph(card, configs, image)
     nerf = phase_nerf(card)
     phase_nerf_graph(card)
+    samples = {
+        "sdf sample": phase_sdf_sample(card),
+        "realtime render": phase_realtime_render(card),
+        "ray marcher (warm-up + capture)": phase_ray_marcher(card),
+        "host sampler training": phase_host_sampler(card, FLAGSHIP_CONFIG),
+    }
     extras = phase_extras(card, FLAGSHIP_CONFIG, image)
     t = phase_times(card, k1, k2, m, x_flag, kb, ks)
     probes = phase_probes(card)
@@ -3051,6 +3355,13 @@ def main() -> int:
                            ("probe_gather_dot", "benchmarks/probe_r5_pallas_gather2.py:348")):
         kernels.append(entry(name, "probe_rows.cu", replaces, probes["launches"][name], probes["errs"][name], None,
                              "probes", probes["times"][name]))
+    # The sample paths' launches join each kernel's own path's.
+    for row in kernels:
+        if row["name"] in SAMPLE_COUNTERS:
+            by_path = {row["path"]: row["launches"]}
+            by_path.update({p: r["launches"][row["name"]] for p, r in samples.items() if r["launches"][row["name"]]})
+            row["launches_by_path"] = by_path
+            row["launches"] = sum(by_path.values())
     log(f"chip_smoke: every phase passed in {time.perf_counter() - t_main:.1f} s")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

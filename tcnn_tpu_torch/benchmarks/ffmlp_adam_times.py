@@ -32,8 +32,9 @@ and K1's and K3's device ms a step under torch.profiler over 10 steps) and
 the SDF step (``grid_second_order_times.time_sdf``).
 
 Only the package's public wrappers and modules are used, so the script runs
-from the root of a checkout of an earlier commit as well (copy it there):
-that is how a change is compared with its parent in one call.
+from the root of a checkout of an earlier commit as well (copy it there,
+with ``utils/profiling.py`` where that checkout lacks it): that is how a
+change is compared with its parent in one call.
 
 Usage: python -m tcnn_tpu_torch.benchmarks.ffmlp_adam_times [--reps 20]
        [--seed 0] [--end-to-end] [--steps 50]
@@ -56,7 +57,8 @@ from ..common import Activation
 from ..ops import _build, ffmlp, fused_adam
 from ..optimizers import AdamOptimizer
 from . import bench_device, card_label, sync, timed_blocks
-from .grid_second_order_times import demangle, parse_ptxas, profile_steps, time_sdf
+from ..utils.profiling import profile_steps
+from .grid_second_order_times import demangle, parse_ptxas, time_sdf
 from .probe_rows import device_ms
 
 # Published peaks of one H100 SXM (NVIDIA's data sheet, dense), as

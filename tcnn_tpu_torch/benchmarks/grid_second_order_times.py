@@ -24,8 +24,9 @@ dy of the encoding's width and the table gradient's classes of that batch:
   device ms a step.
 
 Only the package's public wrappers and modules are used, so the script runs
-from the root of a checkout of an earlier commit as well (copy it there):
-that is how a change is compared with its parent in one call.
+from the root of a checkout of an earlier commit as well (copy it there,
+with ``utils/profiling.py`` where that checkout lacks it): that is how a
+change is compared with its parent in one call.
 
 Usage: python -m tcnn_tpu_torch.benchmarks.grid_second_order_times
        [--batch 262144] [--reps 20] [--sdf-steps 0] [--seed 0]
@@ -50,6 +51,7 @@ import torch
 from ..encodings import create_encoding
 from ..ops import _build
 from ..ops import grid_encode as ge
+from ..utils.profiling import profile_steps  # noqa: F401  (also imported from here)
 from . import bench_device, card_label, sync, timed_blocks
 from .grid_bwd_plans import ENCODING_3D
 from .lookup_scatter_times import parse_sass
@@ -200,40 +202,6 @@ def time_kernels(args, dev, card, plain: bool = False) -> list:
            "acc": t["enc"].gradient_classes(args.batch)[:, 1].tolist(),
            "ms": {k: statistics.mean(v) for k, v in times.items()}}
     return [emit(rec)]
-
-
-def profile_steps(step, n=10):
-    """Device time of ``n`` back-to-back calls of ``step`` under
-    torch.profiler: (wall ms, device-busy ms, idle share, [(kernel, ms)]
-    per call, largest first). Busy time is the union of the device
-    activities' intervals."""
-    from torch.profiler import ProfilerActivity, profile
-
-    for _ in range(3):
-        step()
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        for _ in range(n):
-            step()
-        torch.cuda.synchronize()
-        wall = (time.perf_counter() - t0) * 1e3 / n
-    spans, by_name = [], {}
-    for e in prof.events():
-        # Device activities only; a user annotation (e.g. Optimizer.step)
-        # spans other kernels and the gaps between them.
-        if e.device_type == torch.autograd.DeviceType.CUDA and not getattr(e, "is_user_annotation", False):
-            spans.append((e.time_range.start, e.time_range.end))
-            by_name[e.name] = by_name.get(e.name, 0.0) + (e.time_range.end - e.time_range.start) / 1e3 / n
-    if not spans:
-        raise RuntimeError("profile: the profiler recorded no device activity")
-    busy, end = 0.0, -1.0
-    for a, b in sorted(spans):
-        if b > end:
-            busy += b - max(a, end)
-            end = b
-    busy = busy / 1e3 / n
-    return wall, busy, 1.0 - busy / wall, sorted(by_name.items(), key=lambda kv: -kv[1])
 
 
 def sphere_sdf(x):

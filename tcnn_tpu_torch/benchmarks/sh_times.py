@@ -35,9 +35,9 @@ kernel (degrees 1-8, each route). With ``--nerf S1,S2`` the NeRF sample
 served frames/s.
 
 Only the package's public wrappers are used, so the script runs from the
-root of a checkout of an earlier commit as well (copy it there): that is
-how a change is compared with its parent in one call (parent, change,
-change, parent).
+root of a checkout of an earlier commit as well (copy it there, with
+``utils/profiling.py`` where that checkout lacks it): that is how a change
+is compared with its parent in one call (parent, change, change, parent).
 
 Usage: python -m tcnn_tpu_torch.benchmarks.sh_times [--reps 50] [--ptxas]
        [--nerf 0,1]
@@ -82,7 +82,7 @@ def _rotating(call, sets):
 def _kernel_ms(fn, n, marker):
     """Mean device ms a call of the profiled kernels whose name holds
     ``marker``, over ``n`` back-to-back calls under torch.profiler."""
-    from .grid_second_order_times import profile_steps
+    from ..utils.profiling import profile_steps
 
     _, _, _, kernels = profile_steps(fn, n=n)
     ms = sum(t for name, t in kernels if marker in name)

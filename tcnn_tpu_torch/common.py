@@ -10,6 +10,7 @@ import enum
 import math
 from typing import Dict, Mapping, Optional
 
+import numpy as np
 import torch
 
 
@@ -65,6 +66,21 @@ class ReductionType(str, enum.Enum):
     Product = "Product"
 
 
+class GradientMode(str, enum.Enum):
+    """Parameter-gradient write mode (reference: object.h:116-120)."""
+
+    Ignore = "Ignore"
+    Overwrite = "Overwrite"
+    Accumulate = "Accumulate"
+
+
+PI = 3.14159265358979323846
+
+# The JAX package's batch granularity (the TPU's 128-wide lanes; the
+# reference pads to 256, common.h:246). A constant only: the port pads no
+# batch to it.
+BATCH_SIZE_GRANULARITY = 128
+
 # Squareplus / Softplus sharpness (reference: common_device.h:108).
 K_ACT = 10.0
 
@@ -115,6 +131,66 @@ def next_multiple(val: int, divisor: int) -> int:
     return div_round_up(val, divisor) * divisor
 
 
+def previous_multiple(val: int, divisor: int) -> int:
+    return (val // divisor) * divisor
+
+
+def is_pot(val: int) -> bool:
+    return val > 0 and (val & (val - 1)) == 0
+
+
+def next_pot(v: int) -> int:
+    v = int(v) - 1
+    for shift in (1, 2, 4, 8, 16):
+        v |= v >> shift
+    return v + 1
+
+
+def powi(base: int, exp: int) -> int:
+    return int(base) ** int(exp)
+
+
+# Morton codes (reference: common_device.h:934-974): host-side helpers for
+# spatially coherent sample ordering, on numpy uint64.
+
+
+def _expand_bits_2d(w):
+    w = w & np.uint64(0xFFFFFFFF)
+    w = (w | (w << np.uint64(16))) & np.uint64(0x0000FFFF0000FFFF)
+    w = (w | (w << np.uint64(8))) & np.uint64(0x00FF00FF00FF00FF)
+    w = (w | (w << np.uint64(4))) & np.uint64(0x0F0F0F0F0F0F0F0F)
+    w = (w | (w << np.uint64(2))) & np.uint64(0x3333333333333333)
+    w = (w | (w << np.uint64(1))) & np.uint64(0x5555555555555555)
+    return w
+
+
+def _expand_bits_3d(w):
+    w = w & np.uint64(0x1FFFFF)
+    w = (w | (w << np.uint64(32))) & np.uint64(0x1F00000000FFFF)
+    w = (w | (w << np.uint64(16))) & np.uint64(0x1F0000FF0000FF)
+    w = (w | (w << np.uint64(8))) & np.uint64(0x100F00F00F00F00F)
+    w = (w | (w << np.uint64(4))) & np.uint64(0x10C30C30C30C30C3)
+    w = (w | (w << np.uint64(2))) & np.uint64(0x1249249249249249)
+    return w
+
+
+def morton2d(x, y):
+    """Interleave the bits of (x, y) uint arrays (32 bits each) into 2D
+    Morton codes, uint64."""
+    x = np.asarray(x, np.uint64)
+    y = np.asarray(y, np.uint64)
+    return _expand_bits_2d(x) | (_expand_bits_2d(y) << np.uint64(1))
+
+
+def morton3d(x, y, z):
+    """Interleave the bits of (x, y, z) uint arrays into 3D Morton codes
+    (uint64, up to 21 bits per axis)."""
+    x = np.asarray(x, np.uint64)
+    y = np.asarray(y, np.uint64)
+    z = np.asarray(z, np.uint64)
+    return _expand_bits_3d(x) | (_expand_bits_3d(y) << np.uint64(1)) | (_expand_bits_3d(z) << np.uint64(2))
+
+
 class CIDict(dict):
     """Case-insensitive string-keyed dict (reference: common_host.h:316-320)."""
 
@@ -148,6 +224,10 @@ class CIDict(dict):
         return super().get(self._k(key), default)
 
 
+def equals_case_insensitive(a: str, b: str) -> bool:
+    return a.lower() == b.lower()
+
+
 def _make_enum_parser(enum_cls):
     table = CIDict({m.value: m for m in enum_cls})
     name = enum_cls.__name__
@@ -169,6 +249,13 @@ string_to_interpolation_type = _make_enum_parser(InterpolationType)
 string_to_reduction_type = _make_enum_parser(ReductionType)
 
 
+def to_string(value) -> str:
+    """An enum member's value, else ``str(value)``."""
+    if isinstance(value, enum.Enum):
+        return value.value
+    return str(value)
+
+
 def json_value(config: Optional[Mapping], key: str, default):
     """Case-insensitive ``json.value(key, default)`` analogue."""
     if not config:
@@ -180,6 +267,11 @@ def json_value(config: Optional[Mapping], key: str, default):
         if isinstance(k, str) and k.lower() == lower:
             return v
     return default
+
+
+def check_throw(cond: bool, msg: str = "check failed"):
+    if not cond:
+        raise RuntimeError(msg)
 
 
 _PRECISIONS = CIDict({

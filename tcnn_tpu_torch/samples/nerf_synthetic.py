@@ -36,7 +36,6 @@ import torch
 from ..benchmarks import bench_device, sync
 from ..config import create_from_config
 from ..serving import FrozenServer
-from ..trainer import _copy_into
 from ..utils.metrics import psnr as psnr_of
 
 CONFIG = {
@@ -188,14 +187,8 @@ def train_step(model, origins, dirs, jitter, plain: bool = False) -> torch.Tenso
     optimizer applied to the gradient with loss scale 1 (the functional
     ``optimizer.step``, its results written into the trainer's tensors).
     Returns the loss as a 0-d device tensor."""
-    trainer = model.trainer
     loss, grads = loss_and_grad(model, origins, dirs, jitter, plain)
-    with torch.no_grad():
-        data = model.model.params.data
-        state, new_params = trainer.optimizer.step(trainer.opt_state, data, grads, 1.0, plain=plain)
-        _copy_into(trainer.opt_state, state)
-        if new_params is not data:
-            data.copy_(new_params)
+    model.trainer._optimizer_step(grads, plain, loss_scale=1.0)
     return loss
 
 

@@ -201,10 +201,15 @@ class Trainer:
         (grads,) = torch.autograd.grad(out, params, dL_dy.to(out.dtype))
         return grads, aux
 
-    def _optimizer_step(self, grads, plain: bool):
+    def _optimizer_step(self, grads, plain: bool, loss_scale: Optional[float] = None):
+        """The optimizer's step for ``grads`` (scaled by ``loss_scale``,
+        default the trainer's), its results written into the trainer's
+        tensors. The samples that take their own loss's gradient call it
+        with loss scale 1, as the JAX samples call ``optimizer.step``."""
         params = self.model.params.data
+        scale = self.loss_scale if loss_scale is None else loss_scale
         with torch.no_grad():
-            new_state, new_params = self.optimizer.step(self._opt_state, params, grads, self.loss_scale, plain=plain)
+            new_state, new_params = self.optimizer.step(self._opt_state, params, grads, scale, plain=plain)
             _copy_into(self._opt_state, new_state)
             if new_params is not params:
                 params.copy_(new_params)

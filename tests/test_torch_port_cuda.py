@@ -1591,3 +1591,100 @@ def test_stochastic_table_gradient_matches_plain(dev, case):
     (g,) = torch.autograd.grad(enc.apply(p, x, rng=gen).float().sum(), p)
     assert (grid_encode.LAUNCHES, *_route_launches(route)) == (before[0] + 1, before[1] + 1, before[2] + 1)
     assert torch.isfinite(g).all() and g.any()
+
+
+# -- the sample paths: the captured ray march, the SDF sample's step, the
+# host sampler's native build ---------------------------------------------
+
+
+@pytest.mark.parametrize("tables", ["sample", "random"])
+def test_marcher_replay_matches_the_march(dev, tables):
+    """One ``Marcher`` replay (one CUDA graph of all the steps) against the
+    eager march through the kernels (bit for bit) and through the plain
+    versions (colour within 2.25 and transmittance within 1 times 4 bf16
+    ulps of max |raw|: the MLP outputs agree to 4 ulps, sigmoid' <= 1/4,
+    softplus' and exp' <= 1, the steps' alpha * dt sum to 1); replays
+    repeat bit for bit; each kernel launches 2 x n_steps times at
+    construction (warm-up and capture) and never in a replay."""
+    from tcnn_tpu_torch.samples import fused_ray_marcher as fm
+
+    model, params = fm.make_model(dev)
+    origins, dirs = fm.make_rays(1024, dev)
+    if tables == "random":
+        rng = np.random.default_rng(3)
+        n_net = model.network.n_params
+        params = torch.from_numpy(np.concatenate([rng.uniform(-0.3, 0.3, n_net), rng.uniform(
+            -2, 2, model.n_params - n_net)]).astype(np.float32)).to(dev)
+        dirs = dirs + torch.from_numpy(rng.uniform(-0.3, 0.3, (1024, 3)).astype(np.float32)).to(dev)
+    n_steps = 16
+    before = (grid_encode.LAUNCHES, ffmlp.LAUNCHES)
+    marcher = fm.Marcher(model, params, 1024, n_steps)
+    assert (grid_encode.LAUNCHES, ffmlp.LAUNCHES) == (before[0] + 2 * n_steps, before[1] + 2 * n_steps)
+    a = marcher(origins, dirs)
+    b = marcher(origins, dirs)
+    assert (grid_encode.LAUNCHES, ffmlp.LAUNCHES) == (before[0] + 2 * n_steps, before[1] + 2 * n_steps)
+    assert all(torch.equal(u, v) for u, v in zip(a, b))
+    eager = fm.render_plain(model, params, origins, dirs, n_steps)
+    assert all(torch.equal(u, v) for u, v in zip(a, eager))
+    plain = fm.render_plain(model, params, origins, dirs, n_steps, plain=True)
+    with torch.no_grad():
+        top = max(float(model.apply_plain(params, origins + dirs * ((i + 0.5) / n_steps)).float().abs().max())
+                  for i in range(n_steps))
+    ulp4 = 4 * 2.0 ** (np.floor(np.log2(top)) - 7)
+    assert float((a[0] - plain[0]).abs().max()) <= 2.25 * ulp4
+    assert float((a[1] - plain[1]).abs().max()) <= ulp4
+
+
+def test_sdf_sample_step_matches_plain(dev):
+    """The SDF sample's total loss and parameter gradient at 8192 points,
+    kernels against plain versions: the loss terms within 1e-3 relative,
+    each part of the gradient within 1e-2 of the norm (the bf16 network's
+    roundings flip where its fp32 inputs differ in the last bits); then one
+    step from the same state moves each param by at most 2 lr apart (Adam's
+    first step is ~lr x sign(grad)), at most 1% of them apart."""
+    from tcnn_tpu_torch.samples import sdf_learning as ss
+
+    m = tt.create_from_config(3, 1, ss.CONFIG, device=dev)
+    x, d = ss.draw(8192, torch.Generator(device=dev).manual_seed(5))
+    params = m.model.params
+    out = {}
+    for plain in (False, True):
+        before = (grid_encode.INPUT_LAUNCHES, grid_encode.BWDBWD_LAUNCHES)
+        loss, (data, eik) = ss.total_loss(m.model, params, x, d, plain=plain)
+        (g,) = torch.autograd.grad(loss, params)
+        moved = (grid_encode.INPUT_LAUNCHES - before[0], grid_encode.BWDBWD_LAUNCHES - before[1])
+        assert (moved == (0, 0)) if plain else min(moved) >= 1
+        out[plain] = (torch.stack([loss, data, eik]).detach(), g)
+    assert torch.allclose(out[False][0], out[True][0], rtol=1e-3, atol=0)
+    n_net = m.model.network.n_params
+    for sl in (slice(0, n_net), slice(n_net, None)):
+        a, b = out[False][1][sl], out[True][1][sl]
+        assert torch.isfinite(a).all() and float((a - b).norm()) <= 1e-2 * float(b.norm())
+    p0 = params.detach().clone()
+    s0 = {k: v.clone() for k, v in m.trainer.opt_state.items()}
+    ss.train_step(m, x, d)
+    p_k = params.detach().clone()
+    with torch.no_grad():
+        params.copy_(p0)
+    m.trainer.opt_state = s0
+    ss.train_step(m, x, d, plain=True)
+    diff = (p_k - params.detach()).abs()
+    lr = float(m.trainer.learning_rate)
+    assert float(diff.max()) <= 2 * lr * 1.0001 and float((diff > 1e-6).float().mean()) <= 1e-2
+
+
+def test_host_sampler_builds_natively(dev):
+    """On the card's machine the host sampler's helper builds and runs: its
+    batches follow the contract (rgb the pixel at xy, stratified)."""
+    from tcnn_tpu_torch.runtime import native
+    from tcnn_tpu_torch.utils.data import HostImageSampler
+    from tcnn_tpu_torch.utils.sampling import is_stratified
+
+    image = np.random.default_rng(0).random((64, 96, 3)).astype(np.float32)
+    with HostImageSampler(image, 1024, stratified=True, seed=3) as s:
+        assert s.native, native.build_error
+        xy, rgb = s.next()
+    px = np.minimum((xy[:, 0] * 96).astype(np.int64), 95)
+    py = np.minimum((xy[:, 1] * 64).astype(np.int64), 63)
+    np.testing.assert_array_equal(rgb, image[py, px])
+    assert is_stratified(xy)

@@ -118,14 +118,14 @@ def test_hash_auto_warns():
     m = tt.create_from_config(2, 1, cfg, device="cpu")
     assert m.model.encoding.hash_auto_resolved
     assert not _port_fixture_model().model.encoding.hash_auto_resolved
-    from tcnn_tpu_torch.utils import log
+    from tcnn_tpu_torch.utils import set_log_callback
 
     seen = []
-    log.set_log_callback(lambda sev, msg: seen.append(msg))
+    set_log_callback(lambda sev, msg: seen.append(msg))
     try:
         tic.deserialize_trainer(m.trainer, tic.serialize_trainer(m.trainer))
     finally:
-        log.set_log_callback(None)
+        set_log_callback(None)
     assert any("CoherentPrime" in msg for msg in seen)
 
 
