@@ -7,7 +7,7 @@ Phases, each printing lines of its own; any failure exits non-zero:
 
 1. device: needs CUDA (no CPU fallback); prints the card's name and power
    limit as nvidia-smi reports them.
-2. build: compiles all seven kernel libraries from tcnn_tpu_torch/csrc,
+2. build: compiles every kernel library of tcnn_tpu_torch/csrc (KERNELS),
    one nvcc each, all started together.
 3. kernel 1 (fused MLP forward) against its plain chain, over widths x
    depths x activation pairs x batch sizes (ragged last tiles: 1, 15, 17,
@@ -124,6 +124,23 @@ Phases, each printing lines of its own; any failure exits non-zero:
    main; utils.data.HostImageSampler native, its contract on the 512^2
    image, batches/s, and 100 FLAGSHIP_CONFIG steps fed from it beside the
    same steps fed from the card.
+12f. the multi-GPU layer (tcnn_tpu_torch.parallel) on the one card: the
+   windowed lookup and table gradient of a row-sharded table against their
+   plain versions (the flagship encoding over 2 and 3 shards, the 3D model
+   over 2 and 4, with cell-boundary points; the shards' sum against the
+   unsharded lookup and gradient); then ranks spawned on cuda:0 (each loads
+   the built libraries and imports no jax): (a) DataParallelTrainer over a
+   one-rank NCCL mesh, 5 FLAGSHIP_CONFIG steps at 2^18 beside the plain
+   Trainer in the same process (first loss bitwise); (b) 2 gloo ranks, 20
+   steps at global 2^18 against the single trainer (one all_reduce a step,
+   replicas bitwise equal); (c) TableParallelTrainer on the --protocol 3d
+   model over a (1, 2) mesh at 2^18 and a (2, 2) mesh of 4 ranks at 2^16
+   (the windowed kernels launched, the unsharded grid kernels not); (d)
+   FrozenServer over 2 gloo ranks, a 2^18 batch and the 1024^2 raster
+   against the single server; each path held against the single trainer
+   (PAR_LOSS_RTOL's note), with ms/step beside the single trainer's and
+   each rank's peak memory beside its; then the windowed kernels timed at
+   the 3D model's shard 0 of 2 beside their plain versions.
 13. times (CUDA events / synced host clock, median of repeats), each
    kernel's bound from its shapes (bytes over 3.35 TB/s or operations over
    the peak of their type) and, where one PyTorch call computes the same
@@ -197,7 +214,7 @@ TOL_BWD_NOTE = (
     "difference into an O(1) change of a few entries)"
 )
 KERNELS = ("ffmlp_fwd", "grid_fwd", "ffmlp_bwd", "adam_step", "grid_bwd", "grid_bwd_rng", "grid_bwd_modes", "probe_rows",
-           "sh_encode")
+           "sh_encode", "grid_sharded")
 N_TRAIN_STEPS = 1000
 # PSNR floors of the 1000-step fits (dB) and the JAX package's TPU v5e
 # readings beside them (benchmarks/golden_strat_sr/metrics.json; the
@@ -3104,22 +3121,16 @@ def phase_ray_marcher(card):
     return {"launches": launches, "times": out}
 
 
-def _stratified_up_to_rounding(xy):
-    """Whether sample ``j`` of a stratified (strata^2, 2) batch lies in raster
-    tile ``j`` (dim 0 fastest), or on that tile's upper edge in a dim where
-    the sampler's fp32 ``(col + u) / strata`` rounded ``col + u`` up to
-    ``col + 1``; fails otherwise. Returns the count of such edge samples."""
+def _check_in_tiles(xy):
+    """Fails unless sample ``j`` of a stratified (strata^2, 2) batch lies
+    strictly inside raster tile ``j`` (dim 0 fastest): floor(x * strata) ==
+    tile in exact arithmetic (an fp32 value times an int is exact in
+    float64)."""
     strata = int(round(np.sqrt(xy.shape[0])))
     ids = np.arange(xy.shape[0])
-    on_edge = 0
     for d, tile in ((0, ids % strata), (1, ids // strata)):
-        scaled = xy[:, d].astype(np.float64) * strata
-        got = np.floor(scaled).astype(np.int64)
-        edge = (got == tile + 1) & (scaled == tile + 1)
-        check(bool(np.all((got == tile) | edge)), f"host sampler: {int(np.sum((got != tile) & ~edge))} samples outside "
-              f"their tile in dim {d}")
-        on_edge += int(edge.sum())
-    return on_edge
+        outside = int(np.sum(np.floor(xy[:, d].astype(np.float64) * strata) != tile))
+        check(outside == 0, f"host sampler: {outside} samples outside their tile in dim {d}")
 
 
 def phase_host_sampler(card, flagship):
@@ -3144,8 +3155,8 @@ def phase_host_sampler(card, flagship):
         px = np.minimum((xy[:, 0] * w).astype(np.int64), w - 1)
         py = np.minimum((xy[:, 1] * h).astype(np.int64), h - 1)
         check(np.array_equal(rgb, image[py, px]), "host sampler: rgb is not the pixel at xy")
-        on_edge = _stratified_up_to_rounding(xy)
-        check(0 <= xy.min() and xy.max() <= 1, "host sampler: positions outside [0, 1]")
+        _check_in_tiles(xy)
+        check(0 <= xy.min() and xy.max() < 1, "host sampler: positions outside [0, 1)")
         n = 50
         t0 = time.perf_counter()
         for _ in range(n):
@@ -3181,13 +3192,547 @@ def phase_host_sampler(card, flagship):
     sync(loss)
     ms_card = (time.perf_counter() - t0) * 1e3 / n_steps
     log(f"host sampler [{card}]: native {is_native}; 512^2 image, 2^18 stratified samples a batch: rgb is the pixel "
-        f"at xy; every sample in its own tile but {on_edge} on its tile's upper edge, where the fp32 sum col + u "
-        f"rounds up to col + 1 (u within 2^-16 of 1 at 512 tiles a side; the JAX package's sampler, whose batches "
-        f"these are bit for bit, does the same); {batches_per_s:.2f} batches/s from the sampler alone ({n} next() calls); "
+        f"at xy; every sample strictly inside its own tile; {batches_per_s:.2f} batches/s from the sampler alone ({n} next() calls); "
         f"FLAGSHIP_CONFIG training_step fed from the sampler {ms_host:.4f} ms/step (loss {first:.4e} -> {last:.4e}) "
         f"beside {ms_card:.4f} ms/step fed from batches drawn on the card ({n_steps} steps each, synced at the "
         f"ends); kernel launches fed from the sampler (counts at 0 just before, read just after): {launches}")
     return {"launches": launches, "batches_per_s": batches_per_s, "ms_host": ms_host, "ms_card": ms_card}
+
+
+# The multi-GPU layer (tcnn_tpu_torch.parallel), on the one card: ranks are
+# processes spawned by parallel.launch.run_ranks that all use cuda:0 through
+# the gloo backend (NCCL takes one card a rank; it runs at world size 1).
+# Each rank loads the libraries the build phase made and asserts that it
+# imports neither jax nor tcnn_tpu.
+PAR_DP_STEPS = 20
+PAR_NCCL_STEPS = 5
+PAR_TP_STEPS = 5
+PAR_TP4_STEPS = 3
+B_TP4 = 2**16
+# The JAX package's flagship DP lockstep (tests/test_parallel.py): loss 5e-2
+# relative; params rtol 2e-2, atol 2e-4. On the card the table gradient's
+# fp32 atomics make two runs of one trainer differ, a rank rounds its own
+# MLP weight gradient to bf16 before the sum (DP), a rank's partial
+# features sum in another order before their bf16 rounding (TP), and Adam
+# moves a param whose gradient is near zero by up to 2 lr a step where its
+# sign flips; so the params are held within 2 lr a step and 1e-2 relative
+# in norm (_graph_vs_loop's bound for two runs of one trainer, per step),
+# and the count outside the JAX tolerance is printed beside the same count
+# between two runs of the single trainer.
+PAR_LOSS_RTOL, PAR_PARAM_RTOL, PAR_PARAM_ATOL = 5e-2, 2e-2, 2e-4
+# The first TP step's loss: the JAX TP test's rtol (tests/test_table_parallel.py).
+PAR_TP_FIRST_RTOL = 5e-5
+# The --protocol 3d model for table parallelism. Its single-trainer
+# reference takes the sharded lookup's function: every affine level folds
+# its corners (per_level) and every table gradient sums in fp32 ("xla"),
+# the class of the JAX package's autodiff of its sharded lookup, where the
+# 3D model's own "auto" classes add 13 levels in bf16.
+TP3D_ENCODING = {**ENC3D, "gather_strategy": "per_level", "scatter_strategy": "xla"}
+PAR_COUNTERS = {**TRAIN_COUNTERS,
+                "grid_fwd_windowed": ("grid_encode", "WINDOWED_LAUNCHES"),
+                "grid_bwd_windowed": ("grid_encode", "BWD_ROUTE_LAUNCHES", ("grid_sharded", "tcnn_grid_backward_windowed"))}
+WINDOWED_TOL_NOTE = ("forward: max|kernel - plain| <= 1e-5 max|plain| (the same fp32 products, each corner in the "
+                     "same order); table gradient: max|kernel - plain| <= 1e-5 max|plain| (fp32 atomics add in any "
+                     "order); the sum over the shards against the unsharded per_level lookup and table gradient, "
+                     "the same bound")
+
+
+def _par_config(flagship, dims):
+    import copy
+
+    if dims == 2:
+        return copy.deepcopy(flagship)
+    return {"loss": dict(flagship["loss"]), "optimizer": dict(flagship["optimizer"]),
+            "encoding": dict(TP3D_ENCODING), "network": dict(NET3D)}
+
+
+def _par_batch(i, batch, dims, image=None):
+    """Batch ``i`` of the parallel phase, the same in every process: drawn on
+    the card from seed SEED + 100 + i; 2D: stratified positions and the
+    synthetic image's pixels there; 3D: uniform positions and analytic
+    targets."""
+    import torch
+
+    from tcnn_tpu_torch.utils.sampling import stratified_uniform
+
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 100 + i)
+    if dims == 2:
+        h, w, _ = image.shape
+        x = stratified_uniform(batch, 2, gen)
+        ij = torch.clamp((x[:, 1] * h).long(), 0, h - 1) * w + torch.clamp((x[:, 0] * w).long(), 0, w - 1)
+        return x, image.reshape(h * w, 3)[ij]
+    x = torch.rand((batch, 3), generator=gen, device="cuda")
+    t = torch.stack([torch.sin(7 * x[:, 0]) * torch.cos(5 * x[:, 1]), torch.cos(6 * x[:, 2]),
+                     x[:, 0] * x[:, 1] + x[:, 2]], dim=1)
+    return x, 0.5 + 0.5 * t
+
+
+def _par_assert_port_only(what):
+    check("jax" not in sys.modules and "tcnn_tpu" not in sys.modules, f"{what}: a rank imported jax or tcnn_tpu")
+
+
+PAR_TIMED_STEPS = 10
+
+
+def _par_train(step, n_steps, batch, dims, image):
+    """``n_steps`` of ``step(x, t)`` on the phase's batches: (losses, the
+    all_reduce count of each step)."""
+    from tcnn_tpu_torch.parallel import collectives
+
+    losses, reduces = [], []
+    for i in range(n_steps):
+        x, t = _par_batch(i, batch, dims, image)
+        before = collectives.ALL_REDUCES
+        losses.append(step(x, t))
+        reduces.append(collectives.ALL_REDUCES - before)
+    return [float(v) for v in losses], reduces
+
+
+def _par_ms(step, batch, dims, image, n_steps=PAR_TIMED_STEPS):
+    """ms a step of ``step(x, t)`` over ``n_steps`` more steps on the
+    phase's batches (drawn on the card before the timed loop), after the
+    compared ones, synced at the ends."""
+    import torch
+
+    batches = [_par_batch(i, batch, dims, image) for i in range(n_steps)]
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for x, t in batches:
+        loss = step(x, t)
+    float(loss)
+    torch.cuda.synchronize()
+    return (time.perf_counter() - t0) * 1e3 / n_steps
+
+
+def _par_single(cfg, n_steps, batch, dims, image):
+    """The single-process port trainer on the phase's batches: losses,
+    params, ms a step and the card's peak bytes of its state and steps."""
+    import torch
+
+    import tcnn_tpu_torch as tt
+
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    before = torch.cuda.memory_allocated()
+    m = tt.create_from_config(dims, 3, cfg, seed=SEED, device="cuda")
+    losses, _ = _par_train(m.trainer.training_step, n_steps, batch, dims, image)
+    out = {"losses": losses, "params": m.trainer.params.cpu().numpy(),
+           "peak_bytes": torch.cuda.max_memory_allocated() - before}
+    out["ms"] = _par_ms(m.trainer.training_step, batch, dims, image)
+    return out
+
+
+def _par_dp(cfg, n_steps, image, mesh=None):
+    """DataParallelTrainer over ``mesh`` (default: every rank) on the
+    phase's 2D batches: losses, params, ms a step, all_reduces a step, the
+    kernels' launches (counts at 0 just before, read just after)."""
+    import torch
+
+    import tcnn_tpu_torch as tt
+    from tcnn_tpu_torch.parallel import DataParallelTrainer, make_mesh
+
+    m = tt.create_from_config(2, 3, cfg, seed=SEED, device="cuda")
+    dp = DataParallelTrainer(m.trainer, mesh if mesh is not None else make_mesh())
+    _zero_counts(PAR_COUNTERS)
+    torch.cuda.reset_peak_memory_stats()
+    losses, reduces = _par_train(dp.training_step, n_steps, B_FLAG, 2, image)
+    out = {"losses": losses, "params": m.trainer.params.cpu().numpy(), "reduces": reduces,
+           "launches": _read_counts(PAR_COUNTERS), "peak_bytes": torch.cuda.max_memory_allocated()}
+    out["ms"] = _par_ms(dp.training_step, B_FLAG, 2, image)
+    return out
+
+
+def _par_tp(cfg, shape, n_steps, batch):
+    """TableParallelTrainer over a (data, model) mesh of ``shape`` on the
+    phase's 3D batches, its wrapped trainer on the host so that the card
+    holds only the sharded state: losses, params (first rank), ms a step,
+    the card's peak bytes, the kernels' launches."""
+    import torch
+    import torch.distributed as dist
+    from torch.distributed.device_mesh import init_device_mesh
+
+    import tcnn_tpu_torch as tt
+    from tcnn_tpu_torch.parallel import TableParallelTrainer
+
+    mesh = init_device_mesh("cuda", shape, mesh_dim_names=("data", "model"))
+    host = tt.create_from_config(3, 3, cfg, seed=SEED, device="cpu")
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    before = torch.cuda.memory_allocated()
+    tp = TableParallelTrainer(host.trainer, mesh)
+    check(np.array_equal(tp.params, host.trainer.params.numpy()), "TP: the sharded params do not reassemble")
+    _zero_counts(PAR_COUNTERS)
+    losses, reduces = _par_train(tp.training_step, n_steps, batch, 3, None)
+    launches = _read_counts(PAR_COUNTERS)
+    peak = torch.cuda.max_memory_allocated() - before
+    params = tp.params
+    tp.sync_to_trainer()
+    check(np.array_equal(host.trainer.params.numpy(), params), "TP: sync_to_trainer did not write the params")
+    return {"losses": losses, "params": params if dist.get_rank() == 0 else None,
+            "ms": _par_ms(tp.training_step, batch, 3, None, 5), "reduces": reduces, "launches": launches,
+            "peak_bytes": peak, "local_n_params": tp.tpg.local_n_params}
+
+
+def _par_serve(flagship):
+    """FLAGSHIP_CONFIG's FrozenServer over every rank: a 2^18 batch and the
+    1024^2 raster, the whole output on every rank."""
+    import torch
+
+    import tcnn_tpu_torch as tt
+    from tcnn_tpu_torch.parallel import make_mesh
+
+    m = tt.create_from_config(2, 3, flagship, seed=SEED, device="cuda")
+    m.trainer.params = torch.from_numpy(flagship_params(m.model, np.random.default_rng(SEED + 7)))
+    server = m.trainer.freeze_serving(mesh=make_mesh())
+    x = torch.rand((B_FLAG, 2), generator=torch.Generator(device="cuda").manual_seed(SEED + 8), device="cuda")
+    _zero_counts(PAR_COUNTERS)
+    y, r = server(x), server.raster(1024)
+    return {"batch": y.cpu().numpy(), "raster": r.cpu().numpy(), "launches": _read_counts(PAR_COUNTERS)}
+
+
+def _par_rank_nccl(rank, world, flagship):
+    """(a): DataParallelTrainer over a one-rank NCCL mesh beside the plain
+    Trainer in the same process, step by step on the same batches."""
+    import torch
+
+    import tcnn_tpu_torch as tt
+    from tcnn_tpu_torch.parallel import DataParallelTrainer, make_mesh
+
+    _par_assert_port_only("parallel (a)")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    image = torch.from_numpy(_load_synthetic_image()).cuda()
+    single = tt.create_from_config(2, 3, flagship, seed=SEED, device="cuda")
+    m = tt.create_from_config(2, 3, flagship, seed=SEED, device="cuda")
+    dp = DataParallelTrainer(m.trainer, make_mesh())
+    out = {"backend": torch.distributed.get_backend(), "single": [], "dp": []}
+    for i in range(PAR_NCCL_STEPS):
+        x, t = _par_batch(i, B_FLAG, 2, image)
+        out["single"].append(float(single.trainer.training_step(x, t)))
+        out["dp"].append(float(dp.training_step(x, t)))
+    out["single_params"] = single.trainer.params.cpu().numpy()
+    out["dp_params"] = m.trainer.params.cpu().numpy()
+    again = tt.create_from_config(2, 3, flagship, seed=SEED, device="cuda")
+    out["again"] = [float(again.trainer.training_step(*_par_batch(i, B_FLAG, 2, image))) for i in range(PAR_NCCL_STEPS)]
+    out["again_params"] = again.trainer.params.cpu().numpy()
+    out["ms"] = {"dp": _par_ms(dp.training_step, B_FLAG, 2, image),
+                 "single": _par_ms(single.trainer.training_step, B_FLAG, 2, image)}
+    _par_assert_port_only("parallel (a)")
+    return out
+
+
+def _par_rank_gloo2(rank, world, flagship):
+    """(b) data parallelism, (c) table parallelism on a (1, 2) mesh and (d)
+    sharded serving, two gloo ranks on cuda:0."""
+    import torch
+    import torch.distributed as dist
+
+    _par_assert_port_only("parallel (b-d)")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    out = {"collectives": _gloo_collectives()}
+    image = torch.from_numpy(_load_synthetic_image()).cuda()
+    out["dp"] = _par_dp(_par_config(flagship, 2), PAR_DP_STEPS, image)
+    dist.barrier()
+    out["tp"] = _par_tp(_par_config(flagship, 3), (1, 2), PAR_TP_STEPS, B_FLAG)
+    dist.barrier()
+    out["serve"] = _par_serve(flagship)
+    _par_assert_port_only("parallel (b-d)")
+    return out
+
+
+def _gloo_collectives():
+    """Which collectives gloo takes on CUDA tensors here: each tried once."""
+    import torch
+    import torch.distributed as dist
+
+    world = dist.get_world_size()
+    t = torch.ones(4, device="cuda")
+    took = {}
+    for name, fn in (
+        ("all_reduce", lambda: dist.all_reduce(t)),
+        ("broadcast", lambda: dist.broadcast(t, src=0)),
+        ("all_gather", lambda: dist.all_gather([torch.empty_like(t) for _ in range(world)], t)),
+        ("all_gather_into_tensor", lambda: dist.all_gather_into_tensor(torch.empty(4 * world, device="cuda"), t)),
+    ):
+        try:
+            fn()
+            torch.cuda.synchronize()
+            took[name] = True
+        except (RuntimeError, ValueError) as e:
+            took[name] = str(e).splitlines()[0][:120]
+    return took
+
+
+def _par_rank_gloo4(rank, world, flagship):
+    """(c) table parallelism on a (2, 2) mesh, four gloo ranks on cuda:0."""
+    import torch
+
+    _par_assert_port_only("parallel (c, 4 ranks)")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    out = _par_tp(_par_config(flagship, 3), (2, 2), PAR_TP4_STEPS, B_TP4)
+    _par_assert_port_only("parallel (c, 4 ranks)")
+    return out
+
+
+def _par_lockstep(what, got, want, again, lr, first_rtol=None):
+    """Losses within PAR_LOSS_RTOL (the first within ``first_rtol`` where
+    given); params max|diff| <= 2 lr a step and within 1e-2 relative in norm
+    (see PAR_LOSS_RTOL). Returns the worst loss ratio, the params' max |diff|
+    and the count of params outside the JAX lockstep's (rtol, atol) beside
+    that count between ``want`` and ``again``, a second run of the single
+    trainer."""
+    rel = [abs(g - w) / max(abs(w), 1e-30) for g, w in zip(got["losses"], want["losses"])]
+    check(all(np.isfinite(got["losses"])), f"{what}: non-finite loss {got['losses']}")
+    if first_rtol is not None:
+        check(rel[0] <= first_rtol, f"{what}: first loss {got['losses'][0]!r} vs {want['losses'][0]!r} "
+              f"(relative {rel[0]:.3e} > {first_rtol})")
+    check(max(rel) <= PAR_LOSS_RTOL, f"{what}: losses {got['losses']} vs {want['losses']} (worst {max(rel):.3e})")
+    p, q = got["params"], want["params"]
+
+    def outside(a):
+        return int(np.sum(np.abs(a - q) > PAR_PARAM_ATOL + PAR_PARAM_RTOL * np.abs(q)))
+
+    err = float(np.abs(p - q).max())
+    rel_n = float(np.linalg.norm(p - q)) / max(float(np.linalg.norm(q)), 1e-30)
+    bound_ = 2 * lr * len(got["losses"]) * 1.0001
+    check(np.isfinite(p).all() and err <= bound_ and rel_n <= 1e-2,
+          f"{what}: params max|diff| {err:.3e} (bound {bound_:.2e}), relative difference {rel_n:.3e} (norm)")
+    return {"loss_rel": max(rel), "max_diff": err, "outside": outside(p), "outside_again": outside(again["params"]),
+            "n": p.size}
+
+
+def _lockstep_note(r):
+    return (f"worst loss ratio {r['loss_rel']:.3e}, params max|diff| {r['max_diff']:.3e}; {r['outside']} of "
+            f"{r['n']} params outside rtol {PAR_PARAM_RTOL} atol {PAR_PARAM_ATOL}, beside {r['outside_again']} "
+            f"between two runs of the single trainer")
+
+
+def _windowed_check(cfg, dims, batch, n_shards, rng):
+    """The windowed lookup and table gradient against their plain versions
+    on the card, shard by shard, at ``batch`` uniform points plus
+    cell-boundary points; the sum over the shards against the unsharded
+    per_level lookup and table gradient. Each launch must move its count.
+    Returns the worst max |diff| of the forward and the table gradient."""
+    import torch
+
+    from tcnn_tpu_torch.encodings import create_encoding
+    from tcnn_tpu_torch.encodings.grid import _INTERP_CODES
+    from tcnn_tpu_torch.ops import grid_encode as ge
+    from tcnn_tpu_torch.ops.scatter_rows import ACC_F32, CONTRIB_NONE
+    from tcnn_tpu_torch.parallel.table_parallel import TableParallelGrid
+
+    enc = create_encoding(dims, {**cfg, "gather_strategy": "per_level"}, alignment=16)
+    F, L = enc.n_features_per_level, enc.n_levels
+    interp = _INTERP_CODES[enc.interpolation_type]
+    x_np = rng.uniform(0, 1, (batch, dims)).astype(np.float32)
+    x_np = np.concatenate([x_np, _boundary_points(enc.scales, rng, 256, dims=dims).astype(np.float32)])
+    x = torch.from_numpy(x_np).cuda()
+    params = rng.uniform(-1, 1, enc.n_params).astype(np.float32)
+    dy = torch.from_numpy(rng.normal(0, 1, (len(x_np), L * F)).astype(np.float32)).cuda()
+    full_levels = ge.level_table_on(enc.level_table(), x.device)
+    classes = torch.tensor([[CONTRIB_NONE, ACC_F32]] * L, dtype=torch.int32, device="cuda")
+    want_y = ge.grid_encode_plain(x, torch.from_numpy(params).cuda(), full_levels, F, L * F, interp, torch.float32)
+    want_g = ge.grid_backward_plain(x, dy, full_levels, F, interp, classes)
+    err_f = err_b = 0.0
+    sum_y, grads = torch.zeros_like(want_y), []
+    for shard in range(n_shards):
+        tpg = _shard_grid(enc, n_shards, shard)
+        local = torch.from_numpy(tpg.local_params(params)).cuda()
+        levels, windows = tpg._tables_on(x.device)
+        n0, r0 = ge.WINDOWED_LAUNCHES, ge.BWD_ROUTE_LAUNCHES.get(ge.WINDOWED_BWD_ROUTE, 0)
+        y = ge.grid_encode_windowed(x, local, levels, windows, F, interp)
+        g = ge.grid_backward_windowed(x, dy, levels, windows, F, interp)
+        torch.cuda.synchronize()
+        check(ge.WINDOWED_LAUNCHES == n0 + 1, "windowed lookup: the launch did not move its count")
+        check(ge.BWD_ROUTE_LAUNCHES[ge.WINDOWED_BWD_ROUTE] == r0 + 1,
+              "windowed table gradient: the launch did not move its route's count")
+        y_plain = ge.grid_encode_plain(x, local, levels, F, L * F, interp, torch.float32, windows)
+        g_plain = ge.grid_backward_plain(x, dy, levels, F, interp, classes, window=windows)
+        err_f = max(err_f, f32_close(y, y_plain, f"windowed lookup shard {shard}/{n_shards}"))
+        check(g.shape == g_plain.shape and bool(g.isfinite().all()), "windowed table gradient: bad output")
+        e = float((g - g_plain).abs().max())
+        check(e <= 1e-5 * float(g_plain.abs().max()), f"windowed table gradient shard {shard}: max|diff| {e:.3e}")
+        err_b = max(err_b, e)
+        sum_y += y
+        grads.append(g.cpu().numpy())
+    f32_close(sum_y, want_y, f"windowed lookup summed over {n_shards} shards vs the unsharded lookup")
+    tpg = _shard_grid(enc, n_shards, 0)
+    full_g = tpg.unshard_params(np.concatenate(grads))
+    e = float(np.abs(full_g - want_g.cpu().numpy()).max())
+    check(e <= 1e-5 * float(want_g.abs().max()), f"windowed table gradients unsharded vs the full one: {e:.3e}")
+    return err_f, err_b
+
+
+def _shard_grid(enc, n_shards, shard):
+    """A TableParallelGrid of ``enc`` for rank ``shard`` of ``n_shards``,
+    without a process group (the kernels' checks and times)."""
+    from tcnn_tpu_torch.parallel import TableParallelGrid
+
+    return TableParallelGrid(enc, None, shard=(shard, n_shards))
+
+
+def _windowed_times(cfg, dims, batch, n_shards):
+    """The windowed kernels at the TP path's shape (shard 0 of
+    ``n_shards``, ``batch`` uniform points) and their plain versions, in
+    turns; each call's bound from its inputs."""
+    import torch
+
+    from tcnn_tpu_torch.encodings import create_encoding
+    from tcnn_tpu_torch.encodings.grid import _INTERP_CODES
+    from tcnn_tpu_torch.ops import grid_encode as ge
+    from tcnn_tpu_torch.ops.scatter_rows import ACC_F32, CONTRIB_NONE
+
+    rng = np.random.default_rng(SEED + 31)
+    enc = create_encoding(dims, cfg, alignment=16)
+    F, L = enc.n_features_per_level, enc.n_levels
+    interp = _INTERP_CODES[enc.interpolation_type]
+    tpg = _shard_grid(enc, n_shards, 0)
+    levels, windows = tpg._tables_on(torch.device("cuda"))
+    x = torch.from_numpy(rng.uniform(0, 1, (batch, dims)).astype(np.float32)).cuda()
+    local = torch.from_numpy(rng.uniform(-1, 1, tpg.local_n_params).astype(np.float32)).cuda()
+    dy = torch.from_numpy(rng.normal(0, 1, (batch, L * F)).astype(np.float32)).cuda()
+    classes = torch.tensor([[CONTRIB_NONE, ACC_F32]] * L, dtype=torch.int32, device="cuda")
+    plan = tpg._plan(batch)
+    calls = {
+        "fwd": (lambda: ge.grid_encode_windowed(x, local, levels, windows, F, interp),
+                lambda: ge.grid_encode_plain(x, local, levels, F, L * F, interp, torch.float32, windows)),
+        "bwd": (lambda: ge.grid_backward_windowed(x, dy, levels, windows, F, interp, plan),
+                lambda: ge.grid_backward_plain(x, dy, levels, F, interp, classes, window=windows)),
+    }
+    out = {}
+    for what, (kernel, plain) in calls.items():
+        p1, k1, k2, p2 = _event_ms(plain, 2, 3), _event_ms(kernel), _event_ms(kernel), _event_ms(plain, 2, 3)
+        out[what] = {"kernel": statistics.median([k1, k2]), "plain": statistics.median([p1, p2]), "library": None}
+    C = 2**dims
+    table_bytes = tpg.local_n_params * 4
+    # The lookup: x read, the rank's rows read, the partial features
+    # written; per (sample, level, corner) the weight (d - 1 products) and
+    # F multiply-adds. The table gradient: x and dL/dy read, the rank's
+    # gradient written; the same weight and F products per corner.
+    ops = batch * L * C * ((dims - 1) + 2 * F)
+    out["fwd"]["bound"] = bound(x.numel() * 4 + table_bytes + batch * L * F * 4, ops, "fp32")
+    out["bwd"]["bound"] = bound(x.numel() * 4 + dy.numel() * 4 + table_bytes, ops, "fp32")
+    return out
+
+
+def phase_parallel(card, flagship):
+    """The multi-GPU layer on the one card: the windowed kernels against
+    their plain versions, then (a) DP over a one-rank NCCL mesh, (b) DP on
+    two gloo ranks, (c) TP on (1, 2) and (2, 2) meshes, (d) sharded
+    serving, each held against the single-process port."""
+    import torch
+
+    import tcnn_tpu_torch as tt
+    from tcnn_tpu_torch.parallel.launch import run_ranks
+
+    t_phase = time.perf_counter()
+    rng = np.random.default_rng(SEED + 30)
+    err_f, err_b = 0.0, 0.0
+    for cfg, dims, batch, n in ((flagship["encoding"], 2, B_FLAG, 2), (flagship["encoding"], 2, 4096, 3),
+                                (ENC3D, 3, B_FLAG, 2), (ENC3D, 3, 4096, 4)):
+        ef, eb = _windowed_check(cfg, dims, batch, n, rng)
+        err_f, err_b = max(err_f, ef), max(err_b, eb)
+    log(f"parallel: windowed lookup and table gradient vs plain (flagship encoding at 2^18 over 2 shards and "
+        f"4096 over 3, the 3D model at 2^18 over 2 and 4096 over 4, plus cell-boundary points): max|diff| "
+        f"{err_f:.3e} / {err_b:.3e} ({WINDOWED_TOL_NOTE})")
+
+    image = torch.from_numpy(_load_synthetic_image()).cuda()
+    t0 = time.perf_counter()
+    a = run_ranks(_par_rank_nccl, 1, flagship, backend="nccl")[0]
+    dt_a = time.perf_counter() - t0
+    check(a["backend"] == "nccl", f"parallel (a): backend {a['backend']}")
+    check(a["dp"][0] == a["single"][0], f"parallel (a): first loss {a['dp'][0]!r} is not bitwise the plain "
+          f"trainer's {a['single'][0]!r}")
+    lr = flagship["optimizer"]["learning_rate"]
+    ra = _par_lockstep("parallel (a) NCCL world 1", {"losses": a["dp"], "params": a["dp_params"]},
+                       {"losses": a["single"], "params": a["single_params"]},
+                       {"losses": a["again"], "params": a["again_params"]}, lr)
+    log(f"parallel (a) [{card}]: DataParallelTrainer over a one-rank NCCL mesh, FLAGSHIP_CONFIG at B = 2^18, "
+        f"{PAR_NCCL_STEPS} steps beside the plain Trainer: first loss bitwise equal ({a['dp'][0]!r}); "
+        f"{_lockstep_note(ra)}; {a['ms']['dp']:.4f} ms/step beside {a['ms']['single']:.4f} for the plain Trainer "
+        f"({PAR_TIMED_STEPS} steps each, synced at the ends; {dt_a:.1f} s with the rank's start)")
+
+    single_dp, again_dp = (_par_single(_par_config(flagship, 2), PAR_DP_STEPS, B_FLAG, 2, image) for _ in range(2))
+    single_tp, again_tp = (_par_single(_par_config(flagship, 3), PAR_TP_STEPS, B_FLAG, 3, None) for _ in range(2))
+    t0 = time.perf_counter()
+    r2 = run_ranks(_par_rank_gloo2, 2, flagship)
+    dt_2 = time.perf_counter() - t0
+    log(f"parallel: gloo on CUDA tensors takes {r2[0]['collectives']}")
+    # (b)
+    dp0, dp1 = r2[0]["dp"], r2[1]["dp"]
+    check(dp0["losses"] == dp1["losses"], "parallel (b): the ranks' losses differ")
+    check(np.array_equal(dp0["params"], dp1["params"]), "parallel (b): the replicas' params differ")
+    check(all(n == 1 for n in dp0["reduces"]), f"parallel (b): all_reduces a step {dp0['reduces']}, not 1")
+    for k in TRAIN_COUNTERS:
+        check(dp0["launches"][k] > 0, f"parallel (b): kernel {k} was not launched")
+    rb = _par_lockstep("parallel (b) DP gloo 2 ranks", dp0, single_dp, again_dp, lr)
+    log(f"parallel (b) [{card}]: DataParallelTrainer, 2 gloo ranks on cuda:0, FLAGSHIP_CONFIG at global B = 2^18 "
+        f"stratified, {PAR_DP_STEPS} steps vs the single trainer: {_lockstep_note(rb)}; replicas bitwise equal; all_reduces a step {dp0['reduces'][0]}; "
+        f"{dp0['ms']:.4f} ms/step (gloo: host-bound, rank 0, synced at the ends) beside {single_dp['ms']:.4f} "
+        f"single; peak {dp0['peak_bytes'] / 2**20:.1f} / {dp1['peak_bytes'] / 2**20:.1f} MiB a rank beside "
+        f"{single_dp['peak_bytes'] / 2**20:.1f} single; launches "
+        f"(rank 0) {dp0['launches']}")
+    # (c) on (1, 2)
+    tp0, tp1 = r2[0]["tp"], r2[1]["tp"]
+    check(tp0["losses"] == tp1["losses"], "parallel (c): the ranks' losses differ")
+    check(all(n == 1 for n in tp0["reduces"]), f"parallel (c): all_reduces a step {tp0['reduces']}, not 1")
+    rc = _par_lockstep("parallel (c) TP (1, 2)", tp0, single_tp, again_tp, lr, PAR_TP_FIRST_RTOL)
+    for k in ("grid_fwd_windowed", "grid_bwd_windowed", "ffmlp_fwd", "ffmlp_bwd", "adam_step"):
+        check(tp0["launches"][k] > 0 and tp1["launches"][k] > 0, f"parallel (c): kernel {k} was not launched")
+    check(tp0["launches"]["grid_fwd"] == 0 and tp0["launches"]["grid_bwd"] == 0,
+          "parallel (c): the unsharded grid kernels ran on the TP path")
+    log(f"parallel (c) [{card}]: TableParallelTrainer on a (data 1, model 2) mesh, the --protocol 3d model "
+        f"(13.0 M params, 52 MB of table) at B = 2^18, {PAR_TP_STEPS} steps vs the single trainer: first loss "
+        f"ratio {abs(tp0['losses'][0] - single_tp['losses'][0]) / single_tp['losses'][0]:.3e} (<= "
+        f"{PAR_TP_FIRST_RTOL}), {_lockstep_note(rc)}; {tp0['ms']:.4f} ms/step (gloo) "
+        f"beside {single_tp['ms']:.4f} single; the card's peak bytes of the sharded state and step "
+        f"{tp0['peak_bytes'] / 2**20:.1f} / {tp1['peak_bytes'] / 2**20:.1f} MiB a rank beside the single "
+        f"trainer's {single_tp['peak_bytes'] / 2**20:.1f} ({tp0['local_n_params']} of "
+        f"{tp0['local_n_params'] * 2} table params a rank); launches (rank 0) {tp0['launches']}")
+    # (d)
+    m = tt.create_from_config(2, 3, flagship, seed=SEED, device="cuda")
+    m.trainer.params = torch.from_numpy(flagship_params(m.model, np.random.default_rng(SEED + 7)))
+    server = m.trainer.freeze_serving()
+    x = torch.rand((B_FLAG, 2), generator=torch.Generator(device="cuda").manual_seed(SEED + 8), device="cuda")
+    s_single = {"batch": server(x).cpu().numpy(), "raster": server.raster(1024).cpu().numpy()}
+    equal = {}
+    for what in ("batch", "raster"):
+        got, want = r2[0]["serve"][what], s_single[what]
+        check(np.array_equal(got, r2[1]["serve"][what]), f"parallel (d): the ranks' {what} outputs differ")
+        equal[what] = bool(np.array_equal(got, want))
+        if not equal[what]:
+            bf16_close(torch.from_numpy(got), torch.from_numpy(want), f"parallel (d) sharded {what}")
+    for k in ("grid_fwd", "ffmlp_fwd"):
+        check(all(r["serve"]["launches"][k] > 0 for r in r2), f"parallel (d): kernel {k} was not launched")
+    log(f"parallel (d) [{card}]: FrozenServer over 2 gloo ranks, FLAGSHIP_CONFIG with random params: the 2^18 "
+        f"batch {'bitwise equal to' if equal['batch'] else 'bf16_close to'} the single server's, the 1024^2 raster "
+        f"{'bitwise equal' if equal['raster'] else 'bf16_close'} ({dt_2:.1f} s for (b)-(d) with the ranks' start)")
+
+    # (c) on (2, 2)
+    single_tp4, again_tp4 = (_par_single(_par_config(flagship, 3), PAR_TP4_STEPS, B_TP4, 3, None) for _ in range(2))
+    t0 = time.perf_counter()
+    r4 = run_ranks(_par_rank_gloo4, 4, flagship)
+    dt_4 = time.perf_counter() - t0
+    check(all(r["losses"] == r4[0]["losses"] for r in r4), "parallel (c, 4 ranks): the ranks' losses differ")
+    check(all(n == 2 for n in r4[0]["reduces"]),
+          f"parallel (c, 4 ranks): all_reduces a step {r4[0]['reduces']}, not 2 (features, then gradients)")
+    rc4 = _par_lockstep("parallel (c) TP (2, 2)", r4[0], single_tp4, again_tp4, lr, PAR_TP_FIRST_RTOL)
+    log(f"parallel (c) [{card}]: TableParallelTrainer on a (data 2, model 2) mesh, 4 gloo ranks, the 3D model at "
+        f"B = 2^16, {PAR_TP4_STEPS} steps vs the single trainer: {_lockstep_note(rc4)}; {r4[0]['ms']:.4f} ms/step (gloo) beside {single_tp4['ms']:.4f} single; peak "
+        f"{', '.join(f'{r['peak_bytes'] / 2**20:.1f}' for r in r4)} MiB a rank beside the single trainer's "
+        f"{single_tp4['peak_bytes'] / 2**20:.1f} ({dt_4:.1f} s with the ranks' start)")
+
+    times = _windowed_times(ENC3D, 3, B_FLAG, 2)
+    for what, t in times.items():
+        log(f"time [{card}]: windowed {'lookup' if what == 'fwd' else 'table gradient'}, the 3D model's shard 0 "
+            f"of 2 at B = 2^18: kernel {t['kernel']:.4f} ms, plain {t['plain']:.4f} ms, bound {t['bound'][0]:.4f} "
+            f"ms ({t['bound'][1]})")
+    launches = {
+        name: {"TP (1, 2), 2^18": sum(r["tp"]["launches"][name] for r in r2),
+               "TP (2, 2), 2^16": sum(r["launches"][name] for r in r4)}
+        for name in ("grid_fwd_windowed", "grid_bwd_windowed")
+    }
+    log(f"parallel: phase in {time.perf_counter() - t_phase:.1f} s")
+    return {"err_fwd": err_f, "err_bwd": err_b, "times": times, "launches": launches}
 
 
 def main() -> int:
@@ -3248,6 +3793,7 @@ def main() -> int:
         "ray marcher (warm-up + capture)": phase_ray_marcher(card),
         "host sampler training": phase_host_sampler(card, FLAGSHIP_CONFIG),
     }
+    par = phase_parallel(card, FLAGSHIP_CONFIG)
     extras = phase_extras(card, FLAGSHIP_CONFIG, image)
     t = phase_times(card, k1, k2, m, x_flag, kb, ks)
     probes = phase_probes(card)
@@ -3350,6 +3896,16 @@ def main() -> int:
         err = (ek["err"][err_key] if err_key else
                max(v for k, v in ek["err"].items() if k.startswith("stochastic_interpolation bwd")))
         kernels.append(entry(name, source, replaces, launches_, err, None, path, ek["times"][key]))
+    # The windowed kernels of table parallelism (csrc/grid_sharded.cu):
+    # launches by path, the ranks' counts summed; times at the 3D model's
+    # shard 0 of 2.
+    for name, which, err in (("grid_fwd_windowed", "fwd", par["err_fwd"]), ("grid_bwd_windowed", "bwd", par["err_bwd"])):
+        row = entry(name, "grid_sharded.cu", "tcnn_tpu/parallel/table_parallel.py:137",
+                    sum(par["launches"][name].values()), err, None, "table parallel (TableParallelTrainer)",
+                    par["times"][which])
+        row["launches_by_path"] = par["launches"][name]
+        row["library_note"] = "none: a masked gather summed over corners is no single call"
+        kernels.append(row)
     for name, replaces in (("probe_gather", "benchmarks/probe_mosaic_gather.py:63"),
                            ("probe_scatter", "benchmarks/probe_mosaic_gather.py:121"),
                            ("probe_gather_dot", "benchmarks/probe_r5_pallas_gather2.py:348")):

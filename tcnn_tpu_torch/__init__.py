@@ -19,13 +19,16 @@ layout, byte for byte the JAX package's; ``utils.checkpoint``: npz) and
 through the grid's input-gradient and double-backward kernels; the
 packed-I/O ``FullyFusedMLP.apply_packed``), and every encoding the JAX
 package registers (the spherical harmonics through their own kernel), with
-the radiance-field sample ``samples.nerf_synthetic``. Entry points run on
-the CUDA card unless the caller names another device.
+the radiance-field sample ``samples.nerf_synthetic``, and the multi-GPU
+layer ``parallel`` over ``torch.distributed`` (``DataParallelTrainer``,
+``TableParallelGrid`` and ``TableParallelTrainer`` with the windowed grid
+kernels of a row-sharded table, ``make_mesh``; ``FrozenServer(mesh=)``).
+Entry points run on the CUDA card unless the caller names another device.
 """
 
 __version__ = "0.1.0"
 
-from . import encodings, interchange, losses, modules, networks, ops, optimizers, utils
+from . import encodings, interchange, losses, modules, networks, ops, optimizers, parallel, utils
 from .common import Activation, GridType, HashType, InterpolationType, ReductionType, default_device, default_loss_scale
 from .config import TrainableModel, create_from_config, load_config, loads_config, strip_json_comments
 from .encodings import builtin_encodings, create_encoding, register_encoding

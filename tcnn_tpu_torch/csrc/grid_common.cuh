@@ -69,6 +69,7 @@ namespace tcnn_grid {
 
 constexpr int kMaxDims = 10;
 constexpr int kMaxF = 8;
+constexpr int kMaxLevels = 128;  // tcnn_tpu_torch/common.py MAX_N_LEVELS
 
 // Layout of one row of the (L, 32) int32 level table built by
 // tcnn_tpu_torch/ops/grid_encode.py:level_table.
@@ -89,6 +90,19 @@ struct Level {
   float fp_factor;                 // fp32(scale / (2^32 - 1))
 };
 static_assert(sizeof(Level) == 128, "Level must match the host table layout");
+
+// A level's window in a row-sharded table: this rank holds the level-local
+// rows [first, first + rows), at the level table's offset (the windowed
+// lookup and table gradient read a (n_levels, 2) int32 array of them right
+// after the level table: tcnn_tpu_torch/ops/grid_encode.py:windowed_tables).
+struct Window {
+  uint32_t first, rows;
+};
+
+__device__ __forceinline__ Window window_of(const Window* __restrict__ windows, int lvl) {
+  const uint2 w = __ldg(reinterpret_cast<const uint2*>(windows) + lvl);
+  return Window{w.x, w.y};
+}
 
 enum { kFold = 0, kQuad = 1, kXor = 2, kBaseConvert = 3, kRng = 4 };
 enum { kNearest = 0, kLinear = 1, kSmoothstep = 2 };

@@ -27,11 +27,12 @@
 // eight 64-bit remainders a (sample, level), 1,456 SASS instructions) and
 // its per-thread setup, not its reads, set its time.
 //
-// Design (tcnn_grid_forward): level-major warps. A block of kWarps warps
-// owns kTile = 32 consecutive samples, one a lane; warp w takes levels w,
-// w + kWarps, ..., so a warp's lanes are 32 neighbouring samples on one
-// level: one level description and one index mode a warp (no divergence
-// between hash modes), and the neighbouring cells of a stratified batch or
+// Design (tcnn_grid_forward; the kernel lives in grid_lookup.cuh, which
+// grid_sharded.cu instantiates too): level-major warps. A block of
+// kWarps = 8 warps owns kTile = 32 consecutive samples, one a lane; warp
+// w takes levels w, w + 8, ..., so a warp's lanes are 32 neighbouring
+// samples on one level: one level description and one index mode a warp
+// (no divergence between hash modes), and the neighbouring cells of a stratified batch or
 // a raster share table rows in L1. The level table sits in shared memory,
 // read once a block. The index arithmetic is 32-bit with no division:
 // grid_common.cuh's reduce() (a mask or a multiply by the level's
@@ -69,186 +70,11 @@
 #include <stdint.h>
 
 #include "grid_common.cuh"
+#include "grid_lookup.cuh"
 
 using namespace tcnn_grid;
 
 namespace {
-
-constexpr int kTile = 32;   // samples a block, one a lane
-constexpr int kWarps = 8;   // warps a block
-constexpr int kMaxLevels = 128;  // tcnn_tpu_torch/common.py MAX_N_LEVELS
-
-__device__ __forceinline__ void store(float* p, float v) { *p = v; }
-__device__ __forceinline__ void store(__nv_bfloat16* p, float v) { *p = __float2bfloat16_rn(v); }
-
-// One (sample, level) of the cell `cell`: the F sums in corner order. D > 0:
-// the dims at compile time (every corner's row first, an Rng level's keys
-// for the whole cell at once, then all loads, then the sums); D = 0: n_dims
-// at run time, corner by corner.
-template <int F, int D, bool kExtras>
-__device__ __forceinline__ void interpolate(const Cell& cell, const float* __restrict__ params,
-                                            const Level& lv, int n_dims, int interp, bool aligned, float (&acc)[F]) {
-#pragma unroll
-  for (int f = 0; f < F; ++f) acc[f] = 0.0f;
-  const int dims = D > 0 ? D : n_dims;
-  const int n_corners = interp == kNearest ? 1 : 1 << dims;
-  if constexpr (D > 0) {
-    constexpr int C = 1 << D;
-    uint32_t g[C];
-    float w[C], v[C][F];
-    if constexpr (kExtras) {
-      uint32_t keys[C];
-      if (lv.mode == kRng) rng_corners<D>(cell, keys);
-#pragma unroll
-      for (int c = 0; c < C; ++c) {
-        if (c < n_corners) g[c] = lv.offset + corner_of<D>(cell, lv, interp, c, keys, &w[c]);
-      }
-    } else {
-#pragma unroll
-      for (int c = 0; c < C; ++c) {
-        if (c < n_corners) g[c] = lv.offset + corner<false>(cell, lv, D, interp, c, &w[c]);
-      }
-    }
-#pragma unroll
-    for (int c = 0; c < C; ++c) {
-      if (c < n_corners) load_row<F>(params, g[c], aligned, lv, v[c]);
-    }
-#pragma unroll
-    for (int c = 0; c < C; ++c) {
-      if (c < n_corners) {
-#pragma unroll
-        for (int f = 0; f < F; ++f) acc[f] = __fadd_rn(acc[f], __fmul_rn(w[c], v[c][f]));
-      }
-    }
-  } else {
-    for (int c = 0; c < n_corners; ++c) {
-      float w, v[F];
-      const uint32_t g = lv.offset + corner<kExtras>(cell, lv, dims, interp, c, &w);
-      load_row<F>(params, g, aligned, lv, v);
-#pragma unroll
-      for (int f = 0; f < F; ++f) acc[f] = __fadd_rn(acc[f], __fmul_rn(w, v[f]));
-    }
-  }
-}
-
-// Shared memory: the level table, then kTile staged output rows of
-// `row_stride` 32-bit words each (the row's bytes in words, padded to an
-// odd count so that the lanes' stores fall in distinct banks).
-// x: fp32 positions, or the uint32 ones of fixed_point_pos (`fixed`).
-// kExtras: the instantiation for uint32 positions and Rng levels; the
-// other launches leave their code out (registers: PERF.md).
-template <typename OutT, int F, int D, bool kExtras>
-__global__ void __launch_bounds__(kWarps * 32)
-    grid_forward_kernel(const void* __restrict__ x, const float* __restrict__ params,
-                        const Level* __restrict__ levels, OutT* __restrict__ out, int batch, int n_dims,
-                        int n_levels, int out_width, int interp, int row_stride, int aligned, int fixed) {
-  extern __shared__ __align__(16) unsigned char smem[];
-  Level* s_levels = reinterpret_cast<Level*>(smem);
-  uint32_t* s_rows = reinterpret_cast<uint32_t*>(smem + n_levels * sizeof(Level));
-  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
-  {
-    const int* src = reinterpret_cast<const int*>(levels);
-    int* dst = reinterpret_cast<int*>(s_levels);
-    for (int i = tid; i < n_levels * (int)(sizeof(Level) / 4); i += blockDim.x) dst[i] = __ldg(src + i);
-    if (out_width > n_levels * F) {  // padding columns: zeros
-      for (int i = tid; i < kTile * row_stride; i += blockDim.x) s_rows[i] = 0u;
-    }
-  }
-  __syncthreads();
-
-  const int b0 = blockIdx.x * kTile;
-  const int b = b0 + lane;
-  const int dims = D > 0 ? D : n_dims;
-  const float* xrow = static_cast<const float*>(x) + (size_t)b * dims;
-  const uint32_t* xrow_fixed = static_cast<const uint32_t*>(x) + (size_t)b * dims;
-  OutT* srow = reinterpret_cast<OutT*>(s_rows + lane * row_stride);
-  if (b < batch) {
-    for (int lvl = warp; lvl < n_levels; lvl += kWarps) {
-      const Level& lv = s_levels[lvl];
-      Cell cell;
-      if constexpr (kExtras) {
-        cell = fixed ? locate(xrow_fixed, lv, dims, interp) : locate(xrow, lv, dims, interp);
-      } else {
-        cell = locate(xrow, lv, dims, interp);
-      }
-      float acc[F];
-      interpolate<F, D, kExtras>(cell, params, lv, n_dims, interp, aligned != 0, acc);
-#pragma unroll
-      for (int f = 0; f < F; ++f) store(srow + lvl * F + f, acc[f]);
-    }
-  }
-  __syncthreads();
-
-  // The tile's rows, a warp a row: consecutive lanes write consecutive
-  // 32-bit words (elements where a row's bytes are no multiple of 4).
-  const int rows = batch - b0 < kTile ? batch - b0 : kTile;
-  if (out_width * sizeof(OutT) % 4 == 0) {
-    const int row_words = out_width * (int)sizeof(OutT) / 4;
-    uint32_t* dst = reinterpret_cast<uint32_t*>(out + (size_t)b0 * out_width);
-    for (int r = warp; r < rows; r += kWarps) {
-      for (int w = lane; w < row_words; w += 32) dst[(size_t)r * row_words + w] = s_rows[r * row_stride + w];
-    }
-  } else {
-    for (int r = warp; r < rows; r += kWarps) {
-      const OutT* src = reinterpret_cast<const OutT*>(s_rows + r * row_stride);
-      for (int e = lane; e < out_width; e += 32) out[(size_t)(b0 + r) * out_width + e] = src[e];
-    }
-  }
-}
-
-template <typename OutT, int F, int D>
-cudaError_t launch_forward(unsigned blocks, size_t smem, cudaStream_t s, const void* x, const float* params,
-                           const Level* levels, OutT* out, int batch, int n_dims, int n_levels, int out_width,
-                           int interp, int row_stride, int aligned, int fixed, int rng_levels) {
-  auto kernel = fixed || rng_levels ? grid_forward_kernel<OutT, F, D, true> : grid_forward_kernel<OutT, F, D, false>;
-  // Above 48 KB a block's dynamic shared memory must be allowed first. The
-  // attribute holds for the current device only, so every such launch sets it.
-  if (smem > 48 * 1024) {
-    const cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-    if (err != cudaSuccess) return err;
-  }
-  kernel<<<blocks, kWarps * 32, smem, s>>>(x, params, levels, out, batch, n_dims, n_levels, out_width, interp,
-                                           row_stride, aligned, fixed);
-  return cudaGetLastError();
-}
-
-template <typename OutT, int F>
-cudaError_t launch_by_dims(unsigned blocks, size_t smem, cudaStream_t s, const void* x, const float* params,
-                           const Level* levels, OutT* out, int batch, int n_dims, int n_levels, int out_width,
-                           int interp, int row_stride, int aligned, int fixed, int rng_levels) {
-  if (n_dims == 2)
-    return launch_forward<OutT, F, 2>(blocks, smem, s, x, params, levels, out, batch, n_dims, n_levels, out_width,
-                                      interp, row_stride, aligned, fixed, rng_levels);
-  if (n_dims == 3)
-    return launch_forward<OutT, F, 3>(blocks, smem, s, x, params, levels, out, batch, n_dims, n_levels, out_width,
-                                      interp, row_stride, aligned, fixed, rng_levels);
-  return launch_forward<OutT, F, 0>(blocks, smem, s, x, params, levels, out, batch, n_dims, n_levels, out_width,
-                                    interp, row_stride, aligned, fixed, rng_levels);
-}
-
-template <typename OutT>
-cudaError_t launch_by_features(int F, unsigned blocks, size_t smem, cudaStream_t s, const void* x,
-                               const float* params, const Level* levels, OutT* out, int batch, int n_dims,
-                               int n_levels, int out_width, int interp, int row_stride, int aligned, int fixed,
-                               int rng_levels) {
-#define TCNN_GRID_FWD_CASE(NF)                                                                                 \
-  case NF:                                                                                                     \
-    return launch_by_dims<OutT, NF>(blocks, smem, s, x, params, levels, out, batch, n_dims, n_levels, out_width, \
-                                    interp, row_stride, aligned, fixed, rng_levels);
-  switch (F) {
-    TCNN_GRID_FWD_CASE(1)
-    TCNN_GRID_FWD_CASE(2)
-    TCNN_GRID_FWD_CASE(3)
-    TCNN_GRID_FWD_CASE(4)
-    TCNN_GRID_FWD_CASE(5)
-    TCNN_GRID_FWD_CASE(6)
-    TCNN_GRID_FWD_CASE(7)
-    TCNN_GRID_FWD_CASE(8)
-    default:
-      return cudaErrorInvalidValue;
-  }
-#undef TCNN_GRID_FWD_CASE
-}
 
 // ---- The earlier kernel, kept for the A/B (see the head of the file). ----
 
@@ -353,22 +179,14 @@ extern "C" int tcnn_grid_forward(const void* x, const void* params, const void* 
                                  int batch, int n_dims, int n_levels, int F, int out_width,
                                  int interp, int out_bf16, int fixed_point, int rng_levels, void* stream) {
   if (batch <= 0) return 0;
-  const int elem = out_bf16 ? 2 : 4;
   if (n_dims < 1 || n_dims > kMaxDims || F < 1 || F > kMaxF || n_levels < 1 || n_levels > kMaxLevels ||
       out_width < n_levels * F)
     return (int)cudaErrorInvalidValue;
-  const int row_stride = (out_width * elem + 3) / 4 | 1;
-  const size_t smem = n_levels * sizeof(Level) + (size_t)kTile * row_stride * 4;
-  const unsigned blocks = (unsigned)((batch + kTile - 1) / kTile);
-  const int aligned = reinterpret_cast<uintptr_t>(params) % 16 == 0;
+  const LookupArgs a{x, static_cast<const float*>(params), static_cast<const Level*>(levels), batch, n_dims,
+                     n_levels, out_width, interp, fixed_point, rng_levels};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const float* pf = static_cast<const float*>(params);
-  const Level* lv = static_cast<const Level*>(levels);
-  const cudaError_t err =
-      out_bf16 ? launch_by_features(F, blocks, smem, s, x, pf, lv, static_cast<__nv_bfloat16*>(out), batch, n_dims,
-                                    n_levels, out_width, interp, row_stride, aligned, fixed_point, rng_levels)
-               : launch_by_features(F, blocks, smem, s, x, pf, lv, static_cast<float*>(out), batch, n_dims,
-                                    n_levels, out_width, interp, row_stride, aligned, fixed_point, rng_levels);
+  const cudaError_t err = out_bf16 ? lookup<__nv_bfloat16, false>(F, a, static_cast<__nv_bfloat16*>(out), s)
+                                   : lookup<float, false>(F, a, static_cast<float*>(out), s);
   return (int)err;
 }
 

@@ -41,7 +41,6 @@ __device__ __forceinline__ float round_contribution(float v, int mode) {
 // `chunk` consecutive samples and takes them `threads` at a time; for each
 // tile it walks the levels in order with one sample per thread, so a warp's
 // 32 lanes are 32 consecutive samples on one level.
-constexpr int kMaxLevels = 128;  // tcnn_tpu_torch/common.py MAX_N_LEVELS
 constexpr int kMaxThreads = 256;
 constexpr int kPlanHeader = 4;
 constexpr unsigned kFullMask = 0xFFFFFFFFu;
@@ -145,7 +144,15 @@ __device__ __forceinline__ void add_row_bf16(__nv_bfloat16* p, const float (&v)[
 //   - uint32 positions, no u, no Rng level (grid_bwd_modes.cu);
 //   - fp32 positions with u, no Rng level (grid_bwd_modes.cu): the corner
 //     is sampled before the loop, which runs once; no per-corner state.
-template <typename DyT, int F, bool kExtras, int D, typename PosT = float, bool kSampled = false>
+// kWindowed (grid_sharded.cu): a rank of a row-sharded table adds only the
+// contributions to its own rows, those of each level's window (the
+// Window array that follows the level table at `levels + n_levels`), at
+// local row r - first; the others are dropped as a lane without a sample
+// is, and the levels are flushed by their local row count. The other
+// instantiations discard the windowed branches, so they compile the kernel
+// as it was.
+template <typename DyT, int F, bool kExtras, int D, typename PosT = float, bool kSampled = false,
+          bool kWindowed = false>
 __global__ void __launch_bounds__(kMaxThreads, 2)
     grid_backward_kernel(const void* __restrict__ x, const DyT* __restrict__ dy, const Level* __restrict__ levels,
                          const int* __restrict__ classes, const float* __restrict__ u, float* __restrict__ grad32,
@@ -220,6 +227,11 @@ __global__ void __launch_bounds__(kMaxThreads, 2)
             key = corner<kExtras>(cell, lv, dims, interp, sampled_path ? sampled : c, &weight);
           }
           if (sampled_path) weight = 1.0f;
+          if constexpr (kWindowed) {
+            const Window win = window_of(reinterpret_cast<const Window*>(levels + n_levels), lvl);
+            key -= win.first;
+            if (key >= win.rows) key = kNoRow;
+          }
 #pragma unroll
           for (int f = 0; f < F; ++f) {
             const float t = round_contribution(__fmul_rn(weight, g[f]), contrib);
@@ -257,6 +269,12 @@ __global__ void __launch_bounds__(kMaxThreads, 2)
     }
   }
   __syncthreads();
+  if constexpr (kWindowed) {
+    // Every corner is placed: a level's size is its window's rows now.
+    for (int lvl = tid; lvl < n_levels; lvl += T)
+      s_levels[lvl].size = window_of(reinterpret_cast<const Window*>(levels + n_levels), lvl).rows;
+    __syncthreads();
+  }
 
   // Flush each privatised level's non-zero rows with one add each.
   for (int lvl = 0; lvl < n_levels; ++lvl) {
@@ -284,13 +302,15 @@ __global__ void __launch_bounds__(kMaxThreads, 2)
   }
 }
 
-// One launch of grid_backward_kernel<DyT, F, kExtras, D, PosT, kSampled>.
-template <typename DyT, int F, bool kExtras, int D, typename PosT = float, bool kSampled = false>
+// One launch of grid_backward_kernel<DyT, F, kExtras, D, PosT, kSampled,
+// kWindowed>.
+template <typename DyT, int F, bool kExtras, int D, typename PosT = float, bool kSampled = false,
+          bool kWindowed = false>
 cudaError_t launch_tiled(unsigned blocks, const Plan& plan, cudaStream_t s, const void* x, const DyT* dy,
                          const Level* levels, const int* classes, const float* u, float* grad32,
                          __nv_bfloat16* grad16, int batch, int n_dims, int n_levels, int dy_width, int interp,
                          int fixed) {
-  auto kernel = grid_backward_kernel<DyT, F, kExtras, D, PosT, kSampled>;
+  auto kernel = grid_backward_kernel<DyT, F, kExtras, D, PosT, kSampled, kWindowed>;
   // Above 48 KB a block's dynamic shared memory must be allowed first. The
   // attribute holds for the current device only, so every such launch sets it.
   if (plan.smem_bytes > 48 * 1024) {

@@ -89,14 +89,15 @@ class Encoding(nn.Module):
         same as ``apply`` for encodings without kernels."""
         return self.apply(params, x)
 
-    def apply_raster(self, params: torch.Tensor, side, **kwargs) -> torch.Tensor:
+    def apply_raster(self, params: torch.Tensor, side, rows=None, **kwargs) -> torch.Tensor:
         """Encode the tile-centre raster (``utils.sampling.raster_centers``
         layout: sample ``j`` at the centre of raster tile ``j``, dim 0
         fastest; ``side`` an int or a per-dim tuple), built on the device of
-        ``params``. Encodings with a raster fast path override this
+        ``params``; ``rows`` = (start, stop): only those rows of it.
+        Encodings with a raster fast path override this
         (``GridEncoding.apply_raster``); the default builds the positions and
         applies normally (tcnn_tpu/encodings/base.py:106-118)."""
-        x = raster_centers_torch(side, self.n_dims_to_encode, params.device)
+        x = raster_centers_torch(side, self.n_dims_to_encode, params.device, rows)
         return self.apply(params, x, **kwargs)
 
     def forward(self, params: torch.Tensor, x: torch.Tensor) -> torch.Tensor:

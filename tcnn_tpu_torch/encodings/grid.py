@@ -28,6 +28,7 @@ table that the kernels and their plain versions read.
 
 from __future__ import annotations
 
+import contextlib
 import math
 from typing import Dict, List, Optional
 
@@ -105,6 +106,28 @@ _LOCKED_CLASSES = {
     "single": (sr.CONTRIB_RN, sr.ACC_F32),
     "sr": (sr.CONTRIB_SR, sr.ACC_F32),
 }
+
+
+# The number of equal shards of a global batch that each grid call sees
+# (``data_shards``); 1 outside a data-parallel step.
+_DATA_SHARDS = 1
+
+
+@contextlib.contextmanager
+def data_shards(n: int):
+    """Within the block, every grid encoding takes a call on B samples for
+    one of ``n`` equal shards of a global batch of n * B, as data parallelism
+    gives it (``parallel.DataParallelTrainer``, ``FrozenServer(mesh=)``):
+    what the JAX package decides from the batch under ``jit`` of the global
+    step, the levels' own rounding and the table gradient's classes (the
+    stratified tiles, the "auto" scatter gate), is decided on n * B; the
+    table gradient's launch plan stays on the B samples of the call."""
+    global _DATA_SHARDS
+    previous, _DATA_SHARDS = _DATA_SHARDS, int(n)
+    try:
+        yield
+    finally:
+        _DATA_SHARDS = previous
 
 
 def grid_scale(level: int, log2_per_level_scale: float, base_resolution: int) -> float:
@@ -433,6 +456,18 @@ class GridEncoding(Encoding):
             self.gather_strategy in ("quad", "quad_fused", "stratified")
             and self.interpolation_type == InterpolationType.Linear
         )
+        modes, strides = self.level_modes(quad)
+        off = self.offset_table
+        serve, own = self._round_codes(table_dtype, raster_sides, batch, stratified)
+        return ge.level_table(off[:-1], off[1:] - off[:-1], modes, self.scales, strides, serve, own,
+                              fixed_point=self.fixed_point_pos)
+
+    def level_modes(self, quad: bool = False):
+        """Per level, the index mode (``ops.grid_encode`` MODE_*) and the
+        per-dim factors: levels with affine strides fold every corner, or
+        with ``quad`` add the corner's delta to the cell's base (the same
+        index but where uint32 wrap-around meets a level size that is not a
+        power of two); hashed levels hash."""
         modes, strides = [], []
         for lvl in range(self.n_levels):
             st = self._level_strides(lvl)
@@ -445,10 +480,7 @@ class GridEncoding(Encoding):
             else:
                 modes.append(ge.MODE_XOR)
                 strides.append(_hash_factors(self.hash_type, self.n_dims_to_encode))
-        off = self.offset_table
-        serve, own = self._round_codes(table_dtype, raster_sides, batch, stratified)
-        return ge.level_table(off[:-1], off[1:] - off[:-1], modes, self.scales, strides, serve, own,
-                              fixed_point=self.fixed_point_pos)
+        return modes, strides
 
     def _round_codes(self, table_dtype, raster_sides, batch, stratified):
         """Per level, the (serve-time, own) ROUND_* codes of its reads."""
@@ -556,17 +588,21 @@ class GridEncoding(Encoding):
                 out.append(_MODE_CLASSES[self._scatter_mode(batch * n_corners, size)])
         return np.asarray(out, np.int32).reshape(self.n_levels, 2)
 
-    def _classes_on(self, device: torch.device, batch: int, stratified: Optional[bool] = None):
+    def _classes_on(self, device: torch.device, batch: int, stratified: Optional[bool] = None,
+                    plan_batch: Optional[int] = None):
         """(class table on ``device``, whether a level sums in bf16, the
-        table gradient's ``backward_plan``)."""
+        table gradient's ``backward_plan``): the classes of a training batch
+        of ``batch`` samples, the plan for a call on ``plan_batch`` of them
+        (default all; one shard of them under ``data_shards``)."""
+        plan_batch = int(batch if plan_batch is None else plan_batch)
         key = (
-            device.type, device.index, int(batch), stratified is False, self.gather_strategy,
+            device.type, device.index, int(batch), plan_batch, stratified is False, self.gather_strategy,
             self.scatter_strategy, self.locked_rounding, self.quad_pack,
         )
         hit = self._class_tables.get(key)
         if hit is None:
             classes = self.gradient_classes(batch, stratified)
-            plan = ge.backward_plan(self.level_table(), self.n_features_per_level, batch, classes)
+            plan = ge.backward_plan(self.level_table(), self.n_features_per_level, plan_batch, classes)
             hit = (torch.from_numpy(classes).to(device), bool((classes[:, 1] == sr.ACC_BF16).any()), plan)
             self._class_tables[key] = hit
         return hit
@@ -659,8 +695,11 @@ class GridEncoding(Encoding):
             if training:
                 u = self._uniforms(rng, x.shape[0], x.device)
         classes, acc16, plan = None, False, None
+        # The batch that decides the levels' own rounding and the gradient
+        # classes: the global one under data_shards.
+        batch = x.shape[0] * _DATA_SHARDS
         if training:
-            classes, acc16, plan = self._classes_on(x.device, x.shape[0], stratified)
+            classes, acc16, plan = self._classes_on(x.device, batch, stratified, x.shape[0])
         meta = (
             self.n_features_per_level,
             self.padded_output_width,
@@ -670,7 +709,7 @@ class GridEncoding(Encoding):
             acc16,
             plan,
         )
-        levels = self._levels_on(x.device, table_dtype, raster_sides, x.shape[0], stratified)
+        levels = self._levels_on(x.device, table_dtype, raster_sides, batch, stratified)
         y = ge.GridEncodeFunction.apply(x, params, levels, classes, u, meta)
         if max_level is not None:
             # By torch.where, not a multiply, as the JAX package masks.
@@ -709,14 +748,16 @@ class GridEncoding(Encoding):
         return hp
 
     def apply_raster(self, params: torch.Tensor, side, table_dtype: Optional[str] = None,
-                     max_level: Optional[float] = None) -> torch.Tensor:
+                     max_level: Optional[float] = None, rows=None) -> torch.Tensor:
         """Encode the tile-center raster (``utils.sampling.raster_centers``
         layout), built on the device of ``params``, by per-sample lookup; a
         serve-time ``table_dtype`` rounds the levels ``served_levels`` names
-        for this raster; ``max_level`` masks as in ``apply``."""
+        for this raster; ``max_level`` masks as in ``apply``. ``rows`` =
+        (start, stop): only those rows of the raster, read as the whole
+        raster's levels read (a shard of it, ``FrozenServer(mesh=)``)."""
         d = self.n_dims_to_encode
         sides = (int(side),) * d if np.isscalar(side) else tuple(int(s) for s in side)
-        x = raster_centers_torch(side, d, params.device)
+        x = raster_centers_torch(side, d, params.device, rows)
         if self.fixed_point_pos:
             raise TypeError("fixed_point_pos expects uint32 inputs spanning [0, 1); the raster's are float")
         return self._encode(params, x, table_dtype, plain=False, raster_sides=sides, max_level=max_level)

@@ -89,10 +89,13 @@ class NetworkWithInputEncoding(nn.Module):
         net_params, enc_params = self._split(params)
         return self.network.apply_plain(net_params, self.encoding.apply_plain(enc_params, x, **encoding_kwargs))
 
-    def apply_raster(self, params: torch.Tensor, side, **encoding_kwargs) -> torch.Tensor:
+    def apply_raster(self, params: torch.Tensor, side, rows=None, **encoding_kwargs) -> torch.Tensor:
         """Forward over the tile-center raster of ``side`` (int or per-dim
-        tuple), built on the device of ``params``."""
+        tuple), built on the device of ``params``; ``rows`` = (start, stop):
+        only those rows of it."""
         net_params, enc_params = self._split(params)
+        if rows is not None:
+            encoding_kwargs["rows"] = rows
         encoded = self.encoding.apply_raster(enc_params, side, **encoding_kwargs)
         return self.network.apply(net_params, encoded)
 

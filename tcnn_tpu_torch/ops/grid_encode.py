@@ -39,6 +39,15 @@ int64 by the plain versions), and their cell comes from the level table's
 fixed-point columns. The lookup and the table gradient take both; the
 table gradient also takes stochastic interpolation's uniforms ``u``.
 
+The windowed lookup and table gradient (``csrc/grid_sharded.cu``:
+``grid_encode_windowed``, ``grid_backward_windowed``) serve a table whose
+every level is row-sharded over the ranks of a model-parallel group
+(``parallel.table_parallel``): a rank holds the level-local rows [first,
+first + rows) of each level, its *window*, at the level table's offset;
+corners outside it read zeros and take no gradient. Their plain versions
+are ``grid_encode_plain`` and ``grid_backward_plain`` given ``window``, the
+(n_levels, 2) int32 windows.
+
 Every wrapper dispatches on the device of ``x``: a CPU tensor takes the
 plain version, a CUDA tensor launches the kernel or raises.
 """
@@ -63,6 +72,10 @@ BWD_LAUNCHES = 0
 BWD_ROUTE_LAUNCHES: Dict[Tuple[str, str], int] = {}
 INPUT_LAUNCHES = 0
 BWDBWD_LAUNCHES = 0
+# The windowed lookup's launches (its table gradient counts under its route
+# in BWD_ROUTE_LAUNCHES).
+WINDOWED_LAUNCHES = 0
+WINDOWED_BWD_ROUTE = ("grid_sharded", "tcnn_grid_backward_windowed")
 
 # Level index modes (csrc/grid_fwd.cu switches on the same values).
 MODE_FOLD = 0  # affine: (sum_d uint32(pos_grid_d + bit_d) * stride_d) mod size
@@ -327,6 +340,23 @@ def _read_table(table: torch.Tensor, idx: torch.Tensor, row: np.ndarray) -> torc
     return feats
 
 
+def _windows_np(window) -> Optional[np.ndarray]:
+    return None if window is None else np.asarray(window.cpu() if isinstance(window, torch.Tensor) else window,
+                                                  np.int64).reshape(-1, 2)
+
+
+def _in_window(idx: torch.Tensor, row: np.ndarray, win) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The table rows ``idx`` (offset + level-local row r) of one level as
+    a rank whose window of the level is ``win`` = (first, rows) holds them:
+    (local table row offset + r - first, clamped into the window, and
+    whether the rank holds it)."""
+    first, rows = int(win[0]), int(win[1])
+    offset = int(row[0])
+    loc = idx - offset - first
+    owned = (loc >= 0) & (loc < rows)
+    return offset + torch.clamp(loc, 0, max(rows - 1, 0)), owned
+
+
 def grid_encode_plain(
     x: torch.Tensor,
     params: torch.Tensor,
@@ -335,20 +365,29 @@ def grid_encode_plain(
     padded_width: int,
     interpolation: int,
     out_dtype: torch.dtype,
+    window=None,
 ) -> torch.Tensor:
     """Plain torch lookup. ``x`` (B, d) fp32 (uint32 for fixed_point_pos),
     ``params`` the flat fp32 grid parameters, ``levels`` the level table
-    (any device). Returns (B, padded_width) in ``out_dtype``."""
+    (any device). Returns (B, padded_width) in ``out_dtype``. ``window``:
+    the (n_levels, 2) windows of a rank of a row-sharded table (``params``
+    then its local rows): a corner outside the level's window reads zeros
+    (the plain version of ``grid_encode_windowed``)."""
     batch, d = x.shape
     x = _positions(x)
     F = int(n_features_per_level)
     table = params.view(-1, F)
     lt = levels.cpu().numpy().view(np.uint32).astype(np.int64)
+    windows = _windows_np(window)
     bits_np = _corner_bits(d, interpolation)
     outs = []
-    for row in lt:
+    for lvl, row in enumerate(lt):
         idx, weights = _level_rows(x, row, interpolation, bits_np)
-        feats = _read_table(table, idx, row)  # (B, C, F)
+        if windows is None:
+            feats = _read_table(table, idx, row)  # (B, C, F)
+        else:
+            idx, owned = _in_window(idx, row, windows[lvl])
+            feats = torch.where(owned[..., None], _read_table(table, idx, row), 0.0)
         outs.append(torch.sum(feats * weights[..., None], dim=1))
     y = torch.stack(outs, dim=1).reshape(batch, -1)
     if padded_width > y.shape[1]:
@@ -368,6 +407,7 @@ def grid_backward_plain(
     interpolation: int,
     level_round: torch.Tensor,
     u: Optional[torch.Tensor] = None,
+    window=None,
 ) -> torch.Tensor:
     """Plain table gradient: (n_rows * F,) fp32 for the flat grid
     parameters, where n_rows is the table size the level table describes.
@@ -380,23 +420,35 @@ def grid_backward_plain(
     ``u`` (B, L) fp32 uniforms: stochastic interpolation's table gradient
     (tcnn_tpu/encodings/grid.py:_stochastic_combine): per (sample, level)
     the whole dL_dy row, weight 1, to the one corner ``_sampled_corner``
-    picks."""
+    picks.
+
+    ``window``: the (n_levels, 2) windows of a rank of a row-sharded table
+    (the plain version of ``grid_backward_windowed``): the gradient of its
+    local rows, (sum of the windows' rows * F,), from the contributions of
+    the corners inside each level's window."""
     from .scatter_rows import ACC_BF16, ACC_DROP, scatter_rows_plain
 
     batch, d = x.shape
     x = _positions(x)
     F = int(n_features_per_level)
     lt = levels.cpu().numpy().view(np.uint32).astype(np.int64)
+    windows = _windows_np(window)
+    # The gradient's rows of each level: the level's, or the window's.
+    sizes = lt[:, 1] if windows is None else windows[:, 1]
     classes = level_round.cpu().numpy().reshape(-1, 2)
     bits_np = _corner_bits(d, interpolation)
-    grad = torch.zeros((_table_rows(lt), F), dtype=torch.float32, device=x.device)
+    n_rows = int(max(lt[:, 0] + sizes)) if len(lt) else 0
+    grad = torch.zeros((n_rows, F), dtype=torch.float32, device=x.device)
     g = dL_dy.to(torch.float32)
     for lvl, row in enumerate(lt):
         contrib_round, acc = (int(v) for v in classes[lvl])
         if acc == ACC_DROP:
             continue
-        offset, size = int(row[0]), int(row[1])
+        offset, size = int(row[0]), int(sizes[lvl])
         idx, weights, t = _level_corners(x, row, interpolation, bits_np)
+        if windows is not None:
+            idx, owned = _in_window(idx, row, windows[lvl])
+            weights = torch.where(owned, weights, 0.0)
         gl = g[:, None, lvl * F : (lvl + 1) * F]
         if u is None:
             contrib = weights[..., None] * gl  # (B, C, F)
@@ -846,6 +898,153 @@ def grid_backward(
     ))
     BWD_LAUNCHES += 1
     BWD_ROUTE_LAUNCHES[route] = BWD_ROUTE_LAUNCHES.get(route, 0) + 1
+    return grad
+
+
+_FWD_WINDOWED_ARGS = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 7 + [ctypes.c_void_p]
+_BWD_WINDOWED_ARGS = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 8 + [ctypes.c_int64, ctypes.c_void_p, ctypes.c_void_p]
+
+
+def windowed_tables(levels: np.ndarray, windows: np.ndarray, device) -> Tuple[torch.Tensor, torch.Tensor]:
+    """A rank's level table ``levels`` ((L, 32) int32, ``level_table``'s)
+    and windows ((L, 2) int32: first, rows) on ``device`` as views of ONE
+    buffer, the windows right after the table: where the windowed kernels
+    read them (``csrc/grid_sharded.cu``)."""
+    L = len(levels)
+    buf = torch.from_numpy(np.concatenate([np.asarray(levels, np.int32).reshape(-1),
+                                           np.asarray(windows, np.int32).reshape(-1)])).to(device)
+    t = buf[: L * _LEVEL_COLS].view(L, _LEVEL_COLS)
+    setattr(t, _RNG_ATTR, bool((np.asarray(levels)[:, 2] == MODE_RNG).any()))
+    return t, buf[L * _LEVEL_COLS :].view(L, 2)
+
+
+def _check_windows(what: str, windows: torch.Tensor, levels: torch.Tensor, x: torch.Tensor, n_levels: int):
+    if (windows.shape != (n_levels, 2) or windows.dtype != torch.int32 or not windows.is_contiguous()
+            or windows.device != x.device):
+        raise ValueError(f"{what}: windows must be the contiguous ({n_levels}, 2) int32 windows on the device of x")
+    if windows.data_ptr() != levels.data_ptr() + levels.numel() * levels.element_size():
+        raise ValueError(f"{what}: the windows must follow the level table in one buffer (windowed_tables)")
+
+
+_F32_CLASS_TABLES: Dict[tuple, torch.Tensor] = {}
+
+
+def _f32_classes(n_levels: int, device: torch.device) -> torch.Tensor:
+    """The (n_levels, 2) class table of every level (no rounding, fp32
+    sums) on ``device``, made once (a captured step copies nothing)."""
+    from .scatter_rows import ACC_F32, CONTRIB_NONE
+
+    key = (n_levels, device.type, device.index)
+    t = _F32_CLASS_TABLES.get(key)
+    if t is None:
+        t = _F32_CLASS_TABLES[key] = torch.tensor([[CONTRIB_NONE, ACC_F32]] * n_levels, dtype=torch.int32,
+                                                  device=device)
+    return t
+
+
+def windowed_plan(levels, windows, n_features_per_level: int, batch: int) -> BackwardPlan:
+    """``backward_plan`` of the windowed table gradient: ``levels`` (the
+    rank's level table: local offsets, global sizes) with each level's rows
+    those of its window, every level summing in fp32; a host function
+    (``levels`` and ``windows`` as numpy arrays or tensors on any device)."""
+    lt = (levels.cpu().numpy() if isinstance(levels, torch.Tensor) else np.asarray(levels)).copy()
+    lt[:, 1] = _windows_np(windows)[:, 1]
+    return backward_plan(lt, n_features_per_level, batch)
+
+
+def grid_encode_windowed(
+    x: torch.Tensor,
+    params: torch.Tensor,
+    levels: torch.Tensor,
+    windows: torch.Tensor,
+    n_features_per_level: int,
+    interpolation: int,
+) -> torch.Tensor:
+    """The lookup of a rank of a row-sharded table: (B, n_levels * F) fp32
+    partial features of positions ``x`` (B, d) fp32, ``params`` the rank's
+    local rows, ``levels`` its level table (each level's offset its first
+    local row, its size the level's global size) and ``windows`` the
+    (n_levels, 2) int32 (first, rows) of each level it holds, both from
+    ``windowed_tables`` on a CUDA ``x``. A corner
+    outside its level's window adds zero; the sum over the ranks is the
+    lookup of the whole table. On a CUDA ``x`` the kernel
+    ``tcnn_grid_forward_windowed`` runs (``csrc/grid_sharded.cu``)."""
+    F = int(n_features_per_level)
+    width = levels.shape[0] * F
+    if x.device.type == "cpu":
+        return grid_encode_plain(x, params, levels, F, width, interpolation, torch.float32, windows)
+    if x.device.type != "cuda":
+        raise ValueError(f"grid_encode_windowed: unsupported device {x.device}")
+    what = "grid_encode_windowed"
+    _check_kernel_inputs(what, x, levels, F)
+    _check_params(what, params, x)
+    n_levels = levels.shape[0]
+    _check_windows(what, windows, levels, x, n_levels)
+    if not 1 <= n_levels <= MAX_LEVELS:
+        raise ValueError(f"{what}: {n_levels} levels (1 to {MAX_LEVELS})")
+    if params.numel() >= 2**31:
+        raise ValueError(f"{what}: the kernel indexes the table in 32 bits (below 2^31 values)")
+    batch, d = x.shape
+    out = torch.empty((batch, width), dtype=torch.float32, device=x.device)
+    if batch == 0:
+        return out
+    from ._build import kernel, stream
+
+    global WINDOWED_LAUNCHES
+    _launch(what, kernel("grid_sharded", "tcnn_grid_forward_windowed", _FWD_WINDOWED_ARGS)(
+        x.data_ptr(), params.data_ptr(), levels.data_ptr(), windows.data_ptr(), out.data_ptr(),
+        batch, d, n_levels, F, width, int(interpolation), int(_rng_levels(levels)), stream(x.get_device()),
+    ))
+    WINDOWED_LAUNCHES += 1
+    return out
+
+
+def grid_backward_windowed(
+    x: torch.Tensor,
+    dL_dy: torch.Tensor,
+    levels: torch.Tensor,
+    windows: torch.Tensor,
+    n_features_per_level: int,
+    interpolation: int,
+    plan: Optional[BackwardPlan] = None,
+) -> torch.Tensor:
+    """The table gradient of ``grid_encode_windowed``: the rank's local
+    rows, (sum of the windows' rows * F,) fp32, from the contributions w *
+    dL_dy (fp32, no rounding, fp32 sums: the class of the JAX package's
+    autodiff of its sharded lookup) of the corners inside each level's
+    window; ``dL_dy`` (B, >= n_levels * F) bf16 or fp32. On a CUDA ``x``
+    the kernel ``tcnn_grid_backward_windowed`` runs with ``plan``
+    (``windowed_plan``; None: made here), counted under
+    ``WINDOWED_BWD_ROUTE`` in ``BWD_ROUTE_LAUNCHES``."""
+    F = int(n_features_per_level)
+    n_levels = levels.shape[0]
+    classes = _f32_classes(n_levels, x.device)
+    if x.device.type == "cpu":
+        return grid_backward_plain(x, dL_dy, levels, F, interpolation, classes, window=windows)
+    if x.device.type != "cuda":
+        raise ValueError(f"grid_backward_windowed: unsupported device {x.device}")
+    what = "grid_backward_windowed"
+    _check_kernel_inputs(what, x, levels, F)
+    _check_dy(what, dL_dy, x, n_levels, F)
+    _check_windows(what, windows, levels, x, n_levels)
+    batch, d = x.shape
+    if plan is None:
+        plan = windowed_plan(levels, windows, F, batch)
+    elif (plan.batch, plan.n_levels, plan.F) != (batch, n_levels, F):
+        raise ValueError(
+            f"{what}: the plan is for batch {plan.batch}, {plan.n_levels} levels and F {plan.F}, "
+            f"not {batch}, {n_levels} and {F}"
+        )
+    n_values = plan.n_rows * F
+    grad = torch.empty(n_values, dtype=torch.float32, device=x.device)
+    from ._build import kernel, stream
+
+    _launch(what, kernel(*WINDOWED_BWD_ROUTE, _BWD_WINDOWED_ARGS)(
+        x.data_ptr(), dL_dy.data_ptr(), levels.data_ptr(), classes.data_ptr(), windows.data_ptr(), grad.data_ptr(),
+        batch, d, n_levels, F, dL_dy.shape[1], int(interpolation), int(dL_dy.dtype == torch.bfloat16),
+        int(_rng_levels(levels)), n_values, plan.array.ctypes.data, stream(x.get_device()),
+    ))
+    BWD_ROUTE_LAUNCHES[WINDOWED_BWD_ROUTE] = BWD_ROUTE_LAUNCHES.get(WINDOWED_BWD_ROUTE, 0) + 1
     return grad
 
 

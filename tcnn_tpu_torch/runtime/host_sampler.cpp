@@ -4,11 +4,14 @@
 // PCG32 (M.E. O'Neill, www.pcg-random.org, Apache-2.0) is the same public
 // algorithm the reference vendors (dependencies/pcg32/pcg32.h); the sampler
 // seeds and draws it exactly as the JAX package's native sampler does, so
-// the two give the same batches bit for bit. (The JAX package's library
+// the two give the same batches bit for bit, except that a stratified
+// sample the JAX package's sampler puts on or past its tile's edge is
+// moved inside the tile here (in_tile()). (The JAX package's library
 // also exports bulk PCG32 draws for parameter initialisation; the port
 // initialises in Python, tcnn_tpu_torch/rng.py, and has no use for them.)
 // Built with g++ at first use (runtime/native.py); no device code.
 
+#include <cmath>
 #include <cstdint>
 #include <cstring>
 
@@ -74,6 +77,21 @@ inline float next_f32(Sampler& s) {
     return f - 1.0f;
 }
 
+// The stratified coordinate of raster tile `tile` for the jitter u in [0, 1):
+// (tile + u) / strata in fp32, as the JAX package's sampler computes it, and
+// that value itself wherever it lies in [tile, tile + 1) / strata. Where the
+// fp32 sum tile + u rounds up to tile + 1 (u within an ulp of the tile
+// index below 1: at 512 tiles a side, u within 2^-16 of 1), or the quotient
+// rounds across an edge of the tile, it is moved by single fp32 steps to the
+// nearest value inside the tile. (double)v * strata is exact (a 24-bit
+// mantissa times an int below 2^29), so the test is too.
+inline float in_tile(int64_t tile, float u, int strata) {
+    float v = (tile + u) / strata;
+    while ((double)v * strata >= (double)(tile + 1)) v = std::nextafter(v, 0.0f);
+    while ((double)v * strata < (double)tile) v = std::nextafter(v, 1.0f);
+    return v;
+}
+
 void fill_buffer(Sampler& s, Buffer& b) {
     const int64_t B = s.batch;
     b.xy.resize(B * 2);
@@ -82,8 +100,8 @@ void fill_buffer(Sampler& s, Buffer& b) {
         float x, y;
         if (s.strata > 0) {
             const int64_t col = j % s.strata, row = j / s.strata;
-            x = (col + next_f32(s)) / s.strata;
-            y = (row + next_f32(s)) / s.strata;
+            x = in_tile(col, next_f32(s), s.strata);
+            y = in_tile(row, next_f32(s), s.strata);
         } else {
             x = next_f32(s);
             y = next_f32(s);

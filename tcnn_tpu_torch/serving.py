@@ -7,11 +7,21 @@ directly, so the snapshot is all there is to build. A serve-time
 ``table_dtype`` rounds, on read inside the lookup kernel, the levels the
 JAX package serves from those tables (``GridEncoding.served_levels``).
 
+Scale-out: pass a ``DeviceMesh`` (``parallel.make_mesh``) to serve over its
+``axis_name`` dimension, as the JAX package serves over a mesh: params are
+replicated, every rank takes the global batch or raster, evaluates its
+contiguous rows (a raster's with the whole raster's levels, as
+``apply_raster`` reads them) and returns the whole (B, n_output_dims)
+output, the ranks' rows gathered. B must divide by the mesh size.
+
 Usage::
 
     server = trainer.freeze_serving()
     y = server(x)                  # arbitrary (B, d) batches
     img = server.raster((w, h))    # full-raster evaluation
+
+    server = trainer.freeze_serving(mesh=parallel.make_mesh())
+    y = server(x)                  # every rank: the whole output
 """
 
 from __future__ import annotations
@@ -21,9 +31,11 @@ from typing import Optional, Tuple, Union
 import numpy as np
 import torch
 
+from .encodings.grid import data_shards
+
 
 class FrozenServer:
-    def __init__(self, trainer, mesh=None, table_dtype: Optional[str] = None):
+    def __init__(self, trainer, mesh=None, axis_name: str = "data", table_dtype: Optional[str] = None):
         """``table_dtype`` (serve-time only): round the table reads of the
         levels the JAX package stores in its prebuilt quad tables to this
         dtype (``"float16"`` or ``"bfloat16"``), after the encoding's own
@@ -31,11 +43,14 @@ class FrozenServer:
         Linear interpolation, the levels with affine strides, and on a
         stratified raster not the raster-stride levels of its static path
         (``GridEncoding.served_levels``). The other levels read as the
-        encoding's ``table_dtype`` says. Training state is untouched."""
+        encoding's ``table_dtype`` says. Training state is untouched.
+        ``mesh``: a ``DeviceMesh`` whose ``axis_name`` dimension shares
+        out the rows (see the module's head)."""
+        self._group, self._n, self._index = None, 1, 0
         if mesh is not None:
-            raise NotImplementedError(
-                "FrozenServer: multi-GPU serving is not ported yet (ROADMAP.md, Queue 1: parallel)"
-            )
+            from .parallel.collectives import axis
+
+            self._group, self._n, self._index = axis(mesh, axis_name)
         if table_dtype not in (None, "float32", "float16", "bfloat16"):
             raise ValueError(f"invalid table_dtype {table_dtype!r}")
         self.model = trainer.model
@@ -45,6 +60,18 @@ class FrozenServer:
 
     def _kw(self):
         return {"table_dtype": self.table_dtype} if self.table_dtype is not None else {}
+
+    def _rows(self, n: int, what: str):
+        if n % self._n:
+            raise ValueError(f"{what} size {n} must be divisible by the serving mesh size {self._n}")
+        from .parallel.collectives import rows_of
+
+        return rows_of(self._index, self._n, n)
+
+    def _gathered(self, local: torch.Tensor) -> torch.Tensor:
+        from .parallel.collectives import gather_rows
+
+        return gather_rows(local, self._group, self._n)
 
     @torch.no_grad()
     def __call__(self, x) -> torch.Tensor:
@@ -58,13 +85,21 @@ class FrozenServer:
         # FrozenServer passes stratified=False for them).
         if getattr(getattr(self.model, "encoding", None), "gather_strategy", None) == "stratified":
             kw["stratified"] = False
-        out = self.model.apply(self._params, x, **kw)
-        return out[:, : self.n_output_dims].to(torch.float32)
+        if self._n > 1:
+            x = x[self._rows(x.shape[0], "batch")]
+        with data_shards(self._n):
+            out = self.model.apply(self._params, x, **kw)
+        return self._gathered(out[:, : self.n_output_dims].to(torch.float32))
 
     @torch.no_grad()
     def raster(self, side: Union[int, Tuple[int, ...]]) -> torch.Tensor:
         """Serve the full tile-center raster; returns (prod(sides),
         n_output_dims) fp32."""
         side = int(side) if np.isscalar(side) else tuple(int(s) for s in side)
-        out = self.model.apply_raster(self._params, side, **self._kw())
-        return out[:, : self.n_output_dims].to(torch.float32)
+        kw = self._kw()
+        if self._n > 1:
+            n_pts = side ** self.model.n_input_dims if isinstance(side, int) else int(np.prod(side))
+            rows = self._rows(n_pts, "raster")
+            kw["rows"] = (rows.start, rows.stop)
+        out = self.model.apply_raster(self._params, side, **kw)
+        return self._gathered(out[:, : self.n_output_dims].to(torch.float32))

@@ -178,14 +178,22 @@ class Trainer:
         u = torch.rand((batch, width), generator=self.perturbation_generator, device=self.device) + 1e-9
         return torch.clamp_min(u, 1e-9)
 
-    def _perturbed(self, out: torch.Tensor) -> torch.Tensor:
+    def _perturbed(self, out: torch.Tensor, shard=None) -> torch.Tensor:
         """The output the loss sees: with ``perturbation_sigma``, plus
         sigma * sqrt(3) / pi * log(u / (1 - u)) in fp32, back in the
         output's dtype (tcnn_tpu/trainer.py:243-266, 220-224); the loss's
-        gradient with respect to it is taken as the output's."""
+        gradient with respect to it is taken as the output's. ``shard`` =
+        (index, count): ``out`` is rows index * B .. (index + 1) * B of a
+        global batch of count * B, whose uniforms are drawn and cut to
+        them (data parallelism: every rank's generator stays in lockstep)."""
         if self.perturbation_sigma is None:
             return out
-        u = self.perturbation_uniforms(out.shape[0], out.shape[1])
+        if shard is None:
+            u = self.perturbation_uniforms(out.shape[0], out.shape[1])
+        else:
+            index, count = shard
+            b = out.shape[0]
+            u = self.perturbation_uniforms(b * count, out.shape[1])[index * b : (index + 1) * b]
         noise = float(self.perturbation_sigma * 0.551328895421792050) * torch.log(u / (1.0 - u))
         return (out.to(torch.float32) + noise).to(out.dtype)
 
@@ -214,15 +222,20 @@ class Trainer:
             if new_params is not params:
                 params.copy_(new_params)
 
-    def _step(self, inputs, targets, data_pdf, plain: bool) -> torch.Tensor:
+    def _loss_gradient(self, targets, data_pdf, shard=None):
+        """The output gradient of a step, ``out -> (dL_doutput, loss sum)``,
+        for ``_backward`` (``shard``: see ``_perturbed``)."""
         y = torch.as_tensor(targets, dtype=torch.float32, device=self.device)
         pdf = None if data_pdf is None else torch.as_tensor(data_pdf, dtype=torch.float32, device=self.device)
 
         def loss_gradient(out):
-            loss_sum, dL_dy = self.loss.evaluate_sum_and_gradient(self.loss_scale, self._perturbed(out), y, pdf)
+            loss_sum, dL_dy = self.loss.evaluate_sum_and_gradient(self.loss_scale, self._perturbed(out, shard), y, pdf)
             return dL_dy, loss_sum
 
-        grads, loss_sum = self._backward(inputs, plain, loss_gradient)
+        return loss_gradient
+
+    def _step(self, inputs, targets, data_pdf, plain: bool) -> torch.Tensor:
+        grads, loss_sum = self._backward(inputs, plain, self._loss_gradient(targets, data_pdf))
         self._optimizer_step(grads, plain)
         return loss_sum
 
@@ -411,12 +424,13 @@ class Trainer:
         out = self.model.apply_raster(self.inference_params(), side)
         return out[:, : self.model.n_output_dims].to(torch.float32)
 
-    def freeze_serving(self, mesh=None, table_dtype: Optional[str] = None):
+    def freeze_serving(self, mesh=None, axis_name: str = "data", table_dtype: Optional[str] = None):
         """Production serving handle over a snapshot of the inference params
-        (see ``serving.FrozenServer``)."""
+        (see ``serving.FrozenServer``); with a ``mesh``, every rank serves
+        its rows of each batch or raster and returns the whole output."""
         from .serving import FrozenServer
 
-        return FrozenServer(self, mesh=mesh, table_dtype=table_dtype)
+        return FrozenServer(self, mesh=mesh, axis_name=axis_name, table_dtype=table_dtype)
 
     # -- serialization (reference: trainer.h:442-482) -------------------------
     def serialize(self, serialize_optimizer: bool = False) -> Dict:

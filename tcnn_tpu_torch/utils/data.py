@@ -7,7 +7,12 @@ samples/mlp_learning_an_image.cu:259-307). A native C++ worker thread
 (``runtime/host_sampler.cpp``) fills a ring of buffers, so that producing a
 batch overlaps the device's steps; a numpy fallback keeps the API where no
 compiler is at hand. For the same seed both paths give the JAX package's
-batches bit for bit (its native and its numpy path respectively);
+batches bit for bit (its native and its numpy path respectively), but for
+one repair: every stratified sample lies strictly inside its raster tile,
+``floor(x * strata) == tile`` in exact arithmetic, where the JAX package's
+fp32 ``(tile + u) / strata`` can round onto the tile's upper edge (``tile
++ u`` rounds up to ``tile + 1`` for u within an ulp of ``tile`` below 1);
+such a sample moves to the nearest fp32 value inside the tile.
 ``sampler.native`` says which one runs.
 
 For data that fits in device memory, drawing batches on the device is
@@ -24,6 +29,22 @@ import numpy as np
 
 from ..runtime import native
 from .sampling import strata_of
+
+
+def _in_tiles(v: np.ndarray, tiles: np.ndarray, strata: int) -> np.ndarray:
+    """The fp32 stratified coordinates ``v`` of raster tiles ``tiles``, each
+    moved by single fp32 steps to the nearest value in [tile, tile + 1) /
+    strata where it lies outside (runtime/host_sampler.cpp:in_tile does the
+    same); the product of an fp32 value and ``strata`` is exact in float64."""
+    v = np.asarray(v, np.float32).copy()
+    tiles = np.asarray(tiles, np.float64)
+    while True:
+        scaled = v.astype(np.float64) * strata
+        up, down = scaled >= tiles + 1, scaled < tiles
+        if not (up.any() or down.any()):
+            return v
+        v[up] = np.nextafter(v[up], np.float32(0))
+        v[down] = np.nextafter(v[down], np.float32(1))
 
 
 class HostImageSampler:
@@ -83,7 +104,7 @@ class HostImageSampler:
         if self.strata:
             ids = np.arange(self.batch)
             base = np.stack([ids % self.strata, ids // self.strata], axis=1).astype(np.float32)
-            xy[:] = (base + jitter) / self.strata
+            xy[:] = _in_tiles((base + jitter) / self.strata, base, self.strata)
         else:
             xy[:] = jitter
         px = np.minimum((xy[:, 0] * self.w).astype(np.int64), self.w - 1)

@@ -110,14 +110,16 @@ def raster_centers(side, dims: int = 2) -> np.ndarray:
     return np.stack(cols, axis=1)
 
 
-def raster_centers_torch(side, dims: int, device) -> torch.Tensor:
+def raster_centers_torch(side, dims: int, device, rows=None) -> torch.Tensor:
     """``raster_centers`` built on ``device``: each dim's ``side`` tile
     centers are computed in numpy (bit-identical to ``raster_centers``) and
     expanded on the device by index, so a 1024^2 raster never crosses the
     host-device link. (A torch division by a scalar may be evaluated as a
-    multiply by the reciprocal on CUDA, which is not bit-identical.)"""
+    multiply by the reciprocal on CUDA, which is not bit-identical.)
+    ``rows`` = (start, stop): only those rows of the raster."""
     sides = _sides_of(side, dims)
-    ids = torch.arange(int(np.prod(sides)), dtype=torch.int64, device=device)
+    start, stop = (0, int(np.prod(sides))) if rows is None else (int(rows[0]), int(rows[1]))
+    ids = torch.arange(start, stop, dtype=torch.int64, device=device)
     cols = []
     stride = 1
     for d in range(dims):

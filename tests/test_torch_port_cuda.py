@@ -1688,3 +1688,70 @@ def test_host_sampler_builds_natively(dev):
     py = np.minimum((xy[:, 1] * 64).astype(np.int64), 63)
     np.testing.assert_array_equal(rgb, image[py, px])
     assert is_stratified(xy)
+
+
+# -- the windowed kernels of a row-sharded table (csrc/grid_sharded.cu) ------
+
+_WINDOWED_CASES = {
+    "2d-linear": (2, {"otype": "HashGrid", "n_levels": 16, "n_features_per_level": 2, "log2_hashmap_size": 15,
+                      "base_resolution": 16, "per_level_scale": 1.5, "hash": "CoherentAdditive"}),
+    "3d-smoothstep-prime": (3, {"otype": "HashGrid", "n_levels": 8, "n_features_per_level": 2,
+                                "log2_hashmap_size": 14, "base_resolution": 8, "per_level_scale": 1.7,
+                                "interpolation": "Smoothstep", "hash": "Prime"}),
+    "2d-nearest-f4": (2, {"otype": "HashGrid", "n_levels": 6, "n_features_per_level": 4, "log2_hashmap_size": 12,
+                          "base_resolution": 4, "per_level_scale": 1.9, "interpolation": "Nearest"}),
+    "3d-rng": (3, {"otype": "HashGrid", "n_levels": 6, "n_features_per_level": 2, "log2_hashmap_size": 12,
+                   "base_resolution": 8, "per_level_scale": 1.5, "hash": "Rng"}),
+    "1d": (1, {"otype": "HashGrid", "n_levels": 4, "n_features_per_level": 2, "log2_hashmap_size": 10,
+               "base_resolution": 8, "per_level_scale": 2.0}),
+}
+
+
+@pytest.mark.parametrize("n_shards", [2, 3])
+@pytest.mark.parametrize("case", list(_WINDOWED_CASES))
+def test_windowed_kernels_match_plain(dev, case, n_shards):
+    """Every shard's windowed lookup (fp32: max |diff| <= 1e-5 of max
+    |plain|, the same products in the same corner order) and windowed table
+    gradient (fp32 atomics: 1e-5 of max |plain|) against their plain
+    versions on the card, each launch moving its count."""
+    from tcnn_tpu_torch.encodings.grid import _INTERP_CODES
+    from tcnn_tpu_torch.ops.scatter_rows import ACC_F32, CONTRIB_NONE
+    from tcnn_tpu_torch.parallel import TableParallelGrid
+
+    n_dims, cfg = _WINDOWED_CASES[case]
+    enc = create_encoding(n_dims, cfg, alignment=16)
+    F, L = enc.n_features_per_level, enc.n_levels
+    interp = _INTERP_CODES[enc.interpolation_type]
+    rng = np.random.default_rng(n_shards)
+    x = torch.from_numpy(rng.uniform(0, 1, (4099, n_dims)).astype(np.float32)).to(dev)
+    params = rng.uniform(-1, 1, enc.n_params).astype(np.float32)
+    dy = torch.from_numpy(rng.normal(0, 1, (4099, L * F)).astype(np.float32)).to(dev)
+    classes = torch.tensor([[CONTRIB_NONE, ACC_F32]] * L, dtype=torch.int32, device=dev)
+    for shard in range(n_shards):
+        tpg = TableParallelGrid(enc, None, shard=(shard, n_shards))
+        levels, windows = tpg._tables_on(dev)
+        local = torch.from_numpy(tpg.local_params(params)).to(dev)
+        n0 = grid_encode.WINDOWED_LAUNCHES
+        r0 = grid_encode.BWD_ROUTE_LAUNCHES.get(grid_encode.WINDOWED_BWD_ROUTE, 0)
+        got = grid_encode.grid_encode_windowed(x, local, levels, windows, F, interp)
+        assert grid_encode.WINDOWED_LAUNCHES == n0 + 1
+        want = grid_encode.grid_encode_plain(x, local, levels, F, L * F, interp, torch.float32, windows)
+        assert float((got - want).abs().max()) <= 1e-5 * float(want.abs().max())
+        for dy_ in (dy, dy.bfloat16()):
+            g = grid_encode.grid_backward_windowed(x, dy_, levels, windows, F, interp)
+            gp = grid_encode.grid_backward_plain(x, dy_, levels, F, interp, classes, window=windows)
+            assert g.shape == gp.shape == (tpg.local_n_params,)
+            assert float((g - gp).abs().max()) <= 1e-5 * float(gp.abs().max())
+        assert grid_encode.BWD_ROUTE_LAUNCHES[grid_encode.WINDOWED_BWD_ROUTE] == r0 + 2
+
+
+def test_windowed_kernels_need_the_windows_after_the_table(dev):
+    from tcnn_tpu_torch.parallel import TableParallelGrid
+
+    enc = create_encoding(2, _WINDOWED_CASES["2d-linear"][1], alignment=16)
+    tpg = TableParallelGrid(enc, None, shard=(0, 2))
+    levels, windows = tpg._tables_on(dev)
+    x = torch.rand((64, 2), device=dev)
+    local = torch.zeros(tpg.local_n_params, device=dev)
+    with pytest.raises(ValueError, match="follow the level table"):
+        grid_encode.grid_encode_windowed(x, local, levels, windows.clone(), 2, grid_encode.INTERP_LINEAR)

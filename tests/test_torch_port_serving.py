@@ -164,7 +164,7 @@ def test_frozen_server_is_a_snapshot(pair):
         assert torch.equal(server(x), before)
     finally:
         tm.trainer.params = saved
-    with pytest.raises(NotImplementedError, match="multi-GPU"):
+    with pytest.raises(TypeError, match="DeviceMesh"):
         tm.trainer.freeze_serving(mesh=object())
 
 
