@@ -2074,7 +2074,8 @@ def _read_counts(table):
 def phase_probes(card):
     """The row gather and scatter probes: kernel against plain at the
     probes' default shapes, then the path (benchmarks.probe_rows with --sweep)
-    with every count at 0, then the three probe kernels' JSON times."""
+    with every count at 0, then the three probe kernels' JSON times, and
+    P11's and P13's device times under the profiler beside their bounds."""
     import torch
 
     from tcnn_tpu_torch.benchmarks import probe_rows as drv
@@ -2103,6 +2104,10 @@ def phase_probes(card):
     w = torch.randn((8, pr.DOT_COLS), generator=gen, device=dev)
     got, ref = pr.probe_gather_dot(table, idx, w), pr.probe_gather_dot_plain(table, idx, w)
     check(float((got - ref).abs().max()) <= drv.DOT_TOL * float(ref.abs().max()), "probe_gather_dot: outside rows")
+    for t, flags in ((table, 0), (table.t().contiguous(), pr.FLAG_TRANSPOSED)):
+        check(torch.equal(pr.probe_gather(t, idx, mode=pr.MODE_TILE_SUM, flags=flags),
+                          pr.probe_gather_plain(t, idx, pr.MODE_TILE_SUM, flags=flags)),
+              f"TILE_SUM flags {flags}: outside rows")
     for acc in (pr.ACC_GLOBAL, pr.ACC_SHARED):
         got, ref = pr.probe_scatter(idx, rows, 4096, pr.OP_ADD, acc), pr.probe_scatter_plain(idx, rows, 4096)
         S_abs = pr.probe_scatter_plain(idx, rows.abs(), 4096)
@@ -2166,6 +2171,31 @@ def phase_probes(card):
             f"{rec['plain_ms']:.4f} ms, bound {rec['bound_ms']:.4f} ms ({rec['bound_by']})"
             + ("" if rec["library_ms"] is None else f", {rec['library']} {rec['library_ms']:.4f} ms")
             + " (CUDA events, median)")
+    # P11 and P13 at the probe run's shapes: each kernel's own device time
+    # under torch.profiler beside its bounds (P13: the bytes and the order
+    # bound of its in-order add chains at the SM clock nvidia-smi reads
+    # while it runs), and the kernels' registers and spills.
+    from tcnn_tpu_torch.benchmarks import probe_times
+
+    pt = probe_times.times(calls=100, reps=20)
+    pt.pop("outputs")
+    for p, rec in (("P11", pt["P11"]), ("P13", pt["P13"])):
+        log(f"probe device [{card}]: {p} {rec['label']}: kernel {rec['kernel_ms']:.4f} ms under torch.profiler "
+            f"(mean of the {rec['profiled_calls']} of 100 launches it recorded; the call's device activities {rec['call_device_ms']:.4f}; events behind a spin {rec['event_ms']:.4f}, "
+            f"their floor {pt['event_floor_ms']:.4f}); call {rec['call_ms']:.4f} ms; bound {rec['bound_ms']:.4f} ms "
+            f"({rec['bound_by']}), {rec['bound_share']:.3f} of it"
+            + (f"; order bound {rec['order_bound_ms']:.4f} ms ({pr.TILE} dependent fp32 adds x "
+               f"{probe_times.FADD_CYCLES} cycles at {rec['sm_clock_mhz']:.0f} MHz, clocks.sm while it ran), "
+               f"{rec['order_bound_ms'] / rec['kernel_ms']:.3f} of it" if p == "P13" else
+               f"; index_select + matmul {rec['library_device_ms']:.4f} ms of device time (two calls)"))
+    regs = probe_times.ptxas()
+    for name, (n_regs, spill_st, spill_ld) in regs.items():
+        if "gather_dot" in name or "gather_tile_sum" in name:
+            log(f"probe kernel: {name}: {n_regs} registers, spill stores {spill_st} B, spill loads {spill_ld} B")
+            check(spill_st == 0 and spill_ld == 0, f"probes: {name} spills")
+    times["probe_gather_dot"]["device_ms"] = pt["P11"]["kernel_ms"]
+    times["probe_gather"]["tile_sum"] = {k: pt["P13"][k] for k in (
+        "kernel_ms", "call_ms", "bound_ms", "bound_by", "order_bound_ms", "sm_clock_mhz", "max_abs_err")}
     log(f"probes: phase {time.perf_counter() - t_phase:.1f} s")
     return {"launches": launches, "errs": errs, "times": times, "records": result["probes"]}
 
@@ -3909,8 +3939,12 @@ def main() -> int:
     for name, replaces in (("probe_gather", "benchmarks/probe_mosaic_gather.py:63"),
                            ("probe_scatter", "benchmarks/probe_mosaic_gather.py:121"),
                            ("probe_gather_dot", "benchmarks/probe_r5_pallas_gather2.py:348")):
-        kernels.append(entry(name, "probe_rows.cu", replaces, probes["launches"][name], probes["errs"][name], None,
-                             "probes", probes["times"][name]))
+        row = entry(name, "probe_rows.cu", replaces, probes["launches"][name], probes["errs"][name], None, "probes",
+                    probes["times"][name])
+        for extra in ("device_ms", "tile_sum"):
+            if extra in probes["times"][name]:
+                row[extra] = probes["times"][name][extra]
+        kernels.append(row)
     # The sample paths' launches join each kernel's own path's.
     for row in kernels:
         if row["name"] in SAMPLE_COUNTERS:

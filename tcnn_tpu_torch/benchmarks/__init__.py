@@ -7,8 +7,10 @@ image-fit protocols of the repo's ``bench.py``), ``bench_mlp``,
 path's shapes, against the earlier lookup kernel and ``index_add_``),
 ``grid_second_order_times`` (the grid's input gradient and double backward
 at the SDF path's shapes, and the SDF step); ``ffmlp_adam_times``,
-``grid_ab_times`` and ``sh_times`` (the spherical-harmonics kernels' device
-and call times at the NeRF path's shapes) time kernels on the card only.
+``grid_ab_times``, ``sh_times`` (the spherical-harmonics kernels' device
+and call times at the NeRF path's shapes) and ``probe_times`` (the
+gather-dot and the in-order tile sum at ``probe_rows``' shapes) time
+kernels on the card only.
 They run on the CUDA card (``--device cuda``, the default) and fail without
 one; ``--device cpu`` (where an entry point takes it) runs the kernels'
 plain versions, for tests only: its times are the CPU's. Nothing here runs at

@@ -43,8 +43,17 @@
 //     gathers from it; ASYNC copies in_flight rows a block with cp.async
 //     into a shared ring, waits, then stores (the TPU probe's "start G
 //     DMAs, wait G, store"). Both store VEC-wide.
-//   - TILE_SUM: one block a tile, the tile's rows into shared memory, then
-//     an in-order sum per feature (bit-exact to the probe's loop).
+//   - TILE_SUM (gather_tile_sum_chunked): one block a tile, its summing
+//     warp beside kSumChunks chunks of kChunkRows gathering threads. The
+//     sum of a feature over a tile is one chain of 2048 dependent fp32 adds
+//     in index order (bit-exact to the probe's loop), so the chain's
+//     latency, not the bytes, bounds the kernel. Each gathering thread
+//     issues its row of every chunk at once (float4 / float2 loads where F
+//     and the alignment allow), writes each chunk into a feature-major,
+//     padded shared copy and arrives on that chunk's mbarrier; lane f of
+//     the summing warp starts on chunk 0 while later chunks are still in
+//     flight, and loads 16 operands as float4s ahead of their adds, so a
+//     step costs one dependent add. F = 1, 2, 4, 8 at compile time.
 // - tcnn_probe_scatter: ADD with R / VEC threads a row, each one VEC-wide
 //   row load and one vector atomicAdd (global memory, sm_90), 4 rows a
 //   thread in flight; or into private per-block copies of the whole table
@@ -53,8 +62,18 @@
 //   an eighth of the adds (the plan's choice; otherwise none).
 //   STORE_LAST claims each slot for the largest row index (atomicMax) and
 //   then writes the winners' rows VEC-wide.
-// - tcnn_probe_gather_dot: one thread per output element, an in-order
-//   chain of fmaf over the F gathered values (F = 8: no tensor cores).
+// - tcnn_probe_gather_dot (gather_dot_warps): out = table[idx] @ w, w (F,
+//   128). The 2^24 output floats at the probe's shape (64 MiB) bound it:
+//   the product is 2 F flops a float. Persistent blocks, a warp takes 32
+//   samples at a time: one coalesced index load a lane (the next group's
+//   loaded ahead), shared by __shfl_sync; lane l owns columns 4l .. 4l + 3
+//   and keeps their 4 F values of w in registers; each sample's row comes
+//   as F / 4 float4 broadcast loads, several samples' rows in flight
+//   before the first multiply-add; each column is the in-order fmaf chain
+//   over f, so the bits do not depend on the launch layout; a lane
+//   writes one float4 with a streaming store, so a warp writes a sample's
+//   512-byte output row in one instruction. fp32 FMA, not tensor cores:
+//   the probe's tolerance rules out TF32. F = 1, 2, 4, 8 at compile time.
 //
 // The output of a scatter and STORE_LAST's winners are set here
 // (cudaMemsetAsync: zeros, and -1 as all-ones bytes), not by the caller.
@@ -73,9 +92,10 @@ enum Op { kAdd = 0, kStoreLast = 1 };
 // The plans' int32 arrays (ops/probe_rows.py: GatherPlan.args,
 // ScatterPlan.args), entry by entry.
 enum GatherArg {
-  gB, gS, gF, gMode, gSource, gFlags, gTileShift, gVec, gRows, gPerRow, gPerRowShift, gThreads, gGrid, gSmem
+  gB, gS, gF, gMode, gSource, gFlags, gTileShift, gVec, gRows, gPerRow, gPerRowShift, gThreads, gGrid, gSmem, gChunks
 };
 enum ScatterArg { sN, sS, sR, sOp, sPrivate, sVec, sPerRow, sPerRowShift, sThreads, sGrid, sSmem };
+enum DotArg { dB, dS, dF, dVec, dInFlight, dThreads, dGrid };
 
 constexpr int kThreads = 256;
 // Scatter items a thread has in flight: 4, or 2 in the private blocks of
@@ -355,28 +375,146 @@ __global__ void gather_rows_async(const float* __restrict__ table, const int32_t
   }
 }
 
-// TILE_SUM: one block per tile; its threads gather the tile's rows into
-// shared memory (a row a thread), then thread f sums feature f over the
-// tile in order (the probe's loop order, so the sum is bit-exact against
-// it) into row 8g.
-__global__ void gather_tile_sum(const float* __restrict__ table, const int32_t* __restrict__ idx,
-                                float* __restrict__ out, uint32_t S, int F, int flags, int tile) {
-  extern __shared__ __align__(16) float rows[];
-  const uint32_t g = blockIdx.x;
-  const int32_t* ix = idx + (size_t)g * tile;
-  for (int j = threadIdx.x; j < tile; j += blockDim.x) {
-    const uint32_t r = (uint32_t)__ldg(ix + j);
-    for (int f = 0; f < F; ++f) {
-      float x = 0.0f;
-      if (r < S) x = (flags & kTransposed) ? __ldg(table + (size_t)f * S + r) : __ldg(table + (size_t)r * F + f);
-      rows[j * F + f] = x;
-    }
+// Row r (< S) of the table into v: an (S, F) table's row as VEC-wide
+// loads (VEC = 4 or 2 only where it divides FC), a transposed (F, S)
+// table's element by element.
+template <int FC>
+__device__ __forceinline__ void load_row(const float* __restrict__ table, uint32_t r, uint32_t S, int vec,
+                                         bool transposed, float* v) {
+  if (transposed) {
+#pragma unroll
+    for (int f = 0; f < FC; ++f) v[f] = __ldg(table + (size_t)f * S + r);
+  } else if (FC % 4 == 0 && vec == 4) {
+#pragma unroll
+    for (int f = 0; f < FC; f += 4) load_vec<4>(table + (size_t)r * FC + f, v + f);
+  } else if (FC % 2 == 0 && vec >= 2) {
+#pragma unroll
+    for (int f = 0; f < FC; f += 2) load_vec<2>(table + (size_t)r * FC + f, v + f);
+  } else {
+#pragma unroll
+    for (int f = 0; f < FC; ++f) v[f] = __ldg(table + (size_t)r * FC + f);
   }
+}
+
+__device__ __forceinline__ uint32_t shared_address(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+// mbarrier of a block: init with the arrivals a phase takes, arrive
+// (release: the arriving thread's shared stores are visible to a waiter),
+// and wait for phase `parity` to complete (acquire).
+__device__ __forceinline__ void mbar_init(uint64_t* bar, unsigned count) {
+  asm volatile("mbarrier.init.shared.b64 [%0], %1;\n" ::"r"(shared_address(bar)), "r"(count) : "memory");
+}
+
+__device__ __forceinline__ void mbar_arrive(uint64_t* bar) {
+  uint64_t state;
+  asm volatile("mbarrier.arrive.shared.b64 %0, [%1];\n" : "=l"(state) : "r"(shared_address(bar)) : "memory");
+  (void)state;
+}
+
+__device__ __forceinline__ void mbar_wait(uint64_t* bar, unsigned parity) {
+  uint32_t done;
+  do {
+    asm volatile(
+        "{\n"
+        ".reg .pred p;\n"
+        "mbarrier.try_wait.parity.shared.b64 p, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, p;\n"
+        "}\n"
+        : "=r"(done)
+        : "r"(shared_address(bar)), "r"(parity)
+        : "memory");
+  } while (!done);
+}
+
+// TILE_SUM's layout of a tile (ops/probe_rows.py mirrors it:
+// TILE_SUM_CHUNKS, TILE_SUM_PAD, TILE_SUM_THREADS).
+constexpr int kTile = 2048;
+constexpr int kSumChunks = 8;
+constexpr int kChunkRows = kTile / kSumChunks;  // one row a gathering thread a chunk
+constexpr int kSumThreads = 32 + kChunkRows;    // the summing warp, then the gatherers
+constexpr int kSumLd = kTile + 4;  // floats a feature in shared memory: float4 reads of 8 features hit 32 banks
+constexpr int kSumBatch = 16;      // operands a summing lane loads ahead of their adds
+
+// TILE_SUM: out[8 g + 0, f] = the sum over the tile's rows j in order of
+// table[idx[g * kTile + j], f] (zero for an index outside [0, S)); rows 1-7
+// of the 8-row block zero. Block g: warp 0 sums (lane f, feature f < F),
+// threads 32 + t gather row c * kChunkRows + t of every chunk c into
+// cols[f * kSumLd + j] and arrive on ready[c]. FC > 0: F = FC at compile
+// time, every chunk's row loaded before the first is stored; FC = 0: a
+// run-time F (at most 28: the shared copy fits), chunk by chunk.
+template <int FC>
+__global__ void __launch_bounds__(kSumThreads, 1)
+    gather_tile_sum_chunked(const float* __restrict__ table, const int32_t* __restrict__ idx,
+                            float* __restrict__ out, uint32_t S, int F_rt, int vec, int flags) {
+  extern __shared__ __align__(16) float cols[];
+  __shared__ uint64_t ready[kSumChunks];
+  const int F = FC > 0 ? FC : F_rt;
+  const uint32_t g = blockIdx.x;
+  if (threadIdx.x < kSumChunks) mbar_init(&ready[threadIdx.x], kChunkRows);
   __syncthreads();
-  for (int f = threadIdx.x; f < F; f += blockDim.x) {
+  if (threadIdx.x >= 32) {
+    const int t = threadIdx.x - 32;
+    const bool transposed = flags & kTransposed;
+    uint32_t r[kSumChunks];
+#pragma unroll
+    for (int c = 0; c < kSumChunks; ++c) r[c] = (uint32_t)__ldg(idx + (size_t)g * kTile + c * kChunkRows + t);
+    if constexpr (FC > 0) {
+      float v[kSumChunks * FC];
+#pragma unroll
+      for (int c = 0; c < kSumChunks; ++c) {
+        if (r[c] < S) {
+          load_row<FC>(table, r[c], S, vec, transposed, v + c * FC);
+        } else {
+#pragma unroll
+          for (int f = 0; f < FC; ++f) v[c * FC + f] = 0.0f;
+        }
+      }
+#pragma unroll
+      for (int c = 0; c < kSumChunks; ++c) {
+#pragma unroll
+        for (int f = 0; f < FC; ++f) cols[f * kSumLd + c * kChunkRows + t] = v[c * FC + f];
+        mbar_arrive(&ready[c]);
+      }
+    } else {
+      for (int c = 0; c < kSumChunks; ++c) {
+        for (int f = 0; f < F; ++f) {
+          float x = 0.0f;
+          if (r[c] < S) x = transposed ? __ldg(table + (size_t)f * S + r[c]) : __ldg(table + (size_t)r[c] * F + f);
+          cols[f * kSumLd + c * kChunkRows + t] = x;
+        }
+        mbar_arrive(&ready[c]);
+      }
+    }
+    if (t < 7 * F) out[((size_t)g * 8 + 1) * F + t] = 0.0f;
+  } else if ((int)threadIdx.x < F) {
+    const float4* col = reinterpret_cast<const float4*>(cols + threadIdx.x * kSumLd);
     float acc = 0.0f;
-    for (int j = 0; j < tile; ++j) acc = __fadd_rn(acc, rows[j * F + f]);
-    out[(size_t)g * 8 * F + f] = maybe_round(acc, flags);
+    for (int c = 0; c < kSumChunks; ++c) {
+      mbar_wait(&ready[c], 0);
+      const float4* chunk = col + c * (kChunkRows / 4);
+      float4 a[kSumBatch / 4], b[kSumBatch / 4];
+#pragma unroll
+      for (int k = 0; k < kSumBatch / 4; ++k) a[k] = chunk[k];
+#pragma unroll 2
+      for (int j = 0; j < kChunkRows / 4; j += kSumBatch / 4) {
+        if (j + kSumBatch / 4 < kChunkRows / 4) {
+#pragma unroll
+          for (int k = 0; k < kSumBatch / 4; ++k) b[k] = chunk[j + kSumBatch / 4 + k];
+        }
+#pragma unroll
+        for (int k = 0; k < kSumBatch / 4; ++k) {
+          acc = __fadd_rn(acc, a[k].x);
+          acc = __fadd_rn(acc, a[k].y);
+          acc = __fadd_rn(acc, a[k].z);
+          acc = __fadd_rn(acc, a[k].w);
+        }
+#pragma unroll
+        for (int k = 0; k < kSumBatch / 4; ++k) a[k] = b[k];
+      }
+    }
+    out[(size_t)g * 8 * F + threadIdx.x] = maybe_round(acc, flags);
   }
 }
 
@@ -471,20 +609,104 @@ __global__ void __launch_bounds__(kThreads)
 }
 
 constexpr int kDotCols = 128;
+constexpr int kDotThreads = 256;
 
-__global__ void gather_dot(const float* __restrict__ table, const int32_t* __restrict__ idx,
-                           const float* __restrict__ w, float* __restrict__ out, int64_t B, int64_t S, int F) {
-  const int64_t i = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
-  if (i >= B * kDotCols) return;
-  const int64_t b = i / kDotCols;
-  const int c = (int)(i % kDotCols);
-  const int32_t r = __ldg(idx + b);
-  float acc = 0.0f;
-  if (r >= 0 && r < S) {
-    const float* row = table + (int64_t)r * F;
-    for (int f = 0; f < F; ++f) acc = fmaf(__ldg(row + f), __ldg(w + f * kDotCols + c), acc);
+// Samples whose rows a warp of gather_dot_warps has in flight: 64 row
+// values (FC = 8: 8 samples, 4: 16), at most the 32 of a group; 4 at a
+// run-time F (ops/probe_rows.py: dot_in_flight mirrors it).
+template <int FC>
+constexpr int kDotInFlight = FC == 0 ? 4 : (64 / FC < 32 ? 64 / FC : 32);
+
+// Columns c0 .. c0 + 3 of output row b as one streaming float4 store
+// (evict-first: the output is written once and not read back), zeros where
+// the row's index lies outside the table; nothing where b is past the batch.
+__device__ __forceinline__ void store_dot_row(float* __restrict__ out, uint32_t b, int c0, const float* a, bool in_batch,
+                                              bool in_table) {
+  if (!in_batch) return;
+  const float4 o = in_table ? make_float4(a[0], a[1], a[2], a[3]) : make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+  __stcs(reinterpret_cast<float4*>(out + (size_t)b * kDotCols + c0), o);
+}
+
+// out[b, c] = sum over f in order of table[idx[b], f] * w[f, c] (fmaf; zero
+// for an index outside [0, S)). A warp takes groups of 32 samples (grid-
+// stride); lane l loads the group's index l and owns columns 4l .. 4l + 3.
+template <int FC>
+__global__ void __launch_bounds__(kDotThreads, 2)
+    gather_dot_warps(const float* __restrict__ table, const int32_t* __restrict__ idx, const float* __restrict__ w,
+                     float* __restrict__ out, uint32_t B, uint32_t S, int F_rt, int vec) {
+  constexpr int U = kDotInFlight<FC>;
+  constexpr int NF = FC > 0 ? FC : 1;
+  const int F = FC > 0 ? FC : F_rt;
+  const uint32_t lane = threadIdx.x & 31u;
+  const int c0 = 4 * (int)lane;
+  float wr[4 * NF];
+  if constexpr (FC > 0) {
+#pragma unroll
+    for (int f = 0; f < FC; ++f) {
+#pragma unroll
+      for (int k = 0; k < 4; ++k) wr[4 * f + k] = __ldg(w + f * kDotCols + c0 + k);
+    }
   }
-  out[i] = acc;
+  const uint32_t groups = (B + 31u) / 32u;
+  const uint32_t n_warps = (gridDim.x * blockDim.x) >> 5;
+  uint32_t g = (blockIdx.x * blockDim.x + threadIdx.x) >> 5;
+  uint32_t r_next = g < groups && g * 32u + lane < B ? (uint32_t)__ldg(idx + g * 32u + lane) : 0xffffffffu;
+  for (; g < groups; g += n_warps) {
+    const uint32_t r_own = r_next;
+    const uint32_t gn = g + n_warps;
+    r_next = gn < groups && gn * 32u + lane < B ? (uint32_t)__ldg(idx + gn * 32u + lane) : 0xffffffffu;
+    const uint32_t b0 = g * 32u;
+    const uint32_t n = min(32u, B - b0);
+    for (uint32_t j0 = 0; j0 < n; j0 += U) {
+      uint32_t r[U];
+#pragma unroll
+      for (int u = 0; u < U; ++u) r[u] = __shfl_sync(0xffffffffu, r_own, (int)j0 + u);
+      if constexpr (FC > 0) {
+        float v[U * FC];
+#pragma unroll
+        for (int u = 0; u < U; ++u) {
+          if (r[u] < S) {
+            load_row<FC>(table, r[u], S, vec, false, v + u * FC);
+          } else {
+#pragma unroll
+            for (int f = 0; f < FC; ++f) v[u * FC + f] = 0.0f;
+          }
+        }
+#pragma unroll
+        for (int u = 0; u < U; ++u) {
+          float a[4];
+#pragma unroll
+          for (int k = 0; k < 4; ++k) {
+            a[k] = 0.0f;
+#pragma unroll
+            for (int f = 0; f < FC; ++f) a[k] = fmaf(v[u * FC + f], wr[4 * f + k], a[k]);
+          }
+          store_dot_row(out, b0 + j0 + u, c0, a, j0 + u < n, r[u] < S);
+        }
+      } else {
+        float acc[U][4];
+#pragma unroll
+        for (int u = 0; u < U; ++u) {
+#pragma unroll
+          for (int k = 0; k < 4; ++k) acc[u][k] = 0.0f;
+        }
+        for (int f = 0; f < F; ++f) {
+          float wf[4], x[U];
+#pragma unroll
+          for (int k = 0; k < 4; ++k) wf[k] = __ldg(w + f * kDotCols + c0 + k);
+#pragma unroll
+          for (int u = 0; u < U; ++u) x[u] = r[u] < S ? __ldg(table + (size_t)r[u] * F + f) : 0.0f;
+#pragma unroll
+          for (int u = 0; u < U; ++u) {
+#pragma unroll
+            for (int k = 0; k < 4; ++k) acc[u][k] = fmaf(x[u], wf[k], acc[u][k]);
+          }
+        }
+#pragma unroll
+        for (int u = 0; u < U; ++u) store_dot_row(out, b0 + j0 + u, c0, acc[u], j0 + u < n, r[u] < S);
+      }
+    }
+  }
 }
 
 unsigned blocks_for(int64_t n, int threads) { return (unsigned)((n + threads - 1) / threads); }
@@ -507,6 +729,20 @@ void launch_rows_l2(int R, const int32_t* p, const float* t, const float* t2, co
   } else {
     gather_rows_l2<VEC, 1, FC><<<grid, block, 0, st>>>(t, t2, ix, o, B, S, F, mode, flags, ts);
   }
+}
+
+template <int FC>
+int launch_tile_sum(dim3 grid, size_t smem, cudaStream_t st, const float* t, const int32_t* ix, float* o, uint32_t S,
+                    int F, int vec, int flags) {
+  const int err = set_smem((const void*)gather_tile_sum_chunked<FC>, smem);
+  if (err) return err;
+  gather_tile_sum_chunked<FC><<<grid, kSumThreads, smem, st>>>(t, ix, o, S, F, vec, flags);
+  return (int)cudaGetLastError();
+}
+
+template <int FC>
+void launch_dot(const int32_t* p, const float* t, const int32_t* ix, const float* w, float* o, cudaStream_t st) {
+  gather_dot_warps<FC><<<p[dGrid], kDotThreads, 0, st>>>(t, ix, w, o, p[dB], p[dS], p[dF], p[dVec]);
 }
 
 }  // namespace
@@ -554,9 +790,13 @@ extern "C" int tcnn_probe_gather(const void* table, const void* table2, const vo
       gather_rows_async<1><<<grid, block, smem, st>>>(t, ix, o, B, S, F, flags, ts);
     }
   } else if (mode == kTileSum) {
-    const int err = set_smem((const void*)gather_tile_sum, smem);
-    if (err) return err;
-    gather_tile_sum<<<grid, block, smem, st>>>(t, ix, o, S, F, flags, 1 << ts);
+    if (p[gChunks] != kSumChunks || p[gThreads] != kSumThreads || (1 << ts) != kTile)
+      return (int)cudaErrorInvalidValue;
+    if (F == 8) return launch_tile_sum<8>(grid, smem, st, t, ix, o, S, F, vec, flags);
+    if (F == 4) return launch_tile_sum<4>(grid, smem, st, t, ix, o, S, F, vec, flags);
+    if (F == 2) return launch_tile_sum<2>(grid, smem, st, t, ix, o, S, F, vec, flags);
+    if (F == 1) return launch_tile_sum<1>(grid, smem, st, t, ix, o, S, F, vec, flags);
+    return launch_tile_sum<0>(grid, smem, st, t, ix, o, S, F, vec, flags);
   } else if (mode == kLane) {
     if (vec == 4) {
       gather_lanes<true><<<grid, block, 0, st>>>(t, ix, o, B, S, F, p[gPerRow], p[gPerRowShift], flags, ts);
@@ -636,11 +876,24 @@ extern "C" int tcnn_probe_scatter(const void* idx, const void* rows, void* out, 
   return (int)cudaGetLastError();
 }
 
-extern "C" int tcnn_probe_gather_dot(const void* table, const void* idx, const void* w, void* out, int64_t B,
-                                     int64_t S, int F, void* stream) {
-  if (B <= 0) return 0;
-  gather_dot<<<blocks_for(B * kDotCols, kThreads), kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const float*>(table), static_cast<const int32_t*>(idx), static_cast<const float*>(w),
-      static_cast<float*>(out), B, S, F);
+// out (B, 128) = table (S, F)[idx] @ w (F, 128); `plan` is the host plan's
+// int32 array (DotArg above).
+extern "C" int tcnn_probe_gather_dot(const void* table, const void* idx, const void* w, void* out, const int32_t* plan,
+                                     void* stream) {
+  const int32_t* p = plan;
+  if (p[dB] <= 0 || p[dGrid] <= 0) return 0;
+  if (p[dThreads] != kDotThreads) return (int)cudaErrorInvalidValue;
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const float* t = static_cast<const float*>(table);
+  const int32_t* ix = static_cast<const int32_t*>(idx);
+  const float* wp = static_cast<const float*>(w);
+  float* o = static_cast<float*>(out);
+  switch (p[dF]) {
+    case 8: launch_dot<8>(p, t, ix, wp, o, st); break;
+    case 4: launch_dot<4>(p, t, ix, wp, o, st); break;
+    case 2: launch_dot<2>(p, t, ix, wp, o, st); break;
+    case 1: launch_dot<1>(p, t, ix, wp, o, st); break;
+    default: launch_dot<0>(p, t, ix, wp, o, st);
+  }
   return (int)cudaGetLastError();
 }

@@ -26,12 +26,15 @@ rows are in flight (``csrc/probe_rows.cu``):
   that reaches it (one ``atomicMax`` pass, then the write): a serial
   loop's last write.
 - ``probe_gather_dot``: ``table[idx] @ w`` with ``w`` (F, 128), the gather
-  and the product in one kernel, fp32 multiply-adds in registers.
+  and the product in one kernel, fp32 multiply-adds in registers: a warp
+  takes 32 samples at a time, a lane 4 columns and their values of ``w``,
+  each sample's row broadcast to the warp, a sample's output row written
+  as one 512-byte store of the warp.
 
-The host functions ``gather_plan`` and ``scatter_plan`` decide each
-launch (vector width from F or R and the pointers' alignment, rows a
-thread, grid, private blocks, shared bytes); the C entry points read the
-plan's int32 array. The kernels index rows in 32 bits (B, N x R and S
+The host functions ``gather_plan``, ``scatter_plan`` and ``dot_plan``
+decide each launch (vector width from F or R and the pointers' alignment,
+rows a thread, grid, private blocks, shared bytes); the C entry points read
+the plan's int32 array. The kernels index rows in 32 bits (B, N x R and S
 below 2^31).
 
 Rows that a TPU probe leaves unwritten (P13 writes row 0 of each 8-row
@@ -83,11 +86,26 @@ ACC_SHARED = 1
 
 TILE = 2048  # rows per tile of MODE_TILE_SUM / MODE_COPY / feature-major output (the probes' TILE)
 DOT_COLS = 128
+# MODE_TILE_SUM's block (csrc/probe_rows.cu: kSumChunks, kSumThreads,
+# kSumLd): a summing warp beside TILE_SUM_CHUNKS chunks of TILE /
+# TILE_SUM_CHUNKS gathering threads; the tile's rows feature-major in shared
+# memory, TILE + TILE_SUM_PAD floats a feature; one 8-byte mbarrier a chunk.
+TILE_SUM_CHUNKS = 8
+TILE_SUM_THREADS = 32 + TILE // TILE_SUM_CHUNKS
+TILE_SUM_PAD = 4
+DOT_THREADS = 256  # threads a block of the gather-dot (8 warps)
+DOT_BLOCKS_PER_SM = 2  # its __launch_bounds__ minimum
 
 
 def fits_shared(n_floats: int) -> bool:
     """Whether ``n_floats`` fp32 values fit in one block's shared memory."""
     return 4 * int(n_floats) <= SHARED_BYTES
+
+
+def tile_sum_fits(F: int) -> bool:
+    """Whether MODE_TILE_SUM's block (the padded tile and a chunk's
+    mbarrier each, 2 floats) fits a block's shared memory: F <= 28."""
+    return fits_shared(int(F) * (TILE + TILE_SUM_PAD) + 2 * TILE_SUM_CHUNKS)
 
 
 # ---------------------------------------------------------------------------
@@ -184,10 +202,11 @@ class GatherPlan(Plan):
     (L2 ROW/WINDOW/COPY: a warp takes 32 x rows, lane l rows l + 32 u),
     ``per_row`` threads a row (LANE: quads of 4 lanes) and its log2
     (``per_row_shift``, -1 when no power of two), blocks of ``threads``,
-    ``grid`` blocks and ``smem_bytes`` of dynamic shared memory."""
+    ``grid`` blocks, ``smem_bytes`` of dynamic shared memory and
+    ``chunks`` a tile is gathered in (TILE_SUM; 0 otherwise)."""
 
     FIELDS = ("B", "S", "F", "mode", "source", "flags", "tile_shift", "vec", "rows", "per_row", "per_row_shift",
-              "threads", "grid", "smem_bytes")
+              "threads", "grid", "smem_bytes", "chunks")
 
 
 class ScatterPlan(Plan):
@@ -215,11 +234,14 @@ def gather_plan(B: int, S: int, F: int, mode: int = MODE_ROW, source: int = SOUR
       LANE: 4 (an int4 of indices, a float4 store) where F is a multiple of
       4 and the indices are 16-byte aligned, else 1.
     - Grid: the grid-stride kernels (L2, LANE, SHARED, ASYNC) take at most
-      the blocks the card holds at once; TILE_SUM a block a tile.
+      the blocks the card holds at once; TILE_SUM a block a tile (B // TILE
+      of them), its summing warp beside TILE_SUM_CHUNKS chunks of
+      gathering threads.
     - Shared memory: the whole table (SHARED), in_flight rows (ASYNC), a
-      tile's rows (TILE_SUM)."""
+      tile's rows feature-major, each feature padded by TILE_SUM_PAD floats
+      (TILE_SUM)."""
     B, S, F = int(B), int(S), int(F)
-    vec, rows, per_row, threads, smem = vec_width(F, table_align), 1, 1, THREADS, 0
+    vec, rows, per_row, threads, smem, chunks = vec_width(F, table_align), 1, 1, THREADS, 0, 0
     if source == SOURCE_SHARED:
         threads, smem = SHARED_THREADS, 4 * S * F
         grid = min(n_sms, ceil_div(B, threads))
@@ -227,7 +249,9 @@ def gather_plan(B: int, S: int, F: int, mode: int = MODE_ROW, source: int = SOUR
         threads, smem = int(in_flight), 4 * int(in_flight) * F
         grid = stride_grid(B, threads, n_sms, smem)
     elif mode == MODE_TILE_SUM:
-        vec, smem, grid = 1, 4 * TILE * F, B // TILE
+        if flags & FLAG_TRANSPOSED:
+            vec = 1
+        threads, smem, grid, chunks = TILE_SUM_THREADS, 4 * F * (TILE + TILE_SUM_PAD), B // TILE, TILE_SUM_CHUNKS
     elif mode == MODE_LANE:
         per_row = ceil_div(F, 4)
         vec = 4 if F % 4 == 0 and idx_align % 16 == 0 else 1
@@ -239,7 +263,7 @@ def gather_plan(B: int, S: int, F: int, mode: int = MODE_ROW, source: int = SOUR
         grid = stride_grid(32 * ceil_div(B, 32 * rows), threads, n_sms)
     return GatherPlan(B=B, S=S, F=F, mode=mode, source=source, flags=flags, tile_shift=TILE_SHIFT, vec=vec, rows=rows,
                       per_row=per_row, per_row_shift=pow2_shift(per_row), threads=threads, grid=grid if B > 0 else 0,
-                      smem_bytes=smem)
+                      smem_bytes=smem, chunks=chunks)
 
 
 @functools.lru_cache(maxsize=1024)
@@ -269,12 +293,40 @@ def scatter_plan(N: int, S: int, R: int, acc: int = ACC_GLOBAL, n_sms: int = N_S
                        per_row_shift=pow2_shift(per_row), threads=threads, grid=grid, smem_bytes=smem)
 
 
+class DotPlan(Plan):
+    """How ``tcnn_probe_gather_dot`` runs one call (``DotArg``): ``vec``
+    floats a row load, ``in_flight`` samples whose rows a warp loads before
+    their products, blocks of ``threads`` (a warp takes 32 samples at a
+    time, grid-stride) and ``grid`` blocks."""
+
+    FIELDS = ("B", "S", "F", "vec", "in_flight", "threads", "grid")
+
+
+def dot_in_flight(F: int) -> int:
+    """Samples a warp has in flight (``kDotInFlight``): 64 row values at a
+    compile-time F (1, 2, 4, 8), at most the 32 of a group; 4 otherwise."""
+    return min(32, 64 // F) if F in (1, 2, 4, 8) else 4
+
+
+@functools.lru_cache(maxsize=256)
+def dot_plan(B: int, S: int, F: int, table_align: int = 16, n_sms: int = N_SMS) -> DotPlan:
+    """The launch plan of ``probe_gather_dot`` for B samples of an (S, F)
+    table: rows as the widest vector that F and the table's alignment allow;
+    a warp a group of 32 samples, at most DOT_BLOCKS_PER_SM blocks an SM
+    (the kernel's launch bounds) and no more blocks than groups need."""
+    B, S, F = int(B), int(S), int(F)
+    groups = ceil_div(B, 32)
+    grid = min(ceil_div(groups, DOT_THREADS // 32), n_sms * DOT_BLOCKS_PER_SM) if B > 0 else 0
+    return DotPlan(B=B, S=S, F=F, vec=vec_width(F, table_align), in_flight=dot_in_flight(F), threads=DOT_THREADS,
+                   grid=grid)
+
+
 # ---------------------------------------------------------------------------
 # Kernels
 # ---------------------------------------------------------------------------
 _GATHER_ARGS = [ctypes.c_void_p] * 6
 _SCATTER_ARGS = [ctypes.c_void_p] * 6
-_DOT_ARGS = [ctypes.c_void_p] * 4 + [ctypes.c_int64] * 2 + [ctypes.c_int] + [ctypes.c_void_p]
+_DOT_ARGS = [ctypes.c_void_p] * 6
 
 
 def _check(what: str, t: torch.Tensor, dtype, dims: int, index: int):
@@ -326,8 +378,10 @@ def probe_gather(
     if mode in (MODE_TILE_SUM, MODE_COPY) or flags & FLAG_FEATURE_MAJOR:
         if B % TILE:
             raise ValueError(f"probe_gather: {B} rows are no multiple of the tile {TILE}")
-        if mode == MODE_TILE_SUM and not fits_shared(TILE * F):
+        if mode == MODE_TILE_SUM and not tile_sum_fits(F):
             raise ValueError(f"probe_gather: a tile of {TILE} x {F} rows does not fit in shared memory")
+        if mode == MODE_TILE_SUM and flags & FLAG_FEATURE_MAJOR:
+            raise ValueError("probe_gather: MODE_TILE_SUM writes (B / TILE * 8, F) rows, not feature-major tiles")
         if mode == MODE_COPY and S < TILE:
             raise ValueError(f"probe_gather: MODE_COPY reads rows 0..{TILE - 1} of a {S}-row table")
     special = table2 is not None or flags & (FLAG_TRANSPOSED | FLAG_ALIGNED)
@@ -350,7 +404,7 @@ def probe_gather(
     if flags & FLAG_FEATURE_MAJOR:
         out = torch.empty((B // TILE, F, TILE), dtype=torch.float32, device=dev)
     elif mode == MODE_TILE_SUM:
-        out = torch.zeros((B // TILE * 8, F), dtype=torch.float32, device=dev)
+        out = torch.empty((B // TILE * 8, F), dtype=torch.float32, device=dev)  # the kernel writes rows 1-7 too
     else:
         out = torch.empty((B, F), dtype=torch.float32, device=dev)
     global GATHER_LAUNCHES
@@ -414,13 +468,16 @@ def probe_gather_dot(table: torch.Tensor, idx: torch.Tensor, w: torch.Tensor) ->
     _check("probe_gather_dot: table", table, torch.float32, 2, index)
     _check("probe_gather_dot: idx", idx, torch.int32, 1, index)
     _check("probe_gather_dot: w", w, torch.float32, 2, index)
-    S, F = table.shape
+    (S, F), B = table.shape, idx.shape[0]
     if w.shape != (F, DOT_COLS):
         raise ValueError(f"probe_gather_dot: w must be ({F}, {DOT_COLS})")
-    out = torch.empty((idx.shape[0], DOT_COLS), dtype=torch.float32, device=dev)
+    if B >= 2**31 or S >= 2**31:
+        raise ValueError("probe_gather_dot: the kernel indexes samples and rows in 32 bits")
+    plan = dot_plan(B, S, F, alignment(table), sm_count(index))
+    out = torch.empty((B, DOT_COLS), dtype=torch.float32, device=dev)
     global DOT_LAUNCHES
     err = kernel("probe_rows", "tcnn_probe_gather_dot", _DOT_ARGS)(
-        table.data_ptr(), idx.data_ptr(), w.data_ptr(), out.data_ptr(), idx.shape[0], S, F, stream(index),
+        table.data_ptr(), idx.data_ptr(), w.data_ptr(), out.data_ptr(), plan.args_ptr, stream(index),
     )
     _launch("probe_gather_dot", err)
     DOT_LAUNCHES += 1

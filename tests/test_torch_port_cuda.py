@@ -795,20 +795,59 @@ def test_probe_scatter_store_last_is_the_last_write(dev, R):
     assert torch.equal(got, probe_rows.probe_scatter_plain(idx, rows, 4096, probe_rows.OP_STORE_LAST))
 
 
-def test_probe_gather_dot_matches_plain(dev):
+@pytest.mark.parametrize("B", [1, 33, 2**15])
+@pytest.mark.parametrize("F", [1, 2, 3, 4, 8])
+def test_probe_gather_dot_matches_plain(dev, F, B):
+    """P11 within DOT_TOL (1e-5 of max |plain|: fp32 products summed in
+    another order than the matmul's) at F = 1, 2, 4, 8 (compile-time F)
+    and 3 (run-time F), for part of a warp's group, a group and a part and
+    many groups; rows outside the table give zero rows; two calls at the
+    same B and F bitwise equal, and a table 4 bytes off alignment (scalar
+    row loads) gives the aligned table's bits."""
     torch.backends.cuda.matmul.allow_tf32 = False
-    table, idx = _probe_inputs(dev, 2**15, 8, 2**15, 4, lo=-5)
-    w = torch.randn((8, probe_rows.DOT_COLS), device=dev)
+    S = 2**15
+    table, idx = _probe_inputs(dev, S, F, B, 4 + F + B, lo=-5, hi=S + 5)
+    w = torch.from_numpy(np.random.default_rng(F).standard_normal((F, probe_rows.DOT_COLS)).astype(np.float32)).to(dev)
     before = probe_rows.DOT_LAUNCHES
     got = probe_rows.probe_gather_dot(table, idx, w)
     assert probe_rows.DOT_LAUNCHES == before + 1
     want = probe_rows.probe_gather_dot_plain(table, idx, w)
     assert float((got - want).abs().max()) <= 1e-5 * float(want.abs().max())
+    assert torch.equal(got, probe_rows.probe_gather_dot(table, idx, w))
+    assert torch.equal(got, probe_rows.probe_gather_dot(_offset_by_one(table), idx, w))
+    outside = (idx < 0) | (idx >= S)
+    assert bool((got[outside] == 0).all())
+
+
+@pytest.mark.parametrize("F", [1, 2, 3, 8])
+def test_probe_gather_tile_sum_is_the_plain_sum(dev, F):
+    """P13 TILE_SUM bitwise the plain in-order sum at F = 1, 2, 8
+    (compile-time F) and 3 (run-time F), rows outside the table adding
+    zeros: from a row-major table, with bf16 rounding of the sums, from a
+    transposed (F, S) table (with and without rounding) and from a table 4
+    bytes off alignment (scalar loads). The output comes from a cache block
+    filled with NaN first, so rows 1-7 must be the kernel's own zeros; two
+    calls bitwise equal."""
+    pr = probe_rows
+    S, B = 4096, 4 * pr.TILE
+    table, idx = _probe_inputs(dev, S, F, B, 70 + F, lo=-30, hi=S + 30)
+    t_t = table.t().contiguous()
+    cases = [(table, 0), (table, pr.FLAG_ROUND_BF16), (t_t, pr.FLAG_TRANSPOSED),
+             (t_t, pr.FLAG_TRANSPOSED | pr.FLAG_ROUND_BF16), (_offset_by_one(table), 0)]
+    for t, flags in cases:
+        junk = torch.full((B // pr.TILE * 8, F), float("nan"), device=dev)
+        del junk
+        before = pr.GATHER_LAUNCHES
+        got = pr.probe_gather(t, idx, mode=pr.MODE_TILE_SUM, flags=flags)
+        assert pr.GATHER_LAUNCHES == before + 1
+        assert torch.equal(got, pr.probe_gather_plain(t, idx, pr.MODE_TILE_SUM, flags=flags)), flags
+        assert torch.equal(got, pr.probe_gather(t, idx, mode=pr.MODE_TILE_SUM, flags=flags))
 
 
 def test_probe_wrappers_refuse_what_the_kernels_do_not_take(dev):
     """SHARED raises for a table beyond a block's shared memory (no quiet
-    L2 fallback), and so does a shared scatter accumulator."""
+    L2 fallback), and so does a shared scatter accumulator; TILE_SUM, whose
+    output is (B / TILE * 8, F) rows, raises for feature-major output."""
     table, idx = _probe_inputs(dev, 2**15, 8, 1024, 0)
     with pytest.raises(ValueError, match="shared memory"):
         probe_rows.probe_gather(table, idx, source=probe_rows.SOURCE_SHARED)
@@ -816,6 +855,9 @@ def test_probe_wrappers_refuse_what_the_kernels_do_not_take(dev):
         probe_rows.probe_scatter(idx, table[:1024].contiguous(), 2**15, probe_rows.OP_ADD, probe_rows.ACC_SHARED)
     with pytest.raises(ValueError, match="MODE_ROW"):
         probe_rows.probe_gather(table, idx, mode=probe_rows.MODE_WINDOW, source=probe_rows.SOURCE_ASYNC)
+    with pytest.raises(ValueError, match="feature-major"):
+        probe_rows.probe_gather(table, torch.zeros(probe_rows.TILE, dtype=torch.int32, device=dev),
+                                mode=probe_rows.MODE_TILE_SUM, flags=probe_rows.FLAG_FEATURE_MAJOR)
 
 
 def _backward_case(dev, shapes, batch, seed):

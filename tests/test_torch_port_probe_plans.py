@@ -127,9 +127,97 @@ def test_gather_plan_grid_and_shared_memory_fit_the_card(kind, n_sms):
 
 
 def test_tile_sum_plan_takes_a_block_a_tile():
+    """A block a tile; its shared copy (F features of TILE + TILE_SUM_PAD
+    floats) and a chunk's mbarrier each fit a block up to F = 28."""
     for F in (1, 8, 28):
         plan = pr.gather_plan(4 * pr.TILE, 4096, F, pr.MODE_TILE_SUM)
-        assert plan.grid == 4 and plan.smem_bytes == 4 * pr.TILE * F <= BLOCK_SHARED_LIMIT
+        assert plan.grid == 4 and plan.smem_bytes == 4 * (pr.TILE + pr.TILE_SUM_PAD) * F
+        assert plan.smem_bytes + 8 * plan.chunks <= BLOCK_SHARED_LIMIT
+        assert pr.tile_sum_fits(F)
+    assert not pr.tile_sum_fits(29)
+
+
+PLAN_SIZES = (0, 1, 31, 33, 2**17 + 5)
+
+
+@pytest.mark.parametrize("B", PLAN_SIZES)
+def test_tile_sum_plan_chunks_cover_the_tile(B):
+    """TILE_SUM (csrc/probe_rows.cu, gather_tile_sum_chunked): B // TILE
+    blocks of a summing warp and TILE / chunks gathering threads; thread t
+    of the gatherers takes row c * (TILE / chunks) + t of chunk c, so the
+    chunks cover the tile once; the summing warp has a lane a feature, the
+    gatherers a thread for each zero of rows 1-7; each feature's column
+    starts 16-byte aligned and 8 features' float4 reads fall on distinct
+    banks; shared memory within a block's limit; rows read as the widest
+    vector F and the alignment allow (one float at a time transposed)."""
+    for F in range(1, 9):
+        for align in (4, 8, 16):
+            plan = pr.gather_plan(B, 2**15, F, pr.MODE_TILE_SUM, table_align=align)
+            per_chunk = pr.TILE // plan.chunks
+            assert plan.grid == (B // pr.TILE if B else 0)
+            assert plan.chunks == pr.TILE_SUM_CHUNKS and plan.chunks * per_chunk == pr.TILE
+            assert plan.threads == pr.TILE_SUM_THREADS == 32 + per_chunk <= 1024
+            rows = (np.arange(plan.chunks)[:, None] * per_chunk + np.arange(per_chunk)[None, :]).reshape(-1)
+            assert (np.bincount(rows, minlength=pr.TILE) == 1).all()
+            assert F <= 32 and 7 * F <= per_chunk
+            ld = pr.TILE + pr.TILE_SUM_PAD
+            assert (4 * ld) % 16 == 0 and len({(f * ld) % 32 // 4 for f in range(8)}) == 8
+            assert plan.smem_bytes == 4 * F * ld and plan.smem_bytes + 8 * plan.chunks <= BLOCK_SHARED_LIMIT
+            assert F % plan.vec == 0 and align % (4 * plan.vec) == 0
+            assert not [v for v in (2, 4) if v > plan.vec and F % v == 0 and align % (4 * v) == 0]
+            transposed = pr.gather_plan(B, 2**15, F, pr.MODE_TILE_SUM, pr.SOURCE_L2, pr.FLAG_TRANSPOSED, align)
+            assert transposed.vec == 1
+
+
+def _dot_cover(plan, B):
+    """How often each output element (b, c) of the gather-dot is written:
+    warp w of the grid takes groups w, w + n_warps, ... of 32 samples; it
+    steps through a group's n samples ``in_flight`` at a time, sample j0 + u
+    read from lane j0 + u of the group's index load; lane l writes columns
+    4l .. 4l + 3 of each sample below n."""
+    n_warps = plan.grid * plan.threads // 32
+    assert plan.threads % 32 == 0 and n_warps > 0
+    U = plan.in_flight
+    assert 32 % U == 0
+    samples = []
+    for w in range(min(n_warps, -(-B // 32))):
+        for g in range(w, -(-B // 32), n_warps):
+            n = min(32, B - 32 * g)
+            for j0 in range(0, n, U):
+                assert j0 + U <= 32  # the lanes the batch's shuffles read
+                samples.extend(32 * g + j for j in range(j0, j0 + U) if j < n)
+    samples = np.asarray(samples, np.int64)
+    cols = (4 * np.arange(32)[:, None] + np.arange(4)[None, :]).reshape(-1)
+    assert (np.bincount(cols, minlength=pr.DOT_COLS) == 1).all()
+    return np.bincount(samples, minlength=B)
+
+
+@pytest.mark.parametrize("B", PLAN_SIZES)
+def test_dot_plan_grid_in_flight_and_cover(B):
+    """The gather-dot's plan (csrc/probe_rows.cu, gather_dot_warps): at
+    most DOT_BLOCKS_PER_SM blocks an SM and no more than the groups need;
+    64 row values in flight a warp at F = 1, 2, 4, 8 (at least 4 samples),
+    4 samples at another F; rows as the widest vector F and the table's
+    alignment allow; every sample written once."""
+    for F in range(1, 9):
+        for align in (4, 16):
+            plan = pr.dot_plan(B, 2**15, F, align, 132)
+            assert plan.threads == pr.DOT_THREADS == 256
+            if B == 0:
+                assert plan.grid == 0
+                continue
+            assert 1 <= plan.grid <= 132 * pr.DOT_BLOCKS_PER_SM
+            assert plan.grid <= -(-B // plan.threads) + 1
+            assert plan.grid * plan.threads <= 132 * plans.SM_THREADS
+            assert plan.in_flight >= 4 and 32 % plan.in_flight == 0
+            if F in (1, 2, 4, 8):
+                assert plan.in_flight == min(32, 64 // F)
+            assert F % plan.vec == 0 and align % (4 * plan.vec) == 0
+            if align == 16:
+                assert (_dot_cover(plan, B) == 1).all()
+    big = pr.dot_plan(2**17, 2**15, 8, 16, 132)
+    assert big.grid == 132 * pr.DOT_BLOCKS_PER_SM and big.vec == 4 and big.in_flight == 8
+    assert list(big.args) == [getattr(big, f) for f in pr.DotPlan.FIELDS]
 
 
 @pytest.mark.parametrize("B", SIZES)

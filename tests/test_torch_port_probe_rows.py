@@ -123,6 +123,54 @@ def test_gather_dot_matches_its_definition():
     assert np.abs(got - ref).max() <= 1e-6 * np.abs(ref).max()
 
 
+@pytest.mark.parametrize("F", [1, 3, 8])
+def test_gather_dot_with_rows_outside_the_table_matches_k_fused(F):
+    """P11's kernel body ``k_fused`` (probe_r5_pallas_gather2.py:319-331)
+    in numpy: per tile of TILE indices, the rows into a scratch buffer (an
+    index outside [0, S) reads zeros, as every gather of the port), then
+    ``scratch @ w`` in fp32. The plain version and the wrapper on CPU
+    tensors within 1e-6 of max |ref| (the matmuls sum in their own orders);
+    an outside row's output exactly zero."""
+    S, B = 300, 2 * TILE
+    r = np.random.default_rng(F)
+    table = r.standard_normal((S, F)).astype(np.float32)
+    idx = r.integers(-20, S + 20, B).astype(np.int32)
+    idx[:3] = (-2**31, 2**31 - 1, S)
+    w = r.standard_normal((F, 128)).astype(np.float32)
+    ref = np.empty((B, 128), np.float32)
+    for g in range(B // TILE):
+        scratch = np.zeros((TILE, F), np.float32)
+        for i in range(TILE):
+            j = idx[g * TILE + i]
+            if 0 <= j < S:
+                scratch[i] = table[j]
+        ref[g * TILE:(g + 1) * TILE] = np.dot(scratch, w)
+    outside = (idx < 0) | (idx >= S)
+    assert outside.sum() > 50
+    for got in (pr.probe_gather_dot_plain(_t(table), _t(idx), _t(w)), pr.probe_gather_dot(_t(table), _t(idx), _t(w))):
+        got = got.numpy()
+        assert got.shape == (B, 128) and got.dtype == np.float32
+        assert np.abs(got - ref).max() <= 1e-6 * np.abs(ref).max()
+        assert (got[outside] == 0.0).all()
+
+
+def test_probe_times_takes_the_probe_runs_inputs():
+    """``benchmarks.probe_times`` times P11 and P13 on ``probe_rows``'
+    own cases, and draws P11's inputs for its yardstick as ``probe_rows`` does:
+    on CPU tensors the same outputs bit for bit; the order bound's chain is
+    a tile long."""
+    from tcnn_tpu_torch.benchmarks import probe_times as pt
+
+    dev = torch.device("cpu")
+    cases = pt.probe_cases(dev)
+    assert sorted(cases) == ["P11", "P13"]
+    assert cases["P11"].shape == {"S": 2**15, "F": 8, "B": 2**17}
+    table, idx, w = pt.dot_inputs(dev)
+    assert torch.equal(pr.probe_gather_dot(table, idx, w), cases["P11"].run())
+    assert torch.equal(cases["P13"].run(), pr.probe_gather_plain(table, idx, pr.MODE_TILE_SUM))
+    assert pt.MARKERS == {"P11": "gather_dot", "P13": "gather_tile_sum"}
+
+
 def test_static_copy_and_tile_sum_match_the_probe_loops():
     """P12 static_copy (out[g*TILE + i] = table[i]) and P13 load_only (per
     tile, the in-order sum of table[idx[i]] into row 0 of an 8-row block;
