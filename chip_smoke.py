@@ -2075,7 +2075,8 @@ def phase_probes(card):
     """The row gather and scatter probes: kernel against plain at the
     probes' default shapes, then the path (benchmarks.probe_rows with --sweep)
     with every count at 0, then the three probe kernels' JSON times, and
-    P11's and P13's device times under the profiler beside their bounds."""
+    the redesigned probe kernels' (P11, P13, P14, P17) and the next modes'
+    device times under the profiler beside their bounds."""
     import torch
 
     from tcnn_tpu_torch.benchmarks import probe_rows as drv
@@ -2108,6 +2109,11 @@ def phase_probes(card):
         check(torch.equal(pr.probe_gather(t, idx, mode=pr.MODE_TILE_SUM, flags=flags),
                           pr.probe_gather_plain(t, idx, pr.MODE_TILE_SUM, flags=flags)),
               f"TILE_SUM flags {flags}: outside rows")
+    # P17's route (planes staged in shared memory), rounded to bf16 too.
+    for flags in (pr.FLAG_TRANSPOSED | pr.FLAG_FEATURE_MAJOR, pr.FLAG_TRANSPOSED | pr.FLAG_FEATURE_MAJOR | pr.FLAG_ROUND_BF16):
+        check(torch.equal(pr.probe_gather(table.t().contiguous(), idx, flags=flags),
+                          pr.probe_gather_plain(table.t().contiguous(), idx, flags=flags)),
+              f"transposed feature-major flags {flags}: outside rows")
     for acc in (pr.ACC_GLOBAL, pr.ACC_SHARED):
         got, ref = pr.probe_scatter(idx, rows, 4096, pr.OP_ADD, acc), pr.probe_scatter_plain(idx, rows, 4096)
         S_abs = pr.probe_scatter_plain(idx, rows.abs(), 4096)
@@ -2171,31 +2177,44 @@ def phase_probes(card):
             f"{rec['plain_ms']:.4f} ms, bound {rec['bound_ms']:.4f} ms ({rec['bound_by']})"
             + ("" if rec["library_ms"] is None else f", {rec['library']} {rec['library_ms']:.4f} ms")
             + " (CUDA events, median)")
-    # P11 and P13 at the probe run's shapes: each kernel's own device time
-    # under torch.profiler beside its bounds (P13: the bytes and the order
-    # bound of its in-order add chains at the SM clock nvidia-smi reads
-    # while it runs), and the kernels' registers and spills.
+    # The redesigned probe kernels (P11, P13, P14, P17) and the modes next
+    # in line at the probe run's shapes: each kernel's own device time under
+    # torch.profiler beside its bounds (P13: also the order bound of its
+    # in-order add chains at the SM clock nvidia-smi reads while it runs;
+    # P17: also the random-sector floor of reading it from L2 row by row),
+    # and the redesigned kernels' registers and spills.
     from tcnn_tpu_torch.benchmarks import probe_times
 
     pt = probe_times.times(calls=100, reps=20)
     pt.pop("outputs")
-    for p, rec in (("P11", pt["P11"]), ("P13", pt["P13"])):
-        log(f"probe device [{card}]: {p} {rec['label']}: kernel {rec['kernel_ms']:.4f} ms under torch.profiler "
-            f"(mean of the {rec['profiled_calls']} of 100 launches it recorded; the call's device activities {rec['call_device_ms']:.4f}; events behind a spin {rec['event_ms']:.4f}, "
-            f"their floor {pt['event_floor_ms']:.4f}); call {rec['call_ms']:.4f} ms; bound {rec['bound_ms']:.4f} ms "
-            f"({rec['bound_by']}), {rec['bound_share']:.3f} of it"
-            + (f"; order bound {rec['order_bound_ms']:.4f} ms ({pr.TILE} dependent fp32 adds x "
-               f"{probe_times.FADD_CYCLES} cycles at {rec['sm_clock_mhz']:.0f} MHz, clocks.sm while it ran), "
-               f"{rec['order_bound_ms'] / rec['kernel_ms']:.3f} of it" if p == "P13" else
-               f"; index_select + matmul {rec['library_device_ms']:.4f} ms of device time (two calls)"))
+    for p in probe_times.PROBES:
+        rec = pt[p]
+        extra = ""
+        if p == "P13":
+            extra = (f"; order bound {rec['order_bound_ms']:.4f} ms ({pr.TILE} dependent fp32 adds x "
+                     f"{probe_times.FADD_CYCLES} cycles at {rec['sm_clock_mhz']:.0f} MHz, clocks.sm while it ran), "
+                     f"{rec['order_bound_ms'] / rec['kernel_ms']:.3f} of it")
+        elif p == "P11":
+            extra = f"; index_select + matmul {rec['library_device_ms']:.4f} ms of device time (two calls)"
+        elif p.startswith("P17"):
+            extra = (f"; random-sector floor of the L2 route {rec['sector_floor_ms']:.4f} ms ({pt['sector_ns']:.5f} "
+                     f"ns a sector x B F)")
+        log(f"probe device [{card}]: {p} {rec['label']} [{rec['source']}]: kernel {rec['kernel_ms']:.4f} ms under "
+            f"torch.profiler (mean of the {rec['profiled_calls']} of 100 launches it recorded; the call's device "
+            f"activities {rec['call_device_ms']:.4f}; events behind a spin {rec['event_ms']:.4f}, their floor "
+            f"{pt['event_floor_ms']:.4f}); call {rec['call_ms']:.4f} ms; bound {rec['bound_ms']:.4f} ms "
+            f"({rec['bound_by']}), {rec['bound_share']:.3f} of it" + extra)
     regs = probe_times.ptxas()
     for name, (n_regs, spill_st, spill_ld) in regs.items():
-        if "gather_dot" in name or "gather_tile_sum" in name:
+        if any(k in name for k in ("gather_dot", "gather_tile_sum", "gather_planes", "store_last")):
             log(f"probe kernel: {name}: {n_regs} registers, spill stores {spill_st} B, spill loads {spill_ld} B")
             check(spill_st == 0 and spill_ld == 0, f"probes: {name} spills")
+    keep = ("kernel_ms", "call_device_ms", "call_ms", "bound_ms", "bound_by", "max_abs_err")
     times["probe_gather_dot"]["device_ms"] = pt["P11"]["kernel_ms"]
-    times["probe_gather"]["tile_sum"] = {k: pt["P13"][k] for k in (
-        "kernel_ms", "call_ms", "bound_ms", "bound_by", "order_bound_ms", "sm_clock_mhz", "max_abs_err")}
+    times["probe_gather"]["tile_sum"] = {k: pt["P13"][k] for k in keep + ("order_bound_ms", "sm_clock_mhz")}
+    times["probe_gather"]["planes"] = {p: {k: pt[p][k] for k in keep + ("sector_floor_ms",)}
+                                       for p in ("P17 S2=2^10", "P17 S2=2^15")}
+    times["probe_scatter"]["store_last"] = {k: pt["P14"][k] for k in keep}
     log(f"probes: phase {time.perf_counter() - t_phase:.1f} s")
     return {"launches": launches, "errs": errs, "times": times, "records": result["probes"]}
 
@@ -3941,7 +3960,7 @@ def main() -> int:
                            ("probe_gather_dot", "benchmarks/probe_r5_pallas_gather2.py:348")):
         row = entry(name, "probe_rows.cu", replaces, probes["launches"][name], probes["errs"][name], None, "probes",
                     probes["times"][name])
-        for extra in ("device_ms", "tile_sum"):
+        for extra in ("device_ms", "tile_sum", "planes", "store_last"):
             if extra in probes["times"][name]:
                 row[extra] = probes["times"][name][extra]
         kernels.append(row)

@@ -9,8 +9,10 @@ path's shapes, against the earlier lookup kernel and ``index_add_``),
 at the SDF path's shapes, and the SDF step); ``ffmlp_adam_times``,
 ``grid_ab_times``, ``sh_times`` (the spherical-harmonics kernels' device
 and call times at the NeRF path's shapes) and ``probe_times`` (the
-gather-dot and the in-order tile sum at ``probe_rows``' shapes) time
-kernels on the card only.
+redesigned probe kernels and the modes next in line at ``probe_rows``'
+shapes, under the profiler beside their bounds) time kernels on the card
+only; ``nerf_psnr_spread`` runs the NeRF sample many times a seed and counts
+the runs under chip_smoke's per-run PSNR floor.
 They run on the CUDA card (``--device cuda``, the default) and fail without
 one; ``--device cpu`` (where an entry point takes it) runs the kernels'
 plain versions, for tests only: its times are the CPU's. Nothing here runs at

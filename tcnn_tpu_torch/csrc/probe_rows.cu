@@ -37,6 +37,18 @@
 //     neighbouring rows a thread, their indices as one int4, measured
 //     slower: each store of the warp then half-fills its sectors.) F = 2,
 //     4, 8 are compiled with F fixed; other F loop over VEC-wide chunks.
+//   - ROW of a transposed (F, S) table into feature-major tiles, from L2
+//     (gather_planes): the output's (B / tile, F, tile) layout makes each
+//     feature plane of a tile contiguous, while a sample's F values lie S
+//     floats apart in the table, each its own 32-byte L2 sector. So a block
+//     copies P whole feature planes (t[f0 .. f0 + P - 1, :], one contiguous
+//     span of the table) into shared memory with cp.async, loading its
+//     first indices meanwhile, then gathers from them for a run of
+//     samples: a warp reads 32 consecutive indices and writes 128
+//     contiguous bytes of each of its planes. The plan picks P (a divisor
+//     of F whose planes fit a block) and the runs (one wave of blocks over
+//     the card) that move the fewest bytes; P = 1, 2, 4, 8 compiled with P
+//     fixed. Where one plane does not fit, the L2 gather below.
 //   - LANE (gather_lanes): a thread owns 4 consecutive lanes of one row: an
 //     int4 of indices, 4 random table reads, one float4 store.
 //   - SHARED stages the whole table in each block (vector loads), then
@@ -60,8 +72,15 @@
 //   in shared memory (scalar shared atomics), flushed once per non-zero
 //   float4 with vector atomics, in as many blocks as keep the flush at most
 //   an eighth of the adds (the plan's choice; otherwise none).
-//   STORE_LAST claims each slot for the largest row index (atomicMax) and
-//   then writes the winners' rows VEC-wide.
+//   STORE_LAST writes each output row once: store_last_claim takes each
+//   slot's largest row index j (a 64-bit atomicMax of (epoch, j) into a
+//   winner array the caller keeps between calls, each call with a larger
+//   epoch, so no call fills or resets it), then store_last_slots walks the
+//   slots in order, a warp 32 at a time: one coalesced load of their
+//   winners (those of an earlier epoch read as none), then the warp writes
+//   the 32 rows as one contiguous span of VEC-wide stores, each the
+//   winner's row (read VEC-wide) or zeros. No fill of the output, no
+//   scattered store, no write to the winners but the claim's.
 // - tcnn_probe_gather_dot (gather_dot_warps): out = table[idx] @ w, w (F,
 //   128). The 2^24 output floats at the probe's shape (64 MiB) bound it:
 //   the product is 2 F flops a float. Persistent blocks, a warp takes 32
@@ -75,8 +94,9 @@
 //   512-byte output row in one instruction. fp32 FMA, not tensor cores:
 //   the probe's tolerance rules out TF32. F = 1, 2, 4, 8 at compile time.
 //
-// The output of a scatter and STORE_LAST's winners are set here
-// (cudaMemsetAsync: zeros, and -1 as all-ones bytes), not by the caller.
+// The output of an ADD scatter is zeroed here (cudaMemsetAsync), not by the
+// caller; STORE_LAST writes every output row itself and takes a winner
+// array and an epoch from the caller (ops/probe_rows.py).
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -92,12 +112,17 @@ enum Op { kAdd = 0, kStoreLast = 1 };
 // The plans' int32 arrays (ops/probe_rows.py: GatherPlan.args,
 // ScatterPlan.args), entry by entry.
 enum GatherArg {
-  gB, gS, gF, gMode, gSource, gFlags, gTileShift, gVec, gRows, gPerRow, gPerRowShift, gThreads, gGrid, gSmem, gChunks
+  gB, gS, gF, gMode, gSource, gFlags, gTileShift, gVec, gRows, gPerRow, gPerRowShift, gThreads, gGrid, gSmem, gChunks,
+  gPlanes, gRuns, gRun
 };
-enum ScatterArg { sN, sS, sR, sOp, sPrivate, sVec, sPerRow, sPerRowShift, sThreads, sGrid, sSmem };
+enum ScatterArg { sN, sS, sR, sOp, sPrivate, sVec, sPerRow, sPerRowShift, sThreads, sGrid, sSmem, sClaimGrid };
 enum DotArg { dB, dS, dF, dVec, dInFlight, dThreads, dGrid };
 
 constexpr int kThreads = 256;
+// Rows a tile of feature-major output and of TILE_SUM (ops/probe_rows.py:
+// TILE); the plans' tile_shift is its log2.
+constexpr int kTile = 2048;
+constexpr int kTileShift = 11;
 // Scatter items a thread has in flight: 4, or 2 in the private blocks of
 // 1,024 threads (64 registers a thread at most; their threads hide latency).
 template <bool PRIVATE>
@@ -105,6 +130,11 @@ constexpr int kIlp = PRIVATE ? 2 : 4;
 
 __device__ __forceinline__ float maybe_round(float v, int flags) {
   return (flags & kRoundBf16) ? __bfloat162float(__float2bfloat16_rn(v)) : v;
+}
+
+template <bool ROUND>
+__device__ __forceinline__ float round_if(float v) {
+  return ROUND ? __bfloat162float(__float2bfloat16_rn(v)) : v;
 }
 
 // Where element f of output row b goes: row-major (B, F) or feature-major
@@ -250,6 +280,94 @@ __global__ void __launch_bounds__(kThreads)
   }
 }
 
+constexpr int kPlaneThreads = 1024;
+constexpr int kPlaneGroups = 4;  // groups of 32 samples a warp has in flight
+
+// cp.async of BYTES (4, 8 or 16) from global to shared memory.
+template <int BYTES>
+__device__ __forceinline__ void cp_async(void* smem_dst, const void* gmem_src) {
+  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(smem_dst));
+  if constexpr (BYTES == 16) {
+    asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(s), "l"(gmem_src) : "memory");
+  } else {
+    asm volatile("cp.async.ca.shared.global [%0], [%1], %2;\n" ::"r"(s), "l"(gmem_src), "n"(BYTES) : "memory");
+  }
+}
+
+// The indices of the kPlaneGroups groups of 32 samples from group g0 on
+// (n_warps apart) that lie in the run: lane l's of each, or ~0 past it.
+__device__ __forceinline__ void plane_indices(const int32_t* __restrict__ idx, uint32_t b_begin, uint32_t b_end,
+                                              uint32_t n_groups, uint32_t g0, uint32_t n_warps, uint32_t lane,
+                                              uint32_t (&r)[kPlaneGroups]) {
+#pragma unroll
+  for (int u = 0; u < kPlaneGroups; ++u) {
+    const uint32_t g = g0 + n_warps * u;
+    const uint32_t b = b_begin + g * 32u + lane;
+    r[u] = g < n_groups && b < b_end ? (uint32_t)__ldg(idx + b) : 0xffffffffu;
+  }
+}
+
+// ROW of a transposed (F, S) table into feature-major tiles: out[b >> ts, f,
+// b & (tile - 1)] = t[f, idx[b]] (zero for an index outside [0, S)). Work
+// item w (grid-stride over groups * runs items) is plane group w / runs
+// (features P (w / runs) .. + P - 1) and sample run w % runs (samples
+// run * (w % runs) .. + run - 1). A block copies its group's P planes, one
+// contiguous span of P S floats, into shared memory with cp.async (VEC
+// floats a copy, all of a thread's in flight at once) and loads its first
+// indices while they land; then warp k takes the run's groups of 32
+// samples k + n_warps (u + kPlaneGroups i), the kPlaneGroups of one i at a
+// time, the next i's indices loaded before this i's stores: lane l holds
+// index l of each group, and for each plane the warp stores each group's
+// 32 values as 128 contiguous bytes. PC > 0: P = PC at compile time;
+// PC = 0: P at run time. The tile and the bf16 rounding (ROUND) are
+// compile-time too: with a run-time tile shift and flag the kernel
+// measured slower.
+template <int VEC, int PC, bool ROUND>
+__global__ void __launch_bounds__(kPlaneThreads)
+    gather_planes(const float* __restrict__ table, const int32_t* __restrict__ idx, float* __restrict__ out,
+                  uint32_t B, uint32_t S, int F, int P_rt, uint32_t runs, uint32_t run) {
+  extern __shared__ __align__(16) float planes[];
+  const int P = PC > 0 ? PC : P_rt;
+  const uint32_t n_items = (uint32_t)(F / P) * runs;
+  const uint32_t span = (uint32_t)P * S;
+  const uint32_t lane = threadIdx.x & 31u, warp = threadIdx.x >> 5, n_warps = blockDim.x >> 5;
+  const uint32_t step = n_warps * kPlaneGroups;
+  for (uint32_t w = blockIdx.x; w < n_items; w += gridDim.x) {
+    const int f0 = (int)(w / runs) * P;
+    const uint32_t b_begin = (w % runs) * run;
+    const uint32_t b_end = min(B, b_begin + run);
+    const uint32_t n_groups = (b_end - b_begin + 31u) / 32u;
+    const float* src = table + (size_t)f0 * S;
+    __syncthreads();  // the previous item's gathers are done with the planes
+    for (uint32_t i = threadIdx.x * VEC; i < span; i += blockDim.x * VEC) cp_async<4 * VEC>(planes + i, src + i);
+    asm volatile("cp.async.commit_group;\n" ::: "memory");
+    uint32_t r[kPlaneGroups];
+    plane_indices(idx, b_begin, b_end, n_groups, warp, n_warps, lane, r);
+    asm volatile("cp.async.wait_group 0;\n" ::: "memory");
+    __syncthreads();
+    for (uint32_t g0 = warp; g0 < n_groups; g0 += step) {
+      uint32_t next[kPlaneGroups];
+      plane_indices(idx, b_begin, b_end, n_groups, g0 + step, n_warps, lane, next);
+#pragma unroll
+      for (int u = 0; u < kPlaneGroups; ++u) {
+        const uint32_t b = b_begin + (g0 + n_warps * u) * 32u + lane;
+        if (g0 + n_warps * u < n_groups && b < b_end) {
+          float* o = out + ((((size_t)(b >> kTileShift)) * F + f0) << kTileShift) + (b & (kTile - 1u));
+          if constexpr (PC > 0) {
+#pragma unroll
+            for (int q = 0; q < PC; ++q)
+              o[(size_t)q << kTileShift] = round_if<ROUND>(r[u] < S ? planes[q * S + r[u]] : 0.0f);
+          } else {
+            for (int q = 0; q < P; ++q)
+              o[(size_t)q << kTileShift] = round_if<ROUND>(r[u] < S ? planes[q * S + r[u]] : 0.0f);
+          }
+        }
+        r[u] = next[u];
+      }
+    }
+  }
+}
+
 // LANE: out[b, l] = table[idx[b, l], l]. A thread owns lanes 4q .. 4q + 3
 // (those below F) of row b, for item t = b * Q + q (Q = ceil(F / 4) quads a
 // row; b = t >> q_shift where Q is a power of two, else one division a
@@ -323,17 +441,6 @@ __global__ void gather_rows_shared(const float* __restrict__ table, const int32_
       for (int k = 0; k < VEC; ++k) v[k] = maybe_round(v[k], flags);
       store_row<VEC, VEC>(out, b, f, v, F, tile_shift, flags);
     }
-  }
-}
-
-// cp.async of BYTES (4, 8 or 16) from global to shared memory.
-template <int BYTES>
-__device__ __forceinline__ void cp_async(void* smem_dst, const void* gmem_src) {
-  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(smem_dst));
-  if constexpr (BYTES == 16) {
-    asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(s), "l"(gmem_src) : "memory");
-  } else {
-    asm volatile("cp.async.ca.shared.global [%0], [%1], %2;\n" ::"r"(s), "l"(gmem_src), "n"(BYTES) : "memory");
   }
 }
 
@@ -430,7 +537,6 @@ __device__ __forceinline__ void mbar_wait(uint64_t* bar, unsigned parity) {
 
 // TILE_SUM's layout of a tile (ops/probe_rows.py mirrors it:
 // TILE_SUM_CHUNKS, TILE_SUM_PAD, TILE_SUM_THREADS).
-constexpr int kTile = 2048;
 constexpr int kSumChunks = 8;
 constexpr int kChunkRows = kTile / kSumChunks;  // one row a gathering thread a chunk
 constexpr int kSumThreads = 32 + kChunkRows;    // the summing warp, then the gatherers
@@ -581,29 +687,65 @@ __global__ void __launch_bounds__(PRIVATE ? 1024 : kThreads)
   }
 }
 
-__global__ void store_last_claim(const int32_t* __restrict__ idx, int32_t* __restrict__ winner, uint32_t N,
-                                 uint32_t S) {
-  const uint32_t j = blockIdx.x * blockDim.x + threadIdx.x;
-  if (j >= N) return;
-  const uint32_t r = (uint32_t)__ldg(idx + j);
-  if (r < S) atomicMax(winner + r, (int32_t)j);
+// STORE_LAST, pass 1: winner[r] = (epoch << 32) | the largest j with
+// idx[j] = r, over every winner[r] of an earlier epoch (j < 2^31; grid-
+// stride, one index a thread).
+__global__ void __launch_bounds__(kThreads)
+    store_last_claim(const int32_t* __restrict__ idx, unsigned long long* __restrict__ winner, uint32_t N, uint32_t S,
+                     uint32_t epoch) {
+  const unsigned long long tag = (unsigned long long)epoch << 32;
+  const uint32_t stride = gridDim.x * blockDim.x;
+  for (uint32_t j = blockIdx.x * blockDim.x + threadIdx.x; j < N; j += stride) {
+    const uint32_t r = (uint32_t)__ldg(idx + j);
+    if (r < S) atomicMax(winner + r, tag | j);
+  }
 }
 
+constexpr int kSlotIlp = 4;  // vectors a lane of store_last_slots loads before it stores
+
+// STORE_LAST, pass 2: out[s] = rows[j] where winner[s] holds this epoch's j,
+// else zeros. A warp takes 32 consecutive slots s0 .. s0 + n - 1 (grid-
+// stride over the groups): lane l loads winner[s0 + l]; the group's n rows
+// are n T VEC-wide vectors (T = R / VEC), contiguous in out; vector q of
+// them is chunk q % T of slot q / T (a shift where T is a power of two),
+// whose winner the warp shuffles from lane q / T. A lane loads kSlotIlp
+// vectors (32 apart) before it stores them.
 template <int VEC>
 __global__ void __launch_bounds__(kThreads)
-    store_last_write(const int32_t* __restrict__ idx, const float* __restrict__ rows,
-                     const int32_t* __restrict__ winner, float* __restrict__ out, uint32_t N, uint32_t S, int R, int T,
-                     int t_shift) {
-  const uint32_t n_items = N * (uint32_t)T;
-  const uint32_t stride = gridDim.x * blockDim.x;
-  for (uint32_t t = blockIdx.x * blockDim.x + threadIdx.x; t < n_items; t += stride) {
-    const uint32_t n = item_row(t, T, t_shift);
-    const int c = (int)(t - n * (uint32_t)T) * VEC;
-    const uint32_t r = (uint32_t)__ldg(idx + n);
-    if (r < S && winner[r] == (int32_t)n) {
-      float v[VEC];
-      load_vec<VEC>(rows + (size_t)n * R + c, v);
-      store_vec<VEC>(out + (size_t)r * R + c, v);
+    store_last_slots(const float* __restrict__ rows, const unsigned long long* __restrict__ winner,
+                     float* __restrict__ out, uint32_t S, int R, int T, int t_shift, uint32_t epoch) {
+  const uint32_t lane = threadIdx.x & 31u;
+  const uint32_t groups = (S + 31u) / 32u;
+  const uint32_t n_warps = (gridDim.x * blockDim.x) >> 5;
+  for (uint32_t g = (blockIdx.x * blockDim.x + threadIdx.x) >> 5; g < groups; g += n_warps) {
+    const uint32_t s0 = g * 32u;
+    const uint32_t n = min(32u, S - s0);
+    int32_t w = -1;
+    if (lane < n) {
+      const unsigned long long v = winner[s0 + lane];
+      if ((uint32_t)(v >> 32) == epoch) w = (int32_t)(uint32_t)v;
+    }
+    const uint32_t n_vec = n * (uint32_t)T;
+    float* o = out + (size_t)s0 * R;
+    for (uint32_t q0 = 0; q0 < n_vec; q0 += 32u * kSlotIlp) {
+      float v[kSlotIlp][VEC];
+#pragma unroll
+      for (int k = 0; k < kSlotIlp; ++k) {
+        const uint32_t q = q0 + 32u * k + lane;
+        const uint32_t slot = item_row(q, T, t_shift);
+        const int32_t ws = __shfl_sync(0xffffffffu, w, (int)(slot & 31u));
+        if (q < n_vec && ws >= 0) {
+          load_vec<VEC>(rows + (size_t)ws * R + (q - slot * (uint32_t)T) * VEC, v[k]);
+        } else {
+#pragma unroll
+          for (int e = 0; e < VEC; ++e) v[k][e] = 0.0f;
+        }
+      }
+#pragma unroll
+      for (int k = 0; k < kSlotIlp; ++k) {
+        const uint32_t q = q0 + 32u * k + lane;
+        if (q < n_vec) store_vec<VEC>(o + (size_t)q * VEC, v[k]);
+      }
     }
   }
 }
@@ -709,8 +851,6 @@ __global__ void __launch_bounds__(kDotThreads, 2)
   }
 }
 
-unsigned blocks_for(int64_t n, int threads) { return (unsigned)((n + threads - 1) / threads); }
-
 int set_smem(const void* fn, size_t bytes) {
   if (bytes <= 48 * 1024) return 0;
   return (int)cudaFuncSetAttribute(fn, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
@@ -728,6 +868,33 @@ void launch_rows_l2(int R, const int32_t* p, const float* t, const float* t2, co
     gather_rows_l2<VEC, 4, FC><<<grid, block, 0, st>>>(t, t2, ix, o, B, S, F, mode, flags, ts);
   } else {
     gather_rows_l2<VEC, 1, FC><<<grid, block, 0, st>>>(t, t2, ix, o, B, S, F, mode, flags, ts);
+  }
+}
+
+template <int VEC, int PC, bool ROUND>
+int launch_planes_pcr(const int32_t* p, const float* t, const int32_t* ix, float* o, cudaStream_t st) {
+  const size_t smem = (size_t)p[gSmem];
+  const int err = set_smem((const void*)gather_planes<VEC, PC, ROUND>, smem);
+  if (err) return err;
+  gather_planes<VEC, PC, ROUND><<<p[gGrid], kPlaneThreads, smem, st>>>(t, ix, o, p[gB], p[gS], p[gF], p[gPlanes],
+                                                                      p[gRuns], p[gRun]);
+  return (int)cudaGetLastError();
+}
+
+template <int VEC, int PC>
+int launch_planes_pc(const int32_t* p, const float* t, const int32_t* ix, float* o, cudaStream_t st) {
+  return (p[gFlags] & kRoundBf16) ? launch_planes_pcr<VEC, PC, true>(p, t, ix, o, st)
+                                  : launch_planes_pcr<VEC, PC, false>(p, t, ix, o, st);
+}
+
+template <int VEC>
+int launch_planes(const int32_t* p, const float* t, const int32_t* ix, float* o, cudaStream_t st) {
+  switch (p[gPlanes]) {
+    case 8: return launch_planes_pc<VEC, 8>(p, t, ix, o, st);
+    case 4: return launch_planes_pc<VEC, 4>(p, t, ix, o, st);
+    case 2: return launch_planes_pc<VEC, 2>(p, t, ix, o, st);
+    case 1: return launch_planes_pc<VEC, 1>(p, t, ix, o, st);
+    default: return launch_planes_pc<VEC, 0>(p, t, ix, o, st);
   }
 }
 
@@ -789,6 +956,12 @@ extern "C" int tcnn_probe_gather(const void* table, const void* table2, const vo
     } else {
       gather_rows_async<1><<<grid, block, smem, st>>>(t, ix, o, B, S, F, flags, ts);
     }
+  } else if (p[gPlanes] > 0) {  // ROW of a transposed table into feature-major tiles
+    if (mode != kRow || p[gThreads] != kPlaneThreads || t2 != nullptr || ts != kTileShift)
+      return (int)cudaErrorInvalidValue;
+    if (vec == 4) return launch_planes<4>(p, t, ix, o, st);
+    if (vec == 2) return launch_planes<2>(p, t, ix, o, st);
+    return launch_planes<1>(p, t, ix, o, st);
   } else if (mode == kTileSum) {
     if (p[gChunks] != kSumChunks || p[gThreads] != kSumThreads || (1 << ts) != kTile)
       return (int)cudaErrorInvalidValue;
@@ -822,10 +995,10 @@ extern "C" int tcnn_probe_gather(const void* table, const void* table2, const vo
   return (int)cudaGetLastError();
 }
 
-// Sets `out` (S, R) to zeros and, for STORE_LAST, `winner` (S int32) to -1,
-// then scatters.
+// ADD: sets `out` (S, R) to zeros, then adds. STORE_LAST: writes every row
+// of `out`; `winner` (S uint64) holds no entry of an epoch `epoch` or later.
 extern "C" int tcnn_probe_scatter(const void* idx, const void* rows, void* out, void* winner, const int32_t* plan,
-                                  void* stream) {
+                                  void* stream, uint32_t epoch) {
   const int32_t* p = plan;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const uint32_t N = p[sN], S = p[sS];
@@ -833,26 +1006,25 @@ extern "C" int tcnn_probe_scatter(const void* idx, const void* rows, void* out, 
   const int32_t* ix = static_cast<const int32_t*>(idx);
   const float* rw = static_cast<const float*>(rows);
   float* o = static_cast<float*>(out);
+  const dim3 grid(p[sGrid]), block(p[sThreads]);
+  if (p[sOp] == kStoreLast) {
+    if (S == 0 || R == 0 || p[sGrid] <= 0) return 0;
+    unsigned long long* win = static_cast<unsigned long long*>(winner);
+    if (N > 0 && p[sClaimGrid] > 0) store_last_claim<<<p[sClaimGrid], kThreads, 0, st>>>(ix, win, N, S, epoch);
+    if (vec == 4) {
+      store_last_slots<4><<<grid, block, 0, st>>>(rw, win, o, S, R, T, ts, epoch);
+    } else if (vec == 2) {
+      store_last_slots<2><<<grid, block, 0, st>>>(rw, win, o, S, R, T, ts, epoch);
+    } else {
+      store_last_slots<1><<<grid, block, 0, st>>>(rw, win, o, S, R, T, ts, epoch);
+    }
+    return (int)cudaGetLastError();
+  }
   int err = (int)cudaMemsetAsync(o, 0, (size_t)S * R * sizeof(float), st);
   if (err) return err;
-  if (p[sOp] == kStoreLast) {
-    err = (int)cudaMemsetAsync(winner, 0xff, (size_t)S * sizeof(int32_t), st);
-    if (err) return err;
-  }
   if (N == 0 || p[sGrid] <= 0) return (int)cudaGetLastError();
-  const dim3 grid(p[sGrid]), block(p[sThreads]);
   const size_t smem = (size_t)p[sSmem];
-  if (p[sOp] == kStoreLast) {
-    int32_t* win = static_cast<int32_t*>(winner);
-    store_last_claim<<<blocks_for(N, kThreads), kThreads, 0, st>>>(ix, win, N, S);
-    if (vec == 4) {
-      store_last_write<4><<<grid, block, 0, st>>>(ix, rw, win, o, N, S, R, T, ts);
-    } else if (vec == 2) {
-      store_last_write<2><<<grid, block, 0, st>>>(ix, rw, win, o, N, S, R, T, ts);
-    } else {
-      store_last_write<1><<<grid, block, 0, st>>>(ix, rw, win, o, N, S, R, T, ts);
-    }
-  } else if (p[sPrivate] > 0) {
+  if (p[sPrivate] > 0) {
     const void* fn = vec == 4 ? (const void*)scatter_add<4, true>
                    : vec == 2 ? (const void*)scatter_add<2, true> : (const void*)scatter_add<1, true>;
     err = set_smem(fn, smem);

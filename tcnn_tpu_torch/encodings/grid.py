@@ -130,6 +130,29 @@ def data_shards(n: int):
         _DATA_SHARDS = previous
 
 
+# The granularity a call's batch is padded to before the choices it
+# decides are made (``padded_batches``); 1 outside the module API.
+_BATCH_GRANULARITY = 1
+
+
+@contextlib.contextmanager
+def padded_batches(granularity: int):
+    """Within the block, every grid encoding makes the choices that the JAX
+    package makes from the batch (the levels' own rounding and the table
+    gradient's classes: the stratified tiles, the "auto" scatter gate) for
+    the call's batch padded to a multiple of ``granularity``, as the JAX
+    package's module API pads it before it applies the model
+    (tcnn_tpu/modules.py:Module.__call__); the kernels still run on the
+    call's own samples, whose outputs and gradients the padding rows do not
+    change."""
+    global _BATCH_GRANULARITY
+    previous, _BATCH_GRANULARITY = _BATCH_GRANULARITY, int(granularity)
+    try:
+        yield
+    finally:
+        _BATCH_GRANULARITY = previous
+
+
 def grid_scale(level: int, log2_per_level_scale: float, base_resolution: int) -> float:
     """(reference: common_device.h:886-891)"""
     return 2.0 ** (level * log2_per_level_scale) * base_resolution - 1.0
@@ -696,8 +719,9 @@ class GridEncoding(Encoding):
                 u = self._uniforms(rng, x.shape[0], x.device)
         classes, acc16, plan = None, False, None
         # The batch that decides the levels' own rounding and the gradient
-        # classes: the global one under data_shards.
-        batch = x.shape[0] * _DATA_SHARDS
+        # classes: the padded one under padded_batches, the global one under
+        # data_shards.
+        batch = next_multiple(x.shape[0], _BATCH_GRANULARITY) * _DATA_SHARDS
         if training:
             classes, acc16, plan = self._classes_on(x.device, batch, stratified, x.shape[0])
         meta = (

@@ -14,9 +14,18 @@ JAX package. ``apply(params, x)`` returns the padded output width like
 ``tcnn_tpu.modules.Module.apply``. Bring any torch optimizer:
 ``torch.optim.Adam(module.parameters())``.
 
-The kernels take any batch, so no padding to ``BATCH_SIZE_GRANULARITY``
-happens; every sample's outputs and gradients are those of the JAX modules'
-padded batch. Modules live on the CUDA card unless ``device`` names another.
+``forward`` makes the choices that the JAX modules make from the batch
+(the grid's own ``table_dtype`` rounding, its table gradient's classes and
+stratified tiles) for the batch padded to ``BATCH_SIZE_GRANULARITY``, as
+``tcnn_tpu.modules.Module.__call__`` pads it, but runs the kernels on the
+call's own samples (``encodings.grid.padded_batches``): no padding rows are
+copied or computed, and they would change no sample's outputs or
+gradients. So every sample's outputs and gradients are those of the JAX
+modules' call, except where the JAX package's padded batch breaks its
+stratified raster-tile contract and turns to NaN: there the port computes
+each sample and stays finite. ``apply``, like the JAX modules' ``apply``,
+decides on the batch as it is. Modules live on the CUDA card unless
+``device`` names another.
 """
 
 from __future__ import annotations
@@ -28,8 +37,9 @@ import numpy as np
 import torch
 from torch import nn
 
-from .common import resolve_device
+from .common import BATCH_SIZE_GRANULARITY, resolve_device
 from .encodings import create_encoding
+from .encodings.grid import padded_batches
 from .network_with_input_encoding import NetworkWithInputEncoding as _NWIE
 from .rng import make_rng
 
@@ -64,7 +74,9 @@ class Module(nn.Module):
         # uint32 positions (a fixed_point_pos grid) pass as they are, as in
         # the JAX package.
         x = x if x.dtype == torch.uint32 else x.float()
-        return self.apply(self.params, x)[:, : self.n_output_dims].float()
+        with padded_batches(BATCH_SIZE_GRANULARITY):
+            y = self.apply(self.params, x)
+        return y[:, : self.n_output_dims].float()
 
     def extra_repr(self) -> str:
         return f"n_input_dims={self.n_input_dims}, n_output_dims={self.n_output_dims}, n_params={self.n_params}"

@@ -14,7 +14,10 @@ rows are in flight (``csrc/probe_rows.cu``):
 - ``probe_gather``: in the modes ``MODE_*`` and from the sources
   ``SOURCE_*``: L2 (``__ldg``; a warp owns 32 x ``unroll`` rows, 4 a
   thread by default, lane l rows l + 32 u, every row one vector load before
-  any store; LANE: 4 lanes of a row a thread), SHARED
+  any store; LANE: 4 lanes of a row a thread; ROW of a transposed table
+  into feature-major tiles: each block stages whole feature planes of the
+  table in shared memory, then gathers a run of samples from them, where a
+  plane fits), SHARED
   (each block first stages the whole table in shared memory, only where it
   fits: the wrapper raises otherwise) or ASYNC (``cp.async`` of
   ``in_flight`` rows into a shared ring per block, then their stores).
@@ -23,8 +26,9 @@ rows are in flight (``csrc/probe_rows.cu``):
   ``ACC_SHARED`` where there are enough rows a slot, into per-block
   shared-memory copies of the whole (S, R) table flushed once per non-zero
   float4; ``OP_STORE_LAST`` writes, per slot, the row of the largest index
-  that reaches it (one ``atomicMax`` pass, then the write): a serial
-  loop's last write.
+  that reaches it (one ``atomicMax`` pass into the winners the wrapper
+  keeps, then a pass over the slots that writes every output row once, the
+  winner's or zeros): a serial loop's last write.
 - ``probe_gather_dot``: ``table[idx] @ w`` with ``w`` (F, 128), the gather
   and the product in one kernel, fp32 multiply-adds in registers: a warp
   takes 32 samples at a time, a lane 4 columns and their values of ``w``,
@@ -47,6 +51,7 @@ from __future__ import annotations
 
 import ctypes
 import functools
+import threading
 
 import torch
 
@@ -128,6 +133,7 @@ def probe_gather_plain(
     """The plain version of ``probe_gather`` (any source computes the same)."""
     if flags & FLAG_TRANSPOSED:
         table = table.t()
+        table2 = None if table2 is None else table2.t()
     S, F = table.shape
     if mode == MODE_ROW:
         out = _rows_or_zero(table, idx)
@@ -192,6 +198,7 @@ def probe_gather_dot_plain(table: torch.Tensor, idx: torch.Tensor, w: torch.Tens
 # Launch plans: host functions, reached by the CPU tests
 # ---------------------------------------------------------------------------
 SHARED_THREADS = 1024  # threads a block of the SHARED gather (one block an SM)
+PLANE_THREADS = 1024  # threads a block of the plane-staged gather (csrc/probe_rows.cu: kPlaneThreads)
 ROWS_PER_THREAD = 4  # the L2 gather's rows a thread (a warp's: 32 x 4)
 TILE_SHIFT = TILE.bit_length() - 1
 
@@ -202,11 +209,13 @@ class GatherPlan(Plan):
     (L2 ROW/WINDOW/COPY: a warp takes 32 x rows, lane l rows l + 32 u),
     ``per_row`` threads a row (LANE: quads of 4 lanes) and its log2
     (``per_row_shift``, -1 when no power of two), blocks of ``threads``,
-    ``grid`` blocks, ``smem_bytes`` of dynamic shared memory and
-    ``chunks`` a tile is gathered in (TILE_SUM; 0 otherwise)."""
+    ``grid`` blocks, ``smem_bytes`` of dynamic shared memory,
+    ``chunks`` a tile is gathered in (TILE_SUM; 0 otherwise), and for the
+    plane-staged route ``planes`` feature planes a block stages, ``runs``
+    sample runs of ``run`` samples (0 on the other routes)."""
 
     FIELDS = ("B", "S", "F", "mode", "source", "flags", "tile_shift", "vec", "rows", "per_row", "per_row_shift",
-              "threads", "grid", "smem_bytes", "chunks")
+              "threads", "grid", "smem_bytes", "chunks", "planes", "runs", "run")
 
 
 class ScatterPlan(Plan):
@@ -214,23 +223,55 @@ class ScatterPlan(Plan):
     floats a row chunk (load and atomic), ``per_row`` = R / vec threads a
     row (``per_row_shift`` its log2 or -1), ``private`` blocks adding into
     their own shared-memory copy of the table (0: straight into the result),
-    blocks of ``threads``, ``grid`` blocks and ``smem_bytes``."""
+    blocks of ``threads``, ``grid`` blocks and ``smem_bytes``. STORE_LAST:
+    ``grid`` blocks of the pass over the slots (a warp 32 slots at a time),
+    ``claim_grid`` blocks of the claim (a thread an index, grid-stride)."""
 
-    FIELDS = ("N", "S", "R", "op", "private", "vec", "per_row", "per_row_shift", "threads", "grid", "smem_bytes")
+    FIELDS = ("N", "S", "R", "op", "private", "vec", "per_row", "per_row_shift", "threads", "grid", "smem_bytes",
+              "claim_grid")
+
+
+def plane_bytes(B: int, S: int, F: int, planes: int, runs: int) -> int:
+    """The bytes the plane-staged gather moves: each block's planes staged
+    (F / planes groups of ``runs`` blocks, planes x S floats each), each
+    group's indices read and the output written once."""
+    return 4 * ((F // planes) * (runs * planes * S + B) + B * F)
+
+
+def plane_layout(B: int, S: int, F: int, n_sms: int = N_SMS):
+    """(planes, runs) of the plane-staged gather, or None where no feature
+    plane of S floats fits a block's shared memory: of the numbers of
+    planes that divide F and fit, each with one wave of blocks (F / planes
+    groups of runs = n_sms // groups, at least 1, at most a run a 32
+    samples), the one that moves the fewest bytes (``plane_bytes``; the
+    most planes on a tie)."""
+    fit = [p for p in range(F, 0, -1) if F % p == 0 and fits_shared(p * S)]
+    if not fit:
+        return None
+    layouts = [(p, max(1, min(ceil_div(B, 32), n_sms // (F // p)))) for p in fit]
+    return min(layouts, key=lambda layout: plane_bytes(B, S, F, *layout))
 
 
 @functools.lru_cache(maxsize=1024)
 def gather_plan(B: int, S: int, F: int, mode: int = MODE_ROW, source: int = SOURCE_L2, flags: int = 0,
                 table_align: int = 16, idx_align: int = 16, n_sms: int = N_SMS, unroll: int = None,
-                in_flight: int = 64) -> GatherPlan:
+                in_flight: int = 64, two_tables: bool = False, planes: int = None, runs: int = None) -> GatherPlan:
     """The launch plan of ``probe_gather`` for B rows of an (S, F) table.
     ``table_align`` / ``idx_align``: the alignment in bytes of the table's
     (and table2's) and the indices' data pointers; ``unroll``: the L2
     gather's rows a thread (default ROWS_PER_THREAD; a warp takes 32 x
-    that many).
+    that many); ``two_tables``: a second table serves the odd rows; ``planes`` /
+    ``runs``: the plane-staged route's layout in place of
+    ``plane_layout``'s (for measuring it).
 
+    - Route: ROW of a transposed table into feature-major tiles from L2 (no
+      second table, no ``unroll``) stages whole feature planes in each
+      block's shared memory where one fits (``plane_layout``); every other
+      call takes its mode's kernel.
     - Vector width: the widest of 4, 2, 1 floats that divides F and the
-      table's alignment (SHARED, ASYNC, L2 rows); 1 for a transposed table;
+      table's alignment (SHARED, ASYNC, L2 rows); 1 for a transposed table
+      read row by row; the plane-staged route stages the planes as the
+      widest vector that divides S and the table's alignment;
       LANE: 4 (an int4 of indices, a float4 store) where F is a multiple of
       4 and the indices are 16-byte aligned, else 1.
     - Grid: the grid-stride kernels (L2, LANE, SHARED, ASYNC) take at most
@@ -239,10 +280,25 @@ def gather_plan(B: int, S: int, F: int, mode: int = MODE_ROW, source: int = SOUR
       gathering threads.
     - Shared memory: the whole table (SHARED), in_flight rows (ASYNC), a
       tile's rows feature-major, each feature padded by TILE_SUM_PAD floats
-      (TILE_SUM)."""
+      (TILE_SUM), a block's planes (plane-staged).
+    - Plane-staged grid: F / planes groups x runs work items, a run of
+      ``run`` samples (a multiple of 32) each, at most the blocks the card
+      holds at once (grid-stride over the items)."""
     B, S, F = int(B), int(S), int(F)
     vec, rows, per_row, threads, smem, chunks = vec_width(F, table_align), 1, 1, THREADS, 0, 0
-    if source == SOURCE_SHARED:
+    n_planes = n_runs = run = 0
+    staged = (mode == MODE_ROW and source == SOURCE_L2 and not two_tables and unroll is None
+              and flags & FLAG_TRANSPOSED and flags & FLAG_FEATURE_MAJOR)
+    layout = None
+    if staged:
+        layout = (int(planes), int(runs)) if planes is not None else plane_layout(B, S, F, n_sms)
+    if layout is not None:
+        n_planes = layout[0]
+        run = 32 * ceil_div(ceil_div(B, 32), max(1, layout[1]))
+        n_runs = ceil_div(B, run) if B > 0 else 0
+        threads, smem, vec = PLANE_THREADS, 4 * n_planes * S, vec_width(S, table_align)
+        grid = min((F // n_planes) * n_runs, n_sms * resident_blocks(threads, smem))
+    elif source == SOURCE_SHARED:
         threads, smem = SHARED_THREADS, 4 * S * F
         grid = min(n_sms, ceil_div(B, threads))
     elif source == SOURCE_ASYNC:
@@ -263,7 +319,7 @@ def gather_plan(B: int, S: int, F: int, mode: int = MODE_ROW, source: int = SOUR
         grid = stride_grid(32 * ceil_div(B, 32 * rows), threads, n_sms)
     return GatherPlan(B=B, S=S, F=F, mode=mode, source=source, flags=flags, tile_shift=TILE_SHIFT, vec=vec, rows=rows,
                       per_row=per_row, per_row_shift=pow2_shift(per_row), threads=threads, grid=grid if B > 0 else 0,
-                      smem_bytes=smem, chunks=chunks)
+                      smem_bytes=smem, chunks=chunks, planes=n_planes, runs=n_runs, run=run)
 
 
 @functools.lru_cache(maxsize=1024)
@@ -273,24 +329,32 @@ def scatter_plan(N: int, S: int, R: int, acc: int = ACC_GLOBAL, n_sms: int = N_S
     ``align``: the alignment in bytes of the rows' data pointer.
 
     - Vector width: the widest of 4, 2, 1 floats dividing R and ``align``;
-      R / vec threads a row.
+      R / vec threads a row (ADD), vectors a slot's row (STORE_LAST).
     - ACC_SHARED privatises P = min(N // (FLUSH_SHARE * S), the blocks the
       card holds) blocks, each with a copy of the whole table: their flush,
       at most P * S * R entries, is at most 1 / FLUSH_SHARE of the N * R
       adds. Fewer than one block an SM would leave SMs idle while the adds
       are all the work, so then nothing is privatised and the adds go
       straight into the result, as for ACC_GLOBAL.
-    - Grid: at most the blocks the card holds at once (grid-stride)."""
+    - Grid: at most the blocks the card holds at once (grid-stride). ADD:
+      one item (a row's vector) a thread; STORE_LAST: the claim one index
+      a thread, the pass over the slots a warp 32 slots (every output row,
+      N = 0 too)."""
     N, S, R = int(N), int(S), int(R)
     vec = vec_width(R, align)
-    per_row, threads, private, smem = R // vec, THREADS, 0, 0
+    per_row, threads, private, smem, claim = R // vec, THREADS, 0, 0, 0
     if op == OP_ADD and acc == ACC_SHARED and S > 0:
         p = min(N // (FLUSH_SHARE * S), n_sms * resident_blocks(PRIVATE_THREADS, 4 * S * R))
         if p >= n_sms:
             private, smem, threads = p, 4 * S * R, PRIVATE_THREADS
-    grid = private if private else stride_grid(N * per_row, threads, n_sms)
+    if op == OP_STORE_LAST:
+        grid = stride_grid(32 * ceil_div(S, 32), threads, n_sms) if R > 0 else 0
+        claim = stride_grid(N, threads, n_sms)
+    else:
+        grid = private if private else stride_grid(N * per_row, threads, n_sms)
     return ScatterPlan(N=N, S=S, R=R, op=op, private=private, vec=vec, per_row=per_row,
-                       per_row_shift=pow2_shift(per_row), threads=threads, grid=grid, smem_bytes=smem)
+                       per_row_shift=pow2_shift(per_row), threads=threads, grid=grid, smem_bytes=smem,
+                       claim_grid=claim)
 
 
 class DotPlan(Plan):
@@ -325,7 +389,7 @@ def dot_plan(B: int, S: int, F: int, table_align: int = 16, n_sms: int = N_SMS) 
 # Kernels
 # ---------------------------------------------------------------------------
 _GATHER_ARGS = [ctypes.c_void_p] * 6
-_SCATTER_ARGS = [ctypes.c_void_p] * 6
+_SCATTER_ARGS = [ctypes.c_void_p] * 6 + [ctypes.c_uint32]
 _DOT_ARGS = [ctypes.c_void_p] * 6
 
 
@@ -400,7 +464,7 @@ def probe_gather(
             raise ValueError("probe_gather: table2 must have the table's shape")
         align = min(align, alignment(table2))
     plan = gather_plan(B, S, F, mode, source, int(flags), align, alignment(idx), sm_count(index), unroll,
-                       int(in_flight) if source == SOURCE_ASYNC else 64)
+                       int(in_flight) if source == SOURCE_ASYNC else 64, table2 is not None)
     if flags & FLAG_FEATURE_MAJOR:
         out = torch.empty((B // TILE, F, TILE), dtype=torch.float32, device=dev)
     elif mode == MODE_TILE_SUM:
@@ -415,6 +479,33 @@ def probe_gather(
     _launch("probe_gather", err)
     GATHER_LAUNCHES += 1
     return out
+
+
+# STORE_LAST's winner arrays, by (device index, raw stream handle), each
+# with the epoch of its last call: a slot's winner is (epoch << 32) | j, and
+# each call takes the next epoch, so an entry of an earlier call reads as
+# none and no call fills or resets the array (zeros when made, and again
+# after 2^32 - 1 calls). One a stream: calls on one stream run in order and
+# share it, two streams never do. A call being captured into a CUDA graph
+# gets its own array, zeroed in the graph, at epoch 1. The lock keeps two
+# threads from interleaving their epochs and launches on one stream.
+_WINNERS = {}
+_WINNERS_LOCK = threading.Lock()
+_LAST_EPOCH = 2**32 - 1
+
+
+def _winners(index: int, size: int, st: int):
+    """(a winner array of at least ``size`` int64 entries, the epoch of this
+    call): no entry of that epoch or a later one when the current stream
+    reaches the next launch."""
+    dev = torch.device("cuda", index)
+    if torch.cuda.is_current_stream_capturing():
+        return torch.zeros((size,), dtype=torch.int64, device=dev), 1
+    entry = _WINNERS.get((index, st))
+    if entry is None or entry[0].numel() < size or entry[1] >= _LAST_EPOCH:
+        entry = _WINNERS[(index, st)] = [torch.zeros((size,), dtype=torch.int64, device=dev), 0]
+    entry[1] += 1
+    return entry[0], entry[1]
 
 
 def probe_scatter(
@@ -444,12 +535,14 @@ def probe_scatter(
         raise ValueError(f"probe_scatter: a shared accumulator needs OP_ADD and a table that fits ({size} x {R})")
     plan = scatter_plan(N, size, R, acc, sm_count(index), alignment(rows), op)
     out = torch.empty((size, R), dtype=torch.float32, device=dev)
-    winner = torch.empty((size,), dtype=torch.int32, device=dev) if op == OP_STORE_LAST else None
     global SCATTER_LAUNCHES
-    err = kernel("probe_rows", "tcnn_probe_scatter", _SCATTER_ARGS)(
-        idx.data_ptr(), rows.data_ptr(), out.data_ptr(), None if winner is None else winner.data_ptr(),
-        plan.args_ptr, stream(index),
-    )
+    fn, st = kernel("probe_rows", "tcnn_probe_scatter", _SCATTER_ARGS), stream(index)
+    if op == OP_STORE_LAST:
+        with _WINNERS_LOCK:
+            winner, epoch = _winners(index, size, st)
+            err = fn(idx.data_ptr(), rows.data_ptr(), out.data_ptr(), winner.data_ptr(), plan.args_ptr, st, epoch)
+    else:
+        err = fn(idx.data_ptr(), rows.data_ptr(), out.data_ptr(), None, plan.args_ptr, st, 0)
     _launch("probe_scatter", err)
     SCATTER_LAUNCHES += 1
     return out

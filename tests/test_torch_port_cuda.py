@@ -795,6 +795,138 @@ def test_probe_scatter_store_last_is_the_last_write(dev, R):
     assert torch.equal(got, probe_rows.probe_scatter_plain(idx, rows, 4096, probe_rows.OP_STORE_LAST))
 
 
+@pytest.mark.parametrize("case", ["random", "one_slot", "sparse", "empty"])
+@pytest.mark.parametrize("R", [2, 3, 8])
+def test_probe_scatter_store_last_writes_every_row(dev, R, case):
+    """STORE_LAST's claim and slot pass bitwise the plain version: random
+    indices with some outside [0, size); every row on one slot; a few rows
+    into 2^17 slots (no row on most slots); N = 0 (all zeros). The output
+    comes from a cache block filled with NaN first, so every row must be
+    the kernel's own (the winner's or zeros), after a call that hit every
+    slot (its winners, of an earlier epoch, read as none); rows 4 bytes off
+    alignment take the scalar form; a second call, on another stream too,
+    and the calls around the last epoch (a fresh winner array after it)
+    give the same bits; each call counts one launch."""
+    pr = probe_rows
+    rng = np.random.default_rng(R + len(case))
+    size, N = {"random": (4096, 2**16), "one_slot": (4096, 5000), "sparse": (2**17, 100), "empty": (1000, 0)}[case]
+    idx = rng.integers(-50, size + 50, N).astype(np.int32)
+    if case == "one_slot":
+        idx[:] = 17
+    idx = torch.from_numpy(idx).to(dev)
+    rows = torch.from_numpy(rng.normal(0, 1, (N, R)).astype(np.float32)).to(dev)
+    want = pr.probe_scatter_plain(idx, rows, size, pr.OP_STORE_LAST)
+    every = torch.arange(size, dtype=torch.int32, device=dev)
+    pr.probe_scatter(every, torch.ones((size, R), device=dev), size, pr.OP_STORE_LAST)
+    for r in (rows, _offset_by_one(rows)):
+        junk = torch.full((size, R), float("nan"), device=dev)
+        del junk
+        before = pr.SCATTER_LAUNCHES
+        got = pr.probe_scatter(idx, r, size, pr.OP_STORE_LAST)
+        assert pr.SCATTER_LAUNCHES == before + 1
+        assert torch.equal(got, want), case
+        assert torch.equal(pr.probe_scatter(idx, r, size, pr.OP_STORE_LAST), want)
+    side = torch.cuda.Stream(dev)
+    side.wait_stream(torch.cuda.current_stream(dev))
+    with torch.cuda.stream(side):
+        other = pr.probe_scatter(idx, rows, size, pr.OP_STORE_LAST)
+    torch.cuda.current_stream(dev).wait_stream(side)
+    assert torch.equal(other, want)
+    key = (rows.device.index, pr.stream(rows.device.index))
+    pr._WINNERS[key][1] = pr._LAST_EPOCH - 1
+    for _ in range(2):  # the last epoch, then epoch 1 of a fresh array
+        assert torch.equal(pr.probe_scatter(idx, rows, size, pr.OP_STORE_LAST), want)
+    assert pr._WINNERS[key][1] == 1
+
+
+def test_probe_scatter_store_last_in_a_captured_graph(dev):
+    """A STORE_LAST call captured into a CUDA graph gets winners of its own,
+    zeroed in the graph: replays give the plain version's bits, with eager
+    calls on the capturing stream between them."""
+    pr = probe_rows
+    rng = np.random.default_rng(5)
+    idx = torch.from_numpy(rng.integers(-5, 2048 + 5, 2**14).astype(np.int32)).to(dev)
+    rows = torch.from_numpy(rng.normal(0, 1, (2**14, 8)).astype(np.float32)).to(dev)
+    want = pr.probe_scatter_plain(idx, rows, 2048, pr.OP_STORE_LAST)
+    side = torch.cuda.Stream(dev)
+    side.wait_stream(torch.cuda.current_stream(dev))
+    with torch.cuda.stream(side):
+        pr.probe_scatter(idx, rows, 2048, pr.OP_STORE_LAST)  # warm-up on the capturing stream
+    torch.cuda.current_stream(dev).wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph, stream=side):
+        out = pr.probe_scatter(idx, rows, 2048, pr.OP_STORE_LAST)
+    for _ in range(3):
+        graph.replay()
+        with torch.cuda.stream(side):
+            eager = pr.probe_scatter(idx, rows, 2048, pr.OP_STORE_LAST)
+        torch.cuda.synchronize()
+        assert torch.equal(out, want) and torch.equal(eager, want)
+
+
+def _gather_with_plan(table, idx, plan, flags):
+    """``probe_gather``'s launch with a given plan (a layout of the
+    plane-staged route that the plan's rule need not pick)."""
+    pr = probe_rows
+    out = torch.empty((plan.B // pr.TILE, plan.F, pr.TILE), dtype=torch.float32, device=table.device)
+    err = pr.kernel("probe_rows", "tcnn_probe_gather", pr._GATHER_ARGS)(
+        table.data_ptr(), None, idx.data_ptr(), out.data_ptr(), plan.args_ptr, pr.stream(table.device.index))
+    assert err == 0
+    return out
+
+
+@pytest.mark.parametrize("S2", [2**10, 2**15, 58112, 58113])
+@pytest.mark.parametrize("F", [1, 2, 3, 4, 8])
+def test_probe_gather_transposed_feature_major_planes(dev, F, S2):
+    """P17's route, ROW of a transposed (F, S2) table into feature-major
+    tiles, bitwise the plain version, indices outside [0, S2) reading
+    zeros, with and without FLAG_ROUND_BF16: planes staged in shared memory
+    where one fits (S2 = 58,112 floats: 227 KB), the row-by-row L2 gather
+    beyond (58,113). Feature-major output needs B a multiple of TILE (the
+    wrapper raises otherwise), so B is 3 tiles; every number of planes
+    that divides F and fits (1, 2, 4, 8 at compile time, 3 at run time)
+    and runs of 1, 3 and the card's SMs give the same bits; a table 4
+    bytes off alignment stages with scalar loads. Other flag combinations
+    keep their routes: transposed row-major output (any B), two tables,
+    ``unroll``."""
+    pr = probe_rows
+    B, flags = 3 * pr.TILE, pr.FLAG_TRANSPOSED | pr.FLAG_FEATURE_MAJOR
+    rng = np.random.default_rng(F * 7 + S2)
+    table = torch.from_numpy(rng.standard_normal((F, S2)).astype(np.float32)).to(dev)
+    idx = torch.from_numpy(rng.integers(-40, S2 + 40, B).astype(np.int32)).to(dev)
+    n_sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    fits = pr.fits_shared(S2)
+    for fl in (flags, flags | pr.FLAG_ROUND_BF16):
+        want = pr.probe_gather_plain(table, idx, flags=fl)
+        plan = pr.gather_plan(B, S2, F, pr.MODE_ROW, pr.SOURCE_L2, fl, 16, 16, n_sms)
+        assert (plan.planes > 0) == fits
+        junk = torch.full((B // pr.TILE, F, pr.TILE), float("nan"), device=dev)
+        del junk
+        before = pr.GATHER_LAUNCHES
+        assert torch.equal(pr.probe_gather(table, idx, flags=fl), want)
+        assert pr.GATHER_LAUNCHES == before + 1
+        if fits:
+            for planes in [p for p in range(1, F + 1) if F % p == 0 and pr.fits_shared(p * S2)]:
+                for runs in (1, 3, n_sms):
+                    forced = pr.gather_plan(B, S2, F, pr.MODE_ROW, pr.SOURCE_L2, fl, 16, 16, n_sms,
+                                            planes=planes, runs=runs)
+                    assert torch.equal(_gather_with_plan(table, idx, forced, fl), want), (planes, runs)
+    odd = _offset_by_one(table)
+    assert pr.alignment(odd) == 4
+    assert torch.equal(pr.probe_gather(odd, idx, flags=flags), pr.probe_gather_plain(table, idx, flags=flags))
+    t_idx = idx[: B - 5].contiguous()
+    assert pr.gather_plan(B - 5, S2, F, pr.MODE_ROW, pr.SOURCE_L2, pr.FLAG_TRANSPOSED).planes == 0
+    assert torch.equal(pr.probe_gather(table, t_idx, flags=pr.FLAG_TRANSPOSED),
+                       pr.probe_gather_plain(table, t_idx, flags=pr.FLAG_TRANSPOSED))
+    t2 = table + 1.0
+    assert pr.gather_plan(B, S2, F, pr.MODE_ROW, pr.SOURCE_L2, flags, two_tables=True).planes == 0
+    assert torch.equal(pr.probe_gather(table, idx, table2=t2, flags=flags),
+                       pr.probe_gather_plain(table, idx, table2=t2, flags=flags))
+    assert torch.equal(pr.probe_gather(table, idx, unroll=8, flags=flags), pr.probe_gather_plain(table, idx, flags=flags))
+    with pytest.raises(ValueError, match="multiple of the tile"):
+        pr.probe_gather(table, t_idx, flags=flags)
+
+
 @pytest.mark.parametrize("B", [1, 33, 2**15])
 @pytest.mark.parametrize("F", [1, 2, 3, 4, 8])
 def test_probe_gather_dot_matches_plain(dev, F, B):

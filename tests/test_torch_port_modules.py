@@ -11,7 +11,11 @@ nothing).
 Tolerances: outputs atol 1e-6 (fp32 encoding; the network's bf16 outputs
 come from the same roundings); parameter gradients atol 1e-5 of fp32 sums
 in another order, as tests/test_torch_modules.py; input gradients atol 1e-6
-relative to their magnitude (~2e-3 here).
+relative to their magnitude (~2e-3 here). A table gradient in the (RN, bf16)
+class against ``Module.__call__``'s: ``match_rae`` p99 within 1e-3 and mean
+within 1e-4 (bf16 sums of the same rounded contributions in another order
+differ in the last bits of under 1% of the entries; the fp32 class where the
+JAX package takes the bf16 one misses both by 4x or more).
 """
 
 import pickle
@@ -25,6 +29,9 @@ import torch
 import tcnn_tpu.modules as jm
 import tcnn_tpu_torch as tt
 import tcnn_tpu_torch.modules as tm
+from tcnn_tpu_torch.common import BATCH_SIZE_GRANULARITY, next_multiple
+from tcnn_tpu_torch.ops import scatter_rows as sr
+from utils import match_rae
 
 ENC = {
     "otype": "HashGrid", "n_levels": 4, "n_features_per_level": 2,
@@ -71,6 +78,42 @@ def test_gradients_match_jax(net, batch):
     gp_j, gx_j = jax.grad(jax_loss, argnums=(0, 1))(j.params, jnp.asarray(x_np))
     np.testing.assert_allclose(t.params.grad.numpy(), np.asarray(gp_j), rtol=0, atol=1e-5)
     np.testing.assert_allclose(x_t.grad.numpy(), np.asarray(gx_j), rtol=0, atol=1e-6)
+
+
+# A 2D grid whose one hashed level (2^17 entries) crosses the "auto" scatter
+# gate between a batch and its padded batch: per-corner rows (4 a sample)
+# of at least 65,536 into a level of more than 65,536 entries take the
+# (RN, bf16) class, so B = 16,257 (65,028 rows) stays fp32 unpadded and
+# turns bf16 padded to 16,384; no smaller batch crosses it.
+GATE_ENC = {
+    "otype": "HashGrid", "n_levels": 1, "n_features_per_level": 2, "log2_hashmap_size": 17,
+    "base_resolution": 512, "gather_strategy": "per_level",
+}
+
+
+@pytest.mark.parametrize("batch", [16257, 16384])
+def test_forward_decides_on_the_padded_batch_as_jax_call(batch):
+    """``forward`` gives the output and parameter gradient of the JAX
+    modules' ``__call__``, which pads the batch to BATCH_SIZE_GRANULARITY
+    and so takes the bf16 table gradient at B = 16,257 as at 16,384;
+    ``apply`` keeps the unpadded batch's fp32 class, as JAX ``apply``."""
+    t, j = tm.Encoding(2, GATE_ENC, seed=3, device="cpu"), jm.Encoding(2, GATE_ENC, seed=3)
+    enc = t._encoding
+    padded = next_multiple(batch, BATCH_SIZE_GRANULARITY)
+    assert enc.gradient_classes(16256).tolist() == enc.gradient_classes(next_multiple(16256, 128)).tolist()
+    assert enc.gradient_classes(16257).tolist() != enc.gradient_classes(16384).tolist()
+    assert enc.gradient_classes(padded)[0].tolist() == [sr.CONTRIB_RN, sr.ACC_BF16]
+    x = np.random.default_rng(0).uniform(0, 1, (batch, 2)).astype(np.float32)
+    w = np.random.default_rng(1).standard_normal((batch, t.n_output_dims)).astype(np.float32)
+    y = t(torch.from_numpy(x))
+    (y * torch.from_numpy(w)).sum().backward()
+    np.testing.assert_allclose(y.detach().numpy(), np.asarray(j(jnp.asarray(x))), rtol=0, atol=1e-6)
+    g_call = jax.grad(lambda p: jnp.sum(j(jnp.asarray(x), params=p) * jnp.asarray(w)))(j.params)
+    match_rae(t.params.grad.numpy(), np.asarray(g_call), 1e-3, percentile=99)
+    match_rae(t.params.grad.numpy(), np.asarray(g_call), 1e-4, mean_only=True)
+    applied = torch.autograd.grad((t.apply(t.params, torch.from_numpy(x)) * torch.from_numpy(w)).sum(), t.params)[0]
+    g_apply = jax.grad(lambda p: jnp.sum(j.apply(p, jnp.asarray(x)) * jnp.asarray(w)))(j.params)
+    match_rae(applied.numpy(), np.asarray(g_apply), 1e-3, percentile=99)
 
 
 def test_network_through_identity():

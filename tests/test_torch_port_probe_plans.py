@@ -283,17 +283,134 @@ def test_scatter_plan_at_the_probe_shapes():
     assert plan.vec == 2 and plan.per_row == 1
 
 
+def _store_last_cover(plan, N, S, R):
+    """STORE_LAST (csrc/probe_rows.cu: store_last_claim, store_last_slots):
+    how often the claim reads each index (a thread one, grid-stride over
+    ``claim_grid`` blocks) and how often the slot pass writes each output
+    element (warp w of the grid takes groups w, w + n_warps, ... of 32
+    slots; its lanes write the group's n slots' rows as n * per_row
+    vectors of ``vec`` floats, vector q at floats q * vec of the group's
+    span, SLOT_ILP of them a lane at a time)."""
+    claimed = np.bincount(_thread_items(N, type("P", (), {"grid": plan.claim_grid, "threads": plan.threads})()),
+                          minlength=N) if N else np.zeros(0, np.int64)
+    n_warps = plan.grid * plan.threads // 32
+    assert plan.threads % 32 == 0 and n_warps > 0
+    written = []
+    for g in range(-(-S // 32)):  # warp g % n_warps takes group g
+        n = min(32, S - 32 * g)
+        n_vec = n * plan.per_row
+        for q0 in range(0, n_vec, 32 * SLOT_ILP):
+            q = q0 + 32 * np.arange(SLOT_ILP)[:, None] + np.arange(32)[None, :]
+            q = q[q < n_vec]
+            assert ((q // plan.per_row) < 32).all()  # the lane a vector's winner is shuffled from
+            written.append(32 * g * R + (q[:, None] * plan.vec + np.arange(plan.vec)[None, :]).reshape(-1))
+    written = np.concatenate(written) if written else np.zeros(0, np.int64)
+    return claimed, np.bincount(written, minlength=S * R)
+
+
+SLOT_ILP = 4  # vectors a lane of store_last_slots has in flight (kSlotIlp)
+
+
 @pytest.mark.parametrize("N", SIZES)
 @pytest.mark.parametrize("acc", [pr.ACC_GLOBAL, pr.ACC_SHARED])
 def test_scatter_plan_covers_every_row_element_once(N, acc):
+    """ADD adds each element of the rows once; STORE_LAST's claim reads
+    each index once and its slot pass writes each output element once,
+    N = 0 too (the output is all zeros then), R vectors of the widest
+    width R and the alignment allow."""
     for R, align in ((1, 16), (2, 16), (3, 16), (8, 16), (8, 4)):
         for op in (pr.OP_ADD, pr.OP_STORE_LAST):
             plan = pr.scatter_plan(N, 16, R, acc if op == pr.OP_ADD else pr.ACC_GLOBAL, 132, align, op)
+            if op == pr.OP_STORE_LAST:
+                for S in (1, 16, 33, 4096 + 7):
+                    plan = pr.scatter_plan(N, S, R, pr.ACC_GLOBAL, 132, align, op)
+                    assert 1 <= plan.grid and plan.grid * plan.threads <= 132 * plans.SM_THREADS
+                    assert plan.claim_grid * plan.threads <= 132 * plans.SM_THREADS
+                    claimed, written = _store_last_cover(plan, N, S, R)
+                    assert (claimed == 1).all() and written.shape == (S * R,) and (written == 1).all()
+                    assert (plan.claim_grid == 0) == (N == 0)
+                continue
             if N == 0:
                 assert plan.grid == 0
                 continue
             cover = _scatter_cover(plan, N, R)
             assert cover.shape == (N * R,) and (cover == 1).all()
+
+
+PLANE_FLAGS = pr.FLAG_TRANSPOSED | pr.FLAG_FEATURE_MAJOR
+PLANE_GROUPS = 4  # groups of 32 samples a warp of gather_planes has in flight (kPlaneGroups)
+
+
+def _plane_cover(plan):
+    """How often the plane-staged gather (csrc/probe_rows.cu:
+    gather_planes) writes each output element of its (B / TILE, F, TILE)
+    output: block k takes work items k, k + grid, ...; item w stages plane
+    group w // runs (features planes * (w // runs) ..) and gathers run
+    w % runs (samples run * (w % runs) ..); warp k of the block takes the
+    run's groups of 32 samples k + n_warps * (u + PLANE_GROUPS * i)."""
+    B, F, P = plan.B, plan.F, plan.planes
+    n_warps = plan.threads // 32
+    items = np.arange((F // P) * plan.runs)
+    assert (np.bincount(items % plan.grid, minlength=plan.grid) > 0).all()  # no idle block
+    out = []
+    for w in items:
+        f0, b_begin = (w // plan.runs) * P, (w % plan.runs) * plan.run
+        b_end = min(B, b_begin + plan.run)
+        n_groups = -(-(b_end - b_begin) // 32)
+        groups = []
+        for warp in range(n_warps):
+            for g0 in range(warp, n_groups, n_warps * PLANE_GROUPS):
+                groups += [g0 + n_warps * u for u in range(PLANE_GROUPS) if g0 + n_warps * u < n_groups]
+        b = (b_begin + 32 * np.asarray(groups, np.int64)[:, None] + np.arange(32)[None, :]).reshape(-1)
+        b = b[b < b_end]
+        f = f0 + np.arange(P)
+        out.append(((((b[:, None] >> pr.TILE_SHIFT) * F + f[None, :]) << pr.TILE_SHIFT)
+                    + (b[:, None] & (pr.TILE - 1))).reshape(-1))
+    return np.bincount(np.concatenate(out), minlength=B * F)
+
+
+@pytest.mark.parametrize("S", [1, 1000, 2**10, 2**15, 58112, 58113])
+def test_plane_plan_fits_the_card_and_covers_every_output_element_once(S):
+    """The plane-staged gather (ROW of a transposed table into feature-major
+    tiles): taken where one plane of S floats fits a block (S <= 58,112)
+    and nowhere else (other flags, a second table, ``unroll``); planes
+    divides F and fits a block's 232,448 bytes; the layout is the one of
+    fewest bytes (``plane_bytes``) among one wave a plane count; grid within
+    what the card holds; runs of a multiple of 32 samples; every output
+    element written once, for the rule's layout and forced ones."""
+    for B in (0, pr.TILE, 3 * pr.TILE, 2**17):
+        for F in (1, 2, 3, 4, 8, 12):
+            plan = pr.gather_plan(B, S, F, pr.MODE_ROW, pr.SOURCE_L2, PLANE_FLAGS, 16, 16, 132)
+            fits = 4 * S <= BLOCK_SHARED_LIMIT
+            assert (plan.planes > 0) == fits
+            for other in (pr.gather_plan(B, S, F, pr.MODE_ROW, pr.SOURCE_L2, pr.FLAG_TRANSPOSED),
+                          pr.gather_plan(B, S, F, pr.MODE_ROW, pr.SOURCE_L2, pr.FLAG_FEATURE_MAJOR),
+                          pr.gather_plan(B, S, F, pr.MODE_ROW, pr.SOURCE_L2, PLANE_FLAGS, two_tables=True),
+                          pr.gather_plan(B, S, F, pr.MODE_ROW, pr.SOURCE_L2, PLANE_FLAGS, unroll=8)):
+                assert other.planes == other.runs == other.run == 0
+            if not fits:
+                continue
+            P = plan.planes
+            assert F % P == 0 and plan.smem_bytes == 4 * P * S <= BLOCK_SHARED_LIMIT
+            assert plan.threads == pr.PLANE_THREADS and S % plan.vec == 0
+            waves = [(p, max(1, min(-(-B // 32), 132 // (F // p))))
+                     for p in range(1, F + 1) if F % p == 0 and 4 * p * S <= BLOCK_SHARED_LIMIT]
+            layout = pr.plane_layout(B, S, F, 132)
+            assert P == layout[0] and layout in waves
+            assert pr.plane_bytes(B, S, F, *layout) == min(pr.plane_bytes(B, S, F, *w) for w in waves)
+            if B == 0:
+                assert plan.grid == 0
+                continue
+            assert plan.run % 32 == 0 and plan.runs == -(-B // plan.run)
+            layouts = [(None, None)] + ([(p, r) for p in range(1, F + 1) if F % p == 0 and 4 * p * S <= BLOCK_SHARED_LIMIT
+                                         for r in (1, 3, 300)] if B <= 3 * pr.TILE else [])
+            for planes, runs in layouts:
+                lp = pr.gather_plan(B, S, F, pr.MODE_ROW, pr.SOURCE_L2, PLANE_FLAGS, 16, 16, 132, planes=planes,
+                                    runs=runs) if planes else plan
+                assert 1 <= lp.grid <= 132 * plans.resident_blocks(lp.threads, lp.smem_bytes)
+                assert -(-lp.grid // 132) * (lp.smem_bytes + 1024) <= plans.SM_SHARED_BYTES or lp.grid <= 132
+                if B <= 3 * pr.TILE or (S == 2**10 and F == 8):
+                    assert (_plane_cover(lp) == 1).all(), (planes, runs)
 
 
 def test_plans_are_cached_and_carry_their_array():

@@ -155,20 +155,27 @@ def test_gather_dot_with_rows_outside_the_table_matches_k_fused(F):
 
 
 def test_probe_times_takes_the_probe_runs_inputs():
-    """``benchmarks.probe_times`` times P11 and P13 on ``probe_rows``'
-    own cases, and draws P11's inputs for its yardstick as ``probe_rows`` does:
-    on CPU tensors the same outputs bit for bit; the order bound's chain is
-    a tile long."""
+    """``benchmarks.probe_times`` times P11, P13, P14, P17 at both S2, P2's
+    SHARED case, P8-P10, P12 and P15-P18 on ``probe_rows``' own cases, and
+    draws P11's inputs for its yardstick as ``probe_rows`` does: on CPU
+    tensors the same outputs bit for bit; each profiler marker names its
+    kernels; the digests that ``--save`` / ``--compare`` hold tell outputs
+    apart."""
     from tcnn_tpu_torch.benchmarks import probe_times as pt
 
     dev = torch.device("cpu")
     cases = pt.probe_cases(dev)
-    assert sorted(cases) == ["P11", "P13"]
+    assert sorted(cases) == sorted(pt.PROBES) and {"P11", "P13", "P14", "P17 S2=2^10", "P17 S2=2^15"} <= set(cases)
     assert cases["P11"].shape == {"S": 2**15, "F": 8, "B": 2**17}
     table, idx, w = pt.dot_inputs(dev)
     assert torch.equal(pr.probe_gather_dot(table, idx, w), cases["P11"].run())
     assert torch.equal(cases["P13"].run(), pr.probe_gather_plain(table, idx, pr.MODE_TILE_SUM))
-    assert pt.MARKERS == {"P11": "gather_dot", "P13": "gather_tile_sum"}
+    assert cases["P17 S2=2^10"].shape["S"] == 2**10 and cases["P17 S2=2^15"].shape["S"] == 2**15
+    assert cases["P2 S=2^12"].source == "shared" and cases["P14"].source == "store_last"
+    assert [pt.PROBES[k][2] for k in ("P11", "P13", "P14")] == ["gather_dot", "gather_tile_sum", "store_last"]
+    out = {k: cases[k].run() for k in ("P13", "P14")}
+    d = pt.digests(out)
+    assert d["P13"] != d["P14"] and d == pt.digests({k: v.clone() for k, v in out.items()})
 
 
 def test_static_copy_and_tile_sum_match_the_probe_loops():
