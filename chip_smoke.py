@@ -164,8 +164,11 @@ Phases, each printing lines of its own; any failure exits non-zero:
    shapes, each kernel against its plain version (gathers, tile sums,
    copies and STORE_LAST bit-exact; ADD within 1e-6 of the sum of
    |contributions| per entry; the gather-dot within 1e-5 of max |plain|),
-   out-of-range rows reading zeros; then the path,
-   tcnn_tpu_torch.benchmarks.probe_rows --sweep with every count at 0: the
+   out-of-range rows reading zeros from every source (SHARED also from a
+   table 4 bytes off alignment, ASYNC also in groups of 16 rows); then the
+   path, tcnn_tpu_torch.benchmarks.probe_rows --sweep with every count at
+   0 (and the gather's launches by route, its SHARED and ASYNC routes among
+   them): the
    probes and the gather and scatter-add at the grid's row widths (F = 2, 8;
    S = 2^12 .. 2^23; B = 2^18 and 2^24; and the 3D model's own 6,522,408-row
    table at F = 2, B = 2^24) per source, ns/row beside the bytes
@@ -173,7 +176,10 @@ Phases, each printing lines of its own; any failure exits non-zero:
    (events around a call whose issue the device cannot see) and call time
    (events over back-to-back calls) of each probe case and of the JSON
    shape, kernel beside library call, and the host's microseconds a whole
-   call at P5 C1's size, the wrapper beside torch.gather.
+   call at P5 C1's size, the wrapper beside torch.gather; the redesigned
+   probe kernels and the modes next in line under torch.profiler beside
+   their bounds (P2, P18, P8 and P9 also beside the L2 route on the same
+   inputs), and the redesigned kernels' registers (a spill fails).
 15. floors: the grid kernels' random rows (lookup on uniform and
    stratified flagship points, v1 beside it, and in 3D; table gradient on
    the stratified batch, uniform points and the 3D model, G1, G2) against the
@@ -2098,10 +2104,16 @@ def phase_probes(card):
     idx = torch.randint(-100, 4096 + 100, (2**18,), generator=gen, device=dev, dtype=torch.int32)
     rows = torch.randn((2**18, 8), generator=gen, device=dev)
     want = pr.probe_gather_plain(table, idx)
-    for source, kw in ((pr.SOURCE_L2, {}), (pr.SOURCE_L2, {"unroll": 8}), (pr.SOURCE_SHARED, {}),
-                       (pr.SOURCE_ASYNC, {"in_flight": 64})):
-        check(torch.equal(pr.probe_gather(table, idx, source=source, **kw), want),
-              f"probe_gather {pr.SOURCE_NAMES[source]} {kw}: rows outside the table do not read zeros")
+    # SHARED also from a table 4 bytes off alignment (scalar copies); ASYNC
+    # also in groups of 16 rows.
+    odd = torch.empty(table.numel() + 1, device=dev)[1:].view(table.shape)
+    odd.copy_(table)
+    for t, source, kw in ((table, pr.SOURCE_L2, {}), (table, pr.SOURCE_L2, {"unroll": 8}),
+                          (table, pr.SOURCE_SHARED, {}), (odd, pr.SOURCE_SHARED, {}),
+                          (table, pr.SOURCE_ASYNC, {"in_flight": 64}), (table, pr.SOURCE_ASYNC, {"in_flight": 16})):
+        check(torch.equal(pr.probe_gather(t, idx, source=source, **kw), want),
+              f"probe_gather {pr.SOURCE_NAMES[source]} {kw} (alignment {pr.alignment(t)}): rows outside the table "
+              f"do not read zeros")
     w = torch.randn((8, pr.DOT_COLS), generator=gen, device=dev)
     got, ref = pr.probe_gather_dot(table, idx, w), pr.probe_gather_dot_plain(table, idx, w)
     check(float((got - ref).abs().max()) <= drv.DOT_TOL * float(ref.abs().max()), "probe_gather_dot: outside rows")
@@ -2127,12 +2139,17 @@ def phase_probes(card):
         f"source and the scatters skip them; max|diff| {errs}")
 
     _zero_counts(PROBE_COUNTERS)
+    pr.GATHER_ROUTE_LAUNCHES.clear()
     result = drv.main(["--sweep"])
     torch.cuda.synchronize()
     launches = _read_counts(PROBE_COUNTERS)
+    routes = dict(sorted(pr.GATHER_ROUTE_LAUNCHES.items()))
     for k, v in launches.items():
         check(v > 0, f"probes: kernel {k} was not launched on the probe run's path")
-    log(f"probes: kernel launches of the probe run (every count at 0 before it): {launches}")
+    for route in ("shared", "async"):
+        check(routes.get(route, 0) > 0, f"probes: the gather's {route} route was not launched on the probe run's path")
+    log(f"probes: kernel launches of the probe run (every count at 0 before it): {launches}; the gather's by route: "
+        f"{routes}")
 
     # The sweep, by (operation, S, F, B): each source's ns/row beside the
     # library call's and the bytes bound (idx, the distinct rows touched and
@@ -2199,6 +2216,8 @@ def phase_probes(card):
         elif p.startswith("P17"):
             extra = (f"; random-sector floor of the L2 route {rec['sector_floor_ms']:.4f} ms ({pt['sector_ns']:.5f} "
                      f"ns a sector x B F)")
+        elif "l2_kernel_ms" in rec:
+            extra = f"; the L2 route on the same inputs {rec['l2_kernel_ms']:.4f} ms under torch.profiler"
         log(f"probe device [{card}]: {p} {rec['label']} [{rec['source']}]: kernel {rec['kernel_ms']:.4f} ms under "
             f"torch.profiler (mean of the {rec['profiled_calls']} of 100 launches it recorded; the call's device "
             f"activities {rec['call_device_ms']:.4f}; events behind a spin {rec['event_ms']:.4f}, their floor "
@@ -2206,7 +2225,8 @@ def phase_probes(card):
             f"({rec['bound_by']}), {rec['bound_share']:.3f} of it" + extra)
     regs = probe_times.ptxas()
     for name, (n_regs, spill_st, spill_ld) in regs.items():
-        if any(k in name for k in ("gather_dot", "gather_tile_sum", "gather_planes", "store_last")):
+        if any(k in name for k in ("gather_dot", "gather_tile_sum", "gather_planes", "store_last", "gather_rows_shared",
+                                   "gather_rows_async")):
             log(f"probe kernel: {name}: {n_regs} registers, spill stores {spill_st} B, spill loads {spill_ld} B")
             check(spill_st == 0 and spill_ld == 0, f"probes: {name} spills")
     keep = ("kernel_ms", "call_device_ms", "call_ms", "bound_ms", "bound_by", "max_abs_err")
@@ -2215,6 +2235,9 @@ def phase_probes(card):
     times["probe_gather"]["planes"] = {p: {k: pt[p][k] for k in keep + ("sector_floor_ms",)}
                                        for p in ("P17 S2=2^10", "P17 S2=2^15")}
     times["probe_scatter"]["store_last"] = {k: pt["P14"][k] for k in keep}
+    times["probe_gather"]["shared_async"] = {p: {k: pt[p][k] for k in keep + ("l2_kernel_ms",)}
+                                             for p in probe_times.ROW_PROBES}
+    times["probe_gather"]["routes"] = routes
     log(f"probes: phase {time.perf_counter() - t_phase:.1f} s")
     return {"launches": launches, "errs": errs, "times": times, "records": result["probes"]}
 
@@ -3960,7 +3983,7 @@ def main() -> int:
                            ("probe_gather_dot", "benchmarks/probe_r5_pallas_gather2.py:348")):
         row = entry(name, "probe_rows.cu", replaces, probes["launches"][name], probes["errs"][name], None, "probes",
                     probes["times"][name])
-        for extra in ("device_ms", "tile_sum", "planes", "store_last"):
+        for extra in ("device_ms", "tile_sum", "planes", "store_last", "shared_async", "routes"):
             if extra in probes["times"][name]:
                 row[extra] = probes["times"][name][extra]
         kernels.append(row)

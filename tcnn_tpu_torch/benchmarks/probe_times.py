@@ -2,7 +2,8 @@
 ``benchmarks.probe_rows``, on the card: P11 (``probe_gather_dot``), P13
 (``probe_gather`` TILE_SUM), P14 (``probe_scatter`` STORE_LAST), P17 (the
 transposed, feature-major gather at S2 = 2^10 and 2^15), P2's SHARED
-gather, P8 / P9 (ASYNC, 16 / 64 rows in flight), P18 (SHARED, bf16), P10 /
+gather, P6 / P7 (L2, 1 / 8 rows a thread), P8 / P9 (ASYNC, 16 / 64 rows in
+flight), P18 (SHARED, bf16), P10 /
 P15 (WINDOW, aligned), P12 (COPY) and P16 (ROW over two tables).
 
 The inputs are the probe run's own (``benchmarks.probe_rows.build_cases``
@@ -33,7 +34,11 @@ bitwise), then timed:
   table, by CUDA events over back-to-back calls);
 - P11's two-call yardstick, as information: ``torch.index_select`` of the
   rows, then ``torch.matmul`` with w in fp32 (``library_device_ms``: both
-  calls' device time under the profiler).
+  calls' device time under the profiler);
+- the L2 route's yardstick of P2, P18, P8 and P9, as information: the same
+  ROW gather through ``gather_rows_l2`` (``probe_gather`` from L2) on the
+  same inputs, its output bitwise the probe's, its kernel's device time
+  under the profiler (``l2_kernel_ms``).
 
 ``--save PATH`` writes the SHA-256 of every output's bytes (JSON; P11's
 output alone is 64 MiB); ``--compare PATH`` holds them bit for bit against
@@ -77,6 +82,8 @@ PROBES = {
     "P17 S2=2^10": ("dyngather_sel", "S2^10 ", "gather"),
     "P17 S2=2^15": ("dyngather_sel", "S2^15 ", "gather"),
     "P2 S=2^12": ("brk", "S=4096", "gather_rows_shared"),
+    "P6": ("sp_serial", "", "gather_rows_l2"),
+    "P7": ("sp_unroll8", "", "gather_rows_l2"),
     "P8": ("bs_dma_k", "", "gather_rows_async"),
     "P9": ("manual_dma", "", "gather_rows_async"),
     "P18": ("onehot_mxu", "", "gather_rows"),
@@ -85,6 +92,34 @@ PROBES = {
     "P12": ("static_copy", "", "gather_rows_l2"),
     "P16": ("two_stream", "", "gather_rows_l2"),
 }
+
+
+def row_inputs(dev, key):
+    """(table, idx, flags) of the ROW gather of probe ``key`` (P2 S=2^12,
+    P18, P8, P9) as ``probe_rows`` draws them at its defaults: P2's from the
+    generator of seed 0 that first draws P1-P4's S = 4,096 table and its
+    2^18 indices; P8's and P9's the (2^15, 8) table and 2^17 indices of a
+    second generator of seed 0, P18's that table's first 1,024 rows, its
+    indices mod 1,024, rounded to bf16."""
+    import numpy as np
+    import torch
+
+    from ..ops import probe_rows as pr
+
+    r = np.random.default_rng(0)
+    if key.startswith("P2"):
+        table = r.normal(size=(4096, 8)).astype(np.float32)
+        idx = r.integers(0, 4096, 2**18).astype(np.int32)
+        return torch.from_numpy(table).to(dev), torch.from_numpy(idx).to(dev), 0
+    table = torch.from_numpy(r.standard_normal((2**15, 8)).astype(np.float32)).to(dev)
+    idx = torch.from_numpy(r.integers(0, 2**15, (2**17,)).astype(np.int32)).to(dev)
+    if key == "P18":
+        return table[:1024].contiguous(), idx % 1024, pr.FLAG_ROUND_BF16
+    return table, idx, 0
+
+
+# The probes with an L2 route yardstick (row_inputs).
+ROW_PROBES = ("P2 S=2^12", "P18", "P8", "P9")
 
 
 def probe_cases(dev, keys=None):
@@ -225,6 +260,14 @@ def times(calls: int = 200, reps: int = 50, keys=None) -> dict:
             for p in p17:
                 shape = out[p]["shape"]
                 out[p]["sector_floor_ms"] = shape["B"] * shape["F"] * out["sector_ns"] * 1e-6
+        for p in ROW_PROBES:
+            if p not in out:
+                continue
+            table, idx, flags = row_inputs(dev, p)
+            l2 = lambda t=table, i=idx, f=flags: pr.probe_gather(t, i, flags=f)  # noqa: E731
+            if not torch.equal(l2(), outputs[p]):
+                raise AssertionError(f"probe_times: the L2 route on row_inputs differs from {p}'s output")
+            out[p]["l2_kernel_ms"] = _profiled(l2, calls, "gather_rows_l2")[0]
         if "P11" in out:
             table, idx, w = dot_inputs(dev)
             if not torch.equal(pr.probe_gather_dot(table, idx, w), outputs["P11"]):

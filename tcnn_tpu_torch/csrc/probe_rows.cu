@@ -51,10 +51,14 @@
 //     fixed. Where one plane does not fit, the L2 gather below.
 //   - LANE (gather_lanes): a thread owns 4 consecutive lanes of one row: an
 //     int4 of indices, 4 random table reads, one float4 store.
-//   - SHARED stages the whole table in each block (vector loads), then
-//     gathers from it; ASYNC copies in_flight rows a block with cp.async
-//     into a shared ring, waits, then stores (the TPU probe's "start G
-//     DMAs, wait G, store"). Both store VEC-wide.
+//   - SHARED (gather_rows_shared): persistent blocks, one wave, each stage
+//     the whole table in shared memory by cp.async, every copy of a thread
+//     in flight at once, while every thread loads its first indices; then
+//     warps gather 32 R rows at a time and store them as contiguous
+//     vectors. ASYNC (gather_rows_async): each warp copies a group of
+//     in_flight rows by cp.async into its own slice of shared memory,
+//     waits for it and stores it, no block barrier (the TPU probe's "start
+//     G DMAs, wait G, store").
 //   - TILE_SUM (gather_tile_sum_chunked): one block a tile, its summing
 //     warp beside kSumChunks chunks of kChunkRows gathering threads. The
 //     sum of a feature over a tile is one chain of 2048 dependent fp32 adds
@@ -113,7 +117,7 @@ enum Op { kAdd = 0, kStoreLast = 1 };
 // ScatterPlan.args), entry by entry.
 enum GatherArg {
   gB, gS, gF, gMode, gSource, gFlags, gTileShift, gVec, gRows, gPerRow, gPerRowShift, gThreads, gGrid, gSmem, gChunks,
-  gPlanes, gRuns, gRun
+  gPlanes, gRuns, gRun, gInFlight
 };
 enum ScatterArg { sN, sS, sR, sOp, sPrivate, sVec, sPerRow, sPerRowShift, sThreads, sGrid, sSmem, sClaimGrid };
 enum DotArg { dB, dS, dF, dVec, dInFlight, dThreads, dGrid };
@@ -411,74 +415,208 @@ __global__ void __launch_bounds__(kThreads)
   }
 }
 
-// ROW from shared memory: the block stages the whole (S, F) table (S * F *
-// 4 <= 227 KB, checked by the wrapper) with VEC-wide loads, then its threads
-// gather from it, one row a thread, VEC-wide.
-template <int VEC>
-__global__ void gather_rows_shared(const float* __restrict__ table, const int32_t* __restrict__ idx,
-                                   float* __restrict__ out, uint32_t B, uint32_t S, int F, int flags,
-                                   int tile_shift) {
-  extern __shared__ __align__(16) float smem[];
-  const uint32_t n = S * (uint32_t)F;
-  for (uint32_t i = threadIdx.x * VEC; i < n; i += blockDim.x * VEC) {
-    float v[VEC];
-    load_vec<VEC>(table + i, v);
-    store_vec<VEC>(smem + i, v);
-  }
-  __syncthreads();
-  const uint32_t stride = gridDim.x * blockDim.x;
-  for (uint32_t b = blockIdx.x * blockDim.x + threadIdx.x; b < B; b += stride) {
-    const uint32_t r = (uint32_t)__ldg(idx + b);
-    for (int f = 0; f < F; f += VEC) {
-      float v[VEC];
-      if (r < S) {
-        load_vec_shared<VEC>(smem + r * (uint32_t)F + f, v);
-      } else {
-#pragma unroll
-        for (int k = 0; k < VEC; ++k) v[k] = 0.0f;
-      }
-#pragma unroll
-      for (int k = 0; k < VEC; ++k) v[k] = maybe_round(v[k], flags);
-      store_row<VEC, VEC>(out, b, f, v, F, tile_shift, flags);
-    }
+// cp.async of BYTES (4, 8 or 16) that reads `src_bytes` (BYTES or 0) from
+// global memory and fills the rest of the BYTES with zeros.
+template <int BYTES>
+__device__ __forceinline__ void cp_async_zfill(void* smem_dst, const void* gmem_src, uint32_t src_bytes) {
+  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(smem_dst));
+  if constexpr (BYTES == 16) {
+    asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(s), "l"(gmem_src), "r"(src_bytes) : "memory");
+  } else {
+    asm volatile("cp.async.ca.shared.global [%0], [%1], %2, %3;\n" ::"r"(s), "l"(gmem_src), "n"(BYTES),
+                 "r"(src_bytes)
+                 : "memory");
   }
 }
 
-// ROW through cp.async: blockDim.x = in_flight threads; each round every
-// thread copies one row (VEC floats a copy) into its slot of the block's
-// ring, the block waits for all of them, and each thread stores its row
-// VEC-wide.
-template <int VEC>
-__global__ void gather_rows_async(const float* __restrict__ table, const int32_t* __restrict__ idx,
-                                  float* __restrict__ out, uint32_t B, uint32_t S, int F, int flags, int tile_shift) {
-  extern __shared__ __align__(16) float ring[];
-  float* slot = ring + threadIdx.x * F;
-  const uint32_t stride = gridDim.x * blockDim.x;
-  for (uint32_t b = blockIdx.x * blockDim.x + threadIdx.x; b - threadIdx.x < B; b += stride) {
-    const uint32_t r = b < B ? (uint32_t)__ldg(idx + b) : 0xffffffffu;
-    const bool ok = r < S;
-    if (ok) {
-      const float* src = table + (size_t)r * F;
-      for (int f = 0; f < F; f += VEC) cp_async<4 * VEC>(slot + f, src + f);
-    }
-    asm volatile("cp.async.commit_group;\n" ::: "memory");
-    asm volatile("cp.async.wait_group 0;\n" ::: "memory");
-    __syncthreads();
-    if (b < B) {
-      for (int f = 0; f < F; f += VEC) {
-        float v[VEC];
-        if (ok) {
-          load_vec_shared<VEC>(slot + f, v);
-        } else {
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
+__device__ __forceinline__ void cp_async_commit() { asm volatile("cp.async.commit_group;\n" ::: "memory"); }
+
+// Row q / T of a group of rows T vectors long (a shift where T is a power
+// of two).
+__device__ __forceinline__ uint32_t vector_row(uint32_t q, int T, int t_shift) {
+  return t_shift >= 0 ? q >> t_shift : q / (uint32_t)T;
+}
+
+constexpr int kSharedThreads = 1024;
+
+// SHARED: ROW from a copy of the whole (S, F) table in each block's shared
+// memory (4 S F bytes <= 227 KB, checked by the wrapper). Persistent
+// blocks of kSharedThreads, one wave. The block's threads copy the table
+// with cp.async, VEC floats a copy and every copy of a thread in flight at
+// once; meanwhile each thread loads the indices of its first R rows, then
+// waits for its copies and the block synchronises. Then the warps take
+// groups of 32 R rows (grid-stride; the next group's indices loaded
+// ahead), lane l owning rows base + l + 32 u as in gather_rows_l2.
+// Row-major output: the 32 rows of each u are 32 T contiguous vectors (T =
+// F / VEC); lane l gathers and stores vectors l + 32 k from shared memory,
+// the row's index shuffled from its owner, so each store of the warp writes
+// 32 contiguous vectors. Feature-major: lane l stores its own row's F
+// values, a warp 128 contiguous bytes a feature. R, VEC and the rounding
+// are compile-time. Staging by bulk copies (TMA) on an mbarrier, multicast
+// over thread-block clusters of 1-8 blocks, measured slower at the probes'
+// tables (about twice cp.async's staging time; a cluster costs about 1 us
+// of its own; PERF.md).
+template <int VEC, int R, bool ROUND>
+__global__ void __launch_bounds__(kSharedThreads, 1)
+    gather_rows_shared(const float* __restrict__ table, const int32_t* __restrict__ idx, float* __restrict__ out,
+                       uint32_t B, uint32_t S, int F, int T, int t_shift, int flags) {
+  extern __shared__ __align__(16) float tab[];
+  const uint32_t n = S * (uint32_t)F;
+  const uint32_t lane = threadIdx.x & 31u;
+  const uint32_t n_warps = (gridDim.x * blockDim.x) >> 5;
+  const uint32_t groups = (B + 32u * R - 1) / (32u * R);
+  for (uint32_t i = threadIdx.x * VEC; i < n; i += blockDim.x * VEC) cp_async<4 * VEC>(tab + i, table + i);
+  cp_async_commit();
+  uint32_t g = (blockIdx.x * blockDim.x + threadIdx.x) >> 5;
+  uint32_t r[R];
+  row_indices<R>(idx, g * 32u * R + lane, B, kRow, 0, 0, r);
+  cp_async_wait<0>();
+  __syncthreads();
+  const bool feature_major = flags & kFeatureMajor;
+  for (; g < groups; g += n_warps) {
+    uint32_t next[R];
+    row_indices<R>(idx, (g + n_warps) * 32u * R + lane, B, kRow, 0, 0, next);
 #pragma unroll
-          for (int k = 0; k < VEC; ++k) v[k] = 0.0f;
+    for (int u = 0; u < R; ++u) {
+      const uint32_t b0 = g * 32u * R + 32u * u;
+      if (b0 >= B) break;
+      if (feature_major) {
+        if (b0 + lane < B) {
+          for (int f = 0; f < F; ++f)
+            out[out_at(b0 + lane, f, F, kTileShift, flags)] = round_if<ROUND>(r[u] < S ? tab[r[u] * F + f] : 0.0f);
         }
+      } else {
+        const uint32_t nv = min(32u, B - b0) * (uint32_t)T;
+        float* o = out + (size_t)b0 * F;
+        for (uint32_t q = lane; q < 32u * T; q += 32u) {
+          const uint32_t j = vector_row(q, T, t_shift);
+          const uint32_t rj = __shfl_sync(0xffffffffu, r[u], (int)j);
+          if (q < nv) {
+            float v[VEC];
+            if (rj < S) {
+              load_vec_shared<VEC>(tab + rj * (uint32_t)F + (q - j * (uint32_t)T) * VEC, v);
+            } else {
 #pragma unroll
-        for (int k = 0; k < VEC; ++k) v[k] = maybe_round(v[k], flags);
-        store_row<VEC, VEC>(out, b, f, v, F, tile_shift, flags);
+              for (int k = 0; k < VEC; ++k) v[k] = 0.0f;
+            }
+#pragma unroll
+            for (int k = 0; k < VEC; ++k) v[k] = round_if<ROUND>(v[k]);
+            store_vec<VEC>(o + (size_t)q * VEC, v);
+          }
+        }
       }
     }
-    __syncthreads();
+#pragma unroll
+    for (int u = 0; u < R; ++u) r[u] = next[u];
+  }
+}
+
+constexpr int kAsyncWarps = 8;      // warps a block of the ASYNC gather at most (ops/probe_rows.py: ASYNC_WARPS)
+constexpr int kAsyncPrefetch = 4;   // vectors a lane whose indices are loaded a group ahead
+
+// ASYNC's indices of group g for the lane's vectors q = lane + 32 k (k <
+// kAsyncPrefetch) of the group's G T: the index of row g G + row[k] (row[k]
+// = q / T, computed once a thread), or ~0 past the group, the batch or the
+// groups.
+__device__ __forceinline__ void async_indices(const int32_t* __restrict__ idx, uint32_t g, uint32_t groups, uint32_t G,
+                                              uint32_t B, uint32_t gvec, uint32_t lane,
+                                              const uint32_t (&row)[kAsyncPrefetch], uint32_t (&r)[kAsyncPrefetch]) {
+#pragma unroll
+  for (int k = 0; k < kAsyncPrefetch; ++k) {
+    const uint32_t b = g * G + row[k];
+    r[k] = g < groups && lane + 32u * k < gvec && b < B ? (uint32_t)__ldg(idx + b) : 0xffffffffu;
+  }
+}
+
+// ASYNC's copy of vector q of a group (row j, chunk q - j T) from table
+// row r into `slot`, a zero-byte source for a row outside the table.
+template <int VEC>
+__device__ __forceinline__ void async_copy(const float* __restrict__ table, float* slot, uint32_t q, uint32_t j,
+                                           uint32_t r, uint32_t S, int F, int T) {
+  const bool in = r < S;
+  const float* src = in ? table + (size_t)r * F + (q - j * (uint32_t)T) * VEC : table;
+  cp_async_zfill<4 * VEC>(slot + (size_t)q * VEC, src, in ? 4u * VEC : 0u);
+}
+
+// ASYNC's copies of group g into `slot`: lane l copies vectors l + 32 k of
+// the group's G T, the indices of its first kAsyncPrefetch vectors (rows
+// `row`) from `pre`, the rest loaded as they are issued (~0 past the batch).
+template <int VEC>
+__device__ __forceinline__ void async_issue(const float* __restrict__ table, const int32_t* __restrict__ idx,
+                                            float* slot, uint32_t g, uint32_t G, uint32_t B, uint32_t S, int F,
+                                            uint32_t gvec, int T, int t_shift, uint32_t lane,
+                                            const uint32_t (&row)[kAsyncPrefetch],
+                                            const uint32_t (&pre)[kAsyncPrefetch]) {
+#pragma unroll
+  for (int k = 0; k < kAsyncPrefetch; ++k) {
+    const uint32_t q = lane + 32u * k;
+    if (q < gvec) async_copy<VEC>(table, slot, q, row[k], pre[k], S, F, T);
+  }
+  for (uint32_t q = lane + 32u * kAsyncPrefetch; q < gvec; q += 32u) {
+    const uint32_t j = vector_row(q, T, t_shift);
+    const uint32_t b = g * G + j;
+    async_copy<VEC>(table, slot, q, j, b < B ? (uint32_t)__ldg(idx + b) : 0xffffffffu, S, F, T);
+  }
+}
+
+// ASYNC: ROW through cp.async, a copy group at a time a warp. Group g is
+// rows g G .. g G + G - 1 (G = in_flight), G T vectors of VEC floats (T =
+// F / VEC); warp w of the grid takes groups w, w + n_warps, ... into its
+// own slice of shared memory: it issues the group (lane l copies vectors
+// l + 32 k into the slice, a zero-byte source filling zeros for a row
+// outside the table or past the batch; the indices of a lane's first
+// kAsyncPrefetch vectors were loaded a group ahead, the rest as they are
+// issued), commits it, loads the next group's indices, waits for the group
+// and stores it: row-major, lane l stores the vectors it copied, contiguous
+// for the warp; feature-major, lane l a row's F values. __syncwarp before
+// and after the stores; no block barrier. A ring of 2, 4 or 8 groups in
+// flight a warp measured slower at every shape tried (PERF.md).
+template <int VEC, bool ROUND>
+__global__ void __launch_bounds__(32 * kAsyncWarps)
+    gather_rows_async(const float* __restrict__ table, const int32_t* __restrict__ idx, float* __restrict__ out,
+                      uint32_t B, uint32_t S, int F, uint32_t G, int T, int t_shift, int flags) {
+  extern __shared__ __align__(16) float slots[];
+  const uint32_t lane = threadIdx.x & 31u, wpb = blockDim.x >> 5;
+  const uint32_t gvec = G * (uint32_t)T;
+  float* slot = slots + (size_t)(threadIdx.x >> 5) * G * (uint32_t)F;
+  const uint32_t n_warps = gridDim.x * wpb;
+  const uint32_t groups = (B + G - 1) / G;
+  const bool feature_major = flags & kFeatureMajor;
+  uint32_t row[kAsyncPrefetch];  // the rows of the lane's first vectors of a group
+#pragma unroll
+  for (int k = 0; k < kAsyncPrefetch; ++k) row[k] = vector_row(lane + 32u * k, T, t_shift);
+  uint32_t g = blockIdx.x * wpb + (threadIdx.x >> 5);
+  uint32_t next[kAsyncPrefetch];
+  async_indices(idx, g, groups, G, B, gvec, lane, row, next);
+  for (; g < groups; g += n_warps) {
+    async_issue<VEC>(table, idx, slot, g, G, B, S, F, gvec, T, t_shift, lane, row, next);
+    cp_async_commit();
+    async_indices(idx, g + n_warps, groups, G, B, gvec, lane, row, next);
+    cp_async_wait<0>();
+    __syncwarp();
+    const uint32_t b_base = g * G;
+    const uint32_t rows = min(G, B - b_base);
+    if (feature_major) {
+      for (uint32_t j = lane; j < rows; j += 32u) {
+        for (int f = 0; f < F; ++f) out[out_at(b_base + j, f, F, kTileShift, flags)] = round_if<ROUND>(slot[j * F + f]);
+      }
+    } else {
+      float* o = out + (size_t)b_base * F;
+      const uint32_t nv = rows * (uint32_t)T;
+      for (uint32_t q = lane; q < nv; q += 32u) {
+        float v[VEC];
+        load_vec_shared<VEC>(slot + (size_t)q * VEC, v);
+#pragma unroll
+        for (int k = 0; k < VEC; ++k) v[k] = round_if<ROUND>(v[k]);
+        store_vec<VEC>(o + (size_t)q * VEC, v);
+      }
+    }
+    __syncwarp();
   }
 }
 
@@ -851,9 +989,64 @@ __global__ void __launch_bounds__(kDotThreads, 2)
   }
 }
 
+// A launch's cudaError_t, cleared from the runtime's last error
+// so that a later launch's check does not report it again.
+int cleared(cudaError_t err) {
+  if (err != cudaSuccess) cudaGetLastError();
+  return (int)err;
+}
+
 int set_smem(const void* fn, size_t bytes) {
   if (bytes <= 48 * 1024) return 0;
   return (int)cudaFuncSetAttribute(fn, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
+}
+
+// The SHARED instantiation of a plan: VEC, R (1, 2, 4, 8) and the
+// rounding at compile time.
+template <int VEC, int R>
+void* shared_fn_vr(const int32_t* p) {
+  return (p[gFlags] & kRoundBf16) ? (void*)gather_rows_shared<VEC, R, true> : (void*)gather_rows_shared<VEC, R, false>;
+}
+
+template <int VEC>
+void* shared_fn_v(const int32_t* p) {
+  switch (p[gRows]) {
+    case 1: return shared_fn_vr<VEC, 1>(p);
+    case 2: return shared_fn_vr<VEC, 2>(p);
+    case 4: return shared_fn_vr<VEC, 4>(p);
+    case 8: return shared_fn_vr<VEC, 8>(p);
+    default: return nullptr;
+  }
+}
+
+int launch_shared(const int32_t* p, const float* t, const int32_t* ix, float* o, cudaStream_t st) {
+  if (p[gThreads] != kSharedThreads) return (int)cudaErrorInvalidValue;
+  void* fn = p[gVec] == 4 ? shared_fn_v<4>(p) : p[gVec] == 2 ? shared_fn_v<2>(p) : shared_fn_v<1>(p);
+  if (fn == nullptr) return (int)cudaErrorInvalidValue;
+  const size_t smem = (size_t)p[gSmem];
+  int err = set_smem(fn, smem);
+  if (err) return err;
+  uint32_t B = p[gB], S = p[gS];
+  int F = p[gF], T = p[gPerRow], ts = p[gPerRowShift], flags = p[gFlags];
+  void* args[] = {(void*)&t, (void*)&ix, (void*)&o, &B, &S, &F, &T, &ts, &flags};
+  return cleared(cudaLaunchKernel(fn, dim3(p[gGrid]), dim3(kSharedThreads), args, smem, st));
+}
+
+template <int VEC>
+void* async_fn_v(const int32_t* p) {
+  return (p[gFlags] & kRoundBf16) ? (void*)gather_rows_async<VEC, true> : (void*)gather_rows_async<VEC, false>;
+}
+
+int launch_async(const int32_t* p, const float* t, const int32_t* ix, float* o, cudaStream_t st) {
+  if (p[gThreads] % 32 != 0 || p[gThreads] > 32 * kAsyncWarps || p[gInFlight] < 1) return (int)cudaErrorInvalidValue;
+  void* fn = p[gVec] == 4 ? async_fn_v<4>(p) : p[gVec] == 2 ? async_fn_v<2>(p) : async_fn_v<1>(p);
+  const size_t smem = (size_t)p[gSmem];
+  int err = set_smem(fn, smem);
+  if (err) return err;
+  uint32_t B = p[gB], S = p[gS], G = p[gInFlight];
+  int F = p[gF], T = p[gPerRow], ts = p[gPerRowShift], flags = p[gFlags];
+  void* args[] = {(void*)&t, (void*)&ix, (void*)&o, &B, &S, &F, &G, &T, &ts, &flags};
+  return cleared(cudaLaunchKernel(fn, dim3(p[gGrid]), dim3(p[gThreads]), args, smem, st));
 }
 
 template <int VEC, int FC>
@@ -932,31 +1125,9 @@ extern "C" int tcnn_probe_gather(const void* table, const void* table2, const vo
   const int vec = p[gVec];
   const dim3 grid(p[gGrid]), block(p[gThreads]);
   const size_t smem = (size_t)p[gSmem];
-  if (mode == kRow && source == kShared) {
-    const void* fn = vec == 4 ? (const void*)gather_rows_shared<4>
-                   : vec == 2 ? (const void*)gather_rows_shared<2> : (const void*)gather_rows_shared<1>;
-    const int err = set_smem(fn, smem);
-    if (err) return err;
-    if (vec == 4) {
-      gather_rows_shared<4><<<grid, block, smem, st>>>(t, ix, o, B, S, F, flags, ts);
-    } else if (vec == 2) {
-      gather_rows_shared<2><<<grid, block, smem, st>>>(t, ix, o, B, S, F, flags, ts);
-    } else {
-      gather_rows_shared<1><<<grid, block, smem, st>>>(t, ix, o, B, S, F, flags, ts);
-    }
-  } else if (mode == kRow && source == kAsync) {
-    const void* fn = vec == 4 ? (const void*)gather_rows_async<4>
-                   : vec == 2 ? (const void*)gather_rows_async<2> : (const void*)gather_rows_async<1>;
-    const int err = set_smem(fn, smem);
-    if (err) return err;
-    if (vec == 4) {
-      gather_rows_async<4><<<grid, block, smem, st>>>(t, ix, o, B, S, F, flags, ts);
-    } else if (vec == 2) {
-      gather_rows_async<2><<<grid, block, smem, st>>>(t, ix, o, B, S, F, flags, ts);
-    } else {
-      gather_rows_async<1><<<grid, block, smem, st>>>(t, ix, o, B, S, F, flags, ts);
-    }
-  } else if (p[gPlanes] > 0) {  // ROW of a transposed table into feature-major tiles
+  if (mode == kRow && source == kShared) return launch_shared(p, t, ix, o, st);
+  if (mode == kRow && source == kAsync) return launch_async(p, t, ix, o, st);
+  if (p[gPlanes] > 0) {  // ROW of a transposed table into feature-major tiles
     if (mode != kRow || p[gThreads] != kPlaneThreads || t2 != nullptr || ts != kTileShift)
       return (int)cudaErrorInvalidValue;
     if (vec == 4) return launch_planes<4>(p, t, ix, o, st);

@@ -18,9 +18,11 @@ rows are in flight (``csrc/probe_rows.cu``):
   into feature-major tiles: each block stages whole feature planes of the
   table in shared memory, then gathers a run of samples from them, where a
   plane fits), SHARED
-  (each block first stages the whole table in shared memory, only where it
-  fits: the wrapper raises otherwise) or ASYNC (``cp.async`` of
-  ``in_flight`` rows into a shared ring per block, then their stores).
+  (persistent blocks each hold a copy of the whole table, staged by
+  ``cp.async`` while every thread loads its first indices; only where the
+  table fits: the wrapper raises otherwise) or ASYNC (a warp copies a group
+  of ``in_flight`` rows by ``cp.async`` into its own slice of shared
+  memory, waits for it and stores it).
 - ``probe_scatter``: ``OP_ADD`` with one vector atomic (float2 / float4)
   per row chunk straight into the result (``ACC_GLOBAL``), or, for
   ``ACC_SHARED`` where there are enough rows a slot, into per-block
@@ -59,8 +61,10 @@ from ._build import kernel, stream
 from ._plans import (FLUSH_SHARE, N_SMS, PRIVATE_THREADS, SHARED_BYTES, THREADS, Plan, alignment, ceil_div,
                      pow2_shift, resident_blocks, sm_count, stride_grid, vec_width)
 
-# Launches of the CUDA kernels (incremented once per launch, nowhere else).
+# Launches of the CUDA kernels (incremented once per launch, nowhere else);
+# the gather's also by route (``gather_route``).
 GATHER_LAUNCHES = 0
+GATHER_ROUTE_LAUNCHES = {}
 SCATTER_LAUNCHES = 0
 DOT_LAUNCHES = 0
 
@@ -197,7 +201,9 @@ def probe_gather_dot_plain(table: torch.Tensor, idx: torch.Tensor, w: torch.Tens
 # ---------------------------------------------------------------------------
 # Launch plans: host functions, reached by the CPU tests
 # ---------------------------------------------------------------------------
-SHARED_THREADS = 1024  # threads a block of the SHARED gather (one block an SM)
+SHARED_THREADS = 1024  # threads a block of the SHARED gather (csrc/probe_rows.cu: kSharedThreads)
+SHARED_ROWS = (1, 2, 4, 8)  # the SHARED gather's rows a thread, compile-time
+ASYNC_WARPS = 8  # warps a block of the ASYNC gather at most (kAsyncWarps)
 PLANE_THREADS = 1024  # threads a block of the plane-staged gather (csrc/probe_rows.cu: kPlaneThreads)
 ROWS_PER_THREAD = 4  # the L2 gather's rows a thread (a warp's: 32 x 4)
 TILE_SHIFT = TILE.bit_length() - 1
@@ -212,10 +218,13 @@ class GatherPlan(Plan):
     ``grid`` blocks, ``smem_bytes`` of dynamic shared memory,
     ``chunks`` a tile is gathered in (TILE_SUM; 0 otherwise), and for the
     plane-staged route ``planes`` feature planes a block stages, ``runs``
-    sample runs of ``run`` samples (0 on the other routes)."""
+    sample runs of ``run`` samples (0 on the other routes). SHARED:
+    ``rows`` rows a thread, ``per_row`` = F / vec vectors a row (and its
+    log2); ASYNC: ``in_flight`` rows a copy group, ``per_row`` as SHARED
+    (0 on the other routes)."""
 
     FIELDS = ("B", "S", "F", "mode", "source", "flags", "tile_shift", "vec", "rows", "per_row", "per_row_shift",
-              "threads", "grid", "smem_bytes", "chunks", "planes", "runs", "run")
+              "threads", "grid", "smem_bytes", "chunks", "planes", "runs", "run", "in_flight")
 
 
 class ScatterPlan(Plan):
@@ -252,6 +261,29 @@ def plane_layout(B: int, S: int, F: int, n_sms: int = N_SMS):
     return min(layouts, key=lambda layout: plane_bytes(B, S, F, *layout))
 
 
+def shared_rows(B: int, n_sms: int = N_SMS) -> int:
+    """The SHARED gather's rows a thread: the fewest of SHARED_ROWS with
+    which a block of SHARED_THREADS an SM covers B in one round (at most 8;
+    beyond, the warps loop over their groups)."""
+    return next((r for r in SHARED_ROWS if n_sms * SHARED_THREADS * r >= B), SHARED_ROWS[-1])
+
+
+def async_warps(F: int, in_flight: int) -> int:
+    """The ASYNC gather's warps a block: ASYNC_WARPS, fewer where their
+    groups of ``in_flight`` rows of F floats (4 in_flight F bytes a warp:
+    512 at P8, 2,048 at P9) do not fit a block's shared memory. Each warp
+    keeps one group in flight: ``probe_times`` measured rings of 2, 4 and 8
+    groups a warp (NVIDIA H100 80GB HBM3, 700 W) and none paid, where the
+    ring takes warps away (P8 0.0035 ms with one group, 0.0036 / 0.0036 /
+    0.0064 with 2 / 4 / 8; P9 0.0033, 0.0032 / 0.0044 / 0.0084) or where it
+    does not (2^24 rows of F = 2, 31 groups a warp: 0.144 ms with one,
+    0.153 / 0.154 with 2 / 4). ValueError where one group does not fit."""
+    warps = min(ASYNC_WARPS, SHARED_BYTES // (4 * int(in_flight) * int(F)))
+    if warps == 0:
+        raise ValueError(f"probe_gather: a group of {in_flight} x {F} rows does not fit a block")
+    return warps
+
+
 @functools.lru_cache(maxsize=1024)
 def gather_plan(B: int, S: int, F: int, mode: int = MODE_ROW, source: int = SOURCE_L2, flags: int = 0,
                 table_align: int = 16, idx_align: int = 16, n_sms: int = N_SMS, unroll: int = None,
@@ -274,19 +306,24 @@ def gather_plan(B: int, S: int, F: int, mode: int = MODE_ROW, source: int = SOUR
       widest vector that divides S and the table's alignment;
       LANE: 4 (an int4 of indices, a float4 store) where F is a multiple of
       4 and the indices are 16-byte aligned, else 1.
-    - Grid: the grid-stride kernels (L2, LANE, SHARED, ASYNC) take at most
-      the blocks the card holds at once; TILE_SUM a block a tile (B // TILE
-      of them), its summing warp beside TILE_SUM_CHUNKS chunks of
-      gathering threads.
-    - Shared memory: the whole table (SHARED), in_flight rows (ASYNC), a
-      tile's rows feature-major, each feature padded by TILE_SUM_PAD floats
-      (TILE_SUM), a block's planes (plane-staged).
+    - Grid: the grid-stride kernels (L2, LANE, ASYNC) take at most the
+      blocks the card holds at once; TILE_SUM a block a tile (B // TILE of
+      them), its summing warp beside TILE_SUM_CHUNKS chunks of gathering
+      threads.
+    - SHARED: blocks of SHARED_THREADS, ``shared_rows`` rows a thread, as
+      many as the card holds at once at the table's shared bytes, no more
+      than the rows need. Shared memory: the table.
+    - ASYNC: ``async_warps``' W warps a block, W groups of shared memory;
+      blocks to the card's one wave, no more than a group a warp needs.
+    - Shared memory otherwise: a tile's rows feature-major, each feature
+      padded by TILE_SUM_PAD floats (TILE_SUM), a block's planes
+      (plane-staged).
     - Plane-staged grid: F / planes groups x runs work items, a run of
       ``run`` samples (a multiple of 32) each, at most the blocks the card
       holds at once (grid-stride over the items)."""
     B, S, F = int(B), int(S), int(F)
     vec, rows, per_row, threads, smem, chunks = vec_width(F, table_align), 1, 1, THREADS, 0, 0
-    n_planes = n_runs = run = 0
+    n_planes = n_runs = run = group = 0
     staged = (mode == MODE_ROW and source == SOURCE_L2 and not two_tables and unroll is None
               and flags & FLAG_TRANSPOSED and flags & FLAG_FEATURE_MAJOR)
     layout = None
@@ -299,11 +336,13 @@ def gather_plan(B: int, S: int, F: int, mode: int = MODE_ROW, source: int = SOUR
         threads, smem, vec = PLANE_THREADS, 4 * n_planes * S, vec_width(S, table_align)
         grid = min((F // n_planes) * n_runs, n_sms * resident_blocks(threads, smem))
     elif source == SOURCE_SHARED:
-        threads, smem = SHARED_THREADS, 4 * S * F
-        grid = min(n_sms, ceil_div(B, threads))
+        threads, smem, rows, per_row = SHARED_THREADS, 4 * S * F, shared_rows(B, n_sms), F // vec
+        grid = min(n_sms * resident_blocks(threads, smem), ceil_div(ceil_div(B, 32 * rows), threads // 32))
     elif source == SOURCE_ASYNC:
-        threads, smem = int(in_flight), 4 * int(in_flight) * F
-        grid = stride_grid(B, threads, n_sms, smem)
+        group, per_row = int(in_flight), F // vec
+        warps = async_warps(F, group)
+        threads, smem = 32 * warps, warps * 4 * group * F
+        grid = min(ceil_div(ceil_div(B, group), warps), n_sms * resident_blocks(threads, smem))
     elif mode == MODE_TILE_SUM:
         if flags & FLAG_TRANSPOSED:
             vec = 1
@@ -319,7 +358,19 @@ def gather_plan(B: int, S: int, F: int, mode: int = MODE_ROW, source: int = SOUR
         grid = stride_grid(32 * ceil_div(B, 32 * rows), threads, n_sms)
     return GatherPlan(B=B, S=S, F=F, mode=mode, source=source, flags=flags, tile_shift=TILE_SHIFT, vec=vec, rows=rows,
                       per_row=per_row, per_row_shift=pow2_shift(per_row), threads=threads, grid=grid if B > 0 else 0,
-                      smem_bytes=smem, chunks=chunks, planes=n_planes, runs=n_runs, run=run)
+                      smem_bytes=smem, chunks=chunks, planes=n_planes, runs=n_runs, run=run, in_flight=group)
+
+
+def gather_route(plan: GatherPlan) -> str:
+    """The name of the route a gather plan launches (``GATHER_ROUTE_LAUNCHES``'
+    keys): "shared", "async", "planes", "tile_sum", "lane" or "l2"."""
+    if plan.source == SOURCE_SHARED:
+        return "shared"
+    if plan.source == SOURCE_ASYNC:
+        return "async"
+    if plan.planes:
+        return "planes"
+    return {MODE_TILE_SUM: "tile_sum", MODE_LANE: "lane"}.get(plan.mode, "l2")
 
 
 @functools.lru_cache(maxsize=1024)
@@ -419,8 +470,8 @@ def probe_gather(
     ``FLAG_FEATURE_MAJOR``). ``table2`` serves the odd rows (MODE_ROW, L2).
     ``unroll``: rows a thread of the L2 gather (1 for P6, 8 for P7; default
     the plan's ROWS_PER_THREAD, 4). SHARED stages the table in each block
-    (raises where it does not fit); ASYNC copies ``in_flight`` rows a block with ``cp.async``
-    (MODE_ROW)."""
+    (raises where it does not fit); ASYNC copies groups of ``in_flight``
+    rows with ``cp.async``, one in flight a warp (MODE_ROW)."""
     dev = table.device
     if dev.type == "cpu":
         return probe_gather_plain(table, idx, mode, table2, flags)
@@ -478,6 +529,8 @@ def probe_gather(
     )
     _launch("probe_gather", err)
     GATHER_LAUNCHES += 1
+    route = gather_route(plan)
+    GATHER_ROUTE_LAUNCHES[route] = GATHER_ROUTE_LAUNCHES.get(route, 0) + 1
     return out
 
 

@@ -26,6 +26,7 @@ import numpy as np
 import torch
 
 from ..benchmarks import bench_device
+from ..common import resolve_device
 from ..network_with_input_encoding import NetworkWithInputEncoding
 from ..rng import make_rng
 from ..utils.profiling import sync
@@ -61,9 +62,11 @@ def make_model(device):
     return model, params
 
 
-def make_rays(n_rays: int = N_RAYS, device="cpu"):
+def make_rays(n_rays: int = N_RAYS, device=None):
     """The sample's rays: origins uniform on the z = 0 face (numpy seed 0),
-    all pointing along +z."""
+    all pointing along +z, on ``device`` (None: the card; raises without
+    one)."""
+    device = resolve_device(device)
     r = np.random.default_rng(0)
     origins = np.stack([r.uniform(0, 1, n_rays), r.uniform(0, 1, n_rays), np.zeros(n_rays)], 1).astype(np.float32)
     dirs = np.stack([np.zeros(n_rays), np.zeros(n_rays), np.ones(n_rays)], 1).astype(np.float32)

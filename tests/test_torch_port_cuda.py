@@ -976,6 +976,101 @@ def test_probe_gather_tile_sum_is_the_plain_sum(dev, F):
         assert torch.equal(got, pr.probe_gather(t, idx, mode=pr.MODE_TILE_SUM, flags=flags))
 
 
+def _routed(table, idx, route, **kw):
+    """``probe_gather``'s call, checked to count one launch of ``route``."""
+    pr = probe_rows
+    before = dict(pr.GATHER_ROUTE_LAUNCHES)
+    got = pr.probe_gather(table, idx, **kw)
+    moved = {k: v - before.get(k, 0) for k, v in pr.GATHER_ROUTE_LAUNCHES.items() if v != before.get(k, 0)}
+    assert moved == {route: 1}
+    return got
+
+
+@pytest.mark.parametrize("F", [1, 3, 8])
+def test_probe_gather_shared_matches_plain(dev, F):
+    """SHARED, bitwise the plain version: rows outside the table read
+    zeros; grids of one block (B = 1, 3), of part of a wave (2^16 + 3) and
+    of whole rounds of the wave (2^21 + 5 rows, 8 rows a thread); with
+    FLAG_ROUND_BF16 and feature-major output (B of whole tiles)."""
+    pr = probe_rows
+    S = 4096 if F < 8 else 2048
+    for B in (1, 3, 2**16 + 3, 2**21 + 5, 3 * pr.TILE):
+        table, idx = _probe_inputs(dev, S, F, B, 11 * F + B, lo=-9, hi=S + 9)
+        for flags in (0, pr.FLAG_ROUND_BF16, pr.FLAG_FEATURE_MAJOR):
+            if flags & pr.FLAG_FEATURE_MAJOR and B % pr.TILE:
+                continue
+            got = _routed(table, idx, "shared", source=pr.SOURCE_SHARED, flags=flags)
+            assert torch.equal(got, pr.probe_gather_plain(table, idx, flags=flags)), (B, flags)
+
+
+@pytest.mark.parametrize("case", ["limit", "below_limit", "odd_bytes", "unaligned"])
+def test_probe_gather_shared_table_sizes_and_alignment(dev, case):
+    """SHARED's staging at the edges of size and alignment, bitwise the
+    plain version with and without rounding: the table at the shared-memory
+    limit (F = 8, S = 7,264: 227 KB) and just below it (S = 7,263), one
+    whose 4 S F bytes are no multiple of 16 (F = 3, S = 4,097) and a table
+    4 bytes off alignment (scalar copies)."""
+    pr = probe_rows
+    S, F = {"limit": (7264, 8), "below_limit": (7263, 8), "odd_bytes": (4097, 3), "unaligned": (4096, 2)}[case]
+    for B in (1, 2**16 + 3):
+        table, idx = _probe_inputs(dev, S, F, B, S + B, lo=-11, hi=S + 11)
+        if case == "unaligned":
+            table = _offset_by_one(table)
+        for flags in (0, pr.FLAG_ROUND_BF16):
+            got = _routed(table, idx, "shared", source=pr.SOURCE_SHARED, flags=flags)
+            assert torch.equal(got, pr.probe_gather_plain(table, idx, flags=flags))
+
+
+@pytest.mark.parametrize("in_flight", [1, 16, 17, 64, 200, 1024])
+def test_probe_gather_async_groups_match_plain(dev, in_flight):
+    """ASYNC in copy groups of in_flight rows, bitwise the plain version:
+    groups of 1, 16, 17, 64, 200 and 1,024 rows (part of a warp, whole
+    warps, no multiple of 32 rows or of the lanes a row, more vectors than
+    a lane's indices loaded ahead); B = 1, in_flight - 1, in_flight + 1
+    and many groups a warp; rows outside the table read zeros (the
+    zero-byte copies); rounded and feature-major output; F = 8 and 3 (F =
+    2 and 1 at 1,024 rows)."""
+    pr = probe_rows
+    feats = (2, 1) if in_flight == 1024 else (8, 3)
+    for F in feats:
+        for B in sorted({1, max(1, in_flight - 1), in_flight + 1, 2**20 + 7, 3 * pr.TILE}):
+            table, idx = _probe_inputs(dev, 4096, F, B, in_flight + B + F, lo=-9, hi=4096 + 9)
+            for flags in (0, pr.FLAG_ROUND_BF16, pr.FLAG_FEATURE_MAJOR):
+                if flags & pr.FLAG_FEATURE_MAJOR and B % pr.TILE:
+                    continue
+                got = _routed(table, idx, "async", source=pr.SOURCE_ASYNC, in_flight=in_flight, flags=flags)
+                assert torch.equal(got, pr.probe_gather_plain(table, idx, flags=flags)), (F, B, flags)
+
+
+def test_probe_gather_shared_and_async_in_a_graph_and_on_a_second_stream(dev):
+    """SHARED (an aligned and an unaligned table) and ASYNC (groups of 16
+    and of 64, rounded) captured into a CUDA graph and launched on a second
+    stream: replays and side-stream calls give the plain version's bits."""
+    pr = probe_rows
+    table, idx = _probe_inputs(dev, 2048, 8, 2**17 + 3, 21, lo=-5, hi=2048 + 5)
+    odd = _offset_by_one(table)
+    calls = [(table, {"source": pr.SOURCE_SHARED}), (odd, {"source": pr.SOURCE_SHARED}),
+             (table, {"source": pr.SOURCE_ASYNC, "in_flight": 16}),
+             (table, {"source": pr.SOURCE_ASYNC, "in_flight": 64, "flags": pr.FLAG_ROUND_BF16})]
+    wants = [pr.probe_gather_plain(t, idx, flags=kw.get("flags", 0)) for t, kw in calls]
+    side = torch.cuda.Stream(dev)
+    side.wait_stream(torch.cuda.current_stream(dev))
+    with torch.cuda.stream(side):
+        for (t, kw), want in zip(calls, wants):
+            assert torch.equal(pr.probe_gather(t, idx, **kw), want)  # warm-up on the capturing stream
+    torch.cuda.current_stream(dev).wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph, stream=side):
+        outs = [pr.probe_gather(t, idx, **kw) for t, kw in calls]
+    for _ in range(3):
+        for o in outs:
+            o.fill_(float("nan"))
+        graph.replay()
+        torch.cuda.synchronize()
+        for o, want in zip(outs, wants):
+            assert torch.equal(o, want)
+
+
 def test_probe_wrappers_refuse_what_the_kernels_do_not_take(dev):
     """SHARED raises for a table beyond a block's shared memory (no quiet
     L2 fallback), and so does a shared scatter accumulator; TILE_SUM, whose

@@ -12,8 +12,11 @@ functions, held here to the invariants the kernels in
   exactly once by the kernels' loops as the plan lays them out, for B, N in
   {0, 1, 7, 2^18 + 3}. The loops are mirrored here in numpy: a warp owns
   32 x ``rows`` rows, lane l rows l + 32 u (L2 gathers, grid-stride over
-  warps), a thread 4 lanes of a row (LANE) or one row (SHARED, ASYNC),
-  grid-stride over ``grid * threads`` threads; a scatter thread takes items
+  warps; SHARED the same, its lanes storing vectors l + 32 k of each u's
+  32 rows), a thread 4 lanes of a row (LANE), grid-stride over ``grid *
+  threads`` threads; ASYNC: warp w of the grid takes groups of
+  ``in_flight`` rows w, w + n_warps, ..., lane l vectors l + 32 k of each;
+  a scatter thread takes items
   ``t0 + k * stride`` (k < ILP, 4 or 2 in private blocks) with ``t0``
   stepping by ILP strides, item ``t`` being row ``t // per_row`` and its
   chunk of ``vec`` values.
@@ -63,10 +66,54 @@ def _gather_cover(plan, B, F):
         rows = rows[rows < B]
         assert F % plan.vec == 0
         el = (rows[:, None] * F + np.arange(F)[None, :]).reshape(-1)
-    else:  # SHARED, ASYNC: one row a thread
-        rows = _thread_items(B, plan)
-        el = (rows[:, None] * F + np.arange(F)[None, :]).reshape(-1)
+    elif plan.source == pr.SOURCE_SHARED:
+        el = _shared_writes(plan, B, F)
+    else:
+        el = _async_writes(plan, B, F)
     return np.bincount(el, minlength=B * F)
+
+
+def _vector_elements(base, q, plan, F):
+    """The output elements of vector q of the run of whole rows that starts
+    at element ``base`` (arrays of one shape): vector q is row q //
+    per_row, chunk q % per_row, ``vec`` floats."""
+    assert plan.per_row * plan.vec == F
+    row, chunk = q // plan.per_row, q % plan.per_row
+    return (base + row * F + chunk * plan.vec)[..., None] + np.arange(plan.vec)
+
+
+def _shared_writes(plan, B, F):
+    """The output elements the SHARED gather (csrc/probe_rows.cu:
+    gather_rows_shared) writes, one entry a write: warp g % n_warps takes
+    group g of 32 x rows rows; for each
+    u < rows whose 32 rows start below B, lane l stores vectors l + 32 k
+    (k < per_row) of those rows, the vector's row index shuffled from lane
+    q // per_row (a lane of the warp), those of rows below B."""
+    assert plan.threads == pr.SHARED_THREADS and plan.rows in pr.SHARED_ROWS
+    assert plan.grid * plan.threads // 32 > 0
+    R, T = plan.rows, plan.per_row
+    lanes_k = (np.arange(32)[None, :] + 32 * np.arange(T)[:, None]).reshape(-1)  # q of lane l, k
+    assert (lanes_k // T < 32).all()  # the shuffle's source lane
+    b0 = ((np.arange(-(-B // (32 * R))) * 32 * R)[:, None] + 32 * np.arange(R)[None, :]).reshape(-1, 1)
+    q = np.broadcast_to(lanes_k, (b0.shape[0], lanes_k.size))
+    keep = (b0 < B) & (q < np.minimum(32, B - b0) * T)
+    return _vector_elements(np.broadcast_to(b0 * F, q.shape)[keep], q[keep], plan, F).reshape(-1)
+
+
+def _async_writes(plan, B, F):
+    """The output elements the ASYNC gather (csrc/probe_rows.cu:
+    gather_rows_async) writes, one entry a write: warp w of the grid takes
+    groups w + i n_warps (rows G (w + i n_warps) .. + G - 1, G = in_flight);
+    lane l copies and then stores vectors l + 32 k of a group, those of rows
+    below B."""
+    G, T = plan.in_flight, plan.per_row
+    assert plan.threads % 32 == 0 and plan.threads <= 32 * pr.ASYNC_WARPS and plan.grid * plan.threads >= 32
+    groups = -(-B // G)
+    q = np.arange(G * T)
+    g = np.arange(groups)[:, None]
+    keep = np.broadcast_to(q < np.minimum(G, B - g * G) * T, (groups, q.size))
+    base = np.broadcast_to(g * G * F, keep.shape)[keep]
+    return _vector_elements(base, np.broadcast_to(q, keep.shape)[keep], plan, F).reshape(-1)
 
 
 def _scatter_cover(plan, N, R):
@@ -84,8 +131,12 @@ GATHER_KINDS = [
     ("window", pr.MODE_WINDOW, pr.SOURCE_L2, {}),
     ("lane", pr.MODE_LANE, pr.SOURCE_L2, {}),
     ("shared", pr.MODE_ROW, pr.SOURCE_SHARED, {}),
+    ("async1", pr.MODE_ROW, pr.SOURCE_ASYNC, {"in_flight": 1}),
     ("async16", pr.MODE_ROW, pr.SOURCE_ASYNC, {"in_flight": 16}),
+    ("async17", pr.MODE_ROW, pr.SOURCE_ASYNC, {"in_flight": 17}),
+    ("async32", pr.MODE_ROW, pr.SOURCE_ASYNC, {"in_flight": 32}),
     ("async64", pr.MODE_ROW, pr.SOURCE_ASYNC, {"in_flight": 64}),
+    ("async200", pr.MODE_ROW, pr.SOURCE_ASYNC, {"in_flight": 200}),
 ]
 
 
@@ -231,6 +282,78 @@ def test_gather_plan_covers_every_output_element_once(kind, B):
             continue
         cover = _gather_cover(plan, B, F)
         assert cover.shape == (B * F,) and (cover == 1).all()
+
+
+SHARED_TABLES = [(4096, 8), (1024, 8), (4096, 2), (7263, 8), (7264, 8), (4097, 3), (256, 128)]
+
+
+@pytest.mark.parametrize("S, F", SHARED_TABLES)
+def test_shared_plan_rows_grid_and_shared_bytes(S, F):
+    """SHARED (csrc/probe_rows.cu: gather_rows_shared), aligned or not, at
+    tables up to the 232,448-byte limit (7,264 x 8) and of 4 S F bytes no
+    multiple of 16 (4,097 x 3): the fewest rows a thread (1, 2, 4, 8) with
+    which a block an SM covers B; blocks of 1,024 threads, as many as the
+    card holds at once at the table's shared bytes and no more than the
+    rows need; shared bytes the table, within a block's limit; F / vec
+    vectors a row."""
+    for align in (4, 16):
+        for B in (0, 1, 3, 2**16 + 3, 2**18, 2**24):
+            for n_sms in (8, 132):
+                plan = pr.gather_plan(B, S, F, pr.MODE_ROW, pr.SOURCE_SHARED, 0, align, 16, n_sms)
+                assert plan.rows == min([r for r in (1, 2, 4, 8) if n_sms * 1024 * r >= B] + [8])
+                assert plan.threads == pr.SHARED_THREADS == 1024
+                assert plan.smem_bytes == 4 * S * F <= BLOCK_SHARED_LIMIT
+                assert plan.per_row * plan.vec == F and align % (4 * plan.vec) == 0
+                need = -(-(-(-B // (32 * plan.rows))) // 32)  # blocks of 32 warps the rows need
+                resident = n_sms * plans.resident_blocks(1024, plan.smem_bytes)
+                assert plan.grid == (min(resident, need) if B else 0) and pr.gather_route(plan) == "shared"
+
+
+def test_shared_plan_at_the_probe_shapes():
+    """P2 (2^18 rows of an (4,096, 8) table, 128 KB) and P18 (2^17 rows of
+    (1,024, 8), 32 KB): 2 and 1 rows a thread, 128 blocks of 1,024 threads
+    (the rows' need, under the card's 132 blocks of 128 KB and 264 of 32
+    KB), float4 copies and stores."""
+    p2 = pr.gather_plan(2**18, 4096, 8, pr.MODE_ROW, pr.SOURCE_SHARED, 0, 16, 16, 132)
+    assert (p2.rows, p2.grid, p2.vec, p2.per_row, p2.smem_bytes) == (2, 128, 4, 2, 131072)
+    p18 = pr.gather_plan(2**17, 1024, 8, pr.MODE_ROW, pr.SOURCE_SHARED, pr.FLAG_ROUND_BF16, 16, 16, 132)
+    assert (p18.rows, p18.grid, p18.vec, p18.smem_bytes) == (1, 128, 4, 32768)
+
+
+@pytest.mark.parametrize("G", [1, 16, 17, 64, 1024])
+def test_async_plan_blocks_and_shared_bytes(G):
+    """ASYNC (csrc/probe_rows.cu: gather_rows_async): a copy group of G
+    rows a warp; blocks of W <= 8 whole warps, W groups of shared memory
+    within a block's limit (ValueError where one group does not fit); at
+    most the blocks the card holds and no more than a group a warp needs."""
+    for F in (1, 3, 8, 56, 128):
+        gb = 4 * G * F
+        if gb > BLOCK_SHARED_LIMIT:
+            with pytest.raises(ValueError, match="does not fit"):
+                pr.gather_plan(4096, 2**15, F, pr.MODE_ROW, pr.SOURCE_ASYNC, 0, 16, 16, 132, in_flight=G)
+            continue
+        for B in (0, 1, G - 1, G + 1, 2**17, 2**24):
+            plan = pr.gather_plan(B, 2**15, F, pr.MODE_ROW, pr.SOURCE_ASYNC, 0, 16, 16, 132, in_flight=G)
+            W = plan.threads // 32
+            assert plan.threads % 32 == 0 and W == min(pr.ASYNC_WARPS, BLOCK_SHARED_LIMIT // gb) == pr.async_warps(F, G)
+            assert plan.smem_bytes == W * gb <= BLOCK_SHARED_LIMIT and plan.in_flight == G
+            assert plan.per_row * plan.vec == F and pr.gather_route(plan) == "async"
+            groups = -(-B // G)
+            want = min(-(-groups // W), 132 * plans.resident_blocks(plan.threads, plan.smem_bytes))
+            assert plan.grid == (want if B else 0)
+
+
+def test_async_plan_at_the_probe_shapes():
+    """P8 (2^17 rows in groups of 16, 512 bytes) and P9 (groups of 64, 2
+    KB), F = 8: blocks of 8 warps, a warp a group, 1,024 and 256 blocks;
+    2^24 rows of F = 2 in groups of 64: the card's wave of 1,056 blocks
+    (31 groups a warp)."""
+    p8 = pr.gather_plan(2**17, 2**15, 8, pr.MODE_ROW, pr.SOURCE_ASYNC, 0, 16, 16, 132, in_flight=16)
+    assert (p8.threads, p8.grid, p8.smem_bytes) == (256, 1024, 4096)
+    p9 = pr.gather_plan(2**17, 2**15, 8, pr.MODE_ROW, pr.SOURCE_ASYNC, 0, 16, 16, 132, in_flight=64)
+    assert (p9.threads, p9.grid, p9.smem_bytes) == (256, 256, 16384)
+    big = pr.gather_plan(2**24, 2**15, 2, pr.MODE_ROW, pr.SOURCE_ASYNC, 0, 16, 16, 132, in_flight=64)
+    assert (big.threads, big.grid) == (256, 1056)
 
 
 @pytest.mark.parametrize("op", [pr.OP_ADD, pr.OP_STORE_LAST])

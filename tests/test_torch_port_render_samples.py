@@ -157,7 +157,7 @@ def test_render_plain_matches_jax(scale):
     if scale:
         flat = _random_tables(flat.size, tmodel.network.n_params, 9, scale)
         tparams = torch.from_numpy(flat)
-    origins, dirs = tfm.make_rays(n_rays)
+    origins, dirs = tfm.make_rays(n_rays, device="cpu")
     dirs = dirs + torch.from_numpy(np.random.default_rng(4).uniform(-0.3, 0.3, (n_rays, 3)).astype(np.float32))
     color, trans, raws = _jax_march(jmodel, jnp.asarray(flat), jnp.asarray(origins.numpy()),
                                     jnp.asarray(dirs.numpy()), n_steps)
@@ -187,3 +187,16 @@ def test_fused_ray_marcher_main_runs_on_the_cpu(capsys):
     text = capsys.readouterr().out
     assert "compile+first render" in text and "rays x 4 steps" in text and "mean transmittance" in text
     assert 0 < out["mean_transmittance"] <= 1
+
+
+def test_make_rays_defaults_to_the_card():
+    """``make_rays`` resolves its device as ``make_model`` does: with no
+    device named it puts the rays on the card, and raises where there is
+    none; ``device="cpu"`` gives the CPU rays."""
+    origins, dirs = tfm.make_rays(8, device="cpu")
+    assert origins.device.type == dirs.device.type == "cpu" and origins.shape == dirs.shape == (8, 3)
+    if torch.cuda.is_available():
+        assert tfm.make_rays(8)[0].device.type == "cuda"
+    else:
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            tfm.make_rays(8)
