@@ -3,8 +3,8 @@
 (``probe_gather`` TILE_SUM), P14 (``probe_scatter`` STORE_LAST), P17 (the
 transposed, feature-major gather at S2 = 2^10 and 2^15), P2's SHARED
 gather, P6 / P7 (L2, 1 / 8 rows a thread), P8 / P9 (ASYNC, 16 / 64 rows in
-flight), P18 (SHARED, bf16), P10 /
-P15 (WINDOW, aligned), P12 (COPY) and P16 (ROW over two tables).
+flight), P18 (SHARED, bf16), P10 / P15 (WINDOW, aligned), P12 (COPY) and
+P16 (ROW over two tables).
 
 The inputs are the probe run's own (``benchmarks.probe_rows.build_cases``
 at its defaults: B = 2^17 indices into an (S = 2^15, F = 8) table, numpy
@@ -38,7 +38,13 @@ bitwise), then timed:
 - the L2 route's yardstick of P2, P18, P8 and P9, as information: the same
   ROW gather through ``gather_rows_l2`` (``probe_gather`` from L2) on the
   same inputs, its output bitwise the probe's, its kernel's device time
-  under the profiler (``l2_kernel_ms``).
+  under the profiler (``l2_kernel_ms``);
+- P10's, P15's and P12's PyTorch yardstick (``window_library``), its output
+  bitwise the probe's: every device activity of it under the profiler
+  (``library_device_ms``, ``library_by_kernel``; ``library_calls``: P15's
+  needs two calls), and the write floor of their (B, F) output
+  (``write_floor_ms``: the device time of ``out.zero_()`` on it under the
+  profiler; no kernel that writes it takes less).
 
 ``--save PATH`` writes the SHA-256 of every output's bytes (JSON; P11's
 output alone is 64 MiB); ``--compare PATH`` holds them bit for bit against
@@ -73,8 +79,9 @@ FADD_CYCLES = 4
 # kernels (late in a long process the profiler may record none).
 PROFILE_ATTEMPTS = 3
 # The probes timed: key -> (the probe's name in ``probe_rows``, a part of
-# the case's label that picks it, a part of its kernels' names under the
-# profiler; the names of both the earlier kernels and these hold it).
+# the case's label that picks it, parts of its kernels' names under the
+# profiler, "|" between alternatives; the names of both the earlier
+# kernels and these hold one).
 PROBES = {
     "P11": ("fused_dot", "", "gather_dot"),
     "P13": ("load_only", "", "gather_tile_sum"),
@@ -87,9 +94,9 @@ PROBES = {
     "P8": ("bs_dma_k", "", "gather_rows_async"),
     "P9": ("manual_dma", "", "gather_rows_async"),
     "P18": ("onehot_mxu", "", "gather_rows"),
-    "P10": ("ds8", "", "gather_rows_l2"),
-    "P15": ("ds8_aligned", "", "gather_rows_l2"),
-    "P12": ("static_copy", "", "gather_rows_l2"),
+    "P10": ("ds8", "", "gather_rows_l2|gather_windows"),
+    "P15": ("ds8_aligned", "", "gather_rows_l2|gather_windows"),
+    "P12": ("static_copy", "", "gather_rows_l2|copy_tiles"),
     "P16": ("two_stream", "", "gather_rows_l2"),
 }
 
@@ -120,6 +127,32 @@ def row_inputs(dev, key):
 
 # The probes with an L2 route yardstick (row_inputs).
 ROW_PROBES = ("P2 S=2^12", "P18", "P8", "P9")
+# The WINDOW and COPY probes, each with its PyTorch yardstick
+# (window_library).
+WINDOW_PROBES = ("P10", "P15", "P12")
+
+
+def window_library(dev, key):
+    """(the PyTorch yardstick of probe ``key`` of WINDOW_PROBES on its own
+    inputs (row_inputs), its name, its calls): P10 one ``index_select`` of
+    the overlapping-window view ``table.as_strided((S - 7, 8 F), (F, 1))``
+    at ``idx[::8]`` (P10's indices clipped to S - 8), reshaped to (B, F) for
+    free; P15 the same at ``idx[::8] & ~7``, two calls; P12 ``repeat`` of
+    the first tile."""
+    import torch
+
+    from ..ops import probe_rows as pr
+
+    table, idx, _ = row_inputs(dev, key)
+    (S, F), B = table.shape, idx.shape[0]
+    if key == "P12":
+        return (lambda: table[:pr.TILE].repeat(B // pr.TILE, 1)), "repeat", 1
+    windows = table.as_strided((S - 7, 8 * F), (F, 1))
+    if key == "P10":
+        starts = torch.clamp(idx, max=S - 8)[::8]
+        return (lambda: torch.index_select(windows, 0, starts).view(B, F)), "index_select of the windows", 1
+    starts = idx[::8]
+    return (lambda: torch.index_select(windows, 0, starts & ~7).view(B, F)), "& ~7, index_select of the windows", 2
 
 
 def probe_cases(dev, keys=None):
@@ -191,8 +224,10 @@ def _profiled(fn, calls, marker, by_kernel=None):
     call (its recorded launches over the marker's, rounded: two fills of a
     call share a name), so a profile that records only some of the launches
     still gives a call's time; a profile that records none of the marker's
-    is taken again, up to PROFILE_ATTEMPTS times. ``by_kernel``, a dict, receives each device
-    activity's ms a call by name."""
+    is taken again, up to PROFILE_ATTEMPTS times. ``marker``: parts of the
+    kernels' names, "|" between alternatives ("": every activity).
+    ``by_kernel``, a dict, receives each device activity's ms a call by
+    name."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -209,7 +244,7 @@ def _profiled(fn, calls, marker, by_kernel=None):
             if e.device_type == torch.autograd.DeviceType.CUDA and not getattr(e, "is_user_annotation", False):
                 total, n = by_name.get(e.name, (0.0, 0))
                 by_name[e.name] = (total + (e.time_range.end - e.time_range.start) / 1e3, n + 1)
-        own = [name for name in by_name if marker in name]
+        own = [name for name in by_name if any(part in name for part in marker.split("|"))]
         if own:
             break
     else:
@@ -268,6 +303,20 @@ def times(calls: int = 200, reps: int = 50, keys=None) -> dict:
             if not torch.equal(l2(), outputs[p]):
                 raise AssertionError(f"probe_times: the L2 route on row_inputs differs from {p}'s output")
             out[p]["l2_kernel_ms"] = _profiled(l2, calls, "gather_rows_l2")[0]
+        for p in WINDOW_PROBES:
+            if p not in out:
+                continue
+            lib, name, n_calls = window_library(dev, p)
+            if not torch.equal(lib(), outputs[p]):
+                raise AssertionError(f"probe_times: {name} differs from {p}'s output")
+            lib_by_kernel = {}
+            out[p].update(library=name, library_calls=n_calls,
+                          library_device_ms=_profiled(lib, calls, "", lib_by_kernel)[1],
+                          library_by_kernel=lib_by_kernel)
+        if any(p in out for p in WINDOW_PROBES):
+            shape = out[next(p for p in WINDOW_PROBES if p in out)]["shape"]
+            res = torch.empty((shape["B"], shape["F"]), dtype=torch.float32, device=dev)
+            out["write_floor_ms"] = _profiled(res.zero_, calls, "")[1]
         if "P11" in out:
             table, idx, w = dot_inputs(dev)
             if not torch.equal(pr.probe_gather_dot(table, idx, w), outputs["P11"]):

@@ -30,13 +30,43 @@
 //
 // Design, one entry point per probe kernel:
 // - tcnn_probe_gather:
-//   - ROW, WINDOW and COPY from L2 (gather_rows_l2): a warp owns 32 R
-//     rows (R = 4 by default; P6's 1, P7's 8), lane l rows l + 32 u, so its
-//     index loads and stores are contiguous; a thread loads its R indices,
-//     then every row as VEC-wide __ldg loads, and only then stores. (R
+//   - ROW from L2, and WINDOW and COPY of a transposed table or into
+//     feature-major tiles (gather_rows_l2): a warp owns 32 R rows (R = 4
+//     by default; P6's 1, P7's 8), lane l rows l + 32 u, so its index
+//     loads and stores are contiguous; a thread loads its R indices, then
+//     every row as VEC-wide __ldg loads, and only then stores. (R
 //     neighbouring rows a thread, their indices as one int4, measured
 //     slower: each store of the warp then half-fills its sectors.) F = 2,
 //     4, 8 are compiled with F fixed; other F loop over VEC-wide chunks.
+//   - WINDOW (gather_windows; replaces probe_r5_pallas_gather2.py:282
+//     k_ds8, the ds8 pallas_call at :308, and probe_r5_pallas_gather3.py:199
+//     k3, ds8_aligned at :211): a window is 8 consecutive table rows, 8 F
+//     contiguous floats in the table and in the output, so the output is
+//     one flat run of B F / VEC vectors and vector q is vector q % NV of
+//     window q / NV (NV = 8 F / VEC). Consecutive lanes move consecutive
+//     vectors (at F = 8, a half-warp one window), so every load and store
+//     instruction of a warp covers whole sectors; the lanes of a window load
+//     its one start idx[8 w] (one request a window); a lane has K vectors'
+//     loads in flight before its first store and the next chunk's starts
+//     loaded ahead. What bounds it: 4 B F output bytes written and as many
+//     read from L2, behind two dependent L2 round trips (the start, then
+//     the rows); the grid fills the card (grid-stride over chunks of 32 K
+//     vectors; K = 2, kWindowVectors, measured fastest of 1, 2, 4 at the
+//     probe's shape, streaming stores no faster than plain ones; PERF.md).
+//     F = 1, 2, 4, 8, the alignment and the rounding at compile time;
+//     other F divide at run time. Each vector's row is tested against [0, S) (zeros
+//     outside; the start plus the row wraps as the plain version's int32
+//     sum).
+//   - COPY (copy_tiles; replaces probe_r5_pallas_gather3.py:138 k0, the
+//     static_copy pallas_call at :146): out[e] = table[e mod TILE F], flat:
+//     no index. Thread t holds vector t mod NT of the first tile (NT = TILE F
+//     / VEC vectors, read once from L2) in registers and stores it to every
+//     tile it owns, consecutive lanes on consecutive vectors; a whole
+//     number of tile copies in about one block an SM (at the probe's
+//     shape 8 tiles a thread, 128 blocks: measured faster than 1-4 tiles
+//     a thread, and than staging tile chunks in shared memory and storing
+//     them by cp.async.bulk; PERF.md). What bounds it: the 4 B F output
+//     bytes written.
 //   - ROW of a transposed (F, S) table into feature-major tiles, from L2
 //     (gather_planes): the output's (B / tile, F, tile) layout makes each
 //     feature plane of a tile contiguous, while a sample's F values lie S
@@ -117,7 +147,13 @@ enum Op { kAdd = 0, kStoreLast = 1 };
 // ScatterPlan.args), entry by entry.
 enum GatherArg {
   gB, gS, gF, gMode, gSource, gFlags, gTileShift, gVec, gRows, gPerRow, gPerRowShift, gThreads, gGrid, gSmem, gChunks,
-  gPlanes, gRuns, gRun, gInFlight
+  gPlanes, gRuns, gRun, gInFlight, gRoute
+};
+// The kernel a plan launches (ops/probe_rows.py: GATHER_ROUTES), decided by
+// the host's gather_plan alone.
+enum Route {
+  kRouteL2 = 0, kRouteLane = 1, kRouteTileSum = 2, kRoutePlanes = 3, kRouteShared = 4, kRouteAsync = 5,
+  kRouteWindow = 6, kRouteCopy = 7
 };
 enum ScatterArg { sN, sS, sR, sOp, sPrivate, sVec, sPerRow, sPerRowShift, sThreads, sGrid, sSmem, sClaimGrid };
 enum DotArg { dB, dS, dF, dVec, dInFlight, dThreads, dGrid };
@@ -281,6 +317,97 @@ __global__ void __launch_bounds__(kThreads)
       for (int u = 0; u < R; ++u)
         if (b0 + 32u * u < B) store_row<VEC, NF>(out, b0 + 32u * u, f0, v + u * NF, F, tile_shift, flags);
     }
+  }
+}
+
+// Vectors a lane of the WINDOW kernel has in flight (K; 2 measured fastest
+// of 1, 2 and 4 at P10's and P15's shapes, PERF.md).
+constexpr int kWindowVectors = 2;
+
+// The starts of the windows of a lane's K vectors q = q0 + 32 k (those
+// below n_vec): idx[8 (q / nv)], & ~7 when ALIGNED.
+template <bool ALIGNED>
+__device__ __forceinline__ void window_starts(const int32_t* __restrict__ idx, uint32_t q0, uint32_t n_vec,
+                                              uint32_t nv, uint32_t (&a)[kWindowVectors]) {
+#pragma unroll
+  for (int k = 0; k < kWindowVectors; ++k) {
+    const uint32_t q = q0 + 32u * k;
+    a[k] = q < n_vec ? (uint32_t)__ldg(idx + (q / nv) * 8u) : 0u;
+    if (ALIGNED) a[k] &= ~7u;
+  }
+}
+
+// WINDOW: out[8 w + u] = table[a_w + u] (u < 8; a_w = idx[8 w], & ~7 when
+// ALIGNED; zeros for a row outside [0, S)), as a flat run of n_vec = B F /
+// VEC vectors: vector q is vector e = q % NV of window q / NV (NV = 8 F /
+// VEC), row a_w + e / (F / VEC), chunk e % (F / VEC). Warp c of the grid
+// takes chunks c, c + n_warps, ... of 32 K vectors; lane l vectors
+// c 32 K + l + 32 k (k < K): their K starts (the next chunk's loaded
+// ahead), then their K VEC-wide loads, then their stores (K =
+// kWindowVectors). FC > 0: F = FC at compile time (shifts); FC = 0: F at
+// run time.
+template <int VEC, int FC, bool ALIGNED, bool ROUND>
+__global__ void __launch_bounds__(kThreads)
+    gather_windows(const float* __restrict__ table, const int32_t* __restrict__ idx, float* __restrict__ out,
+                   uint32_t n_vec, uint32_t S, int F_rt) {
+  constexpr int K = kWindowVectors;
+  const uint32_t F = FC > 0 ? (uint32_t)FC : (uint32_t)F_rt;
+  const uint32_t per_row = F / VEC;
+  const uint32_t nv = 8u * per_row;
+  const uint32_t lane = threadIdx.x & 31u;
+  const uint32_t n_warps = (gridDim.x * blockDim.x) >> 5;
+  const uint32_t chunks = (n_vec + 32u * K - 1) / (32u * K);
+  uint32_t c = (blockIdx.x * blockDim.x + threadIdx.x) >> 5;
+  uint32_t a[K];
+  window_starts<ALIGNED>(idx, c * 32u * K + lane, n_vec, nv, a);
+  for (; c < chunks; c += n_warps) {
+    const uint32_t q0 = c * 32u * K + lane;
+    uint32_t next[K];
+    window_starts<ALIGNED>(idx, (c + n_warps) * 32u * K + lane, n_vec, nv, next);
+    float v[K * VEC];
+#pragma unroll
+    for (int k = 0; k < K; ++k) {
+      const uint32_t q = q0 + 32u * k;
+      const uint32_t e = q % nv;
+      const uint32_t row = a[k] + e / per_row;  // wraps as the plain version's int32 sum
+      if (q < n_vec && row < S) {
+        load_vec<VEC>(table + (size_t)row * F + (e % per_row) * VEC, v + k * VEC);
+      } else {
+#pragma unroll
+        for (int j = 0; j < VEC; ++j) v[k * VEC + j] = 0.0f;
+      }
+    }
+#pragma unroll
+    for (int j = 0; j < K * VEC; ++j) v[j] = round_if<ROUND>(v[j]);
+#pragma unroll
+    for (int k = 0; k < K; ++k) {
+      const uint32_t q = q0 + 32u * k;
+      if (q < n_vec) store_vec<VEC>(out + (size_t)q * VEC, v + k * VEC);
+    }
+#pragma unroll
+    for (int k = 0; k < K; ++k) a[k] = next[k];
+  }
+}
+
+// COPY: out[e] = table[e mod TILE F], as vectors: the grid's G threads
+// form `groups` groups of W = G / groups (W = NT, the vectors of a tile,
+// unless a tile has more vectors than the card holds threads). Thread t
+// loads vector s = t % W of the first tile once, stores it to tiles
+// t / W, t / W + groups, ... below n_tiles, then takes s + W, ... below NT.
+template <int VEC, bool ROUND>
+__global__ void __launch_bounds__(kThreads)
+    copy_tiles(const float* __restrict__ table, float* __restrict__ out, uint32_t n_tiles, uint32_t nt,
+               uint32_t groups) {
+  const uint32_t t = blockIdx.x * blockDim.x + threadIdx.x;
+  const uint32_t width = gridDim.x * blockDim.x / groups;
+  const uint32_t g = t / width;
+  for (uint32_t s = t - g * width; s < nt; s += width) {
+    float v[VEC];
+    load_vec<VEC>(table + (size_t)s * VEC, v);
+#pragma unroll
+    for (int j = 0; j < VEC; ++j) v[j] = round_if<ROUND>(v[j]);
+#pragma unroll 4
+    for (uint32_t r = g; r < n_tiles; r += groups) store_vec<VEC>(out + ((size_t)r * nt + s) * VEC, v);
   }
 }
 
@@ -1105,6 +1232,75 @@ void launch_dot(const int32_t* p, const float* t, const int32_t* ix, const float
   gather_dot_warps<FC><<<p[dGrid], kDotThreads, 0, st>>>(t, ix, w, o, p[dB], p[dS], p[dF], p[dVec]);
 }
 
+// The WINDOW instantiation of a plan: VEC, F (1, 2, 4, 8 or 0: at run
+// time), the alignment and the rounding at compile time.
+template <int VEC, int FC, bool AL, bool RD>
+int launch_windows_r(const int32_t* p, const float* t, const int32_t* ix, float* o, cudaStream_t st) {
+  const uint32_t n_vec = (uint32_t)((uint64_t)(uint32_t)p[gB] * (uint32_t)p[gF] / VEC);
+  gather_windows<VEC, FC, AL, RD><<<p[gGrid], kThreads, 0, st>>>(t, ix, o, n_vec, p[gS], p[gF]);
+  return (int)cudaGetLastError();
+}
+
+template <int VEC, int FC>
+int launch_windows_f(const int32_t* p, const float* t, const int32_t* ix, float* o, cudaStream_t st) {
+  if constexpr (FC % VEC != 0) {
+    return (int)cudaErrorInvalidValue;
+  } else {
+    const bool al = p[gFlags] & kAligned, rd = p[gFlags] & kRoundBf16;
+    if (al) {
+      return rd ? launch_windows_r<VEC, FC, true, true>(p, t, ix, o, st)
+                : launch_windows_r<VEC, FC, true, false>(p, t, ix, o, st);
+    }
+    return rd ? launch_windows_r<VEC, FC, false, true>(p, t, ix, o, st)
+              : launch_windows_r<VEC, FC, false, false>(p, t, ix, o, st);
+  }
+}
+
+template <int VEC>
+int launch_windows_v(const int32_t* p, const float* t, const int32_t* ix, float* o, cudaStream_t st) {
+  switch (p[gF]) {
+    case 1: return launch_windows_f<VEC, 1>(p, t, ix, o, st);
+    case 2: return launch_windows_f<VEC, 2>(p, t, ix, o, st);
+    case 4: return launch_windows_f<VEC, 4>(p, t, ix, o, st);
+    case 8: return launch_windows_f<VEC, 8>(p, t, ix, o, st);
+    default: return launch_windows_f<VEC, 0>(p, t, ix, o, st);
+  }
+}
+
+int launch_windows(const int32_t* p, const float* t, const float* t2, const int32_t* ix, float* o, cudaStream_t st) {
+  const int F = p[gF], vec = p[gVec];
+  if (p[gMode] != kWindow || (p[gFlags] & (kTransposed | kFeatureMajor)) || t2 != nullptr ||
+      p[gThreads] != kThreads || p[gRows] != kWindowVectors || F <= 0 || (vec != 1 && vec != 2 && vec != 4) ||
+      F % vec != 0 ||
+      (uint64_t)(uint32_t)p[gB] * (uint32_t)F >= (1ull << 31))
+    return (int)cudaErrorInvalidValue;
+  if (vec == 4) return launch_windows_v<4>(p, t, ix, o, st);
+  if (vec == 2) return launch_windows_v<2>(p, t, ix, o, st);
+  return launch_windows_v<1>(p, t, ix, o, st);
+}
+
+template <int VEC, bool RD>
+int launch_copy_r(const int32_t* p, const float* t, float* o, cudaStream_t st) {
+  const uint32_t n_tiles = (uint32_t)p[gB] >> kTileShift, nt = p[gPerRow];
+  copy_tiles<VEC, RD><<<p[gGrid], kThreads, 0, st>>>(t, o, n_tiles, nt, p[gRuns]);
+  return (int)cudaGetLastError();
+}
+
+int launch_copy(const int32_t* p, const float* t, const float* t2, float* o, cudaStream_t st) {
+  const int vec = p[gVec];
+  const uint64_t nt = (uint64_t)kTile * (uint32_t)p[gF] / (vec > 0 ? vec : 1);
+  if (p[gMode] != kCopy || (p[gFlags] & (kTransposed | kFeatureMajor)) || t2 != nullptr ||
+      p[gThreads] != kThreads || p[gTileShift] != kTileShift || (p[gB] & (kTile - 1)) != 0 ||
+      (vec != 1 && vec != 2 && vec != 4) || (uint64_t)(uint32_t)p[gPerRow] != nt ||
+      p[gRuns] < 1 || ((uint64_t)p[gGrid] * kThreads) % (uint32_t)p[gRuns] != 0 ||
+      (uint64_t)(uint32_t)p[gB] * (uint32_t)p[gF] >= (1ull << 31))
+    return (int)cudaErrorInvalidValue;
+  const bool rd = p[gFlags] & kRoundBf16;
+  if (vec == 4) return rd ? launch_copy_r<4, true>(p, t, o, st) : launch_copy_r<4, false>(p, t, o, st);
+  if (vec == 2) return rd ? launch_copy_r<2, true>(p, t, o, st) : launch_copy_r<2, false>(p, t, o, st);
+  return rd ? launch_copy_r<1, true>(p, t, o, st) : launch_copy_r<1, false>(p, t, o, st);
+}
+
 }  // namespace
 
 // Each entry point returns the cudaError_t of its launches (0 on success),
@@ -1125,43 +1321,57 @@ extern "C" int tcnn_probe_gather(const void* table, const void* table2, const vo
   const int vec = p[gVec];
   const dim3 grid(p[gGrid]), block(p[gThreads]);
   const size_t smem = (size_t)p[gSmem];
-  if (mode == kRow && source == kShared) return launch_shared(p, t, ix, o, st);
-  if (mode == kRow && source == kAsync) return launch_async(p, t, ix, o, st);
-  if (p[gPlanes] > 0) {  // ROW of a transposed table into feature-major tiles
-    if (mode != kRow || p[gThreads] != kPlaneThreads || t2 != nullptr || ts != kTileShift)
-      return (int)cudaErrorInvalidValue;
-    if (vec == 4) return launch_planes<4>(p, t, ix, o, st);
-    if (vec == 2) return launch_planes<2>(p, t, ix, o, st);
-    return launch_planes<1>(p, t, ix, o, st);
-  } else if (mode == kTileSum) {
-    if (p[gChunks] != kSumChunks || p[gThreads] != kSumThreads || (1 << ts) != kTile)
-      return (int)cudaErrorInvalidValue;
-    if (F == 8) return launch_tile_sum<8>(grid, smem, st, t, ix, o, S, F, vec, flags);
-    if (F == 4) return launch_tile_sum<4>(grid, smem, st, t, ix, o, S, F, vec, flags);
-    if (F == 2) return launch_tile_sum<2>(grid, smem, st, t, ix, o, S, F, vec, flags);
-    if (F == 1) return launch_tile_sum<1>(grid, smem, st, t, ix, o, S, F, vec, flags);
-    return launch_tile_sum<0>(grid, smem, st, t, ix, o, S, F, vec, flags);
-  } else if (mode == kLane) {
-    if (vec == 4) {
-      gather_lanes<true><<<grid, block, 0, st>>>(t, ix, o, B, S, F, p[gPerRow], p[gPerRowShift], flags, ts);
-    } else {
-      gather_lanes<false><<<grid, block, 0, st>>>(t, ix, o, B, S, F, p[gPerRow], p[gPerRowShift], flags, ts);
+  switch (p[gRoute]) {
+    case kRouteWindow:
+      return launch_windows(p, t, t2, ix, o, st);
+    case kRouteCopy:
+      return launch_copy(p, t, t2, o, st);
+    case kRouteShared:
+      return mode == kRow && source == kShared ? launch_shared(p, t, ix, o, st) : (int)cudaErrorInvalidValue;
+    case kRouteAsync:
+      return mode == kRow && source == kAsync ? launch_async(p, t, ix, o, st) : (int)cudaErrorInvalidValue;
+    case kRoutePlanes:  // ROW of a transposed table into feature-major tiles
+      if (mode != kRow || p[gPlanes] <= 0 || p[gThreads] != kPlaneThreads || t2 != nullptr || ts != kTileShift)
+        return (int)cudaErrorInvalidValue;
+      if (vec == 4) return launch_planes<4>(p, t, ix, o, st);
+      if (vec == 2) return launch_planes<2>(p, t, ix, o, st);
+      return launch_planes<1>(p, t, ix, o, st);
+    case kRouteTileSum:
+      if (mode != kTileSum || p[gChunks] != kSumChunks || p[gThreads] != kSumThreads || (1 << ts) != kTile)
+        return (int)cudaErrorInvalidValue;
+      if (F == 8) return launch_tile_sum<8>(grid, smem, st, t, ix, o, S, F, vec, flags);
+      if (F == 4) return launch_tile_sum<4>(grid, smem, st, t, ix, o, S, F, vec, flags);
+      if (F == 2) return launch_tile_sum<2>(grid, smem, st, t, ix, o, S, F, vec, flags);
+      if (F == 1) return launch_tile_sum<1>(grid, smem, st, t, ix, o, S, F, vec, flags);
+      return launch_tile_sum<0>(grid, smem, st, t, ix, o, S, F, vec, flags);
+    case kRouteLane:
+      if (mode != kLane) return (int)cudaErrorInvalidValue;
+      if (vec == 4) {
+        gather_lanes<true><<<grid, block, 0, st>>>(t, ix, o, B, S, F, p[gPerRow], p[gPerRowShift], flags, ts);
+      } else {
+        gather_lanes<false><<<grid, block, 0, st>>>(t, ix, o, B, S, F, p[gPerRow], p[gPerRowShift], flags, ts);
+      }
+      break;
+    case kRouteL2: {  // ROW, WINDOW, COPY from L2
+      if (source != kL2 || (mode != kRow && mode != kWindow && mode != kCopy)) return (int)cudaErrorInvalidValue;
+      const int R = p[gRows];
+      if (F == 2 && vec == 2) {
+        launch_rows_l2<2, 2>(R, p, t, t2, ix, o, st);
+      } else if (F == 4 && vec == 4) {
+        launch_rows_l2<4, 4>(R, p, t, t2, ix, o, st);
+      } else if (F == 8 && vec == 4) {
+        launch_rows_l2<4, 8>(R, p, t, t2, ix, o, st);
+      } else if (vec == 4) {
+        launch_rows_l2<4, 0>(R, p, t, t2, ix, o, st);
+      } else if (vec == 2) {
+        launch_rows_l2<2, 0>(R, p, t, t2, ix, o, st);
+      } else {
+        launch_rows_l2<1, 0>(R, p, t, t2, ix, o, st);
+      }
+      break;
     }
-  } else {  // ROW, WINDOW, COPY from L2
-    const int R = p[gRows];
-    if (F == 2 && vec == 2) {
-      launch_rows_l2<2, 2>(R, p, t, t2, ix, o, st);
-    } else if (F == 4 && vec == 4) {
-      launch_rows_l2<4, 4>(R, p, t, t2, ix, o, st);
-    } else if (F == 8 && vec == 4) {
-      launch_rows_l2<4, 8>(R, p, t, t2, ix, o, st);
-    } else if (vec == 4) {
-      launch_rows_l2<4, 0>(R, p, t, t2, ix, o, st);
-    } else if (vec == 2) {
-      launch_rows_l2<2, 0>(R, p, t, t2, ix, o, st);
-    } else {
-      launch_rows_l2<1, 0>(R, p, t, t2, ix, o, st);
-    }
+    default:
+      return (int)cudaErrorInvalidValue;
   }
   return (int)cudaGetLastError();
 }

@@ -17,7 +17,11 @@ rows are in flight (``csrc/probe_rows.cu``):
   any store; LANE: 4 lanes of a row a thread; ROW of a transposed table
   into feature-major tiles: each block stages whole feature planes of the
   table in shared memory, then gathers a run of samples from them, where a
-  plane fits), SHARED
+  plane fits; WINDOW and COPY of a row-major table into (B, F) rows: the
+  output as one flat run of vectors, consecutive lanes on consecutive
+  vectors, a window's lanes sharing its one start, COPY's threads each
+  holding one vector of the first tile and storing it to every tile they
+  own), SHARED
   (persistent blocks each hold a copy of the whole table, staged by
   ``cp.async`` while every thread loads its first indices; only where the
   table fits: the wrapper raises otherwise) or ASYNC (a warp copies a group
@@ -58,7 +62,7 @@ import threading
 import torch
 
 from ._build import kernel, stream
-from ._plans import (FLUSH_SHARE, N_SMS, PRIVATE_THREADS, SHARED_BYTES, THREADS, Plan, alignment, ceil_div,
+from ._plans import (FLUSH_SHARE, N_SMS, PRIVATE_THREADS, SHARED_BYTES, SM_THREADS, THREADS, Plan, alignment, ceil_div,
                      pow2_shift, resident_blocks, sm_count, stride_grid, vec_width)
 
 # Launches of the CUDA kernels (incremented once per launch, nowhere else);
@@ -87,6 +91,12 @@ FLAG_ROUND_BF16 = 1  # round each value to bf16 (RN) and back
 FLAG_FEATURE_MAJOR = 2  # output (B / TILE, F, TILE) instead of (B, F)
 FLAG_TRANSPOSED = 4  # the table is given as (F, S)
 FLAG_ALIGNED = 8  # MODE_WINDOW starts at idx[8i] & ~7
+
+# The kernels a gather plan can launch, by the plan's ``route``
+# (csrc/probe_rows.cu: Route); ``gather_plan`` alone decides it, and the
+# names are ``GATHER_ROUTE_LAUNCHES``' keys.
+GATHER_ROUTES = ("l2", "lane", "tile_sum", "planes", "shared", "async", "window", "copy")
+ROUTE_L2, ROUTE_LANE, ROUTE_TILE_SUM, ROUTE_PLANES, ROUTE_SHARED, ROUTE_ASYNC, ROUTE_WINDOW, ROUTE_COPY = range(8)
 
 OP_ADD = 0
 OP_STORE_LAST = 1
@@ -206,6 +216,7 @@ SHARED_ROWS = (1, 2, 4, 8)  # the SHARED gather's rows a thread, compile-time
 ASYNC_WARPS = 8  # warps a block of the ASYNC gather at most (kAsyncWarps)
 PLANE_THREADS = 1024  # threads a block of the plane-staged gather (csrc/probe_rows.cu: kPlaneThreads)
 ROWS_PER_THREAD = 4  # the L2 gather's rows a thread (a warp's: 32 x 4)
+WINDOW_VECTORS = 2  # vectors a lane of the WINDOW kernel has in flight (csrc/probe_rows.cu: kWindowVectors)
 TILE_SHIFT = TILE.bit_length() - 1
 
 
@@ -221,10 +232,15 @@ class GatherPlan(Plan):
     sample runs of ``run`` samples (0 on the other routes). SHARED:
     ``rows`` rows a thread, ``per_row`` = F / vec vectors a row (and its
     log2); ASYNC: ``in_flight`` rows a copy group, ``per_row`` as SHARED
-    (0 on the other routes)."""
+    (0 on the other routes). WINDOW: ``rows`` = WINDOW_VECTORS vectors a
+    lane in flight, ``per_row`` = 8 F / vec vectors a window; COPY:
+    ``per_row`` = TILE F / vec vectors a tile, ``runs`` groups of threads
+    that each hold the tile's vectors, ``rows`` tiles a thread stores at
+    most. ``route``: the kernel the plan launches, an index into
+    GATHER_ROUTES."""
 
     FIELDS = ("B", "S", "F", "mode", "source", "flags", "tile_shift", "vec", "rows", "per_row", "per_row_shift",
-              "threads", "grid", "smem_bytes", "chunks", "planes", "runs", "run", "in_flight")
+              "threads", "grid", "smem_bytes", "chunks", "planes", "runs", "run", "in_flight", "route")
 
 
 class ScatterPlan(Plan):
@@ -298,18 +314,28 @@ def gather_plan(B: int, S: int, F: int, mode: int = MODE_ROW, source: int = SOUR
 
     - Route: ROW of a transposed table into feature-major tiles from L2 (no
       second table, no ``unroll``) stages whole feature planes in each
-      block's shared memory where one fits (``plane_layout``); every other
-      call takes its mode's kernel.
+      block's shared memory where one fits (``plane_layout``); WINDOW and
+      COPY of a row-major table into (B, F) rows (no ``unroll``, B F below
+      2^31: the kernels index the output's values in 32 bits) take their
+      own kernels ("window", "copy"); every other call takes its source's
+      or mode's kernel (WINDOW and COPY the L2 gather's).
     - Vector width: the widest of 4, 2, 1 floats that divides F and the
-      table's alignment (SHARED, ASYNC, L2 rows); 1 for a transposed table
+      table's alignment (SHARED, ASYNC, L2 rows, WINDOW: a vector lies in
+      one row); COPY's that divides the table's alignment (the tile is one
+      flat run of TILE F floats); 1 for a transposed table
       read row by row; the plane-staged route stages the planes as the
       widest vector that divides S and the table's alignment;
       LANE: 4 (an int4 of indices, a float4 store) where F is a multiple of
       4 and the indices are 16-byte aligned, else 1.
-    - Grid: the grid-stride kernels (L2, LANE, ASYNC) take at most the
-      blocks the card holds at once; TILE_SUM a block a tile (B // TILE of
-      them), its summing warp beside TILE_SUM_CHUNKS chunks of gathering
-      threads.
+    - Grid: the grid-stride kernels (L2, LANE, ASYNC, WINDOW) take at most
+      the blocks the card holds at once (WINDOW: a warp a chunk of 32
+      ``rows`` vectors); TILE_SUM a block a tile (B // TILE of them), its
+      summing warp beside TILE_SUM_CHUNKS chunks of gathering threads;
+      COPY ``runs`` groups of the tile's vectors (fewer threads a group
+      where a tile has more vectors than the card holds threads): about one
+      block of THREADS an SM (at P12's shape 8 tiles a thread, measured
+      faster than 1, 2 or 4), at least one group and no more than the
+      tiles.
     - SHARED: blocks of SHARED_THREADS, ``shared_rows`` rows a thread, as
       many as the card holds at once at the table's shared bytes, no more
       than the rows need. Shared memory: the table.
@@ -324,6 +350,8 @@ def gather_plan(B: int, S: int, F: int, mode: int = MODE_ROW, source: int = SOUR
     B, S, F = int(B), int(S), int(F)
     vec, rows, per_row, threads, smem, chunks = vec_width(F, table_align), 1, 1, THREADS, 0, 0
     n_planes = n_runs = run = group = 0
+    own = (mode in (MODE_WINDOW, MODE_COPY) and source == SOURCE_L2 and not two_tables and unroll is None
+           and not flags & (FLAG_TRANSPOSED | FLAG_FEATURE_MAJOR) and B * F < 2**31)
     staged = (mode == MODE_ROW and source == SOURCE_L2 and not two_tables and unroll is None
               and flags & FLAG_TRANSPOSED and flags & FLAG_FEATURE_MAJOR)
     layout = None
@@ -335,42 +363,58 @@ def gather_plan(B: int, S: int, F: int, mode: int = MODE_ROW, source: int = SOUR
         n_runs = ceil_div(B, run) if B > 0 else 0
         threads, smem, vec = PLANE_THREADS, 4 * n_planes * S, vec_width(S, table_align)
         grid = min((F // n_planes) * n_runs, n_sms * resident_blocks(threads, smem))
+        route = ROUTE_PLANES
     elif source == SOURCE_SHARED:
         threads, smem, rows, per_row = SHARED_THREADS, 4 * S * F, shared_rows(B, n_sms), F // vec
         grid = min(n_sms * resident_blocks(threads, smem), ceil_div(ceil_div(B, 32 * rows), threads // 32))
+        route = ROUTE_SHARED
     elif source == SOURCE_ASYNC:
         group, per_row = int(in_flight), F // vec
         warps = async_warps(F, group)
         threads, smem = 32 * warps, warps * 4 * group * F
         grid = min(ceil_div(ceil_div(B, group), warps), n_sms * resident_blocks(threads, smem))
+        route = ROUTE_ASYNC
+    elif own and mode == MODE_WINDOW:
+        rows, per_row = WINDOW_VECTORS, 8 * F // vec
+        grid = stride_grid(32 * ceil_div(B * F // vec, 32 * rows), threads, n_sms)
+        route = ROUTE_WINDOW
+    elif own:  # COPY
+        vec = vec_width(TILE * F, table_align)
+        per_row, n_tiles = TILE * F // vec, B // TILE
+        capacity = n_sms * SM_THREADS
+        if per_row >= capacity:
+            n_runs, width = 1, capacity
+        else:
+            n_runs, width = max(1, min(n_tiles, n_sms * threads // per_row)), per_row
+        rows = ceil_div(n_tiles, n_runs)
+        grid = n_runs * width // threads if n_tiles else 0
+        route = ROUTE_COPY
     elif mode == MODE_TILE_SUM:
         if flags & FLAG_TRANSPOSED:
             vec = 1
         threads, smem, grid, chunks = TILE_SUM_THREADS, 4 * F * (TILE + TILE_SUM_PAD), B // TILE, TILE_SUM_CHUNKS
+        route = ROUTE_TILE_SUM
     elif mode == MODE_LANE:
         per_row = ceil_div(F, 4)
         vec = 4 if F % 4 == 0 and idx_align % 16 == 0 else 1
         grid = stride_grid(B * per_row, threads, n_sms)
+        route = ROUTE_LANE
     else:  # ROW, WINDOW, COPY from L2
         if flags & FLAG_TRANSPOSED:
             vec = 1
         rows = ROWS_PER_THREAD if unroll is None else int(unroll)
         grid = stride_grid(32 * ceil_div(B, 32 * rows), threads, n_sms)
+        route = ROUTE_L2
     return GatherPlan(B=B, S=S, F=F, mode=mode, source=source, flags=flags, tile_shift=TILE_SHIFT, vec=vec, rows=rows,
                       per_row=per_row, per_row_shift=pow2_shift(per_row), threads=threads, grid=grid if B > 0 else 0,
-                      smem_bytes=smem, chunks=chunks, planes=n_planes, runs=n_runs, run=run, in_flight=group)
+                      smem_bytes=smem, chunks=chunks, planes=n_planes, runs=n_runs, run=run, in_flight=group,
+                      route=route)
 
 
 def gather_route(plan: GatherPlan) -> str:
-    """The name of the route a gather plan launches (``GATHER_ROUTE_LAUNCHES``'
-    keys): "shared", "async", "planes", "tile_sum", "lane" or "l2"."""
-    if plan.source == SOURCE_SHARED:
-        return "shared"
-    if plan.source == SOURCE_ASYNC:
-        return "async"
-    if plan.planes:
-        return "planes"
-    return {MODE_TILE_SUM: "tile_sum", MODE_LANE: "lane"}.get(plan.mode, "l2")
+    """The name of the route a gather plan launches, one of GATHER_ROUTES
+    (``GATHER_ROUTE_LAUNCHES``' keys)."""
+    return GATHER_ROUTES[plan.route]
 
 
 @functools.lru_cache(maxsize=1024)
@@ -469,7 +513,8 @@ def probe_gather(
     ``MODE_LANE``. Returns (B, F) fp32 ((B / TILE, F, TILE) with
     ``FLAG_FEATURE_MAJOR``). ``table2`` serves the odd rows (MODE_ROW, L2).
     ``unroll``: rows a thread of the L2 gather (1 for P6, 8 for P7; default
-    the plan's ROWS_PER_THREAD, 4). SHARED stages the table in each block
+    the plan's ROWS_PER_THREAD, 4; a WINDOW or COPY call with it takes the
+    L2 gather, not its own kernel). SHARED stages the table in each block
     (raises where it does not fit); ASYNC copies groups of ``in_flight``
     rows with ``cp.async``, one in flight a warp (MODE_ROW)."""
     dev = table.device

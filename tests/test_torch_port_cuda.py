@@ -750,6 +750,127 @@ def test_probe_gather_modes_match_plain(dev, mode):
     assert torch.equal(got, pr.probe_gather_plain(table, idx, **kw))
 
 
+def _window_starts(dev, S, B, seed):
+    """B int32 indices whose windows (the entries at multiples of 8) start
+    inside the table, straddle its end, start below 0 or wrap the int32 sum
+    of start and row."""
+    rng = np.random.default_rng(seed)
+    idx = rng.integers(-12, S + 4, B).astype(np.int64)
+    edges = np.array([2**31 - 1, 2**31 - 3, -(2**31), -1, -5, -8, S - 1, S - 5, S - 8, S, 0, 7, 8, 3, S - 9, S + 100])
+    starts = idx[::8]
+    starts[:edges.size] = edges[:starts.size]
+    return torch.from_numpy(idx.astype(np.int32)).to(dev)
+
+
+@pytest.mark.parametrize("aligned", [False, True])
+@pytest.mark.parametrize("F", [1, 2, 3, 8])
+def test_probe_gather_windows_match_plain(dev, F, aligned):
+    """WINDOW through its own kernel (route "window"), plain and aligned,
+    bitwise the plain version: B = 8, 2^17 and 2^21 + 8; windows that
+    straddle S, start below 0 or wrap the int32 sum; a table 4 bytes off
+    16-byte alignment (scalar vectors); bf16 rounding."""
+    pr = probe_rows
+    S = 1000
+    for B in (8, 2**17, 2**21 + 8):
+        idx = _window_starts(dev, S, B, B + F)
+        table = torch.from_numpy(np.random.default_rng(F).standard_normal((S, F)).astype(np.float32)).to(dev)
+        for t in (table, _offset_by_one(table)):
+            for flags in (0, pr.FLAG_ROUND_BF16):
+                flags |= pr.FLAG_ALIGNED if aligned else 0
+                got = _routed(t, idx, "window", mode=pr.MODE_WINDOW, flags=flags)
+                assert torch.equal(got, pr.probe_gather_plain(t, idx, pr.MODE_WINDOW, flags=flags)), (B, flags)
+        assert pr.gather_plan(B, S, F, pr.MODE_WINDOW, table_align=4).vec == 1
+
+
+@pytest.mark.parametrize("F", [1, 3, 8, 256])
+def test_probe_gather_copy_tiles_match_plain(dev, F):
+    """COPY through its own kernel (route "copy"), bitwise the plain
+    version: B = TILE and 64 TILE (the probe's), bf16 rounding, a table 4
+    bytes off 16-byte alignment (scalar vectors); at F = 256 off alignment
+    a tile has more vectors than the card holds threads."""
+    pr = probe_rows
+    S = pr.TILE + 5
+    table = torch.from_numpy(np.random.default_rng(F).standard_normal((S, F)).astype(np.float32)).to(dev)
+    idx_all = torch.zeros(64 * pr.TILE, dtype=torch.int32, device=dev)
+    for B in (pr.TILE, 2 * pr.TILE) if F == 256 else (pr.TILE, 64 * pr.TILE):
+        for t in (table, _offset_by_one(table)):
+            for flags in (0, pr.FLAG_ROUND_BF16):
+                got = _routed(t, idx_all[:B], "copy", mode=pr.MODE_COPY, flags=flags)
+                assert torch.equal(got, pr.probe_gather_plain(t, idx_all[:B], pr.MODE_COPY, flags=flags)), (B, flags)
+    wide = pr.gather_plan(2 * pr.TILE, S, 256, pr.MODE_COPY, table_align=4)
+    assert wide.per_row > wide.grid * wide.threads == pr.sm_count(dev.index or 0) * 2048
+
+
+@pytest.mark.parametrize("mode", [probe_rows.MODE_WINDOW, probe_rows.MODE_COPY])
+def test_probe_gather_transposed_or_feature_major_windows_and_copies_stay_on_l2(dev, mode):
+    """WINDOW and COPY of a transposed table or into feature-major tiles,
+    and with ``unroll``, take the L2 gather (route "l2") and still match
+    the plain version bit for bit."""
+    pr = probe_rows
+    S, F, B = 4096, 8, 2 * pr.TILE
+    table, _ = _probe_inputs(dev, S, F, 1, 5)
+    idx = _window_starts(dev, S, B, 5)
+    for t, flags, kw in ((table.t().contiguous(), pr.FLAG_TRANSPOSED, {}), (table, pr.FLAG_FEATURE_MAJOR, {}),
+                         (table.t().contiguous(), pr.FLAG_TRANSPOSED | pr.FLAG_FEATURE_MAJOR, {}),
+                         (table, 0, {"unroll": 8})):
+        if mode == pr.MODE_WINDOW:
+            flags |= pr.FLAG_ALIGNED
+        got = _routed(t, idx, "l2", mode=mode, flags=flags, **kw)
+        assert torch.equal(got, pr.probe_gather_plain(t, idx, mode, flags=flags)), flags
+
+
+def test_probe_gather_windows_and_copies_in_a_graph_and_on_a_second_stream(dev):
+    """WINDOW (plain and aligned, rounded) and COPY captured into a CUDA
+    graph and launched on a second stream: replays and side-stream calls
+    give the plain version's bits."""
+    pr = probe_rows
+    table, _ = _probe_inputs(dev, 4096, 8, 1, 23)
+    idx = _window_starts(dev, 4096, 2**17, 23)
+    calls = [{"mode": pr.MODE_WINDOW}, {"mode": pr.MODE_WINDOW, "flags": pr.FLAG_ALIGNED | pr.FLAG_ROUND_BF16},
+             {"mode": pr.MODE_COPY}, {"mode": pr.MODE_COPY, "flags": pr.FLAG_ROUND_BF16}]
+    wants = [pr.probe_gather_plain(table, idx, kw["mode"], flags=kw.get("flags", 0)) for kw in calls]
+    side = torch.cuda.Stream(dev)
+    side.wait_stream(torch.cuda.current_stream(dev))
+    with torch.cuda.stream(side):
+        for kw, want in zip(calls, wants):
+            assert torch.equal(pr.probe_gather(table, idx, **kw), want)
+    torch.cuda.current_stream(dev).wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph, stream=side):
+        outs = [pr.probe_gather(table, idx, **kw) for kw in calls]
+    for _ in range(3):
+        for o in outs:
+            o.fill_(float("nan"))
+        graph.replay()
+        torch.cuda.synchronize()
+        for o, want in zip(outs, wants):
+            assert torch.equal(o, want)
+
+
+def test_probe_gather_rejects_a_route_its_kernel_does_not_take(dev):
+    """The dispatcher launches the kernel the plan's ``route`` names and
+    nothing else: a ROW plan from L2 given any other route (or none) returns
+    cudaErrorInvalidValue and leaves the output untouched, and with its own
+    route it gathers."""
+    pr = probe_rows
+    table, _ = _probe_inputs(dev, 4096, 8, 1, 29)
+    idx = _window_starts(dev, 4096, 2 * pr.TILE, 29)
+    plan = pr.gather_plan(2 * pr.TILE, 4096, 8, pr.MODE_ROW, pr.SOURCE_L2, 0, 16, 16,
+                          pr.sm_count(table.device.index))
+    fields = {n: getattr(plan, n) for n in plan.FIELDS}
+    launch = pr.kernel("probe_rows", "tcnn_probe_gather", pr._GATHER_ARGS)
+    for route in range(len(pr.GATHER_ROUTES) + 1):
+        out = torch.full((2 * pr.TILE, 8), float("nan"), device=dev)
+        wrong = pr.GatherPlan(**{**fields, "route": route})
+        err = launch(table.data_ptr(), None, idx.data_ptr(), out.data_ptr(), wrong.args_ptr,
+                     pr.stream(table.device.index))
+        torch.cuda.synchronize()
+        if route == pr.ROUTE_L2:
+            assert err == 0 and torch.equal(out, pr.probe_gather_plain(table, idx))
+        else:
+            assert err == 1 and torch.isnan(out).all(), pr.GATHER_ROUTES[route:route + 1]
+
+
 @pytest.mark.parametrize("acc", [probe_rows.ACC_GLOBAL, probe_rows.ACC_SHARED])
 @pytest.mark.parametrize("S", [64, 4096])
 def test_probe_scatter_add_matches_plain(dev, S, acc):

@@ -16,6 +16,12 @@ functions, held here to the invariants the kernels in
   32 rows), a thread 4 lanes of a row (LANE), grid-stride over ``grid *
   threads`` threads; ASYNC: warp w of the grid takes groups of
   ``in_flight`` rows w, w + n_warps, ..., lane l vectors l + 32 k of each;
+  WINDOW: warp c of the grid takes chunks c, c + n_warps, ... of 32 x
+  ``rows`` vectors of the flat output, lane l vectors l + 32 k of each,
+  vector q reading row idx[8 (q // NV)] + (q % NV) // (F / vec) (NV = 8 F /
+  vec); COPY: ``runs`` groups of W = grid x threads / runs threads, thread
+  t storing vectors t % W, t % W + W, ... of the first tile to tiles
+  t // W, t // W + runs, ...;
   a scatter thread takes items
   ``t0 + k * stride`` (k < ILP, 4 or 2 in private blocks) with ``t0``
   stepping by ILP strides, item ``t`` being row ``t // per_row`` and its
@@ -48,14 +54,20 @@ def _thread_items(n_items, plan, ilp=1):
 
 
 def _gather_cover(plan, B, F):
-    """How often each output element (b, f) is written."""
-    if plan.mode == pr.MODE_LANE:
+    """How often each output element (b, f) is written, by the loops of the
+    kernel the plan's route names."""
+    route = pr.gather_route(plan)
+    if route == "lane":
         items = _thread_items(B * plan.per_row, plan)
         b, q = items // plan.per_row, items % plan.per_row
         lanes = q[:, None] * 4 + np.arange(4)[None, :]
         keep = lanes < F
         el = (b[:, None] * F + lanes)[keep]
-    elif plan.source == pr.SOURCE_L2:
+    elif route == "window":
+        el = _window_writes(plan, B, F)
+    elif route == "copy":
+        el = _copy_writes(plan, B, F)
+    elif route == "l2":
         # A warp takes group g of 32 x rows rows (grid-stride over warps);
         # lane l rows g * 32 * rows + l + 32 u, u < rows.
         R, n_warps = plan.rows, plan.grid * plan.threads // 32
@@ -66,11 +78,62 @@ def _gather_cover(plan, B, F):
         rows = rows[rows < B]
         assert F % plan.vec == 0
         el = (rows[:, None] * F + np.arange(F)[None, :]).reshape(-1)
-    elif plan.source == pr.SOURCE_SHARED:
+    elif route == "shared":
         el = _shared_writes(plan, B, F)
     else:
+        assert route == "async"
         el = _async_writes(plan, B, F)
     return np.bincount(el, minlength=B * F)
+
+
+def _window_writes(plan, B, F):
+    """The output elements the WINDOW kernel (csrc/probe_rows.cu:
+    gather_windows) writes, one entry a write: warp c % n_warps takes chunk
+    c of 32 K vectors (K = rows = WINDOW_VECTORS), lane l vectors c 32 K + l + 32 k below
+    B F / vec; each vector's read (window, row of the window, column) is
+    the plain version's for the elements it writes."""
+    K, vec, nv = plan.rows, plan.vec, plan.per_row
+    assert K == pr.WINDOW_VECTORS and plan.threads == 256 and F % vec == 0 and nv == 8 * F // vec
+    n_vec, n_warps = B * F // vec, plan.grid * plan.threads // 32
+    assert n_warps > 0 and B % 8 == 0
+    chunks = -(-n_vec // (32 * K))
+    q = (np.arange(chunks)[:, None] * 32 * K + np.arange(32 * K)[None, :]).reshape(-1)
+    q = q[q < n_vec]
+    el = q[:, None] * vec + np.arange(vec)[None, :]
+    window, e = q // nv, q % nv
+    row, col = e // (F // vec), (e % (F // vec)) * vec
+    b, f = el // F, el % F
+    assert (b // 8 == window[:, None]).all() and (b % 8 == row[:, None]).all()
+    assert (f == col[:, None] + np.arange(vec)[None, :]).all()
+    return el.reshape(-1)
+
+
+def _copy_writes(plan, B, F):
+    """The output elements the COPY kernel (csrc/probe_rows.cu: copy_tiles)
+    writes, one entry a write: ``runs`` groups of W = grid x threads / runs
+    threads; thread t stores vectors s = t % W, s + W, ... (below NT = TILE
+    F / vec) of the first tile to tiles t // W, t // W + runs, ...; each
+    stored vector is the table's flat vector s, the plain version's
+    element e mod TILE F."""
+    vec, nt, groups = plan.vec, plan.per_row, plan.runs
+    assert (pr.TILE * F) % vec == 0 and nt == pr.TILE * F // vec and plan.threads == 256
+    G = plan.grid * plan.threads
+    assert groups >= 1 and G % groups == 0 and B % pr.TILE == 0
+    width, n_tiles = G // groups, B // pr.TILE
+    t = np.arange(G)
+    s = (t % width)[None, :] + width * np.arange(-(-nt // width))[:, None]
+    r = (t // width)[None, :] + groups * np.arange(-(-n_tiles // groups))[:, None]
+    writes = []
+    for tiles in r:  # thread t's j-th tile, for every t
+        for vectors in s:  # thread t's i-th vector
+            keep = (tiles < n_tiles) & (vectors < nt)
+            writes.append(tiles[keep] * nt + vectors[keep])
+    q = np.concatenate(writes) if writes else np.zeros(0, np.int64)
+    assert plan.rows == -(-n_tiles // groups)
+    el = q[:, None] * vec + np.arange(vec)[None, :]
+    src = (q % nt)[:, None] * vec + np.arange(vec)[None, :]
+    assert (src == el % (pr.TILE * F)).all()
+    return el.reshape(-1)
 
 
 def _vector_elements(base, q, plan, F):
@@ -129,6 +192,8 @@ GATHER_KINDS = [
     ("l2x8", pr.MODE_ROW, pr.SOURCE_L2, {"unroll": 8}),
     ("l2x1", pr.MODE_ROW, pr.SOURCE_L2, {"unroll": 1}),
     ("window", pr.MODE_WINDOW, pr.SOURCE_L2, {}),
+    ("window_aligned", pr.MODE_WINDOW, pr.SOURCE_L2, {"flags": pr.FLAG_ALIGNED}),
+    ("copy", pr.MODE_COPY, pr.SOURCE_L2, {}),
     ("lane", pr.MODE_LANE, pr.SOURCE_L2, {}),
     ("shared", pr.MODE_ROW, pr.SOURCE_SHARED, {}),
     ("async1", pr.MODE_ROW, pr.SOURCE_ASYNC, {"in_flight": 1}),
@@ -140,20 +205,42 @@ GATHER_KINDS = [
 ]
 
 
+def _kind_plan(kind, B, S, F, align=16, n_sms=132):
+    """The plan of one of GATHER_KINDS (its flags from its keywords) for B
+    rows of an (S, F) table, pointers ``align``-byte aligned."""
+    _, mode, source, kw = next(k for k in GATHER_KINDS if k[0] == kind)
+    kw = dict(kw)
+    flags = kw.pop("flags", 0)
+    return pr.gather_plan(B, S, F, mode, source, flags, align, align, n_sms, **kw)
+
+
+def _kind_rows(kind, B):
+    """B rounded up to the rows a call of the kind's mode takes: whole
+    windows of 8 (WINDOW), whole tiles (COPY)."""
+    mode = next(k for k in GATHER_KINDS if k[0] == kind)[1]
+    unit = {pr.MODE_WINDOW: 8, pr.MODE_COPY: pr.TILE}.get(mode, 1)
+    return -(-B // unit) * unit
+
+
 @pytest.mark.parametrize("align", [4, 8, 16])
 @pytest.mark.parametrize("F", [1, 2, 3, 4, 6, 8, 128])
 @pytest.mark.parametrize("kind", [k[0] for k in GATHER_KINDS])
 def test_gather_plan_vector_width_follows_f_and_alignment(kind, F, align):
     _, mode, source, kw = next(k for k in GATHER_KINDS if k[0] == kind)
     S = 64
-    plan = pr.gather_plan(4096, S, F, mode, source, 0, align, align, **kw)
+    plan = _kind_plan(kind, 4096, S, F, align)
     if mode == pr.MODE_LANE:
         assert plan.vec == (4 if F % 4 == 0 and align == 16 else 1)
         assert plan.per_row == -(-F // 4)
+    elif mode == pr.MODE_COPY:  # the tile is one flat run of TILE F floats
+        assert plan.vec == max(v for v in (1, 2, 4) if align % (4 * v) == 0)
+        assert plan.per_row * plan.vec == pr.TILE * F
     else:
         assert F % plan.vec == 0 and align % (4 * plan.vec) == 0
         wider = [v for v in (2, 4) if v > plan.vec and F % v == 0 and align % (4 * v) == 0]
         assert not wider, "the plan must take the widest vector allowed"
+    if mode == pr.MODE_WINDOW:
+        assert plan.per_row * plan.vec == 8 * F
     if mode == pr.MODE_ROW and source == pr.SOURCE_L2:
         transposed = pr.gather_plan(4096, S, F, mode, source, pr.FLAG_TRANSPOSED, align, align, **kw)
         assert transposed.vec == 1
@@ -168,7 +255,7 @@ def test_gather_plan_grid_and_shared_memory_fit_the_card(kind, n_sms):
             S = 1024 if source == pr.SOURCE_SHARED else 2**23
             if source == pr.SOURCE_SHARED and not pr.fits_shared(S * F):
                 continue  # the wrapper refuses it
-            plan = pr.gather_plan(B, S, F, mode, source, 0, 16, 16, n_sms, **kw)
+            plan = _kind_plan(kind, _kind_rows(kind, B), S, F, 16, n_sms)
             assert 1 <= plan.grid <= n_sms * plans.SM_BLOCKS
             assert plan.grid * plan.threads <= n_sms * plans.SM_THREADS
             assert plan.smem_bytes <= BLOCK_SHARED_LIMIT
@@ -274,14 +361,87 @@ def test_dot_plan_grid_in_flight_and_cover(B):
 @pytest.mark.parametrize("B", SIZES)
 @pytest.mark.parametrize("kind", [k[0] for k in GATHER_KINDS])
 def test_gather_plan_covers_every_output_element_once(kind, B):
-    _, mode, source, kw = next(k for k in GATHER_KINDS if k[0] == kind)
+    """Every output element written once by the loops of the kind's kernel
+    (module docstring), B rounded up to the rows the mode takes: 0, 8 and
+    2^18 + 8 for WINDOW, 0, TILE and 129 TILE for COPY."""
+    B = _kind_rows(kind, B)
     for F in (1, 2, 3, 8):
-        plan = pr.gather_plan(B, 512, F, mode, source, 0, 16, 16, 132, **kw)
+        plan = _kind_plan(kind, B, 512, F)
         if B == 0:
             assert plan.grid == 0
             continue
         cover = _gather_cover(plan, B, F)
         assert cover.shape == (B * F,) and (cover == 1).all()
+
+
+def test_window_and_copy_plans_at_the_probe_shapes():
+    """P10 / P15 (2^17 rows of an (2^15, 8) table): float4 vectors, 16 a
+    window, WINDOW_VECTORS (K) a lane, the grid-stride grid of 2^18 / 32 K
+    warps; P12: float4 vectors, 4,096 a tile, 8 groups of them (8 tiles a
+    thread) in 128 blocks, about one an SM."""
+    for flags in (0, pr.FLAG_ALIGNED):
+        p = pr.gather_plan(2**17, 2**15, 8, pr.MODE_WINDOW, pr.SOURCE_L2, flags, 16, 16, 132)
+        K = pr.WINDOW_VECTORS
+        assert (p.vec, p.per_row, p.per_row_shift, p.rows, p.threads) == (4, 16, 4, K, 256)
+        assert p.grid == min(2**18 // (32 * K) // 8, 132 * 8) and pr.gather_route(p) == "window"
+    c = pr.gather_plan(2**17, 2**15, 8, pr.MODE_COPY, pr.SOURCE_L2, 0, 16, 16, 132)
+    assert (c.vec, c.per_row, c.runs, c.rows, c.grid) == (4, 4096, 8, 8, 128) and pr.gather_route(c) == "copy"
+
+
+@pytest.mark.parametrize("mode", [pr.MODE_WINDOW, pr.MODE_COPY])
+def test_transposed_or_feature_major_windows_and_copies_route_to_l2(mode):
+    """Only row-major, untransposed WINDOW and COPY calls without
+    ``unroll`` take their own kernels; transposed or feature-major ones,
+    and those with ``unroll``, stay on the L2 gather (route "l2", the plan
+    a grid-stride L2 plan: 1 float a transposed read, 32 x rows rows a
+    warp)."""
+    own = "window" if mode == pr.MODE_WINDOW else "copy"
+    extra = pr.FLAG_ALIGNED if mode == pr.MODE_WINDOW else 0
+    for B in (2 * pr.TILE, 2**17):
+        for F in (1, 3, 8):
+            for flags in (0, pr.FLAG_ROUND_BF16):
+                plan = pr.gather_plan(B, 4096, F, mode, pr.SOURCE_L2, flags | extra)
+                assert pr.gather_route(plan) == own
+                assert plan.route == (pr.ROUTE_WINDOW if mode == pr.MODE_WINDOW else pr.ROUTE_COPY)
+            for flags, kw in ((pr.FLAG_TRANSPOSED, {}), (pr.FLAG_FEATURE_MAJOR, {}),
+                              (pr.FLAG_TRANSPOSED | pr.FLAG_FEATURE_MAJOR, {}), (0, {"unroll": 8})):
+                plan = pr.gather_plan(B, 4096, F, mode, pr.SOURCE_L2, flags | extra, **kw)
+                assert pr.gather_route(plan) == "l2" and plan.route == pr.ROUTE_L2
+                assert plan.rows == kw.get("unroll", pr.ROWS_PER_THREAD) and plan.planes == 0
+                assert plan.vec == (1 if flags & pr.FLAG_TRANSPOSED else plans.vec_width(F, 16))
+                assert plan.grid == plans.stride_grid(32 * -(-B // (32 * plan.rows)), 256, pr.N_SMS)
+
+
+@pytest.mark.parametrize("mode", [pr.MODE_WINDOW, pr.MODE_COPY])
+def test_windows_and_copies_of_2_31_values_or_more_route_to_l2(mode):
+    """The WINDOW and COPY kernels index the output's values in 32 bits, so
+    a call of B F >= 2^31 values takes the L2 gather (which indexes rows),
+    and one just below stays on its own kernel; the plan alone decides it
+    (no allocation here: F = 8, B near 2^28)."""
+    step = 8 if mode == pr.MODE_WINDOW else pr.TILE
+    own = "window" if mode == pr.MODE_WINDOW else "copy"
+    for B, F, route in ((2**28 - step, 8, own), (2**28, 8, "l2"), (2**28 + step, 8, "l2"), (2**29 - step, 8, "l2"),
+                        (2**31 - step, 1, own)):
+        plan = pr.gather_plan(B, 2**15, F, mode, pr.SOURCE_L2, 0, 16, 16, 132)
+        assert pr.gather_route(plan) == route, (B, F)
+        if route == "l2":
+            assert plan.rows == pr.ROWS_PER_THREAD and plan.grid == plans.stride_grid(32 * -(-B // 128), 256, 132)
+
+
+def test_every_plan_names_its_route_once():
+    """``route`` is the only field the kernel's dispatcher reads to pick a
+    kernel: each kind's plan names the kernel its loops model
+    (``_gather_cover``), and the indices and names of GATHER_ROUTES agree."""
+    assert len(set(pr.GATHER_ROUTES)) == len(pr.GATHER_ROUTES) == 8
+    for name in pr.GATHER_ROUTES:
+        assert pr.GATHER_ROUTES[getattr(pr, "ROUTE_" + name.upper())] == name
+    want = {"l2": "l2", "l2x8": "l2", "l2x1": "l2", "window": "window", "window_aligned": "window", "copy": "copy",
+            "lane": "lane", "shared": "shared"}
+    for kind, *_ in GATHER_KINDS:
+        plan = _kind_plan(kind, _kind_rows(kind, 4096), 512, 8)
+        assert pr.gather_route(plan) == want.get(kind, "async"), kind
+    assert pr.gather_route(pr.gather_plan(4 * pr.TILE, 4096, 8, pr.MODE_TILE_SUM)) == "tile_sum"
+    assert pr.gather_route(pr.gather_plan(2**17, 2**10, 8, pr.MODE_ROW, pr.SOURCE_L2, PLANE_FLAGS)) == "planes"
 
 
 SHARED_TABLES = [(4096, 8), (1024, 8), (4096, 2), (7263, 8), (7264, 8), (4097, 3), (256, 128)]
