@@ -141,6 +141,22 @@ Phases, each printing lines of its own; any failure exits non-zero:
    (PAR_LOSS_RTOL's note), with ms/step beside the single trainer's and
    each rank's peak memory beside its; then the windowed kernels timed at
    the 3D model's shard 0 of 2 beside their plain versions.
+12g. higher orders, at the 3D model's and the flagship's width: the
+   windowed input gradient and double backward (G1, G2 of a rank of a
+   row-sharded table; the 3D model's shard 0 of 2 at 2^18 plus cell-boundary
+   points) and the sampled-corner gather (the flagship encoding, fp32 and
+   uint32 positions; bitwise) against their plain versions and timed beside
+   them with their bounds, the fixed_point_pos cotangent lookup against its
+   plain version; then, each count at 0 just before its path and read just
+   after: the curvature-regularised SDF fit through modules.
+   NetworkWithInputEncoding (L2 + eikonal + mean |H v|^2, whose parameter
+   gradient is a third derivative: autograd of the plain G2), one step
+   kernel vs plain, 200 steps at B = 2^16 with torch.optim.Adam, the loss
+   falling below three quarters, ms/step beside the eikonal-only step's; a table-gradient penalty
+   through stochastic interpolation (the sampled-corner gather) and through
+   fixed_point_pos, 20 steps each; one eikonal step of the 3D TP model over a
+   (1, 2) mesh of 2 gloo ranks against the single process (the windowed G1
+   and G2 launched, the unsharded ones not).
 13. times (CUDA events / synced host clock, median of repeats), each
    kernel's bound from its shapes (bytes over 3.35 TB/s or operations over
    the peak of their type) and, where one PyTorch call computes the same
@@ -219,8 +235,8 @@ TOL_BWD_NOTE = (
     "derivative that jumps, ReLU's at 0 or a bf16 rounding of the recomputed forward, turns an fp32 sum-order "
     "difference into an O(1) change of a few entries)"
 )
-KERNELS = ("ffmlp_fwd", "grid_fwd", "ffmlp_bwd", "adam_step", "grid_bwd", "grid_bwd_rng", "grid_bwd_modes", "probe_rows",
-           "sh_encode", "grid_sharded")
+KERNELS = ("ffmlp_fwd", "grid_fwd", "ffmlp_bwd", "adam_step", "grid_bwd", "grid_input_grad", "grid_bwd_rng",
+           "grid_bwd_modes", "probe_rows", "sh_encode", "grid_sharded")
 N_TRAIN_STEPS = 1000
 # PSNR floors of the 1000-step fits (dB) and the JAX package's TPU v5e
 # readings beside them (benchmarks/golden_strat_sr/metrics.json; the
@@ -1920,7 +1936,7 @@ def phase_second_order_times(card):
     log(f"time [{card}]: second order, 3D model B=2^18 uniform, bf16 dy, classes of the batch (accumulation codes "
         f"{rec['acc']}): " + "; ".join(f"{k} {v:.4f} ms" for k, v in ms.items())
         + " (CUDA events, kernels in turns; row0: every level one row long; no scatter: no class table)")
-    for name, k in gso.compiler_report(_build.build_library("grid_bwd")).items():
+    for name, k in gso.compiler_report(_build.build_library("grid_input_grad")).items():
         log(f"second order kernel: {name[:90]}: {k.get('registers')} registers, spill stores "
             f"{k.get('spill_stores')} / loads {k.get('spill_loads')} bytes, {k.get('instructions')} SASS instructions")
     enc = create_encoding(3, ENC3D, alignment=16)
@@ -3841,6 +3857,405 @@ def phase_parallel(card, flagship):
     return {"err_fwd": err_f, "err_bwd": err_b, "times": times, "launches": launches}
 
 
+# The higher orders (phase 12g): the curvature-regularised SDF fit on the
+# 3D model through the module API (B_HO points a step, HO_FIT_STEPS steps),
+# the table-gradient penalty through stochastic interpolation and through
+# fixed_point_pos (HO_PENALTY_STEPS steps each), and one table-parallel
+# eikonal step over 2 gloo ranks against the single process.
+B_HO = 2**16
+HO_FIT_STEPS = 200
+HO_PENALTY_STEPS = 20
+HO_PENALTY_WEIGHT = 1e-3
+HO_FIT_COUNTERS = {
+    "grid_fwd": ("grid_encode", "LAUNCHES"), "grid_bwd": ("grid_encode", "BWD_LAUNCHES"),
+    "grid_bwd_input": ("grid_encode", "INPUT_LAUNCHES"), "grid_bwdbwd": ("grid_encode", "BWDBWD_LAUNCHES"),
+    "ffmlp_fwd": ("ffmlp", "LAUNCHES"), "ffmlp_bwd": ("ffmlp", "BWD_LAUNCHES"),
+}
+HO_TP_COUNTERS = {
+    "grid_fwd_windowed": ("grid_encode", "WINDOWED_LAUNCHES"),
+    "grid_bwd_windowed": PAR_COUNTERS["grid_bwd_windowed"],
+    "grid_bwd_input_windowed": ("grid_encode", "WINDOWED_INPUT_LAUNCHES"),
+    "grid_bwdbwd_windowed": ("grid_encode", "WINDOWED_BWDBWD_LAUNCHES"),
+    "grid_fwd": ("grid_encode", "LAUNCHES"), "grid_bwd_input": ("grid_encode", "INPUT_LAUNCHES"),
+    "grid_bwdbwd": ("grid_encode", "BWDBWD_LAUNCHES"),
+}
+HO_TOL_NOTE = ("the one TP step against the single process: loss within PAR_LOSS_RTOL (PERF.md section 2), the "
+               "network's and the table's gradients within 1e-2 of the norm (a bf16 network whose roundings flip "
+               "in another sum order)")
+
+
+def _ho_windowed_kernels(card, rng):
+    """The windowed G1 and G2 on the 3D model's shard 0 of 2 against their
+    plain versions at B = 2^18 plus cell-boundary points, then timed at
+    2^18 beside them, with their bounds."""
+    import torch
+
+    from tcnn_tpu_torch.encodings import create_encoding
+    from tcnn_tpu_torch.encodings.grid import _INTERP_CODES
+    from tcnn_tpu_torch.ops import grid_encode as ge
+
+    dev = torch.device("cuda")
+    enc = create_encoding(3, TP3D_ENCODING, alignment=16)
+    F, L, d = enc.n_features_per_level, enc.n_levels, 3
+    interp = _INTERP_CODES[enc.interpolation_type]
+    tpg = _shard_grid(enc, 2, 0)
+    levels, windows = tpg._tables_on(dev)
+    x_np = np.concatenate([rng.uniform(0, 1, (B_FLAG, d)), _boundary_points(enc.scales, rng, 256, dims=d)])
+    x = torch.from_numpy(x_np.astype(np.float32)).to(dev)
+    n, n_local = len(x_np), tpg.local_n_params
+    local = torch.from_numpy(rng.uniform(-1, 1, n_local).astype(np.float32)).to(dev)
+    cgp = torch.from_numpy(rng.normal(0, 1, n_local).astype(np.float32)).to(dev)
+    dy = torch.from_numpy(rng.normal(0, 1, (n, L * F)).astype(np.float32)).to(dev)
+    cgx = torch.from_numpy(rng.normal(0, 1, (n, d)).astype(np.float32)).to(dev)
+    classes = ge._f32_classes(L, dev)
+    n0 = (ge.WINDOWED_INPUT_LAUNCHES, ge.WINDOWED_BWDBWD_LAUNCHES)
+    e1 = f32_close(ge.grid_backward_input_windowed(x, dy, local, levels, windows, F, interp),
+                   ge.grid_backward_input_plain(x, dy, local, levels, F, interp, windows), "windowed G1 shard 0/2")
+    got = ge.grid_backward_backward_windowed(x, dy, local, levels, windows, F, interp, cgp, cgx)
+    want = ge.grid_backward_backward_plain(x, dy, local, levels, F, interp, classes, cgp, cgx, windows)
+    torch.cuda.synchronize()
+    check((ge.WINDOWED_INPUT_LAUNCHES, ge.WINDOWED_BWDBWD_LAUNCHES) == (n0[0] + 1, n0[1] + 1),
+          "windowed G1 / G2: a launch did not move its count")
+    e2 = max(f32_close(got[1], want[1], "windowed G2 d/dx"), f32_close(got[2], want[2], "windowed G2 d/d(dL_dy)"))
+    check(got[0].shape == want[0].shape == (n_local,) and bool(got[0].isfinite().all()), "windowed G2: bad d/dparams")
+    e = float((got[0] - want[0]).abs().max())
+    check(e <= 1e-5 * float(want[0].abs().max()), f"windowed G2 d/dparams: max|diff| {e:.3e}")
+    e2 = max(e2, e)
+    log(f"higher orders: windowed G1 / G2 (the 3D model's shard 0 of 2, {n} points: 2^18 uniform and "
+        f"{n - B_FLAG} on cell boundaries +-1 ulp; G2 with cgp and cgx) match their plain versions "
+        f"({TOL_F32_NOTE}; G2's local table gradient within 1e-5 of max |plain|): max|diff| {e1:.3e} / {e2:.3e}")
+    x, dy, cgx = x[:B_FLAG], dy[:B_FLAG], cgx[:B_FLAG]
+    calls = {
+        "grid_bwd_input_windowed": (lambda: ge.grid_backward_input_windowed(x, dy, local, levels, windows, F, interp),
+                                    lambda: ge.grid_backward_input_plain(x, dy, local, levels, F, interp, windows)),
+        "grid_bwdbwd_windowed": (
+            lambda: ge.grid_backward_backward_windowed(x, dy, local, levels, windows, F, interp, cgp, cgx),
+            lambda: ge.grid_backward_backward_plain(x, dy, local, levels, F, interp, classes, cgp, cgx, windows)),
+    }
+    B = B_FLAG
+    # G1: x and dL/dy read, the rank's rows read, dL/dx written; per (sample,
+    # level, corner) the d^2 products of the weight derivatives, the F-dot
+    # and d multiply-adds (every corner's weights on every rank). G2: x,
+    # cgx, dL/dy read, the rank's rows and cgp read, d/dx, d/d(dL_dy) and
+    # the rank's table gradient written; as phase 13's G2 operations.
+    bounds = {
+        "grid_bwd_input_windowed": bound(B * d * 4 * 2 + B * L * F * 4 + n_local * 4,
+                                         B * L * 8 * (2 * F + d * d + 2 * d), "fp32"),
+        "grid_bwdbwd_windowed": bound(B * d * 4 * 3 + B * L * F * 4 * 2 + 3 * n_local * 4,
+                                      B * L * 8 * (d ** 3 + 3 * d * d + 4 * d + 6 * F), "fp32"),
+    }
+    times = {}
+    for name, (kernel, plain) in calls.items():
+        p1, k1, k2, p2 = _event_ms(plain, 2, 3), _event_ms(kernel), _event_ms(kernel), _event_ms(plain, 2, 3)
+        times[name] = {"kernel": statistics.median([k1, k2]), "plain": statistics.median([p1, p2]),
+                       "bound": bounds[name], "library": None}
+        log(f"time [{card}]: {name}, the 3D model's shard 0 of 2 at B = 2^18 (fp32 dL/dy"
+            + (", cgp and cgx" if "bwdbwd" in name else "") + f"): kernel {k1:.4f} / {k2:.4f} ms, plain "
+            f"{p1:.4f} / {p2:.4f} ms (in turns, CUDA events), bound {bounds[name][0]:.4f} ms ({bounds[name][1]})")
+    return {"err": {"grid_bwd_input_windowed": e1, "grid_bwdbwd_windowed": e2}, "times": times}
+
+
+def _ho_flagship_cotangent_kernels(card, flagship, rng):
+    """The cgp terms on the flagship encoding at B = 2^18 plus cell-boundary
+    points: the sampled-corner gather (fp32 and uint32 positions) bitwise
+    against its plain version, and the fixed_point_pos cotangent lookup (the
+    lookup kernel with cgp as its table) against its plain version; then
+    the gather timed beside its plain version, with its bound."""
+    import torch
+
+    from tcnn_tpu_torch.encodings import create_encoding
+    from tcnn_tpu_torch.encodings.grid import _INTERP_CODES
+    from tcnn_tpu_torch.ops import grid_encode as ge
+
+    dev = torch.device("cuda")
+    enc = create_encoding(2, flagship["encoding"], alignment=16)
+    F, L, d, width = enc.n_features_per_level, enc.n_levels, 2, enc.padded_output_width
+    interp = _INTERP_CODES[enc.interpolation_type]
+    levels = enc._levels_on(dev)
+    x_np = np.concatenate([rng.uniform(0, 1, (B_FLAG, d)), _boundary_points(enc.scales, rng, 256, dims=d)])
+    n = len(x_np)
+    x = torch.from_numpy(x_np.astype(np.float32)).to(dev)
+    xu = _as_fixed(x)
+    u = torch.from_numpy(rng.uniform(0, 1, (n, L)).astype(np.float32)).to(dev)
+    cgp = torch.from_numpy(rng.normal(0, 1, enc.n_params).astype(np.float32)).to(dev)
+    n0 = ge.SAMPLED_LAUNCHES
+    for what, pos in (("fp32", x), ("uint32", xu)):
+        got = ge.grid_encode_sampled(pos, cgp, levels, u, F, width, interp)
+        want = ge.grid_encode_sampled_plain(pos, cgp, levels, u, F, width, interp)
+        check(got.shape == (n, width) and torch.equal(got, want),
+              f"sampled-corner gather ({what} positions): not bitwise its plain version")
+    check(ge.SAMPLED_LAUNCHES == n0 + 2, "sampled-corner gather: a launch did not move its count")
+    fenc = create_encoding(2, dict(flagship["encoding"], fixed_point_pos=True), alignment=16)
+    flevels = fenc._levels_on(dev)
+    classes = torch.from_numpy(fenc.gradient_classes(n)).to(dev)
+    e_fixed = f32_close(ge._cgp_term(xu, cgp, flevels, classes, None, F, width, interp, False),
+                        ge._cgp_term(xu, cgp, flevels, classes, None, F, width, interp, True),
+                        "fixed_point_pos cotangent lookup")
+    log(f"higher orders: the sampled-corner gather (flagship encoding, {n} points: 2^18 uniform and {n - B_FLAG} on "
+        f"cell boundaries +-1 ulp; fp32 and uint32 positions) is bitwise its plain version; the fixed_point_pos "
+        f"cotangent lookup (tcnn_grid_forward with cgp as its table) matches its plain version ({TOL_F32_NOTE}): "
+        f"max|diff| {e_fixed:.3e}")
+    x, u = x[:B_FLAG], u[:B_FLAG]
+    kernel = lambda: ge.grid_encode_sampled(x, cgp, levels, u, F, width, interp)  # noqa: E731
+    plain = lambda: ge.grid_encode_sampled_plain(x, cgp, levels, u, F, width, interp)  # noqa: E731
+    p1, k1, k2, p2 = _event_ms(plain, 2, 3), _event_ms(kernel), _event_ms(kernel), _event_ms(plain, 2, 3)
+    B = B_FLAG
+    # x and the uniforms read, the sampled rows read (at most the table),
+    # the (B, width) output written; per (sample, level) the cell (a
+    # multiply, an add, a floor and a subtraction a dim) and the corner's
+    # compare a dim.
+    bnd = bound(B * d * 4 + B * L * 4 + min(enc.n_params * 4, B * L * F * 4) + B * width * 4, B * L * 5 * d, "fp32")
+    log(f"time [{card}]: grid_fwd_sampled, the flagship encoding at B = 2^18 (fp32 positions, fp32 cgp): kernel "
+        f"{k1:.4f} / {k2:.4f} ms, plain {p1:.4f} / {p2:.4f} ms (in turns, CUDA events), bound {bnd[0]:.4f} ms "
+        f"({bnd[1]})")
+    return {"err": 0.0, "err_fixed": e_fixed,
+            "times": {"kernel": statistics.median([k1, k2]), "plain": statistics.median([p1, p2]), "bound": bnd,
+                      "library": None}}
+
+
+def _ho_curvature_fit(card):
+    """The curvature-regularised SDF fit: modules.NetworkWithInputEncoding
+    on the 3D model, ``curvature_step`` (L2 + eikonal + curvature) with
+    torch.optim.Adam at B_HO; one step kernel vs plain from the same state,
+    then HO_FIT_STEPS steps with the counts at 0 just before and read just
+    after; synced ms/step beside the eikonal-only step's at the same B."""
+    import torch
+
+    from tcnn_tpu_torch import modules
+    from tcnn_tpu_torch.benchmarks.grid_second_order_times import CURVATURE_WEIGHT, curvature_step, sdf_step, sphere_sdf
+
+    dev = torch.device("cuda")
+    m = modules.NetworkWithInputEncoding(3, 1, ENC3D, NET3D, seed=SEED + 52)
+    gen = torch.Generator(device=dev).manual_seed(SEED + 53)
+
+    def batch():
+        x = torch.rand((B_HO, 3), generator=gen, device=dev)
+        v = torch.nn.functional.normalize(torch.randn((B_HO, 3), generator=gen, device=dev), dim=1)
+        return x, sphere_sdf(x), v
+
+    def new_opt(lr=5e-3):
+        opt = torch.optim.Adam(m.parameters(), lr=lr, betas=(0.9, 0.99), eps=1e-15)
+        return opt, torch.optim.lr_scheduler.LambdaLR(opt, lambda i: min(1.0, (i + 1) / 20))
+
+    p0 = m.params.detach().clone()
+    x, target, v = batch()
+    (loss_k, _), p_k = curvature_step(new_opt()[0], m, x.clone(), target, v), m.params.detach().clone()
+    with torch.no_grad():
+        m.params.copy_(p0)
+    loss_p, _ = curvature_step(new_opt()[0], lambda xx: m.apply_plain(m.params, xx)[:, :1].float(), x.clone(),
+                               target, v)
+    p_p = m.params.detach().clone()
+    with torch.no_grad():
+        m.params.copy_(p0)
+    torch.cuda.synchronize()
+    rel = abs(float(loss_k) - float(loss_p)) / abs(float(loss_p))
+    diff = (p_k - p_p).abs()
+    moved = float((diff > 1e-6).float().mean())
+    check(bool(torch.isfinite(loss_k)) and rel <= 1e-3, f"curvature fit: one-step loss {float(loss_k)} vs plain "
+          f"{float(loss_p)}")
+    check(float(diff.max()) <= 2 * 5e-3 / 20 * 1.0001 and moved <= 1e-2,
+          f"curvature fit: one step's params max|diff| {float(diff.max()):.3e}, {moved:.2e} of them differ")
+    opt, schedule = new_opt()
+    _zero_counts(HO_FIT_COUNTERS)
+    losses, curv, step_ms = [], [], []
+    t_start = time.perf_counter()
+    for i in range(HO_FIT_STEPS):
+        x, target, v = batch()
+        if i >= 20:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+        loss, c = curvature_step(opt, m, x, target, v)
+        schedule.step()
+        if i >= 20:
+            torch.cuda.synchronize()
+            step_ms.append((time.perf_counter() - t0) * 1e3)
+        losses.append(loss)
+        curv.append(c)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t_start
+    launches = _read_counts(HO_FIT_COUNTERS)
+    losses, curv = torch.stack(losses).cpu().numpy(), torch.stack(curv).cpu().numpy()
+    first, last = float(losses[0]), float(losses[-10:].mean())
+    log(f"higher orders: curvature fit, loss every 10 steps {', '.join(f'{v:.4g}' for v in losses[::10])}; "
+        f"curvature term every 10 steps {', '.join(f'{v:.4g}' for v in curv[::10])}")
+    check(np.isfinite(losses).all() and bool(m.params.isfinite().all()), "curvature fit: non-finite loss or params")
+    check(last < 0.75 * first, f"curvature fit: the loss did not fall below three quarters ({first:.4e} -> "
+          f"{last:.4e})")
+    for k, n_launch in launches.items():
+        check(n_launch > 0, f"curvature fit: kernel {k} was not launched")
+    eik_ms = []
+    for i in range(25):
+        x, target, _ = batch()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        sdf_step(opt, m, x, target)
+        torch.cuda.synchronize()
+        if i >= 5:
+            eik_ms.append((time.perf_counter() - t0) * 1e3)
+    med, med_eik = statistics.median(step_ms), statistics.median(eik_ms)
+    log(f"higher orders: curvature fit, {HO_FIT_STEPS} steps at B = 2^16 of L2 + eikonal + {CURVATURE_WEIGHT} "
+        f"mean |H v|^2 (H v: two create_graph input gradients; its parameter gradient a third derivative, autograd "
+        f"of the plain G2) on a sphere SDF, torch.optim.Adam lr 5e-3: one step kernel vs plain loss "
+        f"{float(loss_k):.6f} / {float(loss_p):.6f} (rel {rel:.2e}, bound 1e-3), params max|diff| "
+        f"{float(diff.max()):.3e}; loss {first:.4e} -> {last:.4e} (mean of the last 10; bound: below three "
+        f"quarters); curvature term {float(curv[0]):.4e} -> "
+        f"{float(curv[-10:].mean()):.4e}; kernel launches {launches}")
+    log(f"time [{card}]: curvature SDF step (module API, 3D model, B = 2^16): {med:.4f} ms/step (host clock + "
+        f"synchronize, median of steps 20-{HO_FIT_STEPS - 1}) beside the eikonal-only SDF step's {med_eik:.4f} "
+        f"ms/step at the same B (median of 20); {HO_FIT_STEPS} steps in {wall:.2f} s")
+    return {"launches": launches, "ms": med, "eikonal_ms": med_eik, "loss": (first, last)}
+
+
+def _ho_penalty_path(flagship, extra, name):
+    """A table-gradient penalty through the module API: the image fit's
+    RelativeL2-style loss plus HO_PENALTY_WEIGHT times the mean square of
+    its gradient in the grid parameters (taken with create_graph), through
+    NetworkWithInputEncoding.apply with ``extra`` (stochastic interpolation
+    with rng=generator, or fixed_point_pos on uint32 points), B_HO a step,
+    HO_PENALTY_STEPS steps, counts at 0 just before and read just after:
+    the second derivative through that table gradient on the card."""
+    import torch
+
+    import tcnn_tpu_torch as tt
+
+    cfg = _extra_config(flagship, "Adam")
+    cfg["encoding"].update(extra)
+    model = tt.create_from_config(2, 3, cfg, seed=SEED, device="cuda").model
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 54)
+    rng = torch.Generator(device="cuda").manual_seed(SEED + 55)
+    stochastic = bool(extra.get("stochastic_interpolation"))
+    n_net = model.network.n_params
+    counters = {"grid_fwd": ("grid_encode", "LAUNCHES"), "grid_bwd": ("grid_encode", "BWD_LAUNCHES")}
+    if stochastic:
+        counters["grid_fwd_sampled"] = ("grid_encode", "SAMPLED_LAUNCHES")
+    opt = torch.optim.Adam([model.params], lr=1e-2, betas=(0.9, 0.99), eps=1e-15)
+    _zero_counts(counters)
+    losses = []
+    for _ in range(HO_PENALTY_STEPS):
+        x = torch.rand((B_HO, 2), generator=gen, device="cuda")
+        y = torch.stack([torch.sin(9 * x[:, 0]), torch.cos(7 * x[:, 1]), x[:, 0] * x[:, 1]], 1) * 0.5 + 0.5
+        pos = _as_fixed(x) if extra.get("fixed_point_pos") else x
+        out = model.apply(model.params, pos, **({"rng": rng} if stochastic else {}))[:, :3].float()
+        data = torch.mean((out - y) ** 2 / (out.detach() ** 2 + 0.01))
+        (gp,) = torch.autograd.grad(data, model.params, create_graph=True)
+        loss = data + HO_PENALTY_WEIGHT * (gp[n_net:] ** 2).sum()
+        opt.zero_grad(set_to_none=True)
+        loss.backward()
+        opt.step()
+        losses.append(loss.detach())
+    launches = _read_counts(counters)
+    losses = torch.stack(losses).cpu().numpy()
+    check(np.isfinite(losses).all() and float(losses[-3:].mean()) < float(losses[:3].mean()),
+          f"higher orders {name}: loss {losses[:3].mean():.4e} -> {losses[-3:].mean():.4e}")
+    for k, v in launches.items():
+        check(v > 0, f"higher orders {name}: kernel {k} was not launched")
+    log(f"higher orders: table-gradient penalty ({name}, FLAGSHIP_CONFIG's model, NetworkWithInputEncoding.apply, "
+        f"torch.optim.Adam, {HO_PENALTY_STEPS} steps at B = 2^16, weight {HO_PENALTY_WEIGHT}): loss "
+        f"{losses[:3].mean():.4e} -> {losses[-3:].mean():.4e} (means of 3); kernel launches {launches}")
+    return {"launches": launches}
+
+
+def _ho_tp_step(cfg, reference=False):
+    """One eikonal SDF step's loss and gradients on the 3D TP model at B_HO:
+    through TableParallelGrid over the mesh's model axis on a spawned rank,
+    or (``reference``) through the single process's unsharded lookup.
+    Returns the loss, the network's gradient, the encoding's gradient (this
+    rank's rows, or the whole table) and the launches."""
+    import torch
+
+    import tcnn_tpu_torch as tt
+    from tcnn_tpu_torch.benchmarks.grid_second_order_times import EIKONAL_WEIGHT, sphere_sdf
+
+    m = tt.create_from_config(3, 1, cfg, seed=SEED, device="cpu")
+    model = m.model
+    flat = m.trainer.params.numpy()
+    n_net = model.network.n_params
+    net = torch.from_numpy(flat[:n_net].copy()).cuda().requires_grad_(True)
+    if reference:
+        enc = torch.from_numpy(flat[n_net:].copy()).cuda().requires_grad_(True)
+        encode, shard = model.encoding.apply, None
+    else:
+        from torch.distributed.device_mesh import init_device_mesh
+
+        from tcnn_tpu_torch.parallel import TableParallelGrid
+
+        tpg = TableParallelGrid(model.encoding, init_device_mesh("cuda", (1, 2), mesh_dim_names=("data", "model")))
+        enc = torch.from_numpy(tpg.local_params(flat[n_net:])).cuda().requires_grad_(True)
+        encode, shard = tpg.padded_apply, tpg.shard
+    x = torch.rand((B_HO, 3), generator=torch.Generator(device="cuda").manual_seed(SEED + 56), device="cuda")
+    target = sphere_sdf(x)
+    _zero_counts(HO_TP_COUNTERS)
+    x.requires_grad_(True)
+    f = model.network.apply(net, encode(enc, x))[:, :1].float()
+    (g,) = torch.autograd.grad(f, x, torch.ones_like(f), create_graph=True)
+    loss = ((f - target) ** 2).mean() + EIKONAL_WEIGHT * ((g.norm(dim=1) - 1) ** 2).mean()
+    g_net, g_enc = torch.autograd.grad(loss, (net, enc))
+    torch.cuda.synchronize()
+    return {"loss": float(loss.detach()), "net": g_net.cpu().numpy(), "enc": g_enc.cpu().numpy(), "shard": shard,
+            "launches": _read_counts(HO_TP_COUNTERS)}
+
+
+def _ho_rank_tp(rank, world, cfg):
+    _par_assert_port_only("higher orders TP")
+    import torch
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    out = _ho_tp_step(cfg)
+    _par_assert_port_only("higher orders TP")
+    return out
+
+
+def phase_higher_orders(card, flagship):
+    """The derivatives beyond the SDF path's: the new kernels against their
+    plain versions and timed; the curvature fit; the table-gradient penalty
+    paths; one table-parallel eikonal step over 2 gloo ranks against the
+    single process."""
+    from tcnn_tpu_torch.encodings import create_encoding
+    from tcnn_tpu_torch.parallel.launch import run_ranks
+
+    t_phase = time.perf_counter()
+    rng = np.random.default_rng(SEED + 57)
+    win = _ho_windowed_kernels(card, rng)
+    samp = _ho_flagship_cotangent_kernels(card, flagship, rng)
+    fit = _ho_curvature_fit(card)
+    penalties = {name: _ho_penalty_path(flagship, extra, name)
+                 for name, extra in (("stochastic_interpolation, rng=generator", {"stochastic_interpolation": True}),
+                                     ("fixed_point_pos", {"fixed_point_pos": True}))}
+    cfg = {**_par_config(flagship, 3), "network": dict(NET3D)}
+    single = _ho_tp_step(cfg, reference=True)
+    t0 = time.perf_counter()
+    ranks = run_ranks(_ho_rank_tp, 2, cfg)
+    dt = time.perf_counter() - t0
+    check(sorted(r["shard"] for r in ranks) == [0, 1], "higher orders TP: the ranks' shards")
+    tpg = _shard_grid(create_encoding(3, cfg["encoding"], alignment=16), 2, 0)
+    enc_grad = tpg.unshard_params(np.concatenate([r["enc"] for r in sorted(ranks, key=lambda r: r["shard"])]))
+    rel = {"loss": abs(ranks[0]["loss"] - single["loss"]) / abs(single["loss"])}
+    for what, got in (("network", ranks[0]["net"]), ("table", enc_grad)):
+        want = single["net"] if what == "network" else single["enc"]
+        rel[what] = float(np.linalg.norm(got - want) / max(np.linalg.norm(want), 1e-30))
+    check(ranks[0]["loss"] == ranks[1]["loss"] and np.array_equal(ranks[0]["net"], ranks[1]["net"]),
+          "higher orders TP: the ranks' losses or network gradients differ")
+    check(rel["loss"] <= PAR_LOSS_RTOL and rel["network"] <= 1e-2 and rel["table"] <= 1e-2,
+          f"higher orders TP: loss / network / table gradient relative differences {rel} ({HO_TOL_NOTE})")
+    for k in ("grid_fwd_windowed", "grid_bwd_windowed", "grid_bwd_input_windowed", "grid_bwdbwd_windowed"):
+        check(all(r["launches"][k] > 0 for r in ranks), f"higher orders TP: kernel {k} was not launched")
+    check(all(r["launches"][k] == 0 for r in ranks for k in ("grid_fwd", "grid_bwd_input", "grid_bwdbwd")),
+          "higher orders TP: an unsharded grid kernel ran on the TP path")
+    log(f"higher orders [{card}]: one eikonal SDF step of the 3D TP model (per_level, fp32 sums) at B = 2^16 "
+        f"through TableParallelGrid on a (data 1, model 2) mesh of 2 gloo ranks on cuda:0 against the single "
+        f"process: loss {ranks[0]['loss']:.6f} / {single['loss']:.6f}, relative differences {rel} ({HO_TOL_NOTE}); "
+        f"launches (rank 0) {ranks[0]['launches']} ({dt:.1f} s with the ranks' start)")
+    launches = {
+        name: {"TP eikonal step (1, 2), 2^16": sum(r["launches"][name] for r in ranks)}
+        for name in ("grid_bwd_input_windowed", "grid_bwdbwd_windowed")
+    }
+    launches["grid_fwd_sampled"] = {
+        "table-gradient penalty, stochastic": penalties["stochastic_interpolation, rng=generator"]["launches"][
+            "grid_fwd_sampled"]}
+    log(f"higher orders: phase in {time.perf_counter() - t_phase:.1f} s")
+    return {"windowed": win, "sampled": samp, "fit": fit, "launches": launches}
+
+
 def main() -> int:
     import torch
 
@@ -3900,6 +4315,7 @@ def main() -> int:
         "host sampler training": phase_host_sampler(card, FLAGSHIP_CONFIG),
     }
     par = phase_parallel(card, FLAGSHIP_CONFIG)
+    ho = phase_higher_orders(card, FLAGSHIP_CONFIG)
     extras = phase_extras(card, FLAGSHIP_CONFIG, image)
     t = phase_times(card, k1, k2, m, x_flag, kb, ks)
     probes = phase_probes(card)
@@ -3955,9 +4371,9 @@ def main() -> int:
               kp["err_fwd"], None, "packed MLP protocol", dict(kp["fwd"], library=None)),
         entry("ffmlp_bwd_packed", "ffmlp_bwd.cu", "tcnn_tpu/ops/ffmlp.py:557", kp["launches"]["ffmlp_bwd_packed"],
               kp["err_bwd"], None, "packed MLP protocol", dict(kp["bwd"], library=None)),
-        entry("grid_bwd_input", "grid_bwd.cu", "tcnn_tpu/encodings/grid.py:1354", sdf["launches"]["grid_bwd_input"],
+        entry("grid_bwd_input", "grid_input_grad.cu", "tcnn_tpu/encodings/grid.py:1354", sdf["launches"]["grid_bwd_input"],
               kg["g1"], "grid_bwd_input", "module API (SDF)"),
-        entry("grid_bwdbwd", "grid_bwd.cu", "tcnn_tpu/encodings/grid.py:1354", sdf["launches"]["grid_bwdbwd"],
+        entry("grid_bwdbwd", "grid_input_grad.cu", "tcnn_tpu/encodings/grid.py:1354", sdf["launches"]["grid_bwdbwd"],
               kg["g2"], "grid_bwdbwd", "module API (SDF)"),
     ]
     # The SH rows: ms is the cold device time (call_ms beside it); routes:
@@ -4011,6 +4427,23 @@ def main() -> int:
                     par["times"][which])
         row["launches_by_path"] = par["launches"][name]
         row["library_note"] = "none: a masked gather summed over corners is no single call"
+        kernels.append(row)
+    # The higher orders' kernels (phase 12g): launches from their own paths
+    # (the TP eikonal step's ranks summed; the stochastic table-gradient
+    # penalty), times at the 3D model's shard 0 of 2 and the flagship.
+    for name, source, replaces, path, err, times in (
+        ("grid_bwd_input_windowed", "grid_sharded.cu", "tcnn_tpu/parallel/table_parallel.py:137",
+         "higher orders: TP eikonal step", ho["windowed"]["err"]["grid_bwd_input_windowed"],
+         ho["windowed"]["times"]["grid_bwd_input_windowed"]),
+        ("grid_bwdbwd_windowed", "grid_sharded.cu", "tcnn_tpu/parallel/table_parallel.py:137",
+         "higher orders: TP eikonal step", ho["windowed"]["err"]["grid_bwdbwd_windowed"],
+         ho["windowed"]["times"]["grid_bwdbwd_windowed"]),
+        ("grid_fwd_sampled", "grid_bwd_modes.cu", "tcnn_tpu/encodings/grid.py:145",
+         "higher orders: stochastic table-gradient penalty", ho["sampled"]["err"], ho["sampled"]["times"]),
+    ):
+        row = entry(name, source, replaces, sum(ho["launches"][name].values()), err, None, path, times)
+        row["launches_by_path"] = ho["launches"][name]
+        row["library_note"] = "none: no PyTorch call takes a windowed or a one-corner gather"
         kernels.append(row)
     for name, replaces in (("probe_gather", "benchmarks/probe_mosaic_gather.py:63"),
                            ("probe_scatter", "benchmarks/probe_mosaic_gather.py:121"),

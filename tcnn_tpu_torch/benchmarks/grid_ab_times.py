@@ -35,8 +35,9 @@ MODEL_3D = {"otype": "HashGrid", "n_levels": 16, "n_features_per_level": 2, "log
 FLAGSHIP_RNG = dict(FLAGSHIP, hash="Rng")
 BATCH = 2**18
 # The libraries the timed calls use (those of them the checkout has).
-LIBRARIES = ("grid_fwd", "grid_bwd", "grid_bwd_rng", "grid_bwd_modes", "ffmlp_fwd", "ffmlp_bwd", "adam_step")
-GRID_LIBRARIES = ("grid_fwd", "grid_bwd", "grid_bwd_rng", "grid_bwd_modes")
+LIBRARIES = ("grid_fwd", "grid_bwd", "grid_input_grad", "grid_bwd_rng", "grid_bwd_modes", "ffmlp_fwd", "ffmlp_bwd",
+             "adam_step")
+GRID_LIBRARIES = ("grid_fwd", "grid_bwd", "grid_input_grad", "grid_bwd_rng", "grid_bwd_modes")
 
 
 def _build_all():

@@ -224,6 +224,30 @@ def sdf_step(opt, f_of, x, target):
     return loss.detach()
 
 
+# The curvature term's weight: mean |H v|^2 against the L2 and eikonal
+# terms, H the Hessian of the field in x and v a random unit direction a
+# sample (a curvature regulariser of neural-SDF work).
+CURVATURE_WEIGHT = 1e-8
+
+
+def curvature_step(opt, f_of, x, target, v):
+    """One step of ``sdf_step``'s loss plus CURVATURE_WEIGHT mean(|H v|^2),
+    H v the Hessian-vector product that two autograd.grad(create_graph=True)
+    calls give: the loss holds a second derivative in x, so its gradient in
+    the parameters is a third derivative (the grid's: autograd of its plain
+    double backward). Returns (the loss, its curvature term), detached."""
+    opt.zero_grad(set_to_none=True)
+    x = x.requires_grad_(True)
+    f = f_of(x)
+    (g,) = torch.autograd.grad(f, x, torch.ones_like(f), create_graph=True)
+    (hv,) = torch.autograd.grad((g * v).sum(), x, create_graph=True)
+    curvature = (hv * hv).sum(dim=1).mean()
+    loss = ((f - target) ** 2).mean() + EIKONAL_WEIGHT * ((g.norm(dim=1) - 1) ** 2).mean() + CURVATURE_WEIGHT * curvature
+    loss.backward()
+    opt.step()
+    return loss.detach(), curvature.detach()
+
+
 def time_sdf(args, dev, card) -> list:
     """The SDF step at ``args.batch``: synchronised ms/step (median of
     ``args.sdf_steps`` steps after 10), then 10 steps under the profiler."""
@@ -263,8 +287,8 @@ def main(argv=None) -> list:
     args = build_parser().parse_args(argv)
     dev = bench_device("cuda")
     card = card_label(dev)
-    names = ("grid_fwd", "grid_bwd") + (("ffmlp_fwd", "ffmlp_bwd") if args.sdf_steps > 0 else ())
-    lib = _build.build_libraries(names)["grid_bwd"]
+    names = ("grid_fwd", "grid_bwd", "grid_input_grad") + (("ffmlp_fwd", "ffmlp_bwd") if args.sdf_steps > 0 else ())
+    lib = _build.build_libraries(names)["grid_input_grad"]
     records = time_kernels(args, dev, card)
     records.append(emit({"what": "grid second order compiler report", "library": lib.name,
                          "kernels": compiler_report(lib)}))

@@ -1,6 +1,7 @@
 // The table gradient of two grid modes, for Hopper (sm_90a): uint32
 // positions (fixed_point_pos), and stochastic interpolation's one sampled
-// corner, each for a table without Rng levels and d = 2 or 3.
+// corner, each for a table without Rng levels and d = 2 or 3; and the
+// transpose of the sampled one, tcnn_grid_forward_sampled (below).
 // grid_table_grad.cuh's kernel with the dims, the position type and the
 // sampled corner at compile time: the corner loop unrolls (a sampled call's
 // runs once, its corner taken before it), the fixed-point and sampled
@@ -33,6 +34,7 @@
 #include <stdint.h>
 
 #include "grid_common.cuh"
+#include "grid_lookup.cuh"
 #include "grid_table_grad.cuh"
 
 using namespace tcnn_grid;
@@ -80,4 +82,34 @@ extern "C" int tcnn_grid_backward_sampled(const void* x, const void* dy, const v
   return table_gradient<ModeCells<float, true>>(x, dy, levels, classes, u, grad32, grad16, batch, n_dims,
                                                 n_levels, F, dy_width, interp, dy_bf16, fixed_point, rng_levels,
                                                 n_values, plan, stream);
+}
+
+// tcnn_grid_forward_sampled: per (sample, level) the row of `table` at the
+// corner that stochastic interpolation's table gradient picks for the
+// uniform u[b, level] (tcnn_grid_backward_sampled's corner, by the same
+// sampled_corner()), read as the lookup reads its table (the level
+// table's rounding), weight 1; the padding columns zeros.
+// With `table` a cotangent of the sampled table gradient (cgp) this is
+// d/d(dL_dy) of <cgp, table gradient>: the second derivative through that
+// gradient (tcnn_tpu/encodings/grid.py:_stochastic_combine_bwd, :145,
+// differentiated by the JAX package's autodiff; no Pallas kernel). It is
+// the lookup kernel (grid_lookup.cuh) with kSampled set: level-major tiles,
+// one row load a (sample, level) instead of 2^d, the output staged and
+// written whole. What bounds it: one random 8-byte row a (sample, level)
+// (16 levels x 2^18 samples: 4.2 M rows in a table that may exceed the
+// L2), beside the (B, L) uniforms read and the (B, width) output written.
+//
+// x (batch, n_dims) fp32, or uint32 with fixed_point; `levels` the level
+// table; u (batch, n_levels) fp32;
+// out (batch, out_width) fp32. Returns the launch's cudaError_t.
+extern "C" int tcnn_grid_forward_sampled(const void* x, const void* table, const void* levels, const void* u,
+                                         void* out, int batch, int n_dims, int n_levels, int F, int out_width,
+                                         int interp, int fixed_point, int rng_levels, void* stream) {
+  if (batch <= 0) return 0;
+  if (n_dims < 1 || n_dims > kMaxDims || F < 1 || F > kMaxF || n_levels < 1 || n_levels > kMaxLevels ||
+      out_width < n_levels * F || u == nullptr)
+    return (int)cudaErrorInvalidValue;
+  const LookupArgs a{x, static_cast<const float*>(table), static_cast<const Level*>(levels), batch, n_dims,
+                     n_levels, out_width, interp, fixed_point, rng_levels, static_cast<const float*>(u)};
+  return (int)lookup<float, false, true>(F, a, static_cast<float*>(out), static_cast<cudaStream_t>(stream));
 }

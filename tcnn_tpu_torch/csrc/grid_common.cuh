@@ -70,6 +70,11 @@ namespace tcnn_grid {
 constexpr int kMaxDims = 10;
 constexpr int kMaxF = 8;
 constexpr int kMaxLevels = 128;  // tcnn_tpu_torch/common.py MAX_N_LEVELS
+// The level-major tiles of the lookup (grid_lookup.cuh) and of the input
+// gradient and double backward (grid_input_grad.cuh): a block owns kTile
+// consecutive samples, one a lane, and its kWarps warps take the levels.
+constexpr int kTile = 32;
+constexpr int kWarps = 8;
 
 // Layout of one row of the (L, 32) int32 level table built by
 // tcnn_tpu_torch/ops/grid_encode.py:level_table.

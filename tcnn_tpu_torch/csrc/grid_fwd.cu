@@ -183,7 +183,7 @@ extern "C" int tcnn_grid_forward(const void* x, const void* params, const void* 
       out_width < n_levels * F)
     return (int)cudaErrorInvalidValue;
   const LookupArgs a{x, static_cast<const float*>(params), static_cast<const Level*>(levels), batch, n_dims,
-                     n_levels, out_width, interp, fixed_point, rng_levels};
+                     n_levels, out_width, interp, fixed_point, rng_levels, nullptr};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const cudaError_t err = out_bf16 ? lookup<__nv_bfloat16, false>(F, a, static_cast<__nv_bfloat16*>(out), s)
                                    : lookup<float, false>(F, a, static_cast<float*>(out), s);

@@ -16,6 +16,16 @@
 // of the others. Every other instantiation compiles the kernel's text as
 // it was before the windowed ones were added (the windowed code sits in
 // discarded `if constexpr` branches), so its registers do not move.
+//
+// The sampled instantiations (kSampled; grid_bwd_modes.cu,
+// tcnn_grid_forward_sampled) gather ONE corner a (sample, level): the
+// corner that stochastic interpolation's table gradient sends that sample's
+// dL/dy row to, chosen from the (batch, n_levels) uniforms u by the same
+// code (grid_common.cuh:sampled_corner), read as the lookup reads its table
+// (the level's rounding), with weight 1. The transpose of that table
+// gradient: what a cotangent of the table gradient gives d/d(dL/dy)
+// (tcnn_tpu/encodings/grid.py:_stochastic_combine_bwd, :145, whose
+// cotangent the JAX package gathers through the lookup's own gather).
 
 #pragma once
 
@@ -28,9 +38,6 @@
 namespace {
 
 using namespace tcnn_grid;
-
-constexpr int kTile = 32;   // samples a block, one a lane
-constexpr int kWarps = 8;   // warps a block
 
 __device__ __forceinline__ void store(float* p, float v) { *p = v; }
 __device__ __forceinline__ void store(__nv_bfloat16* p, float v) { *p = __float2bfloat16_rn(v); }
@@ -147,6 +154,17 @@ __device__ __forceinline__ void interpolate_windowed(const Cell& cell, const flo
   }
 }
 
+// kSampled: the row of the corner that sampled_corner() picks for u, as
+// the sampled table gradient's corner, read as load_row reads it.
+template <int F, int D, bool kExtras>
+__device__ __forceinline__ void gather_sampled(const Cell& cell, const float* __restrict__ table, const Level& lv,
+                                               int n_dims, int interp, float u, bool aligned, float (&acc)[F]) {
+  const int dims = D > 0 ? D : n_dims;
+  float w;
+  const uint32_t g = lv.offset + corner<kExtras>(cell, lv, dims, interp, sampled_corner(cell, dims, u), &w);
+  load_row<F>(table, g, aligned, lv, acc);
+}
+
 // Shared memory: the level table, then kTile staged output rows of
 // `row_stride` 32-bit words each (the row's bytes in words, padded to an
 // odd count so that the lanes' stores fall in distinct banks).
@@ -154,11 +172,14 @@ __device__ __forceinline__ void interpolate_windowed(const Cell& cell, const flo
 // kExtras: the instantiation for uint32 positions and Rng levels; the
 // other launches leave their code out (registers: PERF.md). kWindowed: a
 // rank of a row-sharded table, its level windows after the level table.
-template <typename OutT, int F, int D, bool kExtras, bool kWindowed>
+// kSampled: one sampled corner a (sample, level), u the (batch, n_levels)
+// uniforms (null otherwise).
+template <typename OutT, int F, int D, bool kExtras, bool kWindowed, bool kSampled = false>
 __global__ void __launch_bounds__(kWarps * 32)
     grid_forward_kernel(const void* __restrict__ x, const float* __restrict__ params,
                         const Level* __restrict__ levels, OutT* __restrict__ out, int batch, int n_dims,
-                        int n_levels, int out_width, int interp, int row_stride, int aligned, int fixed) {
+                        int n_levels, int out_width, int interp, int row_stride, int aligned, int fixed,
+                        const float* __restrict__ u) {
   extern __shared__ __align__(16) unsigned char smem[];
   Level* s_levels = reinterpret_cast<Level*>(smem);
   uint32_t* s_rows = reinterpret_cast<uint32_t*>(smem + n_levels * sizeof(Level));
@@ -189,7 +210,10 @@ __global__ void __launch_bounds__(kWarps * 32)
         cell = locate(xrow, lv, dims, interp);
       }
       float acc[F];
-      if constexpr (kWindowed) {
+      if constexpr (kSampled) {
+        gather_sampled<F, D, kExtras>(cell, params, lv, n_dims, interp, __ldg(u + (size_t)b * n_levels + lvl),
+                                      aligned != 0, acc);
+      } else if constexpr (kWindowed) {
         interpolate_windowed<F, D, kExtras>(cell, params, lv,
                                             window_of(reinterpret_cast<const Window*>(levels + n_levels), lvl),
                                             n_dims, interp, aligned != 0, acc);
@@ -226,16 +250,17 @@ struct LookupArgs {
   const float* params;
   const Level* levels;
   int batch, n_dims, n_levels, out_width, interp, fixed, rng_levels;
+  const float* u;  // kSampled: the (batch, n_levels) uniforms
 };
 
-template <typename OutT, int F, int D, bool kWindowed>
+template <typename OutT, int F, int D, bool kWindowed, bool kSampled>
 cudaError_t launch_forward(const LookupArgs& a, OutT* out, cudaStream_t s) {
   const int row_stride = (a.out_width * (int)sizeof(OutT) + 3) / 4 | 1;
   const size_t smem = a.n_levels * sizeof(Level) + (size_t)kTile * row_stride * 4;
   const unsigned blocks = (unsigned)((a.batch + kTile - 1) / kTile);
   const int aligned = reinterpret_cast<uintptr_t>(a.params) % 16 == 0;
-  auto kernel = a.fixed || a.rng_levels ? grid_forward_kernel<OutT, F, D, true, kWindowed>
-                                        : grid_forward_kernel<OutT, F, D, false, kWindowed>;
+  auto kernel = a.fixed || a.rng_levels ? grid_forward_kernel<OutT, F, D, true, kWindowed, kSampled>
+                                        : grid_forward_kernel<OutT, F, D, false, kWindowed, kSampled>;
   // Above 48 KB a block's dynamic shared memory must be allowed first. The
   // attribute holds for the current device only, so every such launch sets it.
   if (smem > 48 * 1024) {
@@ -243,31 +268,31 @@ cudaError_t launch_forward(const LookupArgs& a, OutT* out, cudaStream_t s) {
     if (err != cudaSuccess) return err;
   }
   kernel<<<blocks, kWarps * 32, smem, s>>>(a.x, a.params, a.levels, out, a.batch, a.n_dims, a.n_levels,
-                                           a.out_width, a.interp, row_stride, aligned, a.fixed);
+                                           a.out_width, a.interp, row_stride, aligned, a.fixed, a.u);
   return cudaGetLastError();
 }
 
-template <typename OutT, int F, bool kWindowed>
+template <typename OutT, int F, bool kWindowed, bool kSampled>
 cudaError_t launch_by_dims(const LookupArgs& a, OutT* out, cudaStream_t s) {
-  if (a.n_dims == 2) return launch_forward<OutT, F, 2, kWindowed>(a, out, s);
-  if (a.n_dims == 3) return launch_forward<OutT, F, 3, kWindowed>(a, out, s);
-  return launch_forward<OutT, F, 0, kWindowed>(a, out, s);
+  if (a.n_dims == 2) return launch_forward<OutT, F, 2, kWindowed, kSampled>(a, out, s);
+  if (a.n_dims == 3) return launch_forward<OutT, F, 3, kWindowed, kSampled>(a, out, s);
+  return launch_forward<OutT, F, 0, kWindowed, kSampled>(a, out, s);
 }
 
 // The lookup with F (1-8) at compile time; the caller has checked the
 // operands. Returns the launch's error.
-template <typename OutT, bool kWindowed>
+template <typename OutT, bool kWindowed, bool kSampled = false>
 cudaError_t lookup(int F, const LookupArgs& a, OutT* out, cudaStream_t s) {
   if (a.batch <= 0) return cudaSuccess;
   switch (F) {
-    case 1: return launch_by_dims<OutT, 1, kWindowed>(a, out, s);
-    case 2: return launch_by_dims<OutT, 2, kWindowed>(a, out, s);
-    case 3: return launch_by_dims<OutT, 3, kWindowed>(a, out, s);
-    case 4: return launch_by_dims<OutT, 4, kWindowed>(a, out, s);
-    case 5: return launch_by_dims<OutT, 5, kWindowed>(a, out, s);
-    case 6: return launch_by_dims<OutT, 6, kWindowed>(a, out, s);
-    case 7: return launch_by_dims<OutT, 7, kWindowed>(a, out, s);
-    case 8: return launch_by_dims<OutT, 8, kWindowed>(a, out, s);
+    case 1: return launch_by_dims<OutT, 1, kWindowed, kSampled>(a, out, s);
+    case 2: return launch_by_dims<OutT, 2, kWindowed, kSampled>(a, out, s);
+    case 3: return launch_by_dims<OutT, 3, kWindowed, kSampled>(a, out, s);
+    case 4: return launch_by_dims<OutT, 4, kWindowed, kSampled>(a, out, s);
+    case 5: return launch_by_dims<OutT, 5, kWindowed, kSampled>(a, out, s);
+    case 6: return launch_by_dims<OutT, 6, kWindowed, kSampled>(a, out, s);
+    case 7: return launch_by_dims<OutT, 7, kWindowed, kSampled>(a, out, s);
+    case 8: return launch_by_dims<OutT, 8, kWindowed, kSampled>(a, out, s);
     default: return cudaErrorInvalidValue;
   }
 }

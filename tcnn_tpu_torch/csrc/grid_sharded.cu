@@ -24,10 +24,19 @@
 // - the table gradient (tcnn_grid_backward_windowed) adds w * dL_dy into
 //   the rank's local row in fp32, the class the JAX package's autodiff gives
 //   it (no contribution rounding, fp32 sums); dL_dy is the same on every
-//   rank of the group, so no collective runs in the backward.
+//   rank of the group, so no collective runs in the backward for it;
+// - the input gradient (tcnn_grid_backward_input_windowed, G1's kernel)
+//   sums dw_c/dx <dL_dy, T[r]> over the corners the rank holds: its partial
+//   of dL/dx, which the caller sums over the model group (one all_reduce,
+//   the transpose of the forward's feature sum);
+// - the double backward (tcnn_grid_backward_backward_windowed, G2's
+//   kernel) reads T and the cotangent cgp of the rank's table gradient at
+//   the rows it holds and adds a_c dL_dy into its own rows: its table
+//   gradient is local, its d/dx and d/d(dL_dy) partials the caller sums
+//   over the group.
 //
 // Design: the instantiations of the existing kernels with one compare a
-// corner added (grid_lookup.cuh, grid_table_grad.cuh, template parameter
+// corner added (grid_lookup.cuh, grid_table_grad.cuh, grid_input_grad.cuh, template parameter
 // kWindowed; the windows follow the level table in one buffer, so the
 // kernels' arguments and every other instantiation stay as they were), so
 // that the lookup keeps its level-major warps and division-free index
@@ -36,7 +45,12 @@
 // vector atomics. Their own translation unit: grid_fwd.cu's and
 // grid_bwd.cu's builds and instantiations do not change. Positions are
 // fp32 (the JAX package's sharded lookup has no fixed_point_pos); the
-// forward writes fp32 only.
+// forward writes fp32 only, so G1 and G2 take an fp32 dL_dy only (the
+// gradient of the fp32 features; half of their instantiations).
+//
+// As for a whole table (ops/grid_encode.py), the kernels take the first
+// and second orders; the third and beyond are autograd of their plain
+// versions.
 //
 // What bounds it: as the unsharded kernels, random L2 reads and the
 // atomics' latency, not bytes: every rank computes every corner's index
@@ -47,6 +61,7 @@
 #include <stdint.h>
 
 #include "grid_common.cuh"
+#include "grid_input_grad.cuh"
 #include "grid_lookup.cuh"
 #include "grid_table_grad.cuh"
 
@@ -96,7 +111,7 @@ extern "C" int tcnn_grid_forward_windowed(const void* x, const void* params, con
       out_width < n_levels * F || !windows_follow(levels, windows, n_levels))
     return (int)cudaErrorInvalidValue;
   const LookupArgs a{x, static_cast<const float*>(params), static_cast<const Level*>(levels), batch, n_dims,
-                     n_levels, out_width, interp, 0, rng_levels};
+                     n_levels, out_width, interp, 0, rng_levels, nullptr};
   return (int)lookup<float, true>(F, a, static_cast<float*>(out), static_cast<cudaStream_t>(stream));
 }
 
@@ -112,4 +127,33 @@ extern "C" int tcnn_grid_backward_windowed(const void* x, const void* dy, const 
   if (!windows_follow(levels, windows, n_levels)) return (int)cudaErrorInvalidValue;
   return table_gradient<WindowedCells>(x, dy, levels, classes, nullptr, grad32, nullptr, batch, n_dims, n_levels, F,
                                        dy_width, interp, dy_bf16, 0, rng_levels, n_values, plan, stream);
+}
+
+// dx (batch, n_dims) fp32: the rank's partial of the input gradient for
+// the fp32 output gradient dy (batch, dy_width), from the corners it holds
+// (params: its local rows, read unrounded as its level table says).
+extern "C" int tcnn_grid_backward_input_windowed(const void* x, const void* dy, const void* params,
+                                                 const void* levels, const void* windows, void* dx, int batch,
+                                                 int n_dims, int n_levels, int F, int dy_width, int interp,
+                                                 void* stream) {
+  if (!windows_follow(levels, windows, n_levels)) return (int)cudaErrorInvalidValue;
+  return (int)input_gradient<true>(x, static_cast<const float*>(dy), params, levels, dx, batch, n_dims, n_levels, F,
+                                   dy_width, interp, static_cast<cudaStream_t>(stream));
+}
+
+// The rank's double backward for the cotangents cgp (n_values,: of its
+// local table gradient) and cgx (batch, n_dims) fp32, either null for zero:
+// its partials d_x (batch, n_dims) and d_dy (batch, dy_width) fp32 and, when
+// grad32 is not null, its local table gradient grad32 (n_values,) fp32
+// (every level fp32, no rounding: the class of the windowed table
+// gradient), zeroed here. dy fp32.
+extern "C" int tcnn_grid_backward_backward_windowed(const void* x, const void* dy, const void* params,
+                                                    const void* cgp, const void* cgx, const void* levels,
+                                                    const void* windows, void* grad32, void* d_x, void* d_dy,
+                                                    int batch, int n_dims, int n_levels, int F, int dy_width,
+                                                    int interp, int64_t n_values, void* stream) {
+  if (!windows_follow(levels, windows, n_levels)) return (int)cudaErrorInvalidValue;
+  return (int)double_backward<true>(x, static_cast<const float*>(dy), params, cgp, cgx, levels, nullptr, grad32,
+                                    nullptr, d_x, d_dy, batch, n_dims, n_levels, F, dy_width, interp, n_values,
+                                    static_cast<cudaStream_t>(stream));
 }

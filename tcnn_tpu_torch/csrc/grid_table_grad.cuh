@@ -1,6 +1,6 @@
 // The grid's table gradient (tcnn_grid_backward), shared by grid_bwd.cu
-// (the common and the extras' instantiations, and the row scatter, G1 and
-// G2, which use its helpers), grid_bwd_rng.cu (the instantiations for
+// (the common and the extras' instantiations, and the row scatter, which
+// uses its helpers, as G1 and G2 do: grid_input_grad.cuh), grid_bwd_rng.cu (the instantiations for
 // tables with Rng levels) and grid_bwd_modes.cu (those for uint32 positions
 // and for a sampled corner), the last two with the dims at compile time and
 // each built as a library of its own so that grid_bwd.cu's build does not

@@ -14,8 +14,8 @@ levels in shared-memory copies, equal rows of neighbouring samples summed in
 the warp first, one vector atomic a row; its plain version is
 ``grid_backward_plain``. The input gradient (``tcnn_grid_backward_input``,
 plain ``grid_backward_input_plain``) and the double backward
-(``tcnn_grid_backward_backward``, plain ``grid_backward_backward_plain``)
-replace what the JAX package gets from XLA
+(``tcnn_grid_backward_backward``, plain ``grid_backward_backward_plain``;
+both in ``csrc/grid_input_grad.cu``) replace what the JAX package gets from XLA
 autodiff of ``GridEncoding.apply`` (tcnn_tpu/encodings/grid.py:1354): they
 differentiate the corner weights with respect to x, exactly in every term
 (``jax.grad`` of ``jax.grad``). Both run level-major like the lookup (a
@@ -23,10 +23,13 @@ block owns 32 samples, a warp one level of them) and sum d/dx and
 d/d(dL_dy) in one fixed order without atomics, so two calls give the same
 bits; G2 adds its table gradient as the table-gradient kernel does (equal
 rows of neighbouring samples merged in the warp, one vector atomic a
-row). All of them read the same description of the
-grid: the (n_levels, 32) int32 level table built by ``level_table``; the
-table-gradient scatters also read the per-level gradient rounding classes
-(``ops.scatter_rows`` codes).
+row). The third order and beyond have no kernel, here as in the JAX
+package (which takes them from XLA autodiff): they are autograd of the
+plain double backward (``GridEncodeBackwardBackwardFunction``), while the
+first and second orders keep coming from the kernels. All of them read the
+same description of the grid: the (n_levels, 32) int32 level table built
+by ``level_table``; the table-gradient scatters also read the per-level
+gradient rounding classes (``ops.scatter_rows`` codes).
 
 Index arithmetic is uint32 with wrap-around, as in the JAX package
 (``tcnn_tpu/encodings/grid.py:_grid_hash`` and the affine corner fold).
@@ -37,7 +40,9 @@ products are split so they never overflow int64 (``_mul32``). The
 (``ops.pcg32_jump``); ``fixed_point_pos`` positions are uint32 (held in
 int64 by the plain versions), and their cell comes from the level table's
 fixed-point columns. The lookup and the table gradient take both; the
-table gradient also takes stochastic interpolation's uniforms ``u``.
+table gradient also takes stochastic interpolation's uniforms ``u``, and
+its transpose, the gather of one sampled corner a (sample, level), is
+``grid_encode_sampled`` (``csrc/grid_bwd_modes.cu``).
 
 The windowed lookup and table gradient (``csrc/grid_sharded.cu``:
 ``grid_encode_windowed``, ``grid_backward_windowed``) serve a table whose
@@ -46,7 +51,9 @@ every level is row-sharded over the ranks of a model-parallel group
 first + rows) of each level, its *window*, at the level table's offset;
 corners outside it read zeros and take no gradient. Their plain versions
 are ``grid_encode_plain`` and ``grid_backward_plain`` given ``window``, the
-(n_levels, 2) int32 windows.
+(n_levels, 2) int32 windows; so are those of the windowed input gradient and
+double backward (``grid_backward_input_windowed``,
+``grid_backward_backward_windowed``: a rank's partials).
 
 Every wrapper dispatches on the device of ``x``: a CPU tensor takes the
 plain version, a CUDA tensor launches the kernel or raises.
@@ -73,8 +80,12 @@ BWD_ROUTE_LAUNCHES: Dict[Tuple[str, str], int] = {}
 INPUT_LAUNCHES = 0
 BWDBWD_LAUNCHES = 0
 # The windowed lookup's launches (its table gradient counts under its route
-# in BWD_ROUTE_LAUNCHES).
+# in BWD_ROUTE_LAUNCHES), and those of the windowed G1 and G2.
 WINDOWED_LAUNCHES = 0
+WINDOWED_INPUT_LAUNCHES = 0
+WINDOWED_BWDBWD_LAUNCHES = 0
+# The sampled-corner gather's launches (grid_encode_sampled).
+SAMPLED_LAUNCHES = 0
 WINDOWED_BWD_ROUTE = ("grid_sharded", "tcnn_grid_backward_windowed")
 
 # Level index modes (csrc/grid_fwd.cu switches on the same values).
@@ -329,15 +340,37 @@ def _weight_derivatives(
     return grad, hess
 
 
+def _rounded(feats: torch.Tensor, codes: Tuple[int, ...]) -> torch.Tensor:
+    for code in codes:
+        feats = feats.to(_ROUND_DTYPES[code]).to(torch.float32)
+    return feats
+
+
+class _RoundedRead(torch.autograd.Function):
+    """``_rounded`` with the identity for its gradient: a rounding of reads
+    enters no derivative of the table, as in the JAX package's linear pairs
+    (its table gradient scatters the unrounded cotangent;
+    tcnn_tpu/encodings/grid.py:_forward_dtype)."""
+
+    @staticmethod
+    def forward(ctx, feats, codes):
+        return _rounded(feats, codes)
+
+    @staticmethod
+    def backward(ctx, g):
+        return g, None
+
+
 def _read_table(table: torch.Tensor, idx: torch.Tensor, row: np.ndarray) -> torch.Tensor:
     """Table rows at ``idx`` as the lookup reads them on the level whose
     level-table row is ``row``: fp32, rounded to the encoding's own table
-    dtype, then to the serve-time dtype, each where the row names one."""
+    dtype, then to the serve-time dtype, each where the row names one;
+    straight through for a gradient (``_RoundedRead``)."""
     feats = table[idx]
-    for code in (int(row[_OWN_COL]), int(row[_SERVE_COL])):
-        if code != ROUND_NONE:
-            feats = feats.to(_ROUND_DTYPES[code]).to(torch.float32)
-    return feats
+    codes = tuple(c for c in (int(row[_OWN_COL]), int(row[_SERVE_COL])) if c != ROUND_NONE)
+    if not codes:
+        return feats
+    return _RoundedRead.apply(feats, codes) if feats.requires_grad else _rounded(feats, codes)
 
 
 def _windows_np(window) -> Optional[np.ndarray]:
@@ -493,6 +526,16 @@ def contribution_magnitudes(
     return out.reshape(-1)
 
 
+def _held_rows(table: torch.Tensor, idx: torch.Tensor, row: np.ndarray, win) -> torch.Tensor:
+    """``_read_table(table, idx, row)``; with ``win`` (a level's window of a
+    rank of a row-sharded table, ``table`` its local rows) the rows the
+    rank holds, zeros for the others."""
+    if win is None:
+        return _read_table(table, idx, row)
+    idx, owned = _in_window(idx, row, win)
+    return torch.where(owned[..., None], _read_table(table, idx, row), 0.0)
+
+
 def grid_backward_input_plain(
     x: torch.Tensor,
     dL_dy: torch.Tensor,
@@ -500,21 +543,27 @@ def grid_backward_input_plain(
     levels: torch.Tensor,
     n_features_per_level: int,
     interpolation: int,
+    window=None,
 ) -> torch.Tensor:
     """Plain input gradient (B, d) fp32: dL/dx_e = sum over levels and
     corners of d w_c / d x_e * <dL_dy[:, level features], T[idx_c]>, the
-    table read as the lookup reads it (the level table's roundings)."""
+    table read as the lookup reads it (the level table's roundings).
+    ``window``: the (n_levels, 2) windows of a rank of a row-sharded table
+    (``params`` its local rows): the rank's partial, from the corners it
+    holds (the plain version of ``grid_backward_input_windowed``)."""
     batch, d = x.shape
     F = int(n_features_per_level)
     table = params.view(-1, F)
     lt = levels.cpu().numpy().view(np.uint32).astype(np.int64)
+    windows = _windows_np(window)
     bits_np = _corner_bits(d, interpolation)
     g = dL_dy.to(torch.float32)
     dx = torch.zeros((batch, d), dtype=torch.float32, device=x.device)
     for lvl, row in enumerate(lt):
         idx, _ = _level_rows(x, row, interpolation, bits_np)
         dw, _ = _weight_derivatives(x, row, interpolation, bits_np, second=False)
-        dots = torch.sum(_read_table(table, idx, row) * g[:, None, lvl * F : (lvl + 1) * F], dim=-1)
+        feats = _held_rows(table, idx, row, None if windows is None else windows[lvl])
+        dots = torch.sum(feats * g[:, None, lvl * F : (lvl + 1) * F], dim=-1)
         dx += torch.sum(dw * dots[..., None], dim=1)
     return dx
 
@@ -529,6 +578,7 @@ def grid_backward_backward_plain(
     level_round: Optional[torch.Tensor],
     cgp: Optional[torch.Tensor],
     cgx: Optional[torch.Tensor],
+    window=None,
 ) -> Tuple[Optional[torch.Tensor], torch.Tensor, torch.Tensor]:
     """Plain double backward. For the cotangents ``cgp`` (of the table
     gradient, flat like ``params``) and ``cgx`` (of the input gradient, (B,
@@ -545,33 +595,47 @@ def grid_backward_backward_plain(
       T[idx_c] per level, zero in the padding columns.
 
     A level whose class drops its table gradient has no cgp term (its
-    dparams is 0) and scatters nothing. T is read as the lookup reads it;
-    cgp is read exactly."""
+    dparams is 0) and scatters nothing. T and cgp are read as the lookup
+    reads its table (the level's rounding): the JAX package's autodiff
+    gathers the cotangent of its table gradient through the lookup's own
+    gather (the transpose of the transpose of ``gather_rows``'s linear pair,
+    tcnn_tpu/ops/scatter_rows.py:545).
+
+    ``window``: the (n_levels, 2) windows of a rank of a row-sharded table
+    (``params`` and ``cgp`` its local rows; the plain version of
+    ``grid_backward_backward_windowed``): T and cgp read zeros outside the
+    windows, d/dparams is the gradient of the local rows (sized as
+    ``grid_backward_plain``'s with ``window``) and d/dx and d/d(dL_dy) are
+    the rank's partials."""
     from .scatter_rows import ACC_BF16, ACC_DROP, scatter_rows_plain
 
     batch, d = x.shape
     F = int(n_features_per_level)
     table = params.view(-1, F)
     lt = levels.cpu().numpy().view(np.uint32).astype(np.int64)
+    windows = _windows_np(window)
+    sizes = lt[:, 1] if windows is None else windows[:, 1]
     classes = None if level_round is None else level_round.cpu().numpy().reshape(-1, 2)
     bits_np = _corner_bits(d, interpolation)
     g = dL_dy.to(torch.float32)
     cot_table = None if cgp is None else cgp.reshape(-1, F)
     d_params = None
     if classes is not None and cgx is not None:
-        d_params = torch.zeros((_table_rows(lt), F), dtype=torch.float32, device=x.device)
+        n_rows = int(max(lt[:, 0] + sizes)) if len(lt) else 0
+        d_params = torch.zeros((n_rows, F), dtype=torch.float32, device=x.device)
     d_x = torch.zeros((batch, d), dtype=torch.float32, device=x.device)
     d_dy = torch.zeros((batch, dL_dy.shape[1]), dtype=torch.float32, device=x.device)
     for lvl, row in enumerate(lt):
         contrib_round, acc = (0, 0) if classes is None else (int(v) for v in classes[lvl])
-        offset, size = int(row[0]), int(row[1])
+        offset, size = int(row[0]), int(sizes[lvl])
+        win = None if windows is None else windows[lvl]
         idx, weights = _level_rows(x, row, interpolation, bits_np)
         dw, hess = _weight_derivatives(x, row, interpolation, bits_np, second=cgx is not None)
         gl = g[:, lvl * F : (lvl + 1) * F]
-        feats = _read_table(table, idx, row)  # (B, C, F)
+        feats = _held_rows(table, idx, row, win)  # (B, C, F)
         cols = slice(lvl * F, (lvl + 1) * F)
         if cot_table is not None and acc != ACC_DROP:
-            cot = cot_table[idx]
+            cot = _held_rows(cot_table, idx, row, win)
             d_dy[:, cols] += torch.sum(weights[..., None] * cot, dim=1)
             d_x += torch.sum(dw * torch.sum(cot * gl[:, None, :], dim=-1)[..., None], dim=1)
         if cgx is not None:
@@ -583,9 +647,12 @@ def grid_backward_backward_plain(
             d_x += torch.sum(torch.sum(hess * cgx[:, None, :, None], dim=2) * dots[..., None], dim=1)
             if d_params is not None and acc != ACC_DROP:
                 acc_dtype = torch.bfloat16 if acc == ACC_BF16 else torch.float32
+                rows, contrib = idx, a[..., None] * gl[:, None, :]
+                if win is not None:
+                    rows, owned = _in_window(idx, row, win)
+                    contrib = torch.where(owned[..., None], contrib, 0.0)
                 d_params[offset : offset + size] += scatter_rows_plain(
-                    (idx - offset).reshape(-1), (a[..., None] * gl[:, None, :]).reshape(-1, F), size,
-                    contrib_round, acc_dtype,
+                    (rows - offset).reshape(-1), contrib.reshape(-1, F), size, contrib_round, acc_dtype,
                 )
     return (None if d_params is None else d_params.reshape(-1)), d_x, d_dy
 
@@ -1066,7 +1133,7 @@ def grid_backward_input(
     """Input gradient of the all-levels lookup (G1): (B, d) fp32 for the
     output gradient ``dL_dy`` (B, width >= L*F) in bf16 or fp32; see
     ``grid_backward_input_plain``. On a CUDA ``x`` the kernel
-    ``tcnn_grid_backward_input`` runs."""
+    ``tcnn_grid_backward_input`` runs (``csrc/grid_input_grad.cu``)."""
     if x.device.type == "cpu":
         return grid_backward_input_plain(x, dL_dy, params, levels, n_features_per_level, interpolation)
     if x.device.type != "cuda":
@@ -1083,7 +1150,7 @@ def grid_backward_input(
     from ._build import kernel, stream
 
     global INPUT_LAUNCHES
-    _launch("grid_backward_input", kernel("grid_bwd", "tcnn_grid_backward_input", _INPUT_ARGS)(
+    _launch("grid_backward_input", kernel("grid_input_grad", "tcnn_grid_backward_input", _INPUT_ARGS)(
         x.data_ptr(), dL_dy.data_ptr(), params.data_ptr(), levels.data_ptr(), dx.data_ptr(),
         batch, d, n_levels, F, dL_dy.shape[1], int(interpolation), int(dL_dy.dtype == torch.bfloat16),
         stream(x.get_device()),
@@ -1107,7 +1174,7 @@ def grid_backward_backward(
     """Double backward of the all-levels lookup (G2): (d/dparams or None,
     d/dx, d/d(dL_dy)) as ``grid_backward_backward_plain`` defines them. On a
     CUDA ``x`` the kernel ``tcnn_grid_backward_backward`` runs (one launch,
-    the gathers and the table scatter together)."""
+    the gathers and the table scatter together; ``csrc/grid_input_grad.cu``)."""
     if x.device.type == "cpu":
         return grid_backward_backward_plain(
             x, dL_dy, params, levels, n_features_per_level, interpolation, level_round, cgp, cgx
@@ -1121,12 +1188,7 @@ def grid_backward_backward(
     batch, d = x.shape
     n_levels = levels.shape[0]
     _check_dy(what, dL_dy, x, n_levels, F)
-    if cgp is not None and (cgp.shape != params.shape or cgp.dtype != torch.float32 or not cgp.is_contiguous()
-                            or cgp.device != x.device):
-        raise ValueError(f"{what}: cgp must be a contiguous float32 tensor shaped like params")
-    if cgx is not None and (cgx.shape != x.shape or cgx.dtype != torch.float32 or not cgx.is_contiguous()
-                            or cgx.device != x.device):
-        raise ValueError(f"{what}: cgx must be a contiguous float32 tensor shaped like x")
+    _check_cotangents(what, x, params, cgp, cgx)
     grad = grad16 = None
     n_values = params.numel()
     if level_round is not None:
@@ -1145,7 +1207,7 @@ def grid_backward_backward(
         return None if t is None else t.data_ptr()
 
     global BWDBWD_LAUNCHES
-    _launch(what, kernel("grid_bwd", "tcnn_grid_backward_backward", _BWDBWD_ARGS)(
+    _launch(what, kernel("grid_input_grad", "tcnn_grid_backward_backward", _BWDBWD_ARGS)(
         x.data_ptr(), dL_dy.data_ptr(), params.data_ptr(), ptr(cgp), ptr(cgx), levels.data_ptr(), ptr(level_round),
         ptr(grad), ptr(grad16), d_x.data_ptr(), d_dy.data_ptr(),
         batch, d, n_levels, F, dL_dy.shape[1], int(interpolation), int(dL_dy.dtype == torch.bfloat16), n_values,
@@ -1153,6 +1215,276 @@ def grid_backward_backward(
     ))
     BWDBWD_LAUNCHES += 1
     return grad, d_x, d_dy
+
+
+def _check_cotangents(what, x, params, cgp, cgx):
+    if cgp is not None and (cgp.shape != params.shape or cgp.dtype != torch.float32 or not cgp.is_contiguous()
+                            or cgp.device != x.device):
+        raise ValueError(f"{what}: cgp must be a contiguous float32 tensor shaped like params")
+    if cgx is not None and (cgx.shape != x.shape or cgx.dtype != torch.float32 or not cgx.is_contiguous()
+                            or cgx.device != x.device):
+        raise ValueError(f"{what}: cgx must be a contiguous float32 tensor shaped like x")
+
+
+_INPUT_WINDOWED_ARGS = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 6 + [ctypes.c_void_p]
+_BWDBWD_WINDOWED_ARGS = [ctypes.c_void_p] * 10 + [ctypes.c_int] * 6 + [ctypes.c_int64, ctypes.c_void_p]
+
+
+def _check_windowed(what, x, dL_dy, params, levels, windows, F):
+    _check_kernel_inputs(what, x, levels, F)
+    _check_params(what, params, x)
+    n_levels = levels.shape[0]
+    _check_dy(what, dL_dy, x, n_levels, F)
+    if dL_dy.dtype != torch.float32:
+        raise ValueError(f"{what}: dL_dy must be float32 (the gradient of the windowed lookup's fp32 features)")
+    _check_windows(what, windows, levels, x, n_levels)
+
+
+def grid_backward_input_windowed(
+    x: torch.Tensor,
+    dL_dy: torch.Tensor,
+    params: torch.Tensor,
+    levels: torch.Tensor,
+    windows: torch.Tensor,
+    n_features_per_level: int,
+    interpolation: int,
+) -> torch.Tensor:
+    """The input gradient of ``grid_encode_windowed`` (G1 of a rank of a
+    row-sharded table): the rank's partial of dL/dx, (B, d) fp32, from the
+    corners it holds, for the fp32 output gradient ``dL_dy`` (B, >= L*F);
+    the sum over the ranks of the model group is the input gradient of the
+    whole table. ``params``, ``levels`` and ``windows`` as
+    ``grid_encode_windowed`` takes them. On a CUDA ``x`` the kernel
+    ``tcnn_grid_backward_input_windowed`` runs (``csrc/grid_sharded.cu``)."""
+    F = int(n_features_per_level)
+    if x.device.type == "cpu":
+        return grid_backward_input_plain(x, dL_dy, params, levels, F, interpolation, windows)
+    if x.device.type != "cuda":
+        raise ValueError(f"grid_backward_input_windowed: unsupported device {x.device}")
+    what = "grid_backward_input_windowed"
+    _check_windowed(what, x, dL_dy, params, levels, windows, F)
+    batch, d = x.shape
+    dx = torch.empty((batch, d), dtype=torch.float32, device=x.device)
+    if batch == 0:
+        return dx
+    from ._build import kernel, stream
+
+    global WINDOWED_INPUT_LAUNCHES
+    _launch(what, kernel("grid_sharded", "tcnn_grid_backward_input_windowed", _INPUT_WINDOWED_ARGS)(
+        x.data_ptr(), dL_dy.data_ptr(), params.data_ptr(), levels.data_ptr(), windows.data_ptr(), dx.data_ptr(),
+        batch, d, levels.shape[0], F, dL_dy.shape[1], int(interpolation), stream(x.get_device()),
+    ))
+    WINDOWED_INPUT_LAUNCHES += 1
+    return dx
+
+
+def grid_backward_backward_windowed(
+    x: torch.Tensor,
+    dL_dy: torch.Tensor,
+    params: torch.Tensor,
+    levels: torch.Tensor,
+    windows: torch.Tensor,
+    n_features_per_level: int,
+    interpolation: int,
+    cgp: Optional[torch.Tensor],
+    cgx: Optional[torch.Tensor],
+) -> Tuple[Optional[torch.Tensor], torch.Tensor, torch.Tensor]:
+    """The double backward of a rank of a row-sharded table (G2 of
+    ``grid_encode_windowed``) for the cotangents ``cgp`` (of its local table
+    gradient, shaped like ``params``) and ``cgx`` (of the whole input
+    gradient, (B, d)), either None for zero: (d/dparams of its local rows,
+    fp32 sums, or None without ``cgx``; its partial d/dx; its partial
+    d/d(dL_dy)), as ``grid_backward_backward_plain`` with ``window`` defines
+    them. The caller sums the partials over the model group. On a CUDA
+    ``x`` the kernel ``tcnn_grid_backward_backward_windowed`` runs."""
+    F = int(n_features_per_level)
+    if x.device.type == "cpu":
+        classes = _f32_classes(levels.shape[0], x.device)
+        return grid_backward_backward_plain(x, dL_dy, params, levels, F, interpolation, classes, cgp, cgx, windows)
+    if x.device.type != "cuda":
+        raise ValueError(f"grid_backward_backward_windowed: unsupported device {x.device}")
+    what = "grid_backward_backward_windowed"
+    _check_windowed(what, x, dL_dy, params, levels, windows, F)
+    _check_cotangents(what, x, params, cgp, cgx)
+    batch, d = x.shape
+    grad = None if cgx is None else torch.empty(params.numel(), dtype=torch.float32, device=x.device)
+    d_x = torch.empty((batch, d), dtype=torch.float32, device=x.device)
+    d_dy = torch.empty((batch, dL_dy.shape[1]), dtype=torch.float32, device=x.device)
+    from ._build import kernel, stream
+
+    def ptr(t):
+        return None if t is None else t.data_ptr()
+
+    global WINDOWED_BWDBWD_LAUNCHES
+    _launch(what, kernel("grid_sharded", "tcnn_grid_backward_backward_windowed", _BWDBWD_WINDOWED_ARGS)(
+        x.data_ptr(), dL_dy.data_ptr(), params.data_ptr(), ptr(cgp), ptr(cgx), levels.data_ptr(), windows.data_ptr(),
+        ptr(grad), d_x.data_ptr(), d_dy.data_ptr(), batch, d, levels.shape[0], F, dL_dy.shape[1], int(interpolation),
+        params.numel(), stream(x.get_device()),
+    ))
+    WINDOWED_BWDBWD_LAUNCHES += 1
+    return grad, d_x, d_dy
+
+
+_SAMPLED_ARGS = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 8 + [ctypes.c_void_p]
+
+
+def grid_encode_sampled_plain(
+    x: torch.Tensor,
+    table: torch.Tensor,
+    levels: torch.Tensor,
+    u: torch.Tensor,
+    n_features_per_level: int,
+    padded_width: int,
+    interpolation: int,
+) -> torch.Tensor:
+    """Plain version of ``grid_encode_sampled``: per level, the row of
+    ``table`` at the corner ``_sampled_corner`` picks, read as the lookup
+    reads its table."""
+    batch, d = x.shape
+    x = _positions(x)
+    F = int(n_features_per_level)
+    tab = table.view(-1, F)
+    lt = levels.cpu().numpy().view(np.uint32).astype(np.int64)
+    bits_np = _corner_bits(d, interpolation)
+    outs = []
+    for lvl, row in enumerate(lt):
+        idx, _, t = _level_corners(x, row, interpolation, bits_np)
+        outs.append(_read_table(tab, torch.gather(idx, 1, _sampled_corner(t, u[:, lvl]))[:, 0], row))
+    y = torch.stack(outs, dim=1).reshape(batch, -1).to(torch.float32)
+    if padded_width > y.shape[1]:
+        y = torch.cat([y, y.new_zeros((batch, padded_width - y.shape[1]))], dim=1)
+    return y
+
+
+def grid_encode_sampled(
+    x: torch.Tensor,
+    table: torch.Tensor,
+    levels: torch.Tensor,
+    u: torch.Tensor,
+    n_features_per_level: int,
+    padded_width: int,
+    interpolation: int,
+) -> torch.Tensor:
+    """The gather of stochastic interpolation's sampled corners: (B,
+    padded_width) fp32, per (sample, level) the F values of ``table`` (flat
+    fp32, shaped like the grid parameters) at the one corner to which the
+    stochastic table gradient (``grid_backward`` given ``u``) sends that
+    sample's dL/dy row, weight 1, read as the lookup reads its table (the
+    level table's rounding); the padding columns zeros.
+    Its transpose: with ``table`` a cotangent of that table gradient, the
+    gradient with respect to dL/dy (tcnn_tpu/encodings/grid.py:
+    _stochastic_combine_bwd). ``x`` fp32 or uint32 (fixed_point_pos), ``u``
+    the (B, L) fp32 uniforms; Linear or Smoothstep (Nearest has no sampled
+    corner). On a CUDA ``x`` the kernel ``tcnn_grid_forward_sampled`` runs
+    (``csrc/grid_bwd_modes.cu``)."""
+    if int(interpolation) == INTERP_NEAREST:
+        raise ValueError("grid_encode_sampled: Nearest interpolation samples no corner")
+    F = int(n_features_per_level)
+    if x.device.type == "cpu":
+        return grid_encode_sampled_plain(x, table, levels, u, F, padded_width, interpolation)
+    if x.device.type != "cuda":
+        raise ValueError(f"grid_encode_sampled: unsupported device {x.device}")
+    what = "grid_encode_sampled"
+    _check_kernel_inputs(what, x, levels, F, fixed_point_ok=True)
+    _check_params(what, table, x)
+    n_levels = levels.shape[0]
+    _check_uniforms(what, u, x, n_levels)
+    if table.numel() >= 2**31:
+        raise ValueError(f"{what}: the kernel indexes the table in 32 bits (below 2^31 values)")
+    if not 1 <= n_levels <= MAX_LEVELS or padded_width < n_levels * F:
+        raise ValueError(f"{what}: {n_levels} levels (1 to {MAX_LEVELS}) of {F} features into width {padded_width}")
+    batch, d = x.shape
+    out = torch.empty((batch, padded_width), dtype=torch.float32, device=x.device)
+    if batch == 0:
+        return out
+    from ._build import kernel, stream
+
+    global SAMPLED_LAUNCHES
+    _launch(what, kernel("grid_bwd_modes", "tcnn_grid_forward_sampled", _SAMPLED_ARGS)(
+        x.data_ptr(), table.data_ptr(), levels.data_ptr(), u.data_ptr(), out.data_ptr(), batch, d, n_levels, F,
+        padded_width, int(interpolation), int(x.dtype == torch.uint32), int(_rng_levels(levels)),
+        stream(x.get_device()),
+    ))
+    SAMPLED_LAUNCHES += 1
+    return out
+
+
+def _without_dropped(d_dy: torch.Tensor, level_round: torch.Tensor, F: int) -> torch.Tensor:
+    """``d_dy`` with zeros in the columns of every level whose class drops
+    its table gradient (no cotangent reaches those levels)."""
+    from .scatter_rows import ACC_DROP
+
+    width = level_round.shape[0] * F
+    keep = (level_round[:, 1] != ACC_DROP).repeat_interleave(F)
+    return torch.cat([torch.where(keep, d_dy[:, :width], 0.0), d_dy[:, width:]], dim=1)
+
+
+def _cgp_term(x, cgp, levels, level_round, u, F, width, interp, plain):
+    """d/d(dL_dy) of <cgp, table gradient> where the table gradient has no
+    derivative in x (uint32 positions) or takes one sampled corner (``u``):
+    the transpose of that gradient applied to ``cgp``, (B, width) fp32, zero
+    in the padding columns and on the levels whose class drops it. Without
+    ``u``, the lookup of ``cgp`` as a table at the positions
+    (``tcnn_grid_forward``); with ``u``, the gather of its sampled corners
+    (``grid_encode_sampled``); each reads ``cgp`` as the lookup reads its
+    table, as the JAX package's autodiff does (``grid_backward_backward_plain``)."""
+    if u is None:
+        fwd = grid_encode_plain if plain else grid_encode
+        y = fwd(x, cgp, levels, F, width, interp, torch.float32)
+    else:
+        fwd = grid_encode_sampled_plain if plain else grid_encode_sampled
+        y = fwd(x, cgp, levels, u, F, width, interp)
+    return _without_dropped(y, level_round, F)
+
+
+def _double_backward(x, params, dy, levels, level_round, u, cgp, cgx, meta):
+    """The lookup's second derivatives for the cotangents ``cgp`` and
+    ``cgx`` of its first backward (dparams, dx), either None: (d/dparams,
+    d/dx, d/d(dL_dy)), each None where it is zero, from the kernels (G2,
+    and the lookups of ``_cgp_term``), or with ``plain`` in ``meta`` their
+    plain versions. The JAX package's autodiff gives the same terms
+    (tcnn_tpu/encodings/grid.py:1354): the cgp term of uint32 positions or
+    of a sampled corner has no d/dx and no d/dparams (positions without a
+    gradient; a sampled corner constant in x), and ``cgx`` comes with fp32
+    positions only; any other term is G2's, the sampled table gradient's
+    cgx term the deterministic one (as ``_stochastic_combine_bwd``'s weight
+    gradient)."""
+    F, interp, plain, acc16, plan = meta
+    cgp_alone = cgp is not None and (x.dtype != torch.float32 or u is not None)
+    d_dy_cgp = _cgp_term(x, cgp, levels, level_round, u, F, dy.shape[1], interp, plain) if cgp_alone else None
+    if cgp_alone:
+        cgp = None
+    if cgp is None and cgx is None:
+        return None, None, d_dy_cgp
+    bwdbwd = grid_backward_backward_plain if plain else grid_backward_backward
+    extra = () if plain else (acc16,)
+    d_params, d_x, d_dy = bwdbwd(x, dy, params, levels, F, interp, level_round, cgp, cgx, *extra)
+    return d_params, d_x, d_dy if d_dy_cgp is None else d_dy + d_dy_cgp
+
+
+def _autograd_of(fn, inputs, wanted, grads):
+    """The gradients of ``fn``'s outputs, weighted by ``grads`` (None:
+    zero), with respect to ``inputs`` where ``wanted`` says (None
+    elsewhere): autograd of the plain version ``fn`` recomputed from the
+    saved ``inputs``. Under grad mode (``create_graph``) an input that is
+    part of the graph enters as it is, so that the gradients are themselves
+    differentiable, to any order; else each input enters detached."""
+    create = torch.is_grad_enabled()
+    leaves = []
+    for t, w in zip(inputs, wanted):
+        if t is None or not (w and t.is_floating_point()):
+            leaves.append(t if t is None or not t.requires_grad else t.detach())
+        elif create and t.requires_grad:
+            leaves.append(t)
+        else:
+            leaves.append(t.detach().requires_grad_(True))
+    with torch.enable_grad():
+        outs = fn(*leaves)
+    pairs = [(o, g) for o, g in zip(outs, grads) if o is not None and g is not None and o.requires_grad]
+    targets = [t for t, w in zip(leaves, wanted) if w and t is not None and t.requires_grad]
+    got = iter(torch.autograd.grad([o for o, _ in pairs], targets, [g.to(o.dtype) for o, g in pairs],
+                                   create_graph=create, allow_unused=True) if pairs and targets else [])
+    return [next(got, None) if w and t is not None and t.requires_grad else None for t, w in zip(leaves, wanted)]
 
 
 class GridEncodeFunction(torch.autograd.Function):
@@ -1164,7 +1496,8 @@ class GridEncodeFunction(torch.autograd.Function):
     itself be differentiable (``create_graph=True``, e.g. an eikonal loss)
     runs as ``GridEncodeBackwardFunction``, whose own backward is the double
     backward kernel: the exact second order that ``jax.grad`` of
-    ``jax.grad`` gives in the JAX package.
+    ``jax.grad`` gives in the JAX package; every further order is autograd
+    of its plain version.
 
     ``GridEncodeFunction.apply(x, params, levels, level_round, u, meta)``
     with ``meta`` = (n_features_per_level, padded_width, interpolation,
@@ -1209,13 +1542,10 @@ class GridEncodeBackwardFunction(torch.autograd.Function):
     """The lookup's first backward as a differentiable function of (x,
     params, dL_dy): its forward returns (dparams, dx), each None where it is
     not wanted (``level_round`` None: no dparams; ``need_x`` False: no dx);
-    its backward is the double backward (``grid_backward_backward``, or its
-    plain version with ``plain``). Like the JAX package's torch bridge
-    (tcnn_tpu/torch_modules.py:92-130) it is differentiable once: a third
-    order raises ``RuntimeError``. The double backward takes fp32
-    positions and the deterministic table gradient: a cotangent of the
-    table gradient (``cgp``) of a fixed_point_pos lookup or of a stochastic
-    one raises ``NotImplementedError``.
+    its backward is the double backward (``_double_backward``: G2 and, for
+    a cotangent of the table gradient of uint32 positions or of a sampled
+    corner, the lookup of that cotangent) or, where that backward must
+    itself be differentiable (a third order), ``GridEncodeBackwardBackwardFunction``.
 
     ``GridEncodeBackwardFunction.apply(x, params, dL_dy, levels,
     level_round, u, meta, need_x)`` with the ``meta`` that
@@ -1240,25 +1570,57 @@ class GridEncodeBackwardFunction(torch.autograd.Function):
         return dparams, dx
 
     @staticmethod
-    @torch.autograd.function.once_differentiable
     def backward(ctx, cgp, cgx):
         x, params, dy, levels, level_round, u = ctx.saved_tensors
-        F, interp, plain, acc16, plan = ctx.meta
         if cgp is None and cgx is None:
             return (None,) * 8
-        if x.dtype != torch.float32 or (u is not None and cgp is not None):
-            raise NotImplementedError(
-                "GridEncoding: no second derivative through the table gradient of a "
-                + ("fixed_point_pos" if x.dtype != torch.float32 else "stochastic") + " lookup"
-            )
         cgp = None if cgp is None else cgp.contiguous()
         cgx = None if cgx is None else cgx.contiguous()
-        bwdbwd = grid_backward_backward_plain if plain else grid_backward_backward
-        extra = () if plain else (acc16,)
-        d_params, d_x, d_dy = bwdbwd(x, dy, params, levels, F, interp, level_round, cgp, cgx, *extra)
+        if torch.is_grad_enabled():
+            d_params, d_x, d_dy = GridEncodeBackwardBackwardFunction.apply(
+                x, params, dy, levels, level_round, u, cgp, cgx, ctx.meta)
+        else:
+            d_params, d_x, d_dy = _double_backward(x, params, dy, levels, level_round, u, cgp, cgx, ctx.meta)
+        need = ctx.needs_input_grad
         return (
-            d_x if ctx.needs_input_grad[0] else None,
-            d_params if ctx.needs_input_grad[1] else None,
-            d_dy.to(dy.dtype) if ctx.needs_input_grad[2] else None,
+            d_x if need[0] else None,
+            d_params if need[1] else None,
+            None if d_dy is None or not need[2] else d_dy.to(dy.dtype),
             None, None, None, None, None,
         )
+
+
+class GridEncodeBackwardBackwardFunction(torch.autograd.Function):
+    """The lookup's double backward as a differentiable function of (x,
+    params, dL_dy, cgp, cgx): its forward is ``_double_backward`` (the G2
+    kernel on the card, or its plain version with ``plain``), so the second
+    order keeps coming from the kernel; its backward, the third order, is
+    autograd of the plain version (``grid_backward_backward_plain`` and the
+    plain lookups of ``_cgp_term``) recomputed from the saved inputs, and
+    so is every order after it. The JAX package has no kernel for these
+    orders either: XLA autodiff of ``GridEncoding.apply`` takes them.
+
+    ``GridEncodeBackwardBackwardFunction.apply(x, params, dL_dy, levels,
+    level_round, u, cgp, cgx, meta)`` with ``GridEncodeFunction``'s ``meta``.
+    """
+
+    @staticmethod
+    def forward(ctx, x, params, dy, levels, level_round, u, cgp, cgx, meta):
+        ctx.meta = meta
+        ctx.set_materialize_grads(False)
+        ctx.save_for_backward(x, params, dy, cgp, cgx, levels, level_round, u)
+        return _double_backward(x, params, dy, levels, level_round, u, cgp, cgx, meta)
+
+    @staticmethod
+    def backward(ctx, g_params, g_x, g_dy):
+        x, params, dy, cgp, cgx, levels, level_round, u = ctx.saved_tensors
+        F, interp, plain, acc16, plan = ctx.meta
+        need = ctx.needs_input_grad
+        plain_meta = (F, interp, True, acc16, plan)
+
+        def fn(xx, pp, yy, cp, cx):
+            return _double_backward(xx, pp, yy, levels, level_round, u, cp, cx, plain_meta)
+
+        d_x, d_params, d_dy, d_cgp, d_cgx = _autograd_of(
+            fn, (x, params, dy, cgp, cgx), (need[0], need[1], need[2], need[6], need[7]), (g_params, g_x, g_dy))
+        return d_x, d_params, d_dy, None, None, None, d_cgp, d_cgx, None

@@ -267,9 +267,10 @@ class ShBackwardFunction(torch.autograd.Function):
     ``plain``), so the first-order dL/dx always comes from the kernel on the
     card; its backward, needed only when a gradient is itself
     differentiated, takes autograd of the plain version's vjp, as
-    ``FfmlpFunction`` does for second order. Like
-    ``GridEncodeBackwardFunction`` it is differentiable once: a third order
-    raises ``RuntimeError``.
+    ``FfmlpFunction`` does for second order; under grad mode that vjp is
+    built with ``create_graph``, so that every further order is autograd of
+    it too (the JAX package's ``SphericalHarmonicsEncoding.apply`` is jnp,
+    which ``jax.grad`` differentiates to any order).
 
     ``ShBackwardFunction.apply(x, dy, degree, n_to_pad, plain)``
     """
@@ -282,17 +283,25 @@ class ShBackwardFunction(torch.autograd.Function):
         return bwd(x, dy, degree, n_to_pad)
 
     @staticmethod
-    @torch.autograd.function.once_differentiable
     def backward(ctx, ddx):
         x, dy = ctx.saved_tensors
         degree, n_to_pad = ctx.meta
+        create = torch.is_grad_enabled()
+
+        def operand(t):
+            # A saved input that is part of the graph enters as it is under
+            # grad mode (the result then differentiates further), else
+            # detached; the vjp needs both to require grad.
+            if create and t.requires_grad:
+                return t.to(torch.float32)
+            return t.detach().to(torch.float32).requires_grad_(True)
+
         with torch.enable_grad():
-            xx = x.detach().to(torch.float32).requires_grad_(True)
-            dyy = dy.detach().to(torch.float32).requires_grad_(True)
+            xx, dyy = operand(x), operand(dy)
             dx = _plain_vjp(xx, dyy, degree, n_to_pad, create_graph=True)
             if not dx.requires_grad:  # degree 1: dL/dx is 0 whatever x and dL/dy
                 return None, None, None, None, None
-            d_x, d_dy = torch.autograd.grad(dx, (xx, dyy), ddx, allow_unused=True)
+            d_x, d_dy = torch.autograd.grad(dx, (xx, dyy), ddx, allow_unused=True, create_graph=create)
         return (
             None if d_x is None or not ctx.needs_input_grad[0] else d_x.to(x.dtype),
             None if d_dy is None or not ctx.needs_input_grad[1] else d_dy.to(dy.dtype),

@@ -12,7 +12,15 @@ windowed lookup kernel (``ops.grid_encode.grid_encode_windowed``,
 ``all_reduce`` over the model group sums. The backward of that sum is the
 identity, since every rank of the group computes the same network on the
 same features: the windowed table-gradient kernel adds each rank's
-contributions into its own rows, with no collective.
+contributions into its own rows, with no collective. The positions are the
+same on every rank of the group (a data shard's), so their gradient is the
+sum of the ranks' partials (the windowed input-gradient kernel's): one
+``all_reduce``, the transpose of the forward's. The two sums are each
+other's backward (``_SumOverGroup``, ``_CopyToGroup``), so every order of
+the lookup's derivatives is the whole table's: the windowed double
+backward's table gradient is local and its d/dx and d/d(dL_dy) partials
+are summed; a third order is autograd of the plain windowed double
+backward, as for a whole table (``ops.grid_encode``).
 ``TableParallelTrainer`` composes this with data parallelism over the
 mesh's ``data`` dimension.
 
@@ -44,29 +52,150 @@ def _mesh_device(mesh) -> torch.device:
     return torch.device(mesh.device_type)
 
 
+class _SumOverGroup(torch.autograd.Function):
+    """The sum over the model group of each rank's partial, held by every
+    rank. Its backward is the identity (``_CopyToGroup``): every rank of
+    the group takes the same loss of the sum.
+
+    ``_SumOverGroup.apply(t, group)``"""
+
+    @staticmethod
+    def forward(ctx, t, group):
+        ctx.group = group
+        return all_reduce(t.clone(), group)
+
+    @staticmethod
+    def backward(ctx, g):
+        return _CopyToGroup.apply(g, ctx.group), None
+
+
+class _CopyToGroup(torch.autograd.Function):
+    """A tensor that every rank of the model group holds alike (the
+    positions, dL/dy), handed to the ranks' partial computations: the
+    identity, whose backward sums the ranks' partial gradients
+    (``_SumOverGroup``).
+
+    ``_CopyToGroup.apply(t, group)``"""
+
+    @staticmethod
+    def forward(ctx, t, group):
+        ctx.group = group
+        return t.view_as(t)
+
+    @staticmethod
+    def backward(ctx, g):
+        return _SumOverGroup.apply(g, ctx.group), None
+
+
+def _windowed_grads(x, params, dy, levels, windows, meta, need_x, need_params):
+    """The first backward of a rank's windowed lookup: (the table gradient
+    of its rows or None, its partial dL/dx or None), from the kernels."""
+    F, interp, plan = meta
+    dparams = ge.grid_backward_windowed(x, dy, levels, windows, F, interp, plan) if need_params else None
+    dx = ge.grid_backward_input_windowed(x, dy, params, levels, windows, F, interp) if need_x else None
+    return dparams, dx
+
+
 class _WindowedLookup(torch.autograd.Function):
-    """The sharded lookup of a rank's local rows ``params``: the windowed
-    lookup, then the sum over the model group; its backward, the windowed
-    table gradient of the rank's rows. Positions get no gradient.
+    """A rank's partial features of a row-sharded table (the windowed
+    lookup of its rows ``params``), differentiable in ``params`` (the
+    windowed table gradient of its rows) and in the positions (its partial
+    input gradient, the windowed G1), each only where
+    ``ctx.needs_input_grad`` asks for it. A backward that must itself be
+    differentiable runs as ``_WindowedBackward``. The sums over the group
+    are the caller's (``TableParallelGrid.apply``).
 
     ``_WindowedLookup.apply(x, params, levels, windows, meta)`` with
-    ``meta`` = (F, interpolation, group, plan)."""
+    ``meta`` = (F, interpolation, plan)."""
 
     @staticmethod
     def forward(ctx, x, params, levels, windows, meta):
-        F, interp, group, plan = meta
+        F, interp, plan = meta
         ctx.meta = meta
-        ctx.save_for_backward(x, levels, windows)
-        y = ge.grid_encode_windowed(x, params, levels, windows, F, interp)
-        return all_reduce(y, group) if group is not None else y
+        ctx.save_for_backward(x, params, levels, windows)
+        return ge.grid_encode_windowed(x, params, levels, windows, F, interp)
 
     @staticmethod
-    @torch.autograd.function.once_differentiable
     def backward(ctx, dy):
-        x, levels, windows = ctx.saved_tensors
-        F, interp, group, plan = ctx.meta
-        dparams = ge.grid_backward_windowed(x, dy.contiguous(), levels, windows, F, interp, plan)
-        return None, dparams, None, None, None
+        x, params, levels, windows = ctx.saved_tensors
+        need_x, need_params = ctx.needs_input_grad[0], ctx.needs_input_grad[1]
+        dy = dy.to(torch.float32).contiguous()
+        if torch.is_grad_enabled():
+            dparams, dx = _WindowedBackward.apply(x, params, dy, levels, windows, ctx.meta, need_x, need_params)
+        else:
+            dparams, dx = _windowed_grads(x, params, dy, levels, windows, ctx.meta, need_x, need_params)
+        return dx, dparams, None, None, None
+
+
+class _WindowedBackward(torch.autograd.Function):
+    """``_WindowedLookup``'s first backward as a differentiable function of
+    (x, params, dL_dy): its forward returns (the table gradient of the
+    rank's rows, its partial dL/dx), each None where it is not wanted; its
+    backward the windowed double backward (G2 of the rank's rows: its table
+    gradient, its d/dx and d/d(dL_dy) partials), or, where that must itself
+    be differentiable, ``_WindowedBackwardBackward``.
+
+    ``_WindowedBackward.apply(x, params, dy, levels, windows, meta, need_x,
+    need_params)``"""
+
+    @staticmethod
+    def forward(ctx, x, params, dy, levels, windows, meta, need_x, need_params):
+        ctx.meta = meta
+        ctx.set_materialize_grads(False)
+        ctx.save_for_backward(x, params, dy, levels, windows)
+        return _windowed_grads(x, params, dy, levels, windows, meta, need_x, need_params)
+
+    @staticmethod
+    def backward(ctx, cgp, cgx):
+        x, params, dy, levels, windows = ctx.saved_tensors
+        if cgp is None and cgx is None:
+            return (None,) * 8
+        F, interp, plan = ctx.meta
+        cgp = None if cgp is None else cgp.contiguous()
+        cgx = None if cgx is None else cgx.contiguous()
+        if torch.is_grad_enabled():
+            d_params, d_x, d_dy = _WindowedBackwardBackward.apply(x, params, dy, levels, windows, cgp, cgx, ctx.meta)
+        else:
+            d_params, d_x, d_dy = ge.grid_backward_backward_windowed(x, dy, params, levels, windows, F, interp, cgp,
+                                                                     cgx)
+        need = ctx.needs_input_grad
+        return (d_x if need[0] else None, d_params if need[1] else None, d_dy if need[2] else None,
+                None, None, None, None, None)
+
+
+class _WindowedBackwardBackward(torch.autograd.Function):
+    """The windowed double backward as a differentiable function of (x,
+    params, dL_dy, cgp, cgx): its forward is the kernel
+    (``ops.grid_encode.grid_backward_backward_windowed``), its backward
+    autograd of the plain version recomputed from the saved inputs
+    (``grid_backward_backward_plain`` with the windows), as
+    ``ops.grid_encode.GridEncodeBackwardBackwardFunction`` for a whole
+    table.
+
+    ``_WindowedBackwardBackward.apply(x, params, dy, levels, windows, cgp,
+    cgx, meta)``"""
+
+    @staticmethod
+    def forward(ctx, x, params, dy, levels, windows, cgp, cgx, meta):
+        F, interp, plan = meta
+        ctx.meta = meta
+        ctx.set_materialize_grads(False)
+        ctx.save_for_backward(x, params, dy, cgp, cgx, levels, windows)
+        return ge.grid_backward_backward_windowed(x, dy, params, levels, windows, F, interp, cgp, cgx)
+
+    @staticmethod
+    def backward(ctx, g_params, g_x, g_dy):
+        x, params, dy, cgp, cgx, levels, windows = ctx.saved_tensors
+        F, interp, plan = ctx.meta
+        need = ctx.needs_input_grad
+        classes = ge._f32_classes(levels.shape[0], levels.device)
+
+        def fn(xx, pp, yy, cp, cx):
+            return ge.grid_backward_backward_plain(xx, yy, pp, levels, F, interp, classes, cp, cx, windows)
+
+        d_x, d_params, d_dy, d_cgp, d_cgx = ge._autograd_of(
+            fn, (x, params, dy, cgp, cgx), (need[0], need[1], need[2], need[5], need[6]), (g_params, g_x, g_dy))
+        return d_x, d_params, d_dy, None, None, d_cgp, d_cgx, None
 
 
 class TableParallelGrid:
@@ -178,14 +307,19 @@ class TableParallelGrid:
     def apply(self, local_params: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
         """(B, n_levels * F) fp32 features of positions ``x`` (B, d) from
         this rank's block ``local_params`` (``local_n_params``,) fp32, the
-        same on every rank of the model group. Differentiable with respect
-        to ``local_params``: the gradient of this rank's rows, with no
-        collective."""
+        same on every rank of the model group. Differentiable to any order:
+        with respect to ``local_params`` the gradient of this rank's rows
+        (no collective), with respect to ``x`` the whole table's (the
+        ranks' partials summed over the group)."""
         e = self.encoding
         x = x.to(torch.float32).contiguous()
         levels, windows = self._tables_on(x.device)
-        meta = (e.n_features_per_level, _INTERP_CODES[e.interpolation_type], self.group, self._plan(x.shape[0]))
-        return _WindowedLookup.apply(x, local_params, levels, windows, meta)
+        meta = (e.n_features_per_level, _INTERP_CODES[e.interpolation_type], self._plan(x.shape[0]))
+        if self.group is None:
+            return _WindowedLookup.apply(x, local_params, levels, windows, meta)
+        if x.requires_grad:
+            x = _CopyToGroup.apply(x, self.group)
+        return _SumOverGroup.apply(_WindowedLookup.apply(x, local_params, levels, windows, meta), self.group)
 
     def padded_apply(self, local_params: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
         """``apply`` with the encoding's output padding and dtype (a drop-in

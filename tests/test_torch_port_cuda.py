@@ -2145,3 +2145,139 @@ def test_windowed_kernels_need_the_windows_after_the_table(dev):
     local = torch.zeros(tpg.local_n_params, device=dev)
     with pytest.raises(ValueError, match="follow the level table"):
         grid_encode.grid_encode_windowed(x, local, levels, windows.clone(), 2, grid_encode.INTERP_LINEAR)
+
+
+@pytest.mark.parametrize("n_shards", [2, 3])
+@pytest.mark.parametrize("case", list(_WINDOWED_CASES))
+def test_windowed_input_gradient_and_double_backward_match_plain(dev, case, n_shards):
+    """Every shard's windowed G1 and G2 against their plain versions on the
+    card (fp32 as ``_close_f32``; G2's local table gradient, fp32 atomics,
+    within 1e-5 of max |plain|), at uniform points, points outside [0, 1]
+    and cell boundaries +-1 ulp; G2 with both cotangents, each alone; each
+    launch moving its count."""
+    from tcnn_tpu_torch.parallel import TableParallelGrid
+
+    n_dims, cfg = _WINDOWED_CASES[case]
+    enc = create_encoding(n_dims, cfg, alignment=16)
+    F, L = enc.n_features_per_level, enc.n_levels
+    interp = _interp_code(enc)
+    rng = np.random.default_rng(10 + n_shards)
+    x = torch.from_numpy(_lookup_points(enc, rng, 4099)).to(dev)
+    n = x.shape[0]
+    params = rng.uniform(-1, 1, enc.n_params).astype(np.float32)
+    dy = torch.from_numpy(rng.normal(0, 1, (n, L * F)).astype(np.float32)).to(dev)
+    cgx = torch.from_numpy(rng.normal(0, 1, (n, n_dims)).astype(np.float32)).to(dev)
+    for shard in range(n_shards):
+        tpg = TableParallelGrid(enc, None, shard=(shard, n_shards))
+        levels, windows = tpg._tables_on(dev)
+        local = torch.from_numpy(tpg.local_params(params)).to(dev)
+        cgp = torch.from_numpy(rng.normal(0, 1, tpg.local_n_params).astype(np.float32)).to(dev)
+        n0 = (grid_encode.WINDOWED_INPUT_LAUNCHES, grid_encode.WINDOWED_BWDBWD_LAUNCHES)
+        dx = grid_encode.grid_backward_input_windowed(x, dy, local, levels, windows, F, interp)
+        _close_f32(dx, grid_encode.grid_backward_input_plain(x, dy, local, levels, F, interp, windows))
+        cases = ((cgp, cgx), (None, cgx), (cgp, None))
+        for cp, cx in cases:
+            got = grid_encode.grid_backward_backward_windowed(x, dy, local, levels, windows, F, interp, cp, cx)
+            want = grid_encode.grid_backward_backward_windowed(x.cpu(), dy.cpu(), local.cpu(), levels.cpu(),
+                                                               windows.cpu(), F, interp,
+                                                               None if cp is None else cp.cpu(),
+                                                               None if cx is None else cx.cpu())
+            _close_f32(got[1], want[1].to(dev))
+            _close_f32(got[2], want[2].to(dev))
+            if cx is None:
+                assert got[0] is None and want[0] is None
+            else:
+                assert got[0].shape == (tpg.local_n_params,)
+                e = float((got[0] - want[0].to(dev)).abs().max())
+                assert e <= 1e-5 * float(want[0].abs().max()) + 1e-30
+        assert (grid_encode.WINDOWED_INPUT_LAUNCHES, grid_encode.WINDOWED_BWDBWD_LAUNCHES) == (n0[0] + 1,
+                                                                                            n0[1] + len(cases))
+
+
+def test_windowed_second_order_takes_fp32_dy_only(dev):
+    from tcnn_tpu_torch.parallel import TableParallelGrid
+
+    enc = create_encoding(2, _WINDOWED_CASES["2d-linear"][1], alignment=16)
+    tpg = TableParallelGrid(enc, None, shard=(0, 2))
+    levels, windows = tpg._tables_on(dev)
+    x = torch.rand((64, 2), device=dev)
+    local = torch.zeros(tpg.local_n_params, device=dev)
+    dy = torch.zeros((64, 32), device=dev, dtype=torch.bfloat16)
+    with pytest.raises(ValueError, match="float32"):
+        grid_encode.grid_backward_input_windowed(x, dy, local, levels, windows, 2, grid_encode.INTERP_LINEAR)
+
+
+@pytest.mark.parametrize("fixed", [False, True], ids=["fp32", "fixed_point_pos"])
+@pytest.mark.parametrize("n_dims", [2, 3, 4])
+@pytest.mark.parametrize("F", [1, 2, 4, 8])
+def test_sampled_gather_is_bitwise_the_plain_gather(dev, F, n_dims, fixed):
+    """tcnn_grid_forward_sampled against its plain version (the corner
+    _sampled_corner picks, gathered): the same rows, so the same bits, at
+    compiled (d 2, 3) and run-time (4) dims, uint32 and fp32 positions,
+    cell boundaries +-1 ulp (where u < w_d decides the corner), a table
+    read rounded to bf16 by its level table, the padding zeros."""
+    over = {"n_features_per_level": F, "fixed_point_pos": fixed, "table_dtype": "bfloat16",
+            "interpolation": "Smoothstep" if n_dims == 3 else "Linear"}
+    enc = create_encoding(n_dims, dict(SECOND_ORDER_GRID, **over), alignment=16)
+    rng = np.random.default_rng(F * 10 + n_dims)
+    if fixed:
+        x_np = rng.integers(0, 2**32, (3037, n_dims), dtype=np.uint64).astype(np.uint32)
+        x = torch.from_numpy(x_np.astype(np.int64)).to(torch.uint32).to(dev)
+    else:
+        x = torch.from_numpy(_lookup_points(enc, rng, 3037)).to(dev)
+    n = x.shape[0]
+    table = torch.from_numpy(rng.normal(0, 1, enc.n_params).astype(np.float32)).to(dev)
+    u = torch.from_numpy(rng.uniform(0, 1, (n, enc.n_levels)).astype(np.float32)).to(dev)
+    levels = enc._levels_on(dev)
+    assert (levels[:, grid_encode._OWN_COL] != grid_encode.ROUND_NONE).any()
+    width = enc.padded_output_width
+    n0 = grid_encode.SAMPLED_LAUNCHES
+    got = grid_encode.grid_encode_sampled(x, table, levels, u, F, width, _interp_code(enc))
+    assert grid_encode.SAMPLED_LAUNCHES == n0 + 1
+    want = grid_encode.grid_encode_sampled_plain(x, table, levels, u, F, width, _interp_code(enc))
+    assert got.shape == (n, width) and torch.equal(got, want)
+
+
+def test_fixed_point_cotangent_lookup_matches_plain(dev):
+    """The cgp term of uint32 positions on the card: the lookup kernel with
+    the cotangent as its table (fp32 out), a dropped level's columns
+    zeroed, against the plain lookup (fp32 as ``_close_f32``)."""
+    enc = create_encoding(2, dict(SECOND_ORDER_GRID, fixed_point_pos=True), alignment=16)
+    rng = np.random.default_rng(3)
+    x = torch.from_numpy(rng.integers(0, 2**32, (4099, 2), dtype=np.uint64).astype(np.int64)).to(torch.uint32).to(dev)
+    cgp = torch.from_numpy(rng.normal(0, 1, enc.n_params).astype(np.float32)).to(dev)
+    classes = torch.zeros((enc.n_levels, 2), dtype=torch.int32)
+    classes[3, 1] = scatter_rows.ACC_DROP
+    classes = classes.to(dev)
+    args = (enc._levels_on(dev), classes, None, 2, enc.padded_output_width, _interp_code(enc))
+    n0 = grid_encode.LAUNCHES
+    got = grid_encode._cgp_term(x, cgp, *args, False)
+    assert grid_encode.LAUNCHES == n0 + 1
+    want = grid_encode._cgp_term(x, cgp, *args, True)
+    _close_f32(got, want)
+    assert not got[:, 6:8].any()
+
+
+def test_third_order_on_the_card_is_the_plain_one(dev):
+    """A curvature loss through the module API on the card (G1, G2 and the
+    lookup by their kernels, the third order by autograd of the plain G2)
+    against the same on the CPU, from the same weights: d/dparams and d/dx
+    within 1e-2 of the norm (a bf16 network, sums in another order)."""
+    from tcnn_tpu_torch import modules
+
+    cfg = dict(SECOND_ORDER_GRID, n_levels=6, interpolation="Smoothstep")
+    net = {"otype": "FullyFusedMLP", "n_neurons": 32, "n_hidden_layers": 2}
+    rng = np.random.default_rng(5)
+    x_np = rng.uniform(0, 1, (4096, 3)).astype(np.float32)
+    v_np = rng.normal(0, 1, (4096, 3)).astype(np.float32)
+    out = []
+    for device in (dev, torch.device("cpu")):
+        m = modules.NetworkWithInputEncoding(3, 1, cfg, net, seed=3, device=device)
+        x = torch.from_numpy(x_np).to(device).requires_grad_(True)
+        f = m(x)
+        (g,) = torch.autograd.grad(f, x, torch.ones_like(f), create_graph=True)
+        (hv,) = torch.autograd.grad((g * torch.from_numpy(v_np).to(device)).sum(), x, create_graph=True)
+        gp, gx = torch.autograd.grad((hv * hv).sum(), (m.params, x))
+        out.append((gp.cpu(), gx.cpu()))
+    for a, b in zip(*out):
+        assert torch.isfinite(a).all() and float((a - b).norm()) <= 1e-2 * float(b.norm())

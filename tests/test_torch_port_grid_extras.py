@@ -187,10 +187,10 @@ def test_fixed_point_cell_columns():
 def test_fixed_point_inputs_and_what_has_no_gradient():
     """Float positions raise TypeError, as the JAX package's; so does the
     raster, whose positions are float there too. A uint32 position has no
-    gradient in either package: torch refuses ``requires_grad`` on it, and
-    a second derivative through the table gradient (which would need the
-    double backward at integer positions) raises NotImplementedError. The
-    table gradient itself works."""
+    gradient in either package: torch refuses ``requires_grad`` on it. The
+    table gradient works, and so does a second derivative through it (the
+    lookup of its cotangent at the positions: no derivative in x), as
+    jax.grad of jax.grad gives it."""
     je, te = _pair(2, dict(GRID, fixed_point_pos=True))
     p = torch.from_numpy(_params(te.n_params))
     with pytest.raises(TypeError, match="uint32"):
@@ -205,9 +205,16 @@ def test_fixed_point_inputs_and_what_has_no_gradient():
     with pytest.raises(RuntimeError):
         x.clone().requires_grad_()
     pp = p.clone().requires_grad_()
-    (gp,) = torch.autograd.grad(te.apply(pp, x).sum(), pp, create_graph=True)
-    with pytest.raises(NotImplementedError, match="fixed_point_pos"):
-        torch.autograd.grad((gp * gp).sum(), pp)
+    (gp,) = torch.autograd.grad((te.apply(pp, x) ** 2).sum(), pp, create_graph=True)
+    (got,) = torch.autograd.grad((gp * gp).sum(), pp)
+    jx = jnp.asarray(_fixed_points(16, 2))
+
+    def loss(q):
+        return jnp.sum(jax.grad(lambda r: jnp.sum(je.apply(r, jx) ** 2))(q) ** 2)
+
+    want = np.asarray(jax.grad(loss)(jnp.asarray(p.numpy())))
+    assert np.abs(want).max() > 0
+    np.testing.assert_allclose(got.numpy(), want, rtol=1e-5, atol=1e-6 * np.abs(want).max())
 
 
 def test_fixed_point_takes_no_static_path():
@@ -298,7 +305,8 @@ def test_stochastic_call_takes_the_per_sample_path():
     in the JAX package), so on a perfect-square batch of a stratified bf16
     config every level rounds, as the JAX package's stochastic call does;
     without ``rng`` the static levels read fp32. Nearest ignores ``rng``.
-    A second derivative through the table gradient (cgp) raises; one
+    A second derivative through the table gradient (cgp) is the JAX
+    package's (the gather of the sampled corners of the cotangent); one
     through the input gradient is the deterministic one."""
     cfg = dict(GRID, stochastic_interpolation=True, gather_strategy="stratified", strata=16,
                table_dtype="bfloat16")
@@ -330,6 +338,16 @@ def test_stochastic_call_takes_the_per_sample_path():
     a = torch.autograd.grad((gx * gx).sum(), pt)[0]
     b = torch.autograd.grad((gx2 * gx2).sum(), pt)[0]
     np.testing.assert_array_equal(a.numpy(), b.numpy())
-    (gp,) = torch.autograd.grad(te.apply(pt, xt, rng=u[:32]).sum(), pt, create_graph=True)
-    with pytest.raises(NotImplementedError, match="stochastic"):
-        torch.autograd.grad((gp * gp).sum(), pt)
+    key2 = jax.random.PRNGKey(4)
+    u2 = torch.from_numpy(_jax_uniforms(key2, 32, te.n_levels))
+    (gp,) = torch.autograd.grad((te.apply(pt, xt, rng=u2) ** 2).sum(), pt, create_graph=True)
+    got = torch.autograd.grad((gp * gp).sum(), (pt, xt))
+
+    def loss(q, xx):
+        return jnp.sum(jax.grad(lambda r: jnp.sum(je.apply(r, xx, rng=key2) ** 2))(q) ** 2)
+
+    want = jax.grad(loss, argnums=(0, 1))(jnp.asarray(params), jnp.asarray(x[:32]))
+    for g, w in zip(got, want):
+        w = np.asarray(w)
+        assert np.abs(w).max() > 0
+        np.testing.assert_allclose(g.numpy(), w, rtol=1e-4, atol=1e-5 * np.abs(w).max())

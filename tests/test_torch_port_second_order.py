@@ -118,11 +118,26 @@ def test_table_gradient_cotangent_terms_vs_jax(enc):
 
 
 def test_third_order_raises(enc):
+    """Once a raise, the third order is now the JAX package's value: d/dx
+    and d/dparams of sum(d/dx sum((dy/dx)^2)), autograd of the plain double
+    backward against three jax.grads (tests/test_torch_port_higher_order.py
+    holds the other cases)."""
+    j = jm.Encoding(2, ENC, seed=11)
     x = torch.from_numpy(X0.copy()).requires_grad_(True)
     (gx,) = autograd.grad(enc(x).sum(), x, create_graph=True)
     (gx2,) = autograd.grad((gx * gx).sum(), x, create_graph=True)
-    with pytest.raises(RuntimeError):
-        autograd.grad(gx2.sum(), x)
+    gp3, gx3 = autograd.grad(gx2.sum(), (enc.params, x))
+
+    def first(p, xx):
+        return jnp.sum(j.apply(p, xx)[:, : enc.n_output_dims].astype(jnp.float32))
+
+    def third(p, xx):
+        return jnp.sum(jax.grad(lambda z: jnp.sum(jax.grad(first, argnums=1)(p, z) ** 2))(xx))
+
+    gp_j, gx_j = jax.grad(third, argnums=(0, 1))(j.params, jnp.asarray(X0))
+    assert np.abs(np.asarray(gx_j)).max() > 0
+    np.testing.assert_allclose(gp3.numpy(), np.asarray(gp_j), rtol=1e-5, atol=1e-6 * np.abs(np.asarray(gp_j)).max())
+    np.testing.assert_allclose(gx3.numpy(), np.asarray(gx_j), rtol=1e-5, atol=1e-6 * np.abs(np.asarray(gx_j)).max())
 
 
 def _rel(a, b):
