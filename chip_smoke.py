@@ -144,19 +144,22 @@ Phases, each printing lines of its own; any failure exits non-zero:
 12g. higher orders, at the 3D model's and the flagship's width: the
    windowed input gradient and double backward (G1, G2 of a rank of a
    row-sharded table; the 3D model's shard 0 of 2 at 2^18 plus cell-boundary
-   points) and the sampled-corner gather (the flagship encoding, fp32 and
-   uint32 positions; bitwise) against their plain versions and timed beside
-   them with their bounds, the fixed_point_pos cotangent lookup against its
-   plain version; then, each count at 0 just before its path and read just
-   after: the curvature-regularised SDF fit through modules.
-   NetworkWithInputEncoding (L2 + eikonal + mean |H v|^2, whose parameter
-   gradient is a third derivative: autograd of the plain G2), one step
-   kernel vs plain, 200 steps at B = 2^16 with torch.optim.Adam, the loss
-   falling below three quarters, ms/step beside the eikonal-only step's; a table-gradient penalty
-   through stochastic interpolation (the sampled-corner gather) and through
-   fixed_point_pos, 20 steps each; one eikonal step of the 3D TP model over a
-   (1, 2) mesh of 2 gloo ranks against the single process (the windowed G1
-   and G2 launched, the unsharded ones not).
+   points), the third order G3 (the 3D model at 2^16 plus cell-boundary
+   points, every cotangent and the curvature loss's) and the windowed G3
+   (shard 0 of 2) and the sampled-corner gather (the flagship encoding, fp32
+   and uint32 positions; bitwise) against their plain versions and timed
+   beside them with their bounds (G3 also beside G2 at 2^16), the
+   fixed_point_pos cotangent lookup against its plain version; then, each
+   count at 0 just before its path and read just after: the
+   curvature-regularised SDF fit through modules.NetworkWithInputEncoding
+   (L2 + eikonal + mean |H v|^2, whose parameter gradient is a third
+   derivative: G3 once a step), one step kernel vs plain, 200 steps at B =
+   2^16 with torch.optim.Adam, the loss falling below three quarters,
+   ms/step beside the eikonal-only step's and PR 24's; a table-gradient
+   penalty through stochastic interpolation (the sampled-corner gather) and
+   through fixed_point_pos, 20 steps each; one curvature step of the 3D TP
+   model over a (1, 2) mesh of 2 gloo ranks against the single process (the
+   windowed G1, G2 and G3 launched, the unsharded ones not).
 13. times (CUDA events / synced host clock, median of repeats), each
    kernel's bound from its shapes (bytes over 3.35 TB/s or operations over
    the peak of their type) and, where one PyTorch call computes the same
@@ -236,7 +239,7 @@ TOL_BWD_NOTE = (
     "difference into an O(1) change of a few entries)"
 )
 KERNELS = ("ffmlp_fwd", "grid_fwd", "ffmlp_bwd", "adam_step", "grid_bwd", "grid_input_grad", "grid_bwd_rng",
-           "grid_bwd_modes", "probe_rows", "sh_encode", "grid_sharded")
+           "grid_bwd_modes", "probe_rows", "sh_encode", "grid_sharded", "grid_third_order")
 N_TRAIN_STEPS = 1000
 # PSNR floors of the 1000-step fits (dB) and the JAX package's TPU v5e
 # readings beside them (benchmarks/golden_strat_sr/metrics.json; the
@@ -3869,15 +3872,20 @@ HO_PENALTY_WEIGHT = 1e-3
 HO_FIT_COUNTERS = {
     "grid_fwd": ("grid_encode", "LAUNCHES"), "grid_bwd": ("grid_encode", "BWD_LAUNCHES"),
     "grid_bwd_input": ("grid_encode", "INPUT_LAUNCHES"), "grid_bwdbwd": ("grid_encode", "BWDBWD_LAUNCHES"),
+    "grid_bwd3": ("grid_encode", "THIRD_LAUNCHES"),
     "ffmlp_fwd": ("ffmlp", "LAUNCHES"), "ffmlp_bwd": ("ffmlp", "BWD_LAUNCHES"),
 }
+# The curvature step's time before G3 (PR 24's chip_smoke runs, NVIDIA H100
+# 80GB HBM3, 700.00 W: the third order autograd of the plain G2).
+HO_CURVATURE_MS_PR24 = (91.17, 110.02)
 HO_TP_COUNTERS = {
     "grid_fwd_windowed": ("grid_encode", "WINDOWED_LAUNCHES"),
     "grid_bwd_windowed": PAR_COUNTERS["grid_bwd_windowed"],
     "grid_bwd_input_windowed": ("grid_encode", "WINDOWED_INPUT_LAUNCHES"),
     "grid_bwdbwd_windowed": ("grid_encode", "WINDOWED_BWDBWD_LAUNCHES"),
+    "grid_bwd3_windowed": ("grid_encode", "WINDOWED_THIRD_LAUNCHES"),
     "grid_fwd": ("grid_encode", "LAUNCHES"), "grid_bwd_input": ("grid_encode", "INPUT_LAUNCHES"),
-    "grid_bwdbwd": ("grid_encode", "BWDBWD_LAUNCHES"),
+    "grid_bwdbwd": ("grid_encode", "BWDBWD_LAUNCHES"), "grid_bwd3": ("grid_encode", "THIRD_LAUNCHES"),
 }
 HO_TOL_NOTE = ("the one TP step against the single process: loss within PAR_LOSS_RTOL (PERF.md section 2), the "
                "network's and the table's gradients within 1e-2 of the norm (a bf16 network whose roundings flip "
@@ -3953,6 +3961,134 @@ def _ho_windowed_kernels(card, rng):
             + (", cgp and cgx" if "bwdbwd" in name else "") + f"): kernel {k1:.4f} / {k2:.4f} ms, plain "
             f"{p1:.4f} / {p2:.4f} ms (in turns, CUDA events), bound {bounds[name][0]:.4f} ms ({bounds[name][1]})")
     return {"err": {"grid_bwd_input_windowed": e1, "grid_bwdbwd_windowed": e2}, "times": times}
+
+
+def _g3_bound(B, d, L, F, n_params, dy_bytes):
+    """G3's bound on B points of a Linear grid with the curvature loss's
+    cotangents (cgx, g_x, g_dy; no cgp, no g_params). Bytes: x, cgx, g_x
+    read, dL/dy (``dy_bytes`` a value) and g_dy read, the table read and
+    d/dparams written once, d/dx, d/dcgx and d/d(dL_dy) written. Operations
+    per (sample, level, corner), fp32, only what Linear needs (the fraction
+    weights' second and third derivatives are 0: the Hessian's diagonal is
+    zero and the third derivative has only the entries whose three indices
+    differ): the weight, its d gradient entries,
+    the Hessian's d(d-1)/2 distinct entries and the third derivative's
+    C(d, 3), each a product of d factors (d - 1 multiplies); a = cgx.grad w
+    and h = g_x.(H cgx) (2d); H cgx and H g_x (2d(d-1)); T3[g_x, cgx]
+    (d(d-1)(d-2)); the F-dots <g_l, T_c> and <g_dy_l, T_c> (2F); the outputs
+    d/dparams (2F), d/d(dL_dy) (F), d/dcgx and d/dx (4d)."""
+    n_bytes = B * d * 4 * 3 + B * L * F * (dy_bytes + 4) + n_params * 4 * 2 + B * d * 4 * 2 + B * L * F * 4
+    weights = (1 + d + d * (d - 1) // 2 + d * (d - 1) * (d - 2) // 6) * (d - 1)
+    per_corner = weights + 2 * d + 2 * d * (d - 1) + d * (d - 1) * (d - 2) + 5 * F + 4 * d
+    return bound(n_bytes, B * L * 2 ** d * per_corner, "fp32")
+
+
+def _ho_third_order_kernels(card, rng):
+    """G3 on the 3D model at B_HO plus cell-boundary points (bf16 dL/dy, the
+    classes of that batch) and the windowed G3 on its TP form's shard 0 of
+    2, each against its plain version with every cotangent and with the
+    curvature loss's (cgx, g_x, g_dy); then, at B_HO, G3 with the curvature
+    loss's operands timed beside its plain version and beside G2 with that
+    loss's (cgx only), and the windowed G3 beside its plain version, with
+    their bounds."""
+    import torch
+
+    from tcnn_tpu_torch.encodings import create_encoding
+    from tcnn_tpu_torch.ops import grid_encode as ge
+    from tcnn_tpu_torch.ops.scatter_rows import ACC_F32
+
+    dev = torch.device("cuda")
+    t = _grid_inputs(ENC3D, rng, dev, B_HO)
+    x, dy, params, cgx, cgp = t["x"], t["dy"], t["params"], t["cgx"], t["cgp"]
+    n, (levels, F, interp) = len(x), _grid_args(t)
+    g_x = torch.from_numpy(rng.normal(0, 1, (n, 3)).astype(np.float32)).to(dev)
+    g_dy = torch.from_numpy(rng.normal(0, 1, (n, 32)).astype(np.float32)).to(dev)
+    g_p = torch.from_numpy(rng.normal(0, 1, t["enc"].n_params).astype(np.float32)).to(dev)
+    cls = t["classes"]
+    exact_cls = cls.clone()
+    exact_cls[:, 1] = ACC_F32
+    n0 = ge.THIRD_LAUNCHES
+    err, scale = 0.0, 0.0
+    for what, cots in (("every cotangent", (cgp, cgx, g_p, g_x, g_dy)), ("the curvature loss's", (None, cgx, None,
+                                                                                                     g_x, g_dy))):
+        ops = (x, dy, params, levels, F, interp)
+        k = ge.grid_backward3(*ops, cls, *cots)
+        p = ge.grid_third_order_plain(*ops, cls, *cots)
+        exact = ge.grid_third_order_plain(*ops, exact_cls, *cots)
+        torch.cuda.synchronize()
+        for i, name in ((1, "d/dx"), (2, "d/d(dL_dy)"), (4, "d/dcgx")):
+            err = max(err, f32_close(k[i], p[i], f"grid_bwd3 {what} {name}"))
+        for i, name in ((0, "d/dparams"), (3, "d/dcgp")):
+            if p[i] is None:
+                check(k[i] is None, f"grid_bwd3 {what}: {name} where none is wanted")
+            else:
+                err = max(err, _table_grad_check(k[i], p[i], exact[i], t, f"grid_bwd3 {what} {name}"))
+                scale = max(scale, float(p[i].abs().max()))
+    check(ge.THIRD_LAUNCHES == n0 + 2, "grid_bwd3: a launch did not move its count")
+    log(f"higher orders: G3 (3D model, {n} points: 2^16 uniform and {n - B_HO} on cell boundaries +-1 ulp; bf16 dL/dy; "
+        f"every cotangent, and the curvature loss's) matches its plain version ({TOL_F32_NOTE}; d/dparams and d/dcgp "
+        f"per level in its class, accumulation codes {t['classes_np'][:, 1].tolist()}): max|diff| {err:.3e} "
+        f"(max |plain| of d/dparams and d/dcgp {scale:.3e}; a bf16 level's sums differ by bf16 ulps of theirs)")
+    tpg = _shard_grid(create_encoding(3, TP3D_ENCODING, alignment=16), 2, 0)
+    lv_w, windows = tpg._tables_on(dev)
+    n_local, L = tpg.local_n_params, tpg.encoding.n_levels
+    local = torch.from_numpy(rng.uniform(-1, 1, n_local).astype(np.float32)).to(dev)
+    w_ops = {k_: torch.from_numpy(rng.normal(0, 1, n_local).astype(np.float32)).to(dev) for k_ in ("cgp", "g_p")}
+    dy32 = dy.float()[:, : L * F].contiguous()
+    n0 = ge.WINDOWED_THIRD_LAUNCHES
+    wargs = (x, dy32, local, lv_w, windows, F, interp, w_ops["cgp"], cgx, w_ops["g_p"], g_x,
+             g_dy[:, : L * F].contiguous())
+    k = ge.grid_backward3_windowed(*wargs)
+    classes_w = ge._f32_classes(L, dev)
+    p = ge.grid_third_order_plain(x, dy32, local, lv_w, F, interp, classes_w, w_ops["cgp"], cgx, w_ops["g_p"], g_x,
+                                  wargs[-1], windows)
+    torch.cuda.synchronize()
+    check(ge.WINDOWED_THIRD_LAUNCHES == n0 + 1, "grid_bwd3_windowed: a launch did not move its count")
+    err_w, scale_w = 0.0, 0.0
+    for i, name in ((1, "d/dx"), (2, "d/d(dL_dy)"), (4, "d/dcgx")):
+        err_w = max(err_w, f32_close(k[i], p[i], f"grid_bwd3_windowed {name}"))
+    for i, name in ((0, "d/dparams"), (3, "d/dcgp")):
+        check(k[i].shape == (n_local,) and bool(k[i].isfinite().all()), f"grid_bwd3_windowed {name}: bad output")
+        e, scale_w = float((k[i] - p[i]).abs().max()), max(scale_w, float(p[i].abs().max()))
+        check(e <= 1e-5 * float(p[i].abs().max()), f"grid_bwd3_windowed {name}: max|diff| {e:.3e}")
+        err_w = max(err_w, e)
+    log(f"higher orders: windowed G3 (the 3D model's TP form, shard 0 of 2, {n} points, fp32 dL/dy, every cotangent) "
+        f"matches its plain version ({TOL_F32_NOTE}; the local d/dparams and d/dcgp, fp32 atomics, within 1e-5 of "
+        f"max |plain|, here {scale_w:.3e}): max|diff| {err_w:.3e}")
+    B = B_HO
+    x, dy, cgx, g_x, g_dy = x[:B], dy[:B], cgx[:B], g_x[:B], g_dy[:B]
+    cls_b = torch.from_numpy(t["enc"].gradient_classes(B)).to(dev)
+    wargs = (x, dy32[:B], local, lv_w, windows, F, interp, None, cgx, None, g_x, g_dy[:, : L * F].contiguous())
+    calls = {
+        "grid_bwd3": (lambda: ge.grid_backward3(x, dy, params, levels, F, interp, cls_b, None, cgx, None, g_x, g_dy),
+                      lambda: ge.grid_third_order_plain(x, dy, params, levels, F, interp, cls_b, None, cgx, None, g_x,
+                                                        g_dy)),
+        "grid_bwd3_windowed": (lambda: ge.grid_backward3_windowed(*wargs),
+                               lambda: ge.grid_third_order_plain(*wargs[:2], local, lv_w, F, interp, classes_w,
+                                                                 None, cgx, None, g_x, wargs[-1], windows)),
+    }
+    n_params = t["enc"].n_params
+    check(t["enc"].interpolation_type == "Linear", "grid_bwd3: _g3_bound counts a Linear grid's operations")
+    bounds = {"grid_bwd3": _g3_bound(B, 3, t["enc"].n_levels, F, n_params, 2),
+              "grid_bwd3_windowed": _g3_bound(B, 3, L, F, n_local, 4)}
+    times = {}
+    for name, (kernel, plain) in calls.items():
+        p1, k1, k2, p2 = _event_ms(plain, 2, 3), _event_ms(kernel), _event_ms(kernel), _event_ms(plain, 2, 3)
+        times[name] = {"kernel": statistics.median([k1, k2]), "plain": statistics.median([p1, p2]),
+                       "bound": bounds[name], "library": None}
+        log(f"time [{card}]: {name}, the 3D model" + (" (TP form, shard 0 of 2, fp32 dL/dy)" if "windowed" in name
+                                                      else " (bf16 dL/dy, the 2^16 classes)")
+            + f" at B = 2^16 with the curvature loss's cotangents (cgx, g_x, g_dy): kernel {k1:.4f} / {k2:.4f} ms, "
+            f"plain {p1:.4f} / {p2:.4f} ms (in turns, CUDA events), bound {bounds[name][0]:.4f} ms "
+            f"({bounds[name][1]})")
+    g2 = lambda: ge.grid_backward_backward(x, dy, params, levels, F, interp, cls_b, None, cgx)  # noqa: E731
+    g3 = calls["grid_bwd3"][0]
+    g2a, g3a, g3b, g2b = _event_ms(g2), _event_ms(g3), _event_ms(g3), _event_ms(g2)
+    log(f"time [{card}]: G3 beside G2 on the curvature path's operands, the 3D model at B = 2^16 (G2: cgx, the "
+        f"classes' table gradient; G3: cgx, g_x, g_dy): G2 {g2a:.4f} / {g2b:.4f} ms, G3 {g3a:.4f} / {g3b:.4f} ms "
+        f"(in turns, CUDA events)")
+    return {"err": {"grid_bwd3": err, "grid_bwd3_windowed": err_w}, "times": times,
+            "g2_ms": statistics.median([g2a, g2b])}
 
 
 def _ho_flagship_cotangent_kernels(card, flagship, rng):
@@ -4083,6 +4219,8 @@ def _ho_curvature_fit(card):
           f"{last:.4e})")
     for k, n_launch in launches.items():
         check(n_launch > 0, f"curvature fit: kernel {k} was not launched")
+    check(launches["grid_bwd3"] == HO_FIT_STEPS, f"curvature fit: G3 launched {launches['grid_bwd3']} times in "
+          f"{HO_FIT_STEPS} steps, not once a step")
     eik_ms = []
     for i in range(25):
         x, target, _ = batch()
@@ -4094,15 +4232,16 @@ def _ho_curvature_fit(card):
             eik_ms.append((time.perf_counter() - t0) * 1e3)
     med, med_eik = statistics.median(step_ms), statistics.median(eik_ms)
     log(f"higher orders: curvature fit, {HO_FIT_STEPS} steps at B = 2^16 of L2 + eikonal + {CURVATURE_WEIGHT} "
-        f"mean |H v|^2 (H v: two create_graph input gradients; its parameter gradient a third derivative, autograd "
-        f"of the plain G2) on a sphere SDF, torch.optim.Adam lr 5e-3: one step kernel vs plain loss "
+        f"mean |H v|^2 (H v: two create_graph input gradients; its parameter gradient a third derivative, G3 once a "
+        f"step) on a sphere SDF, torch.optim.Adam lr 5e-3: one step kernel vs plain loss "
         f"{float(loss_k):.6f} / {float(loss_p):.6f} (rel {rel:.2e}, bound 1e-3), params max|diff| "
         f"{float(diff.max()):.3e}; loss {first:.4e} -> {last:.4e} (mean of the last 10; bound: below three "
         f"quarters); curvature term {float(curv[0]):.4e} -> "
         f"{float(curv[-10:].mean()):.4e}; kernel launches {launches}")
     log(f"time [{card}]: curvature SDF step (module API, 3D model, B = 2^16): {med:.4f} ms/step (host clock + "
         f"synchronize, median of steps 20-{HO_FIT_STEPS - 1}) beside the eikonal-only SDF step's {med_eik:.4f} "
-        f"ms/step at the same B (median of 20); {HO_FIT_STEPS} steps in {wall:.2f} s")
+        f"ms/step at the same B (median of 20); PR 24's, the third order autograd of the plain G2: "
+        f"{HO_CURVATURE_MS_PR24[0]}-{HO_CURVATURE_MS_PR24[1]} ms/step; {HO_FIT_STEPS} steps in {wall:.2f} s")
     return {"launches": launches, "ms": med, "eikonal_ms": med_eik, "loss": (first, last)}
 
 
@@ -4156,15 +4295,16 @@ def _ho_penalty_path(flagship, extra, name):
 
 
 def _ho_tp_step(cfg, reference=False):
-    """One eikonal SDF step's loss and gradients on the 3D TP model at B_HO:
-    through TableParallelGrid over the mesh's model axis on a spawned rank,
-    or (``reference``) through the single process's unsharded lookup.
-    Returns the loss, the network's gradient, the encoding's gradient (this
-    rank's rows, or the whole table) and the launches."""
+    """One curvature SDF step's loss and gradients on the 3D TP model at
+    B_HO (L2 + eikonal + CURVATURE_WEIGHT mean |H v|^2: the windowed G1,
+    G2 and G3): through TableParallelGrid over the mesh's model axis on a
+    spawned rank, or (``reference``) through the single process's unsharded
+    lookup. Returns the loss, the network's gradient, the encoding's
+    gradient (this rank's rows, or the whole table) and the launches."""
     import torch
 
     import tcnn_tpu_torch as tt
-    from tcnn_tpu_torch.benchmarks.grid_second_order_times import EIKONAL_WEIGHT, sphere_sdf
+    from tcnn_tpu_torch.benchmarks.grid_second_order_times import CURVATURE_WEIGHT, EIKONAL_WEIGHT, sphere_sdf
 
     m = tt.create_from_config(3, 1, cfg, seed=SEED, device="cpu")
     model = m.model
@@ -4182,13 +4322,17 @@ def _ho_tp_step(cfg, reference=False):
         tpg = TableParallelGrid(model.encoding, init_device_mesh("cuda", (1, 2), mesh_dim_names=("data", "model")))
         enc = torch.from_numpy(tpg.local_params(flat[n_net:])).cuda().requires_grad_(True)
         encode, shard = tpg.padded_apply, tpg.shard
-    x = torch.rand((B_HO, 3), generator=torch.Generator(device="cuda").manual_seed(SEED + 56), device="cuda")
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 56)
+    x = torch.rand((B_HO, 3), generator=gen, device="cuda")
+    v = torch.nn.functional.normalize(torch.randn((B_HO, 3), generator=gen, device="cuda"), dim=1)
     target = sphere_sdf(x)
     _zero_counts(HO_TP_COUNTERS)
     x.requires_grad_(True)
     f = model.network.apply(net, encode(enc, x))[:, :1].float()
     (g,) = torch.autograd.grad(f, x, torch.ones_like(f), create_graph=True)
-    loss = ((f - target) ** 2).mean() + EIKONAL_WEIGHT * ((g.norm(dim=1) - 1) ** 2).mean()
+    (hv,) = torch.autograd.grad((g * v).sum(), x, create_graph=True)
+    loss = (((f - target) ** 2).mean() + EIKONAL_WEIGHT * ((g.norm(dim=1) - 1) ** 2).mean()
+            + CURVATURE_WEIGHT * (hv * hv).sum(dim=1).mean())
     g_net, g_enc = torch.autograd.grad(loss, (net, enc))
     torch.cuda.synchronize()
     return {"loss": float(loss.detach()), "net": g_net.cpu().numpy(), "enc": g_enc.cpu().numpy(), "shard": shard,
@@ -4216,6 +4360,7 @@ def phase_higher_orders(card, flagship):
     t_phase = time.perf_counter()
     rng = np.random.default_rng(SEED + 57)
     win = _ho_windowed_kernels(card, rng)
+    third = _ho_third_order_kernels(card, rng)
     samp = _ho_flagship_cotangent_kernels(card, flagship, rng)
     fit = _ho_curvature_fit(card)
     penalties = {name: _ho_penalty_path(flagship, extra, name)
@@ -4237,23 +4382,26 @@ def phase_higher_orders(card, flagship):
           "higher orders TP: the ranks' losses or network gradients differ")
     check(rel["loss"] <= PAR_LOSS_RTOL and rel["network"] <= 1e-2 and rel["table"] <= 1e-2,
           f"higher orders TP: loss / network / table gradient relative differences {rel} ({HO_TOL_NOTE})")
-    for k in ("grid_fwd_windowed", "grid_bwd_windowed", "grid_bwd_input_windowed", "grid_bwdbwd_windowed"):
+    for k in ("grid_fwd_windowed", "grid_bwd_windowed", "grid_bwd_input_windowed", "grid_bwdbwd_windowed",
+              "grid_bwd3_windowed"):
         check(all(r["launches"][k] > 0 for r in ranks), f"higher orders TP: kernel {k} was not launched")
-    check(all(r["launches"][k] == 0 for r in ranks for k in ("grid_fwd", "grid_bwd_input", "grid_bwdbwd")),
+    check(all(r["launches"][k] == 0 for r in ranks for k in ("grid_fwd", "grid_bwd_input", "grid_bwdbwd",
+                                                            "grid_bwd3")),
           "higher orders TP: an unsharded grid kernel ran on the TP path")
-    log(f"higher orders [{card}]: one eikonal SDF step of the 3D TP model (per_level, fp32 sums) at B = 2^16 "
+    log(f"higher orders [{card}]: one curvature SDF step of the 3D TP model (per_level, fp32 sums) at B = 2^16 "
         f"through TableParallelGrid on a (data 1, model 2) mesh of 2 gloo ranks on cuda:0 against the single "
         f"process: loss {ranks[0]['loss']:.6f} / {single['loss']:.6f}, relative differences {rel} ({HO_TOL_NOTE}); "
         f"launches (rank 0) {ranks[0]['launches']} ({dt:.1f} s with the ranks' start)")
     launches = {
-        name: {"TP eikonal step (1, 2), 2^16": sum(r["launches"][name] for r in ranks)}
-        for name in ("grid_bwd_input_windowed", "grid_bwdbwd_windowed")
+        name: {"TP curvature step (1, 2), 2^16": sum(r["launches"][name] for r in ranks)}
+        for name in ("grid_bwd_input_windowed", "grid_bwdbwd_windowed", "grid_bwd3_windowed")
     }
+    launches["grid_bwd3"] = {"curvature fit, 2^16": fit["launches"]["grid_bwd3"]}
     launches["grid_fwd_sampled"] = {
         "table-gradient penalty, stochastic": penalties["stochastic_interpolation, rng=generator"]["launches"][
             "grid_fwd_sampled"]}
     log(f"higher orders: phase in {time.perf_counter() - t_phase:.1f} s")
-    return {"windowed": win, "sampled": samp, "fit": fit, "launches": launches}
+    return {"windowed": win, "third": third, "sampled": samp, "fit": fit, "launches": launches}
 
 
 def main() -> int:
@@ -4440,10 +4588,17 @@ def main() -> int:
          ho["windowed"]["times"]["grid_bwdbwd_windowed"]),
         ("grid_fwd_sampled", "grid_bwd_modes.cu", "tcnn_tpu/encodings/grid.py:145",
          "higher orders: stochastic table-gradient penalty", ho["sampled"]["err"], ho["sampled"]["times"]),
+        ("grid_bwd3", "grid_third_order.cu", "tcnn_tpu/encodings/grid.py:1354",
+         "higher orders: curvature fit (module API)", ho["third"]["err"]["grid_bwd3"], ho["third"]["times"]["grid_bwd3"]),
+        ("grid_bwd3_windowed", "grid_third_order.cu", "tcnn_tpu/parallel/table_parallel.py:137",
+         "higher orders: TP curvature step", ho["third"]["err"]["grid_bwd3_windowed"],
+         ho["third"]["times"]["grid_bwd3_windowed"]),
     ):
         row = entry(name, source, replaces, sum(ho["launches"][name].values()), err, None, path, times)
         row["launches_by_path"] = ho["launches"][name]
-        row["library_note"] = "none: no PyTorch call takes a windowed or a one-corner gather"
+        row["library_note"] = ("none: no PyTorch call differentiates the hash-grid interpolation three times"
+                               if name.startswith("grid_bwd3") else
+                               "none: no PyTorch call takes a windowed or a one-corner gather")
         kernels.append(row)
     for name, replaces in (("probe_gather", "benchmarks/probe_mosaic_gather.py:63"),
                            ("probe_scatter", "benchmarks/probe_mosaic_gather.py:121"),

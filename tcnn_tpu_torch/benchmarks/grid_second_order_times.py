@@ -15,13 +15,24 @@ dy of the encoding's width and the table gradient's classes of that batch:
 - variants made from the inputs alone: every level shrunk to one row
   (``row0``: every corner reads its level's first row, an L1 hit, the
   index arithmetic kept) and G2 with no table scatter (no class table);
-- the compiler's report of the built library: ptxas registers and spills
-  and the SASS instruction count of each G1 and G2 kernel;
+- G3 (``grid_backward3``, where the checkout has it) with the curvature
+  loss's cotangents (cgx, g_x, g_dy) and with every cotangent;
+- the compiler's report of the built libraries: ptxas registers and spills
+  and the SASS instruction count of each G1, G2 and G3 kernel;
 - with ``--sdf-steps N``, the SDF step itself (``modules.NetworkWithInputEncoding``
   on the 3D model, L2 + 0.1 eikonal on a sphere SDF, ``torch.optim.Adam``):
   the synchronised ms/step (median of N steps) and, under torch.profiler
   over 10 steps, the device-busy ms, the idle share and G1's and G2's
-  device ms a step.
+  device ms a step;
+- with ``--curvature-steps N``, the curvature step (``curvature_step``: the
+  SDF step's loss plus ``CURVATURE_WEIGHT`` mean |H v|^2, whose parameter
+  gradient is the grid's third order) at ``--batch`` points: the
+  synchronised ms/step (median of N steps) beside the eikonal step's, and,
+  under torch.profiler over 5 steps, its device time a step split three
+  ways (``third_order_split``): the device work under the third order's
+  autograd node (``GridEncodeBackwardBackwardFunction``'s backward), the
+  port's kernels elsewhere, and PyTorch's own kernels elsewhere (the MLP
+  chain's plain higher orders, the losses, Adam).
 
 Only the package's public wrappers and modules are used, so the script runs
 from the root of a checkout of an earlier commit as well (copy it there,
@@ -29,7 +40,8 @@ with ``utils/profiling.py`` where that checkout lacks it): that is how a
 change is compared with its parent in one call.
 
 Usage: python -m tcnn_tpu_torch.benchmarks.grid_second_order_times
-       [--batch 262144] [--reps 20] [--sdf-steps 0] [--seed 0]
+       [--batch 262144] [--reps 20] [--sdf-steps 0] [--curvature-steps 0]
+       [--seed 0]
 
 One JSON line per measurement; the last line holds them all.
 """
@@ -62,7 +74,7 @@ NETWORK_3D = {"otype": "FullyFusedMLP", "n_neurons": 64, "n_hidden_layers": 2, "
 EIKONAL_WEIGHT = 0.1
 # The kernels whose compiler report is kept (names as ptxas and cuobjdump
 # print them, mangled).
-REPORTED = ("grid_backward_input_kernel", "grid_backward_backward_kernel")
+REPORTED = ("grid_backward_input_kernel", "grid_backward_backward_kernel", "grid_third_order_kernel")
 
 
 def build_parser():
@@ -70,6 +82,8 @@ def build_parser():
     parser.add_argument("--batch", type=int, default=2**18, help="uniform points")
     parser.add_argument("--reps", type=int, default=20, help="calls per timed block")
     parser.add_argument("--sdf-steps", type=int, default=0, help="time the SDF step over this many steps (0: not)")
+    parser.add_argument("--curvature-steps", type=int, default=0,
+                        help="time and profile the curvature step over this many steps (0: not)")
     parser.add_argument("--seed", type=int, default=0)
     return parser
 
@@ -106,6 +120,9 @@ def inputs(batch: int, dev, seed: int) -> dict:
         "dy": torch.randn((batch, W), generator=gen, device=dev).to(torch.bfloat16),
         "cgx": torch.randn((batch, 3), generator=gen, device=dev),
         "cgp": torch.randn((enc.n_params,), generator=gen, device=dev),
+        "g_x": torch.randn((batch, 3), generator=gen, device=dev),
+        "g_dy": torch.randn((batch, W), generator=gen, device=dev),
+        "g_params": torch.randn((enc.n_params,), generator=gen, device=dev),
         "levels": levels,
         "levels_row0": row0_levels(levels),
         "classes": torch.from_numpy(classes).to(dev),
@@ -130,6 +147,10 @@ def cases(t: dict, plain: bool = False) -> dict:
         "G2 cgx, row0, no scatter": lambda: ge.grid_backward_backward(x, dy, p, lv0, F, lin, None, None, cgx),
         "lookup row0": lambda: ge.grid_encode(x, p, lv0, F, W, lin, torch.bfloat16),
     }
+    if hasattr(ge, "grid_backward3"):  # G3: the curvature loss's cotangents, and every one
+        gx, gdy, gp = t["g_x"], t["g_dy"], t["g_params"]
+        out["G3 curvature"] = lambda: ge.grid_backward3(x, dy, p, lv, F, lin, cls, None, cgx, None, gx, gdy)
+        out["G3 every cotangent"] = lambda: ge.grid_backward3(x, dy, p, lv, F, lin, cls, cgp, cgx, gp, gx, gdy)
     if plain:
         out["G1 plain"] = lambda: ge.grid_backward_input_plain(x, dy, p, lv, F, lin)
         out["G2 cgx plain"] = lambda: ge.grid_backward_backward_plain(x, dy, p, lv, F, lin, cls, None, cgx)
@@ -283,17 +304,131 @@ def time_sdf(args, dev, card) -> list:
     return [emit(rec)]
 
 
+# The port's kernels by the names the profiler gives them (csrc/*.cu):
+# everything else a step launches is PyTorch's.
+PORT_KERNELS = ("grid_forward", "grid_backward", "grid_third_order", "ffmlp_", "dw_reduce_kernel", "adam_step_kernel",
+                "fold_bf16_kernel", "scatter_rows_kernel")
+# The third order's autograd node as the profiler names it.
+THIRD_ORDER_NODE = "GridEncodeBackwardBackwardFunctionBackward"
+
+
+def _subtree_kernels(evt) -> list:
+    out = list(evt.kernels)
+    for child in evt.cpu_children:
+        out += _subtree_kernels(child)
+    return out
+
+
+def third_order_split(step, n: int = 5) -> dict:
+    """Device ms a step of ``n`` calls of ``step`` under torch.profiler
+    (after 2 unprofiled calls), split three ways: the kernels launched
+    under the third order's autograd node (THIRD_ORDER_NODE, the outermost
+    ones; ``third_order_port`` of them the port's), the port's kernels
+    elsewhere (PORT_KERNELS) and PyTorch's kernels elsewhere; with the
+    number of kernels a step in each, and the largest kernels under the
+    node."""
+    from torch.profiler import ProfilerActivity, profile
+
+    for _ in range(2):
+        step()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(n):
+            step()
+        torch.cuda.synchronize()
+    events = prof.events()
+    device = [e for e in events
+              if e.device_type == torch.autograd.DeviceType.CUDA and not getattr(e, "is_user_annotation", False)]
+    if not device:
+        raise RuntimeError("profile: the profiler recorded no device activity")
+
+    def is_port(name):
+        return any(k in name for k in PORT_KERNELS)
+
+    def outermost(e):
+        p = e.cpu_parent
+        while p is not None:
+            if THIRD_ORDER_NODE in p.name:
+                return False
+            p = p.cpu_parent
+        return True
+
+    node = [k for e in events if THIRD_ORDER_NODE in e.name and outermost(e) for k in _subtree_kernels(e)]
+    node_ms = sum(k.duration for k in node) / 1e3 / n
+    node_port_ms = sum(k.duration for k in node if is_port(k.name)) / 1e3 / n
+    total_ms = sum((e.time_range.end - e.time_range.start) for e in device) / 1e3 / n
+    port_ms = sum((e.time_range.end - e.time_range.start) for e in device if is_port(e.name)) / 1e3 / n
+    by_name = {}
+    for k in node:
+        by_name[k.name] = by_name.get(k.name, 0.0) + k.duration / 1e3 / n
+    return {"kernel_ms": total_ms, "kernels_a_step": len(device) / n,
+            "third_order_node_ms": node_ms, "third_order_port_ms": node_port_ms,
+            "third_order_kernels_a_step": len(node) / n,
+            "port_kernels_elsewhere_ms": port_ms - node_port_ms,
+            "torch_kernels_elsewhere_ms": total_ms - node_ms - (port_ms - node_port_ms),
+            "third_order_largest": sorted(by_name.items(), key=lambda kv: -kv[1])[:8]}
+
+
+def time_curvature(args, dev, card) -> list:
+    """The curvature step at ``args.batch``: synchronised ms/step
+    (median of ``args.curvature_steps`` steps after 5) beside the eikonal
+    step's (median of as many), then ``third_order_split`` over 5 steps."""
+    from .. import modules
+
+    m = modules.NetworkWithInputEncoding(3, 1, ENCODING_3D, NETWORK_3D, seed=args.seed)
+    opt = torch.optim.Adam(m.parameters(), lr=1e-3, betas=(0.9, 0.99), eps=1e-15)
+    gen = torch.Generator(device=dev).manual_seed(args.seed + 2)
+    B = args.batch
+
+    def batch():
+        x = torch.rand((B, 3), generator=gen, device=dev)
+        v = torch.nn.functional.normalize(torch.randn((B, 3), generator=gen, device=dev), dim=1)
+        return x, sphere_sdf(x), v
+
+    def curvature():
+        x, target, v = batch()
+        return curvature_step(opt, m, x, target, v)
+
+    def eikonal():
+        x, target, _ = batch()
+        return sdf_step(opt, m, x, target)
+
+    times = {}
+    for name, step in (("curvature", curvature), ("eikonal", eikonal)):
+        for _ in range(5):
+            step()
+        ms = []
+        for _ in range(args.curvature_steps):
+            sync(dev)
+            t0 = time.perf_counter()
+            step()
+            sync(dev)
+            ms.append((time.perf_counter() - t0) * 1e3)
+        times[name] = statistics.median(ms)
+    rec = {"what": "curvature step", "samples": B, "card": card, "synced_ms": times["curvature"],
+           "eikonal_synced_ms": times["eikonal"], "profile": third_order_split(curvature)}
+    return [emit(rec)]
+
+
 def main(argv=None) -> list:
     args = build_parser().parse_args(argv)
     dev = bench_device("cuda")
     card = card_label(dev)
-    names = ("grid_fwd", "grid_bwd", "grid_input_grad") + (("ffmlp_fwd", "ffmlp_bwd") if args.sdf_steps > 0 else ())
-    lib = _build.build_libraries(names)["grid_input_grad"]
+    names = ("grid_fwd", "grid_bwd", "grid_input_grad")
+    if args.sdf_steps > 0 or args.curvature_steps > 0:
+        names += ("ffmlp_fwd", "ffmlp_bwd")
+    if hasattr(ge, "grid_backward3"):
+        names += ("grid_third_order",)
+    libs = _build.build_libraries(names)
     records = time_kernels(args, dev, card)
-    records.append(emit({"what": "grid second order compiler report", "library": lib.name,
-                         "kernels": compiler_report(lib)}))
+    for name in ("grid_input_grad", "grid_third_order"):
+        if name in libs:
+            records.append(emit({"what": "grid second order compiler report", "library": libs[name].name,
+                                 "kernels": compiler_report(libs[name])}))
     if args.sdf_steps > 0:
         records += time_sdf(args, dev, card)
+    if args.curvature_steps > 0:
+        records += time_curvature(args, dev, card)
     print(json.dumps({"records": records}))
     return records
 

@@ -464,6 +464,39 @@ __device__ __forceinline__ void fraction_derivatives(const float* xv, const Leve
   }
 }
 
+// fraction_derivatives() and, per dim, the third derivative d3 of w_d:
+// scale^3 s'''(t), s''' = -12 under Smoothstep, 0 otherwise (the third
+// order, grid_input_grad.cuh:grid_third_order_kernel).
+template <int K>
+__device__ __forceinline__ void fraction_derivatives(const float* xv, const Level& lv, int n_dims, int interp,
+                                                     float (&d1)[K], float (&d2)[K], float (&d3)[K]) {
+  fraction_derivatives<K>(xv, lv, n_dims, interp, d1, d2);
+  const float s3 = interp == kSmoothstep ? -12.0f : 0.0f;
+  const float c3 = __fmul_rn(__fmul_rn(__fmul_rn(s3, lv.scale), lv.scale), lv.scale);
+#pragma unroll
+  for (int d = 0; d < K; ++d) {
+    if (d < n_dims) d3[d] = c3;
+  }
+}
+
+// The product of a corner's factors f_k in dimension order from 1.0, each
+// dim k replaced by its n-th signed derivative (s1, s2, s3) where n of the
+// indices a, b, e name it (-1: no dim): the derivative of the weight in
+// dims a, b and e.
+template <int K>
+__device__ __forceinline__ float replaced_product3(const float (&f)[K], const float (&s1)[K], const float (&s2)[K],
+                                                   const float (&s3)[K], int a, int b, int e, int n_dims) {
+  float p = 1.0f;
+#pragma unroll
+  for (int k = 0; k < K; ++k) {
+    if (k < n_dims) {
+      const int n = (k == a) + (k == b) + (k == e);
+      p = __fmul_rn(p, n == 0 ? f[k] : n == 1 ? s1[k] : n == 2 ? s2[k] : s3[k]);
+    }
+  }
+  return p;
+}
+
 // The product of a corner's factors f_k in dimension order from 1.0, with
 // dims e and e2 replaced by their signed derivatives s1 (dim e by its
 // second derivative s2 where e = e2; e2 = -1: dim e alone by s1).

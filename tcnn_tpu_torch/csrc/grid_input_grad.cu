@@ -23,10 +23,8 @@
 // package's autodiff reads it: the transpose of its table gradient's
 // scatter is the lookup's gather (tcnn_tpu/ops/scatter_rows.py:gather_rows,
 // a linear_call pair). Every term is exact, as jax.grad of jax.grad is in
-// the JAX package. The third order and beyond have no
-// kernel: the port takes them by autograd of the plain G2
-// (ops/grid_encode.py:GridEncodeBackwardBackwardFunction), as the JAX
-// package takes them from XLA autodiff.
+// the JAX package. The third order is G3 (grid_third_order.cu), the fourth
+// and beyond autograd of its plain version.
 //
 // What bounds it: G1 and G2 read B * L * 2^d random table rows (32.5 M
 // 8-byte rows at the 3D model, B = 2^18, in a 52 MB table that does not fit

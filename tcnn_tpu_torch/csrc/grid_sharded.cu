@@ -49,8 +49,8 @@
 // gradient of the fp32 features; half of their instantiations).
 //
 // As for a whole table (ops/grid_encode.py), the kernels take the first
-// and second orders; the third and beyond are autograd of their plain
-// versions.
+// and second orders; the third is the windowed G3 (grid_third_order.cu),
+// the fourth and beyond autograd of its plain version.
 //
 // What bounds it: as the unsharded kernels, random L2 reads and the
 // atomics' latency, not bytes: every rank computes every corner's index

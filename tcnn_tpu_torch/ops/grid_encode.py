@@ -23,10 +23,12 @@ block owns 32 samples, a warp one level of them) and sum d/dx and
 d/d(dL_dy) in one fixed order without atomics, so two calls give the same
 bits; G2 adds its table gradient as the table-gradient kernel does (equal
 rows of neighbouring samples merged in the warp, one vector atomic a
-row). The third order and beyond have no kernel, here as in the JAX
-package (which takes them from XLA autodiff): they are autograd of the
-plain double backward (``GridEncodeBackwardBackwardFunction``), while the
-first and second orders keep coming from the kernels. All of them read the
+row). The third order (G3: ``tcnn_grid_backward3`` in
+``csrc/grid_third_order.cu``, plain ``grid_third_order_plain``) is the
+gradient of G2, with the same layout, its table-shaped outputs scattered in
+the level's class; the fourth order and beyond are autograd of the plain G3
+(``GridEncodeThirdOrderFunction``), as the JAX package takes every order
+from XLA autodiff. All of them read the
 same description of the grid: the (n_levels, 32) int32 level table built
 by ``level_table``; the table-gradient scatters also read the per-level
 gradient rounding classes (``ops.scatter_rows`` codes).
@@ -51,9 +53,10 @@ every level is row-sharded over the ranks of a model-parallel group
 first + rows) of each level, its *window*, at the level table's offset;
 corners outside it read zeros and take no gradient. Their plain versions
 are ``grid_encode_plain`` and ``grid_backward_plain`` given ``window``, the
-(n_levels, 2) int32 windows; so are those of the windowed input gradient and
-double backward (``grid_backward_input_windowed``,
-``grid_backward_backward_windowed``: a rank's partials).
+(n_levels, 2) int32 windows; so are those of the windowed input gradient,
+double backward and third order (``grid_backward_input_windowed``,
+``grid_backward_backward_windowed``, ``grid_backward3_windowed``: a rank's
+partials).
 
 Every wrapper dispatches on the device of ``x``: a CPU tensor takes the
 plain version, a CUDA tensor launches the kernel or raises.
@@ -79,6 +82,9 @@ BWD_LAUNCHES = 0
 BWD_ROUTE_LAUNCHES: Dict[Tuple[str, str], int] = {}
 INPUT_LAUNCHES = 0
 BWDBWD_LAUNCHES = 0
+# The third order's (G3) launches, whole-table and windowed.
+THIRD_LAUNCHES = 0
+WINDOWED_THIRD_LAUNCHES = 0
 # The windowed lookup's launches (its table gradient counts under its route
 # in BWD_ROUTE_LAUNCHES), and those of the windowed G1 and G2.
 WINDOWED_LAUNCHES = 0
@@ -290,53 +296,67 @@ def _corner_bits(d: int, interpolation: int) -> np.ndarray:
     return np.asarray([[(c >> k) & 1 for k in range(d)] for c in range(n_corners)], np.int64)
 
 
-def _weight_derivatives(
-    x: torch.Tensor, row: np.ndarray, interpolation: int, bits_np: np.ndarray, second: bool
-) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
-    """Per corner, the derivatives of its weight with respect to x on one
-    level: the gradient (B, C, d) and, with ``second``, the Hessian (B, C,
-    d, d), else None. The weight of corner c is prod_k f_ck with f_ck = w_k
-    (bit k of c set) or 1 - w_k, w_k = s(t_k), t_k = pos_k - floor(pos_k)
-    and pos = x * scale + 0.5; so d f_ck / d x_k = +-scale s'(t_k) and d^2
-    f_ck / d x_k^2 = +-scale^2 s''(t_k), with s the identity (Linear) or t^2
-    (3 - 2t) (Smoothstep); floor contributes nothing and the Nearest weight
-    is constant. A derivative replaces its dimension's factor in the
-    product (csrc/grid_common.cuh does the same products)."""
-    batch, d = x.shape
-    n_c = bits_np.shape[0]
-    if interpolation == INTERP_NEAREST:
-        return x.new_zeros((batch, n_c, d)), (x.new_zeros((batch, n_c, d, d)) if second else None)
+def _weight_factors(
+    x: torch.Tensor, row: np.ndarray, interpolation: int, bits_np: np.ndarray
+) -> Tuple[torch.Tensor, Tuple[torch.Tensor, torch.Tensor, torch.Tensor]]:
+    """Per corner and dim on one level (Linear or Smoothstep), the factor
+    f_ck of the corner's weight and its signed first, second and third
+    derivatives in x_k, each (B, C, d). The weight of corner c is prod_k
+    f_ck with f_ck = w_k (bit k of c set) or 1 - w_k, w_k = s(t_k), t_k =
+    pos_k - floor(pos_k) and pos = x * scale + 0.5; so the n-th derivative
+    of f_ck is +-scale^n s^(n)(t_k), with s the identity (Linear: s' = 1,
+    s'' = s''' = 0) or t^2 (3 - 2t) (Smoothstep: s' = 6t(1 - t), s'' = 6 -
+    12t, s''' = -12); floor contributes nothing."""
     scale = float(np.int64(row[3]).astype(np.uint32).view(np.float32))
     pos = x * scale + 0.5
     t = pos - torch.floor(pos)
     if interpolation == INTERP_SMOOTHSTEP:
         w = t * t * (3.0 - 2.0 * t)
-        s1, s2 = 6.0 * t * (1.0 - t), 6.0 - 12.0 * t
+        s1, s2, s3 = 6.0 * t * (1.0 - t), 6.0 - 12.0 * t, torch.full_like(t, -12.0)
     else:
-        w, s1, s2 = t, torch.ones_like(t), torch.zeros_like(t)
+        w, s1, s2, s3 = t, torch.ones_like(t), torch.zeros_like(t), torch.zeros_like(t)
     bits = torch.from_numpy(bits_np).to(x.device).bool()[None]  # (1, C, d)
     sign = torch.where(bits, 1.0, -1.0)
-    f = torch.where(bits, w[:, None, :], 1.0 - w[:, None, :])  # (B, C, d)
+    f = torch.where(bits, w[:, None, :], 1.0 - w[:, None, :])
     d1 = sign * (s1 * scale)[:, None, :]
     d2 = sign * (s2 * scale * scale)[:, None, :]
-    def product(factor_of):
-        # In dimension order from 1.0, as the kernels multiply: the table
-        # gradient's stochastic rounding reads the exact bits.
-        p = torch.ones_like(f[..., 0])
-        for k in range(d):
-            p = p * factor_of(k)
-        return p
+    d3 = sign * (s3 * scale * scale * scale)[:, None, :]
+    return f, (d1, d2, d3)
 
-    grad = torch.stack([product(lambda k, e=e: d1[..., k] if k == e else f[..., k]) for e in range(d)], dim=-1)
+
+def _replaced_product(f: torch.Tensor, ds, dims: Tuple[int, ...]) -> torch.Tensor:
+    """The product of a corner's factors f_k, each dim k that ``dims``
+    names n times replaced by its n-th signed derivative ``ds[n - 1]``: a
+    derivative of the weight in the dims ``dims``. In dimension order from
+    1.0, as the kernels multiply (csrc/grid_common.cuh:replaced_product):
+    the table gradient's stochastic rounding reads the exact bits."""
+    p = torch.ones_like(f[..., 0])
+    for k in range(f.shape[-1]):
+        n = dims.count(k)
+        p = p * (f[..., k] if n == 0 else ds[n - 1][..., k])
+    return p
+
+
+def _weight_derivatives(
+    x: torch.Tensor, row: np.ndarray, interpolation: int, bits_np: np.ndarray, second: bool
+) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
+    """Per corner, the derivatives of its weight with respect to x on one
+    level: the gradient (B, C, d) and, with ``second``, the Hessian (B, C,
+    d, d), else None (``_weight_factors``; the Nearest weight is constant).
+    A derivative replaces its dimension's factor in the product
+    (``_replaced_product``)."""
+    batch, d = x.shape
+    n_c = bits_np.shape[0]
+    if interpolation == INTERP_NEAREST:
+        return x.new_zeros((batch, n_c, d)), (x.new_zeros((batch, n_c, d, d)) if second else None)
+    f, ds = _weight_factors(x, row, interpolation, bits_np)
+    grad = torch.stack([_replaced_product(f, ds, (e,)) for e in range(d)], dim=-1)
     if not second:
         return grad, None
     hess = x.new_empty((batch, n_c, d, d))
     for a in range(d):
         for b in range(d):
-            if a == b:
-                hess[:, :, a, b] = product(lambda k: d2[..., k] if k == a else f[..., k])
-            else:
-                hess[:, :, a, b] = product(lambda k: d1[..., k] if k in (a, b) else f[..., k])
+            hess[:, :, a, b] = _replaced_product(f, ds, (a, b))
     return grad, hess
 
 
@@ -657,7 +677,199 @@ def grid_backward_backward_plain(
     return (None if d_params is None else d_params.reshape(-1)), d_x, d_dy
 
 
-_FWD_ARGS = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 9 + [ctypes.c_void_p]
+class _ClassScatter(torch.autograd.Function):
+    """``scatter_rows_plain`` of the rows ``contrib`` at the level-local
+    rows ``rows`` into ``size`` rows, in a level's class, whose gradient is
+    the gather of the cotangent at ``rows`` read as the lookup reads its
+    table (the level-table row ``row``'s roundings): the JAX package's
+    linear pair, whose class scatter and rounded gather are each other's
+    transpose at every order (tcnn_tpu/ops/scatter_rows.py:gather_rows).
+
+    ``_ClassScatter.apply(rows, contrib, size, contrib_round, acc_dtype, row)``"""
+
+    @staticmethod
+    def forward(ctx, rows, contrib, size, contrib_round, acc_dtype, row):
+        from .scatter_rows import scatter_rows_plain
+
+        ctx.save_for_backward(rows)
+        ctx.row = row
+        return scatter_rows_plain(rows, contrib, size, contrib_round, acc_dtype)
+
+    @staticmethod
+    def backward(ctx, g):
+        (rows,) = ctx.saved_tensors
+        return None, _read_table(g, rows, ctx.row), None, None, None, None
+
+
+def grid_third_order_plain(
+    x: torch.Tensor,
+    dL_dy: torch.Tensor,
+    params: torch.Tensor,
+    levels: torch.Tensor,
+    n_features_per_level: int,
+    interpolation: int,
+    level_round: Optional[torch.Tensor],
+    cgp: Optional[torch.Tensor],
+    cgx: Optional[torch.Tensor],
+    g_params: Optional[torch.Tensor],
+    g_x: Optional[torch.Tensor],
+    g_dy: Optional[torch.Tensor],
+    window=None,
+    need: Tuple[bool, ...] = (True,) * 5,
+) -> Tuple[Optional[torch.Tensor], ...]:
+    """Plain third order (G3): the gradients of <g_params, P> + <g_x, X> +
+    <g_dy, Y>, (P, X, Y) the double backward ``grid_backward_backward_plain``
+    of the same operands, for its cotangents ``g_params`` (flat like
+    ``params``), ``g_x`` ((B, d)) and ``g_dy`` ((B, width of dL_dy)), any of
+    them None for zero. Per level l and corner c, with w_c its weight, dw_c
+    its gradient, H_c its Hessian and T3_c its third derivatives in x, T_c,
+    p_c and q_c the rows of the table, ``cgp`` and ``g_params`` at idx_c
+    (each read as the lookup reads its table; p_c and q_c zero on a level
+    whose class drops its table gradient), g the level's columns of dL_dy,
+    gy those of ``g_dy``, a_c = cgx . dw_c, e_c = g_x . dw_c and h_c = g_x^T
+    H_c cgx, it returns (each None where it is zero, or where ``need`` says
+    it is not wanted; ``need`` in the order of the results):
+
+    - d/dparams (flat fp32): h_c g + a_c gy scattered at idx_c in the
+      level's class, as G2 scatters its table gradient (None without
+      ``level_round``);
+    - d/dx (B, d) fp32: (H_c cgx) <g, q_c> + (H_c g_x) <g, p_c> + T3_c[g_x,
+      cgx] <g, T_c> + dw_c <gy, p_c> + (H_c cgx) <gy, T_c>;
+    - d/d(dL_dy) (B, width) fp32: a_c q_c + e_c p_c + h_c T_c, zero in the
+      padding columns;
+    - d/dcgp (flat fp32): e_c g + w_c gy scattered at idx_c in the level's
+      class, nothing on a dropped level;
+    - d/dcgx (B, d) fp32: dw_c <g, q_c> + (H_c g_x) <g, T_c> + dw_c <gy,
+      T_c>.
+
+    The JAX package's autodiff gives the same: its lookup gathers through a
+    linear pair whose transpose is the level's class scatter and back
+    (tcnn_tpu/ops/scatter_rows.py:gather_rows), so every cotangent into the
+    table or into ``cgp`` is class-scattered and every table-shaped operand
+    is read rounded as the table is. The sums run in the kernel's order
+    (``csrc/grid_input_grad.cuh:third_order_corner``) and the scatters are
+    ``_ClassScatter``, so autograd of this function is the fourth order.
+
+    ``window``: the (n_levels, 2) windows of a rank of a row-sharded table
+    (``params``, ``cgp`` and ``g_params`` its local rows, read zeros outside
+    the windows): the rank's local d/dparams and d/dcgp and its partials of
+    the rest (the plain version of ``grid_backward3_windowed``)."""
+    from .scatter_rows import ACC_BF16, ACC_DROP
+
+    batch, d = x.shape
+    F = int(n_features_per_level)
+    table = params.view(-1, F)
+    lt = levels.cpu().numpy().view(np.uint32).astype(np.int64)
+    windows = _windows_np(window)
+    sizes = lt[:, 1] if windows is None else windows[:, 1]
+    classes = None if level_round is None else level_round.cpu().numpy().reshape(-1, 2)
+    bits_np = _corner_bits(d, interpolation)
+    g = dL_dy.to(torch.float32)
+    gy_all = None if g_dy is None else g_dy.to(torch.float32)
+    cot_table = None if cgp is None else cgp.reshape(-1, F)
+    q_table = None if g_params is None else g_params.reshape(-1, F)
+    has_gx, has_gy = g_x is not None, g_dy is not None
+    n_rows = int(max(lt[:, 0] + sizes)) if len(lt) else 0
+
+    def zeros(*shape):
+        return torch.zeros(shape, dtype=torch.float32, device=x.device)
+
+    want_params, want_cgp, want_cgx = _third_wants(level_round, cgp, cgx, g_params, g_x, g_dy, need)
+    d_params = zeros(n_rows, F) if want_params else None
+    d_cgp = zeros(n_rows, F) if want_cgp else None
+    d_x, d_dy, d_cgx = zeros(batch, d), zeros(batch, dL_dy.shape[1]), zeros(batch, d)
+    derivs = interpolation != INTERP_NEAREST
+    for lvl, row in enumerate(lt):
+        contrib_round, acc = (0, 0) if classes is None else (int(v) for v in classes[lvl])
+        offset, size = int(row[0]), int(sizes[lvl])
+        win = None if windows is None else windows[lvl]
+        idx, weights = _level_rows(x, row, interpolation, bits_np)
+        n_c = weights.shape[1]
+        gl = g[:, lvl * F : (lvl + 1) * F]
+        gyl = None if gy_all is None else gy_all[:, lvl * F : (lvl + 1) * F]
+        use_cgp = cot_table is not None and acc != ACC_DROP
+        use_q = q_table is not None and acc != ACC_DROP
+        # The weight's derivatives contracted as the kernel contracts them:
+        # dw (d of (B, C)), H cgx and H g_x (d each), T3[g_x, cgx] (d).
+        zero = torch.zeros_like(weights)
+        dw, hcx, hgx, r = [zero] * d, [zero] * d, [zero] * d, [zero] * d
+        if derivs:
+            f, ds = _weight_factors(x, row, interpolation, bits_np)
+            weights = _replaced_product(f, ds, ())  # in the kernel's order: the scatters' rounding reads its bits
+            dw = [_replaced_product(f, ds, (e,)) for e in range(d)]
+            if cgx is not None or has_gx:
+                hess = [[_replaced_product(f, ds, (a, b)) for b in range(d)] for a in range(d)]
+                if cgx is not None:
+                    hcx = [_ordered_sum(cgx[:, None, a] * hess[a][b] for a in range(d)) for b in range(d)]
+                if has_gx:
+                    hgx = [_ordered_sum(g_x[:, None, a] * hess[a][b] for a in range(d)) for b in range(d)]
+            if cgx is not None and has_gx:
+                r = [_ordered_sum(g_x[:, None, a] * _ordered_sum(cgx[:, None, b] * _replaced_product(f, ds, (a, b, e))
+                                                                 for b in range(d)) for a in range(d))
+                     for e in range(d)]
+        a_c = zero if cgx is None else _ordered_sum(cgx[:, None, e] * dw[e] for e in range(d))
+        e_c = zero if not has_gx else _ordered_sum(g_x[:, None, e] * dw[e] for e in range(d))
+        h_c = zero if cgx is None or not has_gx else _ordered_sum(g_x[:, None, e] * hcx[e] for e in range(d))
+        feats = _held_rows(table, idx, row, win) if has_gx or has_gy else None  # (B, C, F)
+        p = _held_rows(cot_table, idx, row, win) if use_cgp else None
+        q = _held_rows(q_table, idx, row, win) if use_q else None
+
+        def dot(rows_, cols):
+            return zero if rows_ is None or cols is None else torch.sum(rows_ * cols[:, None, :], dim=-1)
+
+        tg, pg, qg, ty, py = dot(feats, gl), dot(p, gl), dot(q, gl), dot(feats, gyl), dot(p, gyl)
+        cols = slice(lvl * F, (lvl + 1) * F)
+        terms = [t for t in ((a_c, q), (e_c, p), (h_c, feats)) if t[1] is not None]
+        if terms:
+            d_dy[:, cols] += torch.sum(sum(c[..., None] * rows_ for c, rows_ in terms), dim=1)
+        d_x += torch.stack([torch.sum(hcx[e] * qg + hgx[e] * pg + r[e] * tg + dw[e] * py + hcx[e] * ty, dim=1)
+                            for e in range(d)], dim=1)
+        d_cgx += torch.stack([torch.sum(dw[e] * qg + hgx[e] * tg + dw[e] * ty, dim=1) for e in range(d)], dim=1)
+        if acc == ACC_DROP:
+            continue
+        acc_dtype = torch.bfloat16 if acc == ACC_BF16 else torch.float32
+        rows, owned = (idx, None) if win is None else _in_window(idx, row, win)
+
+        def scatter(out, coef_g, coef_gy):
+            contrib = torch.zeros((batch, n_c, F), dtype=torch.float32, device=x.device)
+            if coef_g is not None:
+                contrib = coef_g[..., None] * gl[:, None, :]
+            if gyl is not None:
+                contrib = contrib + coef_gy[..., None] * gyl[:, None, :]
+            if owned is not None:
+                contrib = torch.where(owned[..., None], contrib, 0.0)
+            out[offset : offset + size] += _ClassScatter.apply(
+                (rows - offset).reshape(-1), contrib.reshape(-1, F), size, contrib_round, acc_dtype, row)
+
+        if d_params is not None:
+            scatter(d_params, h_c if has_gx else None, a_c)
+        if d_cgp is not None:
+            scatter(d_cgp, e_c if has_gx else None, weights)
+    flat = (None if t is None else t.reshape(-1) for t in (d_params, d_cgp))
+    d_params, d_cgp = flat
+    return (d_params, d_x if need[1] else None, d_dy if need[2] else None, d_cgp,
+            d_cgx if want_cgx else None)
+
+
+def _third_wants(level_round, cgp, cgx, g_params, g_x, g_dy, need) -> Tuple[bool, bool, bool]:
+    """Which of G3's d/dparams, d/dcgp and d/dcgx it gives (the others are
+    None): each where ``need`` asks for it, its operand is present and some
+    term reaches it."""
+    has_g = g_x is not None or g_dy is not None
+    return (need[0] and level_round is not None and cgx is not None and has_g, need[3] and cgp is not None and has_g,
+            need[4] and cgx is not None and (has_g or g_params is not None))
+
+
+def _ordered_sum(terms) -> torch.Tensor:
+    """The sum of ``terms`` added one after another from the first: the
+    kernels' order, from 0.0."""
+    out = None
+    for t in terms:
+        out = t if out is None else out + t
+    return out
+
+
+_FWD_ARGS =[ctypes.c_void_p] * 4 + [ctypes.c_int] * 9 + [ctypes.c_void_p]
 _BWD_ARGS = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 9 + [ctypes.c_int64, ctypes.c_void_p, ctypes.c_void_p]
 
 # Whether a level table has an Rng level, kept on its tensor: the lookup
@@ -726,6 +938,11 @@ def _check_uniforms(what: str, u: torch.Tensor, x: torch.Tensor, n_levels: int):
 def _launch(what: str, err: int) -> None:
     if err != 0:
         raise RuntimeError(f"{what}: CUDA launch failed (cudaError {err})")
+
+
+def _ptr(t: Optional[torch.Tensor]):
+    """A tensor's data pointer for a C entry point; None (null) for None."""
+    return None if t is None else t.data_ptr()
 
 
 def _lookup(what, symbol, x, params, levels, n_features_per_level, padded_width, interpolation, out_dtype):
@@ -1203,13 +1420,10 @@ def grid_backward_backward(
     d_dy = torch.empty((batch, dL_dy.shape[1]), dtype=torch.float32, device=x.device)
     from ._build import kernel, stream
 
-    def ptr(t):
-        return None if t is None else t.data_ptr()
-
     global BWDBWD_LAUNCHES
     _launch(what, kernel("grid_input_grad", "tcnn_grid_backward_backward", _BWDBWD_ARGS)(
-        x.data_ptr(), dL_dy.data_ptr(), params.data_ptr(), ptr(cgp), ptr(cgx), levels.data_ptr(), ptr(level_round),
-        ptr(grad), ptr(grad16), d_x.data_ptr(), d_dy.data_ptr(),
+        x.data_ptr(), dL_dy.data_ptr(), params.data_ptr(), _ptr(cgp), _ptr(cgx), levels.data_ptr(), _ptr(level_round),
+        _ptr(grad), _ptr(grad16), d_x.data_ptr(), d_dy.data_ptr(),
         batch, d, n_levels, F, dL_dy.shape[1], int(interpolation), int(dL_dy.dtype == torch.bfloat16), n_values,
         stream(x.get_device()),
     ))
@@ -1312,17 +1526,144 @@ def grid_backward_backward_windowed(
     d_dy = torch.empty((batch, dL_dy.shape[1]), dtype=torch.float32, device=x.device)
     from ._build import kernel, stream
 
-    def ptr(t):
-        return None if t is None else t.data_ptr()
-
     global WINDOWED_BWDBWD_LAUNCHES
     _launch(what, kernel("grid_sharded", "tcnn_grid_backward_backward_windowed", _BWDBWD_WINDOWED_ARGS)(
-        x.data_ptr(), dL_dy.data_ptr(), params.data_ptr(), ptr(cgp), ptr(cgx), levels.data_ptr(), windows.data_ptr(),
-        ptr(grad), d_x.data_ptr(), d_dy.data_ptr(), batch, d, levels.shape[0], F, dL_dy.shape[1], int(interpolation),
+        x.data_ptr(), dL_dy.data_ptr(), params.data_ptr(), _ptr(cgp), _ptr(cgx), levels.data_ptr(), windows.data_ptr(),
+        _ptr(grad), d_x.data_ptr(), d_dy.data_ptr(), batch, d, levels.shape[0], F, dL_dy.shape[1], int(interpolation),
         params.numel(), stream(x.get_device()),
     ))
     WINDOWED_BWDBWD_LAUNCHES += 1
     return grad, d_x, d_dy
+
+
+_THIRD_ARGS = [ctypes.c_void_p] * 17 + [ctypes.c_int] * 7 + [ctypes.c_int64, ctypes.c_void_p]
+_THIRD_WINDOWED_ARGS = [ctypes.c_void_p] * 15 + [ctypes.c_int] * 6 + [ctypes.c_int64, ctypes.c_void_p]
+
+
+def _check_third(what, x, params, cgp, cgx, g_params, g_x, g_dy, dL_dy):
+    _check_cotangents(what, x, params, cgp, cgx)
+    _check_cotangents(what, x, params, g_params, g_x)
+    if g_dy is not None and (g_dy.shape != dL_dy.shape or g_dy.dtype != torch.float32 or not g_dy.is_contiguous()
+                             or g_dy.device != x.device):
+        raise ValueError(f"{what}: g_dy must be a contiguous float32 tensor shaped like dL_dy")
+
+
+def _third_outputs(x, params, dL_dy, level_round, cgp, cgx, g_params, g_x, g_dy, need, bf16):
+    """The outputs ``grid_third_order_plain`` returns for these operands,
+    allocated on the device of x (each filled by the kernel), None where it
+    returns None; with ``bf16`` the bf16 scratch of the two scatters."""
+    want_params, want_cgp, want_cgx = _third_wants(level_round, cgp, cgx, g_params, g_x, g_dy, need)
+    n, dev = params.numel(), x.device
+
+    def buf(want, shape, dtype=torch.float32):
+        return torch.empty(shape, dtype=dtype, device=dev) if want else None
+
+    return (buf(want_params, (n,)), buf(need[1], x.shape), buf(need[2], dL_dy.shape), buf(want_cgp, (n,)),
+            buf(want_cgx, x.shape), buf(want_params and bf16, (n,), torch.bfloat16),
+            buf(want_cgp and bf16, (n,), torch.bfloat16))
+
+
+def grid_backward3(
+    x: torch.Tensor,
+    dL_dy: torch.Tensor,
+    params: torch.Tensor,
+    levels: torch.Tensor,
+    n_features_per_level: int,
+    interpolation: int,
+    level_round: Optional[torch.Tensor],
+    cgp: Optional[torch.Tensor],
+    cgx: Optional[torch.Tensor],
+    g_params: Optional[torch.Tensor],
+    g_x: Optional[torch.Tensor],
+    g_dy: Optional[torch.Tensor],
+    need: Tuple[bool, ...] = (True,) * 5,
+    accumulates_bf16: Optional[bool] = None,
+) -> Tuple[Optional[torch.Tensor], ...]:
+    """The third order of the all-levels lookup (G3): (d/dparams, d/dx,
+    d/d(dL_dy), d/dcgp, d/dcgx) for the cotangents (g_params, g_x, g_dy) of
+    G2's outputs, as ``grid_third_order_plain`` defines them, fp32 positions
+    only. On a CUDA ``x`` the kernel ``tcnn_grid_backward3`` runs (one
+    launch, the gathers and both class scatters together;
+    ``csrc/grid_third_order.cu``), counted in THIRD_LAUNCHES."""
+    F = int(n_features_per_level)
+    if x.device.type == "cpu":
+        return grid_third_order_plain(x, dL_dy, params, levels, F, interpolation, level_round, cgp, cgx, g_params,
+                                      g_x, g_dy, need=need)
+    if x.device.type != "cuda":
+        raise ValueError(f"grid_backward3: unsupported device {x.device}")
+    what = "grid_backward3"
+    _check_kernel_inputs(what, x, levels, F)
+    _check_params(what, params, x)
+    n_levels = levels.shape[0]
+    _check_dy(what, dL_dy, x, n_levels, F)
+    _check_third(what, x, params, cgp, cgx, g_params, g_x, g_dy, dL_dy)
+    if level_round is not None:
+        _check_classes(what, level_round, x, n_levels)
+        if accumulates_bf16 is None:
+            from .scatter_rows import ACC_BF16
+
+            accumulates_bf16 = bool((level_round[:, 1] == ACC_BF16).any())
+    outs = _third_outputs(x, params, dL_dy, level_round, cgp, cgx, g_params, g_x, g_dy, need,
+                          bool(accumulates_bf16))
+    d_params, d_x, d_dy, d_cgp, d_cgx, params16, cgp16 = outs
+    from ._build import kernel, stream
+
+    global THIRD_LAUNCHES
+    _launch(what, kernel("grid_third_order", "tcnn_grid_backward3", _THIRD_ARGS)(
+        x.data_ptr(), dL_dy.data_ptr(), params.data_ptr(), _ptr(cgp), _ptr(cgx), _ptr(g_params), _ptr(g_x),
+        _ptr(g_dy), levels.data_ptr(), _ptr(level_round), *(_ptr(t) for t in outs),
+        x.shape[0], x.shape[1], n_levels, F, dL_dy.shape[1], int(interpolation), int(dL_dy.dtype == torch.bfloat16),
+        params.numel(), stream(x.get_device()),
+    ))
+    THIRD_LAUNCHES += 1
+    return d_params, d_x, d_dy, d_cgp, d_cgx
+
+
+def grid_backward3_windowed(
+    x: torch.Tensor,
+    dL_dy: torch.Tensor,
+    params: torch.Tensor,
+    levels: torch.Tensor,
+    windows: torch.Tensor,
+    n_features_per_level: int,
+    interpolation: int,
+    cgp: Optional[torch.Tensor],
+    cgx: Optional[torch.Tensor],
+    g_params: Optional[torch.Tensor],
+    g_x: Optional[torch.Tensor],
+    g_dy: Optional[torch.Tensor],
+    need: Tuple[bool, ...] = (True,) * 5,
+) -> Tuple[Optional[torch.Tensor], ...]:
+    """The third order of a rank of a row-sharded table (G3 of
+    ``grid_encode_windowed``): its local d/dparams and d/dcgp (fp32 sums,
+    no rounding: the windowed table gradient's class) and its partials of
+    d/dx, d/d(dL_dy) and d/dcgx, as ``grid_third_order_plain`` with
+    ``window`` defines them; fp32 ``dL_dy``. The caller sums the partials
+    over the model group. On a CUDA ``x`` the kernel
+    ``tcnn_grid_backward3_windowed`` runs, counted in
+    WINDOWED_THIRD_LAUNCHES."""
+    F = int(n_features_per_level)
+    classes = _f32_classes(levels.shape[0], x.device)
+    if x.device.type == "cpu":
+        return grid_third_order_plain(x, dL_dy, params, levels, F, interpolation, classes, cgp, cgx, g_params, g_x,
+                                      g_dy, windows, need)
+    if x.device.type != "cuda":
+        raise ValueError(f"grid_backward3_windowed: unsupported device {x.device}")
+    what = "grid_backward3_windowed"
+    _check_windowed(what, x, dL_dy, params, levels, windows, F)
+    _check_third(what, x, params, cgp, cgx, g_params, g_x, g_dy, dL_dy)
+    outs = _third_outputs(x, params, dL_dy, classes, cgp, cgx, g_params, g_x, g_dy, need, False)[:5]
+    from ._build import kernel, stream
+
+    global WINDOWED_THIRD_LAUNCHES
+    _launch(what, kernel("grid_third_order", "tcnn_grid_backward3_windowed", _THIRD_WINDOWED_ARGS)(
+        x.data_ptr(), dL_dy.data_ptr(), params.data_ptr(), _ptr(cgp), _ptr(cgx), _ptr(g_params), _ptr(g_x),
+        _ptr(g_dy), levels.data_ptr(), windows.data_ptr(), *(_ptr(t) for t in outs),
+        x.shape[0], x.shape[1], levels.shape[0], F, dL_dy.shape[1], int(interpolation), params.numel(),
+        stream(x.get_device()),
+    ))
+    WINDOWED_THIRD_LAUNCHES += 1
+    return outs
 
 
 _SAMPLED_ARGS = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 8 + [ctypes.c_void_p]
@@ -1496,8 +1837,8 @@ class GridEncodeFunction(torch.autograd.Function):
     itself be differentiable (``create_graph=True``, e.g. an eikonal loss)
     runs as ``GridEncodeBackwardFunction``, whose own backward is the double
     backward kernel: the exact second order that ``jax.grad`` of
-    ``jax.grad`` gives in the JAX package; every further order is autograd
-    of its plain version.
+    ``jax.grad`` gives in the JAX package; the third order is the G3 kernel
+    and every further order autograd of its plain version.
 
     ``GridEncodeFunction.apply(x, params, levels, level_round, u, meta)``
     with ``meta`` = (n_features_per_level, padded_width, interpolation,
@@ -1593,12 +1934,11 @@ class GridEncodeBackwardFunction(torch.autograd.Function):
 class GridEncodeBackwardBackwardFunction(torch.autograd.Function):
     """The lookup's double backward as a differentiable function of (x,
     params, dL_dy, cgp, cgx): its forward is ``_double_backward`` (the G2
-    kernel on the card, or its plain version with ``plain``), so the second
-    order keeps coming from the kernel; its backward, the third order, is
-    autograd of the plain version (``grid_backward_backward_plain`` and the
-    plain lookups of ``_cgp_term``) recomputed from the saved inputs, and
-    so is every order after it. The JAX package has no kernel for these
-    orders either: XLA autodiff of ``GridEncoding.apply`` takes them.
+    kernel on the card, or its plain version with ``plain``); its backward,
+    the third order, is ``_third_order`` (the G3 kernel, and the table
+    gradient's kernels for a cotangent of the table gradient of uint32
+    positions or of a sampled corner) or, where that backward must itself
+    be differentiable (a fourth order), ``GridEncodeThirdOrderFunction``.
 
     ``GridEncodeBackwardBackwardFunction.apply(x, params, dL_dy, levels,
     level_round, u, cgp, cgx, meta)`` with ``GridEncodeFunction``'s ``meta``.
@@ -1614,13 +1954,79 @@ class GridEncodeBackwardBackwardFunction(torch.autograd.Function):
     @staticmethod
     def backward(ctx, g_params, g_x, g_dy):
         x, params, dy, cgp, cgx, levels, level_round, u = ctx.saved_tensors
+        if g_params is None and g_x is None and g_dy is None:
+            return (None,) * 9
+        n = ctx.needs_input_grad
+        need = (n[1], n[0], n[2], n[6], n[7])
+        g_params, g_x, g_dy = (None if t is None else t.to(torch.float32).contiguous() for t in (g_params, g_x, g_dy))
+        if torch.is_grad_enabled():
+            out = GridEncodeThirdOrderFunction.apply(x, params, dy, levels, level_round, u, cgp, cgx, g_params, g_x,
+                                                     g_dy, ctx.meta, need)
+        else:
+            out = _third_order(x, params, dy, levels, level_round, u, cgp, cgx, g_params, g_x, g_dy, ctx.meta, need)
+        d_params, d_x, d_dy, d_cgp, d_cgx = out
+        return (d_x, d_params, None if d_dy is None else d_dy.to(dy.dtype), None, None, None, d_cgp, d_cgx, None)
+
+
+def _third_order(x, params, dy, levels, level_round, u, cgp, cgx, g_params, g_x, g_dy, meta, need):
+    """The lookup's third derivatives: the gradients of <g_params, P> +
+    <g_x, X> + <g_dy, Y>, (P, X, Y) = ``_double_backward``'s, as (d/dparams,
+    d/dx, d/d(dL_dy), d/dcgp, d/dcgx), each None where it is zero or where
+    ``need`` (in that order) says it is not wanted; from the kernels, or
+    with ``plain`` in ``meta`` their plain versions. G2's terms take G3
+    (``grid_backward3``); the cgp term of uint32 positions or of a sampled
+    corner (``_cgp_term``: the lookup of cgp, or the gather of its sampled
+    corners) is linear in cgp alone, so its one derivative is its
+    transpose applied to g_dy, the table gradient of g_dy in the level's
+    class (a dropped level's zero), with ``u`` the sampled one."""
+    F, interp, plain, acc16, plan = meta
+    d_cgp_alone = None
+    if cgp is not None and (x.dtype != torch.float32 or u is not None):
+        if need[3] and g_dy is not None:
+            if plain:
+                d_cgp_alone = grid_backward_plain(x, g_dy, levels, F, interp, level_round, u)
+            else:
+                d_cgp_alone = grid_backward(x, g_dy, levels, F, interp, level_round, plan, u)
+        cgp = None
+    if cgp is None and cgx is None:
+        return None, None, None, d_cgp_alone, None
+    if plain:
+        out = grid_third_order_plain(x, dy, params, levels, F, interp, level_round, cgp, cgx, g_params, g_x, g_dy,
+                                     need=need)
+    else:
+        out = grid_backward3(x, dy, params, levels, F, interp, level_round, cgp, cgx, g_params, g_x, g_dy, need,
+                             acc16)
+    d_params, d_x, d_dy, d_cgp, d_cgx = out
+    return d_params, d_x, d_dy, d_cgp if d_cgp_alone is None else d_cgp_alone, d_cgx
+
+
+class GridEncodeThirdOrderFunction(torch.autograd.Function):
+    """The lookup's third order as a differentiable function of (x, params,
+    dL_dy, cgp, cgx, g_params, g_x, g_dy): its forward is ``_third_order``
+    (G3 on the card), its backward, the fourth order and every order after
+    it, autograd of its plain version recomputed from the saved inputs
+    (``grid_third_order_plain``, whose scatters are ``_ClassScatter``).
+
+    ``GridEncodeThirdOrderFunction.apply(x, params, dL_dy, levels,
+    level_round, u, cgp, cgx, g_params, g_x, g_dy, meta, need)``"""
+
+    @staticmethod
+    def forward(ctx, x, params, dy, levels, level_round, u, cgp, cgx, g_params, g_x, g_dy, meta, need):
+        ctx.meta, ctx.need = meta, need
+        ctx.set_materialize_grads(False)
+        ctx.save_for_backward(x, params, dy, cgp, cgx, g_params, g_x, g_dy, levels, level_round, u)
+        return _third_order(x, params, dy, levels, level_round, u, cgp, cgx, g_params, g_x, g_dy, meta, need)
+
+    @staticmethod
+    def backward(ctx, *grads):
+        x, params, dy, cgp, cgx, g_params, g_x, g_dy, levels, level_round, u = ctx.saved_tensors
         F, interp, plain, acc16, plan = ctx.meta
-        need = ctx.needs_input_grad
+        n = ctx.needs_input_grad
         plain_meta = (F, interp, True, acc16, plan)
 
-        def fn(xx, pp, yy, cp, cx):
-            return _double_backward(xx, pp, yy, levels, level_round, u, cp, cx, plain_meta)
+        def fn(xx, pp, yy, cp, cx, gp, gx, gy):
+            return _third_order(xx, pp, yy, levels, level_round, u, cp, cx, gp, gx, gy, plain_meta, ctx.need)
 
-        d_x, d_params, d_dy, d_cgp, d_cgx = _autograd_of(
-            fn, (x, params, dy, cgp, cgx), (need[0], need[1], need[2], need[6], need[7]), (g_params, g_x, g_dy))
-        return d_x, d_params, d_dy, None, None, None, d_cgp, d_cgx, None
+        wanted = (n[0], n[1], n[2], n[6], n[7], n[8], n[9], n[10])
+        d = _autograd_of(fn, (x, params, dy, cgp, cgx, g_params, g_x, g_dy), wanted, grads)
+        return (d[0], d[1], d[2], None, None, None, d[3], d[4], d[5], d[6], d[7], None, None)

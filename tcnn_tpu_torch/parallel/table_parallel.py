@@ -19,8 +19,9 @@ sum of the ranks' partials (the windowed input-gradient kernel's): one
 other's backward (``_SumOverGroup``, ``_CopyToGroup``), so every order of
 the lookup's derivatives is the whole table's: the windowed double
 backward's table gradient is local and its d/dx and d/d(dL_dy) partials
-are summed; a third order is autograd of the plain windowed double
-backward, as for a whole table (``ops.grid_encode``).
+are summed; so are those of the windowed third order (G3 of the rank's
+rows), and a fourth order is autograd of its plain version, as for a
+whole table (``ops.grid_encode``).
 ``TableParallelTrainer`` composes this with data parallelism over the
 mesh's ``data`` dimension.
 
@@ -166,9 +167,10 @@ class _WindowedBackward(torch.autograd.Function):
 class _WindowedBackwardBackward(torch.autograd.Function):
     """The windowed double backward as a differentiable function of (x,
     params, dL_dy, cgp, cgx): its forward is the kernel
-    (``ops.grid_encode.grid_backward_backward_windowed``), its backward
-    autograd of the plain version recomputed from the saved inputs
-    (``grid_backward_backward_plain`` with the windows), as
+    (``ops.grid_encode.grid_backward_backward_windowed``), its backward the
+    windowed third order (``grid_backward3_windowed``: the rank's local
+    d/dparams and d/dcgp, its partials of the rest) or, where that must
+    itself be differentiable, ``_WindowedThirdOrder``, as
     ``ops.grid_encode.GridEncodeBackwardBackwardFunction`` for a whole
     table.
 
@@ -186,16 +188,60 @@ class _WindowedBackwardBackward(torch.autograd.Function):
     @staticmethod
     def backward(ctx, g_params, g_x, g_dy):
         x, params, dy, cgp, cgx, levels, windows = ctx.saved_tensors
-        F, interp, plan = ctx.meta
-        need = ctx.needs_input_grad
-        classes = ge._f32_classes(levels.shape[0], levels.device)
-
-        def fn(xx, pp, yy, cp, cx):
-            return ge.grid_backward_backward_plain(xx, yy, pp, levels, F, interp, classes, cp, cx, windows)
-
-        d_x, d_params, d_dy, d_cgp, d_cgx = ge._autograd_of(
-            fn, (x, params, dy, cgp, cgx), (need[0], need[1], need[2], need[5], need[6]), (g_params, g_x, g_dy))
+        if g_params is None and g_x is None and g_dy is None:
+            return (None,) * 8
+        n = ctx.needs_input_grad
+        need = (n[1], n[0], n[2], n[5], n[6])
+        g_params, g_x, g_dy = (None if t is None else t.to(torch.float32).contiguous() for t in (g_params, g_x, g_dy))
+        args = (x, params, dy, levels, windows, cgp, cgx, g_params, g_x, g_dy, ctx.meta, need)
+        if torch.is_grad_enabled():
+            out = _WindowedThirdOrder.apply(*args)
+        else:
+            out = _windowed_third(*args)
+        d_params, d_x, d_dy, d_cgp, d_cgx = out
         return d_x, d_params, d_dy, None, None, d_cgp, d_cgx, None
+
+
+def _windowed_third(x, params, dy, levels, windows, cgp, cgx, g_params, g_x, g_dy, meta, need, plain=False):
+    """The rank's third order (``ge.grid_backward3_windowed``, or with
+    ``plain`` its plain version): (d/dparams, d/dx, d/d(dL_dy), d/dcgp,
+    d/dcgx), None where zero or not wanted."""
+    F, interp, plan = meta
+    if plain:
+        classes = ge._f32_classes(levels.shape[0], levels.device)
+        return ge.grid_third_order_plain(x, dy, params, levels, F, interp, classes, cgp, cgx, g_params, g_x, g_dy,
+                                         windows, need)
+    return ge.grid_backward3_windowed(x, dy, params, levels, windows, F, interp, cgp, cgx, g_params, g_x, g_dy, need)
+
+
+class _WindowedThirdOrder(torch.autograd.Function):
+    """The windowed third order as a differentiable function of (x, params,
+    dL_dy, cgp, cgx, g_params, g_x, g_dy): its forward is the kernel
+    (``_windowed_third``), its backward autograd of the plain version
+    recomputed from the saved inputs, as
+    ``ops.grid_encode.GridEncodeThirdOrderFunction`` for a whole table.
+
+    ``_WindowedThirdOrder.apply(x, params, dy, levels, windows, cgp, cgx,
+    g_params, g_x, g_dy, meta, need)``"""
+
+    @staticmethod
+    def forward(ctx, x, params, dy, levels, windows, cgp, cgx, g_params, g_x, g_dy, meta, need):
+        ctx.meta, ctx.need = meta, need
+        ctx.set_materialize_grads(False)
+        ctx.save_for_backward(x, params, dy, cgp, cgx, g_params, g_x, g_dy, levels, windows)
+        return _windowed_third(x, params, dy, levels, windows, cgp, cgx, g_params, g_x, g_dy, meta, need)
+
+    @staticmethod
+    def backward(ctx, *grads):
+        x, params, dy, cgp, cgx, g_params, g_x, g_dy, levels, windows = ctx.saved_tensors
+        n = ctx.needs_input_grad
+
+        def fn(xx, pp, yy, cp, cx, gp, gx, gy):
+            return _windowed_third(xx, pp, yy, levels, windows, cp, cx, gp, gx, gy, ctx.meta, ctx.need, plain=True)
+
+        wanted = (n[0], n[1], n[2], n[5], n[6], n[7], n[8], n[9])
+        d = ge._autograd_of(fn, (x, params, dy, cgp, cgx, g_params, g_x, g_dy), wanted, grads)
+        return d[0], d[1], d[2], None, None, d[3], d[4], d[5], d[6], d[7], None, None
 
 
 class TableParallelGrid:

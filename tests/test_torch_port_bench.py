@@ -334,7 +334,8 @@ def test_grid_second_order_times_inputs_and_report_parsers():
     assert (row0[:, 1] == 1).all() and (row0[:, 0] == levels[:, 0]).all() and not row0[:, -2:].any()
     fns = m.cases(t, plain=True)
     assert list(fns) == ["lookup", "table gradient", "G1", "G2 cgx", "G2 cgx+cgp", "G1 row0", "G2 cgx, no scatter",
-                         "G2 cgx, row0, no scatter", "lookup row0", "G1 plain", "G2 cgx plain"]
+                         "G2 cgx, row0, no scatter", "lookup row0", "G3 curvature", "G3 every cotangent", "G1 plain",
+                         "G2 cgx plain"]
     # row0: every corner reads its level's first row, whose weights sum to 1.
     table = t["params"].view(-1, 2)[torch.from_numpy(levels[:, 0].astype(np.int64))]
     want = table.reshape(1, -1).expand(64, -1)
@@ -342,6 +343,8 @@ def test_grid_second_order_times_inputs_and_report_parsers():
     d_params, d_x, d_dy = fns["G2 cgx"]()
     assert d_params.shape == t["params"].shape and d_x.shape == (64, 3) and d_dy.shape == (64, 32)
     assert fns["G2 cgx, no scatter"]()[0] is None
+    g3 = fns["G3 curvature"]()
+    assert g3[0].shape == t["params"].shape and g3[1].shape == (64, 3) and g3[3] is None
     torch.testing.assert_close(fns["G1"](), fns["G1 plain"]())
     log = "\n".join([
         "ptxas info    : Compiling entry function '_Z26grid_backward_input_kernelIfLi2ELi3EEvv' for 'sm_90a'",

@@ -2258,13 +2258,26 @@ def test_fixed_point_cotangent_lookup_matches_plain(dev):
     assert not got[:, 6:8].any()
 
 
-def test_third_order_on_the_card_is_the_plain_one(dev):
-    """A curvature loss through the module API on the card (G1, G2 and the
-    lookup by their kernels, the third order by autograd of the plain G2)
-    against the same on the CPU, from the same weights: d/dparams and d/dx
-    within 1e-2 of the norm (a bf16 network, sums in another order)."""
+def test_third_order_on_the_card_launches_g3(dev, monkeypatch):
+    """A curvature loss through the module API on the card launches G3
+    (``tcnn_grid_backward3``, once) and no plain function of the grid's
+    derivatives, and gives what the plain route gives on the CPU from the
+    same weights: d/dparams and d/dx within 1e-2 of the norm (a bf16
+    network, sums in another order)."""
     from tcnn_tpu_torch import modules
 
+    def refuse(name):
+        real = getattr(grid_encode, name)
+
+        def on_cpu_only(x, *args, **kw):
+            assert x.device.type == "cpu", f"{name} ran on the card"
+            return real(x, *args, **kw)
+
+        monkeypatch.setattr(grid_encode, name, on_cpu_only)
+
+    for name in ("grid_backward_backward_plain", "grid_third_order_plain", "grid_backward_input_plain",
+                 "grid_backward_plain", "grid_encode_plain"):
+        refuse(name)
     cfg = dict(SECOND_ORDER_GRID, n_levels=6, interpolation="Smoothstep")
     net = {"otype": "FullyFusedMLP", "n_neurons": 32, "n_hidden_layers": 2}
     rng = np.random.default_rng(5)
@@ -2277,7 +2290,183 @@ def test_third_order_on_the_card_is_the_plain_one(dev):
         f = m(x)
         (g,) = torch.autograd.grad(f, x, torch.ones_like(f), create_graph=True)
         (hv,) = torch.autograd.grad((g * torch.from_numpy(v_np).to(device)).sum(), x, create_graph=True)
+        n0 = grid_encode.THIRD_LAUNCHES
         gp, gx = torch.autograd.grad((hv * hv).sum(), (m.params, x))
+        assert grid_encode.THIRD_LAUNCHES == n0 + (device.type == "cuda")
         out.append((gp.cpu(), gx.cpu()))
     for a, b in zip(*out):
         assert torch.isfinite(a).all() and float((a - b).norm()) <= 1e-2 * float(b.norm())
+
+
+def _third_operands(enc, x, n_params, rng, subset="all"):
+    """G3's cotangents for ``enc`` at the points x (on their device): every
+    one ("all") or the curvature loss's (cgx, g_x, g_dy)."""
+    dev, n, d = x.device, x.shape[0], enc.n_dims_to_encode
+    W = enc.padded_output_width
+
+    def t(shape):
+        return torch.from_numpy(rng.normal(0, 1, shape).astype(np.float32)).to(dev)
+
+    o = {"dy": t((n, W)), "params": torch.from_numpy(rng.uniform(-1, 1, n_params).astype(np.float32)).to(dev),
+         "cgp": t(n_params), "cgx": t((n, d)), "g_params": t(n_params), "g_x": t((n, d)), "g_dy": t((n, W))}
+    if subset == "curvature":
+        o["cgp"] = o["g_params"] = None
+    return o
+
+
+def _third_magnitudes(monkeypatch, call):
+    """The per-entry sums of |contribution| of G3's two scatters: ``call``
+    (a plain G3 call) with every class scatter replaced by an fp32 scatter
+    of the contributions' magnitudes."""
+    with monkeypatch.context() as m:
+        m.setattr(grid_encode._ClassScatter, "apply",
+                  lambda rows, contrib, size, *_: scatter_rows.scatter_rows_plain(rows, contrib.abs(), size))
+        out = call()
+    return out[0], out[3]
+
+
+def _check_third_tables(enc, got, plain, exact, mags, classes, windowed_rows=None):
+    """G3's d/dparams or d/dcgp level by level: an fp32 level per entry
+    within 1e-5 of its sum of |contributions| (atomics add in any order); a
+    bf16 level at most twice the plain sequential sum's error against the
+    fp32 sum of the same rounded contributions, in norm; a dropped level
+    zero."""
+    F = enc.n_features_per_level
+    assert got.shape == plain.shape and torch.isfinite(got).all()
+    offsets = enc.offset_table if windowed_rows is None else windowed_rows
+    for lvl in range(enc.n_levels):
+        lo, hi = int(offsets[lvl]) * F, int(offsets[lvl + 1]) * F
+        g, p, e, s = got[lo:hi], plain[lo:hi], exact[lo:hi], mags[lo:hi]
+        acc = int(classes[lvl, 1])
+        if acc == scatter_rows.ACC_DROP:
+            assert not g.any(), lvl
+        elif acc == scatter_rows.ACC_BF16:
+            assert float((g - e).norm()) <= 2 * float((p - e).norm()) + 1e-6 * float(e.norm()), lvl
+        else:
+            assert bool(((g - p).abs() <= 1e-5 * s + 1e-30).all()), lvl
+
+
+@pytest.mark.parametrize("subset", ["all", "curvature"])
+@pytest.mark.parametrize("n_dims", [2, 3, 4])
+@pytest.mark.parametrize("F", [1, 2, 4, 8])
+def test_grid_third_order_matches_plain(dev, F, n_dims, subset, monkeypatch):
+    """G3 (``tcnn_grid_backward3``) against its plain version at compiled
+    (d 2, 3) and run-time (4) dims, F 1, 2, 4, 8, bf16 dL/dy, at uniform
+    points, points outside [0, 1] and cell boundaries +-1 ulp, with every
+    cotangent or the curvature loss's; the class table holds an (RN, bf16),
+    an (SR, fp32) and a dropped level. d/dx, d/d(dL_dy) and d/dcgx as
+    ``_close_f32``; d/dparams and d/dcgp as ``_check_third_tables``."""
+    enc, t = _second_order_inputs(dev, n_dims, F, 16, torch.bfloat16, 0)
+    rng = np.random.default_rng(100 * F + 10 * n_dims + len(subset))
+    x = torch.from_numpy(_lookup_points(enc, rng, 2048)).to(dev)
+    o = _third_operands(enc, x, enc.n_params, rng, subset)
+    o["dy"] = o["dy"].bfloat16()
+    classes = t["classes"]
+    exact_cls = classes.clone()
+    exact_cls[t["bf16_level"], 1] = scatter_rows.ACC_F32
+    levels, interp = enc._levels_on(dev), _interp_code(enc)
+    ops = (x, o["dy"], o["params"], levels, F, interp)
+    cots = (o["cgp"], o["cgx"], o["g_params"], o["g_x"], o["g_dy"])
+    n0 = grid_encode.THIRD_LAUNCHES
+    got = grid_encode.grid_backward3(*ops, classes, *cots)
+    assert grid_encode.THIRD_LAUNCHES == n0 + 1
+    want = grid_encode.grid_third_order_plain(*ops, classes, *cots)
+    exact = grid_encode.grid_third_order_plain(*ops, exact_cls, *cots)
+    mags = _third_magnitudes(monkeypatch, lambda: grid_encode.grid_third_order_plain(*ops, classes, *cots))
+    for i in (1, 2, 4):
+        if want[i] is None:
+            assert got[i] is None
+        else:
+            _close_f32(got[i], want[i])
+    for i, s in zip((0, 3), mags):
+        if want[i] is None:
+            assert got[i] is None
+        else:
+            _check_third_tables(enc, got[i], want[i], exact[i], s, classes)
+
+
+@pytest.mark.parametrize("batch", [0, 1, 33])
+def test_grid_third_order_batch_sizes(dev, batch):
+    """Batches of 0, 1 and 33 samples: the outputs' shapes and values."""
+    enc, t = _second_order_inputs(dev, 3, 2, batch, torch.float32, batch)
+    rng = np.random.default_rng(batch)
+    o = _third_operands(enc, t["x"], enc.n_params, rng)
+    ops = (t["x"], o["dy"], o["params"], enc._levels_on(dev), 2, _interp_code(enc), t["classes"],
+           o["cgp"], o["cgx"], o["g_params"], o["g_x"], o["g_dy"])
+    got = grid_encode.grid_backward3(*ops)
+    torch.cuda.synchronize()
+    assert got[1].shape == got[4].shape == (batch, 3) and got[2].shape == o["dy"].shape
+    assert got[0].shape == got[3].shape == (enc.n_params,)
+    if batch == 0:
+        assert not got[0].any() and not got[3].any()
+        return
+    want = grid_encode.grid_third_order_plain(*ops)
+    for i in (1, 2, 4):
+        _close_f32(got[i], want[i])
+
+
+def test_grid_third_order_is_deterministic(dev):
+    """d/dx, d/d(dL_dy) and d/dcgx take no atomics: two calls on the same
+    inputs give the same bits (the 3D model at 2^16 points, in its training
+    classes, every cotangent)."""
+    enc = create_encoding(3, ENC3D_GRID, alignment=16)
+    n = 2**16
+    x = torch.rand((n, 3), generator=torch.Generator(device=dev).manual_seed(6), device=dev)
+    o = _third_operands(enc, x, enc.n_params, np.random.default_rng(6))
+    classes = torch.from_numpy(enc.gradient_classes(n)).to(dev)
+    args = (x, o["dy"].bfloat16(), o["params"], enc._levels_on(dev), 2, grid_encode.INTERP_LINEAR, classes,
+            o["cgp"], o["cgx"], o["g_params"], o["g_x"], o["g_dy"])
+    runs = [grid_encode.grid_backward3(*args) for _ in range(2)]
+    for i in (1, 2, 4):
+        assert torch.equal(runs[0][i], runs[1][i])
+
+
+@pytest.mark.parametrize("n_shards", [2, 3])
+@pytest.mark.parametrize("case", list(_WINDOWED_CASES))
+def test_windowed_third_order_matches_plain(dev, case, n_shards, monkeypatch):
+    """Every shard's windowed G3 (``tcnn_grid_backward3_windowed``)
+    against its plain version at uniform points, points outside [0, 1] and
+    cell boundaries +-1 ulp, with every cotangent: the partials as
+    ``_close_f32``, the local d/dparams and d/dcgp (fp32 atomics) per entry
+    within 1e-5 of their sums of |contributions|; each launch moving its
+    count."""
+    from tcnn_tpu_torch.parallel import TableParallelGrid
+
+    n_dims, cfg = _WINDOWED_CASES[case]
+    enc = create_encoding(n_dims, cfg, alignment=16)
+    F, L = enc.n_features_per_level, enc.n_levels
+    interp = _interp_code(enc)
+    rng = np.random.default_rng(20 + n_shards)
+    x = torch.from_numpy(_lookup_points(enc, rng, 2048)).to(dev)
+    for shard in range(n_shards):
+        tpg = TableParallelGrid(enc, None, shard=(shard, n_shards))
+        levels, windows = tpg._tables_on(dev)
+        o = _third_operands(enc, x, tpg.local_n_params, rng)
+        o["dy"], o["g_dy"] = o["dy"][:, : L * F].contiguous(), o["g_dy"][:, : L * F].contiguous()
+        args = (x, o["dy"], o["params"], levels, windows, F, interp, o["cgp"], o["cgx"], o["g_params"], o["g_x"],
+                o["g_dy"])
+        n0 = grid_encode.WINDOWED_THIRD_LAUNCHES
+        got = grid_encode.grid_backward3_windowed(*args)
+        assert grid_encode.WINDOWED_THIRD_LAUNCHES == n0 + 1
+        cpu = tuple(a.cpu() if isinstance(a, torch.Tensor) else a for a in args)
+        want = [w.to(dev) for w in grid_encode.grid_backward3_windowed(*cpu)]
+        mags = _third_magnitudes(monkeypatch, lambda: grid_encode.grid_backward3_windowed(*cpu))
+        for i in (1, 2, 4):
+            _close_f32(got[i], want[i])
+        for i, s in zip((0, 3), mags):
+            assert got[i].shape == (tpg.local_n_params,)
+            assert bool(((got[i] - want[i]).abs() <= 1e-5 * s.to(dev) + 1e-30).all()), i
+
+
+def test_windowed_third_order_needs_the_windows_after_the_table(dev):
+    from tcnn_tpu_torch.parallel import TableParallelGrid
+
+    enc = create_encoding(2, _WINDOWED_CASES["2d-linear"][1], alignment=16)
+    tpg = TableParallelGrid(enc, None, shard=(0, 2))
+    levels, windows = tpg._tables_on(dev)
+    x = torch.rand((64, 2), device=dev)
+    local = torch.zeros(tpg.local_n_params, device=dev)
+    dy = torch.zeros((64, 32), device=dev)
+    with pytest.raises(ValueError, match="follow the level table"):
+        grid_encode.grid_backward3_windowed(x, dy, local, levels, windows.clone(), 2, grid_encode.INTERP_LINEAR,
+                                            None, x.clone(), None, x.clone(), None)

@@ -3,11 +3,13 @@ the CPU: the grid beyond second order, the second derivative through the
 table gradient of ``fixed_point_pos`` and of stochastic interpolation, SH
 beyond second order, and a curvature loss through the module API.
 
-The port takes the first and second orders from the kernels (their plain
-versions here) and every further order from autograd of the plain double
-backward (``ops.grid_encode.GridEncodeBackwardBackwardFunction``) or of the
-plain SH vjp; the JAX package takes them all from ``jax.grad`` (the grid's
-and the module's under ``jax.jit``, whose fusions sum in another order).
+The port takes the grid's first three orders from the kernels (their
+plain versions here; the third is ``ops.grid_encode.grid_third_order_plain``,
+G3's) and every further order from autograd of the plain G3
+(``GridEncodeThirdOrderFunction``); SH's every order past the first from
+autograd of its plain vjp; the JAX package takes them all from ``jax.grad``
+(the grid's and the module's under ``jax.jit``, whose fusions sum in
+another order). ``test_torch_port_third_order.py`` holds G3 itself.
 
 Tolerances:
 - the grid's third order and the cgp terms (fp32 on both sides, sums in
@@ -80,8 +82,8 @@ def test_grid_third_order_vs_jax(dims, interp):
 
 
 def test_grid_fourth_order_is_autograd_of_the_third():
-    """A fourth order: each order after the second is autograd of the plain
-    double backward, so the grid differentiates to any order. Held
+    """A fourth order: autograd of the plain G3, so the grid differentiates
+    to any order. Held
     against finite differences of the third order's d/dx in x (Smoothstep:
     its third derivative is smooth inside a cell)."""
     t = tm.Encoding(2, ENC, seed=11, device="cpu")

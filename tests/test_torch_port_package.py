@@ -58,7 +58,7 @@ def test_kernel_sources_and_build_paths():
     from tcnn_tpu_torch.ops import _build
 
     for name in ("ffmlp_fwd", "grid_fwd", "ffmlp_bwd", "adam_step", "grid_bwd", "grid_input_grad", "grid_bwd_rng",
-                 "grid_bwd_modes", "probe_rows", "sh_encode", "grid_sharded"):
+                 "grid_bwd_modes", "probe_rows", "sh_encode", "grid_sharded", "grid_third_order"):
         src = _build.CSRC / f"{name}.cu"
         assert src.exists()
         text = src.read_text()
