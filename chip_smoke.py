@@ -22,6 +22,15 @@ Phases, each printing lines of its own; any failure exits non-zero:
    route's count; two calls give the same bits; then both timed at the NeRF
    path's shapes (benchmarks.sh_times: device time cold over a ring of
    buffers beyond L2 and warm, call time, each beside the bytes bound).
+   The double backward (tcnn_sh_backward_backward, the input gradient's
+   vjp) against autograd of the plain vjp: degrees 1-8, bf16 and fp32
+   dL/dy, each need flag, the same batches, a strided input with a
+   misaligned dL/dy and a contiguous one; then SH_PENALTY_STEPS module-API
+   steps of the NeRF sample's network at 2^18 samples whose loss adds a
+   penalty on the squared gradient in the direction columns (create_graph):
+   one kernel launch a step, no plain double backward on the card, one
+   step's parameter gradient against the same step through apply_plain;
+   timed at the NeRF shapes and at degree 8 with fp32 dL/dy.
 4. kernel 2 (grid lookup) against its plain version: the flagship encoding
    at B = 2^18 plus cell-boundary points and points outside [0, 1]; again
    with table_dtype bfloat16 and with the CoherentPrime (XOR) hash, each
@@ -2480,6 +2489,181 @@ NERF_TEST_CONFIG = {
 }
 
 
+# The double backward (tcnn_sh_backward_backward) against its plain
+# version, and the direction-gradient penalty through the module API.
+SH_BWDBWD_TOL_NOTE = ("d/dx and fp32 d/d(dL/dy): max|kernel - plain| <= 1e-5 max|plain| (closed-form second partials "
+                      "against autograd of the plain vjp: the same terms summed in another order); bf16 d/d(dL/dy) "
+                      "within one bf16 ulp of the plain fp32 value plus that 1e-5 max|plain|")
+SH_PENALTY_STEPS = 6
+SH_PENALTY_WEIGHT = 1e-3
+SH_PENALTY_COUNTERS = {
+    "sh_encode": ("sh_encode", "LAUNCHES"), "sh_encode_backward_input": ("sh_encode", "BWD_LAUNCHES"),
+    "sh_encode_backward_backward": ("sh_encode", "BWDBWD_LAUNCHES"), "grid_fwd": ("grid_encode", "LAUNCHES"),
+    "grid_bwd": ("grid_encode", "BWD_LAUNCHES"), "ffmlp_fwd": ("ffmlp", "LAUNCHES"),
+}
+SH_PENALTY_PATH = ("module API: direction-gradient penalty on the NeRF sample's network (the NeRF sample's own path "
+                   "differentiates no direction: 0 there)")
+SH_PENALTY_TOL_NOTE = ("the network's and the table's gradients each within 1e-2 of the plain path's in norm, and "
+                       "p99 RAE <= 1e-2 over all parameters (tests/utils.py:match_rae(1e-2, percentile=99), as the "
+                       "CPU tests hold a bf16 training step): the bf16 network's roundings flip where its fp32 inputs "
+                       "differ in the last bits")
+
+
+def _sh_bwdbwd_close(got, want, dtype, what):
+    """``SH_BWDBWD_TOL_NOTE``; returns max |diff|."""
+    import torch
+
+    got, want = got.float(), want.float()
+    check(got.shape == want.shape and bool(got.isfinite().all()), f"{what}: bad shape or non-finite values")
+    diff = (got - want).abs()
+    scale = float(want.abs().max())
+    ulp = 0.0
+    if dtype == torch.bfloat16:
+        ulp = torch.where(want == 0, torch.zeros_like(want), torch.exp2(torch.floor(torch.log2(want.abs())) - 7))
+    check(bool((diff <= ulp + 1e-5 * scale).all()), f"{what}: max|diff| {float(diff.max()):.3e} beyond "
+          f"{SH_BWDBWD_TOL_NOTE}")
+    return float(diff.max())
+
+
+def _sh_bwdbwd_check(gen):
+    """tcnn_sh_backward_backward against sh_backward_backward_plain at
+    degrees 1-8 x SH_BATCHES x (strided x with a dL/dy 4 or 2 bytes past a
+    16-byte boundary; contiguous) x dL/dy bf16, fp32 x the three need
+    flags; one launch a call, zeros in the padding columns, two calls give
+    the same bits. Returns (max |diff| of d/dx, of fp32 d/d(dL/dy), of
+    bf16 d/d(dL/dy), cases)."""
+    import torch
+
+    from tcnn_tpu_torch.ops import sh_encode as sh
+
+    err_x, err_dy = 0.0, {torch.bfloat16: 0.0, torch.float32: 0.0}
+    n_cases = 0
+    for degree in range(1, sh.MAX_DEGREE + 1):
+        for batch in SH_BATCHES:
+            wide = torch.rand((batch, 6), generator=gen, device="cuda")
+            c = torch.randn((batch, 3), generator=gen, device="cuda")
+            for misaligned in (True, False):
+                x = wide[:, 3:] if misaligned else wide[:, :3].contiguous()
+                pad = (-degree * degree) % 8 + misaligned
+                width = pad + degree * degree
+                for dtype in (torch.bfloat16, torch.float32):
+                    flat = torch.randn((batch * width + misaligned,), generator=gen, device="cuda").to(dtype)
+                    dy = flat[misaligned:].view(batch, width)
+                    what = f"sh double backward degree {degree} B={batch} {dtype} pad {pad}"
+                    want_x, want_dy = sh.sh_backward_backward_plain(x, dy, c, degree, pad)
+                    for need_x, need_dy in ((True, True), (True, False), (False, True)):
+                        before = sh.BWDBWD_LAUNCHES
+                        got_x, got_dy = sh.sh_backward_backward(x, dy, c, degree, pad, need_x, need_dy)
+                        check(sh.BWDBWD_LAUNCHES == before + 1, f"{what}: not one launch")
+                        check((got_x is None) != need_x and (got_dy is None) != need_dy, f"{what}: need flags")
+                        if need_x:
+                            err_x = max(err_x, _sh_bwdbwd_close(got_x, want_x, torch.float32, f"{what} d/dx"))
+                        if need_dy:
+                            check(got_dy.dtype == dtype and not bool(got_dy[:, :pad].any()),
+                                  f"{what}: d/d(dL/dy) dtype or padding columns")
+                            err_dy[dtype] = max(err_dy[dtype], _sh_bwdbwd_close(got_dy, want_dy, dtype,
+                                                                                 f"{what} d/d(dL/dy)"))
+                        if need_x and need_dy:
+                            both = got_x, got_dy
+                        n_cases += 1
+                    again = sh.sh_backward_backward(x, dy, c, degree, pad)
+                    check(torch.equal(again[0], both[0]) and torch.equal(again[1], both[1]),
+                          f"{what}: two calls differ")
+    return err_x, err_dy[torch.float32], err_dy[torch.bfloat16], n_cases
+
+
+def _sh_penalty_loss(m, plain, rays):
+    """The NeRF sample's rendering loss of the module ``m`` on ``rays``
+    (its field, sigma and rgb from the raw outputs, against the analytic
+    scene) plus SH_PENALTY_WEIGHT times the mean square of d(sum of the rgb
+    outputs) / d(direction columns), taken with create_graph; through
+    ``m.apply_plain`` with ``plain``."""
+    import torch
+
+    from tcnn_tpu_torch.samples import nerf_synthetic as ns
+
+    origins, dirs, jitter = rays
+    target = ns.render(ns.gt_field, origins, dirs, jitter)
+    penalty = []
+
+    def field(pts, d):
+        dd = ((d + 1.0) * 0.5).detach().requires_grad_(True)
+        x = torch.cat([pts, dd], dim=1)
+        out = (m.apply_plain(m.params, x)[:, :4] if plain else m(x)).float()
+        (g,) = torch.autograd.grad(out[:, :3].sum(), dd, create_graph=True)
+        penalty.append((g * g).mean())
+        return torch.nn.functional.softplus(out[:, 3] - 1.0), torch.sigmoid(out[:, :3])
+
+    pred = ns.render(field, origins, dirs, jitter)
+    return ns.nerf_loss(pred, target) + SH_PENALTY_WEIGHT * penalty[0]
+
+
+def _sh_penalty_path(card):
+    """The direction-gradient penalty on the NeRF sample's own network
+    (modules.NetworkWithInputEncoding(6, 4, CONFIG's encoding and network),
+    256,480 params) at NERF_RAYS x 32 = 2^18 samples: one step's parameter
+    gradient against the same step through apply_plain, then
+    SH_PENALTY_STEPS steps of torch.optim.Adam with the counts at 0 just
+    before and read just after."""
+    import torch
+
+    from tcnn_tpu_torch import modules
+    from tcnn_tpu_torch.ops import sh_encode as sh
+    from tcnn_tpu_torch.samples import nerf_synthetic as ns
+
+    dev = torch.device("cuda")
+    m = modules.NetworkWithInputEncoding(6, 4, ns.CONFIG["encoding"], ns.CONFIG["network"], seed=SEED + 23)
+    check(m.n_params == 256480, f"sh penalty: {m.n_params} params")
+    n_net = m._model.network.n_params
+    gen = torch.Generator(device=dev).manual_seed(SEED + 24)
+    rays = ns.draw_rays(NERF_RAYS, gen, dev)
+    grads = {}
+    for plain in (False, True):
+        sh.PLAIN_BWDBWD_ON_CARD, before = 0, sh.BWDBWD_LAUNCHES
+        loss = _sh_penalty_loss(m, plain, rays)
+        (grads[plain],) = torch.autograd.grad(loss, m.params)
+        if not plain:
+            check(sh.BWDBWD_LAUNCHES == before + 1 and sh.PLAIN_BWDBWD_ON_CARD == 0,
+                  f"sh penalty: {sh.BWDBWD_LAUNCHES - before} double-backward launches and "
+                  f"{sh.PLAIN_BWDBWD_ON_CARD} plain double backwards on the card in one step")
+    got, want = grads[False], grads[True]
+    _grads_close(got, want, n_net, "sh penalty step", rtol=1e-2)
+    diff, denom = (got - want).abs(), got.abs() + want.abs()
+    rae = torch.where(denom == 0, torch.zeros_like(diff), 2 * diff / torch.where(denom == 0, 1, denom))
+    p99 = float(rae.kthvalue(max(1, int(np.ceil(0.99 * rae.numel())))).values)
+    check(p99 <= 1e-2, f"sh penalty step: p99 RAE of the parameter gradient {p99:.3e} > 1e-2")
+    opt = torch.optim.Adam([m.params], lr=1e-2, betas=(0.9, 0.99), eps=1e-15)
+    _zero_counts(SH_PENALTY_COUNTERS)
+    sh.PLAIN_BWDBWD_ON_CARD = 0
+    losses = []
+    t0 = time.perf_counter()
+    for _ in range(SH_PENALTY_STEPS):
+        loss = _sh_penalty_loss(m, False, ns.draw_rays(NERF_RAYS, gen, dev))
+        opt.zero_grad(set_to_none=True)
+        loss.backward()
+        opt.step()
+        losses.append(loss.detach())
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = _read_counts(SH_PENALTY_COUNTERS)
+    losses = torch.stack(losses).cpu().numpy()
+    check(np.isfinite(losses).all() and bool(m.params.isfinite().all()), "sh penalty: non-finite loss or params")
+    check(float(losses[-1]) < float(losses[0]), f"sh penalty: loss {losses[0]:.4e} -> {losses[-1]:.4e}")
+    for k, v in launches.items():
+        check(v > 0, f"sh penalty: kernel {k} was not launched")
+    check(launches["sh_encode_backward_backward"] == SH_PENALTY_STEPS,
+          f"sh penalty: {launches['sh_encode_backward_backward']} double-backward launches in {SH_PENALTY_STEPS} steps")
+    check(sh.PLAIN_BWDBWD_ON_CARD == 0, f"sh penalty: {sh.PLAIN_BWDBWD_ON_CARD} plain double backwards on the card")
+    log(f"sh penalty [{card}]: the NeRF sample's network (modules.NetworkWithInputEncoding, 256,480 params) at "
+        f"{NERF_RAYS} rays x {ns.N_SAMPLES} samples, rendering loss + {SH_PENALTY_WEIGHT} mean |d rgb / d dir|^2 "
+        f"(create_graph), torch.optim.Adam lr 1e-2: one step's parameter gradient kernel vs apply_plain p99 RAE "
+        f"{p99:.3e} ({SH_PENALTY_TOL_NOTE}); {SH_PENALTY_STEPS} steps, loss {', '.join(f'{v:.4e}' for v in losses)}, "
+        f"{wall / SH_PENALTY_STEPS * 1e3:.2f} ms a step (host clock, first step included); kernel launches (counts "
+        f"at 0 just before, read just after) {launches}; plain double backwards on the card: "
+        f"{sh.PLAIN_BWDBWD_ON_CARD}")
+    return {"launches": launches, "p99": p99, "ms": wall / SH_PENALTY_STEPS * 1e3}
+
+
 def phase_sh_kernel(card):
     import torch
 
@@ -2574,7 +2758,31 @@ def phase_sh_kernel(card):
             f"events over 10 calls, median of plain, kernel, kernel, plain: the wrapper's host time); plain "
             f"{p:.4f} ms; bound {b:.4f} ms "
             f"({bounds[what][1]}); no single PyTorch call computes the SH basis")
-    return {"err_fwd": err_fwd, "err_bwd": err_bwd, "times": out, "routes": routes}
+    err_x, err_dy, err_dy16, n_bb = _sh_bwdbwd_check(gen)
+    log(f"kernel sh_encode: tcnn_sh_backward_backward vs autograd of the plain vjp, degrees 1-8 x B in {SH_BATCHES} x "
+        f"(a strided (B, 6)[:, 3:] input with a dL/dy 4 or 2 bytes past a 16-byte boundary; a contiguous one) x bf16 "
+        f"and fp32 dL/dy x need (x, dL/dy), x, dL/dy ({n_bb} calls): d/dx max|diff| {err_x:.3e}, fp32 d/d(dL/dy) "
+        f"{err_dy:.3e}, bf16 d/d(dL/dy) {err_dy16:.3e} (its bf16 rounding included); padding columns 0; two calls "
+        f"give the same bits; tolerance: {SH_BWDBWD_TOL_NOTE}")
+    penalty = _sh_penalty_path(card)
+    for name, (degree, pad, dtype_name, _) in sh_times.BWDBWD_SHAPES.items():
+        d = dev_t[f"double_backward {name}"]
+        itemsize = 2 if dtype_name == "bfloat16" else 4
+        b = bound(B * sh_times.bwdbwd_bytes(degree, pad, itemsize), B * sh_times.bwdbwd_ops(degree), "fp32")
+        out[f"bwdbwd {name}"] = {"kernel": d["kernel_cold_ms"], "plain": d["plain_ms"], "bound": b, "library": None,
+                                 "call_ms": d["kernel_call_ms"], "warm_ms": d["kernel_warm_ms"],
+                                 "autograd_ms": d["autograd_cold_ms"]}
+        log(f"time [{card}]: tcnn_sh_backward_backward B=2^18, degree {degree}, {pad} pad columns, {dtype_name} "
+            f"dL/dy: device ms (the kernel under torch.profiler) cold {d['kernel_cold_ms']:.4f} "
+            f"({b[0] / d['kernel_cold_ms']:.2f} of the bound), warm {d['kernel_warm_ms']:.4f}; call ms "
+            f"{d['kernel_call_ms']:.4f}; torch.autograd.grad of ShBackwardFunction's dL/dx in (x, dL/dy), every device "
+            f"op of the call: cold {d['autograd_cold_ms']:.4f}, warm {d['autograd_warm_ms']:.4f}, call "
+            f"{d['autograd_call_ms']:.4f}; plain (sh_backward_backward_plain) {d['plain_ms']:.4f} ms; bound "
+            f"{b[0]:.4f} ms ({b[1]}: {B * sh_times.bwdbwd_bytes(degree, pad, itemsize) / 1e6:.1f} MB, "
+            f"{B * sh_times.bwdbwd_ops(degree) / 1e6:.0f} M fp32 operations); no PyTorch call differentiates the SH "
+            f"basis twice")
+    return {"err_fwd": err_fwd, "err_bwd": err_bwd, "err_bwdbwd": max(err_x, err_dy), "times": out, "routes": routes,
+            "penalty": penalty}
 
 
 def _nerf_grid_check(grid, pts, gen):
@@ -2928,7 +3136,7 @@ def _extra_path(name, cfg, card, image, gen):
 
     m = tt.create_from_config(2, 3, cfg, seed=SEED, device="cuda")
     if name == "perturbation_sigma":
-        m.trainer = tt.Trainer(m.model, cfg["loss"], cfg["optimizer"], seed=SEED, perturbation_sigma=0.1)
+        m.trainer = tt.Trainer(m.model, cfg["optimizer"], cfg["loss"], seed=SEED, perturbation_sigma=0.1)
     data = _image_batches(image, gen, EXTRA_FIT_STEPS, B_FLAG)
     fixed = name == "fixed_point_pos"
     if fixed:
@@ -4492,7 +4700,6 @@ def main() -> int:
         return out
 
     from tcnn_tpu_torch.ops import grid_encode as ge
-    from tcnn_tpu_torch.ops import sh_encode
 
     kernels = [
         entry("ffmlp_fwd", "ffmlp_fwd.cu", "tcnn_tpu/ops/ffmlp.py:271", launches["ffmlp_fwd"], k1["err"], "k1",
@@ -4526,22 +4733,28 @@ def main() -> int:
     ]
     # The SH rows: ms is the cold device time (call_ms beside it); routes:
     # the NeRF run's launches by route for the forward, the check's for the
-    # input gradient.
+    # input gradient; the input gradient's and the double backward's
+    # launches from the direction-penalty steps.
     sh_rows = [
         entry("sh_encode", "sh_encode.cu", "tcnn_tpu/encodings/spherical_harmonics.py:106",
               nerf["launches"]["sh_encode"], ksh["err_fwd"], None, "NeRF sample", ksh["times"]["fwd"]),
         entry("sh_encode_backward_input", "sh_encode.cu", "tcnn_tpu/encodings/spherical_harmonics.py:106",
-              sh_encode.BWD_LAUNCHES, ksh["err_bwd"], None,
-              "kernel check only (no path of the NeRF sample differentiates directions; launches: the check's "
-              "and the timings')",
+              ksh["penalty"]["launches"]["sh_encode_backward_input"], ksh["err_bwd"], None, SH_PENALTY_PATH,
               ksh["times"]["bwd"]),
     ]
+    sh_rows.append(entry(
+        "sh_encode_backward_backward", "sh_encode.cu", "tcnn_tpu/encodings/spherical_harmonics.py:106",
+        ksh["penalty"]["launches"]["sh_encode_backward_backward"], ksh["err_bwdbwd"], None, SH_PENALTY_PATH,
+        ksh["times"]["bwdbwd nerf"]))
     sh_rows[0]["routes"] = {"vector": nerf["launches"]["sh_encode vector"],
                             "staged": nerf["launches"]["sh_encode"] - nerf["launches"]["sh_encode vector"]}
     sh_rows[1]["routes"] = {w: ksh["routes"].get(f"backward {w}", 0) for w in ("vector", "staged")}
-    for row, what in zip(sh_rows, ("fwd", "bwd")):
+    for row, what in zip(sh_rows, ("fwd", "bwd", "bwdbwd nerf")):
         row.update(device_ms=ksh["times"][what]["kernel"], call_ms=ksh["times"][what]["call_ms"],
                    warm_device_ms=ksh["times"][what]["warm_ms"])
+    sh_rows[2].update(autograd_device_ms=ksh["times"]["bwdbwd nerf"]["autograd_ms"],
+                      degree_8_fp32=ksh["times"]["bwdbwd degree 8 fp32"],
+                      library_note="none: no PyTorch call differentiates the SH basis twice")
     kernels += sh_rows
     # The grid extras' modes of the lookup and the table gradient; launches
     # from each extra's own path (training_steps with the Rng hash, with

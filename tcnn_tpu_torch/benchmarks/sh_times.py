@@ -29,6 +29,17 @@ positions' 32-byte sectors, 24 bytes a row, and the whole 32-byte dL/dy
 rows) and that of three yardsticks over the same ring, PyTorch's own
 kernels: ``copy_`` of the (B, 16) bf16 rows, ``fill_`` of such rows and
 ``clone`` of the strided positions.
+The double backward (the input gradient's vjp, which a penalty on dL/dx
+differentiates) is timed two ways: as the call a user makes, ``torch.
+autograd.grad`` of ``ShBackwardFunction``'s dL/dx in (positions, dL/dy)
+with a cotangent c (every device op of the call under the profiler, so
+that a checkout whose second order is autograd of the plain vjp is timed
+the same way), and, where the checkout has it, the kernel
+``tcnn_sh_backward_backward`` alone through ``sh_backward_backward``,
+beside its plain version; at the NeRF shapes and at degree 8 with fp32
+dL/dy and no padding (2^18 rows of 64 columns), each beside its bound (the
+positions, the SH columns of dL/dy and c read, d/dx and the whole
+d/d(dL/dy) row written; the operations ``bwdbwd_ops`` counts).
 With ``--ptxas`` the ``sh_encode`` library's registers and spills for every
 kernel (degrees 1-8, each route). With ``--nerf S1,S2`` the NeRF sample
 (``samples.nerf_synthetic 600 8192 --seed S``) for each seed: ms a step and
@@ -62,6 +73,30 @@ BYTES = {"forward": BATCH * (12 + 2 * WIDTH), "backward": BATCH * (12 + 2 * DEGR
 # What each call moves to and from HBM when cold: the 32-byte sectors of
 # the (B, 6) rows (24 bytes a row), the whole dL/dy rows, the outputs.
 SECTOR_BYTES = {"forward": BATCH * (24 + 2 * WIDTH), "backward": BATCH * (24 + 2 * WIDTH + 12)}
+PEAK_FP32_OPS_S = 67e12  # one H100 SXM, fp32 outside the tensor cores
+# The double backward's two shapes: (degree, padding columns, dL/dy dtype
+# name, strided positions).
+BWDBWD_SHAPES = {"nerf": (DEGREE, PAD, "bfloat16", True), "degree 8 fp32": (8, 0, "float32", False)}
+
+
+def bwdbwd_bytes(degree: int, pad: int, itemsize: int) -> int:
+    """Bytes a double-backward row must move: the 12-byte position, the
+    degree^2 SH columns of dL/dy and the 12-byte c read; the 12-byte d/dx
+    and the whole (pad + degree^2) row of d/d(dL/dy) written."""
+    return 12 + itemsize * degree * degree + 12 + 12 + itemsize * (pad + degree * degree)
+
+
+def bwdbwd_ops(degree: int) -> int:
+    """fp32 operations a row of ``tcnn_sh_backward_backward`` does, counted
+    from its loops: 6 for each A_m, B_m; for each m the recurrences (3 at l
+    = m + 1, 18 for q, q', q'' at each l >= m + 2), 16 for the first and
+    second partials and J's (c_x, c_y) columns, 24 for each l (the six
+    Hessian sums and two d(dL/dy) values), 33 for the m's share of H c; 9
+    for the factors and the remap."""
+    ops = 6 * (degree - 1) + 9
+    for m in range(degree):
+        ops += (3 if m + 1 < degree else 0) + 18 * max(degree - m - 2, 0) + 16 + 24 * (degree - m) + 33
+    return ops
 
 
 def _rotating(call, sets):
@@ -146,7 +181,62 @@ def times(reps: int = 50, seed: int = 7) -> dict:
         rec["cold_tb_s"] = rec["sector_bytes"] / rec["cold_ms"] / 1e9
     out["event_floor_ms"] = device_ms(lambda: torch.cuda._sleep(1), dev, reps)
     out["routes"] = dict((f"{k[0]} {k[1]}", v) for k, v in getattr(sh, "ROUTE_LAUNCHES", {}).items())
+    for name, shape in BWDBWD_SHAPES.items():
+        out[f"double_backward {name}"] = double_backward_times(*shape, seed=seed)
     return out
+
+
+def double_backward_times(degree: int, pad: int, dtype_name: str, strided: bool, seed: int = 7) -> dict:
+    """The double backward at 2^18 rows: {"autograd_cold_ms",
+    "autograd_warm_ms" (every device op of ``torch.autograd.grad`` of
+    ``ShBackwardFunction``'s dL/dx in (positions, dL/dy) with cotangent c,
+    under the profiler), "autograd_call_ms" (CUDA events over 10 calls),
+    and, where the checkout has ``sh_backward_backward``, "kernel_cold_ms",
+    "kernel_warm_ms", "kernel_call_ms", "plain_ms" (its plain version's call
+    time); "bound_ms", "bound_by", "bytes", "ops"}; cold: a ring of
+    ``RING`` input sets."""
+    import torch
+
+    from ..ops import sh_encode as sh
+    from .grid_ab_times import _event_ms
+
+    dev = torch.device("cuda")
+    dtype = getattr(torch, dtype_name)
+    width = pad + degree * degree
+    gen = torch.Generator(device=dev).manual_seed(seed + degree)
+    sets = []
+    for _ in range(RING):
+        wide = torch.rand((BATCH, 6), generator=gen, device=dev)
+        x = wide[:, 3:] if strided else wide[:, :3].contiguous()
+        dy = torch.randn((BATCH, width), generator=gen, device=dev).to(dtype)
+        sets.append((x, dy, torch.randn((BATCH, 3), generator=gen, device=dev)))
+    graphs = []
+    for x, dy, c in sets:
+        xl, dyl = x.detach().requires_grad_(True), dy.detach().requires_grad_(True)
+        with torch.enable_grad():
+            graphs.append((sh.ShBackwardFunction.apply(xl, dyl, degree, pad, False), xl, dyl, c))
+    itemsize = torch.empty((), dtype=dtype).element_size()
+    n_bytes, ops = BATCH * bwdbwd_bytes(degree, pad, itemsize), BATCH * bwdbwd_ops(degree)
+    bound_bytes, bound_ops = n_bytes / HBM_BYTES_S * 1e3, ops / PEAK_FP32_OPS_S * 1e3
+    rec = {"bytes": n_bytes, "ops": ops, "bound_ms": max(bound_bytes, bound_ops),
+           "bound_by": "bytes" if bound_bytes >= bound_ops else "operations"}
+
+    def autograd_call(dx, xl, dyl, c):
+        return torch.autograd.grad(dx, (xl, dyl), c, retain_graph=True)
+
+    cold, warm = _rotating(autograd_call, graphs), _rotating(autograd_call, graphs[:1])
+    rec.update(autograd_cold_ms=_kernel_ms(cold, 4 * RING, ""), autograd_warm_ms=_kernel_ms(warm, 4 * RING, ""),
+               autograd_call_ms=_event_ms(warm, iters=10))
+    if hasattr(sh, "sh_backward_backward"):
+        with torch.no_grad():
+            call = lambda x, dy, c: sh.sh_backward_backward(x, dy, c, degree, pad)  # noqa: E731
+            cold, warm = _rotating(call, sets), _rotating(call, sets[:1])
+            rec.update(kernel_cold_ms=_kernel_ms(cold, 4 * RING, "sh_backward_backward"),
+                       kernel_warm_ms=_kernel_ms(warm, 4 * RING, "sh_backward_backward"),
+                       kernel_call_ms=_event_ms(warm, iters=10),
+                       plain_ms=_event_ms(lambda: sh.sh_backward_backward_plain(*sets[0], degree, pad), iters=3))
+        rec["share_cold"] = rec["bound_ms"] / rec["kernel_cold_ms"]
+    return rec
 
 
 def ptxas() -> dict:

@@ -11,28 +11,27 @@ from typing import Dict
 
 import torch
 
+from .losses import Loss
 from .network_with_input_encoding import NetworkWithInputEncoding
+from .optimizers import Optimizer
 from .trainer import Trainer
 
 
 @dataclass
 class TrainableModel:
+    """The JAX package's ``TrainableModel`` (tcnn_tpu/config.py:27-31):
+    the model, its trainer, and the trainer's loss and optimizer."""
+
     model: NetworkWithInputEncoding
     trainer: Trainer
+    loss: Loss
+    optimizer: Optimizer
 
     def training_step(self, inputs, targets, data_pdf=None):
         return self.trainer.training_step(inputs, targets, data_pdf)
 
     def inference(self, inputs) -> torch.Tensor:
         return self.trainer.inference(inputs)
-
-    @property
-    def loss(self):
-        return self.trainer.loss
-
-    @property
-    def optimizer(self):
-        return self.trainer.optimizer
 
     @property
     def params(self) -> torch.Tensor:
@@ -96,11 +95,14 @@ def create_from_config(
     config: Dict,
     seed: int = 1337,
     precision=None,
+    split_grid_state: bool = False,
     device=None,
 ) -> TrainableModel:
     """The model, loss, optimizer and trainer of ``config`` on ``device``
     (default: the CUDA card, ``common.default_device``; ``"cpu"`` runs the
-    kernels' plain versions on the CPU)."""
+    kernels' plain versions on the CPU). The parameters before ``device``
+    are the JAX package's, in its order; ``split_grid_state=True`` raises,
+    as ``Trainer`` does."""
     model = NetworkWithInputEncoding(
         n_input_dims,
         n_output_dims,
@@ -109,5 +111,6 @@ def create_from_config(
         precision=precision,
         device=device,
     )
-    trainer = Trainer(model, config.get("loss", {}), config.get("optimizer", {}), seed=seed)
-    return TrainableModel(model=model, trainer=trainer)
+    trainer = Trainer(model, config.get("optimizer", {}), config.get("loss", {}), seed=seed,
+                      split_grid_state=split_grid_state)
+    return TrainableModel(model=model, trainer=trainer, loss=trainer.loss, optimizer=trainer.optimizer)

@@ -63,6 +63,23 @@
 // Positions are read with a row stride, so a column slice of a wider input
 // needs no copy. Both routes compute the same values in the same order, so
 // the forward's two routes give the same bits.
+//
+// tcnn_sh_backward_backward is the input gradient's own vjp, which a loss
+// on dL/dx (a penalty on a gradient with respect to the directions)
+// differentiates: given the cotangent c of dL/dx it writes d(dL/dy) = 2 J c
+// (zeros in the padding columns) and d(x) = 4 sum_j g_j H_j c, J the
+// Jacobian and H_j the Hessians of the SH values in the remapped position,
+// g the SH columns of dL/dy. Holomorphy of (x + iy)^m gives the second
+// partials of A_m, B_m in closed form (d2A_m/dx2 = -d2A_m/dy2 = m (m-1)
+// A_{m-2}, d2A_m/dxdy = -m (m-1) B_{m-2}, and the same with B, A for B_m),
+// and q'' follows from the recurrence of q' differentiated once more, so a
+// thread holds q, q', q'' and A, B of its row in registers. The design is
+// the staged route's: a block of 128 rows stages the SH columns of dL/dy in
+// shared memory; each thread replaces its row's values by its d(dL/dy)
+// values in place as it reads them; the block then writes its (128,
+// padded_width) tile in one flat, coalesced loop. The compile-time flags
+// NEED_X and NEED_DY skip the output not asked for (without NEED_X dL/dy
+// is not read at all: d(dL/dy) does not depend on it).
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -272,6 +289,139 @@ __global__ void __launch_bounds__(kThreads)
   o[0] = d.x;
   o[1] = d.y;
   o[2] = d.z;
+}
+
+// The input gradient's vjp at the position (x0, y0, z0) in [-1, 1]^3 with
+// the cotangent (cx, cy, cz) of dL/dx: returns sum_j g_j H_j c (without the
+// remap's factor 4) from the degree^2 SH columns of dL/dy in row[] (read
+// only with NEED_X), and with NEED_DY replaces row[j] by 2 (J c)_j. The
+// Hessian terms are summed over l first, for each m: with Q = sum_l q_l K
+// g_l, D = sum_l q'_l K g_l and E = sum_l q''_l K g_l (one of each for the
+// A and the B columns), the m's share of H c is Q (A_xx c_x + A_xy c_y) + D
+// A_x c_z in x, Q (A_xy c_x - A_xx c_y) + D A_y c_z in y and D (A_x c_x +
+// A_y c_y) + E A c_z in z, and the same with B.
+template <int DEG, bool NEED_X, bool NEED_DY>
+__device__ __forceinline__ float3 sh_second_order(float x0, float y0, float z0, float cx, float cy, float cz,
+                                                  float* row) {
+  float a[DEG], b[DEG];
+  a[0] = 1.0f;
+  b[0] = 0.0f;
+#pragma unroll
+  for (int m = 1; m < DEG; ++m) {
+    a[m] = x0 * a[m - 1] - y0 * b[m - 1];
+    b[m] = x0 * b[m - 1] + y0 * a[m - 1];
+  }
+  float hx = 0.0f, hy = 0.0f, hz = 0.0f;
+#pragma unroll
+  for (int m = 0; m < DEG; ++m) {
+    float q[DEG], dq[DEG], ddq[DEG];  // q_l^m and its first two derivatives in z
+    q[m] = qmm(m);
+    dq[m] = 0.0f;
+    ddq[m] = 0.0f;
+    if (m + 1 < DEG) {
+      q[m + 1] = static_cast<float>(2 * m + 1) * z0 * q[m];
+      dq[m + 1] = static_cast<float>(2 * m + 1) * q[m];
+      ddq[m + 1] = 0.0f;
+    }
+#pragma unroll
+    for (int l = m + 2; l < DEG; ++l) {
+      const float inv = 1.0f / static_cast<float>(l - m);
+      const float k1 = static_cast<float>(2 * l - 1), k2 = static_cast<float>(l + m - 1);
+      q[l] = (k1 * z0 * q[l - 1] - k2 * q[l - 2]) * inv;
+      dq[l] = (k1 * (q[l - 1] + z0 * dq[l - 1]) - k2 * dq[l - 2]) * inv;
+      ddq[l] = (k1 * (2.0f * dq[l - 1] + z0 * ddq[l - 1]) - k2 * ddq[l - 2]) * inv;
+    }
+    // First partials of A_m, B_m (as sh_input_grad), and second partials:
+    // A_xx = m (m-1) A_{m-2} = -A_yy, A_xy = -m (m-1) B_{m-2}; B_xx = m (m-1)
+    // B_{m-2} = -B_yy, B_xy = m (m-1) A_{m-2}.
+    const float fm = static_cast<float>(m), fmm = static_cast<float>(m * (m - 1));
+    const float ax = m ? fm * a[m - 1] : 0.0f, ay = m ? -fm * b[m - 1] : 0.0f;
+    const float bx = m ? fm * b[m - 1] : 0.0f, by = m ? fm * a[m - 1] : 0.0f;
+    const float axx = m >= 2 ? fmm * a[m - 2] : 0.0f, axy = m >= 2 ? -fmm * b[m - 2] : 0.0f;
+    const float bxx = m >= 2 ? fmm * b[m - 2] : 0.0f, bxy = m >= 2 ? fmm * a[m - 2] : 0.0f;
+    // J's A and B columns applied to (cx, cy): the same for every l.
+    const float pa = ax * cx + ay * cy, pb = bx * cx + by * cy;
+    float qa = 0.0f, qb = 0.0f, da = 0.0f, db = 0.0f, ea = 0.0f, eb = 0.0f;
+#pragma unroll
+    for (int l = m; l < DEG; ++l) {
+      const float k = kCoef[coef_index(l, m)];
+      if (m == 0) {
+        if (NEED_X) {
+          const float gp = row[l * l + l] * k;
+          da += dq[l] * gp;
+          ea += ddq[l] * gp;
+        }
+        if (NEED_DY) row[l * l + l] = 2.0f * k * (dq[l] * cz);
+      } else {
+        if (NEED_X) {
+          const float gp = row[l * l + l + m] * k, gn = row[l * l + l - m] * k;
+          qa += q[l] * gp;
+          qb += q[l] * gn;
+          da += dq[l] * gp;
+          db += dq[l] * gn;
+          ea += ddq[l] * gp;
+          eb += ddq[l] * gn;
+        }
+        if (NEED_DY) {
+          row[l * l + l + m] = 2.0f * k * (q[l] * pa + dq[l] * a[m] * cz);
+          row[l * l + l - m] = 2.0f * k * (q[l] * pb + dq[l] * b[m] * cz);
+        }
+      }
+    }
+    if (NEED_X) {
+      hx += qa * (axx * cx + axy * cy) + qb * (bxx * cx + bxy * cy) + (da * ax + db * bx) * cz;
+      hy += qa * (axy * cx - axx * cy) + qb * (bxy * cx - bxx * cy) + (da * ay + db * by) * cz;
+      hz += da * pa + db * pb + (ea * a[m] + eb * b[m]) * cz;
+    }
+  }
+  return make_float3(hx, hy, hz);
+}
+
+template <int DEG, bool NEED_X, bool NEED_DY>
+__global__ void __launch_bounds__(kThreads)
+    sh_backward_backward_kernel(const float* __restrict__ x, int64_t x_stride, const void* __restrict__ dy,
+                                int64_t dy_stride, int dy_bf16, const float* __restrict__ c, int64_t c_stride,
+                                float* __restrict__ d_x, void* __restrict__ d_dy, int64_t batch, int n_to_pad,
+                                int padded_width) {
+  constexpr int D2 = DEG * DEG;
+  constexpr int S = stage_stride<DEG>();
+  __shared__ float stage[kThreads * S];
+  const int64_t row0 = static_cast<int64_t>(blockIdx.x) * kThreads;
+  const int rows = static_cast<int>(min(static_cast<int64_t>(kThreads), batch - row0));
+  const int t = threadIdx.x;
+  if (NEED_X) {
+    for (int i = t; i < rows * D2; i += kThreads) {
+      const int r = i / D2;
+      const int col = i - r * D2;
+      stage[r * S + col] = load_value(dy, (row0 + r) * dy_stride + n_to_pad + col, dy_bf16);
+    }
+    __syncthreads();
+  }
+  if (t < rows) {
+    const float* p = x + (row0 + t) * x_stride;
+    const float* q = c + (row0 + t) * c_stride;
+    const float3 h =
+        sh_second_order<DEG, NEED_X, NEED_DY>(remap(p[0]), remap(p[1]), remap(p[2]), q[0], q[1], q[2], stage + t * S);
+    if (NEED_X) {
+      // d(2x - 1) / dx = 2, once for each of the two derivatives.
+      float* o = d_x + (row0 + t) * 3;
+      o[0] = 4.0f * h.x;
+      o[1] = 4.0f * h.y;
+      o[2] = 4.0f * h.z;
+    }
+  }
+  if (NEED_DY) {
+    __syncthreads();
+    // The block's d(dL/dy) rows are one contiguous span of rows *
+    // padded_width, zeros in the padding columns.
+    const int total = rows * padded_width;
+    const int64_t base = row0 * padded_width;
+    for (int i = t; i < total; i += kThreads) {
+      const int r = i / padded_width;
+      const int col = i - r * padded_width;
+      store_value(d_dy, base + i, col < n_to_pad ? 0.0f : stage[r * S + (col - n_to_pad)], dy_bf16);
+    }
+  }
 }
 
 // The vector route's row layout: V values a 16-byte vector; a row of
@@ -487,6 +637,31 @@ struct LaunchBackward {
   }
 };
 
+template <int DEG>
+struct LaunchBackwardBackward {
+  template <bool NEED_X, bool NEED_DY>
+  static cudaError_t go(const float* x, int64_t x_stride, const void* dy, int64_t dy_stride, int dy_bf16,
+                        const float* c, int64_t c_stride, float* d_x, void* d_dy, int64_t batch, int n_to_pad,
+                        int padded_width, cudaStream_t stream) {
+    const int64_t blocks = (batch + kThreads - 1) / kThreads;
+    sh_backward_backward_kernel<DEG, NEED_X, NEED_DY><<<static_cast<unsigned>(blocks), kThreads, 0, stream>>>(
+        x, x_stride, dy, dy_stride, dy_bf16, c, c_stride, d_x, d_dy, batch, n_to_pad, padded_width);
+    return cudaGetLastError();
+  }
+  static cudaError_t run(const float* x, int64_t x_stride, const void* dy, int64_t dy_stride, int dy_bf16,
+                         const float* c, int64_t c_stride, float* d_x, void* d_dy, int64_t batch, int n_to_pad,
+                         int padded_width, int need_x, int need_dy, cudaStream_t stream) {
+    if (need_x && need_dy)
+      return go<true, true>(x, x_stride, dy, dy_stride, dy_bf16, c, c_stride, d_x, d_dy, batch, n_to_pad,
+                            padded_width, stream);
+    if (need_x)
+      return go<true, false>(x, x_stride, dy, dy_stride, dy_bf16, c, c_stride, d_x, d_dy, batch, n_to_pad,
+                             padded_width, stream);
+    return go<false, true>(x, x_stride, dy, dy_stride, dy_bf16, c, c_stride, d_x, d_dy, batch, n_to_pad,
+                           padded_width, stream);
+  }
+};
+
 // The vector route's kernels, bf16 or fp32 rows. The entry points have
 // checked that a row is a whole number of vectors (so n_to_pad mod V is the
 // layout's kShift) and that the row-vector tensor is 16-byte aligned.
@@ -588,4 +763,21 @@ extern "C" int tcnn_sh_backward_input_vector(const float* x, int64_t x_stride, c
     return cudaErrorInvalidValue;
   return dispatch_degree<LaunchBackwardVector>(degree, x, x_stride, dy, dy_bf16, dx, batch, n_to_pad, padded_width,
                                                stream);
+}
+
+// The input gradient's vjp: with the cotangent c (batch, 3) fp32 of dL/dx
+// (row stride c_stride), d_x (batch, 3) fp32 contiguous = the gradient in x
+// (need_x), and d_dy (batch, padded_width) contiguous, in dL/dy's type =
+// the gradient in dL/dy, zeros in the padding columns (need_dy). dL/dy
+// (bf16 or fp32, row stride dy_stride, its padding columns not read) is
+// read only for d_x. At least one of need_x and need_dy must be set.
+extern "C" int tcnn_sh_backward_backward(const float* x, int64_t x_stride, const void* dy, int64_t dy_stride,
+                                         int dy_bf16, const float* c, int64_t c_stride, float* d_x, void* d_dy,
+                                         int64_t batch, int degree, int n_to_pad, int padded_width, int need_x,
+                                         int need_dy, cudaStream_t stream) {
+  if (!shape_ok(batch, degree, n_to_pad, padded_width) || x_stride < 3 || c_stride < 3 || !(need_x || need_dy) ||
+      (need_x && (d_x == nullptr || dy == nullptr || dy_stride < padded_width)) || (need_dy && d_dy == nullptr))
+    return cudaErrorInvalidValue;
+  return dispatch_degree<LaunchBackwardBackward>(degree, x, x_stride, dy, dy_stride, dy_bf16, c, c_stride, d_x, d_dy,
+                                                 batch, n_to_pad, padded_width, need_x, need_dy, stream);
 }

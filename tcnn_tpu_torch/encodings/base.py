@@ -14,7 +14,22 @@ import torch
 from torch import nn
 
 from ..common import default_network_precision, next_multiple
+from ..utils.log import log_info
 from ..utils.sampling import raster_centers_torch
+
+# The (call, argument) pairs already logged by ignore_tpu_arguments.
+_IGNORED_LOGGED: set = set()
+
+
+def ignore_tpu_arguments(where: str, **arguments) -> None:
+    """Log once per call site and name that an argument of the JAX
+    package's signature that picks a TPU path of the same function (a
+    prebuilt serving table, a raster hint) was given and is ignored, as the
+    TPU execution-strategy keys of a config are."""
+    for name, value in arguments.items():
+        if value is not None and (where, name) not in _IGNORED_LOGGED:
+            _IGNORED_LOGGED.add((where, name))
+            log_info(f"{where}: the TPU path argument {name!r} is ignored by the port (the same function)")
 
 
 class Encoding(nn.Module):

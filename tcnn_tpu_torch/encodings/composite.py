@@ -18,7 +18,7 @@ import torch
 from torch import nn
 
 from ..common import ReductionType, json_value, lcm_list, next_multiple, string_to_reduction_type
-from .base import Encoding
+from .base import Encoding, ignore_tpu_arguments
 
 
 class CompositeEncoding(Encoding):
@@ -161,13 +161,19 @@ class CompositeEncoding(Encoding):
                 y = y * o
         return y.to(self.output_dtype)
 
-    def apply(self, params: torch.Tensor, x: torch.Tensor, table_dtype: Optional[str] = None) -> torch.Tensor:
-        """Encode ``x`` (batch, n_dims_to_encode); ``table_dtype`` is the
-        serve-time precision ``FrozenServer`` passes, forwarded to the
-        nested grids."""
+    def apply(self, params: torch.Tensor, x: torch.Tensor, served_tables=None,
+              table_dtype: Optional[str] = None) -> torch.Tensor:
+        """Encode ``x`` (batch, n_dims_to_encode): the JAX package's
+        ``apply(params, x, served_tables=None)`` (tcnn_tpu/encodings/
+        composite.py:167), ``served_tables`` accepted and ignored; then
+        ``table_dtype``, the serve-time precision ``FrozenServer`` passes,
+        forwarded to the nested grids."""
+        ignore_tpu_arguments("CompositeEncoding.apply", served_tables=served_tables)
         return self._combine(params, x, False, table_dtype)
 
-    def apply_plain(self, params: torch.Tensor, x: torch.Tensor, table_dtype: Optional[str] = None) -> torch.Tensor:
+    def apply_plain(self, params: torch.Tensor, x: torch.Tensor, served_tables=None,
+                    table_dtype: Optional[str] = None) -> torch.Tensor:
+        ignore_tpu_arguments("CompositeEncoding.apply_plain", served_tables=served_tables)
         return self._combine(params, x, True, table_dtype)
 
     def n_nested(self) -> int:

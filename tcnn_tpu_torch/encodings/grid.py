@@ -50,7 +50,7 @@ from ..ops import grid_encode as ge
 from ..ops import scatter_rows as sr
 from ..utils.log import log_info
 from ..utils.sampling import raster_centers_torch
-from .base import Encoding
+from .base import Encoding, ignore_tpu_arguments
 
 # Hash factors (reference: common_device.h:782-795).
 _PRIME_FACTORS = (1958374283, 2654435761, 805459861, 3674653429, 2097192037, 1434869437, 2165219737)
@@ -186,11 +186,15 @@ class GridEncoding(Encoding):
         log2_hashmap_size: int = 19,
         base_resolution: int = 16,
         per_level_scale: float = 2.0,
+        stochastic_interpolation: bool = False,
         interpolation_type: InterpolationType = InterpolationType.Linear,
         grid_type: GridType = GridType.Hash,
         hash_type: HashType = HashType.CoherentPrime,
         n_features_per_level: int = 2,
+        fixed_point_pos: bool = False,
     ):
+        """The JAX package's parameters in its order
+        (tcnn_tpu/encodings/grid.py:165-178)."""
         super().__init__(n_dims_to_encode)
         if n_dims_to_encode < 1 or n_dims_to_encode > 10:
             raise ValueError("GridEncoding supports 1..10 input dims")
@@ -247,10 +251,10 @@ class GridEncoding(Encoding):
         # Stochastic interpolation: the table gradient of a call given
         # ``rng`` goes to one sampled corner per (sample, level); the
         # forward and the input gradient stay the deterministic ones.
-        self.stochastic_interpolation = False
+        self.stochastic_interpolation = bool(stochastic_interpolation)
         # Positions given as uint32 fixed point spanning [0, 1) (reference:
         # grid.h:1143-1151).
-        self.fixed_point_pos = False
+        self.fixed_point_pos = bool(fixed_point_pos)
         self._level_tables: Dict[tuple, torch.Tensor] = {}
         self._class_tables: Dict[tuple, tuple] = {}
 
@@ -630,9 +634,15 @@ class GridEncoding(Encoding):
             self._class_tables[key] = hit
         return hit
 
-    def apply(self, params: torch.Tensor, x: torch.Tensor, table_dtype: Optional[str] = None,
-              stratified: Optional[bool] = None, max_level: Optional[float] = None, rng=None) -> torch.Tensor:
-        """Encode positions ``x`` (batch, n_dims) to (batch,
+    def apply(self, params: torch.Tensor, x: torch.Tensor, max_level: Optional[float] = None, rng=None,
+              stratified: Optional[bool] = None, raster_side=None, served_tables=None,
+              table_dtype: Optional[str] = None) -> torch.Tensor:
+        """The JAX package's ``apply`` (tcnn_tpu/encodings/grid.py:1354-1363),
+        its parameters in its order, then the port's ``table_dtype``.
+        ``raster_side`` and ``served_tables`` pick TPU paths of the same
+        function; they are accepted and ignored (``ignore_tpu_arguments``).
+
+        Encode positions ``x`` (batch, n_dims) to (batch,
         padded_output_width) in ``output_dtype``: fp32 positions, or uint32
         ones spanning [0, 1) under ``fixed_point_pos`` (any other dtype
         raises ``TypeError`` there, as in the JAX package). The encoding's
@@ -659,13 +669,16 @@ class GridEncoding(Encoding):
         (``ops.grid_encode``: the lookup, table-gradient, input-gradient and
         double-backward kernels on the card, their plain versions on the
         CPU)."""
+        ignore_tpu_arguments("GridEncoding.apply", raster_side=raster_side, served_tables=served_tables)
         return self._encode(params, x, table_dtype, plain=False, stratified=stratified, max_level=max_level,
                             rng=rng)
 
-    def apply_plain(self, params: torch.Tensor, x: torch.Tensor, table_dtype: Optional[str] = None,
-                    stratified: Optional[bool] = None, max_level: Optional[float] = None, rng=None) -> torch.Tensor:
+    def apply_plain(self, params: torch.Tensor, x: torch.Tensor, max_level: Optional[float] = None, rng=None,
+                    stratified: Optional[bool] = None, raster_side=None, served_tables=None,
+                    table_dtype: Optional[str] = None) -> torch.Tensor:
         """``apply`` through the kernels' plain torch versions, on any
         device (the reference the kernels are checked against)."""
+        ignore_tpu_arguments("GridEncoding.apply_plain", raster_side=raster_side, served_tables=served_tables)
         return self._encode(params, x, table_dtype, plain=True, stratified=stratified, max_level=max_level, rng=rng)
 
     def _positions(self, x) -> torch.Tensor:
@@ -771,14 +784,19 @@ class GridEncoding(Encoding):
                       locked_snap_tol=self.locked_snap_tol, locked_fwd=self.locked_fwd)
         return hp
 
-    def apply_raster(self, params: torch.Tensor, side, table_dtype: Optional[str] = None,
-                     max_level: Optional[float] = None, rows=None) -> torch.Tensor:
-        """Encode the tile-center raster (``utils.sampling.raster_centers``
+    def apply_raster(self, params: torch.Tensor, side, max_level: Optional[float] = None, served_tables=None,
+                     table_dtype: Optional[str] = None, rows=None) -> torch.Tensor:
+        """The JAX package's ``apply_raster`` (tcnn_tpu/encodings/grid.py:
+        2063-2068), its parameters in its order (``served_tables`` accepted
+        and ignored), then the port's ``table_dtype`` and ``rows``.
+
+        Encode the tile-center raster (``utils.sampling.raster_centers``
         layout), built on the device of ``params``, by per-sample lookup; a
         serve-time ``table_dtype`` rounds the levels ``served_levels`` names
         for this raster; ``max_level`` masks as in ``apply``. ``rows`` =
         (start, stop): only those rows of the raster, read as the whole
         raster's levels read (a shard of it, ``FrozenServer(mesh=)``)."""
+        ignore_tpu_arguments("GridEncoding.apply_raster", served_tables=served_tables)
         d = self.n_dims_to_encode
         sides = (int(side),) * d if np.isscalar(side) else tuple(int(s) for s in side)
         x = raster_centers_torch(side, d, params.device, rows)
@@ -833,16 +851,19 @@ def create_grid_encoding(n_dims_to_encode: int, encoding: dict) -> GridEncoding:
     # Stochastic interpolation changes only the table gradient, and only of
     # a call given ``rng``; the forward is the deterministic lookup.
     stochastic = bool(json_value(encoding, "stochastic_interpolation", False))
+    fixed_point = bool(json_value(encoding, "fixed_point_pos", False))
     enc = GridEncoding(
         n_dims_to_encode=n_dims_to_encode,
         n_features=n_features,
         log2_hashmap_size=log2_hashmap_size,
         base_resolution=base_resolution,
         per_level_scale=json_value(encoding, "per_level_scale", default_scale),
+        stochastic_interpolation=stochastic,
         interpolation_type=string_to_interpolation_type(json_value(encoding, "interpolation", "Linear")),
         grid_type=grid_type,
         hash_type=_resolve_hash_type(json_value(encoding, "hash", "auto"), grid_type),
         n_features_per_level=n_features_per_level,
+        fixed_point_pos=fixed_point,
     )
     for key, allowed in (("quad_build", _QUAD_BUILDS), ("level_split", _LEVEL_SPLITS)):
         if json_value(encoding, key, "auto") not in allowed:
@@ -859,8 +880,6 @@ def create_grid_encoding(n_dims_to_encode: int, encoding: dict) -> GridEncoding:
     if gs not in ("per_level", "fused", "quad", "quad_fused", "stratified"):
         raise ValueError(f"invalid gather_strategy {gs!r}")
     enc.gather_strategy = gs
-    enc.stochastic_interpolation = stochastic
-    enc.fixed_point_pos = bool(json_value(encoding, "fixed_point_pos", False))
     enc.scatter_strategy = json_value(encoding, "scatter_strategy", "auto")
     if enc.scatter_strategy not in SCATTER_STRATEGIES:
         raise ValueError(f"invalid scatter_strategy {enc.scatter_strategy!r}")

@@ -7,7 +7,7 @@ from __future__ import annotations
 from typing import Dict, Optional
 
 from ..common import json_value, string_to_activation
-from ..utils.log import log_info, log_warning
+from ..utils.log import log_warning
 from .base import Network
 from .fully_fused import FFMLP_WIDTHS, FullyFusedMLP
 from .mlp import MLP
@@ -35,9 +35,10 @@ def create_network(n_input_dims: int, n_output_dims: int, network: Optional[Dict
 
     kw = {}
     if wants_fused:
+        # "layout" is validated and ignored by the constructor; "use_pallas"
+        # is the JAX package's spelling of the same routing key.
         if json_value(network, "layout", None) is not None:
-            log_info("FullyFusedMLP: the TPU kernel layout key 'layout' is ignored by the CUDA kernel")
-        # "use_pallas" is the JAX package's spelling of the same routing key.
+            kw["layout"] = json_value(network, "layout", None)
         use_kernel = json_value(network, "use_kernel", json_value(network, "use_pallas", None))
         if use_kernel is not None:
             kw["use_kernel"] = bool(use_kernel)

@@ -15,10 +15,13 @@ every path, as in the JAX package (``ops.ffmlp._chain_backward``).
 
 from __future__ import annotations
 
+from typing import Optional
+
 import torch
 
 from ..common import Activation
 from ..ops.ffmlp import FFMLP_WIDTHS, FfmlpFunction, FfmlpPackedFunction
+from ..utils.log import log_info
 from .mlp import MLP
 
 
@@ -34,8 +37,16 @@ class FullyFusedMLP(MLP):
         activation: Activation = Activation.ReLU,
         output_activation: Activation = Activation.NONE,
         output_alignment: int = 16,
-        use_kernel: bool = True,
+        use_kernel: Optional[bool] = True,
+        use_pallas: Optional[bool] = None,
+        layout: Optional[str] = None,
     ):
+        """The JAX package's parameters (tcnn_tpu/networks/fully_fused.py:
+        52-64): ``use_pallas`` is an alias of ``use_kernel``, so a JAX
+        caller's eighth positional argument, ``use_pallas``, means the same
+        here (None: the kernel); ``layout`` (None, "rm" or "cf") is the TPU
+        kernel's activation layout, validated as the JAX package validates
+        it and ignored."""
         if n_neurons not in FFMLP_WIDTHS:
             raise ValueError(f"FullyFusedMLP only supports widths {FFMLP_WIDTHS}, got {n_neurons}")
         if input_width % 16 != 0:
@@ -49,7 +60,13 @@ class FullyFusedMLP(MLP):
             output_activation=output_activation,
             output_alignment=output_alignment,
         )
-        self.use_kernel = bool(use_kernel)
+        if layout not in (None, "rm", "cf"):
+            raise ValueError(f"FullyFusedMLP layout must be 'rm' or 'cf', got {layout!r}")
+        if layout is not None:
+            log_info("FullyFusedMLP: the TPU kernel layout argument 'layout' is ignored by the CUDA kernel")
+        if use_pallas is not None:
+            use_kernel = use_pallas
+        self.use_kernel = True if use_kernel is None else bool(use_kernel)
 
     def apply(self, params: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
         if not self.use_kernel:

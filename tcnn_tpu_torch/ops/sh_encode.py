@@ -8,7 +8,9 @@ reference computes the basis in one kernel (encodings/spherical_harmonics.h).
 ``tcnn_sh_forward`` writes the padding columns and then the degree^2 values
 of each sample, in bf16 or fp32; ``tcnn_sh_backward_input`` carries the
 three partial derivatives through the same recurrences and contracts them
-with dL/dy. Each has two routes, one C entry point each, picked by the pure
+with dL/dy; ``tcnn_sh_backward_backward`` is that gradient's own vjp (the
+second order of a loss on dL/dx), from the closed-form second partials.
+The first two have two routes, one C entry point each, picked by the pure
 function ``route``: "vector", where a row is a whole number of 16-byte
 vectors (at most 24) and the row-vector tensor (the forward's output, the
 backward's dL/dy) is 16-byte aligned (a warp's rows written or read as
@@ -17,7 +19,8 @@ padding columns in bf16), and "staged" for every other width (a block's
 rows staged in shared memory behind a barrier). ``ROUTE_LAUNCHES`` counts
 the launches by (kernel, route). The plain version ``sh_encode_plain``
 evaluates ``sh_enc``, the JAX package's recurrences in the same order, in
-torch; the input gradient's plain version is its autograd.
+torch; the input gradient's plain version is its autograd, and the double
+backward's (``sh_backward_backward_plain``) autograd of that.
 
 Every wrapper dispatches on the device of ``x``: a CPU tensor takes the
 plain version, a CUDA tensor launches the kernel or raises.
@@ -31,10 +34,17 @@ from typing import Dict, List, Tuple
 
 import torch
 
+from .grid_encode import _autograd_of
+
 # Launches of the CUDA kernels (each incremented once per launch of its
 # wrapper's kernel, nowhere else): the forward and the input gradient.
 LAUNCHES = 0
 BWD_LAUNCHES = 0
+# Launches of the double backward's kernel, and the plain double backwards
+# run on a CUDA tensor (the kernel's comparisons and every order past the
+# second run them; a path whose second order is the kernel's runs none).
+BWDBWD_LAUNCHES = 0
+PLAIN_BWDBWD_ON_CARD = 0
 # The same launches by (kernel, route): ("forward" | "backward", "vector" |
 # "staged"), the route ``route`` picked.
 ROUTE_LAUNCHES: Dict[Tuple[str, str], int] = {}
@@ -46,6 +56,7 @@ SYMBOLS = {
     ("backward", "vector"): "tcnn_sh_backward_input_vector",
     ("backward", "staged"): "tcnn_sh_backward_input",
 }
+BWDBWD_SYMBOL = "tcnn_sh_backward_backward"
 VECTOR_BYTES = 16
 # The vector route's widest row (csrc/sh_encode.cu:kMaxRowVectors vectors):
 # its forward stages 128 rows in at most 48 KB of shared memory.
@@ -60,6 +71,11 @@ _FWD_ARGS = [
 _BWD_ARGS = [
     ctypes.c_void_p, ctypes.c_int64, ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p, ctypes.c_int64, ctypes.c_int,
     ctypes.c_int, ctypes.c_int, ctypes.c_void_p,
+]
+_BWDBWD_ARGS = [
+    ctypes.c_void_p, ctypes.c_int64, ctypes.c_void_p, ctypes.c_int64, ctypes.c_int, ctypes.c_void_p, ctypes.c_int64,
+    ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int64, ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
+    ctypes.c_int, ctypes.c_void_p,
 ]
 
 
@@ -137,6 +153,42 @@ def sh_backward_input_plain(x: torch.Tensor, dy: torch.Tensor, degree: int, n_to
     the fp32 plain version."""
     xx = x.detach().to(torch.float32).requires_grad_(True)
     return _plain_vjp(xx, dy, degree, n_to_pad, create_graph=False)
+
+
+def _operand(t: torch.Tensor, create: bool) -> torch.Tensor:
+    """A saved input as a vjp takes it: as it is where it is part of the
+    graph under grad mode (the result then differentiates further), else
+    detached; fp32, requiring grad."""
+    if create and t.requires_grad:
+        return t.to(torch.float32)
+    return t.detach().to(torch.float32).requires_grad_(True)
+
+
+def sh_backward_backward_plain(x: torch.Tensor, dy: torch.Tensor, c: torch.Tensor, degree: int, n_to_pad: int,
+                               need_x: bool = True, need_dy: bool = True):
+    """The vjp of dL/dx (``sh_backward_input``) at (x, dL/dy) with the
+    cotangent ``c`` (B, 3) of dL/dx: (d/dx (B, 3), d/d(dL/dy) (B, n_to_pad +
+    degree^2)), fp32, each None where ``need_x`` / ``need_dy`` does not ask
+    for it and zeros where it vanishes; autograd of the plain vjp, built
+    with ``create_graph`` under grad mode where an input requires grad, so
+    that it differentiates further with respect to x, dL/dy and c."""
+    global PLAIN_BWDBWD_ON_CARD
+    if x.device.type == "cuda":
+        PLAIN_BWDBWD_ON_CARD += 1
+    create = torch.is_grad_enabled() and any(t.requires_grad for t in (x, dy, c))
+    with torch.enable_grad():
+        xx, dyy = _operand(x, create), _operand(dy, create)
+        dx = _plain_vjp(xx, dyy, degree, n_to_pad, create_graph=True)
+        targets = [t for t, w in ((xx, need_x), (dyy, need_dy)) if w]
+        got = iter(torch.autograd.grad(dx, targets, c.to(torch.float32), allow_unused=True, create_graph=create)
+                   if dx.requires_grad and targets else [])
+    d_x = next(got, None) if need_x else None
+    d_dy = next(got, None) if need_dy else None
+    if need_x and d_x is None:  # degrees 1-2: dL/dx does not depend on x
+        d_x = torch.zeros(x.shape, dtype=torch.float32, device=x.device)
+    if need_dy and d_dy is None:  # degree 1: dL/dx is 0 whatever dL/dy
+        d_dy = torch.zeros(dy.shape, dtype=torch.float32, device=dy.device)
+    return d_x, d_dy
 
 
 def _check_x(what: str, x: torch.Tensor) -> torch.Tensor:
@@ -236,6 +288,47 @@ def sh_backward_input(x: torch.Tensor, dy: torch.Tensor, degree: int, n_to_pad: 
     return dx
 
 
+def sh_backward_backward(x: torch.Tensor, dy: torch.Tensor, c: torch.Tensor, degree: int, n_to_pad: int,
+                         need_x: bool = True, need_dy: bool = True):
+    """The vjp of dL/dx at (x, dL/dy) with the cotangent ``c`` (B, 3) of
+    dL/dx: (d/dx (B, 3) fp32, d/d(dL/dy) in dL/dy's dtype, zeros in the
+    padding columns), each None where ``need_x`` / ``need_dy`` does not ask
+    for it. On a CUDA ``x`` the kernel ``tcnn_sh_backward_backward`` (dL/dy
+    bf16 or fp32, another dtype cast to fp32; x, dL/dy and c read at any row
+    stride); on the CPU the plain version."""
+    if x.device.type == "cpu":
+        d_x, d_dy = sh_backward_backward_plain(x, dy, c, degree, n_to_pad, need_x, need_dy)
+        return d_x, None if d_dy is None else d_dy.to(dy.dtype)
+    if x.device.type != "cuda":
+        raise ValueError(f"sh_backward_backward: unsupported device {x.device}")
+    _check_shape("sh_backward_backward", degree, n_to_pad)
+    x = _check_x("sh_backward_backward", x)
+    batch, width = x.shape[0], int(n_to_pad) + int(degree) ** 2
+    if dy.shape != (batch, width) or c.shape != (batch, 3) or dy.device != x.device or c.device != x.device:
+        raise ValueError(f"sh_backward_backward: dL/dy must be ({batch}, {width}) and c ({batch}, 3) on the device "
+                         f"of x")
+    if dy.dtype not in (torch.bfloat16, torch.float32):
+        dy = dy.to(torch.float32)
+    if dy.stride(1) != 1 or dy.stride(0) < width:
+        dy = dy.contiguous()
+    c = c.to(torch.float32)
+    if c.stride(1) != 1 or c.stride(0) < 3:
+        c = c.contiguous()
+    d_x = torch.empty((batch, 3), dtype=torch.float32, device=x.device) if need_x else None
+    d_dy = torch.empty((batch, width), dtype=dy.dtype, device=x.device) if need_dy else None
+    if batch and (need_x or need_dy):
+        from ._build import kernel, stream
+
+        _launch("sh_backward_backward", kernel("sh_encode", BWDBWD_SYMBOL, _BWDBWD_ARGS)(
+            x.data_ptr(), x.stride(0), dy.data_ptr(), dy.stride(0), int(dy.dtype == torch.bfloat16), c.data_ptr(),
+            c.stride(0), d_x.data_ptr() if need_x else None, d_dy.data_ptr() if need_dy else None, batch,
+            int(degree), int(n_to_pad), width, int(bool(need_x)), int(bool(need_dy)), stream(x.get_device()),
+        ))
+        global BWDBWD_LAUNCHES
+        BWDBWD_LAUNCHES += 1
+    return d_x, d_dy
+
+
 class ShEncodeFunction(torch.autograd.Function):
     """The SH encoding, differentiable with respect to the positions: the
     forward is ``sh_encode``, the backward ``ShBackwardFunction`` (the
@@ -266,10 +359,9 @@ class ShBackwardFunction(torch.autograd.Function):
     dL/dy): its forward is ``sh_backward_input`` (or its plain version with
     ``plain``), so the first-order dL/dx always comes from the kernel on the
     card; its backward, needed only when a gradient is itself
-    differentiated, takes autograd of the plain version's vjp, as
-    ``FfmlpFunction`` does for second order; under grad mode that vjp is
-    built with ``create_graph``, so that every further order is autograd of
-    it too (the JAX package's ``SphericalHarmonicsEncoding.apply`` is jnp,
+    differentiated, is ``ShBackwardBackwardFunction``: the double-backward
+    kernel on the card, and every further order autograd of the plain
+    version (the JAX package's ``SphericalHarmonicsEncoding.apply`` is jnp,
     which ``jax.grad`` differentiates to any order).
 
     ``ShBackwardFunction.apply(x, dy, degree, n_to_pad, plain)``
@@ -277,7 +369,7 @@ class ShBackwardFunction(torch.autograd.Function):
 
     @staticmethod
     def forward(ctx, x, dy, degree, n_to_pad, plain):
-        ctx.meta = (degree, n_to_pad)
+        ctx.meta = (degree, n_to_pad, plain)
         ctx.save_for_backward(x, dy)
         bwd = sh_backward_input_plain if plain else sh_backward_input
         return bwd(x, dy, degree, n_to_pad)
@@ -285,25 +377,46 @@ class ShBackwardFunction(torch.autograd.Function):
     @staticmethod
     def backward(ctx, ddx):
         x, dy = ctx.saved_tensors
-        degree, n_to_pad = ctx.meta
-        create = torch.is_grad_enabled()
-
-        def operand(t):
-            # A saved input that is part of the graph enters as it is under
-            # grad mode (the result then differentiates further), else
-            # detached; the vjp needs both to require grad.
-            if create and t.requires_grad:
-                return t.to(torch.float32)
-            return t.detach().to(torch.float32).requires_grad_(True)
-
-        with torch.enable_grad():
-            xx, dyy = operand(x), operand(dy)
-            dx = _plain_vjp(xx, dyy, degree, n_to_pad, create_graph=True)
-            if not dx.requires_grad:  # degree 1: dL/dx is 0 whatever x and dL/dy
-                return None, None, None, None, None
-            d_x, d_dy = torch.autograd.grad(dx, (xx, dyy), ddx, allow_unused=True, create_graph=create)
+        need_x, need_dy = ctx.needs_input_grad[:2]
+        if not (need_x or need_dy):
+            return None, None, None, None, None
+        d_x, d_dy = ShBackwardBackwardFunction.apply(x, dy, ddx, *ctx.meta, need_x, need_dy)
         return (
-            None if d_x is None or not ctx.needs_input_grad[0] else d_x.to(x.dtype),
-            None if d_dy is None or not ctx.needs_input_grad[1] else d_dy.to(dy.dtype),
+            None if d_x is None else d_x.to(x.dtype),
+            None if d_dy is None else d_dy.to(dy.dtype),
             None, None, None,
         )
+
+
+class ShBackwardBackwardFunction(torch.autograd.Function):
+    """The input gradient's vjp as a differentiable function of (x, dL/dy,
+    c): its forward is ``sh_backward_backward`` (the kernel on the card, or
+    with ``plain`` its plain version on any device); its backward, the third
+    order and every order after it, autograd of the plain version
+    recomputed from the saved inputs, as ``GridEncodeThirdOrderFunction``
+    takes the grid's fourth.
+
+    ``ShBackwardBackwardFunction.apply(x, dy, c, degree, n_to_pad, plain,
+    need_x, need_dy)`` -> (d/dx or None, d/d(dL/dy) or None)
+    """
+
+    @staticmethod
+    def forward(ctx, x, dy, c, degree, n_to_pad, plain, need_x, need_dy):
+        ctx.meta = (degree, n_to_pad, need_x, need_dy)
+        ctx.set_materialize_grads(False)
+        ctx.save_for_backward(x, dy, c)
+        fn = sh_backward_backward_plain if plain else sh_backward_backward
+        return fn(x, dy, c, degree, n_to_pad, need_x, need_dy)
+
+    @staticmethod
+    def backward(ctx, g_x, g_dy):
+        x, dy, c = ctx.saved_tensors
+        if g_x is None and g_dy is None:
+            return (None,) * 8
+        degree, n_to_pad, need_x, need_dy = ctx.meta
+
+        def fn(xx, yy, cc):
+            return sh_backward_backward_plain(xx, yy, cc, degree, n_to_pad, need_x, need_dy)
+
+        d = _autograd_of(fn, (x, dy, c), ctx.needs_input_grad[:3], (g_x, g_dy))
+        return d[0], d[1], d[2], None, None, None, None, None

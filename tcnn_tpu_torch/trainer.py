@@ -41,7 +41,7 @@ optimizer keeps them).
 from __future__ import annotations
 
 import base64
-from typing import Any, Dict, Optional
+from typing import Any, Dict, Mapping, Optional
 
 import numpy as np
 import torch
@@ -84,13 +84,19 @@ class Trainer:
     def __init__(
         self,
         model,
-        loss_config: Optional[Dict] = None,
-        optimizer_config: Optional[Dict] = None,
+        optimizer=None,
+        loss=None,
         seed: int = 1337,
         loss_scale: Optional[float] = None,
         perturbation_sigma: Optional[float] = None,
         split_grid_state: bool = False,
     ):
+        """The JAX package's ``Trainer(model, optimizer, loss, ...)``
+        (tcnn_tpu/trainer.py:34-43): ``optimizer`` an ``Optimizer`` or an
+        optimizer config dict, ``loss`` a ``Loss`` or a loss config dict
+        (None: the config's defaults). ``optimizer_config`` and
+        ``loss_config`` keep the dict given, or the object's
+        ``hyperparams()``."""
         if split_grid_state:
             raise NotImplementedError(
                 "Trainer: split_grid_state is a TPU layout of the JAX package and is not ported "
@@ -98,10 +104,16 @@ class Trainer:
             )
         self._graphs: Dict[tuple, _CapturedSteps] = {}
         self.model = model
-        self.loss_config = dict(loss_config or {})
-        self.optimizer_config = dict(optimizer_config or {})
-        self.loss = create_loss(self.loss_config)
-        self.optimizer = create_optimizer(self.optimizer_config)
+        if optimizer is None or isinstance(optimizer, Mapping):
+            self.optimizer_config = dict(optimizer or {})
+            self.optimizer = create_optimizer(self.optimizer_config)
+        else:
+            self.optimizer, self.optimizer_config = optimizer, optimizer.hyperparams()
+        if loss is None or isinstance(loss, Mapping):
+            self.loss_config = dict(loss or {})
+            self.loss = create_loss(self.loss_config)
+        else:
+            self.loss, self.loss_config = loss, loss.hyperparams()
         self.loss_scale = float(loss_scale) if loss_scale is not None else default_loss_scale(model.compute_dtype)
         self.perturbation_sigma = perturbation_sigma
         self.perturbation_generator: Optional[torch.Generator] = None

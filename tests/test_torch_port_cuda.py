@@ -1800,6 +1800,78 @@ def test_sh_second_order_takes_the_first_order_from_the_kernel(dev):
         assert float((got - want).abs().max()) <= rtol * float(want.abs().max())
 
 
+def _sh_bwdbwd_close(got, want, dtype):
+    """d/dx: max|diff| <= 1e-5 max|plain|; d/d(dL/dy) the same in fp32, in
+    bf16 within one bf16 ulp of the plain fp32 value plus that."""
+    got, want = got.float(), want.float()
+    scale = max(float(want.abs().max()), 1e-30)
+    ulp = 0.0
+    if dtype == torch.bfloat16:
+        ulp = torch.where(want == 0, torch.zeros_like(want), torch.exp2(torch.floor(torch.log2(want.abs())) - 7))
+    assert bool(((got - want).abs() <= ulp + 1e-5 * scale).all())
+
+
+@pytest.mark.parametrize("layout", ["strided x, misaligned dy", "contiguous"])
+@pytest.mark.parametrize("degree", range(1, 9))
+@pytest.mark.parametrize("batch", [1, 31, 129, 4099, 2**18 + 7])
+def test_sh_backward_backward_kernel_matches_plain(dev, degree, batch, layout):
+    """tcnn_sh_backward_backward against autograd of the plain vjp: bf16
+    and fp32 dL/dy, each need flag, a strided (B, 6)[:, 3:] position and a
+    dL/dy 4 or 2 bytes past a 16-byte boundary; one launch a call, zeros in
+    the padding columns, two calls give the same bits."""
+    gen = torch.Generator(device=dev).manual_seed(degree * 7 + batch)
+    misaligned = layout != "contiguous"
+    pad = (-degree * degree) % 8 + misaligned
+    width = pad + degree * degree
+    wide = torch.rand((batch, 6), generator=gen, device=dev)
+    x = wide[:, 3:] if misaligned else wide[:, :3].contiguous()
+    c = torch.randn((batch, 3), generator=gen, device=dev)
+    for dy_dtype in (torch.float32, torch.bfloat16):
+        flat = torch.randn((batch * width + misaligned,), generator=gen, device=dev).to(dy_dtype)
+        dy = flat[misaligned:].view(batch, width)
+        assert (dy.data_ptr() % 16 != 0) == misaligned
+        want_x, want_dy = sh_encode.sh_backward_backward_plain(x, dy, c, degree, pad)
+        for need_x, need_dy in ((True, True), (True, False), (False, True)):
+            before = sh_encode.BWDBWD_LAUNCHES
+            got_x, got_dy = sh_encode.sh_backward_backward(x, dy, c, degree, pad, need_x, need_dy)
+            assert sh_encode.BWDBWD_LAUNCHES == before + 1
+            assert (got_x is None) != need_x and (got_dy is None) != need_dy
+            if need_x:
+                _sh_bwdbwd_close(got_x, want_x, torch.float32)
+            if need_dy:
+                assert got_dy.dtype == dy_dtype and not got_dy[:, :pad].any()
+                _sh_bwdbwd_close(got_dy, want_dy, dy_dtype)
+        first, again = (sh_encode.sh_backward_backward(x, dy, c, degree, pad) for _ in range(2))
+        assert torch.equal(first[0], again[0]) and torch.equal(first[1], again[1])
+
+
+def test_sh_direction_penalty_runs_the_double_backward_kernel(dev):
+    """A penalty on the squared input gradient in the direction columns of
+    the NeRF sample's network (module API, create_graph): one launch of
+    tcnn_sh_backward_backward a step, no plain double backward on the card,
+    and the parameter gradient within 1e-2 of the plain path's in norm (a
+    bf16 network whose roundings flip where its fp32 inputs differ)."""
+    from tcnn_tpu_torch import modules
+    from tcnn_tpu_torch.samples import nerf_synthetic as ns
+
+    m = modules.NetworkWithInputEncoding(6, 4, ns.CONFIG["encoding"], ns.CONFIG["network"], seed=3, device=dev)
+    gen = torch.Generator(device=dev).manual_seed(5)
+    pts = torch.rand((4096, 3), generator=gen, device=dev)
+    dirs = torch.rand((4096, 3), generator=gen, device=dev)
+    grads = {}
+    for name, fn in (("kernel", m), ("plain", lambda xx: m.apply_plain(m.params, xx)[:, :4].float())):
+        d = dirs.clone().requires_grad_(True)
+        out = fn(torch.cat([pts, d], 1))
+        (g,) = torch.autograd.grad(out[:, :3].sum(), d, create_graph=True)
+        loss = (out**2).mean() + 1e-3 * (g * g).mean()
+        before = (sh_encode.BWDBWD_LAUNCHES, sh_encode.PLAIN_BWDBWD_ON_CARD)
+        (grads[name],) = torch.autograd.grad(loss, m.params)
+        if name == "kernel":
+            assert (sh_encode.BWDBWD_LAUNCHES, sh_encode.PLAIN_BWDBWD_ON_CARD) == (before[0] + 1, before[1])
+    rel = float((grads["kernel"] - grads["plain"]).norm() / grads["plain"].norm())
+    assert rel <= 1e-2
+
+
 def test_nerf_composite_model_kernel_matches_plain(dev):
     """The NeRF sample's model on the card: apply (grid lookup, SH kernel,
     fused MLP) against apply_plain, and the parameter gradient."""

@@ -179,7 +179,7 @@ def _port_trainer(name, params, seed_only=False):
     cfg, seed, precision = CASES[name][:3]
     if name == "perturbation":
         model = tt.NetworkWithInputEncoding(2, 3, cfg["encoding"], cfg["network"], precision=precision, device="cpu")
-        trainer = tt.Trainer(model, cfg["loss"], cfg["optimizer"], seed=seed, perturbation_sigma=SIGMA)
+        trainer = tt.Trainer(model, cfg["optimizer"], cfg["loss"], seed=seed, perturbation_sigma=SIGMA)
     else:
         trainer = tt.create_from_config(2, 3, cfg, seed=seed, precision=precision, device="cpu").trainer
     if not seed_only:

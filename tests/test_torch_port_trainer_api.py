@@ -222,7 +222,7 @@ def test_not_ported_yet_still_raises():
     parity: test_torch_port_training_extras.py); Shampoo's checkpoint
     still raises, as the reference's does (shampoo.h:963-965)."""
     model = tt.create_from_config(2, 3, CONFIG, device="cpu").model
-    tr = tt.Trainer(model, CONFIG["loss"], CONFIG["optimizer"], perturbation_sigma=0.1)
+    tr = tt.Trainer(model, CONFIG["optimizer"], CONFIG["loss"], perturbation_sigma=0.1)
     assert tr.perturbation_generator is not None
     m = tt.create_from_config(2, 3, dict(CONFIG, optimizer={"otype": "Shampoo"}), device="cpu")
     assert m.trainer.optimizer.otype == "Shampoo"

@@ -164,9 +164,9 @@ def test_not_ported_training_features_raise():
     assert torch.isfinite(m.training_step(*_batches()[1]))
     assert m.inference(_batches()[1][0]).shape == (1000, 3)
     model = tt.create_from_config(2, 3, CONFIG, device="cpu").model
-    assert tt.Trainer(model, CONFIG["loss"], CONFIG["optimizer"], perturbation_sigma=0.1).perturbation_sigma == 0.1
+    assert tt.Trainer(model, CONFIG["optimizer"], CONFIG["loss"], perturbation_sigma=0.1).perturbation_sigma == 0.1
     with pytest.raises(NotImplementedError, match="not to port"):
-        tt.Trainer(model, CONFIG["loss"], CONFIG["optimizer"], split_grid_state=True)
+        tt.Trainer(model, CONFIG["optimizer"], CONFIG["loss"], split_grid_state=True)
 
 
 def test_stochastic_interpolation_config_trains_as_jax():

@@ -63,7 +63,7 @@ def _pair(cfg, **trainer_kw):
     tm = tt.create_from_config(2, 3, cfg, precision="fp32", device="cpu")
     if trainer_kw:
         jm.trainer = tc.Trainer(jm.trainer.model, jm.trainer.optimizer, jm.trainer.loss, **trainer_kw)
-        tm.trainer = tt.Trainer(tm.model, cfg["loss"], cfg["optimizer"], **trainer_kw)
+        tm.trainer = tt.Trainer(tm.model, cfg["optimizer"], cfg["loss"], **trainer_kw)
     np.testing.assert_array_equal(np.asarray(jm.trainer.params), tm.params.numpy())
     return jm, tm
 
@@ -100,7 +100,7 @@ def test_perturbation_draws_are_seeded_and_move_the_step():
     b = tt.create_from_config(2, 3, CONFIG, device="cpu")
     plain = tt.create_from_config(2, 3, CONFIG, device="cpu")
     for m in (a, b):
-        m.trainer = tt.Trainer(m.model, CONFIG["loss"], CONFIG["optimizer"], perturbation_sigma=0.1)
+        m.trainer = tt.Trainer(m.model, CONFIG["optimizer"], CONFIG["loss"], perturbation_sigma=0.1)
     u = a.trainer.perturbation_uniforms(B, 16)
     assert u.shape == (B, 16) and float(u.min()) >= 1e-9 and float(u.max()) < 1.0
     a.trainer.initialize_params(1337)
